@@ -1,0 +1,380 @@
+"""TextGenerator: the inference API on one device.
+
+PyTorch counterpart of pasero_tpu/decoding/generator.py.
+``TextGenerator.build(model_dir, device=None, **opts)`` loads a trained model
+(config.json + npz checkpoint + inference.yaml defaults) and exposes:
+
+- ``decode(*inputs, **opts)`` — batched n-best decoding with scores;
+- ``decode_corpus(corpus, ...)`` — buffered corpus decoding with
+  ``--continue`` resume, verbose S/H/D/P output and metric computation.
+
+As in pasero_tpu, prompts are sorted by length, cut into chunks of 16,
+bucketed and left-aligned, and the model computes in bfloat16 with float32
+parameters and float32 norm statistics. The generator runs on the card
+unless the caller asks for the CPU (``device="cpu"``). Streaming,
+teacher-forced scoring, ensembles, int8 weights and multi-device decoding
+come with later slices (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import itertools
+import json
+import logging
+import os
+import sys
+import time
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from .. import checkpoints, not_ported, resolve_device
+from ..config import (DecodingAPIConfig, get_model_cls, get_model_config_cls,
+                      get_task_cls)
+from ..data.batching import length_buckets, pad_to_bucket
+from ..utils.metrics import Metrics
+from .search import beam_search, left_align, sample_decode
+
+logger = logging.getLogger("decoding")
+
+# '!key=value' commands of interactive corpus decoding
+# (pasero_tpu/serving/server.py DECODE_PARAMS)
+DECODE_PARAMS = {
+    "beam_size": int, "max_output_len": int, "sampling": bool,
+    "sampling_topk": int, "sampling_topp": float, "sampling_temperature": float,
+    "repeat_penalty": float, "len_penalty": float, "nbest": int,
+    "source_lang": str, "target_lang": str, "domain": str,
+}
+
+CHUNK_ROWS = 16
+
+
+def load_model_config(model_dir: str, arch: Optional[str] = None):
+    path = os.path.join(model_dir, "config.json")
+    if os.path.exists(path):
+        with open(path) as f:
+            data = json.load(f)
+        arch = arch or data.pop("arch", "transformer")
+        cfg = get_model_config_cls(arch)(strict=False, **data)
+        return arch, cfg
+    if not arch:
+        raise ValueError(f"no config.json in {model_dir}; pass --arch")
+    return arch, get_model_config_cls(arch)()
+
+
+def _device_option(cfg) -> Optional[str]:
+    """The device named by --device (pasero_tpu's --devices list)."""
+    devices = list(cfg.devices or [])
+    if len(devices) > 1:
+        raise not_ported("multi-device decoding", "A.12 parallelism")
+    if not devices:
+        return None
+    name = str(devices[0])
+    return f"cuda:{name}" if name.isdigit() else name
+
+
+def _check_supported(cfg) -> None:
+    def todo(what, item):
+        raise not_ported(what, item)
+    if (cfg.tp_size or 1) * (cfg.dp_size or 1) * (getattr(cfg, "ep_size", 1) or 1) > 1:
+        todo("mesh-sharded decoding", "A.12 parallelism")
+    if cfg.ensemble_ckpt:
+        todo("ensembles", "A.6 decoding")
+    if cfg.quantize:
+        todo("int8 weights", "A.9 int8 inference")
+    if cfg.speculative:
+        todo("speculative decoding", "A.8 decoder-only")
+
+
+class TextGenerator:
+    """Build once, decode many times."""
+
+    def __init__(self, cfg: DecodingAPIConfig, device=None,
+                 start: bool = True):
+        _check_supported(cfg)
+        self.cfg = cfg
+        self.device = resolve_device(device if device is not None
+                                     else _device_option(cfg))
+        self.dtype = cfg.compute_dtype
+        self.metrics = Metrics(window=None)
+        arch, model_cfg = load_model_config(cfg.model_dir, cfg.arch)
+        self.arch = arch
+        self.model_cfg = model_cfg
+        model_cfg.setup_for_inference(cfg)
+
+        task_cls = get_task_cls(cfg.task)
+        self.task = task_cls(cfg.model_dir, cfg.task_cfg)
+        self.task.setup_for_model(model_cfg)
+        self.task.eval()
+
+        self.model_cls, _ = get_model_cls(arch)
+        self.model = None
+        if start:
+            self.start_model()
+
+    @classmethod
+    def build(cls, model: str, device=None, **kwargs) -> "TextGenerator":
+        """``device=None`` runs on the card (and raises without one);
+        ``device="cpu"`` runs on the CPU."""
+        cfg = DecodingAPIConfig(model=model, strict=True, **kwargs)
+        return cls(cfg, device=device)
+
+    @property
+    def src_vocab_size(self) -> int:
+        return (self.task.encoder_num_embeddings
+                or self.task.decoder_num_embeddings)
+
+    def start_model(self):
+        if self.model is not None:
+            return
+        t0 = time.time()
+        model = self.model_cls(self.model_cfg,
+                               src_vocab_size=self.src_vocab_size,
+                               tgt_vocab_size=self.task.decoder_num_embeddings,
+                               dtype=self.dtype)
+        checkpoints.load_into(model, self.cfg.ckpt,
+                              other_paths=tuple(self.cfg.other_ckpt or ()))
+        self.model = model.to(self.device).eval()
+        logger.info(f"loaded model in {time.time() - t0:.1f}s on {self.device}")
+
+    # -- preprocessing -------------------------------------------------------
+    def _prepare_batch(self, samples: list):
+        """Collate preprocessed samples into a left-aligned prompt batch."""
+        pad = self.task.padding_idx
+        rows_multiple = 4          # pasero_tpu's row padding on one device
+        dec = [s["decoder_input"] for s in samples]
+        max_len = max(len(d) for d in dec)
+        buckets = length_buckets(max(max_len, 8), min_len=8)
+        prompt, prompt_mask = pad_to_bucket(dec, buckets, pad,
+                                            rows_multiple=rows_multiple)
+        prompt, prompt_mask = left_align(prompt, prompt_mask, pad)
+        batch = {"prompt": prompt, "prompt_mask": prompt_mask}
+        enc = [s["encoder_input"] for s in samples]
+        src_buckets = length_buckets(max(max(len(e) for e in enc), 8),
+                                     min_len=8)
+        src, src_mask = pad_to_bucket(enc, src_buckets, pad,
+                                      rows_multiple=rows_multiple)
+        batch["src_tokens"] = src
+        batch["src_mask"] = src_mask
+        return batch
+
+    def _tensor(self, array, dtype=torch.long):
+        return torch.as_tensor(np.asarray(array)).to(self.device, dtype)
+
+    # -- decoding ------------------------------------------------------------
+    @torch.inference_mode()
+    def _decode_batch(self, batch: dict, opts: dict) -> dict:
+        beam = opts["beam_size"]
+        if opts.get("sampling", self.cfg.sampling):
+            raise not_ported("sampling", "A.8 decoder-only")
+        encoder_out, encoder_mask = self.model.encode(
+            self._tensor(batch["src_tokens"]),
+            self._tensor(batch["src_mask"], torch.bool))
+        common = dict(max_new=opts["max_new"], eos_idx=self.task.eos_idx,
+                      pad_idx=self.task.padding_idx,
+                      blacklist=tuple(self.task.preprocessor.blacklist),
+                      encoder_out=encoder_out, encoder_mask=encoder_mask)
+        prompt = self._tensor(batch["prompt"])
+        prompt_mask = self._tensor(batch["prompt_mask"], torch.bool)
+        if beam == 1:
+            stop_seqs = tuple(tuple(int(i) for i in s)
+                              for s in self.task.preprocessor.bin_stop_sequences
+                              if len(s))
+            out = sample_decode(
+                self.model, prompt, prompt_mask, greedy=True,
+                repeat_penalty=opts.get("repeat_penalty",
+                                        self.cfg.repeat_penalty),
+                stop_sequences=stop_seqs, **common)
+            out = {k: v.cpu().numpy() for k, v in out.items()
+                   if k != "model_calls"}
+            tokens = out["tokens"][:, None]                    # (B, 1, T)
+            pos_scores = out["scores"][:, None]
+            lengths = out["lengths"][:, None]
+            scores = pos_scores.sum(-1) / (lengths + 1.0) ** self.cfg.len_penalty
+        else:
+            out = beam_search(
+                self.model, prompt, prompt_mask, beam_size=beam,
+                len_penalty=opts.get("len_penalty", self.cfg.len_penalty),
+                **common)
+            out = {k: v.cpu().numpy() for k, v in out.items()
+                   if k != "model_calls"}
+            tokens = out["tokens"]
+            pos_scores = out["positional_scores"]
+            lengths = out["lengths"]
+            scores = out["scores"]
+        return {"tokens": tokens, "positional_scores": pos_scores,
+                "lengths": lengths, "scores": scores}
+
+    def decode(self, *inputs, return_scores: bool = False, nbest: int = 1,
+               meta: Optional[dict] = None, **opts) -> Any:
+        """Decode raw text inputs; returns str (single input) or list[str],
+        or hypothesis dicts with return_scores."""
+        self.start_model()
+        single = len(inputs) == 1 and isinstance(inputs[0], str)
+        flat_inputs = list(inputs[0]) if (len(inputs) == 1 and
+                                         isinstance(inputs[0], (list, tuple))) \
+            else list(inputs)
+        meta = self.task.make_meta(**(meta or {}))
+        self.task.check_meta(meta)
+        samples = [self.task.preprocess(
+            self.task.input_to_sample(text, meta)) for text in flat_inputs]
+        for i, s in enumerate(samples):
+            s["index"] = i
+            s["prompt_length"] = int(s["prompt_mask"].sum())
+
+        merged = {
+            "max_new": opts.get("max_output_len", self.cfg.max_output_len),
+            "beam_size": opts.get("beam_size") or self.cfg.beam_size or 1,
+            "sampling": opts.get("sampling", self.cfg.sampling),
+            "repeat_penalty": opts.get("repeat_penalty", self.cfg.repeat_penalty),
+            "len_penalty": opts.get("len_penalty", self.cfg.len_penalty),
+        }
+        # sort by prompt length for tighter buckets, then restore order
+        order = np.argsort([len(s["decoder_input"]) for s in samples])
+        hypotheses: list = [None] * len(samples)
+        wall = time.time()
+        for start in range(0, len(order), CHUNK_ROWS):
+            chunk = [samples[i] for i in order[start:start + CHUNK_ROWS]]
+            batch = self._prepare_batch(chunk)
+            result = self._decode_batch(batch, merged)
+            for row, sample in enumerate(chunk):
+                hyps = []
+                for k in range(min(nbest, result["tokens"].shape[1])):
+                    ids = result["tokens"][row, k]
+                    n = int(result["lengths"][row, min(
+                        k, result["lengths"].shape[1] - 1)])
+                    ids = [int(t) for t in ids[:n]]
+                    detok = self.task.postprocess(
+                        [t for t in ids if t != self.task.eos_idx])
+                    hyps.append({
+                        "detok": detok,
+                        "tokens": ids,
+                        "tokens_str": " ".join(self.task.debinarize(ids)),
+                        "score": float(result["scores"][row, k]),
+                        "positional_scores":
+                            result["positional_scores"][row, k][:n].tolist(),
+                    })
+                hypotheses[sample["index"]] = hyps
+        elapsed = time.time() - wall
+        total_tokens = sum(len(h[0]["tokens"]) for h in hypotheses if h)
+        self.metrics.update("wps", total_tokens / max(elapsed, 1e-6))
+
+        if return_scores or nbest > 1:
+            out = hypotheses
+        else:
+            out = [h[0]["detok"] for h in hypotheses]
+        if single:
+            return out[0]
+        return out
+
+    # -- corpus decoding -----------------------------------------------------
+    def decode_corpus(self, corpus, buffer_size: int = 100,
+                      max_lines: Optional[int] = None, verbose: bool = False,
+                      quiet: bool = False, continue_: bool = False,
+                      metrics: Optional[list] = None, **opts) -> dict:
+        """Buffered decode of an inference corpus with optional resume and
+        metric computation."""
+        self.start_model()
+        meta = self.task.make_meta(
+            **{k: v for k, v in corpus.meta.items()
+               if k in ("source_lang", "target_lang", "domain", "lang",
+                        "corpus_id")})
+        out_file = sys.stdout
+        skip = 0
+        if corpus.output_path:
+            if continue_ and os.path.exists(corpus.output_path):
+                with open(corpus.output_path) as f:
+                    skip = sum(1 for _ in f)
+            if continue_ and skip:
+                out_file = open(corpus.output_path, "a")
+            else:
+                os.makedirs(os.path.dirname(corpus.output_path) or ".",
+                            exist_ok=True)
+                out_file = open(corpus.output_path, "w")
+
+        inputs = corpus.input_file
+        refs_file = open(corpus.ref_path) if getattr(corpus, "ref_path", None) \
+            and os.path.exists(corpus.ref_path or "") else None
+
+        hypotheses, references = [], []
+        start_time = time.time()
+        total_tokens = 0
+        line_iter = iter(inputs)
+        n_read = 0
+        runtime_opts: dict = {}
+        try:
+            while True:
+                buffer = list(itertools.islice(line_iter, buffer_size))
+                if not buffer:
+                    break
+                # interactive '!opt=value' commands update decoding options
+                for command in [l for l in buffer if l.startswith("!")]:
+                    try:
+                        key, value = command[1:].strip().split("=", 1)
+                        caster = DECODE_PARAMS.get(key, str)
+                        runtime_opts[key] = (value.lower() in ("1", "true")
+                                             if caster is bool
+                                             else caster(value))
+                        logger.info(f"set {key} = {runtime_opts[key]}")
+                    except ValueError:
+                        logger.warning(f"could not parse command {command!r}")
+                buffer = [l for l in buffer if not l.startswith("!")]
+                if not buffer:
+                    continue
+                opts = {**opts, **runtime_opts}
+                ref_buffer = (list(itertools.islice(refs_file, len(buffer)))
+                              if refs_file else [None] * len(buffer))
+                if skip > 0:
+                    take = min(skip, len(buffer))
+                    buffer, ref_buffer = buffer[take:], ref_buffer[take:]
+                    skip -= take
+                    if not buffer:
+                        continue
+                # skip pairs where either side is empty
+                keep = [(line, ref) for line, ref in zip(buffer, ref_buffer)
+                        if line.strip() and (ref is None or ref.strip())]
+                if not keep:
+                    continue
+                lines = [line.strip() for line, _ in keep]
+                refs = [ref.strip() if ref else None for _, ref in keep]
+                outs = self.decode(lines, return_scores=True, meta=dict(
+                    source_lang=meta.get("source_lang"),
+                    target_lang=meta.get("target_lang"),
+                    domain=meta.get("domain")), **opts)
+                for j, (line, hyp_list) in enumerate(zip(lines, outs)):
+                    hyp = hyp_list[0]
+                    total_tokens += len(hyp["tokens"])
+                    if verbose:
+                        sample = {"index": n_read + j, "source": line}
+                        if refs[j]:
+                            sample["target"] = refs[j]
+                        print(self.task.hypothesis_to_str(sample, hyp,
+                                                          verbose=True),
+                              file=out_file)
+                    elif not quiet or out_file is not sys.stdout:
+                        print(hyp["detok"], file=out_file)
+                    hypotheses.append(hyp["detok"])
+                    if refs[j] is not None:
+                        references.append(refs[j])
+                out_file.flush()
+                n_read += len(lines)
+                if max_lines and n_read >= max_lines:
+                    break
+        finally:
+            if out_file is not sys.stdout:
+                out_file.close()
+            if refs_file is not None:
+                refs_file.close()
+
+        elapsed = time.time() - start_time
+        results = {"wps": total_tokens / max(elapsed, 1e-6),
+                   "lines": len(hypotheses), "time": elapsed}
+        for metric in metrics or []:
+            if references and len(references) == len(hypotheses):
+                value = self.task.compute_score(
+                    metric, hypotheses, references,
+                    lang=meta.get("target_lang"))
+                if value is not None:
+                    results[metric] = value
+        return results

@@ -1,0 +1,113 @@
+"""Core NN modules: linear, embeddings, norms, FFN.
+
+PyTorch counterparts of pasero_tpu/models/modules.py. Parameters are float32;
+compute runs in ``dtype`` (bfloat16 by default), and each product is rounded
+where the flax module rounds it, so the two packages agree on the same
+weights. Normalization statistics are always float32. Attribute names follow
+the flax names (``weight`` stands for flax's ``kernel``/``scale``, see
+checkpoints.params_to_state_dict).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .. import not_ported
+
+
+class Linear(nn.Module):
+    """Dense layer (pasero_tpu/models/modules.py:34). ``weight`` is (out, in),
+    the transpose of flax's (in, out) ``kernel``. The product is rounded to
+    ``dtype`` before the bias is added, as flax's ``preferred_element_type``
+    does."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 use_bias: bool = True, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(out_features, in_features))
+        self.bias = nn.Parameter(torch.zeros(out_features)) if use_bias else None
+        self.dtype = dtype
+        nn.init.normal_(self.weight, std=in_features ** -0.5)
+
+    def forward(self, x):
+        y = torch.matmul(x.to(self.dtype), self.weight.to(self.dtype).t())
+        if self.bias is not None:
+            y = y + self.bias.to(self.dtype)
+        return y
+
+
+class Embedding(nn.Module):
+    """Token embedding with a tied output projection
+    (pasero_tpu/models/modules.py:90)."""
+
+    def __init__(self, num_embeddings: int, features: int,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.embedding = nn.Parameter(
+            torch.randn(num_embeddings, features) * features ** -0.5)
+        self.dtype = dtype
+
+    def forward(self, ids):
+        return F.embedding(ids, self.embedding).to(self.dtype)
+
+    def attend(self, x):
+        """Output projection with tied weights; float32 logits of
+        ``dtype`` operands (flax: ``preferred_element_type=float32``)."""
+        w = self.embedding.to(self.dtype).float()
+        return torch.matmul(x.to(self.dtype).float(), w.t())
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm with optional bias and float32 statistics
+    (pasero_tpu/models/modules.py:142)."""
+
+    def __init__(self, dim: int, epsilon: float = 1e-5, use_bias: bool = True,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim)) if use_bias else None
+        self.epsilon = epsilon
+        self.dtype = dtype
+
+    def forward(self, x):
+        x32 = x.float()
+        mean = x32.mean(dim=-1, keepdim=True)
+        var = (x32 - mean).square().mean(dim=-1, keepdim=True)
+        y = (x32 - mean) * torch.rsqrt(var + self.epsilon) * self.weight
+        if self.bias is not None:
+            y = y + self.bias
+        return y.to(self.dtype)
+
+
+def make_norm(cfg, dim: int, dtype: torch.dtype) -> nn.Module:
+    if cfg.rms_norm:
+        raise not_ported("RMSNorm", "A.8 decoder-only")
+    return LayerNorm(dim, epsilon=cfg.norm_eps, use_bias=cfg.norm_bias,
+                     dtype=dtype)
+
+
+ACTIVATIONS = {
+    "relu": F.relu,
+    # exact (erf) gelu; 'gelu_tanh' is the approximation
+    "gelu": lambda x: F.gelu(x, approximate="none"),
+    "gelu_tanh": lambda x: F.gelu(x, approximate="tanh"),
+}
+
+
+class FeedForward(nn.Module):
+    """fc1 -> activation -> fc2 (pasero_tpu/models/modules.py:183; the gated
+    swiglu/geglu variants come with the decoder-only slice)."""
+
+    def __init__(self, embed_dim: int, ffn_dim: int, activation: str = "relu",
+                 use_bias: bool = True, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        if activation not in ACTIVATIONS:
+            raise not_ported(f"activation {activation!r}", "A.8 decoder-only")
+        self.fc1 = Linear(embed_dim, ffn_dim, use_bias=use_bias, dtype=dtype)
+        self.fc2 = Linear(ffn_dim, embed_dim, use_bias=use_bias, dtype=dtype)
+        self.activation = ACTIVATIONS[activation]
+
+    def forward(self, x):
+        return self.fc2(self.activation(self.fc1(x)))

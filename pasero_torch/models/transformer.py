@@ -1,0 +1,347 @@
+"""Transformer encoder-decoder.
+
+PyTorch counterpart of pasero_tpu/models/transformer.py (encoder and decoder
+layers and stacks, ``Transformer.encode``/``decode_step`` and the full
+forward with the logits head). Attribute names follow the flax module names
+(``encoder.layers_0.self_attn.q_proj``, ``shared_embed``,
+``decoder.layers_2.cross_attn_norm``), so checkpoints map across
+mechanically (checkpoints.params_to_state_dict).
+
+Covered: post-norm and pre-norm, sinusoidal, learned or no positions, tied
+and untied heads, relu and gelu. Other options raise NotImplementedError
+naming the ROADMAP.md item that brings them.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from .. import not_ported
+from ..config import TransformerConfig, register_model
+from .attention import KVCache, MultiheadAttention
+from .modules import Embedding, FeedForward, Linear, make_norm
+from .positional import PositionalEmbedding
+
+
+def check_supported(cfg) -> None:
+    """Raise NotImplementedError for configuration options that later slices
+    of the port bring (ROADMAP.md, queue A)."""
+    def todo(what, item):
+        raise not_ported(what, item)
+
+    for side in ("encoder", "decoder"):
+        pe = getattr(cfg, f"{side}_positional_encoding")
+        if pe not in ("sinusoidal", "learned", "none"):
+            todo(f"{pe} positions", "A.8 decoder-only")
+    if cfg.model_type == "decoder":
+        todo("decoder-only models", "A.8 decoder-only")
+    if cfg.attention_heads_kv and cfg.attention_heads_kv != cfg.decoder_attention_heads:
+        todo("grouped-query attention", "A.8 decoder-only")
+    if cfg.sliding_window:
+        todo("sliding-window attention", "A.8 decoder-only")
+    if cfg.parallel_attention:
+        todo("parallel attention", "A.8 decoder-only")
+    if cfg.rms_norm:
+        todo("RMSNorm", "A.8 decoder-only")
+    if cfg.activation_fn in ("swiglu", "geglu"):
+        todo(f"{cfg.activation_fn} FFNs", "A.8 decoder-only")
+    if hasattr(cfg, "encoder_expert_count"):
+        todo("mixture-of-experts layers", "A.10 MoE, adapters and hybrid")
+    if hasattr(cfg, "encoder_adapter_dim"):
+        todo("adapters", "A.10 MoE, adapters and hybrid")
+    if hasattr(cfg, "decoder_hidden_size"):
+        todo("the LSTM hybrid decoder", "A.10 MoE, adapters and hybrid")
+    if cfg.lora_rank:
+        todo("LoRA", "A.10 MoE, adapters and hybrid")
+    if cfg.input_dim:
+        todo("speech inputs", "A.11 speech")
+
+
+def positions_from_mask(pad_mask: torch.Tensor, shift: int = 0) -> torch.Tensor:
+    """Position ids that skip padding: cumsum over non-pad tokens - 1.
+
+    Works for both left- and right-padded batches; padded slots get position
+    of the previous real token (they are masked out of attention anyway).
+    """
+    pos = torch.cumsum(pad_mask.to(torch.int32), dim=1) - 1
+    return pos.clamp(min=0) + shift
+
+
+def scale_embed(x, cfg):
+    # the scale is rounded to the activation type first, as JAX's weak
+    # typing of a Python scalar does
+    return x * torch.tensor(cfg.embed_dim ** 0.5, dtype=x.dtype)
+
+
+class _Layer(nn.Module):
+    """Shared pieces of the encoder and decoder layers."""
+
+    def _norms(self, cfg, dtype):
+        E = cfg.embed_dim
+        self.self_attn_norm = make_norm(cfg, E, dtype)
+        if not cfg.shared_norm:
+            self.ffn_norm = make_norm(cfg, E, dtype)
+
+    @property
+    def norm2(self):
+        return self.self_attn_norm if self.cfg.shared_norm else self.ffn_norm
+
+    def _finish(self, x):
+        if self.cfg.check_inf:   # T5 half-precision guard
+            x = torch.nan_to_num(x, nan=0.0, posinf=6e4, neginf=-6e4)
+        return x
+
+
+class TransformerEncoderLayer(_Layer):
+    def __init__(self, cfg, dtype=torch.bfloat16):
+        super().__init__()
+        self.cfg = cfg
+        self.self_attn = MultiheadAttention(
+            cfg.embed_dim, cfg.encoder_attention_heads, use_bias=cfg.has_bias,
+            key_bias=cfg.attention_key_bias, scale_attn=cfg.scale_attn,
+            max_qkv=cfg.max_qkv, causal=False, dtype=dtype)
+        self._norms(cfg, dtype)
+        self.ffn = FeedForward(cfg.embed_dim, cfg.encoder_ffn_dim,
+                               cfg.activation_fn, cfg.has_bias, dtype)
+
+    def forward(self, x, mask=None, positions=None):
+        prenorm = self.cfg.encoder_prenorm
+        residual = x
+        h = self.self_attn_norm(x) if prenorm else x
+        x = residual + self.self_attn(h, mask=mask, positions=positions)
+        if not prenorm:
+            x = self.self_attn_norm(x)
+        residual = x
+        h = self.norm2(x) if prenorm else x
+        x = residual + self.ffn(h)
+        if not prenorm:
+            x = self.norm2(x)
+        return self._finish(x)
+
+
+class TransformerDecoderLayer(_Layer):
+    def __init__(self, cfg, dtype=torch.bfloat16):
+        super().__init__()
+        self.cfg = cfg
+        E, H = cfg.embed_dim, cfg.decoder_attention_heads
+        common = dict(use_bias=cfg.has_bias, key_bias=cfg.attention_key_bias,
+                      scale_attn=cfg.scale_attn, max_qkv=cfg.max_qkv,
+                      dtype=dtype)
+        self.self_attn = MultiheadAttention(E, H, causal=True, **common)
+        self._norms(cfg, dtype)
+        self.cross_attn_norm = make_norm(cfg, E, dtype)
+        self.cross_attn = MultiheadAttention(E, H, cross_attention=True,
+                                             **common)
+        self.ffn = FeedForward(E, cfg.decoder_ffn_dim, cfg.activation_fn,
+                               cfg.has_bias, dtype)
+
+    def forward(self, x, encoder_out=None, self_mask=None, cross_mask=None,
+                positions=None, cache=None, beam_lineage=None):
+        prenorm = self.cfg.decoder_prenorm
+        self_cache, cross_cache = cache if cache is not None else (None, None)
+        residual = x
+        h = self.self_attn_norm(x) if prenorm else x
+        x = residual + self.self_attn(h, mask=self_mask, positions=positions,
+                                      cache=self_cache,
+                                      beam_lineage=beam_lineage)
+        if not prenorm:
+            x = self.self_attn_norm(x)
+
+        residual = x
+        h = self.cross_attn_norm(x) if prenorm else x
+        x = residual + self.cross_attn(h, x_kv=encoder_out, mask=cross_mask,
+                                       cache=cross_cache)
+        if not prenorm:
+            x = self.cross_attn_norm(x)
+
+        residual = x
+        h = self.norm2(x) if prenorm else x
+        x = residual + self.ffn(h)
+        if not prenorm:
+            x = self.norm2(x)
+        return self._finish(x)
+
+
+class _Stack(nn.Module):
+    """Token embedding (own or shared), positions and the layer list."""
+
+    def _embeddings(self, cfg, vocab_size, shared_embed, max_len, pe, dtype):
+        if shared_embed is None:
+            self.embed_tokens = Embedding(vocab_size, cfg.embed_dim, dtype)
+        else:
+            # owned (and saved) by the Transformer as `shared_embed`; kept
+            # out of this module's parameters so it is stored once
+            object.__setattr__(self, "_shared_embed", shared_embed)
+        if pe in ("sinusoidal", "learned"):
+            self.embed_positions = PositionalEmbedding(
+                pe, max_len, cfg.embed_dim, cfg.positional_encoding_shift)
+
+    @property
+    def embed(self) -> Embedding:
+        shared = self.__dict__.get("_shared_embed")
+        return shared if shared is not None else self.embed_tokens
+
+    def _embed(self, tokens, positions, prenorm_embed):
+        x = self.embed(tokens)
+        if self.cfg.scale_embed:
+            x = scale_embed(x, self.cfg)
+        if hasattr(self, "embed_positions"):
+            x = self.embed_positions(x, positions)
+        if prenorm_embed:
+            x = self.embed_norm(x)
+        return x
+
+
+class TransformerEncoder(_Stack):
+    def __init__(self, cfg, vocab_size: int, shared_embed=None,
+                 dtype=torch.bfloat16):
+        super().__init__()
+        self.cfg = cfg
+        self._embeddings(cfg, vocab_size, shared_embed, cfg.encoder_max_len,
+                         cfg.encoder_positional_encoding, dtype)
+        if cfg.encoder_embed_norm:
+            self.embed_norm = make_norm(cfg, cfg.embed_dim, dtype)
+        self.num_layers = cfg.encoder_layers
+        for i in range(cfg.encoder_layers):
+            self.add_module(f"layers_{i}", TransformerEncoderLayer(cfg, dtype))
+        if cfg.encoder_prenorm:
+            self.final_norm = make_norm(cfg, cfg.embed_dim, dtype)
+
+    def layers(self):
+        return [getattr(self, f"layers_{i}") for i in range(self.num_layers)]
+
+    def forward(self, src_tokens, src_mask=None):
+        """src_tokens: (B, S) int ids; src_mask: bool (B, S) True at real
+        tokens. Returns (encoder_out (B, S, E), src_mask)."""
+        if src_mask is None:
+            src_mask = src_tokens != self.cfg.padding_idx
+        positions = positions_from_mask(src_mask)
+        x = self._embed(src_tokens, positions, self.cfg.encoder_embed_norm)
+        attn_mask = src_mask[:, None, None, :]
+        for layer in self.layers():
+            x = layer(x, mask=attn_mask, positions=positions)
+        if self.cfg.encoder_prenorm:
+            x = self.final_norm(x)
+        return x, src_mask
+
+
+class TransformerDecoder(_Stack):
+    def __init__(self, cfg, vocab_size: int, shared_embed=None,
+                 dtype=torch.bfloat16):
+        super().__init__()
+        self.cfg = cfg
+        self.dtype = dtype
+        self._embeddings(cfg, vocab_size, shared_embed, cfg.decoder_max_len,
+                         cfg.decoder_positional_encoding, dtype)
+        if cfg.decoder_embed_norm:
+            self.embed_norm = make_norm(cfg, cfg.embed_dim, dtype)
+        self.num_layers = cfg.decoder_layers
+        for i in range(cfg.decoder_layers):
+            self.add_module(f"layers_{i}", TransformerDecoderLayer(cfg, dtype))
+        if cfg.decoder_prenorm:
+            self.final_norm = make_norm(cfg, cfg.embed_dim, dtype)
+        if not cfg.tied_output_projection:
+            self.output_projection = Linear(cfg.embed_dim, vocab_size,
+                                            use_bias=False, dtype=dtype)
+
+    def layers(self):
+        return [getattr(self, f"layers_{i}") for i in range(self.num_layers)]
+
+    def forward(self, tokens, encoder_out=None, encoder_mask=None,
+                tgt_mask=None, positions=None, cache=None, self_kv_mask=None,
+                beam_lineage=None):
+        """tokens: (B, T) decoder input ids. Returns float32 logits (B, T, V).
+
+        cache: the per-layer (self, cross) KVCache pairs of
+        Transformer.make_cache at decode time; self_kv_mask: (B, L) bool —
+        validity of KV-cache slots (False at left-pad prompt slots)."""
+        cfg = self.cfg
+        if tgt_mask is None:
+            tgt_mask = tokens != cfg.padding_idx
+        if positions is None:
+            positions = positions_from_mask(tgt_mask)
+        x = self._embed(tokens, positions, cfg.decoder_embed_norm)
+        if cache is not None:
+            # causal structure comes from positions in the cache update; the
+            # caller only masks out invalid (left-pad) cache slots
+            self_mask = (self_kv_mask[:, None, None, :]
+                         if self_kv_mask is not None else None)
+        else:
+            self_mask = tgt_mask[:, None, None, :]
+        cross_mask = (encoder_mask[:, None, None, :]
+                      if encoder_mask is not None else None)
+        for i, layer in enumerate(self.layers()):
+            x = layer(x, encoder_out=encoder_out, self_mask=self_mask,
+                      cross_mask=cross_mask, positions=positions,
+                      cache=cache[i] if cache is not None else None,
+                      beam_lineage=beam_lineage)
+        if cfg.decoder_prenorm:
+            x = self.final_norm(x)
+        if cfg.tied_output_projection:
+            return self.embed.attend(x)
+        return self.output_projection(x).float()
+
+
+@register_model("transformer", TransformerConfig)
+class Transformer(nn.Module):
+    """Encoder-decoder model: encode -> decode (pasero_tpu/models/
+    transformer.py:650). Parameters are float32; compute runs in ``dtype``."""
+
+    supports_beam_lineage = True
+
+    def __init__(self, cfg, src_vocab_size: int,
+                 tgt_vocab_size: Optional[int] = None,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        check_supported(cfg)
+        self.cfg = cfg
+        self.dtype = dtype
+        tgt_vocab = tgt_vocab_size or src_vocab_size
+        shared = None
+        if cfg.shared_embeddings and src_vocab_size == tgt_vocab:
+            shared = self.shared_embed = Embedding(tgt_vocab, cfg.embed_dim,
+                                                   dtype)
+        self.encoder = TransformerEncoder(cfg, src_vocab_size, shared, dtype)
+        self.decoder = TransformerDecoder(cfg, tgt_vocab, shared, dtype)
+        # decoder calls with one token per row: each writes every layer's
+        # self-attention cache through one cache_slot_write_ launch
+        self.single_token_calls = 0
+
+    def make_cache(self, batch: int, self_cache_len: int) -> list:
+        """Empty decode state: one (self, cross) KVCache pair per decoder
+        layer, on the model's device, in its compute dtype."""
+        cfg = self.cfg
+        H = cfg.decoder_attention_heads
+        D = cfg.embed_dim // H
+        device = self.decoder.embed.embedding.device
+        return [(KVCache(batch, H, D, self_cache_len, self.dtype, device),
+                 KVCache(batch, H, D, 0, self.dtype, device))
+                for _ in range(cfg.decoder_layers)]
+
+    def encode(self, src_tokens, src_mask=None):
+        return self.encoder(src_tokens, src_mask=src_mask)
+
+    def decode_step(self, tokens, cache, encoder_out=None, encoder_mask=None,
+                    positions=None, tgt_mask=None, self_kv_mask=None,
+                    beam_lineage=None):
+        """One incremental decoder call, updating ``cache`` in place.
+        ``encoder_out`` is needed on the first call only (it fills the
+        cross-attention caches). beam_lineage (B0, K, L): lineage beam
+        attention, see attention.lineage_attention."""
+        if tokens.shape[1] == 1:
+            self.single_token_calls += 1
+        return self.decoder(tokens, encoder_out=encoder_out,
+                            encoder_mask=encoder_mask, tgt_mask=tgt_mask,
+                            positions=positions, cache=cache,
+                            self_kv_mask=self_kv_mask,
+                            beam_lineage=beam_lineage)
+
+    def forward(self, src_tokens, decoder_input, src_mask=None):
+        """Full teacher-forced forward; returns {"logits": (B, T, V) f32}."""
+        encoder_out, encoder_mask = self.encode(src_tokens, src_mask)
+        logits = self.decoder(decoder_input, encoder_out=encoder_out,
+                              encoder_mask=encoder_mask)
+        return {"logits": logits}

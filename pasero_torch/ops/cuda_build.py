@@ -1,0 +1,78 @@
+"""Build a CUDA source of ``pasero_torch/csrc`` with nvcc and load it.
+
+Each source has a plain C interface and is compiled on first use into a
+shared library under ``build/kernels/`` at the root of the checkout, named
+after the source and the hash of its text, so an edited source is rebuilt.
+The library is loaded with ctypes: pointers and the stream are passed as
+``c_void_p`` (the caller sets ``argtypes``), and every entry point returns
+``cudaGetLastError()``.
+
+Nothing here runs at import time, and nothing falls back: a missing nvcc or a
+failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                    "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(CSRC)), "build",
+                         "kernels")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC"]
+
+_LOCK = threading.Lock()
+_LIBS: dict = {}
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or \
+        "/usr/local/cuda"
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found (looked on PATH and in "
+                           f"{home}/bin); the CUDA kernels cannot be built")
+    return path
+
+
+def library_path(name: str) -> str:
+    """``build/kernels/{name}-{hash}.so`` for ``csrc/{name}.cu``."""
+    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
+
+
+def build(name: str) -> str:
+    """Compile ``csrc/{name}.cu`` unless its library is current; returns the
+    library path. Safe to call from several processes at once: each writes a
+    private file and renames it into place."""
+    out = library_path(name)
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}\n"
+                           f"{proc.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/{name}.cu``, built first if needed."""
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            lib = _LIBS[name] = ctypes.CDLL(build(name))
+        return lib

@@ -4,7 +4,7 @@ setup(
     name="pasero-tpu",
     version="0.1.0",
     description="TPU-native text generation framework (JAX/XLA/Pallas)",
-    packages=find_packages(include=["pasero_tpu*", "cli*"]),
+    packages=find_packages(include=["pasero_tpu*", "pasero_torch*", "cli*"]),
     package_data={"pasero_tpu.serving": ["static/*.html"]},
     python_requires=">=3.10",
     entry_points={
