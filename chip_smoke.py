@@ -20,7 +20,21 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    the decoder calls;
 3. full width: transformer (base) with a 32768 vocabulary and weights from
    numpy seed 0, 64 sentences x beam 5, source length 32, a prompt bucket
-   of 8 and 64 new tokens, through Transformer.encode and beam_search.
+   of 8 and 64 new tokens, through Transformer.encode and beam_search;
+4. the fused cross-entropy kernels (forward; dx and dW backward) against
+   their plain version on the card at the full-width training shape
+   (16384 x 512 x 32000, bf16), ragged shapes in bf16 and fp32 and the
+   wide shapes of the JAX split backward, with their time per call beside
+   the plain version's, the library yardstick's (F.cross_entropy over
+   torch.matmul logits) and the operations bound, and peak memory of the
+   kernel path against the yardstick;
+5. full-width training: transformer-base, vocabulary 32000, 128 x 128
+   tokens, bf16, through Trainer.train_step (scripts/bench_train.py's
+   workload), 20 steps after a warm-up;
+6. the training entry point: python -m pasero_torch.cli.train on
+   models/deen-mini2/training.yaml in a subprocess, with the flags of
+   tests/test_torch_train_cli.py, its 20 per-step losses held against the
+   JAX training CLI's committed ones, then TextGenerator.build on its checkpoint.
 
 The second-to-last line is one JSON object {"kernels": [...]}; the last line
 is {"ok": true, "device": {...}}. Without CUDA the script exits 1 and
@@ -32,16 +46,23 @@ from __future__ import annotations
 import concurrent.futures
 import glob
 import json
+import math
 import os
+import re
 import subprocess
 import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
+BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor cores, data sheet
+FP32_FLOPS = 67e12          # H100 SXM fp32 outside the tensor cores
 GOLDEN = os.path.join(ROOT, "pasero_torch", "testdata",
                       "deen_mini2_test_beam5.jax.txt")
 MIN_GOLDEN_MATCH = 57
+TRAIN_GOLDEN = os.path.join(ROOT, "pasero_torch", "testdata",
+                            "deen_mini_train20.jax.json")
+TRAIN_RTOL = 0.01           # bf16 rounds at other places in JAX and torch
 
 
 def log(*args):
@@ -279,6 +300,278 @@ def phase3() -> int:
     return launches
 
 
+# -- phase 4 -------------------------------------------------------------------
+
+CE_SHAPES = [((16384, 512, 32000), "bfloat16"),   # full width: B*T, E, V
+             ((130, 48, 515), "bfloat16"),        # ragged rows and vocab
+             ((130, 48, 515), "float32"),         # the fp32 FMA path
+             ((48, 2048, 330), "bfloat16"),       # shapes of JAX's split bwd
+             ((4096, 2048, 32000), "bfloat16")]
+
+
+# Limits of phase 4. Each per-row statistic of the forward against float32
+# logits of the same operands (an error of summation order only): lse and the
+# target logit within STAT_ATOL; the logits sum within STAT_SUM_RTOL of the
+# sum of |logits| over its row. Readings on an H100 80GB HBM3 at 700 W: lse
+# and target within 1.9e-5, the sum within 3.3e-7 of its |sum|; gradients
+# at most 0.52 of their limits, and at 336x or more of them with another
+# row's lse.
+STAT_ATOL = 1e-4
+STAT_SUM_RTOL = 1e-6
+
+
+def ce_inputs(N, E, V, dtype, seed=0):
+    """x with a per-row scale in [0.5, 2), so that lse differs from row to
+    row and a gradient built with another row's lse is told apart."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    scale = 0.5 + 1.5 * torch.rand(N, 1, generator=gen, device="cuda")
+    x = (torch.randn(N, E, generator=gen, device="cuda") * scale).to(dtype)
+    w = torch.randn(V, E, generator=gen, device="cuda") * E ** -0.5
+    t = torch.randint(0, V, (N,), generator=gen, device="cuda")
+    wt = (torch.rand(N, generator=gen, device="cuda") >= 0.1).float()
+    return x, w, t, wt
+
+
+def load_test_module(name: str):
+    """A module of tests/ by file name (it holds helpers the smoke test
+    shares with the pytest cases)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, "tests", f"{name}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def phase4() -> dict:
+    """The fused-CE kernels against fused_cross_entropy_plain; returns the
+    two wrappers' timings at the full-width shape and their errors."""
+    import torch
+    import torch.nn.functional as F
+    from pasero_torch.ops.fused_ce import (fused_ce_bwd, fused_ce_fwd,
+                                           fused_cross_entropy,
+                                           fused_cross_entropy_plain)
+    # gradients element by element, within the error model of the kernels'
+    # bf16 rounding of dlogits that tests/test_torch_cuda.py states
+    cuda_tests = load_test_module("test_torch_cuda")
+    ls, gl, gn = 0.1, 1.0, 0.5      # the backward of loss + 0.5 nll
+    a, b = gl * (1.0 - ls) + gn, gl * ls
+    err = {"fwd": 0.0, "bwd": 0.0}
+    for (N, E, V), name in CE_SHAPES:
+        dtype = getattr(torch, name)
+        x, w, t, wt = ce_inputs(N, E, V, dtype)
+        wb = w.to(dtype)
+        # per-row statistics of one forward launch against float32 logits of
+        # the same operands
+        lse, tgt, suml = fused_ce_fwd(x, wb, t)
+        logits = torch.matmul(x.float(), wb.float().t())
+        ref_lse = torch.logsumexp(logits, -1)
+        ref_tgt = logits.gather(-1, t[:, None])[:, 0]
+        ref_suml = logits.sum(-1)
+        abs_sum = logits.abs().sum(-1)
+        del logits
+        lse_err = (lse - ref_lse).abs().max().item()
+        tgt_err = (tgt - ref_tgt).abs().max().item()
+        sum_err = ((suml - ref_suml).abs() / abs_sum).max().item()
+        check(lse_err <= STAT_ATOL and tgt_err <= STAT_ATOL
+              and sum_err <= STAT_SUM_RTOL,
+              f"fused_ce_fwd statistics differ at {(N, E, V)} {name}: lse "
+              f"{lse_err:.3e}, target logit {tgt_err:.3e}, logits sum "
+              f"{sum_err:.3e} of its |sum|")
+        stat_err = max(lse_err, tgt_err,
+                       (suml - ref_suml).abs().max().item())
+        # sums and gradients through autograd: the kernel path on x and the
+        # float32 weight, the plain version on float32 leaves of the same
+        # values, so its gradients are not rounded
+        outs, grads = [], []
+        for fn, xi, wi in ((fused_cross_entropy, x, w),
+                           (fused_cross_entropy_plain, x.float(), wb.float())):
+            xi = xi.clone().requires_grad_()
+            wi = wi.clone().requires_grad_()
+            out = fn(xi, wi, t, wt, ls)
+            (gl * out[0] + gn * out[1]).backward()
+            outs.append([o.item() for o in out])
+            grads.append((xi.grad, wi.grad))
+        torch.cuda.synchronize()
+        (lk, nk, dk), (lp, np_, dp) = outs
+        check(abs(lk - lp) <= 1e-5 * abs(lp) and abs(nk - np_) <= 1e-5 * abs(np_),
+              f"fused CE sums differ at {(N, E, V)} {name}: {outs}")
+        check(dk == dp, f"weight sums differ at {(N, E, V)} {name}")
+        cs = (wt * (a + b), wt * a, wt * (b / V))
+        limits = cuda_tests.fused_ce_grad_limits(x, wb, t, ref_lse, *cs,
+                                                 grads[1])
+        excess = [cuda_tests.fused_ce_grad_excess(got, want, limit)
+                  for got, want, limit in zip(*grads, limits)]
+        check(max(excess) <= 1.0,
+              f"fused CE gradients differ at {(N, E, V)} {name}: dx, dW at "
+              f"{excess[0]:.3f}, {excess[1]:.3f} of the limit")
+        grad_err = max((got.float() - want).abs().max().item()
+                       for got, want in zip(*grads))
+        # the check must reject a backward that reads another row's lse
+        bad = fused_ce_bwd(x, wb, t, lse.roll(1), *cs)
+        bad_excess = [cuda_tests.fused_ce_grad_excess(got, want, limit)
+                      for got, want, limit in zip(bad, grads[1], limits)]
+        check(min(bad_excess) > 1.0,
+              f"the gradient check at {(N, E, V)} {name} passes a backward "
+              f"given another row's lse: dx, dW at {bad_excess[0]:.3f}, "
+              f"{bad_excess[1]:.3f} of the limit")
+        err["fwd"] = max(err["fwd"], stat_err)
+        err["bwd"] = max(err["bwd"], grad_err)
+        log(f"phase 4: fused CE == plain at {(N, E, V)} {name}: row stats "
+            f"max abs err lse {lse_err:.3e} target {tgt_err:.3e} (limit "
+            f"{STAT_ATOL:g}), logits sum {sum_err:.3e} of its |sum| (limit "
+            f"{STAT_SUM_RTOL:g}); loss {lk:.3f} vs {lp:.3f}; gradients max abs "
+            f"err {grad_err:.3e}, dx and dW at {excess[0]:.3f} and "
+            f"{excess[1]:.3f} of their limits; with another row's lse at "
+            f"{bad_excess[0]:.3f} and {bad_excess[1]:.3f}")
+        del x, w, wb, grads, bad, limits
+
+    (N, E, V), _ = CE_SHAPES[0]
+    x, w, t, wt = ce_inputs(N, E, V, torch.bfloat16)
+    wb = w.to(torch.bfloat16)
+    lse = fused_ce_fwd(x, wb, t)[0]
+    c = wt * 0.5
+    flops = 2.0 * N * E * V
+    fwd_bytes = N * E * 2 + V * E * 2 + N * 4 + 3 * N * 4
+    bwd_bytes = N * E * 2 + V * E * 2 + N * 4 + 4 * N * 4 + N * E * 2 + V * E * 4
+    res = {"fwd": {"bound_ms": max(flops / BF16_FLOPS,
+                                   fwd_bytes / HBM_BYTES_PER_S) * 1e3},
+           # three products: one logits recompute feeding both dx and dW
+           "bwd": {"bound_ms": max(3 * flops / BF16_FLOPS,
+                                   bwd_bytes / HBM_BYTES_PER_S) * 1e3}}
+    res["fwd"]["ms"] = time_ms(lambda: fused_ce_fwd(x, wb, t), 20, 3)
+    res["bwd"]["ms"] = time_ms(lambda: fused_ce_bwd(x, wb, t, lse, c, c, c),
+                               10, 2)
+
+    def yardstick(xi, wi):       # one library call; the port never calls it
+        logits = torch.matmul(xi, wi.to(xi.dtype).t()).float()
+        return (F.cross_entropy(logits, t, reduction="none",
+                                label_smoothing=ls) * wt).sum()
+
+    with torch.no_grad():
+        res["fwd"]["plain_ms"] = time_ms(
+            lambda: fused_cross_entropy_plain(x, w, t, wt, ls), 10, 2)
+        res["fwd"]["library_ms"] = time_ms(lambda: yardstick(x, w), 10, 2)
+    for key, fn in (("plain_ms", lambda xi, wi: fused_cross_entropy_plain(
+            xi, wi, t, wt, ls)[0]), ("library_ms", yardstick)):
+        xi, wi = x.clone().requires_grad_(), w.clone().requires_grad_()
+        loss = fn(xi, wi)
+        res["bwd"][key] = time_ms(lambda: torch.autograd.grad(
+            loss, (xi, wi), retain_graph=True), 10, 2)
+        del loss
+    for key, fn in (("peak_mib", fused_cross_entropy),
+                    ("library_peak_mib", lambda xi, wi, *a: (yardstick(xi, wi),))):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        xi, wi = x.clone().requires_grad_(), w.clone().requires_grad_()
+        fn(xi, wi, t, wt, ls)[0].backward()
+        torch.cuda.synchronize()
+        res["fwd"][key] = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        del xi, wi
+    res["fwd"]["max_abs_err"] = err["fwd"]
+    res["bwd"]["max_abs_err"] = err["bwd"]
+    log(f"phase 4: at {(N, E, V)} bf16, ms per call: forward kernel "
+        f"{res['fwd']['ms']:.4f} (bound {res['fwd']['bound_ms']:.4f}, plain "
+        f"{res['fwd']['plain_ms']:.4f}, library {res['fwd']['library_ms']:.4f});"
+        f" backward kernels {res['bwd']['ms']:.4f} (bound "
+        f"{res['bwd']['bound_ms']:.4f}, plain {res['bwd']['plain_ms']:.4f}, "
+        f"library {res['bwd']['library_ms']:.4f}); peak memory of forward + "
+        f"backward: kernels {res['fwd']['peak_mib']:.1f} MiB, library "
+        f"{res['fwd']['library_peak_mib']:.1f} MiB")
+    return res
+
+
+# -- phase 5 -------------------------------------------------------------------
+
+def phase5() -> int:
+    import torch
+    from pasero_torch.ops.fused_ce import fused_ce_bwd, fused_ce_fwd
+    from pasero_torch.scripts.bench_train import Workload
+    work = Workload()
+    work.run(3)                                            # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    fused_ce_fwd.launches = fused_ce_bwd.launches = 0
+    steps = 20
+    logs, seconds = work.run(steps)
+    fwd, bwd = fused_ce_fwd.launches, fused_ce_bwd.launches
+    peak = torch.cuda.max_memory_allocated()
+    losses = [l["loss"] for l in logs]
+    check(all(map(math.isfinite, losses)), f"non-finite losses {losses}")
+    check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    check(fwd == steps and bwd == steps,
+          f"fused CE launches fwd {fwd} bwd {bwd} != {steps} steps of one "
+          "micro-batch")
+    log(f"phase 5: transformer-base V=32000 B=128 S=T=128 bf16 training: "
+        f"{work.tokens_per_step * steps / seconds:.1f} target tok/s, "
+        f"{seconds * 1e3 / steps:.3f} ms per step, peak memory "
+        f"{peak / 2**20:.1f} MiB, loss {losses[0]:.3f} -> {losses[-1]:.3f}, "
+        f"fused CE launches fwd {fwd} bwd {bwd} for {steps} micro-batches")
+    return fwd
+
+
+# -- phase 6 -------------------------------------------------------------------
+
+def phase6() -> dict:
+    import shutil
+    import torch
+    from pasero_torch.decoding.generator import TextGenerator
+    cli = load_test_module("test_torch_train_cli")
+    model_dir = os.path.join(ROOT, "build", "smoke-train")
+    shutil.rmtree(model_dir, ignore_errors=True)
+    os.makedirs(model_dir)
+    ckpt = os.path.join(ROOT, "build", "smoke-train-init.npz")
+    cli.write_initial_weights(ckpt)
+    # validation every 10 steps (it decodes with the current weights and
+    # does not touch the training data or losses)
+    cmd = [sys.executable, "-m", "pasero_torch.cli.train",
+           *cli.train_flags(model_dir, ckpt), "--valid-interval", "10",
+           "--save-interval", "10"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=900)
+    elapsed = time.perf_counter() - t0
+    out = proc.stdout + proc.stderr
+    check(proc.returncode == 0, f"cli.train failed:\n{out[-4000:]}")
+    logs = cli.parse_log(out)
+    with open(TRAIN_GOLDEN) as f:
+        golden = json.load(f)["steps"]
+    check([l["step"] for l in logs] == [g["step"] for g in golden],
+          f"logged steps {[l['step'] for l in logs]}")
+    worst = 0.0
+    for got, want in zip(logs, golden):
+        rel = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+        worst = max(worst, rel)
+        check(rel <= TRAIN_RTOL, f"step {got['step']}: loss {got['loss']} "
+              f"vs JAX {want['loss']}")
+    m = re.search(r"launches \| fused_ce_fwd (\d+) \| fused_ce_bwd (\d+) \| "
+                  r"cache_slot_write (\d+) \| train micro-batches (\d+) \| "
+                  r"valid batches (\d+)", out)
+    check(m is not None, "cli.train logged no launch counts")
+    fwd, bwd, slot, micro, valid = map(int, m.groups())
+    check(micro == 20 and valid > 0, f"{micro} micro-batches, {valid} "
+          "validation batches")
+    check(fwd == micro + valid and bwd == micro,
+          f"fused CE launches fwd {fwd} bwd {bwd} for {micro} micro-batches "
+          f"and {valid} validation batches")
+    check(os.path.exists(os.path.join(model_dir, "model_20.npz")),
+          "no model_20.npz")
+    gen = TextGenerator.build(model_dir, ckpt="model_20.npz")
+    check(gen.device.type == "cuda", f"generator runs on {gen.device}")
+    hyps = gen.decode(["Guten Morgen.", "Das Haus ist klein."])
+    check(len(hyps) == 2 and all(isinstance(h, str) for h in hyps),
+          f"decode gave {hyps!r}")
+    log(f"phase 6: python -m pasero_torch.cli.train, 20 steps in "
+        f"{elapsed:.1f} s: losses {logs[0]['loss']:.3f} -> "
+        f"{logs[-1]['loss']:.3f}, all within {worst:.4%} of the JAX training CLI's; "
+        f"launches fwd {fwd} bwd {bwd} cache_slot_write {slot} for {micro} "
+        f"micro-batches and {valid} validation batches; model_20.npz decodes "
+        f"{hyps!r}")
+    torch.cuda.synchronize()
+    return {"fwd": fwd, "bwd": bwd}
+
+
 def main():
     try:
         import torch
@@ -298,6 +591,9 @@ def main():
     timing = phase1()
     launches = phase2()
     full_width_launches = phase3()
+    ce = phase4()
+    train_full_width = phase5()
+    train_cli = phase6()
     kernels = [{
         "name": "cache_slot_write",
         "route": "cuda",
@@ -315,6 +611,24 @@ def main():
         "plain_host_ms": timing["plain_host_ms"],
         "library_host_ms": timing["library_host_ms"],
     }]
+    for key, line in (("fwd", 199), ("bwd", 234)):
+        entry = {
+            "name": f"fused_ce_{key}",
+            "route": "cuda",
+            "source": "pasero_torch/csrc/fused_ce.cu",
+            "replaces": f"pasero_tpu/ops/fused_ce.py:{line}",
+            "launches": train_cli[key],
+            "full_width_launches": train_full_width,
+            "max_abs_err": ce[key]["max_abs_err"],
+            "ms": ce[key]["ms"],
+            "plain_ms": ce[key]["plain_ms"],
+            "bound_ms": ce[key]["bound_ms"],
+            "bound_by": "operations",
+            "library_ms": ce[key]["library_ms"],
+        }
+        if key == "bwd":   # the dx and dW kernels replace both JAX backwards
+            entry["also_replaces"] = "pasero_tpu/ops/fused_ce.py:281"
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -24,7 +24,7 @@ import torch
 from torch import nn
 
 from ..ops.cache_update import cache_slot_write_
-from .modules import Linear
+from .modules import Dropout, Linear
 
 NEG_INF = -1e9  # large finite value: safe for padded rows (softmax of all -1e9 is uniform, masked later)
 
@@ -86,14 +86,16 @@ def lineage_attention(q, k_cache, v_cache, lineage, mask=None, scale=1.0):
     return out.reshape(B * K, H, 1, D)
 
 
-def dot_product_attention(q, k, v, mask=None, scale=1.0):
+def dot_product_attention(q, k, v, mask=None, scale=1.0, dropout=None):
     """Plain attention (pasero_tpu/models/attention.py:101).
     q: (B, H, Sq, D), k/v: (B, H, Sk, D); mask: bool (B, 1|H, Sq, Sk),
-    True = attend."""
+    True = attend; ``dropout``: a ``Dropout`` on the float32 weights."""
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if mask is not None:
         scores = scores.masked_fill(~mask, NEG_INF)
     weights = torch.softmax(scores, dim=-1)
+    if dropout is not None:
+        weights = dropout(weights)
     return torch.matmul(weights.to(v.dtype), v)
 
 
@@ -106,7 +108,7 @@ class MultiheadAttention(nn.Module):
                  key_bias: bool = True, scale_attn: bool = True,
                  max_qkv: Optional[float] = None, causal: bool = False,
                  cross_attention: bool = False,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, dropout: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
         self.head_dim = embed_dim // num_heads
@@ -120,6 +122,7 @@ class MultiheadAttention(nn.Module):
                              dtype=dtype)
         self.v_proj = Linear(embed_dim, inner, use_bias=use_bias, dtype=dtype)
         self.out_proj = Linear(inner, embed_dim, use_bias=use_bias, dtype=dtype)
+        self.dropout = Dropout(dropout)     # on the attention weights
 
     def _heads(self, x):
         B, S = x.shape[:2]
@@ -158,7 +161,8 @@ class MultiheadAttention(nn.Module):
             out = lineage_attention(q, k, v, beam_lineage, mask=mask,
                                     scale=self.scale)
         else:
-            out = dot_product_attention(q, k, v, mask=mask, scale=self.scale)
+            out = dot_product_attention(q, k, v, mask=mask, scale=self.scale,
+                                        dropout=self.dropout)
         out = out.transpose(1, 2).reshape(B, Sq, self.num_heads * self.head_dim)
         return self.out_proj(out)
 

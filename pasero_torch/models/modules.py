@@ -17,6 +17,30 @@ from torch import nn
 from .. import not_ported
 
 
+class Dropout(nn.Module):
+    """flax's ``nn.Dropout``: ``where(keep, x / (1 - rate), 0)`` with
+    ``keep ~ Bernoulli(1 - rate)``, live only in training mode. The random
+    bits come from ``generator`` (a ``torch.Generator`` the trainer seeds from
+    ``cfg.seed``, set by ``Transformer.set_dropout_generator``); they are not
+    JAX's bits, so parity tests run with dropout 0."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate or 0.0
+        self.generator = None
+
+    def forward(self, x):
+        if not self.training or self.rate <= 0.0:
+            return x
+        return dropout(x, self.rate, self.generator)
+
+
+def dropout(x, rate: float, generator=None):
+    keep = torch.rand(x.shape, device=x.device, generator=generator) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
+                                                          device=x.device))
+
+
 class Linear(nn.Module):
     """Dense layer (pasero_tpu/models/modules.py:34). ``weight`` is (out, in),
     the transpose of flax's (in, out) ``kernel``. The product is rounded to
@@ -29,7 +53,10 @@ class Linear(nn.Module):
         self.weight = nn.Parameter(torch.empty(out_features, in_features))
         self.bias = nn.Parameter(torch.zeros(out_features)) if use_bias else None
         self.dtype = dtype
-        nn.init.normal_(self.weight, std=in_features ** -0.5)
+        # flax's lecun_normal: a normal truncated at two standard deviations,
+        # rescaled to variance 1 / fan_in
+        std = in_features ** -0.5 / 0.87962566103423978
+        nn.init.trunc_normal_(self.weight, std=std, a=-2 * std, b=2 * std)
 
     def forward(self, x):
         y = torch.matmul(x.to(self.dtype), self.weight.to(self.dtype).t())
@@ -97,17 +124,19 @@ ACTIVATIONS = {
 
 
 class FeedForward(nn.Module):
-    """fc1 -> activation -> fc2 (pasero_tpu/models/modules.py:183; the gated
-    swiglu/geglu variants come with the decoder-only slice)."""
+    """fc1 -> activation -> dropout -> fc2 (pasero_tpu/models/modules.py:183;
+    the gated swiglu/geglu variants come with the decoder-only slice)."""
 
     def __init__(self, embed_dim: int, ffn_dim: int, activation: str = "relu",
-                 use_bias: bool = True, dtype: torch.dtype = torch.bfloat16):
+                 use_bias: bool = True, dtype: torch.dtype = torch.bfloat16,
+                 dropout: float = 0.0):
         super().__init__()
         if activation not in ACTIVATIONS:
             raise not_ported(f"activation {activation!r}", "A.8 decoder-only")
         self.fc1 = Linear(embed_dim, ffn_dim, use_bias=use_bias, dtype=dtype)
         self.fc2 = Linear(ffn_dim, embed_dim, use_bias=use_bias, dtype=dtype)
         self.activation = ACTIVATIONS[activation]
+        self.dropout = Dropout(dropout)
 
     def forward(self, x):
-        return self.fc2(self.activation(self.fc1(x)))
+        return self.fc2(self.dropout(self.activation(self.fc1(x))))

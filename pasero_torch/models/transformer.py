@@ -1,15 +1,18 @@
 """Transformer encoder-decoder.
 
 PyTorch counterpart of pasero_tpu/models/transformer.py (encoder and decoder
-layers and stacks, ``Transformer.encode``/``decode_step`` and the full
-forward with the logits head). Attribute names follow the flax module names
+layers and stacks, ``Transformer.encode``/``decode_step``, the full forward
+with the logits head, and the training forward whose loss comes from the
+fused cross-entropy head). Attribute names follow the flax module names
 (``encoder.layers_0.self_attn.q_proj``, ``shared_embed``,
 ``decoder.layers_2.cross_attn_norm``), so checkpoints map across
 mechanically (checkpoints.params_to_state_dict).
 
 Covered: post-norm and pre-norm, sinusoidal, learned or no positions, tied
-and untied heads, relu and gelu. Other options raise NotImplementedError
-naming the ROADMAP.md item that brings them.
+and untied heads, relu and gelu, and residual, attention, activation and
+embedding dropout at the places the flax layers put them (live in training
+mode only). Other options raise NotImplementedError naming the ROADMAP.md
+item that brings them.
 """
 
 from __future__ import annotations
@@ -18,11 +21,13 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .. import not_ported
 from ..config import TransformerConfig, register_model
+from ..ops.fused_ce import fused_cross_entropy
 from .attention import KVCache, MultiheadAttention
-from .modules import Embedding, FeedForward, Linear, make_norm
+from .modules import Dropout, Embedding, FeedForward, Linear, make_norm
 from .positional import PositionalEmbedding
 
 
@@ -58,6 +63,8 @@ def check_supported(cfg) -> None:
         todo("LoRA", "A.10 MoE, adapters and hybrid")
     if cfg.input_dim:
         todo("speech inputs", "A.11 speech")
+    if cfg.checkpoint_activations:
+        todo("activation checkpointing", "A.8 decoder-only")
 
 
 def positions_from_mask(pad_mask: torch.Tensor, shift: int = 0) -> torch.Tensor:
@@ -102,21 +109,25 @@ class TransformerEncoderLayer(_Layer):
         self.self_attn = MultiheadAttention(
             cfg.embed_dim, cfg.encoder_attention_heads, use_bias=cfg.has_bias,
             key_bias=cfg.attention_key_bias, scale_attn=cfg.scale_attn,
-            max_qkv=cfg.max_qkv, causal=False, dtype=dtype)
+            max_qkv=cfg.max_qkv, causal=False, dtype=dtype,
+            dropout=cfg.attention_dropout)
         self._norms(cfg, dtype)
         self.ffn = FeedForward(cfg.embed_dim, cfg.encoder_ffn_dim,
-                               cfg.activation_fn, cfg.has_bias, dtype)
+                               cfg.activation_fn, cfg.has_bias, dtype,
+                               dropout=cfg.activation_dropout)
+        self.dropout = Dropout(cfg.dropout)
 
     def forward(self, x, mask=None, positions=None):
         prenorm = self.cfg.encoder_prenorm
         residual = x
         h = self.self_attn_norm(x) if prenorm else x
-        x = residual + self.self_attn(h, mask=mask, positions=positions)
+        x = residual + self.dropout(self.self_attn(h, mask=mask,
+                                                   positions=positions))
         if not prenorm:
             x = self.self_attn_norm(x)
         residual = x
         h = self.norm2(x) if prenorm else x
-        x = residual + self.ffn(h)
+        x = residual + self.dropout(self.ffn(h))
         if not prenorm:
             x = self.norm2(x)
         return self._finish(x)
@@ -129,14 +140,18 @@ class TransformerDecoderLayer(_Layer):
         E, H = cfg.embed_dim, cfg.decoder_attention_heads
         common = dict(use_bias=cfg.has_bias, key_bias=cfg.attention_key_bias,
                       scale_attn=cfg.scale_attn, max_qkv=cfg.max_qkv,
-                      dtype=dtype)
+                      dtype=dtype, dropout=cfg.attention_dropout)
         self.self_attn = MultiheadAttention(E, H, causal=True, **common)
         self._norms(cfg, dtype)
         self.cross_attn_norm = make_norm(cfg, E, dtype)
         self.cross_attn = MultiheadAttention(E, H, cross_attention=True,
                                              **common)
         self.ffn = FeedForward(E, cfg.decoder_ffn_dim, cfg.activation_fn,
-                               cfg.has_bias, dtype)
+                               cfg.has_bias, dtype,
+                               dropout=cfg.activation_dropout)
+        self.dropout = Dropout(cfg.decoder_dropout
+                               if cfg.decoder_dropout is not None
+                               else cfg.dropout)
 
     def forward(self, x, encoder_out=None, self_mask=None, cross_mask=None,
                 positions=None, cache=None, beam_lineage=None):
@@ -144,22 +159,22 @@ class TransformerDecoderLayer(_Layer):
         self_cache, cross_cache = cache if cache is not None else (None, None)
         residual = x
         h = self.self_attn_norm(x) if prenorm else x
-        x = residual + self.self_attn(h, mask=self_mask, positions=positions,
-                                      cache=self_cache,
-                                      beam_lineage=beam_lineage)
+        x = residual + self.dropout(self.self_attn(
+            h, mask=self_mask, positions=positions, cache=self_cache,
+            beam_lineage=beam_lineage))
         if not prenorm:
             x = self.self_attn_norm(x)
 
         residual = x
         h = self.cross_attn_norm(x) if prenorm else x
-        x = residual + self.cross_attn(h, x_kv=encoder_out, mask=cross_mask,
-                                       cache=cross_cache)
+        x = residual + self.dropout(self.cross_attn(
+            h, x_kv=encoder_out, mask=cross_mask, cache=cross_cache))
         if not prenorm:
             x = self.cross_attn_norm(x)
 
         residual = x
         h = self.norm2(x) if prenorm else x
-        x = residual + self.ffn(h)
+        x = residual + self.dropout(self.ffn(h))
         if not prenorm:
             x = self.norm2(x)
         return self._finish(x)
@@ -178,6 +193,9 @@ class _Stack(nn.Module):
         if pe in ("sinusoidal", "learned"):
             self.embed_positions = PositionalEmbedding(
                 pe, max_len, cfg.embed_dim, cfg.positional_encoding_shift)
+        self.embed_dropout = Dropout(cfg.embed_dropout
+                                     if cfg.embed_dropout is not None
+                                     else cfg.dropout)
 
     @property
     def embed(self) -> Embedding:
@@ -192,7 +210,7 @@ class _Stack(nn.Module):
             x = self.embed_positions(x, positions)
         if prenorm_embed:
             x = self.embed_norm(x)
-        return x
+        return self.embed_dropout(x)
 
 
 class TransformerEncoder(_Stack):
@@ -252,12 +270,18 @@ class TransformerDecoder(_Stack):
 
     def forward(self, tokens, encoder_out=None, encoder_mask=None,
                 tgt_mask=None, positions=None, cache=None, self_kv_mask=None,
-                beam_lineage=None):
+                beam_lineage=None, ce_targets=None, ce_weights=None):
         """tokens: (B, T) decoder input ids. Returns float32 logits (B, T, V).
 
         cache: the per-layer (self, cross) KVCache pairs of
         Transformer.make_cache at decode time; self_kv_mask: (B, L) bool —
-        validity of KV-cache slots (False at left-pad prompt slots)."""
+        validity of KV-cache slots (False at left-pad prompt slots).
+
+        ce_targets/ce_weights (B, T): the training head — instead of logits,
+        return (loss_sum, nll_sum, weight_sum) from the fused cross-entropy
+        (``ce_impl`` "auto"/"flash": the CUDA kernels on the card, their
+        plain version on the CPU) or ``chunked_cross_entropy`` ("chunked"),
+        without the (B, T, V) float32 logits."""
         cfg = self.cfg
         if tgt_mask is None:
             tgt_mask = tokens != cfg.padding_idx
@@ -280,9 +304,75 @@ class TransformerDecoder(_Stack):
                       beam_lineage=beam_lineage)
         if cfg.decoder_prenorm:
             x = self.final_norm(x)
+        if ce_targets is not None:
+            # the head weight in its stored (V, E) layout: the tied table or
+            # the output projection (pasero_tpu/models/transformer.py:499-523)
+            weight = (self.embed.embedding if cfg.tied_output_projection
+                      else self.output_projection.weight)
+            ls = cfg.label_smoothing or 0.0
+            if getattr(cfg, "ce_impl", "auto") in ("auto", "flash"):
+                B, T, E = x.shape
+                return fused_cross_entropy(x.reshape(B * T, E), weight,
+                                           ce_targets.reshape(-1),
+                                           ce_weights.reshape(-1), ls)
+            return chunked_cross_entropy(
+                x, weight, ce_targets, ce_weights, label_smoothing=ls,
+                num_chunks=getattr(cfg, "ce_chunks", 8) or 8)
         if cfg.tied_output_projection:
             return self.embed.attend(x)
         return self.output_projection(x).float()
+
+
+def _ce_terms(logits, targets, label_smoothing: float):
+    """Per-token (loss, nll) of float32 logits (B, T, V)."""
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = logits.gather(-1, targets.long()[..., None])[..., 0]
+    nll = lse - tgt
+    if label_smoothing > 0:
+        smooth = lse - logits.mean(dim=-1)
+        return (1.0 - label_smoothing) * nll + label_smoothing * smooth, nll
+    return nll, nll
+
+
+def cross_entropy_loss(logits, targets, weights, label_smoothing=0.0):
+    """Summed CE with label smoothing (pasero_tpu/models/transformer.py:625);
+    normalization by the token count happens in the trainer.
+
+    logits: (B, T, V); targets: (B, T) int; weights: (B, T) float.
+    Returns (loss_sum, nll_sum, weight_sum)."""
+    loss, nll = _ce_terms(logits.float(), targets, label_smoothing)
+    return (loss * weights).sum(), (nll * weights).sum(), weights.sum()
+
+
+def chunked_cross_entropy(x, weight, targets, weights, label_smoothing=0.0,
+                          num_chunks=8):
+    """CE over vocabulary logits computed in sequence chunks
+    (pasero_tpu/models/transformer.py:566): each chunk runs under
+    ``torch.utils.checkpoint``, so its float32 logits are recomputed in the
+    backward instead of kept.
+
+    x: (B, T, E) post-norm activations; weight: (V, E) head weight;
+    targets (B, T) int; weights (B, T) float.
+    Returns (loss_sum, nll_sum, weight_sum)."""
+    T = x.shape[1]
+    num_chunks = max(1, min(num_chunks, T))
+    Tc = -(-T // num_chunks)
+    weights = weights.float()
+    kernel = weight.to(x.dtype).float()
+
+    def chunk_stats(xc, tc, wc, kernel):
+        logits = torch.matmul(xc.float(), kernel.t())
+        loss, nll = _ce_terms(logits, tc, label_smoothing)
+        return (loss * wc).sum(), (nll * wc).sum()
+
+    loss_sum = nll_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    for t0 in range(0, T, Tc):
+        sl = slice(t0, t0 + Tc)
+        loss_c, nll_c = checkpoint(chunk_stats, x[:, sl], targets[:, sl],
+                                   weights[:, sl], kernel, use_reentrant=False)
+        loss_sum = loss_sum + loss_c
+        nll_sum = nll_sum + nll_c
+    return loss_sum, nll_sum, weights.sum()
 
 
 @register_model("transformer", TransformerConfig)
@@ -309,6 +399,12 @@ class Transformer(nn.Module):
         # decoder calls with one token per row: each writes every layer's
         # self-attention cache through one cache_slot_write_ launch
         self.single_token_calls = 0
+
+    def set_dropout_generator(self, generator) -> None:
+        """The ``torch.Generator`` every dropout of the model draws from."""
+        for module in self.modules():
+            if isinstance(module, Dropout):
+                module.generator = generator
 
     def make_cache(self, batch: int, self_cache_len: int) -> list:
         """Empty decode state: one (self, cross) KVCache pair per decoder
@@ -339,9 +435,32 @@ class Transformer(nn.Module):
                             self_kv_mask=self_kv_mask,
                             beam_lineage=beam_lineage)
 
-    def forward(self, src_tokens, decoder_input, src_mask=None):
-        """Full teacher-forced forward; returns {"logits": (B, T, V) f32}."""
+    def forward(self, src_tokens, decoder_input, src_mask=None, targets=None,
+                prompt_mask=None, loss_weights=None):
+        """Full teacher-forced forward (pasero_tpu/models/transformer.py:727).
+
+        Without ``targets``: {"logits": (B, T, V) f32}. With them (B, T):
+        {"loss_sum", "nll_sum", "num_tokens"}, the loss weighted by
+        ``loss_weights`` (default: the non-pad mask) and by ``prompt_loss``
+        at ``prompt_mask`` positions; with ``fused_ce`` (the default) the
+        logits come out of the fused cross-entropy head and never exist."""
+        cfg = self.cfg
         encoder_out, encoder_mask = self.encode(src_tokens, src_mask)
-        logits = self.decoder(decoder_input, encoder_out=encoder_out,
-                              encoder_mask=encoder_mask)
-        return {"logits": logits}
+        kwargs = dict(encoder_out=encoder_out, encoder_mask=encoder_mask)
+        if targets is None:
+            return {"logits": self.decoder(decoder_input, **kwargs)}
+        pad_mask = (targets != cfg.padding_idx).float()
+        weights = loss_weights if loss_weights is not None else pad_mask
+        if prompt_mask is not None and cfg.prompt_loss != 1.0:
+            weights = weights * torch.where(prompt_mask, cfg.prompt_loss, 1.0)
+        if getattr(cfg, "fused_ce", True):
+            loss_sum, nll_sum, _ = self.decoder(
+                decoder_input, ce_targets=targets, ce_weights=weights,
+                **kwargs)
+            return {"loss_sum": loss_sum, "nll_sum": nll_sum,
+                    "num_tokens": pad_mask.sum()}
+        logits = self.decoder(decoder_input, **kwargs)
+        loss_sum, nll_sum, _ = cross_entropy_loss(
+            logits, targets, weights, cfg.label_smoothing or 0.0)
+        return {"logits": logits, "loss_sum": loss_sum, "nll_sum": nll_sum,
+                "num_tokens": pad_mask.sum()}

@@ -89,20 +89,22 @@ class Workload:
         return int((lengths if lengths.dim() == 1 else lengths[:, 0]).sum())
 
 
-def profile(work: Workload, out_dir: str) -> dict:
-    """Device busy share and device time by kernel over one decode, from
-    the chrome trace of torch.profiler."""
+def trace_profile(fn, path: str, kernel_names: tuple = ()) -> dict:
+    """Run ``fn`` under torch.profiler and summarize its chrome trace
+    (written to ``path``): wall time, the device's busy time and share (the
+    union of kernel, copy and memset intervals), the device time of the 15
+    largest operations, and launches and mean device time of each kernel
+    whose name contains one of ``kernel_names``."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
     torch.cuda.synchronize()
     with torch_profile(activities=[ProfilerActivity.CPU,
                                    ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        work.run()
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    os.makedirs(out_dir, exist_ok=True)
-    path = os.path.join(out_dir, "profile_decode.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
     prof.export_chrome_trace(path)
     with open(path) as f:
         events = json.load(f)["traceEvents"]
@@ -119,13 +121,25 @@ def profile(work: Workload, out_dir: str) -> dict:
     for e in device:
         by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
-    slot = [e["dur"] for e in device if "slot_write_kernel" in e["name"]]
+    kernels = {}
+    for key in kernel_names:
+        durs = [e["dur"] for e in device if key in e["name"]]
+        kernels[key] = {"launches": len(durs),
+                        "device_us_mean": sum(durs) / max(len(durs), 1)}
     return {"wall_ms": wall * 1e3, "device_busy_ms": busy / 1e3,
             "device_busy_share": busy / 1e3 / (wall * 1e3),
-            "device_ops": len(device),
-            "slot_write_launches": len(slot),
-            "slot_write_device_us_mean": sum(slot) / max(len(slot), 1),
+            "device_ops": len(device), "kernels": kernels,
             "top_device_ms": [(name[:90], us / 1e3) for name, us in top]}
+
+
+def profile(work: Workload, out_dir: str) -> dict:
+    """Device busy share and device time by kernel over one decode."""
+    out = trace_profile(work.run, os.path.join(out_dir, "profile_decode.json"),
+                        ("slot_write_kernel",))
+    slot = out.pop("kernels")["slot_write_kernel"]
+    out["slot_write_launches"] = slot["launches"]
+    out["slot_write_device_us_mean"] = slot["device_us_mean"]
+    return out
 
 
 def main(argv=None):

@@ -1,0 +1,152 @@
+"""The port's fused cross-entropy against pasero_tpu's, on the same inputs.
+
+On the CPU the port's ``fused_cross_entropy`` is its plain version (float32
+logits of operands in x's type, autograd for the gradients); the JAX
+function runs its Pallas kernels in interpret mode off the TPU. Inputs come
+from numpy seeds; the port takes the head weight as (V, E), JAX as (E, V).
+
+Tolerances: loss and nll sums rtol 1e-5 (both sum float32 products, in
+another order); the weight sum exactly; dx and dW rtol 2e-2, atol 2e-5, the
+JAX package's own tolerance for its kernels (tests/test_fused_ce.py). With
+bf16 x the JAX kernel rounds dlogits to bf16 before the products, the plain
+version does not, so its gradients are held at 2e-2 of their largest
+magnitude.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pasero_tpu.models.transformer import \
+    chunked_cross_entropy as jax_chunked
+from pasero_tpu.ops.fused_ce import fused_cross_entropy as jax_fused
+from pasero_torch.models.transformer import chunked_cross_entropy
+from pasero_torch.ops.fused_ce import (fused_ce_bwd, fused_ce_fwd,
+                                       fused_cross_entropy)
+
+
+def inputs(N, E, V, seed, x_scale=1.0, w_scale=0.05):
+    rng = np.random.default_rng(seed)
+    x = (rng.normal(size=(N, E)) * x_scale).astype(np.float32)
+    w = (rng.normal(size=(E, V)) * w_scale).astype(np.float32)
+    targets = rng.integers(0, V, N).astype(np.int32)
+    weights = (rng.random(N) > 0.2).astype(np.float32)
+    return x, w, targets, weights
+
+
+def jax_run(x, w, targets, weights, ls, dtype=jnp.float32):
+    def f(x, w):
+        loss, nll, den = jax_fused(x.astype(dtype), w, jnp.asarray(targets),
+                                   jnp.asarray(weights), ls)
+        return loss + 0.5 * nll, (loss, nll, den)
+    (_, out), (dx, dw) = jax.value_and_grad(f, argnums=(0, 1), has_aux=True)(
+        jnp.asarray(x), jnp.asarray(w))
+    return [np.asarray(v, np.float32) for v in (*out, dx, dw)]
+
+
+def torch_run(x, w, targets, weights, ls, dtype=torch.float32):
+    xt = torch.tensor(x, requires_grad=True)
+    wt = torch.tensor(np.ascontiguousarray(w.T), requires_grad=True)
+    loss, nll, den = fused_cross_entropy(xt.to(dtype), wt,
+                                         torch.from_numpy(targets),
+                                         torch.from_numpy(weights), ls)
+    (loss + 0.5 * nll).backward()
+    return [v.detach().float().numpy() for v in
+            (loss, nll, den, xt.grad, wt.grad.T)]
+
+
+def check(jax_out, torch_out, grad_rtol=2e-2, grad_atol=2e-5):
+    (l0, n0, d0, dx0, dw0), (l1, n1, d1, dx1, dw1) = jax_out, torch_out
+    np.testing.assert_allclose(l1, l0, rtol=1e-5)
+    np.testing.assert_allclose(n1, n0, rtol=1e-5)
+    assert float(d1) == float(d0)
+    np.testing.assert_allclose(dx1, dx0, rtol=grad_rtol, atol=grad_atol)
+    np.testing.assert_allclose(dw1, dw0, rtol=grad_rtol, atol=grad_atol)
+
+
+@pytest.mark.parametrize("ls", [0.0, 0.1])
+@pytest.mark.parametrize("shape", [(64, 32, 100), (130, 48, 515)])
+def test_fused_ce_matches_jax(shape, ls):
+    args = inputs(*shape, seed=0)
+    check(jax_run(*args, ls), torch_run(*args, ls))
+
+
+@pytest.mark.parametrize("ls", [0.0, 0.1])
+def test_fused_ce_split_shape_matches_jax(ls):
+    """E = 2048: the shape that takes JAX's split backward (rows 3 and 4 of
+    the kernel table share the port's one backward)."""
+    args = inputs(48, 2048, 330, seed=2, x_scale=0.1, w_scale=0.02)
+    check(jax_run(*args, ls), torch_run(*args, ls))
+
+
+def test_fused_ce_bf16_matches_jax():
+    x, w, t, wt = inputs(256, 64, 1000, seed=1)
+    wt[:] = 1.0
+    j = jax_run(x, w, t, wt, 0.1, jnp.bfloat16)
+    p = torch_run(x, w, t, wt, 0.1, torch.bfloat16)
+    np.testing.assert_allclose(p[0], j[0], rtol=1e-5)
+    np.testing.assert_allclose(p[1], j[1], rtol=1e-5)
+    assert float(p[2]) == float(j[2]) == 256
+    for a, b in ((p[3], j[3]), (p[4], j[4])):
+        assert np.abs(a - b).max() <= 2e-2 * np.abs(b).max()
+
+
+@pytest.mark.parametrize("ls", [0.0, 0.1])
+def test_chunked_ce_matches_jax(ls):
+    """ce_impl='chunked': checkpointed sequence chunks, T not a multiple of
+    the chunk count."""
+    B, T, E, V = 3, 13, 24, 77
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(B, T, E)).astype(np.float32)
+    w = (rng.normal(size=(E, V)) * 0.1).astype(np.float32)
+    targets = rng.integers(0, V, (B, T)).astype(np.int32)
+    weights = (rng.random((B, T)) > 0.3).astype(np.float32)
+
+    def f(x, w):
+        loss, nll, den = jax_chunked(x, w, jnp.asarray(targets),
+                                     jnp.asarray(weights), ls, num_chunks=4)
+        return loss + 0.5 * nll, (loss, nll, den)
+    (_, j), jg = jax.value_and_grad(f, argnums=(0, 1), has_aux=True)(
+        jnp.asarray(x), jnp.asarray(w))
+    xt = torch.tensor(x, requires_grad=True)
+    wt = torch.tensor(np.ascontiguousarray(w.T), requires_grad=True)
+    p = chunked_cross_entropy(xt, wt, torch.from_numpy(targets),
+                              torch.from_numpy(weights), ls, num_chunks=4)
+    (p[0] + 0.5 * p[1]).backward()
+    np.testing.assert_allclose(p[0].item(), float(j[0]), rtol=1e-5)
+    np.testing.assert_allclose(p[1].item(), float(j[1]), rtol=1e-5)
+    assert p[2].item() == float(j[2])
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(jg[0]),
+                               rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(wt.grad.numpy().T, np.asarray(jg[1]),
+                               rtol=1e-4, atol=1e-6)
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    """The kernel wrappers launch only on the card; the CPU path is the
+    plain version, reached through fused_cross_entropy."""
+    x = torch.zeros(4, 8)
+    w = torch.zeros(5, 8)
+    t = torch.zeros(4, dtype=torch.long)
+    before = (fused_ce_fwd.launches, fused_ce_bwd.launches)
+    with pytest.raises(ValueError, match="no fused-CE kernel"):
+        fused_ce_fwd(x, w, t)
+    with pytest.raises(ValueError, match="no fused-CE kernel"):
+        fused_ce_bwd(x, w, t, *[torch.zeros(4)] * 4)
+    assert (fused_ce_fwd.launches, fused_ce_bwd.launches) == before
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "targets"])
+def test_bad_inputs_raise(bad):
+    x, w = torch.zeros(4, 8), torch.zeros(5, 8)
+    t, wt = torch.zeros(4, dtype=torch.long), torch.ones(4)
+    if bad == "dtype":
+        x = x.half()
+    elif bad == "shape":
+        w = torch.zeros(5, 7)
+    else:
+        t = t.float()
+    with pytest.raises((TypeError, ValueError)):
+        fused_cross_entropy(x, w, t, wt, 0.1)
