@@ -23,8 +23,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    of 8 and 64 new tokens, through Transformer.encode and beam_search;
 4. the fused cross-entropy kernels (forward; dx and dW backward) against
    their plain version on the card at the full-width training shape
-   (16384 x 512 x 32000, bf16), ragged shapes in bf16 and fp32 and the
-   wide shapes of the JAX split backward, with their time per call beside
+   (16384 x 512 x 32000, bf16), ragged shapes in bf16 and fp32, the wide
+   shapes of the JAX split backward and llama_1b's untied head (8192 x
+   2048 x 32000), with their time per call at the first and the last beside
    the plain version's, the library yardstick's (F.cross_entropy over
    torch.matmul logits) and the operations bound, and peak memory of the
    kernel path against the yardstick;
@@ -34,7 +35,25 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 6. the training entry point: python -m pasero_torch.cli.train on
    models/deen-mini2/training.yaml in a subprocess, with the flags of
    tests/test_torch_train_cli.py, its 20 per-step losses held against the
-   JAX training CLI's committed ones, then TextGenerator.build on its checkpoint.
+   JAX training CLI's committed ones, then TextGenerator.build on its checkpoint;
+7. the flash-attention kernels (forward; dq; dk/dv) against their plain
+   version on the card, within the error model of tests/test_torch_cuda.py
+   (``flash_limits``), at the llama_1b training shape (4 x 32/4 heads x 2048
+   x 64, bf16, causal), a ragged shape (key padding, a sliding window, one
+   query head per K/V head, head dim 128), an unaligned length and the
+   mini LM's head dim of 32; at the
+   full-width shape their device time per call (CUDA graph) beside the
+   plain version's, the operations bound and the library yardstick
+   (F.scaled_dot_product_attention, forward and backward), and the peak
+   memory of both;
+8. full-width decoder-only training: llama_1b, vocabulary 32000, 4 x 2048
+   tokens, bf16, through Trainer.train_step (scripts/bench_train.py
+   --model llama_1b), 20 steps after a warm-up, with exact launch counts of
+   the flash and fused-CE kernels;
+9. the language-model training entry point: python -m pasero_torch.cli.train
+   on pasero_torch/testdata/lm_mini.yaml in a subprocess, its 20 per-step
+   losses held against the JAX training CLI's, with the flash launches
+   matching its micro-batches and validation batches.
 
 The second-to-last line is one JSON object {"kernels": [...]}; the last line
 is {"ok": true, "device": {...}}. Without CUDA the script exits 1 and
@@ -63,6 +82,9 @@ MIN_GOLDEN_MATCH = 57
 TRAIN_GOLDEN = os.path.join(ROOT, "pasero_torch", "testdata",
                             "deen_mini_train20.jax.json")
 TRAIN_RTOL = 0.01           # bf16 rounds at other places in JAX and torch
+LM_CONFIG = os.path.join(ROOT, "pasero_torch", "testdata", "lm_mini.yaml")
+LM_GOLDEN = os.path.join(ROOT, "pasero_torch", "testdata",
+                         "lm_mini_train20.jax.json")
 
 
 def log(*args):
@@ -306,7 +328,9 @@ CE_SHAPES = [((16384, 512, 32000), "bfloat16"),   # full width: B*T, E, V
              ((130, 48, 515), "bfloat16"),        # ragged rows and vocab
              ((130, 48, 515), "float32"),         # the fp32 FMA path
              ((48, 2048, 330), "bfloat16"),       # shapes of JAX's split bwd
-             ((4096, 2048, 32000), "bfloat16")]
+             ((4096, 2048, 32000), "bfloat16"),
+             ((8192, 2048, 32000), "bfloat16")]   # llama_1b's untied head
+LM_HEAD = CE_SHAPES[-1][0]
 
 
 # Limits of phase 4. Each per-row statistic of the forward against float32
@@ -344,11 +368,74 @@ def load_test_module(name: str):
     return module
 
 
-def phase4() -> dict:
-    """The fused-CE kernels against fused_cross_entropy_plain; returns the
-    two wrappers' timings at the full-width shape and their errors."""
+def ce_timing(N, E, V) -> dict:
+    """The fused-CE wrappers' time per call at (N, E, V) in bf16 beside the
+    plain version's, the library yardstick's and the operations bound, and
+    the peak memory of the kernel path and the yardstick."""
     import torch
     import torch.nn.functional as F
+    from pasero_torch.ops.fused_ce import (fused_ce_bwd, fused_ce_fwd,
+                                           fused_cross_entropy,
+                                           fused_cross_entropy_plain)
+    ls = 0.1
+    x, w, t, wt = ce_inputs(N, E, V, torch.bfloat16)
+    wb = w.to(torch.bfloat16)
+    lse = fused_ce_fwd(x, wb, t)[0]
+    c = wt * 0.5
+    flops = 2.0 * N * E * V
+    fwd_bytes = N * E * 2 + V * E * 2 + N * 4 + 3 * N * 4
+    bwd_bytes = N * E * 2 + V * E * 2 + N * 4 + 4 * N * 4 + N * E * 2 + V * E * 4
+    res = {"fwd": {"bound_ms": max(flops / BF16_FLOPS,
+                                   fwd_bytes / HBM_BYTES_PER_S) * 1e3},
+           # three products: one logits recompute feeding both dx and dW
+           "bwd": {"bound_ms": max(3 * flops / BF16_FLOPS,
+                                   bwd_bytes / HBM_BYTES_PER_S) * 1e3}}
+    res["fwd"]["ms"] = time_ms(lambda: fused_ce_fwd(x, wb, t), 20, 3)
+    res["bwd"]["ms"] = time_ms(lambda: fused_ce_bwd(x, wb, t, lse, c, c, c),
+                               10, 2)
+
+    def yardstick(xi, wi):       # one library call; the port never calls it
+        logits = torch.matmul(xi, wi.to(xi.dtype).t()).float()
+        return (F.cross_entropy(logits, t, reduction="none",
+                                label_smoothing=ls) * wt).sum()
+
+    with torch.no_grad():
+        res["fwd"]["plain_ms"] = time_ms(
+            lambda: fused_cross_entropy_plain(x, w, t, wt, ls), 10, 2)
+        res["fwd"]["library_ms"] = time_ms(lambda: yardstick(x, w), 10, 2)
+    for key, fn in (("plain_ms", lambda xi, wi: fused_cross_entropy_plain(
+            xi, wi, t, wt, ls)[0]), ("library_ms", yardstick)):
+        xi, wi = x.clone().requires_grad_(), w.clone().requires_grad_()
+        loss = fn(xi, wi)
+        res["bwd"][key] = time_ms(lambda: torch.autograd.grad(
+            loss, (xi, wi), retain_graph=True), 10, 2)
+        del loss
+    for key, fn in (("peak_mib", fused_cross_entropy),
+                    ("library_peak_mib", lambda xi, wi, *a: (yardstick(xi, wi),))):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        xi, wi = x.clone().requires_grad_(), w.clone().requires_grad_()
+        fn(xi, wi, t, wt, ls)[0].backward()
+        torch.cuda.synchronize()
+        res["fwd"][key] = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        del xi, wi
+    log(f"phase 4: at {(N, E, V)} bf16, ms per call: forward kernel "
+        f"{res['fwd']['ms']:.4f} (bound {res['fwd']['bound_ms']:.4f}, plain "
+        f"{res['fwd']['plain_ms']:.4f}, library {res['fwd']['library_ms']:.4f});"
+        f" backward kernels {res['bwd']['ms']:.4f} (bound "
+        f"{res['bwd']['bound_ms']:.4f}, plain {res['bwd']['plain_ms']:.4f}, "
+        f"library {res['bwd']['library_ms']:.4f}); peak memory of forward + "
+        f"backward: kernels {res['fwd']['peak_mib']:.1f} MiB, library "
+        f"{res['fwd']['library_peak_mib']:.1f} MiB")
+    return res
+
+
+def phase4() -> dict:
+    """The fused-CE kernels against fused_cross_entropy_plain; returns the
+    two wrappers' timings at the full-width shape (and at llama_1b's head,
+    under "lm_head") and their errors."""
+    import torch
     from pasero_torch.ops.fused_ce import (fused_ce_bwd, fused_ce_fwd,
                                            fused_cross_entropy,
                                            fused_cross_entropy_plain)
@@ -427,59 +514,10 @@ def phase4() -> dict:
             f"{bad_excess[0]:.3f} and {bad_excess[1]:.3f}")
         del x, w, wb, grads, bad, limits
 
-    (N, E, V), _ = CE_SHAPES[0]
-    x, w, t, wt = ce_inputs(N, E, V, torch.bfloat16)
-    wb = w.to(torch.bfloat16)
-    lse = fused_ce_fwd(x, wb, t)[0]
-    c = wt * 0.5
-    flops = 2.0 * N * E * V
-    fwd_bytes = N * E * 2 + V * E * 2 + N * 4 + 3 * N * 4
-    bwd_bytes = N * E * 2 + V * E * 2 + N * 4 + 4 * N * 4 + N * E * 2 + V * E * 4
-    res = {"fwd": {"bound_ms": max(flops / BF16_FLOPS,
-                                   fwd_bytes / HBM_BYTES_PER_S) * 1e3},
-           # three products: one logits recompute feeding both dx and dW
-           "bwd": {"bound_ms": max(3 * flops / BF16_FLOPS,
-                                   bwd_bytes / HBM_BYTES_PER_S) * 1e3}}
-    res["fwd"]["ms"] = time_ms(lambda: fused_ce_fwd(x, wb, t), 20, 3)
-    res["bwd"]["ms"] = time_ms(lambda: fused_ce_bwd(x, wb, t, lse, c, c, c),
-                               10, 2)
-
-    def yardstick(xi, wi):       # one library call; the port never calls it
-        logits = torch.matmul(xi, wi.to(xi.dtype).t()).float()
-        return (F.cross_entropy(logits, t, reduction="none",
-                                label_smoothing=ls) * wt).sum()
-
-    with torch.no_grad():
-        res["fwd"]["plain_ms"] = time_ms(
-            lambda: fused_cross_entropy_plain(x, w, t, wt, ls), 10, 2)
-        res["fwd"]["library_ms"] = time_ms(lambda: yardstick(x, w), 10, 2)
-    for key, fn in (("plain_ms", lambda xi, wi: fused_cross_entropy_plain(
-            xi, wi, t, wt, ls)[0]), ("library_ms", yardstick)):
-        xi, wi = x.clone().requires_grad_(), w.clone().requires_grad_()
-        loss = fn(xi, wi)
-        res["bwd"][key] = time_ms(lambda: torch.autograd.grad(
-            loss, (xi, wi), retain_graph=True), 10, 2)
-        del loss
-    for key, fn in (("peak_mib", fused_cross_entropy),
-                    ("library_peak_mib", lambda xi, wi, *a: (yardstick(xi, wi),))):
-        torch.cuda.synchronize()
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        xi, wi = x.clone().requires_grad_(), w.clone().requires_grad_()
-        fn(xi, wi, t, wt, ls)[0].backward()
-        torch.cuda.synchronize()
-        res["fwd"][key] = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
-        del xi, wi
+    res = ce_timing(*CE_SHAPES[0][0])
+    res["lm_head"] = ce_timing(*LM_HEAD)
     res["fwd"]["max_abs_err"] = err["fwd"]
     res["bwd"]["max_abs_err"] = err["bwd"]
-    log(f"phase 4: at {(N, E, V)} bf16, ms per call: forward kernel "
-        f"{res['fwd']['ms']:.4f} (bound {res['fwd']['bound_ms']:.4f}, plain "
-        f"{res['fwd']['plain_ms']:.4f}, library {res['fwd']['library_ms']:.4f});"
-        f" backward kernels {res['bwd']['ms']:.4f} (bound "
-        f"{res['bwd']['bound_ms']:.4f}, plain {res['bwd']['plain_ms']:.4f}, "
-        f"library {res['bwd']['library_ms']:.4f}); peak memory of forward + "
-        f"backward: kernels {res['fwd']['peak_mib']:.1f} MiB, library "
-        f"{res['fwd']['library_peak_mib']:.1f} MiB")
     return res
 
 
@@ -513,6 +551,14 @@ def phase5() -> int:
 
 # -- phase 6 -------------------------------------------------------------------
 
+def parse_launches(out: str) -> dict:
+    """The counts of cli.train's ``launches | name N | ...`` log line."""
+    m = re.search(r"launches((?: \| [a-z_ -]+ \d+)+)", out)
+    check(m is not None, "cli.train logged no launch counts")
+    return {name: int(n) for name, n in
+            re.findall(r"\| ([a-z_ -]+?) (\d+)", m.group(1))}
+
+
 def phase6() -> dict:
     import shutil
     import torch
@@ -545,11 +591,10 @@ def phase6() -> dict:
         worst = max(worst, rel)
         check(rel <= TRAIN_RTOL, f"step {got['step']}: loss {got['loss']} "
               f"vs JAX {want['loss']}")
-    m = re.search(r"launches \| fused_ce_fwd (\d+) \| fused_ce_bwd (\d+) \| "
-                  r"cache_slot_write (\d+) \| train micro-batches (\d+) \| "
-                  r"valid batches (\d+)", out)
-    check(m is not None, "cli.train logged no launch counts")
-    fwd, bwd, slot, micro, valid = map(int, m.groups())
+    counts = parse_launches(out)
+    fwd, bwd, slot, micro, valid = (counts[k] for k in (
+        "fused_ce_fwd", "fused_ce_bwd", "cache_slot_write",
+        "train micro-batches", "valid batches"))
     check(micro == 20 and valid > 0, f"{micro} micro-batches, {valid} "
           "validation batches")
     check(fwd == micro + valid and bwd == micro,
@@ -570,6 +615,232 @@ def phase6() -> dict:
         f"{hyps!r}")
     torch.cuda.synchronize()
     return {"fwd": fwd, "bwd": bwd}
+
+# -- phase 7 -------------------------------------------------------------------
+
+FLASH_SHAPES = [   # (B, H, Hkv, S, D), causal, window, keys padded per row
+    ((4, 32, 4, 2048, 64), True, None, False),     # llama_1b training
+    ((2, 8, 8, 1000, 128), True, 256, True),       # padding, window, group 1
+    ((2, 16, 4, 777, 64), False, None, True),      # unaligned S, not causal
+    ((3, 4, 2, 45, 32), True, None, True),         # the mini LM's head dim
+]
+
+
+def flash_check(shape, causal, window, padded, cuda_tests) -> dict:
+    """The three kernels against the plain version at one shape, by
+    ``flash_compare`` of tests/test_torch_cuda.py: lse within 1e-4, out, dq,
+    dk, dv within ``flash_limits``, and a backward given another row's lse
+    outside them. Returns the max abs errors."""
+    r = cuda_tests.flash_compare(shape, causal, window, padded)
+    check(r["lse_err"] <= 1e-4,
+          f"flash_fwd lse differs at {shape} by {r['lse_err']}")
+    check(max(r["excess"]) <= 1.0, f"flash kernels differ at {shape} causal "
+          f"{causal} window {window}: out, dq, dk, dv at {r['excess']} of "
+          "their limits")
+    check(r["bad_excess"] > 1.0, f"the flash check at {shape} passes a "
+          f"backward given another row's lse ({r['bad_excess']:.3f} of the "
+          "limit)")
+    errs = r["max_abs_err"]
+    log(f"phase 7: flash kernels == plain at {shape} causal {causal} window "
+        f"{window} padded {padded}: out, dq, dk, dv at "
+        f"{', '.join(f'{e:.3f}' for e in r['excess'])} of their limits "
+        f"(another row's lse: {r['bad_excess']:.1f}); max abs err lse "
+        f"{r['lse_err']:.3e} out {errs['fwd']:.3e} dq {errs['dq']:.3e} "
+        f"dk/dv {errs['dkv']:.3e}")
+    return errs
+
+
+def flash_timing(cuda_tests) -> dict:
+    """At the llama_1b shape: device ms per call of each kernel (CUDA graph)
+    and with eager launches, the plain version's and the library
+    yardstick's ms, the operations bounds, and the peak memory of forward +
+    backward through the kernels and through the yardstick."""
+    import torch
+    import torch.nn.functional as F
+    from pasero_torch.ops.flash_attention import (flash_attention, flash_bwd,
+                                                  flash_bwd_dkv, flash_bwd_dq,
+                                                  flash_bwd_plain, flash_fwd,
+                                                  flash_fwd_plain)
+    (B, H, Hkv, S, D), causal, window, padded = FLASH_SHAPES[0]
+    q, k, v, do, mask = cuda_tests.flash_inputs(B, H, Hkv, S, D, padded)
+    scale = D ** -0.5
+    out, lse = flash_fwd(q, k, v, mask, scale, causal, window)
+    _, delta = flash_bwd_dq(q, k, v, mask, out, lse, do, scale, causal, window)
+    # operations this run's data needs: every (row, visible key) pair costs
+    # 2 D per product; bytes: each input read and each output written once
+    pairs = B * H * S * (S + 1) / 2
+    product = 2.0 * pairs * D
+    q_bytes, kv_bytes, row_bytes = B * H * S * D * 2, B * Hkv * S * D * 2, \
+        B * H * S * 4
+
+    def bound(products, nbytes):
+        return max(products * product / BF16_FLOPS,
+                   nbytes / HBM_BYTES_PER_S) * 1e3
+
+    res = {
+        "fwd": {"bound_ms": bound(2, 2 * q_bytes + 2 * kv_bytes + row_bytes)},
+        # the backward's function: QK^T and dO V^T recomputed, P^T dO, dS K,
+        # dS^T Q; the dq kernel alone needs three, the dk/dv kernel four
+        "bwd": {"bound_ms": bound(5, 4 * q_bytes + 4 * kv_bytes + row_bytes)},
+        "dq": {"kernel_bound_ms": bound(3, 4 * q_bytes + 2 * kv_bytes
+                                        + 2 * row_bytes)},
+        "dkv": {"kernel_bound_ms": bound(4, 2 * q_bytes + 4 * kv_bytes
+                                         + 2 * row_bytes)},
+    }
+    args = (scale, causal, window)
+    kernels = {
+        "fwd": lambda: flash_fwd(q, k, v, mask, *args),
+        "dq": lambda: flash_bwd_dq(q, k, v, mask, out, lse, do, *args),
+        "dkv": lambda: flash_bwd_dkv(q, k, v, mask, do, lse, delta, *args),
+        "bwd": lambda: flash_bwd(q, k, v, mask, out, lse, do, *args),
+    }
+    for key, fn in kernels.items():
+        res[key]["ms" if key in ("fwd", "bwd") else "kernel_ms"] = \
+            device_ms(fn, iters=20, replays=5)
+        res[key]["host_ms"] = time_ms(fn, 20, 3)
+    res["fwd"]["plain_ms"] = time_ms(
+        lambda: flash_fwd_plain(q, k, v, mask, *args), 5, 1)
+    res["bwd"]["plain_ms"] = time_ms(
+        lambda: flash_bwd_plain(q, k, v, mask, out, lse, do, *args), 5, 1)
+    # the library yardstick; the port never calls it
+    res["fwd"]["library_ms"] = time_ms(
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                               enable_gqa=True), 20, 3)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    lib_out = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                             enable_gqa=True)
+    res["bwd"]["library_ms"] = time_ms(lambda: torch.autograd.grad(
+        lib_out, leaves, do, retain_graph=True), 20, 3)
+    del lib_out
+    for key, fn in (("peak_mib", lambda *x: flash_attention(
+            *x, mask=mask[:, None, None, :], scale=scale, causal=True)),
+            ("library_peak_mib", lambda *x: F.scaled_dot_product_attention(
+                *x, is_causal=True, enable_gqa=True))):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        fn(*leaves).backward(do)
+        torch.cuda.synchronize()
+        res["fwd"][key] = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        del leaves
+    f, b = res["fwd"], res["bwd"]
+    log(f"phase 7: at {(B, H, Hkv, S, D)} bf16 causal, device ms per call "
+        f"(CUDA graph): forward {f['ms']:.4f} (bound {f['bound_ms']:.4f}, "
+        f"plain {f['plain_ms']:.4f}, library {f['library_ms']:.4f}); "
+        f"backward {b['ms']:.4f} = dq {res['dq']['kernel_ms']:.4f} (bound "
+        f"{res['dq']['kernel_bound_ms']:.4f}) + dk/dv "
+        f"{res['dkv']['kernel_ms']:.4f} (bound "
+        f"{res['dkv']['kernel_bound_ms']:.4f}); backward bound "
+        f"{b['bound_ms']:.4f}, plain {b['plain_ms']:.4f}, library "
+        f"{b['library_ms']:.4f}; with eager launches: forward "
+        f"{f['host_ms']:.4f} backward {b['host_ms']:.4f}; peak memory of "
+        f"forward + backward: kernels {f['peak_mib']:.1f} MiB, library "
+        f"{f['library_peak_mib']:.1f} MiB")
+    return res
+
+
+def phase7() -> dict:
+    import torch
+    cuda_tests = load_test_module("test_torch_cuda")
+    errs = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    for case in FLASH_SHAPES:
+        for key, err in flash_check(*case, cuda_tests).items():
+            errs[key] = max(errs[key], err)
+        torch.cuda.empty_cache()
+    res = flash_timing(cuda_tests)
+    for key in errs:
+        res[key]["max_abs_err"] = errs[key]
+    torch.cuda.empty_cache()
+    return res
+
+
+# -- phase 8 -------------------------------------------------------------------
+
+def phase8() -> dict:
+    import torch
+    from pasero_torch.ops.flash_attention import (flash_bwd_dkv, flash_bwd_dq,
+                                                  flash_fwd)
+    from pasero_torch.ops.fused_ce import fused_ce_bwd, fused_ce_fwd
+    from pasero_torch.scripts.bench_train import Workload
+    work = Workload("llama_1b")
+    work.run(3)                                            # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    wrappers = {"flash_fwd": flash_fwd, "flash_bwd_dq": flash_bwd_dq,
+                "flash_bwd_dkv": flash_bwd_dkv, "fused_ce_fwd": fused_ce_fwd,
+                "fused_ce_bwd": fused_ce_bwd}
+    for fn in wrappers.values():
+        fn.launches = 0
+    steps = 20
+    logs, seconds = work.run(steps)
+    counts = {name: fn.launches for name, fn in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated()
+    losses = [l["loss"] for l in logs]
+    check(all(map(math.isfinite, losses)), f"non-finite losses {losses}")
+    check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    layers = work.layers
+    want = {"flash_fwd": layers * steps, "flash_bwd_dq": layers * steps,
+            "flash_bwd_dkv": layers * steps, "fused_ce_fwd": steps,
+            "fused_ce_bwd": steps}
+    check(counts == want, f"launches {counts} != {want} for {steps} steps of "
+          f"one micro-batch through {layers} layers")
+    log(f"phase 8: llama_1b V=32000 B=4 T=2048 bf16 training: "
+        f"{work.tokens_per_step * steps / seconds:.1f} tok/s, "
+        f"{seconds * 1e3 / steps:.3f} ms per step, peak memory "
+        f"{peak / 2**20:.1f} MiB, loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+        f"launches {counts} for {steps} steps x {layers} layers")
+    del work
+    torch.cuda.empty_cache()
+    return counts
+
+
+# -- phase 9 -------------------------------------------------------------------
+
+def phase9() -> dict:
+    import shutil
+    cli = load_test_module("test_torch_train_cli")
+    model_dir = os.path.join(ROOT, "build", "smoke-lm")
+    shutil.rmtree(model_dir, ignore_errors=True)
+    os.makedirs(model_dir)
+    ckpt = os.path.join(ROOT, "build", "smoke-lm-init.npz")
+    cli.write_initial_weights(ckpt, LM_CONFIG)
+    cmd = [sys.executable, "-m", "pasero_torch.cli.train",
+           *cli.train_flags(model_dir, ckpt, LM_CONFIG), "--valid-interval",
+           "10", "--save-interval", "10"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=900)
+    elapsed = time.perf_counter() - t0
+    out = proc.stdout + proc.stderr
+    check(proc.returncode == 0, f"cli.train (LM) failed:\n{out[-4000:]}")
+    logs = cli.parse_log(out)
+    with open(LM_GOLDEN) as f:
+        golden = json.load(f)["steps"]
+    check([l["step"] for l in logs] == [g["step"] for g in golden],
+          f"logged steps {[l['step'] for l in logs]}")
+    worst = 0.0
+    for got, want in zip(logs, golden):
+        rel = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+        worst = max(worst, rel)
+        check(rel <= TRAIN_RTOL, f"LM step {got['step']}: loss {got['loss']} "
+              f"vs JAX {want['loss']}")
+    counts = parse_launches(out)
+    micro, valid = counts["train micro-batches"], counts["valid batches"]
+    with open(os.path.join(model_dir, "config.json")) as f:
+        layers = json.load(f)["decoder_layers"]
+    check(micro == 20 and valid > 0, f"{micro} micro-batches, {valid} "
+          "validation batches")
+    want = {"flash_fwd": layers * (micro + valid),
+            "flash_bwd_dq": layers * micro, "flash_bwd_dkv": layers * micro,
+            "fused_ce_fwd": micro + valid, "fused_ce_bwd": micro}
+    got = {key: counts[key] for key in want}
+    check(got == want, f"LM launches {got} != {want}")
+    log(f"phase 9: python -m pasero_torch.cli.train on lm_mini.yaml, 20 steps "
+        f"in {elapsed:.1f} s: losses {logs[0]['loss']:.3f} -> "
+        f"{logs[-1]['loss']:.3f}, all within {worst:.4%} of the JAX training "
+        f"CLI's; launches {got} for {micro} micro-batches and {valid} "
+        f"validation batches through {layers} layers")
+    return got
 
 
 def main():
@@ -594,6 +865,9 @@ def main():
     ce = phase4()
     train_full_width = phase5()
     train_cli = phase6()
+    flash = phase7()
+    lm_full_width = phase8()
+    lm_cli = phase9()
     kernels = [{
         "name": "cache_slot_write",
         "route": "cuda",
@@ -625,9 +899,42 @@ def main():
             "bound_ms": ce[key]["bound_ms"],
             "bound_by": "operations",
             "library_ms": ce[key]["library_ms"],
+            "lm_head": {name: ce["lm_head"][key][name] for name in
+                        ("ms", "plain_ms", "bound_ms", "library_ms")},
+            "lm_launches": lm_cli[f"fused_ce_{key}"],
+            "lm_full_width_launches": lm_full_width[f"fused_ce_{key}"],
         }
+        entry["lm_head"]["shape"] = list(LM_HEAD)
         if key == "bwd":   # the dx and dW kernels replace both JAX backwards
             entry["also_replaces"] = "pasero_tpu/ops/fused_ce.py:281"
+        kernels.append(entry)
+    for name, key, line in (("flash_fwd", "fwd", 342),
+                            ("flash_bwd_dq", "dq", 963),
+                            ("flash_bwd_dkv", "dkv", 1018)):
+        # the two backward kernels share the backward's numbers (the
+        # function's bound, the plain and library backwards); each adds its
+        # own time and the bound of its own outputs
+        own = flash[key]
+        side = flash["fwd"] if key == "fwd" else flash["bwd"]
+        entry = {
+            "name": name,
+            "route": "cuda",
+            "source": "pasero_torch/csrc/flash_attention.cu",
+            "replaces": f"pasero_tpu/ops/flash_attention.py:{line}",
+            "launches": lm_cli[name],
+            "full_width_launches": lm_full_width[name],
+            "max_abs_err": own["max_abs_err"],
+            "ms": side["ms"],
+            "plain_ms": side["plain_ms"],
+            "bound_ms": side["bound_ms"],
+            "bound_by": "operations",
+            "library_ms": side["library_ms"],
+            "host_ms": side["host_ms"],
+        }
+        if key != "fwd":
+            entry.update(kernel_ms=own["kernel_ms"],
+                         kernel_bound_ms=own["kernel_bound_ms"],
+                         also_replaces="pasero_tpu/ops/flash_attention.py:1086")
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -40,6 +40,6 @@ def resolve_device(device=None):
     return device
 
 
-# populate the task registry (translation only in this package); imported
+# populate the task registry (translation and language modeling); imported
 # last, since the modules it reaches import the helpers above
 from . import tasks as _tasks  # noqa: E402,F401

@@ -141,12 +141,17 @@ def evaluate(cfg, task, trainer, valid_sets, generator_factory):
 def make_generator_factory(cfg, task, trainer):
     """Beam-decode validation sources with the trainer's current weights:
     chunks of 16 prompts, bucketed and left-aligned as in the JAX training CLI
-    (cli/train.py:218-326), through the port's beam_search."""
+    (cli/train.py:218-326), through the port's beam_search. Language models
+    validate on the loss only (their tasks name no metrics)."""
     import torch
+    from pasero_torch import not_ported
     from pasero_torch.data.batching import length_buckets, pad_to_bucket
     from pasero_torch.decoding.search import beam_search, left_align
 
     model, device = trainer.model, trainer.device
+    if not model.is_encoder_decoder:
+        raise not_ported("validation metrics that decode with a decoder-only "
+                         "model", "A.8 decoder-only")
 
     def tensor(array, dtype=torch.long):
         return torch.as_tensor(np.asarray(array)).to(device, dtype)
@@ -223,7 +228,8 @@ def run_training(cfg, device=None):
     task.eval()
     valid_sets = {c.corpus_id: ValidationDataset(cfg, task, c)
                   for c in valid_corpora}
-    generator_factory = make_generator_factory(cfg, task, trainer)
+    generator_factory = (make_generator_factory(cfg, task, trainer)
+                         if cfg.metrics else None)
 
     # raise immediately AND set a flag: if the raise lands inside native code
     # or a try/except that discards it, the per-step flag check still fires
@@ -330,15 +336,21 @@ def run_training(cfg, device=None):
 def log_launches(trainer):
     """The run's kernel launches beside the batches that should cause them
     (read by chip_smoke.py): one fused-CE forward per training micro-batch
-    and per validation batch, one backward per training micro-batch."""
+    and per validation batch, one backward per training micro-batch; a
+    model whose attention takes the flash kernels launches one flash
+    forward per layer and batch, one backward per layer and micro-batch."""
     from pasero_torch.ops.cache_update import cache_slot_write_
+    from pasero_torch.ops.flash_attention import (flash_bwd_dkv, flash_bwd_dq,
+                                                  flash_fwd)
     from pasero_torch.ops.fused_ce import fused_ce_bwd, fused_ce_fwd
     micro = (trainer.step - trainer.loaded_step) * max(
         1, trainer.cfg.virtual_dp_size)
     logger.info(f"launches | fused_ce_fwd {fused_ce_fwd.launches} | "
                 f"fused_ce_bwd {fused_ce_bwd.launches} | cache_slot_write "
-                f"{cache_slot_write_.launches} | train micro-batches {micro} "
-                f"| valid batches {trainer.valid_batches}")
+                f"{cache_slot_write_.launches} | flash_fwd {flash_fwd.launches}"
+                f" | flash_bwd_dq {flash_bwd_dq.launches} | flash_bwd_dkv "
+                f"{flash_bwd_dkv.launches} | train micro-batches {micro} | "
+                f"valid batches {trainer.valid_batches}")
 
 
 def split_device(args: list) -> tuple:

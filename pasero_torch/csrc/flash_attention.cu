@@ -1,0 +1,691 @@
+// Flash attention, forward and backward, for grouped K/V heads and no bias:
+//
+//   s[i, j]  = scale * sum_d q[b, h, i, d] * k[b, h / G, j, d]     (fp32)
+//   p[i, j]  = exp(s[i, j] - lse[i]) where key j is visible from row i, else 0
+//   out[i]   = sum_j p[i, j] * v[b, h / G, j]          (p rounded to bf16 first)
+//   lse[i]   = log sum_j exp(s[i, j])                   (fp32; -1e30 if no key)
+//
+// with G = H / Hkv query heads per K/V head. Key j is visible from row i when
+// kv_mask[b, j] is set, j <= i (causal, slot indices) and i - j < window (a
+// sliding window), as pasero_tpu/ops/flash_attention.py applies them; a row
+// with no visible key gets out = 0. The backward takes dO, out and lse:
+//
+//   delta[i] = sum_d dO[i, d] * out[i, d]          (fp32 over the bf16 out)
+//   dS[i, j] = p[i, j] * (dO[i] . v[j] - delta[i])   (rounded to bf16)
+//   dq = scale * dS . k,  dk = scale * sum over the group of dS^T . q,
+//   dv = sum over the group of p^T . dO            (p rounded to bf16)
+//
+// Kernels and the TPU kernels they replace:
+//   fwd_kernel     _fwd_packed_kernel (pasero_tpu/ops/flash_attention.py:261,
+//                  called through _fwd_packed, :342);
+//   bwd_dq_kernel  _bwd_dq_packed_kernel (:963), with delta computed here
+//                  from out and dO (JAX computes it outside, :1409) and
+//                  written for the dk/dv kernel;
+//   bwd_dkv_kernel _bwd_dkv_packed_kernel (:1018, both through _bwd_packed,
+//                  :1086): one block per (batch, K/V head, 64-key tile) loops
+//                  over the query tiles of every query head of its group, so
+//                  dk and dv come out at K/V-head width with no (B, H, S, D)
+//                  intermediate, no post-sum and no atomics.
+//
+// What bounds them: operations. One causal product at B = 4, H = 32,
+// S = 2048, D = 64 is 2 B H S^2 D / 2 = 34.4 GFLOP, 0.0347 ms at 989 TFLOP/s
+// (bf16 dense). The forward does two products (QK^T, PV); the backward's
+// function needs five (QK^T and dO V^T recomputed, P^T dO, dS K, dS^T Q).
+// This design runs seven: the dq and the dk/dv kernels each recompute QK^T
+// and dO V^T, the price of writing dq, dk and dv once each with no atomics.
+//
+// Design, kept simple and right first: 128 threads (4 warps) per block, each
+// warp owning 16 rows of a 64-row tile; bf16 operands staged in shared
+// memory with 16-byte cp.async copies (rows padded by 16 bytes, so ldmatrix
+// reads are free of bank conflicts), the next K/V (or Q/dO) tile's copies in
+// flight while the tensor cores work on this one (two stages); products on
+// the tensor cores with mma.sync m16n8k16 (bf16 in, fp32 accumulation). The
+// score tile of a warp stays in registers: the online softmax (row max and
+// row sum in fp32, in log2 units) runs there, and the probabilities are
+// repacked from the accumulator layout into the next product's operand
+// layout without a trip through shared memory. Causal key tiles past the
+// diagonal, and tiles below a sliding window, are skipped; ragged edges are
+// zero-filled by the copies and masked. Forward blocks run the longest
+// (last) query tiles first. What holds it back: mma.sync instead of wgmma
+// (about two thirds of the card's tensor rate at best), 64-row tiles whose
+// K/V are read from L2 once per query tile and head (the GQA group is not
+// packed into one block), two pipeline stages, and the backward's two
+// recomputed products.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace flash {
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int THREADS = 128;  // 4 warps
+constexpr int BM = 64;        // rows of a block's own tile, 16 per warp
+constexpr int BN = 64;        // columns of the tile it loops over (forward, dq)
+constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+__device__ inline uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared without a register round trip; valid = false
+// writes zeros and reads nothing.
+__device__ inline void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ inline void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ inline void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ inline void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ inline void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// c (16 x 8, fp32) += a (16 x 16, bf16, row) . b (16 x 8, bf16, col)
+__device__ inline void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                           uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ inline uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ inline float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ inline float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Rows [r0, r0 + R) of a row-major (nrows, D) matrix into shared memory with
+// leading dimension D + 8, zeros past nrows. Issues cp.async copies only; the
+// caller commits and waits.
+template <int D, int R>
+__device__ inline void load_tile(bf16* dst, const bf16* __restrict__ src, int r0,
+                                 int nrows) {
+  constexpr int CH = D / 8;
+  for (int i = threadIdx.x; i < R * CH; i += THREADS) {
+    const int r = i / CH, c = (i % CH) * 8;
+    const bool ok = r0 + r < nrows;
+    cp_async16(dst + r * (D + 8) + c, ok ? src + (int64_t)(r0 + r) * D + c : src, ok);
+  }
+}
+
+// s[16 x 8 NT] = A[16 x D] . B[8 NT x D]^T for one warp: A's 16 rows and B's
+// rows in shared memory (leading dimension D + 8). s is in the mma
+// accumulator layout: s[j][0..1] at row lane / 4, columns 8 j + 2 (lane % 4)
+// + {0, 1}; s[j][2..3] the same columns at row lane / 4 + 8.
+template <int D, int NT>
+__device__ inline void warp_abt(float (&s)[NT][4], const bf16* A, const bf16* B,
+                                int lane) {
+  constexpr int LD = D + 8;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t a[4];
+    ldsm_x4(a, A + (lane % 16) * LD + kk * 16 + (lane / 16) * 8);
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      uint32_t b[4];
+      ldsm_x4(b, B + (np * 16 + (lane % 8) + (lane / 16) * 8) * LD + kk * 16 +
+                     ((lane / 8) % 2) * 8);
+      mma(s[2 * np], a, b[0], b[1]);
+      mma(s[2 * np + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// o[16 x D] += P[16 x 8 KT] . M[8 KT x D] for one warp: P in registers in
+// the accumulator layout of warp_abt (rounded to bf16 here), M's rows in
+// shared memory (leading dimension D + 8).
+template <int D, int KT>
+__device__ inline void warp_pm(float (&o)[D / 8][4], const float (&p)[KT][4],
+                               const bf16* M, int lane) {
+  constexpr int LD = D + 8;
+#pragma unroll
+  for (int kk = 0; kk < KT / 2; ++kk) {
+    const uint32_t a[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]),
+                           pack_bf16(p[2 * kk][2], p[2 * kk][3]),
+                           pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
+                           pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
+#pragma unroll
+    for (int dn = 0; dn < D / 16; ++dn) {
+      uint32_t b[4];
+      ldsm_x4_t(b, M + (kk * 16 + (lane % 8) + ((lane / 8) % 2) * 8) * LD + dn * 16 +
+                       (lane / 16) * 8);
+      mma(o[2 * dn], a, b[0], b[1]);
+      mma(o[2 * dn + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// Is key `col` visible from query row `row`?
+__device__ inline bool visible(int row, int col, int Sk, const uint8_t* __restrict__ mask,
+                               int causal, int window) {
+  bool ok = col < Sk && mask[col];
+  if (causal) ok = ok && col <= row;
+  if (window > 0) ok = ok && row - col < window;
+  return ok;
+}
+
+// -- forward -------------------------------------------------------------------
+
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+    fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+               const bf16* __restrict__ v, const uint8_t* __restrict__ kv_mask,
+               bf16* __restrict__ out, float* __restrict__ lse, int H, int Hkv, int Sq,
+               int Sk, float scale, int causal, int window) {
+  constexpr int LD = D + 8;
+  constexpr int NT = BN / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* Ks = Qs + BM * LD;       // [2][BN][LD]
+  bf16* Vs = Ks + 2 * BN * LD;   // [2][BN][LD]
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BM;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int hk = h / (H / Hkv);
+  const bf16* qg = q + (int64_t)bh * Sq * D;
+  const int64_t kv_off = ((int64_t)b * Hkv + hk) * Sk * D;
+  const bf16* kg = k + kv_off;
+  const bf16* vg = v + kv_off;
+  const uint8_t* mg = kv_mask + (int64_t)b * Sk;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int row0 = q0 + warp * 16 + lane / 4;   // accumulator rows row0, row0 + 8
+  const int tcol = 2 * (lane % 4);
+
+  int kt0 = 0, kt1 = (Sk + BN - 1) / BN;
+  if (causal) kt1 = min(kt1, (q0 + BM - 1) / BN + 1);
+  if (window > 0) kt0 = max(0, (q0 - window + 1) / BN);
+
+  load_tile<D, BM>(Qs, qg, q0, Sq);
+  if (kt0 < kt1) {
+    load_tile<D, BN>(Ks, kg, kt0 * BN, Sk);
+    load_tile<D, BN>(Vs, vg, kt0 * BN, Sk);
+  }
+  cp_async_commit();
+
+  float o[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};   // running row max, log2 units
+  float l[2] = {0.f, 0.f};               // this thread's part of the row sum
+  const float sl2 = scale * LOG2E;
+
+  for (int kt = kt0; kt < kt1; ++kt) {
+    const int st = (kt - kt0) & 1;
+    if (kt + 1 < kt1) {
+      load_tile<D, BN>(Ks + (st ^ 1) * BN * LD, kg, (kt + 1) * BN, Sk);
+      load_tile<D, BN>(Vs + (st ^ 1) * BN * LD, vg, (kt + 1) * BN, Sk);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    float s[NT][4];
+    warp_abt<D, NT>(s, Qs + warp * 16 * LD, Ks + st * BN * LD, lane);
+    const int k0 = kt * BN;
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = row0 + (e >> 1) * 8, col = k0 + j * 8 + tcol + (e & 1);
+        s[j][e] = visible(row, col, Sk, mg, causal, window) ? s[j][e] * sl2 : -INFINITY;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+      }
+    float mu[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = quad_max(mx[r]);
+      mu[r] = mx[r] == -INFINITY ? 0.f : mx[r];   // no visible key yet
+      const float alpha = exp2f(m[r] - mu[r]);
+      m[r] = mx[r];
+      l[r] *= alpha;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        o[j][2 * r] *= alpha;
+        o[j][2 * r + 1] *= alpha;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = exp2f(s[j][e] - mu[e >> 1]);
+        l[e >> 1] += s[j][e];
+      }
+    warp_pm<D, NT>(o, s, Vs + st * BN * LD, lane);
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float lr = quad_sum(l[r]);
+    const int row = row0 + r * 8;
+    if (row >= Sq) continue;
+    const float inv = lr == 0.f ? 0.f : 1.f / lr;
+    bf16* og = out + ((int64_t)bh * Sq + row) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(og + j * 8 + tcol) =
+          __floats2bfloat162_rn(o[j][2 * r] * inv, o[j][2 * r + 1] * inv);
+    if (lane % 4 == 0)
+      lse[(int64_t)bh * Sq + row] = lr == 0.f ? NEG_INF : m[r] * LN2 + logf(lr);
+  }
+}
+
+// -- backward: dq (and delta) --------------------------------------------------
+
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+    bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                  const bf16* __restrict__ v, const uint8_t* __restrict__ kv_mask,
+                  const bf16* __restrict__ out, const bf16* __restrict__ dout,
+                  const float* __restrict__ lse, float* __restrict__ delta,
+                  bf16* __restrict__ dq, int H, int Hkv, int Sq, int Sk, float scale,
+                  int causal, int window) {
+  constexpr int LD = D + 8;
+  constexpr int NT = BN / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* dOs = Qs + BM * LD;
+  bf16* Ks = dOs + BM * LD;      // [2][BN][LD]
+  bf16* Vs = Ks + 2 * BN * LD;   // [2][BN][LD]
+  float* delta_s = reinterpret_cast<float*>(Vs + 2 * BN * LD);   // [BM]
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BM;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int hk = h / (H / Hkv);
+  const int64_t q_off = (int64_t)bh * Sq * D;
+  const int64_t kv_off = ((int64_t)b * Hkv + hk) * Sk * D;
+  const bf16* kg = k + kv_off;
+  const bf16* vg = v + kv_off;
+  const uint8_t* mg = kv_mask + (int64_t)b * Sk;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int row0 = q0 + warp * 16 + lane / 4;
+  const int tcol = 2 * (lane % 4);
+
+  int kt0 = 0, kt1 = (Sk + BN - 1) / BN;
+  if (causal) kt1 = min(kt1, (q0 + BM - 1) / BN + 1);
+  if (window > 0) kt0 = max(0, (q0 - window + 1) / BN);
+
+  load_tile<D, BM>(Qs, q + q_off, q0, Sq);
+  load_tile<D, BM>(dOs, dout + q_off, q0, Sq);
+  if (kt0 < kt1) {
+    load_tile<D, BN>(Ks, kg, kt0 * BN, Sk);
+    load_tile<D, BN>(Vs, vg, kt0 * BN, Sk);
+  }
+  cp_async_commit();
+
+  // delta of the warp's 16 rows in fp32 over the bf16 out, written for the
+  // dk/dv kernel
+  for (int r = 0; r < 16; ++r) {
+    const int row = q0 + warp * 16 + r;
+    float acc = 0.f;
+    if (row < Sq) {
+      const bf16* og = out + q_off + (int64_t)row * D;
+      const bf16* dg = dout + q_off + (int64_t)row * D;
+      for (int d = 2 * lane; d < D; d += 64) {
+        const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(og + d));
+        const float2 c = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(dg + d));
+        acc += a.x * c.x + a.y * c.y;
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off /= 2) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    if (lane == 0) {
+      delta_s[warp * 16 + r] = acc;
+      if (row < Sq) delta[(int64_t)bh * Sq + row] = acc;
+    }
+  }
+  __syncwarp();
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + r * 8;
+    lse2[r] = row < Sq ? lse[(int64_t)bh * Sq + row] * LOG2E : 0.f;
+    dl[r] = delta_s[warp * 16 + lane / 4 + r * 8];
+  }
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  const float sl2 = scale * LOG2E;
+
+  for (int kt = kt0; kt < kt1; ++kt) {
+    const int st = (kt - kt0) & 1;
+    if (kt + 1 < kt1) {
+      load_tile<D, BN>(Ks + (st ^ 1) * BN * LD, kg, (kt + 1) * BN, Sk);
+      load_tile<D, BN>(Vs + (st ^ 1) * BN * LD, vg, (kt + 1) * BN, Sk);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    const bf16* Kt = Ks + st * BN * LD;
+    float s[NT][4], dp[NT][4];
+    warp_abt<D, NT>(s, Qs + warp * 16 * LD, Kt, lane);
+    warp_abt<D, NT>(dp, dOs + warp * 16 * LD, Vs + st * BN * LD, lane);
+    const int k0 = kt * BN;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const int row = row0 + r * 8, col = k0 + j * 8 + tcol + (e & 1);
+        const float p = visible(row, col, Sk, mg, causal, window)
+                            ? exp2f(s[j][e] * sl2 - lse2[r]) : 0.f;
+        s[j][e] = p * (dp[j][e] - dl[r]);   // dS
+      }
+    warp_pm<D, NT>(acc, s, Kt, lane);
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + r * 8;
+    if (row >= Sq) continue;
+    bf16* g = dq + q_off + (int64_t)row * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(g + j * 8 + tcol) =
+          __floats2bfloat162_rn(acc[j][2 * r] * scale, acc[j][2 * r + 1] * scale);
+  }
+}
+
+// -- backward: dk, dv ----------------------------------------------------------
+
+// NI: query rows per inner tile (64 for D = 32 and 64, 32 for D = 128,
+// which keeps the dk and dv accumulators in registers).
+template <int D, int NI>
+__global__ void __launch_bounds__(THREADS)
+    bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v, const uint8_t* __restrict__ kv_mask,
+                   const bf16* __restrict__ dout, const float* __restrict__ lse,
+                   const float* __restrict__ delta, bf16* __restrict__ dk,
+                   bf16* __restrict__ dv, int H, int Hkv, int Sq, int Sk, float scale,
+                   int causal, int window) {
+  constexpr int LD = D + 8;
+  constexpr int NT = NI / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem);
+  bf16* Vs = Ks + BM * LD;
+  bf16* Qs = Vs + BM * LD;       // [2][NI][LD]
+  bf16* dOs = Qs + 2 * NI * LD;  // [2][NI][LD]
+  float* lse_s = reinterpret_cast<float*>(dOs + 2 * NI * LD);   // [2][NI], log2 units
+  float* delta_s = lse_s + 2 * NI;                              // [2][NI]
+
+  const int j0 = blockIdx.x * BM;
+  const int bk = blockIdx.y, b = bk / Hkv, hk = bk % Hkv;
+  const int group = H / Hkv;
+  const int64_t kv_off = (int64_t)bk * Sk * D;
+  const uint8_t* mg = kv_mask + (int64_t)b * Sk;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int key0 = j0 + warp * 16 + lane / 4;   // accumulator rows key0, key0 + 8
+  const int tcol = 2 * (lane % 4);
+
+  int it0 = causal ? j0 / NI : 0;
+  int it1 = (Sq + NI - 1) / NI;
+  if (window > 0) it1 = min(it1, (j0 + BM + window - 2) / NI + 1);
+  const int ntiles = max(0, it1 - it0);
+  const int iters = group * ntiles;
+
+  // the inner tile `idx`: query head hk * group + idx / ntiles, query tile
+  // it0 + idx % ntiles
+  auto load_inner = [&](int idx, int stage) {
+    const int hh = hk * group + idx / ntiles;
+    const int i0 = (it0 + idx % ntiles) * NI;
+    const int64_t q_off = ((int64_t)b * H + hh) * Sq * D;
+    load_tile<D, NI>(Qs + stage * NI * LD, q + q_off, i0, Sq);
+    load_tile<D, NI>(dOs + stage * NI * LD, dout + q_off, i0, Sq);
+    const int64_t r_off = ((int64_t)b * H + hh) * Sq;
+    for (int i = threadIdx.x; i < NI; i += THREADS) {
+      const bool ok = i0 + i < Sq;
+      lse_s[stage * NI + i] = ok ? lse[r_off + i0 + i] * LOG2E : 0.f;
+      delta_s[stage * NI + i] = ok ? delta[r_off + i0 + i] : 0.f;
+    }
+  };
+
+  load_tile<D, BM>(Ks, k + kv_off, j0, Sk);
+  load_tile<D, BM>(Vs, v + kv_off, j0, Sk);
+  if (iters > 0) load_inner(0, 0);
+  cp_async_commit();
+
+  bool key_ok[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = key0 + r * 8;
+    key_ok[r] = key < Sk && mg[key];
+  }
+  float dka[D / 8][4], dva[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
+  const float sl2 = scale * LOG2E;
+
+  for (int idx = 0; idx < iters; ++idx) {
+    const int st = idx & 1;
+    if (idx + 1 < iters) {
+      load_inner(idx + 1, st ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    const bf16* Qt = Qs + st * NI * LD;
+    const bf16* dOt = dOs + st * NI * LD;
+    const float* ls = lse_s + st * NI;
+    const float* ds_ = delta_s + st * NI;
+    const int i0 = (it0 + idx % ntiles) * NI;
+    float s[NT][4], dp[NT][4];   // transposed: rows are keys, columns queries
+    warp_abt<D, NT>(s, Ks + warp * 16 * LD, Qt, lane);
+    warp_abt<D, NT>(dp, Vs + warp * 16 * LD, dOt, lane);
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const int key = key0 + r * 8;
+        const int ci = j * 8 + tcol + (e & 1), row = i0 + ci;
+        bool ok = key_ok[r] && row < Sq;
+        if (causal) ok = ok && key <= row;
+        if (window > 0) ok = ok && row - key < window;
+        const float p = ok ? exp2f(s[j][e] * sl2 - ls[ci]) : 0.f;
+        s[j][e] = p;
+        dp[j][e] = p * (dp[j][e] - ds_[ci]);   // dS^T
+      }
+    warp_pm<D, NT>(dva, s, dOt, lane);
+    warp_pm<D, NT>(dka, dp, Qt, lane);
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = key0 + r * 8;
+    if (key >= Sk) continue;
+    bf16* gk = dk + kv_off + (int64_t)key * D;
+    bf16* gv = dv + kv_off + (int64_t)key * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(gk + j * 8 + tcol) =
+          __floats2bfloat162_rn(dka[j][2 * r] * scale, dka[j][2 * r + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(gv + j * 8 + tcol) =
+          __floats2bfloat162_rn(dva[j][2 * r], dva[j][2 * r + 1]);
+    }
+  }
+}
+
+// -- launchers -----------------------------------------------------------------
+
+// Above 48 KB a kernel must opt in to dynamic shared memory; done on the
+// first launch of each kernel only, so later launches (and CUDA graph
+// captures) make no attribute call.
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes, bool& done) {
+  if (done) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  done = err == cudaSuccess;
+  return err;
+}
+
+bool bad_args(int B, int H, int Hkv, int Sq, int Sk, int D, int window) {
+  return B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || Sq <= 0 || Sk <= 0 ||
+         (D != 32 && D != 64 && D != 128) || window < 0 || (int64_t)B * H > 65535;
+}
+
+template <int D>
+cudaError_t launch_fwd(const void* q, const void* k, const void* v, const uint8_t* mask,
+                       void* out, float* lse, int B, int H, int Hkv, int Sq, int Sk,
+                       float scale, int causal, int window, cudaStream_t stream) {
+  const size_t bytes = (size_t)(BM + 4 * BN) * (D + 8) * sizeof(bf16);
+  static bool done = false;
+  cudaError_t err = allow_smem(fwd_kernel<D>, bytes, done);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Sq + BM - 1) / BM, B * H);
+  fwd_kernel<D><<<grid, THREADS, bytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), mask, static_cast<bf16*>(out), lse, H, Hkv, Sq, Sk,
+      scale, causal, window);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dq(const void* q, const void* k, const void* v, const uint8_t* mask,
+                      const void* out, const void* dout, const float* lse, float* delta,
+                      void* dq, int B, int H, int Hkv, int Sq, int Sk, float scale,
+                      int causal, int window, cudaStream_t stream) {
+  const size_t bytes = (size_t)(2 * BM + 4 * BN) * (D + 8) * sizeof(bf16) +
+                       BM * sizeof(float);
+  static bool done = false;
+  cudaError_t err = allow_smem(bwd_dq_kernel<D>, bytes, done);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Sq + BM - 1) / BM, B * H);
+  bwd_dq_kernel<D><<<grid, THREADS, bytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), mask, static_cast<const bf16*>(out),
+      static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dq), H, Hkv, Sq,
+      Sk, scale, causal, window);
+  return cudaGetLastError();
+}
+
+template <int D, int NI>
+cudaError_t launch_dkv(const void* q, const void* k, const void* v, const uint8_t* mask,
+                       const void* dout, const float* lse, const float* delta, void* dk,
+                       void* dv, int B, int H, int Hkv, int Sq, int Sk, float scale,
+                       int causal, int window, cudaStream_t stream) {
+  const size_t bytes = (size_t)(2 * BM + 4 * NI) * (D + 8) * sizeof(bf16) +
+                       4 * NI * sizeof(float);
+  auto kernel = bwd_dkv_kernel<D, NI>;
+  static bool done = false;
+  cudaError_t err = allow_smem(kernel, bytes, done);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Sk + BM - 1) / BM, B * Hkv);
+  kernel<<<grid, THREADS, bytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), mask, static_cast<const bf16*>(dout), lse, delta,
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, Hkv, Sq, Sk, scale, causal,
+      window);
+  return cudaGetLastError();
+}
+
+}  // namespace flash
+
+using namespace flash;
+
+extern "C" {
+
+// q (B, H, Sq, D), k/v (B, Hkv, Sk, D), out (B, H, Sq, D): bfloat16,
+// contiguous, 16-byte aligned; kv_mask (B, Sk) uint8 (1 = key present); lse
+// (B, H, Sq) f32. D is 32, 64 or 128; window 0 means none. Returns
+// cudaGetLastError() after the launch (0 on success), or cudaErrorInvalidValue
+// for arguments the kernels do not take.
+int flash_fwd(const void* q, const void* k, const void* v, const uint8_t* kv_mask,
+              void* out, float* lse, int B, int H, int Hkv, int Sq, int Sk, int D,
+              float scale, int causal, int window, void* stream) {
+  if (bad_args(B, H, Hkv, Sq, Sk, D, window)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 32)
+    return (int)launch_fwd<32>(q, k, v, kv_mask, out, lse, B, H, Hkv, Sq, Sk, scale,
+                               causal, window, s);
+  if (D == 64)
+    return (int)launch_fwd<64>(q, k, v, kv_mask, out, lse, B, H, Hkv, Sq, Sk, scale,
+                               causal, window, s);
+  return (int)launch_fwd<128>(q, k, v, kv_mask, out, lse, B, H, Hkv, Sq, Sk, scale,
+                              causal, window, s);
+}
+
+// dq (B, H, Sq, D) bfloat16; delta (B, H, Sq) f32 is written for flash_bwd_dkv.
+int flash_bwd_dq(const void* q, const void* k, const void* v, const uint8_t* kv_mask,
+                 const void* out, const void* dout, const float* lse, float* delta,
+                 void* dq, int B, int H, int Hkv, int Sq, int Sk, int D, float scale,
+                 int causal, int window, void* stream) {
+  if (bad_args(B, H, Hkv, Sq, Sk, D, window)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 32)
+    return (int)launch_dq<32>(q, k, v, kv_mask, out, dout, lse, delta, dq, B, H, Hkv,
+                              Sq, Sk, scale, causal, window, s);
+  if (D == 64)
+    return (int)launch_dq<64>(q, k, v, kv_mask, out, dout, lse, delta, dq, B, H, Hkv,
+                              Sq, Sk, scale, causal, window, s);
+  return (int)launch_dq<128>(q, k, v, kv_mask, out, dout, lse, delta, dq, B, H, Hkv,
+                             Sq, Sk, scale, causal, window, s);
+}
+
+// dk, dv (B, Hkv, Sk, D) bfloat16, summed over each K/V head's query heads.
+int flash_bwd_dkv(const void* q, const void* k, const void* v, const uint8_t* kv_mask,
+                  const void* dout, const float* lse, const float* delta, void* dk,
+                  void* dv, int B, int H, int Hkv, int Sq, int Sk, int D, float scale,
+                  int causal, int window, void* stream) {
+  if (bad_args(B, H, Hkv, Sq, Sk, D, window)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 32)
+    return (int)launch_dkv<32, 64>(q, k, v, kv_mask, dout, lse, delta, dk, dv, B, H,
+                                   Hkv, Sq, Sk, scale, causal, window, s);
+  if (D == 64)
+    return (int)launch_dkv<64, 64>(q, k, v, kv_mask, dout, lse, delta, dk, dv, B, H,
+                                   Hkv, Sq, Sk, scale, causal, window, s);
+  return (int)launch_dkv<128, 32>(q, k, v, kv_mask, dout, lse, delta, dk, dv, B, H, Hkv,
+                                  Sq, Sk, scale, causal, window, s);
+}
+
+const char* flash_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

@@ -102,6 +102,9 @@ class TextGenerator:
         self.arch = arch
         self.model_cfg = model_cfg
         model_cfg.setup_for_inference(cfg)
+        if model_cfg.model_type == "decoder":
+            raise not_ported("decoding with a decoder-only model",
+                             "A.8 decoder-only")
 
         task_cls = get_task_cls(cfg.task)
         self.task = task_cls(cfg.model_dir, cfg.task_cfg)

@@ -1,13 +1,20 @@
-"""Multi-head attention with a fixed-size KV cache and lineage beam attention.
+"""Multi-head attention with grouped K/V heads, RoPE, sliding windows, a
+fixed-size KV cache and lineage beam attention.
 
 PyTorch counterpart of pasero_tpu/models/attention.py. As there:
 
 - the self-attention cache is a fixed-size (B, H, L, D) buffer written at a
   running slot index; prompts are LEFT-padded, so every row writes the same
   slot, and the caller's kv mask marks left-pad slots invalid;
-- masks are boolean (True = attend); causality comes from positions;
+- masks are boolean (True = attend); causality and the sliding window come
+  from positions on the plain path, from slot indices in the flash kernels;
 - attention scores, their softmax and the tied logits are float32 products
-  of ``dtype`` operands (flax's ``preferred_element_type=float32``).
+  of ``dtype`` operands (flax's ``preferred_element_type=float32``);
+- ``kernel`` picks the full forward's attention: 'xla' (the plain path),
+  'flash' (ops/flash_attention.py: the CUDA kernels on the card, their plain
+  version on the CPU) or 'auto', with JAX's rule (flash for grouped K/V
+  heads from Sq * Sk >= 1024^2, for any heads from 4096^2, never under live
+  attention dropout or at decode).
 
 The cache lives in ``KVCache`` objects that the caller creates and passes,
 and is updated in place: each single-token write goes through the
@@ -23,8 +30,11 @@ from typing import Optional
 import torch
 from torch import nn
 
+from .. import not_ported
 from ..ops.cache_update import cache_slot_write_
+from ..ops.flash_attention import flash_attention
 from .modules import Dropout, Linear
+from .positional import apply_rope
 
 NEG_INF = -1e9  # large finite value: safe for padded rows (softmax of all -1e9 is uniform, masked later)
 
@@ -100,36 +110,64 @@ def dot_product_attention(q, k, v, mask=None, scale=1.0, dropout=None):
 
 
 class MultiheadAttention(nn.Module):
-    """Dense multi-head attention (pasero_tpu/models/attention.py:122) with
-    the decode caches of ``_update_cache`` (:317). Grouped K/V heads, RoPE,
-    sliding windows and attention biases come with the decoder-only slice."""
+    """Multi-head attention (pasero_tpu/models/attention.py:122) with
+    grouped K/V heads (``kv_heads``), RoPE on self-attention (``rope_base``),
+    a sliding window, the kernel choice, and the decode caches of
+    ``_update_cache`` (:317). Attention biases (ALiBi, T5) come with later
+    slices."""
 
     def __init__(self, embed_dim: int, num_heads: int, use_bias: bool = True,
                  key_bias: bool = True, scale_attn: bool = True,
                  max_qkv: Optional[float] = None, causal: bool = False,
                  cross_attention: bool = False,
-                 dtype: torch.dtype = torch.bfloat16, dropout: float = 0.0):
+                 dtype: torch.dtype = torch.bfloat16, dropout: float = 0.0,
+                 kv_heads: Optional[int] = None,
+                 rope_base: Optional[float] = None,
+                 sliding_window: Optional[int] = None, kernel: str = "auto"):
         super().__init__()
+        if kernel == "ring":
+            raise not_ported("ring attention (--attention-kernel ring)",
+                             "A.12 parallelism")
+        if kernel not in ("auto", "xla", "flash"):
+            raise ValueError(f"unknown attention kernel {kernel!r}")
         self.num_heads = num_heads
+        self.kv_heads = kv_heads or num_heads
         self.head_dim = embed_dim // num_heads
         self.scale = self.head_dim ** -0.5 if scale_attn else 1.0
         self.max_qkv = max_qkv
         self.causal = causal
         self.cross_attention = cross_attention
+        self.rope_base = rope_base
+        self.sliding_window = sliding_window
+        self.kernel = kernel
         inner = num_heads * self.head_dim
+        kv_inner = self.kv_heads * self.head_dim
         self.q_proj = Linear(embed_dim, inner, use_bias=use_bias, dtype=dtype)
-        self.k_proj = Linear(embed_dim, inner, use_bias=use_bias and key_bias,
+        self.k_proj = Linear(embed_dim, kv_inner,
+                             use_bias=use_bias and key_bias, dtype=dtype)
+        self.v_proj = Linear(embed_dim, kv_inner, use_bias=use_bias,
                              dtype=dtype)
-        self.v_proj = Linear(embed_dim, inner, use_bias=use_bias, dtype=dtype)
         self.out_proj = Linear(inner, embed_dim, use_bias=use_bias, dtype=dtype)
         self.dropout = Dropout(dropout)     # on the attention weights
 
-    def _heads(self, x):
+    def _heads(self, x, heads: int):
         B, S = x.shape[:2]
-        out = x.reshape(B, S, self.num_heads, self.head_dim).transpose(1, 2)
+        out = x.reshape(B, S, heads, self.head_dim).transpose(1, 2)
         if self.max_qkv is not None:   # MPT-style stability clamp
             out = out.clamp(-self.max_qkv, self.max_qkv)
         return out
+
+    def use_flash(self, Sq: int, Sk: int, decode: bool) -> bool:
+        """JAX's choice (pasero_tpu/models/attention.py:256-279): flash
+        never runs at decode or under live attention dropout."""
+        dropout_live = self.training and self.dropout.rate > 0
+        kernel = self.kernel
+        if kernel == "auto":
+            long_seq = Sq * Sk >= 4096 * 4096
+            gqa_win = self.kv_heads < self.num_heads and Sq * Sk >= 1024 * 1024
+            kernel = "flash" if (long_seq or gqa_win) and not dropout_live \
+                else "xla"
+        return kernel == "flash" and not decode and not dropout_live
 
     def forward(self, x_q, x_kv=None, mask=None, positions=None,
                 cache: Optional[KVCache] = None, beam_lineage=None):
@@ -138,36 +176,61 @@ class MultiheadAttention(nn.Module):
         positions; cache: this layer's KVCache at decode time;
         beam_lineage: (B0, K, L) for lineage beam attention."""
         B, Sq = x_q.shape[:2]
-        q = self._heads(self.q_proj(x_q))
+        q = self._heads(self.q_proj(x_q), self.num_heads)
+        if positions is None:
+            positions = torch.arange(Sq, device=x_q.device).expand(B, Sq)
+        rope = self.rope_base is not None and not self.cross_attention
+        if rope:
+            q = apply_rope(q, positions, self.rope_base)
         if self.cross_attention and cache is not None and cache.key is not None:
             k, v = cache.key, cache.value          # stored on the first call
         else:
             x_kv = x_q if x_kv is None else x_kv
-            k = self._heads(self.k_proj(x_kv))
-            v = self._heads(self.v_proj(x_kv))
+            k = self._heads(self.k_proj(x_kv), self.kv_heads)
+            v = self._heads(self.v_proj(x_kv), self.kv_heads)
+            if rope:
+                k = apply_rope(k, positions, self.rope_base)
             if cache is not None:
                 if self.cross_attention:
                     cache.key, cache.value = k, v
                 else:
                     k, v, mask = self._update_cache(cache, k, v, positions,
-                                                    mask)
+                                                    mask, self.sliding_window)
 
-        if self.causal and cache is None:
-            causal = positions[:, None, None, :] <= positions[:, None, :, None]
-            mask = causal if mask is None else (mask & causal)
-
-        if beam_lineage is not None and cache is not None \
-                and not self.cross_attention:
-            out = lineage_attention(q, k, v, beam_lineage, mask=mask,
-                                    scale=self.scale)
+        if self.use_flash(Sq, k.shape[2], cache is not None):
+            # GQA-sized K/V go in as they are; causality and the window come
+            # from slot indices inside the kernels, so only the key mask of
+            # ``mask`` is used
+            out = flash_attention(q.contiguous(), k.contiguous(),
+                                  v.contiguous(), mask=mask, scale=self.scale,
+                                  causal=self.causal,
+                                  window=self.sliding_window)
         else:
-            out = dot_product_attention(q, k, v, mask=mask, scale=self.scale,
-                                        dropout=self.dropout)
+            if self.causal and cache is None:
+                causal = (positions[:, None, None, :]
+                          <= positions[:, None, :, None])
+                if self.sliding_window:
+                    causal &= (positions[:, None, :, None]
+                               - positions[:, None, None, :]
+                               ) < self.sliding_window
+                mask = causal if mask is None else (mask & causal)
+            if self.kv_heads != self.num_heads:
+                group = self.num_heads // self.kv_heads
+                k = k.repeat_interleave(group, dim=1)
+                v = v.repeat_interleave(group, dim=1)
+            if beam_lineage is not None and cache is not None \
+                    and not self.cross_attention:
+                out = lineage_attention(q, k, v, beam_lineage, mask=mask,
+                                        scale=self.scale)
+            else:
+                out = dot_product_attention(q, k, v, mask=mask,
+                                            scale=self.scale,
+                                            dropout=self.dropout)
         out = out.transpose(1, 2).reshape(B, Sq, self.num_heads * self.head_dim)
         return self.out_proj(out)
 
     @staticmethod
-    def _update_cache(cache: KVCache, k, v, positions, mask):
+    def _update_cache(cache: KVCache, k, v, positions, mask, window=None):
         """Write the current K/V at the cache index, attend over [0, index+Sk).
 
         A single token goes through the slot-write kernel; a multi-token
@@ -193,5 +256,8 @@ class MultiheadAttention(nn.Module):
         kv_pos = positions[:, -1:] - (i + Sk - 1) + slots[None]    # (B, L)
         causal = kv_pos[:, None, None, :] <= positions[:, None, :, None]
         attend = causal & valid[:, None, None, :]
+        if window:
+            attend &= (positions[:, None, :, None] - kv_pos[:, None, None, :]
+                       ) < window
         mask = attend if mask is None else (mask & attend)
         return cache.key, cache.value, mask

@@ -108,9 +108,26 @@ class LayerNorm(nn.Module):
         return y.to(self.dtype)
 
 
+class RMSNorm(nn.Module):
+    """RMS normalization computed in float32 and cast to ``dtype``
+    (pasero_tpu/models/modules.py:125); ``weight`` is flax's ``scale``."""
+
+    def __init__(self, dim: int, epsilon: float = 1e-5,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.epsilon = epsilon
+        self.dtype = dtype
+
+    def forward(self, x):
+        x32 = x.float()
+        var = x32.square().mean(dim=-1, keepdim=True)
+        return (x32 * torch.rsqrt(var + self.epsilon) * self.weight).to(self.dtype)
+
+
 def make_norm(cfg, dim: int, dtype: torch.dtype) -> nn.Module:
     if cfg.rms_norm:
-        raise not_ported("RMSNorm", "A.8 decoder-only")
+        return RMSNorm(dim, epsilon=cfg.norm_eps, dtype=dtype)
     return LayerNorm(dim, epsilon=cfg.norm_eps, use_bias=cfg.norm_bias,
                      dtype=dtype)
 
@@ -123,20 +140,32 @@ ACTIVATIONS = {
 }
 
 
+# the gate's activation; geglu takes jax.nn.gelu's default, the tanh form
+GATES = {"swiglu": F.silu, "geglu": lambda x: F.gelu(x, approximate="tanh")}
+
+
 class FeedForward(nn.Module):
-    """fc1 -> activation -> dropout -> fc2 (pasero_tpu/models/modules.py:183;
-    the gated swiglu/geglu variants come with the decoder-only slice)."""
+    """fc1 -> activation -> dropout -> fc2, or with swiglu/geglu the gated
+    ``act(gate(x)) * fc1(x)`` -> dropout -> fc2
+    (pasero_tpu/models/modules.py:183)."""
 
     def __init__(self, embed_dim: int, ffn_dim: int, activation: str = "relu",
                  use_bias: bool = True, dtype: torch.dtype = torch.bfloat16,
                  dropout: float = 0.0):
         super().__init__()
-        if activation not in ACTIVATIONS:
+        if activation not in ACTIVATIONS and activation not in GATES:
             raise not_ported(f"activation {activation!r}", "A.8 decoder-only")
         self.fc1 = Linear(embed_dim, ffn_dim, use_bias=use_bias, dtype=dtype)
+        if activation in GATES:
+            self.gate = Linear(embed_dim, ffn_dim, use_bias=use_bias,
+                               dtype=dtype)
         self.fc2 = Linear(ffn_dim, embed_dim, use_bias=use_bias, dtype=dtype)
-        self.activation = ACTIVATIONS[activation]
+        self.activation = GATES.get(activation) or ACTIVATIONS[activation]
         self.dropout = Dropout(dropout)
 
     def forward(self, x):
-        return self.fc2(self.dropout(self.activation(self.fc1(x))))
+        if hasattr(self, "gate"):
+            h = self.activation(self.gate(x)) * self.fc1(x)
+        else:
+            h = self.activation(self.fc1(x))
+        return self.fc2(self.dropout(h))

@@ -1,7 +1,8 @@
-"""Additive positional encodings: sinusoidal and learned.
+"""Positional encodings: sinusoidal and learned (added to the embeddings) and
+RoPE (rotating queries and keys).
 
-PyTorch counterpart of pasero_tpu/models/positional.py:21-62. RoPE, ALiBi and
-T5 relative buckets come with the decoder-only slice (ROADMAP.md, A.8).
+PyTorch counterpart of pasero_tpu/models/positional.py:21-89. ALiBi and T5
+relative buckets come with later slices (ROADMAP.md, A.8).
 """
 
 from __future__ import annotations
@@ -53,3 +54,25 @@ class PositionalEmbedding(nn.Module):
             pe = self.embedding[(positions + self.shift).clamp(
                 0, self.max_len + self.shift - 1)]
         return x + pe.to(x.dtype)
+
+
+def rope_frequencies(head_dim: int, base: float = 10000.0) -> np.ndarray:
+    return 1.0 / (base ** (np.arange(0, head_dim, 2, dtype=np.float64) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               base: float = 10000.0) -> torch.Tensor:
+    """Rotate-half rotary embedding (pasero_tpu/models/positional.py:71):
+    cos/sin of cat(freqs, freqs) and rotate(x) = [-x2, x1], computed in
+    float32 and cast back to x's type.
+
+    x: (B, H, S, D); positions: (B, S) absolute positions."""
+    head_dim = x.shape[-1]
+    freqs = torch.from_numpy(rope_frequencies(head_dim, base).astype(
+        np.float32)).to(x.device)
+    angles = positions[:, None, :, None].float() * freqs     # (B, 1, S, D/2)
+    angles = torch.cat([angles, angles], dim=-1)             # (B, 1, S, D)
+    x32 = x.float()
+    x1, x2 = x32.chunk(2, dim=-1)
+    rotated = torch.cat([-x2, x1], dim=-1)
+    return (x32 * torch.cos(angles) + rotated * torch.sin(angles)).to(x.dtype)

@@ -1,4 +1,4 @@
-"""Transformer encoder-decoder.
+"""Transformer encoder-decoder and decoder-only models.
 
 PyTorch counterpart of pasero_tpu/models/transformer.py (encoder and decoder
 layers and stacks, ``Transformer.encode``/``decode_step``, the full forward
@@ -6,13 +6,17 @@ with the logits head, and the training forward whose loss comes from the
 fused cross-entropy head). Attribute names follow the flax module names
 (``encoder.layers_0.self_attn.q_proj``, ``shared_embed``,
 ``decoder.layers_2.cross_attn_norm``), so checkpoints map across
-mechanically (checkpoints.params_to_state_dict).
+mechanically (checkpoints.params_to_state_dict). A decoder-only model
+(``model_type == "decoder"``) has no encoder and no cross-attention, as the
+JAX model's (:682, :201).
 
-Covered: post-norm and pre-norm, sinusoidal, learned or no positions, tied
-and untied heads, relu and gelu, and residual, attention, activation and
-embedding dropout at the places the flax layers put them (live in training
-mode only). Other options raise NotImplementedError naming the ROADMAP.md
-item that brings them.
+Covered: post-norm and pre-norm, sinusoidal, learned, rotary or no
+positions, LayerNorm and RMSNorm, tied and untied heads, relu, gelu and the
+gated swiglu/geglu FFNs, grouped K/V heads, sliding windows, the attention
+kernel choice (``cfg.attention_kernel``), and residual, attention,
+activation and embedding dropout at the places the flax layers put them
+(live in training mode only). Other options raise NotImplementedError
+naming the ROADMAP.md item that brings them.
 """
 
 from __future__ import annotations
@@ -39,20 +43,12 @@ def check_supported(cfg) -> None:
 
     for side in ("encoder", "decoder"):
         pe = getattr(cfg, f"{side}_positional_encoding")
-        if pe not in ("sinusoidal", "learned", "none"):
+        if pe not in ("sinusoidal", "learned", "rotary", "none"):
             todo(f"{pe} positions", "A.8 decoder-only")
-    if cfg.model_type == "decoder":
-        todo("decoder-only models", "A.8 decoder-only")
-    if cfg.attention_heads_kv and cfg.attention_heads_kv != cfg.decoder_attention_heads:
-        todo("grouped-query attention", "A.8 decoder-only")
-    if cfg.sliding_window:
-        todo("sliding-window attention", "A.8 decoder-only")
     if cfg.parallel_attention:
         todo("parallel attention", "A.8 decoder-only")
-    if cfg.rms_norm:
-        todo("RMSNorm", "A.8 decoder-only")
-    if cfg.activation_fn in ("swiglu", "geglu"):
-        todo(f"{cfg.activation_fn} FFNs", "A.8 decoder-only")
+    if getattr(cfg, "attention_kernel", None) == "ring":
+        todo("ring attention (--attention-kernel ring)", "A.12 parallelism")
     if hasattr(cfg, "encoder_expert_count"):
         todo("mixture-of-experts layers", "A.10 MoE, adapters and hybrid")
     if hasattr(cfg, "encoder_adapter_dim"):
@@ -102,15 +98,21 @@ class _Layer(nn.Module):
         return x
 
 
+def rope_base(cfg, side: str):
+    return (cfg.rope_base
+            if getattr(cfg, f"{side}_positional_encoding") == "rotary" else None)
+
+
 class TransformerEncoderLayer(_Layer):
-    def __init__(self, cfg, dtype=torch.bfloat16):
+    def __init__(self, cfg, kernel: str = "xla", dtype=torch.bfloat16):
         super().__init__()
         self.cfg = cfg
         self.self_attn = MultiheadAttention(
             cfg.embed_dim, cfg.encoder_attention_heads, use_bias=cfg.has_bias,
             key_bias=cfg.attention_key_bias, scale_attn=cfg.scale_attn,
             max_qkv=cfg.max_qkv, causal=False, dtype=dtype,
-            dropout=cfg.attention_dropout)
+            dropout=cfg.attention_dropout,
+            rope_base=rope_base(cfg, "encoder"), kernel=kernel)
         self._norms(cfg, dtype)
         self.ffn = FeedForward(cfg.embed_dim, cfg.encoder_ffn_dim,
                                cfg.activation_fn, cfg.has_bias, dtype,
@@ -134,18 +136,24 @@ class TransformerEncoderLayer(_Layer):
 
 
 class TransformerDecoderLayer(_Layer):
-    def __init__(self, cfg, dtype=torch.bfloat16):
+    def __init__(self, cfg, has_cross_attention: bool = True,
+                 kernel: str = "xla", dtype=torch.bfloat16):
         super().__init__()
         self.cfg = cfg
         E, H = cfg.embed_dim, cfg.decoder_attention_heads
         common = dict(use_bias=cfg.has_bias, key_bias=cfg.attention_key_bias,
                       scale_attn=cfg.scale_attn, max_qkv=cfg.max_qkv,
-                      dtype=dtype, dropout=cfg.attention_dropout)
-        self.self_attn = MultiheadAttention(E, H, causal=True, **common)
+                      dtype=dtype, dropout=cfg.attention_dropout,
+                      kernel=kernel)
+        self.self_attn = MultiheadAttention(
+            E, H, causal=True, kv_heads=cfg.attention_heads_kv,
+            rope_base=rope_base(cfg, "decoder"),
+            sliding_window=cfg.sliding_window, **common)
         self._norms(cfg, dtype)
-        self.cross_attn_norm = make_norm(cfg, E, dtype)
-        self.cross_attn = MultiheadAttention(E, H, cross_attention=True,
-                                             **common)
+        if has_cross_attention:
+            self.cross_attn_norm = make_norm(cfg, E, dtype)
+            self.cross_attn = MultiheadAttention(E, H, cross_attention=True,
+                                                 **common)
         self.ffn = FeedForward(E, cfg.decoder_ffn_dim, cfg.activation_fn,
                                cfg.has_bias, dtype,
                                dropout=cfg.activation_dropout)
@@ -165,12 +173,13 @@ class TransformerDecoderLayer(_Layer):
         if not prenorm:
             x = self.self_attn_norm(x)
 
-        residual = x
-        h = self.cross_attn_norm(x) if prenorm else x
-        x = residual + self.dropout(self.cross_attn(
-            h, x_kv=encoder_out, mask=cross_mask, cache=cross_cache))
-        if not prenorm:
-            x = self.cross_attn_norm(x)
+        if hasattr(self, "cross_attn"):
+            residual = x
+            h = self.cross_attn_norm(x) if prenorm else x
+            x = residual + self.dropout(self.cross_attn(
+                h, x_kv=encoder_out, mask=cross_mask, cache=cross_cache))
+            if not prenorm:
+                x = self.cross_attn_norm(x)
 
         residual = x
         h = self.norm2(x) if prenorm else x
@@ -215,7 +224,7 @@ class _Stack(nn.Module):
 
 class TransformerEncoder(_Stack):
     def __init__(self, cfg, vocab_size: int, shared_embed=None,
-                 dtype=torch.bfloat16):
+                 kernel: str = "xla", dtype=torch.bfloat16):
         super().__init__()
         self.cfg = cfg
         self._embeddings(cfg, vocab_size, shared_embed, cfg.encoder_max_len,
@@ -224,7 +233,8 @@ class TransformerEncoder(_Stack):
             self.embed_norm = make_norm(cfg, cfg.embed_dim, dtype)
         self.num_layers = cfg.encoder_layers
         for i in range(cfg.encoder_layers):
-            self.add_module(f"layers_{i}", TransformerEncoderLayer(cfg, dtype))
+            self.add_module(f"layers_{i}",
+                            TransformerEncoderLayer(cfg, kernel, dtype))
         if cfg.encoder_prenorm:
             self.final_norm = make_norm(cfg, cfg.embed_dim, dtype)
 
@@ -248,6 +258,7 @@ class TransformerEncoder(_Stack):
 
 class TransformerDecoder(_Stack):
     def __init__(self, cfg, vocab_size: int, shared_embed=None,
+                 has_encoder: bool = True, kernel: str = "xla",
                  dtype=torch.bfloat16):
         super().__init__()
         self.cfg = cfg
@@ -258,7 +269,8 @@ class TransformerDecoder(_Stack):
             self.embed_norm = make_norm(cfg, cfg.embed_dim, dtype)
         self.num_layers = cfg.decoder_layers
         for i in range(cfg.decoder_layers):
-            self.add_module(f"layers_{i}", TransformerDecoderLayer(cfg, dtype))
+            self.add_module(f"layers_{i}", TransformerDecoderLayer(
+                cfg, has_encoder, kernel, dtype))
         if cfg.decoder_prenorm:
             self.final_norm = make_norm(cfg, cfg.embed_dim, dtype)
         if not cfg.tied_output_projection:
@@ -377,25 +389,35 @@ def chunked_cross_entropy(x, weight, targets, weights, label_smoothing=0.0,
 
 @register_model("transformer", TransformerConfig)
 class Transformer(nn.Module):
-    """Encoder-decoder model: encode -> decode (pasero_tpu/models/
-    transformer.py:650). Parameters are float32; compute runs in ``dtype``."""
+    """Encoder-decoder model, encode -> decode, or decoder-only model
+    (pasero_tpu/models/transformer.py:650). Parameters are float32; compute
+    runs in ``dtype``. ``kernel`` (default ``cfg.attention_kernel``) picks
+    every attention layer's implementation, as in JAX (:680)."""
 
     supports_beam_lineage = True
 
     def __init__(self, cfg, src_vocab_size: int,
                  tgt_vocab_size: Optional[int] = None,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16,
+                 kernel: Optional[str] = None):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
         self.dtype = dtype
+        kernel = kernel or getattr(cfg, "attention_kernel", None) or "xla"
         tgt_vocab = tgt_vocab_size or src_vocab_size
+        self.is_encoder_decoder = cfg.model_type != "decoder"
         shared = None
-        if cfg.shared_embeddings and src_vocab_size == tgt_vocab:
+        if (self.is_encoder_decoder and cfg.shared_embeddings
+                and src_vocab_size == tgt_vocab):
             shared = self.shared_embed = Embedding(tgt_vocab, cfg.embed_dim,
                                                    dtype)
-        self.encoder = TransformerEncoder(cfg, src_vocab_size, shared, dtype)
-        self.decoder = TransformerDecoder(cfg, tgt_vocab, shared, dtype)
+        if self.is_encoder_decoder:
+            self.encoder = TransformerEncoder(cfg, src_vocab_size, shared,
+                                              kernel, dtype)
+        self.decoder = TransformerDecoder(cfg, tgt_vocab, shared,
+                                          self.is_encoder_decoder, kernel,
+                                          dtype)
         # decoder calls with one token per row: each writes every layer's
         # self-attention cache through one cache_slot_write_ launch
         self.single_token_calls = 0
@@ -412,8 +434,9 @@ class Transformer(nn.Module):
         cfg = self.cfg
         H = cfg.decoder_attention_heads
         D = cfg.embed_dim // H
+        Hkv = cfg.attention_heads_kv or H
         device = self.decoder.embed.embedding.device
-        return [(KVCache(batch, H, D, self_cache_len, self.dtype, device),
+        return [(KVCache(batch, Hkv, D, self_cache_len, self.dtype, device),
                  KVCache(batch, H, D, 0, self.dtype, device))
                 for _ in range(cfg.decoder_layers)]
 
@@ -437,7 +460,8 @@ class Transformer(nn.Module):
 
     def forward(self, src_tokens, decoder_input, src_mask=None, targets=None,
                 prompt_mask=None, loss_weights=None):
-        """Full teacher-forced forward (pasero_tpu/models/transformer.py:727).
+        """Full teacher-forced forward (pasero_tpu/models/transformer.py:727);
+        a decoder-only model takes ``src_tokens=None``.
 
         Without ``targets``: {"logits": (B, T, V) f32}. With them (B, T):
         {"loss_sum", "nll_sum", "num_tokens"}, the loss weighted by
@@ -445,7 +469,9 @@ class Transformer(nn.Module):
         at ``prompt_mask`` positions; with ``fused_ce`` (the default) the
         logits come out of the fused cross-entropy head and never exist."""
         cfg = self.cfg
-        encoder_out, encoder_mask = self.encode(src_tokens, src_mask)
+        encoder_out = encoder_mask = None
+        if self.is_encoder_decoder:
+            encoder_out, encoder_mask = self.encode(src_tokens, src_mask)
         kwargs = dict(encoder_out=encoder_out, encoder_mask=encoder_mask)
         if targets is None:
             return {"logits": self.decoder(decoder_input, **kwargs)}

@@ -1,18 +1,28 @@
 #!/usr/bin/env python3
-"""Full-width training benchmark and profile of the PyTorch port on one card
-(the port's counterpart of bench.py).
+"""Full-width training benchmark and profile of the PyTorch port on one card.
 
-Transformer-base MT (``get_model_config_cls("transformer")()`` with the
-translation defaults and dropout 0.1), a 32000-word vocabulary, weights from
-numpy seed 0, a synthetic batch of B = 128 sentences with S = T = 128
-tokens in bfloat16, driven through ``Trainer.train_step`` (forward with the
-fused cross-entropy kernels, backward, clip, Adam). Prints target tokens/s
-(B x T per micro-batch, as bench.py counts), ms per step and peak device
+Two workloads, each driven through ``Trainer.train_step`` (forward, backward,
+clip, Adam) with weights from numpy seed 0 and a synthetic batch in
+bfloat16:
+
+- ``--model transformer`` (the default, bench.py's shape): transformer-base
+  MT (the translation defaults, dropout 0.1), a 32000-word vocabulary, B = 128
+  sentences with S = T = 128 tokens; the loss through the fused
+  cross-entropy kernels;
+- ``--model llama_1b`` (scripts/bench_1b.py's training shape):
+  ``get_model_cls("llama_1b")`` with the language-modeling defaults and
+  dropout 0, a 32000-word vocabulary, B = 4 rows of T = 2048 tokens drawn by
+  numpy seed 0; attention through the flash kernels (``auto`` picks them for
+  its grouped K/V heads at this length), the loss through the fused CE.
+  JAX's benchmark steps with adafactor; the port's trainer uses the Adam of
+  its config.
+
+Prints target tokens/s (B x T per micro-batch), ms per step and peak device
 memory; with --profile, also the device's busy share over a few steps and
 the device time of the largest operations, from the chrome trace of
 torch.profiler (written to build/profile_train.json).
 
-    python -m pasero_torch.scripts.bench_train [--steps 20] [--profile]
+    python -m pasero_torch.scripts.bench_train [--model llama_1b] [--steps 20] [--profile]
 """
 
 from __future__ import annotations
@@ -29,45 +39,55 @@ import torch
 
 from .bench_decode import ROOT, random_state, trace_profile
 
-VOCAB, BATCH, SRC_LEN, TGT_LEN = 32000, 128, 128, 128   # bench.py's shape
+VOCAB = 32000
 SEED = 0
+# arch, task, dropout, batch, source length, target length
+SHAPES = {"transformer": ("transformer", "translation", 0.1, 128, 128, 128),
+          "llama_1b": ("llama_1b", "language_modeling", 0.0, 4, 0, 2048)}
+KERNELS = ("fused_ce::fwd_kernel", "fused_ce::bwd_kernel", "flash::fwd_kernel",
+           "flash::bwd_dq_kernel", "flash::bwd_dkv_kernel")
 
 
 class Workload:
-    """A seeded transformer-base, its Trainer and a synthetic batch."""
+    """A seeded model of ``SHAPES[name]``, its Trainer and a synthetic
+    batch."""
 
-    def __init__(self):
-        from pasero_torch.config import TrainingConfig, get_model_config_cls
-        from pasero_torch.models.transformer import Transformer
+    def __init__(self, name: str = "transformer"):
+        from pasero_torch.config import TrainingConfig, get_model_cls
         from pasero_torch.training import Trainer
-        model_cfg = get_model_config_cls("transformer")()
-        model_cfg.set_defaults("translation")
-        model_cfg.dropout = 0.1
-        model = Transformer(model_cfg, src_vocab_size=VOCAB,
-                            dtype=torch.bfloat16)
+        arch, task, dropout, batch, src_len, tgt_len = SHAPES[name]
+        model_cls, cfg_cls = get_model_cls(arch)
+        model_cfg = cfg_cls()
+        model_cfg.set_defaults(task)
+        model_cfg.dropout = dropout
+        model = model_cls(model_cfg, src_vocab_size=VOCAB,
+                          dtype=torch.bfloat16)
         model.load_state_dict(random_state(model, SEED))
         # no data and no checkpoints: the directory stays empty. A 10-step
         # warmup lets the loss fall within the first steps.
         empty = os.path.join(ROOT, "build", "bench_train")
         os.makedirs(empty, exist_ok=True)
-        cfg = TrainingConfig("--data-dir", empty, "--model-dir", empty,
-                             "-s", "de", "-t", "en", "--max-steps", "1000000",
-                             "--valid-interval", "1000000", "--seed",
-                             str(SEED), "--warmup", "10")
+        langs = ["-s", "de", "-t", "en"] if task == "translation" else []
+        cfg = TrainingConfig("--task", task, "--data-dir", empty,
+                             "--model-dir", empty, *langs, "--max-steps",
+                             "1000000", "--valid-interval", "1000000",
+                             "--seed", str(SEED), "--warmup", "10")
         self.trainer = Trainer(cfg, None, model, device="cuda")
         self.model_cfg = model_cfg
+        self.layers = model_cfg.decoder_layers
         rng = np.random.default_rng(SEED)
-        dec = rng.integers(4, VOCAB, (BATCH, TGT_LEN))
-        dec[:, 0] = model_cfg.bos_idx
+        dec = rng.integers(4, VOCAB, (batch, tgt_len))
         self.batch = {
-            "src_tokens": rng.integers(4, VOCAB, (BATCH, SRC_LEN)),
-            "src_mask": np.ones((BATCH, SRC_LEN), bool),
             "decoder_input": dec,
-            "target_mask": np.ones((BATCH, TGT_LEN), bool),
-            "prompt_mask": np.zeros((BATCH, TGT_LEN), bool),
+            "target_mask": np.ones((batch, tgt_len), bool),
+            "prompt_mask": np.zeros((batch, tgt_len), bool),
         }
+        if src_len:
+            dec[:, 0] = model_cfg.bos_idx
+            self.batch["src_tokens"] = rng.integers(4, VOCAB, (batch, src_len))
+            self.batch["src_mask"] = np.ones((batch, src_len), bool)
         self.batches = itertools.repeat(self.batch)
-        self.tokens_per_step = BATCH * TGT_LEN
+        self.tokens_per_step = batch * tgt_len
 
     def step(self) -> dict:
         return self.trainer.train_step(self.batches)
@@ -83,6 +103,8 @@ class Workload:
 
 def main(argv=None):
     parser = argparse.ArgumentParser()
+    parser.add_argument("--model", choices=sorted(SHAPES),
+                        default="transformer")
     parser.add_argument("--steps", type=int, default=20)
     parser.add_argument("--profile", action="store_true")
     args = parser.parse_args(argv)
@@ -93,12 +115,14 @@ def main(argv=None):
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
-    work = Workload()
+    work = Workload(args.model)
     work.run(3)                                       # warm-up
     torch.cuda.reset_peak_memory_stats()
     logs, seconds = work.run(args.steps)
-    result = {"card": smi, "batch": BATCH, "src_len": SRC_LEN,
-              "tgt_len": TGT_LEN, "vocab": VOCAB, "steps": args.steps,
+    _, _, _, batch, src_len, tgt_len = SHAPES[args.model]
+    result = {"card": smi, "model": args.model, "batch": batch,
+              "src_len": src_len, "tgt_len": tgt_len, "vocab": VOCAB,
+              "steps": args.steps,
               "seconds": seconds,
               "target_tok_per_s": work.tokens_per_step * args.steps / seconds,
               "ms_per_step": seconds * 1e3 / args.steps,
@@ -107,8 +131,7 @@ def main(argv=None):
     if args.profile:
         result["profile"] = trace_profile(
             lambda: work.run(3), os.path.join(ROOT, "build",
-                                              "profile_train.json"),
-            ("fused_ce::fwd_kernel", "fused_ce::bwd_kernel"))
+                                              "profile_train.json"), KERNELS)
     print(json.dumps(result))
     return result
 

@@ -63,7 +63,8 @@ def test_cache_slot_write_raises_on_card():
 FCE_SHAPES = [((130, 48, 515), torch.bfloat16),    # ragged rows and vocab
               ((130, 48, 515), torch.float32),     # the fp32 FMA path
               ((48, 2048, 330), torch.bfloat16),   # width over one block
-              ((64, 36, 100), torch.bfloat16)]     # width not a multiple of 8
+              ((64, 36, 100), torch.bfloat16),     # width not a multiple of 8
+              ((8192, 2048, 32000), torch.bfloat16)]   # llama_1b's head
 
 
 # The fused-CE gradients against float32 ones of the same operand values, in
@@ -174,3 +175,175 @@ def test_fused_ce_bad_input_raises_on_card(bad):
         else:   # the kernel wrapper takes w already in x's type
             fused_ce_fwd(x, w, t)
     assert (fused_ce_fwd.launches, fused_ce_bwd.launches) == before
+
+
+# The flash-attention kernels against the plain version's float32 results of
+# the same bfloat16 inputs, in a limit per element of the same form as the
+# fused CE's: |got - want| <= rtol |want| + atol + K u S + scale F. The
+# kernels round P to bf16 before P.V and P^T.dO, and dS before dS.K and
+# dS^T.Q (relative error up to u = 2^-8 each), as the Pallas kernels do, so
+# an element's error is a sum of rounding errors of its terms a_i (P v for
+# out, P dO for dv, scale dS k for dq, scale dS q for dk), S = sqrt(sum
+# a_i^2); rtol covers the bf16 rounding of the outputs. dS = P (dO.v -
+# delta) cancels: where a row sees one key, dO.v and delta are the same
+# number summed in another order, and dS is float32 noise of either sum. F
+# bounds that noise, 2^-20 (|dO|.|v| + |dO|.|out|) per unit of P, carried
+# through |k| into dq and |q| into dk (readings on an H100 at 700 W: dq
+# errors of 1.3e-6 at such rows, within 1e-6 + K u S otherwise). The same
+# limits reject a backward given another row's lse.
+FLASH_TOL = (1e-2, 1e-6, 4.0)
+
+FLASH_SHAPES = [   # (B, H, Hkv, S, D), causal, window, keys padded per row
+    ((2, 8, 2, 256, 64), True, None, False),
+    ((2, 4, 4, 200, 128), True, 48, True),    # ragged S, window, padding
+    ((1, 6, 3, 77, 64), False, None, True),   # unaligned S, not causal
+    ((3, 4, 2, 45, 32), True, None, True),    # the mini LM's head dim
+]
+
+
+def flash_inputs(B, H, Hkv, S, D, padded, seed=0, device="cuda"):
+    """bf16 q, k, v, dO with a per-row scale of q (so lse differs between
+    rows) and a (B, S) key mask with the last keys of each row padded."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    scale = 0.5 + 1.5 * torch.rand(B, H, S, 1, generator=gen, device=device)
+    q = (torch.randn(B, H, S, D, generator=gen, device=device) * scale)
+    k = torch.randn(B, Hkv, S, D, generator=gen, device=device)
+    v = torch.randn(B, Hkv, S, D, generator=gen, device=device)
+    do = torch.randn(B, H, S, D, generator=gen, device=device)
+    mask = torch.ones(B, S, dtype=torch.bool, device=device)
+    if padded:
+        lengths = torch.randint(S // 2, S + 1, (B,), generator=gen,
+                                device=device)
+        mask = torch.arange(S, device=device)[None] < lengths[:, None]
+    return [x.to(torch.bfloat16) for x in (q, k, v, do)] + [mask]
+
+
+def flash_limits(q, k, v, kv_mask, lse, do, scale, causal, window, want):
+    """Per-element limits on the kernels' (out, dq, dk, dv) for bf16 inputs,
+    the plain version's float32 results ``want`` and its float32 ``lse``."""
+    from pasero_torch.ops.flash_attention import visible
+    rtol, atol, K = FLASH_TOL
+    B, H, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    group = H // Hkv
+    qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+    kg, vg = (x.repeat_interleave(group, 1) for x in (kf, vf))
+    ok = visible(kv_mask, Sq, causal, window)
+    s = torch.matmul(qf, kg.transpose(-1, -2)) * scale
+    p = torch.exp(s - lse[..., None]).masked_fill_(~ok, 0.0)
+    delta = (dof * want[0].float()).sum(-1, keepdim=True)
+    ds = p * (torch.matmul(dof, vg.transpose(-1, -2)) - delta)
+    noise = torch.matmul(dof.abs(), vg.abs().transpose(-1, -2))
+    noise.add_((dof.abs() * want[0].float().abs()).sum(-1, keepdim=True))
+    noise.mul_(p).mul_(2.0 ** -20 * scale)
+    p2, ds2 = p.square_(), ds.square_().mul_(scale * scale)
+
+    def kv_sum(x):
+        return x.reshape(B, Hkv, group, Sk, D).sum(2)
+
+    sums = [torch.matmul(p2, vg.square()),
+            torch.matmul(ds2, kg.square()),
+            kv_sum(torch.matmul(ds2.transpose(-1, -2), qf.square())),
+            kv_sum(torch.matmul(p2.transpose(-1, -2), dof.square()))]
+    limits = [rtol * w.float().abs() + atol + sq.sqrt_().mul_(K * U_BF16)
+              for w, sq in zip(want, sums)]
+    limits[1].add_(torch.matmul(noise, kg.abs()))
+    limits[2].add_(kv_sum(torch.matmul(noise.transpose(-1, -2), qf.abs())))
+    return limits
+
+
+def flash_excess(got, want, limit, rows=None) -> float:
+    """max |got - want| / limit over the rows that see a key: at most 1
+    within the limits."""
+    err = (got.float() - want.float()).abs() / limit
+    err = torch.nan_to_num(err, nan=float("inf"))
+    if rows is not None:
+        err = err[rows]
+    return err.max().item()
+
+
+def flash_compare(shape, causal, window, padded) -> dict:
+    """The kernels (forward, dq, dk/dv, one launch each) against the plain
+    version on the same inputs at one shape. Rows that see no key (a window
+    past the padding) are out of the comparison of out; their dO is zero,
+    as in a model. Returns the lse error, each output's excess over its
+    limit (out, dq, dk, dv), the largest excess of a backward given another
+    row's lse, and the max abs errors of the forward (out, lse), dq and
+    dk/dv."""
+    from pasero_torch.ops.flash_attention import (flash_bwd, flash_bwd_dkv,
+                                                  flash_bwd_dq, flash_bwd_plain,
+                                                  flash_fwd, flash_fwd_plain,
+                                                  visible)
+    B, H, Hkv, S, D = shape
+    q, k, v, do, mask = flash_inputs(B, H, Hkv, S, D, padded)
+    rows = visible(mask, S, causal, window).any(-1).expand(B, H, S)
+    do = do * rows[..., None]
+    scale = D ** -0.5
+    out, lse = flash_fwd(q, k, v, mask, scale, causal, window)
+    dq, delta = flash_bwd_dq(q, k, v, mask, out, lse, do, scale, causal,
+                             window)
+    grads = (dq,) + flash_bwd_dkv(q, k, v, mask, do, lse, delta, scale,
+                                  causal, window)
+    ref_out, ref_lse = flash_fwd_plain(q.float(), k.float(), v.float(), mask,
+                                       scale, causal, window)
+    ref = flash_bwd_plain(q.float(), k.float(), v.float(), mask, out, ref_lse,
+                          do, scale, causal, window)
+    torch.cuda.synchronize()
+    lse_err = (lse - ref_lse)[rows].abs().max().item()
+    limits = flash_limits(q, k, v, mask, ref_lse, do, scale, causal, window,
+                          (ref_out,) + tuple(ref))
+    excess = [flash_excess(out, ref_out, limits[0], rows)]
+    excess += [flash_excess(g, w, lim)
+               for g, w, lim in zip(grads, ref, limits[1:])]
+    bad = flash_bwd(q, k, v, mask, out, lse.roll(1, -1), do, scale, causal,
+                    window)
+    bad_excess = max(flash_excess(g, w, lim)
+                     for g, w, lim in zip(bad, ref, limits[1:]))
+
+    def err(got, want, rows=None):
+        diff = (got.float() - want.float()).abs()
+        return (diff[rows] if rows is not None else diff).max().item()
+
+    return {"lse_err": lse_err, "excess": excess, "bad_excess": bad_excess,
+            "max_abs_err": {"fwd": max(lse_err, err(out, ref_out, rows)),
+                            "dq": err(dq, ref[0]),
+                            "dkv": max(err(grads[1], ref[1]),
+                                       err(grads[2], ref[2]))}}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,causal,window,padded", FLASH_SHAPES)
+def test_flash_kernels_match_plain(shape, causal, window, padded):
+    """out, dq, dk, dv within ``flash_limits`` of the plain version on the
+    same inputs, lse within 1e-4, one launch of each kernel; a backward
+    given another row's lse exceeds the limits."""
+    from pasero_torch.ops.flash_attention import (flash_bwd_dkv, flash_bwd_dq,
+                                                  flash_fwd)
+    _need_card()
+    counts = (flash_fwd, flash_bwd_dq, flash_bwd_dkv)
+    before = [fn.launches for fn in counts]
+    result = flash_compare(shape, causal, window, padded)
+    # one launch each for the comparison, one more of each backward kernel
+    # for the backward given another row's lse
+    assert [fn.launches for fn in counts] == \
+        [before[0] + 1, before[1] + 2, before[2] + 2]
+    assert result["lse_err"] <= 1e-4
+    assert max(result["excess"]) <= 1.0, result["excess"]
+    assert result["bad_excess"] > 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["head_dim", "dtype", "window"])
+def test_flash_bad_input_raises_on_card(bad):
+    """Head dims other than 32, 64 and 128, types other than bfloat16 and a
+    window that is not positive raise before any launch."""
+    from pasero_torch.ops.flash_attention import flash_attention, flash_fwd
+    _need_card()
+    D = 48 if bad == "head_dim" else 64
+    dtype = torch.float32 if bad == "dtype" else torch.bfloat16
+    q = torch.zeros((1, 2, 8, D), device="cuda", dtype=dtype)
+    before = flash_fwd.launches
+    with pytest.raises((TypeError, ValueError)):
+        flash_attention(q, q, q, causal=True,
+                        window=0 if bad == "window" else None)
+    assert flash_fwd.launches == before

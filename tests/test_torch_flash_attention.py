@@ -1,0 +1,103 @@
+"""The port's flash attention (its plain version, which CPU tensors take)
+against JAX ``flash_attention`` (the Pallas kernels in interpret mode, as
+tests/test_flash_attention.py runs them), forward and gradients.
+
+Inputs are float32 from a numpy seed, fed to both. Tolerance: atol 1e-5 on
+out, dq, dk and dv — both sides compute in float32 and differ only in
+summation order (blockwise online softmax in JAX, a dense softmax here).
+Rows that see no key (a sliding window past the padding) are out of the
+comparison of out: JAX leaves them to its block order. Their upstream
+gradient is zero, as in a model, where the loss weights a padded row 0.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import pasero_tpu.ops.flash_attention as jax_fa
+from pasero_torch.ops.flash_attention import (flash_attention, key_mask,
+                                              visible)
+
+ATOL = 1e-5
+
+CASES = {   # (B, H, Hkv, S, D), causal, window, padded
+    "group1_causal": ((2, 2, 2, 40, 16), True, None, False),
+    "group2_causal_padded": ((2, 4, 2, 48, 16), True, None, True),
+    "group4_full_padded": ((2, 4, 1, 33, 16), False, None, True),
+    "group2_window_padded": ((1, 4, 2, 64, 16), True, 9, True),
+    "unaligned_d48": ((1, 2, 1, 21, 48), True, None, False),
+}
+
+
+@pytest.fixture(autouse=True)
+def interpret_mode():
+    jax_fa.INTERPRET = True
+    yield
+    jax_fa.INTERPRET = False
+
+
+def inputs(B, H, Hkv, S, D, padded, seed=0):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(B, H, S, D)).astype(np.float32)
+    k = rng.normal(size=(B, Hkv, S, D)).astype(np.float32)
+    v = rng.normal(size=(B, Hkv, S, D)).astype(np.float32)
+    g = rng.normal(size=(B, H, S, D)).astype(np.float32)
+    lengths = rng.integers(S // 2, S, B) if padded else np.full(B, S)
+    mask = np.arange(S)[None, :] < lengths[:, None]          # (B, S) keys
+    return q, k, v, g, mask[:, None, None, :]                # (B, 1, 1, S)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_forward_and_gradients_match_jax(case):
+    (B, H, Hkv, S, D), causal, window, padded = CASES[case]
+    q, k, v, g, mask = inputs(B, H, Hkv, S, D, padded)
+    scale = D ** -0.5
+    rows = visible(torch.from_numpy(mask[:, 0, 0]), S, causal, window
+                   ).any(-1).expand(B, H, S).numpy()
+    g = g * rows[..., None]
+
+    def jax_loss(q, k, v):
+        out = jax_fa.flash_attention(q, k, v, mask=jnp.asarray(mask),
+                                     scale=scale, causal=causal, window=window)
+        return jnp.sum(out * g), out
+
+    (_, out_j), grads_j = jax.value_and_grad(jax_loss, argnums=(0, 1, 2),
+                                             has_aux=True)(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+
+    qt, kt, vt = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out_t = flash_attention(qt, kt, vt, mask=torch.from_numpy(mask),
+                            scale=scale, causal=causal, window=window)
+    (out_t * torch.from_numpy(g)).sum().backward()
+
+    err = np.abs(np.asarray(out_j) - out_t.detach().numpy())[rows]
+    assert err.max() <= ATOL, err.max()
+    for want, got in zip(grads_j, (qt.grad, kt.grad, vt.grad)):
+        assert got.shape == want.shape
+        assert np.abs(np.asarray(want) - got.numpy()).max() <= ATOL
+
+
+def test_key_mask_is_any_over_queries():
+    """A causal (B, 1, S, S) mask reduces to all keys kept; a padding mask
+    to its key row."""
+    S = 6
+    causal = torch.tril(torch.ones(S, S, dtype=torch.bool))[None, None]
+    assert key_mask(causal.expand(2, 1, S, S), 2, S, S).all()
+    pad = torch.arange(S)[None] < torch.tensor([[4], [6]])
+    got = key_mask(pad[:, None, None, :], 2, S, S)
+    assert torch.equal(got, pad)
+
+
+def test_row_without_keys_gives_zero():
+    """A row whose keys are all masked gives out = 0 and no gradient, where
+    JAX's l == 0 guard leaves it finite."""
+    q = torch.randn(1, 1, 4, 8, requires_grad=True)
+    kv = torch.randn(1, 1, 4, 8, requires_grad=True)
+    mask = torch.tensor([[True, False, False, False]])[:, None, None, :]
+    out = flash_attention(q, kv, kv, mask=mask, causal=True, window=2)
+    assert torch.equal(out[0, 0, 2:], torch.zeros(2, 8))
+    out.sum().backward()
+    assert torch.isfinite(q.grad).all() and torch.isfinite(kv.grad).all()
+    assert torch.equal(q.grad[0, 0, 2:], torch.zeros(2, 8))

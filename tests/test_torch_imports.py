@@ -79,11 +79,12 @@ def test_decode_cli_without_device_raises_without_cuda(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("override,item", [
-    (dict(decoder_positional_encoding="rotary"), "A.8"),
-    (dict(attention_heads_kv=2), "A.8"),
-    (dict(rms_norm=True), "A.8"),
-    (dict(activation_fn="swiglu"), "A.8"),
+    (dict(decoder_positional_encoding="alibi"), "A.8"),
+    (dict(encoder_positional_encoding="t5"), "A.8"),
+    (dict(parallel_attention=True), "A.8"),
+    (dict(checkpoint_activations=True), "A.8"),
     (dict(lora_rank=4), "A.10"),
+    (dict(attention_kernel="ring"), "A.12"),
 ])
 def test_unported_options_name_their_roadmap_item(override, item):
     from pasero_torch.config import get_model_config_cls
@@ -103,3 +104,41 @@ def test_unported_families_name_their_roadmap_item():
         cfg.set_defaults("translation")
         with pytest.raises(NotImplementedError, match="A.10"):
             model_cls(cfg, 50)
+
+
+def test_decoder_only_options_build():
+    """What the decoder-only slice brings builds: rotary positions, grouped
+    K/V heads, RMSNorm, gated FFNs, sliding windows, decoder-only stacks."""
+    from pasero_torch.config import get_model_cls
+    model_cls, cfg_cls = get_model_cls("mistral_7b")
+    cfg = cfg_cls(strict=False, decoder_layers=1, embed_dim=64,
+                  decoder_attention_heads=4, attention_heads_kv=2,
+                  decoder_ffn_dim=96, sliding_window=8)
+    cfg.set_defaults("language_modeling")
+    model = model_cls(cfg, 50)
+    assert not model.is_encoder_decoder and not hasattr(model, "encoder")
+    names = dict(model.named_parameters())
+    assert names["decoder.layers_0.self_attn.k_proj.weight"].shape == (32, 64)
+    assert "decoder.layers_0.ffn.gate.weight" in names
+    assert "decoder.layers_0.cross_attn.q_proj.weight" not in names
+
+
+@pytest.mark.parametrize("bad,error", [("head_dim", ValueError),
+                                       ("dtype", TypeError),
+                                       ("device", ValueError)])
+def test_flash_kernel_wrapper_refuses_what_it_does_not_take(bad, error):
+    """The CUDA wrappers take bfloat16 at head dims 32, 64 and 128 on the card
+    and raise for anything else, before any launch (no fallback)."""
+    from pasero_torch.ops.flash_attention import (flash_bwd, flash_bwd_dkv,
+                                                  flash_bwd_dq, flash_fwd)
+    D = 48 if bad == "head_dim" else 64
+    dtype = torch.float32 if bad == "dtype" else torch.bfloat16
+    q = torch.zeros((1, 2, 8, D), dtype=dtype)
+    mask = torch.ones((1, 8), dtype=torch.bool)
+    counts = (flash_fwd, flash_bwd_dq, flash_bwd_dkv)
+    before = [fn.launches for fn in counts]
+    with pytest.raises(error):
+        flash_fwd(q, q, q, mask, 0.125, True, None)
+    with pytest.raises(error):
+        flash_bwd(q, q, q, mask, q, q[..., 0].float(), q, 0.125, True, None)
+    assert [fn.launches for fn in counts] == before

@@ -1,0 +1,87 @@
+"""The port's training CLI on a decoder-only language model against the JAX
+training CLI's losses.
+
+Both CLIs train ``pasero_torch/testdata/lm_mini.yaml`` (a 2-layer Llama of
+width 128 with grouped K/V heads and flash attention, on the English side of
+deen-mini) from the same initial weights, numpy seed 0 through
+``random_state``, with the flags of tests/test_torch_train_cli.py: dropout
+0, a 10-step warmup, 20 steps, logged every step. JAX's attention runs its
+Pallas flash kernels (in interpret mode on the CPU), the port's the plain
+version of its CUDA kernels.
+
+The JAX training CLI's per-step losses, nll and gnorm are committed in
+``pasero_torch/testdata/lm_mini_train20.jax.json``; regenerate them on the
+CPU with
+
+    JAX_PLATFORMS=cpu python tests/test_torch_lm_cli.py
+
+Tolerance: 1 % relative on the losses of the first 5 steps — both compute
+in bfloat16, and bf16 rounds at other places in the two frameworks.
+"""
+
+import json
+import os
+
+import pytest
+
+from test_torch_train_cli import ROOT, RTOL, STEPS, run_cli, train_flags
+
+CONFIG = os.path.join(ROOT, "pasero_torch", "testdata", "lm_mini.yaml")
+GOLDEN = os.path.join(ROOT, "pasero_torch", "testdata",
+                      "lm_mini_train20.jax.json")
+
+
+@pytest.fixture(scope="module")
+def trained(tmp_path_factory):
+    """Five steps of the port's CLI on the CPU, validated at the fifth."""
+    return run_cli("pasero_torch.cli.train",
+                   str(tmp_path_factory.mktemp("lm")),
+                   ["--device", "cpu", "--max-steps", "5",
+                    "--valid-interval", "5"], config=CONFIG)
+
+
+def test_port_lm_cli_matches_jax_losses(trained):
+    with open(GOLDEN) as f:
+        golden = json.load(f)["steps"]
+    logs, model_dir, out = trained
+    assert [s["step"] for s in logs] == list(range(1, 6))
+    for got, want in zip(logs, golden[:5]):
+        for key in ("loss", "nll_loss"):
+            assert abs(got[key] - want[key]) <= RTOL * abs(want[key]), \
+                (got, want)
+        assert got["lr"] == want["lr"], (got, want)
+    # validation is the loss only: a language model's task names no metrics
+    assert "valid | valid.en | valid_loss" in out
+    for name in ("model_5.npz", "config.json", "dict.txt"):
+        assert os.path.exists(os.path.join(model_dir, name)), name
+
+
+def test_decoding_a_language_model_is_not_ported(trained):
+    """TextGenerator on a decoder-only checkpoint raises, naming A.8."""
+    from pasero_torch.decoding.generator import TextGenerator
+    model_dir = trained[1]
+    with pytest.raises(NotImplementedError, match="A.8"):
+        TextGenerator.build(model_dir, device="cpu")
+
+
+def regenerate():
+    """Run the JAX training CLI with the test's flags on the CPU and write the
+    golden file."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        logs, _, _ = run_cli("cli.train", tmp, env={"JAX_PLATFORMS": "cpu"},
+                             config=CONFIG)
+    assert [s["step"] for s in logs] == list(range(1, STEPS + 1)), logs
+    flags = train_flags("<model_dir>", "<init.npz>", CONFIG)
+    with open(GOLDEN, "w") as f:
+        json.dump({"command": "python -m cli.train (pasero_tpu) on the CPU",
+                   "initial_weights": "random_state(model, seed 0) of "
+                                      "pasero_torch.scripts.bench_decode",
+                   "flags": [os.path.relpath(a, ROOT)
+                             if a.startswith(ROOT) else a for a in flags],
+                   "steps": logs}, f, indent=1)
+    print(f"wrote {GOLDEN}")
+
+
+if __name__ == "__main__":
+    regenerate()

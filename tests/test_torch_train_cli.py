@@ -33,21 +33,21 @@ LOG_LINE = re.compile(r"step (\d+) \| loss ([\d.]+) \| nll_loss ([\d.]+) \|"
                       r".*\| gnorm ([\d.]+) \| lr ([\d.e+-]+)")
 
 
-def train_flags(model_dir: str, ckpt: str) -> list:
-    return ["--config", CONFIG, "--model-dir", model_dir, "--ckpt", ckpt,
+def train_flags(model_dir: str, ckpt: str, config: str = CONFIG) -> list:
+    return ["--config", config, "--model-dir", model_dir, "--ckpt", ckpt,
             "--dropout", "0", "--log-interval", "1", "--warmup", "10",
             "--max-steps", str(STEPS),
             "--line-index-path", os.path.join(model_dir, "line_index.bin")]
 
 
-def write_initial_weights(path: str) -> None:
+def write_initial_weights(path: str, config: str = CONFIG) -> None:
     """The port's model for the config, weights from numpy seed 0, saved in
     the flat checkpoint format both packages read."""
     sys.path.insert(0, ROOT)
     from pasero_torch import checkpoints
     from pasero_torch.config import TrainingConfig, get_model_cls, get_task_cls
     from pasero_torch.scripts.bench_decode import random_state
-    cfg = TrainingConfig("--config", CONFIG, "--model-dir",
+    cfg = TrainingConfig("--config", config, "--model-dir",
                          os.path.dirname(path))
     task = get_task_cls(cfg.task)(cfg.data_dir, cfg.task_cfg)
     task.setup_for_model(cfg.model_cfg)
@@ -71,26 +71,29 @@ def parse_log(text: str) -> list:
     return out
 
 
-def run_cli(module: str, workdir: str, extra=(), env=None) -> tuple:
+def run_cli(module: str, workdir: str, extra=(), env=None,
+            config: str = CONFIG) -> tuple:
     """Run ``python -m module`` with the test's flags; returns (per-step
-    logs, model directory)."""
+    logs, model directory, output)."""
     model_dir = os.path.join(workdir, "model")
     os.makedirs(model_dir, exist_ok=True)
     ckpt = os.path.join(workdir, "init.npz")
     if not os.path.exists(ckpt):
-        write_initial_weights(ckpt)
+        write_initial_weights(ckpt, config)
     proc = subprocess.run(
-        [sys.executable, "-m", module, *train_flags(model_dir, ckpt), *extra],
+        [sys.executable, "-m", module, *train_flags(model_dir, ckpt, config),
+         *extra],
         cwd=ROOT, capture_output=True, text=True, timeout=900,
         env={**os.environ, "PYTHONPATH": ROOT, **(env or {})})
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
-    return parse_log(proc.stdout + proc.stderr), model_dir
+    out = proc.stdout + proc.stderr
+    return parse_log(out), model_dir, out
 
 
 def test_port_cli_matches_jax_losses(tmp_path):
     with open(GOLDEN) as f:
         golden = json.load(f)["steps"]
-    logs, model_dir = run_cli("pasero_torch.cli.train", str(tmp_path),
+    logs, model_dir, _ = run_cli("pasero_torch.cli.train", str(tmp_path),
                                  ["--device", "cpu"])
     assert [s["step"] for s in logs] == list(range(1, STEPS + 1))
     for got, want in zip(logs[:5], golden[:5]):
@@ -148,7 +151,7 @@ def regenerate():
     golden file."""
     import tempfile
     with tempfile.TemporaryDirectory() as tmp:
-        logs, _ = run_cli("cli.train", tmp, env={"JAX_PLATFORMS": "cpu"})
+        logs, _, _ = run_cli("cli.train", tmp, env={"JAX_PLATFORMS": "cpu"})
     assert [s["step"] for s in logs] == list(range(1, STEPS + 1)), logs
     flags = train_flags("<model_dir>", "<init.npz>")
     with open(GOLDEN, "w") as f:
