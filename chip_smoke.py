@@ -53,7 +53,27 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 9. the language-model training entry point: python -m pasero_torch.cli.train
    on pasero_torch/testdata/lm_mini.yaml in a subprocess, its 20 per-step
    losses held against the JAX training CLI's, with the flash launches
-   matching its micro-batches and validation batches.
+   matching its micro-batches and validation batches;
+10. the int8 GEMM and the fused argmax head (bf16 and int8 weights) against
+   their plain versions on the card, within the error model of
+   tests/test_torch_cuda.py (``int8_limits``), at llama_1b's decode,
+   speculative and prompt rows (M = 8, 72, 1024) and widths, and at a ragged
+   vocabulary (2192), with a rolled scale and a shifted result rejected; at
+   each llama_1b shape their device time per call (CUDA graph) beside the
+   plain version's, the bound and the library yardstick (F.linear on the
+   dequantized bf16 weight; matmul, argmax and log_softmax on materialized
+   logits);
+11. full-width decoder-only serving: llama_1b with seeded weights at
+   scripts/bench_1b.py --decode's shape (8 copy prompts of 128 tokens, 64 new
+   tokens, drafts of 8) through scripts/bench_decode.py's workload in five
+   modes (bf16 greedy, bf16 with the fused head, speculative, int8 greedy,
+   int8 with the fused head), each with exact launch counts of the kernels,
+   and sampling twice from one seed with identical tokens;
+12. decoder-only and int8 serving through the entry points on the JAX
+   goldens: TextGenerator on pasero_torch/testdata/lm-mini2 (bf16 greedy,
+   int8 weights with the fused head, speculative equal to greedy, a dialogue
+   decode) and python -m pasero_torch.cli.decode models/deen-mini2
+   --quantize int8 --beam-size 5 on test.de.
 
 The second-to-last line is one JSON object {"kernels": [...]}; the last line
 is {"ok": true, "device": {...}}. Without CUDA the script exits 1 and
@@ -85,6 +105,9 @@ TRAIN_RTOL = 0.01           # bf16 rounds at other places in JAX and torch
 LM_CONFIG = os.path.join(ROOT, "pasero_torch", "testdata", "lm_mini.yaml")
 LM_GOLDEN = os.path.join(ROOT, "pasero_torch", "testdata",
                          "lm_mini_train20.jax.json")
+TESTDATA = os.path.join(ROOT, "pasero_torch", "testdata")
+MIN_LM_MATCH = 30           # of 32 lines of lm-mini2's goldens
+INT8_FUSED_ENV = {"PASERO_FUSED_HEAD": "1", "PASERO_QUANTIZE_MIN_SIZE": "0"}
 
 
 def log(*args):
@@ -553,10 +576,10 @@ def phase5() -> int:
 
 def parse_launches(out: str) -> dict:
     """The counts of cli.train's ``launches | name N | ...`` log line."""
-    m = re.search(r"launches((?: \| [a-z_ -]+ \d+)+)", out)
+    m = re.search(r"launches((?: \| [a-z0-9_ -]+ \d+)+)", out)
     check(m is not None, "cli.train logged no launch counts")
     return {name: int(n) for name, n in
-            re.findall(r"\| ([a-z_ -]+?) (\d+)", m.group(1))}
+            re.findall(r"\| ([a-z0-9_ -]+?) (\d+)", m.group(1))}
 
 
 def phase6() -> dict:
@@ -843,6 +866,318 @@ def phase9() -> dict:
     return got
 
 
+# -- phase 10 ------------------------------------------------------------------
+
+def int8_timing(M, K, N) -> dict:
+    """The int8 kernel's device ms per call (CUDA graph) at (M, K, N) with a
+    bf16 output, beside the plain version's and the library yardstick's, and
+    the bound: its bytes (x, the int8 weight and scales read once, y written
+    once) or its operations."""
+    import torch
+    import torch.nn.functional as F
+    from pasero_torch.ops.quantize import (dequantize, int8_matmul,
+                                           int8_matmul_plain)
+    cuda_tests = load_test_module("test_torch_cuda")
+    x, t = cuda_tests.int8_inputs(M, K, N)
+    wb = dequantize(t, torch.bfloat16)
+    # CUDA graphs keep every output of the captured calls: bound their bytes
+    iters = int(min(100, max(5, 2e9 / (M * N * 4 + N * K * 4))))
+    nbytes = M * K * 2 + N * K + N * 4 + M * N * 2
+    flops = 2.0 * M * N * K
+    res = {"shape": [M, K, N],
+           "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3,
+           "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                        > flops / BF16_FLOPS else "operations")}
+    res["ms"] = device_ms(lambda: int8_matmul(x, t), iters, 5)
+    res["plain_ms"] = device_ms(lambda: int8_matmul_plain(
+        x, t.q, t.scale, torch.bfloat16), iters, 5)
+    # the library yardstick; the port never calls it
+    res["library_ms"] = device_ms(lambda: F.linear(x, wb), iters, 5)
+    # with eager launches: the wrapper's host time where it exceeds the
+    # kernel's
+    res["host_ms"] = time_ms(lambda: int8_matmul(x, t), 4 * iters, 10)
+    res["library_host_ms"] = time_ms(lambda: F.linear(x, wb), 4 * iters, 10)
+    return res
+
+
+def head_timing(N, E, V, q8: bool) -> dict:
+    """The fused head's device ms per call (CUDA graph), beside the plain
+    version's and the library yardstick's (matmul, argmax and log_softmax on
+    materialized logits), and the bound."""
+    import torch
+    from pasero_torch.ops.fused_ce import (fused_head_argmax,
+                                           fused_head_argmax_plain)
+    from pasero_torch.ops.quantize import dequantize
+    cuda_tests = load_test_module("test_torch_cuda")
+    x, t = cuda_tests.int8_inputs(N, E, V, seed=1)
+    wb = dequantize(t, torch.bfloat16)
+    head = t if q8 else wb
+    iters = int(min(100, max(5, 2e9 / (N * V * 8 + V * E * 4))))
+    nbytes = N * E * 2 + V * E * (1 if q8 else 2) + (V * 4 if q8 else 0) \
+        + N * 12
+    flops = 2.0 * N * E * V
+
+    def library():     # the port never calls it
+        logits = torch.matmul(x, wb.t()).float()
+        tok = logits.argmax(-1)
+        return tok, torch.log_softmax(logits, -1).gather(1, tok[:, None])
+
+    res = {"shape": [N, E, V],
+           "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3,
+           "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                        > flops / BF16_FLOPS else "operations")}
+    res["ms"] = device_ms(lambda: fused_head_argmax(x, head), iters, 5)
+    res["plain_ms"] = device_ms(lambda: fused_head_argmax_plain(x, head),
+                                iters, 5)
+    res["library_ms"] = device_ms(library, iters, 5)
+    return res
+
+
+def phase10() -> dict:
+    """The int8 GEMM and the fused heads against their plain versions;
+    returns their errors and timings."""
+    import torch
+    cuda_tests = load_test_module("test_torch_cuda")
+    res = {"int8_matmul": {"max_abs_err": 0.0, "by_shape": []},
+           "fused_head_argmax": {"max_abs_err": 0.0, "by_shape": []},
+           "fused_head_argmax_q8": {"max_abs_err": 0.0, "by_shape": []}}
+    for shape in cuda_tests.INT8_SHAPES + cuda_tests.INT8_RAGGED:
+        for out_dtype in (torch.bfloat16, torch.float32):
+            r = cuda_tests.int8_compare(*shape, out_dtype)
+            check(r["excess"] <= 1.0, f"int8_matmul differs at {shape} "
+                  f"{out_dtype}: {r['excess']:.3f} of the limit")
+            check(r["bad_scale_excess"] > 1.0 and r["shift_excess"] > 1.0,
+                  f"the int8 check at {shape} passes a rolled scale or a "
+                  f"shifted result: {r}")
+            if out_dtype == torch.bfloat16:
+                res["int8_matmul"]["max_abs_err"] = max(
+                    res["int8_matmul"]["max_abs_err"], r["max_abs_err"])
+            log(f"phase 10: int8_matmul == plain at {shape} {out_dtype}: "
+                f"{r['excess']:.4f} of the limit, max abs err "
+                f"{r['max_abs_err']:.3e}; a rolled scale at "
+                f"{r['bad_scale_excess']:.1f}, a shifted column at "
+                f"{r['shift_excess']:.1f}")
+        torch.cuda.empty_cache()
+    for shape in cuda_tests.HEAD_SHAPES:
+        for q8 in (False, True):
+            name = "fused_head_argmax_q8" if q8 else "fused_head_argmax"
+            r = cuda_tests.head_compare(*shape, q8)
+            check(r["excess"] <= 1.0 and r["decided"] >= shape[0] // 2,
+                  f"{name} differs at {shape}: {r}")
+            check(r["bad_excess"] > 1.0, f"the {name} check at {shape} passes "
+                  f"a wrong {'scale' if q8 else 'head row'}: {r}")
+            res[name]["max_abs_err"] = max(res[name]["max_abs_err"],
+                                           r["max_abs_err"])
+            log(f"phase 10: {name} == plain at {shape}: tokens equal on the "
+                f"{r['decided']} rows whose top-two gap exceeds twice the "
+                f"limit, log-probabilities at {r['excess']:.4f} of theirs "
+                f"(max abs err {r['max_abs_err']:.3e}); a wrong "
+                f"{'scale' if q8 else 'head row'} at {r['bad_excess']:.1f}")
+        torch.cuda.empty_cache()
+    for M in (8, 72, 1024):
+        for K, N in ((2048, 2048), (2048, 256), (2048, 5632), (5632, 2048),
+                     (2048, 32000)):
+            r = int8_timing(M, K, N)
+            res["int8_matmul"]["by_shape"].append(r)
+            log(f"phase 10: int8_matmul at {r['shape']} bf16, device ms per "
+                f"call (CUDA graph): kernel {r['ms']:.5f} (bound "
+                f"{r['bound_ms']:.5f}, {r['bound_by']}), plain "
+                f"{r['plain_ms']:.5f}, library {r['library_ms']:.5f}; with "
+                f"eager launches: kernel {r['host_ms']:.5f}, library "
+                f"{r['library_host_ms']:.5f}")
+            torch.cuda.empty_cache()
+    for N in (8, 72, 1024):
+        for q8 in (False, True):
+            name = "fused_head_argmax_q8" if q8 else "fused_head_argmax"
+            r = head_timing(N, 2048, 32000, q8)
+            res[name]["by_shape"].append(r)
+            log(f"phase 10: {name} at {r['shape']}, device ms per call (CUDA "
+                f"graph): kernels {r['ms']:.5f} (bound {r['bound_ms']:.5f}, "
+                f"{r['bound_by']}), plain {r['plain_ms']:.5f}, library "
+                f"{r['library_ms']:.5f}")
+            torch.cuda.empty_cache()
+    return res
+
+
+# -- phase 11 ------------------------------------------------------------------
+
+LM_MODES = [   # name, int8 weights, fused head, speculative
+    ("bf16 greedy", False, False, False),
+    ("bf16 fused head", False, True, False),
+    ("speculative", False, False, True),
+    ("int8 greedy", True, False, False),
+    ("int8 fused head", True, True, False),
+]
+
+
+def phase11() -> dict:
+    """llama_1b decode in each mode of LM_MODES; returns the launch counts of
+    each mode's run."""
+    import torch
+    from pasero_torch.ops.cache_update import cache_slot_write_
+    from pasero_torch.ops.fused_ce import (fused_head_argmax,
+                                           fused_head_argmax_q8)
+    from pasero_torch.ops.quantize import int8_matmul
+    from pasero_torch.scripts.bench_decode import LMWorkload
+    wrappers = {"int8_matmul": int8_matmul,
+                "fused_head_argmax": fused_head_argmax,
+                "fused_head_argmax_q8": fused_head_argmax_q8,
+                "cache_slot_write": cache_slot_write_}
+    t0 = time.perf_counter()
+    work = LMWorkload()
+    log(f"phase 11: llama_1b with seeded weights built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    layers = work.cfg.decoder_layers
+    B, N = work.prompt.shape[0], work.max_new
+    results, tokens = {}, {}
+    for name, q8, fused, spec in LM_MODES:
+        if q8 and not work.quantized:
+            work.quantize()
+            qb, fb = work.quantized_bytes
+            log(f"phase 11: quantized {work.quantized} weights: "
+                f"{qb / 2**20:.1f} MiB int8 + {fb / 2**20:.1f} MiB float")
+        work.fused_head, work.speculative = fused, spec
+        work.run()                                       # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        work.model.single_token_calls = 0
+        for fn in wrappers.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        out = work.run()
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        counts = {key: fn.launches for key, fn in wrappers.items()}
+        calls = out["model_calls"]
+        want = {"int8_matmul": (7 * layers + (not fused)) * calls if q8 else 0,
+                "fused_head_argmax": calls if fused and not q8 else 0,
+                "fused_head_argmax_q8": calls if fused and q8 else 0,
+                "cache_slot_write": layers * work.model.single_token_calls}
+        check(counts == want, f"llama_1b {name}: launches {counts} != {want} "
+              f"for {calls} decoder calls")
+        check(tuple(out["tokens"].shape) == (B, N), f"{name}: tokens shape")
+        check(bool(torch.isfinite(out["scores"]).all()),
+              f"{name}: non-finite scores")
+        out_tokens = work.output_tokens(out)
+        peak = torch.cuda.max_memory_allocated()
+        tokens[name] = out["tokens"]
+        results[name] = counts
+        agree = (out["tokens"] == tokens["bf16 greedy"]).float().mean().item()
+        log(f"phase 11: llama_1b {name} B={B} P={work.prompt.shape[1]} "
+            f"new={N}: {out_tokens / elapsed:.1f} output tok/s, "
+            f"{elapsed * 1e3 / calls:.3f} ms per decoder call ({calls} calls, "
+            f"{elapsed:.3f} s), peak memory {peak / 2**20:.1f} MiB; launches "
+            f"{counts}; tokens equal to bf16 greedy's at {agree:.4f} of "
+            f"positions")
+    runs = []
+    for _ in range(2):
+        generator = torch.Generator(device="cuda").manual_seed(1)
+        runs.append(work.run(sampling=dict(top_k=50, generator=generator)))
+    check(torch.equal(runs[0]["tokens"], runs[1]["tokens"]),
+          "two sampling runs from one seed differ")
+    check(bool(torch.isfinite(runs[0]["scores"]).all()),
+          "non-finite sampling scores")
+    log(f"phase 11: int8 sampling (top-k 50) twice from seed 1: identical "
+        f"tokens; {(runs[0]['tokens'] != tokens['int8 greedy']).float().mean().item():.4f}"
+        f" of positions differ from int8 greedy's")
+    del work
+    torch.cuda.empty_cache()
+    return results
+
+
+# -- phase 12 ------------------------------------------------------------------
+
+def lm_prompts() -> list:
+    """The first four words of the first 32 lines of deen-mini's test.en,
+    the prompts of the lm-mini2 golden files."""
+    with open(os.path.join(ROOT, "examples", "deen-mini", "data",
+                           "test.en")) as f:
+        return [" ".join(line.split()[:4]) for line, _ in zip(f, range(32))]
+
+
+def golden_lines(name: str) -> list:
+    with open(os.path.join(TESTDATA, name)) as f:
+        return [l.rstrip("\n") for l in f]
+
+
+def phase12() -> dict:
+    import torch
+    from pasero_torch.decoding.generator import TextGenerator
+    from pasero_torch.ops.fused_ce import fused_head_argmax_q8
+    from pasero_torch.ops.quantize import int8_matmul
+    lm = os.path.join(TESTDATA, "lm-mini2")
+    prompts = lm_prompts()
+    gen = TextGenerator.build(lm, max_output_len=24)
+    check(gen.device.type == "cuda", f"generator runs on {gen.device}")
+    greedy = gen.decode(prompts)
+    golden = golden_lines("lm_mini2_greedy.jax.txt")
+    same = sum(h == g for h, g in zip(greedy, golden))
+    log(f"phase 12: lm-mini2 bf16 greedy: {same}/{len(golden)} lines "
+        f"identical to the JAX output")
+    check(same >= MIN_LM_MATCH, f"lm-mini2 greedy: only {same}/32 lines match")
+    spec = TextGenerator.build(lm, max_output_len=24, speculative=True,
+                               speculative_draft_len=8).decode(prompts)
+    same_spec = sum(h == g for h, g in zip(spec, greedy))
+    log(f"phase 12: lm-mini2 speculative (drafts of 8): {same_spec}/32 lines "
+        f"identical to the port's greedy output")
+    check(same_spec == len(prompts), "speculative differs from greedy")
+
+    saved = {k: os.environ.get(k) for k in INT8_FUSED_ENV}
+    os.environ.update(INT8_FUSED_ENV)
+    try:
+        int8_matmul.launches = fused_head_argmax_q8.launches = 0
+        hyps = TextGenerator.build(lm, max_output_len=24,
+                                   quantize="int8").decode(prompts)
+        launches = {"int8_matmul": int8_matmul.launches,
+                    "fused_head_argmax_q8": fused_head_argmax_q8.launches}
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+    golden = golden_lines("lm_mini2_greedy_int8_fused.jax.txt")
+    same_q8 = sum(h == g for h, g in zip(hyps, golden))
+    log(f"phase 12: lm-mini2 int8 weights, fused head: {same_q8}/32 lines "
+        f"identical to the JAX output; launches {launches}")
+    check(same_q8 >= MIN_LM_MATCH,
+          f"lm-mini2 int8 fused: only {same_q8}/32 lines match")
+    check(min(launches.values()) > 0, f"the int8 path launched {launches}")
+
+    dialogue = TextGenerator.build(lm, task="dialogue", max_output_len=24)
+    answer = dialogue.decode(["Thomas works until"])
+    check(len(answer) == 1 and isinstance(answer[0], str),
+          f"dialogue decode gave {answer!r}")
+    log(f"phase 12: dialogue (chatml) decode: {answer[0]!r}; the JAX "
+        f"output {golden_lines('lm_mini2_dialogue.jax.txt')[0]!r}")
+
+    data = os.path.join(ROOT, "examples", "deen-mini", "data")
+    cmd = [sys.executable, "-m", "pasero_torch.cli.decode",
+           os.path.join(ROOT, "models", "deen-mini2"), "-i",
+           os.path.join(data, "test.de"), "--quantize", "int8",
+           "--beam-size", "5"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=600)
+    elapsed = time.perf_counter() - t0
+    check(proc.returncode == 0, f"cli.decode --quantize int8 failed:\n"
+          f"{proc.stderr[-4000:]}")
+    hyps = proc.stdout.rstrip("\n").split("\n")
+    golden = golden_lines("deen_mini2_test_beam5_int8.jax.txt")
+    same_mt = sum(h == g for h, g in zip(hyps, golden))
+    counts = parse_launches(proc.stderr)
+    log(f"phase 12: python -m pasero_torch.cli.decode models/deen-mini2 "
+        f"--quantize int8 --beam-size 5 in {elapsed:.1f} s: {same_mt}/"
+        f"{len(golden)} lines identical to the JAX int8 output; launches "
+        f"{counts}")
+    check(len(hyps) == len(golden) and same_mt >= MIN_GOLDEN_MATCH,
+          f"deen-mini2 int8: only {same_mt}/{len(golden)} lines match")
+    check(counts["int8_matmul"] > 0, "cli.decode --quantize int8 launched no "
+          "int8 kernel")
+    torch.cuda.synchronize()
+    return {"lm_int8_fused": launches, "mt_int8": counts}
+
+
 def main():
     try:
         import torch
@@ -868,6 +1203,9 @@ def main():
     flash = phase7()
     lm_full_width = phase8()
     lm_cli = phase9()
+    serving_kernels = phase10()
+    lm_decode = phase11()
+    serving = phase12()
     kernels = [{
         "name": "cache_slot_write",
         "route": "cuda",
@@ -935,6 +1273,38 @@ def main():
             entry.update(kernel_ms=own["kernel_ms"],
                          kernel_bound_ms=own["kernel_bound_ms"],
                          also_replaces="pasero_tpu/ops/flash_attention.py:1086")
+        kernels.append(entry)
+    # the main path's counts: phase 11's llama_1b run of the mode that
+    # launches each kernel; each kernel's numbers at llama_1b's decode shape
+    for name, line, mode, timed in (
+            ("int8_matmul", "quantize.py:245", "int8 greedy", [8, 2048, 5632]),
+            ("fused_head_argmax", "fused_ce.py:431", "bf16 fused head",
+             [8, 2048, 32000]),
+            ("fused_head_argmax_q8", "fused_ce.py:387", "int8 fused head",
+             [8, 2048, 32000])):
+        own = serving_kernels[name]
+        at = next(r for r in own["by_shape"] if r["shape"] == timed)
+        entry = {
+            "name": name,
+            "route": "cuda",
+            "source": ("pasero_torch/csrc/int8_matmul.cu"
+                       if name == "int8_matmul"
+                       else "pasero_torch/csrc/fused_head.cu"),
+            "replaces": f"pasero_tpu/ops/{line}",
+            "launches": lm_decode[mode][name],
+            "max_abs_err": own["max_abs_err"],
+            "ms": at["ms"],
+            "plain_ms": at["plain_ms"],
+            "bound_ms": at["bound_ms"],
+            "bound_by": at["bound_by"],
+            "library_ms": at["library_ms"],
+            "shape": timed,
+            "by_shape": own["by_shape"],
+            "launches_by_mode": {m: counts[name]
+                                 for m, counts in lm_decode.items()},
+            "serving_launches": {k: v[name] for k, v in serving.items()
+                                 if name in v},
+        }
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,11 +3,16 @@
 
     python -m pasero_torch.cli.decode MODEL_DIR -i test.de -r test.en \
         --beam-size 5 [--device cpu]
+    python -m pasero_torch.cli.decode LM_DIR -i prompts.txt \
+        [--quantize int8] [--sampling --sampling-topk 10] [--speculative]
 
 Resolves inference corpora from --input/--reference/--eval-corpus, decodes
-each with the TextGenerator, and logs per-corpus and averaged metrics
-(wps/bleu/chrf/...). ``--device`` defaults to the card; without one it
-raises unless ``--device cpu`` is given.
+each with the TextGenerator (an encoder-decoder or a decoder-only model;
+beam search, greedy, sampling or speculative greedy search; int8 weights
+with --quantize int8), and logs per-corpus and averaged metrics
+(wps/bleu/chrf/...) and, at the end, the launch counts of the int8 and
+fused-head kernels. ``--device`` defaults to the card; without one it raises
+unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -21,6 +26,9 @@ def main(argv=None):
     from pasero_torch import not_ported
     from pasero_torch.config import DecodingCLIConfig, get_task_cls
     from pasero_torch.decoding.generator import TextGenerator
+    from pasero_torch.ops.fused_ce import (fused_head_argmax,
+                                           fused_head_argmax_q8)
+    from pasero_torch.ops.quantize import int8_matmul
 
     cfg = DecodingCLIConfig(*(argv or []), strict=True)
     logging.basicConfig(level=logging.INFO,
@@ -53,6 +61,9 @@ def main(argv=None):
     if len(corpora) > 1:
         avg = {k: round(sum(v) / len(v), 2) for k, v in totals.items()}
         logger.info("average | " + " | ".join(f"{k} {v}" for k, v in avg.items()))
+    logger.info("launches | " + " | ".join(
+        f"{fn.__name__} {fn.launches}" for fn in
+        (int8_matmul, fused_head_argmax, fused_head_argmax_q8)))
 
 
 if __name__ == "__main__":

@@ -10,10 +10,14 @@ PyTorch counterpart of pasero_tpu/decoding/generator.py.
 
 As in pasero_tpu, prompts are sorted by length, cut into chunks of 16,
 bucketed and left-aligned, and the model computes in bfloat16 with float32
-parameters and float32 norm statistics. The generator runs on the card
-unless the caller asks for the CPU (``device="cpu"``). Streaming,
-teacher-forced scoring, ensembles, int8 weights and multi-device decoding
-come with later slices (ROADMAP.md).
+parameters and float32 norm statistics. Encoder-decoder and decoder-only
+models decode by beam search, greedy search, sampling (drawn from a
+``torch.Generator`` seeded from the config's ``seed``) or speculative greedy
+search (``--speculative``); ``--quantize int8`` stores the large weights as
+int8 after loading (ops/quantize.py). The generator runs on the card unless
+the caller asks for the CPU (``device="cpu"``). Streaming, teacher-forced
+scoring, ensembles and multi-device decoding come with later slices
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -33,8 +37,10 @@ from .. import checkpoints, not_ported, resolve_device
 from ..config import (DecodingAPIConfig, get_model_cls, get_model_config_cls,
                       get_task_cls)
 from ..data.batching import length_buckets, pad_to_bucket
+from ..ops.quantize import quantize_params, quantized_bytes
 from ..utils.metrics import Metrics
-from .search import beam_search, left_align, sample_decode
+from .search import (beam_search, left_align, sample_decode,
+                     speculative_greedy_decode)
 
 logger = logging.getLogger("decoding")
 
@@ -48,6 +54,9 @@ DECODE_PARAMS = {
 }
 
 CHUNK_ROWS = 16
+# batch rows are padded to a multiple of this: pasero_tpu's lcm(4, the
+# data-parallel degree), on one device
+ROWS_MULTIPLE = 4
 
 
 def load_model_config(model_dir: str, arch: Optional[str] = None):
@@ -81,10 +90,6 @@ def _check_supported(cfg) -> None:
         todo("mesh-sharded decoding", "A.12 parallelism")
     if cfg.ensemble_ckpt:
         todo("ensembles", "A.6 decoding")
-    if cfg.quantize:
-        todo("int8 weights", "A.9 int8 inference")
-    if cfg.speculative:
-        todo("speculative decoding", "A.8 decoder-only")
 
 
 class TextGenerator:
@@ -102,9 +107,9 @@ class TextGenerator:
         self.arch = arch
         self.model_cfg = model_cfg
         model_cfg.setup_for_inference(cfg)
-        if model_cfg.model_type == "decoder":
-            raise not_ported("decoding with a decoder-only model",
-                             "A.8 decoder-only")
+        # the sampling draws (pasero_tpu seeds its PRNGKey the same way)
+        self.rng = torch.Generator(device=self.device).manual_seed(
+            cfg.seed or 42)
 
         task_cls = get_task_cls(cfg.task)
         self.task = task_cls(cfg.model_dir, cfg.task_cfg)
@@ -139,27 +144,36 @@ class TextGenerator:
         checkpoints.load_into(model, self.cfg.ckpt,
                               other_paths=tuple(self.cfg.other_ckpt or ()))
         self.model = model.to(self.device).eval()
+        if self.cfg.quantize == "int8":
+            # weight-only int8 (ops/quantize.py): the last load step
+            n_q = quantize_params(self.model)
+            qb, fb = quantized_bytes(self.model)
+            logger.info(f"quantized {n_q} weights to int8: {qb / 2**20:.0f} "
+                        f"MiB int8 + {fb / 2**20:.0f} MiB float on "
+                        f"{self.device}")
         logger.info(f"loaded model in {time.time() - t0:.1f}s on {self.device}")
 
     # -- preprocessing -------------------------------------------------------
     def _prepare_batch(self, samples: list):
-        """Collate preprocessed samples into a left-aligned prompt batch."""
+        """Collate preprocessed samples into a left-aligned prompt batch, with
+        a source batch for an encoder-decoder model
+        (pasero_tpu/decoding/generator.py:213-235)."""
         pad = self.task.padding_idx
-        rows_multiple = 4          # pasero_tpu's row padding on one device
         dec = [s["decoder_input"] for s in samples]
         max_len = max(len(d) for d in dec)
         buckets = length_buckets(max(max_len, 8), min_len=8)
         prompt, prompt_mask = pad_to_bucket(dec, buckets, pad,
-                                            rows_multiple=rows_multiple)
+                                            rows_multiple=ROWS_MULTIPLE)
         prompt, prompt_mask = left_align(prompt, prompt_mask, pad)
         batch = {"prompt": prompt, "prompt_mask": prompt_mask}
-        enc = [s["encoder_input"] for s in samples]
-        src_buckets = length_buckets(max(max(len(e) for e in enc), 8),
-                                     min_len=8)
-        src, src_mask = pad_to_bucket(enc, src_buckets, pad,
-                                      rows_multiple=rows_multiple)
-        batch["src_tokens"] = src
-        batch["src_mask"] = src_mask
+        if self.model_cfg.model_type != "decoder":
+            enc = [s["encoder_input"] for s in samples]
+            src_buckets = length_buckets(max(max(len(e) for e in enc), 8),
+                                         min_len=8)
+            src, src_mask = pad_to_bucket(enc, src_buckets, pad,
+                                          rows_multiple=ROWS_MULTIPLE)
+            batch["src_tokens"] = src
+            batch["src_mask"] = src_mask
         return batch
 
     def _tensor(self, array, dtype=torch.long):
@@ -168,46 +182,66 @@ class TextGenerator:
     # -- decoding ------------------------------------------------------------
     @torch.inference_mode()
     def _decode_batch(self, batch: dict, opts: dict) -> dict:
+        """One batch through beam search, sampling / greedy search or
+        speculative greedy search, by pasero_tpu's rules
+        (pasero_tpu/decoding/generator.py:270-420)."""
+        cfg = self.cfg
         beam = opts["beam_size"]
-        if opts.get("sampling", self.cfg.sampling):
-            raise not_ported("sampling", "A.8 decoder-only")
-        encoder_out, encoder_mask = self.model.encode(
-            self._tensor(batch["src_tokens"]),
-            self._tensor(batch["src_mask"], torch.bool))
+        use_sampling = opts.get("sampling", cfg.sampling)
+        use_spec = (cfg.speculative and beam == 1 and not use_sampling
+                    and not self.task.preprocessor.blacklist
+                    and not any(len(s) for s in
+                                self.task.preprocessor.bin_stop_sequences))
+        encoder_out = encoder_mask = None
+        if "src_tokens" in batch:
+            encoder_out, encoder_mask = self.model.encode(
+                self._tensor(batch["src_tokens"]),
+                self._tensor(batch["src_mask"], torch.bool))
         common = dict(max_new=opts["max_new"], eos_idx=self.task.eos_idx,
                       pad_idx=self.task.padding_idx,
-                      blacklist=tuple(self.task.preprocessor.blacklist),
                       encoder_out=encoder_out, encoder_mask=encoder_mask)
+        blacklist = tuple(self.task.preprocessor.blacklist)
         prompt = self._tensor(batch["prompt"])
         prompt_mask = self._tensor(batch["prompt_mask"], torch.bool)
-        if beam == 1:
+        if use_spec:
+            lookup = lookup_mask = None
+            if "src_tokens" in batch and batch["src_tokens"].ndim == 2:
+                lookup = self._tensor(batch["src_tokens"])
+                lookup_mask = self._tensor(batch["src_mask"], torch.bool)
+            out = speculative_greedy_decode(
+                self.model, prompt, prompt_mask, lookup=lookup,
+                lookup_mask=lookup_mask, draft_len=cfg.speculative_draft_len,
+                **common)
+        elif use_sampling or beam == 1:
             stop_seqs = tuple(tuple(int(i) for i in s)
                               for s in self.task.preprocessor.bin_stop_sequences
                               if len(s))
             out = sample_decode(
-                self.model, prompt, prompt_mask, greedy=True,
-                repeat_penalty=opts.get("repeat_penalty",
-                                        self.cfg.repeat_penalty),
-                stop_sequences=stop_seqs, **common)
-            out = {k: v.cpu().numpy() for k, v in out.items()
-                   if k != "model_calls"}
-            tokens = out["tokens"][:, None]                    # (B, 1, T)
-            pos_scores = out["scores"][:, None]
-            lengths = out["lengths"][:, None]
-            scores = pos_scores.sum(-1) / (lengths + 1.0) ** self.cfg.len_penalty
+                self.model, prompt, prompt_mask, greedy=not use_sampling,
+                temperature=opts.get("sampling_temperature",
+                                     cfg.sampling_temperature),
+                top_k=opts.get("sampling_topk", cfg.sampling_topk),
+                top_p=opts.get("sampling_topp", cfg.sampling_topp),
+                repeat_penalty=opts.get("repeat_penalty", cfg.repeat_penalty),
+                stop_sequences=stop_seqs, blacklist=blacklist,
+                generator=self.rng, **common)
         else:
             out = beam_search(
                 self.model, prompt, prompt_mask, beam_size=beam,
-                len_penalty=opts.get("len_penalty", self.cfg.len_penalty),
-                **common)
+                len_penalty=opts.get("len_penalty", cfg.len_penalty),
+                blacklist=blacklist, **common)
             out = {k: v.cpu().numpy() for k, v in out.items()
                    if k != "model_calls"}
-            tokens = out["tokens"]
-            pos_scores = out["positional_scores"]
-            lengths = out["lengths"]
-            scores = out["scores"]
-        return {"tokens": tokens, "positional_scores": pos_scores,
-                "lengths": lengths, "scores": scores}
+            return {"tokens": out["tokens"],
+                    "positional_scores": out["positional_scores"],
+                    "lengths": out["lengths"], "scores": out["scores"]}
+        out = {k: v.cpu().numpy() for k, v in out.items() if k != "model_calls"}
+        pos_scores = out["scores"][:, None]                    # (B, 1, T)
+        lengths = out["lengths"][:, None]
+        return {"tokens": out["tokens"][:, None],
+                "positional_scores": pos_scores, "lengths": lengths,
+                "scores": pos_scores.sum(-1)
+                / (lengths + 1.0) ** cfg.len_penalty}
 
     def decode(self, *inputs, return_scores: bool = False, nbest: int = 1,
                meta: Optional[dict] = None, **opts) -> Any:
@@ -230,6 +264,10 @@ class TextGenerator:
             "max_new": opts.get("max_output_len", self.cfg.max_output_len),
             "beam_size": opts.get("beam_size") or self.cfg.beam_size or 1,
             "sampling": opts.get("sampling", self.cfg.sampling),
+            "sampling_temperature": opts.get("sampling_temperature",
+                                             self.cfg.sampling_temperature),
+            "sampling_topk": opts.get("sampling_topk", self.cfg.sampling_topk),
+            "sampling_topp": opts.get("sampling_topp", self.cfg.sampling_topp),
             "repeat_penalty": opts.get("repeat_penalty", self.cfg.repeat_penalty),
             "len_penalty": opts.get("len_penalty", self.cfg.len_penalty),
         }

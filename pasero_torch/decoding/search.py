@@ -1,11 +1,21 @@
-"""Decoding: greedy and beam search over a fixed-size KV cache.
+"""Decoding: greedy, sampling, speculative greedy and beam search over a
+fixed-size KV cache.
 
 PyTorch counterpart of pasero_tpu/decoding/search.py. The JAX functions are
 ``lax.while_loop``s over fixed shapes; here the loop is a Python loop around
 the same fixed-shape state, and its stop test is the one host read of each
-step. As there:
+step (of each chunk, for speculative decoding). As there:
 
 - prompts are LEFT-aligned so all rows write the KV cache at the same slot;
+- sampling applies temperature, repeat penalty, top-k and top-p as JAX's
+  ``_apply_sampling_filters`` does; the draw comes from a ``torch.Generator``
+  (the same distribution as JAX's, not the same bits);
+- greedy paths may take the fused argmax head (``PASERO_FUSED_HEAD=1``):
+  token and log-probability come from ``decode_step(head="argmax")`` and the
+  (B, V) logits never exist;
+- speculative greedy decoding verifies prompt-lookup drafts in one decoder
+  call per chunk and rewinds the cache index past the rejected tail; its
+  tokens are greedy decoding's;
 - beam search keeps 2*beam candidates per step (fairseq-style EOS harvest),
   finalizes EOS hypotheses into a fixed (B, beam) buffer, normalizes scores
   by (len+1)^p, and falls back to the live beams where a row never finished;
@@ -13,8 +23,7 @@ step. As there:
   never reordered.
 
 Selection stages over a few candidates use a stable descending sort, which
-keeps ``lax.top_k``'s tie order (lowest index first). Sampling and
-speculative decoding come with later slices (ROADMAP.md, A.8).
+keeps ``lax.top_k``'s tie order (lowest index first).
 """
 
 from __future__ import annotations
@@ -52,10 +61,60 @@ def _stable_topk(x, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def _check_fused_head() -> None:
-    if os.environ.get("PASERO_FUSED_HEAD", "auto") == "1":
-        raise not_ported("the fused argmax head",
-                         "A.9 int8 inference and the fused head")
+def _penalize(logits, tokens_so_far, repeat_penalty: float):
+    """Logits of tokens already generated divided by ``repeat_penalty``
+    (multiplied where negative)."""
+    if repeat_penalty == 1.0:
+        return logits
+    seen = torch.zeros_like(logits, dtype=torch.bool)
+    seen.scatter_(1, tokens_so_far, True)
+    penalized = torch.where(logits < 0, logits * repeat_penalty,
+                            logits / repeat_penalty)
+    return torch.where(seen, penalized, logits)
+
+
+def _sampling_logits(logits, temperature: float, top_k: int, top_p: float):
+    """The logits a sample is drawn from: divided by the temperature, NEG_INF
+    below the k-th largest and outside the smallest set of tokens whose
+    probability reaches top_p."""
+    scaled = logits / max(temperature, 1e-6)
+    if top_k and top_k > 0:
+        kth = torch.sort(scaled, dim=-1).values[:, -top_k][:, None]
+        scaled = torch.where(scaled < kth, NEG_INF, scaled)
+    if top_p and top_p < 1.0:
+        sorted_logits = torch.sort(scaled, dim=-1, descending=True).values
+        cum = torch.cumsum(torch.softmax(sorted_logits, dim=-1), dim=-1)
+        cutoff_idx = (cum < top_p).sum(dim=-1).clamp(max=logits.shape[-1] - 1)
+        cutoff = sorted_logits.gather(1, cutoff_idx[:, None])
+        scaled = torch.where(scaled < cutoff, NEG_INF, scaled)
+    return scaled
+
+
+def _apply_sampling_filters(logits, tokens_so_far, cfg_static,
+                            generator=None):
+    """temperature / repeat penalty / top-k / top-p -> token and its
+    log-probability (pasero_tpu/decoding/search.py:46). logits (B, V)
+    float32; tokens_so_far (B, T) ids; cfg_static (temperature, top_k, top_p,
+    repeat_penalty, greedy); ``generator`` draws the sample."""
+    temperature, top_k, top_p, repeat_penalty, greedy = cfg_static
+    logprobs = torch.log_softmax(logits, dim=-1)
+    logits = _penalize(logits, tokens_so_far, repeat_penalty)
+    if greedy:
+        token = logits.argmax(dim=-1)
+    else:
+        probs = torch.softmax(_sampling_logits(logits, temperature, top_k,
+                                               top_p), dim=-1)
+        token = torch.multinomial(probs, 1, generator=generator)[:, 0]
+    return token, logprobs.gather(1, token[:, None])[:, 0]
+
+
+def _use_fused_head(model) -> bool:
+    """JAX's rule (pasero_tpu/decoding/search.py:105): PASERO_FUSED_HEAD=1
+    turns the fused argmax head on for a model that has one, anything else
+    leaves it off."""
+    if not getattr(model, "supports_fused_head", False):
+        return False
+    return os.environ.get("PASERO_FUSED_HEAD", "auto") == "1"
 
 
 def _prompt_state(prompt, prompt_mask, max_new: int):
@@ -75,33 +134,46 @@ def _last_logits(logits):
 
 def sample_decode(model, prompt, prompt_mask, *, max_new: int, eos_idx: int,
                   pad_idx: int, encoder_out=None, encoder_mask=None,
-                  greedy: bool = True, repeat_penalty: float = 1.0,
+                  temperature: float = 1.0, top_k: int = 0, top_p: float = 1.0,
+                  repeat_penalty: float = 1.0, greedy: bool = True,
                   min_lengths=None, blacklist: tuple = (),
-                  stop_sequences: tuple = ()):
-    """Greedy generation (pasero_tpu/decoding/search.py:148).
+                  stop_sequences: tuple = (), generator=None):
+    """Greedy / sampling generation (pasero_tpu/decoding/search.py:148).
 
-    prompt: (B, P) LEFT-padded integer ids; prompt_mask: (B, P) bool.
-    Returns a dict with tokens (B, max_new), scores (B, max_new), lengths (B,)
-    and model_calls (decoder calls made).
+    prompt: (B, P) LEFT-padded integer ids; prompt_mask: (B, P) bool;
+    ``generator``: the ``torch.Generator`` of the sampling draws. Returns a
+    dict with tokens (B, max_new), scores (B, max_new), lengths (B,) and
+    model_calls (decoder calls made). Greedy decoding with no repeat penalty,
+    blacklist or minimum lengths takes the fused argmax head where
+    ``_use_fused_head`` says so.
     """
-    if not greedy:
-        raise not_ported("sampling", "A.8 decoder-only")
-    _check_fused_head()
     B, P = prompt.shape
     device = prompt.device
     prompt_len, positions, pad_valid = _prompt_state(prompt, prompt_mask,
                                                      max_new)
+    cfg_static = (temperature, top_k, top_p, repeat_penalty, greedy)
+    fuse_head = (greedy and repeat_penalty == 1.0 and not blacklist
+                 and min_lengths is None and _use_fused_head(model))
+    head = "argmax" if fuse_head else "logits"
+
+    def last(out):
+        """(token, logprob) of the fused head, or the last logits."""
+        if fuse_head:
+            return out[0][:, -1], out[1][:, -1]
+        return _last_logits(out)
+
     cache = model.make_cache(B, P + max_new)
-    logits = _last_logits(model.decode_step(
+    out = last(model.decode_step(
         prompt, cache, encoder_out=encoder_out, encoder_mask=encoder_mask,
         positions=positions, tgt_mask=torch.ones_like(prompt_mask),
-        self_kv_mask=pad_valid))
+        self_kv_mask=pad_valid, head=head))
     calls = 1
-    vocab = torch.arange(logits.shape[-1], device=device)
     blacklist_idx = (torch.tensor(list(blacklist), device=device)
                      if blacklist else None)
-    min_len = (torch.as_tensor(min_lengths, device=device)
-               if min_lengths is not None else None)
+    min_len = is_eos = None
+    if min_lengths is not None:      # then out holds logits (no fused head)
+        min_len = torch.as_tensor(min_lengths, device=device)
+        is_eos = torch.arange(out.shape[-1], device=device) == eos_idx
     stops = [torch.as_tensor(s, device=device) for s in stop_sequences]
 
     tokens_buf = torch.full((B, max_new), pad_idx, dtype=torch.long,
@@ -112,20 +184,17 @@ def sample_decode(model, prompt, prompt_mask, *, max_new: int, eos_idx: int,
     ones = torch.ones((B, 1), dtype=torch.bool, device=device)
     step = 0
     while step < max_new and not bool(finished.all()):
-        if blacklist_idx is not None:
-            logits[:, blacklist_idx] = NEG_INF
-        if min_len is not None:
-            logits = logits.masked_fill(
-                (step < min_len)[:, None] & (vocab == eos_idx)[None], NEG_INF)
-        logprobs = torch.log_softmax(logits, dim=-1)
-        if repeat_penalty != 1.0:
-            seen = torch.zeros_like(logits, dtype=torch.bool)
-            seen.scatter_(1, tokens_buf, True)
-            penalized = torch.where(logits < 0, logits * repeat_penalty,
-                                    logits / repeat_penalty)
-            logits = torch.where(seen, penalized, logits)
-        token = logits.argmax(dim=-1)
-        logprob = logprobs.gather(1, token[:, None])[:, 0]
+        if fuse_head:
+            token, logprob = out        # precomputed by the fused head
+        else:
+            logits = out
+            if blacklist_idx is not None:
+                logits[:, blacklist_idx] = NEG_INF
+            if min_len is not None:
+                logits = logits.masked_fill(
+                    (step < min_len)[:, None] & is_eos[None], NEG_INF)
+            token, logprob = _apply_sampling_filters(logits, tokens_buf,
+                                                     cfg_static, generator)
         token = torch.where(finished, pad_idx, token)
         logprob = torch.where(finished, 0.0, logprob)
         tokens_buf[:, step] = token
@@ -139,10 +208,10 @@ def sample_decode(model, prompt, prompt_mask, *, max_new: int, eos_idx: int,
         finish_step = torch.where(now_finished & ~finished, step + 1,
                                   finish_step)
         finished = now_finished
-        logits = _last_logits(model.decode_step(
+        out = last(model.decode_step(
             token[:, None], cache, encoder_mask=encoder_mask,
             positions=(prompt_len + step)[:, None], tgt_mask=ones,
-            self_kv_mask=pad_valid))
+            self_kv_mask=pad_valid, head=head))
         calls += 1
         step += 1
 
@@ -306,3 +375,129 @@ def beam_search(model, prompt, prompt_mask, *, beam_size: int, max_new: int,
             "positional_scores": fin_pos_scores[rows, order],
             "lengths": fin_lengths.gather(1, order),
             "model_calls": calls}
+
+
+# -- speculative greedy decoding (prompt-lookup drafts) ----------------------
+
+def _lookup_draft(lookup, lookup_valid, last, prev, K: int):
+    """Draft K tokens by n-gram matching against ``lookup`` (B, Ls)
+    (pasero_tpu/decoding/search.py:596): the tokens that followed the most
+    recent position j with lookup[j] == last, preferring bigram matches
+    (lookup[j - 1] == prev); rows without a match draft ``last`` repeated."""
+    B, Ls = lookup.shape
+    match = (lookup == last[:, None]) & lookup_valid
+    prev_ok = torch.cat([torch.ones_like(match[:, :1]),
+                         lookup[:, :-1] == prev[:, None]], dim=1)
+    bigram = match & prev_ok
+    use = torch.where(bigram.any(dim=1, keepdim=True), bigram, match)
+    j = Ls - 1 - use.flip(1).to(torch.uint8).argmax(dim=1)      # last True
+    has = use.any(dim=1)
+    idx = j[:, None] + 1 + torch.arange(K, device=lookup.device)[None]
+    ok = has[:, None] & (idx < Ls)
+    idx = idx.clamp(0, Ls - 1)
+    ok &= lookup_valid.gather(1, idx)
+    return torch.where(ok, lookup.gather(1, idx), last[:, None])
+
+
+def _rewind_cache(cache, new_index: int) -> None:
+    """Reset every self-attention cache's write index after a partially
+    accepted chunk (pasero_tpu/decoding/search.py:620): the stale K/V past
+    the index are masked out by the written-slot check and overwritten by the
+    next chunk."""
+    for self_cache, _ in cache:
+        self_cache.index = new_index
+
+
+def speculative_greedy_decode(model, prompt, prompt_mask, *, max_new: int,
+                              eos_idx: int, pad_idx: int, encoder_out=None,
+                              encoder_mask=None, lookup=None, lookup_mask=None,
+                              draft_len: int = 6):
+    """Greedy decoding with prompt-lookup speculation: exactly greedy's
+    tokens (pasero_tpu/decoding/search.py:633).
+
+    Each iteration verifies ``draft_len`` drafted tokens (n-gram continuations
+    from ``lookup``, default the prompt, and the generated prefix) in one
+    decoder call, accepts the longest batch-common correct prefix plus one
+    bonus token, and rewinds the KV-cache index past the rest. The batch-common
+    accepted length is one host read per chunk. The cache has
+    ``P + max_new + draft_len + 1`` slots. Returns tokens, scores, lengths and
+    model_calls as ``sample_decode``.
+    """
+    B, P = prompt.shape
+    K = draft_len
+    W = max_new + K + 1
+    device = prompt.device
+    prompt_len = prompt_mask.sum(dim=1)
+    pad_valid = torch.cat([prompt_mask, prompt_mask.new_ones(B, W)], dim=1)
+    if lookup is None:
+        lookup, lookup_mask = prompt, prompt_mask
+    if lookup_mask is None:
+        lookup_mask = torch.ones(lookup.shape, dtype=torch.bool, device=device)
+    positions0 = (torch.arange(P, device=device)[None, :]
+                  - (P - prompt_len)[:, None])
+    fuse_head = _use_fused_head(model)
+    head = "argmax" if fuse_head else "logits"
+
+    def greedy_of(out):
+        """(greedy tokens, their log-probabilities) (B, T) of a call."""
+        if fuse_head:
+            return out
+        logits = out.float()
+        tokens = logits.argmax(dim=-1)
+        logprobs = torch.log_softmax(logits, dim=-1)
+        return tokens, logprobs.gather(-1, tokens[..., None])[..., 0]
+
+    cache = model.make_cache(B, P + W)
+    tok, lp = greedy_of(model.decode_step(
+        prompt, cache, encoder_out=encoder_out, encoder_mask=encoder_mask,
+        positions=positions0, tgt_mask=torch.ones_like(prompt_mask),
+        self_kv_mask=pad_valid, head=head))
+    last, lp0 = tok[:, -1], lp[:, -1]
+    tokens_buf = torch.full((B, W), pad_idx, dtype=torch.long, device=device)
+    scores_buf = torch.zeros((B, W), device=device)
+    tokens_buf[:, 0] = last
+    scores_buf[:, 0] = lp0
+    finished = last == eos_idx
+    prev = torch.where(prompt_len > 0, prompt[:, -1], pad_idx)
+    cols = torch.arange(K + 1, device=device)[None]
+    chunk_ones = torch.ones((B, K + 1), dtype=torch.bool, device=device)
+    slots = torch.arange(W, device=device)[None]
+    step, calls = 1, 1
+    while step < max_new and not bool(finished.all()):
+        full_lookup = torch.cat([lookup, tokens_buf], dim=1)
+        full_valid = torch.cat([lookup_mask, (slots < step).expand(B, W)],
+                               dim=1)
+        draft = _lookup_draft(full_lookup, full_valid, last, prev, K)
+        chunk = torch.cat([last[:, None], draft], dim=1)           # (B, K+1)
+        positions = prompt_len[:, None] + step - 1 + cols
+        greedy, greedy_lp = greedy_of(model.decode_step(
+            chunk, cache, encoder_mask=encoder_mask, positions=positions,
+            tgt_mask=chunk_ones, self_kv_mask=pad_valid, head=head))
+        calls += 1
+        hit = torch.cumprod((draft == greedy[:, :K]).long(), dim=1)
+        accepted = torch.where(finished, K, hit.sum(dim=1))
+        a_min = int(accepted.min())                     # the batch-common prefix
+        # emitted = accepted drafts [0, a_min) + the greedy token at a_min
+        draft_p = torch.nn.functional.pad(draft, (0, 1))
+        emitted = torch.where(cols < a_min, draft_p, greedy[:, a_min:a_min + 1])
+        emitted = torch.where(cols <= a_min, emitted, pad_idx)
+        emitted = torch.where(finished[:, None], pad_idx, emitted)
+        emit_lp = torch.where((cols <= a_min) & ~finished[:, None], greedy_lp,
+                              0.0)
+        tokens_buf[:, step:step + K + 1] = emitted
+        scores_buf[:, step:step + K + 1] = emit_lp
+        finished = finished | (emitted == eos_idx).any(dim=1)
+        prev = emitted[:, a_min - 1] if a_min > 0 else last
+        last = emitted[:, a_min]
+        _rewind_cache(cache, P + step + a_min)
+        step += a_min + 1
+
+    tokens_buf = tokens_buf[:, :max_new]
+    scores_buf = scores_buf[:, :max_new]
+    is_eos = torch.cat([tokens_buf == eos_idx,
+                        torch.ones((B, 1), dtype=torch.bool, device=device)], 1)
+    lengths = (is_eos.to(torch.uint8).argmax(dim=1) + 1).clamp(max=max_new)
+    valid = torch.arange(max_new, device=device)[None] < lengths[:, None]
+    return {"tokens": tokens_buf.masked_fill(~valid, pad_idx),
+            "scores": scores_buf.masked_fill(~valid, 0.0),
+            "lengths": lengths, "model_calls": calls}

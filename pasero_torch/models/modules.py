@@ -15,6 +15,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import not_ported
+from ..ops.quantize import (QTensor, embedding_lookup, int8_matmul,
+                            int8_matmul_t)
 
 
 class Dropout(nn.Module):
@@ -45,7 +47,8 @@ class Linear(nn.Module):
     """Dense layer (pasero_tpu/models/modules.py:34). ``weight`` is (out, in),
     the transpose of flax's (in, out) ``kernel``. The product is rounded to
     ``dtype`` before the bias is added, as flax's ``preferred_element_type``
-    does."""
+    does. After ``quantize_params`` the weight is an int8 ``QTensor`` and the
+    product is ``int8_matmul`` (inference only)."""
 
     def __init__(self, in_features: int, out_features: int,
                  use_bias: bool = True, dtype: torch.dtype = torch.bfloat16):
@@ -59,7 +62,10 @@ class Linear(nn.Module):
         nn.init.trunc_normal_(self.weight, std=std, a=-2 * std, b=2 * std)
 
     def forward(self, x):
-        y = torch.matmul(x.to(self.dtype), self.weight.to(self.dtype).t())
+        if isinstance(self.weight, QTensor):
+            y = int8_matmul(x.to(self.dtype), self.weight, out_dtype=self.dtype)
+        else:
+            y = torch.matmul(x.to(self.dtype), self.weight.to(self.dtype).t())
         if self.bias is not None:
             y = y + self.bias.to(self.dtype)
         return y
@@ -67,7 +73,9 @@ class Linear(nn.Module):
 
 class Embedding(nn.Module):
     """Token embedding with a tied output projection
-    (pasero_tpu/models/modules.py:90)."""
+    (pasero_tpu/models/modules.py:90). After ``quantize_params`` the table is
+    a row-quantized ``QTensor``: lookups dequantize the gathered rows and the
+    tied head is ``int8_matmul_t``."""
 
     def __init__(self, num_embeddings: int, features: int,
                  dtype: torch.dtype = torch.bfloat16):
@@ -77,11 +85,16 @@ class Embedding(nn.Module):
         self.dtype = dtype
 
     def forward(self, ids):
+        if isinstance(self.embedding, QTensor):
+            return embedding_lookup(self.embedding, ids, self.dtype)
         return F.embedding(ids, self.embedding).to(self.dtype)
 
     def attend(self, x):
         """Output projection with tied weights; float32 logits of
         ``dtype`` operands (flax: ``preferred_element_type=float32``)."""
+        if isinstance(self.embedding, QTensor):
+            return int8_matmul_t(x.to(self.dtype), self.embedding,
+                                 out_dtype=torch.float32)
         w = self.embedding.to(self.dtype).float()
         return torch.matmul(x.to(self.dtype).float(), w.t())
 

@@ -29,7 +29,8 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import not_ported
 from ..config import TransformerConfig, register_model
-from ..ops.fused_ce import fused_cross_entropy
+from ..ops.fused_ce import fused_cross_entropy, fused_head_argmax
+from ..ops.quantize import QTensor
 from .attention import KVCache, MultiheadAttention
 from .modules import Dropout, Embedding, FeedForward, Linear, make_norm
 from .positional import PositionalEmbedding
@@ -276,13 +277,33 @@ class TransformerDecoder(_Stack):
         if not cfg.tied_output_projection:
             self.output_projection = Linear(cfg.embed_dim, vocab_size,
                                             use_bias=False, dtype=dtype)
+        self._argmax_head = None    # (key, compute-type copy of the head)
 
     def layers(self):
         return [getattr(self, f"layers_{i}") for i in range(self.num_layers)]
 
+    def argmax_head_weight(self):
+        """The (V, E) head of ``fused_head_argmax``: an int8 QTensor as it
+        is; a float head rounded to the compute type, kept while the weight
+        is unchanged, so the cast is made once per decode and not at every
+        decoder call (JAX casts it in the decode program, and XLA hoists the
+        cast out of the decode loop)."""
+        weight = (self.embed.embedding if self.cfg.tied_output_projection
+                  else self.output_projection.weight)
+        if isinstance(weight, QTensor):
+            return weight
+        # an inference tensor has no version counter (and is not updated in
+        # place outside inference mode)
+        version = None if weight.is_inference() else weight._version
+        key = (weight.data_ptr(), version, weight.device, self.dtype)
+        if self._argmax_head is None or self._argmax_head[0] != key:
+            self._argmax_head = (key, weight.detach().to(self.dtype))
+        return self._argmax_head[1]
+
     def forward(self, tokens, encoder_out=None, encoder_mask=None,
                 tgt_mask=None, positions=None, cache=None, self_kv_mask=None,
-                beam_lineage=None, ce_targets=None, ce_weights=None):
+                beam_lineage=None, ce_targets=None, ce_weights=None,
+                head: str = "logits"):
         """tokens: (B, T) decoder input ids. Returns float32 logits (B, T, V).
 
         cache: the per-layer (self, cross) KVCache pairs of
@@ -293,7 +314,11 @@ class TransformerDecoder(_Stack):
         return (loss_sum, nll_sum, weight_sum) from the fused cross-entropy
         (``ce_impl`` "auto"/"flash": the CUDA kernels on the card, their
         plain version on the CPU) or ``chunked_cross_entropy`` ("chunked"),
-        without the (B, T, V) float32 logits."""
+        without the (B, T, V) float32 logits.
+
+        head="argmax": (tokens, logprobs) of shape (B, T) from the fused
+        greedy head (``fused_head_argmax``) instead of logits
+        (pasero_tpu/models/transformer.py:525-545)."""
         cfg = self.cfg
         if tgt_mask is None:
             tgt_mask = tokens != cfg.padding_idx
@@ -330,6 +355,11 @@ class TransformerDecoder(_Stack):
             return chunked_cross_entropy(
                 x, weight, ce_targets, ce_weights, label_smoothing=ls,
                 num_chunks=getattr(cfg, "ce_chunks", 8) or 8)
+        if head == "argmax":
+            B, T, E = x.shape
+            tok, lp = fused_head_argmax(x.reshape(B * T, E),
+                                        self.argmax_head_weight())
+            return tok.reshape(B, T), lp.reshape(B, T)
         if cfg.tied_output_projection:
             return self.embed.attend(x)
         return self.output_projection(x).float()
@@ -395,6 +425,8 @@ class Transformer(nn.Module):
     every attention layer's implementation, as in JAX (:680)."""
 
     supports_beam_lineage = True
+    # decode_step(head="argmax"): the fused greedy head (fused_head_argmax)
+    supports_fused_head = True
 
     def __init__(self, cfg, src_vocab_size: int,
                  tgt_vocab_size: Optional[int] = None,
@@ -445,18 +477,20 @@ class Transformer(nn.Module):
 
     def decode_step(self, tokens, cache, encoder_out=None, encoder_mask=None,
                     positions=None, tgt_mask=None, self_kv_mask=None,
-                    beam_lineage=None):
+                    beam_lineage=None, head: str = "logits"):
         """One incremental decoder call, updating ``cache`` in place.
         ``encoder_out`` is needed on the first call only (it fills the
         cross-attention caches). beam_lineage (B0, K, L): lineage beam
-        attention, see attention.lineage_attention."""
+        attention, see attention.lineage_attention. head="argmax": return
+        (tokens, logprobs) (B, T) of the fused greedy head instead of
+        (B, T, V) logits (pasero_tpu/models/transformer.py:707-720)."""
         if tokens.shape[1] == 1:
             self.single_token_calls += 1
         return self.decoder(tokens, encoder_out=encoder_out,
                             encoder_mask=encoder_mask, tgt_mask=tgt_mask,
                             positions=positions, cache=cache,
                             self_kv_mask=self_kv_mask,
-                            beam_lineage=beam_lineage)
+                            beam_lineage=beam_lineage, head=head)
 
     def forward(self, src_tokens, decoder_input, src_mask=None, targets=None,
                 prompt_mask=None, loss_weights=None):

@@ -2,7 +2,8 @@
 
 Each source has a plain C interface and is compiled on first use into a
 shared library under ``build/kernels/`` at the root of the checkout, named
-after the source and the hash of its text, so an edited source is rebuilt.
+after the source and the hash of its text and of the headers of ``csrc``
+(``*.cuh``), so an edited source or header is rebuilt.
 The library is loaded with ctypes: pointers and the stream are passed as
 ``c_void_p`` (the caller sets ``argtypes``), and every entry point returns
 ``cudaGetLastError()``.
@@ -14,6 +15,7 @@ failed build raises.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -46,8 +48,11 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> str:
     """``build/kernels/{name}-{hash}.so`` for ``csrc/{name}.cu``."""
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [os.path.join(CSRC, f"{name}.cu")] + sorted(
+            glob.glob(os.path.join(CSRC, "*.cuh"))):
+        with open(path, "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 
@@ -76,3 +81,10 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             lib = _LIBS[name] = ctypes.CDLL(build(name))
         return lib
+
+
+def aligned(x):
+    """``x`` contiguous and 16-byte aligned, as the kernels' 16-byte copies
+    need: a copy only where the tensor is neither."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()

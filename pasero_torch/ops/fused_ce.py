@@ -1,13 +1,18 @@
-"""Fused cross-entropy: the vocabulary head's loss without materialized logits.
+"""Fused vocabulary heads: the cross-entropy loss, and the greedy argmax,
+without materialized logits.
 
-Port of the training half of pasero_tpu/ops/fused_ce.py
-(``fused_cross_entropy``, a ``jax.custom_vjp`` over the Pallas ``_fwd``,
-``_bwd_matmuls`` and ``_bwd_split``). ``fused_cross_entropy`` is a
-``torch.autograd.Function``: on CUDA tensors its forward launches
-``fused_ce_fwd`` and its backward ``fused_ce_bwd`` (the dx and dW kernels of
-``csrc/fused_ce.cu``); CPU tensors take ``fused_cross_entropy_plain``. A CUDA
-tensor never takes the plain version: the kernels launch or the wrapper
-raises.
+Port of pasero_tpu/ops/fused_ce.py. The training half: ``fused_cross_entropy``
+(a ``jax.custom_vjp`` over the Pallas ``_fwd``, ``_bwd_matmuls`` and
+``_bwd_split`` there) is a ``torch.autograd.Function``: on CUDA tensors its
+forward launches ``fused_ce_fwd`` and its backward ``fused_ce_bwd`` (the dx
+and dW kernels of ``csrc/fused_ce.cu``); CPU tensors take
+``fused_cross_entropy_plain``. The decoding half: ``fused_head_argmax``
+(the Pallas ``fused_head_argmax`` and ``_fused_head_argmax_q8``) launches the
+kernels of ``csrc/fused_head.cu`` on CUDA tensors, counted in
+``fused_head_argmax.launches`` (a bfloat16 head) and
+``fused_head_argmax_q8.launches`` (an int8 QTensor head); CPU tensors take
+``fused_head_argmax_plain``. A CUDA tensor never takes a plain version: the
+kernels launch or the wrapper raises.
 
 The head weight is passed in its stored (V, E) layout (``Embedding.embedding``
 or ``Linear.weight``), the transpose of JAX's (E, V) ``kernel`` argument; the
@@ -22,6 +27,7 @@ import ctypes
 import torch
 
 from . import cuda_build
+from .quantize import QTensor
 
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 
@@ -198,3 +204,116 @@ def fused_cross_entropy(x, weight, targets, weights,
                                          label_smoothing)
     return _FusedCrossEntropy.apply(x, weight, targets, weights,
                                     float(label_smoothing))
+
+
+# -- the greedy head --------------------------------------------------------
+
+def fused_head_argmax_plain(x, weight):
+    """(tokens (N,) int64, logprobs (N,) float32) of the float32 logits
+    ``x . weight^T``: a float weight rounded to x's type first, an int8
+    QTensor's sums multiplied by its per-row scale. The first index wins a
+    tie (torch.argmax), and logprob = -log sum exp(s - max)."""
+    if isinstance(weight, QTensor):
+        logits = torch.matmul(x.float(), weight.q.float().t()) * weight.scale
+    else:
+        logits = torch.matmul(x.float(), weight.to(x.dtype).float().t())
+    tokens = logits.argmax(dim=-1)
+    m = logits.gather(1, tokens[:, None])
+    logprobs = -torch.log(torch.exp(logits - m).sum(dim=-1))
+    return tokens, logprobs
+
+
+def _head_library():
+    lib = cuda_build.load("fused_head")
+    fn = lib.fused_head_argmax
+    if fn.argtypes is None:
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [ptr] * 3 + [i32] + [ptr] * 5 + [i32] * 3 + [ptr]
+        fn.restype = i32
+        lib.fused_head_blocks.argtypes = [i32, i32]
+        lib.fused_head_blocks.restype = i32
+        lib.fused_head_error_string.argtypes = [i32]
+        lib.fused_head_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_head(x, weight) -> None:
+    if x.dim() != 2 or len(weight.shape) != 2 or x.shape[1] != weight.shape[1]:
+        raise ValueError(f"x must be (N, E) and the head (V, E), got "
+                         f"{tuple(x.shape)} and {tuple(weight.shape)}")
+    if weight.device != x.device:
+        raise ValueError(f"x lies on {x.device}, the head on {weight.device}")
+
+
+def _head_cuda(x, w, scale):
+    """One launch each of the partials and the combine kernel; w is a
+    bfloat16 (V, E) head, or int8 with its float32 scale."""
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"the fused-head kernels take bfloat16 x, got {x.dtype}")
+    N, E = x.shape
+    V = w.shape[0]
+    if E % 16:
+        raise ValueError(f"the fused-head kernels take E a multiple of 16, "
+                         f"got {E}")
+    if x.device.type != "cuda":
+        raise ValueError(f"no fused-head kernel for device {x.device}")
+    tokens = torch.empty(N, dtype=torch.int64, device=x.device)
+    logprobs = torch.empty(N, dtype=torch.float32, device=x.device)
+    if N == 0:
+        return tokens, logprobs
+    lib = _head_library()
+    nvb = lib.fused_head_blocks(N, V)
+    part_m = torch.empty((N, nvb), dtype=torch.float32, device=x.device)
+    part_l = torch.empty_like(part_m)
+    part_i = torch.empty((N, nvb), dtype=torch.int32, device=x.device)
+    x, w = cuda_build.aligned(x), cuda_build.aligned(w)
+    scale = cuda_build.aligned(scale) if scale is not None else None
+    with torch.cuda.device(x.device):
+        status = lib.fused_head_argmax(
+            x.data_ptr(), w.data_ptr(),
+            scale.data_ptr() if scale is not None else None,
+            int(scale is not None), part_m.data_ptr(), part_l.data_ptr(),
+            part_i.data_ptr(), tokens.data_ptr(), logprobs.data_ptr(), N, V, E,
+            torch.cuda.current_stream().cuda_stream)
+    if status != 0:
+        raise RuntimeError("fused_head_argmax kernels failed: "
+                           + lib.fused_head_error_string(status).decode())
+    return tokens, logprobs
+
+
+def fused_head_argmax(x, weight):
+    """Greedy decode head: ``argmax(x . weight^T)`` and its log-probability,
+    with the (N, V) logits never in device memory.
+
+    x: (N, E) in the compute type; weight: the (V, E) head, or an int8
+    QTensor (then ``fused_head_argmax_q8``). Returns (tokens (N,) int64,
+    logprobs (N,) float32), the first index winning a tie. On CUDA tensors
+    one run of the kernels of ``csrc/fused_head.cu`` (bfloat16 x; a float
+    weight is cast to x's type, a no-op for the bfloat16 copy the decoder
+    keeps); on CPU tensors ``fused_head_argmax_plain``."""
+    if isinstance(weight, QTensor):
+        return fused_head_argmax_q8(x, weight)
+    _check_head(x, weight)
+    if x.device.type == "cpu":
+        return fused_head_argmax_plain(x, weight)
+    out = _head_cuda(x, weight.to(x.dtype), None)
+    fused_head_argmax.launches += 1
+    return out
+
+
+fused_head_argmax.launches = 0
+
+
+def fused_head_argmax_q8(x, t: QTensor):
+    """``fused_head_argmax`` with an int8 (V, E) head and its per-row scale
+    (pasero_tpu/ops/fused_ce.py:387): the weight is read as int8 and each
+    logit multiplied by its row's scale."""
+    _check_head(x, t)
+    if x.device.type == "cpu":
+        return fused_head_argmax_plain(x, t)
+    out = _head_cuda(x, t.q, t.scale)
+    fused_head_argmax_q8.launches += 1
+    return out
+
+
+fused_head_argmax_q8.launches = 0

@@ -1,10 +1,11 @@
 """Tasks: preprocessing/collation/corpora/metrics per task type.
 
-Translation and language modeling are ported so far; the other pasero_tpu
-tasks are listed in ROADMAP.md."""
+Translation, language modeling and dialogue are ported so far; the other
+pasero_tpu tasks are listed in ROADMAP.md."""
 
 from .task import Corpus, InferenceCorpus, Task
 from .translation import (InferenceParallelCorpus, ParallelCorpus,
                           TranslationTask)
 from .language_modeling import (InferenceMonolingualCorpus,
                                 LanguageModelingTask, MonolingualCorpus)
+from .dialogue import DialogueTask

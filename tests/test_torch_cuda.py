@@ -347,3 +347,151 @@ def test_flash_bad_input_raises_on_card(bad):
         flash_attention(q, q, q, causal=True,
                         window=0 if bad == "window" else None)
     assert flash_fwd.launches == before
+
+
+# The int8 GEMM and the fused head against their plain versions' float32
+# results of the same bf16 x and int8 (or bf16) weight, in a limit per element:
+# |got - want| <= r |want| + 2^-21 (K / 16 + 4) sum_k |x_k| |w_k|. The
+# products are exact (an int8 value is a bf16 value) and only the sums round:
+# each of the tensor cores' K / 16 steps, the kernel's split-K additions and
+# the scale's product err by a few float32 ulps of a magnitude bounded by
+# sum |x| |w|; r = 2^-7 covers a bf16 output's rounding (half an ulp is up to
+# u = 2^-8 of it, and the float32 sums it rounds differ in their last bits)
+# and is 1e-6 for a float32 output. The fused head's logits
+# never leave the chip, so its tokens must equal the plain argmax on every
+# row whose top-two gap exceeds twice the row's largest limit, and its
+# log-probabilities lie within twice that plus 1e-5 (exp, log and the sum over
+# the vocabulary in float32). A rolled scale or a result shifted by one column
+# falls far outside these limits.
+INT8_SHAPES = [   # (M, K, N): llama_1b's decode, speculative and prompt rows
+    (M, K, N) for M in (8, 72, 1024)
+    for K, N in ((2048, 2048), (2048, 256), (2048, 5632), (5632, 2048),
+                 (2048, 32000))]
+INT8_RAGGED = [(8, 256, 2192), (130, 48, 515)]
+HEAD_SHAPES = [(N, 2048, 32000) for N in (8, 72, 1024)] + [(8, 256, 2192)]
+
+
+def int8_inputs(M, K, N, seed=0, device="cuda"):
+    """bf16 x (M, K) and a QTensor (N, K) whose rows span three decades of
+    magnitude, so that another row's scale is far off."""
+    from pasero_torch.ops.quantize import quantize
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(M, K, generator=gen, device=device).to(torch.bfloat16)
+    mag = torch.logspace(-2, 1, N, device=device)[
+        torch.randperm(N, generator=gen, device=device)]
+    w = torch.randn(N, K, generator=gen, device=device) * mag[:, None] \
+        * K ** -0.5
+    return x, quantize(w)
+
+
+def int8_limits(x, w, want, bf16_out: bool):
+    """Per-element limits for x (M, K), the float32 weight the kernel reads
+    (dequantized, or bf16 values) w (N, K) and the float32 result ``want``."""
+    K = x.shape[1]
+    sums = torch.matmul(x.float().abs(), w.abs().t())
+    return (2.0 ** -7 if bf16_out else 1e-6) * want.abs() + \
+        2.0 ** -21 * (K / 16 + 4) * sums
+
+
+def int8_excess(got, want, limit) -> float:
+    return ((got.float() - want).abs() / limit).max().item()
+
+
+def int8_compare(M, K, N, out_dtype) -> dict:
+    """One launch of the int8 kernel against int8_matmul_plain: the excess
+    over the limits, and that of a rolled scale and of a one-column shift."""
+    from pasero_torch.ops.quantize import (QTensor, dequantize, int8_matmul,
+                                           int8_matmul_plain)
+    x, t = int8_inputs(M, K, N)
+    got = int8_matmul(x, t, out_dtype)
+    want = int8_matmul_plain(x, t.q, t.scale, torch.float32)
+    limit = int8_limits(x, dequantize(t), want, out_dtype == torch.bfloat16)
+    bad = int8_matmul(x, QTensor(t.q, t.scale.roll(1)), out_dtype)
+    torch.cuda.synchronize()
+    return {"excess": int8_excess(got, want, limit),
+            "bad_scale_excess": int8_excess(bad, want, limit),
+            "shift_excess": int8_excess(got[:, 1:], want[:, :-1],
+                                        limit[:, :-1]),
+            "max_abs_err": (got.float() - want).abs().max().item()}
+
+
+def head_compare(N, E, V, q8: bool) -> dict:
+    """One run of the fused head (bf16 or int8) against the plain float32
+    logits of the same inputs: tokens on the rows whose top-two gap exceeds
+    twice their limit, log-probabilities within twice it plus 1e-5; the same
+    check on a head given a rolled scale (int8) or a head read one row off
+    (bf16)."""
+    from pasero_torch.ops.fused_ce import (fused_head_argmax,
+                                           fused_head_argmax_plain)
+    from pasero_torch.ops.quantize import QTensor, dequantize
+    x, t = int8_inputs(N, E, V, seed=1)
+    head = t if q8 else dequantize(t, torch.bfloat16)
+    w = dequantize(t) if q8 else head.float()
+    logits = torch.matmul(x.float(), w.t())
+    row_limit = int8_limits(x, w, logits, False).amax(dim=1)
+    top2 = logits.topk(2, dim=1).values
+    decided = top2[:, 0] - top2[:, 1] > 2 * row_limit
+    want_tok, want_lp = fused_head_argmax_plain(x, head)
+    del logits
+
+    def excess(tok, lp):
+        if not torch.equal(tok[decided], want_tok[decided]):
+            return float("inf")
+        return ((lp - want_lp).abs() / (2 * row_limit + 1e-5)).max().item()
+
+    tok, lp = fused_head_argmax(x, head)
+    bad = (QTensor(t.q, t.scale.roll(1)) if q8
+           else torch.cat([head[1:], head[:1]]))
+    bad_excess = excess(*fused_head_argmax(x, bad))
+    torch.cuda.synchronize()
+    return {"excess": excess(tok, lp), "bad_excess": bad_excess,
+            "decided": int(decided.sum()),
+            "max_abs_err": (lp - want_lp).abs().max().item()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", INT8_SHAPES + INT8_RAGGED)
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_int8_matmul_matches_plain(shape, out_dtype):
+    from pasero_torch.ops.quantize import int8_matmul
+    _need_card()
+    before = int8_matmul.launches
+    r = int8_compare(*shape, out_dtype)
+    assert int8_matmul.launches == before + 2
+    assert r["excess"] <= 1.0, r
+    assert r["bad_scale_excess"] > 1.0 and r["shift_excess"] > 1.0, r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", HEAD_SHAPES)
+@pytest.mark.parametrize("q8", [False, True], ids=["bf16", "int8"])
+def test_fused_head_matches_plain(shape, q8):
+    from pasero_torch.ops.fused_ce import (fused_head_argmax,
+                                           fused_head_argmax_q8)
+    _need_card()
+    counter = fused_head_argmax_q8 if q8 else fused_head_argmax
+    before = counter.launches
+    r = head_compare(*shape, q8)
+    assert counter.launches == before + 2
+    assert r["decided"] >= shape[0] // 2, r
+    assert r["excess"] <= 1.0, r
+    assert r["bad_excess"] > 1.0, r
+
+
+@pytest.mark.cuda
+def test_int8_and_head_wrappers_raise_on_card():
+    """float32 x and a K not a multiple of 16 raise before any launch."""
+    from pasero_torch.ops.fused_ce import fused_head_argmax
+    from pasero_torch.ops.quantize import int8_matmul, quantize
+    _need_card()
+    t = quantize(torch.randn(32, 40, device="cuda"))
+    before = (int8_matmul.launches, fused_head_argmax.launches)
+    with pytest.raises(TypeError):
+        int8_matmul(torch.zeros(4, 40, device="cuda"), t)
+    with pytest.raises(ValueError):
+        int8_matmul(torch.zeros(4, 40, device="cuda", dtype=torch.bfloat16), t)
+    with pytest.raises(ValueError):
+        fused_head_argmax(torch.zeros(4, 40, device="cuda",
+                                      dtype=torch.bfloat16),
+                          torch.zeros(32, 40, device="cuda"))
+    assert (int8_matmul.launches, fused_head_argmax.launches) == before

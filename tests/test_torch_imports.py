@@ -142,3 +142,24 @@ def test_flash_kernel_wrapper_refuses_what_it_does_not_take(bad, error):
     with pytest.raises(error):
         flash_bwd(q, q, q, mask, q, q[..., 0].float(), q, 0.125, True, None)
     assert [fn.launches for fn in counts] == before
+
+
+@pytest.mark.parametrize("option,item", [
+    (dict(ensemble_ckpt=["other.npz"]), "A.6"),
+    (dict(tp_size=2), "A.12"),
+    (dict(dp_size=2), "A.12"),
+])
+def test_unported_decoding_options_name_their_roadmap_item(option, item):
+    """Decoder-only models, --quantize int8, sampling and --speculative
+    decode now; ensembles and multi-device decoding still raise."""
+    from pasero_torch.decoding.generator import TextGenerator
+    with pytest.raises(NotImplementedError, match=item):
+        TextGenerator.build(MODEL, device="cpu", **option)
+
+
+def test_decoding_options_of_the_serving_slice_build():
+    from pasero_torch.decoding.generator import TextGenerator
+    lm = os.path.join(ROOT, "pasero_torch", "testdata", "lm-mini2")
+    gen = TextGenerator.build(lm, device="cpu", quantize="int8",
+                              speculative=True, sampling=True)
+    assert gen.model_cfg.model_type == "decoder"

@@ -56,12 +56,21 @@ def test_port_lm_cli_matches_jax_losses(trained):
         assert os.path.exists(os.path.join(model_dir, name)), name
 
 
-def test_decoding_a_language_model_is_not_ported(trained):
-    """TextGenerator on a decoder-only checkpoint raises, naming A.8."""
+def test_decoding_a_language_model(trained):
+    """TextGenerator decodes the CLI's decoder-only checkpoint: greedy and
+    speculative decoding give the same continuation of every prompt."""
     from pasero_torch.decoding.generator import TextGenerator
     model_dir = trained[1]
-    with pytest.raises(NotImplementedError, match="A.8"):
-        TextGenerator.build(model_dir, device="cpu")
+    prompts = ["The flight to", "Thomas works until eight"]
+    greedy = TextGenerator.build(model_dir, ckpt="model_5.npz", device="cpu",
+                                 max_output_len=8)
+    assert greedy.model_cfg.model_type == "decoder"
+    hyps = greedy.decode(prompts, return_scores=True)
+    assert len(hyps) == 2 and all(0 < len(h[0]["tokens"]) <= 8 for h in hyps)
+    spec = TextGenerator.build(model_dir, ckpt="model_5.npz", device="cpu",
+                               max_output_len=8, speculative=True)
+    assert [h[0]["tokens"] for h in spec.decode(prompts, return_scores=True)] \
+        == [h[0]["tokens"] for h in hyps]
 
 
 def regenerate():
