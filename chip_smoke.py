@@ -24,7 +24,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 4. the fused cross-entropy kernels (forward; dx and dW backward) against
    their plain version on the card at the full-width training shape
    (16384 x 512 x 32000, bf16), ragged shapes in bf16 and fp32, the wide
-   shapes of the JAX split backward and llama_1b's untied head (8192 x
+   shapes of the JAX split backward, whisper_base's head with Whisper's odd
+   vocabulary (2048 x 512 x 51865) and llama_1b's untied head (8192 x
    2048 x 32000), with their time per call at the first and the last beside
    the plain version's, the library yardstick's (F.cross_entropy over
    torch.matmul logits) and the operations bound, and peak memory of the
@@ -73,7 +74,30 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    goldens: TextGenerator on pasero_torch/testdata/lm-mini2 (bf16 greedy,
    int8 weights with the fused head, speculative equal to greedy, a dialogue
    decode) and python -m pasero_torch.cli.decode models/deen-mini2
-   --quantize int8 --beam-size 5 on test.de.
+   --quantize int8 --beam-size 5 on test.de;
+13. the mel kernel (power_mel) against its plain version on the card, within
+   the error model of tests/test_torch_cuda.py (``mel_limits``), at
+   (1, 16000), (1, 480000), (16, 480000) and a ragged (3, 12345) of noise
+   and on a tone over silence (80 and 128 mel bins), with frames shifted by
+   one hop and a filterbank with one column rolled rejected; at bench_mel's
+   (16, 480000) and the main path's per-utterance (1, 480000) its device
+   time per call (CUDA graph) beside the plain version's, the operations
+   bound and the library yardstick (torch.stft, power, the filterbank);
+14. speech through the entry points on the st-mini anchor
+   (pasero_torch/testdata/st-mini): TextGenerator.decode on its 32 wavs
+   (bf16 greedy with the three prompt tags) against the JAX output, with
+   exactly one mel launch per wav; python -m
+   pasero_torch.scripts.extract_features on the wavs against the JAX
+   extract_features.py's feature file; python -m pasero_torch.cli.decode
+   beam-5 on its feature file against the JAX output; python -m
+   pasero_torch.cli.train on pasero_torch/testdata/st_mini.yaml, its 20
+   per-step losses against the JAX training CLI's;
+15. full-width speech: whisper_base with seeded weights and Whisper's
+   vocabulary of 51865, written as a model directory: TextGenerator.decode
+   of 8 wavs of 30 s (one mel launch each, 1500 encoder positions, greedy
+   after BOS and the three target tags, 64 new tokens) and training steps at 16 x 3000 frames and 128 target tokens
+   through Trainer.train_step, with exact launch counts of the mel,
+   slot-write and fused-CE kernels.
 
 The second-to-last line is one JSON object {"kernels": [...]}; the last line
 is {"ok": true, "device": {...}}. Without CUDA the script exits 1 and
@@ -108,6 +132,8 @@ LM_GOLDEN = os.path.join(ROOT, "pasero_torch", "testdata",
 TESTDATA = os.path.join(ROOT, "pasero_torch", "testdata")
 MIN_LM_MATCH = 30           # of 32 lines of lm-mini2's goldens
 INT8_FUSED_ENV = {"PASERO_FUSED_HEAD": "1", "PASERO_QUANTIZE_MIN_SIZE": "0"}
+ST = os.path.join(TESTDATA, "st-mini")
+ST_CONFIG = os.path.join(TESTDATA, "st_mini.yaml")
 
 
 def log(*args):
@@ -352,6 +378,7 @@ CE_SHAPES = [((16384, 512, 32000), "bfloat16"),   # full width: B*T, E, V
              ((130, 48, 515), "float32"),         # the fp32 FMA path
              ((48, 2048, 330), "bfloat16"),       # shapes of JAX's split bwd
              ((4096, 2048, 32000), "bfloat16"),
+             ((2048, 512, 51865), "bfloat16"),    # whisper_base's odd vocab
              ((8192, 2048, 32000), "bfloat16")]   # llama_1b's untied head
 LM_HEAD = CE_SHAPES[-1][0]
 
@@ -1178,6 +1205,302 @@ def phase12() -> dict:
     return {"lm_int8_fused": launches, "mt_int8": counts}
 
 
+# -- phase 13 ------------------------------------------------------------------
+
+def mel_timing(B, N) -> dict:
+    """Device ms per call (CUDA graph) of the mel kernel, its plain version
+    and the library yardstick at (B, N), and the bound of the work."""
+    import torch
+    from pasero_torch.ops.mel import num_frames, power_mel, power_mel_plain
+    cuda_tests = load_test_module("test_torch_cuda")
+    audio = cuda_tests.mel_inputs(B, N)
+    cos_b, sin_b, mel_w = cuda_tests.mel_constants()
+    n_fft, n_freq = cos_b.shape
+    n_mels = mel_w.shape[1]
+    window = torch.hann_window(n_fft, device="cuda")
+
+    def library():
+        # one PyTorch call per step, never called by the port: an FFT
+        spec = torch.stft(audio, n_fft, hop_length=160, window=window,
+                          center=True, pad_mode="reflect",
+                          return_complex=True)[..., :-1]
+        return (spec.abs() ** 2).transpose(1, 2) @ mel_w
+
+    T = num_frames(N, n_fft, 160)
+    flops = B * T * (2 * n_fft * 2 * n_freq + 3 * n_freq + 2 * n_freq * n_mels)
+    nbytes = 4 * (B * N + B * T * n_mels + 2 * n_fft * n_freq
+                  + n_freq * n_mels)
+    # what an FFT formulation would need instead of the DFT products (a
+    # real FFT of n_fft points: 2.5 n_fft log2 n_fft operations), beside
+    # the kernel's own bound: the headroom of the method
+    fft_flops = B * T * (2.5 * n_fft * math.log2(n_fft) + 3 * n_freq
+                         + 2 * n_freq * n_mels)
+    ops_ms = flops / FP32_FLOPS * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    iters = 20 if B > 1 else 100
+    res = {"shape": [B, N], "frames": B * T, "flops": flops, "bytes": nbytes,
+           "bound_ms": max(ops_ms, bytes_ms),
+           "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+           "bytes_ms": bytes_ms, "fft_flops": fft_flops,
+           "fft_bound_ms": max(fft_flops / FP32_FLOPS * 1e3, bytes_ms),
+           "ms": device_ms(lambda: power_mel(audio, cos_b, sin_b, mel_w),
+                           iters, 5),
+           "plain_ms": device_ms(lambda: power_mel_plain(audio, cos_b, sin_b,
+                                                         mel_w), iters, 5),
+           "library_ms": device_ms(library, iters, 5)}
+    res["host_ms"] = time_ms(lambda: power_mel(audio, cos_b, sin_b, mel_w),
+                             iters)
+    return res
+
+
+def phase13() -> dict:
+    """The mel kernel against its plain version; returns its errors and
+    timings."""
+    import torch
+    cuda_tests = load_test_module("test_torch_cuda")
+    res = {"max_abs_err": 0.0, "by_shape": []}
+    cases = [(B, N, "noise", 80) for B, N in cuda_tests.MEL_SHAPES] + \
+        [(2, 32000, "tone", 80), (2, 32000, "tone", 128)]
+    for B, N, kind, n_mels in cases:
+        r = cuda_tests.mel_compare(B, N, kind, n_mels)
+        check(r["excess"] <= 1.0 and r["plain_excess"] <= 1.0,
+              f"power_mel differs at ({B}, {N}) {kind} {n_mels} mels: {r}")
+        if kind == "noise":
+            check(r["shift_excess"] > 1.0 and r["roll_excess"] > 1.0,
+                  f"the mel check at ({B}, {N}) passes shifted frames or a "
+                  f"rolled filterbank: {r}")
+        res["max_abs_err"] = max(res["max_abs_err"], r["max_abs_err"])
+        log(f"phase 13: power_mel == plain at ({B}, {N}) {kind}, {n_mels} "
+            f"mels, {r['frames']} frames per row: {r['excess']:.4f} of the "
+            f"limit (plain {r['plain_excess']:.4f}), max abs err of log10 "
+            f"{r['max_abs_err']:.3e}; frames one hop off at "
+            f"{r['shift_excess']:.1f}, a rolled filterbank column at "
+            f"{r['roll_excess']:.1f}")
+        torch.cuda.empty_cache()
+    for B, N in ((16, 480000), (1, 480000)):
+        r = mel_timing(B, N)
+        res["by_shape"].append(r)
+        log(f"phase 13: power_mel at {r['shape']} ({r['frames']} frames), "
+            f"device ms per call (CUDA graph): kernel {r['ms']:.5f} (bound "
+            f"{r['bound_ms']:.5f}, {r['bound_by']}: {r['flops'] / 1e9:.2f} "
+            f"GFLOP, {r['bytes'] / 1e6:.1f} MB: {r['bytes_ms']:.5f} ms; an "
+            f"FFT's {r['fft_flops'] / 1e9:.3f} GFLOP: "
+            f"{r['fft_bound_ms']:.5f} ms), plain {r['plain_ms']:.5f}, "
+            f"library {r['library_ms']:.5f}; eager {r['host_ms']:.5f}; "
+            f"{r['frames'] / r['ms'] * 1e3:.4g} frames/s")
+        torch.cuda.empty_cache()
+    return res
+
+
+# -- phase 14 ------------------------------------------------------------------
+
+def phase14() -> dict:
+    import shutil
+    import torch
+    from pasero_torch.decoding.generator import TextGenerator
+    from pasero_torch.ops.cache_update import cache_slot_write_
+    from pasero_torch.ops.mel import power_mel
+    wavs = sorted(glob.glob(os.path.join(ST, "wav", "*.wav")))
+    check(len(wavs) == 32, f"{len(wavs)} st-mini wavs")
+    gen = TextGenerator.build(ST)
+    check(gen.device.type == "cuda", f"generator runs on {gen.device}")
+    gen.decode(wavs[:2])                          # warm-up
+    torch.cuda.synchronize()
+    power_mel.launches = cache_slot_write_.launches = 0
+    gen.model.single_token_calls = 0
+    t0 = time.perf_counter()
+    hyps = gen.decode(wavs)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = {"power_mel": power_mel.launches,
+                "cache_slot_write": cache_slot_write_.launches}
+    calls = gen.model.single_token_calls
+    golden = golden_lines("st_mini_greedy.jax.txt")
+    same = sum(h == g for h, g in zip(hyps, golden))
+    log(f"phase 14: st-mini TextGenerator.decode of {len(wavs)} wavs (bf16 "
+        f"greedy, prompt {gen.task.get_target_tags(gen.task.make_meta())}) "
+        f"in {elapsed:.3f} s: {same}/{len(golden)} lines identical to the "
+        f"JAX output; launches {launches} for {calls} single-token decoder "
+        f"calls x {gen.model_cfg.decoder_layers} layers")
+    for h, g in zip(hyps, golden):
+        if h != g:
+            log(f"  differs: port {h!r}\n           JAX  {g!r}")
+    check(same >= MIN_LM_MATCH, f"st-mini greedy: only {same}/32 lines match")
+    check(launches["power_mel"] == len(wavs),
+          f"{launches['power_mel']} mel launches for {len(wavs)} wavs")
+    check(launches["cache_slot_write"] > 0 and launches["cache_slot_write"]
+          == calls * gen.model_cfg.decoder_layers,
+          f"slot-write launches {launches} for {calls} calls")
+
+    cmd = [sys.executable, "-m", "pasero_torch.cli.decode", ST, "-i",
+           os.path.join(ST, "test.feats"), "--beam-size", "5"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=600)
+    elapsed = time.perf_counter() - t0
+    check(proc.returncode == 0, f"cli.decode on st-mini failed:\n"
+          f"{proc.stderr[-4000:]}")
+    beam = proc.stdout.rstrip("\n").split("\n")
+    golden = golden_lines("st_mini_beam5.jax.txt")
+    same_beam = sum(h == g for h, g in zip(beam, golden))
+    log(f"phase 14: python -m pasero_torch.cli.decode st-mini -i test.feats "
+        f"--beam-size 5 in {elapsed:.1f} s: {same_beam}/{len(golden)} lines "
+        f"identical to the JAX output; launches "
+        f"{parse_launches(proc.stderr)}")
+    check(len(beam) == len(golden) and same_beam >= MIN_LM_MATCH,
+          f"st-mini beam-5: only {same_beam}/{len(golden)} lines match")
+
+    from pasero_torch.data.files import NumpyFile
+    from pasero_torch.scripts.extract_features import BATCH, batches
+    feats = os.path.join(ROOT, "build", "smoke-st.feats")
+    proc = subprocess.run([sys.executable, "-m",
+                           "pasero_torch.scripts.extract_features", *wavs,
+                           "-o", feats], cwd=ROOT, capture_output=True,
+                          text=True, timeout=600)
+    check(proc.returncode == 0, f"extract_features failed:\n"
+          f"{proc.stderr[-4000:]}")
+    runs = sum(1 for _ in batches(wavs, BATCH))
+    extract_launches = int(re.search(r"\((\d+) mel kernel launches\)",
+                                     proc.stdout).group(1))
+    got = list(NumpyFile(feats))
+    want = list(NumpyFile(os.path.join(ST, "test.feats")))
+    diff = max(float(abs(a.astype("float32") - b.astype("float32")).max())
+               for a, b in zip(got, want))
+    log(f"phase 14: python -m pasero_torch.scripts.extract_features on the "
+        f"{len(wavs)} wavs: {extract_launches} mel launches for {runs} runs "
+        f"of equal-length wavs; float16 features within {diff:.2e} of the "
+        f"JAX extract_features.py's (test.feats)")
+    check(len(got) == len(want) and all(a.shape == b.shape
+                                        for a, b in zip(got, want)),
+          "extract_features wrote other shapes than test.feats")
+    check(extract_launches == runs, f"{extract_launches} mel launches for "
+          f"{runs} runs of equal-length wavs")
+    check(diff <= 2.0 ** -9, f"features differ from test.feats by {diff}")
+
+    cli = load_test_module("test_torch_train_cli")
+    model_dir = os.path.join(ROOT, "build", "smoke-st")
+    shutil.rmtree(model_dir, ignore_errors=True)
+    os.makedirs(model_dir)
+    ckpt = os.path.join(ROOT, "build", "smoke-st-init.npz")
+    cli.write_initial_weights(ckpt, ST_CONFIG)
+    cmd = [sys.executable, "-m", "pasero_torch.cli.train",
+           *cli.train_flags(model_dir, ckpt, ST_CONFIG)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=600)
+    elapsed = time.perf_counter() - t0
+    out = proc.stdout + proc.stderr
+    check(proc.returncode == 0, f"cli.train on st_mini.yaml failed:\n"
+          f"{out[-4000:]}")
+    logs = cli.parse_log(out)
+    with open(os.path.join(TESTDATA, "st_mini_train20.jax.json")) as f:
+        want = json.load(f)["steps"]
+    check([l["step"] for l in logs] == [w["step"] for w in want],
+          f"logged steps {[l['step'] for l in logs]}")
+    worst = max(abs(g["loss"] - w["loss"]) / abs(w["loss"])
+                for g, w in zip(logs, want))
+    check(worst <= TRAIN_RTOL, f"st-mini losses differ from JAX's by up to "
+          f"{worst:.4%}")
+    counts = parse_launches(out)
+    micro, valid = counts["train micro-batches"], counts["valid batches"]
+    check(counts["fused_ce_fwd"] == micro + valid and counts["fused_ce_bwd"]
+          == micro and micro == 20, f"fused CE launches {counts}")
+    log(f"phase 14: python -m pasero_torch.cli.train on st_mini.yaml, 20 "
+        f"steps in {elapsed:.1f} s: losses {logs[0]['loss']:.3f} -> "
+        f"{logs[-1]['loss']:.3f}, all within {worst:.4%} of the JAX training "
+        f"CLI's; launches {counts}")
+    return {**launches, "extract_launches": extract_launches,
+            "beam5_same": same_beam, "greedy_same": same,
+            "train_worst_rel": worst, "fused_ce_fwd": counts["fused_ce_fwd"],
+            "fused_ce_bwd": counts["fused_ce_bwd"]}
+
+
+# -- phase 15 ------------------------------------------------------------------
+
+def phase15() -> dict:
+    import torch
+    from pasero_torch.ops.cache_update import cache_slot_write_
+    from pasero_torch.ops.fused_ce import fused_ce_bwd, fused_ce_fwd
+    from pasero_torch.ops.mel import power_mel
+    from pasero_torch.scripts.bench_decode import WhisperWorkload
+    from pasero_torch.scripts.bench_train import Workload
+    t0 = time.perf_counter()
+    # a whisper_base model directory (seeded weights, a 51865-entry
+    # dictionary) and 8 wavs of 30 s, decoded by TextGenerator.decode
+    work = WhisperWorkload()
+    gen = work.generator
+    check(gen.device.type == "cuda", f"generator runs on {gen.device}")
+    log(f"phase 15: whisper_base model directory with seeded weights and "
+        f"{len(work.wavs)} wavs written and loaded in "
+        f"{time.perf_counter() - t0:.1f} s")
+    work.run()                                    # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    power_mel.launches = cache_slot_write_.launches = 0
+    work.model.single_token_calls = 0
+    t0 = time.perf_counter()
+    out = work.run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    calls = out["model_calls"]
+    layers = work.cfg.decoder_layers
+    decode = {"power_mel": power_mel.launches,
+              "cache_slot_write": cache_slot_write_.launches,
+              "model_calls": calls, "seconds": seconds,
+              "output_tokens": work.output_tokens(out),
+              "ms_per_decoder_call": seconds * 1e3 / calls,
+              "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20}
+    decode["tok_per_s"] = decode["output_tokens"] / seconds
+    log(f"phase 15: whisper_base TextGenerator.decode of {len(work.wavs)} "
+        f"wavs of 30 s (greedy, prompt {work.prompt}): "
+        f"{decode['tok_per_s']:.1f} output tok/s, "
+        f"{decode['ms_per_decoder_call']:.3f} ms per decoder call ({calls} "
+        f"calls, {seconds:.3f} s with the wav reads, the mel and the "
+        f"encoder), peak memory {decode['peak_mib']:.1f} MiB; launches "
+        f"power_mel {decode['power_mel']}, cache_slot_write "
+        f"{decode['cache_slot_write']}")
+    hyps = out["hyps"]
+    shapes = [(len(h[0]["tokens"]), h[0]["score"]) for h in hyps]
+    check(len(hyps) == len(work.wavs) and decode["output_tokens"] > 0
+          and all(n <= gen.cfg.max_output_len and math.isfinite(score)
+                  for n, score in shapes),
+          f"whisper_base hypotheses (tokens, score): {shapes}")
+    check(decode["power_mel"] == len(work.wavs),
+          f"{decode['power_mel']} mel launches for {len(work.wavs)} wavs")
+    check(decode["cache_slot_write"] == layers * work.model.single_token_calls
+          and decode["cache_slot_write"] > 0,
+          f"{decode['cache_slot_write']} slot writes for "
+          f"{work.model.single_token_calls} single-token calls")
+    del work, gen, out, hyps
+    torch.cuda.empty_cache()
+
+    train = Workload("whisper_base")
+    train.run(1)                                  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    fused_ce_fwd.launches = fused_ce_bwd.launches = 0
+    steps = 3
+    logs, seconds = train.run(steps)
+    result = {"steps": steps, "ms_per_step": seconds * 1e3 / steps,
+              "target_tok_per_s": train.tokens_per_step * steps / seconds,
+              "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
+              "fused_ce_fwd": fused_ce_fwd.launches,
+              "fused_ce_bwd": fused_ce_bwd.launches,
+              "losses": [l["loss"] for l in logs]}
+    log(f"phase 15: whisper_base training 16 x 3000 frames, 128 target "
+        f"tokens, vocabulary 51865: {result['ms_per_step']:.3f} ms per step, "
+        f"{result['target_tok_per_s']:.1f} target tok/s, peak memory "
+        f"{result['peak_mib']:.1f} MiB, losses {result['losses']}; launches "
+        f"fused_ce_fwd {result['fused_ce_fwd']} fused_ce_bwd "
+        f"{result['fused_ce_bwd']}")
+    check(all(math.isfinite(l) for l in result["losses"]),
+          f"non-finite losses {result['losses']}")
+    check(result["fused_ce_fwd"] == steps and result["fused_ce_bwd"] == steps,
+          f"fused CE launches {result} for {steps} steps")
+    del train
+    torch.cuda.empty_cache()
+    return {"decode": decode, "train": result}
+
+
 def main():
     try:
         import torch
@@ -1206,6 +1529,9 @@ def main():
     serving_kernels = phase10()
     lm_decode = phase11()
     serving = phase12()
+    mel = phase13()
+    speech = phase14()
+    whisper = phase15()
     kernels = [{
         "name": "cache_slot_write",
         "route": "cuda",
@@ -1213,6 +1539,8 @@ def main():
         "replaces": "pasero_tpu/ops/cache_update.py:43",
         "launches": launches,
         "full_width_launches": full_width_launches,
+        "speech_launches": speech["cache_slot_write"],
+        "whisper_launches": whisper["decode"]["cache_slot_write"],
         "max_abs_err": timing["max_abs_err"],
         "ms": timing["ms"],
         "plain_ms": timing["plain_ms"],
@@ -1241,6 +1569,8 @@ def main():
                         ("ms", "plain_ms", "bound_ms", "library_ms")},
             "lm_launches": lm_cli[f"fused_ce_{key}"],
             "lm_full_width_launches": lm_full_width[f"fused_ce_{key}"],
+            "speech_launches": speech[f"fused_ce_{key}"],
+            "whisper_launches": whisper["train"][f"fused_ce_{key}"],
         }
         entry["lm_head"]["shape"] = list(LM_HEAD)
         if key == "bwd":   # the dx and dW kernels replace both JAX backwards
@@ -1306,6 +1636,27 @@ def main():
                                  if name in v},
         }
         kernels.append(entry)
+    # the main path's count: phase 14's decode of the anchor's 32 wavs; the
+    # numbers at bench_mel's shape (16, 480000), the per-utterance shape
+    # beside them
+    at, per_wav = mel["by_shape"]
+    kernels.append({
+        "name": "power_mel",
+        "route": "cuda",
+        "source": "pasero_torch/csrc/mel.cu",
+        "replaces": "pasero_tpu/ops/mel.py:130",
+        "launches": speech["power_mel"],
+        "full_width_launches": whisper["decode"]["power_mel"],
+        "extract_features_launches": speech["extract_launches"],
+        "max_abs_err": mel["max_abs_err"],
+        "ms": at["ms"],
+        "plain_ms": at["plain_ms"],
+        "bound_ms": at["bound_ms"],
+        "bound_by": at["bound_by"],
+        "library_ms": at["library_ms"],
+        "shape": at["shape"],
+        "by_shape": mel["by_shape"],
+    })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

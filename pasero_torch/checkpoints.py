@@ -5,8 +5,10 @@ mapping to float32 arrays (pasero_tpu/checkpoints.py:29-37,120-165), with
 ``model_best``/``model_last``/``model_latest`` symlinks and files. Both
 packages read and write the same model files. ``params_to_state_dict``
 carries the flat arrays into a module's ``state_dict``: '/' becomes '.', a
-flax ``Linear`` kernel (in, out) becomes ``weight`` (out, in), a LayerNorm
-``scale`` becomes ``weight``, and an ``embedding`` table stays as it is.
+flax ``Linear`` kernel (in, out) becomes ``weight`` (out, in), a flax
+``nn.Conv`` kernel (k, in, out) becomes ``conv1d``'s ``weight`` (out, in,
+k), a LayerNorm ``scale`` becomes ``weight``, and an ``embedding`` table
+stays as it is.
 ``state_dict_to_params`` inverts it.
 
 Beside a model file, training writes ``optimizer_{step}.npz`` and
@@ -42,9 +44,9 @@ def params_to_state_dict(flat: dict) -> dict:
         *path, leaf = key.split("/")
         value = np.asarray(value)
         if leaf == "kernel":
-            if value.ndim != 2:
-                raise ValueError(f"{key}: expected a 2-D Linear kernel, got "
-                                 f"shape {value.shape}")
+            if value.ndim not in (2, 3):
+                raise ValueError(f"{key}: expected a 2-D Linear or 3-D Conv "
+                                 f"kernel, got shape {value.shape}")
             leaf, value = "weight", value.T
         elif leaf == "scale":
             leaf = "weight"
@@ -55,13 +57,13 @@ def params_to_state_dict(flat: dict) -> dict:
 def state_dict_to_params(state_dict: dict) -> dict:
     """torch state_dict -> flat flax params (the inverse of
     ``params_to_state_dict``): 2-D ``weight`` is a Linear kernel, 1-D
-    ``weight`` a norm scale."""
+    ``weight`` a norm scale, 3-D ``weight`` a Conv kernel."""
     out = {}
     for key, value in state_dict.items():
         *path, leaf = key.split(".")
         value = value.detach().cpu().numpy()
         if leaf == "weight":
-            if value.ndim == 2:
+            if value.ndim in (2, 3):
                 leaf, value = "kernel", value.T
             elif value.ndim == 1:
                 leaf = "scale"

@@ -5,13 +5,15 @@
         --beam-size 5 [--device cpu]
     python -m pasero_torch.cli.decode LM_DIR -i prompts.txt \
         [--quantize int8] [--sampling --sampling-topk 10] [--speculative]
+    python -m pasero_torch.cli.decode ST_DIR -i test.feats -r test.en
 
 Resolves inference corpora from --input/--reference/--eval-corpus, decodes
 each with the TextGenerator (an encoder-decoder or a decoder-only model;
 beam search, greedy, sampling or speculative greedy search; int8 weights
 with --quantize int8), and logs per-corpus and averaged metrics
-(wps/bleu/chrf/...) and, at the end, the launch counts of the int8 and
-fused-head kernels. ``--device`` defaults to the card; without one it raises
+(wps/bleu/chrf/...) and, at the end, the launch counts of the int8,
+fused-head and mel kernels. A speech model (``--task speech_translation``)
+reads a binary feature file (``NumpyFile``). ``--device`` defaults to the card; without one it raises
 unless ``--device cpu`` is given.
 """
 
@@ -28,6 +30,7 @@ def main(argv=None):
     from pasero_torch.decoding.generator import TextGenerator
     from pasero_torch.ops.fused_ce import (fused_head_argmax,
                                            fused_head_argmax_q8)
+    from pasero_torch.ops.mel import power_mel
     from pasero_torch.ops.quantize import int8_matmul
 
     cfg = DecodingCLIConfig(*(argv or []), strict=True)
@@ -63,7 +66,7 @@ def main(argv=None):
         logger.info("average | " + " | ".join(f"{k} {v}" for k, v in avg.items()))
     logger.info("launches | " + " | ".join(
         f"{fn.__name__} {fn.launches}" for fn in
-        (int8_matmul, fused_head_argmax, fused_head_argmax_q8)))
+        (int8_matmul, fused_head_argmax, fused_head_argmax_q8, power_mel)))
 
 
 if __name__ == "__main__":

@@ -119,8 +119,9 @@ def evaluate(cfg, task, trainer, valid_sets, generator_factory):
         }
         if cfg.metrics:
             generator = generator_factory()
-            sources = [s["raw"].get("source") or s["raw"].get("target")
-                       for s in valid_set.samples]
+            # a speech source is an array, whose truth value is undefined
+            sources = [s["raw"]["source"] if s["raw"].get("source") is not None
+                       else s["raw"].get("target") for s in valid_set.samples]
             references = valid_set.references
             t0 = time.time()
             hypotheses = generator(sources, valid_set)
@@ -146,15 +147,17 @@ def make_generator_factory(cfg, task, trainer):
     import torch
     from pasero_torch import not_ported
     from pasero_torch.data.batching import length_buckets, pad_to_bucket
+    from pasero_torch.decoding.generator import to_tensor
     from pasero_torch.decoding.search import beam_search, left_align
+    from pasero_torch.tasks.task import collate_source
 
     model, device = trainer.model, trainer.device
     if not model.is_encoder_decoder:
         raise not_ported("validation metrics that decode with a decoder-only "
                          "model", "A.8 decoder-only")
 
-    def tensor(array, dtype=torch.long):
-        return torch.as_tensor(np.asarray(array)).to(device, dtype)
+    def tensor(array, dtype=None):
+        return to_tensor(array, device, dtype)
 
     @torch.inference_mode()
     def generate(sources, valid_set):
@@ -172,9 +175,9 @@ def make_generator_factory(cfg, task, trainer):
             prompt, pmask = left_align(prompt, pmask, pad)
             enc = [s["encoder_input"] for s in chunk]
             sbuckets = length_buckets(max(max(len(e) for e in enc), 8), 8)
-            src, smask = pad_to_bucket(enc, sbuckets, pad, rows_multiple=4)
-            encoder_out, encoder_mask = model.encode(tensor(src),
-                                                     tensor(smask, torch.bool))
+            src, smask = collate_source(enc, sbuckets, pad, 4)
+            encoder_out, encoder_mask = model.encode(
+                tensor(src), tensor(smask, torch.bool))
             out = beam_search(model, tensor(prompt), tensor(pmask, torch.bool),
                               beam_size=cfg.beam_size or 1,
                               max_new=cfg.max_output_len, eos_idx=task.eos_idx,

@@ -38,6 +38,7 @@ from ..config import (DecodingAPIConfig, get_model_cls, get_model_config_cls,
                       get_task_cls)
 from ..data.batching import length_buckets, pad_to_bucket
 from ..ops.quantize import quantize_params, quantized_bytes
+from ..tasks.task import collate_source
 from ..utils.metrics import Metrics
 from .search import (beam_search, left_align, sample_decode,
                      speculative_greedy_decode)
@@ -92,6 +93,16 @@ def _check_supported(cfg) -> None:
         todo("ensembles", "A.6 decoding")
 
 
+def to_tensor(array, device, dtype=None) -> torch.Tensor:
+    """A host array on ``device`` as ``dtype``, or by its own kind: float
+    arrays (speech features) as float32, integer ones (token ids) as
+    long."""
+    array = np.asarray(array)
+    if dtype is None:
+        dtype = torch.float32 if array.dtype.kind == "f" else torch.long
+    return torch.as_tensor(array).to(device, dtype)
+
+
 class TextGenerator:
     """Build once, decode many times."""
 
@@ -113,6 +124,7 @@ class TextGenerator:
 
         task_cls = get_task_cls(cfg.task)
         self.task = task_cls(cfg.model_dir, cfg.task_cfg)
+        self.task.device = self.device
         self.task.setup_for_model(model_cfg)
         self.task.eval()
 
@@ -156,7 +168,8 @@ class TextGenerator:
     # -- preprocessing -------------------------------------------------------
     def _prepare_batch(self, samples: list):
         """Collate preprocessed samples into a left-aligned prompt batch, with
-        a source batch for an encoder-decoder model
+        a source batch for an encoder-decoder model: token ids padded with
+        the padding index, or speech features padded with 0.0
         (pasero_tpu/decoding/generator.py:213-235)."""
         pad = self.task.padding_idx
         dec = [s["decoder_input"] for s in samples]
@@ -170,14 +183,14 @@ class TextGenerator:
             enc = [s["encoder_input"] for s in samples]
             src_buckets = length_buckets(max(max(len(e) for e in enc), 8),
                                          min_len=8)
-            src, src_mask = pad_to_bucket(enc, src_buckets, pad,
-                                          rows_multiple=ROWS_MULTIPLE)
+            src, src_mask = collate_source(enc, src_buckets, pad,
+                                           ROWS_MULTIPLE)
             batch["src_tokens"] = src
             batch["src_mask"] = src_mask
         return batch
 
-    def _tensor(self, array, dtype=torch.long):
-        return torch.as_tensor(np.asarray(array)).to(self.device, dtype)
+    def _tensor(self, array, dtype=None):
+        return to_tensor(array, self.device, dtype)
 
     # -- decoding ------------------------------------------------------------
     @torch.inference_mode()
@@ -205,6 +218,7 @@ class TextGenerator:
         prompt_mask = self._tensor(batch["prompt_mask"], torch.bool)
         if use_spec:
             lookup = lookup_mask = None
+            # speech features (3-D) cannot seed token drafts
             if "src_tokens" in batch and batch["src_tokens"].ndim == 2:
                 lookup = self._tensor(batch["src_tokens"])
                 lookup_mask = self._tensor(batch["src_mask"], torch.bool)
@@ -349,8 +363,11 @@ class TextGenerator:
                 buffer = list(itertools.islice(line_iter, buffer_size))
                 if not buffer:
                     break
-                # interactive '!opt=value' commands update decoding options
-                for command in [l for l in buffer if l.startswith("!")]:
+                # interactive '!opt=value' commands update decoding options;
+                # a feature file yields arrays, not lines
+                commands = [l for l in buffer
+                            if isinstance(l, str) and l.startswith("!")]
+                for command in commands:
                     try:
                         key, value = command[1:].strip().split("=", 1)
                         caster = DECODE_PARAMS.get(key, str)
@@ -360,7 +377,8 @@ class TextGenerator:
                         logger.info(f"set {key} = {runtime_opts[key]}")
                     except ValueError:
                         logger.warning(f"could not parse command {command!r}")
-                buffer = [l for l in buffer if not l.startswith("!")]
+                buffer = [l for l in buffer if not (isinstance(l, str)
+                                                    and l.startswith("!"))]
                 if not buffer:
                     continue
                 opts = {**opts, **runtime_opts}
@@ -374,10 +392,12 @@ class TextGenerator:
                         continue
                 # skip pairs where either side is empty
                 keep = [(line, ref) for line, ref in zip(buffer, ref_buffer)
-                        if line.strip() and (ref is None or ref.strip())]
+                        if (not isinstance(line, str) or line.strip())
+                        and (ref is None or ref.strip())]
                 if not keep:
                     continue
-                lines = [line.strip() for line, _ in keep]
+                lines = [line.strip() if isinstance(line, str) else line
+                         for line, _ in keep]
                 refs = [ref.strip() if ref else None for _, ref in keep]
                 outs = self.decode(lines, return_scores=True, meta=dict(
                     source_lang=meta.get("source_lang"),

@@ -1,4 +1,4 @@
-"""Core NN modules: linear, embeddings, norms, FFN.
+"""Core NN modules: linear, embeddings, norms, FFN, the speech frontend.
 
 PyTorch counterparts of pasero_tpu/models/modules.py. Parameters are float32;
 compute runs in ``dtype`` (bfloat16 by default), and each product is rounded
@@ -182,3 +182,76 @@ class FeedForward(nn.Module):
         else:
             h = self.activation(self.fc1(x))
         return self.fc2(self.dropout(h))
+
+
+class Conv1d(nn.Module):
+    """flax's ``nn.Conv`` over (B, T, C) inputs with symmetric padding
+    ``k // 2``: ``weight`` is (out, in, k), the transpose of flax's
+    (k, in, out) ``kernel``. As with ``Linear``, the product is rounded to
+    ``dtype`` before the bias is added."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int = 1, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(out_channels, in_channels,
+                                               kernel_size))
+        self.bias = nn.Parameter(torch.zeros(out_channels))
+        self.stride = stride
+        self.dtype = dtype
+        # flax's lecun_normal over the fan-in k * in
+        std = (in_channels * kernel_size) ** -0.5 / 0.87962566103423978
+        nn.init.trunc_normal_(self.weight, std=std, a=-2 * std, b=2 * std)
+
+    def forward(self, x):
+        k = self.weight.shape[-1]
+        y = F.conv1d(x.to(self.dtype).transpose(1, 2),
+                     self.weight.to(self.dtype), stride=self.stride,
+                     padding=k // 2)
+        return y.transpose(1, 2) + self.bias.to(self.dtype)
+
+
+class ConvolutionSubsampler(nn.Module):
+    """1-D conv stack subsampling speech features before the encoder
+    (pasero_tpu/models/modules.py:240). ``forward(x, lengths)`` takes (B, T,
+    F) features and their lengths and returns (features, new lengths): the
+    features cast to ``dtype``, an optional ``in_proj`` with relu, each
+    convolution followed by glu (which halves the channels) or exact gelu,
+    and an optional ``out_proj``. ``F.conv1d`` is a library call, as JAX
+    leaves the convolution to XLA."""
+
+    def __init__(self, in_dim: int, channels: int, kernel_sizes, strides=None,
+                 activation: str = "glu", out_dim=None, in_proj_dim=None,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        if activation not in ("glu", "gelu"):
+            raise ValueError(f"unknown subsampler activation {activation!r}")
+        self.activation = activation
+        self.dtype = dtype
+        self.kernel_sizes = list(kernel_sizes)
+        self.strides = list(strides or []) or [2] * len(self.kernel_sizes)
+        dim = in_dim
+        if in_proj_dim is not None and in_proj_dim != in_dim:
+            self.in_proj = Linear(in_dim, in_proj_dim, dtype=dtype)
+            dim = in_proj_dim
+        width = channels * (2 if activation == "glu" else 1)
+        for i, (k, s) in enumerate(zip(self.kernel_sizes, self.strides)):
+            self.add_module(f"conv{i}", Conv1d(dim, width, k, s, dtype))
+            dim = channels
+        if out_dim is not None and dim != out_dim:
+            self.out_proj = Linear(dim, out_dim, dtype=dtype)
+
+    def forward(self, x, lengths):
+        x = x.to(self.dtype)
+        if hasattr(self, "in_proj"):
+            x = F.relu(self.in_proj(x))
+        for i, (k, s) in enumerate(zip(self.kernel_sizes, self.strides)):
+            x = getattr(self, f"conv{i}")(x)
+            if self.activation == "glu":
+                a, b = x.chunk(2, dim=-1)
+                x = a * torch.sigmoid(b)
+            else:
+                x = F.gelu(x, approximate="none")
+            lengths = (lengths + 2 * (k // 2) - k) // s + 1
+        if hasattr(self, "out_proj"):
+            x = self.out_proj(x)
+        return x, lengths

@@ -10,8 +10,9 @@ mechanically (checkpoints.params_to_state_dict). A decoder-only model
 (``model_type == "decoder"``) has no encoder and no cross-attention, as the
 JAX model's (:682, :201).
 
-Covered: post-norm and pre-norm, sinusoidal, learned, rotary or no
-positions, LayerNorm and RMSNorm, tied and untied heads, relu, gelu and the
+Covered: token and speech-feature sources (a ``ConvolutionSubsampler``
+in front of the encoder), post-norm and pre-norm, sinusoidal, learned,
+rotary or no positions, LayerNorm and RMSNorm, tied and untied heads, relu, gelu and the
 gated swiglu/geglu FFNs, grouped K/V heads, sliding windows, the attention
 kernel choice (``cfg.attention_kernel``), and residual, attention,
 activation and embedding dropout at the places the flax layers put them
@@ -32,7 +33,8 @@ from ..config import TransformerConfig, register_model
 from ..ops.fused_ce import fused_cross_entropy, fused_head_argmax
 from ..ops.quantize import QTensor
 from .attention import KVCache, MultiheadAttention
-from .modules import Dropout, Embedding, FeedForward, Linear, make_norm
+from .modules import (ConvolutionSubsampler, Dropout, Embedding, FeedForward,
+                      Linear, make_norm)
 from .positional import PositionalEmbedding
 
 
@@ -58,8 +60,6 @@ def check_supported(cfg) -> None:
         todo("the LSTM hybrid decoder", "A.10 MoE, adapters and hybrid")
     if cfg.lora_rank:
         todo("LoRA", "A.10 MoE, adapters and hybrid")
-    if cfg.input_dim:
-        todo("speech inputs", "A.11 speech")
     if cfg.checkpoint_activations:
         todo("activation checkpointing", "A.8 decoder-only")
 
@@ -194,7 +194,8 @@ class _Stack(nn.Module):
     """Token embedding (own or shared), positions and the layer list."""
 
     def _embeddings(self, cfg, vocab_size, shared_embed, max_len, pe, dtype):
-        if shared_embed is None:
+        """``vocab_size`` None: no token table (a speech encoder)."""
+        if shared_embed is None and vocab_size is not None:
             self.embed_tokens = Embedding(vocab_size, cfg.embed_dim, dtype)
         else:
             # owned (and saved) by the Transformer as `shared_embed`; kept
@@ -213,7 +214,11 @@ class _Stack(nn.Module):
         return shared if shared is not None else self.embed_tokens
 
     def _embed(self, tokens, positions, prenorm_embed):
-        x = self.embed(tokens)
+        return self._embed_features(self.embed(tokens), positions,
+                                    prenorm_embed)
+
+    def _embed_features(self, x, positions, prenorm_embed):
+        """Scale, positions, norm and dropout of embedded inputs."""
         if self.cfg.scale_embed:
             x = scale_embed(x, self.cfg)
         if hasattr(self, "embed_positions"):
@@ -224,12 +229,26 @@ class _Stack(nn.Module):
 
 
 class TransformerEncoder(_Stack):
+    """Token embeddings, or with ``cfg.input_dim`` speech features through
+    the convolution subsampler (pasero_tpu/models/transformer.py:249-262):
+    a speech encoder has no token table."""
+
     def __init__(self, cfg, vocab_size: int, shared_embed=None,
                  kernel: str = "xla", dtype=torch.bfloat16):
         super().__init__()
         self.cfg = cfg
-        self._embeddings(cfg, vocab_size, shared_embed, cfg.encoder_max_len,
+        self._embeddings(cfg, None if cfg.input_dim else vocab_size,
+                         shared_embed, cfg.encoder_max_len,
                          cfg.encoder_positional_encoding, dtype)
+        if cfg.input_dim:
+            kernels = cfg.conv_kernel_sizes or []
+            self.subsampler = ConvolutionSubsampler(
+                cfg.input_dim,
+                cfg.conv_channels or cfg.conv_input_dim or cfg.input_dim,
+                kernels, cfg.conv_strides or [2] * len(kernels),
+                activation=cfg.conv_activation or "glu",
+                out_dim=cfg.embed_dim, in_proj_dim=cfg.conv_input_dim,
+                dtype=dtype)
         if cfg.encoder_embed_norm:
             self.embed_norm = make_norm(cfg, cfg.embed_dim, dtype)
         self.num_layers = cfg.encoder_layers
@@ -243,12 +262,26 @@ class TransformerEncoder(_Stack):
         return [getattr(self, f"layers_{i}") for i in range(self.num_layers)]
 
     def forward(self, src_tokens, src_mask=None):
-        """src_tokens: (B, S) int ids; src_mask: bool (B, S) True at real
-        tokens. Returns (encoder_out (B, S, E), src_mask)."""
-        if src_mask is None:
-            src_mask = src_tokens != self.cfg.padding_idx
-        positions = positions_from_mask(src_mask)
-        x = self._embed(src_tokens, positions, self.cfg.encoder_embed_norm)
+        """src_tokens: (B, S) int ids or (B, T, F) float features;
+        src_mask: bool (B, S) True at real tokens or frames. Returns
+        (encoder_out (B, S', E), its mask): for features, S' and the mask
+        follow the subsampled lengths."""
+        cfg = self.cfg
+        if src_tokens.dim() == 3:
+            B, T = src_tokens.shape[:2]
+            lengths = (src_mask.sum(dim=1) if src_mask is not None
+                       else torch.full((B,), T, device=src_tokens.device))
+            x, lengths = self.subsampler(src_tokens, lengths)
+            S = x.shape[1]
+            src_mask = (torch.arange(S, device=x.device)[None, :]
+                        < lengths[:, None])
+            positions = positions_from_mask(src_mask)
+            x = self._embed_features(x, positions, cfg.encoder_embed_norm)
+        else:
+            if src_mask is None:
+                src_mask = src_tokens != cfg.padding_idx
+            positions = positions_from_mask(src_mask)
+            x = self._embed(src_tokens, positions, cfg.encoder_embed_norm)
         attn_mask = src_mask[:, None, None, :]
         for layer in self.layers():
             x = layer(x, mask=attn_mask, positions=positions)
@@ -440,8 +473,9 @@ class Transformer(nn.Module):
         tgt_vocab = tgt_vocab_size or src_vocab_size
         self.is_encoder_decoder = cfg.model_type != "decoder"
         shared = None
+        # a speech encoder has no token table to share (transformer.py:683)
         if (self.is_encoder_decoder and cfg.shared_embeddings
-                and src_vocab_size == tgt_vocab):
+                and not cfg.input_dim and src_vocab_size == tgt_vocab):
             shared = self.shared_embed = Embedding(tgt_vocab, cfg.embed_dim,
                                                    dtype)
         if self.is_encoder_decoder:

@@ -94,11 +94,11 @@ def trainable_mask(names, freeze_regex: Optional[str] = None,
 
 def flax_name(name: str, tensor: torch.Tensor) -> str:
     """The dotted flax name of a module parameter: a 2-D ``weight`` is a
-    Linear ``kernel``, a 1-D one a norm ``scale`` (checkpoints.
-    state_dict_to_params)."""
+    Linear ``kernel``, a 3-D one a Conv ``kernel``, a 1-D one a norm
+    ``scale`` (checkpoints.state_dict_to_params)."""
     prefix, _, leaf = name.rpartition(".")
     if leaf == "weight":
-        leaf = "kernel" if tensor.dim() == 2 else "scale"
+        leaf = "kernel" if tensor.dim() in (2, 3) else "scale"
     return f"{prefix}.{leaf}" if prefix else leaf
 
 

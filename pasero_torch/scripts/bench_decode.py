@@ -17,12 +17,21 @@ Two workloads, with weights from a numpy seed:
   ``--speculative``, speculative_greedy_decode with drafts of 8; with
   ``--quantize int8`` the weights are quantized after loading
   (ops/quantize.py), with ``--fused-head`` the greedy head is the fused
-  argmax kernel (``PASERO_FUSED_HEAD=1``).
+  argmax kernel (``PASERO_FUSED_HEAD=1``);
+- ``--model whisper_base`` (examples/Whisper/inference.yaml's decode): the
+  whisper_base arch with Whisper's vocabulary of 51865 and seeded weights,
+  written as a model directory under build/whisper_base with B = 8 wavs of
+  30 s (seeded noise), decoded through ``TextGenerator.decode``: one launch
+  of the mel kernel per wav, 3000 frames into the convolution subsampler
+  and 1500 encoder positions, then greedy decoding of 64 new tokens after
+  BOS and the three target tags ``<|en|>``, ``<|transcribe|>``,
+  ``<|notimestamps|>``.
 
-Prints output tokens/s, ms per decoder call and peak device memory; with
---profile, also the device's busy share over one decode and the device time
-by kernel, from the chrome trace of torch.profiler (written to
-build/profile_decode.json).
+Prints output tokens/s, ms per decoder call and peak device memory (for
+whisper_base also the milliseconds of the features and of the encoder,
+each run alone); with --profile, also the device's busy share over one
+decode and the device time by kernel, from the chrome trace of
+torch.profiler (written to build/profile_decode.json).
 
     python -m pasero_torch.scripts.bench_decode [--batch 64] [--beam 5]
         [--src-len 32] [--prompt-len 8] [--max-new 64] [--vocab 32768]
@@ -30,6 +39,8 @@ build/profile_decode.json).
     python -m pasero_torch.scripts.bench_decode --model llama_1b
         [--quantize int8] [--fused-head] [--speculative]
         [--prompt-style copy|random] [--repeats 3] [--profile]
+    python -m pasero_torch.scripts.bench_decode --model whisper_base
+        [--batch 8] [--max-new 64] [--repeats 3] [--profile]
 """
 
 from __future__ import annotations
@@ -49,8 +60,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
 
 
 def random_state(model, seed: int) -> dict:
-    """Weights from a numpy seed: normal(0, fan_in^-0.5) matrices and
-    embeddings, unit norm scales, zero biases."""
+    """Weights from a numpy seed: normal(0, fan_in^-0.5) matrices, conv
+    kernels and embeddings, unit norm scales, zero biases."""
     rng = np.random.default_rng(seed)
     state = {}
     for name, value in model.state_dict().items():
@@ -60,8 +71,10 @@ def random_state(model, seed: int) -> dict:
         elif len(shape) == 1:
             array = np.ones(shape, np.float32)
         else:
+            # (out, in) and (vocab, embed) weights: fan-in shape[-1];
+            # (out, in, k) conv kernels: in * k
             array = (rng.standard_normal(shape, dtype=np.float32)
-                     * shape[-1] ** -0.5)
+                     * int(np.prod(shape[1:])) ** -0.5)
         state[name] = torch.from_numpy(array)
     return state
 
@@ -174,6 +187,126 @@ class LMWorkload:
     output_tokens = staticmethod(Workload.output_tokens)
 
 
+ST_MINI = os.path.join(ROOT, "pasero_torch", "testdata", "st-mini")
+
+
+def write_whisper_dir(model_dir: str, batch: int = 8, seconds: float = 30.0,
+                      max_new: int = 64, seed: int = 0,
+                      layers: Optional[int] = None) -> list:
+    """A whisper_base model directory as the training CLI leaves one
+    (config.json, model_best.npz, inference.yaml, bpecodes, dict.txt), with
+    weights from a numpy seed and a dictionary of Whisper's 51865 entries
+    (st-mini's words and target tags, then filler words), and ``batch``
+    16 kHz wavs of ``seconds`` of seeded noise beside it; returns the wav
+    paths. ``layers`` cuts the depth of both stacks."""
+    import shutil
+    import wave
+
+    import yaml
+
+    from pasero_torch.checkpoints import save_flat, state_dict_to_params
+    from pasero_torch.config import get_model_cls
+    model_cls, cfg_cls = get_model_cls("whisper_base")
+    cfg = cfg_cls()
+    cfg.set_defaults("speech_translation")
+    cfg.dropout = 0.0
+    if layers:
+        cfg.encoder_layers = cfg.decoder_layers = layers
+    os.makedirs(model_dir, exist_ok=True)
+    with open(os.path.join(model_dir, "config.json"), "w") as f:
+        json.dump({**cfg.as_dict(), "arch": "whisper_base"}, f, indent=2,
+                  default=str)
+    shutil.copy(os.path.join(ST_MINI, "bpecodes"), model_dir)
+    with open(os.path.join(ST_MINI, "dict.txt")) as f:
+        words = f.read().splitlines()
+    # the dictionary adds its 4 special tokens in front
+    words += [f"w{i}@ 0" for i in range(WhisperWorkload.VOCAB - 4 - len(words))]
+    with open(os.path.join(model_dir, "dict.txt"), "w") as f:
+        f.write("\n".join(words) + "\n")
+    with open(os.path.join(ST_MINI, "inference.yaml")) as f:
+        inference = yaml.safe_load(f)
+    inference.update(max_output_len=max_new, max_source_len=cfg.encoder_max_len,
+                     max_target_len=cfg.decoder_max_len)
+    with open(os.path.join(model_dir, "inference.yaml"), "w") as f:
+        yaml.safe_dump(inference, f)
+    model = model_cls(cfg, src_vocab_size=0,
+                      tgt_vocab_size=WhisperWorkload.VOCAB)
+    save_flat(os.path.join(model_dir, "model_best.npz"),
+              state_dict_to_params(random_state(model, seed)))
+    rng = np.random.default_rng(seed)
+    paths = []
+    for i in range(batch):
+        audio = np.clip(0.1 * rng.standard_normal(int(seconds * 16000)),
+                        -1.0, 32767 / 32768)
+        paths.append(os.path.join(model_dir, f"{i:05d}.wav"))
+        with wave.open(paths[-1], "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(16000)
+            w.writeframes((audio * 32768).astype(np.int16).tobytes())
+    return paths
+
+
+class WhisperWorkload:
+    """whisper_base with seeded weights in a model directory
+    (``write_whisper_dir``) and B wavs of 30 s; one run is
+    ``TextGenerator.decode`` of the wav paths: each wav read and turned into
+    log-mel features by one mel launch and brought back to the host, the
+    batch bucketed and padded, the encoder, and greedy decoding of up to 64
+    new tokens after BOS and the three target tags."""
+
+    VOCAB = 51865
+
+    def __init__(self, batch=8, seconds=30.0, max_new=64, seed=0,
+                 device="cuda", model_dir=None, layers=None):
+        from pasero_torch.decoding.generator import TextGenerator
+        model_dir = model_dir or os.path.join(ROOT, "build", "whisper_base")
+        self.wavs = write_whisper_dir(model_dir, batch, seconds, max_new,
+                                      seed, layers)
+        self.generator = TextGenerator.build(model_dir, device=device)
+        self.model, self.cfg = self.generator.model, self.generator.model_cfg
+        self.prompt = self.generator.task.get_target_tags(
+            self.generator.task.make_meta())
+        self.decoder_calls = 0
+
+        def count(*_):
+            self.decoder_calls += 1
+        self.model.decoder.register_forward_pre_hook(count)
+
+    def run(self) -> dict:
+        """One ``TextGenerator.decode``; its decoder calls and its tokens."""
+        calls = self.decoder_calls
+        hyps = self.generator.decode(self.wavs, return_scores=True)
+        return {"hyps": hyps, "model_calls": self.decoder_calls - calls}
+
+    @staticmethod
+    def output_tokens(out) -> int:
+        return sum(len(h[0]["tokens"]) for h in out["hyps"])
+
+    @torch.inference_mode()
+    def stages(self) -> dict:
+        """Host milliseconds of two parts of a decode, each run alone and
+        ended by a synchronize: the features (read, mel, copy to the host)
+        of every wav, and the encoder on the collated batch."""
+        gen = self.generator
+        meta = gen.task.make_meta()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        samples = [gen.task.preprocess(gen.task.input_to_sample(w, meta))
+                   for w in self.wavs]
+        t1 = time.perf_counter()
+        batch = gen._prepare_batch(samples)
+        src = gen._tensor(batch["src_tokens"])
+        mask = gen._tensor(batch["src_mask"], torch.bool)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        gen.model.encode(src, mask)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        return {"features": (t1 - t0) * 1e3, "collate": (t2 - t1) * 1e3,
+                "encoder": (t3 - t2) * 1e3}
+
+
 def trace_profile(fn, path: str, kernel_names: tuple = ()) -> dict:
     """Run ``fn`` under torch.profiler and summarize its chrome trace
     (written to ``path``): wall time, the device's busy time and share (the
@@ -221,7 +354,8 @@ def trace_profile(fn, path: str, kernel_names: tuple = ()) -> dict:
 KERNELS = {"slot_write": "slot_write_kernel",
            "int8_matmul": "int8_matmul_kernel",
            "fused_head_partials": "partials_kernel",
-           "fused_head_combine": "combine_kernel"}
+           "fused_head_combine": "combine_kernel",
+           "power_mel": "power_mel_kernel"}
 
 
 def profile(work, out_dir: str) -> dict:
@@ -238,7 +372,7 @@ def profile(work, out_dir: str) -> dict:
 def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--model", default="transformer",
-                        choices=["transformer", "llama_1b"])
+                        choices=["transformer", "llama_1b", "whisper_base"])
     parser.add_argument("--arch", default="transformer",
                         help="the MT arch (--model transformer)")
     parser.add_argument("--batch", type=int)
@@ -274,6 +408,12 @@ def main(argv=None):
                  "prompt_style": args.prompt_style,
                  "quantized_weights": work.quantized,
                  "quantized_mib": work.quantized_bytes[0] / 2 ** 20}
+    elif args.model == "whisper_base":
+        work = WhisperWorkload(args.batch or 8, max_new=args.max_new)
+        shape = {"batch": args.batch or 8, "seconds": 30.0,
+                 "frames": 3000, "encoder_positions": 1500,
+                 "prompt": work.prompt, "max_new": args.max_new,
+                 "vocab": WhisperWorkload.VOCAB}
     else:
         work = Workload(args.arch, args.vocab, args.batch or 64, args.src_len,
                         args.prompt_len or 8, args.max_new, args.beam)
@@ -297,6 +437,8 @@ def main(argv=None):
               "seconds": times, "tok_per_s": tokens / best,
               "ms_per_decoder_call": best * 1e3 / out["model_calls"],
               "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20}
+    if args.model == "whisper_base":
+        result["stages_ms"] = work.stages()
     if args.profile:
         result["profile"] = profile(work, os.path.join(ROOT, "build"))
     print(json.dumps(result))

@@ -15,14 +15,21 @@ bfloat16:
   numpy seed 0; attention through the flash kernels (``auto`` picks them for
   its grouped K/V heads at this length), the loss through the fused CE.
   JAX's benchmark steps with adafactor; the port's trainer uses the Adam of
-  its config.
+  its config;
+- ``--model whisper_base``: the whisper_base arch with the speech-translation
+  defaults and dropout 0, Whisper's vocabulary of 51865, B = 16 utterances
+  of 3000 log-mel frames (30 s; seeded normal features) into the
+  convolution subsampler and 1500 encoder positions, and T = 128 target
+  tokens; attention on the plain path (``auto`` keeps 8 dense heads at 1500
+  keys there), the loss through the fused CE.
 
 Prints target tokens/s (B x T per micro-batch), ms per step and peak device
 memory; with --profile, also the device's busy share over a few steps and
 the device time of the largest operations, from the chrome trace of
 torch.profiler (written to build/profile_train.json).
 
-    python -m pasero_torch.scripts.bench_train [--model llama_1b] [--steps 20] [--profile]
+    python -m pasero_torch.scripts.bench_train [--model llama_1b|whisper_base]
+        [--steps 20] [--profile]
 """
 
 from __future__ import annotations
@@ -41,9 +48,13 @@ from .bench_decode import ROOT, random_state, trace_profile
 
 VOCAB = 32000
 SEED = 0
-# arch, task, dropout, batch, source length, target length
-SHAPES = {"transformer": ("transformer", "translation", 0.1, 128, 128, 128),
-          "llama_1b": ("llama_1b", "language_modeling", 0.0, 4, 0, 2048)}
+# arch, task, dropout, batch, source length, target length, vocabulary
+SHAPES = {"transformer": ("transformer", "translation", 0.1, 128, 128, 128,
+                          VOCAB),
+          "llama_1b": ("llama_1b", "language_modeling", 0.0, 4, 0, 2048,
+                       VOCAB),
+          "whisper_base": ("whisper_base", "speech_translation", 0.0, 16,
+                           3000, 128, 51865)}
 KERNELS = ("fused_ce::fwd_kernel", "fused_ce::bwd_kernel", "flash::fwd_kernel",
            "flash::bwd_dq_kernel", "flash::bwd_dkv_kernel")
 
@@ -55,19 +66,21 @@ class Workload:
     def __init__(self, name: str = "transformer"):
         from pasero_torch.config import TrainingConfig, get_model_cls
         from pasero_torch.training import Trainer
-        arch, task, dropout, batch, src_len, tgt_len = SHAPES[name]
+        arch, task, dropout, batch, src_len, tgt_len, vocab = SHAPES[name]
         model_cls, cfg_cls = get_model_cls(arch)
         model_cfg = cfg_cls()
         model_cfg.set_defaults(task)
         model_cfg.dropout = dropout
-        model = model_cls(model_cfg, src_vocab_size=VOCAB,
+        model = model_cls(model_cfg, src_vocab_size=vocab,
                           dtype=torch.bfloat16)
         model.load_state_dict(random_state(model, SEED))
         # no data and no checkpoints: the directory stays empty. A 10-step
         # warmup lets the loss fall within the first steps.
         empty = os.path.join(ROOT, "build", "bench_train")
         os.makedirs(empty, exist_ok=True)
-        langs = ["-s", "de", "-t", "en"] if task == "translation" else []
+        langs = {"translation": ["-s", "de", "-t", "en"],
+                 "speech_translation": ["-s", "en", "-t", "en",
+                                        "--allow-monolingual"]}.get(task, [])
         cfg = TrainingConfig("--task", task, "--data-dir", empty,
                              "--model-dir", empty, *langs, "--max-steps",
                              "1000000", "--valid-interval", "1000000",
@@ -76,7 +89,7 @@ class Workload:
         self.model_cfg = model_cfg
         self.layers = model_cfg.decoder_layers
         rng = np.random.default_rng(SEED)
-        dec = rng.integers(4, VOCAB, (batch, tgt_len))
+        dec = rng.integers(4, vocab, (batch, tgt_len))
         self.batch = {
             "decoder_input": dec,
             "target_mask": np.ones((batch, tgt_len), bool),
@@ -84,7 +97,11 @@ class Workload:
         }
         if src_len:
             dec[:, 0] = model_cfg.bos_idx
-            self.batch["src_tokens"] = rng.integers(4, VOCAB, (batch, src_len))
+            self.batch["src_tokens"] = (
+                rng.standard_normal((batch, src_len, model_cfg.input_dim),
+                                    dtype=np.float32)
+                if model_cfg.input_dim
+                else rng.integers(4, vocab, (batch, src_len)))
             self.batch["src_mask"] = np.ones((batch, src_len), bool)
         self.batches = itertools.repeat(self.batch)
         self.tokens_per_step = batch * tgt_len
@@ -119,9 +136,9 @@ def main(argv=None):
     work.run(3)                                       # warm-up
     torch.cuda.reset_peak_memory_stats()
     logs, seconds = work.run(args.steps)
-    _, _, _, batch, src_len, tgt_len = SHAPES[args.model]
+    _, _, _, batch, src_len, tgt_len, vocab = SHAPES[args.model]
     result = {"card": smi, "model": args.model, "batch": batch,
-              "src_len": src_len, "tgt_len": tgt_len, "vocab": VOCAB,
+              "src_len": src_len, "tgt_len": tgt_len, "vocab": vocab,
               "steps": args.steps,
               "seconds": seconds,
               "target_tok_per_s": work.tokens_per_step * args.steps / seconds,

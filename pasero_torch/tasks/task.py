@@ -1,4 +1,5 @@
-# Copy of pasero_tpu/tasks/task.py, verbatim.
+# Copy of pasero_tpu/tasks/task.py; the port adds ``collate_source`` (one rule
+# for padding token and feature sources) and the ``device`` attribute.
 """Task base: corpora, preprocessing, collation, batching, scoring.
 
 Re-design of pasero/tasks/task.py:23-815. Differences for TPU:
@@ -103,6 +104,15 @@ class InferenceCorpus(Corpus):
         return File.open(self.input_path, format=fmt)
 
 
+def collate_source(enc: list, buckets, pad: int, rows_multiple: int):
+    """Encoder sources padded to a bucket, with their mask: token ids (1-D)
+    with ``pad`` as int32, speech features (T, F) with 0.0 in their own
+    float dtype."""
+    is_features = enc[0].ndim > 1
+    return pad_to_bucket(enc, buckets, 0.0 if is_features else pad,
+                         rows_multiple=rows_multiple)
+
+
 class Task:
     """Base text-generation task (pasero/tasks/task.py:203-815)."""
 
@@ -118,6 +128,9 @@ class Task:
         # padded sequence lengths are rounded up to this (context parallelism
         # needs lengths divisible by the 'seq' mesh axis; set by cli/train)
         self.length_multiple = 1
+        # where input_to_sample computes what it computes from raw input (the
+        # speech task's log-mel); None is the card (TextGenerator sets its own)
+        self.device = None
 
     # -- model wiring -------------------------------------------------------
     def setup_for_model(self, model_cfg) -> None:
@@ -280,10 +293,8 @@ class Task:
                     max_source_len or self.cfg_max_source_len(), multiple=mult)
             else:
                 src_bucket = [-(-max(len(e) for e in enc) // mult) * mult]
-            is_features = enc[0].ndim > 1
-            src_tokens, src_mask = pad_to_bucket(
-                enc, src_bucket, 0.0 if is_features else pad,
-                rows_multiple=rows_multiple)
+            src_tokens, src_mask = collate_source(enc, src_bucket, pad,
+                                                  rows_multiple)
             batch["src_tokens"] = src_tokens
             batch["src_mask"] = src_mask
 

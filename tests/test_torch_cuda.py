@@ -7,6 +7,8 @@ also runs on a machine without JAX:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import math
+
 import pytest
 import torch
 
@@ -64,6 +66,7 @@ FCE_SHAPES = [((130, 48, 515), torch.bfloat16),    # ragged rows and vocab
               ((130, 48, 515), torch.float32),     # the fp32 FMA path
               ((48, 2048, 330), torch.bfloat16),   # width over one block
               ((64, 36, 100), torch.bfloat16),     # width not a multiple of 8
+              ((2048, 512, 51865), torch.bfloat16),    # whisper_base's head
               ((8192, 2048, 32000), torch.bfloat16)]   # llama_1b's head
 
 
@@ -495,3 +498,136 @@ def test_int8_and_head_wrappers_raise_on_card():
                                       dtype=torch.bfloat16),
                           torch.zeros(32, 40, device="cuda"))
     assert (int8_matmul.launches, fused_head_argmax.launches) == before
+
+
+# The mel kernel against power_mel_plain's float32 result of the same
+# waveform, compared on log10 of the mel power floored at 1e-10 (what the
+# features keep), in a limit per element. Each DFT sum of n_fft products
+# errs by at most about n_fft float32 ulps (u = 2^-24) of sum_n |x_n|
+# |basis_nk| in either computation, so the two differ by |d re_k| <= e A_k
+# and |d im_k| <= e B_k with e = 2 n_fft u, A = |frames| @ |cos_b| and
+# B = |frames| @ |sin_b|. The power then differs by
+# dp = 2 (|re| + e A) e A + 2 (|im| + e B) e B + 4 u p, the mel by
+# dm = dp @ M + 2 n_freq u mel, and log10 of the floored mel by
+# dm / (ln 10 max(mel - dm, 1e-10)) + 4 u |log10 mel|; re, im, p and mel
+# are the float64 values. Frames shifted by one hop, or a filterbank with
+# one column rolled by one bin, fall far outside these limits on noise.
+# Where the waveform is silent, A = B = 0 and both sides give exactly 0.
+MEL_SHAPES = [(1, 16000), (1, 480000), (16, 480000), (3, 12345)]
+
+
+def mel_inputs(B, N, kind="noise", seed=0, device="cuda"):
+    """A float32 waveform (B, N): noise at speech-like level, or a 440 Hz
+    tone over the first half and silence over the rest."""
+    if kind == "tone":
+        t = torch.arange(N, device=device, dtype=torch.float64) / 16000
+        audio = 0.5 * torch.sin(2 * torch.pi * 440 * t)
+        audio[N // 2:] = 0
+        return audio.float().expand(B, N).contiguous()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return 0.1 * torch.randn(B, N, generator=gen, device=device)
+
+
+def mel_constants(device="cuda", n_mels=80):
+    from pasero_torch.ops import mel
+    return mel._constants(16000, 400, n_mels, torch.device(device))
+
+
+def log_mel_power(m):
+    return torch.log10(torch.clamp(m.double(), min=1e-10))
+
+
+def mel_limits(audio, cos_b, sin_b, mel_w, hop=160):
+    """(float64 log10 of the mel, the limit of each element)."""
+    from pasero_torch.ops.mel import frame_signal
+    u = 2.0 ** -24
+    n_fft, n_freq = cos_b.shape
+    frames = frame_signal(audio.double(), n_fft, hop)[:, :-1]
+    c, s, m = cos_b.double(), sin_b.double(), mel_w.double()
+    re, im = frames @ c, frames @ s
+    A, B = frames.abs() @ c.abs(), frames.abs() @ s.abs()
+    del frames
+    e = 2 * n_fft * u
+    p = re * re + im * im
+    dp = 2 * (re.abs() + e * A) * e * A + 2 * (im.abs() + e * B) * e * B \
+        + 4 * u * p
+    del re, im, A, B
+    mel = p @ m
+    dm = dp @ m + 2 * n_freq * u * mel
+    want = log_mel_power(mel)
+    limit = dm / (math.log(10) * torch.clamp(mel - dm, min=1e-10)) \
+        + 4 * u * want.abs()
+    return want, limit
+
+
+def mel_excess(got, want, limit) -> float:
+    return ((log_mel_power(got) - want).abs() / limit).max().item()
+
+
+def mel_compare(B, N, kind="noise", n_mels=80) -> dict:
+    """One launch of the mel kernel against power_mel_plain, in the limits
+    of mel_limits, and the excess of frames shifted by one hop and of a
+    filterbank with its middle column rolled by one bin."""
+    from pasero_torch.ops.mel import power_mel, power_mel_plain
+    audio = mel_inputs(B, N, kind)
+    cos_b, sin_b, mel_w = mel_constants(n_mels=n_mels)
+    got = power_mel(audio, cos_b, sin_b, mel_w)
+    plain = power_mel_plain(audio, cos_b, sin_b, mel_w)
+    want, limit = mel_limits(audio, cos_b, sin_b, mel_w)
+    T = want.shape[1]
+    shifted = power_mel(audio[:, 160:].contiguous(), cos_b, sin_b, mel_w)
+    rolled_w = mel_w.clone()
+    col = n_mels // 2
+    rolled_w[:, col] = rolled_w[:, col].roll(1)
+    rolled = power_mel(audio, cos_b, sin_b, rolled_w)
+    torch.cuda.synchronize()
+    return {"excess": mel_excess(got, want, limit),
+            "plain_excess": mel_excess(plain, want, limit),
+            "shift_excess": mel_excess(shifted[:, :T - 2], want[:, :T - 2],
+                                       limit[:, :T - 2]),
+            "roll_excess": mel_excess(rolled, want, limit),
+            "max_abs_err": (log_mel_power(got)
+                            - log_mel_power(plain)).abs().max().item(),
+            "frames": T}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", MEL_SHAPES)
+def test_mel_kernel_matches_plain(shape):
+    from pasero_torch.ops.mel import power_mel
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    before = power_mel.launches
+    r = mel_compare(*shape)
+    assert power_mel.launches == before + 3
+    assert r["excess"] <= 1.0 and r["plain_excess"] <= 1.0, r
+    assert r["shift_excess"] > 1.0 and r["roll_excess"] > 1.0, r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_mels", [80, 128])
+def test_mel_kernel_holds_on_tone_and_silence(n_mels):
+    """Most bins of a pure tone over silence sit at the clamp floor."""
+    from pasero_torch.ops.mel import log_mel_spectrogram
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    r = mel_compare(2, 32000, "tone", n_mels)
+    assert r["excess"] <= 1.0 and r["plain_excess"] <= 1.0, r
+    feats = log_mel_spectrogram(mel_inputs(1, 32000, "tone"), n_mels=n_mels)
+    assert (feats[0, 105:] == feats.min()).all()
+
+
+@pytest.mark.cuda
+def test_mel_wrapper_raises_on_card():
+    """Types other than float32 and shapes the kernel does not tile raise
+    before any launch."""
+    from pasero_torch.ops.mel import power_mel
+    _need_card()
+    cos_b, sin_b, mel_w = mel_constants()
+    audio = torch.zeros(2, 4000, device="cuda")
+    before = power_mel.launches
+    with pytest.raises(TypeError):
+        power_mel(audio.half(), cos_b, sin_b, mel_w)
+    with pytest.raises(ValueError):
+        power_mel(audio, cos_b, sin_b, torch.zeros(201, 200, device="cuda"))
+    assert power_mel.launches == before

@@ -163,3 +163,30 @@ def test_decoding_options_of_the_serving_slice_build():
     gen = TextGenerator.build(lm, device="cpu", quantize="int8",
                               speculative=True, sampling=True)
     assert gen.model_cfg.model_type == "decoder"
+
+
+ST = os.path.join(ROOT, "pasero_torch", "testdata", "st-mini")
+
+
+def test_speech_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    """TextGenerator on a speech model, the decode CLI on a feature file,
+    feature extraction and the task's wav loading run on the card unless
+    asked for the CPU."""
+    from pasero_torch.cli.decode import main as decode_main
+    from pasero_torch.decoding.generator import TextGenerator
+    from pasero_torch.scripts.extract_features import main as extract_main
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    wav = os.path.join(ST, "wav", "00000.wav")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TextGenerator.build(ST)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        decode_main([ST, "-i", os.path.join(ST, "test.feats")])
+    out = str(tmp_path / "x.feats")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        extract_main([wav, "-o", out])
+    gen = TextGenerator.build(ST, device="cpu")
+    gen.task.device = None
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        gen.task.input_to_sample(wav)
+    extract_main([wav, "-o", out, "--device", "cpu"])
+    assert os.path.exists(out)
