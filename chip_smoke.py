@@ -97,7 +97,32 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    of 8 wavs of 30 s (one mel launch each, 1500 encoder positions, greedy
    after BOS and the three target tags, 64 new tokens) and training steps at 16 x 3000 frames and 128 target tokens
    through Trainer.train_step, with exact launch counts of the mel,
-   slot-write and fused-CE kernels.
+   slot-write and fused-CE kernels;
+16. the biased flash-attention kernels (forward, dq, dk/dv with a float32
+   bias; dbias) against their plain version on the card, within the error
+   model of tests/test_torch_cuda.py (``flash_bias_compare``): bloom_560m's
+   training shape (4 x 16 heads x 2048 x 64, causal, per-sample ALiBi), a
+   learned (1, H) bias at head dim 128, GQA 4 with a window, (B, 1) and
+   (1, 1) biases, the encoder's half-head ALiBi with its rows of only -1e9,
+   and 16500 keys at head dim 128; a transposed bias, a bias row of another
+   head, dbias without delta, dbias with dS rounded to bf16 and a backward
+   given another row's lse rejected; at bloom_560m's shape each kernel's device time (CUDA graph)
+   beside the plain version's, its bound (operations or bytes) and the
+   library yardstick (F.scaled_dot_product_attention with the bias as a
+   float attn_mask, its backward, with the mask's gradient); a learned bias
+   through flash_attention's autograd launching dbias once (the kernels
+   line's ``learned_bias_launches``: the main path, phase 17, launches it
+   0 times);
+17. ALiBi through the entry points: TextGenerator on the alibi-mini anchor
+   (pasero_torch/testdata/alibi-mini) against the JAX greedy output, its
+   speculative decode equal to greedy; python -m pasero_torch.cli.train on
+   pasero_torch/testdata/alibi_mini.yaml against the JAX losses, with exact
+   launch counts (the biased kernels per layer and batch, no dbias, no
+   bias-free flash kernel); bloom_560m at full width with seeded weights
+   and Bloom's vocabulary of 250880: Trainer.train_step at 4 x 2048 with
+   the same exact counts per step, and TextGenerator.decode of 8 prompts of
+   up to 128 tokens (64 new, greedy) with one slot-write launch per layer
+   per single-token decoder call.
 
 The second-to-last line is one JSON object {"kernels": [...]}; the last line
 is {"ok": true, "device": {...}}. Without CUDA the script exits 1 and
@@ -379,6 +404,7 @@ CE_SHAPES = [((16384, 512, 32000), "bfloat16"),   # full width: B*T, E, V
              ((48, 2048, 330), "bfloat16"),       # shapes of JAX's split bwd
              ((4096, 2048, 32000), "bfloat16"),
              ((2048, 512, 51865), "bfloat16"),    # whisper_base's odd vocab
+             ((8192, 1024, 250880), "bfloat16"),  # bloom_560m: N V near 2^31
              ((8192, 2048, 32000), "bfloat16")]   # llama_1b's untied head
 LM_HEAD = CE_SHAPES[-1][0]
 
@@ -724,18 +750,19 @@ def flash_timing(cuda_tests) -> dict:
         B * H * S * 4
 
     def bound(products, nbytes):
-        return max(products * product / BF16_FLOPS,
-                   nbytes / HBM_BYTES_PER_S) * 1e3
+        ops, mem = products * product / BF16_FLOPS, nbytes / HBM_BYTES_PER_S
+        return {"bound_ms": max(ops, mem) * 1e3, "ops_bound_ms": ops * 1e3,
+                "bytes_bound_ms": mem * 1e3}
 
     res = {
-        "fwd": {"bound_ms": bound(2, 2 * q_bytes + 2 * kv_bytes + row_bytes)},
+        "fwd": bound(2, 2 * q_bytes + 2 * kv_bytes + row_bytes),
         # the backward's function: QK^T and dO V^T recomputed, P^T dO, dS K,
         # dS^T Q; the dq kernel alone needs three, the dk/dv kernel four
-        "bwd": {"bound_ms": bound(5, 4 * q_bytes + 4 * kv_bytes + row_bytes)},
+        "bwd": bound(5, 4 * q_bytes + 4 * kv_bytes + row_bytes),
         "dq": {"kernel_bound_ms": bound(3, 4 * q_bytes + 2 * kv_bytes
-                                        + 2 * row_bytes)},
+                                        + 2 * row_bytes)["bound_ms"]},
         "dkv": {"kernel_bound_ms": bound(4, 2 * q_bytes + 4 * kv_bytes
-                                         + 2 * row_bytes)},
+                                         + 2 * row_bytes)["bound_ms"]},
     }
     args = (scale, causal, window)
     kernels = {
@@ -777,12 +804,13 @@ def flash_timing(cuda_tests) -> dict:
     f, b = res["fwd"], res["bwd"]
     log(f"phase 7: at {(B, H, Hkv, S, D)} bf16 causal, device ms per call "
         f"(CUDA graph): forward {f['ms']:.4f} (bound {f['bound_ms']:.4f}, "
+        f"bytes {f['bytes_bound_ms']:.4f}, "
         f"plain {f['plain_ms']:.4f}, library {f['library_ms']:.4f}); "
         f"backward {b['ms']:.4f} = dq {res['dq']['kernel_ms']:.4f} (bound "
         f"{res['dq']['kernel_bound_ms']:.4f}) + dk/dv "
         f"{res['dkv']['kernel_ms']:.4f} (bound "
         f"{res['dkv']['kernel_bound_ms']:.4f}); backward bound "
-        f"{b['bound_ms']:.4f}, plain {b['plain_ms']:.4f}, library "
+        f"{b['bound_ms']:.4f} (bytes {b['bytes_bound_ms']:.4f}), plain {b['plain_ms']:.4f}, library "
         f"{b['library_ms']:.4f}; with eager launches: forward "
         f"{f['host_ms']:.4f} backward {b['host_ms']:.4f}; peak memory of "
         f"forward + backward: kernels {f['peak_mib']:.1f} MiB, library "
@@ -1501,6 +1529,345 @@ def phase15() -> dict:
     return {"decode": decode, "train": result}
 
 
+# -- phase 16 ------------------------------------------------------------------
+
+FLASH_BIAS_SHAPES = [   # (B, H, Hkv, S, D), causal, window, padded, bias kind
+    ((4, 16, 16, 2048, 64), True, None, False, "alibi"),    # bloom_560m
+    ((2, 8, 8, 1000, 128), True, None, True, "learned_1xH"),  # learned (1, H)
+    ((2, 16, 4, 777, 64), True, 256, True, "learned_1xH"),  # GQA 4, window
+    ((2, 8, 8, 1000, 128), False, None, True, "Bx1"),
+    ((3, 4, 2, 45, 32), True, None, True, "1x1"),
+    ((2, 16, 16, 500, 64), False, None, True, "encoder"),   # rows of -1e9
+    ((1, 2, 2, 16500, 128), True, None, False, "alibi16"),  # past 16384 keys
+]
+
+
+def flash_bias_check(case, cuda_tests) -> dict:
+    """The four biased kernels against the plain version at one shape, by
+    ``flash_bias_compare`` of tests/test_torch_cuda.py: lse within 1e-4,
+    out, dq, dk, dv and dbias within their limits, and every mutation
+    outside them. Returns the max abs errors."""
+    import torch
+    r = cuda_tests.flash_bias_compare(*case)
+    shape, causal, window, padded, kind = case
+    check(r["lse_err"] <= 1e-4,
+          f"flash_fwd_bias lse differs at {shape} {kind} by {r['lse_err']}")
+    check(max(r["excess"]) <= 1.0, f"biased flash kernels differ at {shape} "
+          f"{kind}: out, dq, dk, dv, dbias at {r['excess']} of their limits")
+    check(min(r["mutants"].values()) > 1.0, f"the biased flash check at "
+          f"{shape} {kind} passes a mutation: {r['mutants']}")
+    errs = r["max_abs_err"]
+    log(f"phase 16: biased flash kernels == plain at {shape} causal {causal} "
+        f"window {window} padded {padded} bias {kind}: out, dq, dk, dv, "
+        f"dbias at {', '.join(f'{e:.3f}' for e in r['excess'])} of their "
+        f"limits; mutations at {json.dumps({k: round(v, 1) for k, v in r['mutants'].items()})} "
+        f"of them; max abs err lse {r['lse_err']:.3e} out {errs['fwd']:.3e} "
+        f"dq {errs['dq']:.3e} dk/dv {errs['dkv']:.3e} dbias "
+        f"{errs['dbias']:.3e}")
+    torch.cuda.empty_cache()
+    return errs
+
+
+def flash_bias_timing(cuda_tests) -> dict:
+    """At bloom_560m's training shape with its per-sample ALiBi bias: device
+    ms per call of each biased kernel (CUDA graph), the plain version's ms,
+    the bounds (the larger of the products over the bf16 rate and the bytes
+    over the memory rate, counting the causal half of the bias that this
+    run reads), and the library yardstick: F.scaled_dot_product_attention
+    with the bias (and the causal mask) as a bf16 float attn_mask, its
+    backward, and its backward with the mask's gradient for dbias."""
+    import torch
+    import torch.nn.functional as F
+    from pasero_torch.ops.flash_attention import (flash_bwd_dbias,
+                                                  flash_bwd_dkv, flash_bwd_dq,
+                                                  flash_bwd_plain,
+                                                  flash_dbias_plain, flash_fwd,
+                                                  flash_fwd_plain, visible)
+    (B, H, Hkv, S, D), causal, window, padded, kind = FLASH_BIAS_SHAPES[0]
+    q, k, v, do, mask = cuda_tests.flash_inputs(B, H, Hkv, S, D, padded)
+    bias = cuda_tests.flash_bias(kind, B, H, S, mask)
+    args = (D ** -0.5, causal, window)
+    out, lse = flash_fwd(q, k, v, mask, *args, bias)
+    _, delta = flash_bwd_dq(q, k, v, mask, out, lse, do, *args, bias)
+    pairs = B * H * S * (S + 1) / 2
+    product = 2.0 * pairs * D
+    q_bytes, kv_bytes, row_bytes = B * H * S * D * 2, B * Hkv * S * D * 2, \
+        B * H * S * 4
+    bias_bytes = 4 * pairs          # the visible half of the (B, H) bias
+    dbias_bytes = 4 * B * H * S * S  # written whole, zeros above the diagonal
+
+    def bound(products, nbytes):
+        ops, mem = products * product / BF16_FLOPS, nbytes / HBM_BYTES_PER_S
+        return {"bound_ms": max(ops, mem) * 1e3,
+                "ops_bound_ms": ops * 1e3, "bytes_bound_ms": mem * 1e3,
+                "bound_by": "operations" if ops >= mem else "bytes"}
+
+    res = {
+        "fwd": bound(2, 2 * q_bytes + 2 * kv_bytes + row_bytes + bias_bytes),
+        # the backward's function (dq, dk, dv) reads the bias once; each of
+        # its two kernels reads it once
+        "bwd": bound(5, 4 * q_bytes + 4 * kv_bytes + row_bytes + bias_bytes),
+        "dq": bound(3, 4 * q_bytes + 2 * kv_bytes + 2 * row_bytes
+                    + bias_bytes),
+        "dkv": bound(4, 2 * q_bytes + 4 * kv_bytes + 2 * row_bytes
+                     + bias_bytes),
+        "dbias": bound(2, 2 * q_bytes + 2 * kv_bytes + 2 * row_bytes
+                       + bias_bytes + dbias_bytes),
+    }
+    kernels = {
+        "fwd": lambda: flash_fwd(q, k, v, mask, *args, bias),
+        "dq": lambda: flash_bwd_dq(q, k, v, mask, out, lse, do, *args, bias),
+        "dkv": lambda: flash_bwd_dkv(q, k, v, mask, do, lse, delta, *args,
+                                     bias),
+        "dbias": lambda: flash_bwd_dbias(q, k, v, mask, bias, do, lse, delta,
+                                         *args),
+    }
+    for key, fn in kernels.items():
+        res[key]["ms"] = device_ms(fn, iters=10, replays=5)
+    res["bwd"]["ms"] = res["dq"]["ms"] + res["dkv"]["ms"]
+    res["fwd"]["plain_ms"] = time_ms(
+        lambda: flash_fwd_plain(q, k, v, mask, *args, bias), 3, 1)
+    res["bwd"]["plain_ms"] = time_ms(
+        lambda: flash_bwd_plain(q, k, v, mask, out, lse, do, *args, bias), 3,
+        1)
+    res["dbias"]["plain_ms"] = time_ms(
+        lambda: flash_dbias_plain(q, k, v, mask, out, lse, do, *args, bias),
+        3, 1)
+    # the library yardstick; the port never calls it
+    ok = visible(mask, S, causal, window)
+    lib_mask = bias.masked_fill(~ok, float("-inf")).to(torch.bfloat16)
+    res["fwd"]["library_ms"] = time_ms(
+        lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=lib_mask,
+                                               scale=args[0]), 10, 2)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    lib_out = F.scaled_dot_product_attention(*leaves, attn_mask=lib_mask,
+                                             scale=args[0])
+    res["bwd"]["library_ms"] = time_ms(lambda: torch.autograd.grad(
+        lib_out, leaves, do, retain_graph=True), 10, 2)
+    mask_leaf = lib_mask.clone().requires_grad_()
+    lib_out = F.scaled_dot_product_attention(*leaves, attn_mask=mask_leaf,
+                                             scale=args[0])
+    res["dbias"]["library_ms"] = time_ms(lambda: torch.autograd.grad(
+        lib_out, leaves + [mask_leaf], do, retain_graph=True), 5, 1)
+    res["dq"]["plain_ms"] = res["dkv"]["plain_ms"] = res["bwd"]["plain_ms"]
+    res["dq"]["library_ms"] = res["dkv"]["library_ms"] = \
+        res["bwd"]["library_ms"]
+    del lib_out, mask_leaf, lib_mask, leaves
+    for key in ("fwd", "dq", "dkv", "bwd", "dbias"):
+        r = res[key]
+        log(f"phase 16: at {(B, H, Hkv, S, D)} bf16 causal with a per-sample "
+            f"ALiBi bias, {key}: device ms per call (CUDA graph) "
+            f"{r['ms']:.4f}, bound {r['bound_ms']:.4f} ({r['bound_by']}: "
+            f"operations {r['ops_bound_ms']:.4f}, bytes "
+            f"{r['bytes_bound_ms']:.4f}), plain {r['plain_ms']:.4f}, library "
+            f"{r['library_ms']:.4f}")
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase16() -> dict:
+    """The biased kernels against their plain versions at every shape of
+    FLASH_BIAS_SHAPES, their times at bloom_560m's shape, and a learned
+    (1, H) bias through flash_attention's autograd: the dbias kernel's
+    launch beside the other three."""
+    import torch
+    from pasero_torch.ops import flash_attention as fa
+    cuda_tests = load_test_module("test_torch_cuda")
+    errs = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0, "dbias": 0.0}
+    for case in FLASH_BIAS_SHAPES:
+        for key, err in flash_bias_check(case, cuda_tests).items():
+            errs[key] = max(errs[key], err)
+    res = flash_bias_timing(cuda_tests)
+    for key in errs:
+        res[key]["max_abs_err"] = errs[key]
+    (B, H, Hkv, S, D), causal, *_ = FLASH_BIAS_SHAPES[0]
+    q, k, v, do, mask = cuda_tests.flash_inputs(B, H, Hkv, S, D, False)
+    bias = cuda_tests.flash_bias("learned_1xH", B, H, S, mask)
+    bias.requires_grad_()
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    fa.reset_launch_counts()
+    fa.flash_attention(*leaves, mask=mask[:, None, None, :], bias=bias,
+                    scale=D ** -0.5, causal=causal).backward(do)
+    torch.cuda.synchronize()
+    counts = fa.launch_counts()
+    want = {name: int(name.endswith("bias")) for name in counts}
+    check(counts == want, f"a learned bias through flash_attention launched "
+          f"{counts}, not {want}")
+    check(bias.grad is not None and bool(torch.isfinite(bias.grad).all()),
+          "the learned bias has no finite gradient")
+    log(f"phase 16: a learned (1, {H}) bias at {(B, H, Hkv, S, D)} through "
+        f"flash_attention forward + backward: launches {counts}")
+    res["learned_bias_launches"] = counts
+    del q, k, v, do, bias, leaves
+    torch.cuda.empty_cache()
+    return res
+
+
+# -- phase 17 ------------------------------------------------------------------
+
+ALIBI = os.path.join(TESTDATA, "alibi-mini")
+ALIBI_CONFIG = os.path.join(TESTDATA, "alibi_mini.yaml")
+ALIBI_TRAIN_GOLDEN = os.path.join(TESTDATA, "alibi_mini_train20.jax.json")
+
+
+def alibi_train_counts(layers: int, micro: int, valid: int) -> dict:
+    """The launches of ALiBi training: the biased flash kernels per layer and
+    batch, no dbias (the bias is a constant) and no bias-free kernel."""
+    return {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+            "flash_fwd_bias": layers * (micro + valid),
+            "flash_bwd_dq_bias": layers * micro,
+            "flash_bwd_dkv_bias": layers * micro, "flash_bwd_dbias": 0,
+            "fused_ce_fwd": micro + valid, "fused_ce_bwd": micro}
+
+
+def phase17() -> dict:
+    """ALiBi through the entry points: the alibi-mini anchor's greedy and
+    speculative decodes against the JAX golden, the training CLI on
+    alibi_mini.yaml against the JAX losses with exact launch counts, and
+    bloom_560m at full width: Trainer.train_step at 4 x 2048 and
+    TextGenerator.decode of 8 prompts of up to 128 tokens."""
+    import shutil
+    import torch
+    from pasero_torch.decoding.generator import TextGenerator
+    from pasero_torch.ops import flash_attention as fa
+    from pasero_torch.ops.cache_update import cache_slot_write_
+    from pasero_torch.ops.fused_ce import fused_ce_bwd, fused_ce_fwd
+    from pasero_torch.scripts.bench_decode import BloomWorkload
+    from pasero_torch.scripts.bench_train import Workload
+    res = {}
+    # a. the anchor
+    prompts = lm_prompts()
+    fa.reset_launch_counts()
+    gen = TextGenerator.build(ALIBI, max_output_len=24)
+    check(gen.device.type == "cuda", f"generator runs on {gen.device}")
+    greedy = gen.decode(prompts)
+    golden = golden_lines("alibi_mini_greedy.jax.txt")
+    same = sum(h == g for h, g in zip(greedy, golden))
+    spec = TextGenerator.build(ALIBI, max_output_len=24, speculative=True,
+                               speculative_draft_len=8).decode(prompts)
+    same_spec = sum(h == g for h, g in zip(spec, greedy))
+    log(f"phase 17: alibi-mini bf16 greedy: {same}/{len(golden)} lines "
+        f"identical to the JAX output; speculative (drafts of 8) "
+        f"{same_spec}/32 identical to greedy; flash launches "
+        f"{fa.launch_counts()} (decoding takes the plain attention)")
+    check(same >= MIN_LM_MATCH, f"alibi-mini greedy: only {same}/32 match")
+    check(same_spec == len(prompts), "alibi-mini speculative differs from "
+          "greedy")
+    check(not any(fa.launch_counts().values()), "decoding launched flash kernels")
+    res["anchor"] = {"greedy_match": same, "speculative_match": same_spec}
+
+    # b. the training CLI
+    cli = load_test_module("test_torch_train_cli")
+    model_dir = os.path.join(ROOT, "build", "smoke-alibi")
+    shutil.rmtree(model_dir, ignore_errors=True)
+    os.makedirs(model_dir)
+    ckpt = os.path.join(ROOT, "build", "smoke-alibi-init.npz")
+    cli.write_initial_weights(ckpt, ALIBI_CONFIG)
+    cmd = [sys.executable, "-m", "pasero_torch.cli.train",
+           *cli.train_flags(model_dir, ckpt, ALIBI_CONFIG),
+           "--valid-interval", "10", "--save-interval", "10"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=900)
+    elapsed = time.perf_counter() - t0
+    out = proc.stdout + proc.stderr
+    check(proc.returncode == 0, f"cli.train (ALiBi) failed:\n{out[-4000:]}")
+    logs = cli.parse_log(out)
+    with open(ALIBI_TRAIN_GOLDEN) as f:
+        golden = json.load(f)["steps"]
+    check([l["step"] for l in logs] == [g["step"] for g in golden],
+          f"logged steps {[l['step'] for l in logs]}")
+    worst = 0.0
+    for got, want in zip(logs, golden):
+        rel = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+        worst = max(worst, rel)
+        check(rel <= TRAIN_RTOL, f"ALiBi step {got['step']}: loss "
+              f"{got['loss']} vs JAX {want['loss']}")
+    counts = parse_launches(out)
+    micro, valid = counts["train micro-batches"], counts["valid batches"]
+    with open(os.path.join(model_dir, "config.json")) as f:
+        layers = json.load(f)["decoder_layers"]
+    check(micro == 20 and valid > 0, f"{micro} micro-batches, {valid} "
+          "validation batches")
+    want = alibi_train_counts(layers, micro, valid)
+    got = {key: counts[key] for key in want}
+    check(got == want, f"ALiBi CLI launches {got} != {want}")
+    log(f"phase 17: python -m pasero_torch.cli.train on alibi_mini.yaml, 20 "
+        f"steps in {elapsed:.1f} s: losses {logs[0]['loss']:.3f} -> "
+        f"{logs[-1]['loss']:.3f}, all within {worst:.4%} of the JAX training "
+        f"CLI's; launches {got} for {micro} micro-batches and {valid} "
+        f"validation batches through {layers} layers")
+    res["cli"] = {"launches": got, "worst_loss_rel": worst}
+
+    # c. bloom_560m at full width: training, then decoding
+    work = Workload("bloom_560m")
+    work.run(2)                                            # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    fused_ce_fwd.launches = fused_ce_bwd.launches = 0
+    steps = 5
+    logs, seconds = work.run(steps)
+    counts = {**fa.launch_counts(), "fused_ce_fwd": fused_ce_fwd.launches,
+              "fused_ce_bwd": fused_ce_bwd.launches}
+    peak = torch.cuda.max_memory_allocated()
+    losses = [l["loss"] for l in logs]
+    check(all(map(math.isfinite, losses)), f"non-finite losses {losses}")
+    want = alibi_train_counts(work.layers, steps, 0)
+    check(counts == want, f"bloom_560m launches {counts} != {want} for "
+          f"{steps} steps through {work.layers} layers")
+    train = {"ms_per_step": seconds * 1e3 / steps,
+             "tok_per_s": work.tokens_per_step * steps / seconds,
+             "peak_mib": peak / 2 ** 20, "losses": losses,
+             "launches": counts}
+    log(f"phase 17: bloom_560m V=250880 B=4 T=2048 bf16 training with flash "
+        f"attention and the ALiBi bias: {train['tok_per_s']:.1f} tok/s, "
+        f"{train['ms_per_step']:.3f} ms per step, peak memory "
+        f"{train['peak_mib']:.1f} MiB, loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}, launches {counts} for {steps} steps x "
+        f"{work.layers} layers")
+    del work
+    torch.cuda.empty_cache()
+
+    work = BloomWorkload()
+    work.run()                                             # warm-up
+    fa.reset_launch_counts()
+    cache_slot_write_.launches = 0
+    work.model.single_token_calls = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = work.run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    layers = work.cfg.decoder_layers
+    singles = work.model.single_token_calls
+    check(singles > 0 and cache_slot_write_.launches == layers * singles,
+          f"{cache_slot_write_.launches} slot writes for {singles} "
+          f"single-token calls through {layers} layers")
+    check(not any(fa.launch_counts().values()), "decoding launched flash kernels")
+    tokens = work.output_tokens(out)
+    lengths = [len(work.generator.task.preprocess(
+        work.generator.task.input_to_sample(p, work.generator.task.make_meta())
+    )["decoder_input"]) for p in work.inputs]
+    decode = {"ms_per_decoder_call": seconds * 1e3 / out["model_calls"],
+              "tok_per_s": tokens / seconds, "seconds": seconds,
+              "decoder_calls": out["model_calls"], "output_tokens": tokens,
+              "prompt_tokens": lengths,
+              "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
+              "cache_slot_write": cache_slot_write_.launches}
+    log(f"phase 17: bloom_560m TextGenerator.decode of {len(work.inputs)} "
+        f"prompts of {min(lengths)}-{max(lengths)} tokens, greedy: "
+        f"{tokens} tokens in {out['model_calls']} decoder calls, "
+        f"{decode['ms_per_decoder_call']:.3f} ms per call, "
+        f"{decode['tok_per_s']:.1f} tok/s, peak {decode['peak_mib']:.1f} "
+        f"MiB; cache_slot_write {cache_slot_write_.launches} = {layers} "
+        f"layers x {singles} single-token calls")
+    del work
+    torch.cuda.empty_cache()
+    res["train"], res["decode"] = train, decode
+    return res
+
+
 def main():
     try:
         import torch
@@ -1532,6 +1899,8 @@ def main():
     mel = phase13()
     speech = phase14()
     whisper = phase15()
+    biased = phase16()
+    alibi = phase17()
     kernels = [{
         "name": "cache_slot_write",
         "route": "cuda",
@@ -1596,6 +1965,8 @@ def main():
             "plain_ms": side["plain_ms"],
             "bound_ms": side["bound_ms"],
             "bound_by": "operations",
+            "ops_bound_ms": side["ops_bound_ms"],
+            "bytes_bound_ms": side["bytes_bound_ms"],
             "library_ms": side["library_ms"],
             "host_ms": side["host_ms"],
         }
@@ -1657,6 +2028,40 @@ def main():
         "shape": at["shape"],
         "by_shape": mel["by_shape"],
     })
+    # the biased kernels: launches of phase 17's ALiBi training CLI (none of
+    # the dbias kernel there: ALiBi's bias is a constant), of bloom_560m's
+    # full-width steps and, apart, of phase 16's learned (1, H) bias, the
+    # one run that launches dbias; numbers at bloom_560m's shape with its
+    # per-sample ALiBi bias
+    for name, key, line, body in (
+            ("flash_fwd_bias", "fwd", 381, 186),
+            ("flash_bwd_dq_bias", "dq", 1398, 866),
+            ("flash_bwd_dkv_bias", "dkv", 1398, 911),
+            ("flash_bwd_dbias", "dbias", 1213, 1160)):
+        own = biased[key]
+        entry = {
+            "name": name,
+            "route": "cuda",
+            "source": "pasero_torch/csrc/flash_attention.cu",
+            "replaces": f"pasero_tpu/ops/flash_attention.py:{line}",
+            "kernel_body": f"pasero_tpu/ops/flash_attention.py:{body}",
+            "launches": alibi["cli"]["launches"][name],
+            "full_width_launches": alibi["train"]["launches"][name],
+            "learned_bias_launches": biased["learned_bias_launches"][name],
+            "max_abs_err": own["max_abs_err"],
+            "ms": own["ms"],
+            "plain_ms": own["plain_ms"],
+            "bound_ms": own["bound_ms"],
+            "bound_by": own["bound_by"],
+            "ops_bound_ms": own["ops_bound_ms"],
+            "bytes_bound_ms": own["bytes_bound_ms"],
+            "library_ms": own["library_ms"],
+            "shape": list(FLASH_BIAS_SHAPES[0][0]),
+        }
+        if key in ("dq", "dkv"):   # the backward function's numbers beside
+            entry["backward"] = {k: biased["bwd"][k] for k in (
+                "ms", "bound_ms", "bound_by", "plain_ms", "library_ms")}
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

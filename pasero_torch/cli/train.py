@@ -341,19 +341,20 @@ def log_launches(trainer):
     (read by chip_smoke.py): one fused-CE forward per training micro-batch
     and per validation batch, one backward per training micro-batch; a
     model whose attention takes the flash kernels launches one flash
-    forward per layer and batch, one backward per layer and micro-batch."""
+    forward per layer and batch, one backward per layer and micro-batch (the
+    biased kernels with an ALiBi bias, and no dbias kernel: the bias is a
+    constant)."""
+    from pasero_torch.ops import flash_attention as fa
     from pasero_torch.ops.cache_update import cache_slot_write_
-    from pasero_torch.ops.flash_attention import (flash_bwd_dkv, flash_bwd_dq,
-                                                  flash_fwd)
     from pasero_torch.ops.fused_ce import fused_ce_bwd, fused_ce_fwd
     micro = (trainer.step - trainer.loaded_step) * max(
         1, trainer.cfg.virtual_dp_size)
+    flash = " | ".join(f"{name} {n}"
+                       for name, n in fa.launch_counts().items())
     logger.info(f"launches | fused_ce_fwd {fused_ce_fwd.launches} | "
                 f"fused_ce_bwd {fused_ce_bwd.launches} | cache_slot_write "
-                f"{cache_slot_write_.launches} | flash_fwd {flash_fwd.launches}"
-                f" | flash_bwd_dq {flash_bwd_dq.launches} | flash_bwd_dkv "
-                f"{flash_bwd_dkv.launches} | train micro-batches {micro} | "
-                f"valid batches {trainer.valid_batches}")
+                f"{cache_slot_write_.launches} | {flash} | train micro-batches "
+                f"{micro} | valid batches {trainer.valid_batches}")
 
 
 def split_device(args: list) -> tuple:

@@ -1,6 +1,8 @@
-// Flash attention, forward and backward, for grouped K/V heads and no bias:
+// Flash attention, forward and backward, for grouped K/V heads, with or
+// without an additive float32 bias:
 //
 //   s[i, j]  = scale * sum_d q[b, h, i, d] * k[b, h / G, j, d]     (fp32)
+//              (+ bias[b, h, i, j], float32, in the biased kernels)
 //   p[i, j]  = exp(s[i, j] - lse[i]) where key j is visible from row i, else 0
 //   out[i]   = sum_j p[i, j] * v[b, h / G, j]          (p rounded to bf16 first)
 //   lse[i]   = log sum_j exp(s[i, j])                   (fp32; -1e30 if no key)
@@ -14,25 +16,49 @@
 //   dS[i, j] = p[i, j] * (dO[i] . v[j] - delta[i])   (rounded to bf16)
 //   dq = scale * dS . k,  dk = scale * sum over the group of dS^T . q,
 //   dv = sum over the group of p^T . dO            (p rounded to bf16)
+//   dbias[i, j] = dS[i, j], unrounded fp32, 0 where key j is not visible
 //
-// Kernels and the TPU kernels they replace:
+// The bias is (b0 h0, Sq, Sk) rows with b0 in {1, B} and h0 in {1, H}; the
+// row of (b, h) is b bs + h hs (bias_row), so a shared bias is never
+// broadcast in memory. It is added to the scaled score in fp32 before the
+// mask, and the biased kernels keep the running max and lse in natural
+// units: a score near the encoder ALiBi's -1e9 has an ulp of 64 there, so a
+// change of base before the subtraction would lose it. Such a row is an
+// ordinary softmax over its -1e9 entries, not a row without keys.
+//
+// Kernels and the TPU kernels they replace (BIAS = false / true):
 //   fwd_kernel     _fwd_packed_kernel (pasero_tpu/ops/flash_attention.py:261,
-//                  called through _fwd_packed, :342);
-//   bwd_dq_kernel  _bwd_dq_packed_kernel (:963), with delta computed here
-//                  from out and dO (JAX computes it outside, :1409) and
-//                  written for the dk/dv kernel;
-//   bwd_dkv_kernel _bwd_dkv_packed_kernel (:1018, both through _bwd_packed,
-//                  :1086): one block per (batch, K/V head, 64-key tile) loops
-//                  over the query tiles of every query head of its group, so
-//                  dk and dv come out at K/V-head width with no (B, H, S, D)
-//                  intermediate, no post-sum and no atomics.
+//                  through _fwd_packed, :342) / _fwd_kernel (:186, through
+//                  _fwd, :381);
+//   bwd_dq_kernel  _bwd_dq_packed_kernel (:963) / _bwd_dq_kernel (:866),
+//                  with delta computed here from out and dO (JAX computes it
+//                  outside, :1409) and written for the dk/dv kernel;
+//   bwd_dkv_kernel _bwd_dkv_packed_kernel (:1018, through _bwd_packed,
+//                  :1086) / _bwd_dkv_kernel (:911, through _bwd, :1398): one
+//                  block per (batch, K/V head, 64-key tile) loops over the
+//                  query tiles of every query head of its group (each with
+//                  its own bias row), so dk and dv come out at K/V-head width
+//                  with no (B, H, S, D) intermediate, no post-sum and no
+//                  atomics;
+//   dbias_kernel   _dbias_kernel (:1160, through _compute_dbias, :1213): one
+//                  block per (64-row query tile, output row); a bias shared
+//                  over the batch is summed over it inside the block, batch
+//                  by batch, so the sum is deterministic without atomics.
 //
-// What bounds them: operations. One causal product at B = 4, H = 32,
-// S = 2048, D = 64 is 2 B H S^2 D / 2 = 34.4 GFLOP, 0.0347 ms at 989 TFLOP/s
-// (bf16 dense). The forward does two products (QK^T, PV); the backward's
-// function needs five (QK^T and dO V^T recomputed, P^T dO, dS K, dS^T Q).
-// This design runs seven: the dq and the dk/dv kernels each recompute QK^T
-// and dO V^T, the price of writing dq, dk and dv once each with no atomics.
+// The TPU kernels stream K/V past 8 MiB of VMEM (_use_streaming, :467);
+// these already stream 64-key tiles through shared memory, so they take any
+// key length.
+//
+// What bounds them: operations without a bias. One causal product at B = 4,
+// H = 32, S = 2048, D = 64 is 2 B H S^2 D / 2 = 34.4 GFLOP, 0.0347 ms at 989
+// TFLOP/s (bf16 dense). The forward does two products (QK^T, PV); the
+// backward's function needs five (QK^T and dO V^T recomputed, P^T dO, dS K,
+// dS^T Q). This design runs seven: the dq and the dk/dv kernels each
+// recompute QK^T and dO V^T, the price of writing dq, dk and dv once each
+// with no atomics. With a per-sample bias, bytes: at B = 4, H = 16, S =
+// 2048 its visible causal half is 537 MB (0.160 ms at 3.35 TB/s) against
+// 17.2 GFLOP of products per pass, and dbias writes 1.07 GB; the bias tiles
+// ride the K/V tiles' cp.async stages, so their reads overlap the products.
 //
 // Design, kept simple and right first: 128 threads (4 warps) per block, each
 // warp owning 16 rows of a 64-row tile; bf16 operands staged in shared
@@ -67,6 +93,12 @@ constexpr int BN = 64;        // columns of the tile it loops over (forward, dq)
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
+// leading dimensions of the float32 bias tiles in shared memory: LDB for a
+// (query, key) tile read as float2 pairs along a score row (rows 8 banks
+// apart), LDBT for the dk/dv kernel's reads down a column (threads of a warp
+// on 8 keys and 8 queries, rows 4 banks apart); both keep 16-byte rows
+constexpr int LDB = BN + 8;
+constexpr int LDBT = BM + 4;
 
 __device__ inline uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -77,6 +109,11 @@ __device__ inline uint32_t smem_addr(const void* p) {
 __device__ inline void cp_async16(void* dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
                "l"(src), "r"(valid ? 16 : 0));
+}
+// 4 bytes global -> shared, for float32 rows that are not 16-byte aligned.
+__device__ inline void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
 }
 __device__ inline void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int N>
@@ -131,6 +168,36 @@ __device__ inline void load_tile(bf16* dst, const bf16* __restrict__ src, int r0
     const bool ok = r0 + r < nrows;
     cp_async16(dst + r * (D + 8) + c, ok ? src + (int64_t)(r0 + r) * D + c : src, ok);
   }
+}
+
+// Rows [r0, r0 + R) and columns [c0, c0 + C) of a row-major (nrows, ncols)
+// float32 bias into shared memory with leading dimension LDS, zeros outside.
+// vec (ncols % 4 == 0): 16-byte copies, each chunk whole and aligned; else
+// 4-byte copies. Issues cp.async copies only; the caller commits and waits.
+template <int R, int C, int LDS>
+__device__ inline void load_bias_tile(float* dst, const float* __restrict__ src, int r0,
+                                      int c0, int nrows, int ncols, bool vec) {
+  if (vec) {
+    constexpr int CH = C / 4;
+    for (int i = threadIdx.x; i < R * CH; i += THREADS) {
+      const int r = i / CH, c = (i % CH) * 4;
+      const bool ok = r0 + r < nrows && c0 + c < ncols;
+      cp_async16(dst + r * LDS + c, ok ? src + (int64_t)(r0 + r) * ncols + c0 + c : src, ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < R * C; i += THREADS) {
+      const int r = i / C, c = i % C;
+      const bool ok = r0 + r < nrows && c0 + c < ncols;
+      cp_async4(dst + r * LDS + c, ok ? src + (int64_t)(r0 + r) * ncols + c0 + c : src, ok);
+    }
+  }
+}
+
+// The bias row of (batch b, query head h): the bias is (b0 h0, Sq, Sk) with
+// row strides bs (0 when b0 = 1, else h0) and hs (0 when h0 = 1, else 1).
+__device__ inline const float* bias_row(const float* bias, int b, int h, int bs, int hs,
+                                        int Sq, int Sk) {
+  return bias + ((int64_t)b * bs + (int64_t)h * hs) * Sq * Sk;
 }
 
 // s[16 x 8 NT] = A[16 x D] . B[8 NT x D]^T for one warp: A's 16 rows and B's
@@ -193,10 +260,15 @@ __device__ inline bool visible(int row, int col, int Sk, const uint8_t* __restri
 
 // -- forward -------------------------------------------------------------------
 
-template <int D>
+// BIAS: a float32 bias tile per (query tile, key tile), staged in shared
+// memory with the K/V tile, is added to the scaled scores; the running max
+// and lse then stay in natural units (a score near -1e9 loses its low bits
+// in log2 units), as JAX computes them.
+template <int D, bool BIAS>
 __global__ void __launch_bounds__(THREADS)
     fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                const bf16* __restrict__ v, const uint8_t* __restrict__ kv_mask,
+               const float* __restrict__ bias, int bias_bs, int bias_hs,
                bf16* __restrict__ out, float* __restrict__ lse, int H, int Hkv, int Sq,
                int Sk, float scale, int causal, int window) {
   constexpr int LD = D + 8;
@@ -205,6 +277,7 @@ __global__ void __launch_bounds__(THREADS)
   bf16* Qs = reinterpret_cast<bf16*>(smem);
   bf16* Ks = Qs + BM * LD;       // [2][BN][LD]
   bf16* Vs = Ks + 2 * BN * LD;   // [2][BN][LD]
+  float* Bs = reinterpret_cast<float*>(Vs + 2 * BN * LD);   // [2][BM][LDB] (BIAS)
 
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BM;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
@@ -214,6 +287,8 @@ __global__ void __launch_bounds__(THREADS)
   const bf16* kg = k + kv_off;
   const bf16* vg = v + kv_off;
   const uint8_t* mg = kv_mask + (int64_t)b * Sk;
+  const float* bg = BIAS ? bias_row(bias, b, h, bias_bs, bias_hs, Sq, Sk) : nullptr;
+  const bool bvec = Sk % 4 == 0;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int row0 = q0 + warp * 16 + lane / 4;   // accumulator rows row0, row0 + 8
   const int tcol = 2 * (lane % 4);
@@ -222,25 +297,28 @@ __global__ void __launch_bounds__(THREADS)
   if (causal) kt1 = min(kt1, (q0 + BM - 1) / BN + 1);
   if (window > 0) kt0 = max(0, (q0 - window + 1) / BN);
 
+  auto load_kv = [&](int kt, int stage) {
+    load_tile<D, BN>(Ks + stage * BN * LD, kg, kt * BN, Sk);
+    load_tile<D, BN>(Vs + stage * BN * LD, vg, kt * BN, Sk);
+    if constexpr (BIAS)
+      load_bias_tile<BM, BN, LDB>(Bs + stage * BM * LDB, bg, q0, kt * BN, Sq, Sk, bvec);
+  };
+
   load_tile<D, BM>(Qs, qg, q0, Sq);
-  if (kt0 < kt1) {
-    load_tile<D, BN>(Ks, kg, kt0 * BN, Sk);
-    load_tile<D, BN>(Vs, vg, kt0 * BN, Sk);
-  }
+  if (kt0 < kt1) load_kv(kt0, 0);
   cp_async_commit();
 
   float o[D / 8][4];
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY};   // running row max, log2 units
+  float m[2] = {-INFINITY, -INFINITY};   // running row max (log2 units without BIAS)
   float l[2] = {0.f, 0.f};               // this thread's part of the row sum
   const float sl2 = scale * LOG2E;
 
   for (int kt = kt0; kt < kt1; ++kt) {
     const int st = (kt - kt0) & 1;
     if (kt + 1 < kt1) {
-      load_tile<D, BN>(Ks + (st ^ 1) * BN * LD, kg, (kt + 1) * BN, Sk);
-      load_tile<D, BN>(Vs + (st ^ 1) * BN * LD, vg, (kt + 1) * BN, Sk);
+      load_kv(kt + 1, st ^ 1);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -251,21 +329,29 @@ __global__ void __launch_bounds__(THREADS)
     float s[NT][4];
     warp_abt<D, NT>(s, Qs + warp * 16 * LD, Ks + st * BN * LD, lane);
     const int k0 = kt * BN;
+    const float* Bt = Bs + st * BM * LDB + (warp * 16 + lane / 4) * LDB + tcol;
     float mx[2] = {m[0], m[1]};
 #pragma unroll
     for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int row = row0 + (e >> 1) * 8, col = k0 + j * 8 + tcol + (e & 1);
-        s[j][e] = visible(row, col, Sk, mg, causal, window) ? s[j][e] * sl2 : -INFINITY;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+        float t = -INFINITY;
+        if (visible(row, col, Sk, mg, causal, window)) {
+          if constexpr (BIAS)
+            t = s[j][e] * scale + Bt[(e >> 1) * 8 * LDB + j * 8 + (e & 1)];
+          else
+            t = s[j][e] * sl2;
+        }
+        s[j][e] = t;
+        mx[e >> 1] = fmaxf(mx[e >> 1], t);
       }
     float mu[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       mx[r] = quad_max(mx[r]);
       mu[r] = mx[r] == -INFINITY ? 0.f : mx[r];   // no visible key yet
-      const float alpha = exp2f(m[r] - mu[r]);
+      const float alpha = BIAS ? exp2f((m[r] - mu[r]) * LOG2E) : exp2f(m[r] - mu[r]);
       m[r] = mx[r];
       l[r] *= alpha;
 #pragma unroll
@@ -278,7 +364,7 @@ __global__ void __launch_bounds__(THREADS)
     for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        s[j][e] = exp2f(s[j][e] - mu[e >> 1]);
+        s[j][e] = BIAS ? exp2f((s[j][e] - mu[e >> 1]) * LOG2E) : exp2f(s[j][e] - mu[e >> 1]);
         l[e >> 1] += s[j][e];
       }
     warp_pm<D, NT>(o, s, Vs + st * BN * LD, lane);
@@ -298,16 +384,18 @@ __global__ void __launch_bounds__(THREADS)
       *reinterpret_cast<__nv_bfloat162*>(og + j * 8 + tcol) =
           __floats2bfloat162_rn(o[j][2 * r] * inv, o[j][2 * r + 1] * inv);
     if (lane % 4 == 0)
-      lse[(int64_t)bh * Sq + row] = lr == 0.f ? NEG_INF : m[r] * LN2 + logf(lr);
+      lse[(int64_t)bh * Sq + row] =
+          lr == 0.f ? NEG_INF : (BIAS ? m[r] : m[r] * LN2) + logf(lr);
   }
 }
 
 // -- backward: dq (and delta) --------------------------------------------------
 
-template <int D>
+template <int D, bool BIAS>
 __global__ void __launch_bounds__(THREADS)
     bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, const uint8_t* __restrict__ kv_mask,
+                  const float* __restrict__ bias, int bias_bs, int bias_hs,
                   const bf16* __restrict__ out, const bf16* __restrict__ dout,
                   const float* __restrict__ lse, float* __restrict__ delta,
                   bf16* __restrict__ dq, int H, int Hkv, int Sq, int Sk, float scale,
@@ -320,6 +408,7 @@ __global__ void __launch_bounds__(THREADS)
   bf16* Ks = dOs + BM * LD;      // [2][BN][LD]
   bf16* Vs = Ks + 2 * BN * LD;   // [2][BN][LD]
   float* delta_s = reinterpret_cast<float*>(Vs + 2 * BN * LD);   // [BM]
+  float* Bs = delta_s + BM;                                      // [2][BM][LDB] (BIAS)
 
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BM;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
@@ -329,6 +418,8 @@ __global__ void __launch_bounds__(THREADS)
   const bf16* kg = k + kv_off;
   const bf16* vg = v + kv_off;
   const uint8_t* mg = kv_mask + (int64_t)b * Sk;
+  const float* bg = BIAS ? bias_row(bias, b, h, bias_bs, bias_hs, Sq, Sk) : nullptr;
+  const bool bvec = Sk % 4 == 0;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int row0 = q0 + warp * 16 + lane / 4;
   const int tcol = 2 * (lane % 4);
@@ -337,12 +428,16 @@ __global__ void __launch_bounds__(THREADS)
   if (causal) kt1 = min(kt1, (q0 + BM - 1) / BN + 1);
   if (window > 0) kt0 = max(0, (q0 - window + 1) / BN);
 
+  auto load_kv = [&](int kt, int stage) {
+    load_tile<D, BN>(Ks + stage * BN * LD, kg, kt * BN, Sk);
+    load_tile<D, BN>(Vs + stage * BN * LD, vg, kt * BN, Sk);
+    if constexpr (BIAS)
+      load_bias_tile<BM, BN, LDB>(Bs + stage * BM * LDB, bg, q0, kt * BN, Sq, Sk, bvec);
+  };
+
   load_tile<D, BM>(Qs, q + q_off, q0, Sq);
   load_tile<D, BM>(dOs, dout + q_off, q0, Sq);
-  if (kt0 < kt1) {
-    load_tile<D, BN>(Ks, kg, kt0 * BN, Sk);
-    load_tile<D, BN>(Vs, vg, kt0 * BN, Sk);
-  }
+  if (kt0 < kt1) load_kv(kt0, 0);
   cp_async_commit();
 
   // delta of the warp's 16 rows in fp32 over the bf16 out, written for the
@@ -367,11 +462,12 @@ __global__ void __launch_bounds__(THREADS)
     }
   }
   __syncwarp();
+  // lse in log2 units without BIAS, in natural units with it
   float lse2[2], dl[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + r * 8;
-    lse2[r] = row < Sq ? lse[(int64_t)bh * Sq + row] * LOG2E : 0.f;
+    lse2[r] = row < Sq ? lse[(int64_t)bh * Sq + row] * (BIAS ? 1.f : LOG2E) : 0.f;
     dl[r] = delta_s[warp * 16 + lane / 4 + r * 8];
   }
 
@@ -383,8 +479,7 @@ __global__ void __launch_bounds__(THREADS)
   for (int kt = kt0; kt < kt1; ++kt) {
     const int st = (kt - kt0) & 1;
     if (kt + 1 < kt1) {
-      load_tile<D, BN>(Ks + (st ^ 1) * BN * LD, kg, (kt + 1) * BN, Sk);
-      load_tile<D, BN>(Vs + (st ^ 1) * BN * LD, vg, (kt + 1) * BN, Sk);
+      load_kv(kt + 1, st ^ 1);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -393,6 +488,7 @@ __global__ void __launch_bounds__(THREADS)
     __syncthreads();
 
     const bf16* Kt = Ks + st * BN * LD;
+    const float* Bt = Bs + st * BM * LDB + (warp * 16 + lane / 4) * LDB + tcol;
     float s[NT][4], dp[NT][4];
     warp_abt<D, NT>(s, Qs + warp * 16 * LD, Kt, lane);
     warp_abt<D, NT>(dp, dOs + warp * 16 * LD, Vs + st * BN * LD, lane);
@@ -403,8 +499,14 @@ __global__ void __launch_bounds__(THREADS)
       for (int e = 0; e < 4; ++e) {
         const int r = e >> 1;
         const int row = row0 + r * 8, col = k0 + j * 8 + tcol + (e & 1);
-        const float p = visible(row, col, Sk, mg, causal, window)
-                            ? exp2f(s[j][e] * sl2 - lse2[r]) : 0.f;
+        float p = 0.f;
+        if (visible(row, col, Sk, mg, causal, window)) {
+          if constexpr (BIAS)
+            p = exp2f((s[j][e] * scale + Bt[r * 8 * LDB + j * 8 + (e & 1)] - lse2[r]) *
+                      LOG2E);
+          else
+            p = exp2f(s[j][e] * sl2 - lse2[r]);
+        }
         s[j][e] = p * (dp[j][e] - dl[r]);   // dS
       }
     warp_pm<D, NT>(acc, s, Kt, lane);
@@ -427,11 +529,13 @@ __global__ void __launch_bounds__(THREADS)
 // -- backward: dk, dv ----------------------------------------------------------
 
 // NI: query rows per inner tile (64 for D = 32 and 64, 32 for D = 128,
-// which keeps the dk and dv accumulators in registers).
-template <int D, int NI>
+// which keeps the dk and dv accumulators in registers). With BIAS each inner
+// tile brings the (NI queries x 64 keys) bias tile of its own query head.
+template <int D, int NI, bool BIAS>
 __global__ void __launch_bounds__(THREADS)
     bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, const uint8_t* __restrict__ kv_mask,
+                   const float* __restrict__ bias, int bias_bs, int bias_hs,
                    const bf16* __restrict__ dout, const float* __restrict__ lse,
                    const float* __restrict__ delta, bf16* __restrict__ dk,
                    bf16* __restrict__ dv, int H, int Hkv, int Sq, int Sk, float scale,
@@ -443,14 +547,16 @@ __global__ void __launch_bounds__(THREADS)
   bf16* Vs = Ks + BM * LD;
   bf16* Qs = Vs + BM * LD;       // [2][NI][LD]
   bf16* dOs = Qs + 2 * NI * LD;  // [2][NI][LD]
-  float* lse_s = reinterpret_cast<float*>(dOs + 2 * NI * LD);   // [2][NI], log2 units
+  float* lse_s = reinterpret_cast<float*>(dOs + 2 * NI * LD);   // [2][NI]
   float* delta_s = lse_s + 2 * NI;                              // [2][NI]
+  float* Bs = delta_s + 2 * NI;                                 // [2][NI][LDBT] (BIAS)
 
   const int j0 = blockIdx.x * BM;
   const int bk = blockIdx.y, b = bk / Hkv, hk = bk % Hkv;
   const int group = H / Hkv;
   const int64_t kv_off = (int64_t)bk * Sk * D;
   const uint8_t* mg = kv_mask + (int64_t)b * Sk;
+  const bool bvec = Sk % 4 == 0;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int key0 = j0 + warp * 16 + lane / 4;   // accumulator rows key0, key0 + 8
   const int tcol = 2 * (lane % 4);
@@ -462,17 +568,21 @@ __global__ void __launch_bounds__(THREADS)
   const int iters = group * ntiles;
 
   // the inner tile `idx`: query head hk * group + idx / ntiles, query tile
-  // it0 + idx % ntiles
+  // it0 + idx % ntiles; lse in log2 units without BIAS, natural with it
   auto load_inner = [&](int idx, int stage) {
     const int hh = hk * group + idx / ntiles;
     const int i0 = (it0 + idx % ntiles) * NI;
     const int64_t q_off = ((int64_t)b * H + hh) * Sq * D;
     load_tile<D, NI>(Qs + stage * NI * LD, q + q_off, i0, Sq);
     load_tile<D, NI>(dOs + stage * NI * LD, dout + q_off, i0, Sq);
+    if constexpr (BIAS)
+      load_bias_tile<NI, BM, LDBT>(Bs + stage * NI * LDBT,
+                                   bias_row(bias, b, hh, bias_bs, bias_hs, Sq, Sk), i0,
+                                   j0, Sq, Sk, bvec);
     const int64_t r_off = ((int64_t)b * H + hh) * Sq;
     for (int i = threadIdx.x; i < NI; i += THREADS) {
       const bool ok = i0 + i < Sq;
-      lse_s[stage * NI + i] = ok ? lse[r_off + i0 + i] * LOG2E : 0.f;
+      lse_s[stage * NI + i] = ok ? lse[r_off + i0 + i] * (BIAS ? 1.f : LOG2E) : 0.f;
       delta_s[stage * NI + i] = ok ? delta[r_off + i0 + i] : 0.f;
     }
   };
@@ -510,6 +620,7 @@ __global__ void __launch_bounds__(THREADS)
     const bf16* dOt = dOs + st * NI * LD;
     const float* ls = lse_s + st * NI;
     const float* ds_ = delta_s + st * NI;
+    const float* Bt = Bs + st * NI * LDBT + warp * 16 + lane / 4;
     const int i0 = (it0 + idx % ntiles) * NI;
     float s[NT][4], dp[NT][4];   // transposed: rows are keys, columns queries
     warp_abt<D, NT>(s, Ks + warp * 16 * LD, Qt, lane);
@@ -524,7 +635,13 @@ __global__ void __launch_bounds__(THREADS)
         bool ok = key_ok[r] && row < Sq;
         if (causal) ok = ok && key <= row;
         if (window > 0) ok = ok && row - key < window;
-        const float p = ok ? exp2f(s[j][e] * sl2 - ls[ci]) : 0.f;
+        float p = 0.f;
+        if (ok) {
+          if constexpr (BIAS)
+            p = exp2f((s[j][e] * scale + Bt[ci * LDBT + r * 8] - ls[ci]) * LOG2E);
+          else
+            p = exp2f(s[j][e] * sl2 - ls[ci]);
+        }
         s[j][e] = p;
         dp[j][e] = p * (dp[j][e] - ds_[ci]);   // dS^T
       }
@@ -550,6 +667,120 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+// -- backward: dbias -------------------------------------------------------------
+
+// dbias = dS = P (dP - delta) in float32, unrounded, zero where a key is not
+// visible, written at the (query tile x key tile) it was computed for. One
+// block per (64-row query tile, output row): output row (b, h) for a
+// per-sample bias; row h with the batch summed inside the block when the
+// bias is shared over the batch (batch_sum), the batches in order, so the
+// sum is deterministic without atomics. Key tiles that causality or the
+// window skip are written as zeros once.
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+    dbias_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, const uint8_t* __restrict__ kv_mask,
+                 const float* __restrict__ bias, int bias_bs, int bias_hs,
+                 const bf16* __restrict__ dout, const float* __restrict__ lse,
+                 const float* __restrict__ delta, float* __restrict__ dbias, int B, int H,
+                 int Hkv, int Sq, int Sk, float scale, int causal, int window,
+                 int batch_sum) {
+  constexpr int LD = D + 8;
+  constexpr int NT = BN / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* dOs = Qs + BM * LD;
+  bf16* Ks = dOs + BM * LD;      // [2][BN][LD]
+  bf16* Vs = Ks + 2 * BN * LD;   // [2][BN][LD]
+  float* Bs = reinterpret_cast<float*>(Vs + 2 * BN * LD);   // [2][BM][LDB]
+
+  const int q0 = blockIdx.x * BM;
+  const int h = batch_sum ? blockIdx.y : blockIdx.y % H;
+  const int b_begin = batch_sum ? 0 : blockIdx.y / H;
+  const int b_end = batch_sum ? B : b_begin + 1;
+  const int hk = h / (H / Hkv);
+  float* og = dbias + (int64_t)blockIdx.y * Sq * Sk;
+  const bool bvec = Sk % 4 == 0;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int row0 = q0 + warp * 16 + lane / 4;
+  const int tcol = 2 * (lane % 4);
+
+  const int nkt = (Sk + BN - 1) / BN;
+  int kt0 = 0, kt1 = nkt;
+  if (causal) kt1 = min(kt1, (q0 + BM - 1) / BN + 1);
+  if (window > 0) kt0 = max(0, (q0 - window + 1) / BN);
+  for (int kt = 0; kt < nkt; ++kt) {
+    if (kt >= kt0 && kt < kt1) continue;
+    for (int i = threadIdx.x; i < BM * BN; i += THREADS) {
+      const int row = q0 + i / BN, col = kt * BN + i % BN;
+      if (row < Sq && col < Sk) og[(int64_t)row * Sk + col] = 0.f;
+    }
+  }
+
+  for (int b = b_begin; b < b_end; ++b) {
+    const int bh = b * H + h;
+    const int64_t q_off = (int64_t)bh * Sq * D;
+    const int64_t kv_off = ((int64_t)b * Hkv + hk) * Sk * D;
+    const bf16* kg = k + kv_off;
+    const bf16* vg = v + kv_off;
+    const uint8_t* mg = kv_mask + (int64_t)b * Sk;
+    const float* bg = bias_row(bias, b, h, bias_bs, bias_hs, Sq, Sk);
+    auto load_kv = [&](int kt, int stage) {
+      load_tile<D, BN>(Ks + stage * BN * LD, kg, kt * BN, Sk);
+      load_tile<D, BN>(Vs + stage * BN * LD, vg, kt * BN, Sk);
+      load_bias_tile<BM, BN, LDB>(Bs + stage * BM * LDB, bg, q0, kt * BN, Sq, Sk, bvec);
+    };
+    load_tile<D, BM>(Qs, q + q_off, q0, Sq);
+    load_tile<D, BM>(dOs, dout + q_off, q0, Sq);
+    if (kt0 < kt1) load_kv(kt0, 0);
+    cp_async_commit();
+
+    float lse_r[2], dl[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + r * 8;
+      lse_r[r] = row < Sq ? lse[(int64_t)bh * Sq + row] : 0.f;
+      dl[r] = row < Sq ? delta[(int64_t)bh * Sq + row] : 0.f;
+    }
+
+    for (int kt = kt0; kt < kt1; ++kt) {
+      const int st = (kt - kt0) & 1;
+      if (kt + 1 < kt1) {
+        load_kv(kt + 1, st ^ 1);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+
+      const float* Bt = Bs + st * BM * LDB + (warp * 16 + lane / 4) * LDB + tcol;
+      float s[NT][4], dp[NT][4];
+      warp_abt<D, NT>(s, Qs + warp * 16 * LD, Ks + st * BN * LD, lane);
+      warp_abt<D, NT>(dp, dOs + warp * 16 * LD, Vs + st * BN * LD, lane);
+      const int k0 = kt * BN;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const int row = row0 + r * 8, col = k0 + j * 8 + tcol + (e & 1);
+          if (row >= Sq || col >= Sk) continue;
+          float ds = 0.f;
+          if (visible(row, col, Sk, mg, causal, window))
+            ds = exp2f((s[j][e] * scale + Bt[r * 8 * LDB + j * 8 + (e & 1)] - lse_r[r]) *
+                       LOG2E) *
+                 (dp[j][e] - dl[r]);
+          float* g = og + (int64_t)row * Sk + col;
+          *g = b == b_begin ? ds : *g + ds;
+        }
+      __syncthreads();
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+  }
+}
+
 // -- launchers -----------------------------------------------------------------
 
 // Above 48 KB a kernel must opt in to dynamic shared memory; done on the
@@ -569,60 +800,101 @@ bool bad_args(int B, int H, int Hkv, int Sq, int Sk, int D, int window) {
          (D != 32 && D != 64 && D != 128) || window < 0 || (int64_t)B * H > 65535;
 }
 
-template <int D>
+// Shared memory of the biased kernels' two stages of float32 bias tiles.
+constexpr size_t bias_smem(bool bias, int rows, int ld) {
+  return bias ? (size_t)2 * rows * ld * sizeof(float) : 0;
+}
+
+template <int D, bool BIAS>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, const uint8_t* mask,
-                       void* out, float* lse, int B, int H, int Hkv, int Sq, int Sk,
-                       float scale, int causal, int window, cudaStream_t stream) {
-  const size_t bytes = (size_t)(BM + 4 * BN) * (D + 8) * sizeof(bf16);
+                       const float* bias, int bs, int hs, void* out, float* lse, int B,
+                       int H, int Hkv, int Sq, int Sk, float scale, int causal, int window,
+                       cudaStream_t stream) {
+  const size_t bytes =
+      (size_t)(BM + 4 * BN) * (D + 8) * sizeof(bf16) + bias_smem(BIAS, BM, LDB);
   static bool done = false;
-  cudaError_t err = allow_smem(fwd_kernel<D>, bytes, done);
+  cudaError_t err = allow_smem(fwd_kernel<D, BIAS>, bytes, done);
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + BM - 1) / BM, B * H);
-  fwd_kernel<D><<<grid, THREADS, bytes, stream>>>(
+  fwd_kernel<D, BIAS><<<grid, THREADS, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), mask, static_cast<bf16*>(out), lse, H, Hkv, Sq, Sk,
-      scale, causal, window);
+      static_cast<const bf16*>(v), mask, bias, bs, hs, static_cast<bf16*>(out), lse, H,
+      Hkv, Sq, Sk, scale, causal, window);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool BIAS>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const uint8_t* mask,
-                      const void* out, const void* dout, const float* lse, float* delta,
-                      void* dq, int B, int H, int Hkv, int Sq, int Sk, float scale,
-                      int causal, int window, cudaStream_t stream) {
+                      const float* bias, int bs, int hs, const void* out, const void* dout,
+                      const float* lse, float* delta, void* dq, int B, int H, int Hkv,
+                      int Sq, int Sk, float scale, int causal, int window,
+                      cudaStream_t stream) {
   const size_t bytes = (size_t)(2 * BM + 4 * BN) * (D + 8) * sizeof(bf16) +
-                       BM * sizeof(float);
+                       BM * sizeof(float) + bias_smem(BIAS, BM, LDB);
   static bool done = false;
-  cudaError_t err = allow_smem(bwd_dq_kernel<D>, bytes, done);
+  cudaError_t err = allow_smem(bwd_dq_kernel<D, BIAS>, bytes, done);
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + BM - 1) / BM, B * H);
-  bwd_dq_kernel<D><<<grid, THREADS, bytes, stream>>>(
+  bwd_dq_kernel<D, BIAS><<<grid, THREADS, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), mask, static_cast<const bf16*>(out),
+      static_cast<const bf16*>(v), mask, bias, bs, hs, static_cast<const bf16*>(out),
       static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dq), H, Hkv, Sq,
       Sk, scale, causal, window);
   return cudaGetLastError();
 }
 
-template <int D, int NI>
+template <int D, bool BIAS>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v, const uint8_t* mask,
-                       const void* dout, const float* lse, const float* delta, void* dk,
-                       void* dv, int B, int H, int Hkv, int Sq, int Sk, float scale,
-                       int causal, int window, cudaStream_t stream) {
+                       const float* bias, int bs, int hs, const void* dout,
+                       const float* lse, const float* delta, void* dk, void* dv, int B,
+                       int H, int Hkv, int Sq, int Sk, float scale, int causal, int window,
+                       cudaStream_t stream) {
+  constexpr int NI = D == 128 ? 32 : 64;   // query rows per inner tile
   const size_t bytes = (size_t)(2 * BM + 4 * NI) * (D + 8) * sizeof(bf16) +
-                       4 * NI * sizeof(float);
-  auto kernel = bwd_dkv_kernel<D, NI>;
+                       4 * NI * sizeof(float) + bias_smem(BIAS, NI, LDBT);
+  auto kernel = bwd_dkv_kernel<D, NI, BIAS>;
   static bool done = false;
   cudaError_t err = allow_smem(kernel, bytes, done);
   if (err != cudaSuccess) return err;
   const dim3 grid((Sk + BM - 1) / BM, B * Hkv);
   kernel<<<grid, THREADS, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), mask, static_cast<const bf16*>(dout), lse, delta,
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, Hkv, Sq, Sk, scale, causal,
-      window);
+      static_cast<const bf16*>(v), mask, bias, bs, hs, static_cast<const bf16*>(dout),
+      lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, Hkv, Sq, Sk, scale,
+      causal, window);
   return cudaGetLastError();
 }
+
+template <int D>
+cudaError_t launch_dbias(const void* q, const void* k, const void* v, const uint8_t* mask,
+                         const float* bias, int bs, int hs, const void* dout,
+                         const float* lse, const float* delta, float* dbias, int B, int H,
+                         int Hkv, int Sq, int Sk, float scale, int causal, int window,
+                         cudaStream_t stream) {
+  const size_t bytes =
+      (size_t)(2 * BM + 4 * BN) * (D + 8) * sizeof(bf16) + bias_smem(true, BM, LDB);
+  static bool done = false;
+  cudaError_t err = allow_smem(dbias_kernel<D>, bytes, done);
+  if (err != cudaSuccess) return err;
+  // a bias shared over the batch (bs == 0) has one output row per head
+  const int batch_sum = bs == 0;
+  const dim3 grid((Sq + BM - 1) / BM, batch_sum ? H : B * H);
+  dbias_kernel<D><<<grid, THREADS, bytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), mask, bias, bs, hs, static_cast<const bf16*>(dout),
+      lse, delta, dbias, B, H, Hkv, Sq, Sk, scale, causal, window, batch_sum);
+  return cudaGetLastError();
+}
+
+// The call of LAUNCH's instance for the head dim D (32, 64 or 128) and
+// BIAS = (bias != nullptr).
+#define FLASH_DISPATCH(LAUNCH, bias, D, ...)                                       \
+  ((bias) ? ((D) == 32   ? LAUNCH<32, true>(__VA_ARGS__)                          \
+             : (D) == 64 ? LAUNCH<64, true>(__VA_ARGS__)                          \
+                         : LAUNCH<128, true>(__VA_ARGS__))                        \
+          : ((D) == 32   ? LAUNCH<32, false>(__VA_ARGS__)                         \
+             : (D) == 64 ? LAUNCH<64, false>(__VA_ARGS__)                         \
+                         : LAUNCH<128, false>(__VA_ARGS__)))
 
 }  // namespace flash
 
@@ -635,53 +907,60 @@ extern "C" {
 // (B, H, Sq) f32. D is 32, 64 or 128; window 0 means none. Returns
 // cudaGetLastError() after the launch (0 on success), or cudaErrorInvalidValue
 // for arguments the kernels do not take.
+//
+// bias is nullptr (the bias-free kernels) or a float32 bias (b0 h0, Sq, Sk),
+// contiguous and 16-byte aligned, with b0 in {1, B} and h0 in {1, H}, and the
+// row strides bs (0 when b0 = 1, else h0) and hs (0 when h0 = 1, else 1): the
+// row of (b, h) is b bs + h hs.
 int flash_fwd(const void* q, const void* k, const void* v, const uint8_t* kv_mask,
-              void* out, float* lse, int B, int H, int Hkv, int Sq, int Sk, int D,
-              float scale, int causal, int window, void* stream) {
+              const float* bias, int bs, int hs, void* out, float* lse, int B, int H,
+              int Hkv, int Sq, int Sk, int D, float scale, int causal, int window,
+              void* stream) {
   if (bad_args(B, H, Hkv, Sq, Sk, D, window)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 32)
-    return (int)launch_fwd<32>(q, k, v, kv_mask, out, lse, B, H, Hkv, Sq, Sk, scale,
-                               causal, window, s);
-  if (D == 64)
-    return (int)launch_fwd<64>(q, k, v, kv_mask, out, lse, B, H, Hkv, Sq, Sk, scale,
-                               causal, window, s);
-  return (int)launch_fwd<128>(q, k, v, kv_mask, out, lse, B, H, Hkv, Sq, Sk, scale,
-                              causal, window, s);
+  return (int)FLASH_DISPATCH(launch_fwd, bias, D, q, k, v, kv_mask, bias, bs, hs, out, lse,
+                             B, H, Hkv, Sq, Sk, scale, causal, window,
+                             static_cast<cudaStream_t>(stream));
 }
 
 // dq (B, H, Sq, D) bfloat16; delta (B, H, Sq) f32 is written for flash_bwd_dkv.
 int flash_bwd_dq(const void* q, const void* k, const void* v, const uint8_t* kv_mask,
-                 const void* out, const void* dout, const float* lse, float* delta,
-                 void* dq, int B, int H, int Hkv, int Sq, int Sk, int D, float scale,
-                 int causal, int window, void* stream) {
+                 const float* bias, int bs, int hs, const void* out, const void* dout,
+                 const float* lse, float* delta, void* dq, int B, int H, int Hkv, int Sq,
+                 int Sk, int D, float scale, int causal, int window, void* stream) {
   if (bad_args(B, H, Hkv, Sq, Sk, D, window)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 32)
-    return (int)launch_dq<32>(q, k, v, kv_mask, out, dout, lse, delta, dq, B, H, Hkv,
-                              Sq, Sk, scale, causal, window, s);
-  if (D == 64)
-    return (int)launch_dq<64>(q, k, v, kv_mask, out, dout, lse, delta, dq, B, H, Hkv,
-                              Sq, Sk, scale, causal, window, s);
-  return (int)launch_dq<128>(q, k, v, kv_mask, out, dout, lse, delta, dq, B, H, Hkv,
-                             Sq, Sk, scale, causal, window, s);
+  return (int)FLASH_DISPATCH(launch_dq, bias, D, q, k, v, kv_mask, bias, bs, hs, out, dout,
+                             lse, delta, dq, B, H, Hkv, Sq, Sk, scale, causal, window,
+                             static_cast<cudaStream_t>(stream));
 }
 
 // dk, dv (B, Hkv, Sk, D) bfloat16, summed over each K/V head's query heads.
 int flash_bwd_dkv(const void* q, const void* k, const void* v, const uint8_t* kv_mask,
-                  const void* dout, const float* lse, const float* delta, void* dk,
-                  void* dv, int B, int H, int Hkv, int Sq, int Sk, int D, float scale,
-                  int causal, int window, void* stream) {
+                  const float* bias, int bs, int hs, const void* dout, const float* lse,
+                  const float* delta, void* dk, void* dv, int B, int H, int Hkv, int Sq,
+                  int Sk, int D, float scale, int causal, int window, void* stream) {
   if (bad_args(B, H, Hkv, Sq, Sk, D, window)) return (int)cudaErrorInvalidValue;
+  return (int)FLASH_DISPATCH(launch_dkv, bias, D, q, k, v, kv_mask, bias, bs, hs, dout, lse,
+                             delta, dk, dv, B, H, Hkv, Sq, Sk, scale, causal, window,
+                             static_cast<cudaStream_t>(stream));
+}
+
+// dbias f32: (H, Sq, Sk) summed over the batch when bs == 0 (a bias shared
+// over the batch), else (B, H, Sq, Sk); per query head either way (the
+// caller sums over the heads for h0 = 1). bias must not be nullptr.
+int flash_bwd_dbias(const void* q, const void* k, const void* v, const uint8_t* kv_mask,
+                    const float* bias, int bs, int hs, const void* dout, const float* lse,
+                    const float* delta, float* dbias, int B, int H, int Hkv, int Sq,
+                    int Sk, int D, float scale, int causal, int window, void* stream) {
+  if (bad_args(B, H, Hkv, Sq, Sk, D, window) || bias == nullptr)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 32)
-    return (int)launch_dkv<32, 64>(q, k, v, kv_mask, dout, lse, delta, dk, dv, B, H,
-                                   Hkv, Sq, Sk, scale, causal, window, s);
-  if (D == 64)
-    return (int)launch_dkv<64, 64>(q, k, v, kv_mask, dout, lse, delta, dk, dv, B, H,
-                                   Hkv, Sq, Sk, scale, causal, window, s);
-  return (int)launch_dkv<128, 32>(q, k, v, kv_mask, dout, lse, delta, dk, dv, B, H, Hkv,
-                                  Sq, Sk, scale, causal, window, s);
+#define ARGS                                                                      \
+  q, k, v, kv_mask, bias, bs, hs, dout, lse, delta, dbias, B, H, Hkv, Sq, Sk, scale, \
+      causal, window, s
+  return (int)(D == 32   ? launch_dbias<32>(ARGS)
+               : D == 64 ? launch_dbias<64>(ARGS)
+                         : launch_dbias<128>(ARGS));
+#undef ARGS
 }
 
 const char* flash_error_string(int code) {

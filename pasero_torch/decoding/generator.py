@@ -261,6 +261,9 @@ class TextGenerator:
                meta: Optional[dict] = None, **opts) -> Any:
         """Decode raw text inputs; returns str (single input) or list[str],
         or hypothesis dicts with return_scores."""
+        if opts.get("return_layers") or opts.get("return_weights"):
+            raise not_ported("return_layers / return_weights",
+                             "A.6 decoding")
         self.start_model()
         single = len(inputs) == 1 and isinstance(inputs[0], str)
         flat_inputs = list(inputs[0]) if (len(inputs) == 1 and

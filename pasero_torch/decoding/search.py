@@ -403,7 +403,8 @@ def _rewind_cache(cache, new_index: int) -> None:
     """Reset every self-attention cache's write index after a partially
     accepted chunk (pasero_tpu/decoding/search.py:620): the stale K/V past
     the index are masked out by the written-slot check and overwritten by the
-    next chunk."""
+    next chunk. The ALiBi step, JAX's ``bias_step``, is this index
+    (``TransformerDecoder._alibi``), so it rewinds with it."""
     for self_cache, _ in cache:
         self_cache.index = new_index
 

@@ -1,20 +1,21 @@
-"""Multi-head attention with grouped K/V heads, RoPE, sliding windows, a
-fixed-size KV cache and lineage beam attention.
+"""Multi-head attention with grouped K/V heads, RoPE, additive biases
+(ALiBi), sliding windows, a fixed-size KV cache and lineage beam attention.
 
 PyTorch counterpart of pasero_tpu/models/attention.py. As there:
 
 - the self-attention cache is a fixed-size (B, H, L, D) buffer written at a
   running slot index; prompts are LEFT-padded, so every row writes the same
   slot, and the caller's kv mask marks left-pad slots invalid;
-- masks are boolean (True = attend); causality and the sliding window come
+- masks are boolean (True = attend) and biases additive float32, added to
+  the scaled scores before the mask; causality and the sliding window come
   from positions on the plain path, from slot indices in the flash kernels;
 - attention scores, their softmax and the tied logits are float32 products
   of ``dtype`` operands (flax's ``preferred_element_type=float32``);
 - ``kernel`` picks the full forward's attention: 'xla' (the plain path),
   'flash' (ops/flash_attention.py: the CUDA kernels on the card, their plain
   version on the CPU) or 'auto', with JAX's rule (flash for grouped K/V
-  heads from Sq * Sk >= 1024^2, for any heads from 4096^2, never under live
-  attention dropout or at decode).
+  heads without a bias from Sq * Sk >= 1024^2, for any heads from 4096^2,
+  never under live attention dropout or at decode).
 
 The cache lives in ``KVCache`` objects that the caller creates and passes,
 and is updated in place: each single-token write goes through the
@@ -58,7 +59,8 @@ class KVCache:
             self.value = torch.zeros(shape, dtype=dtype, device=device)
 
 
-def lineage_attention(q, k_cache, v_cache, lineage, mask=None, scale=1.0):
+def lineage_attention(q, k_cache, v_cache, lineage, mask=None, bias=None,
+                      scale=1.0):
     """Beam-search decode attention without cache reordering
     (pasero_tpu/models/attention.py:38).
 
@@ -70,8 +72,8 @@ def lineage_attention(q, k_cache, v_cache, lineage, mask=None, scale=1.0):
     mask allows l), and one softmax runs over the joint (p, l) axes.
 
     q: (B*K, H, 1, D); k_cache/v_cache: (B*K, H, L, D);
-    lineage: (B, K, L) integer; mask: bool (B*K, 1, 1, L).
-    Returns (B*K, H, 1, D).
+    lineage: (B, K, L) integer; mask: bool (B*K, 1, 1, L);
+    bias: float (B*K, H|1, 1, L). Returns (B*K, H, 1, D).
     """
     B, K, L = lineage.shape
     H, D = q.shape[1], q.shape[-1]
@@ -80,6 +82,10 @@ def lineage_attention(q, k_cache, v_cache, lineage, mask=None, scale=1.0):
     qb = q.reshape(B, K, H, D).transpose(1, 2)[:, None]      # (B, 1, H, K, D)
     # scores[b, p, h, k, l]
     scores = torch.matmul(qb.float(), kb.float().transpose(-1, -2)) * scale
+    if bias is not None:
+        # the bias depends on the slot l only, not on the physical row
+        bias_t = bias.reshape(B, K, bias.shape[1], L).transpose(1, 2)
+        scores = scores + bias_t[:, None].float()
     # (B, P, K, L) True where physical row p holds beam k's slot l
     sel = lineage[:, None] == torch.arange(K, device=lineage.device)[
         None, :, None, None]
@@ -96,11 +102,15 @@ def lineage_attention(q, k_cache, v_cache, lineage, mask=None, scale=1.0):
     return out.reshape(B * K, H, 1, D)
 
 
-def dot_product_attention(q, k, v, mask=None, scale=1.0, dropout=None):
+def dot_product_attention(q, k, v, mask=None, bias=None, scale=1.0,
+                          dropout=None):
     """Plain attention (pasero_tpu/models/attention.py:101).
     q: (B, H, Sq, D), k/v: (B, H, Sk, D); mask: bool (B, 1|H, Sq, Sk),
-    True = attend; ``dropout``: a ``Dropout`` on the float32 weights."""
+    True = attend; bias: float (B|1, H|1, Sq, Sk); ``dropout``: a
+    ``Dropout`` on the float32 weights."""
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if bias is not None:
+        scores = scores + bias.float()
     if mask is not None:
         scores = scores.masked_fill(~mask, NEG_INF)
     weights = torch.softmax(scores, dim=-1)
@@ -112,9 +122,9 @@ def dot_product_attention(q, k, v, mask=None, scale=1.0, dropout=None):
 class MultiheadAttention(nn.Module):
     """Multi-head attention (pasero_tpu/models/attention.py:122) with
     grouped K/V heads (``kv_heads``), RoPE on self-attention (``rope_base``),
-    a sliding window, the kernel choice, and the decode caches of
-    ``_update_cache`` (:317). Attention biases (ALiBi, T5) come with later
-    slices."""
+    an additive bias (ALiBi), a sliding window, the kernel choice, and the
+    decode caches of ``_update_cache`` (:317). The T5 table comes with a
+    later slice."""
 
     def __init__(self, embed_dim: int, num_heads: int, use_bias: bool = True,
                  key_bias: bool = True, scale_attn: bool = True,
@@ -157,24 +167,28 @@ class MultiheadAttention(nn.Module):
             out = out.clamp(-self.max_qkv, self.max_qkv)
         return out
 
-    def use_flash(self, Sq: int, Sk: int, decode: bool) -> bool:
-        """JAX's choice (pasero_tpu/models/attention.py:256-279): flash
-        never runs at decode or under live attention dropout."""
+    def use_flash(self, Sq: int, Sk: int, decode: bool,
+                  biased: bool = False) -> bool:
+        """JAX's choice (pasero_tpu/models/attention.py:256-284): flash
+        never runs at decode or under live attention dropout; grouped K/V
+        heads take it from 1024^2 scores only without a bias."""
         dropout_live = self.training and self.dropout.rate > 0
         kernel = self.kernel
         if kernel == "auto":
             long_seq = Sq * Sk >= 4096 * 4096
-            gqa_win = self.kv_heads < self.num_heads and Sq * Sk >= 1024 * 1024
+            gqa_win = (self.kv_heads < self.num_heads and not biased
+                       and Sq * Sk >= 1024 * 1024)
             kernel = "flash" if (long_seq or gqa_win) and not dropout_live \
                 else "xla"
         return kernel == "flash" and not decode and not dropout_live
 
     def forward(self, x_q, x_kv=None, mask=None, positions=None,
-                cache: Optional[KVCache] = None, beam_lineage=None):
+                cache: Optional[KVCache] = None, beam_lineage=None, bias=None):
         """x_q: (B, Sq, E); x_kv: (B, Sk, E) for cross-attention; mask: bool
         (B, 1, Sq|1, Sk|L), True = attend; positions: (B, Sq) absolute
         positions; cache: this layer's KVCache at decode time;
-        beam_lineage: (B0, K, L) for lineage beam attention."""
+        beam_lineage: (B0, K, L) for lineage beam attention; bias: float32
+        (B|1, H|1, Sq, Sk|L), added to the scaled scores."""
         B, Sq = x_q.shape[:2]
         q = self._heads(self.q_proj(x_q), self.num_heads)
         if positions is None:
@@ -197,13 +211,13 @@ class MultiheadAttention(nn.Module):
                     k, v, mask = self._update_cache(cache, k, v, positions,
                                                     mask, self.sliding_window)
 
-        if self.use_flash(Sq, k.shape[2], cache is not None):
+        if self.use_flash(Sq, k.shape[2], cache is not None, bias is not None):
             # GQA-sized K/V go in as they are; causality and the window come
             # from slot indices inside the kernels, so only the key mask of
             # ``mask`` is used
             out = flash_attention(q.contiguous(), k.contiguous(),
-                                  v.contiguous(), mask=mask, scale=self.scale,
-                                  causal=self.causal,
+                                  v.contiguous(), mask=mask, bias=bias,
+                                  scale=self.scale, causal=self.causal,
                                   window=self.sliding_window)
         else:
             if self.causal and cache is None:
@@ -221,9 +235,9 @@ class MultiheadAttention(nn.Module):
             if beam_lineage is not None and cache is not None \
                     and not self.cross_attention:
                 out = lineage_attention(q, k, v, beam_lineage, mask=mask,
-                                        scale=self.scale)
+                                        bias=bias, scale=self.scale)
             else:
-                out = dot_product_attention(q, k, v, mask=mask,
+                out = dot_product_attention(q, k, v, mask=mask, bias=bias,
                                             scale=self.scale,
                                             dropout=self.dropout)
         out = out.transpose(1, 2).reshape(B, Sq, self.num_heads * self.head_dim)

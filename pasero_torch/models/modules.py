@@ -10,6 +10,8 @@ checkpoints.params_to_state_dict).
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -145,16 +147,35 @@ def make_norm(cfg, dim: int, dtype: torch.dtype) -> nn.Module:
                      dtype=dtype)
 
 
+# gelu_tanh's constants rounded to each floating type, as JAX's weak typing
+# rounds them to the operand's
+_GELU_CONSTANTS = {
+    dtype: tuple(torch.tensor(c, dtype=dtype).item()
+                 for c in (0.044715, math.sqrt(2 / math.pi)))
+    for dtype in (torch.float16, torch.bfloat16, torch.float32, torch.float64)}
+
+
+def gelu_tanh(x):
+    """``jax.nn.gelu(x, approximate=True)`` operation by operation in x's
+    type, rounding where JAX rounds: 0.5 (1 + tanh(sqrt(2 / pi) (x + 0.044715
+    x^3))) x, the constants rounded to x's type first.
+    ``F.gelu(approximate="tanh")`` rounds once at the end, which moves
+    bfloat16 activations by an ulp and flips near-tied tokens."""
+    cube, root = _GELU_CONSTANTS[x.dtype]
+    inner = (x + x * x * x * cube) * root
+    return x * ((torch.tanh(inner) + 1.0) * 0.5)
+
+
 ACTIVATIONS = {
     "relu": F.relu,
     # exact (erf) gelu; 'gelu_tanh' is the approximation
     "gelu": lambda x: F.gelu(x, approximate="none"),
-    "gelu_tanh": lambda x: F.gelu(x, approximate="tanh"),
+    "gelu_tanh": gelu_tanh,
 }
 
 
 # the gate's activation; geglu takes jax.nn.gelu's default, the tanh form
-GATES = {"swiglu": F.silu, "geglu": lambda x: F.gelu(x, approximate="tanh")}
+GATES = {"swiglu": F.silu, "geglu": gelu_tanh}
 
 
 class FeedForward(nn.Module):

@@ -1,8 +1,8 @@
-"""Positional encodings: sinusoidal and learned (added to the embeddings) and
-RoPE (rotating queries and keys).
+"""Positional encodings: sinusoidal and learned (added to the embeddings),
+RoPE (rotating queries and keys) and ALiBi (an additive attention bias).
 
-PyTorch counterpart of pasero_tpu/models/positional.py:21-89. ALiBi and T5
-relative buckets come with later slices (ROADMAP.md, A.8).
+PyTorch counterpart of pasero_tpu/models/positional.py:21-122. T5 relative
+buckets come with a later slice (ROADMAP.md, A.8).
 """
 
 from __future__ import annotations
@@ -76,3 +76,36 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x32.chunk(2, dim=-1)
     rotated = torch.cat([-x2, x1], dim=-1)
     return (x32 * torch.cos(angles) + rotated * torch.sin(angles)).to(x.dtype)
+
+
+# -- ALiBi --------------------------------------------------------------------
+
+def alibi_slopes(num_heads: int, max_bias: int = 8) -> np.ndarray:
+    """Geometric head slopes (pasero_tpu/models/positional.py:94):
+    slope_h = 2^(-max_bias * (h + 1) / num_heads)."""
+    return np.asarray([2 ** (-max_bias * (h + 1) / num_heads)
+                       for h in range(num_heads)], dtype=np.float32)
+
+
+def alibi_bias(num_heads: int, q_positions: torch.Tensor,
+               k_positions: torch.Tensor, max_bias: int = 8,
+               causal: bool = True) -> torch.Tensor:
+    """Additive float32 attention bias (B, H, Sq, Sk) = -slope * |k - q|
+    (pasero_tpu/models/positional.py:101), symmetric: the causal mask removes
+    the future side.
+
+    Non-causal (encoder) self-attention breaks the symmetry with the
+    half-head trick: the first half of the heads sees only the left context
+    (k <= q), the second half only the strict right context (k > q); the
+    other side gets -1e9."""
+    slopes = torch.from_numpy(alibi_slopes(num_heads, max_bias)).to(
+        q_positions.device)
+    rel = (k_positions[:, None, None, :]
+           - q_positions[:, None, :, None]).float()        # (B, 1, Sq, Sk)
+    bias = -rel.abs() * slopes[None, :, None, None]
+    if not causal:
+        left = torch.arange(num_heads, device=rel.device)[None, :, None, None] \
+            < num_heads // 2
+        future = rel > 0
+        bias = bias.masked_fill(torch.where(left, future, ~future), -1e9)
+    return bias

@@ -12,7 +12,7 @@ JAX model's (:682, :201).
 
 Covered: token and speech-feature sources (a ``ConvolutionSubsampler``
 in front of the encoder), post-norm and pre-norm, sinusoidal, learned,
-rotary or no positions, LayerNorm and RMSNorm, tied and untied heads, relu, gelu and the
+rotary, ALiBi or no positions, LayerNorm and RMSNorm, tied and untied heads, relu, gelu and the
 gated swiglu/geglu FFNs, grouped K/V heads, sliding windows, the attention
 kernel choice (``cfg.attention_kernel``), and residual, attention,
 activation and embedding dropout at the places the flax layers put them
@@ -35,7 +35,7 @@ from ..ops.quantize import QTensor
 from .attention import KVCache, MultiheadAttention
 from .modules import (ConvolutionSubsampler, Dropout, Embedding, FeedForward,
                       Linear, make_norm)
-from .positional import PositionalEmbedding
+from .positional import PositionalEmbedding, alibi_bias
 
 
 def check_supported(cfg) -> None:
@@ -46,7 +46,7 @@ def check_supported(cfg) -> None:
 
     for side in ("encoder", "decoder"):
         pe = getattr(cfg, f"{side}_positional_encoding")
-        if pe not in ("sinusoidal", "learned", "rotary", "none"):
+        if pe not in ("sinusoidal", "learned", "rotary", "alibi", "none"):
             todo(f"{pe} positions", "A.8 decoder-only")
     if cfg.parallel_attention:
         todo("parallel attention", "A.8 decoder-only")
@@ -120,12 +120,13 @@ class TransformerEncoderLayer(_Layer):
                                dropout=cfg.activation_dropout)
         self.dropout = Dropout(cfg.dropout)
 
-    def forward(self, x, mask=None, positions=None):
+    def forward(self, x, mask=None, positions=None, bias=None):
         prenorm = self.cfg.encoder_prenorm
         residual = x
         h = self.self_attn_norm(x) if prenorm else x
         x = residual + self.dropout(self.self_attn(h, mask=mask,
-                                                   positions=positions))
+                                                   positions=positions,
+                                                   bias=bias))
         if not prenorm:
             x = self.self_attn_norm(x)
         residual = x
@@ -163,14 +164,14 @@ class TransformerDecoderLayer(_Layer):
                                else cfg.dropout)
 
     def forward(self, x, encoder_out=None, self_mask=None, cross_mask=None,
-                positions=None, cache=None, beam_lineage=None):
+                positions=None, cache=None, beam_lineage=None, self_bias=None):
         prenorm = self.cfg.decoder_prenorm
         self_cache, cross_cache = cache if cache is not None else (None, None)
         residual = x
         h = self.self_attn_norm(x) if prenorm else x
         x = residual + self.dropout(self.self_attn(
             h, mask=self_mask, positions=positions, cache=self_cache,
-            beam_lineage=beam_lineage))
+            beam_lineage=beam_lineage, bias=self_bias))
         if not prenorm:
             x = self.self_attn_norm(x)
 
@@ -283,8 +284,12 @@ class TransformerEncoder(_Stack):
             positions = positions_from_mask(src_mask)
             x = self._embed(src_tokens, positions, cfg.encoder_embed_norm)
         attn_mask = src_mask[:, None, None, :]
+        # one ALiBi bias for every layer (transformer.py:290-292)
+        bias = (alibi_bias(cfg.encoder_attention_heads, positions, positions,
+                           cfg.alibi_max_bias, causal=False)
+                if cfg.encoder_positional_encoding == "alibi" else None)
         for layer in self.layers():
-            x = layer(x, mask=attn_mask, positions=positions)
+            x = layer(x, mask=attn_mask, positions=positions, bias=bias)
         if self.cfg.encoder_prenorm:
             x = self.final_norm(x)
         return x, src_mask
@@ -314,6 +319,23 @@ class TransformerDecoder(_Stack):
 
     def layers(self):
         return [getattr(self, f"layers_{i}") for i in range(self.num_layers)]
+
+    def _alibi(self, positions, cache):
+        """The causal ALiBi bias (B, H, T, T or L) of one decoder call, shared
+        by every layer (pasero_tpu/models/transformer.py:410-427). In a full
+        forward the keys are the query positions. At decode, cache slot j
+        holds position pos_last - (step + T - 1) + j, where the step is the
+        self-attention caches' write index before this call: JAX keeps it as
+        a separate ``bias_step``; deriving it from the index keeps the two
+        from drifting apart, also when speculative decoding rewinds."""
+        kv_pos = positions
+        if cache is not None:
+            self_cache = cache[0][0]
+            T = positions.shape[1]
+            slots = torch.arange(self_cache.length, device=positions.device)
+            kv_pos = positions[:, -1:] - (self_cache.index + T - 1) + slots
+        return alibi_bias(self.cfg.decoder_attention_heads, positions, kv_pos,
+                          self.cfg.alibi_max_bias, causal=True)
 
     def argmax_head_weight(self):
         """The (V, E) head of ``fused_head_argmax``: an int8 QTensor as it
@@ -367,11 +389,14 @@ class TransformerDecoder(_Stack):
             self_mask = tgt_mask[:, None, None, :]
         cross_mask = (encoder_mask[:, None, None, :]
                       if encoder_mask is not None else None)
+        self_bias = None
+        if cfg.decoder_positional_encoding == "alibi":
+            self_bias = self._alibi(positions, cache)
         for i, layer in enumerate(self.layers()):
             x = layer(x, encoder_out=encoder_out, self_mask=self_mask,
                       cross_mask=cross_mask, positions=positions,
                       cache=cache[i] if cache is not None else None,
-                      beam_lineage=beam_lineage)
+                      beam_lineage=beam_lineage, self_bias=self_bias)
         if cfg.decoder_prenorm:
             x = self.final_norm(x)
         if ce_targets is not None:

@@ -1,16 +1,21 @@
-"""Flash attention for grouped K/V heads: forward and backward without the
-(Sq, Sk) score matrix in memory.
+"""Flash attention for grouped K/V heads, with or without an additive
+float32 bias: forward and backward without the (Sq, Sk) score matrix in
+memory.
 
-Port of the bias-free path of pasero_tpu/ops/flash_attention.py (the public
-``flash_attention`` :1566 and its ``jax.custom_vjp`` :1548-1563, over the
-group-packed Pallas ``_fwd_packed`` :342 and ``_bwd_packed`` :1086).
-``flash_attention`` is a ``torch.autograd.Function`` that returns ``out``
-and keeps ``lse`` for its backward. On CUDA tensors its forward launches
-``flash_fwd`` and its backward ``flash_bwd`` (``flash_bwd_dq``, then
-``flash_bwd_dkv``: the three kernels of ``csrc/flash_attention.cu``, each
-wrapper counting its launches); CPU tensors take ``flash_fwd_plain`` and
-``flash_bwd_plain``. A CUDA tensor never takes the plain version: the kernels
-launch or the wrapper raises.
+Port of pasero_tpu/ops/flash_attention.py (the public ``flash_attention``
+:1566 and its ``jax.custom_vjp`` :1548-1563): the bias-free path over the
+group-packed Pallas ``_fwd_packed`` :342 and ``_bwd_packed`` :1086, and the
+dense-bias path (ALiBi) over ``_fwd`` :381, ``_bwd`` :1398 and
+``_compute_dbias`` :1213. ``flash_attention`` is a
+``torch.autograd.Function`` that returns ``out`` and keeps ``lse`` for its
+backward. On CUDA tensors its forward launches ``flash_fwd`` and its
+backward ``flash_bwd_dq`` then ``flash_bwd_dkv`` (and ``flash_bwd_dbias``
+for the bias's gradient): the kernels of ``csrc/flash_attention.cu``, each
+wrapper counting its launches, those of a biased kernel apart
+(``launch_counts`` names them ``flash_fwd_bias`` and so on). CPU tensors
+take ``flash_fwd_plain``, ``flash_bwd_plain`` and ``flash_dbias_plain``. A
+CUDA tensor never takes the plain version: the kernels launch or the wrapper
+raises.
 
 The contract is JAX's: q (B, H, Sq, D) and k/v (B, Hkv, Sk, D), query head h
 reading K/V head h // (H // Hkv); a boolean mask is reduced to a key mask by
@@ -21,6 +26,21 @@ output. A row that sees no key gives out = 0 and lse = -1e30 (JAX's
 ``l == 0`` guard). The kernels round P to v's type before P.V and dS to q's
 type before dS.K and dS^T.Q, as the Pallas kernels do; the plain versions
 compute everything in float32.
+
+The bias is float32 (b0, h0, Sq, Sk) with b0 in {1, B} and h0 in {1, H}
+(JAX's ``_bias_rows`` :162): the kernels read the row of (b, h) through its
+strides, so a shared bias is never broadcast to (B, H, Sq, Sk). It is added
+to the scaled float32 score before the mask, in JAX's order, and the
+softmax's max and lse stay in natural units, so a large finite bias (the
+encoder ALiBi's -1e9) is an ordinary score, not a masked key: a row that
+sees only -1e9 entries gets a softmax over them. dbias = P (dP - delta) in
+float32, zero where masked, summed over the batch inside the kernel when
+b0 = 1 and over the heads after it when h0 = 1.
+
+A deliberate difference from JAX: JAX's ``_bwd`` computes dbias for every
+biased backward and the caller discards it when the bias is a constant
+(ALiBi); here the dbias kernel runs only when the bias needs a gradient
+(``ctx.needs_input_grad``), so ALiBi training launches it 0 times.
 """
 
 from __future__ import annotations
@@ -64,14 +84,20 @@ def _grouped(x, group: int):
     return x.float().repeat_interleave(group, dim=1)
 
 
+def _scores(q, k, scale: float, bias):
+    """float32 scaled scores (B, H, Sq, Sk), plus the bias in JAX's order."""
+    group = q.shape[1] // k.shape[1]
+    s = torch.matmul(q.float(), _grouped(k, group).transpose(-1, -2)) * scale
+    return s if bias is None else s + bias.float()
+
+
 def flash_fwd_plain(q, k, v, kv_mask, scale: float, causal: bool,
-                    window: Optional[int]):
+                    window: Optional[int], bias=None):
     """The forward in plain PyTorch, in float32: (out in q's type,
-    lse (B, H, Sq) float32)."""
+    lse (B, H, Sq) float32); ``bias`` broadcasts to (B, H, Sq, Sk)."""
     group = q.shape[1] // k.shape[1]
     ok = visible(kv_mask, q.shape[2], causal, window)
-    s = torch.matmul(q.float(), _grouped(k, group).transpose(-1, -2)) * scale
-    s = s.masked_fill(~ok, NEG_INF)
+    s = _scores(q, k, scale, bias).masked_fill(~ok, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m).masked_fill(~ok, 0.0)
     l = p.sum(dim=-1, keepdim=True)
@@ -82,21 +108,29 @@ def flash_fwd_plain(q, k, v, kv_mask, scale: float, causal: bool,
     return out.to(q.dtype), lse
 
 
+def _dscores(q, k, v, kv_mask, out, lse, do, scale, causal, window, bias):
+    """(P, dS = P (dP - delta)) in float32, zero where masked."""
+    group = q.shape[1] // k.shape[1]
+    ok = visible(kv_mask, q.shape[2], causal, window)
+    s = _scores(q, k, scale, bias)
+    p = torch.exp(s - lse[..., None]).masked_fill(~ok, 0.0)
+    dof = do.float()
+    delta = (dof * out.float()).sum(dim=-1, keepdim=True)
+    dp = torch.matmul(dof, _grouped(v, group).transpose(-1, -2))
+    return p, p * (dp - delta)
+
+
 def flash_bwd_plain(q, k, v, kv_mask, out, lse, do, scale: float,
-                    causal: bool, window: Optional[int]):
+                    causal: bool, window: Optional[int], bias=None):
     """The backward in plain PyTorch, in float32: (dq, dk, dv) in the types
     of q, k and v, dk and dv summed over each K/V head's query heads."""
     B, H, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     group = H // Hkv
-    ok = visible(kv_mask, Sq, causal, window)
-    qf, dof = q.float(), do.float()
-    kf, vf = _grouped(k, group), _grouped(v, group)
-    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
-    p = torch.exp(s - lse[..., None]).masked_fill(~ok, 0.0)
-    delta = (dof * out.float()).sum(dim=-1, keepdim=True)
+    p, ds = _dscores(q, k, v, kv_mask, out, lse, do, scale, causal, window,
+                     bias)
+    qf, dof, kf = q.float(), do.float(), _grouped(k, group)
     dv = torch.matmul(p.transpose(-1, -2), dof)
-    ds = p * (torch.matmul(dof, vf.transpose(-1, -2)) - delta)
     dq = torch.matmul(ds, kf) * scale
     dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
     dk = dk.reshape(B, Hkv, group, Sk, D).sum(dim=2)
@@ -104,15 +138,38 @@ def flash_bwd_plain(q, k, v, kv_mask, out, lse, do, scale: float,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def flash_dbias_plain(q, k, v, kv_mask, out, lse, do, scale: float,
+                      causal: bool, window: Optional[int], bias):
+    """The bias's gradient in plain PyTorch: dS in float32, zero where
+    masked, summed to the bias's own (b0, h0, Sq, Sk) shape."""
+    _, ds = _dscores(q, k, v, kv_mask, out, lse, do, scale, causal, window,
+                     bias)
+    return _reduce_to(ds, bias.shape)
+
+
+def _reduce_to(ds, shape):
+    """(B, H, Sq, Sk) summed over the axes that ``shape`` broadcasts."""
+    if shape[0] == 1 and ds.shape[0] != 1:
+        ds = ds.sum(dim=0, keepdim=True)
+    if shape[1] == 1 and ds.shape[1] != 1:
+        ds = ds.sum(dim=1, keepdim=True)
+    return ds
+
+
 def _library():
     lib = cuda_build.load("flash_attention")
     if lib.flash_fwd.argtypes is None:
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         dims = [i32] * 6 + [f32, i32, i32, ptr]   # B H Hkv Sq Sk D, scale ...
-        lib.flash_fwd.argtypes = [ptr] * 6 + dims
-        lib.flash_bwd_dq.argtypes = [ptr] * 9 + dims
-        lib.flash_bwd_dkv.argtypes = [ptr] * 9 + dims
-        for fn in (lib.flash_fwd, lib.flash_bwd_dq, lib.flash_bwd_dkv):
+        # after the key mask: the bias pointer (None for none) and the
+        # strides of its (batch, head) rows
+        bias = [ptr, i32, i32]
+        lib.flash_fwd.argtypes = [ptr] * 4 + bias + [ptr] * 2 + dims
+        lib.flash_bwd_dq.argtypes = [ptr] * 4 + bias + [ptr] * 5 + dims
+        lib.flash_bwd_dkv.argtypes = [ptr] * 4 + bias + [ptr] * 5 + dims
+        lib.flash_bwd_dbias.argtypes = [ptr] * 4 + bias + [ptr] * 4 + dims
+        for fn in (lib.flash_fwd, lib.flash_bwd_dq, lib.flash_bwd_dkv,
+                   lib.flash_bwd_dbias):
             fn.restype = ctypes.c_int
         lib.flash_error_string.argtypes = [ctypes.c_int]
         lib.flash_error_string.restype = ctypes.c_char_p
@@ -125,10 +182,7 @@ def _raise_on(lib, status: int, what: str) -> None:
                            + lib.flash_error_string(status).decode())
 
 
-def _operand(x):
-    """Contiguous and 16-byte aligned, as the kernels' copies need."""
-    x = x.contiguous()
-    return x if x.data_ptr() % 16 == 0 else x.clone()
+_operand = cuda_build.aligned
 
 
 def _cuda_args(q, k, v, kv_mask, window):
@@ -153,90 +207,178 @@ def _cuda_args(q, k, v, kv_mask, window):
             (B, H, Hkv, Sq, Sk, D))
 
 
+def check_bias(bias, B: int, H: int, Sq: int, Sk: int) -> None:
+    """A bias must be (b0, h0, Sq, Sk) with b0 in {1, B} and h0 in {1, H}."""
+    if (bias.dim() != 4 or bias.shape[0] not in (1, B)
+            or bias.shape[1] not in (1, H) or tuple(bias.shape[2:]) != (Sq, Sk)):
+        raise ValueError(f"bias {tuple(bias.shape)} is not (1|{B}, 1|{H}, "
+                         f"{Sq}, {Sk})")
+
+
+def _bias_args(bias, q, dims):
+    """The bias as float32 (b0 h0, Sq, Sk) rows on q's device, and the row
+    strides of a batch and a head index (0 where the bias is shared); (None,
+    0, 0) for no bias."""
+    if bias is None:
+        return None, 0, 0
+    B, H, _, Sq, Sk, _ = dims
+    check_bias(bias, B, H, Sq, Sk)
+    if bias.device != q.device:
+        raise ValueError(f"bias lies on {bias.device}, q on {q.device}")
+    b0, h0 = bias.shape[:2]
+    rows = _operand(bias.float())
+    return rows, (0 if b0 == 1 else h0), (0 if h0 == 1 else 1)
+
+
+def _launch(name: str, device, *args) -> None:
+    """Call the library's ``name`` on ``args`` (tensors as their pointers)
+    and the current stream of ``device``; raise on a failed launch."""
+    lib = _library()
+    with torch.cuda.device(device):
+        status = getattr(lib, name)(
+            *(a.data_ptr() if isinstance(a, torch.Tensor) else a
+              for a in args),
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(lib, status, name)
+
+
+def _scalars(dims, scale, causal, window):
+    return (*dims, float(scale), int(causal), window or 0)
+
+
+def _count(wrapper, bias) -> None:
+    """One launch more of ``wrapper``'s biased or bias-free kernel."""
+    if bias is None:
+        wrapper.launches += 1
+    else:
+        wrapper.bias_launches += 1
+
+
 def flash_fwd(q, k, v, kv_mask, scale: float, causal: bool,
-              window: Optional[int]):
+              window: Optional[int], bias=None):
     """(out (B, H, Sq, D) bfloat16, lse (B, H, Sq) float32) from one launch
-    of the forward kernel."""
+    of the forward kernel, biased when a float32 ``bias`` (b0, h0, Sq, Sk)
+    is given (counted in ``bias_launches``, else in ``launches``)."""
     q, k, v, mask, dims = _cuda_args(q, k, v, kv_mask, window)
+    rows, bs, hs = _bias_args(bias, q, dims)
     out = torch.empty_like(q)
     lse = torch.empty(dims[:2] + dims[3:4], dtype=torch.float32,
                       device=q.device)
-    lib = _library()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = lib.flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                               mask.data_ptr(), out.data_ptr(), lse.data_ptr(),
-                               *dims, float(scale), int(causal), window or 0,
-                               stream)
-    _raise_on(lib, status, "flash_fwd")
-    flash_fwd.launches += 1
+    _launch("flash_fwd", q.device, q, k, v, mask, rows, bs, hs, out, lse,
+            *_scalars(dims, scale, causal, window))
+    _count(flash_fwd, bias)
     return out, lse
 
 
-flash_fwd.launches = 0
+def _bwd_operands(out, do, lse):
+    for name, x in (("out", out), ("dO", do)):
+        if x is not None and x.dtype != torch.bfloat16:
+            raise TypeError(f"{name} must be bfloat16, got {x.dtype}")
+    return (None if out is None else _operand(out), _operand(do),
+            lse.float().contiguous())
 
 
 def flash_bwd_dq(q, k, v, kv_mask, out, lse, do, scale: float,
-                 causal: bool, window: Optional[int]):
+                 causal: bool, window: Optional[int], bias=None):
     """(dq bfloat16, delta (B, H, Sq) float32) from one launch of the dq
-    kernel, which also computes delta = sum(dO * out) for the dk/dv kernel."""
+    kernel, which also computes delta = sum(dO * out) for the dk/dv kernel
+    and re-adds ``bias`` (the forward's) to the recomputed scores."""
     q, k, v, mask, dims = _cuda_args(q, k, v, kv_mask, window)
-    if out.dtype != torch.bfloat16 or do.dtype != torch.bfloat16:
-        raise TypeError(f"out and dO must be bfloat16, got {out.dtype} and "
-                        f"{do.dtype}")
-    out, do = _operand(out), _operand(do)
-    lse = lse.float().contiguous()
+    rows, bs, hs = _bias_args(bias, q, dims)
+    out, do, lse = _bwd_operands(out, do, lse)
     dq = torch.empty_like(q)
     delta = torch.empty_like(lse)
-    lib = _library()
-    with torch.cuda.device(q.device):
-        status = lib.flash_bwd_dq(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-            out.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            dq.data_ptr(), *dims, float(scale), int(causal), window or 0,
-            torch.cuda.current_stream().cuda_stream)
-    _raise_on(lib, status, "flash_bwd_dq")
-    flash_bwd_dq.launches += 1
+    _launch("flash_bwd_dq", q.device, q, k, v, mask, rows, bs, hs, out, do,
+            lse, delta, dq, *_scalars(dims, scale, causal, window))
+    _count(flash_bwd_dq, bias)
     return dq, delta
 
 
-flash_bwd_dq.launches = 0
-
-
 def flash_bwd_dkv(q, k, v, kv_mask, do, lse, delta, scale: float,
-                  causal: bool, window: Optional[int]):
+                  causal: bool, window: Optional[int], bias=None):
     """(dk, dv) in bfloat16 at K/V-head width from one launch of the dk/dv
-    kernel, given the dq kernel's delta."""
+    kernel, given the dq kernel's delta; with ``bias``, each query head of a
+    group re-adds its own bias row."""
     q, k, v, mask, dims = _cuda_args(q, k, v, kv_mask, window)
-    if do.dtype != torch.bfloat16:
-        raise TypeError(f"dO must be bfloat16, got {do.dtype}")
-    do = _operand(do)
-    lse, delta = lse.float().contiguous(), delta.float().contiguous()
+    rows, bs, hs = _bias_args(bias, q, dims)
+    _, do, lse = _bwd_operands(None, do, lse)
+    delta = delta.float().contiguous()
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    lib = _library()
-    with torch.cuda.device(q.device):
-        status = lib.flash_bwd_dkv(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), *dims, float(scale), int(causal), window or 0,
-            torch.cuda.current_stream().cuda_stream)
-    _raise_on(lib, status, "flash_bwd_dkv")
-    flash_bwd_dkv.launches += 1
+    _launch("flash_bwd_dkv", q.device, q, k, v, mask, rows, bs, hs, do, lse,
+            delta, dk, dv, *_scalars(dims, scale, causal, window))
+    _count(flash_bwd_dkv, bias)
     return dk, dv
 
 
-flash_bwd_dkv.launches = 0
+# the wrappers with a biased and a bias-free kernel, each counted apart
+_TWO_KERNELS = (flash_fwd, flash_bwd_dq, flash_bwd_dkv)
+
+
+def flash_bwd_dbias(q, k, v, kv_mask, bias, do, lse, delta, scale: float,
+                    causal: bool, window: Optional[int]):
+    """The bias's gradient, float32 in the bias's own shape, from one launch
+    of the dbias kernel: dS = P (dP - delta), zero where masked, summed over
+    the batch inside the kernel when b0 = 1; summed over the heads by a torch
+    op after it when h0 = 1, as JAX does (flash_attention.py:1250-1251)."""
+    q, k, v, mask, dims = _cuda_args(q, k, v, kv_mask, window)
+    rows, bs, hs = _bias_args(bias, q, dims)
+    _, do, lse = _bwd_operands(None, do, lse)
+    delta = delta.float().contiguous()
+    B, H, _, Sq, Sk, _ = dims
+    b0 = bias.shape[0]
+    dbias = torch.empty((b0, H, Sq, Sk), dtype=torch.float32, device=q.device)
+    _launch("flash_bwd_dbias", q.device, q, k, v, mask, rows, bs, hs,
+            do, lse, delta, dbias, *_scalars(dims, scale, causal, window))
+    flash_bwd_dbias.launches += 1
+    return _reduce_to(dbias, bias.shape)
+
+
+def launch_counts() -> dict:
+    """The launches of each flash kernel by name; the biased instances of
+    the forward, dq and dk/dv kernels count apart, as ``*_bias``."""
+    counts = {fn.__name__: fn.launches for fn in _TWO_KERNELS}
+    counts.update({fn.__name__ + "_bias": fn.bias_launches
+                   for fn in _TWO_KERNELS})
+    counts["flash_bwd_dbias"] = flash_bwd_dbias.launches
+    return counts
+
+
+def reset_launch_counts() -> None:
+    for fn in _TWO_KERNELS:
+        fn.launches = fn.bias_launches = 0
+    flash_bwd_dbias.launches = 0
+
+
+reset_launch_counts()
 
 
 def flash_bwd(q, k, v, kv_mask, out, lse, do, scale: float, causal: bool,
-              window: Optional[int]):
+              window: Optional[int], bias=None):
     """(dq, dk, dv) in bfloat16: the dq kernel, then the dk/dv kernel."""
-    dq, delta = flash_bwd_dq(q, k, v, kv_mask, out, lse, do, scale, causal,
-                             window)
-    dk, dv = flash_bwd_dkv(q, k, v, kv_mask, do, lse, delta, scale, causal,
-                           window)
-    return dq, dk, dv
+    args = (scale, causal, window, bias)
+    dq, delta = flash_bwd_dq(q, k, v, kv_mask, out, lse, do, *args)
+    return (dq,) + flash_bwd_dkv(q, k, v, kv_mask, do, lse, delta, *args)
+
+
+def _cuda_backward(q, k, v, kv_mask, out, lse, do, scale, causal, window,
+                   bias, need_dbias: bool):
+    """(dq, dk, dv, dbias or None) from the kernels."""
+    args = (scale, causal, window)
+    dq, delta = flash_bwd_dq(q, k, v, kv_mask, out, lse, do, *args, bias)
+    dk, dv = flash_bwd_dkv(q, k, v, kv_mask, do, lse, delta, *args, bias)
+    dbias = (flash_bwd_dbias(q, k, v, kv_mask, bias, do, lse, delta, *args)
+             if need_dbias else None)
+    return dq, dk, dv, dbias
+
+
+def _plain_backward(q, k, v, kv_mask, out, lse, do, scale, causal, window,
+                    bias, need_dbias: bool):
+    grads = flash_bwd_plain(q, k, v, kv_mask, out, lse, do, scale, causal,
+                            window, bias)
+    dbias = (flash_dbias_plain(q, k, v, kv_mask, out, lse, do, scale, causal,
+                               window, bias) if need_dbias else None)
+    return grads + (dbias,)
 
 
 def _route(x, kernel, plain):
@@ -250,29 +392,35 @@ def _route(x, kernel, plain):
 class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, q, k, v, kv_mask, scale, causal, window):
+    def forward(ctx, q, k, v, kv_mask, bias, scale, causal, window):
         fwd = _route(q, flash_fwd, flash_fwd_plain)
-        out, lse = fwd(q, k, v, kv_mask, scale, causal, window)
-        ctx.save_for_backward(q, k, v, kv_mask, out, lse)
+        out, lse = fwd(q, k, v, kv_mask, scale, causal, window, bias)
+        ctx.save_for_backward(q, k, v, kv_mask, bias, out, lse)
         ctx.args = (scale, causal, window)
         ctx.mark_non_differentiable(lse)
         return out, lse
 
     @staticmethod
     def backward(ctx, do, _):
-        q, k, v, kv_mask, out, lse = ctx.saved_tensors
-        bwd = _route(q, flash_bwd, flash_bwd_plain)
-        dq, dk, dv = bwd(q, k, v, kv_mask, out, lse, do, *ctx.args)
-        return dq, dk, dv, None, None, None, None
+        q, k, v, kv_mask, bias, out, lse = ctx.saved_tensors
+        bwd = _route(q, _cuda_backward, _plain_backward)
+        need_dbias = bias is not None and ctx.needs_input_grad[4]
+        dq, dk, dv, dbias = bwd(q, k, v, kv_mask, out, lse, do, *ctx.args,
+                                bias, need_dbias)
+        if dbias is not None:
+            dbias = dbias.to(bias.dtype)
+        return dq, dk, dv, None, dbias, None, None, None
 
 
-def flash_attention(q, k, v, mask=None, scale: float = 1.0,
+def flash_attention(q, k, v, mask=None, bias=None, scale: float = 1.0,
                     causal: bool = False, window: Optional[int] = None):
     """Attention of q (B, H, Sq, D) over k/v (B, Hkv, Sk, D), H % Hkv == 0.
 
     mask: bool, broadcastable to (B, 1|H, Sq, Sk), True = attend; only its
     key validity is used (``key_mask``), and the causal and window structure
-    is applied from slot indices. Returns out (B, H, Sq, D) in q's type.
+    is applied from slot indices. bias: float (1|B, 1|H, Sq, Sk), added to
+    the scaled scores in float32; its gradient is computed when it requires
+    one. Returns out (B, H, Sq, D) in q's type.
     """
     B, H, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
@@ -280,8 +428,10 @@ def flash_attention(q, k, v, mask=None, scale: float = 1.0,
         raise ValueError(f"q {tuple(q.shape)} and k/v {tuple(k.shape)}, "
                          f"{tuple(v.shape)} do not fit (B, H, Sq, D) and "
                          "(B, Hkv, Sk, D) with H % Hkv == 0")
+    if bias is not None:
+        check_bias(bias, B, H, Sq, Sk)
     kv_mask = key_mask(mask, B, Sq, Sk)
     if kv_mask is None:
         kv_mask = torch.ones((B, Sk), dtype=torch.bool, device=q.device)
-    return _FlashAttention.apply(q, k, v, kv_mask, float(scale), bool(causal),
-                                 window)[0]
+    return _FlashAttention.apply(q, k, v, kv_mask, bias, float(scale),
+                                 bool(causal), window)[0]

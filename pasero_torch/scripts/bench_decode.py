@@ -18,6 +18,15 @@ Two workloads, with weights from a numpy seed:
   ``--quantize int8`` the weights are quantized after loading
   (ops/quantize.py), with ``--fused-head`` the greedy head is the fused
   argmax kernel (``PASERO_FUSED_HEAD=1``);
+- ``--model bloom_560m``: the bloom_560m arch (24 layers, width 1024, 16
+  heads, ALiBi) with Bloom's vocabulary of 250880 and seeded weights,
+  written as a model directory under build/bloom_560m (the alibi-mini
+  anchor's bpecodes and dictionary, padded with filler words), decoded
+  through ``TextGenerator.decode``: B = 8 prompts of up to 128 tokens
+  (words of deen-mini's test.en) and 64 new tokens, greedy; every decoder
+  call builds the ALiBi bias over the cache and runs the plain attention
+  (decoding never takes flash), and each single-token call writes the cache
+  through one slot-write launch per layer;
 - ``--model whisper_base`` (examples/Whisper/inference.yaml's decode): the
   whisper_base arch with Whisper's vocabulary of 51865 and seeded weights,
   written as a model directory under build/whisper_base with B = 8 wavs of
@@ -39,6 +48,8 @@ torch.profiler (written to build/profile_decode.json).
     python -m pasero_torch.scripts.bench_decode --model llama_1b
         [--quantize int8] [--fused-head] [--speculative]
         [--prompt-style copy|random] [--repeats 3] [--profile]
+    python -m pasero_torch.scripts.bench_decode --model bloom_560m
+        [--batch 8] [--prompt-len 128] [--max-new 64] [--repeats 3] [--profile]
     python -m pasero_torch.scripts.bench_decode --model whisper_base
         [--batch 8] [--max-new 64] [--repeats 3] [--profile]
 """
@@ -188,6 +199,77 @@ class LMWorkload:
 
 
 ST_MINI = os.path.join(ROOT, "pasero_torch", "testdata", "st-mini")
+ALIBI_MINI = os.path.join(ROOT, "pasero_torch", "testdata", "alibi-mini")
+DEEN_MINI = os.path.join(ROOT, "examples", "deen-mini", "data")
+
+
+def write_dictionary(src_dir: str, model_dir: str, vocab: int) -> None:
+    """``src_dir``'s bpecodes and dictionary in ``model_dir``, the dictionary
+    padded with filler words to ``vocab`` entries (it adds its 4 special
+    tokens in front)."""
+    import shutil
+    shutil.copy(os.path.join(src_dir, "bpecodes"), model_dir)
+    with open(os.path.join(src_dir, "dict.txt")) as f:
+        words = f.read().splitlines()
+    words += [f"w{i}@ 0" for i in range(vocab - 4 - len(words))]
+    with open(os.path.join(model_dir, "dict.txt"), "w") as f:
+        f.write("\n".join(words) + "\n")
+
+
+def write_lm_dir(model_dir: str, arch: str, vocab: int, max_new: int = 64,
+                 seed: int = 0, layers: Optional[int] = None) -> None:
+    """A decoder-only model directory as the training CLI leaves one
+    (config.json, model_best.npz, inference.yaml, bpecodes, dict.txt) for
+    ``arch`` with the language-modeling defaults, weights from a numpy seed
+    and the alibi-mini anchor's tokenizer with a dictionary of ``vocab``
+    entries. ``layers`` cuts the depth."""
+    import yaml
+
+    from pasero_torch.checkpoints import save_flat, state_dict_to_params
+    from pasero_torch.config import get_model_cls
+    model_cls, cfg_cls = get_model_cls(arch)
+    cfg = cfg_cls()
+    cfg.set_defaults("language_modeling")
+    cfg.dropout = 0.0
+    if layers:
+        cfg.decoder_layers = layers
+    os.makedirs(model_dir, exist_ok=True)
+    with open(os.path.join(model_dir, "config.json"), "w") as f:
+        json.dump({**cfg.as_dict(), "arch": arch}, f, indent=2, default=str)
+    write_dictionary(ALIBI_MINI, model_dir, vocab)
+    with open(os.path.join(ALIBI_MINI, "inference.yaml")) as f:
+        inference = yaml.safe_load(f)
+    inference.update(arch=arch, max_output_len=max_new,
+                     max_len=cfg.decoder_max_len)
+    with open(os.path.join(model_dir, "inference.yaml"), "w") as f:
+        yaml.safe_dump(inference, f)
+    model = model_cls(cfg, src_vocab_size=vocab)
+    save_flat(os.path.join(model_dir, "model_best.npz"),
+              state_dict_to_params(random_state(model, seed)))
+
+
+def text_prompts(generator, batch: int, prompt_len: int) -> list:
+    """``batch`` prompts of deen-mini's test.en words (read as a ring), each
+    the longest run of words from its own start, 97 words after the last
+    one's, whose tokens fit ``prompt_len``."""
+    with open(os.path.join(DEEN_MINI, "test.en")) as f:
+        words = f.read().split()
+    task, meta = generator.task, generator.task.make_meta()
+
+    def prompt(start, n):
+        return " ".join(words[(start + j) % len(words)] for j in range(n))
+
+    def length(text):
+        return len(task.preprocess(task.input_to_sample(text, meta))[
+            "decoder_input"])
+
+    prompts = []
+    for i in range(batch):
+        n = 1
+        while length(prompt(i * 97, n + 1)) <= prompt_len:
+            n += 1
+        prompts.append(prompt(i * 97, n))
+    return prompts
 
 
 def write_whisper_dir(model_dir: str, batch: int = 8, seconds: float = 30.0,
@@ -199,7 +281,6 @@ def write_whisper_dir(model_dir: str, batch: int = 8, seconds: float = 30.0,
     (st-mini's words and target tags, then filler words), and ``batch``
     16 kHz wavs of ``seconds`` of seeded noise beside it; returns the wav
     paths. ``layers`` cuts the depth of both stacks."""
-    import shutil
     import wave
 
     import yaml
@@ -216,13 +297,7 @@ def write_whisper_dir(model_dir: str, batch: int = 8, seconds: float = 30.0,
     with open(os.path.join(model_dir, "config.json"), "w") as f:
         json.dump({**cfg.as_dict(), "arch": "whisper_base"}, f, indent=2,
                   default=str)
-    shutil.copy(os.path.join(ST_MINI, "bpecodes"), model_dir)
-    with open(os.path.join(ST_MINI, "dict.txt")) as f:
-        words = f.read().splitlines()
-    # the dictionary adds its 4 special tokens in front
-    words += [f"w{i}@ 0" for i in range(WhisperWorkload.VOCAB - 4 - len(words))]
-    with open(os.path.join(model_dir, "dict.txt"), "w") as f:
-        f.write("\n".join(words) + "\n")
+    write_dictionary(ST_MINI, model_dir, WhisperWorkload.VOCAB)
     with open(os.path.join(ST_MINI, "inference.yaml")) as f:
         inference = yaml.safe_load(f)
     inference.update(max_output_len=max_new, max_source_len=cfg.encoder_max_len,
@@ -247,7 +322,34 @@ def write_whisper_dir(model_dir: str, batch: int = 8, seconds: float = 30.0,
     return paths
 
 
-class WhisperWorkload:
+class GeneratorWorkload:
+    """A ``TextGenerator`` on a model directory and its inputs; one run is
+    ``TextGenerator.decode`` of the inputs, with the decoder calls counted
+    by a forward pre-hook."""
+
+    def __init__(self, model_dir: str, inputs: list, device="cuda"):
+        from pasero_torch.decoding.generator import TextGenerator
+        self.generator = TextGenerator.build(model_dir, device=device)
+        self.model, self.cfg = self.generator.model, self.generator.model_cfg
+        self.inputs = inputs
+        self.decoder_calls = 0
+
+        def count(*_):
+            self.decoder_calls += 1
+        self.model.decoder.register_forward_pre_hook(count)
+
+    def run(self) -> dict:
+        """One ``TextGenerator.decode``; its decoder calls and its tokens."""
+        calls = self.decoder_calls
+        hyps = self.generator.decode(self.inputs, return_scores=True)
+        return {"hyps": hyps, "model_calls": self.decoder_calls - calls}
+
+    @staticmethod
+    def output_tokens(out) -> int:
+        return sum(len(h[0]["tokens"]) for h in out["hyps"])
+
+
+class WhisperWorkload(GeneratorWorkload):
     """whisper_base with seeded weights in a model directory
     (``write_whisper_dir``) and B wavs of 30 s; one run is
     ``TextGenerator.decode`` of the wav paths: each wav read and turned into
@@ -259,29 +361,12 @@ class WhisperWorkload:
 
     def __init__(self, batch=8, seconds=30.0, max_new=64, seed=0,
                  device="cuda", model_dir=None, layers=None):
-        from pasero_torch.decoding.generator import TextGenerator
         model_dir = model_dir or os.path.join(ROOT, "build", "whisper_base")
         self.wavs = write_whisper_dir(model_dir, batch, seconds, max_new,
                                       seed, layers)
-        self.generator = TextGenerator.build(model_dir, device=device)
-        self.model, self.cfg = self.generator.model, self.generator.model_cfg
+        super().__init__(model_dir, self.wavs, device)
         self.prompt = self.generator.task.get_target_tags(
             self.generator.task.make_meta())
-        self.decoder_calls = 0
-
-        def count(*_):
-            self.decoder_calls += 1
-        self.model.decoder.register_forward_pre_hook(count)
-
-    def run(self) -> dict:
-        """One ``TextGenerator.decode``; its decoder calls and its tokens."""
-        calls = self.decoder_calls
-        hyps = self.generator.decode(self.wavs, return_scores=True)
-        return {"hyps": hyps, "model_calls": self.decoder_calls - calls}
-
-    @staticmethod
-    def output_tokens(out) -> int:
-        return sum(len(h[0]["tokens"]) for h in out["hyps"])
 
     @torch.inference_mode()
     def stages(self) -> dict:
@@ -305,6 +390,22 @@ class WhisperWorkload:
         t3 = time.perf_counter()
         return {"features": (t1 - t0) * 1e3, "collate": (t2 - t1) * 1e3,
                 "encoder": (t3 - t2) * 1e3}
+
+
+class BloomWorkload(GeneratorWorkload):
+    """bloom_560m with seeded weights in a model directory (``write_lm_dir``)
+    and B text prompts of up to 128 tokens (``text_prompts``), decoded
+    greedily."""
+
+    VOCAB = 250880
+
+    def __init__(self, batch=8, prompt_len=128, max_new=64, seed=0,
+                 device="cuda", model_dir=None, layers=None):
+        model_dir = model_dir or os.path.join(ROOT, "build", "bloom_560m")
+        write_lm_dir(model_dir, "bloom_560m", self.VOCAB, max_new, seed,
+                     layers)
+        super().__init__(model_dir, [], device)
+        self.inputs = text_prompts(self.generator, batch, prompt_len)
 
 
 def trace_profile(fn, path: str, kernel_names: tuple = ()) -> dict:
@@ -372,7 +473,8 @@ def profile(work, out_dir: str) -> dict:
 def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--model", default="transformer",
-                        choices=["transformer", "llama_1b", "whisper_base"])
+                        choices=["transformer", "llama_1b", "bloom_560m",
+                                 "whisper_base"])
     parser.add_argument("--arch", default="transformer",
                         help="the MT arch (--model transformer)")
     parser.add_argument("--batch", type=int)
@@ -408,6 +510,12 @@ def main(argv=None):
                  "prompt_style": args.prompt_style,
                  "quantized_weights": work.quantized,
                  "quantized_mib": work.quantized_bytes[0] / 2 ** 20}
+    elif args.model == "bloom_560m":
+        work = BloomWorkload(args.batch or 8, args.prompt_len or 128,
+                             args.max_new)
+        shape = {"batch": args.batch or 8,
+                 "prompt_len": args.prompt_len or 128,
+                 "max_new": args.max_new, "vocab": BloomWorkload.VOCAB}
     elif args.model == "whisper_base":
         work = WhisperWorkload(args.batch or 8, max_new=args.max_new)
         shape = {"batch": args.batch or 8, "seconds": 30.0,

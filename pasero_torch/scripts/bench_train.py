@@ -16,6 +16,13 @@ bfloat16:
   its grouped K/V heads at this length), the loss through the fused CE.
   JAX's benchmark steps with adafactor; the port's trainer uses the Adam of
   its config;
+- ``--model bloom_560m``: the bloom_560m arch (24 layers, width 1024, 16
+  heads, FFN 4096, ALiBi) with the language-modeling defaults and dropout
+  0, Bloom's vocabulary of 250880, B = 4 rows of T = 2048 tokens drawn by
+  numpy seed 0; ``attention_kernel: flash`` (``auto`` keeps a biased
+  attention on the plain path below 4096^2 scores), so every layer runs the
+  biased flash kernels with the ALiBi bias, and the loss runs through the
+  fused CE;
 - ``--model whisper_base``: the whisper_base arch with the speech-translation
   defaults and dropout 0, Whisper's vocabulary of 51865, B = 16 utterances
   of 3000 log-mel frames (30 s; seeded normal features) into the
@@ -26,9 +33,12 @@ bfloat16:
 Prints target tokens/s (B x T per micro-batch), ms per step and peak device
 memory; with --profile, also the device's busy share over a few steps and
 the device time of the largest operations, from the chrome trace of
-torch.profiler (written to build/profile_train.json).
+torch.profiler (written to build/profile_train.json), and the device ms per
+step of the FFN activation beside ``F.gelu(approximate="tanh")``
+(``activation_ms``).
 
-    python -m pasero_torch.scripts.bench_train [--model llama_1b|whisper_base]
+    python -m pasero_torch.scripts.bench_train
+        [--model llama_1b|bloom_560m|whisper_base]
         [--steps 20] [--profile]
 """
 
@@ -53,10 +63,15 @@ SHAPES = {"transformer": ("transformer", "translation", 0.1, 128, 128, 128,
                           VOCAB),
           "llama_1b": ("llama_1b", "language_modeling", 0.0, 4, 0, 2048,
                        VOCAB),
+          "bloom_560m": ("bloom_560m", "language_modeling", 0.0, 4, 0, 2048,
+                         250880),
           "whisper_base": ("whisper_base", "speech_translation", 0.0, 16,
                            3000, 128, 51865)}
+# workloads whose attention kernel is set, not left to ``auto``
+ATTENTION = {"bloom_560m": "flash"}
 KERNELS = ("fused_ce::fwd_kernel", "fused_ce::bwd_kernel", "flash::fwd_kernel",
-           "flash::bwd_dq_kernel", "flash::bwd_dkv_kernel")
+           "flash::bwd_dq_kernel", "flash::bwd_dkv_kernel",
+           "flash::dbias_kernel")
 
 
 class Workload:
@@ -71,6 +86,8 @@ class Workload:
         model_cfg = cfg_cls()
         model_cfg.set_defaults(task)
         model_cfg.dropout = dropout
+        model_cfg.attention_kernel = ATTENTION.get(
+            name, model_cfg.attention_kernel)
         model = model_cls(model_cfg, src_vocab_size=vocab,
                           dtype=torch.bfloat16)
         model.load_state_dict(random_state(model, SEED))
@@ -118,6 +135,36 @@ class Workload:
         return logs, time.perf_counter() - t0
 
 
+def activation_ms(work, iters: int = 20) -> dict:
+    """Device ms per step of the decoder's FFN activation at the workload's
+    shape, (B T, ffn) in bfloat16, forward and backward, times the decoder's
+    layers: the model's own activation and ``F.gelu(approximate="tanh")`` in
+    its place, each timed with CUDA events over ``iters`` calls."""
+    import torch.nn.functional as F
+    from pasero_torch.models.modules import ACTIVATIONS, GATES
+    cfg = work.model_cfg
+    own = GATES.get(cfg.activation_fn) or ACTIVATIONS[cfg.activation_fn]
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn(work.tokens_per_step, cfg.decoder_ffn_dim, device="cuda",
+                    generator=gen).to(torch.bfloat16).requires_grad_()
+    dy = torch.randn_like(x)
+    fns = {cfg.activation_fn: own,
+           "F.gelu tanh": lambda t: F.gelu(t, approximate="tanh")}
+    result = {}
+    for name, fn in fns.items():
+        for _ in range(3):
+            torch.autograd.grad(fn(x), x, dy)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(iters):
+            torch.autograd.grad(fn(x), x, dy)
+        end.record()
+        torch.cuda.synchronize()
+        result[name] = start.elapsed_time(end) / iters * work.layers
+    return {"shape": list(x.shape), "layers": work.layers,
+            "ms_per_step": result}
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--model", choices=sorted(SHAPES),
@@ -149,6 +196,7 @@ def main(argv=None):
         result["profile"] = trace_profile(
             lambda: work.run(3), os.path.join(ROOT, "build",
                                               "profile_train.json"), KERNELS)
+        result["activation"] = activation_ms(work)
     print(json.dumps(result))
     return result
 

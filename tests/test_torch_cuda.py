@@ -221,9 +221,12 @@ def flash_inputs(B, H, Hkv, S, D, padded, seed=0, device="cuda"):
     return [x.to(torch.bfloat16) for x in (q, k, v, do)] + [mask]
 
 
-def flash_limits(q, k, v, kv_mask, lse, do, scale, causal, window, want):
+def flash_limits(q, k, v, kv_mask, lse, do, scale, causal, window, want,
+                 bias=None):
     """Per-element limits on the kernels' (out, dq, dk, dv) for bf16 inputs,
-    the plain version's float32 results ``want`` and its float32 ``lse``."""
+    the plain version's float32 results ``want`` and its float32 ``lse``;
+    ``bias`` (float32, broadcast to (B, H, Sq, Sk)) is added to the scores
+    as the biased kernels add it."""
     from pasero_torch.ops.flash_attention import visible
     rtol, atol, K = FLASH_TOL
     B, H, Sq, D = q.shape
@@ -233,6 +236,8 @@ def flash_limits(q, k, v, kv_mask, lse, do, scale, causal, window, want):
     kg, vg = (x.repeat_interleave(group, 1) for x in (kf, vf))
     ok = visible(kv_mask, Sq, causal, window)
     s = torch.matmul(qf, kg.transpose(-1, -2)) * scale
+    if bias is not None:
+        s += bias
     p = torch.exp(s - lse[..., None]).masked_fill_(~ok, 0.0)
     delta = (dof * want[0].float()).sum(-1, keepdim=True)
     ds = p * (torch.matmul(dof, vg.transpose(-1, -2)) - delta)
@@ -350,6 +355,210 @@ def test_flash_bad_input_raises_on_card(bad):
         flash_attention(q, q, q, causal=True,
                         window=0 if bad == "window" else None)
     assert flash_fwd.launches == before
+
+
+# The biased kernels (the forward, dq and dk/dv with a float32 bias; dbias)
+# against the plain version's float32 results of the same bf16 inputs and
+# float32 bias. out, dq, dk and dv within ``flash_limits`` with the bias added
+# to the recomputed scores: the bias enters P exactly as the scores do, in
+# float32 before the exponent, so the bf16 roundings of P and dS stay the
+# only large errors. dbias is dS itself, unrounded float32: within
+# DBIAS_RTOL |dS| + atol + the float32 noise of dP - delta per unit of P (the
+# F term of ``flash_limits``, without the scale), each limit summed as the
+# kernel sums dS (over the batch for b0 = 1, over the heads for h0 = 1).
+# DBIAS_RTOL is a float32 one: a dS rounded to bfloat16 (2^-9 of it) lies
+# outside it. The same limits reject a bias transposed (Sq <-> Sk), a bias
+# row taken from another head, dbias computed without delta, dbias with dS
+# rounded to bfloat16 before its sum, and a backward given another row's
+# lse.
+DBIAS_RTOL = 1e-4
+FLASH_BIAS_SHAPES = [   # (B, H, Hkv, S, D), causal, window, padded, bias kind
+    ((2, 8, 8, 256, 64), True, None, False, "alibi"),
+    ((2, 8, 2, 300, 64), True, 64, True, "learned_1xH"),   # GQA 4, a window
+    ((2, 4, 2, 77, 64), False, None, True, "Bx1"),         # 4-byte bias rows
+    ((3, 4, 2, 45, 32), True, None, True, "1x1"),
+    ((2, 4, 4, 200, 128), False, None, True, "encoder"),   # rows of only -1e9
+]
+
+
+def flash_bias(kind, B, H, S, kv_mask, device="cuda"):
+    """A float32 bias of ``kind``: the causal ALiBi bias (B, H, S, S) of the
+    key mask's positions with max_bias 8 ("alibi") or 16 ("alibi16"), the
+    encoder's half-head one ("encoder"), or a seeded normal bias of (1, H),
+    (B, 1) or (1, 1) ("learned_1xH", "Bx1", "1x1")."""
+    from pasero_torch.models.positional import alibi_bias
+    if kind in ("alibi", "alibi16", "encoder"):
+        pos = (kv_mask.long().cumsum(1) - 1).clamp(min=0)
+        return alibi_bias(H, pos, pos, 16 if kind == "alibi16" else 8,
+                          causal=kind != "encoder")
+    b0, h0 = {"learned_1xH": (1, H), "Bx1": (B, 1), "1x1": (1, 1)}[kind]
+    gen = torch.Generator(device=device).manual_seed(1)
+    return 2 * torch.randn(b0, h0, S, S, generator=gen, device=device)
+
+
+def flash_dbias_limits(q, k, v, kv_mask, lse, do, out, scale, causal, window,
+                       bias, want, rtol=DBIAS_RTOL):
+    """Per-element limits on the dbias kernel's float32 result, given the
+    plain version's float32 dbias ``want`` reduced to the bias's shape."""
+    from pasero_torch.ops.flash_attention import _reduce_to, visible
+    atol = FLASH_TOL[1]
+    group = q.shape[1] // k.shape[1]
+    qf, dof = q.float(), do.float()
+    kg, vg = (x.float().repeat_interleave(group, 1) for x in (k, v))
+    ok = visible(kv_mask, q.shape[2], causal, window)
+    s = torch.matmul(qf, kg.transpose(-1, -2)).mul_(scale).add_(bias)
+    p = torch.exp(s.sub_(lse[..., None])).masked_fill_(~ok, 0.0)
+    del s
+    dp = torch.matmul(dof, vg.transpose(-1, -2))
+    delta = (dof * out.float()).sum(-1, keepdim=True)
+    limit = (p * (dp - delta)).abs_().mul_(rtol).add_(atol)
+    noise = torch.matmul(dof.abs(), vg.abs().transpose(-1, -2))
+    noise.add_((dof.abs() * out.float().abs()).sum(-1, keepdim=True))
+    limit.add_(noise.mul_(p).mul_(2.0 ** -20))
+    return _reduce_to(limit, want.shape)
+
+
+def flash_bias_compare(shape, causal, window, padded, kind) -> dict:
+    """The biased kernels (forward, dq, dk/dv, dbias; one launch each)
+    against the plain version on the same inputs at one shape, as
+    ``flash_compare`` does, and the mutations the limits must reject, each
+    one launch more: a transposed bias (where the bias is not symmetric), a
+    bias rolled by one head (where it has a row per head), dbias without
+    delta, dbias of the bias expanded to (B, H) with dS rounded to bfloat16
+    before its sum to the bias's shape, and a dq and dk/dv given another
+    row's lse. Returns the lse error, the excess of out, dq, dk, dv and
+    dbias over their limits, the smallest excess of each mutation, and the
+    max abs errors."""
+    from pasero_torch.ops.flash_attention import (_reduce_to,
+                                                  flash_bwd_dbias,
+                                                  flash_bwd_dkv, flash_bwd_dq,
+                                                  flash_bwd_plain,
+                                                  flash_dbias_plain, flash_fwd,
+                                                  flash_fwd_plain, visible)
+    B, H, Hkv, S, D = shape
+    q, k, v, do, mask = flash_inputs(B, H, Hkv, S, D, padded)
+    bias = flash_bias(kind, B, H, S, mask)
+    rows = visible(mask, S, causal, window).any(-1).expand(B, H, S)
+    do = do * rows[..., None]
+    args = (D ** -0.5, causal, window)
+    out, lse = flash_fwd(q, k, v, mask, *args, bias)
+    dq, delta = flash_bwd_dq(q, k, v, mask, out, lse, do, *args, bias)
+    dk, dv = flash_bwd_dkv(q, k, v, mask, do, lse, delta, *args, bias)
+    dbias = flash_bwd_dbias(q, k, v, mask, bias, do, lse, delta, *args)
+    f32 = [x.float() for x in (q, k, v)]
+    ref_out, ref_lse = flash_fwd_plain(*f32, mask, *args, bias)
+    ref = flash_bwd_plain(*f32, mask, out, ref_lse, do, *args, bias)
+    ref_dbias = flash_dbias_plain(*f32, mask, out, ref_lse, do, *args, bias)
+    torch.cuda.synchronize()
+    lse_err = (lse - ref_lse)[rows].abs().max().item()
+    limits = flash_limits(q, k, v, mask, ref_lse, do, *args,
+                          (ref_out,) + tuple(ref), bias)
+    dbias_limit = flash_dbias_limits(q, k, v, mask, ref_lse, do, out, *args,
+                                     bias, ref_dbias)
+    excess = [flash_excess(out, ref_out, limits[0], rows)]
+    excess += [flash_excess(g, w, lim)
+               for g, w, lim in zip((dq, dk, dv), ref, limits[1:])]
+    excess.append(flash_excess(dbias, ref_dbias, dbias_limit))
+    mutants = {"no_delta": flash_excess(flash_bwd_dbias(
+        q, k, v, mask, bias, do, lse, torch.zeros_like(delta), *args),
+        ref_dbias, dbias_limit)}
+    ds = flash_bwd_dbias(q, k, v, mask, bias.expand(B, H, S, S), do, lse,
+                         delta, *args)
+    mutants["dbias_bf16"] = flash_excess(_reduce_to(
+        ds.to(torch.bfloat16).float(), bias.shape), ref_dbias, dbias_limit)
+    del ds
+    bad_lse = lse.roll(1, -1)
+    bad_dq, bad_delta = flash_bwd_dq(q, k, v, mask, out, bad_lse, do, *args,
+                                     bias)
+    bad = (bad_dq,) + flash_bwd_dkv(q, k, v, mask, do, bad_lse, bad_delta,
+                                    *args, bias)
+    mutants["other_lse"] = max(flash_excess(g, w, lim)
+                               for g, w, lim in zip(bad, ref, limits[1:]))
+    if kind not in ("alibi", "alibi16"):     # ALiBi's causal bias: symmetric
+        mutants["transposed"] = flash_excess(flash_fwd(
+            q, k, v, mask, *args, bias.transpose(-1, -2))[0], ref_out,
+            limits[0], rows)
+    if bias.shape[1] > 1:
+        mutants["other_head"] = flash_excess(flash_fwd(
+            q, k, v, mask, *args, bias.roll(1, 1))[0], ref_out, limits[0],
+            rows)
+
+    def err(got, want, rows=None):
+        diff = (got.float() - want.float()).abs()
+        return (diff[rows] if rows is not None else diff).max().item()
+
+    return {"lse_err": lse_err, "excess": excess, "mutants": mutants,
+            "max_abs_err": {"fwd": max(lse_err, err(out, ref_out, rows)),
+                            "dq": err(dq, ref[0]),
+                            "dkv": max(err(dk, ref[1]), err(dv, ref[2])),
+                            "dbias": err(dbias, ref_dbias)}}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,causal,window,padded,kind", FLASH_BIAS_SHAPES)
+def test_biased_flash_kernels_match_plain(shape, causal, window, padded,
+                                          kind):
+    """out, dq, dk, dv and dbias within their limits, lse within 1e-4; each
+    mutation outside them."""
+    from pasero_torch.ops.flash_attention import launch_counts
+    _need_card()
+    names = ("flash_fwd_bias", "flash_bwd_dq_bias", "flash_bwd_dkv_bias",
+             "flash_bwd_dbias")
+    before = launch_counts()
+    result = flash_bias_compare(shape, causal, window, padded, kind)
+    after = launch_counts()
+    mutants = result["mutants"]
+    fwd_mutants = ("transposed" in mutants) + ("other_head" in mutants)
+    assert [after[n] - before[n] for n in names] == \
+        [1 + fwd_mutants, 2, 2, 3]
+    assert result["lse_err"] <= 1e-4
+    assert max(result["excess"]) <= 1.0, result["excess"]
+    assert min(mutants.values()) > 1.0, mutants
+
+
+@pytest.mark.cuda
+def test_learned_bias_gradient_launches_dbias_and_alibi_does_not():
+    """Through flash_attention's autograd: a bias that requires a gradient
+    launches the dbias kernel once per backward; a constant (ALiBi) bias
+    none, and the bias-free kernels never run."""
+    from pasero_torch.ops import flash_attention as fa
+    _need_card()
+    q, k, v, do, mask = flash_inputs(2, 8, 2, 128, 64, True)
+    names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_fwd_bias",
+             "flash_bwd_dq_bias", "flash_bwd_dkv_bias", "flash_bwd_dbias")
+    for learned, want in ((True, [0, 0, 0, 1, 1, 1, 1]),
+                          (False, [0, 0, 0, 1, 1, 1, 0])):
+        bias = flash_bias("learned_1xH" if learned else "alibi", 2, 8, 128,
+                          mask).requires_grad_(learned)
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        before = fa.launch_counts()
+        out = fa.flash_attention(*leaves, mask=mask[:, None, None, :],
+                                 bias=bias, scale=0.125, causal=True)
+        out.backward(do)
+        torch.cuda.synchronize()
+        after = fa.launch_counts()
+        assert [after[n] - before[n] for n in names] == want
+        assert (bias.grad is not None) == learned
+        if learned:
+            assert bias.grad.shape == bias.shape and \
+                bias.grad.dtype == torch.float32
+
+
+@pytest.mark.cuda
+def test_biased_flash_wrappers_raise_on_card():
+    """A bias of another shape or on another device raises before any
+    launch."""
+    from pasero_torch.ops.flash_attention import flash_fwd
+    _need_card()
+    q = torch.zeros((2, 4, 8, 64), device="cuda", dtype=torch.bfloat16)
+    mask = torch.ones((2, 8), dtype=torch.bool, device="cuda")
+    before = flash_fwd.bias_launches
+    for bias in (torch.zeros((3, 4, 8, 8), device="cuda"),
+                 torch.zeros((2, 4, 8, 7), device="cuda"),
+                 torch.zeros((1, 4, 8, 8))):
+        with pytest.raises(ValueError):
+            flash_fwd(q, q, q, mask, 0.125, True, None, bias)
+    assert flash_fwd.bias_launches == before
 
 
 # The int8 GEMM and the fused head against their plain versions' float32

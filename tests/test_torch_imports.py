@@ -79,7 +79,7 @@ def test_decode_cli_without_device_raises_without_cuda(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("override,item", [
-    (dict(decoder_positional_encoding="alibi"), "A.8"),
+    (dict(decoder_positional_encoding="t5"), "A.8"),
     (dict(encoder_positional_encoding="t5"), "A.8"),
     (dict(parallel_attention=True), "A.8"),
     (dict(checkpoint_activations=True), "A.8"),
@@ -155,6 +155,15 @@ def test_unported_decoding_options_name_their_roadmap_item(option, item):
     from pasero_torch.decoding.generator import TextGenerator
     with pytest.raises(NotImplementedError, match=item):
         TextGenerator.build(MODEL, device="cpu", **option)
+
+
+@pytest.mark.parametrize("keyword", ["return_layers", "return_weights"])
+def test_unported_decode_keywords_name_their_roadmap_item(keyword):
+    """decode() refuses what it cannot return yet instead of dropping it."""
+    from pasero_torch.decoding.generator import TextGenerator
+    gen = TextGenerator.build(MODEL, device="cpu")
+    with pytest.raises(NotImplementedError, match="A.6"):
+        gen.decode("Guten Morgen .", **{keyword: True})
 
 
 def test_decoding_options_of_the_serving_slice_build():
