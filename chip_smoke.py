@@ -122,7 +122,35 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    and Bloom's vocabulary of 250880: Trainer.train_step at 4 x 2048 with
    the same exact counts per step, and TextGenerator.decode of 8 prompts of
    up to 128 tokens (64 new, greedy) with one slot-write launch per layer
-   per single-token decoder call.
+   per single-token decoder call;
+18. the T5 flash kernels (forward, dq and dk/dv with T5's (32, H) table and
+   its distance index; demb, the table's gradient) against their plain
+   version on the card, within the error model of tests/test_torch_cuda.py
+   (``flash_t5_compare``): t5_base's encoder (32 x 12 heads x 512 x 64,
+   bidirectional, key padding) and decoder (32 x 12 x 128 x 64, causal)
+   shapes, GQA 4 with a window at head dim 128, an unaligned length and
+   32768 keys; the direction flipped, another head's column, the distances
+   shifted by one, demb without delta, demb of dS rounded to bf16 and a
+   backward given another row's lse rejected; at t5_base's encoder shape
+   and at (1, 12, 32768, 64) each kernel's device time (CUDA graph) beside
+   the plain version's, its bound and the library yardstick (SDPA with the
+   materialized bias as a float attn_mask; for demb its mask's gradient
+   and index_add_ by bucket), "does not fit" where an (Sq, Sk) tensor does
+   not, and the peak memory of forward + backward; the bias-free kernels
+   at JAX's streamed lengths, (1, 32, 32768, 128) causal: one head against
+   the plain version, their device times and peak memory;
+19. T5 through the entry points: TextGenerator on the t5-mini anchor
+   (pasero_torch/testdata/t5-mini), greedy and beam 5 on deen-mini's
+   test.de against the JAX outputs, the encoder through flash_fwd_t5;
+   python -m pasero_torch.cli.train on pasero_torch/testdata/t5_mini.yaml
+   against the JAX losses with exact launch counts (the T5 kernels per
+   self-attention, demb per table, the bias-free kernels per
+   cross-attention, no dbias); t5_base at full width with seeded weights
+   and T5's vocabulary of 32128: Trainer.train_step at 32 x 512 source and
+   128 target tokens with the same exact counts per step and its peak
+   memory, and TextGenerator.decode of 8 sources of 512 tokens (64 new,
+   greedy) with 12 flash_fwd_t5 launches and one slot-write launch per
+   layer per single-token decoder call.
 
 The second-to-last line is one JSON object {"kernels": [...]}; the last line
 is {"ok": true, "device": {...}}. Without CUDA the script exits 1 and
@@ -1712,12 +1740,14 @@ ALIBI_TRAIN_GOLDEN = os.path.join(TESTDATA, "alibi_mini_train20.jax.json")
 
 def alibi_train_counts(layers: int, micro: int, valid: int) -> dict:
     """The launches of ALiBi training: the biased flash kernels per layer and
-    batch, no dbias (the bias is a constant) and no bias-free kernel."""
+    batch, no dbias (the bias is a constant), no bias-free or T5 kernel."""
     return {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
             "flash_fwd_bias": layers * (micro + valid),
             "flash_bwd_dq_bias": layers * micro,
-            "flash_bwd_dkv_bias": layers * micro, "flash_bwd_dbias": 0,
-            "fused_ce_fwd": micro + valid, "fused_ce_bwd": micro}
+            "flash_bwd_dkv_bias": layers * micro, "flash_fwd_t5": 0,
+            "flash_bwd_dq_t5": 0, "flash_bwd_dkv_t5": 0, "flash_bwd_dbias": 0,
+            "flash_bwd_demb": 0, "fused_ce_fwd": micro + valid,
+            "fused_ce_bwd": micro}
 
 
 def phase17() -> dict:
@@ -1868,6 +1898,442 @@ def phase17() -> dict:
     return res
 
 
+# -- phase 18 ------------------------------------------------------------------
+
+FLASH_T5_SHAPES = [  # (B, H, Hkv, S, D), causal, window, padded, bidirectional
+    ((32, 12, 12, 512, 64), False, None, True, True),   # t5_base's encoder
+    ((32, 12, 12, 128, 64), True, None, False, False),  # t5_base's decoder
+    ((2, 16, 4, 777, 128), True, 256, True, True),      # GQA 4, a window
+    ((3, 4, 2, 333, 64), False, None, True, False),     # unaligned
+    ((1, 1, 1, 32768, 64), False, None, False, True),   # 32768 keys
+]
+T5_TIMED = ((32, 12, 12, 512, 64), (1, 12, 12, 32768, 64))  # bidirectional
+LONG = (1, 32, 32, 32768, 128)   # JAX's streamed regime, bias-free, causal
+
+
+def flash_t5_check(case, cuda_tests) -> dict:
+    """The four T5 kernels against the plain version at one shape, by
+    ``flash_t5_compare`` of tests/test_torch_cuda.py: lse within 1e-4, out,
+    dq, dk, dv and demb within their limits, every mutation outside them.
+    Returns the max abs errors."""
+    import torch
+    r = cuda_tests.flash_t5_compare(*case)
+    shape, causal, window, padded, bidirectional = case
+    where = (f"{shape} causal {causal} window {window} padded {padded} "
+             f"bidirectional {bidirectional}")
+    check(r["lse_err"] <= 1e-4,
+          f"flash_fwd_t5 lse differs at {where} by {r['lse_err']}")
+    check(max(r["excess"]) <= 1.0, f"T5 flash kernels differ at {where}: "
+          f"out, dq, dk, dv, demb at {r['excess']} of their limits")
+    check(min(r["mutants"].values()) > 1.0, f"the T5 flash check at {where} "
+          f"passes a mutation: {r['mutants']}")
+    errs = r["max_abs_err"]
+    log(f"phase 18: T5 flash kernels == plain at {where}: out, dq, dk, dv, "
+        f"demb at {', '.join(f'{e:.3f}' for e in r['excess'])} of their "
+        f"limits; mutations at "
+        f"{json.dumps({k: round(v, 1) for k, v in r['mutants'].items()})} "
+        f"of them; max abs err lse {r['lse_err']:.3e} out {errs['fwd']:.3e} "
+        f"dq {errs['dq']:.3e} dk/dv {errs['dkv']:.3e} demb "
+        f"{errs['demb']:.3e}")
+    torch.cuda.empty_cache()
+    return errs
+
+
+def fits(nbytes: float) -> bool:
+    """Whether ``nbytes`` more fit in 90 % of the card's free memory."""
+    import torch
+    torch.cuda.empty_cache()
+    return nbytes < 0.9 * torch.cuda.mem_get_info()[0]
+
+
+def flash_t5_timing(shape, cuda_tests) -> dict:
+    """At a bidirectional T5 shape (no padding): device ms per call of each
+    T5 kernel (CUDA graph), the plain version's ms, the bounds (the larger
+    of the products over the bf16 rate and the bytes over the memory rate;
+    the table and the distance index count as read once), and the library
+    yardstick: F.scaled_dot_product_attention with the materialized bias as
+    a bf16 float attn_mask, its backward, and for demb its backward with the
+    mask's gradient followed by index_add_ of that gradient by bucket. The
+    plain version and the yardstick need (Sq, Sk) tensors: "does not fit"
+    where they do not. Also the peak memory of forward + backward through
+    flash_attention's autograd, beside the bytes of a float32 bias."""
+    import torch
+    import torch.nn.functional as F
+    from pasero_torch.ops.flash_attention import (T5Bias, flash_attention,
+                                                  flash_bwd_demb,
+                                                  flash_bwd_dkv, flash_bwd_dq,
+                                                  flash_bwd_plain,
+                                                  flash_demb_plain, flash_fwd,
+                                                  flash_fwd_plain, visible)
+    B, H, Hkv, S, D = shape
+    q, k, v, do, mask = cuda_tests.flash_inputs(B, H, Hkv, S, D, False)
+    t5 = T5Bias(cuda_tests.t5_table(H), True)
+    args = (D ** -0.5, False, None)
+    out, lse = flash_fwd(q, k, v, mask, *args, t5)
+    _, delta = flash_bwd_dq(q, k, v, mask, out, lse, do, *args, t5)
+    pairs = float(visible(mask, S, False, None).expand(B, 1, S, S).sum()) * H
+    product = 2.0 * pairs * D
+    q_bytes, kv_bytes, row_bytes = B * H * S * D * 2, B * Hkv * S * D * 2, \
+        B * H * S * 4
+    t5_bytes = 4 * (2 * S - 1) + 4 * 32 * H
+
+    def bound(products, nbytes):
+        ops, mem = products * product / BF16_FLOPS, \
+            (nbytes + t5_bytes) / HBM_BYTES_PER_S
+        return {"bound_ms": max(ops, mem) * 1e3,
+                "ops_bound_ms": ops * 1e3, "bytes_bound_ms": mem * 1e3,
+                "bound_by": "operations" if ops >= mem else "bytes"}
+
+    res = {"shape": list(shape),
+           "fwd": bound(2, 2 * q_bytes + 2 * kv_bytes + row_bytes),
+           "bwd": bound(5, 4 * q_bytes + 4 * kv_bytes + row_bytes),
+           "dq": bound(3, 4 * q_bytes + 2 * kv_bytes + 2 * row_bytes),
+           "dkv": bound(4, 2 * q_bytes + 4 * kv_bytes + 2 * row_bytes),
+           "demb": bound(2, 2 * q_bytes + 2 * kv_bytes + 2 * row_bytes)}
+    kernels = {
+        "fwd": lambda: flash_fwd(q, k, v, mask, *args, t5),
+        "dq": lambda: flash_bwd_dq(q, k, v, mask, out, lse, do, *args, t5),
+        "dkv": lambda: flash_bwd_dkv(q, k, v, mask, do, lse, delta, *args,
+                                     t5),
+        "demb": lambda: flash_bwd_demb(q, k, v, mask, t5, do, lse, delta,
+                                       *args),
+    }
+    long = S > 4096
+    for key, fn in kernels.items():
+        res[key]["ms"] = device_ms(fn, iters=2 if long else 10,
+                                   replays=2 if long else 5)
+    res["bwd"]["ms"] = res["dq"]["ms"] + res["dkv"]["ms"]
+    scores = 4.0 * B * H * S * S          # one float32 (Sq, Sk) tensor
+    plain = fits(8 * scores)
+    nofit = "does not fit"
+    for key, fn in (("fwd", lambda: flash_fwd_plain(q, k, v, mask, *args,
+                                                    t5)),
+                    ("bwd", lambda: flash_bwd_plain(q, k, v, mask, out, lse,
+                                                    do, *args, t5)),
+                    ("demb", lambda: flash_demb_plain(q, k, v, mask, out,
+                                                      lse, do, *args, t5))):
+        res[key]["plain_ms"] = time_ms(fn, 3, 1) if plain else nofit
+    # the library yardstick; the port never calls it
+    bias_bytes = 2.0 * H * S * S
+    if fits(4 * bias_bytes + scores / B):
+        lib_mask = t5.materialize(S, S).to(torch.bfloat16)
+        res["fwd"]["library_ms"] = time_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v,
+                                                   attn_mask=lib_mask,
+                                                   scale=args[0]), 10, 2)
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        lib_out = F.scaled_dot_product_attention(*leaves, attn_mask=lib_mask,
+                                                 scale=args[0])
+        res["bwd"]["library_ms"] = time_ms(lambda: torch.autograd.grad(
+            lib_out, leaves, do, retain_graph=True), 10, 2)
+        del lib_out
+    else:
+        res["fwd"]["library_ms"] = res["bwd"]["library_ms"] = nofit
+        lib_mask = None
+    if lib_mask is not None and fits(6 * bias_bytes + scores / B):
+        mask_leaf = lib_mask.clone().requires_grad_()
+        lib_out = F.scaled_dot_product_attention(*leaves, attn_mask=mask_leaf,
+                                                 scale=args[0])
+        buckets = t5.buckets(S, S).reshape(-1)
+
+        def lib_demb():
+            dmask = torch.autograd.grad(lib_out, leaves + [mask_leaf], do,
+                                        retain_graph=True)[-1]
+            demb = torch.zeros(H, 32, device=q.device)
+            return demb.index_add_(1, buckets, dmask.float().sum(0).reshape(
+                H, S * S))
+        res["demb"]["library_ms"] = time_ms(lib_demb, 5, 1)
+        del lib_out, mask_leaf, buckets
+    else:
+        res["demb"]["library_ms"] = nofit
+    del lib_mask
+    res["dq"]["plain_ms"] = res["dkv"]["plain_ms"] = res["bwd"]["plain_ms"]
+    res["dq"]["library_ms"] = res["dkv"]["library_ms"] = \
+        res["bwd"]["library_ms"]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    table = t5.table.clone().requires_grad_()
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    flash_attention(*leaves, scale=args[0],
+                    t5_bias=T5Bias(table, True)).backward(do)
+    torch.cuda.synchronize()
+    res["peak_mib"] = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    res["bias_mib"] = scores / 2 ** 20
+    check(table.grad is not None and bool(torch.isfinite(table.grad).all()),
+          f"no finite table gradient at {shape}")
+    del leaves, table
+
+    def show(x):
+        return x if isinstance(x, str) else f"{x:.4f}"
+    for key in ("fwd", "dq", "dkv", "bwd", "demb"):
+        r = res[key]
+        log(f"phase 18: at {shape} bf16 bidirectional with the T5 table, "
+            f"{key}: device ms per call (CUDA graph) {r['ms']:.4f}, bound "
+            f"{r['bound_ms']:.4f} ({r['bound_by']}: operations "
+            f"{r['ops_bound_ms']:.4f}, bytes {r['bytes_bound_ms']:.4f}), "
+            f"plain {show(r['plain_ms'])}, library {show(r['library_ms'])}")
+    log(f"phase 18: at {shape} forward + backward through flash_attention: "
+        f"peak {res['peak_mib']:.1f} MiB above the inputs; a float32 bias "
+        f"would take {res['bias_mib']:.1f} MiB")
+    torch.cuda.empty_cache()
+    return res
+
+
+def long_context(cuda_tests) -> dict:
+    """The bias-free kernels at JAX's streamed lengths: against the plain
+    version on one head at 32768 keys (heads are independent), then at
+    LONG's 32 heads their device ms per call (CUDA graph) and the peak
+    memory of forward + backward through flash_attention."""
+    import torch
+    from pasero_torch.ops.flash_attention import (flash_attention,
+                                                  flash_bwd_dkv, flash_bwd_dq,
+                                                  flash_fwd)
+    B, H, Hkv, S, D = LONG
+    flash_check((B, 1, 1, S, D), True, None, False, cuda_tests)
+    torch.cuda.empty_cache()
+    q, k, v, do, mask = cuda_tests.flash_inputs(B, H, Hkv, S, D, False)
+    args = (D ** -0.5, True, None)
+    out, lse = flash_fwd(q, k, v, mask, *args)
+    _, delta = flash_bwd_dq(q, k, v, mask, out, lse, do, *args)
+    res = {"shape": list(LONG)}
+    for key, fn in (("fwd", lambda: flash_fwd(q, k, v, mask, *args)),
+                    ("dq", lambda: flash_bwd_dq(q, k, v, mask, out, lse, do,
+                                                *args)),
+                    ("dkv", lambda: flash_bwd_dkv(q, k, v, mask, do, lse,
+                                                  delta, *args))):
+        res[f"{key}_ms"] = device_ms(fn, iters=2, replays=2)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    flash_attention(*leaves, scale=args[0], causal=True).backward(do)
+    torch.cuda.synchronize()
+    res["peak_mib"] = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    res["scores_mib"] = 4.0 * B * H * S * S / 2 ** 20
+    log(f"phase 18: bias-free flash kernels at {LONG} causal: device ms "
+        f"forward {res['fwd_ms']:.4f}, dq {res['dq_ms']:.4f}, dk/dv "
+        f"{res['dkv_ms']:.4f}; forward + backward peak {res['peak_mib']:.1f} "
+        f"MiB above the inputs (float32 scores would take "
+        f"{res['scores_mib']:.1f} MiB)")
+    del q, k, v, do, out, leaves
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase18() -> dict:
+    """The T5 kernels against their plain versions at every shape of
+    FLASH_T5_SHAPES, their times at t5_base's encoder shape and at 32768
+    keys, and the bias-free kernels at JAX's streamed lengths."""
+    cuda_tests = load_test_module("test_torch_cuda")
+    errs = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0, "demb": 0.0}
+    for case in FLASH_T5_SHAPES:
+        for key, err in flash_t5_check(case, cuda_tests).items():
+            errs[key] = max(errs[key], err)
+    res = flash_t5_timing(T5_TIMED[0], cuda_tests)
+    res["at_32768"] = flash_t5_timing(T5_TIMED[1], cuda_tests)
+    for key in errs:
+        res[key]["max_abs_err"] = errs[key]
+    res["long"] = long_context(cuda_tests)
+    return res
+
+
+# -- phase 19 ------------------------------------------------------------------
+
+T5 = os.path.join(TESTDATA, "t5-mini")
+T5_CONFIG = os.path.join(TESTDATA, "t5_mini.yaml")
+T5_TRAIN_GOLDEN = os.path.join(TESTDATA, "t5_mini_train20.jax.json")
+
+
+def t5_train_counts(enc_layers: int, dec_layers: int, micro: int,
+                    valid: int) -> dict:
+    """The launches of T5 training: the T5 kernels in every self-attention
+    (demb for each table's gradient), the bias-free kernels in every
+    cross-attention, no dbias, no dense-bias kernel."""
+    layers = enc_layers + dec_layers
+    return {"flash_fwd": dec_layers * (micro + valid),
+            "flash_bwd_dq": dec_layers * micro,
+            "flash_bwd_dkv": dec_layers * micro,
+            "flash_fwd_bias": 0, "flash_bwd_dq_bias": 0,
+            "flash_bwd_dkv_bias": 0,
+            "flash_fwd_t5": layers * (micro + valid),
+            "flash_bwd_dq_t5": layers * micro,
+            "flash_bwd_dkv_t5": layers * micro,
+            "flash_bwd_dbias": 0, "flash_bwd_demb": layers * micro,
+            "fused_ce_fwd": micro + valid, "fused_ce_bwd": micro}
+
+
+def count_encoder_calls(model) -> list:
+    """A one-element list counting the encoder's forward calls."""
+    calls = [0]
+
+    def count(*_):
+        calls[0] += 1
+    model.encoder.register_forward_pre_hook(count)
+    return calls
+
+
+def phase19() -> dict:
+    """T5 through the entry points: the t5-mini anchor's greedy and beam-5
+    decodes of test.de against the JAX goldens, the training CLI on
+    t5_mini.yaml against the JAX losses with exact launch counts, and
+    t5_base at full width: Trainer.train_step at 32 x 512 + 128 and
+    TextGenerator.decode of 8 sources of 512 tokens."""
+    import shutil
+    import torch
+    from pasero_torch.decoding.generator import TextGenerator
+    from pasero_torch.ops import flash_attention as fa
+    from pasero_torch.ops.cache_update import cache_slot_write_
+    from pasero_torch.ops.fused_ce import fused_ce_bwd, fused_ce_fwd
+    from pasero_torch.scripts.bench_decode import T5Workload
+    from pasero_torch.scripts.bench_train import Workload
+    res = {}
+    # a. the anchor
+    with open(os.path.join(ROOT, "examples", "deen-mini", "data",
+                           "test.de")) as f:
+        sources = [line.strip() for line in f]
+    for beam, name in ((1, "greedy"), (5, "beam5")):
+        fa.reset_launch_counts()
+        gen = TextGenerator.build(T5, beam_size=beam)
+        check(gen.device.type == "cuda", f"generator runs on {gen.device}")
+        calls = count_encoder_calls(gen.model)
+        hyps = gen.decode(sources)
+        torch.cuda.synchronize()
+        golden = golden_lines(f"t5_mini_{name}.jax.txt")
+        same = sum(h == g for h, g in zip(hyps, golden))
+        counts = fa.launch_counts()
+        want = {n: 0 for n in counts}
+        want["flash_fwd_t5"] = gen.model_cfg.encoder_layers * calls[0]
+        log(f"phase 19: t5-mini bf16 {name}: {same}/{len(golden)} lines "
+            f"identical to the JAX output; {calls[0]} encoder call(s), "
+            f"flash launches {counts}")
+        check(len(hyps) == len(golden) and same >= MIN_GOLDEN_MATCH,
+              f"t5-mini {name}: only {same}/{len(golden)} match")
+        check(counts == want, f"t5-mini {name} launched {counts}, not {want}")
+        res[f"anchor_{name}"] = {"match": same, "launches": counts}
+
+    # b. the training CLI
+    cli = load_test_module("test_torch_train_cli")
+    model_dir = os.path.join(ROOT, "build", "smoke-t5")
+    shutil.rmtree(model_dir, ignore_errors=True)
+    os.makedirs(model_dir)
+    ckpt = os.path.join(ROOT, "build", "smoke-t5-init.npz")
+    cli.write_initial_weights(ckpt, T5_CONFIG)
+    cmd = [sys.executable, "-m", "pasero_torch.cli.train",
+           *cli.train_flags(model_dir, ckpt, T5_CONFIG)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=900)
+    elapsed = time.perf_counter() - t0
+    out = proc.stdout + proc.stderr
+    check(proc.returncode == 0, f"cli.train (T5) failed:\n{out[-4000:]}")
+    logs = cli.parse_log(out)
+    with open(T5_TRAIN_GOLDEN) as f:
+        golden = json.load(f)["steps"]
+    check([l["step"] for l in logs] == [g["step"] for g in golden],
+          f"logged steps {[l['step'] for l in logs]}")
+    worst = 0.0
+    for got, want in zip(logs, golden):
+        rel = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+        worst = max(worst, rel)
+        check(rel <= TRAIN_RTOL, f"T5 step {got['step']}: loss "
+              f"{got['loss']} vs JAX {want['loss']}")
+    counts = parse_launches(out)
+    micro, valid = counts["train micro-batches"], counts["valid batches"]
+    with open(os.path.join(model_dir, "config.json")) as f:
+        config = json.load(f)
+    check(micro == 20 and valid > 0, f"{micro} micro-batches, {valid} "
+          "validation batches")
+    want = t5_train_counts(config["encoder_layers"],
+                           config["decoder_layers"], micro, valid)
+    got = {key: counts[key] for key in want}
+    check(got == want, f"T5 CLI launches {got} != {want}")
+    log(f"phase 19: python -m pasero_torch.cli.train on t5_mini.yaml, 20 "
+        f"steps in {elapsed:.1f} s: losses {logs[0]['loss']:.3f} -> "
+        f"{logs[-1]['loss']:.3f}, all within {worst:.4%} of the JAX training "
+        f"CLI's; launches {got} for {micro} micro-batches and {valid} "
+        f"validation batches")
+    res["cli"] = {"launches": got, "worst_loss_rel": worst}
+
+    # c. t5_base at full width: training, then decoding
+    work = Workload("t5_base")
+    work.run(2)                                            # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    fused_ce_fwd.launches = fused_ce_bwd.launches = 0
+    steps = 5
+    logs, seconds = work.run(steps)
+    counts = {**fa.launch_counts(), "fused_ce_fwd": fused_ce_fwd.launches,
+              "fused_ce_bwd": fused_ce_bwd.launches}
+    peak = torch.cuda.max_memory_allocated()
+    losses = [l["loss"] for l in logs]
+    check(all(map(math.isfinite, losses)), f"non-finite losses {losses}")
+    cfg = work.model_cfg
+    want = t5_train_counts(cfg.encoder_layers, cfg.decoder_layers, steps, 0)
+    check(counts == want, f"t5_base launches {counts} != {want} for {steps} "
+          "steps")
+    train = {"ms_per_step": seconds * 1e3 / steps,
+             "tok_per_s": work.tokens_per_step * steps / seconds,
+             "peak_mib": peak / 2 ** 20, "losses": losses,
+             "launches": counts}
+    log(f"phase 19: t5_base V=32128 B=32 S=512 T=128 bf16 training with "
+        f"flash attention and the T5 tables: {train['tok_per_s']:.1f} target "
+        f"tok/s, {train['ms_per_step']:.3f} ms per step, peak memory "
+        f"{train['peak_mib']:.1f} MiB, loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}, launches {counts} for {steps} steps")
+    del work
+    torch.cuda.empty_cache()
+
+    work = T5Workload()
+    work.run()                                             # warm-up
+    calls = count_encoder_calls(work.model)
+    fa.reset_launch_counts()
+    cache_slot_write_.launches = 0
+    work.model.single_token_calls = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = work.run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    layers = work.cfg.decoder_layers
+    singles = work.model.single_token_calls
+    counts = fa.launch_counts()
+    want = {n: 0 for n in counts}
+    want["flash_fwd_t5"] = work.cfg.encoder_layers * calls[0]
+    check(counts == want, f"t5_base decode launched {counts}, not {want}")
+    check(singles > 0 and cache_slot_write_.launches == layers * singles,
+          f"{cache_slot_write_.launches} slot writes for {singles} "
+          f"single-token calls through {layers} layers")
+    tokens = work.output_tokens(out)
+    lengths = [len(work.generator.task.preprocess(
+        work.generator.task.input_to_sample(s, work.generator.task.make_meta())
+    )["encoder_input"]) for s in work.inputs]
+    decode = {"ms_per_decoder_call": seconds * 1e3 / out["model_calls"],
+              "tok_per_s": tokens / seconds, "seconds": seconds,
+              "decoder_calls": out["model_calls"], "output_tokens": tokens,
+              "source_tokens": lengths,
+              "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
+              "flash_fwd_t5": counts["flash_fwd_t5"],
+              "encoder_calls": calls[0],
+              "cache_slot_write": cache_slot_write_.launches}
+    log(f"phase 19: t5_base TextGenerator.decode of {len(work.inputs)} "
+        f"sources of {min(lengths)}-{max(lengths)} tokens, greedy: {tokens} "
+        f"tokens in {out['model_calls']} decoder calls, "
+        f"{decode['ms_per_decoder_call']:.3f} ms per call, "
+        f"{decode['tok_per_s']:.1f} tok/s, peak {decode['peak_mib']:.1f} "
+        f"MiB; flash_fwd_t5 {counts['flash_fwd_t5']} = "
+        f"{work.cfg.encoder_layers} layers x {calls[0]} batch(es); "
+        f"cache_slot_write "
+        f"{cache_slot_write_.launches} = {layers} layers x {singles} "
+        f"single-token calls")
+    del work
+    torch.cuda.empty_cache()
+    res["train"], res["decode"] = train, decode
+    return res
+
+
 def main():
     try:
         import torch
@@ -1901,6 +2367,8 @@ def main():
     whisper = phase15()
     biased = phase16()
     alibi = phase17()
+    t5 = phase18()
+    t5_paths = phase19()
     kernels = [{
         "name": "cache_slot_write",
         "route": "cuda",
@@ -2062,6 +2530,50 @@ def main():
             entry["backward"] = {k: biased["bwd"][k] for k in (
                 "ms", "bound_ms", "bound_by", "plain_ms", "library_ms")}
         kernels.append(entry)
+    # the T5 kernels: launches of phase 19's T5 training CLI and of
+    # t5_base's full-width steps; numbers at t5_base's encoder shape, then
+    # at 32768 keys
+    for name, key, line, body in (
+            ("flash_fwd_t5", "fwd", 544, 474),
+            ("flash_bwd_dq_t5", "dq", 738, 618),
+            ("flash_bwd_dkv_t5", "dkv", 738, 676),
+            ("flash_bwd_demb", "demb", 1318, 1255)):
+        own = t5[key]
+        entry = {
+            "name": name,
+            "route": "cuda",
+            "source": "pasero_torch/csrc/flash_attention.cu",
+            "replaces": f"pasero_tpu/ops/flash_attention.py:{line}",
+            "kernel_body": f"pasero_tpu/ops/flash_attention.py:{body}",
+            "launches": t5_paths["cli"]["launches"][name],
+            "full_width_launches": t5_paths["train"]["launches"][name],
+            "max_abs_err": own["max_abs_err"],
+            "ms": own["ms"],
+            "plain_ms": own["plain_ms"],
+            "bound_ms": own["bound_ms"],
+            "bound_by": own["bound_by"],
+            "ops_bound_ms": own["ops_bound_ms"],
+            "bytes_bound_ms": own["bytes_bound_ms"],
+            "library_ms": own["library_ms"],
+            "shape": t5["shape"],
+            "at_32768": {k: t5["at_32768"][key][k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        }
+        entry["at_32768"]["shape"] = t5["at_32768"]["shape"]
+        if key in ("dq", "dkv"):   # the backward function's numbers beside
+            entry["backward"] = {k: t5["bwd"][k] for k in (
+                "ms", "bound_ms", "bound_by", "plain_ms", "library_ms")}
+        if key == "fwd":
+            entry["decode_launches"] = t5_paths["decode"]["flash_fwd_t5"]
+        kernels.append(entry)
+    # the bias-free kernels also serve JAX's streamed regime (rows 11, 14)
+    for entry in kernels:
+        if entry["name"] in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            key = entry["name"].replace("flash_bwd_", "").replace(
+                "flash_", "")
+            entry["streamed_32768"] = {"ms": t5["long"][f"{key}_ms"],
+                                       "shape": t5["long"]["shape"],
+                                       "peak_mib": t5["long"]["peak_mib"]}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,9 @@
-// Flash attention, forward and backward, for grouped K/V heads, with or
-// without an additive float32 bias:
+// Flash attention, forward and backward, for grouped K/V heads, without a
+// bias, with an additive float32 bias or with T5's relative-position table:
 //
 //   s[i, j]  = scale * sum_d q[b, h, i, d] * k[b, h / G, j, d]     (fp32)
 //              (+ bias[b, h, i, j], float32, in the biased kernels)
+//              (+ table[index[j - i + Sq - 1], h], float32, in the T5 ones)
 //   p[i, j]  = exp(s[i, j] - lse[i]) where key j is visible from row i, else 0
 //   out[i]   = sum_j p[i, j] * v[b, h / G, j]          (p rounded to bf16 first)
 //   lse[i]   = log sum_j exp(s[i, j])                   (fp32; -1e30 if no key)
@@ -17,6 +18,7 @@
 //   dq = scale * dS . k,  dk = scale * sum over the group of dS^T . q,
 //   dv = sum over the group of p^T . dO            (p rounded to bf16)
 //   dbias[i, j] = dS[i, j], unrounded fp32, 0 where key j is not visible
+//   demb[n, h]  = sum over b and the (i, j) of bucket n of dS[b, h, i, j]
 //
 // The bias is (b0 h0, Sq, Sk) rows with b0 in {1, B} and h0 in {1, H}; the
 // row of (b, h) is b bs + h hs (bias_row), so a shared bias is never
@@ -26,15 +28,30 @@
 // change of base before the subtraction would lose it. Such a row is an
 // ordinary softmax over its -1e9 entries, not a row without keys.
 //
-// Kernels and the TPU kernels they replace (BIAS = false / true):
+// The T5 kernels take the (nb, H) float32 table and the bucket of every
+// key-query distance, an int32 index of Sq + Sk - 1 entries computed on the
+// host with JAX's float32 log (pasero_torch/models/positional.py), so no
+// transcendental decides a bucket here and the direction (bidirectional or
+// not) lives in the index. Per (query tile, key tile) a block stages its
+// head's table column and the tile's bias by diagonal, R + C - 1 floats
+// (t5_diagonals), and adds it to the score as the biased kernels add a bias
+// tile, in natural units. JAX computes the bucket inside the kernel from
+// block position iotas (_t5_tile, :124; _t5_bucket, :140); the slots are
+// positions, as there (right-padded rows).
+//
+// Kernels and the TPU kernels they replace (KIND = NO_BIAS / DENSE_BIAS /
+// T5_BIAS):
 //   fwd_kernel     _fwd_packed_kernel (pasero_tpu/ops/flash_attention.py:261,
 //                  through _fwd_packed, :342) / _fwd_kernel (:186, through
-//                  _fwd, :381);
-//   bwd_dq_kernel  _bwd_dq_packed_kernel (:963) / _bwd_dq_kernel (:866),
-//                  with delta computed here from out and dO (JAX computes it
-//                  outside, :1409) and written for the dk/dv kernel;
+//                  _fwd, :381) / _fwd_stream_kernel (:474, through
+//                  _fwd_stream, :544);
+//   bwd_dq_kernel  _bwd_dq_packed_kernel (:963) / _bwd_dq_kernel (:866) /
+//                  _bwd_dq_stream_kernel (:618), with delta computed here
+//                  from out and dO (JAX computes it outside, :1409) and
+//                  written for the dk/dv kernel;
 //   bwd_dkv_kernel _bwd_dkv_packed_kernel (:1018, through _bwd_packed,
-//                  :1086) / _bwd_dkv_kernel (:911, through _bwd, :1398): one
+//                  :1086) / _bwd_dkv_kernel (:911, through _bwd, :1398) /
+//                  _bwd_dkv_stream_kernel (:676, through _bwd_stream, :738): one
 //                  block per (batch, K/V head, 64-key tile) loops over the
 //                  query tiles of every query head of its group (each with
 //                  its own bias row), so dk and dv come out at K/V-head width
@@ -43,11 +60,23 @@
 //   dbias_kernel   _dbias_kernel (:1160, through _compute_dbias, :1213): one
 //                  block per (64-row query tile, output row); a bias shared
 //                  over the batch is summed over it inside the block, batch
-//                  by batch, so the sum is deterministic without atomics.
+//                  by batch, so the sum is deterministic without atomics;
+//   demb_kernel    _demb_kernel (:1255, through _compute_demb, :1318): one
+//                  block per (64-row query tile, batch, head) recomputes P
+//                  and dP over its key tiles, writes dS of a tile to shared
+//                  memory, sums it by diagonal (one thread per distance,
+//                  rows in order), then by bucket (one thread per bucket,
+//                  distances in order, held in a register across the key
+//                  tiles), and writes one row of nb partial sums; the
+//                  wrapper sums the rows. No atomics, so the same inputs
+//                  give the same bits, and a far tile, whose 127 distances
+//                  share one bucket, costs its bucket's thread 127 adds, not
+//                  4096 contended ones.
 //
-// The TPU kernels stream K/V past 8 MiB of VMEM (_use_streaming, :467);
-// these already stream 64-key tiles through shared memory, so they take any
-// key length.
+// The TPU kernels stream K/V past 8 MiB of VMEM (_use_streaming, :467), and
+// always for T5; these already stream 64-key tiles through shared memory, so
+// one instance takes any key length: the bias-free and dense-bias modes of
+// _fwd_stream and _bwd_stream are the NO_BIAS and DENSE_BIAS instances.
 //
 // What bounds them: operations without a bias. One causal product at B = 4,
 // H = 32, S = 2048, D = 64 is 2 B H S^2 D / 2 = 34.4 GFLOP, 0.0347 ms at 989
@@ -76,9 +105,13 @@
 // (about two thirds of the card's tensor rate at best), 64-row tiles whose
 // K/V are read from L2 once per query tile and head (the GQA group is not
 // packed into one block), two pipeline stages, and the backward's two
-// recomputed products.
+// recomputed products. With the T5 table the bias costs no bytes (the index
+// and table are KBs, read through L1/L2), so the T5 kernels are bounded as
+// the bias-free ones; demb adds the two recomputed products per tile and its
+// diagonal and bucket sums in shared memory.
 
 #include <cuda_bf16.h>
+#include <algorithm>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -99,6 +132,10 @@ constexpr float LN2 = 0.6931471805599453f;
 // on 8 keys and 8 queries, rows 4 banks apart); both keep 16-byte rows
 constexpr int LDB = BN + 8;
 constexpr int LDBT = BM + 4;
+constexpr int MAX_BUCKETS = 128;   // one thread per bucket in demb_kernel
+
+// What the scores get added: nothing, a dense float32 bias, or T5's table.
+enum BiasKind : int { NO_BIAS = 0, DENSE_BIAS = 1, T5_BIAS = 2 };
 
 __device__ inline uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -200,6 +237,25 @@ __device__ inline const float* bias_row(const float* bias, int b, int h, int bs,
   return bias + ((int64_t)b * bs + (int64_t)h * hs) * Sq * Sk;
 }
 
+// The T5 bias of an (R-row, C-column) tile by diagonal: Bd[c - r + R - 1] for
+// tile row r and column c is table[index[k - q + Sq - 1], h] of query q0 + r
+// and key k0 + c, from the head's table column ``col`` in shared memory; 0
+// where the distance falls outside the index (a slot past Sq or Sk, masked
+// anyway). With ``bucket`` the bucket ids by diagonal too (-1 outside).
+// Plain loads and stores: the caller synchronises before reading.
+template <int R, int C>
+__device__ inline void t5_diagonals(float* Bd, int* bucket, const float* col,
+                                    const int* __restrict__ index, int q0, int k0, int Sq,
+                                    int Sk) {
+  const int base = k0 - q0 - (R - 1) + Sq - 1;
+  for (int t = threadIdx.x; t < R + C - 1; t += THREADS) {
+    const int g = base + t;
+    const int n = g >= 0 && g < Sq + Sk - 1 ? index[g] : -1;
+    Bd[t] = n >= 0 ? col[n] : 0.f;
+    if (bucket) bucket[t] = n;
+  }
+}
+
 // s[16 x 8 NT] = A[16 x D] . B[8 NT x D]^T for one warp: A's 16 rows and B's
 // rows in shared memory (leading dimension D + 8). s is in the mma
 // accumulator layout: s[j][0..1] at row lane / 4, columns 8 j + 2 (lane % 4)
@@ -260,17 +316,21 @@ __device__ inline bool visible(int row, int col, int Sk, const uint8_t* __restri
 
 // -- forward -------------------------------------------------------------------
 
-// BIAS: a float32 bias tile per (query tile, key tile), staged in shared
-// memory with the K/V tile, is added to the scaled scores; the running max
-// and lse then stay in natural units (a score near -1e9 loses its low bits
-// in log2 units), as JAX computes them.
-template <int D, bool BIAS>
+// DENSE_BIAS: a float32 bias tile per (query tile, key tile), staged in
+// shared memory with the K/V tile, is added to the scaled scores; T5_BIAS:
+// the tile's T5 bias by diagonal (t5_diagonals). The running max and lse then
+// stay in natural units (a score near -1e9 loses its low bits in log2
+// units), as JAX computes them.
+template <int D, int KIND>
 __global__ void __launch_bounds__(THREADS)
     fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                const bf16* __restrict__ v, const uint8_t* __restrict__ kv_mask,
                const float* __restrict__ bias, int bias_bs, int bias_hs,
-               bf16* __restrict__ out, float* __restrict__ lse, int H, int Hkv, int Sq,
-               int Sk, float scale, int causal, int window) {
+               const float* __restrict__ t5_table, const int* __restrict__ t5_index,
+               int nb, bf16* __restrict__ out, float* __restrict__ lse, int H, int Hkv,
+               int Sq, int Sk, float scale, int causal, int window) {
+  constexpr bool BIAS = KIND == DENSE_BIAS, T5 = KIND == T5_BIAS;
+  constexpr bool NAT = KIND != NO_BIAS;   // natural units
   constexpr int LD = D + 8;
   constexpr int NT = BN / 8;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -278,6 +338,8 @@ __global__ void __launch_bounds__(THREADS)
   bf16* Ks = Qs + BM * LD;       // [2][BN][LD]
   bf16* Vs = Ks + 2 * BN * LD;   // [2][BN][LD]
   float* Bs = reinterpret_cast<float*>(Vs + 2 * BN * LD);   // [2][BM][LDB] (BIAS)
+  float* Tc = Bs;                // [nb] the head's table column (T5)
+  float* Bd = Tc + nb;           // [BM + BN - 1] the tile's bias by diagonal (T5)
 
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BM;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
@@ -307,11 +369,15 @@ __global__ void __launch_bounds__(THREADS)
   load_tile<D, BM>(Qs, qg, q0, Sq);
   if (kt0 < kt1) load_kv(kt0, 0);
   cp_async_commit();
+  if constexpr (T5) {
+    for (int t = threadIdx.x; t < nb; t += THREADS) Tc[t] = t5_table[t * H + h];
+    __syncthreads();
+  }
 
   float o[D / 8][4];
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY};   // running row max (log2 units without BIAS)
+  float m[2] = {-INFINITY, -INFINITY};   // running row max (log2 units without NAT)
   float l[2] = {0.f, 0.f};               // this thread's part of the row sum
   const float sl2 = scale * LOG2E;
 
@@ -324,12 +390,16 @@ __global__ void __launch_bounds__(THREADS)
     } else {
       cp_async_wait<0>();
     }
+    if constexpr (T5) t5_diagonals<BM, BN>(Bd, nullptr, Tc, t5_index, q0, kt * BN, Sq, Sk);
     __syncthreads();
 
     float s[NT][4];
     warp_abt<D, NT>(s, Qs + warp * 16 * LD, Ks + st * BN * LD, lane);
     const int k0 = kt * BN;
     const float* Bt = Bs + st * BM * LDB + (warp * 16 + lane / 4) * LDB + tcol;
+    // T5: the diagonal of accumulator element (j, e) is j * 8 + (e & 1) -
+    // (e >> 1) * 8 past this lane's own
+    const float* Dt = Bd + tcol - (warp * 16 + lane / 4) + BM - 1;
     float mx[2] = {m[0], m[1]};
 #pragma unroll
     for (int j = 0; j < NT; ++j)
@@ -340,6 +410,8 @@ __global__ void __launch_bounds__(THREADS)
         if (visible(row, col, Sk, mg, causal, window)) {
           if constexpr (BIAS)
             t = s[j][e] * scale + Bt[(e >> 1) * 8 * LDB + j * 8 + (e & 1)];
+          else if constexpr (T5)
+            t = s[j][e] * scale + Dt[j * 8 + (e & 1) - (e >> 1) * 8];
           else
             t = s[j][e] * sl2;
         }
@@ -351,7 +423,7 @@ __global__ void __launch_bounds__(THREADS)
     for (int r = 0; r < 2; ++r) {
       mx[r] = quad_max(mx[r]);
       mu[r] = mx[r] == -INFINITY ? 0.f : mx[r];   // no visible key yet
-      const float alpha = BIAS ? exp2f((m[r] - mu[r]) * LOG2E) : exp2f(m[r] - mu[r]);
+      const float alpha = NAT ? exp2f((m[r] - mu[r]) * LOG2E) : exp2f(m[r] - mu[r]);
       m[r] = mx[r];
       l[r] *= alpha;
 #pragma unroll
@@ -364,7 +436,7 @@ __global__ void __launch_bounds__(THREADS)
     for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        s[j][e] = BIAS ? exp2f((s[j][e] - mu[e >> 1]) * LOG2E) : exp2f(s[j][e] - mu[e >> 1]);
+        s[j][e] = NAT ? exp2f((s[j][e] - mu[e >> 1]) * LOG2E) : exp2f(s[j][e] - mu[e >> 1]);
         l[e >> 1] += s[j][e];
       }
     warp_pm<D, NT>(o, s, Vs + st * BN * LD, lane);
@@ -385,21 +457,24 @@ __global__ void __launch_bounds__(THREADS)
           __floats2bfloat162_rn(o[j][2 * r] * inv, o[j][2 * r + 1] * inv);
     if (lane % 4 == 0)
       lse[(int64_t)bh * Sq + row] =
-          lr == 0.f ? NEG_INF : (BIAS ? m[r] : m[r] * LN2) + logf(lr);
+          lr == 0.f ? NEG_INF : (NAT ? m[r] : m[r] * LN2) + logf(lr);
   }
 }
 
 // -- backward: dq (and delta) --------------------------------------------------
 
-template <int D, bool BIAS>
+template <int D, int KIND>
 __global__ void __launch_bounds__(THREADS)
     bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, const uint8_t* __restrict__ kv_mask,
                   const float* __restrict__ bias, int bias_bs, int bias_hs,
-                  const bf16* __restrict__ out, const bf16* __restrict__ dout,
+                  const float* __restrict__ t5_table, const int* __restrict__ t5_index,
+                  int nb, const bf16* __restrict__ out, const bf16* __restrict__ dout,
                   const float* __restrict__ lse, float* __restrict__ delta,
                   bf16* __restrict__ dq, int H, int Hkv, int Sq, int Sk, float scale,
                   int causal, int window) {
+  constexpr bool BIAS = KIND == DENSE_BIAS, T5 = KIND == T5_BIAS;
+  constexpr bool NAT = KIND != NO_BIAS;
   constexpr int LD = D + 8;
   constexpr int NT = BN / 8;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -409,6 +484,8 @@ __global__ void __launch_bounds__(THREADS)
   bf16* Vs = Ks + 2 * BN * LD;   // [2][BN][LD]
   float* delta_s = reinterpret_cast<float*>(Vs + 2 * BN * LD);   // [BM]
   float* Bs = delta_s + BM;                                      // [2][BM][LDB] (BIAS)
+  float* Tc = Bs;                // [nb] (T5)
+  float* Bd = Tc + nb;           // [BM + BN - 1] (T5)
 
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BM;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
@@ -439,6 +516,10 @@ __global__ void __launch_bounds__(THREADS)
   load_tile<D, BM>(dOs, dout + q_off, q0, Sq);
   if (kt0 < kt1) load_kv(kt0, 0);
   cp_async_commit();
+  if constexpr (T5) {
+    for (int t = threadIdx.x; t < nb; t += THREADS) Tc[t] = t5_table[t * H + h];
+    __syncthreads();
+  }
 
   // delta of the warp's 16 rows in fp32 over the bf16 out, written for the
   // dk/dv kernel
@@ -462,12 +543,12 @@ __global__ void __launch_bounds__(THREADS)
     }
   }
   __syncwarp();
-  // lse in log2 units without BIAS, in natural units with it
+  // lse in log2 units without a bias, in natural units with one
   float lse2[2], dl[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + r * 8;
-    lse2[r] = row < Sq ? lse[(int64_t)bh * Sq + row] * (BIAS ? 1.f : LOG2E) : 0.f;
+    lse2[r] = row < Sq ? lse[(int64_t)bh * Sq + row] * (NAT ? 1.f : LOG2E) : 0.f;
     dl[r] = delta_s[warp * 16 + lane / 4 + r * 8];
   }
 
@@ -485,10 +566,12 @@ __global__ void __launch_bounds__(THREADS)
     } else {
       cp_async_wait<0>();
     }
+    if constexpr (T5) t5_diagonals<BM, BN>(Bd, nullptr, Tc, t5_index, q0, kt * BN, Sq, Sk);
     __syncthreads();
 
     const bf16* Kt = Ks + st * BN * LD;
     const float* Bt = Bs + st * BM * LDB + (warp * 16 + lane / 4) * LDB + tcol;
+    const float* Dt = Bd + tcol - (warp * 16 + lane / 4) + BM - 1;
     float s[NT][4], dp[NT][4];
     warp_abt<D, NT>(s, Qs + warp * 16 * LD, Kt, lane);
     warp_abt<D, NT>(dp, dOs + warp * 16 * LD, Vs + st * BN * LD, lane);
@@ -504,6 +587,8 @@ __global__ void __launch_bounds__(THREADS)
           if constexpr (BIAS)
             p = exp2f((s[j][e] * scale + Bt[r * 8 * LDB + j * 8 + (e & 1)] - lse2[r]) *
                       LOG2E);
+          else if constexpr (T5)
+            p = exp2f((s[j][e] * scale + Dt[j * 8 + (e & 1) - r * 8] - lse2[r]) * LOG2E);
           else
             p = exp2f(s[j][e] * sl2 - lse2[r]);
         }
@@ -529,19 +614,25 @@ __global__ void __launch_bounds__(THREADS)
 // -- backward: dk, dv ----------------------------------------------------------
 
 // NI: query rows per inner tile (64 for D = 32 and 64, 32 for D = 128,
-// which keeps the dk and dv accumulators in registers). With BIAS each inner
-// tile brings the (NI queries x 64 keys) bias tile of its own query head.
-template <int D, int NI, bool BIAS>
+// which keeps the dk and dv accumulators in registers). With DENSE_BIAS each
+// inner tile brings the (NI queries x 64 keys) bias tile of its own query
+// head; with T5_BIAS its bias by diagonal from its own head's table column
+// (the group's columns are staged once per block).
+template <int D, int NI, int KIND>
 __global__ void __launch_bounds__(THREADS)
     bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, const uint8_t* __restrict__ kv_mask,
                    const float* __restrict__ bias, int bias_bs, int bias_hs,
-                   const bf16* __restrict__ dout, const float* __restrict__ lse,
+                   const float* __restrict__ t5_table, const int* __restrict__ t5_index,
+                   int nb, const bf16* __restrict__ dout, const float* __restrict__ lse,
                    const float* __restrict__ delta, bf16* __restrict__ dk,
                    bf16* __restrict__ dv, int H, int Hkv, int Sq, int Sk, float scale,
                    int causal, int window) {
+  constexpr bool BIAS = KIND == DENSE_BIAS, T5 = KIND == T5_BIAS;
+  constexpr bool NAT = KIND != NO_BIAS;
   constexpr int LD = D + 8;
   constexpr int NT = NI / 8;
+  constexpr int ND = NI + BM - 1;   // diagonals of an inner tile (T5)
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* Ks = reinterpret_cast<bf16*>(smem);
   bf16* Vs = Ks + BM * LD;
@@ -550,6 +641,8 @@ __global__ void __launch_bounds__(THREADS)
   float* lse_s = reinterpret_cast<float*>(dOs + 2 * NI * LD);   // [2][NI]
   float* delta_s = lse_s + 2 * NI;                              // [2][NI]
   float* Bs = delta_s + 2 * NI;                                 // [2][NI][LDBT] (BIAS)
+  float* Bd = Bs;                // [2][ND] an inner tile's bias by diagonal (T5)
+  float* Tg = Bd + 2 * ND;       // [group][nb] the group's table columns (T5)
 
   const int j0 = blockIdx.x * BM;
   const int bk = blockIdx.y, b = bk / Hkv, hk = bk % Hkv;
@@ -579,14 +672,22 @@ __global__ void __launch_bounds__(THREADS)
       load_bias_tile<NI, BM, LDBT>(Bs + stage * NI * LDBT,
                                    bias_row(bias, b, hh, bias_bs, bias_hs, Sq, Sk), i0,
                                    j0, Sq, Sk, bvec);
+    if constexpr (T5)
+      t5_diagonals<NI, BM>(Bd + stage * ND, nullptr, Tg + (idx / ntiles) * nb, t5_index,
+                           i0, j0, Sq, Sk);
     const int64_t r_off = ((int64_t)b * H + hh) * Sq;
     for (int i = threadIdx.x; i < NI; i += THREADS) {
       const bool ok = i0 + i < Sq;
-      lse_s[stage * NI + i] = ok ? lse[r_off + i0 + i] * (BIAS ? 1.f : LOG2E) : 0.f;
+      lse_s[stage * NI + i] = ok ? lse[r_off + i0 + i] * (NAT ? 1.f : LOG2E) : 0.f;
       delta_s[stage * NI + i] = ok ? delta[r_off + i0 + i] : 0.f;
     }
   };
 
+  if constexpr (T5) {
+    for (int t = threadIdx.x; t < group * nb; t += THREADS)
+      Tg[t] = t5_table[(t % nb) * H + hk * group + t / nb];
+    __syncthreads();
+  }
   load_tile<D, BM>(Ks, k + kv_off, j0, Sk);
   load_tile<D, BM>(Vs, v + kv_off, j0, Sk);
   if (iters > 0) load_inner(0, 0);
@@ -621,6 +722,8 @@ __global__ void __launch_bounds__(THREADS)
     const float* ls = lse_s + st * NI;
     const float* ds_ = delta_s + st * NI;
     const float* Bt = Bs + st * NI * LDBT + warp * 16 + lane / 4;
+    // T5: the diagonal of (key row, query column ci) is key - ci past NI - 1
+    const float* Dt = Bd + st * ND + warp * 16 + lane / 4 + NI - 1;
     const int i0 = (it0 + idx % ntiles) * NI;
     float s[NT][4], dp[NT][4];   // transposed: rows are keys, columns queries
     warp_abt<D, NT>(s, Ks + warp * 16 * LD, Qt, lane);
@@ -639,6 +742,8 @@ __global__ void __launch_bounds__(THREADS)
         if (ok) {
           if constexpr (BIAS)
             p = exp2f((s[j][e] * scale + Bt[ci * LDBT + r * 8] - ls[ci]) * LOG2E);
+          else if constexpr (T5)
+            p = exp2f((s[j][e] * scale + Dt[r * 8 - ci] - ls[ci]) * LOG2E);
           else
             p = exp2f(s[j][e] * sl2 - ls[ci]);
         }
@@ -781,6 +886,126 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+// -- backward: the T5 table's gradient -----------------------------------------
+
+// demb[n, h] = sum over b and the (i, j) of bucket n of dS = P (dP - delta),
+// fp32, 0 where a key is not visible. One block per (64-row query tile,
+// batch b, head h) loops over its live key tiles: each tile's dS goes to
+// shared memory, thread t sums diagonal t (rows in order), then thread n
+// adds the diagonals of bucket n (in order) to its register; the block
+// writes its nb sums to partial[((b H + h) tiles + query tile) nb + n]. The
+// order of every sum is fixed, so the result is deterministic.
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+    demb_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                const bf16* __restrict__ v, const uint8_t* __restrict__ kv_mask,
+                const float* __restrict__ t5_table, const int* __restrict__ t5_index, int nb,
+                const bf16* __restrict__ dout, const float* __restrict__ lse,
+                const float* __restrict__ delta, float* __restrict__ partial, int H, int Hkv,
+                int Sq, int Sk, float scale, int causal, int window) {
+  constexpr int LD = D + 8;
+  constexpr int NT = BN / 8;
+  constexpr int ND = BM + BN - 1;   // diagonals of a tile
+  constexpr int LDS = BN + 1;       // the dS tile's rows, 1 bank apart
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* dOs = Qs + BM * LD;
+  bf16* Ks = dOs + BM * LD;      // [2][BN][LD]
+  bf16* Vs = Ks + 2 * BN * LD;   // [2][BN][LD]
+  float* dS = reinterpret_cast<float*>(Vs + 2 * BN * LD);   // [BM][LDS]
+  float* Bd = dS + BM * LDS;     // [ND] the tile's bias by diagonal
+  float* Dd = Bd + ND;           // [ND] the tile's dS summed by diagonal
+  int* Bi = reinterpret_cast<int*>(Dd + ND);                // [ND] bucket by diagonal
+  float* Tc = reinterpret_cast<float*>(Bi + ND);            // [nb] the head's column
+
+  const int q0 = blockIdx.x * BM;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int hk = h / (H / Hkv);
+  const int64_t q_off = (int64_t)bh * Sq * D;
+  const int64_t kv_off = ((int64_t)b * Hkv + hk) * Sk * D;
+  const bf16* kg = k + kv_off;
+  const bf16* vg = v + kv_off;
+  const uint8_t* mg = kv_mask + (int64_t)b * Sk;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int row0 = q0 + warp * 16 + lane / 4;
+  const int tcol = 2 * (lane % 4);
+
+  int kt0 = 0, kt1 = (Sk + BN - 1) / BN;
+  if (causal) kt1 = min(kt1, (q0 + BM - 1) / BN + 1);
+  if (window > 0) kt0 = max(0, (q0 - window + 1) / BN);
+
+  auto load_kv = [&](int kt, int stage) {
+    load_tile<D, BN>(Ks + stage * BN * LD, kg, kt * BN, Sk);
+    load_tile<D, BN>(Vs + stage * BN * LD, vg, kt * BN, Sk);
+  };
+  load_tile<D, BM>(Qs, q + q_off, q0, Sq);
+  load_tile<D, BM>(dOs, dout + q_off, q0, Sq);
+  if (kt0 < kt1) load_kv(kt0, 0);
+  cp_async_commit();
+  for (int t = threadIdx.x; t < nb; t += THREADS) Tc[t] = t5_table[t * H + h];
+  __syncthreads();
+
+  float lse_r[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + r * 8;
+    lse_r[r] = row < Sq ? lse[(int64_t)bh * Sq + row] : 0.f;
+    dl[r] = row < Sq ? delta[(int64_t)bh * Sq + row] : 0.f;
+  }
+  float acc = 0.f;   // bucket threadIdx.x's sum (threads below nb)
+
+  for (int kt = kt0; kt < kt1; ++kt) {
+    const int st = (kt - kt0) & 1;
+    if (kt + 1 < kt1) {
+      load_kv(kt + 1, st ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    t5_diagonals<BM, BN>(Bd, Bi, Tc, t5_index, q0, kt * BN, Sq, Sk);
+    __syncthreads();
+
+    float s[NT][4], dp[NT][4];
+    warp_abt<D, NT>(s, Qs + warp * 16 * LD, Ks + st * BN * LD, lane);
+    warp_abt<D, NT>(dp, dOs + warp * 16 * LD, Vs + st * BN * LD, lane);
+    const int k0 = kt * BN;
+    const float* Dt = Bd + tcol - (warp * 16 + lane / 4) + BM - 1;
+    float* St = dS + (warp * 16 + lane / 4) * LDS + tcol;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const int row = row0 + r * 8, col = k0 + j * 8 + tcol + (e & 1);
+        float ds = 0.f;
+        if (row < Sq && visible(row, col, Sk, mg, causal, window))
+          ds = exp2f((s[j][e] * scale + Dt[j * 8 + (e & 1) - r * 8] - lse_r[r]) * LOG2E) *
+               (dp[j][e] - dl[r]);
+        St[r * 8 * LDS + j * 8 + (e & 1)] = ds;
+      }
+    __syncthreads();
+    // diagonal t holds the (row, col = row + t - (BM - 1)) of the tile
+    for (int t = threadIdx.x; t < ND; t += THREADS) {
+      const int r_lo = max(0, BM - 1 - t), r_hi = min(BM, BM - 1 - t + BN);
+      float sum = 0.f;
+      for (int r = r_lo; r < r_hi; ++r) sum += dS[r * LDS + r + t - (BM - 1)];
+      Dd[t] = sum;
+    }
+    __syncthreads();
+    if (threadIdx.x < nb) {
+      float sum = 0.f;
+      for (int t = 0; t < ND; ++t)
+        if (Bi[t] == (int)threadIdx.x) sum += Dd[t];
+      acc += sum;
+    }
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+  if (threadIdx.x < nb)
+    partial[((int64_t)bh * gridDim.x + blockIdx.x) * nb + threadIdx.x] = acc;
+}
+
 // -- launchers -----------------------------------------------------------------
 
 // Above 48 KB a kernel must opt in to dynamic shared memory; done on the
@@ -800,68 +1025,91 @@ bool bad_args(int B, int H, int Hkv, int Sq, int Sk, int D, int window) {
          (D != 32 && D != 64 && D != 128) || window < 0 || (int64_t)B * H > 65535;
 }
 
-// Shared memory of the biased kernels' two stages of float32 bias tiles.
-constexpr size_t bias_smem(bool bias, int rows, int ld) {
-  return bias ? (size_t)2 * rows * ld * sizeof(float) : 0;
+// A dense bias and a T5 table exclude each other; a table has 1 to
+// MAX_BUCKETS buckets and comes with its index.
+bool bad_bias(const float* bias, const float* table, const int* index, int nb) {
+  if (table == nullptr) return false;
+  return bias != nullptr || index == nullptr || nb <= 0 || nb > MAX_BUCKETS;
 }
 
-template <int D, bool BIAS>
+// Shared memory of a bias: two stages of float32 bias tiles (rows x ld) for
+// a dense bias; for T5 the diagonals of two stages (dk/dv) or one tile, and
+// ``columns`` table columns of nb buckets.
+constexpr size_t bias_smem(int kind, int rows, int ld, int diagonals, int columns, int nb) {
+  return kind == DENSE_BIAS ? (size_t)2 * rows * ld * sizeof(float)
+         : kind == T5_BIAS  ? (size_t)(diagonals + columns * nb) * sizeof(float)
+                            : 0;
+}
+
+template <int D, int KIND>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, const uint8_t* mask,
-                       const float* bias, int bs, int hs, void* out, float* lse, int B,
-                       int H, int Hkv, int Sq, int Sk, float scale, int causal, int window,
+                       const float* bias, int bs, int hs, const float* table,
+                       const int* index, int nb, void* out, float* lse, int B, int H,
+                       int Hkv, int Sq, int Sk, float scale, int causal, int window,
                        cudaStream_t stream) {
-  const size_t bytes =
-      (size_t)(BM + 4 * BN) * (D + 8) * sizeof(bf16) + bias_smem(BIAS, BM, LDB);
-  static bool done = false;
-  cudaError_t err = allow_smem(fwd_kernel<D, BIAS>, bytes, done);
+  const size_t bytes = (size_t)(BM + 4 * BN) * (D + 8) * sizeof(bf16) +
+                       bias_smem(KIND, BM, LDB, BM + BN - 1, 1, nb);
+  // the largest the instance is launched with, so a later, larger table
+  // (more buckets) is allowed again
+  static size_t allowed = 0;
+  bool done = bytes <= allowed;
+  cudaError_t err = allow_smem(fwd_kernel<D, KIND>, bytes, done);
   if (err != cudaSuccess) return err;
+  allowed = std::max(allowed, bytes);
   const dim3 grid((Sq + BM - 1) / BM, B * H);
-  fwd_kernel<D, BIAS><<<grid, THREADS, bytes, stream>>>(
+  fwd_kernel<D, KIND><<<grid, THREADS, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), mask, bias, bs, hs, static_cast<bf16*>(out), lse, H,
-      Hkv, Sq, Sk, scale, causal, window);
+      static_cast<const bf16*>(v), mask, bias, bs, hs, table, index, nb,
+      static_cast<bf16*>(out), lse, H, Hkv, Sq, Sk, scale, causal, window);
   return cudaGetLastError();
 }
 
-template <int D, bool BIAS>
+template <int D, int KIND>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const uint8_t* mask,
-                      const float* bias, int bs, int hs, const void* out, const void* dout,
+                      const float* bias, int bs, int hs, const float* table,
+                      const int* index, int nb, const void* out, const void* dout,
                       const float* lse, float* delta, void* dq, int B, int H, int Hkv,
                       int Sq, int Sk, float scale, int causal, int window,
                       cudaStream_t stream) {
   const size_t bytes = (size_t)(2 * BM + 4 * BN) * (D + 8) * sizeof(bf16) +
-                       BM * sizeof(float) + bias_smem(BIAS, BM, LDB);
-  static bool done = false;
-  cudaError_t err = allow_smem(bwd_dq_kernel<D, BIAS>, bytes, done);
+                       BM * sizeof(float) + bias_smem(KIND, BM, LDB, BM + BN - 1, 1, nb);
+  static size_t allowed = 0;
+  bool done = bytes <= allowed;
+  cudaError_t err = allow_smem(bwd_dq_kernel<D, KIND>, bytes, done);
   if (err != cudaSuccess) return err;
+  allowed = std::max(allowed, bytes);
   const dim3 grid((Sq + BM - 1) / BM, B * H);
-  bwd_dq_kernel<D, BIAS><<<grid, THREADS, bytes, stream>>>(
+  bwd_dq_kernel<D, KIND><<<grid, THREADS, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), mask, bias, bs, hs, static_cast<const bf16*>(out),
-      static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dq), H, Hkv, Sq,
-      Sk, scale, causal, window);
+      static_cast<const bf16*>(v), mask, bias, bs, hs, table, index, nb,
+      static_cast<const bf16*>(out), static_cast<const bf16*>(dout), lse, delta,
+      static_cast<bf16*>(dq), H, Hkv, Sq, Sk, scale, causal, window);
   return cudaGetLastError();
 }
 
-template <int D, bool BIAS>
+template <int D, int KIND>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v, const uint8_t* mask,
-                       const float* bias, int bs, int hs, const void* dout,
-                       const float* lse, const float* delta, void* dk, void* dv, int B,
-                       int H, int Hkv, int Sq, int Sk, float scale, int causal, int window,
+                       const float* bias, int bs, int hs, const float* table,
+                       const int* index, int nb, const void* dout, const float* lse,
+                       const float* delta, void* dk, void* dv, int B, int H, int Hkv,
+                       int Sq, int Sk, float scale, int causal, int window,
                        cudaStream_t stream) {
   constexpr int NI = D == 128 ? 32 : 64;   // query rows per inner tile
   const size_t bytes = (size_t)(2 * BM + 4 * NI) * (D + 8) * sizeof(bf16) +
-                       4 * NI * sizeof(float) + bias_smem(BIAS, NI, LDBT);
-  auto kernel = bwd_dkv_kernel<D, NI, BIAS>;
-  static bool done = false;
+                       4 * NI * sizeof(float) +
+                       bias_smem(KIND, NI, LDBT, 2 * (NI + BM - 1), H / Hkv, nb);
+  auto kernel = bwd_dkv_kernel<D, NI, KIND>;
+  static size_t allowed = 0;
+  bool done = bytes <= allowed;
   cudaError_t err = allow_smem(kernel, bytes, done);
   if (err != cudaSuccess) return err;
+  allowed = std::max(allowed, bytes);
   const dim3 grid((Sk + BM - 1) / BM, B * Hkv);
   kernel<<<grid, THREADS, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), mask, bias, bs, hs, static_cast<const bf16*>(dout),
-      lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, Hkv, Sq, Sk, scale,
-      causal, window);
+      static_cast<const bf16*>(v), mask, bias, bs, hs, table, index, nb,
+      static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), H, Hkv, Sq, Sk, scale, causal, window);
   return cudaGetLastError();
 }
 
@@ -871,8 +1119,8 @@ cudaError_t launch_dbias(const void* q, const void* k, const void* v, const uint
                          const float* lse, const float* delta, float* dbias, int B, int H,
                          int Hkv, int Sq, int Sk, float scale, int causal, int window,
                          cudaStream_t stream) {
-  const size_t bytes =
-      (size_t)(2 * BM + 4 * BN) * (D + 8) * sizeof(bf16) + bias_smem(true, BM, LDB);
+  const size_t bytes = (size_t)(2 * BM + 4 * BN) * (D + 8) * sizeof(bf16) +
+                       bias_smem(DENSE_BIAS, BM, LDB, 0, 0, 0);
   static bool done = false;
   cudaError_t err = allow_smem(dbias_kernel<D>, bytes, done);
   if (err != cudaSuccess) return err;
@@ -886,15 +1134,38 @@ cudaError_t launch_dbias(const void* q, const void* k, const void* v, const uint
   return cudaGetLastError();
 }
 
-// The call of LAUNCH's instance for the head dim D (32, 64 or 128) and
-// BIAS = (bias != nullptr).
-#define FLASH_DISPATCH(LAUNCH, bias, D, ...)                                       \
-  ((bias) ? ((D) == 32   ? LAUNCH<32, true>(__VA_ARGS__)                          \
-             : (D) == 64 ? LAUNCH<64, true>(__VA_ARGS__)                          \
-                         : LAUNCH<128, true>(__VA_ARGS__))                        \
-          : ((D) == 32   ? LAUNCH<32, false>(__VA_ARGS__)                         \
-             : (D) == 64 ? LAUNCH<64, false>(__VA_ARGS__)                         \
-                         : LAUNCH<128, false>(__VA_ARGS__)))
+template <int D>
+cudaError_t launch_demb(const void* q, const void* k, const void* v, const uint8_t* mask,
+                        const float* table, const int* index, int nb, const void* dout,
+                        const float* lse, const float* delta, float* partial, int B, int H,
+                        int Hkv, int Sq, int Sk, float scale, int causal, int window,
+                        cudaStream_t stream) {
+  constexpr int ND = BM + BN - 1;
+  const size_t bytes = (size_t)(2 * BM + 4 * BN) * (D + 8) * sizeof(bf16) +
+                       ((size_t)BM * (BN + 1) + 3 * ND + nb) * sizeof(float);
+  static size_t allowed = 0;
+  bool done = bytes <= allowed;
+  cudaError_t err = allow_smem(demb_kernel<D>, bytes, done);
+  if (err != cudaSuccess) return err;
+  allowed = std::max(allowed, bytes);
+  const dim3 grid((Sq + BM - 1) / BM, B * H);
+  demb_kernel<D><<<grid, THREADS, bytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), mask, table, index, nb, static_cast<const bf16*>(dout),
+      lse, delta, partial, H, Hkv, Sq, Sk, scale, causal, window);
+  return cudaGetLastError();
+}
+
+// The call of LAUNCH's instance for the head dim D (32, 64 or 128) and the
+// bias kind: T5_BIAS with a table, DENSE_BIAS with a bias, else NO_BIAS.
+#define FLASH_BY_DIM(LAUNCH, KIND, D, ...)                                           \
+  ((D) == 32   ? LAUNCH<32, KIND>(__VA_ARGS__)                                       \
+   : (D) == 64 ? LAUNCH<64, KIND>(__VA_ARGS__)                                       \
+               : LAUNCH<128, KIND>(__VA_ARGS__))
+#define FLASH_DISPATCH(LAUNCH, bias, table, D, ...)                                  \
+  ((table)  ? FLASH_BY_DIM(LAUNCH, T5_BIAS, D, __VA_ARGS__)                          \
+   : (bias) ? FLASH_BY_DIM(LAUNCH, DENSE_BIAS, D, __VA_ARGS__)                       \
+            : FLASH_BY_DIM(LAUNCH, NO_BIAS, D, __VA_ARGS__))
 
 }  // namespace flash
 
@@ -908,39 +1179,49 @@ extern "C" {
 // cudaGetLastError() after the launch (0 on success), or cudaErrorInvalidValue
 // for arguments the kernels do not take.
 //
-// bias is nullptr (the bias-free kernels) or a float32 bias (b0 h0, Sq, Sk),
-// contiguous and 16-byte aligned, with b0 in {1, B} and h0 in {1, H}, and the
-// row strides bs (0 when b0 = 1, else h0) and hs (0 when h0 = 1, else 1): the
-// row of (b, h) is b bs + h hs.
+// bias is nullptr or a float32 bias (b0 h0, Sq, Sk), contiguous and 16-byte
+// aligned, with b0 in {1, B} and h0 in {1, H}, and the row strides bs (0 when
+// b0 = 1, else h0) and hs (0 when h0 = 1, else 1): the row of (b, h) is
+// b bs + h hs. t5_table is nullptr or T5's float32 (nb, H) table, with
+// t5_index the int32 bucket of every distance (Sq + Sk - 1 entries, entry
+// k - q + Sq - 1 for query slot q and key slot k; it carries the direction)
+// and 1 <= nb <= 128; never with a bias. Neither: the bias-free kernels.
 int flash_fwd(const void* q, const void* k, const void* v, const uint8_t* kv_mask,
-              const float* bias, int bs, int hs, void* out, float* lse, int B, int H,
-              int Hkv, int Sq, int Sk, int D, float scale, int causal, int window,
-              void* stream) {
-  if (bad_args(B, H, Hkv, Sq, Sk, D, window)) return (int)cudaErrorInvalidValue;
-  return (int)FLASH_DISPATCH(launch_fwd, bias, D, q, k, v, kv_mask, bias, bs, hs, out, lse,
-                             B, H, Hkv, Sq, Sk, scale, causal, window,
-                             static_cast<cudaStream_t>(stream));
+              const float* bias, int bs, int hs, const float* t5_table,
+              const int* t5_index, int nb, void* out, float* lse, int B, int H, int Hkv,
+              int Sq, int Sk, int D, float scale, int causal, int window, void* stream) {
+  if (bad_args(B, H, Hkv, Sq, Sk, D, window) || bad_bias(bias, t5_table, t5_index, nb))
+    return (int)cudaErrorInvalidValue;
+  return (int)FLASH_DISPATCH(launch_fwd, bias, t5_table, D, q, k, v, kv_mask, bias, bs, hs,
+                             t5_table, t5_index, nb, out, lse, B, H, Hkv, Sq, Sk, scale,
+                             causal, window, static_cast<cudaStream_t>(stream));
 }
 
 // dq (B, H, Sq, D) bfloat16; delta (B, H, Sq) f32 is written for flash_bwd_dkv.
 int flash_bwd_dq(const void* q, const void* k, const void* v, const uint8_t* kv_mask,
-                 const float* bias, int bs, int hs, const void* out, const void* dout,
+                 const float* bias, int bs, int hs, const float* t5_table,
+                 const int* t5_index, int nb, const void* out, const void* dout,
                  const float* lse, float* delta, void* dq, int B, int H, int Hkv, int Sq,
                  int Sk, int D, float scale, int causal, int window, void* stream) {
-  if (bad_args(B, H, Hkv, Sq, Sk, D, window)) return (int)cudaErrorInvalidValue;
-  return (int)FLASH_DISPATCH(launch_dq, bias, D, q, k, v, kv_mask, bias, bs, hs, out, dout,
-                             lse, delta, dq, B, H, Hkv, Sq, Sk, scale, causal, window,
+  if (bad_args(B, H, Hkv, Sq, Sk, D, window) || bad_bias(bias, t5_table, t5_index, nb))
+    return (int)cudaErrorInvalidValue;
+  return (int)FLASH_DISPATCH(launch_dq, bias, t5_table, D, q, k, v, kv_mask, bias, bs, hs,
+                             t5_table, t5_index, nb, out, dout, lse, delta, dq, B, H, Hkv,
+                             Sq, Sk, scale, causal, window,
                              static_cast<cudaStream_t>(stream));
 }
 
 // dk, dv (B, Hkv, Sk, D) bfloat16, summed over each K/V head's query heads.
 int flash_bwd_dkv(const void* q, const void* k, const void* v, const uint8_t* kv_mask,
-                  const float* bias, int bs, int hs, const void* dout, const float* lse,
+                  const float* bias, int bs, int hs, const float* t5_table,
+                  const int* t5_index, int nb, const void* dout, const float* lse,
                   const float* delta, void* dk, void* dv, int B, int H, int Hkv, int Sq,
                   int Sk, int D, float scale, int causal, int window, void* stream) {
-  if (bad_args(B, H, Hkv, Sq, Sk, D, window)) return (int)cudaErrorInvalidValue;
-  return (int)FLASH_DISPATCH(launch_dkv, bias, D, q, k, v, kv_mask, bias, bs, hs, dout, lse,
-                             delta, dk, dv, B, H, Hkv, Sq, Sk, scale, causal, window,
+  if (bad_args(B, H, Hkv, Sq, Sk, D, window) || bad_bias(bias, t5_table, t5_index, nb))
+    return (int)cudaErrorInvalidValue;
+  return (int)FLASH_DISPATCH(launch_dkv, bias, t5_table, D, q, k, v, kv_mask, bias, bs, hs,
+                             t5_table, t5_index, nb, dout, lse, delta, dk, dv, B, H, Hkv,
+                             Sq, Sk, scale, causal, window,
                              static_cast<cudaStream_t>(stream));
 }
 
@@ -960,6 +1241,27 @@ int flash_bwd_dbias(const void* q, const void* k, const void* v, const uint8_t* 
   return (int)(D == 32   ? launch_dbias<32>(ARGS)
                : D == 64 ? launch_dbias<64>(ARGS)
                          : launch_dbias<128>(ARGS));
+#undef ARGS
+}
+
+// partial (B, H, ceil(Sq / 64), nb) f32: the T5 table's gradient summed per
+// (batch, head, 64-row query tile); the caller sums over the batch and the
+// tiles. t5_table, t5_index and nb as for flash_fwd, not nullptr.
+int flash_bwd_demb(const void* q, const void* k, const void* v, const uint8_t* kv_mask,
+                   const float* t5_table, const int* t5_index, int nb, const void* dout,
+                   const float* lse, const float* delta, float* partial, int B, int H,
+                   int Hkv, int Sq, int Sk, int D, float scale, int causal, int window,
+                   void* stream) {
+  if (bad_args(B, H, Hkv, Sq, Sk, D, window) || t5_table == nullptr ||
+      bad_bias(nullptr, t5_table, t5_index, nb))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define ARGS                                                                          \
+  q, k, v, kv_mask, t5_table, t5_index, nb, dout, lse, delta, partial, B, H, Hkv, Sq, Sk, \
+      scale, causal, window, s
+  return (int)(D == 32   ? launch_demb<32>(ARGS)
+               : D == 64 ? launch_demb<64>(ARGS)
+                         : launch_demb<128>(ARGS));
 #undef ARGS
 }
 

@@ -1,5 +1,6 @@
 """Multi-head attention with grouped K/V heads, RoPE, additive biases
-(ALiBi), sliding windows, a fixed-size KV cache and lineage beam attention.
+(ALiBi), T5's relative-position table, sliding windows, a fixed-size KV
+cache and lineage beam attention.
 
 PyTorch counterpart of pasero_tpu/models/attention.py. As there:
 
@@ -9,6 +10,9 @@ PyTorch counterpart of pasero_tpu/models/attention.py. As there:
 - masks are boolean (True = attend) and biases additive float32, added to
   the scaled scores before the mask; causality and the sliding window come
   from positions on the plain path, from slot indices in the flash kernels;
+- a T5 table (``T5Bias``) reaches the flash kernels as it is, which bucket
+  slot distances themselves; every other path materializes the bias from
+  the call's positions (pasero_tpu/models/attention.py:186-201);
 - attention scores, their softmax and the tied logits are float32 products
   of ``dtype`` operands (flax's ``preferred_element_type=float32``);
 - ``kernel`` picks the full forward's attention: 'xla' (the plain path),
@@ -33,9 +37,9 @@ from torch import nn
 
 from .. import not_ported
 from ..ops.cache_update import cache_slot_write_
-from ..ops.flash_attention import flash_attention
+from ..ops.flash_attention import T5Bias, flash_attention
 from .modules import Dropout, Linear
-from .positional import apply_rope
+from .positional import apply_rope, t5_bias_from_table
 
 NEG_INF = -1e9  # large finite value: safe for padded rows (softmax of all -1e9 is uniform, masked later)
 
@@ -122,9 +126,8 @@ def dot_product_attention(q, k, v, mask=None, bias=None, scale=1.0,
 class MultiheadAttention(nn.Module):
     """Multi-head attention (pasero_tpu/models/attention.py:122) with
     grouped K/V heads (``kv_heads``), RoPE on self-attention (``rope_base``),
-    an additive bias (ALiBi), a sliding window, the kernel choice, and the
-    decode caches of ``_update_cache`` (:317). The T5 table comes with a
-    later slice."""
+    an additive bias (ALiBi) or T5's table, a sliding window, the kernel
+    choice, and the decode caches of ``_update_cache`` (:317)."""
 
     def __init__(self, embed_dim: int, num_heads: int, use_bias: bool = True,
                  key_bias: bool = True, scale_attn: bool = True,
@@ -171,7 +174,8 @@ class MultiheadAttention(nn.Module):
                   biased: bool = False) -> bool:
         """JAX's choice (pasero_tpu/models/attention.py:256-284): flash
         never runs at decode or under live attention dropout; grouped K/V
-        heads take it from 1024^2 scores only without a bias."""
+        heads take it from 1024^2 scores only without a bias (a T5 table
+        counts as one)."""
         dropout_live = self.training and self.dropout.rate > 0
         kernel = self.kernel
         if kernel == "auto":
@@ -188,7 +192,8 @@ class MultiheadAttention(nn.Module):
         (B, 1, Sq|1, Sk|L), True = attend; positions: (B, Sq) absolute
         positions; cache: this layer's KVCache at decode time;
         beam_lineage: (B0, K, L) for lineage beam attention; bias: float32
-        (B|1, H|1, Sq, Sk|L), added to the scaled scores."""
+        (B|1, H|1, Sq, Sk|L), added to the scaled scores, or a T5Bias in a
+        full forward (the decoder materializes T5's bias over the cache)."""
         B, Sq = x_q.shape[:2]
         q = self._heads(self.q_proj(x_q), self.num_heads)
         if positions is None:
@@ -211,15 +216,23 @@ class MultiheadAttention(nn.Module):
                     k, v, mask = self._update_cache(cache, k, v, positions,
                                                     mask, self.sliding_window)
 
+        t5 = bias if isinstance(bias, T5Bias) else None
+        if t5 is not None and (cache is not None or self.cross_attention):
+            raise ValueError("a T5 table takes a full self-attention forward")
         if self.use_flash(Sq, k.shape[2], cache is not None, bias is not None):
             # GQA-sized K/V go in as they are; causality and the window come
             # from slot indices inside the kernels, so only the key mask of
             # ``mask`` is used
             out = flash_attention(q.contiguous(), k.contiguous(),
-                                  v.contiguous(), mask=mask, bias=bias,
+                                  v.contiguous(), mask=mask,
+                                  bias=None if t5 else bias,
                                   scale=self.scale, causal=self.causal,
-                                  window=self.sliding_window)
+                                  window=self.sliding_window, t5_bias=t5)
         else:
+            if t5 is not None:
+                bias = t5_bias_from_table(t5.table, positions, positions,
+                                          t5.bidirectional, t5.num_buckets,
+                                          t5.max_distance)
             if self.causal and cache is None:
                 causal = (positions[:, None, None, :]
                           <= positions[:, None, :, None])

@@ -1,12 +1,13 @@
 """Positional encodings: sinusoidal and learned (added to the embeddings),
-RoPE (rotating queries and keys) and ALiBi (an additive attention bias).
+RoPE (rotating queries and keys), ALiBi (an additive attention bias) and
+T5's learned relative-position buckets.
 
-PyTorch counterpart of pasero_tpu/models/positional.py:21-122. T5 relative
-buckets come with a later slice (ROADMAP.md, A.8).
+PyTorch counterpart of pasero_tpu/models/positional.py.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -109,3 +110,98 @@ def alibi_bias(num_heads: int, q_positions: torch.Tensor,
         future = rel > 0
         bias = bias.masked_fill(torch.where(left, future, ~future), -1e9)
     return bias
+
+
+# -- T5 relative position buckets --------------------------------------------
+
+def t5_bucket(relative_position: np.ndarray, bidirectional: bool,
+              num_buckets: int = 32, max_distance: int = 128) -> np.ndarray:
+    """T5 bucket ids (int32) of relative positions q - k
+    (pasero_tpu/models/positional.py:125), in numpy on the host: the log is
+    taken in float32 with JAX's constants (the ``+ 1e-6`` and the Python
+    double ``log(max_distance / max_exact)`` rounded to float32), so the
+    bucket boundaries fall where JAX's do."""
+    n = -np.asarray(relative_position, dtype=np.int32)
+    ret = np.zeros_like(n)
+    if bidirectional:
+        num_buckets //= 2
+        ret = ret + (n < 0).astype(np.int32) * num_buckets
+        n = np.abs(n)
+    else:
+        n = np.maximum(n, 0)
+    max_exact = num_buckets // 2
+    is_small = n < max_exact
+    with np.errstate(divide="ignore"):
+        log_ratio = np.log(n.astype(np.float32) / np.float32(max_exact)
+                           + np.float32(1e-6)) \
+            / np.float32(math.log(max_distance / max_exact))
+    val_large = max_exact + (log_ratio * np.float32(num_buckets - max_exact)
+                             ).astype(np.int32)
+    val_large = np.minimum(val_large, num_buckets - 1)
+    return (ret + np.where(is_small, n, val_large)).astype(np.int32)
+
+
+@functools.lru_cache(maxsize=64)
+def _distance_buckets(Sq: int, Sk: int, bidirectional: bool,
+                      num_buckets: int, max_distance: int,
+                      device: str) -> torch.Tensor:
+    d = np.arange(-(Sq - 1), Sk, dtype=np.int32)       # k - q
+    return torch.from_numpy(t5_bucket(-d, bidirectional, num_buckets,
+                                      max_distance)).to(device)
+
+
+def t5_distance_buckets(Sq: int, Sk: int, bidirectional: bool,
+                        num_buckets: int, max_distance: int,
+                        device=None) -> torch.Tensor:
+    """The bucket of every key-query distance of an (Sq, Sk) attention:
+    int32 of length Sq + Sk - 1 whose entry k - q + Sq - 1 is the bucket of
+    query slot q and key slot k. O(S), computed once per key on the host and
+    kept on ``device`` (callers must not write to it); the plain path, the
+    materialized bias and the flash kernels all read it, so no
+    transcendental runs on the device."""
+    return _distance_buckets(Sq, Sk, bool(bidirectional), num_buckets,
+                             max_distance, str(torch.device(device or "cpu")))
+
+
+def t5_bias_from_table(table: torch.Tensor, q_positions: torch.Tensor,
+                       k_positions: torch.Tensor, bidirectional: bool,
+                       num_buckets: int = 32,
+                       max_distance: int = 128) -> torch.Tensor:
+    """The float32 bias (B, H, Sq, Sk) = table[bucket(q - k)] of positions
+    (B, Sq) and (B, Sk) (pasero_tpu/models/positional.py:173). Distances
+    are clipped to +-max_distance first: every bucket saturates there (its
+    last bucket of each side), so the clip changes no bucket and one index
+    of 2 max_distance + 1 entries serves any positions."""
+    M = max_distance
+    index = t5_distance_buckets(M + 1, M + 1, bidirectional, num_buckets, M,
+                                table.device)
+    d = (k_positions[:, None, :] - q_positions[:, :, None]).clamp(-M, M) + M
+    bias = table.float()[index[d].long()]                  # (B, Sq, Sk, H)
+    return bias.permute(0, 3, 1, 2)
+
+
+class T5RelativeBias(nn.Module):
+    """The learned (num_buckets, H) relative-position table, shared by the
+    layers of a stack (pasero_tpu/models/positional.py:145); its parameter
+    is ``rel_embedding``, float32, as the flax module's."""
+
+    def __init__(self, num_heads: int, bidirectional: bool,
+                 num_buckets: int = 32, max_distance: int = 128):
+        super().__init__()
+        self.bidirectional = bidirectional
+        self.num_buckets, self.max_distance = num_buckets, max_distance
+        self.rel_embedding = nn.Parameter(
+            torch.randn(num_buckets, num_heads) * 0.02)
+
+    def forward(self, q_positions, k_positions):
+        """The materialized bias (B, H, Sq, Sk) of the positions."""
+        return t5_bias_from_table(self.rel_embedding, q_positions,
+                                  k_positions, self.bidirectional,
+                                  self.num_buckets, self.max_distance)
+
+    def rel_table(self):
+        """The table with its bucketing constants, as the flash kernels
+        take it (``ops.flash_attention.T5Bias``)."""
+        from ..ops.flash_attention import T5Bias
+        return T5Bias(self.rel_embedding, self.bidirectional,
+                      self.num_buckets, self.max_distance)

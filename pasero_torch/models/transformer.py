@@ -12,7 +12,7 @@ JAX model's (:682, :201).
 
 Covered: token and speech-feature sources (a ``ConvolutionSubsampler``
 in front of the encoder), post-norm and pre-norm, sinusoidal, learned,
-rotary, ALiBi or no positions, LayerNorm and RMSNorm, tied and untied heads, relu, gelu and the
+rotary, ALiBi, T5 or no positions, LayerNorm and RMSNorm, tied and untied heads, relu, gelu and the
 gated swiglu/geglu FFNs, grouped K/V heads, sliding windows, the attention
 kernel choice (``cfg.attention_kernel``), and residual, attention,
 activation and embedding dropout at the places the flax layers put them
@@ -35,7 +35,7 @@ from ..ops.quantize import QTensor
 from .attention import KVCache, MultiheadAttention
 from .modules import (ConvolutionSubsampler, Dropout, Embedding, FeedForward,
                       Linear, make_norm)
-from .positional import PositionalEmbedding, alibi_bias
+from .positional import PositionalEmbedding, T5RelativeBias, alibi_bias
 
 
 def check_supported(cfg) -> None:
@@ -46,7 +46,8 @@ def check_supported(cfg) -> None:
 
     for side in ("encoder", "decoder"):
         pe = getattr(cfg, f"{side}_positional_encoding")
-        if pe not in ("sinusoidal", "learned", "rotary", "alibi", "none"):
+        if pe not in ("sinusoidal", "learned", "rotary", "alibi", "t5",
+                      "none"):
             todo(f"{pe} positions", "A.8 decoder-only")
     if cfg.parallel_attention:
         todo("parallel attention", "A.8 decoder-only")
@@ -258,6 +259,10 @@ class TransformerEncoder(_Stack):
                             TransformerEncoderLayer(cfg, kernel, dtype))
         if cfg.encoder_prenorm:
             self.final_norm = make_norm(cfg, cfg.embed_dim, dtype)
+        if cfg.encoder_positional_encoding == "t5":
+            # one table for every layer (pasero_tpu/models/transformer.py:293)
+            self.t5_bias = T5RelativeBias(cfg.encoder_attention_heads,
+                                          bidirectional=True)
 
     def layers(self):
         return [getattr(self, f"layers_{i}") for i in range(self.num_layers)]
@@ -284,10 +289,13 @@ class TransformerEncoder(_Stack):
             positions = positions_from_mask(src_mask)
             x = self._embed(src_tokens, positions, cfg.encoder_embed_norm)
         attn_mask = src_mask[:, None, None, :]
-        # one ALiBi bias for every layer (transformer.py:290-292)
-        bias = (alibi_bias(cfg.encoder_attention_heads, positions, positions,
-                           cfg.alibi_max_bias, causal=False)
-                if cfg.encoder_positional_encoding == "alibi" else None)
+        # one ALiBi bias or T5 table for every layer (transformer.py:288-301)
+        bias = None
+        if cfg.encoder_positional_encoding == "alibi":
+            bias = alibi_bias(cfg.encoder_attention_heads, positions,
+                              positions, cfg.alibi_max_bias, causal=False)
+        elif cfg.encoder_positional_encoding == "t5":
+            bias = self.t5_bias.rel_table()
         for layer in self.layers():
             x = layer(x, mask=attn_mask, positions=positions, bias=bias)
         if self.cfg.encoder_prenorm:
@@ -315,25 +323,36 @@ class TransformerDecoder(_Stack):
         if not cfg.tied_output_projection:
             self.output_projection = Linear(cfg.embed_dim, vocab_size,
                                             use_bias=False, dtype=dtype)
+        if cfg.decoder_positional_encoding == "t5":
+            self.t5_bias = T5RelativeBias(cfg.decoder_attention_heads,
+                                          bidirectional=False)
         self._argmax_head = None    # (key, compute-type copy of the head)
 
     def layers(self):
         return [getattr(self, f"layers_{i}") for i in range(self.num_layers)]
 
-    def _alibi(self, positions, cache):
-        """The causal ALiBi bias (B, H, T, T or L) of one decoder call, shared
-        by every layer (pasero_tpu/models/transformer.py:410-427). In a full
-        forward the keys are the query positions. At decode, cache slot j
-        holds position pos_last - (step + T - 1) + j, where the step is the
-        self-attention caches' write index before this call: JAX keeps it as
-        a separate ``bias_step``; deriving it from the index keeps the two
-        from drifting apart, also when speculative decoding rewinds."""
+    def _self_bias(self, positions, cache):
+        """The relative-position bias of one decoder call, shared by every
+        layer (pasero_tpu/models/transformer.py:410-440): the causal ALiBi
+        bias (B, H, T, T or L), or T5's table in a full forward and its bias
+        materialized over the cache at decode. In a full forward the keys
+        are the query positions. At decode, cache slot j holds position
+        pos_last - (step + T - 1) + j, where the step is the self-attention
+        caches' write index before this call: JAX keeps it as a separate
+        ``bias_step``; deriving it from the index keeps the two from
+        drifting apart, also when speculative decoding rewinds or a beam
+        step moves on."""
+        pe = self.cfg.decoder_positional_encoding
+        if pe == "t5" and cache is None:
+            return self.t5_bias.rel_table()
         kv_pos = positions
         if cache is not None:
             self_cache = cache[0][0]
             T = positions.shape[1]
             slots = torch.arange(self_cache.length, device=positions.device)
             kv_pos = positions[:, -1:] - (self_cache.index + T - 1) + slots
+        if pe == "t5":
+            return self.t5_bias(positions, kv_pos)
         return alibi_bias(self.cfg.decoder_attention_heads, positions, kv_pos,
                           self.cfg.alibi_max_bias, causal=True)
 
@@ -390,8 +409,8 @@ class TransformerDecoder(_Stack):
         cross_mask = (encoder_mask[:, None, None, :]
                       if encoder_mask is not None else None)
         self_bias = None
-        if cfg.decoder_positional_encoding == "alibi":
-            self_bias = self._alibi(positions, cache)
+        if cfg.decoder_positional_encoding in ("alibi", "t5"):
+            self_bias = self._self_bias(positions, cache)
         for i, layer in enumerate(self.layers()):
             x = layer(x, encoder_out=encoder_out, self_mask=self_mask,
                       cross_mask=cross_mask, positions=positions,

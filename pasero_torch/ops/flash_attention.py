@@ -1,21 +1,24 @@
-"""Flash attention for grouped K/V heads, with or without an additive
-float32 bias: forward and backward without the (Sq, Sk) score matrix in
-memory.
+"""Flash attention for grouped K/V heads, without a bias, with an additive
+float32 bias or with T5's learned relative-position table: forward and
+backward without the (Sq, Sk) score matrix in memory.
 
 Port of pasero_tpu/ops/flash_attention.py (the public ``flash_attention``
 :1566 and its ``jax.custom_vjp`` :1548-1563): the bias-free path over the
 group-packed Pallas ``_fwd_packed`` :342 and ``_bwd_packed`` :1086, and the
 dense-bias path (ALiBi) over ``_fwd`` :381, ``_bwd`` :1398 and
-``_compute_dbias`` :1213. ``flash_attention`` is a
+``_compute_dbias`` :1213, and the T5 path (``_flash_t5`` :1363) over the
+streamed ``_fwd_stream`` :544, ``_bwd_stream`` :738 and ``_compute_demb``
+:1318. ``flash_attention`` is a
 ``torch.autograd.Function`` that returns ``out`` and keeps ``lse`` for its
 backward. On CUDA tensors its forward launches ``flash_fwd`` and its
 backward ``flash_bwd_dq`` then ``flash_bwd_dkv`` (and ``flash_bwd_dbias``
-for the bias's gradient): the kernels of ``csrc/flash_attention.cu``, each
-wrapper counting its launches, those of a biased kernel apart
-(``launch_counts`` names them ``flash_fwd_bias`` and so on). CPU tensors
-take ``flash_fwd_plain``, ``flash_bwd_plain`` and ``flash_dbias_plain``. A
-CUDA tensor never takes the plain version: the kernels launch or the wrapper
-raises.
+for the bias's gradient, ``flash_bwd_demb`` for the T5 table's): the
+kernels of ``csrc/flash_attention.cu``, each wrapper counting its launches,
+those of a biased or a T5 kernel apart (``launch_counts`` names them
+``flash_fwd_bias``, ``flash_fwd_t5`` and so on). CPU tensors take
+``flash_fwd_plain``, ``flash_bwd_plain``, ``flash_dbias_plain`` and
+``flash_demb_plain``. A CUDA tensor never takes the plain version: the
+kernels launch or the wrapper raises.
 
 The contract is JAX's: q (B, H, Sq, D) and k/v (B, Hkv, Sk, D), query head h
 reading K/V head h // (H // Hkv); a boolean mask is reduced to a key mask by
@@ -37,6 +40,15 @@ sees only -1e9 entries gets a softmax over them. dbias = P (dP - delta) in
 float32, zero where masked, summed over the batch inside the kernel when
 b0 = 1 and over the heads after it when h0 = 1.
 
+The T5 bias (``T5Bias``: the (num_buckets, H) float32 table, the direction
+and the bucketing constants) is never materialized on the flash path: the
+kernels read the bucket of each key-query distance from the host-computed
+index of ``models.positional.t5_distance_buckets`` (length Sq + Sk - 1, so
+no transcendental runs on the card) and add table[bucket, h] to the score,
+as a dense bias is added. Its gradient is dS summed by bucket per head,
+(num_buckets, H) float32, with no (Sq, Sk) tensor. As in JAX the buckets
+come from slot indices, which assumes right-padded rows (:92-97).
+
 A deliberate difference from JAX: JAX's ``_bwd`` computes dbias for every
 biased backward and the caller discards it when the bias is a constant
 (ALiBi); here the dbias kernel runs only when the bias needs a gradient
@@ -46,6 +58,7 @@ biased backward and the caller discards it when the bias is a constant
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
@@ -54,6 +67,55 @@ from . import cuda_build
 
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128)
+
+
+@dataclass(frozen=True, eq=False)
+class T5Bias:
+    """T5's relative-position bias as the kernels take it
+    (pasero_tpu/ops/flash_attention.py:88): the learned (num_buckets, H)
+    float32 table and its bucketing constants."""
+    table: torch.Tensor
+    bidirectional: bool = False
+    num_buckets: int = 32
+    max_distance: int = 128
+
+    def index(self, Sq: int, Sk: int):
+        """int32 (Sq + Sk - 1,): entry k - q + Sq - 1 is the bucket of query
+        slot q and key slot k."""
+        from ..models.positional import t5_distance_buckets
+        return t5_distance_buckets(Sq, Sk, self.bidirectional,
+                                   self.num_buckets, self.max_distance,
+                                   self.table.device)
+
+    @staticmethod
+    def _by_slots(per_distance, Sq: int, Sk: int):
+        """([H,] Sq, Sk) of a ([H,] Sq + Sk - 1) tensor by distance: entry
+        (q, k) is entry k - q + Sq - 1, gathered a block of rows at a time,
+        so no (Sq, Sk) index exists."""
+        x = per_distance
+        out = x.new_empty(x.shape[:-1] + (Sq, Sk))
+        cols = torch.arange(Sk, device=x.device) + Sq - 1
+        step = max(1, (1 << 24) // Sk)
+        for q0 in range(0, Sq, step):
+            rows = torch.arange(q0, min(Sq, q0 + step), device=x.device)
+            out[..., q0:q0 + len(rows), :] = x[..., cols - rows[:, None]]
+        return out
+
+    def buckets(self, Sq: int, Sk: int):
+        """(Sq, Sk) int32 bucket of every (query slot, key slot)."""
+        return self._by_slots(self.index(Sq, Sk), Sq, Sk)
+
+    def materialize(self, Sq: int, Sk: int):
+        """The float32 bias (1, H, Sq, Sk) of slot indices."""
+        per_distance = self.table.float().t()[:, self.index(Sq, Sk).long()]
+        return self._by_slots(per_distance, Sq, Sk)[None]
+
+
+def check_t5(t5: T5Bias, H: int) -> None:
+    table = t5.table
+    if table.dim() != 2 or tuple(table.shape) != (t5.num_buckets, H):
+        raise ValueError(f"T5 table {tuple(table.shape)} is not "
+                         f"({t5.num_buckets}, {H})")
 
 
 def key_mask(mask, B: int, Sq: int, Sk: int):
@@ -85,16 +147,20 @@ def _grouped(x, group: int):
 
 
 def _scores(q, k, scale: float, bias):
-    """float32 scaled scores (B, H, Sq, Sk), plus the bias in JAX's order."""
+    """float32 scaled scores (B, H, Sq, Sk), plus the bias (a tensor or a
+    T5Bias, materialized from slot indices) in JAX's order."""
     group = q.shape[1] // k.shape[1]
     s = torch.matmul(q.float(), _grouped(k, group).transpose(-1, -2)) * scale
+    if isinstance(bias, T5Bias):
+        bias = bias.materialize(q.shape[2], k.shape[2])
     return s if bias is None else s + bias.float()
 
 
 def flash_fwd_plain(q, k, v, kv_mask, scale: float, causal: bool,
                     window: Optional[int], bias=None):
     """The forward in plain PyTorch, in float32: (out in q's type,
-    lse (B, H, Sq) float32); ``bias`` broadcasts to (B, H, Sq, Sk)."""
+    lse (B, H, Sq) float32); ``bias`` broadcasts to (B, H, Sq, Sk) or is
+    a T5Bias."""
     group = q.shape[1] // k.shape[1]
     ok = visible(kv_mask, q.shape[2], causal, window)
     s = _scores(q, k, scale, bias).masked_fill(~ok, NEG_INF)
@@ -147,6 +213,21 @@ def flash_dbias_plain(q, k, v, kv_mask, out, lse, do, scale: float,
     return _reduce_to(ds, bias.shape)
 
 
+def flash_demb_plain(q, k, v, kv_mask, out, lse, do, scale: float,
+                     causal: bool, window: Optional[int], t5: T5Bias):
+    """The T5 table's gradient in plain PyTorch, (num_buckets, H) float32:
+    dS in float32, zero where masked, summed by bucket per head (the sums
+    taken in float64)."""
+    _, ds = _dscores(q, k, v, kv_mask, out, lse, do, scale, causal, window,
+                     t5)
+    H, Sq, Sk = ds.shape[1:]
+    buckets = t5.buckets(Sq, Sk).reshape(-1)
+    demb = torch.zeros((H, t5.num_buckets), dtype=torch.float64,
+                       device=ds.device)
+    demb.index_add_(1, buckets, ds.double().sum(0).reshape(H, Sq * Sk))
+    return demb.t().float()
+
+
 def _reduce_to(ds, shape):
     """(B, H, Sq, Sk) summed over the axes that ``shape`` broadcasts."""
     if shape[0] == 1 and ds.shape[0] != 1:
@@ -162,14 +243,16 @@ def _library():
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         dims = [i32] * 6 + [f32, i32, i32, ptr]   # B H Hkv Sq Sk D, scale ...
         # after the key mask: the bias pointer (None for none) and the
-        # strides of its (batch, head) rows
-        bias = [ptr, i32, i32]
+        # strides of its (batch, head) rows; the T5 table and distance index
+        # (None for none) and the number of buckets
+        bias = [ptr, i32, i32, ptr, ptr, i32]
         lib.flash_fwd.argtypes = [ptr] * 4 + bias + [ptr] * 2 + dims
         lib.flash_bwd_dq.argtypes = [ptr] * 4 + bias + [ptr] * 5 + dims
         lib.flash_bwd_dkv.argtypes = [ptr] * 4 + bias + [ptr] * 5 + dims
-        lib.flash_bwd_dbias.argtypes = [ptr] * 4 + bias + [ptr] * 4 + dims
+        lib.flash_bwd_dbias.argtypes = [ptr] * 4 + bias[:3] + [ptr] * 4 + dims
+        lib.flash_bwd_demb.argtypes = [ptr] * 4 + bias[3:] + [ptr] * 4 + dims
         for fn in (lib.flash_fwd, lib.flash_bwd_dq, lib.flash_bwd_dkv,
-                   lib.flash_bwd_dbias):
+                   lib.flash_bwd_dbias, lib.flash_bwd_demb):
             fn.restype = ctypes.c_int
         lib.flash_error_string.argtypes = [ctypes.c_int]
         lib.flash_error_string.restype = ctypes.c_char_p
@@ -215,19 +298,34 @@ def check_bias(bias, B: int, H: int, Sq: int, Sk: int) -> None:
                          f"{Sq}, {Sk})")
 
 
+def _t5_args(t5: T5Bias, q, dims):
+    """The T5 table as float32 (num_buckets, H) on q's device, its distance
+    index and the number of buckets."""
+    _, H, _, Sq, Sk, _ = dims
+    check_t5(t5, H)
+    if t5.table.device != q.device:
+        raise ValueError(f"T5 table lies on {t5.table.device}, q on "
+                         f"{q.device}")
+    return (_operand(t5.table.detach().float()), _operand(t5.index(Sq, Sk)),
+            t5.num_buckets)
+
+
 def _bias_args(bias, q, dims):
-    """The bias as float32 (b0 h0, Sq, Sk) rows on q's device, and the row
-    strides of a batch and a head index (0 where the bias is shared); (None,
-    0, 0) for no bias."""
+    """The C operands of a bias: for a dense bias, float32 (b0 h0, Sq, Sk)
+    rows on q's device and the row strides of a batch and a head index (0
+    where the bias is shared); for a T5Bias its table, distance index and
+    number of buckets (``_t5_args``); the null operands of the other kind."""
     if bias is None:
-        return None, 0, 0
+        return None, 0, 0, None, None, 0
+    if isinstance(bias, T5Bias):
+        return (None, 0, 0) + _t5_args(bias, q, dims)
     B, H, _, Sq, Sk, _ = dims
     check_bias(bias, B, H, Sq, Sk)
     if bias.device != q.device:
         raise ValueError(f"bias lies on {bias.device}, q on {q.device}")
     b0, h0 = bias.shape[:2]
     rows = _operand(bias.float())
-    return rows, (0 if b0 == 1 else h0), (0 if h0 == 1 else 1)
+    return rows, (0 if b0 == 1 else h0), (0 if h0 == 1 else 1), None, None, 0
 
 
 def _launch(name: str, device, *args) -> None:
@@ -247,9 +345,11 @@ def _scalars(dims, scale, causal, window):
 
 
 def _count(wrapper, bias) -> None:
-    """One launch more of ``wrapper``'s biased or bias-free kernel."""
+    """One launch more of ``wrapper``'s bias-free, biased or T5 kernel."""
     if bias is None:
         wrapper.launches += 1
+    elif isinstance(bias, T5Bias):
+        wrapper.t5_launches += 1
     else:
         wrapper.bias_launches += 1
 
@@ -258,13 +358,14 @@ def flash_fwd(q, k, v, kv_mask, scale: float, causal: bool,
               window: Optional[int], bias=None):
     """(out (B, H, Sq, D) bfloat16, lse (B, H, Sq) float32) from one launch
     of the forward kernel, biased when a float32 ``bias`` (b0, h0, Sq, Sk)
-    is given (counted in ``bias_launches``, else in ``launches``)."""
+    is given (counted in ``bias_launches``), with the T5 table when it is a
+    T5Bias (``t5_launches``), else bias-free (``launches``)."""
     q, k, v, mask, dims = _cuda_args(q, k, v, kv_mask, window)
-    rows, bs, hs = _bias_args(bias, q, dims)
+    bias_ops = _bias_args(bias, q, dims)
     out = torch.empty_like(q)
     lse = torch.empty(dims[:2] + dims[3:4], dtype=torch.float32,
                       device=q.device)
-    _launch("flash_fwd", q.device, q, k, v, mask, rows, bs, hs, out, lse,
+    _launch("flash_fwd", q.device, q, k, v, mask, *bias_ops, out, lse,
             *_scalars(dims, scale, causal, window))
     _count(flash_fwd, bias)
     return out, lse
@@ -284,11 +385,11 @@ def flash_bwd_dq(q, k, v, kv_mask, out, lse, do, scale: float,
     kernel, which also computes delta = sum(dO * out) for the dk/dv kernel
     and re-adds ``bias`` (the forward's) to the recomputed scores."""
     q, k, v, mask, dims = _cuda_args(q, k, v, kv_mask, window)
-    rows, bs, hs = _bias_args(bias, q, dims)
+    bias_ops = _bias_args(bias, q, dims)
     out, do, lse = _bwd_operands(out, do, lse)
     dq = torch.empty_like(q)
     delta = torch.empty_like(lse)
-    _launch("flash_bwd_dq", q.device, q, k, v, mask, rows, bs, hs, out, do,
+    _launch("flash_bwd_dq", q.device, q, k, v, mask, *bias_ops, out, do,
             lse, delta, dq, *_scalars(dims, scale, causal, window))
     _count(flash_bwd_dq, bias)
     return dq, delta
@@ -298,21 +399,21 @@ def flash_bwd_dkv(q, k, v, kv_mask, do, lse, delta, scale: float,
                   causal: bool, window: Optional[int], bias=None):
     """(dk, dv) in bfloat16 at K/V-head width from one launch of the dk/dv
     kernel, given the dq kernel's delta; with ``bias``, each query head of a
-    group re-adds its own bias row."""
+    group re-adds its own bias row (its own T5 table column)."""
     q, k, v, mask, dims = _cuda_args(q, k, v, kv_mask, window)
-    rows, bs, hs = _bias_args(bias, q, dims)
+    bias_ops = _bias_args(bias, q, dims)
     _, do, lse = _bwd_operands(None, do, lse)
     delta = delta.float().contiguous()
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    _launch("flash_bwd_dkv", q.device, q, k, v, mask, rows, bs, hs, do, lse,
+    _launch("flash_bwd_dkv", q.device, q, k, v, mask, *bias_ops, do, lse,
             delta, dk, dv, *_scalars(dims, scale, causal, window))
     _count(flash_bwd_dkv, bias)
     return dk, dv
 
 
-# the wrappers with a biased and a bias-free kernel, each counted apart
-_TWO_KERNELS = (flash_fwd, flash_bwd_dq, flash_bwd_dkv)
+# the wrappers with a bias-free, a biased and a T5 kernel, each counted apart
+_BY_KIND = (flash_fwd, flash_bwd_dq, flash_bwd_dkv)
 
 
 def flash_bwd_dbias(q, k, v, kv_mask, bias, do, lse, delta, scale: float,
@@ -322,7 +423,7 @@ def flash_bwd_dbias(q, k, v, kv_mask, bias, do, lse, delta, scale: float,
     the batch inside the kernel when b0 = 1; summed over the heads by a torch
     op after it when h0 = 1, as JAX does (flash_attention.py:1250-1251)."""
     q, k, v, mask, dims = _cuda_args(q, k, v, kv_mask, window)
-    rows, bs, hs = _bias_args(bias, q, dims)
+    rows, bs, hs = _bias_args(bias, q, dims)[:3]
     _, do, lse = _bwd_operands(None, do, lse)
     delta = delta.float().contiguous()
     B, H, _, Sq, Sk, _ = dims
@@ -334,20 +435,46 @@ def flash_bwd_dbias(q, k, v, kv_mask, bias, do, lse, delta, scale: float,
     return _reduce_to(dbias, bias.shape)
 
 
+def flash_bwd_demb(q, k, v, kv_mask, t5: T5Bias, do, lse, delta,
+                   scale: float, causal: bool, window: Optional[int]):
+    """The T5 table's gradient, (num_buckets, H) float32, from one launch of
+    the demb kernel: dS = P (dP - delta), zero where masked, summed by
+    bucket per head. The kernel writes one (num_buckets,) row of partial
+    sums per (batch, head, query tile), without atomics; a torch sum over
+    the batches and query tiles follows, as JAX's grid sums them in order
+    (flash_attention.py:1255-1318)."""
+    q, k, v, mask, dims = _cuda_args(q, k, v, kv_mask, window)
+    table, index, nb = _t5_args(t5, q, dims)
+    _, do, lse = _bwd_operands(None, do, lse)
+    delta = delta.float().contiguous()
+    B, H, _, Sq, _, _ = dims
+    tiles = -(-Sq // 64)
+    partial = torch.empty((B, H, tiles, nb), dtype=torch.float32,
+                          device=q.device)
+    _launch("flash_bwd_demb", q.device, q, k, v, mask, table, index, nb, do,
+            lse, delta, partial, *_scalars(dims, scale, causal, window))
+    flash_bwd_demb.launches += 1
+    return partial.sum(dim=(0, 2)).t()
+
+
 def launch_counts() -> dict:
-    """The launches of each flash kernel by name; the biased instances of
-    the forward, dq and dk/dv kernels count apart, as ``*_bias``."""
-    counts = {fn.__name__: fn.launches for fn in _TWO_KERNELS}
+    """The launches of each flash kernel by name; the biased and the T5
+    instances of the forward, dq and dk/dv kernels count apart, as
+    ``*_bias`` and ``*_t5``."""
+    counts = {fn.__name__: fn.launches for fn in _BY_KIND}
     counts.update({fn.__name__ + "_bias": fn.bias_launches
-                   for fn in _TWO_KERNELS})
+                   for fn in _BY_KIND})
+    counts.update({fn.__name__ + "_t5": fn.t5_launches
+                   for fn in _BY_KIND})
     counts["flash_bwd_dbias"] = flash_bwd_dbias.launches
+    counts["flash_bwd_demb"] = flash_bwd_demb.launches
     return counts
 
 
 def reset_launch_counts() -> None:
-    for fn in _TWO_KERNELS:
-        fn.launches = fn.bias_launches = 0
-    flash_bwd_dbias.launches = 0
+    for fn in _BY_KIND:
+        fn.launches = fn.bias_launches = fn.t5_launches = 0
+    flash_bwd_dbias.launches = flash_bwd_demb.launches = 0
 
 
 reset_launch_counts()
@@ -363,12 +490,16 @@ def flash_bwd(q, k, v, kv_mask, out, lse, do, scale: float, causal: bool,
 
 def _cuda_backward(q, k, v, kv_mask, out, lse, do, scale, causal, window,
                    bias, need_dbias: bool):
-    """(dq, dk, dv, dbias or None) from the kernels."""
+    """(dq, dk, dv, the bias's or the T5 table's gradient or None) from the
+    kernels."""
     args = (scale, causal, window)
     dq, delta = flash_bwd_dq(q, k, v, kv_mask, out, lse, do, *args, bias)
     dk, dv = flash_bwd_dkv(q, k, v, kv_mask, do, lse, delta, *args, bias)
-    dbias = (flash_bwd_dbias(q, k, v, kv_mask, bias, do, lse, delta, *args)
-             if need_dbias else None)
+    dbias = None
+    if need_dbias:
+        grad = flash_bwd_demb if isinstance(bias, T5Bias) else \
+            flash_bwd_dbias
+        dbias = grad(q, k, v, kv_mask, bias, do, lse, delta, *args)
     return dq, dk, dv, dbias
 
 
@@ -376,8 +507,12 @@ def _plain_backward(q, k, v, kv_mask, out, lse, do, scale, causal, window,
                     bias, need_dbias: bool):
     grads = flash_bwd_plain(q, k, v, kv_mask, out, lse, do, scale, causal,
                             window, bias)
-    dbias = (flash_dbias_plain(q, k, v, kv_mask, out, lse, do, scale, causal,
-                               window, bias) if need_dbias else None)
+    dbias = None
+    if need_dbias:
+        grad = flash_demb_plain if isinstance(bias, T5Bias) else \
+            flash_dbias_plain
+        dbias = grad(q, k, v, kv_mask, out, lse, do, scale, causal, window,
+                     bias)
     return grads + (dbias,)
 
 
@@ -390,13 +525,18 @@ def _route(x, kernel, plain):
 
 
 class _FlashAttention(torch.autograd.Function):
+    """``bias`` is a dense bias, or with ``t5`` (JAX's ``_flash_t5``
+    custom VJP, :1363-1395) the T5 table, whose gradient is the demb
+    kernel's."""
 
     @staticmethod
-    def forward(ctx, q, k, v, kv_mask, bias, scale, causal, window):
+    def forward(ctx, q, k, v, kv_mask, bias, t5, scale, causal, window):
         fwd = _route(q, flash_fwd, flash_fwd_plain)
-        out, lse = fwd(q, k, v, kv_mask, scale, causal, window, bias)
+        full = T5Bias(bias, *t5) if t5 else bias
+        out, lse = fwd(q, k, v, kv_mask, scale, causal, window, full)
         ctx.save_for_backward(q, k, v, kv_mask, bias, out, lse)
         ctx.args = (scale, causal, window)
+        ctx.t5 = t5
         ctx.mark_non_differentiable(lse)
         return out, lse
 
@@ -405,22 +545,27 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, kv_mask, bias, out, lse = ctx.saved_tensors
         bwd = _route(q, _cuda_backward, _plain_backward)
         need_dbias = bias is not None and ctx.needs_input_grad[4]
+        full = T5Bias(bias, *ctx.t5) if ctx.t5 else bias
         dq, dk, dv, dbias = bwd(q, k, v, kv_mask, out, lse, do, *ctx.args,
-                                bias, need_dbias)
+                                full, need_dbias)
         if dbias is not None:
             dbias = dbias.to(bias.dtype)
-        return dq, dk, dv, None, dbias, None, None, None
+        return dq, dk, dv, None, dbias, None, None, None, None
 
 
 def flash_attention(q, k, v, mask=None, bias=None, scale: float = 1.0,
-                    causal: bool = False, window: Optional[int] = None):
+                    causal: bool = False, window: Optional[int] = None,
+                    t5_bias: Optional[T5Bias] = None):
     """Attention of q (B, H, Sq, D) over k/v (B, Hkv, Sk, D), H % Hkv == 0.
 
     mask: bool, broadcastable to (B, 1|H, Sq, Sk), True = attend; only its
     key validity is used (``key_mask``), and the causal and window structure
     is applied from slot indices. bias: float (1|B, 1|H, Sq, Sk), added to
     the scaled scores in float32; its gradient is computed when it requires
-    one. Returns out (B, H, Sq, D) in q's type.
+    one. t5_bias: T5's (num_buckets, H) table, turned into the bias inside
+    the kernels from slot indices (right-padded rows), never with ``bias``;
+    the table's gradient is computed when it requires one. Returns out (B,
+    H, Sq, D) in q's type.
     """
     B, H, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
@@ -428,10 +573,19 @@ def flash_attention(q, k, v, mask=None, bias=None, scale: float = 1.0,
         raise ValueError(f"q {tuple(q.shape)} and k/v {tuple(k.shape)}, "
                          f"{tuple(v.shape)} do not fit (B, H, Sq, D) and "
                          "(B, Hkv, Sk, D) with H % Hkv == 0")
+    if bias is not None and t5_bias is not None:
+        raise ValueError("flash_attention takes a bias or a T5 table, not "
+                         "both")
     if bias is not None:
         check_bias(bias, B, H, Sq, Sk)
+    t5 = None
+    if t5_bias is not None:
+        check_t5(t5_bias, H)
+        bias = t5_bias.table
+        t5 = (t5_bias.bidirectional, t5_bias.num_buckets,
+              t5_bias.max_distance)
     kv_mask = key_mask(mask, B, Sq, Sk)
     if kv_mask is None:
         kv_mask = torch.ones((B, Sk), dtype=torch.bool, device=q.device)
-    return _FlashAttention.apply(q, k, v, kv_mask, bias, float(scale),
+    return _FlashAttention.apply(q, k, v, kv_mask, bias, t5, float(scale),
                                  bool(causal), window)[0]

@@ -27,6 +27,16 @@ Two workloads, with weights from a numpy seed:
   call builds the ALiBi bias over the cache and runs the plain attention
   (decoding never takes flash), and each single-token call writes the cache
   through one slot-write launch per layer;
+- ``--model t5_base``: the t5_base arch (12 + 12 layers, width 768, 12
+  heads, T5 buckets) with T5's vocabulary of 32128 and seeded weights,
+  written as a model directory under build/t5_base (the t5-mini anchor's
+  tokenizer and special ids, the dictionary padded with filler words,
+  ``attention_kernel: flash``), decoded through ``TextGenerator.decode``:
+  B = 8 German sources of 512 tokens (deen-mini's test.de read as a ring)
+  and 64 new tokens, greedy; the encoder runs the T5 flash forward once
+  per layer, the decoder builds its T5 bias over the cache at every call
+  and runs the plain attention, and each single-token call writes the
+  cache through one slot-write launch per layer;
 - ``--model whisper_base`` (examples/Whisper/inference.yaml's decode): the
   whisper_base arch with Whisper's vocabulary of 51865 and seeded weights,
   written as a model directory under build/whisper_base with B = 8 wavs of
@@ -50,6 +60,8 @@ torch.profiler (written to build/profile_decode.json).
         [--prompt-style copy|random] [--repeats 3] [--profile]
     python -m pasero_torch.scripts.bench_decode --model bloom_560m
         [--batch 8] [--prompt-len 128] [--max-new 64] [--repeats 3] [--profile]
+    python -m pasero_torch.scripts.bench_decode --model t5_base
+        [--batch 8] [--src-len 512] [--max-new 64] [--repeats 3] [--profile]
     python -m pasero_torch.scripts.bench_decode --model whisper_base
         [--batch 8] [--max-new 64] [--repeats 3] [--profile]
 """
@@ -200,6 +212,7 @@ class LMWorkload:
 
 ST_MINI = os.path.join(ROOT, "pasero_torch", "testdata", "st-mini")
 ALIBI_MINI = os.path.join(ROOT, "pasero_torch", "testdata", "alibi-mini")
+T5_MINI = os.path.join(ROOT, "pasero_torch", "testdata", "t5-mini")
 DEEN_MINI = os.path.join(ROOT, "examples", "deen-mini", "data")
 
 
@@ -248,25 +261,67 @@ def write_lm_dir(model_dir: str, arch: str, vocab: int, max_new: int = 64,
               state_dict_to_params(random_state(model, seed)))
 
 
-def text_prompts(generator, batch: int, prompt_len: int) -> list:
-    """``batch`` prompts of deen-mini's test.en words (read as a ring), each
-    the longest run of words from its own start, 97 words after the last
-    one's, whose tokens fit ``prompt_len``."""
-    with open(os.path.join(DEEN_MINI, "test.en")) as f:
+def write_t5_dir(model_dir: str, vocab: int, max_new: int = 64, seed: int = 0,
+                 layers: Optional[int] = None) -> None:
+    """A t5_base model directory as the training CLI leaves one
+    (config.json, model_best.npz, inference.yaml, bpecodes, dict.txt), with
+    the translation defaults, ``attention_kernel: flash``, weights from a
+    numpy seed, and the t5-mini anchor's tokenizer and special ids with a
+    dictionary of ``vocab`` entries. ``layers`` cuts the depth of both
+    stacks."""
+    import yaml
+
+    from pasero_torch.checkpoints import save_flat, state_dict_to_params
+    from pasero_torch.config import get_model_cls
+    model_cls, cfg_cls = get_model_cls("t5_base")
+    cfg = cfg_cls()
+    cfg.set_defaults("translation")
+    cfg.dropout = 0.0
+    cfg.attention_kernel = "flash"
+    with open(os.path.join(T5_MINI, "config.json")) as f:
+        anchor = json.load(f)
+    for key in ("padding_idx", "bos_idx", "eos_idx", "unk_idx"):
+        setattr(cfg, key, anchor[key])
+    if layers:
+        cfg.encoder_layers = cfg.decoder_layers = layers
+    os.makedirs(model_dir, exist_ok=True)
+    with open(os.path.join(model_dir, "config.json"), "w") as f:
+        json.dump({**cfg.as_dict(), "arch": "t5_base"}, f, indent=2,
+                  default=str)
+    write_dictionary(T5_MINI, model_dir, vocab)
+    with open(os.path.join(T5_MINI, "inference.yaml")) as f:
+        inference = yaml.safe_load(f)
+    inference.update(beam_size=1, max_output_len=max_new,
+                     max_source_len=cfg.encoder_max_len,
+                     max_target_len=cfg.decoder_max_len)
+    with open(os.path.join(model_dir, "inference.yaml"), "w") as f:
+        yaml.safe_dump(inference, f)
+    model = model_cls(cfg, src_vocab_size=vocab)
+    save_flat(os.path.join(model_dir, "model_best.npz"),
+              state_dict_to_params(random_state(model, seed)))
+
+
+def ring_texts(generator, batch: int, max_len: int, name: str,
+               field: str) -> list:
+    """``batch`` texts of the words of deen-mini's file ``name`` (read as a
+    ring), each the longest run of words from its own start, 97 words after
+    the last one's, whose ``field`` of the preprocessed sample fits
+    ``max_len`` tokens."""
+    with open(os.path.join(DEEN_MINI, name)) as f:
         words = f.read().split()
     task, meta = generator.task, generator.task.make_meta()
 
     def prompt(start, n):
         return " ".join(words[(start + j) % len(words)] for j in range(n))
 
-    def length(text):
-        return len(task.preprocess(task.input_to_sample(text, meta))[
-            "decoder_input"])
+    def length(text):   # a sample the task skips is too long
+        sample = task.preprocess(task.input_to_sample(text, meta))
+        return len(sample[field]) if sample else max_len + 1
 
     prompts = []
     for i in range(batch):
         n = 1
-        while length(prompt(i * 97, n + 1)) <= prompt_len:
+        while length(prompt(i * 97, n + 1)) <= max_len:
             n += 1
         prompts.append(prompt(i * 97, n))
     return prompts
@@ -392,10 +447,26 @@ class WhisperWorkload(GeneratorWorkload):
                 "encoder": (t3 - t2) * 1e3}
 
 
+class T5Workload(GeneratorWorkload):
+    """t5_base with seeded weights in a model directory (``write_t5_dir``)
+    and B German sources of up to 512 tokens (``ring_texts`` of test.de),
+    decoded greedily."""
+
+    VOCAB = 32128
+
+    def __init__(self, batch=8, src_len=512, max_new=64, seed=0,
+                 device="cuda", model_dir=None, layers=None):
+        model_dir = model_dir or os.path.join(ROOT, "build", "t5_base")
+        write_t5_dir(model_dir, self.VOCAB, max_new, seed, layers)
+        super().__init__(model_dir, [], device)
+        self.inputs = ring_texts(self.generator, batch, src_len, "test.de",
+                                 "encoder_input")
+
+
 class BloomWorkload(GeneratorWorkload):
     """bloom_560m with seeded weights in a model directory (``write_lm_dir``)
-    and B text prompts of up to 128 tokens (``text_prompts``), decoded
-    greedily."""
+    and B text prompts of up to 128 tokens (``ring_texts`` of test.en),
+    decoded greedily."""
 
     VOCAB = 250880
 
@@ -405,7 +476,8 @@ class BloomWorkload(GeneratorWorkload):
         write_lm_dir(model_dir, "bloom_560m", self.VOCAB, max_new, seed,
                      layers)
         super().__init__(model_dir, [], device)
-        self.inputs = text_prompts(self.generator, batch, prompt_len)
+        self.inputs = ring_texts(self.generator, batch, prompt_len, "test.en",
+                                 "decoder_input")
 
 
 def trace_profile(fn, path: str, kernel_names: tuple = ()) -> dict:
@@ -453,6 +525,7 @@ def trace_profile(fn, path: str, kernel_names: tuple = ()) -> dict:
 
 # the port's kernels by a part of their names in a trace
 KERNELS = {"slot_write": "slot_write_kernel",
+           "flash_fwd": "flash::fwd_kernel",
            "int8_matmul": "int8_matmul_kernel",
            "fused_head_partials": "partials_kernel",
            "fused_head_combine": "combine_kernel",
@@ -474,12 +547,12 @@ def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--model", default="transformer",
                         choices=["transformer", "llama_1b", "bloom_560m",
-                                 "whisper_base"])
+                                 "t5_base", "whisper_base"])
     parser.add_argument("--arch", default="transformer",
                         help="the MT arch (--model transformer)")
     parser.add_argument("--batch", type=int)
     parser.add_argument("--beam", type=int, default=5)
-    parser.add_argument("--src-len", type=int, default=32)
+    parser.add_argument("--src-len", type=int)
     parser.add_argument("--prompt-len", type=int)
     parser.add_argument("--max-new", type=int, default=64)
     parser.add_argument("--vocab", type=int, default=32768)
@@ -516,6 +589,11 @@ def main(argv=None):
         shape = {"batch": args.batch or 8,
                  "prompt_len": args.prompt_len or 128,
                  "max_new": args.max_new, "vocab": BloomWorkload.VOCAB}
+    elif args.model == "t5_base":
+        src_len = args.src_len or 512
+        work = T5Workload(args.batch or 8, src_len, args.max_new)
+        shape = {"batch": args.batch or 8, "src_len": src_len,
+                 "max_new": args.max_new, "vocab": T5Workload.VOCAB}
     elif args.model == "whisper_base":
         work = WhisperWorkload(args.batch or 8, max_new=args.max_new)
         shape = {"batch": args.batch or 8, "seconds": 30.0,
@@ -523,10 +601,11 @@ def main(argv=None):
                  "prompt": work.prompt, "max_new": args.max_new,
                  "vocab": WhisperWorkload.VOCAB}
     else:
-        work = Workload(args.arch, args.vocab, args.batch or 64, args.src_len,
-                        args.prompt_len or 8, args.max_new, args.beam)
+        work = Workload(args.arch, args.vocab, args.batch or 64,
+                        args.src_len or 32, args.prompt_len or 8,
+                        args.max_new, args.beam)
         shape = {"arch": args.arch, "batch": args.batch or 64,
-                 "beam": args.beam, "src_len": args.src_len,
+                 "beam": args.beam, "src_len": args.src_len or 32,
                  "prompt_len": args.prompt_len or 8,
                  "max_new": args.max_new, "vocab": args.vocab}
     work.run()                                       # warm-up

@@ -23,6 +23,14 @@ bfloat16:
   attention on the plain path below 4096^2 scores), so every layer runs the
   biased flash kernels with the ALiBi bias, and the loss runs through the
   fused CE;
+- ``--model t5_base``: the t5_base arch (12 + 12 layers, width 768, 12
+  heads of 64, GeGLU FFN 2048, T5 buckets on both sides) with the
+  translation defaults and dropout 0, T5's vocabulary of 32128, B = 32
+  sentences of S = 512 source and T = 128 target tokens (FLAN-T5's
+  fine-tuning shape) drawn by numpy seed 0; ``attention_kernel: flash``, so
+  every self-attention runs the T5 flash kernels with the table (and demb
+  for its gradient) and every cross-attention the bias-free ones, and the
+  loss runs through the fused CE;
 - ``--model whisper_base``: the whisper_base arch with the speech-translation
   defaults and dropout 0, Whisper's vocabulary of 51865, B = 16 utterances
   of 3000 log-mel frames (30 s; seeded normal features) into the
@@ -38,7 +46,7 @@ step of the FFN activation beside ``F.gelu(approximate="tanh")``
 (``activation_ms``).
 
     python -m pasero_torch.scripts.bench_train
-        [--model llama_1b|bloom_560m|whisper_base]
+        [--model llama_1b|bloom_560m|t5_base|whisper_base]
         [--steps 20] [--profile]
 """
 
@@ -65,13 +73,14 @@ SHAPES = {"transformer": ("transformer", "translation", 0.1, 128, 128, 128,
                        VOCAB),
           "bloom_560m": ("bloom_560m", "language_modeling", 0.0, 4, 0, 2048,
                          250880),
+          "t5_base": ("t5_base", "translation", 0.0, 32, 512, 128, 32128),
           "whisper_base": ("whisper_base", "speech_translation", 0.0, 16,
                            3000, 128, 51865)}
 # workloads whose attention kernel is set, not left to ``auto``
-ATTENTION = {"bloom_560m": "flash"}
+ATTENTION = {"bloom_560m": "flash", "t5_base": "flash"}
 KERNELS = ("fused_ce::fwd_kernel", "fused_ce::bwd_kernel", "flash::fwd_kernel",
            "flash::bwd_dq_kernel", "flash::bwd_dkv_kernel",
-           "flash::dbias_kernel")
+           "flash::dbias_kernel", "flash::demb_kernel")
 
 
 class Workload:
@@ -113,7 +122,8 @@ class Workload:
             "prompt_mask": np.zeros((batch, tgt_len), bool),
         }
         if src_len:
-            dec[:, 0] = model_cfg.bos_idx
+            if model_cfg.bos_idx >= 0:    # T5 starts without BOS
+                dec[:, 0] = model_cfg.bos_idx
             self.batch["src_tokens"] = (
                 rng.standard_normal((batch, src_len, model_cfg.input_dim),
                                     dtype=np.float32)

@@ -561,6 +561,232 @@ def test_biased_flash_wrappers_raise_on_card():
     assert flash_fwd.bias_launches == before
 
 
+# The T5 kernels (the forward, dq and dk/dv with T5's table; demb) against
+# the plain version's float32 results of the same bf16 inputs and float32
+# table. out, dq, dk and dv within ``flash_limits`` with the table's bias
+# materialized from slot indices and added to the recomputed scores, as a
+# dense bias is. demb sums dS over every (batch, query, key) of a bucket, up
+# to 10^6 elements and more, so its limit is a sum too: per (bucket, head),
+# the root sum of squares of the dbias element limits e = DBIAS_RTOL |dS| +
+# atol + F (``flash_dbias_limits``; the kernel's float32 errors of dS are
+# independent roundings) plus DEMB_SUM_RTOL sum |dS| (the float32 roundings
+# of the sums themselves and any error common to the elements) plus atol (a
+# bucket no element reaches). A dS rounded
+# to bfloat16 errs by up to 2^-9 of each element, 2^-9 / sqrt(3) in the root
+# sum of squares, beyond both terms while a bucket holds fewer than about
+# 10^6 elements; the plain version sums in float64. The same limits reject
+# the direction flipped, another head's column, the distances shifted by
+# one, demb without delta, demb of dS rounded to bfloat16 (the dbias kernel
+# on the materialized bias gives that dS) and a backward given another row's
+# lse. With JAX's buckets every visible key of a causal row of a
+# unidirectional table lies in bucket 0 (the bias is one constant per row
+# and head, ROADMAP.md C.10), so another head's column cannot show there.
+DEMB_SUM_RTOL = 2.0 ** -20
+FLASH_T5_SHAPES = [  # (B, H, Hkv, S, D), causal, window, padded, bidirectional
+    ((2, 4, 4, 256, 64), False, None, True, True),      # an encoder
+    ((2, 4, 4, 200, 64), True, None, False, False),     # a decoder
+    ((2, 8, 2, 300, 128), True, 64, True, True),        # GQA 4, a window
+    ((3, 4, 2, 77, 32), False, None, True, False),      # unaligned
+]
+
+
+def t5_table(H, num_buckets=32, device="cuda"):
+    """A seeded float32 (num_buckets, H) table."""
+    gen = torch.Generator(device=device).manual_seed(2)
+    return 0.5 * torch.randn(num_buckets, H, generator=gen, device=device)
+
+
+def shifted_t5(t5):
+    """``t5`` whose distance index is read one entry off (a mutation)."""
+    from pasero_torch.ops.flash_attention import T5Bias
+
+    class Shifted(T5Bias):
+        def index(self, Sq, Sk):
+            return super().index(Sq, Sk).roll(-1)
+
+    return Shifted(t5.table, t5.bidirectional, t5.num_buckets,
+                   t5.max_distance)
+
+
+def flash_demb_limits(q, k, v, kv_mask, lse, do, out, scale, causal, window,
+                      t5, rtol=DBIAS_RTOL):
+    """Per-(bucket, head) limits (num_buckets, H) on the demb kernel's
+    result, with the plain version's float32 ``lse``."""
+    from pasero_torch.ops.flash_attention import visible
+    atol = FLASH_TOL[1]
+    B, H, Sq = q.shape[:3]
+    Sk = k.shape[2]
+    group = H // k.shape[1]
+    dof, of = do.float(), out.float()
+    kg, vg = (x.float().repeat_interleave(group, 1) for x in (k, v))
+    ok = visible(kv_mask, Sq, causal, window)
+    p = torch.matmul(q.float(), kg.transpose(-1, -2)).mul_(scale)
+    p.add_(t5.materialize(Sq, Sk)).sub_(lse[..., None]).exp_()
+    p.masked_fill_(~ok, 0.0)
+    ds = torch.matmul(dof, vg.transpose(-1, -2))
+    ds.sub_((dof * of).sum(-1, keepdim=True)).mul_(p).abs_()
+    e = torch.matmul(dof.abs(), vg.abs().transpose(-1, -2))
+    e.add_((dof.abs() * of.abs()).sum(-1, keepdim=True))
+    e.mul_(p).mul_(2.0 ** -20).add_(ds, alpha=rtol).add_(atol).square_()
+    del p
+    buckets = t5.buckets(Sq, Sk).reshape(-1)
+
+    def by_bucket(x):
+        out = torch.zeros((H, t5.num_buckets), dtype=torch.float64,
+                          device=x.device)
+        for h in range(H):   # one head at a time: no float64 (B, H, Sq, Sk)
+            out[h].index_add_(0, buckets, x[:, h].double().sum(0).reshape(-1))
+        return out
+
+    limit = by_bucket(e).sqrt_() + DEMB_SUM_RTOL * by_bucket(ds) + atol
+    return limit.t().float()
+
+
+def flash_t5_compare(shape, causal, window, padded, bidirectional) -> dict:
+    """The T5 kernels (forward, dq, dk/dv, demb; one launch each) against the
+    plain version on the same inputs at one shape, as ``flash_compare``
+    does, and the mutations the limits must reject (see above). Returns the
+    lse error, the excess of out, dq, dk, dv and demb over their limits, the
+    smallest excess of each mutation, and the max abs errors."""
+    from pasero_torch.ops.flash_attention import (T5Bias, flash_bwd_dbias,
+                                                  flash_bwd_demb,
+                                                  flash_bwd_dkv, flash_bwd_dq,
+                                                  flash_bwd_plain,
+                                                  flash_demb_plain, flash_fwd,
+                                                  flash_fwd_plain, visible)
+    B, H, Hkv, S, D = shape
+    q, k, v, do, mask = flash_inputs(B, H, Hkv, S, D, padded)
+    t5 = T5Bias(t5_table(H), bidirectional)
+    rows = visible(mask, S, causal, window).any(-1).expand(B, H, S)
+    do = do * rows[..., None]
+    args = (D ** -0.5, causal, window)
+    out, lse = flash_fwd(q, k, v, mask, *args, t5)
+    dq, delta = flash_bwd_dq(q, k, v, mask, out, lse, do, *args, t5)
+    dk, dv = flash_bwd_dkv(q, k, v, mask, do, lse, delta, *args, t5)
+    demb = flash_bwd_demb(q, k, v, mask, t5, do, lse, delta, *args)
+    f32 = [x.float() for x in (q, k, v)]
+    ref_out, ref_lse = flash_fwd_plain(*f32, mask, *args, t5)
+    ref = flash_bwd_plain(*f32, mask, out, ref_lse, do, *args, t5)
+    ref_demb = flash_demb_plain(*f32, mask, out, ref_lse, do, *args, t5)
+    torch.cuda.synchronize()
+    lse_err = (lse - ref_lse)[rows].abs().max().item()
+    limits = flash_limits(q, k, v, mask, ref_lse, do, *args,
+                          (ref_out,) + tuple(ref), t5.materialize(S, S))
+    demb_limit = flash_demb_limits(q, k, v, mask, ref_lse, do, out, *args, t5)
+    excess = [flash_excess(out, ref_out, limits[0], rows)]
+    excess += [flash_excess(g, w, lim)
+               for g, w, lim in zip((dq, dk, dv), ref, limits[1:])]
+    excess.append(flash_excess(demb, ref_demb, demb_limit))
+    mutants = {"no_delta": flash_excess(flash_bwd_demb(
+        q, k, v, mask, t5, do, lse, torch.zeros_like(delta), *args),
+        ref_demb, demb_limit)}
+    ds = flash_bwd_dbias(q, k, v, mask, t5.materialize(S, S).expand(
+        B, H, S, S), do, lse, delta, *args)
+    ds_demb = torch.zeros((H, t5.num_buckets), dtype=torch.float64,
+                          device=ds.device)
+    ds_demb.index_add_(1, t5.buckets(S, S).reshape(-1), ds.to(
+        torch.bfloat16).double().sum(0).reshape(H, S * S))
+    del ds
+    mutants["demb_bf16"] = flash_excess(ds_demb.t().float(), ref_demb,
+                                        demb_limit)
+    bad_lse = lse.roll(1, -1)
+    bad_dq, bad_delta = flash_bwd_dq(q, k, v, mask, out, bad_lse, do, *args,
+                                     t5)
+    bad = (bad_dq,) + flash_bwd_dkv(q, k, v, mask, do, bad_lse, bad_delta,
+                                    *args, t5)
+    mutants["other_lse"] = max(flash_excess(g, w, lim)
+                               for g, w, lim in zip(bad, ref, limits[1:]))
+    fwd_mutants = {"direction": T5Bias(t5.table, not bidirectional),
+                   "shifted": shifted_t5(t5)}
+    if H > 1 and (bidirectional or not causal):
+        fwd_mutants["other_head"] = T5Bias(t5.table.roll(1, 1),
+                                           bidirectional)
+    for name, bad_t5 in fwd_mutants.items():
+        mutants[name] = flash_excess(flash_fwd(q, k, v, mask, *args,
+                                               bad_t5)[0], ref_out,
+                                     limits[0], rows)
+
+    def err(got, want, rows=None):
+        diff = (got.float() - want.float()).abs()
+        return (diff[rows] if rows is not None else diff).max().item()
+
+    return {"lse_err": lse_err, "excess": excess, "mutants": mutants,
+            "max_abs_err": {"fwd": max(lse_err, err(out, ref_out, rows)),
+                            "dq": err(dq, ref[0]),
+                            "dkv": max(err(dk, ref[1]), err(dv, ref[2])),
+                            "demb": err(demb, ref_demb)}}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,causal,window,padded,bidirectional",
+                         FLASH_T5_SHAPES)
+def test_t5_flash_kernels_match_plain(shape, causal, window, padded,
+                                      bidirectional):
+    """out, dq, dk, dv and demb within their limits, lse within 1e-4; each
+    mutation outside them."""
+    from pasero_torch.ops.flash_attention import launch_counts
+    _need_card()
+    names = ("flash_fwd_t5", "flash_bwd_dq_t5", "flash_bwd_dkv_t5",
+             "flash_bwd_demb", "flash_bwd_dbias")
+    before = launch_counts()
+    result = flash_t5_compare(shape, causal, window, padded, bidirectional)
+    after = launch_counts()
+    mutants = result["mutants"]
+    fwd_mutants = 2 + ("other_head" in mutants)
+    assert [after[n] - before[n] for n in names] == \
+        [1 + fwd_mutants, 2, 2, 2, 1]
+    assert result["lse_err"] <= 1e-4
+    assert max(result["excess"]) <= 1.0, result["excess"]
+    assert min(mutants.values()) > 1.0, mutants
+
+
+@pytest.mark.cuda
+def test_t5_table_gradient_through_flash_attention():
+    """Through flash_attention's autograd: a T5 table that requires a
+    gradient launches the three T5 kernels and demb once each, and nothing
+    else; the gradient is (num_buckets, H) float32, the same bits twice."""
+    from pasero_torch.ops import flash_attention as fa
+    _need_card()
+    q, k, v, do, mask = flash_inputs(2, 8, 2, 128, 64, True)
+    grads = []
+    for _ in range(2):
+        table = t5_table(8).requires_grad_()
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        fa.reset_launch_counts()
+        out = fa.flash_attention(*leaves, mask=mask[:, None, None, :],
+                                 scale=0.125, t5_bias=fa.T5Bias(table, True))
+        out.backward(do)
+        torch.cuda.synchronize()
+        counts = fa.launch_counts()
+        want = {n: int(n.endswith("_t5") or n == "flash_bwd_demb")
+                for n in counts}
+        assert counts == want, counts
+        assert table.grad.shape == (32, 8) and \
+            table.grad.dtype == torch.float32
+        grads.append(table.grad)
+    assert torch.equal(grads[0], grads[1])
+
+
+@pytest.mark.cuda
+def test_t5_flash_wrappers_raise_on_card():
+    """A table of another shape or device, or a T5 table with a bias,
+    raises before any launch."""
+    from pasero_torch.ops.flash_attention import (T5Bias, flash_attention,
+                                                  flash_fwd)
+    _need_card()
+    q = torch.zeros((2, 4, 8, 64), device="cuda", dtype=torch.bfloat16)
+    mask = torch.ones((2, 8), dtype=torch.bool, device="cuda")
+    before = flash_fwd.t5_launches
+    for table in (torch.zeros((32, 3), device="cuda"), torch.zeros((32, 4))):
+        with pytest.raises(ValueError):
+            flash_fwd(q, q, q, mask, 0.125, True, None, T5Bias(table))
+    with pytest.raises(ValueError):
+        flash_attention(q, q, q, bias=torch.zeros((1, 4, 8, 8),
+                                                  device="cuda"),
+                        t5_bias=T5Bias(torch.zeros((32, 4), device="cuda")))
+    assert flash_fwd.t5_launches == before
+
+
 # The int8 GEMM and the fused head against their plain versions' float32
 # results of the same bf16 x and int8 (or bf16) weight, in a limit per element:
 # |got - want| <= r |want| + 2^-21 (K / 16 + 4) sum_k |x_k| |w_k|. The

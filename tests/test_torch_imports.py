@@ -79,8 +79,9 @@ def test_decode_cli_without_device_raises_without_cuda(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("override,item", [
-    (dict(decoder_positional_encoding="t5"), "A.8"),
-    (dict(encoder_positional_encoding="t5"), "A.8"),
+    (dict(encoder_positional_encoding="t5", decoder_positional_encoding="t5",
+          checkpoint_activations=True), "A.8"),
+    (dict(decoder_positional_encoding="t5", parallel_attention=True), "A.8"),
     (dict(parallel_attention=True), "A.8"),
     (dict(checkpoint_activations=True), "A.8"),
     (dict(lora_rank=4), "A.10"),
