@@ -21,15 +21,21 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 3. full width: transformer (base) with a 32768 vocabulary and weights from
    numpy seed 0, 64 sentences x beam 5, source length 32, a prompt bucket
    of 8 and 64 new tokens, through Transformer.encode and beam_search;
-4. the fused cross-entropy kernels (forward; dx and dW backward) against
-   their plain version on the card at the full-width training shape
-   (16384 x 512 x 32000, bf16), ragged shapes in bf16 and fp32, the wide
-   shapes of the JAX split backward, whisper_base's head with Whisper's odd
-   vocabulary (2048 x 512 x 51865) and llama_1b's untied head (8192 x
-   2048 x 32000), with their time per call at the first and the last beside
-   the plain version's, the library yardstick's (F.cross_entropy over
-   torch.matmul logits) and the operations bound, and peak memory of the
-   kernel path against the yardstick;
+4. the fused cross-entropy kernels (forward; the backward's three wgmma
+   products per vocabulary chunk) against their plain version on the card at
+   the full-width training shape (16384 x 512 x 32000, bf16), ragged shapes in
+   bf16 and fp32, the wide shapes of the JAX split backward, the backward's
+   chunk boundaries (a vocabulary of one chunk, one chunk + 1 and several
+   with a ragged last one) and the heads of whisper_base (2048 x 512 x
+   51865), t5_base (4096 x 768 x 32128), bloom_560m (8192 x 1024 x 250880)
+   and llama_1b (8192 x 2048 x 32000); a backward given another row's lse,
+   dx without the last chunk's share and dW rolled by one chunk rejected;
+   the same bits from two calls; torch.profiler showing that the backward
+   launches only kernels of csrc/fused_ce.cu and no library GEMM; at every
+   head the time per call beside the plain version's, the library
+   yardstick's (F.cross_entropy over torch.matmul logits) and the operations
+   bound, the peak memory of the kernel path (below the yardstick's) and
+   the backward's scratch;
 5. full-width training: transformer-base, vocabulary 32000, 128 x 128
    tokens, bf16, through Trainer.train_step (scripts/bench_train.py's
    workload), 20 steps after a warm-up;
@@ -426,15 +432,37 @@ def phase3() -> int:
 
 # -- phase 4 -------------------------------------------------------------------
 
-CE_SHAPES = [((16384, 512, 32000), "bfloat16"),   # full width: B*T, E, V
-             ((130, 48, 515), "bfloat16"),        # ragged rows and vocab
-             ((130, 48, 515), "float32"),         # the fp32 FMA path
-             ((48, 2048, 330), "bfloat16"),       # shapes of JAX's split bwd
-             ((4096, 2048, 32000), "bfloat16"),
-             ((2048, 512, 51865), "bfloat16"),    # whisper_base's odd vocab
-             ((8192, 1024, 250880), "bfloat16"),  # bloom_560m: N V near 2^31
-             ((8192, 2048, 32000), "bfloat16")]   # llama_1b's untied head
-LM_HEAD = CE_SHAPES[-1][0]
+# The main path's heads (B*T, E, V), each timed.
+CE_HEADS = {"transformer_base": (16384, 512, 32000),
+            "llama_1b": (8192, 2048, 32000),       # untied head
+            "bloom_560m": (8192, 1024, 250880),    # N V near 2^31
+            "t5_base": (4096, 768, 32128),         # 32 x 128 targets
+            "whisper_base": (2048, 512, 51865)}    # Whisper's odd vocab
+
+
+def ce_shapes(chunk: int) -> list:
+    """Phase 4's ((N, E, V), dtype name) cases: the main path's heads, ragged
+    edges, the shapes of JAX's split backward and the boundaries of the
+    backward's vocabulary chunks of ``chunk`` rows."""
+    return [(CE_HEADS["transformer_base"], "bfloat16"),
+            ((130, 48, 515), "bfloat16"),        # ragged rows and vocab
+            ((130, 48, 515), "float32"),         # the fp32 FMA path
+            ((48, 2048, 330), "bfloat16"),       # shapes of JAX's split bwd
+            ((4096, 2048, 32000), "bfloat16"),
+            ((256, 128, chunk), "bfloat16"),     # one backward chunk exactly
+            ((256, 128, chunk + 1), "bfloat16"),  # and one row more
+            ((256, 136, 3 * chunk + 1000), "bfloat16"),  # a ragged last chunk
+            (CE_HEADS["whisper_base"], "bfloat16"),
+            (CE_HEADS["t5_base"], "bfloat16"),
+            (CE_HEADS["bloom_560m"], "bfloat16"),
+            (CE_HEADS["llama_1b"], "bfloat16")]
+
+
+LM_HEAD = CE_HEADS["llama_1b"]
+# kernels of csrc/fused_ce.cu as the profiler names them, and names of
+# library GEMMs that the backward must not launch
+FCE_KERNEL_NAMES = ("fused_ce::", "wgmma_gemm::")
+LIBRARY_GEMM = re.compile(r"gemm|cublas|cutlass|xmma|sm90_|nvjet", re.I)
 
 
 # Limits of phase 4. Each per-row statistic of the forward against float32
@@ -474,8 +502,9 @@ def load_test_module(name: str):
 
 def ce_timing(N, E, V) -> dict:
     """The fused-CE wrappers' time per call at (N, E, V) in bf16 beside the
-    plain version's, the library yardstick's and the operations bound, and
-    the peak memory of the kernel path and the yardstick."""
+    plain version's, the library yardstick's and the operations bound, the
+    peak memory of the kernel path and the yardstick, and the backward's
+    scratch."""
     import torch
     import torch.nn.functional as F
     from pasero_torch.ops.fused_ce import (fused_ce_bwd, fused_ce_fwd,
@@ -524,6 +553,17 @@ def ce_timing(N, E, V) -> dict:
         torch.cuda.synchronize()
         res["fwd"][key] = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
         del xi, wi
+    # the backward's own memory beyond its inputs and outputs (the scratch,
+    # the dx accumulator, the wrapper's copies), from the allocator's peak
+    # over one call
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    dx, dw = fused_ce_bwd(x, wb, t, lse, c, c, c)
+    torch.cuda.synchronize()
+    res["bwd"]["scratch_mib"] = (torch.cuda.max_memory_allocated() - base
+                                 - dx.nbytes - dw.nbytes) / 2 ** 20
+    del dx, dw
     log(f"phase 4: at {(N, E, V)} bf16, ms per call: forward kernel "
         f"{res['fwd']['ms']:.4f} (bound {res['fwd']['bound_ms']:.4f}, plain "
         f"{res['fwd']['plain_ms']:.4f}, library {res['fwd']['library_ms']:.4f});"
@@ -531,25 +571,75 @@ def ce_timing(N, E, V) -> dict:
         f"{res['bwd']['bound_ms']:.4f}, plain {res['bwd']['plain_ms']:.4f}, "
         f"library {res['bwd']['library_ms']:.4f}); peak memory of forward + "
         f"backward: kernels {res['fwd']['peak_mib']:.1f} MiB, library "
-        f"{res['fwd']['library_peak_mib']:.1f} MiB")
+        f"{res['fwd']['library_peak_mib']:.1f} MiB; the backward's scratch "
+        f"{res['bwd']['scratch_mib']:.1f} MiB")
+    check(res["fwd"]["peak_mib"] < res["fwd"]["library_peak_mib"],
+          f"the kernels' peak memory at {(N, E, V)} is not below the "
+          "library's")
+    check(res["bwd"]["scratch_mib"] * 2 ** 20 < N * V * x.element_size(),
+          f"the backward's scratch at {(N, E, V)} is not below the whole "
+          "logits")
     return res
+
+
+def device_kernels(fn) -> dict:
+    """{kernel name: launches} of the CUDA kernels that ``fn`` runs, from
+    torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if (getattr(e, "device_time_total", 0)
+                or getattr(e, "cuda_time_total", 0)) > 0}
+
+
+def bwd_launch_check(x, wb, t, lse, cs, wt, ls) -> dict:
+    """The backward launches only fused_ce.cu's kernels (fused_ce_bwd
+    alone), and the autograd backward of fused_cross_entropy no library
+    GEMM; returns the former's kernels."""
+    import torch
+    from pasero_torch.ops.fused_ce import fused_ce_bwd, fused_cross_entropy
+    t32 = t.to(torch.int32)
+    alone = device_kernels(lambda: fused_ce_bwd(x, wb, t32, lse, *cs))
+    check(alone and all(any(k in name for k in FCE_KERNEL_NAMES)
+                        for name in alone),
+          f"fused_ce_bwd launched kernels not of csrc/fused_ce.cu: {alone}")
+    if x.dtype == torch.bfloat16:   # the three products' kernels
+        check(all(any(e in name for name in alone) for e in (
+            "DlogitsEpilogue", "DwEpilogue", "DxEpilogue")),
+              f"the backward's profile lacks one of its three products: "
+              f"{alone}")
+    xi, wi = x.clone().requires_grad_(), wb.float().requires_grad_()
+    out = fused_cross_entropy(xi, wi, t, wt, ls)
+    whole = device_kernels(lambda: out[0].backward())
+    foreign = [name for name in whole if LIBRARY_GEMM.search(name)
+               and not any(k in name for k in FCE_KERNEL_NAMES)]
+    check(not foreign, f"the fused-CE backward launched library GEMMs: "
+          f"{foreign}")
+    return alone
 
 
 def phase4() -> dict:
     """The fused-CE kernels against fused_cross_entropy_plain; returns the
-    two wrappers' timings at the full-width shape (and at llama_1b's head,
-    under "lm_head") and their errors."""
+    two wrappers' timings at the full-width shape, at llama_1b's head
+    (under "lm_head") and at every head of CE_HEADS (under "heads"), and
+    their errors."""
     import torch
+    from pasero_torch.ops import fused_ce as fce
     from pasero_torch.ops.fused_ce import (fused_ce_bwd, fused_ce_fwd,
                                            fused_cross_entropy,
                                            fused_cross_entropy_plain)
+    chunk = fce.CHUNK
     # gradients element by element, within the error model of the kernels'
     # bf16 rounding of dlogits that tests/test_torch_cuda.py states
     cuda_tests = load_test_module("test_torch_cuda")
     ls, gl, gn = 0.1, 1.0, 0.5      # the backward of loss + 0.5 nll
     a, b = gl * (1.0 - ls) + gn, gl * ls
     err = {"fwd": 0.0, "bwd": 0.0}
-    for (N, E, V), name in CE_SHAPES:
+    for (N, E, V), name in ce_shapes(chunk):
         dtype = getattr(torch, name)
         x, w, t, wt = ce_inputs(N, E, V, dtype)
         wb = w.to(dtype)
@@ -607,6 +697,40 @@ def phase4() -> dict:
               f"the gradient check at {(N, E, V)} {name} passes a backward "
               f"given another row's lse: dx, dW at {bad_excess[0]:.3f}, "
               f"{bad_excess[1]:.3f} of the limit")
+        # the same bits from two calls
+        again = [fused_ce_bwd(x, wb, t, lse, *cs) for _ in range(2)]
+        check(all(torch.equal(p, q) for p, q in zip(*again)),
+              f"two backward calls at {(N, E, V)} {name} differ")
+        del again
+        # over several chunks, dW with its rows rolled by one chunk and, where
+        # a target lies in the last chunk (else its share is the softmax
+        # tail alone, below the bf16 error model), dx without that chunk's
+        # share (a call on the rows of w before it)
+        chunk_note = ""
+        if V > chunk:
+            rolled = cuda_tests.fused_ce_grad_excess(
+                grads[0][1].roll(chunk, 0), grads[1][1], limits[1])
+            check(rolled > 1.0, f"the gradient check at {(N, E, V)} {name} "
+                  f"passes dW rolled by one chunk ({rolled:.3f} of the limit)")
+            chunk_note = f"; dW rolled by one chunk at {rolled:.3f}"
+            v_last = (V - 1) // chunk * chunk
+            if (t >= v_last).any():
+                part = fused_ce_bwd(x, wb[:v_last], t, lse, *cs)[0]
+                short = cuda_tests.fused_ce_grad_excess(part, grads[1][0],
+                                                        limits[0])
+                check(short > 1.0, f"the gradient check at {(N, E, V)} {name} "
+                      f"passes dx without the last chunk ({short:.3f} of the "
+                      "limit)")
+                chunk_note += f", dx without the last chunk at {short:.3f}"
+                del part
+        kernels_note = ""
+        if name == "bfloat16":
+            alone = bwd_launch_check(x, wb, t, lse, cs, wt, ls)
+            per = {re.search(r"fused_ce::(\w+)", k).group(1): n
+                   for k, n in alone.items()}
+            kernels_note = (f"; the profiler saw only kernels of fused_ce.cu "
+                            f"in the backward: {per} for "
+                            f"{-(-V // chunk)} chunk(s)")
         err["fwd"] = max(err["fwd"], stat_err)
         err["bwd"] = max(err["bwd"], grad_err)
         log(f"phase 4: fused CE == plain at {(N, E, V)} {name}: row stats "
@@ -615,11 +739,14 @@ def phase4() -> dict:
             f"{STAT_SUM_RTOL:g}); loss {lk:.3f} vs {lp:.3f}; gradients max abs "
             f"err {grad_err:.3e}, dx and dW at {excess[0]:.3f} and "
             f"{excess[1]:.3f} of their limits; with another row's lse at "
-            f"{bad_excess[0]:.3f} and {bad_excess[1]:.3f}")
+            f"{bad_excess[0]:.3f} and {bad_excess[1]:.3f}{chunk_note}; the "
+            f"same bits twice{kernels_note}")
         del x, w, wb, grads, bad, limits
+        torch.cuda.empty_cache()
 
-    res = ce_timing(*CE_SHAPES[0][0])
-    res["lm_head"] = ce_timing(*LM_HEAD)
+    heads = {name: ce_timing(*shape) for name, shape in CE_HEADS.items()}
+    res = dict(heads["transformer_base"], lm_head=heads["llama_1b"],
+               heads=heads)
     res["fwd"]["max_abs_err"] = err["fwd"]
     res["bwd"]["max_abs_err"] = err["bwd"]
     return res
@@ -2408,10 +2535,25 @@ def main():
             "lm_full_width_launches": lm_full_width[f"fused_ce_{key}"],
             "speech_launches": speech[f"fused_ce_{key}"],
             "whisper_launches": whisper["train"][f"fused_ce_{key}"],
+            "bloom_launches": alibi["train"]["launches"][f"fused_ce_{key}"],
+            "t5_launches": t5_paths["train"]["launches"][f"fused_ce_{key}"],
+            # every main-path head, shape (B*T, E, V) in CE_HEADS
+            "heads": {head: {name: ce["heads"][head][key][name] for name in
+                             ("ms", "plain_ms", "bound_ms", "library_ms")}
+                      for head in CE_HEADS},
         }
         entry["lm_head"]["shape"] = list(LM_HEAD)
-        if key == "bwd":   # the dx and dW kernels replace both JAX backwards
+        for head, shape in CE_HEADS.items():
+            entry["heads"][head]["shape"] = list(shape)
+            entry["heads"][head]["peak_mib"] = ce["heads"][head]["fwd"]["peak_mib"]
+            entry["heads"][head]["library_peak_mib"] = \
+                ce["heads"][head]["fwd"]["library_peak_mib"]
+        if key == "bwd":   # one design replaces both JAX backwards
             entry["also_replaces"] = "pasero_tpu/ops/fused_ce.py:281"
+            entry["mainloop"] = "pasero_torch/csrc/wgmma_gemm.cuh"
+            for head in CE_HEADS:
+                entry["heads"][head]["scratch_mib"] = \
+                    ce["heads"][head]["bwd"]["scratch_mib"]
         kernels.append(entry)
     for name, key, line in (("flash_fwd", "fwd", 342),
                             ("flash_bwd_dq", "dq", 963),

@@ -3,53 +3,57 @@
 //
 //     logits[n, v] = sum_e x[n, e] * w[v, e]          (fp32 accumulation)
 //
-// without the (N, V) logits ever reaching device memory.
+// without the (N, V) logits ever reaching device memory whole.
 //
-//   fused_ce_fwd     lse[n] = logsumexp_v logits[n, v], tgt[n] = logits[n, t[n]],
-//                    suml[n] = sum_v logits[n, v]                    (f32 out)
-//   fused_ce_bwd_dx  dx[n, e] = sum_v dl[n, v] * w[v, e]         (x's type out)
-//   fused_ce_bwd_dw  dw[v, e] = sum_n dl[n, v] * x[n, e]              (f32 out)
+//   fused_ce_fwd  lse[n] = logsumexp_v logits[n, v], tgt[n] = logits[n, t[n]],
+//                 suml[n] = sum_v logits[n, v]                       (f32 out)
+//   fused_ce_bwd  dx[n, e] = sum_v dl[n, v] * w[v, e]           (x's type out)
+//                 dw[v, e] = sum_n dl[n, v] * x[n, e]                 (f32 out)
 //
 // with dl = c1[n] * exp(logits - lse[n]) - c2[n] * [v == t[n]] - c3[n] on valid
-// (n < N, v < V) entries, rounded to x's type before the product, as the JAX
+// (n < N, v < V) entries, rounded to x's type before the products, as the JAX
 // kernels do (pasero_tpu/ops/fused_ce.py:115-120, :155, :187).
 //
 // Replaces the TPU kernels of pasero_tpu/ops/fused_ce.py: _fwd_kernel (called
 // through _fwd, :199), _bwd_kernel (_bwd_matmuls, :234) and _bwd_dx_kernel /
 // _bwd_dw_kernel (_bwd_split, :281). x is (N, E) and w is the head weight in
 // its stored (V, E) row-major layout (the tied embedding table or the output
-// projection's weight), so no transposed copy is made. The TPU's fused
-// backward wrote per-row-block dW partials to save one logits recompute; here
-// they would cost N/32 * E * V bytes (gigabytes at the full-width shape), so
-// both TPU backwards become one design: a dx kernel and a dW kernel, each
-// recomputing its logits tile, dW written once in f32 with no partials and no
-// atomics (the same result on every run).
+// projection's weight), so no transposed copy is made.
 //
-// What bounds it: operations. One logits product is 2*N*E*V flops: at
-// N = 16384, E = 512, V = 32000 that is 536.9 GFLOP, 0.543 ms at 989 TFLOP/s
-// (bf16 dense). The backward's function needs three (one recompute whose dl
-// tile feeds both dx and dW, as the TPU's _bwd_kernel does), 1.63 ms; this
-// design does four (a recompute in each kernel), the price of writing dW
-// with no partials and no atomics. The bf16 weight (32.8 MB) and x (16.8 MB) are read from L2
-// once per row (resp. vocabulary) tile.
+// The forward: 256 threads (8 warps in a 2 x 4 grid) tile 64 rows x 128
+// vocabulary columns, bf16 operands staged by 16-byte cp.async copies
+// (zero-filled past the ragged edges) and multiplied with WMMA (mma.sync,
+// fp32 accumulation); it keeps its x tile resident when E <= 512, writes each
+// logits tile over the weight tile it came from, and keeps each thread's
+// online max / sum-exp / target logit / logit sum in registers across the
+// vocabulary loop. Bound by operations: 2 N E V at 989 TFLOP/s.
 //
-// Design, kept simple and right first: 256 threads (8 warps in a 2 x 4 grid),
-// bf16 operands staged in shared memory with 16-byte cp.async copies, all of
-// a tile's in flight at once (zero-filled past the ragged row, vocabulary and
-// width edges, so no padding copy is made), and multiplied on the tensor
-// cores with WMMA (mma.sync, fp32 accumulation); fp32 x takes an FMA path of
-// the same kernels. The forward tiles 64 rows x 128 vocabulary columns, keeps
-// its x tile resident when E <= 512, writes each logits tile over the weight
-// tile it came from, and keeps each thread's online max / sum-exp / target
-// logit / logit sum in registers across the vocabulary loop, merging the
-// four threads of a row by warp shuffles at the end. The backward tiles 32
-// "own" rows (rows of x for dx, rows of w for dW) x 64 "loop" rows and keeps
-// the (32 x 512) output block in registers, so E > 512 takes several blocks
-// along the width, each recomputing the logits. What holds it back: no
-// double-buffered pipeline (a tile's copies and its tensor-core work do not
-// overlap), small WMMA tiles instead of wgmma, the backward's 32-row tiles
-// (w, or x, is read from L2 once per 32 rows), and one forward block per SM
-// (195 KB of shared memory). Those are later work.
+// The bf16 backward. What bounds it: operations. The function needs three
+// products of 2 N E V flops each, one logits recompute whose dl feeds both
+// gradients, as JAX's _bwd_kernel does: 3.26 ms at 989 TFLOP/s for llama_1b's
+// head (8192 x 2048 x 32000), 12.8 ms for bloom_560m's (8192 x 1024 x 250880).
+// The TPU kernels keep a dl tile in VMEM between the products; a Hopper block
+// cannot hold an output block of dx and one of dW beside it, and blocks run
+// in no order, so the design loops over the vocabulary in chunks of `chunk`
+// rows (8192 by default) in the C entry point, three kernels a chunk:
+//   (a) dl_c = f(x . W_c^T), written in bf16 into a scratch of N x chunk;
+//   (b) dW[chunk rows] = dl_c^T . x, written once in f32;
+//   (c) dx_acc (+)= dl_c . W_c in f32; the last chunk writes dx in x's type.
+// That is the function's three products, and the logits are computed once per
+// call whatever E is. The scratch is written once and read twice: 6 N V bytes
+// in all, against which the products are compute-bound at every head of the
+// main path (0.47 ms of bytes against 3.26 ms of operations at llama_1b's), and
+// it never grows with V. Each product is one instance of the wgmma mainloop of
+// wgmma_gemm.cuh (128 x 256 tiles, TMA copies through a 4-stage ring of
+// mbarriers, m64n256k16 wgmma with fp32 sums in registers, a producer
+// warpgroup and two consumers), its operands K-major or MN-major as each
+// product needs: (a) x and W as stored; (b) the scratch and x transposed; (c)
+// the scratch as stored and W transposed. No atomics and no split K: two calls
+// give the same bits. E must be a multiple of 8 (16-byte rows for TMA; the
+// wrapper pads x and w otherwise).
+//
+// The float32 backward (not on any main path) keeps FMA kernels: a dx and a dW
+// kernel, each recomputing its logits, 32 x 512 output blocks in registers.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -57,6 +61,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "wgmma_gemm.cuh"
 
 using namespace nvcuda;
 
@@ -319,22 +325,23 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-// -- backward ------------------------------------------------------------------
+// -- backward, float32: FMA kernels ---------------------------------------------
 
 // ROWS_OWN: dx (own rows are rows of x, loop over the vocabulary);
-// otherwise dW (own rows are rows of w, loop over the rows of x).
-template <typename T, bool ROWS_OWN, typename OutT>
+// otherwise dW (own rows are rows of w, loop over the rows of x). Each
+// block keeps a 32 x 512 output block in registers and recomputes the
+// logits of its rows; E > 512 takes several blocks along the width.
+template <bool ROWS_OWN>
 __global__ void __launch_bounds__(THREADS)
-    bwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
-               const int32_t* __restrict__ targets,
-               const float* __restrict__ lse, const float* __restrict__ c1,
-               const float* __restrict__ c2, const float* __restrict__ c3,
-               OutT* __restrict__ out, int64_t N, int64_t E, int64_t V,
-               bool vec) {
-  constexpr int PAD = Cfg<T>::PAD;
-  constexpr bool MMA = std::is_same<T, __nv_bfloat16>::value;
-  const T* own_src = ROWS_OWN ? x : w;
-  const T* loop_src = ROWS_OWN ? w : x;
+    bwd_fma_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                   const int32_t* __restrict__ targets,
+                   const float* __restrict__ lse, const float* __restrict__ c1,
+                   const float* __restrict__ c2, const float* __restrict__ c3,
+                   float* __restrict__ out, int64_t N, int64_t E, int64_t V,
+                   bool vec) {
+  constexpr int PAD = Cfg<float>::PAD;
+  const float* own_src = ROWS_OWN ? x : w;
+  const float* loop_src = ROWS_OWN ? w : x;
   const int64_t n_own = ROWS_OWN ? N : V;
   const int64_t n_loop = ROWS_OWN ? V : N;
 
@@ -342,14 +349,14 @@ __global__ void __launch_bounds__(THREADS)
   const int lds = B_LOOP + 4;
   const int ldd = B_LOOP + PAD;
   extern __shared__ __align__(128) unsigned char smem[];
-  T* Os = reinterpret_cast<T*>(smem);                 // own rows x width chunk
-  T* Ls = Os + B_OWN * ld;                            // loop rows x width chunk
-  float* Ss = reinterpret_cast<float*>(Ls + B_LOOP * ld);  // logits tile
-  T* Ds = reinterpret_cast<T*>(Ss + B_OWN * lds);     // dl tile, x's type
+  float* Os = reinterpret_cast<float*>(smem);        // own rows x width chunk
+  float* Ls = Os + B_OWN * ld;                        // loop rows x width chunk
+  float* Ss = Ls + B_LOOP * ld;                       // logits tile
+  float* Ds = Ss + B_OWN * lds;                       // dl tile
   // per-row vectors of x's rows in this tile (own rows for dx, loop rows
   // for dW)
   constexpr int VR = ROWS_OWN ? B_OWN : B_LOOP;
-  float* v_lse = reinterpret_cast<float*>(Ds + B_OWN * ldd);
+  float* v_lse = Ds + B_OWN * ldd;
   float* v_c1 = v_lse + VR;
   float* v_c2 = v_c1 + VR;
   float* v_c3 = v_c2 + VR;
@@ -374,23 +381,14 @@ __global__ void __launch_bounds__(THREADS)
   };
   if (ROWS_OWN) load_vectors(own0);
   if (nchunks == 1)
-    stage<T>(Os, ld, own_src, n_own, E, own0, B_OWN, 0, w_mine, vec);
+    stage<float>(Os, ld, own_src, n_own, E, own0, B_OWN, 0, w_mine, vec);
 
-  // the (32 x 512) output block: warp wp holds columns [64 wp, 64 wp + 64)
-  const int warp = threadIdx.x / 32;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
-  float facc[MMA ? 1 : 2 * B_OWN];
-  if constexpr (MMA) {
+  // thread t owns columns t and t + 256 of the (32 x 512) output block
+  float acc[2 * B_OWN];
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-  } else {
-#pragma unroll
-    for (int i = 0; i < 2 * B_OWN; ++i) facc[i] = 0.f;
-  }
+  for (int i = 0; i < 2 * B_OWN; ++i) acc[i] = 0.f;
 
-  Tile<T, B_OWN, B_LOOP> tile;
+  TileFma<B_OWN, B_LOOP> tile;
   for (int64_t l0 = 0; l0 < n_loop; l0 += B_LOOP) {
     if (!ROWS_OWN) load_vectors(l0);
     tile.zero();
@@ -399,8 +397,8 @@ __global__ void __launch_bounds__(THREADS)
       const int c = (mine + i) % nchunks;
       const int64_t e0 = (int64_t)c * B_WIDTH;
       const int width = round16(min64(B_WIDTH, E - e0));
-      if (nchunks > 1) stage<T>(Os, ld, own_src, n_own, E, own0, B_OWN, e0, width, vec);
-      stage<T>(Ls, ld, loop_src, n_loop, E, l0, B_LOOP, e0, width, vec);
+      if (nchunks > 1) stage<float>(Os, ld, own_src, n_own, E, own0, B_OWN, e0, width, vec);
+      stage<float>(Ls, ld, loop_src, n_loop, E, l0, B_LOOP, e0, width, vec);
       stage_wait();
       __syncthreads();
       tile.run(Os, ld, Ls, ld, width);
@@ -408,7 +406,6 @@ __global__ void __launch_bounds__(THREADS)
     }
     tile.store(Ss, lds);
     __syncthreads();
-    // dl, rounded to x's type
     for (int i = threadIdx.x; i < B_OWN * B_LOOP; i += THREADS) {
       const int r = i / B_LOOP, c = i % B_LOOP;
       const int64_t own = own0 + r, lp = l0 + c;
@@ -421,81 +418,170 @@ __global__ void __launch_bounds__(THREADS)
         if (v == v_t[vi]) d -= v_c2[vi];
         d -= v_c3[vi];
       }
-      Ds[r * ldd + c] = from_float<T>(d);
+      Ds[r * ldd + c] = d;
     }
     __syncthreads();
     // out[own, e] += dl[own, loop] . loop_src[loop, e] over this width chunk
-    if constexpr (MMA) {
-      for (int k = 0; k < B_LOOP; k += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>
-            a[2];
 #pragma unroll
-        for (int i = 0; i < 2; ++i)
-          wmma::load_matrix_sync(a[i], Ds + i * 16 * ldd + k, ldd);
+    for (int h = 0; h < 2; ++h) {
+      const int col = threadIdx.x + h * THREADS;
+      if (col < w_mine) {
+        for (int k = 0; k < B_LOOP; ++k) {
+          const float b = Ls[k * ld + col];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int col = warp * 64 + j * 16;
-          if (col < w_mine) {
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                           wmma::row_major>
-                b;
-            wmma::load_matrix_sync(b, Ls + k * ld + col, ld);
-#pragma unroll
-            for (int i = 0; i < 2; ++i) wmma::mma_sync(acc[i][j], a[i], b, acc[i][j]);
-          }
-        }
-      }
-    } else {
-      // thread t owns columns t and t + 256 of the output block
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int col = threadIdx.x + h * THREADS;
-        if (col < w_mine) {
-          for (int k = 0; k < B_LOOP; ++k) {
-            const float b = Ls[k * ld + col];
-#pragma unroll
-            for (int r = 0; r < B_OWN; ++r)
-              facc[h * B_OWN + r] = fmaf(Ds[r * ldd + k], b,
-                                         facc[h * B_OWN + r]);
-          }
+          for (int r = 0; r < B_OWN; ++r)
+            acc[h * B_OWN + r] = fmaf(Ds[r * ldd + k], b, acc[h * B_OWN + r]);
         }
       }
     }
     __syncthreads();
   }
 
-  // write the output block in out's type; rows past n_own and columns past
-  // E are dropped
-  if constexpr (MMA) {
-    float* Cs = reinterpret_cast<float*>(Ls);   // 32 x (512 + 4) f32 fits in Ls
-    const int ldc = B_WIDTH + 4;
+  // rows past n_own and columns past E are dropped
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+  for (int h = 0; h < 2; ++h) {
+    const int c = threadIdx.x + h * THREADS;
+    const int64_t e = e_mine + c;
+    if (c >= w_mine || e >= E) continue;
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        wmma::store_matrix_sync(Cs + i * 16 * ldc + warp * 64 + j * 16,
-                                acc[i][j], ldc, wmma::mem_row_major);
-    __syncthreads();
-    for (int i = threadIdx.x; i < B_OWN * B_WIDTH; i += THREADS) {
-      const int r = i / B_WIDTH, c = i % B_WIDTH;
-      const int64_t own = own0 + r, e = e_mine + c;
-      if (own < n_own && c < w_mine && e < E)
-        out[own * E + e] = from_float<OutT>(Cs[r * ldc + c]);
-    }
-  } else {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int c = threadIdx.x + h * THREADS;
-      const int64_t e = e_mine + c;
-      if (c >= w_mine || e >= E) continue;
-#pragma unroll
-      for (int r = 0; r < B_OWN; ++r) {
-        const int64_t own = own0 + r;
-        if (own < n_own) out[own * E + e] = from_float<OutT>(facc[h * B_OWN + r]);
-      }
+    for (int r = 0; r < B_OWN; ++r) {
+      const int64_t own = own0 + r;
+      if (own < n_own) out[own * E + e] = acc[h * B_OWN + r];
     }
   }
 }
+
+// -- backward, bfloat16: three wgmma products per vocabulary chunk -----------------
+
+// 2^x on the special function unit (relative error about 2^-22, far below
+// the bf16 rounding of dl that follows; results below 2^-126 flush to 0).
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// (a) dl = f(x . W_c^T) in bf16 into the scratch (N, ld), columns of the chunk
+// starting at vocabulary row v0; zero past V.
+struct DlogitsEpilogue {
+  const float* lse;
+  const float* c1;
+  const float* c2;
+  const float* c3;
+  const int32_t* targets;
+  __nv_bfloat16* dl;
+  int64_t ld, N, V, v0;
+
+  static constexpr float LOG2E = 1.4426950408889634f;
+  // the thread's two rows: lse in log2 units, c1, c2, c3 and the target's
+  // column in the chunk
+  struct Rows {
+    float shift[2], a1[2], a2[2], a3[2];
+    int64_t t[2];
+  };
+
+  __device__ __forceinline__ Rows rows(int r0) const {
+    Rows r;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int64_t n = r0 + 8 * h;
+      const bool ok = n < N;
+      r.shift[h] = ok ? lse[n] * LOG2E : 0.f;
+      r.a1[h] = ok ? c1[n] : 0.f;
+      r.a2[h] = ok ? c2[n] : 0.f;
+      r.a3[h] = ok ? c3[n] : 0.f;
+      r.t[h] = ok ? targets[n] - v0 : -1;
+    }
+    return r;
+  }
+
+  __device__ __forceinline__ void operator()(const float (&d)[wgmma_gemm::ACC], int r0,
+                                             int c0, const Rows& r) const {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int64_t n = r0 + 8 * h;
+      if (n >= N) continue;
+      __nv_bfloat16* row = dl + n * ld;
+#pragma unroll
+      for (int j = 0; j < wgmma_gemm::ACC / 4; ++j) {
+        const int col = c0 + 8 * j;
+        float v[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          v[e] = 0.f;
+          if (v0 + col + e < V) {
+            v[e] = r.a1[h] * exp2_approx(fmaf(d[4 * j + 2 * h + e], LOG2E, -r.shift[h]));
+            if (col + e == r.t[h]) v[e] -= r.a2[h];
+            v[e] -= r.a3[h];
+          }
+        }
+        *reinterpret_cast<__nv_bfloat162*>(row + col) = __floats2bfloat162_rn(v[0], v[1]);
+      }
+    }
+  }
+};
+
+// (b) dW rows [v0, v0 + chunk) = dl_c^T . x, float32, rows past V dropped.
+struct DwEpilogue {
+  float* dw;
+  int64_t E, V, v0;
+
+  __device__ __forceinline__ wgmma_gemm::NoRows rows(int) const { return {}; }
+
+  __device__ __forceinline__ void operator()(const float (&d)[wgmma_gemm::ACC], int r0,
+                                             int c0, wgmma_gemm::NoRows) const {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int64_t v = v0 + r0 + 8 * h;
+      if (v >= V) continue;
+      float* row = dw + v * E;
+#pragma unroll
+      for (int j = 0; j < wgmma_gemm::ACC / 4; ++j) {
+        const int col = c0 + 8 * j;
+        if (col < E)
+          *reinterpret_cast<float2*>(row + col) =
+              make_float2(d[4 * j + 2 * h], d[4 * j + 2 * h + 1]);
+      }
+    }
+  }
+};
+
+// (c) dx (+)= dl_c . W_c: the first chunk writes the float32 accumulator,
+// later ones add to it, the last writes dx in bf16 (a single chunk writes
+// dx at once).
+struct DxEpilogue {
+  float* acc;
+  __nv_bfloat16* dx;
+  int64_t N, E;
+  bool first, last;
+
+  __device__ __forceinline__ wgmma_gemm::NoRows rows(int) const { return {}; }
+
+  __device__ __forceinline__ void operator()(const float (&d)[wgmma_gemm::ACC], int r0,
+                                             int c0, wgmma_gemm::NoRows) const {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int64_t n = r0 + 8 * h;
+      if (n >= N) continue;
+#pragma unroll
+      for (int j = 0; j < wgmma_gemm::ACC / 4; ++j) {
+        const int col = c0 + 8 * j;
+        if (col >= E) continue;
+        float2 v = make_float2(d[4 * j + 2 * h], d[4 * j + 2 * h + 1]);
+        float2* a = reinterpret_cast<float2*>(acc + n * E + col);
+        if (!first) {
+          const float2 p = *a;
+          v.x += p.x;
+          v.y += p.y;
+        }
+        if (last)
+          *reinterpret_cast<__nv_bfloat162*>(dx + n * E + col) = __floats2bfloat162_rn(v.x, v.y);
+        else
+          *a = v;
+      }
+    }
+  }
+};
 
 // -- launchers -------------------------------------------------------------------
 
@@ -532,27 +618,67 @@ cudaError_t launch_fwd(const void* x, const void* w, const int32_t* targets,
   return cudaGetLastError();
 }
 
-template <typename T, bool ROWS_OWN, typename OutT>
-cudaError_t launch_bwd(const void* x, const void* w, const int32_t* targets,
-                       const float* lse, const float* c1, const float* c2,
-                       const float* c3, void* out, int64_t N, int64_t E,
-                       int64_t V, cudaStream_t stream) {
-  const int ld = B_WIDTH + Cfg<T>::PAD;
+template <bool ROWS_OWN>
+cudaError_t launch_bwd_fma(const float* x, const float* w, const int32_t* targets,
+                           const float* lse, const float* c1, const float* c2,
+                           const float* c3, float* out, int64_t N, int64_t E,
+                           int64_t V, cudaStream_t stream) {
+  const int ld = B_WIDTH + Cfg<float>::PAD;
   constexpr int VR = ROWS_OWN ? B_OWN : B_LOOP;
-  const size_t bytes = (size_t)(B_OWN + B_LOOP) * ld * sizeof(T) +
-                       (size_t)B_OWN * (B_LOOP + 4) * sizeof(float) +
-                       (size_t)B_OWN * (B_LOOP + Cfg<T>::PAD) * sizeof(T) +
-                       (size_t)VR * (4 * sizeof(float) + sizeof(int32_t));
-  auto kernel = bwd_kernel<T, ROWS_OWN, OutT>;
+  const size_t bytes = ((size_t)(B_OWN + B_LOOP) * ld + (size_t)B_OWN * (B_LOOP + 4) +
+                        (size_t)B_OWN * (B_LOOP + Cfg<float>::PAD) + (size_t)VR * 4) *
+                           sizeof(float) +
+                       (size_t)VR * sizeof(int32_t);
+  auto kernel = bwd_fma_kernel<ROWS_OWN>;
   cudaError_t err = allow_smem(kernel, bytes);
   if (err != cudaSuccess) return err;
   const int64_t n_own = ROWS_OWN ? N : V;
   const dim3 grid((unsigned)((n_own + B_OWN - 1) / B_OWN),
                   (unsigned)((E + B_WIDTH - 1) / B_WIDTH));
-  kernel<<<grid, THREADS, bytes, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), targets, lse, c1, c2,
-      c3, static_cast<OutT*>(out), N, E, V, vectorizable<T>(x, w, E));
+  kernel<<<grid, THREADS, bytes, stream>>>(x, w, targets, lse, c1, c2, c3, out, N, E, V,
+                                           vectorizable<float>(x, w, E));
   return cudaGetLastError();
+}
+
+// The bf16 backward: for each chunk of `chunk` vocabulary rows, (a) the
+// logits of the chunk and their dl into the scratch (N, chunk) in bf16, (b)
+// the chunk's rows of dW from it, (c) its share of dx, all on `stream`.
+cudaError_t launch_bwd_wgmma(const void* x, const void* w, const int32_t* targets,
+                             const float* lse, const float* c1, const float* c2,
+                             const float* c3, void* dx, float* dw, void* scratch,
+                             float* dx_acc, int64_t N, int64_t E, int64_t V,
+                             int64_t chunk, cudaStream_t stream) {
+  using namespace wgmma_gemm;
+  const int64_t nchunks = (V + chunk - 1) / chunk;
+  if (E % 8 || chunk % BN || (nchunks > 1 && !dx_acc) ||
+      ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) |
+        reinterpret_cast<uintptr_t>(scratch)) % 16))
+    return cudaErrorInvalidValue;
+  // x and w K-major for (a); x, w and the scratch MN-major for (b) and (c);
+  // the scratch K-major for (c)
+  CUtensorMap x_k, w_k, x_mn, w_mn, dl_mn, dl_k;
+  if (!operand_map(&x_k, x, N, E, E, false, BM) || !operand_map(&w_k, w, V, E, E, false, BN) ||
+      !operand_map(&x_mn, x, N, E, E, true, 0) || !operand_map(&w_mn, w, V, E, E, true, 0) ||
+      !operand_map(&dl_mn, scratch, N, chunk, chunk, true, 0) ||
+      !operand_map(&dl_k, scratch, N, chunk, chunk, false, BM))
+    return cudaErrorInvalidValue;
+  auto* dl = static_cast<__nv_bfloat16*>(scratch);
+  for (int64_t c = 0; c < nchunks; ++c) {
+    const int64_t v0 = c * chunk, cols = min64(chunk, V - v0);
+    cudaError_t err = gemm<false, false>(
+        x_k, w_k, Coords{(int)v0, 0}, N, cols, E,
+        DlogitsEpilogue{lse, c1, c2, c3, targets, dl, chunk, N, V, v0}, stream);
+    if (err == cudaSuccess)
+      err = gemm<true, true>(dl_mn, x_mn, Coords{0, 0}, cols, E, N,
+                             DwEpilogue{dw, E, V, v0}, stream);
+    if (err == cudaSuccess)
+      err = gemm<false, true>(dl_k, w_mn, Coords{0, (int)v0}, N, E, cols,
+                              DxEpilogue{dx_acc, static_cast<__nv_bfloat16*>(dx), N, E,
+                                         c == 0, c == nchunks - 1},
+                              stream);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 bool bad_sizes(int64_t N, int64_t E, int64_t V) {
@@ -581,37 +707,31 @@ int fused_ce_fwd(const void* x, const void* w, const int32_t* targets,
   return (int)launch_fwd<float>(x, w, targets, lse, tgt, suml, N, E, V, s);
 }
 
-// dx (N, E) in x's type.
-int fused_ce_bwd_dx(const void* x, const void* w, const int32_t* targets,
-                    const float* lse, const float* c1, const float* c2,
-                    const float* c3, void* dx, int64_t N, int64_t E, int64_t V,
-                    int dtype, void* stream) {
-  if (bad_sizes(N, E, V) || (dtype != 0 && dtype != 1))
+// The backward of one call: dx (N, E) in x's type and dw (V, E) in f32, every
+// element written (the caller zeroes dw where N == 0: nothing is launched).
+// bfloat16 takes the wgmma kernels: E a multiple of 8, chunk a multiple of
+// 256, x, w and scratch 16-byte aligned; scratch holds (N, chunk) bf16 and,
+// where V > chunk, dx_acc (N, E) f32. float32 takes the FMA kernels (no
+// scratch).
+int fused_ce_bwd(const void* x, const void* w, const int32_t* targets,
+                 const float* lse, const float* c1, const float* c2,
+                 const float* c3, void* dx, float* dw, void* scratch,
+                 float* dx_acc, int64_t N, int64_t E, int64_t V, int64_t chunk,
+                 int dtype, void* stream) {
+  if (bad_sizes(N, E, V) || (dtype != 0 && dtype != 1) || chunk <= 0)
     return (int)cudaErrorInvalidValue;
   if (N == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)launch_bwd<__nv_bfloat16, true, __nv_bfloat16>(
-        x, w, targets, lse, c1, c2, c3, dx, N, E, V, s);
-  return (int)launch_bwd<float, true, float>(x, w, targets, lse, c1, c2, c3,
-                                             dx, N, E, V, s);
-}
-
-// dw (V, E) in f32, every element written (zero where N == 0 is left to the
-// caller: with no rows the kernel is not launched).
-int fused_ce_bwd_dw(const void* x, const void* w, const int32_t* targets,
-                    const float* lse, const float* c1, const float* c2,
-                    const float* c3, float* dw, int64_t N, int64_t E, int64_t V,
-                    int dtype, void* stream) {
-  if (bad_sizes(N, E, V) || (dtype != 0 && dtype != 1))
-    return (int)cudaErrorInvalidValue;
-  if (N == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)launch_bwd<__nv_bfloat16, false, float>(
-        x, w, targets, lse, c1, c2, c3, dw, N, E, V, s);
-  return (int)launch_bwd<float, false, float>(x, w, targets, lse, c1, c2, c3,
-                                              dw, N, E, V, s);
+    return (int)launch_bwd_wgmma(x, w, targets, lse, c1, c2, c3, dx, dw, scratch,
+                                 dx_acc, N, E, V, chunk, s);
+  const float* xf = static_cast<const float*>(x);
+  const float* wf = static_cast<const float*>(w);
+  cudaError_t err = launch_bwd_fma<true>(xf, wf, targets, lse, c1, c2, c3,
+                                         static_cast<float*>(dx), N, E, V, s);
+  if (err == cudaSuccess)
+    err = launch_bwd_fma<false>(xf, wf, targets, lse, c1, c2, c3, dw, N, E, V, s);
+  return (int)err;
 }
 
 const char* fused_ce_error_string(int code) {

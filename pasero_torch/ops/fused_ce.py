@@ -4,9 +4,10 @@ without materialized logits.
 Port of pasero_tpu/ops/fused_ce.py. The training half: ``fused_cross_entropy``
 (a ``jax.custom_vjp`` over the Pallas ``_fwd``, ``_bwd_matmuls`` and
 ``_bwd_split`` there) is a ``torch.autograd.Function``: on CUDA tensors its
-forward launches ``fused_ce_fwd`` and its backward ``fused_ce_bwd`` (the dx
-and dW kernels of ``csrc/fused_ce.cu``); CPU tensors take
-``fused_cross_entropy_plain``. The decoding half: ``fused_head_argmax``
+forward launches ``fused_ce_fwd`` and its backward ``fused_ce_bwd`` (three
+wgmma products per vocabulary chunk, ``csrc/fused_ce.cu``); CPU tensors take
+``fused_cross_entropy_plain``, and ``fused_ce_bwd_plain`` is the backward's
+own plain version. The decoding half: ``fused_head_argmax``
 (the Pallas ``fused_head_argmax`` and ``_fused_head_argmax_q8``) launches the
 kernels of ``csrc/fused_head.cu`` on CUDA tensors, counted in
 ``fused_head_argmax.launches`` (a bfloat16 head) and
@@ -30,6 +31,15 @@ from . import cuda_build
 from .quantize import QTensor
 
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+# vocabulary rows per chunk of the backward: its bf16 scratch holds N x CHUNK
+CHUNK = 8192
+
+
+def bwd_chunk(vocab: int) -> int:
+    """Vocabulary rows per chunk of the bf16 backward at ``vocab`` rows:
+    CHUNK, or the whole vocabulary rounded up to the kernels' 256-row
+    tiles when it is smaller."""
+    return min(CHUNK, -(-vocab // 256) * 256)
 
 
 def _stats(lse, tgt, suml, weights, vocab: int, label_smoothing: float):
@@ -81,9 +91,8 @@ def _library():
     if lib.fused_ce_fwd.argtypes is None:
         ptr, i64 = ctypes.c_void_p, ctypes.c_int64
         lib.fused_ce_fwd.argtypes = [ptr] * 6 + [i64] * 3 + [ctypes.c_int, ptr]
-        for fn in (lib.fused_ce_bwd_dx, lib.fused_ce_bwd_dw):
-            fn.argtypes = [ptr] * 8 + [i64] * 3 + [ctypes.c_int, ptr]
-        for fn in (lib.fused_ce_fwd, lib.fused_ce_bwd_dx, lib.fused_ce_bwd_dw):
+        lib.fused_ce_bwd.argtypes = [ptr] * 11 + [i64] * 4 + [ctypes.c_int, ptr]
+        for fn in (lib.fused_ce_fwd, lib.fused_ce_bwd):
             fn.restype = ctypes.c_int
         lib.fused_ce_error_string.argtypes = [ctypes.c_int]
         lib.fused_ce_error_string.restype = ctypes.c_char_p
@@ -128,30 +137,79 @@ def fused_ce_fwd(x, w, targets):
 fused_ce_fwd.launches = 0
 
 
+def _dlogits(x, w, targets, lse, c1, c2, c3, v0: int):
+    """dl of vocabulary rows [v0, v0 + len(w)) in float32 from float32
+    logits of x and the chunk w, rounded to x's type."""
+    s = torch.matmul(x.float(), w.float().t())
+    dl = c1[:, None] * torch.exp(s - lse[:, None])
+    hit = targets.long()[:, None] == torch.arange(v0, v0 + w.shape[0],
+                                                  device=x.device)
+    dl = torch.where(hit, dl - c2[:, None], dl) - c3[:, None]
+    return dl.to(x.dtype).float()
+
+
+def fused_ce_bwd_plain(x, w, targets, lse, c1, c2, c3, chunk: int = CHUNK):
+    """``fused_ce_bwd`` in plain PyTorch with the kernels' arithmetic: per
+    chunk of ``chunk`` vocabulary rows, dl rounded to x's type, float32
+    products, dW's rows written, dx accumulated in float32 and cast to x's
+    type at the end."""
+    N, E = x.shape
+    V = w.shape[0]
+    w = w.to(x.dtype)
+    xf = x.float()
+    vecs = [v.float() for v in (lse, c1, c2, c3)]
+    dx = torch.zeros((N, E), dtype=torch.float32, device=x.device)
+    dw = torch.empty((V, E), dtype=torch.float32, device=x.device)
+    for v0 in range(0, V, chunk):
+        wc = w[v0:v0 + chunk].float()
+        dl = _dlogits(x, wc, targets, *vecs, v0)
+        dx += torch.matmul(dl, wc)
+        dw[v0:v0 + chunk] = torch.matmul(dl.t(), xf)
+    return dx.to(x.dtype), dw
+
+
 def fused_ce_bwd(x, w, targets, lse, c1, c2, c3):
     """(dx (N, E) in x's type, dW (V, E) float32) for
-    dlogits = c1 * softmax - c2 * onehot(targets) - c3, from one launch each
-    of the dx and dW kernels (one count in ``fused_ce_bwd.launches``)."""
+    dlogits = c1 * softmax - c2 * onehot(targets) - c3, from one call of the
+    kernels (one count in ``fused_ce_bwd.launches``). bfloat16 takes three
+    wgmma products per chunk of ``CHUNK`` vocabulary rows through an
+    (N, CHUNK) bf16 scratch (narrower for a smaller V) and, past one chunk,
+    an (N, E) float32 accumulator of dx; an E that is not a multiple of 8 is
+    padded with zero columns for the kernels' 16-byte rows. float32 takes
+    the FMA kernels."""
     x, w, t = _cuda_inputs(x, w, targets)
     N, E = x.shape
     V = w.shape[0]
     vecs = [v.float().contiguous() for v in (lse, c1, c2, c3)]
-    dx = torch.empty_like(x)
+    pad = (-E) % 8 if x.dtype == torch.bfloat16 else 0
+    if pad:
+        x = torch.nn.functional.pad(x, (0, pad))
+        w = torch.nn.functional.pad(w, (0, pad))
+    x, w = cuda_build.aligned(x), cuda_build.aligned(w)
+    Ep = E + pad
+    chunk = bwd_chunk(V)
+    dx = torch.empty((N, Ep), dtype=x.dtype, device=x.device)
     # every element of dW is written when there are rows to reduce over
-    dw = (torch.empty if N else torch.zeros)((V, E), dtype=torch.float32,
+    dw = (torch.empty if N else torch.zeros)((V, Ep), dtype=torch.float32,
                                              device=x.device)
+    scratch = dx_acc = None
+    if x.dtype == torch.bfloat16:
+        scratch = torch.empty((N, chunk), dtype=x.dtype, device=x.device)
+        if V > chunk:
+            dx_acc = torch.empty((N, Ep), dtype=torch.float32,
+                                 device=x.device)
     lib = _library()
-    args = [x.data_ptr(), w.data_ptr(), t.data_ptr()] + \
-        [v.data_ptr() for v in vecs]
+    ptrs = [x.data_ptr(), w.data_ptr(), t.data_ptr()] + \
+        [v.data_ptr() for v in vecs] + \
+        [a.data_ptr() if a is not None else None
+         for a in (dx, dw, scratch, dx_acc)]
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = lib.fused_ce_bwd_dx(*args, dx.data_ptr(), N, E, V,
-                                     _DTYPES[x.dtype], stream)
-        _raise_on(lib, status, "fused_ce_bwd_dx")
-        status = lib.fused_ce_bwd_dw(*args, dw.data_ptr(), N, E, V,
-                                     _DTYPES[x.dtype], stream)
-        _raise_on(lib, status, "fused_ce_bwd_dw")
+        status = lib.fused_ce_bwd(*ptrs, N, Ep, V, chunk, _DTYPES[x.dtype],
+                                  torch.cuda.current_stream().cuda_stream)
+    _raise_on(lib, status, "fused_ce_bwd")
     fused_ce_bwd.launches += 1
+    if pad:
+        return dx[:, :E].contiguous(), dw[:, :E].contiguous()
     return dx, dw
 
 

@@ -78,7 +78,9 @@ SHAPES = {"transformer": ("transformer", "translation", 0.1, 128, 128, 128,
                            3000, 128, 51865)}
 # workloads whose attention kernel is set, not left to ``auto``
 ATTENTION = {"bloom_560m": "flash", "t5_base": "flash"}
-KERNELS = ("fused_ce::fwd_kernel", "fused_ce::bwd_kernel", "flash::fwd_kernel",
+# the fused-CE backward's three products by their epilogues
+KERNELS = ("fused_ce::fwd_kernel", "fused_ce::DlogitsEpilogue",
+           "fused_ce::DwEpilogue", "fused_ce::DxEpilogue", "flash::fwd_kernel",
            "flash::bwd_dq_kernel", "flash::bwd_dkv_kernel",
            "flash::dbias_kernel", "flash::demb_kernel")
 

@@ -67,7 +67,14 @@ FCE_SHAPES = [((130, 48, 515), torch.bfloat16),    # ragged rows and vocab
               ((48, 2048, 330), torch.bfloat16),   # width over one block
               ((64, 36, 100), torch.bfloat16),     # width not a multiple of 8
               ((2048, 512, 51865), torch.bfloat16),    # whisper_base's head
-              ((8192, 2048, 32000), torch.bfloat16)]   # llama_1b's head
+              ((8192, 2048, 32000), torch.bfloat16),   # llama_1b's head
+              # the backward's vocabulary chunks (CHUNK = 8192 rows): one
+              # chunk exactly, one row more, several with a ragged last one
+              ((256, 128, 8192), torch.bfloat16),
+              ((256, 128, 8193), torch.bfloat16),
+              ((256, 136, 3 * 8192 + 1000), torch.bfloat16),
+              ((4096, 768, 32128), torch.bfloat16),    # t5_base's head
+              ((8192, 1024, 250880), torch.bfloat16)]  # bloom_560m's head
 
 
 # The fused-CE gradients against float32 ones of the same operand values, in
@@ -117,7 +124,7 @@ def test_fused_ce_kernels_match_plain(shape, dtype, ls):
     rounded to x's type first, so the reference rounds nothing). x has a
     per-row scale, so that the same check rejects the backward given another
     row's lse."""
-    from pasero_torch.ops.fused_ce import (fused_ce_bwd, fused_ce_fwd,
+    from pasero_torch.ops.fused_ce import (CHUNK, fused_ce_bwd, fused_ce_fwd,
                                            fused_cross_entropy,
                                            fused_cross_entropy_plain)
     _need_card()
@@ -150,12 +157,76 @@ def test_fused_ce_kernels_match_plain(shape, dtype, ls):
     cs = (wt * (a + b), wt * a, wt * (b / V))
     lse = torch.logsumexp(torch.matmul(x.float(), wb.float().t()), -1)
     limits = fused_ce_grad_limits(x, wb, t, lse, *cs, grads[1])
+    torch.cuda.empty_cache()
     excess = [fused_ce_grad_excess(got, want, limit)
               for got, want, limit in zip(grads[0], grads[1], limits)]
     assert max(excess) <= 1.0, excess
     bad = fused_ce_bwd(x, wb, t, fused_ce_fwd(x, wb, t)[0].roll(1), *cs)
     assert min(fused_ce_grad_excess(got, want, limit) for got, want, limit
                in zip(bad, grads[1], limits)) > 1.0
+    if V > CHUNK:
+        # dW rolled by one chunk; dx without the last chunk's share where a
+        # target lies in it (else the share is the softmax tail alone, below
+        # the bf16 error model)
+        assert fused_ce_grad_excess(grads[0][1].roll(CHUNK, 0), grads[1][1],
+                                    limits[1]) > 1.0
+        v_last = (V - 1) // CHUNK * CHUNK
+        if (t >= v_last).any():
+            part = fused_ce_bwd(x, wb[:v_last], t, lse, *cs)[0]
+            assert fused_ce_grad_excess(part, grads[1][0], limits[0]) > 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype", [
+    ((130, 48, 515), torch.bfloat16),
+    ((64, 36, 100), torch.bfloat16),                # E padded to 40
+    ((1000, 512, 3 * 8192 + 1000), torch.bfloat16),  # four chunks
+    ((4096, 768, 32128), torch.bfloat16),           # t5_base's head
+    ((130, 48, 515), torch.float32)])
+def test_fused_ce_bwd_matches_bwd_plain(shape, dtype):
+    """The backward kernels against fused_ce_bwd_plain on the same inputs:
+    both round dlogits to x's type per chunk and sum in float32, so they
+    differ by summation order, by one bf16 step of dx (rtol 2^-7; float32
+    1e-5) and, where the kernels' exponential and torch.exp round one
+    dlogit to neighbouring bf16 values, by atol 2^-10 of the largest
+    magnitude; dW rtol 1e-5."""
+    from pasero_torch.ops.fused_ce import (fused_ce_bwd, fused_ce_bwd_plain,
+                                           fused_ce_fwd)
+    _need_card()
+    N, E, V = shape
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    x = (torch.randn(N, E, generator=gen, device="cuda")
+         * (0.5 + 1.5 * torch.rand(N, 1, generator=gen, device="cuda"))
+         ).to(dtype)
+    w = (torch.randn(V, E, generator=gen, device="cuda") * E ** -0.5).to(dtype)
+    t = torch.randint(0, V, (N,), generator=gen, device="cuda")
+    c = torch.rand(N, generator=gen, device="cuda")
+    args = (x, w, t, fused_ce_fwd(x, w, t)[0], 1.1 * c, c, 0.1 * c / V)
+    dx_rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+    for got, want, rtol in zip(fused_ce_bwd(*args), fused_ce_bwd_plain(*args),
+                               (dx_rtol, 1e-5)):
+        got, want = got.float(), want.float()
+        limit = rtol * want.abs() + 2.0 ** -10 * want.abs().max()
+        assert ((got - want).abs() <= limit).all(), \
+            ((got - want).abs() / limit).max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(130, 48, 515), (1000, 512, 3 * 8192 + 1000)])
+def test_fused_ce_bwd_same_bits(shape):
+    """Two backward calls give the same bits: no atomics, no split sums."""
+    from pasero_torch.ops.fused_ce import fused_ce_bwd, fused_ce_fwd
+    _need_card()
+    N, E, V = shape
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn(N, E, generator=gen, device="cuda").bfloat16()
+    w = (torch.randn(V, E, generator=gen, device="cuda") * E ** -0.5).bfloat16()
+    t = torch.randint(0, V, (N,), generator=gen, device="cuda")
+    c = torch.rand(N, generator=gen, device="cuda")
+    lse = fused_ce_fwd(x, w, t)[0]
+    (dx, dw), (dx2, dw2) = [fused_ce_bwd(x, w, t, lse, c, c, c / V)
+                            for _ in range(2)]
+    assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
 
 
 @pytest.mark.cuda

@@ -10,7 +10,9 @@ another order); the weight sum exactly; dx and dW rtol 2e-2, atol 2e-5, the
 JAX package's own tolerance for its kernels (tests/test_fused_ce.py). With
 bf16 x the JAX kernel rounds dlogits to bf16 before the products, the plain
 version does not, so its gradients are held at 2e-2 of their largest
-magnitude.
+magnitude. The backward's own plain version, ``fused_ce_bwd_plain``, rounds
+dlogits as the kernels do and is held much closer to JAX's backward kernels
+(``test_fused_ce_bwd_plain_matches_jax``).
 """
 
 import jax
@@ -21,10 +23,11 @@ import torch
 
 from pasero_tpu.models.transformer import \
     chunked_cross_entropy as jax_chunked
+from pasero_tpu.ops.fused_ce import _bwd_matmuls, _fwd
 from pasero_tpu.ops.fused_ce import fused_cross_entropy as jax_fused
 from pasero_torch.models.transformer import chunked_cross_entropy
-from pasero_torch.ops.fused_ce import (fused_ce_bwd, fused_ce_fwd,
-                                       fused_cross_entropy)
+from pasero_torch.ops.fused_ce import (fused_ce_bwd, fused_ce_bwd_plain,
+                                       fused_ce_fwd, fused_cross_entropy)
 
 
 def inputs(N, E, V, seed, x_scale=1.0, w_scale=0.05):
@@ -91,6 +94,44 @@ def test_fused_ce_bf16_matches_jax():
     assert float(p[2]) == float(j[2]) == 256
     for a, b in ((p[3], j[3]), (p[4], j[4])):
         assert np.abs(a - b).max() <= 2e-2 * np.abs(b).max()
+
+
+# (shape, plain chunk, x scale, w scale, dW's rtol): JAX's fused backward
+# (_bwd_matmuls) at a small E, with a vocabulary of four chunks and a ragged
+# tail; its split backward (_bwd_split, taken at E >= 2048) with three.
+BWD_CASES = [((96, 64, 1000), 256, 1.0, 0.05, 2.0 ** -8),
+             ((48, 2048, 330), 128, 0.1, 0.02, 1e-5)]
+
+
+@pytest.mark.parametrize("shape,chunk,x_scale,w_scale,dw_rtol", BWD_CASES)
+def test_fused_ce_bwd_plain_matches_jax(shape, chunk, x_scale, w_scale,
+                                        dw_rtol):
+    """fused_ce_bwd_plain in bf16 against JAX's backward kernels (interpret
+    mode) on the same bf16 inputs and float32 lse. Both round dlogits to
+    bf16 before float32 products, so they differ by summation order, by one
+    bf16 step of dx (both write it in bf16: rtol 2^-7) and of JAX's fused dW,
+    whose per-row-block partials are bf16 (rtol 2^-8; the split backward's
+    dW is float32: 1e-5), plus atol 2^-10 of the largest magnitude for a
+    dlogit that the two logits' summation orders round to neighbouring bf16
+    values."""
+    N, E, V = shape
+    x, w, t, wt = inputs(N, E, V, seed=4, x_scale=x_scale, w_scale=w_scale)
+    xb, wb = jnp.asarray(x, jnp.bfloat16), jnp.asarray(w, jnp.bfloat16)
+    lse = np.array(_fwd(xb, wb, jnp.asarray(t))[0])
+    a, b = 1.5, 0.1        # the backward of loss + 0.5 nll at ls = 0.1
+    cs = [wt * (a + b), wt * a, wt * (b / V)]
+    want = _bwd_matmuls(xb, wb, jnp.asarray(t), jnp.asarray(lse),
+                        *map(jnp.asarray, cs))
+    got = fused_ce_bwd_plain(
+        torch.tensor(np.asarray(xb, np.float32)).bfloat16(),
+        torch.tensor(np.asarray(wb, np.float32).T.copy()).bfloat16(),
+        torch.from_numpy(t), *map(torch.from_numpy, [lse] + cs), chunk=chunk)
+    assert got[0].dtype == torch.bfloat16 and got[1].dtype == torch.float32
+    for g, j, rtol in ((got[0], want[0], 2.0 ** -7),
+                       (got[1], np.asarray(want[1], np.float32).T, dw_rtol)):
+        g, j = g.float().numpy(), np.asarray(j, np.float32)
+        limit = rtol * np.abs(j) + 2.0 ** -10 * np.abs(j).max()
+        assert (np.abs(g - j) <= limit).all(), np.abs(g - j).max()
 
 
 @pytest.mark.parametrize("ls", [0.0, 0.1])
