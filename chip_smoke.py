@@ -43,16 +43,18 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    models/deen-mini2/training.yaml in a subprocess, with the flags of
    tests/test_torch_train_cli.py, its 20 per-step losses held against the
    JAX training CLI's committed ones, then TextGenerator.build on its checkpoint;
-7. the flash-attention kernels (forward; dq; dk/dv) against their plain
+7. the flash-attention kernels (forward; the bias-free backward's dq and
+   dk/dv, the wgmma kernels of csrc/flash_bwd.cu) against their plain
    version on the card, within the error model of tests/test_torch_cuda.py
    (``flash_limits``), at the llama_1b training shape (4 x 32/4 heads x 2048
    x 64, bf16, causal), a ragged shape (key padding, a sliding window, one
-   query head per K/V head, head dim 128), an unaligned length and the
-   mini LM's head dim of 32; at the
-   full-width shape their device time per call (CUDA graph) beside the
-   plain version's, the operations bound and the library yardstick
-   (F.scaled_dot_product_attention, forward and backward), and the peak
-   memory of both;
+   query head per K/V head, head dim 128), an unaligned length, the
+   mini LM's head dim of 32 and a cross-attention (128 queries over 512
+   padded keys); dq, dk and dv the same bits from two calls at the
+   llama_1b shape; at the full-width shape their device time per call (CUDA
+   graph) beside the plain version's, the operations bound and the library
+   yardstick (F.scaled_dot_product_attention, forward and backward, from
+   CUDA graphs too, their eager times beside), and the peak memory of both;
 8. full-width decoder-only training: llama_1b, vocabulary 32000, 4 x 2048
    tokens, bf16, through Trainer.train_step (scripts/bench_train.py
    --model llama_1b), 20 steps after a warm-up, with exact launch counts of
@@ -85,10 +87,11 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    the error model of tests/test_torch_cuda.py (``mel_limits``), at
    (1, 16000), (1, 480000), (16, 480000) and a ragged (3, 12345) of noise
    and on a tone over silence (80 and 128 mel bins), with frames shifted by
-   one hop and a filterbank with one column rolled rejected; at bench_mel's
-   (16, 480000) and the main path's per-utterance (1, 480000) its device
-   time per call (CUDA graph) beside the plain version's, the operations
-   bound and the library yardstick (torch.stft, power, the filterbank);
+   one hop, a filterbank with one column rolled and the window rolled by
+   one sample rejected; at bench_mel's (16, 480000) and the main path's
+   per-utterance (1, 480000) its device time per call (CUDA graph) beside
+   the plain version's, the operations bound of its factored DFT and of an
+   FFT, and the library yardstick (torch.stft, power, the filterbank);
 14. speech through the entry points on the st-mini anchor
    (pasero_torch/testdata/st-mini): TextGenerator.decode on its 32 wavs
    (bf16 greedy with the three prompt tags) against the JAX output, with
@@ -115,7 +118,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    given another row's lse rejected; at bloom_560m's shape each kernel's device time (CUDA graph)
    beside the plain version's, its bound (operations or bytes) and the
    library yardstick (F.scaled_dot_product_attention with the bias as a
-   float attn_mask, its backward, with the mask's gradient); a learned bias
+   float attn_mask, its backward, with the mask's gradient; from CUDA
+   graphs, eager beside); a learned bias
    through flash_attention's autograd launching dbias once (the kernels
    line's ``learned_bias_launches``: the main path, phase 17, launches it
    0 times);
@@ -141,10 +145,11 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    and at (1, 12, 32768, 64) each kernel's device time (CUDA graph) beside
    the plain version's, its bound and the library yardstick (SDPA with the
    materialized bias as a float attn_mask; for demb its mask's gradient
-   and index_add_ by bucket), "does not fit" where an (Sq, Sk) tensor does
-   not, and the peak memory of forward + backward; the bias-free kernels
-   at JAX's streamed lengths, (1, 32, 32768, 128) causal: one head against
-   the plain version, their device times and peak memory;
+   and index_add_ by bucket; from CUDA graphs, eager beside), "does not
+   fit" where an (Sq, Sk) tensor does not, and the peak memory of forward
+   + backward; the bias-free kernels at JAX's streamed lengths, (1, 32,
+   32768, 128) causal: one head against the plain version, the same bits
+   from two backward calls, their device times and peak memory;
 19. T5 through the entry points: TextGenerator on the t5-mini anchor
    (pasero_torch/testdata/t5-mini), greedy and beam 5 on deen-mini's
    test.de against the JAX outputs, the encoder through flash_fwd_t5;
@@ -251,6 +256,33 @@ def device_ms(fn, iters: int = 200, replays: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (iters * replays)
+
+
+def library_times(fwd, inputs, do, iters: int = 10, eager_iters: int = 10,
+                  grad_of=None) -> dict:
+    """A library yardstick (one PyTorch call and its autograd backward; the
+    port never calls either): device ms per call of ``fwd(*inputs)`` and of
+    forward + backward (``torch.autograd.grad`` of its output over the
+    inputs, given the output gradient ``do``), each from a CUDA graph, the
+    two captured apart (a backward runs on its forward's stream, so it is
+    captured with it); the backward's time is their difference. ``grad_of``,
+    if given, takes the gradients and finishes the yardstick (a reduction
+    the backward feeds). Beside them, as ``*_host``, the eager times: CUDA
+    events over back-to-back launches, the backward on a retained forward."""
+    import torch
+    leaves = [x.clone().requires_grad_() for x in inputs]
+    finish = grad_of or (lambda grads: grads)
+
+    def both():
+        return finish(torch.autograd.grad(fwd(*leaves), leaves, do))
+    res = {"fwd": device_ms(lambda: fwd(*inputs), iters, 5)}
+    res["bwd"] = device_ms(both, iters, 5) - res["fwd"]
+    res["fwd_host"] = time_ms(lambda: fwd(*inputs), eager_iters, 2)
+    out = fwd(*leaves)
+    res["bwd_host"] = time_ms(lambda: finish(torch.autograd.grad(
+        out, leaves, do, retain_graph=True)), eager_iters, 2)
+    del out, leaves
+    return res
 
 
 # -- phase 0 -------------------------------------------------------------------
@@ -849,12 +881,20 @@ def phase6() -> dict:
 
 # -- phase 7 -------------------------------------------------------------------
 
-FLASH_SHAPES = [   # (B, H, Hkv, S, D), causal, window, keys padded per row
+FLASH_SHAPES = [   # (B, H, Hkv, S or (Sq, Sk), D), causal, window, padded
     ((4, 32, 4, 2048, 64), True, None, False),     # llama_1b training
     ((2, 8, 8, 1000, 128), True, 256, True),       # padding, window, group 1
     ((2, 16, 4, 777, 64), False, None, True),      # unaligned S, not causal
     ((3, 4, 2, 45, 32), True, None, True),         # the mini LM's head dim
+    ((4, 12, 12, (128, 512), 64), False, None, True),   # cross-attention
 ]
+
+
+# the bias-free backward's limits (dq + dk/dv, device ms per call): at
+# llama_1b's training shape, and at LONG the time of the kernels it
+# replaced (64.2594 + 84.3847 ms, PERF.md, "NVIDIA H100 80GB HBM3, 700.00 W")
+BWD_MAX_MS = 1.0
+LONG_BWD_MAX_MS = 148.6441
 
 
 def flash_check(shape, causal, window, padded, cuda_tests) -> dict:
@@ -930,20 +970,18 @@ def flash_timing(cuda_tests) -> dict:
         res[key]["ms" if key in ("fwd", "bwd") else "kernel_ms"] = \
             device_ms(fn, iters=20, replays=5)
         res[key]["host_ms"] = time_ms(fn, 20, 3)
+    res["same_bits"] = cuda_tests.flash_same_bits(*FLASH_SHAPES[0])
+    check(res["same_bits"], f"two backward calls at {(B, H, Hkv, S, D)} "
+          "gave other bits")
     res["fwd"]["plain_ms"] = time_ms(
         lambda: flash_fwd_plain(q, k, v, mask, *args), 5, 1)
     res["bwd"]["plain_ms"] = time_ms(
         lambda: flash_bwd_plain(q, k, v, mask, out, lse, do, *args), 5, 1)
-    # the library yardstick; the port never calls it
-    res["fwd"]["library_ms"] = time_ms(
-        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                               enable_gqa=True), 20, 3)
-    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
-    lib_out = F.scaled_dot_product_attention(*leaves, is_causal=True,
-                                             enable_gqa=True)
-    res["bwd"]["library_ms"] = time_ms(lambda: torch.autograd.grad(
-        lib_out, leaves, do, retain_graph=True), 20, 3)
-    del lib_out
+    lib = library_times(lambda *x: F.scaled_dot_product_attention(
+        *x, is_causal=True, enable_gqa=True), (q, k, v), do, 20, 20)
+    for key in ("fwd", "bwd"):
+        res[key]["library_ms"] = lib[key]
+        res[key]["library_host_ms"] = lib[f"{key}_host"]
     for key, fn in (("peak_mib", lambda *x: flash_attention(
             *x, mask=mask[:, None, None, :], scale=scale, causal=True)),
             ("library_peak_mib", lambda *x: F.scaled_dot_product_attention(
@@ -957,6 +995,9 @@ def flash_timing(cuda_tests) -> dict:
         res["fwd"][key] = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
         del leaves
     f, b = res["fwd"], res["bwd"]
+    check(b["ms"] <= BWD_MAX_MS, f"the bias-free backward takes "
+          f"{b['ms']:.4f} ms at {(B, H, Hkv, S, D)}, more than "
+          f"{BWD_MAX_MS}")
     log(f"phase 7: at {(B, H, Hkv, S, D)} bf16 causal, device ms per call "
         f"(CUDA graph): forward {f['ms']:.4f} (bound {f['bound_ms']:.4f}, "
         f"bytes {f['bytes_bound_ms']:.4f}, "
@@ -967,7 +1008,10 @@ def flash_timing(cuda_tests) -> dict:
         f"{res['dkv']['kernel_bound_ms']:.4f}); backward bound "
         f"{b['bound_ms']:.4f} (bytes {b['bytes_bound_ms']:.4f}), plain {b['plain_ms']:.4f}, library "
         f"{b['library_ms']:.4f}; with eager launches: forward "
-        f"{f['host_ms']:.4f} backward {b['host_ms']:.4f}; peak memory of "
+        f"{f['host_ms']:.4f} backward {b['host_ms']:.4f}, library forward "
+        f"{f['library_host_ms']:.4f} backward {b['library_host_ms']:.4f}; "
+        f"dq, dk, dv the same bits from two calls: {res['same_bits']}; "
+        f"peak memory of "
         f"forward + backward: kernels {f['peak_mib']:.1f} MiB, library "
         f"{f['library_peak_mib']:.1f} MiB")
     return res
@@ -1392,15 +1436,16 @@ def phase12() -> dict:
 
 def mel_timing(B, N) -> dict:
     """Device ms per call (CUDA graph) of the mel kernel, its plain version
-    and the library yardstick at (B, N), and the bound of the work."""
+    and the library yardstick at (B, N); the operations of the kernel's
+    factored method and of an FFT, and the bounds of each."""
     import torch
-    from pasero_torch.ops.mel import num_frames, power_mel, power_mel_plain
+    from pasero_torch.ops.mel import (kernel_flops, num_frames, power_mel,
+                                      power_mel_plain)
     cuda_tests = load_test_module("test_torch_cuda")
     audio = cuda_tests.mel_inputs(B, N)
-    cos_b, sin_b, mel_w = cuda_tests.mel_constants()
-    n_fft, n_freq = cos_b.shape
-    n_mels = mel_w.shape[1]
-    window = torch.hann_window(n_fft, device="cuda")
+    window, mel_w = cuda_tests.mel_constants()
+    n_fft = window.shape[0]
+    n_freq, n_mels = mel_w.shape
 
     def library():
         # one PyTorch call per step, never called by the port: an FFT
@@ -1410,29 +1455,31 @@ def mel_timing(B, N) -> dict:
         return (spec.abs() ** 2).transpose(1, 2) @ mel_w
 
     T = num_frames(N, n_fft, 160)
-    flops = B * T * (2 * n_fft * 2 * n_freq + 3 * n_freq + 2 * n_freq * n_mels)
-    nbytes = 4 * (B * N + B * T * n_mels + 2 * n_fft * n_freq
-                  + n_freq * n_mels)
-    # what an FFT formulation would need instead of the DFT products (a
-    # real FFT of n_fft points: 2.5 n_fft log2 n_fft operations), beside
-    # the kernel's own bound: the headroom of the method
+    # the kernel's own method: the factored DFT (ops/mel.py:kernel_flops)
+    flops = B * T * kernel_flops(n_fft, mel_w)
+    # the dense DFT products of the plain version and of the kernel before
+    dense_flops = B * T * (2 * n_fft * 2 * n_freq + 3 * n_freq
+                           + 2 * n_freq * n_mels)
+    # the least work for the same function: a real FFT of n_fft points
+    # (2.5 n_fft log2 n_fft operations), the power and the mel product
     fft_flops = B * T * (2.5 * n_fft * math.log2(n_fft) + 3 * n_freq
                          + 2 * n_freq * n_mels)
+    nbytes = 4 * (B * N + B * T * n_mels + 3 * n_fft + n_freq * n_mels)
     ops_ms = flops / FP32_FLOPS * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    fft_ms = fft_flops / FP32_FLOPS * 1e3
     iters = 20 if B > 1 else 100
     res = {"shape": [B, N], "frames": B * T, "flops": flops, "bytes": nbytes,
-           "bound_ms": max(ops_ms, bytes_ms),
-           "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+           "method_bound_ms": max(ops_ms, bytes_ms),
+           "bound_ms": max(fft_ms, bytes_ms),
+           "bound_by": "operations" if fft_ms >= bytes_ms else "bytes",
            "bytes_ms": bytes_ms, "fft_flops": fft_flops,
-           "fft_bound_ms": max(fft_flops / FP32_FLOPS * 1e3, bytes_ms),
-           "ms": device_ms(lambda: power_mel(audio, cos_b, sin_b, mel_w),
-                           iters, 5),
-           "plain_ms": device_ms(lambda: power_mel_plain(audio, cos_b, sin_b,
+           "dense_flops": dense_flops,
+           "ms": device_ms(lambda: power_mel(audio, window, mel_w), iters, 5),
+           "plain_ms": device_ms(lambda: power_mel_plain(audio, window,
                                                          mel_w), iters, 5),
            "library_ms": device_ms(library, iters, 5)}
-    res["host_ms"] = time_ms(lambda: power_mel(audio, cos_b, sin_b, mel_w),
-                             iters)
+    res["host_ms"] = time_ms(lambda: power_mel(audio, window, mel_w), iters)
     return res
 
 
@@ -1449,28 +1496,35 @@ def phase13() -> dict:
         check(r["excess"] <= 1.0 and r["plain_excess"] <= 1.0,
               f"power_mel differs at ({B}, {N}) {kind} {n_mels} mels: {r}")
         if kind == "noise":
-            check(r["shift_excess"] > 1.0 and r["roll_excess"] > 1.0,
-                  f"the mel check at ({B}, {N}) passes shifted frames or a "
-                  f"rolled filterbank: {r}")
+            check(r["shift_excess"] > 1.0 and r["roll_excess"] > 1.0
+                  and r["window_excess"] > 1.0,
+                  f"the mel check at ({B}, {N}) passes shifted frames, a "
+                  f"rolled filterbank or a rolled window: {r}")
         res["max_abs_err"] = max(res["max_abs_err"], r["max_abs_err"])
         log(f"phase 13: power_mel == plain at ({B}, {N}) {kind}, {n_mels} "
             f"mels, {r['frames']} frames per row: {r['excess']:.4f} of the "
             f"limit (plain {r['plain_excess']:.4f}), max abs err of log10 "
             f"{r['max_abs_err']:.3e}; frames one hop off at "
             f"{r['shift_excess']:.1f}, a rolled filterbank column at "
-            f"{r['roll_excess']:.1f}")
+            f"{r['roll_excess']:.1f}, the window rolled by one sample at "
+            f"{r['window_excess']:.1f}")
         torch.cuda.empty_cache()
     for B, N in ((16, 480000), (1, 480000)):
         r = mel_timing(B, N)
         res["by_shape"].append(r)
+        check(r["ms"] <= r["library_ms"], f"the mel kernel takes "
+              f"{r['ms']:.5f} ms at ({B}, {N}), more than the library "
+              f"yardstick's {r['library_ms']:.5f}")
         log(f"phase 13: power_mel at {r['shape']} ({r['frames']} frames), "
-            f"device ms per call (CUDA graph): kernel {r['ms']:.5f} (bound "
-            f"{r['bound_ms']:.5f}, {r['bound_by']}: {r['flops'] / 1e9:.2f} "
-            f"GFLOP, {r['bytes'] / 1e6:.1f} MB: {r['bytes_ms']:.5f} ms; an "
-            f"FFT's {r['fft_flops'] / 1e9:.3f} GFLOP: "
-            f"{r['fft_bound_ms']:.5f} ms), plain {r['plain_ms']:.5f}, "
-            f"library {r['library_ms']:.5f}; eager {r['host_ms']:.5f}; "
-            f"{r['frames'] / r['ms'] * 1e3:.4g} frames/s")
+            f"device ms per call (CUDA graph): kernel {r['ms']:.5f} (its "
+            f"factored method {r['flops'] / 1e9:.3f} GFLOP: "
+            f"{r['method_bound_ms']:.5f} ms; an FFT's "
+            f"{r['fft_flops'] / 1e9:.3f} GFLOP: {r['bound_ms']:.5f} ms, "
+            f"{r['bound_by']}; {r['bytes'] / 1e6:.1f} MB: "
+            f"{r['bytes_ms']:.5f} ms; the dense products "
+            f"{r['dense_flops'] / 1e9:.2f} GFLOP), plain "
+            f"{r['plain_ms']:.5f}, library {r['library_ms']:.5f}; eager "
+            f"{r['host_ms']:.5f}; {r['frames'] / r['ms'] * 1e3:.4g} frames/s")
         torch.cuda.empty_cache()
     return res
 
@@ -1791,23 +1845,20 @@ def flash_bias_timing(cuda_tests) -> dict:
     # the library yardstick; the port never calls it
     ok = visible(mask, S, causal, window)
     lib_mask = bias.masked_fill(~ok, float("-inf")).to(torch.bfloat16)
-    res["fwd"]["library_ms"] = time_ms(
-        lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=lib_mask,
-                                               scale=args[0]), 10, 2)
-    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
-    lib_out = F.scaled_dot_product_attention(*leaves, attn_mask=lib_mask,
-                                             scale=args[0])
-    res["bwd"]["library_ms"] = time_ms(lambda: torch.autograd.grad(
-        lib_out, leaves, do, retain_graph=True), 10, 2)
-    mask_leaf = lib_mask.clone().requires_grad_()
-    lib_out = F.scaled_dot_product_attention(*leaves, attn_mask=mask_leaf,
-                                             scale=args[0])
-    res["dbias"]["library_ms"] = time_ms(lambda: torch.autograd.grad(
-        lib_out, leaves + [mask_leaf], do, retain_graph=True), 5, 1)
+    lib = library_times(lambda *x: F.scaled_dot_product_attention(
+        *x, attn_mask=lib_mask, scale=args[0]), (q, k, v), do)
+    # dbias: the backward with the mask's gradient
+    lib_dbias = library_times(lambda *x: F.scaled_dot_product_attention(
+        *x[:3], attn_mask=x[3], scale=args[0]), (q, k, v, lib_mask), do, 5, 5)
+    for key, r in (("fwd", lib), ("bwd", lib), ("dbias", lib_dbias)):
+        side = "fwd" if key == "fwd" else "bwd"
+        res[key]["library_ms"] = r[side]
+        res[key]["library_host_ms"] = r[f"{side}_host"]
     res["dq"]["plain_ms"] = res["dkv"]["plain_ms"] = res["bwd"]["plain_ms"]
-    res["dq"]["library_ms"] = res["dkv"]["library_ms"] = \
-        res["bwd"]["library_ms"]
-    del lib_out, mask_leaf, lib_mask, leaves
+    for key in ("dq", "dkv"):
+        res[key]["library_ms"] = res["bwd"]["library_ms"]
+        res[key]["library_host_ms"] = res["bwd"]["library_host_ms"]
+    del lib_mask
     for key in ("fwd", "dq", "dkv", "bwd", "dbias"):
         r = res[key]
         log(f"phase 16: at {(B, H, Hkv, S, D)} bf16 causal with a per-sample "
@@ -1815,7 +1866,7 @@ def flash_bias_timing(cuda_tests) -> dict:
             f"{r['ms']:.4f}, bound {r['bound_ms']:.4f} ({r['bound_by']}: "
             f"operations {r['ops_bound_ms']:.4f}, bytes "
             f"{r['bytes_bound_ms']:.4f}), plain {r['plain_ms']:.4f}, library "
-            f"{r['library_ms']:.4f}")
+            f"{r['library_ms']:.4f} (eager {r['library_host_ms']:.4f})")
     torch.cuda.empty_cache()
     return res
 
@@ -2142,41 +2193,38 @@ def flash_t5_timing(shape, cuda_tests) -> dict:
         res[key]["plain_ms"] = time_ms(fn, 3, 1) if plain else nofit
     # the library yardstick; the port never calls it
     bias_bytes = 2.0 * H * S * S
+    lib_mask = None
     if fits(4 * bias_bytes + scores / B):
         lib_mask = t5.materialize(S, S).to(torch.bfloat16)
-        res["fwd"]["library_ms"] = time_ms(
-            lambda: F.scaled_dot_product_attention(q, k, v,
-                                                   attn_mask=lib_mask,
-                                                   scale=args[0]), 10, 2)
-        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
-        lib_out = F.scaled_dot_product_attention(*leaves, attn_mask=lib_mask,
-                                                 scale=args[0])
-        res["bwd"]["library_ms"] = time_ms(lambda: torch.autograd.grad(
-            lib_out, leaves, do, retain_graph=True), 10, 2)
-        del lib_out
+        lib = library_times(lambda *x: F.scaled_dot_product_attention(
+            *x, attn_mask=lib_mask, scale=args[0]), (q, k, v), do,
+            2 if long else 10, 2 if long else 10)
+        for key in ("fwd", "bwd"):
+            res[key]["library_ms"] = lib[key]
+            res[key]["library_host_ms"] = lib[f"{key}_host"]
     else:
-        res["fwd"]["library_ms"] = res["bwd"]["library_ms"] = nofit
-        lib_mask = None
+        for key in ("fwd", "bwd"):
+            res[key]["library_ms"] = res[key]["library_host_ms"] = nofit
     if lib_mask is not None and fits(6 * bias_bytes + scores / B):
-        mask_leaf = lib_mask.clone().requires_grad_()
-        lib_out = F.scaled_dot_product_attention(*leaves, attn_mask=mask_leaf,
-                                                 scale=args[0])
         buckets = t5.buckets(S, S).reshape(-1)
 
-        def lib_demb():
-            dmask = torch.autograd.grad(lib_out, leaves + [mask_leaf], do,
-                                        retain_graph=True)[-1]
+        def by_bucket(grads):   # the mask's gradient summed by bucket
             demb = torch.zeros(H, 32, device=q.device)
-            return demb.index_add_(1, buckets, dmask.float().sum(0).reshape(
-                H, S * S))
-        res["demb"]["library_ms"] = time_ms(lib_demb, 5, 1)
-        del lib_out, mask_leaf, buckets
+            return demb.index_add_(1, buckets, grads[-1].float().sum(
+                0).reshape(H, S * S))
+        lib = library_times(lambda *x: F.scaled_dot_product_attention(
+            *x[:3], attn_mask=x[3], scale=args[0]), (q, k, v, lib_mask), do,
+            2 if long else 5, 2 if long else 5, grad_of=by_bucket)
+        res["demb"]["library_ms"] = lib["bwd"]
+        res["demb"]["library_host_ms"] = lib["bwd_host"]
+        del buckets
     else:
-        res["demb"]["library_ms"] = nofit
+        res["demb"]["library_ms"] = res["demb"]["library_host_ms"] = nofit
     del lib_mask
     res["dq"]["plain_ms"] = res["dkv"]["plain_ms"] = res["bwd"]["plain_ms"]
-    res["dq"]["library_ms"] = res["dkv"]["library_ms"] = \
-        res["bwd"]["library_ms"]
+    for key in ("dq", "dkv"):
+        res[key]["library_ms"] = res["bwd"]["library_ms"]
+        res[key]["library_host_ms"] = res["bwd"]["library_host_ms"]
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
@@ -2200,7 +2248,8 @@ def flash_t5_timing(shape, cuda_tests) -> dict:
             f"{key}: device ms per call (CUDA graph) {r['ms']:.4f}, bound "
             f"{r['bound_ms']:.4f} ({r['bound_by']}: operations "
             f"{r['ops_bound_ms']:.4f}, bytes {r['bytes_bound_ms']:.4f}), "
-            f"plain {show(r['plain_ms'])}, library {show(r['library_ms'])}")
+            f"plain {show(r['plain_ms'])}, library {show(r['library_ms'])} "
+            f"(eager {show(r['library_host_ms'])})")
     log(f"phase 18: at {shape} forward + backward through flash_attention: "
         f"peak {res['peak_mib']:.1f} MiB above the inputs; a float32 bias "
         f"would take {res['bias_mib']:.1f} MiB")
@@ -2225,12 +2274,20 @@ def long_context(cuda_tests) -> dict:
     out, lse = flash_fwd(q, k, v, mask, *args)
     _, delta = flash_bwd_dq(q, k, v, mask, out, lse, do, *args)
     res = {"shape": list(LONG)}
+    del out, lse, delta
+    res["same_bits"] = cuda_tests.flash_same_bits(LONG, True, None, False)
+    check(res["same_bits"], f"two backward calls at {LONG} gave other bits")
+    out, lse = flash_fwd(q, k, v, mask, *args)
+    _, delta = flash_bwd_dq(q, k, v, mask, out, lse, do, *args)
     for key, fn in (("fwd", lambda: flash_fwd(q, k, v, mask, *args)),
                     ("dq", lambda: flash_bwd_dq(q, k, v, mask, out, lse, do,
                                                 *args)),
                     ("dkv", lambda: flash_bwd_dkv(q, k, v, mask, do, lse,
                                                   delta, *args))):
         res[f"{key}_ms"] = device_ms(fn, iters=2, replays=2)
+    check(res["dq_ms"] + res["dkv_ms"] <= LONG_BWD_MAX_MS, f"the bias-free "
+          f"backward takes {res['dq_ms'] + res['dkv_ms']:.4f} ms at {LONG}, "
+          f"more than {LONG_BWD_MAX_MS}")
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -2241,7 +2298,8 @@ def long_context(cuda_tests) -> dict:
     res["scores_mib"] = 4.0 * B * H * S * S / 2 ** 20
     log(f"phase 18: bias-free flash kernels at {LONG} causal: device ms "
         f"forward {res['fwd_ms']:.4f}, dq {res['dq_ms']:.4f}, dk/dv "
-        f"{res['dkv_ms']:.4f}; forward + backward peak {res['peak_mib']:.1f} "
+        f"{res['dkv_ms']:.4f}; dq, dk, dv the same bits from two calls: "
+        f"{res['same_bits']}; forward + backward peak {res['peak_mib']:.1f} "
         f"MiB above the inputs (float32 scores would take "
         f"{res['scores_mib']:.1f} MiB)")
     del q, k, v, do, out, leaves
@@ -2566,7 +2624,8 @@ def main():
         entry = {
             "name": name,
             "route": "cuda",
-            "source": "pasero_torch/csrc/flash_attention.cu",
+            "source": ("pasero_torch/csrc/flash_attention.cu" if key == "fwd"
+                       else "pasero_torch/csrc/flash_bwd.cu"),
             "replaces": f"pasero_tpu/ops/flash_attention.py:{line}",
             "launches": lm_cli[name],
             "full_width_launches": lm_full_width[name],
@@ -2578,6 +2637,7 @@ def main():
             "ops_bound_ms": side["ops_bound_ms"],
             "bytes_bound_ms": side["bytes_bound_ms"],
             "library_ms": side["library_ms"],
+            "library_host_ms": side["library_host_ms"],
             "host_ms": side["host_ms"],
         }
         if key != "fwd":
@@ -2634,6 +2694,7 @@ def main():
         "plain_ms": at["plain_ms"],
         "bound_ms": at["bound_ms"],
         "bound_by": at["bound_by"],
+        "method_bound_ms": at["method_bound_ms"],
         "library_ms": at["library_ms"],
         "shape": at["shape"],
         "by_shape": mel["by_shape"],
@@ -2666,6 +2727,7 @@ def main():
             "ops_bound_ms": own["ops_bound_ms"],
             "bytes_bound_ms": own["bytes_bound_ms"],
             "library_ms": own["library_ms"],
+            "library_host_ms": own["library_host_ms"],
             "shape": list(FLASH_BIAS_SHAPES[0][0]),
         }
         if key in ("dq", "dkv"):   # the backward function's numbers beside
@@ -2697,6 +2759,7 @@ def main():
             "ops_bound_ms": own["ops_bound_ms"],
             "bytes_bound_ms": own["bytes_bound_ms"],
             "library_ms": own["library_ms"],
+            "library_host_ms": own["library_host_ms"],
             "shape": t5["shape"],
             "at_32768": {k: t5["at_32768"][key][k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
@@ -2716,6 +2779,9 @@ def main():
             entry["streamed_32768"] = {"ms": t5["long"][f"{key}_ms"],
                                        "shape": t5["long"]["shape"],
                                        "peak_mib": t5["long"]["peak_mib"]}
+            if key != "fwd":
+                entry["same_bits"] = flash["same_bits"] and \
+                    t5["long"]["same_bits"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -45,18 +45,18 @@
 //                  through _fwd_packed, :342) / _fwd_kernel (:186, through
 //                  _fwd, :381) / _fwd_stream_kernel (:474, through
 //                  _fwd_stream, :544);
-//   bwd_dq_kernel  _bwd_dq_packed_kernel (:963) / _bwd_dq_kernel (:866) /
-//                  _bwd_dq_stream_kernel (:618), with delta computed here
-//                  from out and dO (JAX computes it outside, :1409) and
-//                  written for the dk/dv kernel;
-//   bwd_dkv_kernel _bwd_dkv_packed_kernel (:1018, through _bwd_packed,
-//                  :1086) / _bwd_dkv_kernel (:911, through _bwd, :1398) /
+//   bwd_dq_kernel  _bwd_dq_kernel (:866) / _bwd_dq_stream_kernel (:618), with
+//                  delta computed here from out and dO (JAX computes it
+//                  outside, :1409) and written for the dk/dv kernel; DENSE_BIAS
+//                  and T5_BIAS only: the bias-free backward (_bwd_dq_packed_kernel
+//                  :963, _bwd_dkv_packed_kernel :1018) is flash_bwd.cu's;
+//   bwd_dkv_kernel _bwd_dkv_kernel (:911, through _bwd, :1398) /
 //                  _bwd_dkv_stream_kernel (:676, through _bwd_stream, :738): one
 //                  block per (batch, K/V head, 64-key tile) loops over the
 //                  query tiles of every query head of its group (each with
 //                  its own bias row), so dk and dv come out at K/V-head width
 //                  with no (B, H, S, D) intermediate, no post-sum and no
-//                  atomics;
+//                  atomics; DENSE_BIAS and T5_BIAS only;
 //   dbias_kernel   _dbias_kernel (:1160, through _compute_dbias, :1213): one
 //                  block per (64-row query tile, output row); a bias shared
 //                  over the batch is summed over it inside the block, batch
@@ -76,18 +76,20 @@
 // The TPU kernels stream K/V past 8 MiB of VMEM (_use_streaming, :467), and
 // always for T5; these already stream 64-key tiles through shared memory, so
 // one instance takes any key length: the bias-free and dense-bias modes of
-// _fwd_stream and _bwd_stream are the NO_BIAS and DENSE_BIAS instances.
+// _fwd_stream are the NO_BIAS and DENSE_BIAS forward instances, the
+// dense-bias mode of _bwd_stream the DENSE_BIAS backward ones.
 //
 // What bounds them: operations without a bias. One causal product at B = 4,
 // H = 32, S = 2048, D = 64 is 2 B H S^2 D / 2 = 34.4 GFLOP, 0.0347 ms at 989
 // TFLOP/s (bf16 dense). The forward does two products (QK^T, PV); the
 // backward's function needs five (QK^T and dO V^T recomputed, P^T dO, dS K,
-// dS^T Q). This design runs seven: the dq and the dk/dv kernels each
-// recompute QK^T and dO V^T, the price of writing dq, dk and dv once each
-// with no atomics. With a per-sample bias, bytes: at B = 4, H = 16, S =
-// 2048 its visible causal half is 537 MB (0.160 ms at 3.35 TB/s) against
-// 17.2 GFLOP of products per pass, and dbias writes 1.07 GB; the bias tiles
-// ride the K/V tiles' cp.async stages, so their reads overlap the products.
+// dS^T Q), and the biased and T5 backwards here run seven: the dq and the
+// dk/dv kernels each recompute QK^T and dO V^T, the price of writing dq, dk
+// and dv once each with no atomics. With a per-sample bias, bytes: at B = 4,
+// H = 16, S = 2048 its visible causal half is 537 MB (0.160 ms at 3.35 TB/s)
+// against 17.2 GFLOP of products per pass, and dbias writes 1.07 GB; the
+// bias tiles ride the K/V tiles' cp.async stages, so their reads overlap the
+// products.
 //
 // Design, kept simple and right first: 128 threads (4 warps) per block, each
 // warp owning 16 rows of a 64-row tile; bf16 operands staged in shared
@@ -105,10 +107,11 @@
 // (about two thirds of the card's tensor rate at best), 64-row tiles whose
 // K/V are read from L2 once per query tile and head (the GQA group is not
 // packed into one block), two pipeline stages, and the backward's two
-// recomputed products. With the T5 table the bias costs no bytes (the index
-// and table are KBs, read through L1/L2), so the T5 kernels are bounded as
-// the bias-free ones; demb adds the two recomputed products per tile and its
-// diagonal and bucket sums in shared memory.
+// recomputed products; flash_bwd.cu's bias-free backward shows the wgmma
+// design these kernels would take. With the T5 table the bias costs no bytes
+// (the index and table are KBs, read through L1/L2), so the T5 kernels are
+// bounded as the bias-free ones; demb adds the two recomputed products per
+// tile and its diagonal and bucket sums in shared memory.
 
 #include <cuda_bf16.h>
 #include <algorithm>
@@ -474,7 +477,7 @@ __global__ void __launch_bounds__(THREADS)
                   bf16* __restrict__ dq, int H, int Hkv, int Sq, int Sk, float scale,
                   int causal, int window) {
   constexpr bool BIAS = KIND == DENSE_BIAS, T5 = KIND == T5_BIAS;
-  constexpr bool NAT = KIND != NO_BIAS;
+  static_assert(KIND != NO_BIAS, "the bias-free backward is flash_bwd.cu's");
   constexpr int LD = D + 8;
   constexpr int NT = BN / 8;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -543,19 +546,18 @@ __global__ void __launch_bounds__(THREADS)
     }
   }
   __syncwarp();
-  // lse in log2 units without a bias, in natural units with one
+  // lse in natural units: the bias is added to the scaled score
   float lse2[2], dl[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + r * 8;
-    lse2[r] = row < Sq ? lse[(int64_t)bh * Sq + row] * (NAT ? 1.f : LOG2E) : 0.f;
+    lse2[r] = row < Sq ? lse[(int64_t)bh * Sq + row] : 0.f;
     dl[r] = delta_s[warp * 16 + lane / 4 + r * 8];
   }
 
   float acc[D / 8][4];
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  const float sl2 = scale * LOG2E;
 
   for (int kt = kt0; kt < kt1; ++kt) {
     const int st = (kt - kt0) & 1;
@@ -587,10 +589,8 @@ __global__ void __launch_bounds__(THREADS)
           if constexpr (BIAS)
             p = exp2f((s[j][e] * scale + Bt[r * 8 * LDB + j * 8 + (e & 1)] - lse2[r]) *
                       LOG2E);
-          else if constexpr (T5)
-            p = exp2f((s[j][e] * scale + Dt[j * 8 + (e & 1) - r * 8] - lse2[r]) * LOG2E);
           else
-            p = exp2f(s[j][e] * sl2 - lse2[r]);
+            p = exp2f((s[j][e] * scale + Dt[j * 8 + (e & 1) - r * 8] - lse2[r]) * LOG2E);
         }
         s[j][e] = p * (dp[j][e] - dl[r]);   // dS
       }
@@ -629,7 +629,7 @@ __global__ void __launch_bounds__(THREADS)
                    bf16* __restrict__ dv, int H, int Hkv, int Sq, int Sk, float scale,
                    int causal, int window) {
   constexpr bool BIAS = KIND == DENSE_BIAS, T5 = KIND == T5_BIAS;
-  constexpr bool NAT = KIND != NO_BIAS;
+  static_assert(KIND != NO_BIAS, "the bias-free backward is flash_bwd.cu's");
   constexpr int LD = D + 8;
   constexpr int NT = NI / 8;
   constexpr int ND = NI + BM - 1;   // diagonals of an inner tile (T5)
@@ -661,7 +661,7 @@ __global__ void __launch_bounds__(THREADS)
   const int iters = group * ntiles;
 
   // the inner tile `idx`: query head hk * group + idx / ntiles, query tile
-  // it0 + idx % ntiles; lse in log2 units without BIAS, natural with it
+  // it0 + idx % ntiles; lse in natural units
   auto load_inner = [&](int idx, int stage) {
     const int hh = hk * group + idx / ntiles;
     const int i0 = (it0 + idx % ntiles) * NI;
@@ -678,7 +678,7 @@ __global__ void __launch_bounds__(THREADS)
     const int64_t r_off = ((int64_t)b * H + hh) * Sq;
     for (int i = threadIdx.x; i < NI; i += THREADS) {
       const bool ok = i0 + i < Sq;
-      lse_s[stage * NI + i] = ok ? lse[r_off + i0 + i] * (NAT ? 1.f : LOG2E) : 0.f;
+      lse_s[stage * NI + i] = ok ? lse[r_off + i0 + i] : 0.f;
       delta_s[stage * NI + i] = ok ? delta[r_off + i0 + i] : 0.f;
     }
   };
@@ -704,7 +704,6 @@ __global__ void __launch_bounds__(THREADS)
   for (int j = 0; j < D / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
-  const float sl2 = scale * LOG2E;
 
   for (int idx = 0; idx < iters; ++idx) {
     const int st = idx & 1;
@@ -742,10 +741,8 @@ __global__ void __launch_bounds__(THREADS)
         if (ok) {
           if constexpr (BIAS)
             p = exp2f((s[j][e] * scale + Bt[ci * LDBT + r * 8] - ls[ci]) * LOG2E);
-          else if constexpr (T5)
-            p = exp2f((s[j][e] * scale + Dt[r * 8 - ci] - ls[ci]) * LOG2E);
           else
-            p = exp2f(s[j][e] * sl2 - ls[ci]);
+            p = exp2f((s[j][e] * scale + Dt[r * 8 - ci] - ls[ci]) * LOG2E);
         }
         s[j][e] = p;
         dp[j][e] = p * (dp[j][e] - ds_[ci]);   // dS^T
@@ -1166,6 +1163,12 @@ cudaError_t launch_demb(const void* q, const void* k, const void* v, const uint8
   ((table)  ? FLASH_BY_DIM(LAUNCH, T5_BIAS, D, __VA_ARGS__)                          \
    : (bias) ? FLASH_BY_DIM(LAUNCH, DENSE_BIAS, D, __VA_ARGS__)                       \
             : FLASH_BY_DIM(LAUNCH, NO_BIAS, D, __VA_ARGS__))
+// The backward's: T5_BIAS with a table, else DENSE_BIAS. The bias-free
+// backward is flash_bwd.cu's; no NO_BIAS instance of bwd_dq_kernel or
+// bwd_dkv_kernel is compiled.
+#define FLASH_DISPATCH_BIASED(LAUNCH, table, D, ...)                                 \
+  ((table) ? FLASH_BY_DIM(LAUNCH, T5_BIAS, D, __VA_ARGS__)                           \
+           : FLASH_BY_DIM(LAUNCH, DENSE_BIAS, D, __VA_ARGS__))
 
 }  // namespace flash
 
@@ -1198,28 +1201,32 @@ int flash_fwd(const void* q, const void* k, const void* v, const uint8_t* kv_mas
 }
 
 // dq (B, H, Sq, D) bfloat16; delta (B, H, Sq) f32 is written for flash_bwd_dkv.
+// A bias or a T5 table is required: the bias-free backward is flash_bwd.cu's.
 int flash_bwd_dq(const void* q, const void* k, const void* v, const uint8_t* kv_mask,
                  const float* bias, int bs, int hs, const float* t5_table,
                  const int* t5_index, int nb, const void* out, const void* dout,
                  const float* lse, float* delta, void* dq, int B, int H, int Hkv, int Sq,
                  int Sk, int D, float scale, int causal, int window, void* stream) {
-  if (bad_args(B, H, Hkv, Sq, Sk, D, window) || bad_bias(bias, t5_table, t5_index, nb))
+  if (bad_args(B, H, Hkv, Sq, Sk, D, window) || bad_bias(bias, t5_table, t5_index, nb) ||
+      (bias == nullptr && t5_table == nullptr))
     return (int)cudaErrorInvalidValue;
-  return (int)FLASH_DISPATCH(launch_dq, bias, t5_table, D, q, k, v, kv_mask, bias, bs, hs,
+  return (int)FLASH_DISPATCH_BIASED(launch_dq, t5_table, D, q, k, v, kv_mask, bias, bs, hs,
                              t5_table, t5_index, nb, out, dout, lse, delta, dq, B, H, Hkv,
                              Sq, Sk, scale, causal, window,
                              static_cast<cudaStream_t>(stream));
 }
 
-// dk, dv (B, Hkv, Sk, D) bfloat16, summed over each K/V head's query heads.
+// dk, dv (B, Hkv, Sk, D) bfloat16, summed over each K/V head's query heads;
+// with a bias or a T5 table only, as flash_bwd_dq.
 int flash_bwd_dkv(const void* q, const void* k, const void* v, const uint8_t* kv_mask,
                   const float* bias, int bs, int hs, const float* t5_table,
                   const int* t5_index, int nb, const void* dout, const float* lse,
                   const float* delta, void* dk, void* dv, int B, int H, int Hkv, int Sq,
                   int Sk, int D, float scale, int causal, int window, void* stream) {
-  if (bad_args(B, H, Hkv, Sq, Sk, D, window) || bad_bias(bias, t5_table, t5_index, nb))
+  if (bad_args(B, H, Hkv, Sq, Sk, D, window) || bad_bias(bias, t5_table, t5_index, nb) ||
+      (bias == nullptr && t5_table == nullptr))
     return (int)cudaErrorInvalidValue;
-  return (int)FLASH_DISPATCH(launch_dkv, bias, t5_table, D, q, k, v, kv_mask, bias, bs, hs,
+  return (int)FLASH_DISPATCH_BIASED(launch_dkv, t5_table, D, q, k, v, kv_mask, bias, bs, hs,
                              t5_table, t5_index, nb, dout, lse, delta, dk, dv, B, H, Hkv,
                              Sq, Sk, scale, causal, window,
                              static_cast<cudaStream_t>(stream));

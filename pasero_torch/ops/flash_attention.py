@@ -13,7 +13,9 @@ streamed ``_fwd_stream`` :544, ``_bwd_stream`` :738 and ``_compute_demb``
 backward. On CUDA tensors its forward launches ``flash_fwd`` and its
 backward ``flash_bwd_dq`` then ``flash_bwd_dkv`` (and ``flash_bwd_dbias``
 for the bias's gradient, ``flash_bwd_demb`` for the T5 table's): the
-kernels of ``csrc/flash_attention.cu``, each wrapper counting its launches,
+kernels of ``csrc/flash_attention.cu``, except the bias-free dq and dk/dv,
+which are the wgmma kernels of ``csrc/flash_bwd.cu``; each wrapper counts its
+launches,
 those of a biased or a T5 kernel apart (``launch_counts`` names them
 ``flash_fwd_bias``, ``flash_fwd_t5`` and so on). CPU tensors take
 ``flash_fwd_plain``, ``flash_bwd_plain``, ``flash_dbias_plain`` and
@@ -259,6 +261,20 @@ def _library():
     return lib
 
 
+def _bwd_library():
+    """``csrc/flash_bwd.cu``: the bias-free dq and dk/dv kernels."""
+    lib = cuda_build.load("flash_bwd")
+    if lib.bwd_dq.argtypes is None:
+        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        dims = [i32] * 6 + [f32, i32, i32, ptr]   # B H Hkv Sq Sk D, scale ...
+        lib.bwd_dq.argtypes = [ptr] * 9 + dims
+        lib.bwd_dkv.argtypes = [ptr] * 9 + dims
+        lib.bwd_dq.restype = lib.bwd_dkv.restype = ctypes.c_int
+        lib.flash_error_string.argtypes = [ctypes.c_int]
+        lib.flash_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def _raise_on(lib, status: int, what: str) -> None:
     if status != 0:
         raise RuntimeError(f"{what} kernel failed: "
@@ -328,10 +344,11 @@ def _bias_args(bias, q, dims):
     return rows, (0 if b0 == 1 else h0), (0 if h0 == 1 else 1), None, None, 0
 
 
-def _launch(name: str, device, *args) -> None:
-    """Call the library's ``name`` on ``args`` (tensors as their pointers)
-    and the current stream of ``device``; raise on a failed launch."""
-    lib = _library()
+def _launch(name: str, device, *args, lib=None) -> None:
+    """Call ``name`` of ``lib`` (flash_attention.cu's by default) on ``args``
+    (tensors as their pointers) and the current stream of ``device``; raise
+    on a failed launch."""
+    lib = lib or _library()
     with torch.cuda.device(device):
         status = getattr(lib, name)(
             *(a.data_ptr() if isinstance(a, torch.Tensor) else a
@@ -383,14 +400,19 @@ def flash_bwd_dq(q, k, v, kv_mask, out, lse, do, scale: float,
                  causal: bool, window: Optional[int], bias=None):
     """(dq bfloat16, delta (B, H, Sq) float32) from one launch of the dq
     kernel, which also computes delta = sum(dO * out) for the dk/dv kernel
-    and re-adds ``bias`` (the forward's) to the recomputed scores."""
+    and re-adds ``bias`` (the forward's) to the recomputed scores; without a
+    bias, the wgmma kernel of csrc/flash_bwd.cu."""
     q, k, v, mask, dims = _cuda_args(q, k, v, kv_mask, window)
     bias_ops = _bias_args(bias, q, dims)
     out, do, lse = _bwd_operands(out, do, lse)
     dq = torch.empty_like(q)
     delta = torch.empty_like(lse)
-    _launch("flash_bwd_dq", q.device, q, k, v, mask, *bias_ops, out, do,
-            lse, delta, dq, *_scalars(dims, scale, causal, window))
+    if bias is None:
+        _launch("bwd_dq", q.device, q, k, v, mask, out, do, lse, delta, dq,
+                *_scalars(dims, scale, causal, window), lib=_bwd_library())
+    else:
+        _launch("flash_bwd_dq", q.device, q, k, v, mask, *bias_ops, out, do,
+                lse, delta, dq, *_scalars(dims, scale, causal, window))
     _count(flash_bwd_dq, bias)
     return dq, delta
 
@@ -406,8 +428,12 @@ def flash_bwd_dkv(q, k, v, kv_mask, do, lse, delta, scale: float,
     delta = delta.float().contiguous()
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    _launch("flash_bwd_dkv", q.device, q, k, v, mask, *bias_ops, do, lse,
-            delta, dk, dv, *_scalars(dims, scale, causal, window))
+    if bias is None:
+        _launch("bwd_dkv", q.device, q, k, v, mask, do, lse, delta, dk, dv,
+                *_scalars(dims, scale, causal, window), lib=_bwd_library())
+    else:
+        _launch("flash_bwd_dkv", q.device, q, k, v, mask, *bias_ops, do, lse,
+                delta, dk, dv, *_scalars(dims, scale, causal, window))
     _count(flash_bwd_dkv, bias)
     return dk, dv
 

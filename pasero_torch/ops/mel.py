@@ -7,12 +7,16 @@ its arithmetic in PyTorch. Whisper's parameters: n_fft 400, hop 160, 80 or
 (x + 4) / 4.
 
 The fused step, frames -> DFT -> power -> mel (JAX's ``_fused_power_mel``),
-is ``power_mel``. CPU tensors take ``power_mel_plain``; CUDA tensors launch
-the hand-written kernel of ``csrc/mel.cu``, which reads the waveform itself
-(reflect padding by index) and keeps the power spectrum on the chip. A CUDA
-tensor never takes the plain version: the kernel launches or the wrapper
-raises. Its launches are counted in ``power_mel.launches``. The route follows
-the device, so ``log_mel_spectrogram`` has no ``use_pallas`` switch: on the
+is ``power_mel``. It takes the waveform, the window (whose length is n_fft)
+and the filterbank. CPU tensors take ``power_mel_plain``, which builds the
+windowed DFT bases from the window (``window_bases``) and runs the
+dense products; CUDA tensors launch the hand-written kernel of
+``csrc/mel.cu``, which reads the waveform itself (reflect padding by index),
+factors the DFT (n_fft = P * Q, ``KERNEL_FACTORS``) with the twiddle table
+of ``_twiddles`` and keeps the power spectrum on the chip. A CUDA tensor
+never takes the plain version: the kernel launches or the wrapper raises.
+Its launches are counted in ``power_mel.launches``. The route follows the
+device, so ``log_mel_spectrogram`` has no ``use_pallas`` switch: on the
 card every call runs the kernel.
 """
 
@@ -72,24 +76,46 @@ def mel_filterbank(sr: int = 16000, n_fft: int = 400, n_mels: int = 80,
 
 
 @functools.lru_cache(maxsize=8)
-def _dft_bases(n_fft: int):
-    """Windowed DFT bases (n_fft, n_freq) for the real/imag parts."""
+def _dft_angles(n_fft: int, device: torch.device):
+    """cos and sin of the DFT angles -2 pi t k / n_fft, (n_fft, n_freq)
+    float64 on ``device``: JAX's ``_dft_bases`` before the window."""
     n_freq = n_fft // 2 + 1
-    window = hann_window(n_fft)
     t = np.arange(n_fft)[:, None]
     k = np.arange(n_freq)[None, :]
     angle = -2.0 * np.pi * t * k / n_fft
-    cos_b = (window[:, None] * np.cos(angle)).astype(np.float32)
-    sin_b = (window[:, None] * np.sin(angle)).astype(np.float32)
-    return cos_b, sin_b
+    return (torch.from_numpy(np.cos(angle)).to(device),
+            torch.from_numpy(np.sin(angle)).to(device))
 
 
 @functools.lru_cache(maxsize=16)
 def _constants(sr: int, n_fft: int, n_mels: int, device: torch.device):
-    """(cos_b, sin_b, mel_w) as float32 tensors on ``device``."""
-    cos_b, sin_b = _dft_bases(n_fft)
-    return tuple(torch.from_numpy(a).to(device)
-                 for a in (cos_b, sin_b, mel_filterbank(sr, n_fft, n_mels)))
+    """(window, mel_w) as float32 tensors on ``device``: the Hann window of
+    n_fft points and the (n_freq, n_mels) filterbank."""
+    return tuple(torch.from_numpy(a).to(device) for a in (
+        hann_window(n_fft).astype(np.float32),
+        mel_filterbank(sr, n_fft, n_mels)))
+
+
+@functools.lru_cache(maxsize=8)
+def _twiddles(n_fft: int, device: torch.device) -> torch.Tensor:
+    """(n_fft, 2) float32 e^(-2 pi i j / n_fft) as (cos, -sin) for j <
+    n_fft: computed in float64 and rounded once, the quarter turns exact
+    (entry 0 is (1, 0)), so the kernel's bin 0 and Nyquist bin have exact
+    zero imaginary parts. Every factor of the kernel's factored DFT is an
+    entry of it."""
+    angle = 2.0 * np.pi * np.arange(n_fft) / n_fft
+    table = np.stack([np.cos(angle), -np.sin(angle)], axis=-1)
+    table[np.abs(table) < 1e-12] = 0.0
+    return torch.from_numpy(table.astype(np.float32)).to(device)
+
+
+def window_bases(window: torch.Tensor):
+    """The windowed DFT bases (n_fft, n_freq) of ``window``, JAX's
+    ``_dft_bases`` for any window: window times cos and sin in float64,
+    rounded once to float32, on the window's device."""
+    cos, sin = _dft_angles(window.shape[0], window.device)
+    w = window.double()[:, None]
+    return (w * cos).float(), (w * sin).float()
 
 
 def frame_signal(audio: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
@@ -104,10 +130,12 @@ def num_frames(n_samples: int, n_fft: int, hop: int) -> int:
     return (n_samples + 2 * (n_fft // 2) - n_fft) // hop
 
 
-def power_mel_plain(audio, cos_b, sin_b, mel_w, hop: int = 160):
+def power_mel_plain(audio, window, mel_w, hop: int = 160):
     """(B, N) float32 waveform -> (B, frames, n_mels) mel power: reflect
     padding, framing, the last frame dropped, then
-    ``((x @ cos_b)^2 + (x @ sin_b)^2) @ mel_w`` in float32."""
+    ``((x @ cos_b)^2 + (x @ sin_b)^2) @ mel_w`` in float32 with the bases of
+    ``window_bases(window)``."""
+    cos_b, sin_b = window_bases(window)
     frames = frame_signal(audio, cos_b.shape[0], hop)[:, :-1]
     real = torch.matmul(frames, cos_b)
     imag = torch.matmul(frames, sin_b)
@@ -115,28 +143,44 @@ def power_mel_plain(audio, cos_b, sin_b, mel_w, hop: int = 160):
     return torch.matmul(power, mel_w)
 
 
-# the kernel's tiling (csrc/mel.cu): 224 frequency columns, 128 mel columns,
-# and the shared memory of a block within the card's 227 KB
-_MAX_FREQ = 224
+# the kernel's factorings n_fft = P * Q (csrc/mel.cu instantiates these)
+# and its largest filterbank
+KERNEL_FACTORS = {256: (16, 16), 400: (20, 20), 512: (16, 32)}
 _MAX_MELS = 128
-_MAX_SMEM = 232448
 
 
-def _check(audio, cos_b, sin_b, mel_w, hop: int) -> None:
-    tensors = (audio, cos_b, sin_b, mel_w)
+def kernel_flops(n_fft: int, mel_w: torch.Tensor) -> int:
+    """The kernel's float32 operations per frame: the P-point DFTs of the
+    Q columns (k1 <= P / 2), the second stage's Q complex products per bin,
+    the power, and the mel product over each filterbank column's span from
+    its first to its last nonzero weight (the bins the kernel sums)."""
+    P, Q = KERNEL_FACTORS[n_fft]
+    n_freq = n_fft // 2 + 1
+    nonzero = (mel_w != 0).cpu()
+    bins = torch.arange(n_freq)[:, None]
+    first = torch.where(nonzero, bins, n_freq).amin(0)
+    last = torch.where(nonzero, bins, -1).amax(0)
+    span = int((last - first + 1).clamp(min=0).sum())
+    return 4 * Q * (P // 2 + 1) * P + 8 * Q * n_freq + 3 * n_freq + 2 * span
+
+
+def _check(audio, window, mel_w, hop: int) -> None:
+    tensors = (audio, window, mel_w)
     if any(t.dtype != torch.float32 for t in tensors):
         raise TypeError("power_mel takes float32 tensors only, got "
                         f"{[str(t.dtype) for t in tensors]}")
     if any(t.device != audio.device for t in tensors):
-        raise ValueError("waveform, bases and filterbank must lie on one device")
-    if audio.dim() != 2 or cos_b.dim() != 2 or mel_w.dim() != 2:
-        raise ValueError(f"expected audio (B, N), bases (n_fft, n_freq) and "
-                         f"filterbank (n_freq, n_mels), got {tuple(audio.shape)}"
-                         f", {tuple(cos_b.shape)}, {tuple(mel_w.shape)}")
-    n_fft, n_freq = cos_b.shape
-    if tuple(sin_b.shape) != (n_fft, n_freq) or mel_w.shape[0] != n_freq:
-        raise ValueError(f"bases {tuple(cos_b.shape)} / {tuple(sin_b.shape)} "
-                         f"and filterbank {tuple(mel_w.shape)} do not agree")
+        raise ValueError("waveform, window and filterbank must lie on one "
+                         "device")
+    if audio.dim() != 2 or window.dim() != 1 or mel_w.dim() != 2:
+        raise ValueError(f"expected audio (B, N), a window (n_fft,) and a "
+                         f"filterbank (n_freq, n_mels), got "
+                         f"{tuple(audio.shape)}, {tuple(window.shape)}, "
+                         f"{tuple(mel_w.shape)}")
+    n_fft = window.shape[0]
+    if mel_w.shape[0] != n_fft // 2 + 1:
+        raise ValueError(f"window of {n_fft} points and filterbank "
+                         f"{tuple(mel_w.shape)} do not agree")
     if not 0 < hop:
         raise ValueError(f"hop must be positive, got {hop}")
     if audio.shape[1] <= n_fft // 2:
@@ -144,59 +188,50 @@ def _check(audio, cos_b, sin_b, mel_w, hop: int) -> None:
                          f"by {n_fft // 2}")
 
 
-def _smem_layout(n_fft: int, hop: int) -> tuple:
-    """(strip floats, shared-memory bytes) of one block: the waveform strip
-    of 64 frames, two 16-row basis chunks and the 64 x 225 power tile."""
-    strip = 63 * hop + -(-n_fft // 16) * 16
-    region = strip + 2 * 16 * _MAX_FREQ
-    return strip, 4 * (region + 64 * (_MAX_FREQ + 1))
-
-
 def _library():
     lib = cuda_build.load("mel")
     fn = lib.power_mel
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int64] + \
-            [ctypes.c_int] * 7 + [ctypes.c_void_p]
+            [ctypes.c_int] * 4 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.mel_error_string.argtypes = [ctypes.c_int]
         lib.mel_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def power_mel(audio, cos_b, sin_b, mel_w, hop: int = 160):
+def power_mel(audio, window, mel_w, hop: int = 160):
     """(B, N) float32 waveform -> (B, frames, n_mels) float32 mel power, what
-    JAX's ``_fused_power_mel`` computes from the frames.
+    JAX's ``_fused_power_mel`` computes from the frames, with the DFT of
+    ``len(window)`` points of the windowed frames.
 
     On CUDA tensors this is one launch of the hand-written kernel, counted in
     ``power_mel.launches``; on CPU tensors it is ``power_mel_plain``."""
-    _check(audio, cos_b, sin_b, mel_w, hop)
+    _check(audio, window, mel_w, hop)
     if audio.device.type == "cpu":
-        return power_mel_plain(audio, cos_b, sin_b, mel_w, hop)
+        return power_mel_plain(audio, window, mel_w, hop)
     if audio.device.type != "cuda":
         raise ValueError(f"no kernel for device {audio.device}")
-    n_fft, n_freq = cos_b.shape
+    n_fft = window.shape[0]
     n_mels = mel_w.shape[1]
-    strip, smem = _smem_layout(n_fft, hop)
-    if n_freq > _MAX_FREQ or n_mels > _MAX_MELS or smem > _MAX_SMEM:
-        raise ValueError(f"the mel kernel takes up to {_MAX_FREQ} frequencies "
-                         f"and {_MAX_MELS} mel bins in {_MAX_SMEM} bytes of "
-                         f"shared memory; got n_freq {n_freq}, n_mels {n_mels}"
-                         f", {smem} bytes")
+    if n_fft not in KERNEL_FACTORS or n_mels > _MAX_MELS:
+        raise ValueError(f"the mel kernel takes n_fft in "
+                         f"{sorted(KERNEL_FACTORS)} and up to {_MAX_MELS} mel "
+                         f"bins; got n_fft {n_fft}, n_mels {n_mels}")
     B, N = audio.shape
     T = num_frames(N, n_fft, hop)
-    audio, cos_b, sin_b, mel_w = (t.contiguous()
-                                  for t in (audio, cos_b, sin_b, mel_w))
+    audio, window, mel_w = (t.contiguous() for t in (audio, window, mel_w))
     out = torch.empty(B, T, n_mels, dtype=torch.float32, device=audio.device)
     if B == 0 or T == 0:
         return out
+    twiddle = _twiddles(n_fft, audio.device)
     lib = _library()
     with torch.cuda.device(audio.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = lib.power_mel(
-            audio.data_ptr(), cos_b.data_ptr(), sin_b.data_ptr(),
-            mel_w.data_ptr(), out.data_ptr(), B, N, n_fft, hop, n_freq,
-            n_mels, T, strip, smem, stream)
+            audio.data_ptr(), window.data_ptr(), twiddle.data_ptr(),
+            mel_w.data_ptr(), out.data_ptr(), B, N, n_fft, hop, n_mels, T,
+            stream)
     if status != 0:
         raise RuntimeError("power_mel kernel failed: " +
                            lib.mel_error_string(status).decode())
@@ -217,8 +252,8 @@ def log_mel_spectrogram(audio: torch.Tensor, sr: int = 16000,
     (frames, mels). JAX's ``use_pallas`` switch is gone: the device picks
     the route (``power_mel``)."""
     audio = audio.to(torch.float32)
-    cos_b, sin_b, mel_w = _constants(sr, n_fft, n_mels, audio.device)
-    mel = power_mel(audio, cos_b, sin_b, mel_w, hop)
+    window, mel_w = _constants(sr, n_fft, n_mels, audio.device)
+    mel = power_mel(audio, window, mel_w, hop)
     log_spec = torch.log10(torch.clamp(mel, min=1e-10))
     log_spec = torch.maximum(log_spec,
                              log_spec.amax(dim=(1, 2), keepdim=True) - 8.0)

@@ -82,7 +82,8 @@ ATTENTION = {"bloom_560m": "flash", "t5_base": "flash"}
 KERNELS = ("fused_ce::fwd_kernel", "fused_ce::DlogitsEpilogue",
            "fused_ce::DwEpilogue", "fused_ce::DxEpilogue", "flash::fwd_kernel",
            "flash::bwd_dq_kernel", "flash::bwd_dkv_kernel",
-           "flash::dbias_kernel", "flash::demb_kernel")
+           "flash::dbias_kernel", "flash::demb_kernel",
+           "flash_bwd::dq_kernel", "flash_bwd::dkv_kernel")
 
 
 class Workload:

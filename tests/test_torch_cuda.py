@@ -267,28 +267,37 @@ def test_fused_ce_bad_input_raises_on_card(bad):
 # limits reject a backward given another row's lse.
 FLASH_TOL = (1e-2, 1e-6, 4.0)
 
-FLASH_SHAPES = [   # (B, H, Hkv, S, D), causal, window, keys padded per row
+FLASH_SHAPES = [   # (B, H, Hkv, S or (Sq, Sk), D), causal, window, padded
     ((2, 8, 2, 256, 64), True, None, False),
     ((2, 4, 4, 200, 128), True, 48, True),    # ragged S, window, padding
     ((1, 6, 3, 77, 64), False, None, True),   # unaligned S, not causal
     ((3, 4, 2, 45, 32), True, None, True),    # the mini LM's head dim
+    ((4, 12, 12, (128, 512), 64), False, None, True),   # cross-attention
 ]
 
 
-def flash_inputs(B, H, Hkv, S, D, padded, seed=0, device="cuda"):
+def flash_lengths(S):
+    """(Sq, Sk) of a shape's S: one length, or the pair of a
+    cross-attention."""
+    return S if isinstance(S, tuple) else (S, S)
+
+
+def flash_inputs(B, H, Hkv, S, D, padded, seed=0, device="cuda", Sk=None):
     """bf16 q, k, v, dO with a per-row scale of q (so lse differs between
-    rows) and a (B, S) key mask with the last keys of each row padded."""
+    rows) and a (B, Sk) key mask with the last keys of each row padded; Sk
+    is S unless given."""
+    Sk = S if Sk is None else Sk
     gen = torch.Generator(device=device).manual_seed(seed)
     scale = 0.5 + 1.5 * torch.rand(B, H, S, 1, generator=gen, device=device)
     q = (torch.randn(B, H, S, D, generator=gen, device=device) * scale)
-    k = torch.randn(B, Hkv, S, D, generator=gen, device=device)
-    v = torch.randn(B, Hkv, S, D, generator=gen, device=device)
+    k = torch.randn(B, Hkv, Sk, D, generator=gen, device=device)
+    v = torch.randn(B, Hkv, Sk, D, generator=gen, device=device)
     do = torch.randn(B, H, S, D, generator=gen, device=device)
-    mask = torch.ones(B, S, dtype=torch.bool, device=device)
+    mask = torch.ones(B, Sk, dtype=torch.bool, device=device)
     if padded:
-        lengths = torch.randint(S // 2, S + 1, (B,), generator=gen,
+        lengths = torch.randint(Sk // 2, Sk + 1, (B,), generator=gen,
                                 device=device)
-        mask = torch.arange(S, device=device)[None] < lengths[:, None]
+        mask = torch.arange(Sk, device=device)[None] < lengths[:, None]
     return [x.to(torch.bfloat16) for x in (q, k, v, do)] + [mask]
 
 
@@ -354,8 +363,9 @@ def flash_compare(shape, causal, window, padded) -> dict:
                                                   flash_fwd, flash_fwd_plain,
                                                   visible)
     B, H, Hkv, S, D = shape
-    q, k, v, do, mask = flash_inputs(B, H, Hkv, S, D, padded)
-    rows = visible(mask, S, causal, window).any(-1).expand(B, H, S)
+    Sq, Sk = flash_lengths(S)
+    q, k, v, do, mask = flash_inputs(B, H, Hkv, Sq, D, padded, Sk=Sk)
+    rows = visible(mask, Sq, causal, window).any(-1).expand(B, H, Sq)
     do = do * rows[..., None]
     scale = D ** -0.5
     out, lse = flash_fwd(q, k, v, mask, scale, causal, window)
@@ -409,6 +419,28 @@ def test_flash_kernels_match_plain(shape, causal, window, padded):
     assert result["lse_err"] <= 1e-4
     assert max(result["excess"]) <= 1.0, result["excess"]
     assert result["bad_excess"] > 1.0
+
+
+def flash_same_bits(shape, causal, window, padded) -> bool:
+    """Whether two calls of the backward (dq, then dk/dv) on the same inputs
+    give the same bits."""
+    from pasero_torch.ops.flash_attention import flash_bwd, flash_fwd
+    B, H, Hkv, S, D = shape
+    Sq, Sk = flash_lengths(S)
+    q, k, v, do, mask = flash_inputs(B, H, Hkv, Sq, D, padded, Sk=Sk)
+    args = (D ** -0.5, causal, window)
+    out, lse = flash_fwd(q, k, v, mask, *args)
+    first = flash_bwd(q, k, v, mask, out, lse, do, *args)
+    second = flash_bwd(q, k, v, mask, out, lse, do, *args)
+    return all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,causal,window,padded", FLASH_SHAPES)
+def test_flash_backward_same_bits(shape, causal, window, padded):
+    """dq, dk and dv are deterministic: no float atomics."""
+    _need_card()
+    assert flash_same_bits(shape, causal, window, padded)
 
 
 @pytest.mark.cuda
@@ -1035,6 +1067,8 @@ def mel_inputs(B, N, kind="noise", seed=0, device="cuda"):
 
 
 def mel_constants(device="cuda", n_mels=80):
+    """(window, mel_w) of Whisper's frontend: the Hann window of 400 points
+    and the filterbank."""
     from pasero_torch.ops import mel
     return mel._constants(16000, 400, n_mels, torch.device(device))
 
@@ -1072,26 +1106,29 @@ def mel_excess(got, want, limit) -> float:
 
 def mel_compare(B, N, kind="noise", n_mels=80) -> dict:
     """One launch of the mel kernel against power_mel_plain, in the limits
-    of mel_limits, and the excess of frames shifted by one hop and of a
-    filterbank with its middle column rolled by one bin."""
-    from pasero_torch.ops.mel import power_mel, power_mel_plain
+    of mel_limits (on the plain version's bases of the window), and the
+    excess of frames shifted by one hop, of a filterbank with its middle
+    column rolled by one bin and of the window rolled by one sample."""
+    from pasero_torch.ops.mel import power_mel, power_mel_plain, window_bases
     audio = mel_inputs(B, N, kind)
-    cos_b, sin_b, mel_w = mel_constants(n_mels=n_mels)
-    got = power_mel(audio, cos_b, sin_b, mel_w)
-    plain = power_mel_plain(audio, cos_b, sin_b, mel_w)
-    want, limit = mel_limits(audio, cos_b, sin_b, mel_w)
+    window, mel_w = mel_constants(n_mels=n_mels)
+    got = power_mel(audio, window, mel_w)
+    plain = power_mel_plain(audio, window, mel_w)
+    want, limit = mel_limits(audio, *window_bases(window), mel_w)
     T = want.shape[1]
-    shifted = power_mel(audio[:, 160:].contiguous(), cos_b, sin_b, mel_w)
+    shifted = power_mel(audio[:, 160:].contiguous(), window, mel_w)
     rolled_w = mel_w.clone()
     col = n_mels // 2
     rolled_w[:, col] = rolled_w[:, col].roll(1)
-    rolled = power_mel(audio, cos_b, sin_b, rolled_w)
+    rolled = power_mel(audio, window, rolled_w)
+    rolled_window = power_mel(audio, window.roll(1), mel_w)
     torch.cuda.synchronize()
     return {"excess": mel_excess(got, want, limit),
             "plain_excess": mel_excess(plain, want, limit),
             "shift_excess": mel_excess(shifted[:, :T - 2], want[:, :T - 2],
                                        limit[:, :T - 2]),
             "roll_excess": mel_excess(rolled, want, limit),
+            "window_excess": mel_excess(rolled_window, want, limit),
             "max_abs_err": (log_mel_power(got)
                             - log_mel_power(plain)).abs().max().item(),
             "frames": T}
@@ -1105,9 +1142,10 @@ def test_mel_kernel_matches_plain(shape):
     torch.backends.cuda.matmul.allow_tf32 = False
     before = power_mel.launches
     r = mel_compare(*shape)
-    assert power_mel.launches == before + 3
+    assert power_mel.launches == before + 4
     assert r["excess"] <= 1.0 and r["plain_excess"] <= 1.0, r
     assert r["shift_excess"] > 1.0 and r["roll_excess"] > 1.0, r
+    assert r["window_excess"] > 1.0, r
 
 
 @pytest.mark.cuda
@@ -1125,15 +1163,18 @@ def test_mel_kernel_holds_on_tone_and_silence(n_mels):
 
 @pytest.mark.cuda
 def test_mel_wrapper_raises_on_card():
-    """Types other than float32 and shapes the kernel does not tile raise
-    before any launch."""
+    """Types other than float32, more than 128 mel bins and window lengths
+    the kernel does not factor raise before any launch."""
     from pasero_torch.ops.mel import power_mel
     _need_card()
-    cos_b, sin_b, mel_w = mel_constants()
+    window, mel_w = mel_constants()
     audio = torch.zeros(2, 4000, device="cuda")
     before = power_mel.launches
     with pytest.raises(TypeError):
-        power_mel(audio.half(), cos_b, sin_b, mel_w)
+        power_mel(audio.half(), window, mel_w)
     with pytest.raises(ValueError):
-        power_mel(audio, cos_b, sin_b, torch.zeros(201, 200, device="cuda"))
+        power_mel(audio, window, torch.zeros(201, 200, device="cuda"))
+    with pytest.raises(ValueError):
+        power_mel(audio, window[:300].contiguous(),
+                  torch.zeros(151, 80, device="cuda"))
     assert power_mel.launches == before

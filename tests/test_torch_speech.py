@@ -76,8 +76,9 @@ def test_filterbank_and_bases_equal_jax():
     for n_mels in (80, 128):
         np.testing.assert_array_equal(mel.mel_filterbank(16000, 400, n_mels),
                                       jmel.mel_filterbank(16000, 400, n_mels))
-    for got, want in zip(mel._dft_bases(400), jmel._dft_bases(400)):
-        np.testing.assert_array_equal(got, want)
+    hann = torch.from_numpy(mel.hann_window(400))
+    for got, want in zip(mel.window_bases(hann), jmel._dft_bases(400)):
+        np.testing.assert_array_equal(got.numpy(), want)
 
 
 def mel_input(kind: str) -> np.ndarray:
@@ -133,20 +134,76 @@ def test_clamp_is_per_utterance():
 
 
 def test_power_mel_refuses_what_the_kernel_does_not_take():
-    cos_b, sin_b = (torch.from_numpy(b) for b in mel._dft_bases(400))
-    mel_w = torch.from_numpy(mel.mel_filterbank())
+    window, mel_w = mel._constants(16000, 400, 80, torch.device("cpu"))
     audio = torch.zeros(1, 1600)
     before = mel.power_mel.launches
     with pytest.raises(TypeError, match="float32"):
-        mel.power_mel(audio.double(), cos_b, sin_b, mel_w)
+        mel.power_mel(audio.double(), window, mel_w)
     with pytest.raises(ValueError, match="too few"):
-        mel.power_mel(audio[:, :100], cos_b, sin_b, mel_w)
+        mel.power_mel(audio[:, :100], window, mel_w)
     with pytest.raises(ValueError, match="do not agree"):
-        mel.power_mel(audio, cos_b, sin_b[:, :-1], mel_w)
+        mel.power_mel(audio, window[:-1], mel_w)
     # the CPU route is the plain version: no kernel launch
-    out = mel.power_mel(audio, cos_b, sin_b, mel_w)
+    out = mel.power_mel(audio, window, mel_w)
     assert out.shape == (1, 10, 80)
     assert mel.power_mel.launches == before
+
+
+def factored_power(audio, window, n_fft, hop=160):
+    """csrc/mel.cu's factored DFT in float64 torch, from the kernel's own
+    twiddle table: P-point DFTs of the Q columns (k1 <= P / 2), conjugates
+    for the rest, then Q twiddled products per bin. Returns (power,
+    spectrum)."""
+    P, Q = mel.KERNEL_FACTORS[n_fft]
+    tw = mel._twiddles(n_fft, torch.device("cpu")).double()
+    tw = torch.complex(tw[:, 0], tw[:, 1])
+    frames = mel.frame_signal(audio.double(), n_fft, hop)[:, :-1]
+    y = (frames * window.double()).reshape(*frames.shape[:-1], P, Q)
+    n1, kk = torch.arange(P), torch.arange(P // 2 + 1)
+    A = torch.einsum("btpq,pk->btqk", y.to(torch.complex128),
+                     tw[(Q * n1[:, None] * kk[None]) % n_fft])
+    k = torch.arange(n_fft // 2 + 1)
+    k1 = k % P
+    conj = k1 > P // 2
+    Ak = A[..., torch.where(conj, P - k1, k1)]
+    Ak = torch.where(conj, Ak.conj(), Ak)
+    X = (Ak * tw[(torch.arange(Q)[:, None] * k[None]) % n_fft]).sum(-2)
+    return X.real ** 2 + X.imag ** 2, X
+
+
+@pytest.mark.parametrize("n_fft", sorted(mel.KERNEL_FACTORS))
+def test_kernel_factoring_matches_dense_dft(n_fft):
+    """The mel kernel's twiddle table and factoring: the factored DFT of
+    every compiled n_fft equals the dense windowed DFT of the plain version
+    (float64, relative 1e-6 of the spectrum's scale), with exact zero
+    imaginary parts at bin 0 and the Nyquist bin."""
+    tw = mel._twiddles(n_fft, torch.device("cpu"))
+    assert tw[0].tolist() == [1.0, 0.0]
+    assert tw[n_fft // 2].tolist() == [-1.0, 0.0]
+    assert tw[n_fft // 4].tolist() == [0.0, -1.0]
+    audio = torch.from_numpy(mel_input("noise_1s"))
+    window = torch.from_numpy(mel.hann_window(n_fft).astype(np.float32))
+    power, X = factored_power(audio, window, n_fft)
+    cos_b, sin_b = mel.window_bases(window)
+    frames = mel.frame_signal(audio.double(), n_fft, 160)[:, :-1]
+    dense = (frames @ cos_b.double()) ** 2 + (frames @ sin_b.double()) ** 2
+    np.testing.assert_allclose(power.numpy(), dense.numpy(), rtol=0,
+                               atol=1e-6 * dense.max().item())
+    assert (X.imag[..., 0] == 0).all() and (X.imag[..., -1] == 0).all()
+
+
+def test_kernel_factoring_matches_jax_log_mel():
+    """The factored power through the filterbank, log10, clamp and scale
+    equals JAX's log_mel_spectrogram on an utterance."""
+    audio = mel_input("utterance")
+    window, mel_w = mel._constants(16000, 400, 80, torch.device("cpu"))
+    power, _ = factored_power(torch.from_numpy(audio), window, 400)
+    log_spec = torch.log10(torch.clamp(power @ mel_w.double(), min=1e-10))
+    log_spec = torch.maximum(log_spec, log_spec.amax(dim=(1, 2),
+                                                     keepdim=True) - 8.0)
+    want = np.asarray(jmel.log_mel_spectrogram(jnp.asarray(audio)))
+    np.testing.assert_allclose(((log_spec + 4.0) / 4.0).numpy(), want,
+                               atol=1e-4, rtol=1e-4)
 
 
 # -- the convolution subsampler -----------------------------------------------
