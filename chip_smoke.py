@@ -21,7 +21,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 3. full width: transformer (base) with a 32768 vocabulary and weights from
    numpy seed 0, 64 sentences x beam 5, source length 32, a prompt bucket
    of 8 and 64 new tokens, through Transformer.encode and beam_search;
-4. the fused cross-entropy kernels (forward; the backward's three wgmma
+4. the fused cross-entropy kernels (the forward's wgmma product with its
+   logsumexp-partials epilogue and their merge; the backward's three wgmma
    products per vocabulary chunk) against their plain version on the card at
    the full-width training shape (16384 x 512 x 32000, bf16), ragged shapes in
    bf16 and fp32, the wide shapes of the JAX split backward, the backward's
@@ -30,12 +31,15 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    51865), t5_base (4096 x 768 x 32128), bloom_560m (8192 x 1024 x 250880)
    and llama_1b (8192 x 2048 x 32000); a backward given another row's lse,
    dx without the last chunk's share and dW rolled by one chunk rejected;
-   the same bits from two calls; torch.profiler showing that the backward
-   launches only kernels of csrc/fused_ce.cu and no library GEMM; at every
-   head the time per call beside the plain version's, the library
-   yardstick's (F.cross_entropy over torch.matmul logits) and the operations
-   bound, the peak memory of the kernel path (below the yardstick's) and
-   the backward's scratch;
+   the same bits from two calls of either direction; torch.profiler showing
+   that the forward and the backward launch only kernels of
+   csrc/fused_ce.cu and no library GEMM; at every head the time per call
+   beside the plain version's, the library yardstick's (F.cross_entropy over
+   torch.matmul logits) and the operations bound (the forward and its
+   yardstick from CUDA graphs, eager beside), the forward at most its
+   library call at llama_1b's and bloom_560m's heads and at most its plain
+   version at whisper_base's, the peak memory of the kernel path (below the
+   yardstick's) and each direction's scratch (below the bf16 logits);
 5. full-width training: transformer-base, vocabulary 32000, 128 x 128
    tokens, bf16, through Trainer.train_step (scripts/bench_train.py's
    workload), 20 steps after a warm-up;
@@ -43,18 +47,20 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    models/deen-mini2/training.yaml in a subprocess, with the flags of
    tests/test_torch_train_cli.py, its 20 per-step losses held against the
    JAX training CLI's committed ones, then TextGenerator.build on its checkpoint;
-7. the flash-attention kernels (forward; the bias-free backward's dq and
-   dk/dv, the wgmma kernels of csrc/flash_bwd.cu) against their plain
+7. the bias-free flash-attention kernels (the forward, the backward's dq
+   and dk/dv: the wgmma kernels of csrc/flash_bwd.cu) against their plain
    version on the card, within the error model of tests/test_torch_cuda.py
    (``flash_limits``), at the llama_1b training shape (4 x 32/4 heads x 2048
    x 64, bf16, causal), a ragged shape (key padding, a sliding window, one
    query head per K/V head, head dim 128), an unaligned length, the
-   mini LM's head dim of 32 and a cross-attention (128 queries over 512
-   padded keys); dq, dk and dv the same bits from two calls at the
-   llama_1b shape; at the full-width shape their device time per call (CUDA
-   graph) beside the plain version's, the operations bound and the library
-   yardstick (F.scaled_dot_product_attention, forward and backward, from
-   CUDA graphs too, their eager times beside), and the peak memory of both;
+   mini LM's head dim of 32 and two cross-attentions (128 queries over 512
+   padded keys; 96 over 300 at head dim 32); dq, dk and dv the same bits
+   from two calls at the llama_1b shape; at the full-width shape their
+   device time per call (CUDA graph) beside the plain version's, the
+   operations bound and the library yardstick
+   (F.scaled_dot_product_attention, forward and backward, from CUDA graphs
+   too, their eager times beside), the forward at most FWD_MAX_MS and the
+   backward at most BWD_MAX_MS, and the peak memory of both;
 8. full-width decoder-only training: llama_1b, vocabulary 32000, 4 x 2048
    tokens, bf16, through Trainer.train_step (scripts/bench_train.py
    --model llama_1b), 20 steps after a warm-up, with exact launch counts of
@@ -149,7 +155,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    fit" where an (Sq, Sk) tensor does not, and the peak memory of forward
    + backward; the bias-free kernels at JAX's streamed lengths, (1, 32,
    32768, 128) causal: one head against the plain version, the same bits
-   from two backward calls, their device times and peak memory;
+   from two backward calls, their device times (the forward at most
+   LONG_FWD_MAX_MS, the backward at most LONG_BWD_MAX_MS: the times of the
+   kernels they replaced) and peak memory;
 19. T5 through the entry points: TextGenerator on the t5-mini anchor
    (pasero_torch/testdata/t5-mini), greedy and beam 5 on deen-mini's
    test.de against the JAX outputs, the encoder through flash_fwd_t5;
@@ -534,9 +542,10 @@ def load_test_module(name: str):
 
 def ce_timing(N, E, V) -> dict:
     """The fused-CE wrappers' time per call at (N, E, V) in bf16 beside the
-    plain version's, the library yardstick's and the operations bound, the
-    peak memory of the kernel path and the yardstick, and the backward's
-    scratch."""
+    plain version's, the library yardstick's and the operations bound (the
+    forward and its yardstick from CUDA graphs, their eager times beside),
+    the peak memory of the kernel path and the yardstick, each wrapper's
+    scratch, and whether two forward calls give the same bits."""
     import torch
     import torch.nn.functional as F
     from pasero_torch.ops.fused_ce import (fused_ce_bwd, fused_ce_fwd,
@@ -555,19 +564,31 @@ def ce_timing(N, E, V) -> dict:
            # three products: one logits recompute feeding both dx and dW
            "bwd": {"bound_ms": max(3 * flops / BF16_FLOPS,
                                    bwd_bytes / HBM_BYTES_PER_S) * 1e3}}
-    res["fwd"]["ms"] = time_ms(lambda: fused_ce_fwd(x, wb, t), 20, 3)
-    res["bwd"]["ms"] = time_ms(lambda: fused_ce_bwd(x, wb, t, lse, c, c, c),
-                               10, 2)
+    first, second = fused_ce_fwd(x, wb, t), fused_ce_fwd(x, wb, t)
+    res["fwd"]["same_bits"] = all(torch.equal(a, b)
+                                  for a, b in zip(first, second))
+    del first, second
+    check(res["fwd"]["same_bits"], f"two forward calls at {(N, E, V)} gave "
+          "other bits")
+
+    def fwd():
+        return fused_ce_fwd(x, wb, t)
 
     def yardstick(xi, wi):       # one library call; the port never calls it
         logits = torch.matmul(xi, wi.to(xi.dtype).t()).float()
         return (F.cross_entropy(logits, t, reduction="none",
                                 label_smoothing=ls) * wt).sum()
 
+    res["fwd"]["ms"] = device_ms(fwd, 5, 4)
+    res["fwd"]["host_ms"] = time_ms(fwd, 20, 3)
+    res["bwd"]["ms"] = time_ms(lambda: fused_ce_bwd(x, wb, t, lse, c, c, c),
+                               10, 2)
     with torch.no_grad():
         res["fwd"]["plain_ms"] = time_ms(
             lambda: fused_cross_entropy_plain(x, w, t, wt, ls), 10, 2)
-        res["fwd"]["library_ms"] = time_ms(lambda: yardstick(x, w), 10, 2)
+        res["fwd"]["library_ms"] = device_ms(lambda: yardstick(x, w), 3, 3)
+        res["fwd"]["library_host_ms"] = time_ms(lambda: yardstick(x, w), 10,
+                                                2)
     for key, fn in (("plain_ms", lambda xi, wi: fused_cross_entropy_plain(
             xi, wi, t, wt, ls)[0]), ("library_ms", yardstick)):
         xi, wi = x.clone().requires_grad_(), w.clone().requires_grad_()
@@ -585,32 +606,41 @@ def ce_timing(N, E, V) -> dict:
         torch.cuda.synchronize()
         res["fwd"][key] = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
         del xi, wi
-    # the backward's own memory beyond its inputs and outputs (the scratch,
-    # the dx accumulator, the wrapper's copies), from the allocator's peak
-    # over one call
-    torch.cuda.synchronize()
-    base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    dx, dw = fused_ce_bwd(x, wb, t, lse, c, c, c)
-    torch.cuda.synchronize()
-    res["bwd"]["scratch_mib"] = (torch.cuda.max_memory_allocated() - base
-                                 - dx.nbytes - dw.nbytes) / 2 ** 20
-    del dx, dw
-    log(f"phase 4: at {(N, E, V)} bf16, ms per call: forward kernel "
-        f"{res['fwd']['ms']:.4f} (bound {res['fwd']['bound_ms']:.4f}, plain "
-        f"{res['fwd']['plain_ms']:.4f}, library {res['fwd']['library_ms']:.4f});"
-        f" backward kernels {res['bwd']['ms']:.4f} (bound "
-        f"{res['bwd']['bound_ms']:.4f}, plain {res['bwd']['plain_ms']:.4f}, "
-        f"library {res['bwd']['library_ms']:.4f}); peak memory of forward + "
-        f"backward: kernels {res['fwd']['peak_mib']:.1f} MiB, library "
-        f"{res['fwd']['library_peak_mib']:.1f} MiB; the backward's scratch "
-        f"{res['bwd']['scratch_mib']:.1f} MiB")
+    # each wrapper's own memory beyond its inputs and outputs (the scratch of
+    # partials; the backward's scratch, dx accumulator and copies), from the
+    # allocator's peak over one call
+    for key, fn in (("fwd", fwd),
+                    ("bwd", lambda: fused_ce_bwd(x, wb, t, lse, c, c, c))):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        outs = fn()
+        torch.cuda.synchronize()
+        kept = sum({o.untyped_storage().data_ptr(): o.untyped_storage().nbytes()
+                    for o in outs}.values())
+        res[key]["scratch_mib"] = (torch.cuda.max_memory_allocated() - base
+                                   - kept) / 2 ** 20
+        del outs
+        check(res[key]["scratch_mib"] * 2 ** 20 < N * V * x.element_size(),
+              f"the {key} scratch at {(N, E, V)} is not below the whole "
+              "logits")
+    log(f"phase 4: at {(N, E, V)} bf16, ms per call: forward kernels "
+        f"{res['fwd']['ms']:.4f} from a CUDA graph, eager "
+        f"{res['fwd']['host_ms']:.4f} (bound {res['fwd']['bound_ms']:.4f}, "
+        f"plain {res['fwd']['plain_ms']:.4f}, library "
+        f"{res['fwd']['library_ms']:.4f} from a CUDA graph, eager "
+        f"{res['fwd']['library_host_ms']:.4f}); backward kernels "
+        f"{res['bwd']['ms']:.4f} (bound {res['bwd']['bound_ms']:.4f}, plain "
+        f"{res['bwd']['plain_ms']:.4f}, library {res['bwd']['library_ms']:.4f});"
+        f" peak memory of forward + backward: kernels "
+        f"{res['fwd']['peak_mib']:.1f} MiB, library "
+        f"{res['fwd']['library_peak_mib']:.1f} MiB; scratch: forward "
+        f"{res['fwd']['scratch_mib']:.1f} MiB, backward "
+        f"{res['bwd']['scratch_mib']:.1f} MiB; the forward's stats the same "
+        f"bits from two calls")
     check(res["fwd"]["peak_mib"] < res["fwd"]["library_peak_mib"],
           f"the kernels' peak memory at {(N, E, V)} is not below the "
           "library's")
-    check(res["bwd"]["scratch_mib"] * 2 ** 20 < N * V * x.element_size(),
-          f"the backward's scratch at {(N, E, V)} is not below the whole "
-          "logits")
     return res
 
 
@@ -628,30 +658,51 @@ def device_kernels(fn) -> dict:
                 or getattr(e, "cuda_time_total", 0)) > 0}
 
 
+def fce_launch_check(what, alone, parts, whole) -> dict:
+    """``alone`` (the kernels of one fused-CE wrapper call) are all of
+    csrc/fused_ce.cu and hold every name in ``parts``; ``whole`` (the
+    kernels of the same direction through fused_cross_entropy) holds no
+    library GEMM. Returns ``alone``."""
+    check(alone and all(any(k in name for k in FCE_KERNEL_NAMES)
+                        for name in alone),
+          f"fused_ce_{what} launched kernels not of csrc/fused_ce.cu: {alone}")
+    check(all(any(e in name for name in alone) for e in parts),
+          f"the {what} profile lacks one of {parts}: {alone}")
+    foreign = [name for name in whole if LIBRARY_GEMM.search(name)
+               and not any(k in name for k in FCE_KERNEL_NAMES)]
+    check(not foreign, f"the fused-CE {what} launched library GEMMs: "
+          f"{foreign}")
+    return alone
+
+
+def fwd_launch_check(x, wb, t, wt, ls) -> dict:
+    """The bf16 forward launches its wgmma product with the partials'
+    epilogue and their merge, and nothing else (fused_ce_fwd alone);
+    fused_cross_entropy's forward no library GEMM."""
+    import torch
+    from pasero_torch.ops.fused_ce import fused_ce_fwd, fused_cross_entropy
+    t32 = t.to(torch.int32)
+    alone = device_kernels(lambda: fused_ce_fwd(x, wb, t32))
+    with torch.no_grad():
+        whole = device_kernels(lambda: fused_cross_entropy(
+            x, wb.float(), t, wt, ls))
+    return fce_launch_check("fwd", alone, ("FwdEpilogue", "fwd_combine_kernel"),
+                            whole)
+
+
 def bwd_launch_check(x, wb, t, lse, cs, wt, ls) -> dict:
-    """The backward launches only fused_ce.cu's kernels (fused_ce_bwd
-    alone), and the autograd backward of fused_cross_entropy no library
-    GEMM; returns the former's kernels."""
+    """The bf16 backward launches its three products and nothing else
+    (fused_ce_bwd alone); the autograd backward of fused_cross_entropy no
+    library GEMM."""
     import torch
     from pasero_torch.ops.fused_ce import fused_ce_bwd, fused_cross_entropy
     t32 = t.to(torch.int32)
     alone = device_kernels(lambda: fused_ce_bwd(x, wb, t32, lse, *cs))
-    check(alone and all(any(k in name for k in FCE_KERNEL_NAMES)
-                        for name in alone),
-          f"fused_ce_bwd launched kernels not of csrc/fused_ce.cu: {alone}")
-    if x.dtype == torch.bfloat16:   # the three products' kernels
-        check(all(any(e in name for name in alone) for e in (
-            "DlogitsEpilogue", "DwEpilogue", "DxEpilogue")),
-              f"the backward's profile lacks one of its three products: "
-              f"{alone}")
     xi, wi = x.clone().requires_grad_(), wb.float().requires_grad_()
     out = fused_cross_entropy(xi, wi, t, wt, ls)
     whole = device_kernels(lambda: out[0].backward())
-    foreign = [name for name in whole if LIBRARY_GEMM.search(name)
-               and not any(k in name for k in FCE_KERNEL_NAMES)]
-    check(not foreign, f"the fused-CE backward launched library GEMMs: "
-          f"{foreign}")
-    return alone
+    return fce_launch_check("bwd", alone, ("DlogitsEpilogue", "DwEpilogue",
+                                           "DxEpilogue"), whole)
 
 
 def phase4() -> dict:
@@ -760,9 +811,11 @@ def phase4() -> dict:
             alone = bwd_launch_check(x, wb, t, lse, cs, wt, ls)
             per = {re.search(r"fused_ce::(\w+)", k).group(1): n
                    for k, n in alone.items()}
-            kernels_note = (f"; the profiler saw only kernels of fused_ce.cu "
-                            f"in the backward: {per} for "
-                            f"{-(-V // chunk)} chunk(s)")
+            fwd_per = {re.search(r"fused_ce::(\w+)", k).group(1): n
+                       for k, n in fwd_launch_check(x, wb, t, wt, ls).items()}
+            kernels_note = (f"; the profiler saw only kernels of fused_ce.cu: "
+                            f"in the forward {fwd_per}, in the backward {per} "
+                            f"for {-(-V // chunk)} chunk(s)")
         err["fwd"] = max(err["fwd"], stat_err)
         err["bwd"] = max(err["bwd"], grad_err)
         log(f"phase 4: fused CE == plain at {(N, E, V)} {name}: row stats "
@@ -777,6 +830,15 @@ def phase4() -> dict:
         torch.cuda.empty_cache()
 
     heads = {name: ce_timing(*shape) for name, shape in CE_HEADS.items()}
+    for name in ("llama_1b", "bloom_560m"):
+        f = heads[name]["fwd"]
+        check(f["ms"] <= f["library_ms"], f"the forward at {name}'s head "
+              f"takes {f['ms']:.4f} ms, more than its library call's "
+              f"{f['library_ms']:.4f}")
+    f = heads["whisper_base"]["fwd"]
+    check(f["ms"] <= f["plain_ms"], f"the forward at whisper_base's head "
+          f"takes {f['ms']:.4f} ms, more than its plain version's "
+          f"{f['plain_ms']:.4f}")
     res = dict(heads["transformer_base"], lm_head=heads["llama_1b"],
                heads=heads)
     res["fwd"]["max_abs_err"] = err["fwd"]
@@ -887,6 +949,7 @@ FLASH_SHAPES = [   # (B, H, Hkv, S or (Sq, Sk), D), causal, window, padded
     ((2, 16, 4, 777, 64), False, None, True),      # unaligned S, not causal
     ((3, 4, 2, 45, 32), True, None, True),         # the mini LM's head dim
     ((4, 12, 12, (128, 512), 64), False, None, True),   # cross-attention
+    ((2, 4, 2, (96, 300), 32), False, None, True),      # and at D = 32
 ]
 
 
@@ -895,6 +958,10 @@ FLASH_SHAPES = [   # (B, H, Hkv, S or (Sq, Sk), D), causal, window, padded
 # replaced (64.2594 + 84.3847 ms, PERF.md, "NVIDIA H100 80GB HBM3, 700.00 W")
 BWD_MAX_MS = 1.0
 LONG_BWD_MAX_MS = 148.6441
+# the bias-free forward's: at llama_1b's training shape, and at LONG the time
+# of the kernel it replaced (46.9077 ms, PERF.md, the same card)
+FWD_MAX_MS = 0.30
+LONG_FWD_MAX_MS = 46.9077
 
 
 def flash_check(shape, causal, window, padded, cuda_tests) -> dict:
@@ -995,6 +1062,9 @@ def flash_timing(cuda_tests) -> dict:
         res["fwd"][key] = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
         del leaves
     f, b = res["fwd"], res["bwd"]
+    check(f["ms"] <= FWD_MAX_MS, f"the bias-free forward takes "
+          f"{f['ms']:.4f} ms at {(B, H, Hkv, S, D)}, more than "
+          f"{FWD_MAX_MS}")
     check(b["ms"] <= BWD_MAX_MS, f"the bias-free backward takes "
           f"{b['ms']:.4f} ms at {(B, H, Hkv, S, D)}, more than "
           f"{BWD_MAX_MS}")
@@ -2285,6 +2355,8 @@ def long_context(cuda_tests) -> dict:
                     ("dkv", lambda: flash_bwd_dkv(q, k, v, mask, do, lse,
                                                   delta, *args))):
         res[f"{key}_ms"] = device_ms(fn, iters=2, replays=2)
+    check(res["fwd_ms"] <= LONG_FWD_MAX_MS, f"the bias-free forward takes "
+          f"{res['fwd_ms']:.4f} ms at {LONG}, more than {LONG_FWD_MAX_MS}")
     check(res["dq_ms"] + res["dkv_ms"] <= LONG_BWD_MAX_MS, f"the bias-free "
           f"backward takes {res['dq_ms'] + res['dkv_ms']:.4f} ms at {LONG}, "
           f"more than {LONG_BWD_MAX_MS}")
@@ -2579,6 +2651,7 @@ def main():
             "route": "cuda",
             "source": "pasero_torch/csrc/fused_ce.cu",
             "replaces": f"pasero_tpu/ops/fused_ce.py:{line}",
+            "mainloop": "pasero_torch/csrc/wgmma_gemm.cuh",
             "launches": train_cli[key],
             "full_width_launches": train_full_width,
             "max_abs_err": ce[key]["max_abs_err"],
@@ -2606,12 +2679,17 @@ def main():
             entry["heads"][head]["peak_mib"] = ce["heads"][head]["fwd"]["peak_mib"]
             entry["heads"][head]["library_peak_mib"] = \
                 ce["heads"][head]["fwd"]["library_peak_mib"]
-        if key == "bwd":   # one design replaces both JAX backwards
-            entry["also_replaces"] = "pasero_tpu/ops/fused_ce.py:281"
-            entry["mainloop"] = "pasero_torch/csrc/wgmma_gemm.cuh"
+            entry["heads"][head]["scratch_mib"] = \
+                ce["heads"][head][key]["scratch_mib"]
+        if key == "fwd":   # graph-timed; the eager times beside
             for head in CE_HEADS:
-                entry["heads"][head]["scratch_mib"] = \
-                    ce["heads"][head]["bwd"]["scratch_mib"]
+                own = ce["heads"][head]["fwd"]
+                entry["heads"][head].update(
+                    host_ms=own["host_ms"],
+                    library_host_ms=own["library_host_ms"],
+                    same_bits=own["same_bits"])
+        else:   # one design replaces both JAX backwards
+            entry["also_replaces"] = "pasero_tpu/ops/fused_ce.py:281"
         kernels.append(entry)
     for name, key, line in (("flash_fwd", "fwd", 342),
                             ("flash_bwd_dq", "dq", 963),
@@ -2624,8 +2702,7 @@ def main():
         entry = {
             "name": name,
             "route": "cuda",
-            "source": ("pasero_torch/csrc/flash_attention.cu" if key == "fwd"
-                       else "pasero_torch/csrc/flash_bwd.cu"),
+            "source": "pasero_torch/csrc/flash_bwd.cu",
             "replaces": f"pasero_tpu/ops/flash_attention.py:{line}",
             "launches": lm_cli[name],
             "full_width_launches": lm_full_width[name],

@@ -39,12 +39,12 @@
 // block position iotas (_t5_tile, :124; _t5_bucket, :140); the slots are
 // positions, as there (right-padded rows).
 //
-// Kernels and the TPU kernels they replace (KIND = NO_BIAS / DENSE_BIAS /
-// T5_BIAS):
-//   fwd_kernel     _fwd_packed_kernel (pasero_tpu/ops/flash_attention.py:261,
-//                  through _fwd_packed, :342) / _fwd_kernel (:186, through
+// Kernels and the TPU kernels they replace (KIND = DENSE_BIAS / T5_BIAS; the
+// bias-free forward and backward, NO_BIAS, are flash_bwd.cu's wgmma kernels):
+//   fwd_kernel     _fwd_kernel (pasero_tpu/ops/flash_attention.py:186, through
 //                  _fwd, :381) / _fwd_stream_kernel (:474, through
-//                  _fwd_stream, :544);
+//                  _fwd_stream, :544); the bias-free _fwd_packed_kernel (:261,
+//                  through _fwd_packed, :342) is flash_bwd.cu's;
 //   bwd_dq_kernel  _bwd_dq_kernel (:866) / _bwd_dq_stream_kernel (:618), with
 //                  delta computed here from out and dO (JAX computes it
 //                  outside, :1409) and written for the dk/dv kernel; DENSE_BIAS
@@ -75,11 +75,11 @@
 //
 // The TPU kernels stream K/V past 8 MiB of VMEM (_use_streaming, :467), and
 // always for T5; these already stream 64-key tiles through shared memory, so
-// one instance takes any key length: the bias-free and dense-bias modes of
-// _fwd_stream are the NO_BIAS and DENSE_BIAS forward instances, the
-// dense-bias mode of _bwd_stream the DENSE_BIAS backward ones.
+// one instance takes any key length: the dense-bias modes of _fwd_stream and
+// _bwd_stream are the DENSE_BIAS instances (their bias-free modes
+// flash_bwd.cu's kernels).
 //
-// What bounds them: operations without a bias. One causal product at B = 4,
+// What bounds them: operations with T5's table. One causal product at B = 4,
 // H = 32, S = 2048, D = 64 is 2 B H S^2 D / 2 = 34.4 GFLOP, 0.0347 ms at 989
 // TFLOP/s (bf16 dense). The forward does two products (QK^T, PV); the
 // backward's function needs five (QK^T and dO V^T recomputed, P^T dO, dS K,
@@ -107,11 +107,11 @@
 // (about two thirds of the card's tensor rate at best), 64-row tiles whose
 // K/V are read from L2 once per query tile and head (the GQA group is not
 // packed into one block), two pipeline stages, and the backward's two
-// recomputed products; flash_bwd.cu's bias-free backward shows the wgmma
-// design these kernels would take. With the T5 table the bias costs no bytes
-// (the index and table are KBs, read through L1/L2), so the T5 kernels are
-// bounded as the bias-free ones; demb adds the two recomputed products per
-// tile and its diagonal and bucket sums in shared memory.
+// recomputed products; flash_bwd.cu's bias-free forward and backward show
+// the wgmma design these kernels would take. With the T5 table the bias
+// costs no bytes (the index and table are KBs, read through L1/L2), so the
+// T5 kernels are bounded as the bias-free ones; demb adds the two recomputed
+// products per tile and its diagonal and bucket sums in shared memory.
 
 #include <cuda_bf16.h>
 #include <algorithm>
@@ -332,8 +332,8 @@ __global__ void __launch_bounds__(THREADS)
                const float* __restrict__ t5_table, const int* __restrict__ t5_index,
                int nb, bf16* __restrict__ out, float* __restrict__ lse, int H, int Hkv,
                int Sq, int Sk, float scale, int causal, int window) {
+  static_assert(KIND != NO_BIAS, "the bias-free forward is flash_bwd.cu's");
   constexpr bool BIAS = KIND == DENSE_BIAS, T5 = KIND == T5_BIAS;
-  constexpr bool NAT = KIND != NO_BIAS;   // natural units
   constexpr int LD = D + 8;
   constexpr int NT = BN / 8;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -380,9 +380,8 @@ __global__ void __launch_bounds__(THREADS)
   float o[D / 8][4];
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY};   // running row max (log2 units without NAT)
+  float m[2] = {-INFINITY, -INFINITY};   // running row max, natural units
   float l[2] = {0.f, 0.f};               // this thread's part of the row sum
-  const float sl2 = scale * LOG2E;
 
   for (int kt = kt0; kt < kt1; ++kt) {
     const int st = (kt - kt0) & 1;
@@ -413,10 +412,8 @@ __global__ void __launch_bounds__(THREADS)
         if (visible(row, col, Sk, mg, causal, window)) {
           if constexpr (BIAS)
             t = s[j][e] * scale + Bt[(e >> 1) * 8 * LDB + j * 8 + (e & 1)];
-          else if constexpr (T5)
-            t = s[j][e] * scale + Dt[j * 8 + (e & 1) - (e >> 1) * 8];
           else
-            t = s[j][e] * sl2;
+            t = s[j][e] * scale + Dt[j * 8 + (e & 1) - (e >> 1) * 8];
         }
         s[j][e] = t;
         mx[e >> 1] = fmaxf(mx[e >> 1], t);
@@ -426,7 +423,7 @@ __global__ void __launch_bounds__(THREADS)
     for (int r = 0; r < 2; ++r) {
       mx[r] = quad_max(mx[r]);
       mu[r] = mx[r] == -INFINITY ? 0.f : mx[r];   // no visible key yet
-      const float alpha = NAT ? exp2f((m[r] - mu[r]) * LOG2E) : exp2f(m[r] - mu[r]);
+      const float alpha = exp2f((m[r] - mu[r]) * LOG2E);
       m[r] = mx[r];
       l[r] *= alpha;
 #pragma unroll
@@ -439,7 +436,7 @@ __global__ void __launch_bounds__(THREADS)
     for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        s[j][e] = NAT ? exp2f((s[j][e] - mu[e >> 1]) * LOG2E) : exp2f(s[j][e] - mu[e >> 1]);
+        s[j][e] = exp2f((s[j][e] - mu[e >> 1]) * LOG2E);
         l[e >> 1] += s[j][e];
       }
     warp_pm<D, NT>(o, s, Vs + st * BN * LD, lane);
@@ -460,7 +457,7 @@ __global__ void __launch_bounds__(THREADS)
           __floats2bfloat162_rn(o[j][2 * r] * inv, o[j][2 * r + 1] * inv);
     if (lane % 4 == 0)
       lse[(int64_t)bh * Sq + row] =
-          lr == 0.f ? NEG_INF : (NAT ? m[r] : m[r] * LN2) + logf(lr);
+          lr == 0.f ? NEG_INF : m[r] + logf(lr);
   }
 }
 
@@ -1154,18 +1151,12 @@ cudaError_t launch_demb(const void* q, const void* k, const void* v, const uint8
 }
 
 // The call of LAUNCH's instance for the head dim D (32, 64 or 128) and the
-// bias kind: T5_BIAS with a table, DENSE_BIAS with a bias, else NO_BIAS.
+// bias kind: T5_BIAS with a table, else DENSE_BIAS. The bias-free forward and
+// backward are flash_bwd.cu's; no NO_BIAS instance of a kernel is compiled.
 #define FLASH_BY_DIM(LAUNCH, KIND, D, ...)                                           \
   ((D) == 32   ? LAUNCH<32, KIND>(__VA_ARGS__)                                       \
    : (D) == 64 ? LAUNCH<64, KIND>(__VA_ARGS__)                                       \
                : LAUNCH<128, KIND>(__VA_ARGS__))
-#define FLASH_DISPATCH(LAUNCH, bias, table, D, ...)                                  \
-  ((table)  ? FLASH_BY_DIM(LAUNCH, T5_BIAS, D, __VA_ARGS__)                          \
-   : (bias) ? FLASH_BY_DIM(LAUNCH, DENSE_BIAS, D, __VA_ARGS__)                       \
-            : FLASH_BY_DIM(LAUNCH, NO_BIAS, D, __VA_ARGS__))
-// The backward's: T5_BIAS with a table, else DENSE_BIAS. The bias-free
-// backward is flash_bwd.cu's; no NO_BIAS instance of bwd_dq_kernel or
-// bwd_dkv_kernel is compiled.
 #define FLASH_DISPATCH_BIASED(LAUNCH, table, D, ...)                                 \
   ((table) ? FLASH_BY_DIM(LAUNCH, T5_BIAS, D, __VA_ARGS__)                           \
            : FLASH_BY_DIM(LAUNCH, DENSE_BIAS, D, __VA_ARGS__))
@@ -1188,16 +1179,18 @@ extern "C" {
 // b bs + h hs. t5_table is nullptr or T5's float32 (nb, H) table, with
 // t5_index the int32 bucket of every distance (Sq + Sk - 1 entries, entry
 // k - q + Sq - 1 for query slot q and key slot k; it carries the direction)
-// and 1 <= nb <= 128; never with a bias. Neither: the bias-free kernels.
+// and 1 <= nb <= 128; never with a bias. One of the two is required: the
+// bias-free forward is flash_bwd.cu's.
 int flash_fwd(const void* q, const void* k, const void* v, const uint8_t* kv_mask,
               const float* bias, int bs, int hs, const float* t5_table,
               const int* t5_index, int nb, void* out, float* lse, int B, int H, int Hkv,
               int Sq, int Sk, int D, float scale, int causal, int window, void* stream) {
-  if (bad_args(B, H, Hkv, Sq, Sk, D, window) || bad_bias(bias, t5_table, t5_index, nb))
+  if (bad_args(B, H, Hkv, Sq, Sk, D, window) || bad_bias(bias, t5_table, t5_index, nb) ||
+      (!bias && !t5_table))
     return (int)cudaErrorInvalidValue;
-  return (int)FLASH_DISPATCH(launch_fwd, bias, t5_table, D, q, k, v, kv_mask, bias, bs, hs,
-                             t5_table, t5_index, nb, out, lse, B, H, Hkv, Sq, Sk, scale,
-                             causal, window, static_cast<cudaStream_t>(stream));
+  return (int)FLASH_DISPATCH_BIASED(launch_fwd, t5_table, D, q, k, v, kv_mask, bias, bs, hs,
+                                    t5_table, t5_index, nb, out, lse, B, H, Hkv, Sq, Sk, scale,
+                                    causal, window, static_cast<cudaStream_t>(stream));
 }
 
 // dq (B, H, Sq, D) bfloat16; delta (B, H, Sq) f32 is written for flash_bwd_dkv.

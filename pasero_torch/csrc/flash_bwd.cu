@@ -1,5 +1,37 @@
-// The bias-free flash-attention backward for Hopper (sm_90a): dq (and delta),
-// then dk and dv, for grouped K/V heads, from the forward's out and lse:
+// The bias-free flash attention for Hopper (sm_90a), for grouped K/V heads:
+// the forward (out and lse), then the backward's dq (and delta), dk and dv.
+//
+// The forward:
+//
+//   s[i, j]  = scale q[i] . k[j]                            (fp32)
+//   lse[i]   = log sum over visible j of exp(s[i, j])   (-1e30 if no key)
+//   out[i]   = sum_j exp(s[i, j] - lse[i]) v[j]   (p rounded to bf16 first)
+//
+// Replaces pasero_tpu/ops/flash_attention.py:_fwd_packed_kernel (:261),
+// through _fwd_packed (:342), and the bias-free mode of the streamed
+// _fwd_stream (:544). What bounds it: operations, two products (QK^T, PV):
+// 0.0695 ms at llama_1b's causal (4, 32/4, 2048, 64) against 0.0228 ms of
+// bytes. At D = 64 the exponentials take as long again as the products (one
+// per score on the special function unit, 16 a cycle per SM, against 4096
+// flops a cycle), so the softmax has to overlap the tensor cores. The design
+// (fwd_kernel): a block owns 64 NC queries of one query head (three consumer
+// warpgroups of 64 rows at D <= 64, two at D = 128), Q resident; a producer
+// warp streams the 64-key K and V tiles through a TMA ring with their key
+// flags, read one tile ahead; per tile a consumer issues S = Q K^T (m64n64,
+// both operands from shared memory) and then P V of the previous tile (P,
+// rounded to bf16 as JAX does, as the register A operand in the accumulator
+// layout, V read MN-major), and forms the online softmax of this tile (log2
+// units, ex2.approx) while that product runs; P is packed, and O rescaled,
+// with no product in flight, so ptxas serializes no wgmma. No score tile goes
+// through shared memory. The grid runs the last (longest) causal query tiles
+// first; key tiles past a consumer's diagonal or below its window are freed
+// unread, and fully visible tiles skip the mask arithmetic. GQA: one block
+// per query head, K/V re-read from L2 (the bytes bound lies far under the
+// operations one). What holds it back: the m64n64 score products read both
+// operands from shared memory, and a consumer's exponentials still wait on
+// its own score product (the three warpgroups overlap one another only).
+//
+// The backward, from the forward's out and lse:
 //
 //   p[i, j]  = exp(scale q[i] . k[j] - lse[i]) where key j is visible, else 0
 //   delta[i] = sum_d dO[i, d] out[i, d]             (fp32 over the bf16 out)
@@ -60,14 +92,15 @@
 // serializes the wgmmas of dkv_kernel<64> (its note C7515) and, for want of
 // registers, of dkv_kernel<128> (C7512).
 //
-// The biased and T5 backward kernels (flash_attention.cu, DENSE_BIAS and
-// T5_BIAS instances of bwd_dq_kernel / bwd_dkv_kernel) are not these; the
+// The biased and T5 kernels (flash_attention.cu, DENSE_BIAS and T5_BIAS
+// instances of fwd_kernel / bwd_dq_kernel / bwd_dkv_kernel) are not these; the
 // PTX wrappers for mbarriers, descriptors and the wgmma fences come from
-// wgmma_gemm.cuh (the fused-CE backward's mainloop).
+// wgmma_gemm.cuh (the fused-CE mainloop).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 #include "wgmma_gemm.cuh"
@@ -93,6 +126,8 @@ constexpr int TILE = 64;       // rows of a streamed tile
 template <int DP>
 __host__ __device__ constexpr int stages() { return DP == 64 ? 4 : 3; }
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+constexpr float NEG_INF = -1e30f;   // the lse of a row that sees no key
 
 // -- PTX wrappers ----------------------------------------------------------------
 
@@ -274,6 +309,10 @@ __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
 
 // Shared memory of a kernel with NC consumer warpgroups: 2 NC resident tiles
 // (a 64-row part of each of two operands per consumer), the stages of two
@@ -298,6 +337,264 @@ __device__ __forceinline__ float exp2_approx(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
+}
+
+// -- forward -----------------------------------------------------------------------
+
+// The forward's consumer warpgroups: three at D <= 64 (160 registers hold a
+// score tile, the packed P and the output), two at D = 128 (232).
+template <int DP>
+__host__ __device__ constexpr int fwd_consumers() { return DP == 64 ? 3 : 2; }
+
+// Shared memory of the forward: NC resident Q tiles, the stages of the K and
+// V tiles, 128 ints a stage (the producer warp's key flags), the barriers,
+// and 1024 bytes to align.
+template <int DP, int NC>
+__host__ __device__ constexpr size_t fwd_smem_bytes() {
+  constexpr int ST = stages<DP>();
+  return (size_t)(NC + 2 * ST) * tile_bytes<DP>() + ST * 128 * 4 + 8 * (1 + 2 * ST) + 1024;
+}
+
+// Block (bh, y): query head bh = b H + h, the 64 NC queries q0 = (n - 1 - y)
+// 64 NC .. (the last, longest tiles first). Block tile t is key tile kt0 + t;
+// consumer g reads the tiles [t0, t1) that its 64 rows can see and frees the
+// others' stages unread. Per tile it runs S = Q K^T (m64n64, both operands
+// from shared memory) and O += P V (P from registers in the
+// accumulator layout, V read MN-major), with the online softmax in log2 units
+// between them; P V of tile t - 1 is in flight while it forms P of tile t.
+template <int DP, int NC>
+__global__ void __launch_bounds__(128 * (NC + 1), 1)
+    fwd_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+               const __grid_constant__ CUtensorMap map_v, const uint8_t* __restrict__ kv_mask,
+               bf16* __restrict__ out, float* __restrict__ lse, int D, int H, int Hkv, int Sq,
+               int Sk, float scale, int causal, int window) {
+  constexpr int TB = tile_bytes<DP>();
+  constexpr int ACC = DP / 2;
+  constexpr int STAGES = stages<DP>();
+  constexpr int ROWS_NC = 64 * NC;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t q_s = base, st_s = base + NC * TB;
+  int* flags = reinterpret_cast<int*>(smem_raw + (st_s + STAGES * 2 * TB - raw));
+  const uint32_t bars = st_s + STAGES * 2 * TB + STAGES * 128 * 4;
+  const uint32_t ready = bars, full = bars + 8, empty = full + 8 * STAGES;
+
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int bk = b * Hkv + h / (H / Hkv);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * ROWS_NC;
+  int kt0 = 0, kt1 = (Sk + TILE - 1) / TILE;
+  if (causal) kt1 = min(kt1, (q0 + ROWS_NC - 1) / TILE + 1);
+  if (window > 0) kt0 = max(0, (q0 - window + 1) / TILE);
+  const int iters = max(0, kt1 - kt0);
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(ready, 1);
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 2);    // the copies' arrival, the key flags'
+      mbar_init(empty + 8 * s, 4 * NC);   // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    if constexpr (NC == 3)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    else
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x >= 32) return;
+    const int lane = threadIdx.x;
+    if (lane == 0) {
+      mbar_expect_tx(ready, NC * TB);
+      for (int g = 0; g < NC; ++g) load_tile<DP>(q_s + g * TB, &map_q, ready, q0 + 64 * g, bh);
+    }
+    const uint8_t* mg = kv_mask + (int64_t)b * Sk;
+    // the lane's keys of block tile it, read a tile ahead so that their
+    // latency hides behind the wait for a free stage
+    auto keys = [&](int it, bool (&ok)[2]) {
+      const int k0 = (kt0 + it) * TILE;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int i = k0 + lane + 32 * j;
+        ok[j] = it < iters && i < Sk && mg[i];
+      }
+    };
+    bool ok[2], next[2];
+    keys(0, ok);
+    for (int it = 0; it < iters; ++it) {
+      const int s = it % STAGES, k0 = (kt0 + it) * TILE;
+      keys(it + 1, next);
+      mbar_wait(empty + 8 * s, ((it / STAGES) & 1) ^ 1);
+      if (lane == 0) {
+        mbar_expect_tx(full + 8 * s, 2 * TB);
+        load_tile<DP>(st_s + s * 2 * TB, &map_k, full + 8 * s, k0, bk);
+        load_tile<DP>(st_s + s * 2 * TB + TB, &map_v, full + 8 * s, k0, bk);
+      }
+      bool all = true;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        flags[s * 128 + lane + 32 * j] = ok[j];
+        all = all && ok[j];
+        ok[j] = next[j];
+      }
+      all = __all_sync(0xffffffffu, all);
+      if (lane == 0) flags[s * 128 + TILE] = all;   // no key of the tile masked
+      __syncwarp();
+      if (lane == 0) mbar_arrive(full + 8 * s);
+    }
+    return;
+  }
+
+  if constexpr (NC == 3)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 160;\n");
+  else
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int g = wg - 1, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int row0 = q0 + 64 * g + 16 * warp + lane / 4;   // rows row0, row0 + 8
+  // the key tiles this consumer's rows can see, as block tiles [t0, t1)
+  const int first = q0 + 64 * g;
+  int c0 = kt0, c1 = kt1;
+  if (causal) c1 = min(c1, (first + 63) / TILE + 1);
+  if (window > 0) c0 = max(c0, (first - window + 1) / TILE);
+  if (first >= Sq) c1 = c0;
+  const int t0 = min(c0 - kt0, iters), t1 = max(t0, min(c1 - kt0, iters));
+  // a tile read by no product of this consumer: its stage is freed once it
+  // has landed (so the arrival counts for this tile's phase)
+  auto pass = [&](int t) {
+    const int s = t % STAGES;
+    mbar_wait(full + 8 * s, (t / STAGES) & 1);
+    if (lane == 0) mbar_arrive(empty + 8 * s);
+  };
+  for (int t = 0; t < t0; ++t) pass(t);
+
+  float o[ACC];
+#pragma unroll
+  for (int i = 0; i < ACC; ++i) o[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};   // running row max, log2 units
+  float l[2] = {0.f, 0.f};               // this thread's part of the row sum
+  const float sl2 = scale * LOG2E;
+  const uint32_t qt = q_s + g * TB;
+  uint32_t pa[4][4];
+  float sc[32];
+  float alpha[2];
+
+  // the softmax of tile t over its scores S(t) in sc: P(t) in sc (fp32), l
+  // and m updated, alpha the factor that takes O to the new max
+  auto softmax = [&](int t) {
+    const int s = t % STAGES, k0 = (kt0 + t) * TILE;
+    const int* fl = flags + s * 128;
+    // no element of the warp's rows masked: every key present, rows inside
+    // Sq, the causal edge and the window clear of the tile
+    bool clear = fl[TILE] && row0 + 8 < Sq;
+    if (causal) clear = clear && k0 + TILE - 1 <= row0;
+    if (window > 0) clear = clear && row0 + 8 - k0 < window;
+    if (!__all_sync(0xffffffffu, clear)) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int r = (i >> 1) & 1, ci = acc_col(i, lane);
+        const int row = row0 + 8 * r, col = k0 + ci;
+        bool ok = fl[ci] && row < Sq;
+        if (causal) ok = ok && col <= row;
+        if (window > 0) ok = ok && row - col < window;
+        if (!ok) sc[i] = -INFINITY;
+      }
+    }
+    float mx[2] = {-INFINITY, -INFINITY}, mu[2];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float mn = fmaxf(m[r], quad_max(mx[r]) * sl2);
+      mu[r] = mn == -INFINITY ? 0.f : mn;   // no visible key yet
+      alpha[r] = exp2_approx(m[r] - mu[r]);
+      m[r] = mn;
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      sc[i] = exp2_approx(fmaf(sc[i], sl2, -mu[(i >> 1) & 1]));
+      l[(i >> 1) & 1] += sc[i];
+    }
+  };
+  auto issue_s = [&](int t) {
+    const int s = t % STAGES;
+    mbar_wait(full + 8 * s, (t / STAGES) & 1);
+    wgmma_fence();
+#pragma unroll
+    for (int kd = 0; kd < DP / 16; ++kd)
+      wgmma_ss_n64(sc, desc_k(qt, kd), desc_k(st_s + s * 2 * TB, kd), kd);
+    wgmma_commit();
+  };
+  // O taken to the max of the last softmax's tile, before any product that
+  // follows is issued
+  auto rescale = [&]() {
+#pragma unroll
+    for (int i = 0; i < ACC; ++i) o[i] *= alpha[(i >> 1) & 1];
+    fence_regs(o);
+  };
+  // O += P(t) V(t)
+  auto issue_pv = [&](int t) {
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<DP>(o, pa[kk], desc_mn(st_s + (t % STAGES) * 2 * TB + TB, kk));
+    wgmma_commit();
+  };
+
+  mbar_wait(ready, 0);
+  if (t0 < t1) {
+    issue_s(t0);
+    wgmma_wait<0>();
+    fence_regs(sc);
+    softmax(t0);
+    pack_a(pa, sc);
+    fence_regs(pa);
+    // S(t) is issued before P V(t - 1) and retires first; the softmax of tile
+    // t runs while P V(t - 1) is in flight. P is packed, and O rescaled, with
+    // no product in flight.
+    for (int t = t0 + 1; t < t1; ++t) {
+      rescale();
+      issue_s(t);
+      issue_pv(t - 1);
+      wgmma_wait<1>();
+      fence_regs(sc);
+      softmax(t);
+      wgmma_wait<0>();
+      fence_regs(o);
+      fence_regs(pa);
+      if (lane == 0) mbar_arrive(empty + 8 * ((t - 1) % STAGES));
+      pack_a(pa, sc);
+      fence_regs(pa);
+    }
+    rescale();
+    issue_pv(t1 - 1);
+    wgmma_wait<0>();
+    fence_regs(o);
+    fence_regs(pa);
+    if (lane == 0) mbar_arrive(empty + 8 * ((t1 - 1) % STAGES));
+  }
+  for (int t = t1; t < iters; ++t) pass(t);
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    const float lr = quad_sum(l[r]);
+    if (row >= Sq) continue;
+    const float inv = lr == 0.f ? 0.f : 1.f / lr;
+    bf16* go = out + ((int64_t)bh * Sq + row) * D;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int col = 8 * j + 2 * (lane % 4);
+      if (col < D)
+        *reinterpret_cast<__nv_bfloat162*>(go + col) =
+            __floats2bfloat162_rn(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+    }
+    if (lane % 4 == 0)
+      lse[(int64_t)bh * Sq + row] = lr == 0.f ? NEG_INF : m[r] * LN2 + logf(lr);
+  }
 }
 
 // -- dq (and delta) ----------------------------------------------------------------
@@ -698,6 +995,22 @@ bool bad_args(int B, int H, int Hkv, int Sq, int Sk, int D, int window) {
 }
 
 template <int DP>
+cudaError_t launch_fwd(const CUtensorMap& map_q, const CUtensorMap& map_k, const CUtensorMap& map_v,
+                       const uint8_t* mask, void* out, float* lse, int B, int H, int Hkv, int Sq,
+                       int Sk, int D, float scale, int causal, int window, cudaStream_t stream) {
+  constexpr int NC = fwd_consumers<DP>();
+  constexpr size_t bytes = fwd_smem_bytes<DP, NC>();
+  static bool done = false;
+  cudaError_t err = allow_smem(fwd_kernel<DP, NC>, bytes, done);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * H, (Sq + 64 * NC - 1) / (64 * NC));
+  fwd_kernel<DP, NC><<<grid, 128 * (NC + 1), bytes, stream>>>(
+      map_q, map_k, map_v, mask, static_cast<bf16*>(out), lse, D, H, Hkv, Sq, Sk, scale, causal,
+      window);
+  return cudaGetLastError();
+}
+
+template <int DP>
 cudaError_t launch_dq(const Maps& m, const uint8_t* mask, const void* out, const void* dout,
                       const float* lse, float* delta, void* dq, int B, int H, int Hkv, int Sq,
                       int Sk, int D, float scale, int causal, int window, cudaStream_t stream) {
@@ -733,6 +1046,26 @@ cudaError_t launch_dkv(const Maps& m, const uint8_t* mask, const float* lse, con
 using namespace flash_bwd;
 
 extern "C" {
+
+// The bias-free forward: q (B, H, Sq, D) and k, v (B, Hkv, Sk, D) bfloat16,
+// contiguous, 16-byte aligned; kv_mask (B, Sk) uint8 (1 = key present). D is
+// 32, 64 or 128; window 0 means none. Writes out (B, H, Sq, D) bfloat16 and
+// lse (B, H, Sq) f32 (natural log; -1e30 and out = 0 for a row that sees no
+// key). Returns cudaGetLastError() after the launch (0 on success), or
+// cudaErrorInvalidValue for arguments the kernel does not take.
+int fwd(const void* q, const void* k, const void* v, const uint8_t* kv_mask, void* out, float* lse,
+        int B, int H, int Hkv, int Sq, int Sk, int D, float scale, int causal, int window,
+        void* stream) {
+  CUtensorMap mq, mk, mv;
+  if (bad_args(B, H, Hkv, Sq, Sk, D, window) || !tile_map(&mq, q, (int64_t)B * H, Sq, D) ||
+      !tile_map(&mk, k, (int64_t)B * Hkv, Sk, D) || !tile_map(&mv, v, (int64_t)B * Hkv, Sk, D))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(D == 128 ? launch_fwd<128>(mq, mk, mv, kv_mask, out, lse, B, H, Hkv, Sq, Sk, D,
+                                          scale, causal, window, s)
+                        : launch_fwd<64>(mq, mk, mv, kv_mask, out, lse, B, H, Hkv, Sq, Sk, D,
+                                         scale, causal, window, s));
+}
 
 // q, out, dout (B, H, Sq, D) and k, v (B, Hkv, Sk, D): bfloat16, contiguous,
 // 16-byte aligned; kv_mask (B, Sk) uint8 (1 = key present); lse (B, H, Sq)

@@ -20,13 +20,31 @@
 // its stored (V, E) row-major layout (the tied embedding table or the output
 // projection's weight), so no transposed copy is made.
 //
-// The forward: 256 threads (8 warps in a 2 x 4 grid) tile 64 rows x 128
-// vocabulary columns, bf16 operands staged by 16-byte cp.async copies
-// (zero-filled past the ragged edges) and multiplied with WMMA (mma.sync,
-// fp32 accumulation); it keeps its x tile resident when E <= 512, writes each
-// logits tile over the weight tile it came from, and keeps each thread's
-// online max / sum-exp / target logit / logit sum in registers across the
-// vocabulary loop. Bound by operations: 2 N E V at 989 TFLOP/s.
+// The bf16 forward. What bounds it: operations, one product of 2 N E V flops
+// (1.086 ms at 989 TFLOP/s for llama_1b's head, 4.256 ms for bloom_560m's);
+// its bytes (x and W read once, 3 floats a row written) take 0.05 and 0.16
+// ms. The design: the logits tiles come from the backward's mainloop
+// (wgmma_gemm.cuh, x and W both K-major as stored), and an epilogue
+// (FwdEpilogue) reduces each row's 256 columns of a tile in registers (a
+// thread's 64 columns, then across the four lanes of its quad by shuffles) to
+// one partial: the max, the sum of exponentials relative to it, the target
+// logit and the logits sum, written as 4 floats into a scratch of N x
+// ceil(V / 256) partials (16 bytes each: 16 MB at llama_1b's head, 128 MB at
+// bloom_560m's, an eighth of the library's bf16 logits or less). The grid
+// spans (row tile, vocabulary tile), so a small N still fills the card
+// (whisper_base's 2048 rows give 16 x 203 tiles), and walks the row tiles of
+// one vocabulary column first, so each W tile comes from device memory once
+// while x is re-read from L2. A second kernel, in the same C call, merges a
+// row's partials in a fixed order (one warp a row: lane-strided, then a
+// shuffle tree), so there are no atomics and two calls give the same bits.
+// The exponentials are ex2.approx of log2(e)-scaled scores; lse leaves in
+// natural units. Columns past V (zero-filled by the copy) enter no
+// statistic. E must be a multiple of 8 (the wrapper pads x and w).
+//
+// The float32 forward (not on any main path) keeps an FMA kernel: 256
+// threads tile 64 rows x 128 vocabulary columns staged by cp.async, with each
+// thread's online max / sum-exp / target logit / logit sum in registers
+// across the vocabulary loop.
 //
 // The bf16 backward. What bounds it: operations. The function needs three
 // products of 2 N E V flops each, one logits recompute whose dl feeds both
@@ -57,21 +75,16 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
-#include <type_traits>
-
 #include "wgmma_gemm.cuh"
-
-using namespace nvcuda;
 
 namespace fused_ce {
 
 constexpr int THREADS = 256;
 constexpr float NEG_INF = -1e30f;
 
-// forward tile: 64 rows x 128 vocabulary columns, width chunks of KC
+// float32 forward tile: 64 rows x 128 vocabulary columns, width chunks of KC
 constexpr int F_ROWS = 64;
 constexpr int F_COLS = 128;
 // backward tile: 32 own rows x 64 loop rows; the output block is 32 x B_WIDTH
@@ -79,19 +92,14 @@ constexpr int B_OWN = 32;
 constexpr int B_LOOP = 64;
 constexpr int B_WIDTH = 512;
 
+// float32 operands in shared memory
 template <typename T>
 struct Cfg;
 template <>
-struct Cfg<__nv_bfloat16> {
-  static constexpr int PAD = 8;     // 16 bytes of row padding in shared memory
-  static constexpr int VEC = 8;     // elements per 16-byte load
-  static constexpr int F_KC = 512;  // forward width chunk
-};
-template <>
 struct Cfg<float> {
-  static constexpr int PAD = 4;
-  static constexpr int VEC = 4;
-  static constexpr int F_KC = 128;
+  static constexpr int PAD = 4;     // 16 bytes of row padding
+  static constexpr int VEC = 4;     // elements per 16-byte load
+  static constexpr int F_KC = 128;  // forward width chunk
 };
 
 __host__ __device__ inline int round16(int64_t x) {
@@ -102,15 +110,6 @@ __host__ __device__ inline int64_t min64(int64_t a, int64_t b) {
   return a < b ? a : b;
 }
 
-
-template <typename T>
-__device__ inline T from_float(float v);
-template <>
-__device__ inline __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-template <>
-__device__ inline float from_float<float>(float v) { return v; }
 
 // 16 bytes from global to shared memory without a register round trip;
 // src_bytes = 0 writes zeros (the source is then not read).
@@ -150,62 +149,14 @@ __device__ void stage(T* dst, int ld, const T* __restrict__ src, int64_t nrows,
       const int r = i / C;
       const int c = i - r * C;
       const int64_t gr = r0 + r, gc = c0 + c;
-      dst[r * ld + c] = (gr < nrows && gc < width) ? src[gr * width + gc]
-                                                   : from_float<T>(0.f);
+      dst[r * ld + c] = (gr < nrows && gc < width) ? src[gr * width + gc] : T(0);
     }
   }
 }
 
-// S[OWN x LOOP] (+)= A[OWN x kdim] . B[LOOP x kdim]^T from shared memory,
-// OWN = 32 * FM, LOOP = 64 * FN: warp (wr, wc) of the 2 x 4 grid holds the
-// FM x FN 16 x 16 fragments at rows wr*16*FM, columns wc*16*FN.
-template <int FM, int FN>
-struct TileMma {
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FM][FN];
-
-  __device__ void zero() {
-#pragma unroll
-    for (int i = 0; i < FM; ++i)
-#pragma unroll
-      for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-  }
-
-  __device__ void run(const __nv_bfloat16* A, int lda, const __nv_bfloat16* B,
-                      int ldb, int kdim) {
-    const int warp = threadIdx.x / 32;
-    const int wr = warp / 4, wc = warp % 4;
-    for (int k = 0; k < kdim; k += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>
-          a[FM];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major>
-          b[FN];
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-        wmma::load_matrix_sync(a[i], A + (wr * FM + i) * 16 * lda + k, lda);
-#pragma unroll
-      for (int j = 0; j < FN; ++j)
-        wmma::load_matrix_sync(b[j], B + (wc * FN + j) * 16 * ldb + k, ldb);
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-#pragma unroll
-        for (int j = 0; j < FN; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-  }
-
-  __device__ void store(float* S, int lds) {
-    const int warp = threadIdx.x / 32;
-    const int wr = warp / 4, wc = warp % 4;
-#pragma unroll
-    for (int i = 0; i < FM; ++i)
-#pragma unroll
-      for (int j = 0; j < FN; ++j)
-        wmma::store_matrix_sync(S + (wr * FM + i) * 16 * lds + (wc * FN + j) * 16,
-                                acc[i][j], lds, wmma::mem_row_major);
-  }
-};
-
-// The same product on the FMA units for fp32 operands: thread t owns the
-// elements t, t + 256, ... of the row-major OWN x LOOP tile.
+// S[OWN x LOOP] (+)= A[OWN x kdim] . B[LOOP x kdim]^T from shared memory on
+// the FMA units: thread t owns the elements t, t + 256, ... of the row-major
+// OWN x LOOP tile.
 template <int OWN, int LOOP>
 struct TileFma {
   static constexpr int PER = OWN * LOOP / THREADS;
@@ -238,16 +189,11 @@ struct TileFma {
   }
 };
 
-template <typename T, int OWN, int LOOP>
-using Tile = typename std::conditional<std::is_same<T, float>::value,
-                                       TileFma<OWN, LOOP>,
-                                       TileMma<OWN / 32, LOOP / 64>>::type;
-
-// -- forward -------------------------------------------------------------------
+// -- forward, float32: an FMA kernel ----------------------------------------------
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
-    fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
+    fwd_fma_kernel(const T* __restrict__ x, const T* __restrict__ w,
                const int32_t* __restrict__ targets, float* __restrict__ lse_out,
                float* __restrict__ tgt_out, float* __restrict__ sum_out,
                int64_t N, int64_t E, int64_t V, bool vec) {
@@ -271,7 +217,7 @@ __global__ void __launch_bounds__(THREADS)
 
   if (nchunks == 1)
     stage<T>(Xs, ld, x, N, E, n0, F_ROWS, 0, round16(E), vec);
-  Tile<T, F_ROWS, F_COLS> tile;
+  TileFma<F_ROWS, F_COLS> tile;
   for (int64_t v0 = 0; v0 < V; v0 += F_COLS) {
     tile.zero();
     for (int c = 0; c < nchunks; ++c) {
@@ -451,15 +397,135 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-// -- backward, bfloat16: three wgmma products per vocabulary chunk -----------------
+// -- bfloat16: epilogues of the wgmma mainloop ----------------------------------------
 
 // 2^x on the special function unit (relative error about 2^-22, far below
-// the bf16 rounding of dl that follows; results below 2^-126 flush to 0).
+// the bf16 rounding of dl that follows and the forward's limits; results
+// below 2^-126 flush to 0).
 __device__ __forceinline__ float exp2_approx(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
 }
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+// The forward's partial of one 128 x 256 logits tile (vocabulary columns from
+// the tile's first, c0 - 2 (lane % 4)): for each row below N, over the
+// tile's columns below V, the max, the sum of exp(logit - max), the target
+// logit (0 where the target lies outside the tile) and the logits sum, one
+// float4 at part[row * tiles_v + tile].
+struct FwdEpilogue {
+  const int32_t* targets;
+  float4* part;
+  int64_t N, V;
+  int tiles_v;
+
+  struct Rows {
+    int t[2];   // the targets of the thread's two rows (-1 past N)
+  };
+
+  __device__ __forceinline__ Rows rows(int r0) const {
+    Rows r;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int64_t n = r0 + 8 * h;
+      r.t[h] = n < N ? targets[n] : -1;
+    }
+    return r;
+  }
+
+  // row h's statistics of the thread's 64 columns, then of its quad's 256;
+  // WHOLE: every column of the tile lies below V
+  template <bool WHOLE>
+  __device__ __forceinline__ float4 row_stats(const float (&d)[wgmma_gemm::ACC], int h, int c0,
+                                              int t) const {
+    float mx = NEG_INF;
+#pragma unroll
+    for (int j = 0; j < wgmma_gemm::ACC / 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if (WHOLE || c0 + 8 * j + e < V) mx = fmaxf(mx, d[4 * j + 2 * h + e]);
+    mx = quad_max(mx);
+    const float shift = mx * LOG2E;
+    float l = 0.f, tg = 0.f, sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < wgmma_gemm::ACC / 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float v = d[4 * j + 2 * h + e];
+        if (WHOLE || c0 + 8 * j + e < V) {
+          l += exp2_approx(fmaf(v, LOG2E, -shift));
+          sum += v;
+          if (8 * j + e == t) tg = v;
+        }
+      }
+    return make_float4(mx, quad_sum(l), quad_sum(tg), quad_sum(sum));
+  }
+
+  __device__ __forceinline__ void operator()(const float (&d)[wgmma_gemm::ACC], int r0, int c0,
+                                             const Rows& r) const {
+    const int tile = c0 / wgmma_gemm::BN;
+    const bool whole = (int64_t)(tile + 1) * wgmma_gemm::BN <= V;   // the same for the warp
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int64_t n = r0 + 8 * h;
+      // the target's offset from this thread's first column
+      const int t = r.t[h] - c0;
+      const float4 st = whole ? row_stats<true>(d, h, c0, t) : row_stats<false>(d, h, c0, t);
+      if (threadIdx.x % 4 == 0 && n < N) part[n * tiles_v + tile] = st;
+    }
+  }
+};
+
+// The forward's merge of each row's tiles_v partials, one warp a row: lane i
+// takes partials i, i + 32, ... in order, then the lanes' states meet in a
+// shuffle tree (the same sums in the same order on every call); lane 0 writes
+// lse in natural units, the target logit and the logits sum.
+__global__ void __launch_bounds__(256)
+    fwd_combine_kernel(const float4* __restrict__ part, int tiles_v, float* __restrict__ lse,
+                       float* __restrict__ tgt, float* __restrict__ suml, int64_t N) {
+  const int64_t n = (int64_t)blockIdx.x * 8 + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (n >= N) return;   // the whole warp
+  const float4* row = part + n * tiles_v;
+  float m = NEG_INF, l = 0.f, tg = 0.f, sum = 0.f;
+  auto merge = [&](float mo, float lo) {
+    const float mn = fmaxf(m, mo);
+    l = l * exp2f((m - mn) * LOG2E) + lo * exp2f((mo - mn) * LOG2E);
+    m = mn;
+  };
+  for (int i = lane; i < tiles_v; i += 32) {
+    const float4 p = row[i];
+    merge(p.x, p.y);
+    tg += p.z;
+    sum += p.w;
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off /= 2) {
+    const float mo = __shfl_xor_sync(0xffffffffu, m, off);
+    const float lo = __shfl_xor_sync(0xffffffffu, l, off);
+    merge(mo, lo);
+    tg += __shfl_xor_sync(0xffffffffu, tg, off);
+    sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  }
+  if (lane == 0) {
+    lse[n] = m + logf(l);
+    tgt[n] = tg;
+    suml[n] = sum;
+  }
+}
+
+// -- the bf16 backward's three epilogues --------------------------------------------
 
 // (a) dl = f(x . W_c^T) in bf16 into the scratch (N, ld), columns of the chunk
 // starting at vocabulary row v0; zero past V.
@@ -599,22 +665,44 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
                               (int)bytes);
 }
 
-template <typename T>
-cudaError_t launch_fwd(const void* x, const void* w, const int32_t* targets,
-                       float* lse, float* tgt, float* suml, int64_t N,
-                       int64_t E, int64_t V, cudaStream_t stream) {
-  const int kc = (int)min64(Cfg<T>::F_KC, round16(E));
-  const int ld = kc + Cfg<T>::PAD;
-  const size_t w_bytes = (size_t)F_COLS * ld * sizeof(T);
+cudaError_t launch_fwd_fma(const float* x, const float* w, const int32_t* targets, float* lse,
+                           float* tgt, float* suml, int64_t N, int64_t E, int64_t V,
+                           cudaStream_t stream) {
+  const int kc = (int)min64(Cfg<float>::F_KC, round16(E));
+  const int ld = kc + Cfg<float>::PAD;
+  const size_t w_bytes = (size_t)F_COLS * ld * sizeof(float);
   const size_t s_bytes = (size_t)F_ROWS * (F_COLS + 4) * sizeof(float);
-  const size_t bytes = (size_t)F_ROWS * ld * sizeof(T) +
+  const size_t bytes = (size_t)F_ROWS * ld * sizeof(float) +
                        (w_bytes > s_bytes ? w_bytes : s_bytes);
-  cudaError_t err = allow_smem(fwd_kernel<T>, bytes);
+  cudaError_t err = allow_smem(fwd_fma_kernel<float>, bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((unsigned)((N + F_ROWS - 1) / F_ROWS));
-  fwd_kernel<T><<<grid, THREADS, bytes, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), targets, lse, tgt,
-      suml, N, E, V, vectorizable<T>(x, w, E));
+  fwd_fma_kernel<float><<<grid, THREADS, bytes, stream>>>(x, w, targets, lse, tgt, suml, N, E, V,
+                                                          vectorizable<float>(x, w, E));
+  return cudaGetLastError();
+}
+
+// The bf16 forward: the partials of every logits tile into `part` (N x
+// ceil(V / 256) float4), then their merge, both on `stream`.
+cudaError_t launch_fwd_wgmma(const void* x, const void* w, const int32_t* targets, float* lse,
+                             float* tgt, float* suml, void* part, int64_t N, int64_t E,
+                             int64_t V, cudaStream_t stream) {
+  using namespace wgmma_gemm;
+  if (E % 8 || !part ||
+      ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) |
+        reinterpret_cast<uintptr_t>(part)) % 16))
+    return cudaErrorInvalidValue;
+  CUtensorMap x_k, w_k;
+  if (!operand_map(&x_k, x, N, E, E, false, BM) || !operand_map(&w_k, w, V, E, E, false, BN))
+    return cudaErrorInvalidValue;
+  const int tiles_v = (int)((V + BN - 1) / BN);
+  auto* p = static_cast<float4*>(part);
+  // the row tiles of one vocabulary column first (M_FAST): W from device
+  // memory once, x from L2
+  cudaError_t err = gemm<false, false, true>(x_k, w_k, Coords{0, 0}, N, V, E,
+                                             FwdEpilogue{targets, p, N, V, tiles_v}, stream);
+  if (err != cudaSuccess) return err;
+  fwd_combine_kernel<<<(unsigned)((N + 7) / 8), 256, 0, stream>>>(p, tiles_v, lse, tgt, suml, N);
   return cudaGetLastError();
 }
 
@@ -693,18 +781,22 @@ using namespace fused_ce;
 extern "C" {
 
 // dtype: 0 = bfloat16, 1 = float32 (x and w). targets int32 (N,); lse, tgt,
-// suml f32 (N,). Returns cudaGetLastError() after the launch (0 on success),
-// or cudaErrorInvalidValue for arguments the kernels do not take.
+// suml f32 (N,). bfloat16 takes the wgmma kernel and its merge: E a multiple
+// of 8, x, w and part 16-byte aligned, part a scratch of N x ceil(V / 256)
+// float4 partials. float32 takes the FMA kernel (no scratch). Returns
+// cudaGetLastError() after the launches (0 on success), or
+// cudaErrorInvalidValue for arguments the kernels do not take.
 int fused_ce_fwd(const void* x, const void* w, const int32_t* targets,
-                 float* lse, float* tgt, float* suml, int64_t N, int64_t E,
-                 int64_t V, int dtype, void* stream) {
+                 float* lse, float* tgt, float* suml, void* part, int64_t N,
+                 int64_t E, int64_t V, int dtype, void* stream) {
   if (bad_sizes(N, E, V) || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   if (N == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)launch_fwd<__nv_bfloat16>(x, w, targets, lse, tgt, suml, N, E, V, s);
-  return (int)launch_fwd<float>(x, w, targets, lse, tgt, suml, N, E, V, s);
+    return (int)launch_fwd_wgmma(x, w, targets, lse, tgt, suml, part, N, E, V, s);
+  return (int)launch_fwd_fma(static_cast<const float*>(x), static_cast<const float*>(w), targets,
+                             lse, tgt, suml, N, E, V, s);
 }
 
 // The backward of one call: dx (N, E) in x's type and dw (V, E) in f32, every

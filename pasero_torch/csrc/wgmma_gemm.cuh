@@ -1,7 +1,8 @@
 // A bf16 GEMM mainloop for Hopper (sm_90a): C (BM x BN, fp32, registers) =
 // A (M x K) . B (N x K)^T over K, with TMA copies into a ring of shared-memory
 // stages and wgmma products, for a caller's epilogue to consume. Used by
-// fused_ce.cu, whose three backward products are three epilogues of it.
+// fused_ce.cu: its forward is one epilogue of it (the logsumexp partials of
+// each 128 x 256 logits tile), its three backward products three others.
 //
 // Shape: a persistent grid of at most one block per SM, each block of 384
 // threads walking 128 x 256 output tiles. Warpgroup 0 is the producer: one
@@ -229,10 +230,18 @@ struct NoRows {};
 
 // The (tiles_m x tiles_n) output tiles of A . B^T, k_tiles k-tiles of BK
 // each, walked by a persistent grid: block b takes tiles b, b + gridDim.x, ...
-// (n fastest), so the producer copies the next tile's first k-tiles while the
-// consumers run the epilogue of this one. Each consumer thread reads its
-// rows' values for the epilogue (epi.rows) before the tile's products.
-template <bool A_MN, bool B_MN, class Epilogue>
+// (n fastest, or m fastest with M_FAST), so the producer copies the next
+// tile's first k-tiles while the consumers run the epilogue of this one. Each
+// consumer thread reads its rows' values for the epilogue (epi.rows) before
+// the tile's products.
+template <bool M_FAST>
+__device__ __forceinline__ void tile_origin(int tile, int tiles_m, int tiles_n, int& m0,
+                                            int& n0) {
+  m0 = (M_FAST ? tile % tiles_m : tile / tiles_n) * BM;
+  n0 = (M_FAST ? tile / tiles_m : tile % tiles_n) * BN;
+}
+
+template <bool A_MN, bool B_MN, class Epilogue, bool M_FAST = false>
 __global__ void __launch_bounds__(THREADS, 1)
     gemm_kernel(const __grid_constant__ CUtensorMap map_a,
                 const __grid_constant__ CUtensorMap map_b, Coords at, int tiles_m,
@@ -261,7 +270,8 @@ __global__ void __launch_bounds__(THREADS, 1)
     if (threadIdx.x == 0) {
       int it = 0;
       for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-        const int m0 = tile / tiles_n * BM, n0 = tile % tiles_n * BN;
+        int m0, n0;
+        tile_origin<M_FAST>(tile, tiles_m, tiles_n, m0, n0);
         for (int kt = 0; kt < k_tiles; ++kt, ++it) {
           const int s = it % STAGES;
           mbar_wait(empty + 8 * s, ((it / STAGES) & 1) ^ 1);
@@ -278,8 +288,10 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int g = wg - 1, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
     int it = 0;
     for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-      const int r0 = tile / tiles_n * BM + 64 * g + 16 * warp + lane / 4;
-      const int c0 = tile % tiles_n * BN + 2 * (lane % 4);
+      int m0, n0;
+      tile_origin<M_FAST>(tile, tiles_m, tiles_n, m0, n0);
+      const int r0 = m0 + 64 * g + 16 * warp + lane / 4;
+      const int c0 = n0 + 2 * (lane % 4);
       const auto rows = epi.rows(r0);
       float d[ACC];
 #pragma unroll
@@ -353,11 +365,11 @@ inline bool operand_map(CUtensorMap* map, const void* ptr, int64_t rows, int64_t
 }
 
 // Launches the (ceil(m / BM) x ceil(n / BN)) tiles of an m x n output on at
-// most one block per SM.
-template <bool A_MN, bool B_MN, class Epilogue>
+// most one block per SM; M_FAST walks the m tiles of one n column first.
+template <bool A_MN, bool B_MN, bool M_FAST = false, class Epilogue>
 cudaError_t gemm(const CUtensorMap& map_a, const CUtensorMap& map_b, Coords at,
                  int64_t m, int64_t n, int64_t k, const Epilogue& epi, cudaStream_t stream) {
-  auto kernel = gemm_kernel<A_MN, B_MN, Epilogue>;
+  auto kernel = gemm_kernel<A_MN, B_MN, Epilogue, M_FAST>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)SMEM_BYTES);
   int device = 0, sms = 0;

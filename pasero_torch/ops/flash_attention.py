@@ -13,9 +13,9 @@ streamed ``_fwd_stream`` :544, ``_bwd_stream`` :738 and ``_compute_demb``
 backward. On CUDA tensors its forward launches ``flash_fwd`` and its
 backward ``flash_bwd_dq`` then ``flash_bwd_dkv`` (and ``flash_bwd_dbias``
 for the bias's gradient, ``flash_bwd_demb`` for the T5 table's): the
-kernels of ``csrc/flash_attention.cu``, except the bias-free dq and dk/dv,
-which are the wgmma kernels of ``csrc/flash_bwd.cu``; each wrapper counts its
-launches,
+kernels of ``csrc/flash_attention.cu``, except the bias-free forward, dq and
+dk/dv, which are the wgmma kernels of ``csrc/flash_bwd.cu``; each wrapper
+counts its launches,
 those of a biased or a T5 kernel apart (``launch_counts`` names them
 ``flash_fwd_bias``, ``flash_fwd_t5`` and so on). CPU tensors take
 ``flash_fwd_plain``, ``flash_bwd_plain``, ``flash_dbias_plain`` and
@@ -262,14 +262,16 @@ def _library():
 
 
 def _bwd_library():
-    """``csrc/flash_bwd.cu``: the bias-free dq and dk/dv kernels."""
+    """``csrc/flash_bwd.cu``: the bias-free forward, dq and dk/dv kernels."""
     lib = cuda_build.load("flash_bwd")
     if lib.bwd_dq.argtypes is None:
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         dims = [i32] * 6 + [f32, i32, i32, ptr]   # B H Hkv Sq Sk D, scale ...
+        lib.fwd.argtypes = [ptr] * 6 + dims
         lib.bwd_dq.argtypes = [ptr] * 9 + dims
         lib.bwd_dkv.argtypes = [ptr] * 9 + dims
-        lib.bwd_dq.restype = lib.bwd_dkv.restype = ctypes.c_int
+        lib.fwd.restype = lib.bwd_dq.restype = lib.bwd_dkv.restype = \
+            ctypes.c_int
         lib.flash_error_string.argtypes = [ctypes.c_int]
         lib.flash_error_string.restype = ctypes.c_char_p
     return lib
@@ -376,14 +378,19 @@ def flash_fwd(q, k, v, kv_mask, scale: float, causal: bool,
     """(out (B, H, Sq, D) bfloat16, lse (B, H, Sq) float32) from one launch
     of the forward kernel, biased when a float32 ``bias`` (b0, h0, Sq, Sk)
     is given (counted in ``bias_launches``), with the T5 table when it is a
-    T5Bias (``t5_launches``), else bias-free (``launches``)."""
+    T5Bias (``t5_launches``), else bias-free (``launches``): the wgmma
+    kernel of csrc/flash_bwd.cu."""
     q, k, v, mask, dims = _cuda_args(q, k, v, kv_mask, window)
     bias_ops = _bias_args(bias, q, dims)
     out = torch.empty_like(q)
     lse = torch.empty(dims[:2] + dims[3:4], dtype=torch.float32,
                       device=q.device)
-    _launch("flash_fwd", q.device, q, k, v, mask, *bias_ops, out, lse,
-            *_scalars(dims, scale, causal, window))
+    if bias is None:
+        _launch("fwd", q.device, q, k, v, mask, out, lse,
+                *_scalars(dims, scale, causal, window), lib=_bwd_library())
+    else:
+        _launch("flash_fwd", q.device, q, k, v, mask, *bias_ops, out, lse,
+                *_scalars(dims, scale, causal, window))
     _count(flash_fwd, bias)
     return out, lse
 

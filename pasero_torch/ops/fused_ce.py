@@ -4,12 +4,15 @@ without materialized logits.
 Port of pasero_tpu/ops/fused_ce.py. The training half: ``fused_cross_entropy``
 (a ``jax.custom_vjp`` over the Pallas ``_fwd``, ``_bwd_matmuls`` and
 ``_bwd_split`` there) is a ``torch.autograd.Function``: on CUDA tensors its
-forward launches ``fused_ce_fwd`` and its backward ``fused_ce_bwd`` (three
-wgmma products per vocabulary chunk, ``csrc/fused_ce.cu``); CPU tensors take
-``fused_cross_entropy_plain``, and ``fused_ce_bwd_plain`` is the backward's
-own plain version. The decoding half: ``fused_head_argmax``
-(the Pallas ``fused_head_argmax`` and ``_fused_head_argmax_q8``) launches the
-kernels of ``csrc/fused_head.cu`` on CUDA tensors, counted in
+forward launches ``fused_ce_fwd`` (in bf16 a wgmma product whose epilogue
+writes per-tile logsumexp partials, then their merge) and its backward
+``fused_ce_bwd`` (three wgmma products per vocabulary chunk,
+``csrc/fused_ce.cu``); CPU tensors take ``fused_cross_entropy_plain``, and
+``fused_ce_fwd_plain`` and ``fused_ce_bwd_plain`` are the two wrappers' own
+plain versions, in the kernels' order of operations. The decoding half:
+``fused_head_argmax`` (the Pallas ``fused_head_argmax`` and
+``_fused_head_argmax_q8``) launches the kernels of ``csrc/fused_head.cu``
+on CUDA tensors, counted in
 ``fused_head_argmax.launches`` (a bfloat16 head) and
 ``fused_head_argmax_q8.launches`` (an int8 QTensor head); CPU tensors take
 ``fused_head_argmax_plain``. A CUDA tensor never takes a plain version: the
@@ -30,9 +33,14 @@ import torch
 from . import cuda_build
 from .quantize import QTensor
 
+NEG_INF = -1e30
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 # vocabulary rows per chunk of the backward: its bf16 scratch holds N x CHUNK
 CHUNK = 8192
+# vocabulary columns per partial of the bf16 forward (its wgmma tile's width)
+FWD_TILE = 256
+# lanes of a warp of the forward's merge, each taking every 32nd partial
+MERGE_LANES = 32
 
 
 def bwd_chunk(vocab: int) -> int:
@@ -90,7 +98,7 @@ def _library():
     lib = cuda_build.load("fused_ce")
     if lib.fused_ce_fwd.argtypes is None:
         ptr, i64 = ctypes.c_void_p, ctypes.c_int64
-        lib.fused_ce_fwd.argtypes = [ptr] * 6 + [i64] * 3 + [ctypes.c_int, ptr]
+        lib.fused_ce_fwd.argtypes = [ptr] * 7 + [i64] * 3 + [ctypes.c_int, ptr]
         lib.fused_ce_bwd.argtypes = [ptr] * 11 + [i64] * 4 + [ctypes.c_int, ptr]
         for fn in (lib.fused_ce_fwd, lib.fused_ce_bwd):
             fn.restype = ctypes.c_int
@@ -114,21 +122,83 @@ def _cuda_inputs(x, w, targets):
     return x.contiguous(), w.contiguous(), targets.to(torch.int32).contiguous()
 
 
+def _operands(x, w):
+    """x and w contiguous and 16-byte aligned for the kernels, in bf16 with
+    E padded by zero columns to a multiple of 8 (16-byte rows for TMA)."""
+    pad = (-x.shape[1]) % 8 if x.dtype == torch.bfloat16 else 0
+    if pad:
+        x = torch.nn.functional.pad(x, (0, pad))
+        w = torch.nn.functional.pad(w, (0, pad))
+    return cuda_build.aligned(x), cuda_build.aligned(w)
+
+
+def _merge(m, l, mo, lo):
+    mn = torch.maximum(m, mo)
+    return mn, l * torch.exp(m - mn) + lo * torch.exp(mo - mn)
+
+
+def fused_ce_fwd_plain(x, w, targets, tile: int = FWD_TILE):
+    """``fused_ce_fwd`` in plain PyTorch with the bf16 kernels' order:
+    float32 logits of operands in x's type; per ``tile`` vocabulary columns a
+    partial (max, sum of exp(logit - max), target logit, logits sum); each
+    row's partials merged as the merge kernel does, lane i of MERGE_LANES
+    taking partials i, i + MERGE_LANES, ... in order, then the lanes meeting
+    in a butterfly. Returns (lse, target logit, logits sum), float32."""
+    N, V = x.shape[0], w.shape[0]
+    logits = torch.matmul(x.float(), w.to(x.dtype).float().t())
+    rounds = -(-V // (tile * MERGE_LANES))
+    cols = rounds * MERGE_LANES * tile
+    pad = torch.nn.functional.pad
+    # (N, rounds, lanes, tile): partial r * lanes + i is lane i's r-th
+    s = pad(logits, (0, cols - V), value=float("-inf")).view(
+        N, rounds, MERGE_LANES, tile)
+    z = pad(logits, (0, cols - V)).view(N, rounds, MERGE_LANES, tile)
+    hit = targets.long()[:, None] == torch.arange(cols, device=x.device)
+    pm = s.amax(-1).clamp_min(NEG_INF)   # an empty partial: max -1e30, sum 0
+    pl = torch.exp(s - pm[..., None]).sum(-1)
+    pt = (z * hit.view(z.shape)).sum(-1)
+    ps = z.sum(-1)
+    m = torch.full((N, MERGE_LANES), NEG_INF, device=x.device)
+    l, t, sm = torch.zeros_like(m), torch.zeros_like(m), torch.zeros_like(m)
+    for r in range(rounds):
+        m, l = _merge(m, l, pm[:, r], pl[:, r])
+        t = t + pt[:, r]
+        sm = sm + ps[:, r]
+    lane = torch.arange(MERGE_LANES, device=x.device)
+    off = MERGE_LANES // 2
+    while off:
+        other = lane ^ off
+        m, l = _merge(m, l, m[:, other], l[:, other])
+        t = t + t[:, other]
+        sm = sm + sm[:, other]
+        off //= 2
+    return m[:, 0] + torch.log(l[:, 0]), t[:, 0], sm[:, 0]
+
+
 def fused_ce_fwd(x, w, targets):
     """Per-row (lse, target logit, logits sum) of ``x @ w.T`` in float32,
-    from one launch of the forward kernel. x (N, E) and w (V, E) of one type
-    (bfloat16 or float32) on the card; targets (N,) int."""
+    from one call of the forward (one count in ``fused_ce_fwd.launches``).
+    x (N, E) and w (V, E) of one type on the card; targets (N,) int.
+    bfloat16 takes the wgmma kernel, whose epilogue writes a partial per row
+    and 256-column vocabulary tile into an (N, ceil(V / 256), 4) float32
+    scratch, and the kernel that merges them; float32 the FMA kernel."""
     x, w, t = _cuda_inputs(x, w, targets)
+    x, w = _operands(x, w)
     N, E = x.shape
     V = w.shape[0]
     out = torch.empty((3, N), dtype=torch.float32, device=x.device)
+    part = None
+    if x.dtype == torch.bfloat16:
+        part = torch.empty((N, -(-V // FWD_TILE), 4), dtype=torch.float32,
+                           device=x.device)
     lib = _library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = lib.fused_ce_fwd(
             x.data_ptr(), w.data_ptr(), t.data_ptr(), out[0].data_ptr(),
-            out[1].data_ptr(), out[2].data_ptr(), N, E, V, _DTYPES[x.dtype],
-            stream)
+            out[1].data_ptr(), out[2].data_ptr(),
+            part.data_ptr() if part is not None else None, N, E, V,
+            _DTYPES[x.dtype], stream)
     _raise_on(lib, status, "fused_ce_fwd")
     fused_ce_fwd.launches += 1
     return out[0], out[1], out[2]
@@ -178,15 +248,12 @@ def fused_ce_bwd(x, w, targets, lse, c1, c2, c3):
     padded with zero columns for the kernels' 16-byte rows. float32 takes
     the FMA kernels."""
     x, w, t = _cuda_inputs(x, w, targets)
-    N, E = x.shape
+    E = x.shape[1]
+    x, w = _operands(x, w)
+    N, Ep = x.shape
+    pad = Ep - E
     V = w.shape[0]
     vecs = [v.float().contiguous() for v in (lse, c1, c2, c3)]
-    pad = (-E) % 8 if x.dtype == torch.bfloat16 else 0
-    if pad:
-        x = torch.nn.functional.pad(x, (0, pad))
-        w = torch.nn.functional.pad(w, (0, pad))
-    x, w = cuda_build.aligned(x), cuda_build.aligned(w)
-    Ep = E + pad
     chunk = bwd_chunk(V)
     dx = torch.empty((N, Ep), dtype=x.dtype, device=x.device)
     # every element of dW is written when there are rows to reduce over

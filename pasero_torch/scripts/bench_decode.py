@@ -525,7 +525,7 @@ def trace_profile(fn, path: str, kernel_names: tuple = ()) -> dict:
 
 # the port's kernels by a part of their names in a trace
 KERNELS = {"slot_write": "slot_write_kernel",
-           "flash_fwd": "flash::fwd_kernel",
+           "flash_fwd": "::fwd_kernel",   # flash:: biased, flash_bwd:: not
            "int8_matmul": "int8_matmul_kernel",
            "fused_head_partials": "partials_kernel",
            "fused_head_combine": "combine_kernel",

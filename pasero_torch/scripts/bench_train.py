@@ -78,12 +78,17 @@ SHAPES = {"transformer": ("transformer", "translation", 0.1, 128, 128, 128,
                            3000, 128, 51865)}
 # workloads whose attention kernel is set, not left to ``auto``
 ATTENTION = {"bloom_560m": "flash", "t5_base": "flash"}
-# the fused-CE backward's three products by their epilogues
-KERNELS = ("fused_ce::fwd_kernel", "fused_ce::DlogitsEpilogue",
-           "fused_ce::DwEpilogue", "fused_ce::DxEpilogue", "flash::fwd_kernel",
+# the port's kernels by a part of their names in a trace: the fused-CE
+# forward's product and merge and the backward's three products by their
+# epilogues, the biased and T5 flash kernels (flash::) and the bias-free
+# ones (flash_bwd::)
+KERNELS = ("fused_ce::FwdEpilogue", "fused_ce::fwd_combine_kernel",
+           "fused_ce::DlogitsEpilogue", "fused_ce::DwEpilogue",
+           "fused_ce::DxEpilogue", "flash::fwd_kernel",
            "flash::bwd_dq_kernel", "flash::bwd_dkv_kernel",
            "flash::dbias_kernel", "flash::demb_kernel",
-           "flash_bwd::dq_kernel", "flash_bwd::dkv_kernel")
+           "flash_bwd::fwd_kernel", "flash_bwd::dq_kernel",
+           "flash_bwd::dkv_kernel")
 
 
 class Workload:

@@ -176,6 +176,71 @@ def test_fused_ce_kernels_match_plain(shape, dtype, ls):
             assert fused_ce_grad_excess(part, grads[1][0], limits[0]) > 1.0
 
 
+# The bf16 forward's per-row statistics against float32 logits of the same
+# operands (they differ by summation order only): lse and the target logit
+# within STAT_ATOL, the logits sum within STAT_SUM_RTOL of the row's |sum|,
+# as chip_smoke.py phase 4 holds them.
+STAT_ATOL = 1e-4
+STAT_SUM_RTOL = 1e-6
+
+
+def fused_ce_stat_errors(stats, logits, t):
+    """(lse, target logit, logits sum) errors of ``stats`` against float32
+    ``logits``: the first two absolute, the sum relative to the row's
+    |sum|."""
+    lse, tgt, suml = stats
+    return ((lse - torch.logsumexp(logits, -1)).abs().max().item(),
+            (tgt - logits.gather(-1, t.long()[:, None])[:, 0]).abs().max().item(),
+            ((suml - logits.sum(-1)).abs() / logits.abs().sum(-1)).max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (130, 48, 3 * 256 + 37),   # several 256-column tiles, a ragged last one
+    (50, 64, 1000),            # N below one 128-row tile
+    (64, 36, 100)])            # E padded to 40, V below one tile
+def test_fused_ce_fwd_matches_plain(shape):
+    """The bf16 forward (its wgmma product's partials and their merge, one
+    count in ``fused_ce_fwd.launches``) against float32 logits of the same
+    operands and against ``fused_ce_fwd_plain``, its own plain version in
+    the kernels' order, each within STAT_ATOL / STAT_SUM_RTOL; a forward
+    whose targets are rolled by one row lies outside them."""
+    from pasero_torch.ops.fused_ce import fused_ce_fwd, fused_ce_fwd_plain
+    _need_card()
+    N, E, V = shape
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = (torch.randn(N, E, generator=gen, device="cuda")
+         * (0.5 + 1.5 * torch.rand(N, 1, generator=gen, device="cuda"))).bfloat16()
+    w = (torch.randn(V, E, generator=gen, device="cuda") * E ** -0.5).bfloat16()
+    t = torch.randint(0, V, (N,), generator=gen, device="cuda")
+    before = fused_ce_fwd.launches
+    got = fused_ce_fwd(x, w, t)
+    torch.cuda.synchronize()
+    assert fused_ce_fwd.launches == before + 1
+    logits = torch.matmul(x.float(), w.float().t())
+    for stats in (got, fused_ce_fwd_plain(x, w, t)):
+        lse_err, tgt_err, sum_err = fused_ce_stat_errors(stats, logits, t)
+        assert lse_err <= STAT_ATOL and tgt_err <= STAT_ATOL, (lse_err, tgt_err)
+        assert sum_err <= STAT_SUM_RTOL, sum_err
+    rolled = fused_ce_fwd(x, w, t.roll(1))
+    assert fused_ce_stat_errors(rolled, logits, t)[1] > STAT_ATOL
+
+
+@pytest.mark.cuda
+def test_fused_ce_fwd_same_bits():
+    """Two forward calls give the same bits: each (row, 256-column tile)
+    writes one partial, merged in a fixed order, with no atomics."""
+    from pasero_torch.ops.fused_ce import fused_ce_fwd
+    _need_card()
+    N, E, V = 1000, 512, 3 * 8192 + 1000
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randn(N, E, generator=gen, device="cuda").bfloat16()
+    w = (torch.randn(V, E, generator=gen, device="cuda") * E ** -0.5).bfloat16()
+    t = torch.randint(0, V, (N,), generator=gen, device="cuda")
+    first, second = fused_ce_fwd(x, w, t), fused_ce_fwd(x, w, t)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,dtype", [
     ((130, 48, 515), torch.bfloat16),
@@ -273,6 +338,7 @@ FLASH_SHAPES = [   # (B, H, Hkv, S or (Sq, Sk), D), causal, window, padded
     ((1, 6, 3, 77, 64), False, None, True),   # unaligned S, not causal
     ((3, 4, 2, 45, 32), True, None, True),    # the mini LM's head dim
     ((4, 12, 12, (128, 512), 64), False, None, True),   # cross-attention
+    ((2, 4, 2, (96, 300), 32), False, None, True),      # and at D = 32
 ]
 
 

@@ -27,7 +27,8 @@ from pasero_tpu.ops.fused_ce import _bwd_matmuls, _fwd
 from pasero_tpu.ops.fused_ce import fused_cross_entropy as jax_fused
 from pasero_torch.models.transformer import chunked_cross_entropy
 from pasero_torch.ops.fused_ce import (fused_ce_bwd, fused_ce_bwd_plain,
-                                       fused_ce_fwd, fused_cross_entropy)
+                                       fused_ce_fwd, fused_ce_fwd_plain,
+                                       fused_cross_entropy)
 
 
 def inputs(N, E, V, seed, x_scale=1.0, w_scale=0.05):
@@ -94,6 +95,27 @@ def test_fused_ce_bf16_matches_jax():
     assert float(p[2]) == float(j[2]) == 256
     for a, b in ((p[3], j[3]), (p[4], j[4])):
         assert np.abs(a - b).max() <= 2e-2 * np.abs(b).max()
+
+
+def test_fused_ce_fwd_plain_matches_jax():
+    """fused_ce_fwd_plain (the bf16 kernels' order: a partial per row and
+    vocabulary tile, merged lane-strided over 32 lanes, then in a butterfly)
+    against JAX's forward kernel (interpret mode) on the same float32
+    inputs, at the kernels' 256-column tiles (5 partials a row, the last
+    ragged) and at 8-column tiles (138 partials: several per lane): lse and
+    the target logit within 1e-5, the logits sum within 1e-6 of its row's
+    |sum|."""
+    x, w, t, _ = inputs(64, 32, 1100, seed=5)
+    want = [np.asarray(a) for a in _fwd(jnp.asarray(x), jnp.asarray(w),
+                                        jnp.asarray(t))]
+    xt, wt = torch.from_numpy(x), torch.from_numpy(np.ascontiguousarray(w.T))
+    abs_sum = np.abs(x @ w).sum(-1)
+    for tile in (256, 8):
+        got = [a.numpy() for a in fused_ce_fwd_plain(xt, wt, torch.from_numpy(t),
+                                                     tile)]
+        np.testing.assert_allclose(got[0], want[0], rtol=0, atol=1e-5)
+        np.testing.assert_allclose(got[1], want[1], rtol=0, atol=1e-5)
+        assert (np.abs(got[2] - want[2]) <= 1e-6 * abs_sum).all()
 
 
 # (shape, plain chunk, x scale, w scale, dW's rtol): JAX's fused backward
