@@ -121,11 +121,15 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    (1, 1) biases, the encoder's half-head ALiBi with its rows of only -1e9,
    and 16500 keys at head dim 128; a transposed bias, a bias row of another
    head, dbias without delta, dbias with dS rounded to bf16 and a backward
-   given another row's lse rejected; at bloom_560m's shape each kernel's device time (CUDA graph)
-   beside the plain version's, its bound (operations or bytes) and the
+   given another row's lse rejected, dq, dk and dv the same bits from two
+   calls; at bloom_560m's shape each kernel's device time (CUDA graph)
+   beside the plain version's, its bound (operations or bytes), the
    library yardstick (F.scaled_dot_product_attention with the bias as a
    float attn_mask, its backward, with the mask's gradient; from CUDA
-   graphs, eager beside); a learned bias
+   graphs, eager beside), the bias-free dq and dk/dv at the same shape and
+   the times of the biased dq and dk/dv that flash_bwd.cu's replaced
+   (BIAS_BWD_EARLIER_MS; the backward at most its library call), and the
+   biased and bias-free dq and dk/dv at 16500 keys; a learned bias
    through flash_attention's autograd launching dbias once (the kernels
    line's ``learned_bias_launches``: the main path, phase 17, launches it
    0 times);
@@ -147,13 +151,17 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    shapes, GQA 4 with a window at head dim 128, an unaligned length and
    32768 keys; the direction flipped, another head's column, the distances
    shifted by one, demb without delta, demb of dS rounded to bf16 and a
-   backward given another row's lse rejected; at t5_base's encoder shape
-   and at (1, 12, 32768, 64) each kernel's device time (CUDA graph) beside
-   the plain version's, its bound and the library yardstick (SDPA with the
-   materialized bias as a float attn_mask; for demb its mask's gradient
-   and index_add_ by bucket; from CUDA graphs, eager beside), "does not
-   fit" where an (Sq, Sk) tensor does not, and the peak memory of forward
-   + backward; the bias-free kernels at JAX's streamed lengths, (1, 32,
+   backward given another row's lse rejected, dq, dk and dv the same bits
+   from two calls; at t5_base's encoder shape and at (1, 12, 32768, 64)
+   each kernel's device time (CUDA graph) beside the plain version's, its
+   bound, the library yardstick (SDPA with the materialized bias as a
+   float attn_mask; for demb its mask's gradient and index_add_ by bucket;
+   from CUDA graphs, eager beside), "does not fit" where an (Sq, Sk)
+   tensor does not, the bias-free dq and dk/dv at the same shape and the
+   times of the T5 dq and dk/dv that flash_bwd.cu's replaced
+   (T5_BWD_EARLIER_MS; the backward at most its library call at the
+   encoder's shape and at most those times at 32768 keys), and the peak
+   memory of forward + backward; the bias-free kernels at JAX's streamed lengths, (1, 32,
    32768, 128) causal: one head against the plain version, the same bits
    from two backward calls, their device times (the forward at most
    LONG_FWD_MAX_MS, the backward at most LONG_BWD_MAX_MS: the times of the
@@ -1819,6 +1827,10 @@ FLASH_BIAS_SHAPES = [   # (B, H, Hkv, S, D), causal, window, padded, bias kind
     ((2, 16, 16, 500, 64), False, None, True, "encoder"),   # rows of -1e9
     ((1, 2, 2, 16500, 128), True, None, False, "alibi16"),  # past 16384 keys
 ]
+# device ms per call of the biased dq and dk/dv kernels that flash_bwd.cu's
+# replaced (flash_attention.cu's mma.sync kernels) at bloom_560m's shape
+# (PERF.md, "NVIDIA H100 80GB HBM3, 700.00 W")
+BIAS_BWD_EARLIER_MS = {"dq": 0.7245, "dkv": 0.7445}
 
 
 def flash_bias_check(case, cuda_tests) -> dict:
@@ -1835,12 +1847,14 @@ def flash_bias_check(case, cuda_tests) -> dict:
           f"{kind}: out, dq, dk, dv, dbias at {r['excess']} of their limits")
     check(min(r["mutants"].values()) > 1.0, f"the biased flash check at "
           f"{shape} {kind} passes a mutation: {r['mutants']}")
+    check(r["same_bits"], f"two biased backward calls at {shape} {kind} "
+          "gave other bits")
     errs = r["max_abs_err"]
     log(f"phase 16: biased flash kernels == plain at {shape} causal {causal} "
         f"window {window} padded {padded} bias {kind}: out, dq, dk, dv, "
         f"dbias at {', '.join(f'{e:.3f}' for e in r['excess'])} of their "
         f"limits; mutations at {json.dumps({k: round(v, 1) for k, v in r['mutants'].items()})} "
-        f"of them; max abs err lse {r['lse_err']:.3e} out {errs['fwd']:.3e} "
+        f"of them; dq, dk, dv the same bits twice; max abs err lse {r['lse_err']:.3e} out {errs['fwd']:.3e} "
         f"dq {errs['dq']:.3e} dk/dv {errs['dkv']:.3e} dbias "
         f"{errs['dbias']:.3e}")
     torch.cuda.empty_cache()
@@ -1862,6 +1876,7 @@ def flash_bias_timing(cuda_tests) -> dict:
                                                   flash_bwd_plain,
                                                   flash_dbias_plain, flash_fwd,
                                                   flash_fwd_plain, visible)
+    from pasero_torch.scripts.bench_flash_bwd import time_case
     (B, H, Hkv, S, D), causal, window, padded, kind = FLASH_BIAS_SHAPES[0]
     q, k, v, do, mask = cuda_tests.flash_inputs(B, H, Hkv, S, D, padded)
     bias = cuda_tests.flash_bias(kind, B, H, S, mask)
@@ -1929,6 +1944,7 @@ def flash_bias_timing(cuda_tests) -> dict:
         res[key]["library_ms"] = res["bwd"]["library_ms"]
         res[key]["library_host_ms"] = res["bwd"]["library_host_ms"]
     del lib_mask
+    res["bias_free"] = time_case((B, H, Hkv, S, D), causal, None)["none"]
     for key in ("fwd", "dq", "dkv", "bwd", "dbias"):
         r = res[key]
         log(f"phase 16: at {(B, H, Hkv, S, D)} bf16 causal with a per-sample "
@@ -1937,6 +1953,15 @@ def flash_bias_timing(cuda_tests) -> dict:
             f"operations {r['ops_bound_ms']:.4f}, bytes "
             f"{r['bytes_bound_ms']:.4f}), plain {r['plain_ms']:.4f}, library "
             f"{r['library_ms']:.4f} (eager {r['library_host_ms']:.4f})")
+    log(f"phase 16: at {(B, H, Hkv, S, D)} the biased backward dq "
+        f"{res['dq']['ms']:.4f} + dk/dv {res['dkv']['ms']:.4f} ms (before "
+        f"flash_bwd.cu's design {BIAS_BWD_EARLIER_MS['dq']} + "
+        f"{BIAS_BWD_EARLIER_MS['dkv']}); the bias-free dq "
+        f"{res['bias_free']['dq']:.4f} + dk/dv {res['bias_free']['dkv']:.4f} "
+        f"at the same shape")
+    check(res["bwd"]["ms"] <= res["bwd"]["library_ms"], f"the biased "
+          f"backward takes {res['bwd']['ms']:.4f} ms at {(B, H, Hkv, S, D)}, "
+          f"more than its library call's {res['bwd']['library_ms']:.4f}")
     torch.cuda.empty_cache()
     return res
 
@@ -1948,12 +1973,20 @@ def phase16() -> dict:
     launch beside the other three."""
     import torch
     from pasero_torch.ops import flash_attention as fa
+    from pasero_torch.scripts.bench_flash_bwd import time_case
     cuda_tests = load_test_module("test_torch_cuda")
     errs = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0, "dbias": 0.0}
     for case in FLASH_BIAS_SHAPES:
         for key, err in flash_bias_check(case, cuda_tests).items():
             errs[key] = max(errs[key], err)
     res = flash_bias_timing(cuda_tests)
+    # the biased and bias-free dq and dk/dv at 16500 keys
+    shape, causal, _, _, kind = FLASH_BIAS_SHAPES[-1]
+    long = res["at_16500"] = time_case(shape, causal, kind)
+    log(f"phase 16: at {tuple(shape)} bf16 causal with ALiBi, device ms per "
+        f"call (CUDA graph): the biased dq {long[kind]['dq']:.4f} + dk/dv "
+        f"{long[kind]['dkv']:.4f}; the bias-free dq {long['none']['dq']:.4f} "
+        f"+ dk/dv {long['none']['dkv']:.4f}")
     for key in errs:
         res[key]["max_abs_err"] = errs[key]
     (B, H, Hkv, S, D), causal, *_ = FLASH_BIAS_SHAPES[0]
@@ -2156,6 +2189,11 @@ FLASH_T5_SHAPES = [  # (B, H, Hkv, S, D), causal, window, padded, bidirectional
     ((1, 1, 1, 32768, 64), False, None, False, True),   # 32768 keys
 ]
 T5_TIMED = ((32, 12, 12, 512, 64), (1, 12, 12, 32768, 64))  # bidirectional
+# device ms per call of the T5 dq and dk/dv kernels that flash_bwd.cu's
+# replaced (flash_attention.cu's mma.sync kernels) at T5_TIMED's shapes
+# (PERF.md, "NVIDIA H100 80GB HBM3, 700.00 W")
+T5_BWD_EARLIER_MS = {T5_TIMED[0]: {"dq": 0.4265, "dkv": 0.4693},
+                     T5_TIMED[1]: {"dq": 41.7062, "dkv": 55.8098}}
 LONG = (1, 32, 32, 32768, 128)   # JAX's streamed regime, bias-free, causal
 
 
@@ -2175,12 +2213,13 @@ def flash_t5_check(case, cuda_tests) -> dict:
           f"out, dq, dk, dv, demb at {r['excess']} of their limits")
     check(min(r["mutants"].values()) > 1.0, f"the T5 flash check at {where} "
           f"passes a mutation: {r['mutants']}")
+    check(r["same_bits"], f"two T5 backward calls at {where} gave other bits")
     errs = r["max_abs_err"]
     log(f"phase 18: T5 flash kernels == plain at {where}: out, dq, dk, dv, "
         f"demb at {', '.join(f'{e:.3f}' for e in r['excess'])} of their "
         f"limits; mutations at "
         f"{json.dumps({k: round(v, 1) for k, v in r['mutants'].items()})} "
-        f"of them; max abs err lse {r['lse_err']:.3e} out {errs['fwd']:.3e} "
+        f"of them; dq, dk, dv the same bits twice; max abs err lse {r['lse_err']:.3e} out {errs['fwd']:.3e} "
         f"dq {errs['dq']:.3e} dk/dv {errs['dkv']:.3e} demb "
         f"{errs['demb']:.3e}")
     torch.cuda.empty_cache()
@@ -2213,6 +2252,7 @@ def flash_t5_timing(shape, cuda_tests) -> dict:
                                                   flash_bwd_plain,
                                                   flash_demb_plain, flash_fwd,
                                                   flash_fwd_plain, visible)
+    from pasero_torch.scripts.bench_flash_bwd import time_case
     B, H, Hkv, S, D = shape
     q, k, v, do, mask = cuda_tests.flash_inputs(B, H, Hkv, S, D, False)
     t5 = T5Bias(cuda_tests.t5_table(H), True)
@@ -2295,6 +2335,18 @@ def flash_t5_timing(shape, cuda_tests) -> dict:
     for key in ("dq", "dkv"):
         res[key]["library_ms"] = res["bwd"]["library_ms"]
         res[key]["library_host_ms"] = res["bwd"]["library_host_ms"]
+    res["bias_free"] = time_case(shape, False, None)["none"]
+    earlier = T5_BWD_EARLIER_MS[tuple(shape)]
+    log(f"phase 18: at {shape} the T5 backward dq {res['dq']['ms']:.4f} + "
+        f"dk/dv {res['dkv']['ms']:.4f} ms (before flash_bwd.cu's design "
+        f"{earlier['dq']} + {earlier['dkv']}); the bias-free dq "
+        f"{res['bias_free']['dq']:.4f} + dk/dv {res['bias_free']['dkv']:.4f} "
+        f"at the same shape")
+    most = res["bwd"]["library_ms"]
+    if isinstance(most, str):   # the library call does not fit
+        most = earlier["dq"] + earlier["dkv"]
+    check(res["bwd"]["ms"] <= most, f"the T5 backward takes "
+          f"{res['bwd']['ms']:.4f} ms at {shape}, more than {most:.4f}")
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
@@ -2780,7 +2832,9 @@ def main():
     # the dbias kernel there: ALiBi's bias is a constant), of bloom_560m's
     # full-width steps and, apart, of phase 16's learned (1, H) bias, the
     # one run that launches dbias; numbers at bloom_560m's shape with its
-    # per-sample ALiBi bias
+    # per-sample ALiBi bias; dq and dk/dv are flash_bwd.cu's DENSE_BIAS
+    # instances, with the times of the kernels they replaced and of the
+    # bias-free ones at the same shape beside, and their times at 16500 keys
     for name, key, line, body in (
             ("flash_fwd_bias", "fwd", 381, 186),
             ("flash_bwd_dq_bias", "dq", 1398, 866),
@@ -2790,7 +2844,8 @@ def main():
         entry = {
             "name": name,
             "route": "cuda",
-            "source": "pasero_torch/csrc/flash_attention.cu",
+            "source": ("pasero_torch/csrc/flash_bwd.cu" if key in ("dq", "dkv")
+                       else "pasero_torch/csrc/flash_attention.cu"),
             "replaces": f"pasero_tpu/ops/flash_attention.py:{line}",
             "kernel_body": f"pasero_tpu/ops/flash_attention.py:{body}",
             "launches": alibi["cli"]["launches"][name],
@@ -2810,10 +2865,16 @@ def main():
         if key in ("dq", "dkv"):   # the backward function's numbers beside
             entry["backward"] = {k: biased["bwd"][k] for k in (
                 "ms", "bound_ms", "bound_by", "plain_ms", "library_ms")}
+            long = biased["at_16500"]
+            entry.update(bias_free_ms=biased["bias_free"][key],
+                         at_16500={"shape": long["shape"],
+                                   "ms": long[long["bias"]][key],
+                                   "bias_free_ms": long["none"][key]})
         kernels.append(entry)
     # the T5 kernels: launches of phase 19's T5 training CLI and of
     # t5_base's full-width steps; numbers at t5_base's encoder shape, then
-    # at 32768 keys
+    # at 32768 keys; dq and dk/dv are flash_bwd.cu's T5_BIAS instances, with
+    # the bias-free ones' times at the same shapes beside
     for name, key, line, body in (
             ("flash_fwd_t5", "fwd", 544, 474),
             ("flash_bwd_dq_t5", "dq", 738, 618),
@@ -2823,7 +2884,8 @@ def main():
         entry = {
             "name": name,
             "route": "cuda",
-            "source": "pasero_torch/csrc/flash_attention.cu",
+            "source": ("pasero_torch/csrc/flash_bwd.cu" if key in ("dq", "dkv")
+                       else "pasero_torch/csrc/flash_attention.cu"),
             "replaces": f"pasero_tpu/ops/flash_attention.py:{line}",
             "kernel_body": f"pasero_tpu/ops/flash_attention.py:{body}",
             "launches": t5_paths["cli"]["launches"][name],
@@ -2845,6 +2907,9 @@ def main():
         if key in ("dq", "dkv"):   # the backward function's numbers beside
             entry["backward"] = {k: t5["bwd"][k] for k in (
                 "ms", "bound_ms", "bound_by", "plain_ms", "library_ms")}
+            entry["bias_free_ms"] = t5["bias_free"][key]
+            entry["at_32768"]["bias_free_ms"] = \
+                t5["at_32768"]["bias_free"][key]
         if key == "fwd":
             entry["decode_launches"] = t5_paths["decode"]["flash_fwd_t5"]
         kernels.append(entry)

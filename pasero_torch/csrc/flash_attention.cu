@@ -1,5 +1,6 @@
-// Flash attention, forward and backward, for grouped K/V heads, without a
-// bias, with an additive float32 bias or with T5's relative-position table:
+// Flash attention for grouped K/V heads with an additive float32 bias or
+// with T5's relative-position table: the forward, and the backward's
+// gradients of the bias (dbias) and of the table (demb):
 //
 //   s[i, j]  = scale * sum_d q[b, h, i, d] * k[b, h / G, j, d]     (fp32)
 //              (+ bias[b, h, i, j], float32, in the biased kernels)
@@ -11,14 +12,16 @@
 // with G = H / Hkv query heads per K/V head. Key j is visible from row i when
 // kv_mask[b, j] is set, j <= i (causal, slot indices) and i - j < window (a
 // sliding window), as pasero_tpu/ops/flash_attention.py applies them; a row
-// with no visible key gets out = 0. The backward takes dO, out and lse:
+// with no visible key gets out = 0. The backward's parts here take dO, lse
+// and delta = sum_d dO[i, d] * out[i, d] (written by flash_bwd.cu's dq
+// kernel):
 //
-//   delta[i] = sum_d dO[i, d] * out[i, d]          (fp32 over the bf16 out)
-//   dS[i, j] = p[i, j] * (dO[i] . v[j] - delta[i])   (rounded to bf16)
-//   dq = scale * dS . k,  dk = scale * sum over the group of dS^T . q,
-//   dv = sum over the group of p^T . dO            (p rounded to bf16)
+//   dS[i, j] = p[i, j] * (dO[i] . v[j] - delta[i])
 //   dbias[i, j] = dS[i, j], unrounded fp32, 0 where key j is not visible
 //   demb[n, h]  = sum over b and the (i, j) of bucket n of dS[b, h, i, j]
+//
+// dq, dk and dv of every kind, and the bias-free forward, are flash_bwd.cu's
+// wgmma kernels.
 //
 // The bias is (b0 h0, Sq, Sk) rows with b0 in {1, B} and h0 in {1, H}; the
 // row of (b, h) is b bs + h hs (bias_row), so a shared bias is never
@@ -40,23 +43,11 @@
 // positions, as there (right-padded rows).
 //
 // Kernels and the TPU kernels they replace (KIND = DENSE_BIAS / T5_BIAS; the
-// bias-free forward and backward, NO_BIAS, are flash_bwd.cu's wgmma kernels):
+// bias-free forward, NO_BIAS, is flash_bwd.cu's wgmma kernel):
 //   fwd_kernel     _fwd_kernel (pasero_tpu/ops/flash_attention.py:186, through
 //                  _fwd, :381) / _fwd_stream_kernel (:474, through
 //                  _fwd_stream, :544); the bias-free _fwd_packed_kernel (:261,
 //                  through _fwd_packed, :342) is flash_bwd.cu's;
-//   bwd_dq_kernel  _bwd_dq_kernel (:866) / _bwd_dq_stream_kernel (:618), with
-//                  delta computed here from out and dO (JAX computes it
-//                  outside, :1409) and written for the dk/dv kernel; DENSE_BIAS
-//                  and T5_BIAS only: the bias-free backward (_bwd_dq_packed_kernel
-//                  :963, _bwd_dkv_packed_kernel :1018) is flash_bwd.cu's;
-//   bwd_dkv_kernel _bwd_dkv_kernel (:911, through _bwd, :1398) /
-//                  _bwd_dkv_stream_kernel (:676, through _bwd_stream, :738): one
-//                  block per (batch, K/V head, 64-key tile) loops over the
-//                  query tiles of every query head of its group (each with
-//                  its own bias row), so dk and dv come out at K/V-head width
-//                  with no (B, H, S, D) intermediate, no post-sum and no
-//                  atomics; DENSE_BIAS and T5_BIAS only;
 //   dbias_kernel   _dbias_kernel (:1160, through _compute_dbias, :1213): one
 //                  block per (64-row query tile, output row); a bias shared
 //                  over the batch is summed over it inside the block, batch
@@ -75,17 +66,13 @@
 //
 // The TPU kernels stream K/V past 8 MiB of VMEM (_use_streaming, :467), and
 // always for T5; these already stream 64-key tiles through shared memory, so
-// one instance takes any key length: the dense-bias modes of _fwd_stream and
-// _bwd_stream are the DENSE_BIAS instances (their bias-free modes
-// flash_bwd.cu's kernels).
+// one instance takes any key length: the dense-bias mode of _fwd_stream is
+// the DENSE_BIAS instance of fwd_kernel.
 //
 // What bounds them: operations with T5's table. One causal product at B = 4,
 // H = 32, S = 2048, D = 64 is 2 B H S^2 D / 2 = 34.4 GFLOP, 0.0347 ms at 989
-// TFLOP/s (bf16 dense). The forward does two products (QK^T, PV); the
-// backward's function needs five (QK^T and dO V^T recomputed, P^T dO, dS K,
-// dS^T Q), and the biased and T5 backwards here run seven: the dq and the
-// dk/dv kernels each recompute QK^T and dO V^T, the price of writing dq, dk
-// and dv once each with no atomics. With a per-sample bias, bytes: at B = 4,
+// TFLOP/s (bf16 dense). The forward does two products (QK^T, PV); dbias and
+// demb recompute two (QK^T, dO V^T). With a per-sample bias, bytes: at B = 4,
 // H = 16, S = 2048 its visible causal half is 537 MB (0.160 ms at 3.35 TB/s)
 // against 17.2 GFLOP of products per pass, and dbias writes 1.07 GB; the
 // bias tiles ride the K/V tiles' cp.async stages, so their reads overlap the
@@ -94,11 +81,11 @@
 // Design, kept simple and right first: 128 threads (4 warps) per block, each
 // warp owning 16 rows of a 64-row tile; bf16 operands staged in shared
 // memory with 16-byte cp.async copies (rows padded by 16 bytes, so ldmatrix
-// reads are free of bank conflicts), the next K/V (or Q/dO) tile's copies in
-// flight while the tensor cores work on this one (two stages); products on
-// the tensor cores with mma.sync m16n8k16 (bf16 in, fp32 accumulation). The
+// reads are free of bank conflicts), the next K/V tile's copies in flight
+// while the tensor cores work on this one (two stages); products on the
+// tensor cores with mma.sync m16n8k16 (bf16 in, fp32 accumulation). The
 // score tile of a warp stays in registers: the online softmax (row max and
-// row sum in fp32, in log2 units) runs there, and the probabilities are
+// row sum in fp32, natural units) runs there, and the probabilities are
 // repacked from the accumulator layout into the next product's operand
 // layout without a trip through shared memory. Causal key tiles past the
 // diagonal, and tiles below a sliding window, are skipped; ragged edges are
@@ -106,12 +93,11 @@
 // (last) query tiles first. What holds it back: mma.sync instead of wgmma
 // (about two thirds of the card's tensor rate at best), 64-row tiles whose
 // K/V are read from L2 once per query tile and head (the GQA group is not
-// packed into one block), two pipeline stages, and the backward's two
-// recomputed products; flash_bwd.cu's bias-free forward and backward show
-// the wgmma design these kernels would take. With the T5 table the bias
-// costs no bytes (the index and table are KBs, read through L1/L2), so the
-// T5 kernels are bounded as the bias-free ones; demb adds the two recomputed
-// products per tile and its diagonal and bucket sums in shared memory.
+// packed into one block), and two pipeline stages; flash_bwd.cu's kernels
+// show the wgmma design these would take. With the T5 table the bias costs
+// no bytes (the index and table are KBs, read through L1/L2), so the T5
+// forward is bounded as the bias-free one; demb adds its diagonal and bucket
+// sums in shared memory.
 
 #include <cuda_bf16.h>
 #include <algorithm>
@@ -129,12 +115,10 @@ constexpr int BN = 64;        // columns of the tile it loops over (forward, dq)
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
-// leading dimensions of the float32 bias tiles in shared memory: LDB for a
-// (query, key) tile read as float2 pairs along a score row (rows 8 banks
-// apart), LDBT for the dk/dv kernel's reads down a column (threads of a warp
-// on 8 keys and 8 queries, rows 4 banks apart); both keep 16-byte rows
+// leading dimension of the float32 bias tiles in shared memory, a (query,
+// key) tile read as float2 pairs along a score row (rows 8 banks apart),
+// 16-byte rows
 constexpr int LDB = BN + 8;
-constexpr int LDBT = BM + 4;
 constexpr int MAX_BUCKETS = 128;   // one thread per bucket in demb_kernel
 
 // What the scores get added: nothing, a dense float32 bias, or T5's table.
@@ -461,311 +445,6 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-// -- backward: dq (and delta) --------------------------------------------------
-
-template <int D, int KIND>
-__global__ void __launch_bounds__(THREADS)
-    bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, const uint8_t* __restrict__ kv_mask,
-                  const float* __restrict__ bias, int bias_bs, int bias_hs,
-                  const float* __restrict__ t5_table, const int* __restrict__ t5_index,
-                  int nb, const bf16* __restrict__ out, const bf16* __restrict__ dout,
-                  const float* __restrict__ lse, float* __restrict__ delta,
-                  bf16* __restrict__ dq, int H, int Hkv, int Sq, int Sk, float scale,
-                  int causal, int window) {
-  constexpr bool BIAS = KIND == DENSE_BIAS, T5 = KIND == T5_BIAS;
-  static_assert(KIND != NO_BIAS, "the bias-free backward is flash_bwd.cu's");
-  constexpr int LD = D + 8;
-  constexpr int NT = BN / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* dOs = Qs + BM * LD;
-  bf16* Ks = dOs + BM * LD;      // [2][BN][LD]
-  bf16* Vs = Ks + 2 * BN * LD;   // [2][BN][LD]
-  float* delta_s = reinterpret_cast<float*>(Vs + 2 * BN * LD);   // [BM]
-  float* Bs = delta_s + BM;                                      // [2][BM][LDB] (BIAS)
-  float* Tc = Bs;                // [nb] (T5)
-  float* Bd = Tc + nb;           // [BM + BN - 1] (T5)
-
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BM;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int hk = h / (H / Hkv);
-  const int64_t q_off = (int64_t)bh * Sq * D;
-  const int64_t kv_off = ((int64_t)b * Hkv + hk) * Sk * D;
-  const bf16* kg = k + kv_off;
-  const bf16* vg = v + kv_off;
-  const uint8_t* mg = kv_mask + (int64_t)b * Sk;
-  const float* bg = BIAS ? bias_row(bias, b, h, bias_bs, bias_hs, Sq, Sk) : nullptr;
-  const bool bvec = Sk % 4 == 0;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int row0 = q0 + warp * 16 + lane / 4;
-  const int tcol = 2 * (lane % 4);
-
-  int kt0 = 0, kt1 = (Sk + BN - 1) / BN;
-  if (causal) kt1 = min(kt1, (q0 + BM - 1) / BN + 1);
-  if (window > 0) kt0 = max(0, (q0 - window + 1) / BN);
-
-  auto load_kv = [&](int kt, int stage) {
-    load_tile<D, BN>(Ks + stage * BN * LD, kg, kt * BN, Sk);
-    load_tile<D, BN>(Vs + stage * BN * LD, vg, kt * BN, Sk);
-    if constexpr (BIAS)
-      load_bias_tile<BM, BN, LDB>(Bs + stage * BM * LDB, bg, q0, kt * BN, Sq, Sk, bvec);
-  };
-
-  load_tile<D, BM>(Qs, q + q_off, q0, Sq);
-  load_tile<D, BM>(dOs, dout + q_off, q0, Sq);
-  if (kt0 < kt1) load_kv(kt0, 0);
-  cp_async_commit();
-  if constexpr (T5) {
-    for (int t = threadIdx.x; t < nb; t += THREADS) Tc[t] = t5_table[t * H + h];
-    __syncthreads();
-  }
-
-  // delta of the warp's 16 rows in fp32 over the bf16 out, written for the
-  // dk/dv kernel
-  for (int r = 0; r < 16; ++r) {
-    const int row = q0 + warp * 16 + r;
-    float acc = 0.f;
-    if (row < Sq) {
-      const bf16* og = out + q_off + (int64_t)row * D;
-      const bf16* dg = dout + q_off + (int64_t)row * D;
-      for (int d = 2 * lane; d < D; d += 64) {
-        const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(og + d));
-        const float2 c = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(dg + d));
-        acc += a.x * c.x + a.y * c.y;
-      }
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off /= 2) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    if (lane == 0) {
-      delta_s[warp * 16 + r] = acc;
-      if (row < Sq) delta[(int64_t)bh * Sq + row] = acc;
-    }
-  }
-  __syncwarp();
-  // lse in natural units: the bias is added to the scaled score
-  float lse2[2], dl[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + r * 8;
-    lse2[r] = row < Sq ? lse[(int64_t)bh * Sq + row] : 0.f;
-    dl[r] = delta_s[warp * 16 + lane / 4 + r * 8];
-  }
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-
-  for (int kt = kt0; kt < kt1; ++kt) {
-    const int st = (kt - kt0) & 1;
-    if (kt + 1 < kt1) {
-      load_kv(kt + 1, st ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    if constexpr (T5) t5_diagonals<BM, BN>(Bd, nullptr, Tc, t5_index, q0, kt * BN, Sq, Sk);
-    __syncthreads();
-
-    const bf16* Kt = Ks + st * BN * LD;
-    const float* Bt = Bs + st * BM * LDB + (warp * 16 + lane / 4) * LDB + tcol;
-    const float* Dt = Bd + tcol - (warp * 16 + lane / 4) + BM - 1;
-    float s[NT][4], dp[NT][4];
-    warp_abt<D, NT>(s, Qs + warp * 16 * LD, Kt, lane);
-    warp_abt<D, NT>(dp, dOs + warp * 16 * LD, Vs + st * BN * LD, lane);
-    const int k0 = kt * BN;
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const int row = row0 + r * 8, col = k0 + j * 8 + tcol + (e & 1);
-        float p = 0.f;
-        if (visible(row, col, Sk, mg, causal, window)) {
-          if constexpr (BIAS)
-            p = exp2f((s[j][e] * scale + Bt[r * 8 * LDB + j * 8 + (e & 1)] - lse2[r]) *
-                      LOG2E);
-          else
-            p = exp2f((s[j][e] * scale + Dt[j * 8 + (e & 1) - r * 8] - lse2[r]) * LOG2E);
-        }
-        s[j][e] = p * (dp[j][e] - dl[r]);   // dS
-      }
-    warp_pm<D, NT>(acc, s, Kt, lane);
-    __syncthreads();
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + r * 8;
-    if (row >= Sq) continue;
-    bf16* g = dq + q_off + (int64_t)row * D;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(g + j * 8 + tcol) =
-          __floats2bfloat162_rn(acc[j][2 * r] * scale, acc[j][2 * r + 1] * scale);
-  }
-}
-
-// -- backward: dk, dv ----------------------------------------------------------
-
-// NI: query rows per inner tile (64 for D = 32 and 64, 32 for D = 128,
-// which keeps the dk and dv accumulators in registers). With DENSE_BIAS each
-// inner tile brings the (NI queries x 64 keys) bias tile of its own query
-// head; with T5_BIAS its bias by diagonal from its own head's table column
-// (the group's columns are staged once per block).
-template <int D, int NI, int KIND>
-__global__ void __launch_bounds__(THREADS)
-    bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                   const bf16* __restrict__ v, const uint8_t* __restrict__ kv_mask,
-                   const float* __restrict__ bias, int bias_bs, int bias_hs,
-                   const float* __restrict__ t5_table, const int* __restrict__ t5_index,
-                   int nb, const bf16* __restrict__ dout, const float* __restrict__ lse,
-                   const float* __restrict__ delta, bf16* __restrict__ dk,
-                   bf16* __restrict__ dv, int H, int Hkv, int Sq, int Sk, float scale,
-                   int causal, int window) {
-  constexpr bool BIAS = KIND == DENSE_BIAS, T5 = KIND == T5_BIAS;
-  static_assert(KIND != NO_BIAS, "the bias-free backward is flash_bwd.cu's");
-  constexpr int LD = D + 8;
-  constexpr int NT = NI / 8;
-  constexpr int ND = NI + BM - 1;   // diagonals of an inner tile (T5)
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + BM * LD;
-  bf16* Qs = Vs + BM * LD;       // [2][NI][LD]
-  bf16* dOs = Qs + 2 * NI * LD;  // [2][NI][LD]
-  float* lse_s = reinterpret_cast<float*>(dOs + 2 * NI * LD);   // [2][NI]
-  float* delta_s = lse_s + 2 * NI;                              // [2][NI]
-  float* Bs = delta_s + 2 * NI;                                 // [2][NI][LDBT] (BIAS)
-  float* Bd = Bs;                // [2][ND] an inner tile's bias by diagonal (T5)
-  float* Tg = Bd + 2 * ND;       // [group][nb] the group's table columns (T5)
-
-  const int j0 = blockIdx.x * BM;
-  const int bk = blockIdx.y, b = bk / Hkv, hk = bk % Hkv;
-  const int group = H / Hkv;
-  const int64_t kv_off = (int64_t)bk * Sk * D;
-  const uint8_t* mg = kv_mask + (int64_t)b * Sk;
-  const bool bvec = Sk % 4 == 0;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int key0 = j0 + warp * 16 + lane / 4;   // accumulator rows key0, key0 + 8
-  const int tcol = 2 * (lane % 4);
-
-  int it0 = causal ? j0 / NI : 0;
-  int it1 = (Sq + NI - 1) / NI;
-  if (window > 0) it1 = min(it1, (j0 + BM + window - 2) / NI + 1);
-  const int ntiles = max(0, it1 - it0);
-  const int iters = group * ntiles;
-
-  // the inner tile `idx`: query head hk * group + idx / ntiles, query tile
-  // it0 + idx % ntiles; lse in natural units
-  auto load_inner = [&](int idx, int stage) {
-    const int hh = hk * group + idx / ntiles;
-    const int i0 = (it0 + idx % ntiles) * NI;
-    const int64_t q_off = ((int64_t)b * H + hh) * Sq * D;
-    load_tile<D, NI>(Qs + stage * NI * LD, q + q_off, i0, Sq);
-    load_tile<D, NI>(dOs + stage * NI * LD, dout + q_off, i0, Sq);
-    if constexpr (BIAS)
-      load_bias_tile<NI, BM, LDBT>(Bs + stage * NI * LDBT,
-                                   bias_row(bias, b, hh, bias_bs, bias_hs, Sq, Sk), i0,
-                                   j0, Sq, Sk, bvec);
-    if constexpr (T5)
-      t5_diagonals<NI, BM>(Bd + stage * ND, nullptr, Tg + (idx / ntiles) * nb, t5_index,
-                           i0, j0, Sq, Sk);
-    const int64_t r_off = ((int64_t)b * H + hh) * Sq;
-    for (int i = threadIdx.x; i < NI; i += THREADS) {
-      const bool ok = i0 + i < Sq;
-      lse_s[stage * NI + i] = ok ? lse[r_off + i0 + i] : 0.f;
-      delta_s[stage * NI + i] = ok ? delta[r_off + i0 + i] : 0.f;
-    }
-  };
-
-  if constexpr (T5) {
-    for (int t = threadIdx.x; t < group * nb; t += THREADS)
-      Tg[t] = t5_table[(t % nb) * H + hk * group + t / nb];
-    __syncthreads();
-  }
-  load_tile<D, BM>(Ks, k + kv_off, j0, Sk);
-  load_tile<D, BM>(Vs, v + kv_off, j0, Sk);
-  if (iters > 0) load_inner(0, 0);
-  cp_async_commit();
-
-  bool key_ok[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int key = key0 + r * 8;
-    key_ok[r] = key < Sk && mg[key];
-  }
-  float dka[D / 8][4], dva[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
-
-  for (int idx = 0; idx < iters; ++idx) {
-    const int st = idx & 1;
-    if (idx + 1 < iters) {
-      load_inner(idx + 1, st ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    const bf16* Qt = Qs + st * NI * LD;
-    const bf16* dOt = dOs + st * NI * LD;
-    const float* ls = lse_s + st * NI;
-    const float* ds_ = delta_s + st * NI;
-    const float* Bt = Bs + st * NI * LDBT + warp * 16 + lane / 4;
-    // T5: the diagonal of (key row, query column ci) is key - ci past NI - 1
-    const float* Dt = Bd + st * ND + warp * 16 + lane / 4 + NI - 1;
-    const int i0 = (it0 + idx % ntiles) * NI;
-    float s[NT][4], dp[NT][4];   // transposed: rows are keys, columns queries
-    warp_abt<D, NT>(s, Ks + warp * 16 * LD, Qt, lane);
-    warp_abt<D, NT>(dp, Vs + warp * 16 * LD, dOt, lane);
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const int key = key0 + r * 8;
-        const int ci = j * 8 + tcol + (e & 1), row = i0 + ci;
-        bool ok = key_ok[r] && row < Sq;
-        if (causal) ok = ok && key <= row;
-        if (window > 0) ok = ok && row - key < window;
-        float p = 0.f;
-        if (ok) {
-          if constexpr (BIAS)
-            p = exp2f((s[j][e] * scale + Bt[ci * LDBT + r * 8] - ls[ci]) * LOG2E);
-          else
-            p = exp2f((s[j][e] * scale + Dt[r * 8 - ci] - ls[ci]) * LOG2E);
-        }
-        s[j][e] = p;
-        dp[j][e] = p * (dp[j][e] - ds_[ci]);   // dS^T
-      }
-    warp_pm<D, NT>(dva, s, dOt, lane);
-    warp_pm<D, NT>(dka, dp, Qt, lane);
-    __syncthreads();
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int key = key0 + r * 8;
-    if (key >= Sk) continue;
-    bf16* gk = dk + kv_off + (int64_t)key * D;
-    bf16* gv = dv + kv_off + (int64_t)key * D;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      *reinterpret_cast<__nv_bfloat162*>(gk + j * 8 + tcol) =
-          __floats2bfloat162_rn(dka[j][2 * r] * scale, dka[j][2 * r + 1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(gv + j * 8 + tcol) =
-          __floats2bfloat162_rn(dva[j][2 * r], dva[j][2 * r + 1]);
-    }
-  }
-}
-
 // -- backward: dbias -------------------------------------------------------------
 
 // dbias = dS = P (dP - delta) in float32, unrounded, zero where a key is not
@@ -1058,55 +737,6 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, const uint8_
   return cudaGetLastError();
 }
 
-template <int D, int KIND>
-cudaError_t launch_dq(const void* q, const void* k, const void* v, const uint8_t* mask,
-                      const float* bias, int bs, int hs, const float* table,
-                      const int* index, int nb, const void* out, const void* dout,
-                      const float* lse, float* delta, void* dq, int B, int H, int Hkv,
-                      int Sq, int Sk, float scale, int causal, int window,
-                      cudaStream_t stream) {
-  const size_t bytes = (size_t)(2 * BM + 4 * BN) * (D + 8) * sizeof(bf16) +
-                       BM * sizeof(float) + bias_smem(KIND, BM, LDB, BM + BN - 1, 1, nb);
-  static size_t allowed = 0;
-  bool done = bytes <= allowed;
-  cudaError_t err = allow_smem(bwd_dq_kernel<D, KIND>, bytes, done);
-  if (err != cudaSuccess) return err;
-  allowed = std::max(allowed, bytes);
-  const dim3 grid((Sq + BM - 1) / BM, B * H);
-  bwd_dq_kernel<D, KIND><<<grid, THREADS, bytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), mask, bias, bs, hs, table, index, nb,
-      static_cast<const bf16*>(out), static_cast<const bf16*>(dout), lse, delta,
-      static_cast<bf16*>(dq), H, Hkv, Sq, Sk, scale, causal, window);
-  return cudaGetLastError();
-}
-
-template <int D, int KIND>
-cudaError_t launch_dkv(const void* q, const void* k, const void* v, const uint8_t* mask,
-                       const float* bias, int bs, int hs, const float* table,
-                       const int* index, int nb, const void* dout, const float* lse,
-                       const float* delta, void* dk, void* dv, int B, int H, int Hkv,
-                       int Sq, int Sk, float scale, int causal, int window,
-                       cudaStream_t stream) {
-  constexpr int NI = D == 128 ? 32 : 64;   // query rows per inner tile
-  const size_t bytes = (size_t)(2 * BM + 4 * NI) * (D + 8) * sizeof(bf16) +
-                       4 * NI * sizeof(float) +
-                       bias_smem(KIND, NI, LDBT, 2 * (NI + BM - 1), H / Hkv, nb);
-  auto kernel = bwd_dkv_kernel<D, NI, KIND>;
-  static size_t allowed = 0;
-  bool done = bytes <= allowed;
-  cudaError_t err = allow_smem(kernel, bytes, done);
-  if (err != cudaSuccess) return err;
-  allowed = std::max(allowed, bytes);
-  const dim3 grid((Sk + BM - 1) / BM, B * Hkv);
-  kernel<<<grid, THREADS, bytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), mask, bias, bs, hs, table, index, nb,
-      static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), H, Hkv, Sq, Sk, scale, causal, window);
-  return cudaGetLastError();
-}
-
 template <int D>
 cudaError_t launch_dbias(const void* q, const void* k, const void* v, const uint8_t* mask,
                          const float* bias, int bs, int hs, const void* dout,
@@ -1151,8 +781,8 @@ cudaError_t launch_demb(const void* q, const void* k, const void* v, const uint8
 }
 
 // The call of LAUNCH's instance for the head dim D (32, 64 or 128) and the
-// bias kind: T5_BIAS with a table, else DENSE_BIAS. The bias-free forward and
-// backward are flash_bwd.cu's; no NO_BIAS instance of a kernel is compiled.
+// bias kind: T5_BIAS with a table, else DENSE_BIAS. The bias-free forward is
+// flash_bwd.cu's; no NO_BIAS instance of a kernel is compiled.
 #define FLASH_BY_DIM(LAUNCH, KIND, D, ...)                                           \
   ((D) == 32   ? LAUNCH<32, KIND>(__VA_ARGS__)                                       \
    : (D) == 64 ? LAUNCH<64, KIND>(__VA_ARGS__)                                       \
@@ -1191,38 +821,6 @@ int flash_fwd(const void* q, const void* k, const void* v, const uint8_t* kv_mas
   return (int)FLASH_DISPATCH_BIASED(launch_fwd, t5_table, D, q, k, v, kv_mask, bias, bs, hs,
                                     t5_table, t5_index, nb, out, lse, B, H, Hkv, Sq, Sk, scale,
                                     causal, window, static_cast<cudaStream_t>(stream));
-}
-
-// dq (B, H, Sq, D) bfloat16; delta (B, H, Sq) f32 is written for flash_bwd_dkv.
-// A bias or a T5 table is required: the bias-free backward is flash_bwd.cu's.
-int flash_bwd_dq(const void* q, const void* k, const void* v, const uint8_t* kv_mask,
-                 const float* bias, int bs, int hs, const float* t5_table,
-                 const int* t5_index, int nb, const void* out, const void* dout,
-                 const float* lse, float* delta, void* dq, int B, int H, int Hkv, int Sq,
-                 int Sk, int D, float scale, int causal, int window, void* stream) {
-  if (bad_args(B, H, Hkv, Sq, Sk, D, window) || bad_bias(bias, t5_table, t5_index, nb) ||
-      (bias == nullptr && t5_table == nullptr))
-    return (int)cudaErrorInvalidValue;
-  return (int)FLASH_DISPATCH_BIASED(launch_dq, t5_table, D, q, k, v, kv_mask, bias, bs, hs,
-                             t5_table, t5_index, nb, out, dout, lse, delta, dq, B, H, Hkv,
-                             Sq, Sk, scale, causal, window,
-                             static_cast<cudaStream_t>(stream));
-}
-
-// dk, dv (B, Hkv, Sk, D) bfloat16, summed over each K/V head's query heads;
-// with a bias or a T5 table only, as flash_bwd_dq.
-int flash_bwd_dkv(const void* q, const void* k, const void* v, const uint8_t* kv_mask,
-                  const float* bias, int bs, int hs, const float* t5_table,
-                  const int* t5_index, int nb, const void* dout, const float* lse,
-                  const float* delta, void* dk, void* dv, int B, int H, int Hkv, int Sq,
-                  int Sk, int D, float scale, int causal, int window, void* stream) {
-  if (bad_args(B, H, Hkv, Sq, Sk, D, window) || bad_bias(bias, t5_table, t5_index, nb) ||
-      (bias == nullptr && t5_table == nullptr))
-    return (int)cudaErrorInvalidValue;
-  return (int)FLASH_DISPATCH_BIASED(launch_dkv, t5_table, D, q, k, v, kv_mask, bias, bs, hs,
-                             t5_table, t5_index, nb, dout, lse, delta, dk, dv, B, H, Hkv,
-                             Sq, Sk, scale, causal, window,
-                             static_cast<cudaStream_t>(stream));
 }
 
 // dbias f32: (H, Sq, Sk) summed over the batch when bs == 0 (a bias shared

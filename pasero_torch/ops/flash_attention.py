@@ -13,9 +13,9 @@ streamed ``_fwd_stream`` :544, ``_bwd_stream`` :738 and ``_compute_demb``
 backward. On CUDA tensors its forward launches ``flash_fwd`` and its
 backward ``flash_bwd_dq`` then ``flash_bwd_dkv`` (and ``flash_bwd_dbias``
 for the bias's gradient, ``flash_bwd_demb`` for the T5 table's): the
-kernels of ``csrc/flash_attention.cu``, except the bias-free forward, dq and
-dk/dv, which are the wgmma kernels of ``csrc/flash_bwd.cu``; each wrapper
-counts its launches,
+wgmma kernels of ``csrc/flash_bwd.cu`` for the bias-free forward and for dq
+and dk/dv of every bias kind, the kernels of ``csrc/flash_attention.cu`` for
+the biased and T5 forward, dbias and demb; each wrapper counts its launches,
 those of a biased or a T5 kernel apart (``launch_counts`` names them
 ``flash_fwd_bias``, ``flash_fwd_t5`` and so on). CPU tensors take
 ``flash_fwd_plain``, ``flash_bwd_plain``, ``flash_dbias_plain`` and
@@ -64,11 +64,18 @@ from dataclasses import dataclass
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from . import cuda_build
 
 NEG_INF = -1e30
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128)   # the kernels' head dims; others are padded up
+
+
+def padded_head_dim(D: int) -> int:
+    """The smallest of ``HEAD_DIMS`` that is at least D; D itself past them
+    (the kernels refuse it)."""
+    return next((d for d in HEAD_DIMS if d >= D), D)
 
 
 @dataclass(frozen=True, eq=False)
@@ -239,22 +246,26 @@ def _reduce_to(ds, shape):
     return ds
 
 
+# after the key mask: the bias pointer (None for none) and the strides of its
+# (batch, head) rows; the T5 table and distance index (None for none) and the
+# number of buckets, in ``_bias_args``'s order
+_BIAS_TYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+               ctypes.c_void_p, ctypes.c_int]
+
+
 def _library():
+    """``csrc/flash_attention.cu``: the biased and T5 forward, dbias and
+    demb kernels."""
     lib = cuda_build.load("flash_attention")
     if lib.flash_fwd.argtypes is None:
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         dims = [i32] * 6 + [f32, i32, i32, ptr]   # B H Hkv Sq Sk D, scale ...
-        # after the key mask: the bias pointer (None for none) and the
-        # strides of its (batch, head) rows; the T5 table and distance index
-        # (None for none) and the number of buckets
-        bias = [ptr, i32, i32, ptr, ptr, i32]
-        lib.flash_fwd.argtypes = [ptr] * 4 + bias + [ptr] * 2 + dims
-        lib.flash_bwd_dq.argtypes = [ptr] * 4 + bias + [ptr] * 5 + dims
-        lib.flash_bwd_dkv.argtypes = [ptr] * 4 + bias + [ptr] * 5 + dims
-        lib.flash_bwd_dbias.argtypes = [ptr] * 4 + bias[:3] + [ptr] * 4 + dims
-        lib.flash_bwd_demb.argtypes = [ptr] * 4 + bias[3:] + [ptr] * 4 + dims
-        for fn in (lib.flash_fwd, lib.flash_bwd_dq, lib.flash_bwd_dkv,
-                   lib.flash_bwd_dbias, lib.flash_bwd_demb):
+        lib.flash_fwd.argtypes = [ptr] * 4 + _BIAS_TYPES + [ptr] * 2 + dims
+        lib.flash_bwd_dbias.argtypes = [ptr] * 4 + _BIAS_TYPES[:3] + \
+            [ptr] * 4 + dims
+        lib.flash_bwd_demb.argtypes = [ptr] * 4 + _BIAS_TYPES[3:] + \
+            [ptr] * 4 + dims
+        for fn in (lib.flash_fwd, lib.flash_bwd_dbias, lib.flash_bwd_demb):
             fn.restype = ctypes.c_int
         lib.flash_error_string.argtypes = [ctypes.c_int]
         lib.flash_error_string.restype = ctypes.c_char_p
@@ -262,14 +273,15 @@ def _library():
 
 
 def _bwd_library():
-    """``csrc/flash_bwd.cu``: the bias-free forward, dq and dk/dv kernels."""
+    """``csrc/flash_bwd.cu``: the bias-free forward and the dq and dk/dv
+    kernels of every bias kind."""
     lib = cuda_build.load("flash_bwd")
     if lib.bwd_dq.argtypes is None:
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         dims = [i32] * 6 + [f32, i32, i32, ptr]   # B H Hkv Sq Sk D, scale ...
         lib.fwd.argtypes = [ptr] * 6 + dims
-        lib.bwd_dq.argtypes = [ptr] * 9 + dims
-        lib.bwd_dkv.argtypes = [ptr] * 9 + dims
+        lib.bwd_dq.argtypes = [ptr] * 4 + _BIAS_TYPES + [ptr] * 5 + dims
+        lib.bwd_dkv.argtypes = [ptr] * 4 + _BIAS_TYPES + [ptr] * 5 + dims
         lib.fwd.restype = lib.bwd_dq.restype = lib.bwd_dkv.restype = \
             ctypes.c_int
         lib.flash_error_string.argtypes = [ctypes.c_int]
@@ -406,20 +418,16 @@ def _bwd_operands(out, do, lse):
 def flash_bwd_dq(q, k, v, kv_mask, out, lse, do, scale: float,
                  causal: bool, window: Optional[int], bias=None):
     """(dq bfloat16, delta (B, H, Sq) float32) from one launch of the dq
-    kernel, which also computes delta = sum(dO * out) for the dk/dv kernel
-    and re-adds ``bias`` (the forward's) to the recomputed scores; without a
-    bias, the wgmma kernel of csrc/flash_bwd.cu."""
+    kernel of csrc/flash_bwd.cu, which also computes delta = sum(dO * out)
+    for the dk/dv kernel and re-adds ``bias`` (the forward's) to the
+    recomputed scores."""
     q, k, v, mask, dims = _cuda_args(q, k, v, kv_mask, window)
     bias_ops = _bias_args(bias, q, dims)
     out, do, lse = _bwd_operands(out, do, lse)
     dq = torch.empty_like(q)
     delta = torch.empty_like(lse)
-    if bias is None:
-        _launch("bwd_dq", q.device, q, k, v, mask, out, do, lse, delta, dq,
-                *_scalars(dims, scale, causal, window), lib=_bwd_library())
-    else:
-        _launch("flash_bwd_dq", q.device, q, k, v, mask, *bias_ops, out, do,
-                lse, delta, dq, *_scalars(dims, scale, causal, window))
+    _launch("bwd_dq", q.device, q, k, v, mask, *bias_ops, out, do, lse, delta,
+            dq, *_scalars(dims, scale, causal, window), lib=_bwd_library())
     _count(flash_bwd_dq, bias)
     return dq, delta
 
@@ -427,20 +435,17 @@ def flash_bwd_dq(q, k, v, kv_mask, out, lse, do, scale: float,
 def flash_bwd_dkv(q, k, v, kv_mask, do, lse, delta, scale: float,
                   causal: bool, window: Optional[int], bias=None):
     """(dk, dv) in bfloat16 at K/V-head width from one launch of the dk/dv
-    kernel, given the dq kernel's delta; with ``bias``, each query head of a
-    group re-adds its own bias row (its own T5 table column)."""
+    kernel of csrc/flash_bwd.cu, given the dq kernel's delta; with ``bias``,
+    each query head of a group re-adds its own bias row (its own T5 table
+    column)."""
     q, k, v, mask, dims = _cuda_args(q, k, v, kv_mask, window)
     bias_ops = _bias_args(bias, q, dims)
     _, do, lse = _bwd_operands(None, do, lse)
     delta = delta.float().contiguous()
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    if bias is None:
-        _launch("bwd_dkv", q.device, q, k, v, mask, do, lse, delta, dk, dv,
-                *_scalars(dims, scale, causal, window), lib=_bwd_library())
-    else:
-        _launch("flash_bwd_dkv", q.device, q, k, v, mask, *bias_ops, do, lse,
-                delta, dk, dv, *_scalars(dims, scale, causal, window))
+    _launch("bwd_dkv", q.device, q, k, v, mask, *bias_ops, do, lse, delta, dk,
+            dv, *_scalars(dims, scale, causal, window), lib=_bwd_library())
     _count(flash_bwd_dkv, bias)
     return dk, dv
 
@@ -599,6 +604,12 @@ def flash_attention(q, k, v, mask=None, bias=None, scale: float = 1.0,
     the kernels from slot indices (right-padded rows), never with ``bias``;
     the table's gradient is computed when it requires one. Returns out (B,
     H, Sq, D) in q's type.
+
+    A head dim that the kernels do not take is zero-padded to the next one
+    (``padded_head_dim``) on every device, as JAX pads it
+    (flash_attention.py:1597-1600): zero columns change neither the scores
+    nor the output, the scale stays the caller's, and autograd slices the
+    padding off dq, dk and dv.
     """
     B, H, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
@@ -620,5 +631,9 @@ def flash_attention(q, k, v, mask=None, bias=None, scale: float = 1.0,
     kv_mask = key_mask(mask, B, Sq, Sk)
     if kv_mask is None:
         kv_mask = torch.ones((B, Sk), dtype=torch.bool, device=q.device)
-    return _FlashAttention.apply(q, k, v, kv_mask, bias, t5, float(scale),
-                                 bool(causal), window)[0]
+    Dp = padded_head_dim(D)
+    if Dp != D:
+        q, k, v = (F.pad(x, (0, Dp - D)) for x in (q, k, v))
+    out = _FlashAttention.apply(q, k, v, kv_mask, bias, t5, float(scale),
+                                bool(causal), window)[0]
+    return out[..., :D] if Dp != D else out

@@ -1,0 +1,132 @@
+#!/usr/bin/env python3
+"""The flash-attention backward on one card: device ms per call of the dq
+and the dk/dv kernels (``flash_bwd_dq``, ``flash_bwd_dkv``) with a dense
+ALiBi bias, with T5's table and without a bias, at the training shapes of
+bloom_560m, t5_base and llama_1b and at long sequences.
+
+    python -m pasero_torch.scripts.bench_flash_bwd [--cases bloom_560m ...]
+
+Run against another checkout (a parent commit, to compare two versions in
+one call) from that checkout's root:
+
+    PYTHONPATH=$PWD python /path/to/pasero_torch/scripts/bench_flash_bwd.py
+
+It uses only the wrappers' public signatures, so it times whatever kernels
+that checkout's wrappers launch. Each time is a CUDA graph of back-to-back
+calls replayed between CUDA events (host launch costs left out). Prints one
+JSON line: the card's name and power limit, then per case its shape and,
+for the case's bias (if it has one) and without one, dq, dk/dv and their
+sum.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+
+import torch
+
+# (B, H, Hkv, S, D), causal, bias: "alibi" (per-sample causal ALiBi, max
+# bias 8), "alibi16" (max bias 16), "t5" (a bidirectional table) or None
+CASES = {
+    "bloom_560m": ((4, 16, 16, 2048, 64), True, "alibi"),
+    "alibi_16500": ((1, 2, 2, 16500, 128), True, "alibi16"),
+    "t5_base": ((32, 12, 12, 512, 64), False, "t5"),
+    "t5_32768": ((1, 12, 12, 32768, 64), False, "t5"),
+    "llama_1b": ((4, 32, 4, 2048, 64), True, None),
+    "llama_32768": ((1, 32, 32, 32768, 128), True, None),
+}
+
+
+def device_ms(fn, iters: int, replays: int) -> float:
+    """Mean device ms per call of ``fn``: ``iters`` calls in one CUDA graph,
+    replayed ``replays`` times between CUDA events."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * replays)
+
+
+def inputs(B, H, Hkv, S, D, kind):
+    """Seeded bf16 q, k, v, dO, an all-present key mask and the bias (None
+    without one)."""
+    from pasero_torch.models.positional import alibi_bias
+    from pasero_torch.ops.flash_attention import T5Bias
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v, do = (torch.randn(B, h, S, D, generator=gen, device="cuda")
+                   .to(torch.bfloat16) for h in (H, Hkv, Hkv, H))
+    mask = torch.ones(B, S, dtype=torch.bool, device="cuda")
+    if kind is None:
+        return q, k, v, do, mask, None
+    if kind == "t5":
+        table = 0.5 * torch.randn(32, H, generator=gen, device="cuda")
+        return q, k, v, do, mask, T5Bias(table, True)
+    pos = torch.arange(S, device="cuda")[None].expand(B, S)
+    return q, k, v, do, mask, alibi_bias(H, pos, pos,
+                                         16 if kind == "alibi16" else 8)
+
+
+def time_case(shape, causal, kind) -> dict:
+    """Device ms of dq, dk/dv and their sum at one shape, under the key
+    ``kind`` with the bias and under "none" without it."""
+    from pasero_torch.ops.flash_attention import (flash_bwd_dkv, flash_bwd_dq,
+                                                  flash_fwd)
+    B, H, Hkv, S, D = shape
+    q, k, v, do, mask, bias = inputs(B, H, Hkv, S, D, kind)
+    args = (D ** -0.5, causal, None)
+    long = S > 8192
+    res = {"shape": list(shape), "causal": causal, "bias": kind}
+    runs = [("none", None)] if kind is None else [(kind, bias), ("none", None)]
+    for name, b in runs:
+        out, lse = flash_fwd(q, k, v, mask, *args, b)
+        _, delta = flash_bwd_dq(q, k, v, mask, out, lse, do, *args, b)
+        times = {
+            "dq": device_ms(lambda: flash_bwd_dq(q, k, v, mask, out, lse, do,
+                                                 *args, b),
+                            2 if long else 10, 2 if long else 5),
+            "dkv": device_ms(lambda: flash_bwd_dkv(q, k, v, mask, do, lse,
+                                                   delta, *args, b),
+                             2 if long else 10, 2 if long else 5)}
+        times["bwd"] = times["dq"] + times["dkv"]
+        res[name] = times
+        del out, lse, delta
+    del q, k, v, do, bias
+    torch.cuda.empty_cache()
+    return res
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--cases", nargs="+", choices=sorted(CASES),
+                        default=list(CASES))
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("this benchmark measures a CUDA card and none is "
+                         "available")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    result = {"card": smi,
+              "cases": {name: time_case(*CASES[name]) for name in args.cases}}
+    print(json.dumps(result))
+    return result
+
+
+if __name__ == "__main__":
+    main()

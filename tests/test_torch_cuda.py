@@ -512,11 +512,12 @@ def test_flash_backward_same_bits(shape, causal, window, padded):
 @pytest.mark.cuda
 @pytest.mark.parametrize("bad", ["head_dim", "dtype", "window"])
 def test_flash_bad_input_raises_on_card(bad):
-    """Head dims other than 32, 64 and 128, types other than bfloat16 and a
-    window that is not positive raise before any launch."""
+    """Head dims past 128 (flash_attention pads the others up to 32, 64 or
+    128), types other than bfloat16 and a window that is not positive raise
+    before any launch."""
     from pasero_torch.ops.flash_attention import flash_attention, flash_fwd
     _need_card()
-    D = 48 if bad == "head_dim" else 64
+    D = 160 if bad == "head_dim" else 64
     dtype = torch.float32 if bad == "dtype" else torch.bfloat16
     q = torch.zeros((1, 2, 8, D), device="cuda", dtype=dtype)
     before = flash_fwd.launches
@@ -524,6 +525,54 @@ def test_flash_bad_input_raises_on_card(bad):
         flash_attention(q, q, q, causal=True,
                         window=0 if bad == "window" else None)
     assert flash_fwd.launches == before
+
+
+ODD_HEAD_DIMS = [   # (B, H, Hkv, S, D), causal, padded, bias kind or None
+    ((2, 4, 4, 200, 80), True, True, "alibi"),   # bloom_3b's head, ALiBi
+    ((2, 4, 2, 130, 100), True, True, None),     # llama_3b's, GQA
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,causal,padded,kind", ODD_HEAD_DIMS)
+def test_flash_attention_pads_odd_head_dims(shape, causal, padded, kind):
+    """flash_attention at a head dim the kernels do not take pads it to the
+    next one (128 here) and slices the padding off: out, dq, dk and dv
+    through its autograd within ``flash_limits`` (the bias added, as
+    ``flash_bias_compare`` holds the biased kernels) of the plain version at
+    the caller's D, with one launch each of the forward, dq and dk/dv
+    kernels of the bias's kind and none of any other."""
+    from pasero_torch.ops import flash_attention as fa
+    _need_card()
+    B, H, Hkv, S, D = shape
+    q, k, v, do, mask = flash_inputs(B, H, Hkv, S, D, padded)
+    bias = None if kind is None else flash_bias(kind, B, H, S, mask)
+    rows = fa.visible(mask, S, causal, None).any(-1).expand(B, H, S)
+    do = do * rows[..., None]
+    scale = D ** -0.5
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    before = fa.launch_counts()
+    out = fa.flash_attention(*leaves, mask=mask[:, None, None, :], bias=bias,
+                             scale=scale, causal=causal)
+    out.backward(do)
+    torch.cuda.synchronize()
+    after = fa.launch_counts()
+    end = "" if kind is None else "_bias"
+    assert {n: after[n] - before[n] for n in after if after[n] != before[n]} \
+        == {f"flash_fwd{end}": 1, f"flash_bwd_dq{end}": 1,
+            f"flash_bwd_dkv{end}": 1}
+    assert out.shape == q.shape and all(x.grad.shape == x.shape
+                                        for x in leaves)
+    f32 = [x.float() for x in (q, k, v)]
+    args = (scale, causal, None, bias)
+    ref_out, ref_lse = fa.flash_fwd_plain(*f32, mask, *args)
+    ref = fa.flash_bwd_plain(*f32, mask, out.detach(), ref_lse, do, *args)
+    limits = flash_limits(q, k, v, mask, ref_lse, do, scale, causal, None,
+                          (ref_out,) + tuple(ref), bias)
+    excess = [flash_excess(out, ref_out, limits[0], rows)]
+    excess += [flash_excess(x.grad, w, lim)
+               for x, w, lim in zip(leaves, ref, limits[1:])]
+    assert max(excess) <= 1.0, excess
 
 
 # The biased kernels (the forward, dq and dk/dv with a float32 bias; dbias)
@@ -595,10 +644,11 @@ def flash_bias_compare(shape, causal, window, padded, kind) -> dict:
     bias rolled by one head (where it has a row per head), dbias without
     delta, dbias of the bias expanded to (B, H) with dS rounded to bfloat16
     before its sum to the bias's shape, and a dq and dk/dv given another
-    row's lse. Returns the lse error, the excess of out, dq, dk, dv and
-    dbias over their limits, the smallest excess of each mutation, and the
-    max abs errors."""
-    from pasero_torch.ops.flash_attention import (_reduce_to,
+    row's lse; then dq and dk/dv once more on the same inputs. Returns the
+    lse error, the excess of out, dq, dk, dv and dbias over their limits, the
+    smallest excess of each mutation, whether the second backward gave the
+    same bits, and the max abs errors."""
+    from pasero_torch.ops.flash_attention import (_reduce_to, flash_bwd,
                                                   flash_bwd_dbias,
                                                   flash_bwd_dkv, flash_bwd_dq,
                                                   flash_bwd_plain,
@@ -651,12 +701,15 @@ def flash_bias_compare(shape, causal, window, padded, kind) -> dict:
         mutants["other_head"] = flash_excess(flash_fwd(
             q, k, v, mask, *args, bias.roll(1, 1))[0], ref_out, limits[0],
             rows)
+    again = flash_bwd(q, k, v, mask, out, lse, do, *args, bias)
+    same_bits = all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again))
 
     def err(got, want, rows=None):
         diff = (got.float() - want.float()).abs()
         return (diff[rows] if rows is not None else diff).max().item()
 
     return {"lse_err": lse_err, "excess": excess, "mutants": mutants,
+            "same_bits": same_bits,
             "max_abs_err": {"fwd": max(lse_err, err(out, ref_out, rows)),
                             "dq": err(dq, ref[0]),
                             "dkv": max(err(dk, ref[1]), err(dv, ref[2])),
@@ -668,7 +721,7 @@ def flash_bias_compare(shape, causal, window, padded, kind) -> dict:
 def test_biased_flash_kernels_match_plain(shape, causal, window, padded,
                                           kind):
     """out, dq, dk, dv and dbias within their limits, lse within 1e-4; each
-    mutation outside them."""
+    mutation outside them; dq, dk and dv the same bits twice."""
     from pasero_torch.ops.flash_attention import launch_counts
     _need_card()
     names = ("flash_fwd_bias", "flash_bwd_dq_bias", "flash_bwd_dkv_bias",
@@ -679,10 +732,11 @@ def test_biased_flash_kernels_match_plain(shape, causal, window, padded,
     mutants = result["mutants"]
     fwd_mutants = ("transposed" in mutants) + ("other_head" in mutants)
     assert [after[n] - before[n] for n in names] == \
-        [1 + fwd_mutants, 2, 2, 3]
+        [1 + fwd_mutants, 3, 3, 3]
     assert result["lse_err"] <= 1e-4
     assert max(result["excess"]) <= 1.0, result["excess"]
     assert min(mutants.values()) > 1.0, mutants
+    assert result["same_bits"]
 
 
 @pytest.mark.cuda
@@ -814,10 +868,13 @@ def flash_demb_limits(q, k, v, kv_mask, lse, do, out, scale, causal, window,
 def flash_t5_compare(shape, causal, window, padded, bidirectional) -> dict:
     """The T5 kernels (forward, dq, dk/dv, demb; one launch each) against the
     plain version on the same inputs at one shape, as ``flash_compare``
-    does, and the mutations the limits must reject (see above). Returns the
-    lse error, the excess of out, dq, dk, dv and demb over their limits, the
-    smallest excess of each mutation, and the max abs errors."""
-    from pasero_torch.ops.flash_attention import (T5Bias, flash_bwd_dbias,
+    does, and the mutations the limits must reject (see above); then dq and
+    dk/dv once more on the same inputs. Returns the lse error, the excess of
+    out, dq, dk, dv and demb over their limits, the smallest excess of each
+    mutation, whether the second backward gave the same bits, and the max
+    abs errors."""
+    from pasero_torch.ops.flash_attention import (T5Bias, flash_bwd,
+                                                  flash_bwd_dbias,
                                                   flash_bwd_demb,
                                                   flash_bwd_dkv, flash_bwd_dq,
                                                   flash_bwd_plain,
@@ -874,12 +931,15 @@ def flash_t5_compare(shape, causal, window, padded, bidirectional) -> dict:
         mutants[name] = flash_excess(flash_fwd(q, k, v, mask, *args,
                                                bad_t5)[0], ref_out,
                                      limits[0], rows)
+    again = flash_bwd(q, k, v, mask, out, lse, do, *args, t5)
+    same_bits = all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again))
 
     def err(got, want, rows=None):
         diff = (got.float() - want.float()).abs()
         return (diff[rows] if rows is not None else diff).max().item()
 
     return {"lse_err": lse_err, "excess": excess, "mutants": mutants,
+            "same_bits": same_bits,
             "max_abs_err": {"fwd": max(lse_err, err(out, ref_out, rows)),
                             "dq": err(dq, ref[0]),
                             "dkv": max(err(dk, ref[1]), err(dv, ref[2])),
@@ -892,7 +952,7 @@ def flash_t5_compare(shape, causal, window, padded, bidirectional) -> dict:
 def test_t5_flash_kernels_match_plain(shape, causal, window, padded,
                                       bidirectional):
     """out, dq, dk, dv and demb within their limits, lse within 1e-4; each
-    mutation outside them."""
+    mutation outside them; dq, dk and dv the same bits twice."""
     from pasero_torch.ops.flash_attention import launch_counts
     _need_card()
     names = ("flash_fwd_t5", "flash_bwd_dq_t5", "flash_bwd_dkv_t5",
@@ -903,10 +963,11 @@ def test_t5_flash_kernels_match_plain(shape, causal, window, padded,
     mutants = result["mutants"]
     fwd_mutants = 2 + ("other_head" in mutants)
     assert [after[n] - before[n] for n in names] == \
-        [1 + fwd_mutants, 2, 2, 2, 1]
+        [1 + fwd_mutants, 3, 3, 2, 1]
     assert result["lse_err"] <= 1e-4
     assert max(result["excess"]) <= 1.0, result["excess"]
     assert min(mutants.values()) > 1.0, mutants
+    assert result["same_bits"]
 
 
 @pytest.mark.cuda

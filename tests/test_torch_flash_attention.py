@@ -2,6 +2,10 @@
 against JAX ``flash_attention`` (the Pallas kernels in interpret mode, as
 tests/test_flash_attention.py runs them), forward and gradients.
 
+Head dims the kernels do not take (16, 48, 80) go through the padding to
+the next kernel head dim that the port applies on every device, as JAX pads
+them; the D = 80 case (bloom_3b's head) carries ALiBi's causal bias.
+
 Inputs are float32 from a numpy seed, fed to both. Tolerance: atol 1e-5 on
 out, dq, dk and dv — both sides compute in float32 and differ only in
 summation order (blockwise online softmax in JAX, a dense softmax here).
@@ -17,17 +21,19 @@ import pytest
 import torch
 
 import pasero_tpu.ops.flash_attention as jax_fa
+from pasero_torch.models.positional import alibi_bias
 from pasero_torch.ops.flash_attention import (flash_attention, key_mask,
-                                              visible)
+                                              padded_head_dim, visible)
 
 ATOL = 1e-5
 
-CASES = {   # (B, H, Hkv, S, D), causal, window, padded
+CASES = {   # (B, H, Hkv, S, D), causal, window, padded[, "alibi"]
     "group1_causal": ((2, 2, 2, 40, 16), True, None, False),
     "group2_causal_padded": ((2, 4, 2, 48, 16), True, None, True),
     "group4_full_padded": ((2, 4, 1, 33, 16), False, None, True),
     "group2_window_padded": ((1, 4, 2, 64, 16), True, 9, True),
     "unaligned_d48": ((1, 2, 1, 21, 48), True, None, False),
+    "alibi_padded_d80": ((2, 4, 4, 24, 80), True, None, True, "alibi"),
 }
 
 
@@ -49,10 +55,18 @@ def inputs(B, H, Hkv, S, D, padded, seed=0):
     return q, k, v, g, mask[:, None, None, :]                # (B, 1, 1, S)
 
 
+def alibi(H, mask):
+    """ALiBi's causal float32 bias (B, H, S, S) of a (B, 1, 1, S) key mask's
+    positions, as numpy."""
+    pos = torch.from_numpy(np.maximum(np.cumsum(mask[:, 0, 0], 1) - 1, 0))
+    return alibi_bias(H, pos, pos).numpy()
+
+
 @pytest.mark.parametrize("case", list(CASES))
 def test_forward_and_gradients_match_jax(case):
-    (B, H, Hkv, S, D), causal, window, padded = CASES[case]
+    (B, H, Hkv, S, D), causal, window, padded, *kind = CASES[case]
     q, k, v, g, mask = inputs(B, H, Hkv, S, D, padded)
+    bias = alibi(H, mask) if kind else None
     scale = D ** -0.5
     rows = visible(torch.from_numpy(mask[:, 0, 0]), S, causal, window
                    ).any(-1).expand(B, H, S).numpy()
@@ -60,7 +74,9 @@ def test_forward_and_gradients_match_jax(case):
 
     def jax_loss(q, k, v):
         out = jax_fa.flash_attention(q, k, v, mask=jnp.asarray(mask),
-                                     scale=scale, causal=causal, window=window)
+                                     bias=None if bias is None
+                                     else jnp.asarray(bias), scale=scale,
+                                     causal=causal, window=window)
         return jnp.sum(out * g), out
 
     (_, out_j), grads_j = jax.value_and_grad(jax_loss, argnums=(0, 1, 2),
@@ -69,6 +85,8 @@ def test_forward_and_gradients_match_jax(case):
 
     qt, kt, vt = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
     out_t = flash_attention(qt, kt, vt, mask=torch.from_numpy(mask),
+                            bias=None if bias is None
+                            else torch.from_numpy(bias),
                             scale=scale, causal=causal, window=window)
     (out_t * torch.from_numpy(g)).sum().backward()
 
@@ -77,6 +95,14 @@ def test_forward_and_gradients_match_jax(case):
     for want, got in zip(grads_j, (qt.grad, kt.grad, vt.grad)):
         assert got.shape == want.shape
         assert np.abs(np.asarray(want) - got.numpy()).max() <= ATOL
+
+
+def test_head_dims_pad_to_the_next_kernel_head_dim():
+    """Every head dim up to 128 pads to the smallest of 32, 64 and 128 that
+    holds it; past 128 it stays (the kernels refuse it)."""
+    assert [padded_head_dim(D) for D in (16, 32, 48, 64, 80, 96, 100, 112,
+                                         128, 160)] == \
+        [32, 32, 64, 64, 128, 128, 128, 128, 128, 160]
 
 
 def test_key_mask_is_any_over_queries():
