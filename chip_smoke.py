@@ -153,15 +153,17 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    shifted by one, demb without delta, demb of dS rounded to bf16 and a
    backward given another row's lse rejected, dq, dk and dv the same bits
    from two calls; at t5_base's encoder shape and at (1, 12, 32768, 64)
-   each kernel's device time (CUDA graph) beside the plain version's, its
-   bound, the library yardstick (SDPA with the materialized bias as a
-   float attn_mask; for demb its mask's gradient and index_add_ by bucket;
-   from CUDA graphs, eager beside), "does not fit" where an (Sq, Sk)
-   tensor does not, the bias-free dq and dk/dv at the same shape and the
-   times of the T5 dq and dk/dv that flash_bwd.cu's replaced
-   (T5_BWD_EARLIER_MS; the backward at most its library call at the
-   encoder's shape and at most those times at 32768 keys), and the peak
-   memory of forward + backward; the bias-free kernels at JAX's streamed lengths, (1, 32,
+   each kernel's device time (CUDA graph; the forward, dq and dk/dv by
+   pasero_torch/scripts/bench_flash_bwd.py's time_case, the bias-free ones
+   beside) beside the plain version's, its bound, the library yardstick
+   (SDPA with the materialized bias as a float attn_mask; for demb its
+   mask's gradient and index_add_ by bucket; from CUDA graphs, eager
+   beside), "does not fit" where an (Sq, Sk) tensor does not, the forward
+   and the backward at most their library call at the encoder's shape and
+   at most the times of the kernels flash_bwd.cu's replaced at 32768 keys
+   (T5_FWD_EARLIER_MS, T5_BWD_EARLIER_MS, gates only), and the peak memory
+   of forward + backward; the T5 forward at t5_base's decoder shape (32 x
+   12 x 128 x 64, causal) beside its library call; the bias-free kernels at JAX's streamed lengths, (1, 32,
    32768, 128) causal: one head against the plain version, the same bits
    from two backward calls, their device times (the forward at most
    LONG_FWD_MAX_MS, the backward at most LONG_BWD_MAX_MS: the times of the
@@ -177,7 +179,25 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    128 target tokens with the same exact counts per step and its peak
    memory, and TextGenerator.decode of 8 sources of 512 tokens (64 new,
    greedy) with 12 flash_fwd_t5 launches and one slot-write launch per
-   layer per single-token decoder call.
+   layer per single-token decoder call;
+20. float32 models on the flash path: python -m pasero_torch.cli.train
+   with --dtype float32 on pasero_torch/testdata/lm_mini.yaml (its 20
+   losses within 0.1 % of the port's own CPU golden,
+   lm_mini_f32_train20.cpu.json), alibi_mini.yaml and t5_mini.yaml (finite
+   losses that fall), each with exact launch counts of the float32 kernels
+   of csrc/flash_f32.cu and none of a bf16 flash kernel; meanwhile those
+   kernels (forward, dq, dk/dv of every bias kind, dbias, demb) against
+   their plain version within the float32 error model of
+   tests/test_torch_cuda.py (``flash_f32_compare``) at every
+   FLASH_F32_CASES case (GQA at 2048 keys, a ragged window at head dim 128,
+   Sk % 4 != 0, each bias kind at head dims 32, 64 and 128), with a TF32
+   product, another row's lse, a transposed bias, another head's bias or
+   column, shifted distances and dS rounded to bf16 rejected at 2.8 times
+   their limits or more, the same bits from two backward calls, and a
+   learned bias launching the float32 dbias kernel once; then their device
+   time per call (CUDA graph) at F32_TIMED's shapes beside the plain
+   version's, the bound (float32 operations at 67 TFLOP/s or bytes) and
+   float32 SDPA.
 
 The second-to-last line is one JSON object {"kernels": [...]}; the last line
 is {"ok": true, "device": {...}}. Without CUDA the script exits 1 and
@@ -539,8 +559,12 @@ def ce_inputs(N, E, V, dtype, seed=0):
 
 def load_test_module(name: str):
     """A module of tests/ by file name (it holds helpers the smoke test
-    shares with the pytest cases)."""
+    shares with the pytest cases); tests/ goes on the path for the modules
+    it imports in turn."""
     import importlib.util
+    tests = os.path.join(ROOT, "tests")
+    if tests not in sys.path:
+        sys.path.append(tests)
     spec = importlib.util.spec_from_file_location(
         name, os.path.join(ROOT, "tests", f"{name}.py"))
     module = importlib.util.module_from_spec(spec)
@@ -1200,14 +1224,41 @@ def phase9() -> dict:
 
 # -- phase 10 ------------------------------------------------------------------
 
+COLD_BYTES = 100e6   # twice the H100's 50 MB L2
+
+
+def cold_copies(nbytes: float) -> int:
+    """Distinct copies of an operand of ``nbytes`` that hold more than
+    COLD_BYTES in all, so that a call walking them in turn finds its copy
+    outside L2 (one more than the bytes need: a graph's last call reads the
+    copy before the first call of its next replay)."""
+    return max(2, math.ceil(COLD_BYTES / nbytes) + 1)
+
+
+def walking(fn, operands: list):
+    """A call of ``fn`` on the next of ``operands`` each time, in turn."""
+    at = [0]
+
+    def call():
+        i = at[0]
+        at[0] = (i + 1) % len(operands)
+        return fn(operands[i])
+    return call
+
+
 def int8_timing(M, K, N) -> dict:
     """The int8 kernel's device ms per call (CUDA graph) at (M, K, N) with a
     bf16 output, beside the plain version's and the library yardstick's, and
     the bound: its bytes (x, the int8 weight and scales read once, y written
-    once) or its operations."""
+    once) or its operations. "ms" and "library_ms" as a decode reads its
+    weights, cold: the graph walks distinct copies of the weight (int8 for
+    the kernel, bf16 for F.linear) that hold more than COLD_BYTES in all, so
+    no call finds its weight in L2 (a decoder call reads 154 different
+    weights, csrc/int8_matmul.cu); "hot_ms" and "library_hot_ms" with one
+    weight that stays in L2 between calls."""
     import torch
     import torch.nn.functional as F
-    from pasero_torch.ops.quantize import (dequantize, int8_matmul,
+    from pasero_torch.ops.quantize import (QTensor, dequantize, int8_matmul,
                                            int8_matmul_plain)
     cuda_tests = load_test_module("test_torch_cuda")
     x, t = cuda_tests.int8_inputs(M, K, N)
@@ -1220,11 +1271,21 @@ def int8_timing(M, K, N) -> dict:
            "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3,
            "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
                         > flops / BF16_FLOPS else "operations")}
-    res["ms"] = device_ms(lambda: int8_matmul(x, t), iters, 5)
+    copies = cold_copies(N * K)
+    ts = [t] + [QTensor(t.q.clone(), t.scale.clone())
+                for _ in range(copies - 1)]
+    wbs = [wb] + [wb.clone() for _ in range(copies - 1)]
+    walked = max(iters, copies)
+    res["copies"] = copies
+    res["ms"] = device_ms(walking(lambda w: int8_matmul(x, w), ts), walked, 5)
+    res["hot_ms"] = device_ms(lambda: int8_matmul(x, t), iters, 5)
     res["plain_ms"] = device_ms(lambda: int8_matmul_plain(
         x, t.q, t.scale, torch.bfloat16), iters, 5)
     # the library yardstick; the port never calls it
-    res["library_ms"] = device_ms(lambda: F.linear(x, wb), iters, 5)
+    res["library_ms"] = device_ms(walking(lambda w: F.linear(x, w), wbs),
+                                  walked, 5)
+    res["library_hot_ms"] = device_ms(lambda: F.linear(x, wb), iters, 5)
+    del ts, wbs
     # with eager launches: the wrapper's host time where it exceeds the
     # kernel's
     res["host_ms"] = time_ms(lambda: int8_matmul(x, t), 4 * iters, 10)
@@ -1235,11 +1296,13 @@ def int8_timing(M, K, N) -> dict:
 def head_timing(N, E, V, q8: bool) -> dict:
     """The fused head's device ms per call (CUDA graph), beside the plain
     version's and the library yardstick's (matmul, argmax and log_softmax on
-    materialized logits), and the bound."""
+    materialized logits), and the bound; "ms" and "library_ms" cold, over
+    distinct copies of the head as int8_timing walks them, "hot_ms" and
+    "library_hot_ms" on one head."""
     import torch
     from pasero_torch.ops.fused_ce import (fused_head_argmax,
                                            fused_head_argmax_plain)
-    from pasero_torch.ops.quantize import dequantize
+    from pasero_torch.ops.quantize import QTensor, dequantize
     cuda_tests = load_test_module("test_torch_cuda")
     x, t = cuda_tests.int8_inputs(N, E, V, seed=1)
     wb = dequantize(t, torch.bfloat16)
@@ -1249,8 +1312,8 @@ def head_timing(N, E, V, q8: bool) -> dict:
         + N * 12
     flops = 2.0 * N * E * V
 
-    def library():     # the port never calls it
-        logits = torch.matmul(x, wb.t()).float()
+    def library(w):     # the port never calls it
+        logits = torch.matmul(x, w.t()).float()
         tok = logits.argmax(-1)
         return tok, torch.log_softmax(logits, -1).gather(1, tok[:, None])
 
@@ -1258,10 +1321,20 @@ def head_timing(N, E, V, q8: bool) -> dict:
            "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3,
            "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
                         > flops / BF16_FLOPS else "operations")}
-    res["ms"] = device_ms(lambda: fused_head_argmax(x, head), iters, 5)
+    copies = cold_copies(V * E * (1 if q8 else 2))
+    heads = [head] + [QTensor(t.q.clone(), t.scale.clone()) if q8 else
+                      wb.clone() for _ in range(copies - 1)]
+    wbs = [wb] + [wb.clone() for _ in range(cold_copies(V * E * 2) - 1)]
+    res["copies"] = copies
+    res["ms"] = device_ms(walking(lambda h: fused_head_argmax(x, h), heads),
+                          max(iters, copies), 5)
+    res["hot_ms"] = device_ms(lambda: fused_head_argmax(x, head), iters, 5)
     res["plain_ms"] = device_ms(lambda: fused_head_argmax_plain(x, head),
                                 iters, 5)
-    res["library_ms"] = device_ms(library, iters, 5)
+    res["library_ms"] = device_ms(walking(library, wbs),
+                                  max(iters, len(wbs)), 5)
+    res["library_hot_ms"] = device_ms(lambda: library(wb), iters, 5)
+    del heads, wbs
     return res
 
 
@@ -1312,9 +1385,11 @@ def phase10() -> dict:
             r = int8_timing(M, K, N)
             res["int8_matmul"]["by_shape"].append(r)
             log(f"phase 10: int8_matmul at {r['shape']} bf16, device ms per "
-                f"call (CUDA graph): kernel {r['ms']:.5f} (bound "
-                f"{r['bound_ms']:.5f}, {r['bound_by']}), plain "
-                f"{r['plain_ms']:.5f}, library {r['library_ms']:.5f}; with "
+                f"call (CUDA graph), the weight cold ({r['copies']} copies): "
+                f"kernel {r['ms']:.5f} (bound {r['bound_ms']:.5f}, "
+                f"{r['bound_by']}), library {r['library_ms']:.5f}; hot (one "
+                f"weight): kernel {r['hot_ms']:.5f}, library "
+                f"{r['library_hot_ms']:.5f}; plain {r['plain_ms']:.5f}; with "
                 f"eager launches: kernel {r['host_ms']:.5f}, library "
                 f"{r['library_host_ms']:.5f}")
             torch.cuda.empty_cache()
@@ -1324,9 +1399,11 @@ def phase10() -> dict:
             r = head_timing(N, 2048, 32000, q8)
             res[name]["by_shape"].append(r)
             log(f"phase 10: {name} at {r['shape']}, device ms per call (CUDA "
-                f"graph): kernels {r['ms']:.5f} (bound {r['bound_ms']:.5f}, "
-                f"{r['bound_by']}), plain {r['plain_ms']:.5f}, library "
-                f"{r['library_ms']:.5f}")
+                f"graph), the head cold ({r['copies']} copies): kernels "
+                f"{r['ms']:.5f} (bound {r['bound_ms']:.5f}, {r['bound_by']}), "
+                f"library {r['library_ms']:.5f}; hot (one head): kernels "
+                f"{r['hot_ms']:.5f}, library {r['library_hot_ms']:.5f}; plain "
+                f"{r['plain_ms']:.5f}")
             torch.cuda.empty_cache()
     return res
 
@@ -2019,16 +2096,28 @@ ALIBI_CONFIG = os.path.join(TESTDATA, "alibi_mini.yaml")
 ALIBI_TRAIN_GOLDEN = os.path.join(TESTDATA, "alibi_mini_train20.jax.json")
 
 
-def alibi_train_counts(layers: int, micro: int, valid: int) -> dict:
+def flash_counts(want: dict, f32: bool = False) -> dict:
+    """``want`` (launches by bf16 kernel name, fused-CE counts beside) with
+    every flash kernel of ``launch_counts`` present: those ``want`` does not
+    name at 0; with ``f32`` the flash counts moved to the float32 names and
+    every bf16 flash kernel at 0."""
+    from pasero_torch.ops.flash_attention import launch_counts
+    out = {name: 0 for name in launch_counts()}
+    for name, n in want.items():
+        out[name + "_f32" if f32 and name.startswith("flash_") else name] = n
+    return out
+
+
+def alibi_train_counts(layers: int, micro: int, valid: int,
+                       f32: bool = False) -> dict:
     """The launches of ALiBi training: the biased flash kernels per layer and
-    batch, no dbias (the bias is a constant), no bias-free or T5 kernel."""
-    return {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-            "flash_fwd_bias": layers * (micro + valid),
-            "flash_bwd_dq_bias": layers * micro,
-            "flash_bwd_dkv_bias": layers * micro, "flash_fwd_t5": 0,
-            "flash_bwd_dq_t5": 0, "flash_bwd_dkv_t5": 0, "flash_bwd_dbias": 0,
-            "flash_bwd_demb": 0, "fused_ce_fwd": micro + valid,
-            "fused_ce_bwd": micro}
+    batch, no dbias (the bias is a constant), no bias-free or T5 kernel;
+    with ``f32`` their float32 instances, and no bf16 flash kernel."""
+    return flash_counts({"flash_fwd_bias": layers * (micro + valid),
+                         "flash_bwd_dq_bias": layers * micro,
+                         "flash_bwd_dkv_bias": layers * micro,
+                         "fused_ce_fwd": micro + valid,
+                         "fused_ce_bwd": micro}, f32)
 
 
 def phase17() -> dict:
@@ -2189,11 +2278,14 @@ FLASH_T5_SHAPES = [  # (B, H, Hkv, S, D), causal, window, padded, bidirectional
     ((1, 1, 1, 32768, 64), False, None, False, True),   # 32768 keys
 ]
 T5_TIMED = ((32, 12, 12, 512, 64), (1, 12, 12, 32768, 64))  # bidirectional
-# device ms per call of the T5 dq and dk/dv kernels that flash_bwd.cu's
-# replaced (flash_attention.cu's mma.sync kernels) at T5_TIMED's shapes
-# (PERF.md, "NVIDIA H100 80GB HBM3, 700.00 W")
+T5_DECODER = (32, 12, 12, 128, 64)   # t5_base's decoder, causal
+# device ms per call of the T5 kernels that flash_bwd.cu's replaced
+# (flash_attention.cu's mma.sync kernels) at T5_TIMED's shapes (PERF.md,
+# "NVIDIA H100 80GB HBM3, 700.00 W"): gates where the library call does not
+# fit, not readings of this run
 T5_BWD_EARLIER_MS = {T5_TIMED[0]: {"dq": 0.4265, "dkv": 0.4693},
                      T5_TIMED[1]: {"dq": 41.7062, "dkv": 55.8098}}
+T5_FWD_EARLIER_MS = {T5_TIMED[1]: 23.4549}
 LONG = (1, 32, 32, 32768, 128)   # JAX's streamed regime, bias-free, causal
 
 
@@ -2235,15 +2327,19 @@ def fits(nbytes: float) -> bool:
 
 def flash_t5_timing(shape, cuda_tests) -> dict:
     """At a bidirectional T5 shape (no padding): device ms per call of each
-    T5 kernel (CUDA graph), the plain version's ms, the bounds (the larger
-    of the products over the bf16 rate and the bytes over the memory rate;
-    the table and the distance index count as read once), and the library
-    yardstick: F.scaled_dot_product_attention with the materialized bias as
-    a bf16 float attn_mask, its backward, and for demb its backward with the
-    mask's gradient followed by index_add_ of that gradient by bucket. The
-    plain version and the yardstick need (Sq, Sk) tensors: "does not fit"
-    where they do not. Also the peak memory of forward + backward through
-    flash_attention's autograd, beside the bytes of a float32 bias."""
+    T5 kernel (CUDA graph; the forward, dq and dk/dv, and the bias-free ones
+    beside, by bench_flash_bwd's time_case), the plain version's ms, the
+    bounds (the larger of the products over the bf16 rate and the bytes
+    over the memory rate; the table and the distance index count as read
+    once), and the library yardstick: F.scaled_dot_product_attention with
+    the materialized bias as a bf16 float attn_mask, its backward, and for
+    demb its backward with the mask's gradient followed by index_add_ of
+    that gradient by bucket. The plain version and the yardstick need (Sq,
+    Sk) tensors: "does not fit" where they do not. The forward and the
+    backward at most their library call, or where it does not fit the
+    kernels they replaced (T5_FWD_EARLIER_MS, T5_BWD_EARLIER_MS). Also the
+    peak memory of forward + backward through flash_attention's autograd,
+    beside the bytes of a float32 bias."""
     import torch
     import torch.nn.functional as F
     from pasero_torch.ops.flash_attention import (T5Bias, flash_attention,
@@ -2278,19 +2374,15 @@ def flash_t5_timing(shape, cuda_tests) -> dict:
            "dq": bound(3, 4 * q_bytes + 2 * kv_bytes + 2 * row_bytes),
            "dkv": bound(4, 2 * q_bytes + 4 * kv_bytes + 2 * row_bytes),
            "demb": bound(2, 2 * q_bytes + 2 * kv_bytes + 2 * row_bytes)}
-    kernels = {
-        "fwd": lambda: flash_fwd(q, k, v, mask, *args, t5),
-        "dq": lambda: flash_bwd_dq(q, k, v, mask, out, lse, do, *args, t5),
-        "dkv": lambda: flash_bwd_dkv(q, k, v, mask, do, lse, delta, *args,
-                                     t5),
-        "demb": lambda: flash_bwd_demb(q, k, v, mask, t5, do, lse, delta,
-                                       *args),
-    }
     long = S > 4096
-    for key, fn in kernels.items():
-        res[key]["ms"] = device_ms(fn, iters=2 if long else 10,
-                                   replays=2 if long else 5)
+    res["demb"]["ms"] = device_ms(
+        lambda: flash_bwd_demb(q, k, v, mask, t5, do, lse, delta, *args),
+        iters=2 if long else 10, replays=2 if long else 5)
+    timed = time_case(shape, False, "t5")
+    for key in ("fwd", "dq", "dkv"):
+        res[key]["ms"] = timed["t5"][key]
     res["bwd"]["ms"] = res["dq"]["ms"] + res["dkv"]["ms"]
+    res["bias_free"] = timed["none"]
     scores = 4.0 * B * H * S * S          # one float32 (Sq, Sk) tensor
     plain = fits(8 * scores)
     nofit = "does not fit"
@@ -2335,18 +2427,19 @@ def flash_t5_timing(shape, cuda_tests) -> dict:
     for key in ("dq", "dkv"):
         res[key]["library_ms"] = res["bwd"]["library_ms"]
         res[key]["library_host_ms"] = res["bwd"]["library_host_ms"]
-    res["bias_free"] = time_case(shape, False, None)["none"]
     earlier = T5_BWD_EARLIER_MS[tuple(shape)]
-    log(f"phase 18: at {shape} the T5 backward dq {res['dq']['ms']:.4f} + "
-        f"dk/dv {res['dkv']['ms']:.4f} ms (before flash_bwd.cu's design "
-        f"{earlier['dq']} + {earlier['dkv']}); the bias-free dq "
+    log(f"phase 18: at {shape} the T5 forward {res['fwd']['ms']:.4f} ms, "
+        f"backward dq {res['dq']['ms']:.4f} + dk/dv {res['dkv']['ms']:.4f} "
+        f"ms; the bias-free forward {res['bias_free']['fwd']:.4f}, dq "
         f"{res['bias_free']['dq']:.4f} + dk/dv {res['bias_free']['dkv']:.4f} "
         f"at the same shape")
-    most = res["bwd"]["library_ms"]
-    if isinstance(most, str):   # the library call does not fit
-        most = earlier["dq"] + earlier["dkv"]
-    check(res["bwd"]["ms"] <= most, f"the T5 backward takes "
-          f"{res['bwd']['ms']:.4f} ms at {shape}, more than {most:.4f}")
+    for key, gate in (("fwd", T5_FWD_EARLIER_MS.get(tuple(shape))),
+                      ("bwd", earlier["dq"] + earlier["dkv"])):
+        most = res[key]["library_ms"]
+        if isinstance(most, str):   # the library call does not fit
+            most = gate
+        check(res[key]["ms"] <= most, f"the T5 {key} takes "
+              f"{res[key]['ms']:.4f} ms at {shape}, more than {most:.4f}")
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
@@ -2375,6 +2468,39 @@ def flash_t5_timing(shape, cuda_tests) -> dict:
     log(f"phase 18: at {shape} forward + backward through flash_attention: "
         f"peak {res['peak_mib']:.1f} MiB above the inputs; a float32 bias "
         f"would take {res['bias_mib']:.1f} MiB")
+    torch.cuda.empty_cache()
+    return res
+
+
+def t5_decoder_timing() -> dict:
+    """The T5 forward at t5_base's decoder shape (causal, a unidirectional
+    table): device ms per call (bench_flash_bwd's time_case) beside the
+    library yardstick's (SDPA with the materialized bias and the causal mask
+    as one bf16 float attn_mask; the port never calls it) and the bound."""
+    import torch
+    import torch.nn.functional as F
+    from pasero_torch.scripts.bench_flash_bwd import inputs, time_case
+    B, H, Hkv, S, D = T5_DECODER
+    q, k, v, _, _, t5 = inputs(B, H, Hkv, S, D, "t5_causal")
+    future = torch.ones(S, S, dtype=torch.bool, device=q.device).triu(1)
+    lib_mask = t5.materialize(S, S).masked_fill(future, float("-inf")).to(
+        torch.bfloat16)
+    timed = time_case(T5_DECODER, True, "t5_causal")
+    ops = 2 * 2.0 * B * H * S * (S + 1) / 2 * D / BF16_FLOPS
+    mem = (2 * B * H * S * D * 2 + 2 * B * Hkv * S * D * 2 + B * H * S * 4) \
+        / HBM_BYTES_PER_S
+    res = {"shape": list(T5_DECODER), "ms": timed["t5_causal"]["fwd"],
+           "bias_free_ms": timed["none"]["fwd"],
+           "library_ms": device_ms(lambda: F.scaled_dot_product_attention(
+               q, k, v, attn_mask=lib_mask, scale=D ** -0.5), 10, 5),
+           "bound_ms": max(ops, mem) * 1e3,
+           "bound_by": "operations" if ops >= mem else "bytes"}
+    log(f"phase 18: the T5 forward at t5_base's decoder shape {T5_DECODER} "
+        f"causal: device ms per call (CUDA graph) {res['ms']:.4f}, bound "
+        f"{res['bound_ms']:.4f} ({res['bound_by']}), library "
+        f"{res['library_ms']:.4f}, the bias-free forward "
+        f"{res['bias_free_ms']:.4f}")
+    del q, k, v, lib_mask
     torch.cuda.empty_cache()
     return res
 
@@ -2442,6 +2568,7 @@ def phase18() -> dict:
             errs[key] = max(errs[key], err)
     res = flash_t5_timing(T5_TIMED[0], cuda_tests)
     res["at_32768"] = flash_t5_timing(T5_TIMED[1], cuda_tests)
+    res["decoder"] = t5_decoder_timing()
     for key in errs:
         res[key]["max_abs_err"] = errs[key]
     res["long"] = long_context(cuda_tests)
@@ -2456,21 +2583,21 @@ T5_TRAIN_GOLDEN = os.path.join(TESTDATA, "t5_mini_train20.jax.json")
 
 
 def t5_train_counts(enc_layers: int, dec_layers: int, micro: int,
-                    valid: int) -> dict:
+                    valid: int, f32: bool = False) -> dict:
     """The launches of T5 training: the T5 kernels in every self-attention
     (demb for each table's gradient), the bias-free kernels in every
-    cross-attention, no dbias, no dense-bias kernel."""
+    cross-attention, no dbias, no dense-bias kernel; with ``f32`` their
+    float32 instances, and no bf16 flash kernel."""
     layers = enc_layers + dec_layers
-    return {"flash_fwd": dec_layers * (micro + valid),
-            "flash_bwd_dq": dec_layers * micro,
-            "flash_bwd_dkv": dec_layers * micro,
-            "flash_fwd_bias": 0, "flash_bwd_dq_bias": 0,
-            "flash_bwd_dkv_bias": 0,
-            "flash_fwd_t5": layers * (micro + valid),
-            "flash_bwd_dq_t5": layers * micro,
-            "flash_bwd_dkv_t5": layers * micro,
-            "flash_bwd_dbias": 0, "flash_bwd_demb": layers * micro,
-            "fused_ce_fwd": micro + valid, "fused_ce_bwd": micro}
+    return flash_counts({"flash_fwd": dec_layers * (micro + valid),
+                         "flash_bwd_dq": dec_layers * micro,
+                         "flash_bwd_dkv": dec_layers * micro,
+                         "flash_fwd_t5": layers * (micro + valid),
+                         "flash_bwd_dq_t5": layers * micro,
+                         "flash_bwd_dkv_t5": layers * micro,
+                         "flash_bwd_demb": layers * micro,
+                         "fused_ce_fwd": micro + valid,
+                         "fused_ce_bwd": micro}, f32)
 
 
 def count_encoder_calls(model) -> list:
@@ -2642,6 +2769,280 @@ def phase19() -> dict:
     res["train"], res["decode"] = train, decode
     return res
 
+# -- phase 20 ------------------------------------------------------------------
+
+# The float32 kernels' timings, one shape per bias kind: bias kind ->
+# ((B, H, Hkv, S, D), causal)
+F32_TIMED = {
+    None: ((2, 8, 2, 2048, 64), True),      # llama-like GQA: rows 10, 13
+    "alibi": ((2, 8, 8, 2048, 64), True),   # rows 9, 12, 15 (per-sample ALiBi)
+    "t5": ((8, 12, 12, 512, 64), False),    # rows 11, 14, 16
+}
+F32_LM_RTOL = 0.001   # the port's own CLI in float32 on the CPU
+F32_CONFIGS = {"lm": LM_CONFIG, "alibi": os.path.join(TESTDATA, "alibi_mini.yaml"),
+               "t5": os.path.join(TESTDATA, "t5_mini.yaml")}
+
+
+def f32_timing(kind, cuda_tests) -> dict:
+    """The float32 kernels of one bias kind at F32_TIMED's shape: device ms
+    per call (CUDA graph) of the forward, dq, dk/dv and dbias or demb, the
+    bounds (the products over the card's float32 rate outside the tensor
+    cores, FP32_FLOPS, or the float32 bytes over the memory rate), the plain
+    version's ms, and the library yardstick: F.scaled_dot_product_attention
+    on the float32 operands (the bias materialized as a float32 attn_mask),
+    its backward, with the mask's gradient for dbias and demb (index_add_ by
+    bucket after it for demb)."""
+    import torch
+    import torch.nn.functional as F
+    from pasero_torch.ops.flash_attention import (
+        T5Bias, flash_bwd_dbias, flash_bwd_demb, flash_bwd_dkv, flash_bwd_dq,
+        flash_bwd_plain, flash_dbias_plain, flash_demb_plain, flash_fwd,
+        flash_fwd_plain, visible)
+    (B, H, Hkv, S, D), causal = F32_TIMED[kind]
+    q, k, v, do, mask = cuda_tests.flash_inputs(B, H, Hkv, S, D, False,
+                                                dtype=torch.float32)
+    if kind == "t5":
+        bias = T5Bias(cuda_tests.t5_table(H), True)
+        dense = bias.materialize(S, S)
+    else:
+        bias = dense = None if kind is None else \
+            cuda_tests.flash_bias(kind, B, H, S, mask)
+    args = (D ** -0.5, causal, None)
+    out, lse = flash_fwd(q, k, v, mask, *args, bias)
+    _, delta = flash_bwd_dq(q, k, v, mask, out, lse, do, *args, bias)
+    pairs = float(visible(mask, S, causal, None).expand(B, 1, S, S).sum()) * H
+    product = 2.0 * pairs * D
+    q_bytes, kv_bytes, row_bytes = B * H * S * D * 4, B * Hkv * S * D * 4, \
+        B * H * S * 4
+    bias_bytes = 0 if dense is None else (
+        4 * (2 * S - 1) + 4 * 32 * H if kind == "t5"
+        else 4.0 * pairs / H * dense.shape[1] * dense.shape[0] / B)
+
+    def bound(products, nbytes):
+        ops, mem = products * product / FP32_FLOPS, nbytes / HBM_BYTES_PER_S
+        return {"bound_ms": max(ops, mem) * 1e3, "ops_bound_ms": ops * 1e3,
+                "bytes_bound_ms": mem * 1e3,
+                "bound_by": "operations" if ops >= mem else "bytes"}
+
+    res = {"shape": [B, H, Hkv, S, D], "causal": causal,
+           "fwd": bound(2, 2 * q_bytes + 2 * kv_bytes + row_bytes
+                        + bias_bytes),
+           "dq": bound(3, 4 * q_bytes + 2 * kv_bytes + 2 * row_bytes
+                       + bias_bytes),
+           "dkv": bound(4, 2 * q_bytes + 4 * kv_bytes + 2 * row_bytes
+                        + bias_bytes)}
+    kernels = {
+        "fwd": lambda: flash_fwd(q, k, v, mask, *args, bias),
+        "dq": lambda: flash_bwd_dq(q, k, v, mask, out, lse, do, *args, bias),
+        "dkv": lambda: flash_bwd_dkv(q, k, v, mask, do, lse, delta, *args,
+                                     bias)}
+    grad = None
+    if kind == "t5":
+        grad = "demb"
+        res[grad] = bound(2, 2 * q_bytes + 2 * kv_bytes + 2 * row_bytes
+                          + bias_bytes)
+        kernels[grad] = lambda: flash_bwd_demb(q, k, v, mask, bias, do, lse,
+                                               delta, *args)
+    elif kind is not None:
+        grad = "dbias"
+        res[grad] = bound(2, 2 * q_bytes + 2 * kv_bytes + 2 * row_bytes
+                          + 2 * bias_bytes)
+        kernels[grad] = lambda: flash_bwd_dbias(q, k, v, mask, bias, do, lse,
+                                                delta, *args)
+    for key, fn in kernels.items():
+        res[key]["ms"] = device_ms(fn, 5, 3)
+    plain = {"fwd": lambda: flash_fwd_plain(q, k, v, mask, *args, bias),
+             "dq": lambda: flash_bwd_plain(q, k, v, mask, out, lse, do, *args,
+                                           bias)}
+    if grad:
+        plain[grad] = lambda: (flash_demb_plain if kind == "t5" else
+                               flash_dbias_plain)(q, k, v, mask, out, lse, do,
+                                                  *args, bias)
+    for key, fn in plain.items():
+        res[key]["plain_ms"] = time_ms(fn, 3, 1)
+    res["dkv"]["plain_ms"] = res["dq"]["plain_ms"]   # one plain backward
+    # the library yardstick; the port never calls it
+    future = torch.ones(S, S, dtype=torch.bool, device=q.device).triu(1)
+    lib_mask = None if dense is None else dense.expand(B, H, S, S)
+    if causal:
+        lib_mask = torch.zeros(S, S, device=q.device) if lib_mask is None \
+            else lib_mask
+        lib_mask = lib_mask.masked_fill(future, float("-inf"))
+    lib_mask = None if lib_mask is None else lib_mask.contiguous()
+
+    def sdpa(q, k, v, m=lib_mask):
+        if Hkv != H:
+            k, v = (x.repeat_interleave(H // Hkv, 1) for x in (k, v))
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=m,
+                                              scale=args[0])
+    lib = library_times(sdpa, (q, k, v), do, 5, 5)
+    res["fwd"]["library_ms"] = lib["fwd"]
+    res["dq"]["library_ms"] = res["dkv"]["library_ms"] = lib["bwd"]
+    if grad:
+        buckets = bias.buckets(S, S).reshape(-1) if kind == "t5" else None
+
+        def mask_grad(grads):   # the mask's gradient, by bucket for T5
+            g = grads[-1]
+            if buckets is None:
+                return g
+            demb = torch.zeros(H, 32, device=q.device)
+            return demb.index_add_(1, buckets, g.sum(0).reshape(H, S * S))
+        lib = library_times(lambda *x: sdpa(*x[:3], x[3]),
+                            (q, k, v, lib_mask), do, 3, 3, grad_of=mask_grad)
+        res[grad]["library_ms"] = lib["bwd"]
+    del q, k, v, do, out, lse, delta, lib_mask, dense
+    torch.cuda.empty_cache()
+    for key in kernels:
+        r = res[key]
+        log(f"phase 20: float32 {key} with bias {kind} at "
+            f"{tuple(res['shape'])} causal {causal}: device ms per call (CUDA "
+            f"graph) {r['ms']:.4f}, bound {r['bound_ms']:.4f} "
+            f"({r['bound_by']}: float32 operations {r['ops_bound_ms']:.4f}, "
+            f"bytes {r['bytes_bound_ms']:.4f}), plain {r['plain_ms']:.4f}, "
+            f"library {r['library_ms']:.4f}")
+    return res
+
+
+def f32_cli(name: str):
+    """``python -m pasero_torch.cli.train`` on F32_CONFIGS[name] with
+    ``--dtype float32``, started in a subprocess: (process, model
+    directory)."""
+    import shutil
+    cli = load_test_module("test_torch_train_cli")
+    lm_cli = load_test_module("test_torch_lm_cli")
+    model_dir = os.path.join(ROOT, "build", f"smoke-f32-{name}")
+    shutil.rmtree(model_dir, ignore_errors=True)
+    os.makedirs(model_dir)
+    ckpt = os.path.join(ROOT, "build", f"smoke-f32-{name}-init.npz")
+    cli.write_initial_weights(ckpt, F32_CONFIGS[name])
+    cmd = [sys.executable, "-m", "pasero_torch.cli.train",
+           *cli.train_flags(model_dir, ckpt, F32_CONFIGS[name]),
+           *lm_cli.F32_FLAGS]
+    return subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True), model_dir
+
+
+def phase20() -> dict:
+    """Float32 models on the flash path: the training CLI in float32 on
+    lm_mini.yaml (losses within F32_LM_RTOL of the port's own CPU golden),
+    alibi_mini.yaml and t5_mini.yaml (finite losses that fall), each with
+    exact launch counts of the float32 kernels and none of a bf16 flash
+    kernel, in subprocesses while the float32 kernels are held against their
+    plain version within the float32 error model of tests/test_torch_cuda.py
+    (``flash_f32_compare``) at every FLASH_F32_CASES case and a learned bias
+    launches the float32 dbias kernel once; then, alone on the card, their
+    times at F32_TIMED's shapes."""
+    import torch
+    from pasero_torch.ops import flash_attention as fa
+    cuda_tests = load_test_module("test_torch_cuda")
+    t0 = time.perf_counter()
+    procs = {name: f32_cli(name) for name in F32_CONFIGS}
+    errs = {}
+    for case in cuda_tests.FLASH_F32_CASES:
+        r = cuda_tests.flash_f32_compare(*case)
+        check(r["lse_err"] <= cuda_tests.F32_LSE_ATOL, f"float32 lse differs "
+              f"at {case} by {r['lse_err']}")
+        check(max(r["excess"]) <= 1.0, f"float32 flash kernels differ at "
+              f"{case}: {r['excess']} of their limits")
+        check(min(r["mutants"].values()) >= 2.8, f"the float32 flash check "
+              f"at {case} passes a mutation: {r['mutants']}")
+        check(r["same_bits"], f"two float32 backward calls at {case} gave "
+              "other bits")
+        kind = case[-1] if case[-1] in (None, "t5") else (
+            "t5" if case[-1] == "t5_causal" else "alibi")
+        for key, e in r["max_abs_err"].items():
+            at = (kind, key)
+            errs[at] = max(errs.get(at, 0.0), e)
+        log(f"phase 20: float32 flash kernels == plain at {case}: out, dq, "
+            f"dk, dv{', ' + ('demb' if 't5' in str(case[-1]) else 'dbias') if case[-1] else ''} "
+            f"at {', '.join(f'{e:.3f}' for e in r['excess'])} of their limits, "
+            f"lse {r['lse_err']:.2e}; mutations at "
+            f"{json.dumps({k: round(v, 1) for k, v in r['mutants'].items()})} "
+            f"of them; dq, dk, dv the same bits twice")
+        torch.cuda.empty_cache()
+    res = {"errs": errs, "timing": {}}
+    # a learned bias through flash_attention's autograd: dbias's one launch
+    (B, H, Hkv, S, D), causal, *_ = cuda_tests.FLASH_F32_CASES[4]
+    q, k, v, do, mask = cuda_tests.flash_inputs(B, H, Hkv, S, D, True,
+                                                dtype=torch.float32)
+    bias = cuda_tests.flash_bias("learned_1xH", B, H, S, mask)
+    bias.requires_grad_()
+    fa.reset_launch_counts()
+    fa.flash_attention(q, k, v, mask=mask[:, None, None, :], bias=bias,
+                       scale=D ** -0.5, causal=causal).backward(do)
+    torch.cuda.synchronize()
+    counts = fa.launch_counts()
+    want = {n: int(n.endswith("bias_f32")) for n in counts}
+    check(counts == want, f"a float32 learned bias through flash_attention "
+          f"launched {counts}, not {want}")
+    res["learned_bias_launches"] = counts
+    del q, k, v, do, bias
+    # the training CLI in float32
+    cli = load_test_module("test_torch_train_cli")
+    res["cli"] = {}
+    for name, (proc, model_dir) in procs.items():
+        out = proc.communicate(timeout=900)[0]
+        check(proc.returncode == 0, f"cli.train (float32 {name}) failed:\n"
+              f"{out[-4000:]}")
+        logs = cli.parse_log(out)
+        losses = [l["loss"] for l in logs]
+        check([l["step"] for l in logs] == list(range(1, 21)),
+              f"float32 {name}: logged steps {[l['step'] for l in logs]}")
+        check(all(map(math.isfinite, losses)) and losses[-1] < losses[0],
+              f"float32 {name}: losses {losses}")
+        counts = parse_launches(out)
+        micro, valid = counts["train micro-batches"], counts["valid batches"]
+        check(micro == 20 and valid > 0, f"float32 {name}: {micro} "
+              f"micro-batches, {valid} validation batches")
+        with open(os.path.join(model_dir, "config.json")) as f:
+            config = json.load(f)
+        with open(os.path.join(model_dir, "inference.yaml")) as f:
+            check("dtype: float32" in f.read().splitlines(), f"float32 "
+                  f"{name}: the model directory's inference.yaml names "
+                  "another dtype")
+        if name == "t5":
+            want = t5_train_counts(config["encoder_layers"],
+                                   config["decoder_layers"], micro, valid,
+                                   True)
+        elif name == "alibi":
+            want = alibi_train_counts(config["decoder_layers"], micro, valid,
+                                      True)
+        else:
+            layers = config["decoder_layers"]
+            want = flash_counts({"flash_fwd": layers * (micro + valid),
+                                 "flash_bwd_dq": layers * micro,
+                                 "flash_bwd_dkv": layers * micro,
+                                 "fused_ce_fwd": micro + valid,
+                                 "fused_ce_bwd": micro}, True)
+        got = {key: counts[key] for key in want}
+        check(got == want, f"float32 {name} CLI launches {got} != {want}")
+        worst = None
+        if name == "lm":
+            with open(os.path.join(TESTDATA,
+                                   "lm_mini_f32_train20.cpu.json")) as f:
+                golden = json.load(f)["steps"]
+            worst = max(abs(l["loss"] - g["loss"]) / abs(g["loss"])
+                        for l, g in zip(logs, golden))
+            check(worst <= F32_LM_RTOL, f"float32 LM losses {losses} differ "
+                  f"from the CPU golden's {[g['loss'] for g in golden]} by "
+                  f"{worst:.4%}")
+        log(f"phase 20: python -m pasero_torch.cli.train on "
+            f"{os.path.basename(F32_CONFIGS[name])} --dtype float32, 20 "
+            f"steps: losses {losses[0]:.3f} -> {losses[-1]:.3f}"
+            + ("" if worst is None else f", all within {worst:.4%} of the "
+               "port's float32 CPU golden")
+            + f"; float32 flash launches "
+            f"{ {k: v for k, v in got.items() if k.endswith('_f32') and v} } "
+            f"and no bf16 flash kernel, for {micro} micro-batches and "
+            f"{valid} validation batches")
+        res["cli"][name] = {"launches": got, "worst_loss_rel": worst,
+                            "losses": losses}
+    # timed once the CLIs have ended, alone on the card
+    for kind in F32_TIMED:
+        res["timing"][kind] = f32_timing(kind, cuda_tests)
+    log(f"phase 20: done in {time.perf_counter() - t0:.1f} s")
+    return res
+
 
 def main():
     try:
@@ -2678,6 +3079,7 @@ def main():
     alibi = phase17()
     t5 = phase18()
     t5_paths = phase19()
+    f32 = phase20()
     kernels = [{
         "name": "cache_slot_write",
         "route": "cuda",
@@ -2798,6 +3200,9 @@ def main():
             "bound_ms": at["bound_ms"],
             "bound_by": at["bound_by"],
             "library_ms": at["library_ms"],
+            "hot_ms": at["hot_ms"],
+            "library_hot_ms": at["library_hot_ms"],
+            "weight_copies": at["copies"],
             "shape": timed,
             "by_shape": own["by_shape"],
             "launches_by_mode": {m: counts[name]
@@ -2884,8 +3289,8 @@ def main():
         entry = {
             "name": name,
             "route": "cuda",
-            "source": ("pasero_torch/csrc/flash_bwd.cu" if key in ("dq", "dkv")
-                       else "pasero_torch/csrc/flash_attention.cu"),
+            "source": ("pasero_torch/csrc/flash_attention.cu" if key == "demb"
+                       else "pasero_torch/csrc/flash_bwd.cu"),
             "replaces": f"pasero_tpu/ops/flash_attention.py:{line}",
             "kernel_body": f"pasero_tpu/ops/flash_attention.py:{body}",
             "launches": t5_paths["cli"]["launches"][name],
@@ -2912,6 +3317,9 @@ def main():
                 t5["at_32768"]["bias_free"][key]
         if key == "fwd":
             entry["decode_launches"] = t5_paths["decode"]["flash_fwd_t5"]
+            entry["bias_free_ms"] = t5["bias_free"]["fwd"]
+            entry["at_32768"]["bias_free_ms"] = t5["at_32768"]["bias_free"]["fwd"]
+            entry["decoder"] = t5["decoder"]
         kernels.append(entry)
     # the bias-free kernels also serve JAX's streamed regime (rows 11, 14)
     for entry in kernels:
@@ -2924,6 +3332,47 @@ def main():
             if key != "fwd":
                 entry["same_bits"] = flash["same_bits"] and \
                     t5["long"]["same_bits"]
+    # the float32 instances of every flash row (csrc/flash_f32.cu):
+    # launches of the float32 training CLIs (phase 20: lm_mini.yaml for the
+    # bias-free kernels, alibi_mini.yaml for the biased ones, t5_mini.yaml
+    # for the T5 ones; dbias of the learned bias), numbers at F32_TIMED's
+    # shapes
+    for name, kind, key, line, cli in (
+            ("flash_fwd_f32", None, "fwd", 342, "lm"),
+            ("flash_bwd_dq_f32", None, "dq", 1086, "lm"),
+            ("flash_bwd_dkv_f32", None, "dkv", 1086, "lm"),
+            ("flash_fwd_bias_f32", "alibi", "fwd", 381, "alibi"),
+            ("flash_bwd_dq_bias_f32", "alibi", "dq", 1398, "alibi"),
+            ("flash_bwd_dkv_bias_f32", "alibi", "dkv", 1398, "alibi"),
+            ("flash_bwd_dbias_f32", "alibi", "dbias", 1213, None),
+            ("flash_fwd_t5_f32", "t5", "fwd", 544, "t5"),
+            ("flash_bwd_dq_t5_f32", "t5", "dq", 738, "t5"),
+            ("flash_bwd_dkv_t5_f32", "t5", "dkv", 738, "t5"),
+            ("flash_bwd_demb_f32", "t5", "demb", 1318, "t5")):
+        own = f32["timing"][kind]
+        entry = {
+            "name": name,
+            "route": "cuda",
+            "source": "pasero_torch/csrc/flash_f32.cu",
+            "replaces": f"pasero_tpu/ops/flash_attention.py:{line}",
+            "dtype": "float32",
+            "launches": (f32["cli"][cli]["launches"][name] if cli else
+                         f32["learned_bias_launches"][name]),
+            "max_abs_err": f32["errs"][(kind, key)],
+            "ms": own[key]["ms"],
+            "plain_ms": own[key]["plain_ms"],
+            "bound_ms": own[key]["bound_ms"],
+            "bound_by": own[key]["bound_by"],
+            "ops_bound_ms": own[key]["ops_bound_ms"],
+            "bytes_bound_ms": own[key]["bytes_bound_ms"],
+            "library_ms": own[key]["library_ms"],
+            "shape": own["shape"],
+            "causal": own["causal"],
+        }
+        if cli is None:   # no main path launches it: a learned bias does
+            entry["learned_bias_launches"] = entry["launches"]
+            entry["launches"] = f32["cli"]["alibi"]["launches"][name]
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,10 @@
-// Flash attention for grouped K/V heads with an additive float32 bias or
-// with T5's relative-position table: the forward, and the backward's
-// gradients of the bias (dbias) and of the table (demb):
+// Flash attention for grouped K/V heads with an additive float32 bias: the
+// forward, and the backward's gradients of a dense bias (dbias) and of T5's
+// relative-position table (demb):
 //
 //   s[i, j]  = scale * sum_d q[b, h, i, d] * k[b, h / G, j, d]     (fp32)
 //              (+ bias[b, h, i, j], float32, in the biased kernels)
-//              (+ table[index[j - i + Sq - 1], h], float32, in the T5 ones)
+//              (+ table[index[j - i + Sq - 1], h], float32, in demb)
 //   p[i, j]  = exp(s[i, j] - lse[i]) where key j is visible from row i, else 0
 //   out[i]   = sum_j p[i, j] * v[b, h / G, j]          (p rounded to bf16 first)
 //   lse[i]   = log sum_j exp(s[i, j])                   (fp32; -1e30 if no key)
@@ -20,8 +20,9 @@
 //   dbias[i, j] = dS[i, j], unrounded fp32, 0 where key j is not visible
 //   demb[n, h]  = sum over b and the (i, j) of bucket n of dS[b, h, i, j]
 //
-// dq, dk and dv of every kind, and the bias-free forward, are flash_bwd.cu's
-// wgmma kernels.
+// The bias-free and the T5 forward, and dq and dk/dv of every kind, are
+// flash_bwd.cu's wgmma kernels; the float32 kernels of every kind are
+// flash_f32.cu's.
 //
 // The bias is (b0 h0, Sq, Sk) rows with b0 in {1, B} and h0 in {1, H}; the
 // row of (b, h) is b bs + h hs (bias_row), so a shared bias is never
@@ -31,23 +32,22 @@
 // change of base before the subtraction would lose it. Such a row is an
 // ordinary softmax over its -1e9 entries, not a row without keys.
 //
-// The T5 kernels take the (nb, H) float32 table and the bucket of every
-// key-query distance, an int32 index of Sq + Sk - 1 entries computed on the
-// host with JAX's float32 log (pasero_torch/models/positional.py), so no
-// transcendental decides a bucket here and the direction (bidirectional or
-// not) lives in the index. Per (query tile, key tile) a block stages its
-// head's table column and the tile's bias by diagonal, R + C - 1 floats
-// (t5_diagonals), and adds it to the score as the biased kernels add a bias
-// tile, in natural units. JAX computes the bucket inside the kernel from
-// block position iotas (_t5_tile, :124; _t5_bucket, :140); the slots are
-// positions, as there (right-padded rows).
+// demb takes the (nb, H) float32 table and the bucket of every key-query
+// distance, an int32 index of Sq + Sk - 1 entries computed on the host with
+// JAX's float32 log (pasero_torch/models/positional.py), so no transcendental
+// decides a bucket here and the direction (bidirectional or not) lives in
+// the index. Per (query tile, key tile) a block stages its head's table
+// column and the tile's bias by diagonal, R + C - 1 floats (t5_diagonals),
+// and adds it to the score as the biased kernels add a bias tile, in natural
+// units. JAX computes the bucket inside the kernel from block position iotas
+// (_t5_tile, :124; _t5_bucket, :140); the slots are positions, as there
+// (right-padded rows).
 //
-// Kernels and the TPU kernels they replace (KIND = DENSE_BIAS / T5_BIAS; the
-// bias-free forward, NO_BIAS, is flash_bwd.cu's wgmma kernel):
+// Kernels and the TPU kernels they replace:
 //   fwd_kernel     _fwd_kernel (pasero_tpu/ops/flash_attention.py:186, through
-//                  _fwd, :381) / _fwd_stream_kernel (:474, through
-//                  _fwd_stream, :544); the bias-free _fwd_packed_kernel (:261,
-//                  through _fwd_packed, :342) is flash_bwd.cu's;
+//                  _fwd, :381), and the dense-bias mode of the streamed
+//                  _fwd_stream (:544): 64-key tiles stream through shared
+//                  memory, so one instance takes any key length;
 //   dbias_kernel   _dbias_kernel (:1160, through _compute_dbias, :1213): one
 //                  block per (64-row query tile, output row); a bias shared
 //                  over the batch is summed over it inside the block, batch
@@ -64,19 +64,14 @@
 //                  share one bucket, costs its bucket's thread 127 adds, not
 //                  4096 contended ones.
 //
-// The TPU kernels stream K/V past 8 MiB of VMEM (_use_streaming, :467), and
-// always for T5; these already stream 64-key tiles through shared memory, so
-// one instance takes any key length: the dense-bias mode of _fwd_stream is
-// the DENSE_BIAS instance of fwd_kernel.
-//
-// What bounds them: operations with T5's table. One causal product at B = 4,
-// H = 32, S = 2048, D = 64 is 2 B H S^2 D / 2 = 34.4 GFLOP, 0.0347 ms at 989
-// TFLOP/s (bf16 dense). The forward does two products (QK^T, PV); dbias and
-// demb recompute two (QK^T, dO V^T). With a per-sample bias, bytes: at B = 4,
-// H = 16, S = 2048 its visible causal half is 537 MB (0.160 ms at 3.35 TB/s)
-// against 17.2 GFLOP of products per pass, and dbias writes 1.07 GB; the
-// bias tiles ride the K/V tiles' cp.async stages, so their reads overlap the
-// products.
+// What bounds them: operations, and with a per-sample bias bytes. One causal
+// product at B = 4, H = 32, S = 2048, D = 64 is 2 B H S^2 D / 2 = 34.4 GFLOP,
+// 0.0347 ms at 989 TFLOP/s (bf16 dense). The forward does two products (QK^T,
+// PV); dbias and demb recompute two (QK^T, dO V^T). With a per-sample bias
+// at B = 4, H = 16, S = 2048 its visible causal half is 537 MB (0.160 ms at
+// 3.35 TB/s) against 17.2 GFLOP of products per pass, and dbias writes 1.07
+// GB; the bias tiles ride the K/V tiles' cp.async stages, so their reads
+// overlap the products.
 //
 // Design, kept simple and right first: 128 threads (4 warps) per block, each
 // warp owning 16 rows of a 64-row tile; bf16 operands staged in shared
@@ -94,9 +89,7 @@
 // (about two thirds of the card's tensor rate at best), 64-row tiles whose
 // K/V are read from L2 once per query tile and head (the GQA group is not
 // packed into one block), and two pipeline stages; flash_bwd.cu's kernels
-// show the wgmma design these would take. With the T5 table the bias costs
-// no bytes (the index and table are KBs, read through L1/L2), so the T5
-// forward is bounded as the bias-free one; demb adds its diagonal and bucket
+// show the wgmma design these would take. demb adds its diagonal and bucket
 // sums in shared memory.
 
 #include <cuda_bf16.h>
@@ -303,30 +296,24 @@ __device__ inline bool visible(int row, int col, int Sk, const uint8_t* __restri
 
 // -- forward -------------------------------------------------------------------
 
-// DENSE_BIAS: a float32 bias tile per (query tile, key tile), staged in
-// shared memory with the K/V tile, is added to the scaled scores; T5_BIAS:
-// the tile's T5 bias by diagonal (t5_diagonals). The running max and lse then
-// stay in natural units (a score near -1e9 loses its low bits in log2
+// A float32 bias tile per (query tile, key tile), staged in shared memory
+// with the K/V tile, is added to the scaled scores. The running max and lse
+// then stay in natural units (a score near -1e9 loses its low bits in log2
 // units), as JAX computes them.
-template <int D, int KIND>
+template <int D>
 __global__ void __launch_bounds__(THREADS)
     fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                const bf16* __restrict__ v, const uint8_t* __restrict__ kv_mask,
                const float* __restrict__ bias, int bias_bs, int bias_hs,
-               const float* __restrict__ t5_table, const int* __restrict__ t5_index,
-               int nb, bf16* __restrict__ out, float* __restrict__ lse, int H, int Hkv,
+               bf16* __restrict__ out, float* __restrict__ lse, int H, int Hkv,
                int Sq, int Sk, float scale, int causal, int window) {
-  static_assert(KIND != NO_BIAS, "the bias-free forward is flash_bwd.cu's");
-  constexpr bool BIAS = KIND == DENSE_BIAS, T5 = KIND == T5_BIAS;
   constexpr int LD = D + 8;
   constexpr int NT = BN / 8;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
   bf16* Ks = Qs + BM * LD;       // [2][BN][LD]
   bf16* Vs = Ks + 2 * BN * LD;   // [2][BN][LD]
-  float* Bs = reinterpret_cast<float*>(Vs + 2 * BN * LD);   // [2][BM][LDB] (BIAS)
-  float* Tc = Bs;                // [nb] the head's table column (T5)
-  float* Bd = Tc + nb;           // [BM + BN - 1] the tile's bias by diagonal (T5)
+  float* Bs = reinterpret_cast<float*>(Vs + 2 * BN * LD);   // [2][BM][LDB]
 
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BM;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
@@ -336,7 +323,7 @@ __global__ void __launch_bounds__(THREADS)
   const bf16* kg = k + kv_off;
   const bf16* vg = v + kv_off;
   const uint8_t* mg = kv_mask + (int64_t)b * Sk;
-  const float* bg = BIAS ? bias_row(bias, b, h, bias_bs, bias_hs, Sq, Sk) : nullptr;
+  const float* bg = bias_row(bias, b, h, bias_bs, bias_hs, Sq, Sk);
   const bool bvec = Sk % 4 == 0;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int row0 = q0 + warp * 16 + lane / 4;   // accumulator rows row0, row0 + 8
@@ -349,17 +336,12 @@ __global__ void __launch_bounds__(THREADS)
   auto load_kv = [&](int kt, int stage) {
     load_tile<D, BN>(Ks + stage * BN * LD, kg, kt * BN, Sk);
     load_tile<D, BN>(Vs + stage * BN * LD, vg, kt * BN, Sk);
-    if constexpr (BIAS)
-      load_bias_tile<BM, BN, LDB>(Bs + stage * BM * LDB, bg, q0, kt * BN, Sq, Sk, bvec);
+    load_bias_tile<BM, BN, LDB>(Bs + stage * BM * LDB, bg, q0, kt * BN, Sq, Sk, bvec);
   };
 
   load_tile<D, BM>(Qs, qg, q0, Sq);
   if (kt0 < kt1) load_kv(kt0, 0);
   cp_async_commit();
-  if constexpr (T5) {
-    for (int t = threadIdx.x; t < nb; t += THREADS) Tc[t] = t5_table[t * H + h];
-    __syncthreads();
-  }
 
   float o[D / 8][4];
 #pragma unroll
@@ -376,16 +358,12 @@ __global__ void __launch_bounds__(THREADS)
     } else {
       cp_async_wait<0>();
     }
-    if constexpr (T5) t5_diagonals<BM, BN>(Bd, nullptr, Tc, t5_index, q0, kt * BN, Sq, Sk);
     __syncthreads();
 
     float s[NT][4];
     warp_abt<D, NT>(s, Qs + warp * 16 * LD, Ks + st * BN * LD, lane);
     const int k0 = kt * BN;
     const float* Bt = Bs + st * BM * LDB + (warp * 16 + lane / 4) * LDB + tcol;
-    // T5: the diagonal of accumulator element (j, e) is j * 8 + (e & 1) -
-    // (e >> 1) * 8 past this lane's own
-    const float* Dt = Bd + tcol - (warp * 16 + lane / 4) + BM - 1;
     float mx[2] = {m[0], m[1]};
 #pragma unroll
     for (int j = 0; j < NT; ++j)
@@ -393,12 +371,8 @@ __global__ void __launch_bounds__(THREADS)
       for (int e = 0; e < 4; ++e) {
         const int row = row0 + (e >> 1) * 8, col = k0 + j * 8 + tcol + (e & 1);
         float t = -INFINITY;
-        if (visible(row, col, Sk, mg, causal, window)) {
-          if constexpr (BIAS)
-            t = s[j][e] * scale + Bt[(e >> 1) * 8 * LDB + j * 8 + (e & 1)];
-          else
-            t = s[j][e] * scale + Dt[j * 8 + (e & 1) - (e >> 1) * 8];
-        }
+        if (visible(row, col, Sk, mg, causal, window))
+          t = s[j][e] * scale + Bt[(e >> 1) * 8 * LDB + j * 8 + (e & 1)];
         s[j][e] = t;
         mx[e >> 1] = fmaxf(mx[e >> 1], t);
       }
@@ -705,35 +679,24 @@ bool bad_bias(const float* bias, const float* table, const int* index, int nb) {
   return bias != nullptr || index == nullptr || nb <= 0 || nb > MAX_BUCKETS;
 }
 
-// Shared memory of a bias: two stages of float32 bias tiles (rows x ld) for
-// a dense bias; for T5 the diagonals of two stages (dk/dv) or one tile, and
-// ``columns`` table columns of nb buckets.
-constexpr size_t bias_smem(int kind, int rows, int ld, int diagonals, int columns, int nb) {
-  return kind == DENSE_BIAS ? (size_t)2 * rows * ld * sizeof(float)
-         : kind == T5_BIAS  ? (size_t)(diagonals + columns * nb) * sizeof(float)
-                            : 0;
-}
+// Shared memory of a dense bias: two stages of float32 bias tiles (BM rows
+// of LDB).
+constexpr size_t BIAS_SMEM = (size_t)2 * BM * LDB * sizeof(float);
 
-template <int D, int KIND>
+template <int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, const uint8_t* mask,
-                       const float* bias, int bs, int hs, const float* table,
-                       const int* index, int nb, void* out, float* lse, int B, int H,
+                       const float* bias, int bs, int hs, void* out, float* lse, int B, int H,
                        int Hkv, int Sq, int Sk, float scale, int causal, int window,
                        cudaStream_t stream) {
-  const size_t bytes = (size_t)(BM + 4 * BN) * (D + 8) * sizeof(bf16) +
-                       bias_smem(KIND, BM, LDB, BM + BN - 1, 1, nb);
-  // the largest the instance is launched with, so a later, larger table
-  // (more buckets) is allowed again
-  static size_t allowed = 0;
-  bool done = bytes <= allowed;
-  cudaError_t err = allow_smem(fwd_kernel<D, KIND>, bytes, done);
+  const size_t bytes = (size_t)(BM + 4 * BN) * (D + 8) * sizeof(bf16) + BIAS_SMEM;
+  static bool done = false;
+  cudaError_t err = allow_smem(fwd_kernel<D>, bytes, done);
   if (err != cudaSuccess) return err;
-  allowed = std::max(allowed, bytes);
   const dim3 grid((Sq + BM - 1) / BM, B * H);
-  fwd_kernel<D, KIND><<<grid, THREADS, bytes, stream>>>(
+  fwd_kernel<D><<<grid, THREADS, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), mask, bias, bs, hs, table, index, nb,
-      static_cast<bf16*>(out), lse, H, Hkv, Sq, Sk, scale, causal, window);
+      static_cast<const bf16*>(v), mask, bias, bs, hs, static_cast<bf16*>(out), lse, H,
+      Hkv, Sq, Sk, scale, causal, window);
   return cudaGetLastError();
 }
 
@@ -743,8 +706,7 @@ cudaError_t launch_dbias(const void* q, const void* k, const void* v, const uint
                          const float* lse, const float* delta, float* dbias, int B, int H,
                          int Hkv, int Sq, int Sk, float scale, int causal, int window,
                          cudaStream_t stream) {
-  const size_t bytes = (size_t)(2 * BM + 4 * BN) * (D + 8) * sizeof(bf16) +
-                       bias_smem(DENSE_BIAS, BM, LDB, 0, 0, 0);
+  const size_t bytes = (size_t)(2 * BM + 4 * BN) * (D + 8) * sizeof(bf16) + BIAS_SMEM;
   static bool done = false;
   cudaError_t err = allow_smem(dbias_kernel<D>, bytes, done);
   if (err != cudaSuccess) return err;
@@ -780,16 +742,11 @@ cudaError_t launch_demb(const void* q, const void* k, const void* v, const uint8
   return cudaGetLastError();
 }
 
-// The call of LAUNCH's instance for the head dim D (32, 64 or 128) and the
-// bias kind: T5_BIAS with a table, else DENSE_BIAS. The bias-free forward is
-// flash_bwd.cu's; no NO_BIAS instance of a kernel is compiled.
-#define FLASH_BY_DIM(LAUNCH, KIND, D, ...)                                           \
-  ((D) == 32   ? LAUNCH<32, KIND>(__VA_ARGS__)                                       \
-   : (D) == 64 ? LAUNCH<64, KIND>(__VA_ARGS__)                                       \
-               : LAUNCH<128, KIND>(__VA_ARGS__))
-#define FLASH_DISPATCH_BIASED(LAUNCH, table, D, ...)                                 \
-  ((table) ? FLASH_BY_DIM(LAUNCH, T5_BIAS, D, __VA_ARGS__)                           \
-           : FLASH_BY_DIM(LAUNCH, DENSE_BIAS, D, __VA_ARGS__))
+// The call of LAUNCH's instance for the head dim D (32, 64 or 128).
+#define FLASH_BY_DIM(LAUNCH, D, ...)                                                 \
+  ((D) == 32   ? LAUNCH<32>(__VA_ARGS__)                                             \
+   : (D) == 64 ? LAUNCH<64>(__VA_ARGS__)                                             \
+               : LAUNCH<128>(__VA_ARGS__))
 
 }  // namespace flash
 
@@ -803,24 +760,17 @@ extern "C" {
 // cudaGetLastError() after the launch (0 on success), or cudaErrorInvalidValue
 // for arguments the kernels do not take.
 //
-// bias is nullptr or a float32 bias (b0 h0, Sq, Sk), contiguous and 16-byte
-// aligned, with b0 in {1, B} and h0 in {1, H}, and the row strides bs (0 when
-// b0 = 1, else h0) and hs (0 when h0 = 1, else 1): the row of (b, h) is
-// b bs + h hs. t5_table is nullptr or T5's float32 (nb, H) table, with
-// t5_index the int32 bucket of every distance (Sq + Sk - 1 entries, entry
-// k - q + Sq - 1 for query slot q and key slot k; it carries the direction)
-// and 1 <= nb <= 128; never with a bias. One of the two is required: the
-// bias-free forward is flash_bwd.cu's.
+// bias is a float32 bias (b0 h0, Sq, Sk), contiguous and 16-byte aligned,
+// with b0 in {1, B} and h0 in {1, H}, and the row strides bs (0 when b0 = 1,
+// else h0) and hs (0 when h0 = 1, else 1): the row of (b, h) is b bs + h hs.
+// The bias-free and the T5 forward are flash_bwd.cu's.
 int flash_fwd(const void* q, const void* k, const void* v, const uint8_t* kv_mask,
-              const float* bias, int bs, int hs, const float* t5_table,
-              const int* t5_index, int nb, void* out, float* lse, int B, int H, int Hkv,
+              const float* bias, int bs, int hs, void* out, float* lse, int B, int H, int Hkv,
               int Sq, int Sk, int D, float scale, int causal, int window, void* stream) {
-  if (bad_args(B, H, Hkv, Sq, Sk, D, window) || bad_bias(bias, t5_table, t5_index, nb) ||
-      (!bias && !t5_table))
+  if (bad_args(B, H, Hkv, Sq, Sk, D, window) || bias == nullptr)
     return (int)cudaErrorInvalidValue;
-  return (int)FLASH_DISPATCH_BIASED(launch_fwd, t5_table, D, q, k, v, kv_mask, bias, bs, hs,
-                                    t5_table, t5_index, nb, out, lse, B, H, Hkv, Sq, Sk, scale,
-                                    causal, window, static_cast<cudaStream_t>(stream));
+  return (int)FLASH_BY_DIM(launch_fwd, D, q, k, v, kv_mask, bias, bs, hs, out, lse, B, H, Hkv,
+                           Sq, Sk, scale, causal, window, static_cast<cudaStream_t>(stream));
 }
 
 // dbias f32: (H, Sq, Sk) summed over the batch when bs == 0 (a bias shared
@@ -844,7 +794,9 @@ int flash_bwd_dbias(const void* q, const void* k, const void* v, const uint8_t* 
 
 // partial (B, H, ceil(Sq / 64), nb) f32: the T5 table's gradient summed per
 // (batch, head, 64-row query tile); the caller sums over the batch and the
-// tiles. t5_table, t5_index and nb as for flash_fwd, not nullptr.
+// tiles. t5_table is T5's float32 (nb, H) table, t5_index the int32 bucket
+// of every distance (Sq + Sk - 1 entries, entry k - q + Sq - 1 for query
+// slot q and key slot k; it carries the direction), 1 <= nb <= 128.
 int flash_bwd_demb(const void* q, const void* k, const void* v, const uint8_t* kv_mask,
                    const float* t5_table, const int* t5_index, int nb, const void* dout,
                    const float* lse, const float* delta, float* partial, int B, int H,

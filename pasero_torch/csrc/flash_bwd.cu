@@ -1,6 +1,7 @@
-// Flash attention for Hopper (sm_90a), for grouped K/V heads: the bias-free
-// forward (out and lse), and the backward's dq (and delta), dk and dv without
-// a bias, with a dense float32 bias or with T5's table.
+// Flash attention for Hopper (sm_90a), for grouped K/V heads: the forward
+// (out and lse) without a bias or with T5's table, and the backward's dq (and
+// delta), dk and dv without a bias, with a dense float32 bias or with T5's
+// table.
 //
 // The forward:
 //
@@ -31,6 +32,28 @@
 // operations one). What holds it back: the m64n64 score products read both
 // operands from shared memory, and a consumer's exponentials still wait on
 // its own score product (the three warpgroups overlap one another only).
+//
+// The same kernel with T5's table (KIND = T5_BIAS) replaces
+// pasero_tpu/ops/flash_attention.py:_fwd_stream_kernel (:474), through
+// _fwd_stream (:544) and _flash_t5_fwd (:1369): JAX always streams T5. The
+// producer warpgroup's idle warps 1-3 write each tile's bias by diagonal
+// (64 NC + 63 values) from the head's table column, staged once per item,
+// into the stage beside the K/V tiles, on that stage's barrier; the
+// consumers add it to the scaled score and keep the max and lse in natural
+// units, the lse that the T5 dq, dk/dv and demb kernels read. Two consumers
+// (128 queries an item: a t5_base encoder's 512 queries are four items, its
+// decoder's 128 one). At D <= 64 it is persistent, as the T5 backward is:
+// one block per SM walks the items in a snake order, its Q tiles
+// double-buffered so that the next item's Q loads while this one finishes,
+// and each consumer stores its output by TMA from its own Q tile, which the
+// item no longer reads; a t5_base encoder item has 8 key tiles and a decoder
+// item 2, so filling and draining the pipeline is the cost to hide. The rule
+// holds at every length: at 32768 keys an item's 512 tiles make the fill
+// negligible, and every bidirectional item is as long as the next, so a
+// fixed order loses nothing to the hardware's scheduler. At D = 128 one block
+// per item, as in the T5 backward (the TMA-store epilogue takes one 64-column
+// box per tile). The bias-free instances keep their code: every bias branch
+// is compiled out.
 //
 // The backward, from the forward's out and lse:
 //
@@ -85,8 +108,9 @@
 // and one block per item spent much of its time filling and draining the
 // pipeline.
 //
-// The biased and T5 forwards, and the dbias and demb kernels, are
-// flash_attention.cu's; the PTX wrappers for mbarriers, descriptors and the
+// The dense-bias forward, and the dbias and demb kernels, are
+// flash_attention.cu's; the float32 kernels of every kind flash_f32.cu's; the
+// PTX wrappers for mbarriers, descriptors and the
 // wgmma fences come from wgmma_gemm.cuh (the fused-CE mainloop).
 
 #include <cuda.h>
@@ -311,21 +335,26 @@ template <int DP>
 __host__ __device__ constexpr int tile_bytes() { return 64 * DP * 2; }
 
 // A consumer thread's part of a 64 x 64 fp32 accumulator (the m64n64 layout,
-// times `scale`) as bf16 into the 64-row tile at `tile`, in the 128-byte
+// its first eight rows times s0, the next eight times s1) as bf16 into the 64-row tile at `tile`, in the 128-byte
 // swizzled layout that a tensor map's box holds (row r's 16-byte chunk j at
 // chunk j ^ (r % 8); the eight rows of a warp's store fall on distinct
 // chunks, so no bank conflicts).
-__device__ __forceinline__ void stage_tile(unsigned char* tile, const float (&acc)[32], float scale,
-                                           int warp, int lane) {
+__device__ __forceinline__ void stage_tile(unsigned char* tile, const float (&acc)[32], float s0,
+                                           float s1, int warp, int lane) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = 16 * warp + lane / 4 + 8 * r;
+    const float scale = r ? s1 : s0;
 #pragma unroll
     for (int j = 0; j < 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(tile + row * 128 + ((j ^ (lane / 4)) << 4) +
                                           (lane % 4) * 4) =
           __floats2bfloat162_rn(acc[4 * j + 2 * r] * scale, acc[4 * j + 2 * r + 1] * scale);
   }
+}
+__device__ __forceinline__ void stage_tile(unsigned char* tile, const float (&acc)[32], float scale,
+                                           int warp, int lane) {
+  stage_tile(tile, acc, scale, scale, warp, lane);
 }
 
 // Rows [r0, r0 + 64) of matrix z of a (D, rows, planes) tensor map.
@@ -564,264 +593,6 @@ __device__ __forceinline__ float exp2_approx(float x) {
   return y;
 }
 
-// -- forward -----------------------------------------------------------------------
-
-// The forward's consumer warpgroups: three at D <= 64 (160 registers hold a
-// score tile, the packed P and the output), two at D = 128 (232).
-template <int DP>
-__host__ __device__ constexpr int fwd_consumers() { return DP == 64 ? 3 : 2; }
-
-// Shared memory of the forward: NC resident Q tiles, the stages of the K and
-// V tiles, 128 ints a stage (the producer warp's key flags), the barriers,
-// and 1024 bytes to align.
-template <int DP, int NC>
-__host__ __device__ constexpr size_t fwd_smem_bytes() {
-  constexpr int ST = stages<DP>();
-  return (size_t)(NC + 2 * ST) * tile_bytes<DP>() + ST * 128 * 4 + 8 * (1 + 2 * ST) + 1024;
-}
-
-// Block (bh, y): query head bh = b H + h, the 64 NC queries q0 = (n - 1 - y)
-// 64 NC .. (the last, longest tiles first). Block tile t is key tile kt0 + t;
-// consumer g reads the tiles [t0, t1) that its 64 rows can see and frees the
-// others' stages unread. Per tile it runs S = Q K^T (m64n64, both operands
-// from shared memory) and O += P V (P from registers in the
-// accumulator layout, V read MN-major), with the online softmax in log2 units
-// between them; P V of tile t - 1 is in flight while it forms P of tile t.
-template <int DP, int NC>
-__global__ void __launch_bounds__(128 * (NC + 1), 1)
-    fwd_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
-               const __grid_constant__ CUtensorMap map_v, const uint8_t* __restrict__ kv_mask,
-               bf16* __restrict__ out, float* __restrict__ lse, int D, int H, int Hkv, int Sq,
-               int Sk, float scale, int causal, int window) {
-  constexpr int TB = tile_bytes<DP>();
-  constexpr int ACC = DP / 2;
-  constexpr int STAGES = stages<DP>();
-  constexpr int ROWS_NC = 64 * NC;
-  extern __shared__ __align__(1024) unsigned char smem_raw[];
-  const uint32_t raw = smem_u32(smem_raw);
-  const uint32_t base = (raw + 1023u) & ~1023u;
-  const uint32_t q_s = base, st_s = base + NC * TB;
-  int* flags = reinterpret_cast<int*>(smem_raw + (st_s + STAGES * 2 * TB - raw));
-  const uint32_t bars = st_s + STAGES * 2 * TB + STAGES * 128 * 4;
-  const uint32_t ready = bars, full = bars + 8, empty = full + 8 * STAGES;
-
-  const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  const int bk = b * Hkv + h / (H / Hkv);
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * ROWS_NC;
-  int kt0 = 0, kt1 = (Sk + TILE - 1) / TILE;
-  if (causal) kt1 = min(kt1, (q0 + ROWS_NC - 1) / TILE + 1);
-  if (window > 0) kt0 = max(0, (q0 - window + 1) / TILE);
-  const int iters = max(0, kt1 - kt0);
-  const int wg = threadIdx.x / 128;
-
-  if (threadIdx.x == 0) {
-    mbar_init(ready, 1);
-#pragma unroll
-    for (int s = 0; s < STAGES; ++s) {
-      mbar_init(full + 8 * s, 2);    // the copies' arrival, the key flags'
-      mbar_init(empty + 8 * s, 4 * NC);   // lane 0 of each consumer warp
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-
-  if (wg == 0) {
-    if constexpr (NC == 3)
-      asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
-    else
-      asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
-    if (threadIdx.x >= 32) return;
-    const int lane = threadIdx.x;
-    if (lane == 0) {
-      mbar_expect_tx(ready, NC * TB);
-      for (int g = 0; g < NC; ++g) load_tile<DP>(q_s + g * TB, &map_q, ready, q0 + 64 * g, bh);
-    }
-    const uint8_t* mg = kv_mask + (int64_t)b * Sk;
-    // the lane's keys of block tile it, read a tile ahead so that their
-    // latency hides behind the wait for a free stage
-    auto keys = [&](int it, bool (&ok)[2]) {
-      const int k0 = (kt0 + it) * TILE;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int i = k0 + lane + 32 * j;
-        ok[j] = it < iters && i < Sk && mg[i];
-      }
-    };
-    bool ok[2], next[2];
-    keys(0, ok);
-    for (int it = 0; it < iters; ++it) {
-      const int s = it % STAGES, k0 = (kt0 + it) * TILE;
-      keys(it + 1, next);
-      mbar_wait(empty + 8 * s, ((it / STAGES) & 1) ^ 1);
-      if (lane == 0) {
-        mbar_expect_tx(full + 8 * s, 2 * TB);
-        load_tile<DP>(st_s + s * 2 * TB, &map_k, full + 8 * s, k0, bk);
-        load_tile<DP>(st_s + s * 2 * TB + TB, &map_v, full + 8 * s, k0, bk);
-      }
-      bool all = true;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        flags[s * 128 + lane + 32 * j] = ok[j];
-        all = all && ok[j];
-        ok[j] = next[j];
-      }
-      all = __all_sync(0xffffffffu, all);
-      if (lane == 0) flags[s * 128 + TILE] = all;   // no key of the tile masked
-      __syncwarp();
-      if (lane == 0) mbar_arrive(full + 8 * s);
-    }
-    return;
-  }
-
-  if constexpr (NC == 3)
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 160;\n");
-  else
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
-  const int g = wg - 1, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
-  const int row0 = q0 + 64 * g + 16 * warp + lane / 4;   // rows row0, row0 + 8
-  // the key tiles this consumer's rows can see, as block tiles [t0, t1)
-  const int first = q0 + 64 * g;
-  int c0 = kt0, c1 = kt1;
-  if (causal) c1 = min(c1, (first + 63) / TILE + 1);
-  if (window > 0) c0 = max(c0, (first - window + 1) / TILE);
-  if (first >= Sq) c1 = c0;
-  const int t0 = min(c0 - kt0, iters), t1 = max(t0, min(c1 - kt0, iters));
-  // a tile read by no product of this consumer: its stage is freed once it
-  // has landed (so the arrival counts for this tile's phase)
-  auto pass = [&](int t) {
-    const int s = t % STAGES;
-    mbar_wait(full + 8 * s, (t / STAGES) & 1);
-    if (lane == 0) mbar_arrive(empty + 8 * s);
-  };
-  for (int t = 0; t < t0; ++t) pass(t);
-
-  float o[ACC];
-#pragma unroll
-  for (int i = 0; i < ACC; ++i) o[i] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY};   // running row max, log2 units
-  float l[2] = {0.f, 0.f};               // this thread's part of the row sum
-  const float sl2 = scale * LOG2E;
-  const uint32_t qt = q_s + g * TB;
-  uint32_t pa[4][4];
-  float sc[32];
-  float alpha[2];
-
-  // the softmax of tile t over its scores S(t) in sc: P(t) in sc (fp32), l
-  // and m updated, alpha the factor that takes O to the new max
-  auto softmax = [&](int t) {
-    const int s = t % STAGES, k0 = (kt0 + t) * TILE;
-    const int* fl = flags + s * 128;
-    // no element of the warp's rows masked: every key present, rows inside
-    // Sq, the causal edge and the window clear of the tile
-    bool clear = fl[TILE] && row0 + 8 < Sq;
-    if (causal) clear = clear && k0 + TILE - 1 <= row0;
-    if (window > 0) clear = clear && row0 + 8 - k0 < window;
-    if (!__all_sync(0xffffffffu, clear)) {
-#pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        const int r = (i >> 1) & 1, ci = acc_col(i, lane);
-        const int row = row0 + 8 * r, col = k0 + ci;
-        bool ok = fl[ci] && row < Sq;
-        if (causal) ok = ok && col <= row;
-        if (window > 0) ok = ok && row - col < window;
-        if (!ok) sc[i] = -INFINITY;
-      }
-    }
-    float mx[2] = {-INFINITY, -INFINITY}, mu[2];
-#pragma unroll
-    for (int i = 0; i < 32; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float mn = fmaxf(m[r], quad_max(mx[r]) * sl2);
-      mu[r] = mn == -INFINITY ? 0.f : mn;   // no visible key yet
-      alpha[r] = exp2_approx(m[r] - mu[r]);
-      m[r] = mn;
-      l[r] *= alpha[r];
-    }
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      sc[i] = exp2_approx(fmaf(sc[i], sl2, -mu[(i >> 1) & 1]));
-      l[(i >> 1) & 1] += sc[i];
-    }
-  };
-  auto issue_s = [&](int t) {
-    const int s = t % STAGES;
-    mbar_wait(full + 8 * s, (t / STAGES) & 1);
-    wgmma_fence();
-#pragma unroll
-    for (int kd = 0; kd < DP / 16; ++kd)
-      wgmma_ss_n64(sc, desc_k(qt, kd), desc_k(st_s + s * 2 * TB, kd), kd);
-    wgmma_commit();
-  };
-  // O taken to the max of the last softmax's tile, before any product that
-  // follows is issued
-  auto rescale = [&]() {
-#pragma unroll
-    for (int i = 0; i < ACC; ++i) o[i] *= alpha[(i >> 1) & 1];
-    fence_regs(o);
-  };
-  // O += P(t) V(t)
-  auto issue_pv = [&](int t) {
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs<DP>(o, pa[kk], desc_mn(st_s + (t % STAGES) * 2 * TB + TB, kk));
-    wgmma_commit();
-  };
-
-  mbar_wait(ready, 0);
-  if (t0 < t1) {
-    issue_s(t0);
-    wgmma_wait<0>();
-    fence_regs(sc);
-    softmax(t0);
-    pack_a(pa, sc);
-    fence_regs(pa);
-    // S(t) is issued before P V(t - 1) and retires first; the softmax of tile
-    // t runs while P V(t - 1) is in flight. P is packed, and O rescaled, with
-    // no product in flight.
-    for (int t = t0 + 1; t < t1; ++t) {
-      rescale();
-      issue_s(t);
-      issue_pv(t - 1);
-      wgmma_wait<1>();
-      fence_regs(sc);
-      softmax(t);
-      wgmma_wait<0>();
-      fence_regs(o);
-      fence_regs(pa);
-      if (lane == 0) mbar_arrive(empty + 8 * ((t - 1) % STAGES));
-      pack_a(pa, sc);
-      fence_regs(pa);
-    }
-    rescale();
-    issue_pv(t1 - 1);
-    wgmma_wait<0>();
-    fence_regs(o);
-    fence_regs(pa);
-    if (lane == 0) mbar_arrive(empty + 8 * ((t1 - 1) % STAGES));
-  }
-  for (int t = t1; t < iters; ++t) pass(t);
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + 8 * r;
-    const float lr = quad_sum(l[r]);
-    if (row >= Sq) continue;
-    const float inv = lr == 0.f ? 0.f : 1.f / lr;
-    bf16* go = out + ((int64_t)bh * Sq + row) * D;
-#pragma unroll
-    for (int j = 0; j < DP / 8; ++j) {
-      const int col = 8 * j + 2 * (lane % 4);
-      if (col < D)
-        *reinterpret_cast<__nv_bfloat162*>(go + col) =
-            __floats2bfloat162_rn(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
-    }
-    if (lane % 4 == 0)
-      lse[(int64_t)bh * Sq + row] = lr == 0.f ? NEG_INF : m[r] * LN2 + logf(lr);
-  }
-}
-
 // -- work items ----------------------------------------------------------------------
 
 // The n-th work item of this block (> every item once the block has none
@@ -835,14 +606,436 @@ __device__ __forceinline__ int work_item(int n) {
   return n * G + (n & 1 ? G - 1 - (int)blockIdx.x : (int)blockIdx.x);
 }
 
-// -- dq (and delta) ----------------------------------------------------------------
-
-// Work item w: query head bh = w % (B H) = b H + h, the 64 NC queries q0 =
-// (n - 1 - w / (B H)) 64 NC .. (the last, longest tiles first), their key
-// tiles kt0 .. kt0 + iters.
-struct DqItem {
+// A work item of the forward and of dq: query head bh = w % (B H) = b H + h,
+// the 64 NC queries q0 = (n - 1 - w / (B H)) 64 NC .. (the last, longest
+// tiles first), their key tiles kt0 .. kt0 + iters.
+struct QueryItem {
   int bh, b, h, bk, q0, kt0, iters;
 };
+
+__device__ __forceinline__ QueryItem query_item(int w, int B, int H, int Hkv, int Sq, int Sk,
+                                                int rows, int causal, int window) {
+  const int nqb = (Sq + rows - 1) / rows;
+  QueryItem x;
+  x.bh = w % (B * H);
+  x.b = x.bh / H;
+  x.h = x.bh % H;
+  x.bk = x.b * Hkv + x.h / (H / Hkv);
+  x.q0 = (nqb - 1 - w / (B * H)) * rows;
+  int kt1 = (Sk + TILE - 1) / TILE;
+  x.kt0 = 0;
+  if (causal) kt1 = min(kt1, (x.q0 + rows - 1) / TILE + 1);
+  if (window > 0) x.kt0 = max(0, (x.q0 - window + 1) / TILE);
+  x.iters = max(0, kt1 - x.kt0);
+  return x;
+}
+
+// -- forward -----------------------------------------------------------------------
+
+// The forward's consumer warpgroups: three at D <= 64 without a bias (160
+// registers hold a score tile, the packed P and the output), two at D = 128
+// (232), and two with T5's table (T5's 512 queries are four items of 128,
+// and a persistent item's state does not fit 160 registers).
+template <int DP, int KIND = NO_BIAS>
+__host__ __device__ constexpr int fwd_consumers() { return DP == 64 && KIND == NO_BIAS ? 3 : 2; }
+
+// Floats of a forward stage's bias: T5's by diagonal for the block's 64 NC
+// queries x 64 keys (64 NC + 63, rounded up); none without a bias.
+template <int KIND, int NC>
+__host__ __device__ constexpr int fwd_bias_floats() {
+  return KIND == T5_BIAS ? dq_bias_floats<KIND, NC>() : 0;
+}
+
+// Shared memory of the forward: NC resident Q tiles (twice in a persistent
+// instance), the stages of the K and V tiles, BF floats of bias a stage, 128
+// ints a stage (the producer warp's key flags), the barriers, and 1024 bytes
+// to align. T5's table column comes on top (nb floats).
+template <int KIND, int DP, int NC>
+__host__ __device__ constexpr size_t fwd_smem_bytes() {
+  constexpr int ST = stages<DP, KIND>();
+  constexpr int QB = persistent<KIND, DP>() ? 2 : 1;   // buffers of the resident Q tiles
+  return (size_t)(NC * QB + 2 * ST) * tile_bytes<DP>() + ST * fwd_bias_floats<KIND, NC>() * 4 +
+         ST * 128 * 4 + 8 * (QB + 2 * ST + (QB == 2 ? QB : 0)) + 1024;
+}
+
+// Item w (query_item): block tile t is key tile kt0 + t; consumer g reads
+// the tiles [t0, t1) that its 64 rows can see and frees the others' stages
+// unread. Per tile it runs S = Q K^T (m64n64, both operands from shared
+// memory) and O += P V (P from registers in the accumulator layout, V read
+// MN-major), with the online softmax between them; P V of tile t - 1 is in
+// flight while it forms P of tile t. Without a bias the softmax runs in log2
+// units. With T5's table (KIND = T5_BIAS) the producer warpgroup's warps 1-3
+// write each tile's bias by diagonal (64 NC + 63 values) from the head's
+// table column, staged once per item, into the stage beside the K/V tiles,
+// on that stage's barrier; the consumers add it to the scaled score and keep
+// the max and lse in natural units (exp2((s scale + b - m) log2 e)), the lse
+// that dq_kernel, dkv_kernel and flash_attention.cu's demb_kernel read. The
+// T5 instance at D <= 64 is persistent (see `persistent`): one block per SM
+// walks the items in a snake order, its Q tiles double-buffered so that the
+// next item's Q loads while this one finishes, and each consumer stores its
+// output by TMA from its own Q tile, which the item no longer reads.
+template <int KIND, int DP, int NC>
+__global__ void __launch_bounds__(128 * (NC + 1), 1)
+    fwd_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+               const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_o,
+               const uint8_t* __restrict__ kv_mask, const Bias bias, bf16* __restrict__ out,
+               float* __restrict__ lse, int B, int D, int H, int Hkv, int Sq, int Sk, float scale,
+               int causal, int window) {
+  constexpr int TB = tile_bytes<DP>();
+  constexpr int ACC = DP / 2;
+  constexpr int STAGES = stages<DP, KIND>();
+  constexpr int ROWS_NC = 64 * NC;
+  constexpr int BF = fwd_bias_floats<KIND, NC>();
+  constexpr bool PERSIST = persistent<KIND, DP>();
+  constexpr int QB = PERSIST ? 2 : 1;   // buffers of the resident Q tiles
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  // buffer p: NC Q tiles at q_s + NC p TB
+  const uint32_t q_s = base, st_s = base + QB * NC * TB;
+  // after the tiles: the stages' bias, the key flags, the barriers, T5's
+  // table column
+  const uint32_t bias_s = st_s + STAGES * 2 * TB;
+  float* bias_f = reinterpret_cast<float*>(smem_raw + (bias_s - raw));
+  int* flags = reinterpret_cast<int*>(smem_raw + (bias_s + STAGES * BF * 4 - raw));
+  const uint32_t bars = bias_s + STAGES * BF * 4 + STAGES * 128 * 4;
+  const uint32_t ready = bars, full = ready + 8 * QB, empty = full + 8 * STAGES;
+  const uint32_t qfree = empty + 8 * STAGES;   // persistent: Q buffer p read
+  float* col = reinterpret_cast<float*>(smem_raw + (qfree + 8 * (PERSIST ? QB : 0) - raw));
+
+  const int items = B * H * ((Sq + ROWS_NC - 1) / ROWS_NC);
+  auto item = [&](int w) {
+    return query_item(w, B, H, Hkv, Sq, Sk, ROWS_NC, causal, window);
+  };
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int p = 0; p < QB; ++p) {
+      mbar_init(ready + 8 * p, 1);
+      if (PERSIST) mbar_init(qfree + 8 * p, NC);   // each consumer's output store
+    }
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      // the copies' arrival, the key flags', the diagonals'
+      mbar_init(full + 8 * s, 2 + bias_arrivals<KIND>(false));
+      mbar_init(empty + 8 * s, 4 * NC);   // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    if constexpr (NC == 3)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    else
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x >= 32) {
+      // T5: the diagonal warps, each tile's bias by diagonal into its stage
+      if constexpr (KIND == T5_BIAS) {
+        const int t = threadIdx.x - 32;
+        int gi = 0;   // the ring's tiles so far
+        for (int n = 0;; ++n) {
+          const int w = work_item<PERSIST>(n);
+          if (w >= items) break;
+          const QueryItem x = item(w);
+          if (n > 0) bias_threads_sync();   // the last item's diagonals read the column
+          for (int c = t; c < bias.nb; c += BIAS_THREADS) col[c] = bias.table[c * H + x.h];
+          bias_threads_sync();
+          for (int it = 0; it < x.iters; ++it, ++gi) {
+            const int s = gi % STAGES, k0 = (x.kt0 + it) * TILE;
+            mbar_wait(empty + 8 * s, ((gi / STAGES) & 1) ^ 1);
+            t5_diagonals(bias_f + s * BF, ROWS_NC + TILE - 1, col, bias.index,
+                         k0 - x.q0 - (ROWS_NC - 1) + Sq - 1, Sq + Sk - 1, t);
+            __syncwarp();
+            if (t % 32 == 0) mbar_arrive(full + 8 * s);
+          }
+        }
+      }
+      return;
+    }
+    const int lane = threadIdx.x;
+    // the n-th item of the block, item w, its tiles from the gi-th on
+    auto produce = [&](int n, int w, int& gi) {
+      const QueryItem x = item(w);
+      const int p = n % QB;
+      if constexpr (PERSIST) mbar_wait(qfree + 8 * p, ((n / QB) & 1) ^ 1);
+      if (lane == 0) {
+        mbar_expect_tx(ready + 8 * p, NC * TB);
+        for (int g = 0; g < NC; ++g)
+          load_tile<DP>(q_s + (NC * p + g) * TB, &map_q, ready + 8 * p, x.q0 + 64 * g, x.bh);
+      }
+      const uint8_t* mg = kv_mask + (int64_t)x.b * Sk;
+      // the lane's keys of item tile it, read a tile ahead so that their
+      // latency hides behind the wait for a free stage
+      auto keys = [&](int it, bool (&ok)[2]) {
+        const int k0 = (x.kt0 + it) * TILE;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int i = k0 + lane + 32 * j;
+          ok[j] = it < x.iters && i < Sk && mg[i];
+        }
+      };
+      bool ok[2], next[2];
+      keys(0, ok);
+      for (int it = 0; it < x.iters; ++it, ++gi) {
+        const int s = gi % STAGES, k0 = (x.kt0 + it) * TILE;
+        keys(it + 1, next);
+        mbar_wait(empty + 8 * s, ((gi / STAGES) & 1) ^ 1);
+        if (lane == 0) {
+          mbar_expect_tx(full + 8 * s, 2 * TB);
+          load_tile<DP>(st_s + s * 2 * TB, &map_k, full + 8 * s, k0, x.bk);
+          load_tile<DP>(st_s + s * 2 * TB + TB, &map_v, full + 8 * s, k0, x.bk);
+        }
+        bool all = true;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          flags[s * 128 + lane + 32 * j] = ok[j];
+          all = all && ok[j];
+          ok[j] = next[j];
+        }
+        all = __all_sync(0xffffffffu, all);
+        if (lane == 0) flags[s * 128 + TILE] = all;   // no key of the tile masked
+        __syncwarp();
+        if (lane == 0) mbar_arrive(full + 8 * s);
+      }
+    };
+    int gi = 0;   // the ring's tiles so far
+    if constexpr (PERSIST) {
+      for (int n = 0, w = work_item<true>(0); w < items; w = work_item<true>(++n))
+        produce(n, w, gi);
+    } else {
+      produce(0, blockIdx.x, gi);
+    }
+    return;
+  }
+
+  if constexpr (NC == 3)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 160;\n");
+  else
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int g = wg - 1, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  // T5: the diagonal of the thread's first element in stage 0
+  const float* bias_t = bias_f;
+  if constexpr (KIND == T5_BIAS)
+    bias_t += 2 * (lane % 4) - (64 * g + 16 * warp + lane / 4) + ROWS_NC - 1;
+  const int boff[4] = {0, 0, 0, 0};   // (a dense bias's offsets; unused)
+  const float sl2 = scale * LOG2E;
+
+  // The n-th item of the block, item w: its tiles through the ring from the
+  // gi-th on; persistent, the output stored by TMA and the Q buffer released.
+  auto consume = [&](int n, int w, int& gi) {
+    const QueryItem x = item(w);
+    const int p = n % QB;
+    const int row0 = x.q0 + 64 * g + 16 * warp + lane / 4;   // rows row0, row0 + 8
+    // the key tiles this consumer's rows can see, as item tiles [t0, t1)
+    const int first = x.q0 + 64 * g;
+    int c0 = x.kt0, c1 = x.kt0 + x.iters;
+    if (causal) c1 = min(c1, (first + 63) / TILE + 1);
+    if (window > 0) c0 = max(c0, (first - window + 1) / TILE);
+    if (first >= Sq) c1 = c0;
+    const int t0 = min(c0 - x.kt0, x.iters), t1 = max(t0, min(c1 - x.kt0, x.iters));
+    // a tile read by no product of this consumer: its stage is freed once it
+    // has landed (so the arrival counts for this tile's phase)
+    auto pass = [&](int t) {
+      const int s = (gi + t) % STAGES;
+      mbar_wait(full + 8 * s, ((gi + t) / STAGES) & 1);
+      if (lane == 0) mbar_arrive(empty + 8 * s);
+    };
+    for (int t = 0; t < t0; ++t) pass(t);
+
+    float o[ACC];
+#pragma unroll
+    for (int i = 0; i < ACC; ++i) o[i] = 0.f;
+    // running row max: log2 units without a bias, natural units with T5's
+    float m[2] = {-INFINITY, -INFINITY};
+    float l[2] = {0.f, 0.f};   // this thread's part of the row sum
+    const uint32_t qt = q_s + (NC * p + g) * TB;
+    // the Q tile's descriptors, computed once for the item's tiles and held
+    // in registers (left to itself ptxas recomputes them before every score
+    // product, between the wgmmas)
+    uint64_t qd[DP / 16];
+#pragma unroll
+    for (int kd = 0; kd < DP / 16; ++kd) {
+      qd[kd] = desc_k(qt, kd);
+      asm volatile("" : "+l"(qd[kd]));
+    }
+    uint32_t pa[4][4];
+    float sc[32];
+    float alpha[2];
+
+    // the softmax of tile t over its scores S(t) in sc: P(t) in sc (fp32), l
+    // and m updated, alpha the factor that takes O to the new max
+    auto softmax = [&](int t) {
+      const int s = (gi + t) % STAGES, k0 = (x.kt0 + t) * TILE;
+      const int* fl = flags + s * 128;
+      // no element of the warp's rows masked: every key present, rows inside
+      // Sq, the causal edge and the window clear of the tile
+      bool clear = fl[TILE] && row0 + 8 < Sq;
+      if (causal) clear = clear && k0 + TILE - 1 <= row0;
+      if (window > 0) clear = clear && row0 + 8 - k0 < window;
+      if (!__all_sync(0xffffffffu, clear)) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int r = (i >> 1) & 1, ci = acc_col(i, lane);
+          const int row = row0 + 8 * r, col = k0 + ci;
+          bool ok = fl[ci] && row < Sq;
+          if (causal) ok = ok && col <= row;
+          if (window > 0) ok = ok && row - col < window;
+          if (!ok) sc[i] = -INFINITY;
+        }
+      }
+      if constexpr (KIND == T5_BIAS) {
+        // the scaled score plus the bias, natural units (a masked score
+        // stays -inf)
+        const float* bt = bias_t + s * BF;
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const float2 bb = dq_bias2<KIND>(bt, j, boff);
+          sc[2 * j] = fmaf(sc[2 * j], scale, bb.x);
+          sc[2 * j + 1] = fmaf(sc[2 * j + 1], scale, bb.y);
+        }
+      }
+      float mx[2] = {-INFINITY, -INFINITY}, mu[2];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        if constexpr (KIND == NO_BIAS) {
+          const float mn = fmaxf(m[r], quad_max(mx[r]) * sl2);
+          mu[r] = mn == -INFINITY ? 0.f : mn;   // no visible key yet
+          alpha[r] = exp2_approx(m[r] - mu[r]);
+          m[r] = mn;
+        } else {
+          const float mn = fmaxf(m[r], quad_max(mx[r]));
+          mu[r] = mn == -INFINITY ? 0.f : mn;
+          alpha[r] = exp2_approx((m[r] - mu[r]) * LOG2E);
+          m[r] = mn;
+        }
+        l[r] *= alpha[r];
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        if constexpr (KIND == NO_BIAS)
+          sc[i] = exp2_approx(fmaf(sc[i], sl2, -mu[(i >> 1) & 1]));
+        else
+          sc[i] = exp2_approx((sc[i] - mu[(i >> 1) & 1]) * LOG2E);
+        l[(i >> 1) & 1] += sc[i];
+      }
+    };
+    auto issue_s = [&](int t) {
+      const int s = (gi + t) % STAGES;
+      mbar_wait(full + 8 * s, ((gi + t) / STAGES) & 1);
+      wgmma_fence();
+#pragma unroll
+      for (int kd = 0; kd < DP / 16; ++kd)
+        wgmma_ss_n64(sc, qd[kd], desc_k(st_s + s * 2 * TB, kd), kd);
+      wgmma_commit();
+    };
+    // O taken to the max of the last softmax's tile, before any product that
+    // follows is issued
+    auto rescale = [&]() {
+#pragma unroll
+      for (int i = 0; i < ACC; ++i) o[i] *= alpha[(i >> 1) & 1];
+      fence_regs(o);
+    };
+    // O += P(t) V(t)
+    auto issue_pv = [&](int t) {
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs<DP>(o, pa[kk], desc_mn(st_s + ((gi + t) % STAGES) * 2 * TB + TB, kk));
+      wgmma_commit();
+    };
+
+    mbar_wait(ready + 8 * p, (n / QB) & 1);
+    if (t0 < t1) {
+      issue_s(t0);
+      wgmma_wait<0>();
+      fence_regs(sc);
+      softmax(t0);
+      pack_a(pa, sc);
+      fence_regs(pa);
+      // S(t) is issued before P V(t - 1) and retires first; the softmax of
+      // tile t runs while P V(t - 1) is in flight. P is packed, and O
+      // rescaled, with no product in flight.
+      for (int t = t0 + 1; t < t1; ++t) {
+        rescale();
+        issue_s(t);
+        issue_pv(t - 1);
+        wgmma_wait<1>();
+        fence_regs(sc);
+        softmax(t);
+        wgmma_wait<0>();
+        fence_regs(o);
+        fence_regs(pa);
+        if (lane == 0) mbar_arrive(empty + 8 * ((gi + t - 1) % STAGES));
+        pack_a(pa, sc);
+        fence_regs(pa);
+      }
+      rescale();
+      issue_pv(t1 - 1);
+      wgmma_wait<0>();
+      fence_regs(o);
+      fence_regs(pa);
+      if (lane == 0) mbar_arrive(empty + 8 * ((gi + t1 - 1) % STAGES));
+    }
+    for (int t = t1; t < x.iters; ++t) pass(t);
+
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      const float lr = quad_sum(l[r]);
+      inv[r] = lr == 0.f ? 0.f : 1.f / lr;
+      if (row >= Sq || lane % 4 != 0) continue;
+      if constexpr (KIND == NO_BIAS)
+        lse[(int64_t)x.bh * Sq + row] = lr == 0.f ? NEG_INF : m[r] * LN2 + logf(lr);
+      else
+        lse[(int64_t)x.bh * Sq + row] = lr == 0.f ? NEG_INF : m[r] + logf(lr);
+    }
+    if constexpr (PERSIST) {
+      // out through the consumer's own Q tile, which no product reads any
+      // more, by a TMA store (rows past Sq and columns past D are not
+      // written); the Q buffer released once every consumer's store has
+      // read its tile
+      static_assert(DP == 64, "one 64-column box per tile");
+      stage_tile(smem_raw + (qt - raw), o, inv[0], inv[1], warp, lane);
+      fence_async_shared();
+      consumer_sync(g);
+      if (threadIdx.x % 128 == 0) {
+        if (first < Sq) tma_store_3d(&map_o, qt, 0, first, x.bh);
+        store_wait_read();
+        mbar_arrive(qfree + 8 * p);
+      }
+    } else {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row0 + 8 * r;
+        if (row >= Sq) continue;
+        bf16* go = out + ((int64_t)x.bh * Sq + row) * D;
+#pragma unroll
+        for (int j = 0; j < DP / 8; ++j) {
+          const int col = 8 * j + 2 * (lane % 4);
+          if (col < D)
+            *reinterpret_cast<__nv_bfloat162*>(go + col) = __floats2bfloat162_rn(
+                o[4 * j + 2 * r] * inv[r], o[4 * j + 2 * r + 1] * inv[r]);
+        }
+      }
+    }
+    gi += x.iters;
+  };
+  int gi = 0;   // the ring's tiles so far
+  if constexpr (PERSIST) {
+    for (int n = 0, w = work_item<true>(0); w < items; w = work_item<true>(++n)) consume(n, w, gi);
+  } else {
+    consume(0, blockIdx.x, gi);
+  }
+}
+
+// -- dq (and delta) ----------------------------------------------------------------
+
+// Work items: query_item, as the forward's.
 
 // With a bias, the producer's warps 1-3 stage each K/V tile's bias beside it
 // in the ring (T5_BIAS: its 64 NC + 63 values by diagonal from the head's
@@ -882,20 +1075,9 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1)
   float* col = reinterpret_cast<float*>(
       smem_raw + (qfree + 8 * (PERSIST ? QB : 0) - raw));
 
-  const int nqb = (Sq + ROWS_NC - 1) / ROWS_NC, items = B * H * nqb;
+  const int items = B * H * ((Sq + ROWS_NC - 1) / ROWS_NC);
   auto item = [&](int w) {
-    DqItem x;
-    x.bh = w % (B * H);
-    x.b = x.bh / H;
-    x.h = x.bh % H;
-    x.bk = x.b * Hkv + x.h / (H / Hkv);
-    x.q0 = (nqb - 1 - w / (B * H)) * ROWS_NC;
-    int kt1 = (Sk + TILE - 1) / TILE;
-    x.kt0 = 0;
-    if (causal) kt1 = min(kt1, (x.q0 + ROWS_NC - 1) / TILE + 1);
-    if (window > 0) x.kt0 = max(0, (x.q0 - window + 1) / TILE);
-    x.iters = max(0, kt1 - x.kt0);
-    return x;
+    return query_item(w, B, H, Hkv, Sq, Sk, ROWS_NC, causal, window);
   };
   const int wg = threadIdx.x / 128;
 
@@ -932,7 +1114,7 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1)
         for (int n = 0;; ++n) {
           const int w = work_item<PERSIST>(n);
           if (w >= items) break;
-          const DqItem x = item(w);
+          const QueryItem x = item(w);
           if constexpr (KIND == T5_BIAS) {   // the head's table column
             if (n > 0) bias_threads_sync();   // the last item's diagonals read it
             for (int c = t; c < bias.nb; c += BIAS_THREADS) col[c] = bias.table[c * H + x.h];
@@ -965,7 +1147,7 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1)
     if constexpr (KIND == DENSE_BIAS) policy = evict_first_policy();
     // the n-th item of the block, item w, its tiles from the gi-th on
     auto produce = [&](int n, int w, int& gi) {
-      const DqItem x = item(w);
+      const QueryItem x = item(w);
       const int p = n % QB;
       if constexpr (PERSIST) mbar_wait(qfree + 8 * p, ((n / QB) & 1) ^ 1);
       if (lane == 0) {
@@ -1047,7 +1229,7 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1)
   // rows of item wi
   float dl[2], lse2[2];
   auto row_stats = [&](int wi) {
-    const DqItem x = item(wi);
+    const QueryItem x = item(wi);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = x.q0 + 64 * g + 16 * warp + lane / 4 + 8 * r;
@@ -1080,7 +1262,7 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1)
   // gi-th on; persistent, then the item's last stage and buffers released
   // and the next item's row statistics loaded while its stores drain.
   auto consume = [&](int n, int w, int next, int& gi) {
-    const DqItem x = item(w);
+    const QueryItem x = item(w);
     const int p = n % QB;
     const int row0 = x.q0 + 64 * g + 16 * warp + lane / 4;   // rows row0, row0 + 8
     float dqa[ACC];
@@ -1666,19 +1848,24 @@ bool bad_args(int B, int H, int Hkv, int Sq, int Sk, int D, int window) {
          (Sk + ROWS - 1) / ROWS > 65535;
 }
 
-template <int DP>
-cudaError_t launch_fwd(const CUtensorMap& map_q, const CUtensorMap& map_k, const CUtensorMap& map_v,
-                       const uint8_t* mask, void* out, float* lse, int B, int H, int Hkv, int Sq,
-                       int Sk, int D, float scale, int causal, int window, cudaStream_t stream) {
-  constexpr int NC = fwd_consumers<DP>();
-  constexpr size_t bytes = fwd_smem_bytes<DP, NC>();
+template <int KIND, int DP>
+cudaError_t launch_fwd(const Maps& m, const uint8_t* mask, const Bias& bias, void* out, float* lse,
+                       int B, int H, int Hkv, int Sq, int Sk, int D, float scale, int causal,
+                       int window, cudaStream_t stream) {
+  constexpr int NC = fwd_consumers<DP, KIND>();
+  auto kernel = fwd_kernel<KIND, DP, NC>;
+  // T5: the head's table column on top
+  const size_t bytes =
+      fwd_smem_bytes<KIND, DP, NC>() + (KIND == T5_BIAS ? bias.nb * sizeof(float) : 0);
+  if (bytes > MAX_SMEM) return cudaErrorInvalidValue;
   static bool done = false;
-  cudaError_t err = allow_smem(fwd_kernel<DP, NC>, bytes, done);
+  cudaError_t err = allow_smem(kernel, KIND == T5_BIAS ? MAX_SMEM : bytes, done);
   if (err != cudaSuccess) return err;
-  const dim3 grid(B * H, (Sq + 64 * NC - 1) / (64 * NC));
-  fwd_kernel<DP, NC><<<grid, 128 * (NC + 1), bytes, stream>>>(
-      map_q, map_k, map_v, mask, static_cast<bf16*>(out), lse, D, H, Hkv, Sq, Sk, scale, causal,
-      window);
+  const int items = B * H * ((Sq + 64 * NC - 1) / (64 * NC));
+  const int grid = persistent<KIND, DP>() && num_sms() < items ? num_sms() : items;
+  kernel<<<grid, 128 * (NC + 1), bytes, stream>>>(m.q, m.k, m.v, m.out0, mask, bias,
+                                                  static_cast<bf16*>(out), lse, B, D, H, Hkv, Sq,
+                                                  Sk, scale, causal, window);
   return cudaGetLastError();
 }
 
@@ -1748,24 +1935,30 @@ using namespace flash_bwd;
 
 extern "C" {
 
-// The bias-free forward: q (B, H, Sq, D) and k, v (B, Hkv, Sk, D) bfloat16,
-// contiguous, 16-byte aligned; kv_mask (B, Sk) uint8 (1 = key present). D is
-// 32, 64 or 128; window 0 means none. Writes out (B, H, Sq, D) bfloat16 and
-// lse (B, H, Sq) f32 (natural log; -1e30 and out = 0 for a row that sees no
-// key). Returns cudaGetLastError() after the launch (0 on success), or
+// The forward, without a bias or with T5's table: q (B, H, Sq, D) and k, v
+// (B, Hkv, Sk, D) bfloat16, contiguous, 16-byte aligned; kv_mask (B, Sk)
+// uint8 (1 = key present). D is 32, 64 or 128; window 0 means none. Writes
+// out (B, H, Sq, D) bfloat16 and lse (B, H, Sq) f32 (natural log; -1e30 and
+// out = 0 for a row that sees no key). The bias operands as for bwd_dq, the
+// dense bias excluded (flash_attention.cu's forward takes it). Returns
+// cudaGetLastError() after the launch (0 on success), or
 // cudaErrorInvalidValue for arguments the kernel does not take.
-int fwd(const void* q, const void* k, const void* v, const uint8_t* kv_mask, void* out, float* lse,
+int fwd(const void* q, const void* k, const void* v, const uint8_t* kv_mask, const float* bias,
+        int bs, int hs, const float* t5_table, const int* t5_index, int nb, void* out, float* lse,
         int B, int H, int Hkv, int Sq, int Sk, int D, float scale, int causal, int window,
         void* stream) {
-  CUtensorMap mq, mk, mv;
-  if (bad_args(B, H, Hkv, Sq, Sk, D, window) || !tile_map(&mq, q, (int64_t)B * H, Sq, D) ||
-      !tile_map(&mk, k, (int64_t)B * Hkv, Sk, D) || !tile_map(&mv, v, (int64_t)B * Hkv, Sk, D))
+  Maps m{};
+  if (bad_args(B, H, Hkv, Sq, Sk, D, window) || bias != nullptr ||
+      bad_bias(nullptr, t5_table, t5_index, nb) || !tile_map(&m.q, q, (int64_t)B * H, Sq, D) ||
+      !tile_map(&m.k, k, (int64_t)B * Hkv, Sk, D) || !tile_map(&m.v, v, (int64_t)B * Hkv, Sk, D) ||
+      !tile_map(&m.out0, out, (int64_t)B * H, Sq, D))
     return (int)cudaErrorInvalidValue;
+  const Bias b{nullptr, bs, hs, 0, t5_table, t5_index, nb};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(D == 128 ? launch_fwd<128>(mq, mk, mv, kv_mask, out, lse, B, H, Hkv, Sq, Sk, D,
-                                          scale, causal, window, s)
-                        : launch_fwd<64>(mq, mk, mv, kv_mask, out, lse, B, H, Hkv, Sq, Sk, D,
-                                         scale, causal, window, s));
+  return (int)(t5_table ? BWD_BY_DIM(launch_fwd, T5_BIAS, m, kv_mask, b, out, lse, B, H, Hkv, Sq,
+                                     Sk, D, scale, causal, window, s)
+                        : BWD_BY_DIM(launch_fwd, NO_BIAS, m, kv_mask, b, out, lse, B, H, Hkv, Sq,
+                                     Sk, D, scale, causal, window, s));
 }
 
 // q, out, dout (B, H, Sq, D) and k, v (B, Hkv, Sk, D): bfloat16, contiguous,

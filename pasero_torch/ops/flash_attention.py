@@ -12,12 +12,14 @@ streamed ``_fwd_stream`` :544, ``_bwd_stream`` :738 and ``_compute_demb``
 ``torch.autograd.Function`` that returns ``out`` and keeps ``lse`` for its
 backward. On CUDA tensors its forward launches ``flash_fwd`` and its
 backward ``flash_bwd_dq`` then ``flash_bwd_dkv`` (and ``flash_bwd_dbias``
-for the bias's gradient, ``flash_bwd_demb`` for the T5 table's): the
-wgmma kernels of ``csrc/flash_bwd.cu`` for the bias-free forward and for dq
-and dk/dv of every bias kind, the kernels of ``csrc/flash_attention.cu`` for
-the biased and T5 forward, dbias and demb; each wrapper counts its launches,
-those of a biased or a T5 kernel apart (``launch_counts`` names them
-``flash_fwd_bias``, ``flash_fwd_t5`` and so on). CPU tensors take
+for the bias's gradient, ``flash_bwd_demb`` for the T5 table's): in
+bfloat16 the wgmma kernels of ``csrc/flash_bwd.cu`` for the bias-free and
+the T5 forward and for dq and dk/dv of every bias kind, the kernels of
+``csrc/flash_attention.cu`` for the dense-bias forward, dbias and demb; in
+float32 the kernels of ``csrc/flash_f32.cu`` for all of them. Each wrapper
+counts its launches, those of a biased, a T5 or a float32 kernel apart
+(``launch_counts`` names them ``flash_fwd_bias``, ``flash_fwd_t5``,
+``flash_fwd_f32``, ``flash_fwd_t5_f32`` and so on). CPU tensors take
 ``flash_fwd_plain``, ``flash_bwd_plain``, ``flash_dbias_plain`` and
 ``flash_demb_plain``. A CUDA tensor never takes the plain version: the
 kernels launch or the wrapper raises.
@@ -28,9 +30,11 @@ reading K/V head h // (H // Hkv); a boolean mask is reduced to a key mask by
 indices; a padded key gets the -1e30 of ``_pad_penalty`` (its probability is
 exactly 0); ``delta = sum(dO * out)`` is taken in float32 over the rounded
 output. A row that sees no key gives out = 0 and lse = -1e30 (JAX's
-``l == 0`` guard). The kernels round P to v's type before P.V and dS to q's
-type before dS.K and dS^T.Q, as the Pallas kernels do; the plain versions
-compute everything in float32.
+``l == 0`` guard). The kernels take q, k and v all bfloat16 or all float32
+and round P to v's type before P.V and dS to q's type before dS.K and
+dS^T.Q, as the Pallas kernels do (so in float32 P and dS stay float32, and
+the float32 kernels' products are float32 FMAs, not TF32); the plain
+versions compute everything in float32.
 
 The bias is float32 (b0, h0, Sq, Sk) with b0 in {1, B} and h0 in {1, H}
 (JAX's ``_bias_rows`` :162): the kernels read the row of (b, h) through its
@@ -254,13 +258,14 @@ _BIAS_TYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
 
 
 def _library():
-    """``csrc/flash_attention.cu``: the biased and T5 forward, dbias and
-    demb kernels."""
+    """``csrc/flash_attention.cu``: the dense-bias forward, dbias and demb
+    kernels."""
     lib = cuda_build.load("flash_attention")
     if lib.flash_fwd.argtypes is None:
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         dims = [i32] * 6 + [f32, i32, i32, ptr]   # B H Hkv Sq Sk D, scale ...
-        lib.flash_fwd.argtypes = [ptr] * 4 + _BIAS_TYPES + [ptr] * 2 + dims
+        lib.flash_fwd.argtypes = [ptr] * 4 + _BIAS_TYPES[:3] + [ptr] * 2 + \
+            dims
         lib.flash_bwd_dbias.argtypes = [ptr] * 4 + _BIAS_TYPES[:3] + \
             [ptr] * 4 + dims
         lib.flash_bwd_demb.argtypes = [ptr] * 4 + _BIAS_TYPES[3:] + \
@@ -272,20 +277,41 @@ def _library():
     return lib
 
 
+def _set_types(lib, dbias_and_demb: bool):
+    """argtypes of the forward, dq and dk/dv entry points (each takes the
+    bias operands in ``_bias_args``'s order), and with ``dbias_and_demb``
+    those of dbias and demb."""
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    dims = [i32] * 6 + [f32, i32, i32, ptr]   # B H Hkv Sq Sk D, scale ...
+    entries = [lib.fwd, lib.bwd_dq, lib.bwd_dkv]
+    lib.fwd.argtypes = [ptr] * 4 + _BIAS_TYPES + [ptr] * 2 + dims
+    lib.bwd_dq.argtypes = [ptr] * 4 + _BIAS_TYPES + [ptr] * 5 + dims
+    lib.bwd_dkv.argtypes = [ptr] * 4 + _BIAS_TYPES + [ptr] * 5 + dims
+    if dbias_and_demb:
+        lib.bwd_dbias.argtypes = [ptr] * 4 + _BIAS_TYPES[:3] + [ptr] * 4 + dims
+        lib.bwd_demb.argtypes = [ptr] * 4 + _BIAS_TYPES[3:] + [ptr] * 4 + dims
+        entries += [lib.bwd_dbias, lib.bwd_demb]
+    for fn in entries:
+        fn.restype = ctypes.c_int
+    lib.flash_error_string.argtypes = [ctypes.c_int]
+    lib.flash_error_string.restype = ctypes.c_char_p
+
+
 def _bwd_library():
-    """``csrc/flash_bwd.cu``: the bias-free forward and the dq and dk/dv
-    kernels of every bias kind."""
+    """``csrc/flash_bwd.cu``: the bias-free and the T5 forward and the dq
+    and dk/dv kernels of every bias kind, in bfloat16."""
     lib = cuda_build.load("flash_bwd")
     if lib.bwd_dq.argtypes is None:
-        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        dims = [i32] * 6 + [f32, i32, i32, ptr]   # B H Hkv Sq Sk D, scale ...
-        lib.fwd.argtypes = [ptr] * 6 + dims
-        lib.bwd_dq.argtypes = [ptr] * 4 + _BIAS_TYPES + [ptr] * 5 + dims
-        lib.bwd_dkv.argtypes = [ptr] * 4 + _BIAS_TYPES + [ptr] * 5 + dims
-        lib.fwd.restype = lib.bwd_dq.restype = lib.bwd_dkv.restype = \
-            ctypes.c_int
-        lib.flash_error_string.argtypes = [ctypes.c_int]
-        lib.flash_error_string.restype = ctypes.c_char_p
+        _set_types(lib, False)
+    return lib
+
+
+def _f32_library():
+    """``csrc/flash_f32.cu``: the float32 forward, dq, dk/dv, dbias and demb
+    kernels of every bias kind."""
+    lib = cuda_build.load("flash_f32")
+    if lib.bwd_dq.argtypes is None:
+        _set_types(lib, True)
     return lib
 
 
@@ -298,12 +324,17 @@ def _raise_on(lib, status: int, what: str) -> None:
 _operand = cuda_build.aligned
 
 
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+
+
 def _cuda_args(q, k, v, kv_mask, window):
-    """Checked kernel operands and the launch's dimensions."""
+    """Checked kernel operands and the launch's dimensions: q, k and v all
+    bfloat16 or all float32."""
     for name, x in (("q", q), ("k", k), ("v", v)):
-        if x.dtype != torch.bfloat16:
-            raise TypeError(f"the flash kernels take bfloat16, got {name} "
-                            f"{x.dtype}")
+        if x.dtype not in KERNEL_DTYPES or x.dtype != q.dtype:
+            raise TypeError(f"the flash kernels take q, k and v all bfloat16 "
+                            f"or all float32, got {name} {x.dtype} beside q "
+                            f"{q.dtype}")
         if x.device != q.device:
             raise ValueError(f"{name} lies on {x.device}, q on {q.device}")
     B, H, Sq, D = q.shape
@@ -375,78 +406,104 @@ def _scalars(dims, scale, causal, window):
     return (*dims, float(scale), int(causal), window or 0)
 
 
-def _count(wrapper, bias) -> None:
-    """One launch more of ``wrapper``'s bias-free, biased or T5 kernel."""
+def _count(wrapper, bias, dtype) -> None:
+    """One launch more of ``wrapper``'s bias-free, biased or T5 kernel, its
+    float32 instances counted apart."""
+    end = "_f32" if dtype == torch.float32 else ""
     if bias is None:
-        wrapper.launches += 1
+        name = "launches"
     elif isinstance(bias, T5Bias):
-        wrapper.t5_launches += 1
+        name = "t5_launches"
     else:
-        wrapper.bias_launches += 1
+        name = "bias_launches"
+    setattr(wrapper, name + end, getattr(wrapper, name + end) + 1)
+
+
+def _count_own(wrapper, f32: bool) -> None:
+    """One launch more of ``wrapper``'s only kernel (dbias, demb), float32
+    apart."""
+    if f32:
+        wrapper.launches_f32 += 1
+    else:
+        wrapper.launches += 1
 
 
 def flash_fwd(q, k, v, kv_mask, scale: float, causal: bool,
               window: Optional[int], bias=None):
-    """(out (B, H, Sq, D) bfloat16, lse (B, H, Sq) float32) from one launch
-    of the forward kernel, biased when a float32 ``bias`` (b0, h0, Sq, Sk)
-    is given (counted in ``bias_launches``), with the T5 table when it is a
-    T5Bias (``t5_launches``), else bias-free (``launches``): the wgmma
-    kernel of csrc/flash_bwd.cu."""
+    """(out (B, H, Sq, D) in q's type, lse (B, H, Sq) float32) from one
+    launch of the forward kernel, biased when a float32 ``bias`` (b0, h0,
+    Sq, Sk) is given (counted in ``bias_launches``), with the T5 table when
+    it is a T5Bias (``t5_launches``), else bias-free (``launches``). In
+    bfloat16 the wgmma kernel of csrc/flash_bwd.cu without a bias or with
+    the T5 table, csrc/flash_attention.cu's with a dense bias; in float32
+    csrc/flash_f32.cu's (counted in ``*_launches_f32``)."""
     q, k, v, mask, dims = _cuda_args(q, k, v, kv_mask, window)
     bias_ops = _bias_args(bias, q, dims)
     out = torch.empty_like(q)
     lse = torch.empty(dims[:2] + dims[3:4], dtype=torch.float32,
                       device=q.device)
-    if bias is None:
-        _launch("fwd", q.device, q, k, v, mask, out, lse,
-                *_scalars(dims, scale, causal, window), lib=_bwd_library())
+    scalars = _scalars(dims, scale, causal, window)
+    if q.dtype == torch.float32:
+        _launch("fwd", q.device, q, k, v, mask, *bias_ops, out, lse, *scalars,
+                lib=_f32_library())
+    elif bias is None or isinstance(bias, T5Bias):
+        _launch("fwd", q.device, q, k, v, mask, *bias_ops, out, lse, *scalars,
+                lib=_bwd_library())
     else:
-        _launch("flash_fwd", q.device, q, k, v, mask, *bias_ops, out, lse,
-                *_scalars(dims, scale, causal, window))
-    _count(flash_fwd, bias)
+        _launch("flash_fwd", q.device, q, k, v, mask, *bias_ops[:3], out, lse,
+                *scalars)
+    _count(flash_fwd, bias, q.dtype)
     return out, lse
 
 
-def _bwd_operands(out, do, lse):
+def _bwd_operands(q, out, do, lse):
     for name, x in (("out", out), ("dO", do)):
-        if x is not None and x.dtype != torch.bfloat16:
-            raise TypeError(f"{name} must be bfloat16, got {x.dtype}")
+        if x is not None and x.dtype != q.dtype:
+            raise TypeError(f"{name} must be {q.dtype} as q is, got "
+                            f"{x.dtype}")
     return (None if out is None else _operand(out), _operand(do),
             lse.float().contiguous())
 
 
+def _dq_dkv_library(q):
+    """The library of the dq and dk/dv kernels of q's type."""
+    return _f32_library() if q.dtype == torch.float32 else _bwd_library()
+
+
 def flash_bwd_dq(q, k, v, kv_mask, out, lse, do, scale: float,
                  causal: bool, window: Optional[int], bias=None):
-    """(dq bfloat16, delta (B, H, Sq) float32) from one launch of the dq
-    kernel of csrc/flash_bwd.cu, which also computes delta = sum(dO * out)
-    for the dk/dv kernel and re-adds ``bias`` (the forward's) to the
-    recomputed scores."""
+    """(dq in q's type, delta (B, H, Sq) float32) from one launch of the dq
+    kernel (csrc/flash_bwd.cu's in bfloat16, csrc/flash_f32.cu's in
+    float32), which also computes delta = sum(dO * out) for the dk/dv kernel
+    and re-adds ``bias`` (the forward's) to the recomputed scores."""
     q, k, v, mask, dims = _cuda_args(q, k, v, kv_mask, window)
     bias_ops = _bias_args(bias, q, dims)
-    out, do, lse = _bwd_operands(out, do, lse)
+    out, do, lse = _bwd_operands(q, out, do, lse)
     dq = torch.empty_like(q)
     delta = torch.empty_like(lse)
     _launch("bwd_dq", q.device, q, k, v, mask, *bias_ops, out, do, lse, delta,
-            dq, *_scalars(dims, scale, causal, window), lib=_bwd_library())
-    _count(flash_bwd_dq, bias)
+            dq, *_scalars(dims, scale, causal, window),
+            lib=_dq_dkv_library(q))
+    _count(flash_bwd_dq, bias, q.dtype)
     return dq, delta
 
 
 def flash_bwd_dkv(q, k, v, kv_mask, do, lse, delta, scale: float,
                   causal: bool, window: Optional[int], bias=None):
-    """(dk, dv) in bfloat16 at K/V-head width from one launch of the dk/dv
-    kernel of csrc/flash_bwd.cu, given the dq kernel's delta; with ``bias``,
-    each query head of a group re-adds its own bias row (its own T5 table
-    column)."""
+    """(dk, dv) in k's type at K/V-head width from one launch of the dk/dv
+    kernel (csrc/flash_bwd.cu's in bfloat16, csrc/flash_f32.cu's in
+    float32), given the dq kernel's delta; with ``bias``, each query head of
+    a group re-adds its own bias row (its own T5 table column)."""
     q, k, v, mask, dims = _cuda_args(q, k, v, kv_mask, window)
     bias_ops = _bias_args(bias, q, dims)
-    _, do, lse = _bwd_operands(None, do, lse)
+    _, do, lse = _bwd_operands(q, None, do, lse)
     delta = delta.float().contiguous()
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     _launch("bwd_dkv", q.device, q, k, v, mask, *bias_ops, do, lse, delta, dk,
-            dv, *_scalars(dims, scale, causal, window), lib=_bwd_library())
-    _count(flash_bwd_dkv, bias)
+            dv, *_scalars(dims, scale, causal, window),
+            lib=_dq_dkv_library(q))
+    _count(flash_bwd_dkv, bias, q.dtype)
     return dk, dv
 
 
@@ -457,62 +514,79 @@ _BY_KIND = (flash_fwd, flash_bwd_dq, flash_bwd_dkv)
 def flash_bwd_dbias(q, k, v, kv_mask, bias, do, lse, delta, scale: float,
                     causal: bool, window: Optional[int]):
     """The bias's gradient, float32 in the bias's own shape, from one launch
-    of the dbias kernel: dS = P (dP - delta), zero where masked, summed over
-    the batch inside the kernel when b0 = 1; summed over the heads by a torch
-    op after it when h0 = 1, as JAX does (flash_attention.py:1250-1251)."""
+    of the dbias kernel (csrc/flash_attention.cu's in bfloat16,
+    csrc/flash_f32.cu's in float32, counted in ``launches_f32``): dS = P
+    (dP - delta), zero where masked, summed over the batch inside the kernel
+    when b0 = 1; summed over the heads by a torch op after it when h0 = 1, as
+    JAX does (flash_attention.py:1250-1251)."""
     q, k, v, mask, dims = _cuda_args(q, k, v, kv_mask, window)
     rows, bs, hs = _bias_args(bias, q, dims)[:3]
-    _, do, lse = _bwd_operands(None, do, lse)
+    _, do, lse = _bwd_operands(q, None, do, lse)
     delta = delta.float().contiguous()
     B, H, _, Sq, Sk, _ = dims
     b0 = bias.shape[0]
     dbias = torch.empty((b0, H, Sq, Sk), dtype=torch.float32, device=q.device)
-    _launch("flash_bwd_dbias", q.device, q, k, v, mask, rows, bs, hs,
-            do, lse, delta, dbias, *_scalars(dims, scale, causal, window))
-    flash_bwd_dbias.launches += 1
+    f32 = q.dtype == torch.float32
+    _launch("bwd_dbias" if f32 else "flash_bwd_dbias", q.device, q, k, v,
+            mask, rows, bs, hs, do, lse, delta, dbias,
+            *_scalars(dims, scale, causal, window),
+            lib=_f32_library() if f32 else None)
+    _count_own(flash_bwd_dbias, f32)
     return _reduce_to(dbias, bias.shape)
+
 
 
 def flash_bwd_demb(q, k, v, kv_mask, t5: T5Bias, do, lse, delta,
                    scale: float, causal: bool, window: Optional[int]):
     """The T5 table's gradient, (num_buckets, H) float32, from one launch of
     the demb kernel: dS = P (dP - delta), zero where masked, summed by
-    bucket per head. The kernel writes one (num_buckets,) row of partial
-    sums per (batch, head, query tile), without atomics; a torch sum over
-    the batches and query tiles follows, as JAX's grid sums them in order
+    bucket per head (csrc/flash_attention.cu's kernel in bfloat16,
+    csrc/flash_f32.cu's in float32, counted in ``launches_f32``). The kernel
+    writes one (num_buckets,) row of partial sums per (batch, head, query
+    tile), without atomics; a torch sum over the batches and query tiles
+    follows, as JAX's grid sums them in order
     (flash_attention.py:1255-1318)."""
     q, k, v, mask, dims = _cuda_args(q, k, v, kv_mask, window)
     table, index, nb = _t5_args(t5, q, dims)
-    _, do, lse = _bwd_operands(None, do, lse)
+    _, do, lse = _bwd_operands(q, None, do, lse)
     delta = delta.float().contiguous()
     B, H, _, Sq, _, _ = dims
     tiles = -(-Sq // 64)
     partial = torch.empty((B, H, tiles, nb), dtype=torch.float32,
                           device=q.device)
-    _launch("flash_bwd_demb", q.device, q, k, v, mask, table, index, nb, do,
-            lse, delta, partial, *_scalars(dims, scale, causal, window))
-    flash_bwd_demb.launches += 1
+    f32 = q.dtype == torch.float32
+    _launch("bwd_demb" if f32 else "flash_bwd_demb", q.device, q, k, v, mask,
+            table, index, nb, do, lse, delta, partial,
+            *_scalars(dims, scale, causal, window),
+            lib=_f32_library() if f32 else None)
+    _count_own(flash_bwd_demb, f32)
     return partial.sum(dim=(0, 2)).t()
 
 
 def launch_counts() -> dict:
     """The launches of each flash kernel by name; the biased and the T5
     instances of the forward, dq and dk/dv kernels count apart, as
-    ``*_bias`` and ``*_t5``."""
-    counts = {fn.__name__: fn.launches for fn in _BY_KIND}
-    counts.update({fn.__name__ + "_bias": fn.bias_launches
-                   for fn in _BY_KIND})
-    counts.update({fn.__name__ + "_t5": fn.t5_launches
-                   for fn in _BY_KIND})
-    counts["flash_bwd_dbias"] = flash_bwd_dbias.launches
-    counts["flash_bwd_demb"] = flash_bwd_demb.launches
+    ``*_bias`` and ``*_t5``, and the float32 instances of every kernel as
+    ``*_f32`` (``flash_fwd_f32``, ``flash_fwd_bias_f32``,
+    ``flash_fwd_t5_f32``, ..., ``flash_bwd_demb_f32``)."""
+    counts = {}
+    for end in ("", "_f32"):
+        for kind, attr in (("", "launches"), ("_bias", "bias_launches"),
+                           ("_t5", "t5_launches")):
+            counts.update({fn.__name__ + kind + end: getattr(fn, attr + end)
+                           for fn in _BY_KIND})
+        for fn in (flash_bwd_dbias, flash_bwd_demb):
+            counts[fn.__name__ + end] = getattr(fn, "launches" + end)
     return counts
 
 
 def reset_launch_counts() -> None:
-    for fn in _BY_KIND:
-        fn.launches = fn.bias_launches = fn.t5_launches = 0
-    flash_bwd_dbias.launches = flash_bwd_demb.launches = 0
+    for end in ("", "_f32"):
+        for fn in _BY_KIND:
+            for attr in ("launches", "bias_launches", "t5_launches"):
+                setattr(fn, attr + end, 0)
+        for fn in (flash_bwd_dbias, flash_bwd_demb):
+            setattr(fn, "launches" + end, 0)
 
 
 reset_launch_counts()
@@ -520,7 +594,7 @@ reset_launch_counts()
 
 def flash_bwd(q, k, v, kv_mask, out, lse, do, scale: float, causal: bool,
               window: Optional[int], bias=None):
-    """(dq, dk, dv) in bfloat16: the dq kernel, then the dk/dv kernel."""
+    """(dq, dk, dv) in q's type: the dq kernel, then the dk/dv kernel."""
     args = (scale, causal, window, bias)
     dq, delta = flash_bwd_dq(q, k, v, kv_mask, out, lse, do, *args)
     return (dq,) + flash_bwd_dkv(q, k, v, kv_mask, do, lse, delta, *args)

@@ -525,7 +525,9 @@ def trace_profile(fn, path: str, kernel_names: tuple = ()) -> dict:
 
 # the port's kernels by a part of their names in a trace
 KERNELS = {"slot_write": "slot_write_kernel",
-           "flash_fwd": "::fwd_kernel",   # flash:: biased, flash_bwd:: not
+           # flash:: the dense bias's, flash_bwd:: the bias-free and T5
+           # ones, flash_f32:: the float32 ones
+           "flash_fwd": "::fwd_kernel",
            "int8_matmul": "int8_matmul_kernel",
            "fused_head_partials": "partials_kernel",
            "fused_head_combine": "combine_kernel",

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""The flash-attention backward on one card: device ms per call of the dq
-and the dk/dv kernels (``flash_bwd_dq``, ``flash_bwd_dkv``) with a dense
-ALiBi bias, with T5's table and without a bias, at the training shapes of
-bloom_560m, t5_base and llama_1b and at long sequences.
+"""The flash-attention kernels on one card: device ms per call of the
+forward, dq and dk/dv kernels (``flash_fwd``, ``flash_bwd_dq``,
+``flash_bwd_dkv``) with a dense ALiBi bias, with T5's table and without a
+bias, at the training shapes of bloom_560m, t5_base and llama_1b and at long
+sequences.
 
     python -m pasero_torch.scripts.bench_flash_bwd [--cases bloom_560m ...]
 
@@ -15,8 +16,8 @@ It uses only the wrappers' public signatures, so it times whatever kernels
 that checkout's wrappers launch. Each time is a CUDA graph of back-to-back
 calls replayed between CUDA events (host launch costs left out). Prints one
 JSON line: the card's name and power limit, then per case its shape and,
-for the case's bias (if it has one) and without one, dq, dk/dv and their
-sum.
+for the case's bias (if it has one) and without one, the forward, dq, dk/dv
+and the backward's sum.
 """
 
 from __future__ import annotations
@@ -28,11 +29,13 @@ import subprocess
 import torch
 
 # (B, H, Hkv, S, D), causal, bias: "alibi" (per-sample causal ALiBi, max
-# bias 8), "alibi16" (max bias 16), "t5" (a bidirectional table) or None
+# bias 8), "alibi16" (max bias 16), "t5" (a bidirectional table),
+# "t5_causal" (a unidirectional one) or None
 CASES = {
     "bloom_560m": ((4, 16, 16, 2048, 64), True, "alibi"),
     "alibi_16500": ((1, 2, 2, 16500, 128), True, "alibi16"),
     "t5_base": ((32, 12, 12, 512, 64), False, "t5"),
+    "t5_decoder": ((32, 12, 12, 128, 64), True, "t5_causal"),
     "t5_32768": ((1, 12, 12, 32768, 64), False, "t5"),
     "llama_1b": ((4, 32, 4, 2048, 64), True, None),
     "llama_32768": ((1, 32, 32, 32768, 128), True, None),
@@ -74,17 +77,18 @@ def inputs(B, H, Hkv, S, D, kind):
     mask = torch.ones(B, S, dtype=torch.bool, device="cuda")
     if kind is None:
         return q, k, v, do, mask, None
-    if kind == "t5":
+    if kind in ("t5", "t5_causal"):
         table = 0.5 * torch.randn(32, H, generator=gen, device="cuda")
-        return q, k, v, do, mask, T5Bias(table, True)
+        return q, k, v, do, mask, T5Bias(table, kind == "t5")
     pos = torch.arange(S, device="cuda")[None].expand(B, S)
     return q, k, v, do, mask, alibi_bias(H, pos, pos,
                                          16 if kind == "alibi16" else 8)
 
 
 def time_case(shape, causal, kind) -> dict:
-    """Device ms of dq, dk/dv and their sum at one shape, under the key
-    ``kind`` with the bias and under "none" without it."""
+    """Device ms of the forward, dq, dk/dv and the backward (dq + dk/dv) at
+    one shape, under the key ``kind`` with the bias and under "none" without
+    it."""
     from pasero_torch.ops.flash_attention import (flash_bwd_dkv, flash_bwd_dq,
                                                   flash_fwd)
     B, H, Hkv, S, D = shape
@@ -97,6 +101,8 @@ def time_case(shape, causal, kind) -> dict:
         out, lse = flash_fwd(q, k, v, mask, *args, b)
         _, delta = flash_bwd_dq(q, k, v, mask, out, lse, do, *args, b)
         times = {
+            "fwd": device_ms(lambda: flash_fwd(q, k, v, mask, *args, b),
+                             2 if long else 10, 2 if long else 5),
             "dq": device_ms(lambda: flash_bwd_dq(q, k, v, mask, out, lse, do,
                                                  *args, b),
                             2 if long else 10, 2 if long else 5),

@@ -348,10 +348,11 @@ def flash_lengths(S):
     return S if isinstance(S, tuple) else (S, S)
 
 
-def flash_inputs(B, H, Hkv, S, D, padded, seed=0, device="cuda", Sk=None):
-    """bf16 q, k, v, dO with a per-row scale of q (so lse differs between
-    rows) and a (B, Sk) key mask with the last keys of each row padded; Sk
-    is S unless given."""
+def flash_inputs(B, H, Hkv, S, D, padded, seed=0, device="cuda", Sk=None,
+                 dtype=torch.bfloat16):
+    """q, k, v, dO in ``dtype`` (bf16 unless given) with a per-row scale of
+    q (so lse differs between rows) and a (B, Sk) key mask with the last
+    keys of each row padded; Sk is S unless given."""
     Sk = S if Sk is None else Sk
     gen = torch.Generator(device=device).manual_seed(seed)
     scale = 0.5 + 1.5 * torch.rand(B, H, S, 1, generator=gen, device=device)
@@ -364,7 +365,7 @@ def flash_inputs(B, H, Hkv, S, D, padded, seed=0, device="cuda", Sk=None):
         lengths = torch.randint(Sk // 2, Sk + 1, (B,), generator=gen,
                                 device=device)
         mask = torch.arange(Sk, device=device)[None] < lengths[:, None]
-    return [x.to(torch.bfloat16) for x in (q, k, v, do)] + [mask]
+    return [x.to(dtype) for x in (q, k, v, do)] + [mask]
 
 
 def flash_limits(q, k, v, kv_mask, lse, do, scale, causal, window, want,
@@ -510,21 +511,24 @@ def test_flash_backward_same_bits(shape, causal, window, padded):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bad", ["head_dim", "dtype", "window"])
+@pytest.mark.parametrize("bad", ["head_dim", "dtype", "mixed", "window"])
 def test_flash_bad_input_raises_on_card(bad):
     """Head dims past 128 (flash_attention pads the others up to 32, 64 or
-    128), types other than bfloat16 and a window that is not positive raise
-    before any launch."""
-    from pasero_torch.ops.flash_attention import flash_attention, flash_fwd
+    128), types other than bfloat16 and float32, q, k and v of mixed types
+    and a window that is not positive raise before any launch."""
+    from pasero_torch.ops.flash_attention import (flash_attention, flash_fwd,
+                                                  launch_counts)
     _need_card()
     D = 160 if bad == "head_dim" else 64
-    dtype = torch.float32 if bad == "dtype" else torch.bfloat16
+    dtype = torch.float16 if bad == "dtype" else torch.float32
     q = torch.zeros((1, 2, 8, D), device="cuda", dtype=dtype)
-    before = flash_fwd.launches
+    kv = q.to(torch.bfloat16) if bad == "mixed" else q
+    before = launch_counts()
     with pytest.raises((TypeError, ValueError)):
-        flash_attention(q, q, q, causal=True,
+        flash_attention(q, kv, kv, causal=True,
                         window=0 if bad == "window" else None)
-    assert flash_fwd.launches == before
+    assert launch_counts() == before
+    assert flash_fwd.launches_f32 == before["flash_fwd_f32"]
 
 
 ODD_HEAD_DIMS = [   # (B, H, Hkv, S, D), causal, padded, bias kind or None
@@ -1015,6 +1019,306 @@ def test_t5_flash_wrappers_raise_on_card():
                                                   device="cuda"),
                         t5_bias=T5Bias(torch.zeros((32, 4), device="cuda")))
     assert flash_fwd.t5_launches == before
+
+
+# The float32 kernels (csrc/flash_f32.cu: the forward, dq, dk/dv, dbias and
+# demb of every bias kind) against the plain version's float32 results of the
+# same float32 inputs. Both sides compute every product and sum in float32
+# (no operand or P or dS is rounded to a shorter type), so they differ by
+# float32 roundings of u = 2^-24 only, in a limit per element of the bf16
+# model's form: an output is a sum of terms a_i = c_i m_i (P v for out, P dO
+# for dv, scale dS k for dq, scale dS q for dk), and
+#
+#   |got - want| <= atol + K u (sqrt(sum_i (a_i e_i)^2) + 2 sqrt(n) S + sqrt(n) |want|)
+#
+# where S = sqrt(sum_i a_i^2) and n is the row's length (the visible keys of
+# a query row for out and dq, the visible (query, head) pairs of a key row
+# for dk and dv): the sums' own roundings, a random walk of n steps of at
+# most u times a partial sum, and for out the row sum l's. e_i is the
+# relative error of the coefficient c_i in units of u. For P = exp(s - lse):
+# the score's dot product over D (sqrt(D) times the root sum of squares of
+# its terms, scale q_d k_d), the roundings of s and of the bias added to it
+# and of lse (|s| + |lse|) and the exponential's own (4); for dS = P (dP -
+# delta) that times |dS|, plus P times the dot products' errors of dP and
+# delta (sqrt(D) times their roots of sums of squares) and the rounding of
+# the difference (|dP| + |delta|), which is all of dS where a row sees one
+# key (dP and delta are then one number summed in two orders). K = 4. A
+# TF32 product (operands rounded to 10 mantissa bits, 2^-11) errs by 2^13 u
+# per operand, far outside; so do the kernels given another row's lse, a
+# transposed bias, another head's T5 column or shifted distances. dbias and
+# demb keep the limits of ``flash_dbias_limits`` and ``flash_demb_limits``
+# (float32 ones already), which reject dS rounded to bfloat16.
+U_F32 = 2.0 ** -24
+F32_K = 4.0
+F32_ATOL = 1e-7
+F32_LSE_ATOL = 1e-5
+FLASH_F32_CASES = [   # (B, H, Hkv, S, D), causal, window, padded, bias kind
+    ((2, 8, 2, 2048, 64), True, None, False, None),      # llama-like GQA
+    ((2, 4, 4, 200, 128), True, 48, True, None),         # ragged, a window
+    ((1, 6, 3, 77, 64), False, None, True, None),        # Sk % 4 != 0
+    ((2, 8, 8, 256, 64), True, None, False, "alibi"),    # per-sample ALiBi
+    ((2, 8, 2, 300, 64), True, 64, True, "learned_1xH"),  # with dbias
+    ((2, 4, 4, 256, 64), False, None, True, "t5"),       # bidirectional, demb
+    ((2, 4, 2, 200, 64), True, None, False, "t5_causal"),
+] + [((2, 4, 2, 130, D), kind != "t5", None, True, kind)   # every D, kind
+     for kind in (None, "learned_1xH", "t5") for D in (32, 128)]
+
+
+def round_tf32(x):
+    """x rounded to TF32's 10 mantissa bits (to nearest), as a TF32 product
+    rounds its operands."""
+    bits = x.contiguous().view(torch.int32)
+    bits = (bits + 0x1000) & ~0x1FFF
+    return bits.view(torch.float32)
+
+
+def flash_f32_limits(q, k, v, kv_mask, lse, do, out, scale, causal, window,
+                     want, bias=None):
+    """Per-element limits (out, dq, dk, dv) on the float32 kernels, given
+    float32 inputs, the plain version's results ``want``, its ``lse``, and
+    the forward's ``out`` (the backward's delta comes from it on both
+    sides); ``bias`` (float32, broadcast to (B, H, Sq, Sk)) as in
+    ``flash_limits``."""
+    from pasero_torch.ops.flash_attention import visible
+    B, H, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    group = H // Hkv
+    kg, vg = (x.repeat_interleave(group, 1) for x in (k, v))
+    ok = visible(kv_mask, Sq, causal, window)
+    s = torch.matmul(q, kg.transpose(-1, -2)).mul_(scale)
+    if bias is not None:
+        s.add_(bias)
+    p = torch.exp(s - lse[..., None]).masked_fill_(~ok, 0.0)
+    e = torch.matmul(q.square(), kg.square().transpose(-1, -2)).sqrt_()
+    e.mul_(scale * D ** 0.5).add_(s.abs_()).add_(lse.abs()[..., None] + 4)
+    del s
+    dp = torch.matmul(do, vg.transpose(-1, -2))
+    delta = (do * out).sum(-1, keepdim=True)
+    ds = p * (dp - delta)
+    eds = torch.matmul(do.square(), vg.square().transpose(-1, -2)).sqrt_()
+    eds.add_((do * out).square().sum(-1, keepdim=True).sqrt_())
+    eds.mul_(D ** 0.5).add_(dp.abs_()).add_(delta.abs()).mul_(p)
+    del dp
+    eds.add_(ds.abs() * e)
+    pe = p * e
+    del e
+    n_q = ok.expand(B, H, Sq, Sk).sum(-1, keepdim=True).float()   # per query
+    n_k = ok.expand(B, H, Sq, Sk).float().sum(-2)[..., None]      # per key
+    n_k = n_k.reshape(B, Hkv, group, Sk, 1).sum(2)
+
+    def kv_sum(x):
+        return x.reshape(B, Hkv, group, Sk, D).sum(2)
+
+    terms = [torch.matmul(pe.square(), vg.square()),
+             torch.matmul(eds.square(), kg.square()).mul_(scale ** 2),
+             kv_sum(torch.matmul(eds.square().transpose(-1, -2), q.square()))
+             .mul_(scale ** 2),
+             kv_sum(torch.matmul(pe.square().transpose(-1, -2), do.square()))]
+    rss = [torch.matmul(p.square(), vg.square()),
+           torch.matmul(ds.square(), kg.square()).mul_(scale ** 2),
+           kv_sum(torch.matmul(ds.square().transpose(-1, -2), q.square()))
+           .mul_(scale ** 2),
+           kv_sum(torch.matmul(p.square().transpose(-1, -2), do.square()))]
+    lengths = [n_q, n_q, n_k, n_k]
+    limits = []
+    for t, r, n, w in zip(terms, rss, lengths, want):
+        lim = t.sqrt_().add_(r.sqrt_().mul_(2 * n.sqrt()))
+        lim.add_(w.abs() * n.sqrt())
+        limits.append(lim.mul_(F32_K * U_F32).add_(F32_ATOL))
+    return limits
+
+
+def flash_f32_compare(shape, causal, window, padded, kind) -> dict:
+    """The float32 kernels (forward, dq, dk/dv, and dbias or demb with a
+    bias; one launch each) against the plain version on the same float32
+    inputs at one shape, as ``flash_compare`` does, and the mutations the
+    limits must reject: the kernels on q, k and v rounded to TF32 (a TF32
+    product), a backward given another row's lse, and with a bias those of
+    ``flash_bias_compare`` and ``flash_t5_compare``; then dq and dk/dv once
+    more on the same inputs. Returns the lse error, the excess of out, dq,
+    dk, dv (and dbias or demb) over their limits, the smallest excess of
+    each mutation, whether the second backward gave the same bits, and the
+    max abs errors."""
+    from pasero_torch.ops.flash_attention import (T5Bias, _reduce_to,
+                                                  flash_bwd, flash_bwd_dbias,
+                                                  flash_bwd_demb,
+                                                  flash_bwd_dkv, flash_bwd_dq,
+                                                  flash_bwd_plain,
+                                                  flash_dbias_plain,
+                                                  flash_demb_plain, flash_fwd,
+                                                  flash_fwd_plain, visible)
+    B, H, Hkv, S, D = shape
+    q, k, v, do, mask = flash_inputs(B, H, Hkv, S, D, padded,
+                                     dtype=torch.float32)
+    t5 = kind in ("t5", "t5_causal")
+    if t5:
+        bias = T5Bias(t5_table(H), kind == "t5")
+        dense = bias.materialize(S, S)
+    else:
+        bias = dense = None if kind is None else \
+            flash_bias(kind, B, H, S, mask)
+    rows = visible(mask, S, causal, window).any(-1).expand(B, H, S)
+    do = do * rows[..., None]
+    args = (D ** -0.5, causal, window)
+
+    def kernels(q, k, v, lse=None):
+        out, own = flash_fwd(q, k, v, mask, *args, bias)
+        lse = own if lse is None else lse
+        dq, delta = flash_bwd_dq(q, k, v, mask, out, lse, do, *args, bias)
+        return (out, own, delta) + (dq,) + flash_bwd_dkv(
+            q, k, v, mask, do, lse, delta, *args, bias)
+
+    out, lse, delta, dq, dk, dv = kernels(q, k, v)
+    ref_out, ref_lse = flash_fwd_plain(q, k, v, mask, *args, bias)
+    ref = flash_bwd_plain(q, k, v, mask, out, ref_lse, do, *args, bias)
+    torch.cuda.synchronize()
+    lse_err = (lse - ref_lse)[rows].abs().max().item()
+    limits = flash_f32_limits(q, k, v, mask, ref_lse, do, out, *args,
+                              (ref_out,) + tuple(ref), dense)
+    got = (out, dq, dk, dv)
+    want = (ref_out,) + tuple(ref)
+    excess = [flash_excess(out, ref_out, limits[0], rows)]
+    excess += [flash_excess(g, w, lim)
+               for g, w, lim in zip(got[1:], want[1:], limits[1:])]
+
+    def worst(outputs):   # the largest excess of (out, dq, dk, dv)
+        return max([flash_excess(outputs[0], ref_out, limits[0], rows)] +
+                   [flash_excess(g, w, lim) for g, w, lim in
+                    zip(outputs[1:], want[1:], limits[1:])])
+
+    bad = kernels(*(round_tf32(x) for x in (q, k, v)))
+    mutants = {"tf32": worst((bad[0],) + bad[3:])}
+    bad = kernels(q, k, v, lse.roll(1, -1))
+    mutants["other_lse"] = worst((out,) + bad[3:])
+    errs = {}
+    if kind is not None:
+        name = "demb" if t5 else "dbias"
+        grad = (flash_bwd_demb(q, k, v, mask, bias, do, lse, delta, *args)
+                if t5 else
+                flash_bwd_dbias(q, k, v, mask, bias, do, lse, delta, *args))
+        plain = flash_demb_plain if t5 else flash_dbias_plain
+        ref_grad = plain(q, k, v, mask, out, ref_lse, do, *args, bias)
+        limit = (flash_demb_limits(q, k, v, mask, ref_lse, do, out, *args,
+                                   bias) if t5 else
+                 flash_dbias_limits(q, k, v, mask, ref_lse, do, out, *args,
+                                    bias, ref_grad))
+        excess.append(flash_excess(grad, ref_grad, limit))
+        errs[name] = (grad - ref_grad).abs().max().item()
+        ds = flash_bwd_dbias(q, k, v, mask, dense.expand(B, H, S, S), do,
+                             lse, delta, *args).to(torch.bfloat16).double()
+        if t5:
+            ds_demb = torch.zeros((H, bias.num_buckets), dtype=torch.float64,
+                                  device=ds.device)
+            ds_demb.index_add_(1, bias.buckets(S, S).reshape(-1),
+                               ds.sum(0).reshape(H, S * S))
+            bad_grad = ds_demb.t().float()
+        else:
+            bad_grad = _reduce_to(ds.float(), bias.shape)
+        mutants[f"{name}_bf16"] = flash_excess(bad_grad, ref_grad, limit)
+        del ds
+        if t5:
+            fwd_mutants = {"direction": T5Bias(bias.table, kind != "t5"),
+                           "shifted": shifted_t5(bias)}
+            if kind == "t5":
+                fwd_mutants["other_head"] = T5Bias(bias.table.roll(1, 1),
+                                                   True)
+        else:
+            fwd_mutants = {"other_head": bias.roll(1, 1)}
+            if kind != "alibi":     # ALiBi's causal bias: symmetric
+                fwd_mutants["transposed"] = bias.transpose(-1, -2)
+        for name, b in fwd_mutants.items():
+            mutants[name] = flash_excess(flash_fwd(q, k, v, mask, *args, b)[0],
+                                         ref_out, limits[0], rows)
+    again = flash_bwd(q, k, v, mask, out, lse, do, *args, bias)
+    same_bits = all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again))
+
+    def err(got, want, rows=None):
+        diff = (got - want).abs()
+        return (diff[rows] if rows is not None else diff).max().item()
+
+    errs.update(fwd=max(lse_err, err(out, ref_out, rows)), dq=err(dq, ref[0]),
+                dkv=max(err(dk, ref[1]), err(dv, ref[2])))
+    return {"lse_err": lse_err, "excess": excess, "mutants": mutants,
+            "same_bits": same_bits, "max_abs_err": errs}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,causal,window,padded,kind", FLASH_F32_CASES)
+def test_f32_flash_kernels_match_plain(shape, causal, window, padded, kind):
+    """Float32 q, k and v take csrc/flash_f32.cu's kernels (counted as
+    ``*_f32``, no bf16 kernel launched): out, dq, dk, dv and dbias or demb
+    within their float32 limits, lse within F32_LSE_ATOL; each mutation at
+    2.8 times its limits or more; dq, dk and dv the same bits twice."""
+    from pasero_torch.ops.flash_attention import launch_counts
+    _need_card()
+    before = launch_counts()
+    result = flash_f32_compare(shape, causal, window, padded, kind)
+    after = launch_counts()
+    launched = {n for n in after if after[n] != before[n]}
+    assert launched and all(n.endswith("_f32") for n in launched), launched
+    end = {None: "", "alibi": "_bias", "learned_1xH": "_bias"}.get(kind, "_t5")
+    assert {f"flash_fwd{end}_f32", f"flash_bwd_dq{end}_f32",
+            f"flash_bwd_dkv{end}_f32"} <= launched
+    assert result["lse_err"] <= F32_LSE_ATOL, result["lse_err"]
+    assert max(result["excess"]) <= 1.0, result["excess"]
+    assert min(result["mutants"].values()) >= 2.8, result["mutants"]
+    assert result["same_bits"]
+
+
+# The T5 forward (flash_bwd.cu's fwd_kernel<T5_BIAS, ...>: persistent at D
+# <= 64, one block per item at D = 128) against the plain version at item
+# counts below and above the card's SM count, a key length that is not a
+# multiple of 64, head dims 32 and 128 and t5_base's decoder (causal) shape;
+# out within ``flash_limits``, lse within 1e-4, and the T5 dq kernel given the
+# forward's lse within its limits too (the lse is in natural units for every
+# T5 kernel). Two forwards give the same bits.
+T5_FWD_CASES = [   # (B, H, Hkv, S, D), causal, padded, bidirectional
+    ((1, 2, 2, 256, 64), False, True, True),     # 4 items, below 132 SMs
+    ((32, 12, 12, 512, 64), False, True, True),  # t5_base's encoder, 1536
+    ((2, 4, 2, 333, 64), False, True, True),     # Sk % 64 != 0, GQA
+    ((2, 4, 4, 100, 32), False, True, False),    # D = 32
+    ((2, 8, 2, 300, 128), True, True, True),     # D = 128
+    ((32, 12, 12, 128, 64), True, False, False),  # t5_base's decoder
+]
+
+
+def t5_forward_compare(shape, causal, padded, bidirectional) -> dict:
+    """The T5 forward, and the T5 dq kernel on its lse, against the plain
+    version at one shape. Returns the lse error, the excess of out and dq
+    over ``flash_limits``, and whether a second forward gave the same
+    bits."""
+    from pasero_torch.ops.flash_attention import (T5Bias, flash_bwd_dq,
+                                                  flash_bwd_plain, flash_fwd,
+                                                  flash_fwd_plain, visible)
+    B, H, Hkv, S, D = shape
+    q, k, v, do, mask = flash_inputs(B, H, Hkv, S, D, padded)
+    t5 = T5Bias(t5_table(H), bidirectional)
+    rows = visible(mask, S, causal, None).any(-1).expand(B, H, S)
+    do = do * rows[..., None]
+    args = (D ** -0.5, causal, None, t5)
+    out, lse = flash_fwd(q, k, v, mask, *args)
+    again, lse2 = flash_fwd(q, k, v, mask, *args)
+    dq, _ = flash_bwd_dq(q, k, v, mask, out, lse, do, *args)
+    f32 = [x.float() for x in (q, k, v)]
+    ref_out, ref_lse = flash_fwd_plain(*f32, mask, *args)
+    ref = flash_bwd_plain(*f32, mask, out, ref_lse, do, *args)
+    torch.cuda.synchronize()
+    limits = flash_limits(q, k, v, mask, ref_lse, do, *args[:3],
+                          (ref_out,) + tuple(ref), t5.materialize(S, S))
+    return {"lse_err": (lse - ref_lse)[rows].abs().max().item(),
+            "excess": [flash_excess(out, ref_out, limits[0], rows),
+                       flash_excess(dq, ref[0], limits[1])],
+            "same_bits": torch.equal(out, again) and torch.equal(lse, lse2)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,causal,padded,bidirectional", T5_FWD_CASES)
+def test_t5_forward_matches_plain(shape, causal, padded, bidirectional):
+    _need_card()
+    result = t5_forward_compare(shape, causal, padded, bidirectional)
+    assert result["lse_err"] <= 1e-4
+    assert max(result["excess"]) <= 1.0, result["excess"]
+    assert result["same_bits"]
 
 
 # The int8 GEMM and the fused head against their plain versions' float32

@@ -127,3 +127,20 @@ def test_row_without_keys_gives_zero():
     out.sum().backward()
     assert torch.isfinite(q.grad).all() and torch.isfinite(kv.grad).all()
     assert torch.equal(q.grad[0, 0, 2:], torch.zeros(2, 8))
+
+
+def test_launch_counts_name_the_float32_instances():
+    """Every kernel's float32 instance counts apart under ``*_f32``, and
+    reset_launch_counts zeroes them all."""
+    from pasero_torch.ops import flash_attention as fa
+    counts = fa.launch_counts()
+    bf16 = [n for n in counts if not n.endswith("_f32")]
+    assert sorted(n + "_f32" for n in bf16) == \
+        sorted(n for n in counts if n.endswith("_f32"))
+    assert {"flash_fwd_f32", "flash_fwd_bias_f32", "flash_fwd_t5_f32",
+            "flash_bwd_dbias_f32", "flash_bwd_demb_f32"} <= set(counts)
+    fa.flash_fwd.t5_launches_f32 += 1
+    assert fa.launch_counts()["flash_fwd_t5_f32"] == \
+        counts["flash_fwd_t5_f32"] + 1
+    fa.reset_launch_counts()
+    assert not any(fa.launch_counts().values())

@@ -126,23 +126,28 @@ def test_decoder_only_options_build():
 
 @pytest.mark.parametrize("bad,error", [("head_dim", ValueError),
                                        ("dtype", TypeError),
-                                       ("device", ValueError)])
+                                       ("mixed", TypeError),
+                                       ("device", ValueError),
+                                       ("device_f32", ValueError)])
 def test_flash_kernel_wrapper_refuses_what_it_does_not_take(bad, error):
-    """The CUDA wrappers take bfloat16 at head dims 32, 64 and 128 on the card
-    and raise for anything else, before any launch (no fallback)."""
-    from pasero_torch.ops.flash_attention import (flash_bwd, flash_bwd_dkv,
-                                                  flash_bwd_dq, flash_fwd)
+    """The CUDA wrappers take q, k and v all bfloat16 or all float32 at head
+    dims 32, 64 and 128 on the card and raise for anything else (another
+    type, mixed types, CPU tensors of either type), before any launch (no
+    fallback)."""
+    from pasero_torch.ops.flash_attention import (flash_bwd, flash_fwd,
+                                                  launch_counts)
     D = 48 if bad == "head_dim" else 64
-    dtype = torch.float32 if bad == "dtype" else torch.bfloat16
+    dtype = {"dtype": torch.float16, "mixed": torch.float32,
+             "device_f32": torch.float32}.get(bad, torch.bfloat16)
     q = torch.zeros((1, 2, 8, D), dtype=dtype)
+    kv = q.to(torch.bfloat16) if bad == "mixed" else q
     mask = torch.ones((1, 8), dtype=torch.bool)
-    counts = (flash_fwd, flash_bwd_dq, flash_bwd_dkv)
-    before = [fn.launches for fn in counts]
+    before = launch_counts()
     with pytest.raises(error):
-        flash_fwd(q, q, q, mask, 0.125, True, None)
+        flash_fwd(q, kv, kv, mask, 0.125, True, None)
     with pytest.raises(error):
-        flash_bwd(q, q, q, mask, q, q[..., 0].float(), q, 0.125, True, None)
-    assert [fn.launches for fn in counts] == before
+        flash_bwd(q, kv, kv, mask, q, q[..., 0].float(), q, 0.125, True, None)
+    assert launch_counts() == before
 
 
 @pytest.mark.parametrize("option,item", [

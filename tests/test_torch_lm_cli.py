@@ -17,6 +17,15 @@ CPU with
 
 Tolerance: 1 % relative on the losses of the first 5 steps — both compute
 in bfloat16, and bf16 rounds at other places in the two frameworks.
+
+``pasero_torch/testdata/lm_mini_f32_train20.cpu.json`` holds the port's own
+CLI's 20 losses on the same config and flags with ``--dtype float32
+--valid-interval 10 --save-interval 10 --device cpu``: the golden of
+chip_smoke.py's float32 run on the card, whose flash attention takes the
+float32 kernels (the JAX CLI builds every model in bf16, so it has no
+float32 run to compare with). Regenerate it on the CPU with
+
+    JAX_PLATFORMS=cpu python tests/test_torch_lm_cli.py --f32
 """
 
 import json
@@ -29,6 +38,11 @@ from test_torch_train_cli import ROOT, RTOL, STEPS, run_cli, train_flags
 CONFIG = os.path.join(ROOT, "pasero_torch", "testdata", "lm_mini.yaml")
 GOLDEN = os.path.join(ROOT, "pasero_torch", "testdata",
                       "lm_mini_train20.jax.json")
+F32_GOLDEN = os.path.join(ROOT, "pasero_torch", "testdata",
+                          "lm_mini_f32_train20.cpu.json")
+# the flags of the float32 run beside train_flags', in chip_smoke.py too
+F32_FLAGS = ["--dtype", "float32", "--valid-interval", "10",
+             "--save-interval", "10"]
 
 
 @pytest.fixture(scope="module")
@@ -92,5 +106,28 @@ def regenerate():
     print(f"wrote {GOLDEN}")
 
 
+def regenerate_f32():
+    """Run the port's training CLI on the CPU in float32 and write the
+    float32 golden file."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        logs, _, _ = run_cli("pasero_torch.cli.train", tmp,
+                             F32_FLAGS + ["--device", "cpu"], config=CONFIG)
+    assert [s["step"] for s in logs] == list(range(1, STEPS + 1)), logs
+    flags = train_flags("<model_dir>", "<init.npz>", CONFIG) + F32_FLAGS
+    with open(F32_GOLDEN, "w") as f:
+        json.dump({"command": "python -m pasero_torch.cli.train --device cpu",
+                   "initial_weights": "random_state(model, seed 0) of "
+                                      "pasero_torch.scripts.bench_decode",
+                   "flags": [os.path.relpath(a, ROOT)
+                             if a.startswith(ROOT) else a for a in flags],
+                   "steps": logs}, f, indent=1)
+    print(f"wrote {F32_GOLDEN}")
+
+
 if __name__ == "__main__":
-    regenerate()
+    import sys
+    if "--f32" in sys.argv:
+        regenerate_f32()
+    else:
+        regenerate()
