@@ -72,12 +72,21 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 10. the int8 GEMM and the fused argmax head (bf16 and int8 weights) against
    their plain versions on the card, within the error model of
    tests/test_torch_cuda.py (``int8_limits``), at llama_1b's decode,
-   speculative and prompt rows (M = 8, 72, 1024) and widths, and at a ragged
-   vocabulary (2192), with a rolled scale and a shifted result rejected; at
-   each llama_1b shape their device time per call (CUDA graph) beside the
-   plain version's, the bound and the library yardstick (F.linear on the
-   dequantized bf16 weight; matmul, argmax and log_softmax on materialized
-   logits);
+   speculative and prompt rows (M = 8, 72, 1024) and widths, at a ragged
+   vocabulary (2192) and at INT8_DECODE's cases (M = 1, 16, 80 and 81, K
+   that a cluster splits unevenly), with a rolled scale and a shifted
+   result rejected and the same bits from two calls; at
+   each llama_1b shape their device time per call (CUDA graph; the weight
+   read cold, walking copies of it larger than L2, and hot; the kernel's
+   and the library's graphs read in turn, five readings each, medians; by
+   pasero_torch/scripts/bench_int8.py) beside the plain version's, the
+   bound and the library yardstick (F.linear on the dequantized bf16
+   weight; matmul, argmax and log_softmax on materialized logits); the
+   int8 GEMM's sum over one llama_1b decoder call (154 weights and the
+   head) at M = 8 and 72, cold; at M = 8 each shape and the decoder call
+   at most their library calls, and the head at most
+   INT8_HEAD_EARLIER_MS, the time of the kernel the decode kernel
+   replaced (a gate only);
 11. full-width decoder-only serving: llama_1b with seeded weights at
    scripts/bench_1b.py --decode's shape (8 copy prompts of 128 tokens, 64 new
    tokens, drafts of 8) through scripts/bench_decode.py's workload in five
@@ -119,17 +128,24 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    training shape (4 x 16 heads x 2048 x 64, causal, per-sample ALiBi), a
    learned (1, H) bias at head dim 128, GQA 4 with a window, (B, 1) and
    (1, 1) biases, the encoder's half-head ALiBi with its rows of only -1e9,
-   and 16500 keys at head dim 128; a transposed bias, a bias row of another
-   head, dbias without delta, dbias with dS rounded to bf16 and a backward
-   given another row's lse rejected, dq, dk and dv the same bits from two
-   calls; at bloom_560m's shape each kernel's device time (CUDA graph)
-   beside the plain version's, its bound (operations or bytes), the
-   library yardstick (F.scaled_dot_product_attention with the bias as a
-   float attn_mask, its backward, with the mask's gradient; from CUDA
-   graphs, eager beside), the bias-free dq and dk/dv at the same shape and
-   the times of the biased dq and dk/dv that flash_bwd.cu's replaced
-   (BIAS_BWD_EARLIER_MS; the backward at most its library call), and the
-   biased and bias-free dq and dk/dv at 16500 keys; a learned bias
+   a shared (1, 1) bias at head dim 128 and 16500 keys at head dim 128;
+   a forward of a transposed bias, of a bias row of another head and of
+   the next key tile's bias, a dq given the forward's lse in log2 units
+   (each at FWD_MUTANT_MIN, 2.8x, of the limits or more), dbias without
+   delta, dbias with dS rounded to bf16 and a backward given another row's
+   lse rejected, the forward, dq, dk and dv the same bits from two calls;
+   at bloom_560m's shape each kernel's device time (CUDA graph; the
+   forward, dq and dk/dv by pasero_torch/scripts/bench_flash_bwd.py's
+   time_case) beside the plain version's, its bound (operations or bytes),
+   the library yardstick (F.scaled_dot_product_attention with the bias as
+   a float attn_mask, its backward, with the mask's gradient; from CUDA
+   graphs, eager beside), the bias-free kernels at the same shape and the
+   times of the biased kernels that flash_bwd.cu's replaced
+   (BIAS_FWD_EARLIER_MS, BIAS_BWD_EARLIER_MS; the forward at most its
+   library call and at most BIAS_FWD_EARLIER_MS, the backward at most its
+   library call), the biased and bias-free kernels at 16500 keys, and the
+   biased forward at every other shape beside its library call where the
+   mask fits; a learned bias
    through flash_attention's autograd launching dbias once (the kernels
    line's ``learned_bias_launches``: the main path, phase 17, launches it
    0 times);
@@ -217,8 +233,9 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
-BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor cores, data sheet
+# the card's memory and bf16 rates (HBM_BYTES_PER_S, BF16_FLOPS) and
+# time_ms, bench_int8's eager_ms, come from pasero_torch/scripts/bench_int8.py
+# once main has found the package
 FP32_FLOPS = 67e12          # H100 SXM fp32 outside the tensor cores
 GOLDEN = os.path.join(ROOT, "pasero_torch", "testdata",
                       "deen_mini2_test_beam5.jax.txt")
@@ -248,23 +265,6 @@ def fail(message: str):
 def check(cond: bool, message: str):
     if not cond:
         fail(message)
-
-
-def time_ms(fn, iters: int, warmup: int = 10) -> float:
-    """Mean milliseconds per call of ``fn`` over ``iters`` back-to-back
-    calls, between CUDA events, after a warm-up."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def device_ms(fn, iters: int = 200, replays: int = 20) -> float:
@@ -1224,133 +1224,33 @@ def phase9() -> dict:
 
 # -- phase 10 ------------------------------------------------------------------
 
-COLD_BYTES = 100e6   # twice the H100's 50 MB L2
-
-
-def cold_copies(nbytes: float) -> int:
-    """Distinct copies of an operand of ``nbytes`` that hold more than
-    COLD_BYTES in all, so that a call walking them in turn finds its copy
-    outside L2 (one more than the bytes need: a graph's last call reads the
-    copy before the first call of its next replay)."""
-    return max(2, math.ceil(COLD_BYTES / nbytes) + 1)
-
-
-def walking(fn, operands: list):
-    """A call of ``fn`` on the next of ``operands`` each time, in turn."""
-    at = [0]
-
-    def call():
-        i = at[0]
-        at[0] = (i + 1) % len(operands)
-        return fn(operands[i])
-    return call
-
-
-def int8_timing(M, K, N) -> dict:
-    """The int8 kernel's device ms per call (CUDA graph) at (M, K, N) with a
-    bf16 output, beside the plain version's and the library yardstick's, and
-    the bound: its bytes (x, the int8 weight and scales read once, y written
-    once) or its operations. "ms" and "library_ms" as a decode reads its
-    weights, cold: the graph walks distinct copies of the weight (int8 for
-    the kernel, bf16 for F.linear) that hold more than COLD_BYTES in all, so
-    no call finds its weight in L2 (a decoder call reads 154 different
-    weights, csrc/int8_matmul.cu); "hot_ms" and "library_hot_ms" with one
-    weight that stays in L2 between calls."""
-    import torch
-    import torch.nn.functional as F
-    from pasero_torch.ops.quantize import (QTensor, dequantize, int8_matmul,
-                                           int8_matmul_plain)
-    cuda_tests = load_test_module("test_torch_cuda")
-    x, t = cuda_tests.int8_inputs(M, K, N)
-    wb = dequantize(t, torch.bfloat16)
-    # CUDA graphs keep every output of the captured calls: bound their bytes
-    iters = int(min(100, max(5, 2e9 / (M * N * 4 + N * K * 4))))
-    nbytes = M * K * 2 + N * K + N * 4 + M * N * 2
-    flops = 2.0 * M * N * K
-    res = {"shape": [M, K, N],
-           "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3,
-           "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
-                        > flops / BF16_FLOPS else "operations")}
-    copies = cold_copies(N * K)
-    ts = [t] + [QTensor(t.q.clone(), t.scale.clone())
-                for _ in range(copies - 1)]
-    wbs = [wb] + [wb.clone() for _ in range(copies - 1)]
-    walked = max(iters, copies)
-    res["copies"] = copies
-    res["ms"] = device_ms(walking(lambda w: int8_matmul(x, w), ts), walked, 5)
-    res["hot_ms"] = device_ms(lambda: int8_matmul(x, t), iters, 5)
-    res["plain_ms"] = device_ms(lambda: int8_matmul_plain(
-        x, t.q, t.scale, torch.bfloat16), iters, 5)
-    # the library yardstick; the port never calls it
-    res["library_ms"] = device_ms(walking(lambda w: F.linear(x, w), wbs),
-                                  walked, 5)
-    res["library_hot_ms"] = device_ms(lambda: F.linear(x, wb), iters, 5)
-    del ts, wbs
-    # with eager launches: the wrapper's host time where it exceeds the
-    # kernel's
-    res["host_ms"] = time_ms(lambda: int8_matmul(x, t), 4 * iters, 10)
-    res["library_host_ms"] = time_ms(lambda: F.linear(x, wb), 4 * iters, 10)
-    return res
-
-
-def head_timing(N, E, V, q8: bool) -> dict:
-    """The fused head's device ms per call (CUDA graph), beside the plain
-    version's and the library yardstick's (matmul, argmax and log_softmax on
-    materialized logits), and the bound; "ms" and "library_ms" cold, over
-    distinct copies of the head as int8_timing walks them, "hot_ms" and
-    "library_hot_ms" on one head."""
-    import torch
-    from pasero_torch.ops.fused_ce import (fused_head_argmax,
-                                           fused_head_argmax_plain)
-    from pasero_torch.ops.quantize import QTensor, dequantize
-    cuda_tests = load_test_module("test_torch_cuda")
-    x, t = cuda_tests.int8_inputs(N, E, V, seed=1)
-    wb = dequantize(t, torch.bfloat16)
-    head = t if q8 else wb
-    iters = int(min(100, max(5, 2e9 / (N * V * 8 + V * E * 4))))
-    nbytes = N * E * 2 + V * E * (1 if q8 else 2) + (V * 4 if q8 else 0) \
-        + N * 12
-    flops = 2.0 * N * E * V
-
-    def library(w):     # the port never calls it
-        logits = torch.matmul(x, w.t()).float()
-        tok = logits.argmax(-1)
-        return tok, torch.log_softmax(logits, -1).gather(1, tok[:, None])
-
-    res = {"shape": [N, E, V],
-           "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3,
-           "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
-                        > flops / BF16_FLOPS else "operations")}
-    copies = cold_copies(V * E * (1 if q8 else 2))
-    heads = [head] + [QTensor(t.q.clone(), t.scale.clone()) if q8 else
-                      wb.clone() for _ in range(copies - 1)]
-    wbs = [wb] + [wb.clone() for _ in range(cold_copies(V * E * 2) - 1)]
-    res["copies"] = copies
-    res["ms"] = device_ms(walking(lambda h: fused_head_argmax(x, h), heads),
-                          max(iters, copies), 5)
-    res["hot_ms"] = device_ms(lambda: fused_head_argmax(x, head), iters, 5)
-    res["plain_ms"] = device_ms(lambda: fused_head_argmax_plain(x, head),
-                                iters, 5)
-    res["library_ms"] = device_ms(walking(library, wbs),
-                                  max(iters, len(wbs)), 5)
-    res["library_hot_ms"] = device_ms(lambda: library(wb), iters, 5)
-    del heads, wbs
-    return res
+# the int8 head's device ms per call at (8, 2048, 32000), cold, before the
+# decode kernel (PERF.md, "NVIDIA H100 80GB HBM3, 700.00 W"): a gate, not a
+# reading of this run
+INT8_HEAD_EARLIER_MS = 0.0343
 
 
 def phase10() -> dict:
     """The int8 GEMM and the fused heads against their plain versions;
-    returns their errors and timings."""
+    returns their errors and timings: each of llama_1b's decode shapes and
+    the sum over one decoder call at M = 8 and 72, by
+    pasero_torch/scripts/bench_int8.py's timing."""
     import torch
+    from pasero_torch.scripts.bench_int8 import (LLAMA_1B_WEIGHTS,
+                                                 decoder_call, head_timing,
+                                                 int8_timing)
     cuda_tests = load_test_module("test_torch_cuda")
     res = {"int8_matmul": {"max_abs_err": 0.0, "by_shape": []},
            "fused_head_argmax": {"max_abs_err": 0.0, "by_shape": []},
            "fused_head_argmax_q8": {"max_abs_err": 0.0, "by_shape": []}}
-    for shape in cuda_tests.INT8_SHAPES + cuda_tests.INT8_RAGGED:
+    for shape in (cuda_tests.INT8_SHAPES + cuda_tests.INT8_RAGGED
+                  + cuda_tests.INT8_DECODE):
         for out_dtype in (torch.bfloat16, torch.float32):
             r = cuda_tests.int8_compare(*shape, out_dtype)
             check(r["excess"] <= 1.0, f"int8_matmul differs at {shape} "
                   f"{out_dtype}: {r['excess']:.3f} of the limit")
+            check(r["same_bits"], f"two int8_matmul calls at {shape} "
+                  f"{out_dtype} gave other bits")
             check(r["bad_scale_excess"] > 1.0 and r["shift_excess"] > 1.0,
                   f"the int8 check at {shape} passes a rolled scale or a "
                   f"shifted result: {r}")
@@ -1361,7 +1261,7 @@ def phase10() -> dict:
                 f"{r['excess']:.4f} of the limit, max abs err "
                 f"{r['max_abs_err']:.3e}; a rolled scale at "
                 f"{r['bad_scale_excess']:.1f}, a shifted column at "
-                f"{r['shift_excess']:.1f}")
+                f"{r['shift_excess']:.1f}; the same bits twice")
         torch.cuda.empty_cache()
     for shape in cuda_tests.HEAD_SHAPES:
         for q8 in (False, True):
@@ -1380,19 +1280,44 @@ def phase10() -> dict:
                 f"{'scale' if q8 else 'head row'} at {r['bad_excess']:.1f}")
         torch.cuda.empty_cache()
     for M in (8, 72, 1024):
-        for K, N in ((2048, 2048), (2048, 256), (2048, 5632), (5632, 2048),
-                     (2048, 32000)):
+        timed = []
+        for K, N in LLAMA_1B_WEIGHTS:
             r = int8_timing(M, K, N)
-            res["int8_matmul"]["by_shape"].append(r)
+            timed.append(r)
+            readings = {key: " ".join(f"{t:.5f}" for t in r[f"{key}_readings"])
+                        for key in ("ms", "library_ms")}
             log(f"phase 10: int8_matmul at {r['shape']} bf16, device ms per "
-                f"call (CUDA graph), the weight cold ({r['copies']} copies): "
-                f"kernel {r['ms']:.5f} (bound {r['bound_ms']:.5f}, "
-                f"{r['bound_by']}), library {r['library_ms']:.5f}; hot (one "
+                f"call (CUDA graph), the weight cold ({r['copies']} copies), "
+                f"medians of readings taken in turn: kernel {r['ms']:.5f} "
+                f"({readings['ms']}; bound {r['bound_ms']:.5f}, "
+                f"{r['bound_by']}), library {r['library_ms']:.5f} "
+                f"({readings['library_ms']}); hot (one "
                 f"weight): kernel {r['hot_ms']:.5f}, library "
                 f"{r['library_hot_ms']:.5f}; plain {r['plain_ms']:.5f}; with "
                 f"eager launches: kernel {r['host_ms']:.5f}, library "
                 f"{r['library_host_ms']:.5f}")
-            torch.cuda.empty_cache()
+            if M == 8:
+                check(r["ms"] <= r["library_ms"], f"the int8 kernel's median "
+                      f"is {r['ms']:.5f} ms at {r['shape']} cold, more than "
+                      f"F.linear's {r['library_ms']:.5f}")
+        res["int8_matmul"]["by_shape"] += timed
+        if M <= 80:
+            call = res["int8_matmul"][f"decoder_call_{M}"] = \
+                decoder_call(timed)
+            log(f"phase 10: int8_matmul over one llama_1b decoder call "
+                f"({call['layer_weights']} weights and the head) at M = {M}, "
+                f"cold: "
+                f"kernel {call['ms']:.4f} ms, library {call['library_ms']:.4f}"
+                f", bound {call['bound_ms']:.4f}")
+        if M == 8:
+            check(call["ms"] <= call["library_ms"], f"the int8 kernel takes "
+                  f"{call['ms']:.4f} ms over a decoder call, more than "
+                  f"F.linear's {call['library_ms']:.4f}")
+            head = timed[-1]
+            check(head["ms"] <= INT8_HEAD_EARLIER_MS, f"the int8 kernel takes "
+                  f"{head['ms']:.5f} ms at the head {head['shape']}, more than "
+                  f"the {INT8_HEAD_EARLIER_MS} ms before the decode kernel")
+        torch.cuda.empty_cache()
     for N in (8, 72, 1024):
         for q8 in (False, True):
             name = "fused_head_argmax_q8" if q8 else "fused_head_argmax"
@@ -1901,12 +1826,16 @@ FLASH_BIAS_SHAPES = [   # (B, H, Hkv, S, D), causal, window, padded, bias kind
     ((2, 16, 4, 777, 64), True, 256, True, "learned_1xH"),  # GQA 4, window
     ((2, 8, 8, 1000, 128), False, None, True, "Bx1"),
     ((3, 4, 2, 45, 32), True, None, True, "1x1"),
+    ((2, 4, 4, 300, 128), True, None, True, "1x1"),          # shared, D = 128
     ((2, 16, 16, 500, 64), False, None, True, "encoder"),   # rows of -1e9
+    ((26, 16, 16, 315, 64), True, None, False, "alibi"),    # a length bucket
     ((1, 2, 2, 16500, 128), True, None, False, "alibi16"),  # past 16384 keys
 ]
-# device ms per call of the biased dq and dk/dv kernels that flash_bwd.cu's
-# replaced (flash_attention.cu's mma.sync kernels) at bloom_560m's shape
-# (PERF.md, "NVIDIA H100 80GB HBM3, 700.00 W")
+# device ms per call of the biased forward, dq and dk/dv kernels that
+# flash_bwd.cu's replaced (flash_attention.cu's mma.sync kernels) at
+# bloom_560m's shape (PERF.md, "NVIDIA H100 80GB HBM3, 700.00 W"): a gate
+# (the forward's) and log context, not readings of this run
+BIAS_FWD_EARLIER_MS = 0.5023
 BIAS_BWD_EARLIER_MS = {"dq": 0.7245, "dkv": 0.7445}
 
 
@@ -1922,16 +1851,19 @@ def flash_bias_check(case, cuda_tests) -> dict:
           f"flash_fwd_bias lse differs at {shape} {kind} by {r['lse_err']}")
     check(max(r["excess"]) <= 1.0, f"biased flash kernels differ at {shape} "
           f"{kind}: out, dq, dk, dv, dbias at {r['excess']} of their limits")
-    check(min(r["mutants"].values()) > 1.0, f"the biased flash check at "
-          f"{shape} {kind} passes a mutation: {r['mutants']}")
-    check(r["same_bits"], f"two biased backward calls at {shape} {kind} "
-          "gave other bits")
+    check(min(r["mutants"].values()) > 1.0 and min(
+        r["mutants"][n] for n in cuda_tests.FWD_MUTANTS if n in r["mutants"])
+        >= cuda_tests.FWD_MUTANT_MIN, f"the biased flash check at {shape} "
+        f"{kind} passes a mutation, or a forward's below "
+        f"{cuda_tests.FWD_MUTANT_MIN}x: {r['mutants']}")
+    check(r["same_bits"], f"two biased forward and backward calls at "
+          f"{shape} {kind} gave other bits")
     errs = r["max_abs_err"]
     log(f"phase 16: biased flash kernels == plain at {shape} causal {causal} "
         f"window {window} padded {padded} bias {kind}: out, dq, dk, dv, "
         f"dbias at {', '.join(f'{e:.3f}' for e in r['excess'])} of their "
         f"limits; mutations at {json.dumps({k: round(v, 1) for k, v in r['mutants'].items()})} "
-        f"of them; dq, dk, dv the same bits twice; max abs err lse {r['lse_err']:.3e} out {errs['fwd']:.3e} "
+        f"of them; out, lse, dq, dk, dv the same bits twice; max abs err lse {r['lse_err']:.3e} out {errs['fwd']:.3e} "
         f"dq {errs['dq']:.3e} dk/dv {errs['dkv']:.3e} dbias "
         f"{errs['dbias']:.3e}")
     torch.cuda.empty_cache()
@@ -1940,16 +1872,17 @@ def flash_bias_check(case, cuda_tests) -> dict:
 
 def flash_bias_timing(cuda_tests) -> dict:
     """At bloom_560m's training shape with its per-sample ALiBi bias: device
-    ms per call of each biased kernel (CUDA graph), the plain version's ms,
-    the bounds (the larger of the products over the bf16 rate and the bytes
-    over the memory rate, counting the causal half of the bias that this
-    run reads), and the library yardstick: F.scaled_dot_product_attention
+    ms per call of each biased kernel (CUDA graph; the forward, dq and dk/dv
+    with the bias-free ones beside them by bench_flash_bwd's time_case), the
+    plain version's ms, the bounds (the larger of the products over the bf16
+    rate and the bytes over the memory rate, counting the causal half of the
+    bias that this run reads), and the library yardstick: F.scaled_dot_product_attention
     with the bias (and the causal mask) as a bf16 float attn_mask, its
     backward, and its backward with the mask's gradient for dbias."""
     import torch
     import torch.nn.functional as F
     from pasero_torch.ops.flash_attention import (flash_bwd_dbias,
-                                                  flash_bwd_dkv, flash_bwd_dq,
+                                                  flash_bwd_dq,
                                                   flash_bwd_plain,
                                                   flash_dbias_plain, flash_fwd,
                                                   flash_fwd_plain, visible)
@@ -1985,17 +1918,12 @@ def flash_bias_timing(cuda_tests) -> dict:
         "dbias": bound(2, 2 * q_bytes + 2 * kv_bytes + 2 * row_bytes
                        + bias_bytes + dbias_bytes),
     }
-    kernels = {
-        "fwd": lambda: flash_fwd(q, k, v, mask, *args, bias),
-        "dq": lambda: flash_bwd_dq(q, k, v, mask, out, lse, do, *args, bias),
-        "dkv": lambda: flash_bwd_dkv(q, k, v, mask, do, lse, delta, *args,
-                                     bias),
-        "dbias": lambda: flash_bwd_dbias(q, k, v, mask, bias, do, lse, delta,
-                                         *args),
-    }
-    for key, fn in kernels.items():
-        res[key]["ms"] = device_ms(fn, iters=10, replays=5)
-    res["bwd"]["ms"] = res["dq"]["ms"] + res["dkv"]["ms"]
+    timed = time_case((B, H, Hkv, S, D), causal, kind, window)
+    for key in ("fwd", "dq", "dkv", "bwd"):
+        res[key]["ms"] = timed[kind][key]
+    res["bias_free"] = timed["none"]
+    res["dbias"]["ms"] = device_ms(lambda: flash_bwd_dbias(
+        q, k, v, mask, bias, do, lse, delta, *args), iters=10, replays=5)
     res["fwd"]["plain_ms"] = time_ms(
         lambda: flash_fwd_plain(q, k, v, mask, *args, bias), 3, 1)
     res["bwd"]["plain_ms"] = time_ms(
@@ -2021,7 +1949,6 @@ def flash_bias_timing(cuda_tests) -> dict:
         res[key]["library_ms"] = res["bwd"]["library_ms"]
         res[key]["library_host_ms"] = res["bwd"]["library_host_ms"]
     del lib_mask
-    res["bias_free"] = time_case((B, H, Hkv, S, D), causal, None)["none"]
     for key in ("fwd", "dq", "dkv", "bwd", "dbias"):
         r = res[key]
         log(f"phase 16: at {(B, H, Hkv, S, D)} bf16 causal with a per-sample "
@@ -2039,7 +1966,47 @@ def flash_bias_timing(cuda_tests) -> dict:
     check(res["bwd"]["ms"] <= res["bwd"]["library_ms"], f"the biased "
           f"backward takes {res['bwd']['ms']:.4f} ms at {(B, H, Hkv, S, D)}, "
           f"more than its library call's {res['bwd']['library_ms']:.4f}")
+    f = res["fwd"]
+    log(f"phase 16: at {(B, H, Hkv, S, D)} the biased forward {f['ms']:.4f} "
+        f"ms; the bias-free forward {res['bias_free']['fwd']:.4f} at the same "
+        "shape")
+    check(f["ms"] <= f["library_ms"] and f["ms"] <= BIAS_FWD_EARLIER_MS,
+          f"the biased forward takes {f['ms']:.4f} ms at {(B, H, Hkv, S, D)}, "
+          f"more than its library call's {f['library_ms']:.4f} or the "
+          f"{BIAS_FWD_EARLIER_MS} of the kernel it replaced")
     torch.cuda.empty_cache()
+    return res
+
+
+def bias_fwd_timing(case) -> dict:
+    """The biased forward's device ms per call at one case of
+    FLASH_BIAS_SHAPES (bench_flash_bwd's time_case, no key padded) beside
+    the library yardstick's where its bf16 (B, H, S, S) mask fits:
+    F.scaled_dot_product_attention with the bias and the mask as attn_mask
+    (the port never calls it)."""
+    import torch
+    import torch.nn.functional as F
+    from pasero_torch.ops.flash_attention import visible
+    from pasero_torch.scripts.bench_flash_bwd import inputs, time_case
+    (B, H, Hkv, S, D), causal, window, _, kind = case
+    res = {"shape": [B, H, Hkv, S, D], "causal": causal, "window": window,
+           "bias": kind, "ms": time_case((B, H, Hkv, S, D), causal, kind,
+                                         window, ("fwd",), False)[kind]["fwd"],
+           "library_ms": None}
+    if fits(6 * B * H * S * S):   # the mask, and SDPA's scores beside it
+        q, k, v, _, mask, bias = inputs(B, H, Hkv, S, D, kind)
+        ok = visible(mask, S, causal, window)
+        lib_mask = bias.masked_fill(~ok, float("-inf")).to(torch.bfloat16)
+        res["library_ms"] = device_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=lib_mask, scale=D ** -0.5, enable_gqa=True),
+            iters=5, replays=5)
+        del q, k, v, mask, bias, ok, lib_mask
+    torch.cuda.empty_cache()
+    lib = "does not fit" if res["library_ms"] is None \
+        else f"{res['library_ms']:.4f}"
+    log(f"phase 16: the biased forward at {(B, H, Hkv, S, D)} causal {causal} "
+        f"window {window} bias {kind}: device ms per call (CUDA graph) "
+        f"{res['ms']:.4f}, library {lib}")
     return res
 
 
@@ -2057,13 +2024,18 @@ def phase16() -> dict:
         for key, err in flash_bias_check(case, cuda_tests).items():
             errs[key] = max(errs[key], err)
     res = flash_bias_timing(cuda_tests)
-    # the biased and bias-free dq and dk/dv at 16500 keys
+    # the biased and bias-free kernels at 16500 keys
     shape, causal, _, _, kind = FLASH_BIAS_SHAPES[-1]
     long = res["at_16500"] = time_case(shape, causal, kind)
     log(f"phase 16: at {tuple(shape)} bf16 causal with ALiBi, device ms per "
-        f"call (CUDA graph): the biased dq {long[kind]['dq']:.4f} + dk/dv "
-        f"{long[kind]['dkv']:.4f}; the bias-free dq {long['none']['dq']:.4f} "
-        f"+ dk/dv {long['none']['dkv']:.4f}")
+        f"call (CUDA graph): the biased forward {long[kind]['fwd']:.4f}, dq "
+        f"{long[kind]['dq']:.4f} + dk/dv {long[kind]['dkv']:.4f}; the "
+        f"bias-free forward {long['none']['fwd']:.4f}, dq "
+        f"{long['none']['dq']:.4f} + dk/dv {long['none']['dkv']:.4f}")
+    # the biased forward at the other shapes, 16500 keys among them, beside
+    # the library's
+    res["fwd_by_shape"] = [bias_fwd_timing(case)
+                           for case in FLASH_BIAS_SHAPES[1:]]
     for key in errs:
         res[key]["max_abs_err"] = errs[key]
     (B, H, Hkv, S, D), causal, *_ = FLASH_BIAS_SHAPES[0]
@@ -3056,6 +3028,9 @@ def main():
         fail(f"no pasero_torch package beside {__file__}: run it from a "
              "checkout of the repository")
     sys.path.insert(0, ROOT)
+    global HBM_BYTES_PER_S, BF16_FLOPS, time_ms
+    from pasero_torch.scripts.bench_int8 import (BF16_FLOPS, HBM_BYTES_PER_S,
+                                                 eager_ms as time_ms)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -3205,6 +3180,7 @@ def main():
             "weight_copies": at["copies"],
             "shape": timed,
             "by_shape": own["by_shape"],
+            **{k: v for k, v in own.items() if k.startswith("decoder_call")},
             "launches_by_mode": {m: counts[name]
                                  for m, counts in lm_decode.items()},
             "serving_launches": {k: v[name] for k, v in serving.items()
@@ -3237,9 +3213,10 @@ def main():
     # the dbias kernel there: ALiBi's bias is a constant), of bloom_560m's
     # full-width steps and, apart, of phase 16's learned (1, H) bias, the
     # one run that launches dbias; numbers at bloom_560m's shape with its
-    # per-sample ALiBi bias; dq and dk/dv are flash_bwd.cu's DENSE_BIAS
-    # instances, with the times of the kernels they replaced and of the
-    # bias-free ones at the same shape beside, and their times at 16500 keys
+    # per-sample ALiBi bias; the forward, dq and dk/dv are flash_bwd.cu's
+    # DENSE_BIAS instances, with the bias-free ones' times at the same shape
+    # beside, and their times at 16500 keys; the forward's also at the other
+    # shapes of FLASH_BIAS_SHAPES
     for name, key, line, body in (
             ("flash_fwd_bias", "fwd", 381, 186),
             ("flash_bwd_dq_bias", "dq", 1398, 866),
@@ -3249,8 +3226,8 @@ def main():
         entry = {
             "name": name,
             "route": "cuda",
-            "source": ("pasero_torch/csrc/flash_bwd.cu" if key in ("dq", "dkv")
-                       else "pasero_torch/csrc/flash_attention.cu"),
+            "source": ("pasero_torch/csrc/flash_attention.cu" if key == "dbias"
+                       else "pasero_torch/csrc/flash_bwd.cu"),
             "replaces": f"pasero_tpu/ops/flash_attention.py:{line}",
             "kernel_body": f"pasero_tpu/ops/flash_attention.py:{body}",
             "launches": alibi["cli"]["launches"][name],
@@ -3270,11 +3247,14 @@ def main():
         if key in ("dq", "dkv"):   # the backward function's numbers beside
             entry["backward"] = {k: biased["bwd"][k] for k in (
                 "ms", "bound_ms", "bound_by", "plain_ms", "library_ms")}
+        if key != "dbias":
             long = biased["at_16500"]
             entry.update(bias_free_ms=biased["bias_free"][key],
                          at_16500={"shape": long["shape"],
                                    "ms": long[long["bias"]][key],
                                    "bias_free_ms": long["none"][key]})
+        if key == "fwd":
+            entry["by_shape"] = biased["fwd_by_shape"]
         kernels.append(entry)
     # the T5 kernels: launches of phase 19's T5 training CLI and of
     # t5_base's full-width steps; numbers at t5_base's encoder shape, then

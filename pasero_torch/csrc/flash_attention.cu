@@ -1,36 +1,31 @@
-// Flash attention for grouped K/V heads with an additive float32 bias: the
-// forward, and the backward's gradients of a dense bias (dbias) and of T5's
-// relative-position table (demb):
+// The backward's gradients of flash attention's additive biases, for grouped
+// K/V heads: of a dense float32 bias (dbias) and of T5's relative-position
+// table (demb), from the scores
 //
 //   s[i, j]  = scale * sum_d q[b, h, i, d] * k[b, h / G, j, d]     (fp32)
-//              (+ bias[b, h, i, j], float32, in the biased kernels)
-//              (+ table[index[j - i + Sq - 1], h], float32, in demb)
+//              + bias[b, h, i, j]                      (float32, dbias)
+//              + table[index[j - i + Sq - 1], h]        (float32, demb)
 //   p[i, j]  = exp(s[i, j] - lse[i]) where key j is visible from row i, else 0
-//   out[i]   = sum_j p[i, j] * v[b, h / G, j]          (p rounded to bf16 first)
-//   lse[i]   = log sum_j exp(s[i, j])                   (fp32; -1e30 if no key)
 //
 // with G = H / Hkv query heads per K/V head. Key j is visible from row i when
 // kv_mask[b, j] is set, j <= i (causal, slot indices) and i - j < window (a
-// sliding window), as pasero_tpu/ops/flash_attention.py applies them; a row
-// with no visible key gets out = 0. The backward's parts here take dO, lse
-// and delta = sum_d dO[i, d] * out[i, d] (written by flash_bwd.cu's dq
-// kernel):
+// sliding window), as pasero_tpu/ops/flash_attention.py applies them. They
+// take dO, the forward's lse and delta = sum_d dO[i, d] * out[i, d] (both
+// written by flash_bwd.cu's forward and dq kernels of the same bias):
 //
 //   dS[i, j] = p[i, j] * (dO[i] . v[j] - delta[i])
 //   dbias[i, j] = dS[i, j], unrounded fp32, 0 where key j is not visible
 //   demb[n, h]  = sum over b and the (i, j) of bucket n of dS[b, h, i, j]
 //
-// The bias-free and the T5 forward, and dq and dk/dv of every kind, are
-// flash_bwd.cu's wgmma kernels; the float32 kernels of every kind are
-// flash_f32.cu's.
+// The forward and dq and dk/dv of every bias kind are flash_bwd.cu's wgmma
+// kernels; the float32 kernels of every kind are flash_f32.cu's.
 //
 // The bias is (b0 h0, Sq, Sk) rows with b0 in {1, B} and h0 in {1, H}; the
 // row of (b, h) is b bs + h hs (bias_row), so a shared bias is never
-// broadcast in memory. It is added to the scaled score in fp32 before the
-// mask, and the biased kernels keep the running max and lse in natural
-// units: a score near the encoder ALiBi's -1e9 has an ulp of 64 there, so a
-// change of base before the subtraction would lose it. Such a row is an
-// ordinary softmax over its -1e9 entries, not a row without keys.
+// broadcast in memory. It is added to the scaled score in fp32, and p is
+// taken in natural units against the forward's natural-unit lse: a score
+// near the encoder ALiBi's -1e9 has an ulp of 64 there, so a change of base
+// before the subtraction would lose it.
 //
 // demb takes the (nb, H) float32 table and the bucket of every key-query
 // distance, an int32 index of Sq + Sk - 1 entries computed on the host with
@@ -38,16 +33,12 @@
 // decides a bucket here and the direction (bidirectional or not) lives in
 // the index. Per (query tile, key tile) a block stages its head's table
 // column and the tile's bias by diagonal, R + C - 1 floats (t5_diagonals),
-// and adds it to the score as the biased kernels add a bias tile, in natural
-// units. JAX computes the bucket inside the kernel from block position iotas
+// and adds it to the score as a dense bias tile is added, in natural units.
+// JAX computes the bucket inside the kernel from block position iotas
 // (_t5_tile, :124; _t5_bucket, :140); the slots are positions, as there
 // (right-padded rows).
 //
 // Kernels and the TPU kernels they replace:
-//   fwd_kernel     _fwd_kernel (pasero_tpu/ops/flash_attention.py:186, through
-//                  _fwd, :381), and the dense-bias mode of the streamed
-//                  _fwd_stream (:544): 64-key tiles stream through shared
-//                  memory, so one instance takes any key length;
 //   dbias_kernel   _dbias_kernel (:1160, through _compute_dbias, :1213): one
 //                  block per (64-row query tile, output row); a bias shared
 //                  over the batch is summed over it inside the block, batch
@@ -64,14 +55,12 @@
 //                  share one bucket, costs its bucket's thread 127 adds, not
 //                  4096 contended ones.
 //
-// What bounds them: operations, and with a per-sample bias bytes. One causal
-// product at B = 4, H = 32, S = 2048, D = 64 is 2 B H S^2 D / 2 = 34.4 GFLOP,
-// 0.0347 ms at 989 TFLOP/s (bf16 dense). The forward does two products (QK^T,
-// PV); dbias and demb recompute two (QK^T, dO V^T). With a per-sample bias
-// at B = 4, H = 16, S = 2048 its visible causal half is 537 MB (0.160 ms at
-// 3.35 TB/s) against 17.2 GFLOP of products per pass, and dbias writes 1.07
-// GB; the bias tiles ride the K/V tiles' cp.async stages, so their reads
-// overlap the products.
+// What bounds them: operations, and with a per-sample bias bytes. Each
+// recomputes two products (QK^T, dO V^T): at B = 4, H = 16, S = 2048, D = 64
+// causal 34.4 GFLOP, 0.0348 ms at 989 TFLOP/s (bf16 dense); with a
+// per-sample bias its visible causal half is 537 MB (0.160 ms at 3.35 TB/s)
+// and dbias writes 1.07 GB; the bias tiles ride the K/V tiles' cp.async
+// stages, so their reads overlap the products.
 //
 // Design, kept simple and right first: 128 threads (4 warps) per block, each
 // warp owning 16 rows of a 64-row tile; bf16 operands staged in shared
@@ -79,18 +68,13 @@
 // reads are free of bank conflicts), the next K/V tile's copies in flight
 // while the tensor cores work on this one (two stages); products on the
 // tensor cores with mma.sync m16n8k16 (bf16 in, fp32 accumulation). The
-// score tile of a warp stays in registers: the online softmax (row max and
-// row sum in fp32, natural units) runs there, and the probabilities are
-// repacked from the accumulator layout into the next product's operand
-// layout without a trip through shared memory. Causal key tiles past the
-// diagonal, and tiles below a sliding window, are skipped; ragged edges are
-// zero-filled by the copies and masked. Forward blocks run the longest
-// (last) query tiles first. What holds it back: mma.sync instead of wgmma
-// (about two thirds of the card's tensor rate at best), 64-row tiles whose
-// K/V are read from L2 once per query tile and head (the GQA group is not
-// packed into one block), and two pipeline stages; flash_bwd.cu's kernels
-// show the wgmma design these would take. demb adds its diagonal and bucket
-// sums in shared memory.
+// score tiles of a warp stay in registers. Causal key tiles past the
+// diagonal, and tiles below a sliding window, are skipped (dbias writes
+// them as zeros once); ragged edges are zero-filled by the copies and
+// masked. What holds them back: mma.sync instead of wgmma, 64-row tiles
+// whose K/V are read from L2 once per query tile and head, two pipeline
+// stages; flash_bwd.cu's kernels show the wgmma design these would take.
+// demb adds its diagonal and bucket sums in shared memory.
 
 #include <cuda_bf16.h>
 #include <algorithm>
@@ -104,10 +88,8 @@ typedef __nv_bfloat16 bf16;
 
 constexpr int THREADS = 128;  // 4 warps
 constexpr int BM = 64;        // rows of a block's own tile, 16 per warp
-constexpr int BN = 64;        // columns of the tile it loops over (forward, dq)
-constexpr float NEG_INF = -1e30f;
+constexpr int BN = 64;        // columns of the tile it loops over
 constexpr float LOG2E = 1.4426950408889634f;
-constexpr float LN2 = 0.6931471805599453f;
 // leading dimension of the float32 bias tiles in shared memory, a (query,
 // key) tile read as float2 pairs along a score row (rows 8 banks apart),
 // 16-byte rows
@@ -143,12 +125,6 @@ __device__ inline void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_addr(p)));
 }
-__device__ inline void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
 // c (16 x 8, fp32) += a (16 x 16, bf16, row) . b (16 x 8, bf16, col)
 __device__ inline void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
                            uint32_t b1) {
@@ -157,20 +133,6 @@ __device__ inline void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
       "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ inline uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ inline float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-__device__ inline float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 // Rows [r0, r0 + R) of a row-major (nrows, D) matrix into shared memory with
@@ -261,30 +223,6 @@ __device__ inline void warp_abt(float (&s)[NT][4], const bf16* A, const bf16* B,
   }
 }
 
-// o[16 x D] += P[16 x 8 KT] . M[8 KT x D] for one warp: P in registers in
-// the accumulator layout of warp_abt (rounded to bf16 here), M's rows in
-// shared memory (leading dimension D + 8).
-template <int D, int KT>
-__device__ inline void warp_pm(float (&o)[D / 8][4], const float (&p)[KT][4],
-                               const bf16* M, int lane) {
-  constexpr int LD = D + 8;
-#pragma unroll
-  for (int kk = 0; kk < KT / 2; ++kk) {
-    const uint32_t a[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]),
-                           pack_bf16(p[2 * kk][2], p[2 * kk][3]),
-                           pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
-                           pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
-#pragma unroll
-    for (int dn = 0; dn < D / 16; ++dn) {
-      uint32_t b[4];
-      ldsm_x4_t(b, M + (kk * 16 + (lane % 8) + ((lane / 8) % 2) * 8) * LD + dn * 16 +
-                       (lane / 16) * 8);
-      mma(o[2 * dn], a, b[0], b[1]);
-      mma(o[2 * dn + 1], a, b[2], b[3]);
-    }
-  }
-}
-
 // Is key `col` visible from query row `row`?
 __device__ inline bool visible(int row, int col, int Sk, const uint8_t* __restrict__ mask,
                                int causal, int window) {
@@ -292,131 +230,6 @@ __device__ inline bool visible(int row, int col, int Sk, const uint8_t* __restri
   if (causal) ok = ok && col <= row;
   if (window > 0) ok = ok && row - col < window;
   return ok;
-}
-
-// -- forward -------------------------------------------------------------------
-
-// A float32 bias tile per (query tile, key tile), staged in shared memory
-// with the K/V tile, is added to the scaled scores. The running max and lse
-// then stay in natural units (a score near -1e9 loses its low bits in log2
-// units), as JAX computes them.
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-    fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-               const bf16* __restrict__ v, const uint8_t* __restrict__ kv_mask,
-               const float* __restrict__ bias, int bias_bs, int bias_hs,
-               bf16* __restrict__ out, float* __restrict__ lse, int H, int Hkv,
-               int Sq, int Sk, float scale, int causal, int window) {
-  constexpr int LD = D + 8;
-  constexpr int NT = BN / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + BM * LD;       // [2][BN][LD]
-  bf16* Vs = Ks + 2 * BN * LD;   // [2][BN][LD]
-  float* Bs = reinterpret_cast<float*>(Vs + 2 * BN * LD);   // [2][BM][LDB]
-
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BM;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int hk = h / (H / Hkv);
-  const bf16* qg = q + (int64_t)bh * Sq * D;
-  const int64_t kv_off = ((int64_t)b * Hkv + hk) * Sk * D;
-  const bf16* kg = k + kv_off;
-  const bf16* vg = v + kv_off;
-  const uint8_t* mg = kv_mask + (int64_t)b * Sk;
-  const float* bg = bias_row(bias, b, h, bias_bs, bias_hs, Sq, Sk);
-  const bool bvec = Sk % 4 == 0;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int row0 = q0 + warp * 16 + lane / 4;   // accumulator rows row0, row0 + 8
-  const int tcol = 2 * (lane % 4);
-
-  int kt0 = 0, kt1 = (Sk + BN - 1) / BN;
-  if (causal) kt1 = min(kt1, (q0 + BM - 1) / BN + 1);
-  if (window > 0) kt0 = max(0, (q0 - window + 1) / BN);
-
-  auto load_kv = [&](int kt, int stage) {
-    load_tile<D, BN>(Ks + stage * BN * LD, kg, kt * BN, Sk);
-    load_tile<D, BN>(Vs + stage * BN * LD, vg, kt * BN, Sk);
-    load_bias_tile<BM, BN, LDB>(Bs + stage * BM * LDB, bg, q0, kt * BN, Sq, Sk, bvec);
-  };
-
-  load_tile<D, BM>(Qs, qg, q0, Sq);
-  if (kt0 < kt1) load_kv(kt0, 0);
-  cp_async_commit();
-
-  float o[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY};   // running row max, natural units
-  float l[2] = {0.f, 0.f};               // this thread's part of the row sum
-
-  for (int kt = kt0; kt < kt1; ++kt) {
-    const int st = (kt - kt0) & 1;
-    if (kt + 1 < kt1) {
-      load_kv(kt + 1, st ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    float s[NT][4];
-    warp_abt<D, NT>(s, Qs + warp * 16 * LD, Ks + st * BN * LD, lane);
-    const int k0 = kt * BN;
-    const float* Bt = Bs + st * BM * LDB + (warp * 16 + lane / 4) * LDB + tcol;
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = row0 + (e >> 1) * 8, col = k0 + j * 8 + tcol + (e & 1);
-        float t = -INFINITY;
-        if (visible(row, col, Sk, mg, causal, window))
-          t = s[j][e] * scale + Bt[(e >> 1) * 8 * LDB + j * 8 + (e & 1)];
-        s[j][e] = t;
-        mx[e >> 1] = fmaxf(mx[e >> 1], t);
-      }
-    float mu[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = quad_max(mx[r]);
-      mu[r] = mx[r] == -INFINITY ? 0.f : mx[r];   // no visible key yet
-      const float alpha = exp2f((m[r] - mu[r]) * LOG2E);
-      m[r] = mx[r];
-      l[r] *= alpha;
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        o[j][2 * r] *= alpha;
-        o[j][2 * r + 1] *= alpha;
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = exp2f((s[j][e] - mu[e >> 1]) * LOG2E);
-        l[e >> 1] += s[j][e];
-      }
-    warp_pm<D, NT>(o, s, Vs + st * BN * LD, lane);
-    __syncthreads();
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const float lr = quad_sum(l[r]);
-    const int row = row0 + r * 8;
-    if (row >= Sq) continue;
-    const float inv = lr == 0.f ? 0.f : 1.f / lr;
-    bf16* og = out + ((int64_t)bh * Sq + row) * D;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(og + j * 8 + tcol) =
-          __floats2bfloat162_rn(o[j][2 * r] * inv, o[j][2 * r + 1] * inv);
-    if (lane % 4 == 0)
-      lse[(int64_t)bh * Sq + row] =
-          lr == 0.f ? NEG_INF : m[r] + logf(lr);
-  }
 }
 
 // -- backward: dbias -------------------------------------------------------------
@@ -684,23 +497,6 @@ bool bad_bias(const float* bias, const float* table, const int* index, int nb) {
 constexpr size_t BIAS_SMEM = (size_t)2 * BM * LDB * sizeof(float);
 
 template <int D>
-cudaError_t launch_fwd(const void* q, const void* k, const void* v, const uint8_t* mask,
-                       const float* bias, int bs, int hs, void* out, float* lse, int B, int H,
-                       int Hkv, int Sq, int Sk, float scale, int causal, int window,
-                       cudaStream_t stream) {
-  const size_t bytes = (size_t)(BM + 4 * BN) * (D + 8) * sizeof(bf16) + BIAS_SMEM;
-  static bool done = false;
-  cudaError_t err = allow_smem(fwd_kernel<D>, bytes, done);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((Sq + BM - 1) / BM, B * H);
-  fwd_kernel<D><<<grid, THREADS, bytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), mask, bias, bs, hs, static_cast<bf16*>(out), lse, H,
-      Hkv, Sq, Sk, scale, causal, window);
-  return cudaGetLastError();
-}
-
-template <int D>
 cudaError_t launch_dbias(const void* q, const void* k, const void* v, const uint8_t* mask,
                          const float* bias, int bs, int hs, const void* dout,
                          const float* lse, const float* delta, float* dbias, int B, int H,
@@ -742,37 +538,23 @@ cudaError_t launch_demb(const void* q, const void* k, const void* v, const uint8
   return cudaGetLastError();
 }
 
-// The call of LAUNCH's instance for the head dim D (32, 64 or 128).
-#define FLASH_BY_DIM(LAUNCH, D, ...)                                                 \
-  ((D) == 32   ? LAUNCH<32>(__VA_ARGS__)                                             \
-   : (D) == 64 ? LAUNCH<64>(__VA_ARGS__)                                             \
-               : LAUNCH<128>(__VA_ARGS__))
-
 }  // namespace flash
 
 using namespace flash;
 
 extern "C" {
 
-// q (B, H, Sq, D), k/v (B, Hkv, Sk, D), out (B, H, Sq, D): bfloat16,
-// contiguous, 16-byte aligned; kv_mask (B, Sk) uint8 (1 = key present); lse
-// (B, H, Sq) f32. D is 32, 64 or 128; window 0 means none. Returns
-// cudaGetLastError() after the launch (0 on success), or cudaErrorInvalidValue
-// for arguments the kernels do not take.
+// q, dout (B, H, Sq, D), k/v (B, Hkv, Sk, D): bfloat16, contiguous,
+// 16-byte aligned; kv_mask (B, Sk) uint8 (1 = key present); lse and delta
+// (B, H, Sq) f32 from the forward and the dq kernel of the same bias
+// (flash_bwd.cu). D is 32, 64 or 128; window 0 means none. Each returns
+// cudaGetLastError() after the launch (0 on success), or
+// cudaErrorInvalidValue for arguments the kernels do not take.
 //
 // bias is a float32 bias (b0 h0, Sq, Sk), contiguous and 16-byte aligned,
 // with b0 in {1, B} and h0 in {1, H}, and the row strides bs (0 when b0 = 1,
 // else h0) and hs (0 when h0 = 1, else 1): the row of (b, h) is b bs + h hs.
-// The bias-free and the T5 forward are flash_bwd.cu's.
-int flash_fwd(const void* q, const void* k, const void* v, const uint8_t* kv_mask,
-              const float* bias, int bs, int hs, void* out, float* lse, int B, int H, int Hkv,
-              int Sq, int Sk, int D, float scale, int causal, int window, void* stream) {
-  if (bad_args(B, H, Hkv, Sq, Sk, D, window) || bias == nullptr)
-    return (int)cudaErrorInvalidValue;
-  return (int)FLASH_BY_DIM(launch_fwd, D, q, k, v, kv_mask, bias, bs, hs, out, lse, B, H, Hkv,
-                           Sq, Sk, scale, causal, window, static_cast<cudaStream_t>(stream));
-}
-
+//
 // dbias f32: (H, Sq, Sk) summed over the batch when bs == 0 (a bias shared
 // over the batch), else (B, H, Sq, Sk); per query head either way (the
 // caller sums over the heads for h0 = 1). bias must not be nullptr.

@@ -1,7 +1,6 @@
 // Flash attention for Hopper (sm_90a), for grouped K/V heads: the forward
-// (out and lse) without a bias or with T5's table, and the backward's dq (and
-// delta), dk and dv without a bias, with a dense float32 bias or with T5's
-// table.
+// (out and lse) and the backward's dq (and delta), dk and dv, each without a
+// bias, with a dense float32 bias or with T5's table.
 //
 // The forward:
 //
@@ -55,6 +54,21 @@
 // box per tile). The bias-free instances keep their code: every bias branch
 // is compiled out.
 //
+// The same kernel with a dense float32 bias (KIND = DENSE_BIAS) replaces
+// pasero_tpu/ops/flash_attention.py:_fwd_kernel (:186), through _fwd
+// (:381), and the dense-bias mode of the streamed _fwd_stream (:544). What
+// bounds it: bytes, the visible half of the bias (at bloom_560m's causal (4,
+// 16, 2048) with a per-sample bias 537 MB; 0.1805 ms at 3.35 TB/s with q, k,
+// v and out, against 0.0348 ms of products). So the bias streams with the
+// K/V tiles, as the dense-bias dq kernel reads it (below): swizzled TMA
+// boxes on the tile's barrier with an L2 evict-first hint, the boxes that no
+// visible score needs skipped, or cp.async where its rows are not 16-byte
+// aligned. Its 32 KB a stage leave room for two consumers and three stages at D <= 64 (two at D
+// = 128); the consumers add it to the scaled score and keep natural units,
+// as the T5 instance does, and one block per item, the last (longest)
+// causal query tiles first, lets the hardware balance items of unequal
+// length.
+//
 // The backward, from the forward's out and lse:
 //
 //   p[i, j]  = exp(scale q[i] . k[j] - lse[i]) where key j is visible, else 0
@@ -92,7 +106,8 @@
 // under the 128-byte swizzle (the swizzle keeps the consumers' reads of the
 // accumulator layout free of, or at two-way, bank conflicts), with an L2
 // evict-first hint, skipping boxes that no visible score needs. A tensor map
-// needs 16-byte row strides; at other key lengths (Sk % 4 != 0) the
+// needs 16-byte row strides; at others (rows ld floats apart, ld % 4 != 0;
+// the model pads its ALiBi rows to a multiple of 4, ld = Sk otherwise) the
 // producer warpgroup's warps 1-3, idle otherwise, copy the bias with 4-byte
 // cp.async into the same swizzled layout, each thread's arrival on the
 // stage's full barrier counted once its copies land. T5's table costs no
@@ -108,8 +123,8 @@
 // and one block per item spent much of its time filling and draining the
 // pipeline.
 //
-// The dense-bias forward, and the dbias and demb kernels, are
-// flash_attention.cu's; the float32 kernels of every kind flash_f32.cu's; the
+// The dbias and demb kernels are flash_attention.cu's; the float32 kernels
+// of every kind flash_f32.cu's; the
 // PTX wrappers for mbarriers, descriptors and the
 // wgmma fences come from wgmma_gemm.cuh (the fused-CE mainloop).
 
@@ -465,14 +480,15 @@ __host__ __device__ constexpr size_t smem_bytes() {
          8 * (2 * ST + (RB == 2 ? 4 : 1)) + 1024;
 }
 
-// The bias operands: a dense float32 bias of (b0 h0, Sq, Sk) rows, the row of
-// (b, h) b bs + h hs, read by TMA boxes (tma: Sk % 4 == 0, 16-byte aligned
-// rows) or else by cp.async; or T5's float32 (nb, H) table and the int32
+// The bias operands: a dense float32 bias of (b0 h0, Sq, Sk) rows ld floats
+// apart (ld >= Sk), the rows of (b, h) from plane b bs + h hs, read by TMA
+// boxes (tma: ld % 4 == 0, 16-byte aligned rows) or else by cp.async; or
+// T5's float32 (nb, H) table and the int32
 // bucket of every distance (Sq + Sk - 1 entries, entry k - q + Sq - 1 for
 // query q and key k, from the host).
 struct Bias {
   const float* rows;
-  int bs, hs, tma;
+  int bs, hs, ld, tma;
   const float* table;
   const int* index;
   int nb;
@@ -523,15 +539,16 @@ __device__ __forceinline__ bool box_needed(int r, int c, int Sq, int Sk, int cau
   return need;
 }
 
-// DENSE_BIAS without a tensor map (Sk % 4 != 0), by the bias-staging thread
+// DENSE_BIAS without a tensor map (ld % 4 != 0), by the bias-staging thread
 // t: the R x C block at row r0 (a query), key c0 of the (Sq, Sk) float32
-// bias `src` into the boxes' layout at `dst`, by 4-byte cp.async; a warp
+// bias `src`, its rows ld floats apart, into the boxes' layout at `dst`, by
+// 4-byte cp.async; a warp
 // copies 32 consecutive keys of a row, a thread keeps its keys and steps
 // down the rows. Elements of no visible score are not copied.
 template <int R, int C>
 __device__ __forceinline__ void copy_bias(uint32_t dst, const float* __restrict__ src, int r0,
-                                          int c0, int Sq, int Sk, int causal, int window, int t,
-                                          uint64_t policy) {
+                                          int c0, int Sq, int Sk, int ld, int causal, int window,
+                                          int t, uint64_t policy) {
   for (int c = t % 32; c < C; c += 32) {
     const int key = c0 + c;
     if (key >= Sk) break;
@@ -540,7 +557,7 @@ __device__ __forceinline__ void copy_bias(uint32_t dst, const float* __restrict_
       bool need = true;
       if (causal) need = key <= row;
       if (window > 0) need = need && row - key < window;
-      if (need) cp_async4(dst + bias_at<C>(r, c) * 4, src + (int64_t)row * Sk + key, policy);
+      if (need) cp_async4(dst + bias_at<C>(r, c) * 4, src + (int64_t)row * ld + key, policy);
     }
   }
 }
@@ -634,16 +651,18 @@ __device__ __forceinline__ QueryItem query_item(int w, int B, int H, int Hkv, in
 
 // The forward's consumer warpgroups: three at D <= 64 without a bias (160
 // registers hold a score tile, the packed P and the output), two at D = 128
-// (232), and two with T5's table (T5's 512 queries are four items of 128,
-// and a persistent item's state does not fit 160 registers).
+// (232), two with a dense bias (its 16 KB a consumer and stage leave no room
+// for a third), and two with T5's table (T5's 512 queries are four items of
+// 128, and a persistent item's state does not fit 160 registers).
 template <int DP, int KIND = NO_BIAS>
 __host__ __device__ constexpr int fwd_consumers() { return DP == 64 && KIND == NO_BIAS ? 3 : 2; }
 
-// Floats of a forward stage's bias: T5's by diagonal for the block's 64 NC
-// queries x 64 keys (64 NC + 63, rounded up); none without a bias.
+// Floats of a forward stage's bias, as dq's: a dense bias's boxes for the
+// block's 64 NC queries x 64 keys, or T5's by diagonal (64 NC + 63, rounded
+// up); none without a bias.
 template <int KIND, int NC>
 __host__ __device__ constexpr int fwd_bias_floats() {
-  return KIND == T5_BIAS ? dq_bias_floats<KIND, NC>() : 0;
+  return dq_bias_floats<KIND, NC>();
 }
 
 // Shared memory of the forward: NC resident Q tiles (twice in a persistent
@@ -673,11 +692,20 @@ __host__ __device__ constexpr size_t fwd_smem_bytes() {
 // T5 instance at D <= 64 is persistent (see `persistent`): one block per SM
 // walks the items in a snake order, its Q tiles double-buffered so that the
 // next item's Q loads while this one finishes, and each consumer stores its
-// output by TMA from its own Q tile, which the item no longer reads.
+// output by TMA from its own Q tile, which the item no longer reads. With a
+// dense bias (KIND = DENSE_BIAS) each K/V tile's bias rides its stage as in
+// dq_kernel: the TMA thread copies the swizzled boxes that visible scores
+// need on the tile's barrier, or, without a tensor map (ld % 4 != 0), the
+// producer warpgroup's warps 1-3 copy the visible elements by cp.async; the
+// consumers add it to the scaled score before the mask (an element of no
+// visible score may hold bias never copied) and keep natural units, the lse
+// that the dense-bias dq, dk/dv and flash_attention.cu's dbias_kernel read.
+// One block per item: causal items differ in length.
 template <int KIND, int DP, int NC>
 __global__ void __launch_bounds__(128 * (NC + 1), 1)
     fwd_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
-               const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_o,
+               const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_b,
+               const __grid_constant__ CUtensorMap map_o,
                const uint8_t* __restrict__ kv_mask, const Bias bias, bf16* __restrict__ out,
                float* __restrict__ lse, int B, int D, int H, int Hkv, int Sq, int Sk, float scale,
                int causal, int window) {
@@ -717,8 +745,8 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1)
     }
 #pragma unroll
     for (int s = 0; s < STAGES; ++s) {
-      // the copies' arrival, the key flags', the diagonals'
-      mbar_init(full + 8 * s, 2 + bias_arrivals<KIND>(false));
+      // the copies' arrival, the key flags', the bias's
+      mbar_init(full + 8 * s, 2 + bias_arrivals<KIND>(bias.tma));
       mbar_init(empty + 8 * s, 4 * NC);   // lane 0 of each consumer warp
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -752,9 +780,30 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1)
           }
         }
       }
+      // a dense bias without a tensor map: the block's 64 NC x 64 bias of
+      // each tile by cp.async (the TMA thread copies one that has a map)
+      if constexpr (KIND == DENSE_BIAS) {
+        if (!bias.tma) {
+          const int t = threadIdx.x - 32;
+          const uint64_t policy = evict_first_policy();
+          const QueryItem x = item(blockIdx.x);
+          const float* src =
+              bias.rows + ((int64_t)x.b * bias.bs + (int64_t)x.h * bias.hs) * Sq * bias.ld;
+          for (int it = 0; it < x.iters; ++it) {
+            const int s = it % STAGES, k0 = (x.kt0 + it) * TILE;
+            mbar_wait(empty + 8 * s, ((it / STAGES) & 1) ^ 1);
+            copy_bias<ROWS_NC, TILE>(bias_s + s * BF * 4, src, x.q0, k0, Sq, Sk, bias.ld, causal,
+                                     window, t, policy);
+            cp_async_arrive(full + 8 * s);
+          }
+          cp_async_wait_all();
+        }
+      }
       return;
     }
     const int lane = threadIdx.x;
+    uint64_t policy = 0;   // DENSE_BIAS by TMA: the bias's L2 policy
+    if constexpr (KIND == DENSE_BIAS) policy = evict_first_policy();
     // the n-th item of the block, item w, its tiles from the gi-th on
     auto produce = [&](int n, int w, int& gi) {
       const QueryItem x = item(w);
@@ -766,6 +815,7 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1)
           load_tile<DP>(q_s + (NC * p + g) * TB, &map_q, ready + 8 * p, x.q0 + 64 * g, x.bh);
       }
       const uint8_t* mg = kv_mask + (int64_t)x.b * Sk;
+      const int plane = x.b * bias.bs + x.h * bias.hs;   // DENSE_BIAS by TMA
       // the lane's keys of item tile it, read a tile ahead so that their
       // latency hides behind the wait for a free stage
       auto keys = [&](int it, bool (&ok)[2]) {
@@ -783,9 +833,25 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1)
         keys(it + 1, next);
         mbar_wait(empty + 8 * s, ((gi / STAGES) & 1) ^ 1);
         if (lane == 0) {
-          mbar_expect_tx(full + 8 * s, 2 * TB);
+          // DENSE_BIAS by TMA: the boxes (consumer g, 32-key half hf) that
+          // visible scores need, on the K/V tiles' barrier
+          uint32_t boxes = 0;
+          if constexpr (KIND == DENSE_BIAS) {
+            if (bias.tma)
+              for (int g = 0; g < NC; ++g)
+                for (int hf = 0; hf < 2; ++hf)
+                  if (box_needed(x.q0 + 64 * g, k0 + 32 * hf, Sq, Sk, causal, window))
+                    boxes |= 1u << (2 * g + hf);
+          }
+          mbar_expect_tx(full + 8 * s, 2 * TB + __popc(boxes) * BOX * 4);
           load_tile<DP>(st_s + s * 2 * TB, &map_k, full + 8 * s, k0, x.bk);
           load_tile<DP>(st_s + s * 2 * TB + TB, &map_v, full + 8 * s, k0, x.bk);
+          if constexpr (KIND == DENSE_BIAS) {
+            for (int b2 = 0; b2 < 2 * NC; ++b2)
+              if (boxes >> b2 & 1)
+                tma_load_3d_hint(bias_s + (s * BF + b2 * BOX) * 4, &map_b, full + 8 * s,
+                                 k0 + 32 * (b2 & 1), x.q0 + 64 * (b2 >> 1), plane, policy);
+          }
         }
         bool all = true;
 #pragma unroll
@@ -815,11 +881,19 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1)
   else
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
   const int g = wg - 1, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
-  // T5: the diagonal of the thread's first element in stage 0
+  // the thread's bias in stage 0, as in dq_kernel: DENSE_BIAS its first row
+  // in its consumer's boxes and the swizzled offsets of its keys by 8-key
+  // group of a box, T5_BIAS the diagonal of its first element
   const float* bias_t = bias_f;
+  int boff[4] = {0, 0, 0, 0};
+  if constexpr (KIND == DENSE_BIAS) {
+    bias_t += 2 * g * BOX + (16 * warp + lane / 4) * 32;
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+      boff[a] = ((2 * a + (lane % 4) / 2) ^ (lane / 4)) * 4 + (lane % 2) * 2;
+  }
   if constexpr (KIND == T5_BIAS)
     bias_t += 2 * (lane % 4) - (64 * g + 16 * warp + lane / 4) + ROWS_NC - 1;
-  const int boff[4] = {0, 0, 0, 0};   // (a dense bias's offsets; unused)
   const float sl2 = scale * LOG2E;
 
   // The n-th item of the block, item w: its tiles through the ring from the
@@ -847,7 +921,7 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1)
     float o[ACC];
 #pragma unroll
     for (int i = 0; i < ACC; ++i) o[i] = 0.f;
-    // running row max: log2 units without a bias, natural units with T5's
+    // running row max: log2 units without a bias, natural units with one
     float m[2] = {-INFINITY, -INFINITY};
     float l[2] = {0.f, 0.f};   // this thread's part of the row sum
     const uint32_t qt = q_s + (NC * p + g) * TB;
@@ -869,6 +943,16 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1)
     auto softmax = [&](int t) {
       const int s = (gi + t) % STAGES, k0 = (x.kt0 + t) * TILE;
       const int* fl = flags + s * 128;
+      if constexpr (KIND == DENSE_BIAS) {
+        // the scaled score plus the bias, natural units, before the mask
+        const float* bt = bias_t + s * BF;
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const float2 bb = dq_bias2<KIND>(bt, j, boff);
+          sc[2 * j] = fmaf(sc[2 * j], scale, bb.x);
+          sc[2 * j + 1] = fmaf(sc[2 * j + 1], scale, bb.y);
+        }
+      }
       // no element of the warp's rows masked: every key present, rows inside
       // Sq, the causal edge and the window clear of the tile
       bool clear = fl[TILE] && row0 + 8 < Sq;
@@ -1122,13 +1206,13 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1)
           }
           const float* src = nullptr;   // DENSE_BIAS: the head's rows
           if constexpr (KIND == DENSE_BIAS)
-            src = bias.rows + ((int64_t)x.b * bias.bs + (int64_t)x.h * bias.hs) * Sq * Sk;
+            src = bias.rows + ((int64_t)x.b * bias.bs + (int64_t)x.h * bias.hs) * Sq * bias.ld;
           for (int it = 0; it < x.iters; ++it, ++gi) {
             const int s = gi % STAGES, k0 = (x.kt0 + it) * TILE;
             mbar_wait(empty + 8 * s, ((gi / STAGES) & 1) ^ 1);
             if constexpr (KIND == DENSE_BIAS) {
-              copy_bias<ROWS_NC, TILE>(bias_s + s * BF * 4, src, x.q0, k0, Sq, Sk, causal,
-                                       window, t, policy);
+              copy_bias<ROWS_NC, TILE>(bias_s + s * BF * 4, src, x.q0, k0, Sq, Sk, bias.ld,
+                                       causal, window, t, policy);
               cp_async_arrive(full + 8 * s);
             } else {
               t5_diagonals(bias_f + s * BF, ROWS_NC + TILE - 1, col, bias.index,
@@ -1510,9 +1594,9 @@ __global__ void __launch_bounds__(THREADS, 1)
             mbar_wait(empty + 8 * s, ((gi / STAGES) & 1) ^ 1);
             if constexpr (KIND == DENSE_BIAS) {
               const float* src =
-                  bias.rows + ((int64_t)x.b * bias.bs + (int64_t)hh * bias.hs) * Sq * Sk;
-              copy_bias<TILE, ROWS>(bias_s + s * BF * 4, src, i0, x.j0, Sq, Sk, causal, window,
-                                    t, policy);
+                  bias.rows + ((int64_t)x.b * bias.bs + (int64_t)hh * bias.hs) * Sq * bias.ld;
+              copy_bias<TILE, ROWS>(bias_s + s * BF * 4, src, i0, x.j0, Sq, Sk, bias.ld, causal,
+                                    window, t, policy);
               cp_async_arrive(full + 8 * s);
             } else {
               t5_diagonals(bias_f + s * BF, ROWS + TILE - 1, cols + (it / x.ntiles) * bias.nb,
@@ -1787,15 +1871,15 @@ struct Maps {
   CUtensorMap q, dout, k, v, bias, out0, out1;
 };
 
-// The tensor map of a float32 (planes, Sq, Sk) bias read in boxes of 32
-// keys x 64 rows of one plane, 128-byte swizzled; rows past Sq and keys past
-// Sk read as zeros. Needs Sk % 4 == 0 and 16-byte aligned rows (the global
-// strides are multiples of 16 bytes).
-bool bias_map(CUtensorMap* map, const float* ptr, int64_t planes, int Sq, int Sk) {
+// The tensor map of a float32 (planes, Sq, Sk) bias, its rows ld floats
+// apart, read in boxes of 32 keys x 64 rows of one plane, 128-byte swizzled;
+// rows past Sq and keys past Sk read as zeros. Needs ld % 4 == 0 and 16-byte
+// aligned rows (the global strides are multiples of 16 bytes).
+bool bias_map(CUtensorMap* map, const float* ptr, int64_t planes, int Sq, int Sk, int ld) {
   wgmma_gemm::EncodeTiled fn = wgmma_gemm::encode_tiled();
   if (!fn) return false;
   const cuuint64_t dims[3] = {(cuuint64_t)Sk, (cuuint64_t)Sq, (cuuint64_t)planes};
-  const cuuint64_t strides[2] = {(cuuint64_t)Sk * 4, (cuuint64_t)Sq * Sk * 4};
+  const cuuint64_t strides[2] = {(cuuint64_t)ld * 4, (cuuint64_t)Sq * ld * 4};
   const cuuint32_t box[3] = {32, 64, 1};
   const cuuint32_t one[3] = {1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(ptr), dims, strides, box,
@@ -1805,12 +1889,14 @@ bool bias_map(CUtensorMap* map, const float* ptr, int64_t planes, int Sq, int Sk
 
 // The operands of a bias: a dense bias's map where its rows allow one (its
 // planes are the rows of the last (b, h)), else the cp.async copies.
-bool bias_operands(Bias* out, Maps* m, const float* bias, int bs, int hs, const float* table,
-                   const int* index, int nb, int B, int H, int Sq, int Sk) {
-  *out = Bias{bias, bs, hs, 0, table, index, nb};
-  if (bias == nullptr || Sk % 4 != 0 || reinterpret_cast<uintptr_t>(bias) % 16 != 0) return true;
+bool bias_operands(Bias* out, Maps* m, const float* bias, int bs, int hs, int ld,
+                   const float* table, const int* index, int nb, int B, int H, int Sq, int Sk) {
+  *out = Bias{bias, bs, hs, ld, 0, table, index, nb};
+  if (bias == nullptr) return true;
+  if (ld < Sk) return false;
+  if (ld % 4 != 0 || reinterpret_cast<uintptr_t>(bias) % 16 != 0) return true;
   out->tma = 1;
-  return bias_map(&m->bias, bias, (int64_t)(B - 1) * bs + (int64_t)(H - 1) * hs + 1, Sq, Sk);
+  return bias_map(&m->bias, bias, (int64_t)(B - 1) * bs + (int64_t)(H - 1) * hs + 1, Sq, Sk, ld);
 }
 
 bool make_maps(Maps* m, const void* q, const void* k, const void* v, const void* dout, int B,
@@ -1863,7 +1949,7 @@ cudaError_t launch_fwd(const Maps& m, const uint8_t* mask, const Bias& bias, voi
   if (err != cudaSuccess) return err;
   const int items = B * H * ((Sq + 64 * NC - 1) / (64 * NC));
   const int grid = persistent<KIND, DP>() && num_sms() < items ? num_sms() : items;
-  kernel<<<grid, 128 * (NC + 1), bytes, stream>>>(m.q, m.k, m.v, m.out0, mask, bias,
+  kernel<<<grid, 128 * (NC + 1), bytes, stream>>>(m.q, m.k, m.v, m.bias, m.out0, mask, bias,
                                                   static_cast<bf16*>(out), lse, B, D, H, Hkv, Sq,
                                                   Sk, scale, causal, window);
   return cudaGetLastError();
@@ -1935,30 +2021,27 @@ using namespace flash_bwd;
 
 extern "C" {
 
-// The forward, without a bias or with T5's table: q (B, H, Sq, D) and k, v
-// (B, Hkv, Sk, D) bfloat16, contiguous, 16-byte aligned; kv_mask (B, Sk)
-// uint8 (1 = key present). D is 32, 64 or 128; window 0 means none. Writes
-// out (B, H, Sq, D) bfloat16 and lse (B, H, Sq) f32 (natural log; -1e30 and
-// out = 0 for a row that sees no key). The bias operands as for bwd_dq, the
-// dense bias excluded (flash_attention.cu's forward takes it). Returns
+// The forward of every bias kind: q (B, H, Sq, D) and k, v (B, Hkv, Sk, D)
+// bfloat16, contiguous, 16-byte aligned; kv_mask (B, Sk) uint8 (1 = key
+// present). D is 32, 64 or 128; window 0 means none. Writes out (B, H, Sq,
+// D) bfloat16 and lse (B, H, Sq) f32 (natural log; -1e30 and out = 0 for a
+// row that sees no key). The bias operands as for bwd_dq. Returns
 // cudaGetLastError() after the launch (0 on success), or
 // cudaErrorInvalidValue for arguments the kernel does not take.
 int fwd(const void* q, const void* k, const void* v, const uint8_t* kv_mask, const float* bias,
-        int bs, int hs, const float* t5_table, const int* t5_index, int nb, void* out, float* lse,
-        int B, int H, int Hkv, int Sq, int Sk, int D, float scale, int causal, int window,
-        void* stream) {
+        int bs, int hs, int ld, const float* t5_table, const int* t5_index, int nb, void* out,
+        float* lse, int B, int H, int Hkv, int Sq, int Sk, int D, float scale, int causal,
+        int window, void* stream) {
   Maps m{};
-  if (bad_args(B, H, Hkv, Sq, Sk, D, window) || bias != nullptr ||
-      bad_bias(nullptr, t5_table, t5_index, nb) || !tile_map(&m.q, q, (int64_t)B * H, Sq, D) ||
-      !tile_map(&m.k, k, (int64_t)B * Hkv, Sk, D) || !tile_map(&m.v, v, (int64_t)B * Hkv, Sk, D) ||
+  Bias b;
+  if (bad_args(B, H, Hkv, Sq, Sk, D, window) || bad_bias(bias, t5_table, t5_index, nb) ||
+      !tile_map(&m.q, q, (int64_t)B * H, Sq, D) || !tile_map(&m.k, k, (int64_t)B * Hkv, Sk, D) ||
+      !tile_map(&m.v, v, (int64_t)B * Hkv, Sk, D) ||
+      !bias_operands(&b, &m, bias, bs, hs, ld, t5_table, t5_index, nb, B, H, Sq, Sk) ||
       !tile_map(&m.out0, out, (int64_t)B * H, Sq, D))
     return (int)cudaErrorInvalidValue;
-  const Bias b{nullptr, bs, hs, 0, t5_table, t5_index, nb};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(t5_table ? BWD_BY_DIM(launch_fwd, T5_BIAS, m, kv_mask, b, out, lse, B, H, Hkv, Sq,
-                                     Sk, D, scale, causal, window, s)
-                        : BWD_BY_DIM(launch_fwd, NO_BIAS, m, kv_mask, b, out, lse, B, H, Hkv, Sq,
-                                     Sk, D, scale, causal, window, s));
+  return (int)BWD_DISPATCH(launch_fwd, m, kv_mask, b, out, lse, B, H, Hkv, Sq, Sk, D, scale,
+                           causal, window, static_cast<cudaStream_t>(stream));
 }
 
 // q, out, dout (B, H, Sq, D) and k, v (B, Hkv, Sk, D): bfloat16, contiguous,
@@ -1969,22 +2052,25 @@ int fwd(const void* q, const void* k, const void* v, const uint8_t* kv_mask, con
 // cudaGetLastError() after the launch (0 on success), or
 // cudaErrorInvalidValue for arguments the kernel does not take.
 //
-// bias is nullptr or a float32 bias (b0 h0, Sq, Sk), contiguous, with b0 in
-// {1, B} and h0 in {1, H}, and the row strides bs (0 when b0 = 1, else h0)
-// and hs (0 when h0 = 1, else 1): the row of (b, h) is b bs + h hs.
+// bias is nullptr or a float32 bias (b0 h0, Sq, Sk) whose rows lie ld >= Sk
+// floats apart (ld = Sk when contiguous; a multiple of 4 and 16-byte aligned
+// rows let TMA read it), with b0 in {1, B} and h0 in {1, H}, and the plane
+// strides bs (0 when b0 = 1, else h0) and hs (0 when h0 = 1, else 1): the
+// rows of (b, h) are plane b bs + h hs, Sq ld floats a plane.
 // t5_table is nullptr or T5's float32 (nb, H) table, with t5_index the int32
 // bucket of every distance (Sq + Sk - 1 entries, entry k - q + Sq - 1 for
 // query slot q and key slot k) and 1 <= nb <= 128; never with a bias. With
 // neither, the bias-free backward.
 int bwd_dq(const void* q, const void* k, const void* v, const uint8_t* kv_mask, const float* bias,
-           int bs, int hs, const float* t5_table, const int* t5_index, int nb, const void* out,
-           const void* dout, const float* lse, float* delta, void* dq, int B, int H, int Hkv,
-           int Sq, int Sk, int D, float scale, int causal, int window, void* stream) {
+           int bs, int hs, int ld, const float* t5_table, const int* t5_index, int nb,
+           const void* out, const void* dout, const float* lse, float* delta, void* dq, int B,
+           int H, int Hkv, int Sq, int Sk, int D, float scale, int causal, int window,
+           void* stream) {
   Maps m{};
   Bias b;
   if (bad_args(B, H, Hkv, Sq, Sk, D, window) || bad_bias(bias, t5_table, t5_index, nb) ||
       !make_maps(&m, q, k, v, dout, B, H, Hkv, Sq, Sk, D) ||
-      !bias_operands(&b, &m, bias, bs, hs, t5_table, t5_index, nb, B, H, Sq, Sk) ||
+      !bias_operands(&b, &m, bias, bs, hs, ld, t5_table, t5_index, nb, B, H, Sq, Sk) ||
       !tile_map(&m.out0, dq, (int64_t)B * H, Sq, D))
     return (int)cudaErrorInvalidValue;
   return (int)BWD_DISPATCH(launch_dq, m, kv_mask, b, out, dout, lse, delta, dq, B, H, Hkv, Sq,
@@ -1994,15 +2080,15 @@ int bwd_dq(const void* q, const void* k, const void* v, const uint8_t* kv_mask, 
 // dk, dv (B, Hkv, Sk, D) bfloat16, summed over each K/V head's query heads,
 // from bwd_dq's delta; the bias operands as for bwd_dq.
 int bwd_dkv(const void* q, const void* k, const void* v, const uint8_t* kv_mask,
-            const float* bias, int bs, int hs, const float* t5_table, const int* t5_index,
-            int nb, const void* dout, const float* lse, const float* delta, void* dk, void* dv,
-            int B, int H, int Hkv, int Sq, int Sk, int D, float scale, int causal, int window,
-            void* stream) {
+            const float* bias, int bs, int hs, int ld, const float* t5_table,
+            const int* t5_index, int nb, const void* dout, const float* lse, const float* delta,
+            void* dk, void* dv, int B, int H, int Hkv, int Sq, int Sk, int D, float scale,
+            int causal, int window, void* stream) {
   Maps m{};
   Bias b;
   if (bad_args(B, H, Hkv, Sq, Sk, D, window) || bad_bias(bias, t5_table, t5_index, nb) ||
       !make_maps(&m, q, k, v, dout, B, H, Hkv, Sq, Sk, D) ||
-      !bias_operands(&b, &m, bias, bs, hs, t5_table, t5_index, nb, B, H, Sq, Sk) ||
+      !bias_operands(&b, &m, bias, bs, hs, ld, t5_table, t5_index, nb, B, H, Sq, Sk) ||
       !tile_map(&m.out0, dk, (int64_t)B * Hkv, Sk, D) ||
       !tile_map(&m.out1, dv, (int64_t)B * Hkv, Sk, D))
     return (int)cudaErrorInvalidValue;

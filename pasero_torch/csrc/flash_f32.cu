@@ -80,12 +80,13 @@ enum BiasKind : int { NO_BIAS = 0, DENSE_BIAS = 1, T5_BIAS = 2 };
 template <int D>
 __host__ __device__ constexpr int tile_floats() { return TILE * (D + 4); }
 
-// A dense float32 bias of (b0 h0, Sq, Sk) rows, the row of (b, h) b bs + h hs;
+// A dense float32 bias of (b0 h0, Sq, Sk) rows ld floats apart, the rows of
+// (b, h) from plane b bs + h hs;
 // or T5's float32 (nb, H) table and the int32 bucket of every distance (Sq +
 // Sk - 1 entries, entry k - q + Sq - 1 for query q and key k, from the host).
 struct Bias {
   const float* rows;
-  int bs, hs;
+  int bs, hs, ld;
   const float* table;
   const int* index;
   int nb;
@@ -237,12 +238,13 @@ __device__ __forceinline__ void t5_diagonals(float* bd, int* bucket, const float
 }
 
 // The bias of the visible score (row, col) of the tile at (q0, k0): a dense
-// bias from the head's rows `rows`, T5's from the tile's diagonals `bd`.
+// bias from the head's rows `rows`, ld floats apart, T5's from the tile's
+// diagonals `bd`.
 template <int KIND>
 __device__ __forceinline__ float bias_at(const float* __restrict__ rows, const float* bd, int row,
-                                         int col, int q0, int k0, int Sk) {
+                                         int col, int q0, int k0, int ld) {
   if constexpr (KIND == DENSE_BIAS)
-    return __ldg(rows + (int64_t)row * Sk + col);
+    return __ldg(rows + (int64_t)row * ld + col);
   else if constexpr (KIND == T5_BIAS)
     return bd[(col - k0) - (row - q0) + TILE - 1];
   else
@@ -250,9 +252,8 @@ __device__ __forceinline__ float bias_at(const float* __restrict__ rows, const f
 }
 
 // The bias rows of (batch b, query head h) of a dense bias.
-__device__ __forceinline__ const float* bias_rows(const Bias& bias, int b, int h, int Sq,
-                                                  int Sk) {
-  return bias.rows + ((int64_t)b * bias.bs + (int64_t)h * bias.hs) * Sq * Sk;
+__device__ __forceinline__ const float* bias_rows(const Bias& bias, int b, int h, int Sq) {
+  return bias.rows + ((int64_t)b * bias.bs + (int64_t)h * bias.hs) * Sq * bias.ld;
 }
 
 // The key tiles [kt0, kt1) that the 64 queries from q0 can see.
@@ -288,7 +289,7 @@ __global__ void __launch_bounds__(THREADS)
   const float* kg = k + kv_off;
   const float* vg = v + kv_off;
   const uint8_t* mg = kv_mask + (int64_t)b * Sk;
-  const float* bg = KIND == DENSE_BIAS ? bias_rows(bias, b, h, Sq, Sk) : nullptr;
+  const float* bg = KIND == DENSE_BIAS ? bias_rows(bias, b, h, Sq) : nullptr;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   int kt0, kt1;
   key_tiles(q0, Sk, causal, window, kt0, kt1);
@@ -340,7 +341,7 @@ __global__ void __launch_bounds__(THREADS)
         float t = -INFINITY;
         if (visible(row, key, Sq, Sk, mg, causal, window)) {
           t = s[i][j] * scale;
-          if constexpr (KIND != NO_BIAS) t += bias_at<KIND>(bg, Bd, row, key, q0, k0, Sk);
+          if constexpr (KIND != NO_BIAS) t += bias_at<KIND>(bg, Bd, row, key, q0, k0, bias.ld);
         }
         s[i][j] = t;
         mx = fmaxf(mx, t);
@@ -406,7 +407,7 @@ __global__ void __launch_bounds__(THREADS)
   const float* kg = k + kv_off;
   const float* vg = v + kv_off;
   const uint8_t* mg = kv_mask + (int64_t)b * Sk;
-  const float* bg = KIND == DENSE_BIAS ? bias_rows(bias, b, h, Sq, Sk) : nullptr;
+  const float* bg = KIND == DENSE_BIAS ? bias_rows(bias, b, h, Sq) : nullptr;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   int kt0, kt1;
   key_tiles(q0, Sk, causal, window, kt0, kt1);
@@ -469,7 +470,7 @@ __global__ void __launch_bounds__(THREADS)
         float ds = 0.f;
         if (visible(row, key, Sq, Sk, mg, causal, window)) {
           float t = s[i][j] * scale;
-          if constexpr (KIND != NO_BIAS) t += bias_at<KIND>(bg, Bd, row, key, q0, k0, Sk);
+          if constexpr (KIND != NO_BIAS) t += bias_at<KIND>(bg, Bd, row, key, q0, k0, bias.ld);
           ds = expf(t - ls[i]) * (dp[i][j] - dl[i]);
         }
         Ss[(ty + 16 * i) * LDP + tx + 16 * j] = ds;
@@ -562,7 +563,7 @@ __global__ void __launch_bounds__(THREADS)
     }
     __syncthreads();
 
-    const float* bg = KIND == DENSE_BIAS ? bias_rows(bias, b, hh, Sq, Sk) : nullptr;
+    const float* bg = KIND == DENSE_BIAS ? bias_rows(bias, b, hh, Sq) : nullptr;
     float s[4][4], dp[4][4];
     tile_dot<D>(s, Qs + st * TF, Ks, ty, tx);
     tile_dot<D>(dp, dOs + st * TF, Vs, ty, tx);
@@ -577,7 +578,7 @@ __global__ void __launch_bounds__(THREADS)
         float p = 0.f;
         if (visible(row, key, Sq, Sk, mg, causal, window)) {
           float t = s[i][j] * scale;
-          if constexpr (KIND != NO_BIAS) t += bias_at<KIND>(bg, Bd, row, key, i0, j0, Sk);
+          if constexpr (KIND != NO_BIAS) t += bias_at<KIND>(bg, Bd, row, key, i0, j0, bias.ld);
           p = expf(t - ls);
         }
         s[i][j] = p;
@@ -657,7 +658,7 @@ __global__ void __launch_bounds__(THREADS)
     const float* kg = k + kv_off;
     const float* vg = v + kv_off;
     const uint8_t* mg = kv_mask + (int64_t)b * Sk;
-    const float* bg = bias_rows(bias, b, h, Sq, Sk);
+    const float* bg = bias_rows(bias, b, h, Sq);
     load_rows<D>(Qs, q + q_off, q0, Sq);
     load_rows<D>(dOs, dout + q_off, q0, Sq);
     if (kt0 < kt1) {
@@ -695,8 +696,8 @@ __global__ void __launch_bounds__(THREADS)
           if (row >= Sq || key >= Sk) continue;
           float ds = 0.f;
           if (visible(row, key, Sq, Sk, mg, causal, window))
-            ds = expf(s[i][j] * scale + bias_at<DENSE_BIAS>(bg, nullptr, row, key, q0, k0, Sk) -
-                      ls[i]) *
+            ds = expf(s[i][j] * scale +
+                      bias_at<DENSE_BIAS>(bg, nullptr, row, key, q0, k0, bias.ld) - ls[i]) *
                  (dp[i][j] - dl[i]);
           float* g = og + (int64_t)row * Sk + key;
           *g = b == b_begin ? ds : *g + ds;
@@ -791,7 +792,7 @@ __global__ void __launch_bounds__(THREADS)
         const int key = k0 + tx + 16 * j;
         float ds = 0.f;
         if (visible(row, key, Sq, Sk, mg, causal, window))
-          ds = expf(s[i][j] * scale + bias_at<T5_BIAS>(nullptr, Bd, row, key, q0, k0, Sk) -
+          ds = expf(s[i][j] * scale + bias_at<T5_BIAS>(nullptr, Bd, row, key, q0, k0, 0) -
                     ls[i]) *
                (dp[i][j] - dl[i]);
         dS[(ty + 16 * i) * LDS + tx + 16 * j] = ds;
@@ -960,9 +961,10 @@ extern "C" {
 // returns cudaGetLastError() after its launch (0 on success), or
 // cudaErrorInvalidValue for arguments the kernels do not take.
 //
-// bias is nullptr or a float32 bias (b0 h0, Sq, Sk), contiguous, with b0 in
-// {1, B} and h0 in {1, H}, and the row strides bs (0 when b0 = 1, else h0)
-// and hs (0 when h0 = 1, else 1): the row of (b, h) is b bs + h hs.
+// bias is nullptr or a float32 bias (b0 h0, Sq, Sk) whose rows lie ld >= Sk
+// floats apart (ld = Sk when contiguous), with b0 in {1, B} and h0 in {1,
+// H}, and the plane strides bs (0 when b0 = 1, else h0) and hs (0 when h0 =
+// 1, else 1): the rows of (b, h) are plane b bs + h hs, Sq ld floats a plane.
 // t5_table is nullptr or T5's float32 (nb, H) table, with t5_index the int32
 // bucket of every distance (Sq + Sk - 1 entries, entry k - q + Sq - 1 for
 // query slot q and key slot k) and 1 <= nb <= 128; never with a bias. With
@@ -971,12 +973,13 @@ extern "C" {
 // The forward: out (B, H, Sq, D) f32 and lse (B, H, Sq) f32 (natural log;
 // -1e30 and out = 0 for a row that sees no key).
 int fwd(const float* q, const float* k, const float* v, const uint8_t* kv_mask, const float* bias,
-        int bs, int hs, const float* t5_table, const int* t5_index, int nb, float* out,
+        int bs, int hs, int ld, const float* t5_table, const int* t5_index, int nb, float* out,
         float* lse, int B, int H, int Hkv, int Sq, int Sk, int D, float scale, int causal,
         int window, void* stream) {
-  if (bad_args(B, H, Hkv, Sq, Sk, D, window) || bad_bias(bias, t5_table, t5_index, nb))
+  if (bad_args(B, H, Hkv, Sq, Sk, D, window) || bad_bias(bias, t5_table, t5_index, nb) ||
+      (bias && ld < Sk))
     return (int)cudaErrorInvalidValue;
-  const Bias b{bias, bs, hs, t5_table, t5_index, nb};
+  const Bias b{bias, bs, hs, ld, t5_table, t5_index, nb};
   return (int)F32_DISPATCH(launch_fwd, q, k, v, kv_mask, b, out, lse, B, H, Hkv, Sq, Sk, scale,
                            causal, window, static_cast<cudaStream_t>(stream));
 }
@@ -984,13 +987,14 @@ int fwd(const float* q, const float* k, const float* v, const uint8_t* kv_mask, 
 // dq (B, H, Sq, D) f32 and delta (B, H, Sq) f32, from the forward's out and
 // lse (of the same bias).
 int bwd_dq(const float* q, const float* k, const float* v, const uint8_t* kv_mask,
-           const float* bias, int bs, int hs, const float* t5_table, const int* t5_index, int nb,
-           const float* out, const float* dout, const float* lse, float* delta, float* dq, int B,
-           int H, int Hkv, int Sq, int Sk, int D, float scale, int causal, int window,
+           const float* bias, int bs, int hs, int ld, const float* t5_table, const int* t5_index,
+           int nb, const float* out, const float* dout, const float* lse, float* delta, float* dq,
+           int B, int H, int Hkv, int Sq, int Sk, int D, float scale, int causal, int window,
            void* stream) {
-  if (bad_args(B, H, Hkv, Sq, Sk, D, window) || bad_bias(bias, t5_table, t5_index, nb))
+  if (bad_args(B, H, Hkv, Sq, Sk, D, window) || bad_bias(bias, t5_table, t5_index, nb) ||
+      (bias && ld < Sk))
     return (int)cudaErrorInvalidValue;
-  const Bias b{bias, bs, hs, t5_table, t5_index, nb};
+  const Bias b{bias, bs, hs, ld, t5_table, t5_index, nb};
   return (int)F32_DISPATCH(launch_dq, q, k, v, kv_mask, b, out, dout, lse, delta, dq, B, H, Hkv,
                            Sq, Sk, scale, causal, window, static_cast<cudaStream_t>(stream));
 }
@@ -998,28 +1002,29 @@ int bwd_dq(const float* q, const float* k, const float* v, const uint8_t* kv_mas
 // dk, dv (B, Hkv, Sk, D) f32, summed over each K/V head's query heads, from
 // bwd_dq's delta.
 int bwd_dkv(const float* q, const float* k, const float* v, const uint8_t* kv_mask,
-            const float* bias, int bs, int hs, const float* t5_table, const int* t5_index, int nb,
-            const float* dout, const float* lse, const float* delta, float* dk, float* dv, int B,
-            int H, int Hkv, int Sq, int Sk, int D, float scale, int causal, int window,
+            const float* bias, int bs, int hs, int ld, const float* t5_table, const int* t5_index,
+            int nb, const float* dout, const float* lse, const float* delta, float* dk, float* dv,
+            int B, int H, int Hkv, int Sq, int Sk, int D, float scale, int causal, int window,
             void* stream) {
   if (bad_args(B, H, Hkv, Sq, Sk, D, window) || bad_bias(bias, t5_table, t5_index, nb) ||
-      (int64_t)B * Hkv > 65535)
+      (bias && ld < Sk) || (int64_t)B * Hkv > 65535)
     return (int)cudaErrorInvalidValue;
-  const Bias b{bias, bs, hs, t5_table, t5_index, nb};
+  const Bias b{bias, bs, hs, ld, t5_table, t5_index, nb};
   return (int)F32_DISPATCH(launch_dkv, q, k, v, kv_mask, b, dout, lse, delta, dk, dv, B, H, Hkv,
                            Sq, Sk, scale, causal, window, static_cast<cudaStream_t>(stream));
 }
 
 // dbias f32: (H, Sq, Sk) summed over the batch when bs == 0 (a bias shared
 // over the batch), else (B, H, Sq, Sk); per query head either way (the
-// caller sums over the heads for h0 = 1). bias must not be nullptr.
+// caller sums over the heads for h0 = 1). bias must not be nullptr, and is
+// contiguous (ld = Sk).
 int bwd_dbias(const float* q, const float* k, const float* v, const uint8_t* kv_mask,
               const float* bias, int bs, int hs, const float* dout, const float* lse,
               const float* delta, float* dbias, int B, int H, int Hkv, int Sq, int Sk, int D,
               float scale, int causal, int window, void* stream) {
   if (bad_args(B, H, Hkv, Sq, Sk, D, window) || bias == nullptr)
     return (int)cudaErrorInvalidValue;
-  const Bias b{bias, bs, hs, nullptr, nullptr, 0};
+  const Bias b{bias, bs, hs, Sk, nullptr, nullptr, 0};
   return (int)F32_BY_DIM1(launch_dbias, q, k, v, kv_mask, b, dout, lse, delta, dbias, B, H, Hkv,
                           Sq, Sk, scale, causal, window, static_cast<cudaStream_t>(stream));
 }
@@ -1034,7 +1039,7 @@ int bwd_demb(const float* q, const float* k, const float* v, const uint8_t* kv_m
   if (bad_args(B, H, Hkv, Sq, Sk, D, window) || t5_table == nullptr ||
       bad_bias(nullptr, t5_table, t5_index, nb))
     return (int)cudaErrorInvalidValue;
-  const Bias b{nullptr, 0, 0, t5_table, t5_index, nb};
+  const Bias b{nullptr, 0, 0, 0, t5_table, t5_index, nb};
   return (int)F32_BY_DIM1(launch_demb, q, k, v, kv_mask, b, dout, lse, delta, partial, B, H, Hkv,
                           Sq, Sk, scale, causal, window, static_cast<cudaStream_t>(stream));
 }

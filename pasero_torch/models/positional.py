@@ -98,17 +98,23 @@ def alibi_bias(num_heads: int, q_positions: torch.Tensor,
     Non-causal (encoder) self-attention breaks the symmetry with the
     half-head trick: the first half of the heads sees only the left context
     (k <= q), the second half only the strict right context (k > q); the
-    other side gets -1e9."""
+    other side gets -1e9.
+
+    Its rows lie a multiple of four floats apart (padded past Sk), so that
+    the flash kernels read them by TMA at every key length."""
     slopes = torch.from_numpy(alibi_slopes(num_heads, max_bias)).to(
         q_positions.device)
     rel = (k_positions[:, None, None, :]
            - q_positions[:, None, :, None]).float()        # (B, 1, Sq, Sk)
-    bias = -rel.abs() * slopes[None, :, None, None]
+    B, _, Sq, Sk = rel.shape
+    bias = torch.empty(B, num_heads, Sq, -(-Sk // 4) * 4,
+                       device=rel.device)[..., :Sk]
+    torch.mul(rel.abs(), -slopes[None, :, None, None], out=bias)
     if not causal:
         left = torch.arange(num_heads, device=rel.device)[None, :, None, None] \
             < num_heads // 2
         future = rel > 0
-        bias = bias.masked_fill(torch.where(left, future, ~future), -1e9)
+        bias.masked_fill_(torch.where(left, future, ~future), -1e9)
     return bias
 
 

@@ -13,15 +13,14 @@ streamed ``_fwd_stream`` :544, ``_bwd_stream`` :738 and ``_compute_demb``
 backward. On CUDA tensors its forward launches ``flash_fwd`` and its
 backward ``flash_bwd_dq`` then ``flash_bwd_dkv`` (and ``flash_bwd_dbias``
 for the bias's gradient, ``flash_bwd_demb`` for the T5 table's): in
-bfloat16 the wgmma kernels of ``csrc/flash_bwd.cu`` for the bias-free and
-the T5 forward and for dq and dk/dv of every bias kind, the kernels of
-``csrc/flash_attention.cu`` for the dense-bias forward, dbias and demb; in
-float32 the kernels of ``csrc/flash_f32.cu`` for all of them. Each wrapper
-counts its launches, those of a biased, a T5 or a float32 kernel apart
-(``launch_counts`` names them ``flash_fwd_bias``, ``flash_fwd_t5``,
-``flash_fwd_f32``, ``flash_fwd_t5_f32`` and so on). CPU tensors take
-``flash_fwd_plain``, ``flash_bwd_plain``, ``flash_dbias_plain`` and
-``flash_demb_plain``. A CUDA tensor never takes the plain version: the
+bfloat16 the wgmma kernels of ``csrc/flash_bwd.cu`` for the forward, dq
+and dk/dv of every bias kind, the kernels of ``csrc/flash_attention.cu``
+for dbias and demb; in float32 the kernels of ``csrc/flash_f32.cu`` for
+all of them. Each wrapper counts its launches, those of a biased, a T5 or
+a float32 kernel apart (``launch_counts`` names them ``flash_fwd_bias``,
+``flash_fwd_t5``, ``flash_fwd_f32``, ``flash_fwd_t5_f32`` and so on). CPU
+tensors take ``flash_fwd_plain``, ``flash_bwd_plain``, ``flash_dbias_plain``
+and ``flash_demb_plain``. A CUDA tensor never takes the plain version: the
 kernels launch or the wrapper raises.
 
 The contract is JAX's: q (B, H, Sq, D) and k/v (B, Hkv, Sk, D), query head h
@@ -250,27 +249,25 @@ def _reduce_to(ds, shape):
     return ds
 
 
-# after the key mask: the bias pointer (None for none) and the strides of its
-# (batch, head) rows; the T5 table and distance index (None for none) and the
-# number of buckets, in ``_bias_args``'s order
-_BIAS_TYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-               ctypes.c_void_p, ctypes.c_int]
+# after the key mask: the bias pointer (None for none), the plane strides of
+# its (batch, head) rows and the floats from one row to the next; the T5
+# table and distance index (None for none) and the number of buckets, in
+# ``_bias_args``'s order (dbias takes the first three, demb the last three)
+_BIAS_TYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+               ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
 
 
 def _library():
-    """``csrc/flash_attention.cu``: the dense-bias forward, dbias and demb
-    kernels."""
+    """``csrc/flash_attention.cu``: the bf16 dbias and demb kernels."""
     lib = cuda_build.load("flash_attention")
-    if lib.flash_fwd.argtypes is None:
+    if lib.flash_bwd_dbias.argtypes is None:
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         dims = [i32] * 6 + [f32, i32, i32, ptr]   # B H Hkv Sq Sk D, scale ...
-        lib.flash_fwd.argtypes = [ptr] * 4 + _BIAS_TYPES[:3] + [ptr] * 2 + \
-            dims
         lib.flash_bwd_dbias.argtypes = [ptr] * 4 + _BIAS_TYPES[:3] + \
             [ptr] * 4 + dims
-        lib.flash_bwd_demb.argtypes = [ptr] * 4 + _BIAS_TYPES[3:] + \
+        lib.flash_bwd_demb.argtypes = [ptr] * 4 + _BIAS_TYPES[4:] + \
             [ptr] * 4 + dims
-        for fn in (lib.flash_fwd, lib.flash_bwd_dbias, lib.flash_bwd_demb):
+        for fn in (lib.flash_bwd_dbias, lib.flash_bwd_demb):
             fn.restype = ctypes.c_int
         lib.flash_error_string.argtypes = [ctypes.c_int]
         lib.flash_error_string.restype = ctypes.c_char_p
@@ -289,7 +286,7 @@ def _set_types(lib, dbias_and_demb: bool):
     lib.bwd_dkv.argtypes = [ptr] * 4 + _BIAS_TYPES + [ptr] * 5 + dims
     if dbias_and_demb:
         lib.bwd_dbias.argtypes = [ptr] * 4 + _BIAS_TYPES[:3] + [ptr] * 4 + dims
-        lib.bwd_demb.argtypes = [ptr] * 4 + _BIAS_TYPES[3:] + [ptr] * 4 + dims
+        lib.bwd_demb.argtypes = [ptr] * 4 + _BIAS_TYPES[4:] + [ptr] * 4 + dims
         entries += [lib.bwd_dbias, lib.bwd_demb]
     for fn in entries:
         fn.restype = ctypes.c_int
@@ -298,8 +295,8 @@ def _set_types(lib, dbias_and_demb: bool):
 
 
 def _bwd_library():
-    """``csrc/flash_bwd.cu``: the bias-free and the T5 forward and the dq
-    and dk/dv kernels of every bias kind, in bfloat16."""
+    """``csrc/flash_bwd.cu``: the forward, dq and dk/dv kernels of every bias
+    kind, in bfloat16."""
     lib = cuda_build.load("flash_bwd")
     if lib.bwd_dq.argtypes is None:
         _set_types(lib, False)
@@ -371,22 +368,45 @@ def _t5_args(t5: T5Bias, q, dims):
             t5.num_buckets)
 
 
+def _rows_apart(bias) -> Optional[int]:
+    """The floats from one row of a float32 (b0, h0, Sq, Sk) bias to the
+    next where the kernels can read it as it lies (unit-strided, 16-byte
+    aligned rows, each (b, h) plane Sq of them apart), else None."""
+    b0, h0, Sq, Sk = bias.shape
+    ld = bias.stride(2) if Sq > 1 else Sk
+    plane = Sq * ld
+    if (bias.stride(3) != 1 and Sk > 1) or ld < Sk \
+            or (h0 > 1 and bias.stride(1) != plane) \
+            or (b0 > 1 and bias.stride(0) != h0 * plane) \
+            or bias.data_ptr() % 16 != 0:
+        return None
+    return ld
+
+
 def _bias_args(bias, q, dims):
     """The C operands of a bias: for a dense bias, float32 (b0 h0, Sq, Sk)
-    rows on q's device and the row strides of a batch and a head index (0
-    where the bias is shared); for a T5Bias its table, distance index and
-    number of buckets (``_t5_args``); the null operands of the other kind."""
+    rows on q's device, the plane strides of a batch and a head index (0
+    where the bias is shared) and the floats from one row to the next (a
+    bias whose rows are padded, as the model pads ALiBi's to a multiple of
+    4 so that the kernels read it by TMA, is read as it lies; another one
+    not laid out as rows is copied contiguous); for a T5Bias its table,
+    distance index and number of buckets (``_t5_args``); the null operands
+    of the other kind."""
     if bias is None:
-        return None, 0, 0, None, None, 0
+        return None, 0, 0, 0, None, None, 0
     if isinstance(bias, T5Bias):
-        return (None, 0, 0) + _t5_args(bias, q, dims)
+        return (None, 0, 0, 0) + _t5_args(bias, q, dims)
     B, H, _, Sq, Sk, _ = dims
     check_bias(bias, B, H, Sq, Sk)
     if bias.device != q.device:
         raise ValueError(f"bias lies on {bias.device}, q on {q.device}")
     b0, h0 = bias.shape[:2]
-    rows = _operand(bias.float())
-    return rows, (0 if b0 == 1 else h0), (0 if h0 == 1 else 1), None, None, 0
+    rows = bias.float()
+    ld = _rows_apart(rows)
+    if ld is None:
+        rows, ld = _operand(rows), Sk
+    return (rows, (0 if b0 == 1 else h0), (0 if h0 == 1 else 1), ld, None,
+            None, 0)
 
 
 def _launch(name: str, device, *args, lib=None) -> None:
@@ -428,30 +448,27 @@ def _count_own(wrapper, f32: bool) -> None:
         wrapper.launches += 1
 
 
+def _flash_library(q):
+    """The library of the forward, dq and dk/dv kernels of q's type."""
+    return _f32_library() if q.dtype == torch.float32 else _bwd_library()
+
+
 def flash_fwd(q, k, v, kv_mask, scale: float, causal: bool,
               window: Optional[int], bias=None):
     """(out (B, H, Sq, D) in q's type, lse (B, H, Sq) float32) from one
     launch of the forward kernel, biased when a float32 ``bias`` (b0, h0,
     Sq, Sk) is given (counted in ``bias_launches``), with the T5 table when
     it is a T5Bias (``t5_launches``), else bias-free (``launches``). In
-    bfloat16 the wgmma kernel of csrc/flash_bwd.cu without a bias or with
-    the T5 table, csrc/flash_attention.cu's with a dense bias; in float32
-    csrc/flash_f32.cu's (counted in ``*_launches_f32``)."""
+    bfloat16 the wgmma kernel of csrc/flash_bwd.cu (its instance of the
+    bias kind), in float32 csrc/flash_f32.cu's (counted in
+    ``*_launches_f32``)."""
     q, k, v, mask, dims = _cuda_args(q, k, v, kv_mask, window)
     bias_ops = _bias_args(bias, q, dims)
     out = torch.empty_like(q)
     lse = torch.empty(dims[:2] + dims[3:4], dtype=torch.float32,
                       device=q.device)
-    scalars = _scalars(dims, scale, causal, window)
-    if q.dtype == torch.float32:
-        _launch("fwd", q.device, q, k, v, mask, *bias_ops, out, lse, *scalars,
-                lib=_f32_library())
-    elif bias is None or isinstance(bias, T5Bias):
-        _launch("fwd", q.device, q, k, v, mask, *bias_ops, out, lse, *scalars,
-                lib=_bwd_library())
-    else:
-        _launch("flash_fwd", q.device, q, k, v, mask, *bias_ops[:3], out, lse,
-                *scalars)
+    _launch("fwd", q.device, q, k, v, mask, *bias_ops, out, lse,
+            *_scalars(dims, scale, causal, window), lib=_flash_library(q))
     _count(flash_fwd, bias, q.dtype)
     return out, lse
 
@@ -463,11 +480,6 @@ def _bwd_operands(q, out, do, lse):
                             f"{x.dtype}")
     return (None if out is None else _operand(out), _operand(do),
             lse.float().contiguous())
-
-
-def _dq_dkv_library(q):
-    """The library of the dq and dk/dv kernels of q's type."""
-    return _f32_library() if q.dtype == torch.float32 else _bwd_library()
 
 
 def flash_bwd_dq(q, k, v, kv_mask, out, lse, do, scale: float,
@@ -483,7 +495,7 @@ def flash_bwd_dq(q, k, v, kv_mask, out, lse, do, scale: float,
     delta = torch.empty_like(lse)
     _launch("bwd_dq", q.device, q, k, v, mask, *bias_ops, out, do, lse, delta,
             dq, *_scalars(dims, scale, causal, window),
-            lib=_dq_dkv_library(q))
+            lib=_flash_library(q))
     _count(flash_bwd_dq, bias, q.dtype)
     return dq, delta
 
@@ -502,7 +514,7 @@ def flash_bwd_dkv(q, k, v, kv_mask, do, lse, delta, scale: float,
     dv = torch.empty_like(v)
     _launch("bwd_dkv", q.device, q, k, v, mask, *bias_ops, do, lse, delta, dk,
             dv, *_scalars(dims, scale, causal, window),
-            lib=_dq_dkv_library(q))
+            lib=_flash_library(q))
     _count(flash_bwd_dkv, bias, q.dtype)
     return dk, dv
 
@@ -520,7 +532,8 @@ def flash_bwd_dbias(q, k, v, kv_mask, bias, do, lse, delta, scale: float,
     when b0 = 1; summed over the heads by a torch op after it when h0 = 1, as
     JAX does (flash_attention.py:1250-1251)."""
     q, k, v, mask, dims = _cuda_args(q, k, v, kv_mask, window)
-    rows, bs, hs = _bias_args(bias, q, dims)[:3]
+    # the dbias kernels read contiguous rows (a learned bias lies so)
+    rows, bs, hs = _bias_args(bias.contiguous(), q, dims)[:3]
     _, do, lse = _bwd_operands(q, None, do, lse)
     delta = delta.float().contiguous()
     B, H, _, Sq, Sk, _ = dims

@@ -15,11 +15,13 @@ orientations (``int8_matmul`` and ``int8_matmul_t``). Quantization is JAX's,
 bit for bit after that transpose: symmetric round-to-nearest-even over +-127
 of the row's absmax (floored at 1e-8) / 127.
 
-The product: CPU tensors take ``int8_matmul_plain``; CUDA tensors launch the
+The product: CPU tensors take ``int8_matmul_plain``; CUDA tensors launch a
 hand-written kernel of ``csrc/int8_matmul.cu`` (the port of the Pallas
-``_int8_matmul_2d``), which reads the weight from device memory as int8 and
-converts each tile to bfloat16 on the chip, so no bfloat16 copy of a weight
-ever exists in device memory. A CUDA tensor never takes the plain version:
+``_int8_matmul_2d``; decode rows, M <= 80, take its decode kernel, which
+splits K over a thread-block cluster, and more rows its prompt kernel),
+which reads the weight from device memory as int8 and converts it to
+bfloat16 on the chip, so no bfloat16 copy of a weight ever exists in device
+memory. A CUDA tensor never takes the plain version:
 the kernel launches or the wrapper raises. Its launches are counted in
 ``int8_matmul.launches``. The TPU kernel pads both dims to 128; the CUDA
 kernel masks the ragged edge instead.
@@ -149,7 +151,8 @@ def _library():
 
 
 def _int8_matmul_cuda(x, q, scale, out_dtype):
-    """One launch of the int8 GEMM kernel on (M, K) bfloat16 x."""
+    """One launch of the int8 GEMM kernel on (M, K) bfloat16 x: the decode
+    kernel for M <= 80, the prompt kernel above."""
     if x.dtype != torch.bfloat16:
         raise TypeError(f"the int8 kernel takes bfloat16 x, got {x.dtype}")
     if out_dtype not in (torch.bfloat16, torch.float32):

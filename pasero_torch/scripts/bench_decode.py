@@ -525,10 +525,11 @@ def trace_profile(fn, path: str, kernel_names: tuple = ()) -> dict:
 
 # the port's kernels by a part of their names in a trace
 KERNELS = {"slot_write": "slot_write_kernel",
-           # flash:: the dense bias's, flash_bwd:: the bias-free and T5
-           # ones, flash_f32:: the float32 ones
+           # flash_bwd:: the bf16 ones of every bias kind, flash_f32:: the
+           # float32 ones
            "flash_fwd": "::fwd_kernel",
-           "int8_matmul": "int8_matmul_kernel",
+           # the decode kernel (M <= 80) and the prompt's
+           "int8_matmul": "int8mm::",
            "fused_head_partials": "partials_kernel",
            "fused_head_combine": "combine_kernel",
            "power_mel": "power_mel_kernel"}

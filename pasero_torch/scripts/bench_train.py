@@ -80,17 +80,15 @@ SHAPES = {"transformer": ("transformer", "translation", 0.1, 128, 128, 128,
 ATTENTION = {"bloom_560m": "flash", "t5_base": "flash"}
 # the port's kernels by a part of their names in a trace: the fused-CE
 # forward's product and merge and the backward's three products by their
-# epilogues, the dense-bias forward, dbias and demb (flash::), and
-# flash_bwd.cu's forward, dq and dk/dv by their first template argument, the
-# bias kind: 0 none, 1 a dense bias, 2 T5's table (the forward has no
-# dense-bias instance)
+# epilogues, dbias and demb (flash::), and flash_bwd.cu's forward, dq and
+# dk/dv by their first template argument, the bias kind: 0 none, 1 a dense
+# bias, 2 T5's table
 KERNELS = ("fused_ce::FwdEpilogue", "fused_ce::fwd_combine_kernel",
            "fused_ce::DlogitsEpilogue", "fused_ce::DwEpilogue",
-           "fused_ce::DxEpilogue", "flash::fwd_kernel",
-           "flash::dbias_kernel", "flash::demb_kernel") + tuple(
+           "fused_ce::DxEpilogue", "flash::dbias_kernel",
+           "flash::demb_kernel") + tuple(
                f"flash_bwd::{name}_kernel<{kind},"
-               for kind in (0, 1, 2) for name in ("fwd", "dq", "dkv")
-               if (name, kind) != ("fwd", 1))
+               for kind in (0, 1, 2) for name in ("fwd", "dq", "dkv"))
 
 
 class Workload:

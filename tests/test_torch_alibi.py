@@ -62,6 +62,24 @@ def test_alibi_bias_matches_jax(causal, max_bias):
     assert np.abs(np.asarray(want) - got.numpy()).max() <= 1e-6
 
 
+@pytest.mark.parametrize("causal", [True, False])
+def test_alibi_bias_rows_are_padded_for_the_kernels(causal):
+    """At 11 and 22 keys the bias's rows lie 12 and 24 floats apart, a
+    multiple of four (the flash kernels' TMA needs 16-byte rows), its
+    planes Sq rows apart, as the CUDA wrappers read it without a copy; the
+    values are JAX's."""
+    from pasero_torch.ops.flash_attention import _rows_apart
+    q_pos, _ = positions()
+    for k_pos, ld in ((q_pos, 12), (np.concatenate([q_pos - 3, q_pos], 1), 24)):
+        got = alibi_bias(5, torch.from_numpy(q_pos), torch.from_numpy(k_pos),
+                         causal=causal)
+        assert got.stride() == (5 * 11 * ld, 11 * ld, ld, 1)
+        assert _rows_apart(got) == ld
+        want = jax_positional.alibi_bias(5, jnp.asarray(q_pos),
+                                         jnp.asarray(k_pos), causal=causal)
+        np.testing.assert_array_equal(np.asarray(want), got.numpy())
+
+
 CASES = {   # (B, H, Hkv, S, D), causal, window, padded, bias (b0, h0)
     "shared_1x1": ((2, 4, 4, 40, 16), True, None, False, (1, 1)),
     "per_head_1xH": ((2, 4, 2, 40, 16), True, None, True, (1, 4)),

@@ -14,6 +14,7 @@ import torch
 
 from pasero_torch.ops.cache_update import (cache_slot_write_,
                                            cache_slot_write_plain)
+from pasero_torch.scripts.bench_int8 import int8_inputs
 
 
 def _need_card():
@@ -592,14 +593,29 @@ def test_flash_attention_pads_odd_head_dims(shape, causal, padded, kind):
 # outside it. The same limits reject a bias transposed (Sq <-> Sk), a bias
 # row taken from another head, dbias computed without delta, dbias with dS
 # rounded to bfloat16 before its sum, and a backward given another row's
-# lse.
+# lse. The forward's own mutations (a transposed bias, the next key tile's
+# bias, another head's bias rows, each read by out and by lse within
+# LSE_ATOL, and a dq given the forward's lse in log2 units) lie at
+# FWD_MUTANT_MIN or more of the limits.
 DBIAS_RTOL = 1e-4
+LSE_ATOL = 1e-4
+FWD_MUTANT_MIN = 2.8
+FWD_MUTANTS = ("transposed", "other_head", "next_key_tile", "lse_log2")
 FLASH_BIAS_SHAPES = [   # (B, H, Hkv, S, D), causal, window, padded, bias kind
     ((2, 8, 8, 256, 64), True, None, False, "alibi"),
     ((2, 8, 2, 300, 64), True, 64, True, "learned_1xH"),   # GQA 4, a window
     ((2, 4, 2, 77, 64), False, None, True, "Bx1"),         # 4-byte bias rows
     ((3, 4, 2, 45, 32), True, None, True, "1x1"),
     ((2, 4, 4, 200, 128), False, None, True, "encoder"),   # rows of only -1e9
+    # the forward's instances and paths: shared biases at D = 128, 4-byte
+    # rows (cp.async) under a window, more work items than 132 SMs
+    ((2, 4, 4, 200, 128), True, None, True, "1x1"),
+    ((2, 8, 8, 256, 128), True, None, False, "learned_1xH"),
+    ((1, 4, 2, 130, 64), True, 48, True, "learned_1xH"),
+    ((4, 8, 8, 640, 64), True, None, False, "alibi"),      # 160 items
+    # the model's ALiBi rows at a bucket's length, 143 keys padded to 144
+    # floats (TMA where Sk % 4 != 0), under a window
+    ((2, 8, 4, 143, 64), True, 32, True, "alibi"),
 ]
 
 
@@ -644,14 +660,16 @@ def flash_bias_compare(shape, causal, window, padded, kind) -> dict:
     """The biased kernels (forward, dq, dk/dv, dbias; one launch each)
     against the plain version on the same inputs at one shape, as
     ``flash_compare`` does, and the mutations the limits must reject, each
-    one launch more: a transposed bias (where the bias is not symmetric), a
-    bias rolled by one head (where it has a row per head), dbias without
+    one launch more: a forward of a transposed bias (where the bias is not
+    symmetric), of a bias rolled by one head (where it has a row per head)
+    and of the next key tile's bias (rolled by 64 keys), dbias without
     delta, dbias of the bias expanded to (B, H) with dS rounded to bfloat16
-    before its sum to the bias's shape, and a dq and dk/dv given another
-    row's lse; then dq and dk/dv once more on the same inputs. Returns the
-    lse error, the excess of out, dq, dk, dv and dbias over their limits, the
-    smallest excess of each mutation, whether the second backward gave the
-    same bits, and the max abs errors."""
+    before its sum to the bias's shape, a dq and dk/dv given another row's
+    lse and a dq given the forward's lse in log2 units; then the forward,
+    dq and dk/dv once more on the same inputs. Returns the lse error, the
+    excess of out, dq, dk, dv and dbias over their limits, the excess of
+    each mutation (a forward's over out's limits and LSE_ATOL, the larger),
+    whether the second calls gave the same bits, and the max abs errors."""
     from pasero_torch.ops.flash_attention import (_reduce_to, flash_bwd,
                                                   flash_bwd_dbias,
                                                   flash_bwd_dkv, flash_bwd_dq,
@@ -697,16 +715,24 @@ def flash_bias_compare(shape, causal, window, padded, kind) -> dict:
                                     *args, bias)
     mutants["other_lse"] = max(flash_excess(g, w, lim)
                                for g, w, lim in zip(bad, ref, limits[1:]))
+
+    def fwd_excess(bad_bias):
+        got, got_lse = flash_fwd(q, k, v, mask, *args, bad_bias)
+        return max(flash_excess(got, ref_out, limits[0], rows),
+                   (got_lse - ref_lse)[rows].abs().max().item() / LSE_ATOL)
+
     if kind not in ("alibi", "alibi16"):     # ALiBi's causal bias: symmetric
-        mutants["transposed"] = flash_excess(flash_fwd(
-            q, k, v, mask, *args, bias.transpose(-1, -2))[0], ref_out,
-            limits[0], rows)
+        mutants["transposed"] = fwd_excess(bias.transpose(-1, -2))
     if bias.shape[1] > 1:
-        mutants["other_head"] = flash_excess(flash_fwd(
-            q, k, v, mask, *args, bias.roll(1, 1))[0], ref_out, limits[0],
-            rows)
+        mutants["other_head"] = fwd_excess(bias.roll(1, 1))
+    mutants["next_key_tile"] = fwd_excess(bias.roll(-64, -1))
+    log2_dq, _ = flash_bwd_dq(q, k, v, mask, out, lse * math.log2(math.e),
+                              do, *args, bias)
+    mutants["lse_log2"] = flash_excess(log2_dq, ref[0], limits[1])
+    out2, lse2 = flash_fwd(q, k, v, mask, *args, bias)
     again = flash_bwd(q, k, v, mask, out, lse, do, *args, bias)
-    same_bits = all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again))
+    same_bits = torch.equal(out, out2) and torch.equal(lse, lse2) and all(
+        torch.equal(a, b) for a, b in zip((dq, dk, dv), again))
 
     def err(got, want, rows=None):
         diff = (got.float() - want.float()).abs()
@@ -724,8 +750,9 @@ def flash_bias_compare(shape, causal, window, padded, kind) -> dict:
 @pytest.mark.parametrize("shape,causal,window,padded,kind", FLASH_BIAS_SHAPES)
 def test_biased_flash_kernels_match_plain(shape, causal, window, padded,
                                           kind):
-    """out, dq, dk, dv and dbias within their limits, lse within 1e-4; each
-    mutation outside them; dq, dk and dv the same bits twice."""
+    """out, dq, dk, dv and dbias within their limits, lse within LSE_ATOL;
+    each mutation outside them, the forward's at FWD_MUTANT_MIN or more;
+    the forward, dq, dk and dv the same bits twice."""
     from pasero_torch.ops.flash_attention import launch_counts
     _need_card()
     names = ("flash_fwd_bias", "flash_bwd_dq_bias", "flash_bwd_dkv_bias",
@@ -734,12 +761,14 @@ def test_biased_flash_kernels_match_plain(shape, causal, window, padded,
     result = flash_bias_compare(shape, causal, window, padded, kind)
     after = launch_counts()
     mutants = result["mutants"]
-    fwd_mutants = ("transposed" in mutants) + ("other_head" in mutants)
+    forwards = [name for name in FWD_MUTANTS[:-1] if name in mutants]
     assert [after[n] - before[n] for n in names] == \
-        [1 + fwd_mutants, 3, 3, 3]
-    assert result["lse_err"] <= 1e-4
+        [2 + len(forwards), 4, 3, 3]
+    assert result["lse_err"] <= LSE_ATOL
     assert max(result["excess"]) <= 1.0, result["excess"]
     assert min(mutants.values()) > 1.0, mutants
+    assert min(mutants[n] for n in FWD_MUTANTS if n in mutants) >= \
+        FWD_MUTANT_MIN, mutants
     assert result["same_bits"]
 
 
@@ -1340,20 +1369,12 @@ INT8_SHAPES = [   # (M, K, N): llama_1b's decode, speculative and prompt rows
     for K, N in ((2048, 2048), (2048, 256), (2048, 5632), (5632, 2048),
                  (2048, 32000))]
 INT8_RAGGED = [(8, 256, 2192), (130, 48, 515)]
+# the decode kernel (M <= 80) and the switch to the prompt's (81): one row,
+# two n8 tiles, M = 80 and 81 at a narrow weight, and K whose 256-deep steps
+# (the last one cut short) the cluster's blocks split unevenly
+INT8_DECODE = [(M, 2048, 2048) for M in (1, 16)] + \
+    [(M, 2048, 256) for M in (80, 81)] + [(8, 2320, 768), (72, 1040, 300)]
 HEAD_SHAPES = [(N, 2048, 32000) for N in (8, 72, 1024)] + [(8, 256, 2192)]
-
-
-def int8_inputs(M, K, N, seed=0, device="cuda"):
-    """bf16 x (M, K) and a QTensor (N, K) whose rows span three decades of
-    magnitude, so that another row's scale is far off."""
-    from pasero_torch.ops.quantize import quantize
-    gen = torch.Generator(device=device).manual_seed(seed)
-    x = torch.randn(M, K, generator=gen, device=device).to(torch.bfloat16)
-    mag = torch.logspace(-2, 1, N, device=device)[
-        torch.randperm(N, generator=gen, device=device)]
-    w = torch.randn(N, K, generator=gen, device=device) * mag[:, None] \
-        * K ** -0.5
-    return x, quantize(w)
 
 
 def int8_limits(x, w, want, bf16_out: bool):
@@ -1371,7 +1392,8 @@ def int8_excess(got, want, limit) -> float:
 
 def int8_compare(M, K, N, out_dtype) -> dict:
     """One launch of the int8 kernel against int8_matmul_plain: the excess
-    over the limits, and that of a rolled scale and of a one-column shift."""
+    over the limits, that of a rolled scale and of a one-column shift, and
+    whether a second launch gave the same bits."""
     from pasero_torch.ops.quantize import (QTensor, dequantize, int8_matmul,
                                            int8_matmul_plain)
     x, t = int8_inputs(M, K, N)
@@ -1379,8 +1401,10 @@ def int8_compare(M, K, N, out_dtype) -> dict:
     want = int8_matmul_plain(x, t.q, t.scale, torch.float32)
     limit = int8_limits(x, dequantize(t), want, out_dtype == torch.bfloat16)
     bad = int8_matmul(x, QTensor(t.q, t.scale.roll(1)), out_dtype)
+    again = int8_matmul(x, t, out_dtype)
     torch.cuda.synchronize()
     return {"excess": int8_excess(got, want, limit),
+            "same_bits": torch.equal(got, again),
             "bad_scale_excess": int8_excess(bad, want, limit),
             "shift_excess": int8_excess(got[:, 1:], want[:, :-1],
                                         limit[:, :-1]),
@@ -1422,16 +1446,17 @@ def head_compare(N, E, V, q8: bool) -> dict:
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", INT8_SHAPES + INT8_RAGGED)
+@pytest.mark.parametrize("shape", INT8_SHAPES + INT8_RAGGED + INT8_DECODE)
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
 def test_int8_matmul_matches_plain(shape, out_dtype):
     from pasero_torch.ops.quantize import int8_matmul
     _need_card()
     before = int8_matmul.launches
     r = int8_compare(*shape, out_dtype)
-    assert int8_matmul.launches == before + 2
+    assert int8_matmul.launches == before + 3
     assert r["excess"] <= 1.0, r
     assert r["bad_scale_excess"] > 1.0 and r["shift_excess"] > 1.0, r
+    assert r["same_bits"], r
 
 
 @pytest.mark.cuda

@@ -190,3 +190,20 @@ def test_int8_kernel_wrapper_refuses_what_it_does_not_take():
     with pytest.raises(ValueError):
         tq.int8_matmul(torch.zeros(4, 40, device="meta"), t)
     assert tq.int8_matmul.launches == before
+
+
+def test_bench_int8_weights_are_llama_1b_decode_weights():
+    """The int8 timing script's decoder call (pasero_torch/scripts/
+    bench_int8.py) sums llama_1b's Linear weights as quantize_params picks
+    them: per layer q, k, v, o, gate, up and down, and the untied head over
+    bench_decode's 32000-word vocabulary, each as (K, N)."""
+    from pasero_torch.config import get_model_cls
+    from pasero_torch.scripts.bench_decode import LMWorkload
+    from pasero_torch.scripts.bench_int8 import LAYERS, LLAMA_1B_WEIGHTS
+    cfg = get_model_cls("llama_1b")[1]()
+    E, F, L = cfg.embed_dim, cfg.decoder_ffn_dim, cfg.decoder_layers
+    kv = cfg.attention_heads_kv * E // cfg.decoder_attention_heads
+    assert not cfg.tied_output_projection and LAYERS == L
+    assert LLAMA_1B_WEIGHTS == {(E, E): 2 * L, (E, kv): 2 * L, (E, F): 2 * L,
+                                (F, E): L, (E, LMWorkload.VOCAB): 1}
+    assert min(K * N for K, N in LLAMA_1B_WEIGHTS) >= 1 << 16
