@@ -86,7 +86,11 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    head) at M = 8 and 72, cold; at M = 8 each shape and the decoder call
    at most their library calls, and the head at most
    INT8_HEAD_EARLIER_MS, the time of the kernel the decode kernel
-   replaced (a gate only);
+   replaced (a gate only); the prompt kernel (M > 80, wgmma fed by TMA) at
+   every INT8_PROMPT case of tests/test_torch_cuda.py, and at M = 1024 each
+   shape at most INT8_PROMPT_EARLIER_MS, the cold time of the mma.sync
+   kernel it replaced (a gate only), the prompt's sum (154 weights and the
+   head) beside F.linear's and the bound;
 11. full-width decoder-only serving: llama_1b with seeded weights at
    scripts/bench_1b.py --decode's shape (8 copy prompts of 128 tokens, 64 new
    tokens, drafts of 8) through scripts/bench_decode.py's workload in five
@@ -160,24 +164,30 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    up to 128 tokens (64 new, greedy) with one slot-write launch per layer
    per single-token decoder call;
 18. the T5 flash kernels (forward, dq and dk/dv with T5's (32, H) table and
-   its distance index; demb, the table's gradient) against their plain
+   its distance index; demb, the table's gradient, which the T5 dq kernel
+   sums from its own float32 dS) against their plain
    version on the card, within the error model of tests/test_torch_cuda.py
    (``flash_t5_compare``): t5_base's encoder (32 x 12 heads x 512 x 64,
    bidirectional, key padding) and decoder (32 x 12 x 128 x 64, causal)
    shapes, GQA 4 with a window at head dim 128, an unaligned length and
-   32768 keys; the direction flipped, another head's column, the distances
+   32768 keys, head dim 32 with tiles whose distances share one bucket; the
+   direction flipped, another head's column, the distances
    shifted by one, demb without delta, demb of dS rounded to bf16 and a
-   backward given another row's lse rejected, dq, dk and dv the same bits
-   from two calls; at t5_base's encoder shape and at (1, 12, 32768, 64)
+   backward given another row's lse rejected, dq, dk, dv and demb the same
+   bits from two calls, the dq without demb the same bits as with it; at
+   t5_base's encoder shape and at (1, 12, 32768, 64)
    each kernel's device time (CUDA graph; the forward, dq and dk/dv by
    pasero_torch/scripts/bench_flash_bwd.py's time_case, the bias-free ones
    beside) beside the plain version's, its bound, the library yardstick
-   (SDPA with the materialized bias as a float attn_mask; for demb its
-   mask's gradient and index_add_ by bucket; from CUDA graphs, eager
-   beside), "does not fit" where an (Sq, Sk) tensor does not, the forward
+   (SDPA with the materialized bias as a float attn_mask; for demb, the
+   dq kernel's instance that sums it, its mask's gradient and index_add_
+   by bucket; from CUDA graphs, eager beside), what demb adds to the dq
+   kernel beside that increment's own bound, "does not fit" where an (Sq, Sk) tensor does not, the forward
    and the backward at most their library call at the encoder's shape and
    at most the times of the kernels flash_bwd.cu's replaced at 32768 keys
-   (T5_FWD_EARLIER_MS, T5_BWD_EARLIER_MS, gates only), and the peak memory
+   (T5_FWD_EARLIER_MS, T5_BWD_EARLIER_MS, gates only), the dq with demb
+   below the dq and demb kernels it replaced together
+   (T5_DQ_DEMB_EARLIER_MS, a gate only), and the peak memory
    of forward + backward; the T5 forward at t5_base's decoder shape (32 x
    12 x 128 x 64, causal) beside its library call; the bias-free kernels at JAX's streamed lengths, (1, 32,
    32768, 128) causal: one head against the plain version, the same bits
@@ -189,7 +199,7 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    test.de against the JAX outputs, the encoder through flash_fwd_t5;
    python -m pasero_torch.cli.train on pasero_torch/testdata/t5_mini.yaml
    against the JAX losses with exact launch counts (the T5 kernels per
-   self-attention, demb per table, the bias-free kernels per
+   self-attention, the dq kernel's demb instance per table, the bias-free kernels per
    cross-attention, no dbias); t5_base at full width with seeded weights
    and T5's vocabulary of 32128: Trainer.train_step at 32 x 512 source and
    128 target tokens with the same exact counts per step and its peak
@@ -237,6 +247,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # time_ms, bench_int8's eager_ms, come from pasero_torch/scripts/bench_int8.py
 # once main has found the package
 FP32_FLOPS = 67e12          # H100 SXM fp32 outside the tensor cores
+FP32_ADDS = FP32_FLOPS / 2  # an add takes an FMA's slot, counted as 2 flops
 GOLDEN = os.path.join(ROOT, "pasero_torch", "testdata",
                       "deen_mini2_test_beam5.jax.txt")
 MIN_GOLDEN_MATCH = 57
@@ -1228,6 +1239,13 @@ def phase9() -> dict:
 # decode kernel (PERF.md, "NVIDIA H100 80GB HBM3, 700.00 W"): a gate, not a
 # reading of this run
 INT8_HEAD_EARLIER_MS = 0.0343
+# the int8 kernel's device ms per call at M = 1024 (a prompt), cold, before
+# the wgmma prompt kernel (PERF.md; (2048, 256) and (5632, 2048) from
+# bench_int8.py run from the parent checkout), "NVIDIA H100 80GB HBM3, 700.00
+# W": gates, not readings of this run
+INT8_PROMPT_EARLIER_MS = {(2048, 2048): 0.0615, (2048, 256): 0.0395,
+                          (2048, 5632): 0.16173, (5632, 2048): 0.1496,
+                          (2048, 32000): 0.8154}
 
 
 def phase10() -> dict:
@@ -1244,7 +1262,7 @@ def phase10() -> dict:
            "fused_head_argmax": {"max_abs_err": 0.0, "by_shape": []},
            "fused_head_argmax_q8": {"max_abs_err": 0.0, "by_shape": []}}
     for shape in (cuda_tests.INT8_SHAPES + cuda_tests.INT8_RAGGED
-                  + cuda_tests.INT8_DECODE):
+                  + cuda_tests.INT8_DECODE + cuda_tests.INT8_PROMPT):
         for out_dtype in (torch.bfloat16, torch.float32):
             r = cuda_tests.int8_compare(*shape, out_dtype)
             check(r["excess"] <= 1.0, f"int8_matmul differs at {shape} "
@@ -1300,15 +1318,18 @@ def phase10() -> dict:
                 check(r["ms"] <= r["library_ms"], f"the int8 kernel's median "
                       f"is {r['ms']:.5f} ms at {r['shape']} cold, more than "
                       f"F.linear's {r['library_ms']:.5f}")
+            if M == 1024:
+                earlier = INT8_PROMPT_EARLIER_MS[(K, N)]
+                check(r["ms"] <= earlier, f"the int8 prompt kernel's median "
+                      f"is {r['ms']:.5f} ms at {r['shape']} cold, more than "
+                      f"the {earlier} ms of the kernel it replaced")
         res["int8_matmul"]["by_shape"] += timed
-        if M <= 80:
-            call = res["int8_matmul"][f"decoder_call_{M}"] = \
-                decoder_call(timed)
-            log(f"phase 10: int8_matmul over one llama_1b decoder call "
-                f"({call['layer_weights']} weights and the head) at M = {M}, "
-                f"cold: "
-                f"kernel {call['ms']:.4f} ms, library {call['library_ms']:.4f}"
-                f", bound {call['bound_ms']:.4f}")
+        call = res["int8_matmul"][f"decoder_call_{M}"] = decoder_call(timed)
+        log(f"phase 10: int8_matmul over one llama_1b decoder call "
+            f"({call['layer_weights']} weights and the head) at M = {M}"
+            f"{' (the prompt)' if M > 80 else ''}, cold: "
+            f"kernel {call['ms']:.4f} ms, library {call['library_ms']:.4f}"
+            f", bound {call['bound_ms']:.4f}")
         if M == 8:
             check(call["ms"] <= call["library_ms"], f"the int8 kernel takes "
                   f"{call['ms']:.4f} ms over a decoder call, more than "
@@ -2248,6 +2269,7 @@ FLASH_T5_SHAPES = [  # (B, H, Hkv, S, D), causal, window, padded, bidirectional
     ((2, 16, 4, 777, 128), True, 256, True, True),      # GQA 4, a window
     ((3, 4, 2, 333, 64), False, None, True, False),     # unaligned
     ((1, 1, 1, 32768, 64), False, None, False, True),   # 32768 keys
+    ((2, 8, 4, 1500, 32), False, None, True, True),     # D 32, far tiles
 ]
 T5_TIMED = ((32, 12, 12, 512, 64), (1, 12, 12, 32768, 64))  # bidirectional
 T5_DECODER = (32, 12, 12, 128, 64)   # t5_base's decoder, causal
@@ -2258,6 +2280,12 @@ T5_DECODER = (32, 12, 12, 128, 64)   # t5_base's decoder, causal
 T5_BWD_EARLIER_MS = {T5_TIMED[0]: {"dq": 0.4265, "dkv": 0.4693},
                      T5_TIMED[1]: {"dq": 41.7062, "dkv": 55.8098}}
 T5_FWD_EARLIER_MS = {T5_TIMED[1]: 23.4549}
+# device ms per call of the T5 dq kernel plus the separate mma.sync demb
+# kernel that the dq kernel's own demb replaced, at T5_TIMED's shapes
+# (PERF.md, "NVIDIA H100 80GB HBM3, 700.00 W"): gates, not readings of
+# this run
+T5_DQ_DEMB_EARLIER_MS = {T5_TIMED[0]: 0.1467 + 0.6203,
+                         T5_TIMED[1]: 11.18 + 74.79}
 LONG = (1, 32, 32, 32768, 128)   # JAX's streamed regime, bias-free, causal
 
 
@@ -2306,7 +2334,15 @@ def flash_t5_timing(shape, cuda_tests) -> dict:
     once), and the library yardstick: F.scaled_dot_product_attention with
     the materialized bias as a bf16 float attn_mask, its backward, and for
     demb its backward with the mask's gradient followed by index_add_ of
-    that gradient by bucket. The plain version and the yardstick need (Sq,
+    that gradient by bucket. demb is the T5 dq kernel's instance that also
+    sums the table's gradient: its "ms" is that kernel's, read in turn with
+    the same kernel without demb ("dq_ms"); its bound is the dq's three
+    products and bytes, the partial rows' bytes and one float32 add of each
+    visible dS (at FP32_ADDS); its plain version the plain backward and
+    demb; "adds_ms" (the difference) is what demb adds to the dq kernel,
+    beside its own bound "adds_bound_ms" (the adds and the partial rows'
+    bytes). The fused kernel below the dq and demb kernels it replaced
+    (T5_DQ_DEMB_EARLIER_MS). The plain version and the yardstick need (Sq,
     Sk) tensors: "does not fit" where they do not. The forward and the
     backward at most their library call, or where it does not fit the
     kernels they replaced (T5_FWD_EARLIER_MS, T5_BWD_EARLIER_MS). Also the
@@ -2315,12 +2351,11 @@ def flash_t5_timing(shape, cuda_tests) -> dict:
     import torch
     import torch.nn.functional as F
     from pasero_torch.ops.flash_attention import (T5Bias, flash_attention,
-                                                  flash_bwd_demb,
-                                                  flash_bwd_dkv, flash_bwd_dq,
+                                                  flash_bwd_dq,
                                                   flash_bwd_plain,
                                                   flash_demb_plain, flash_fwd,
                                                   flash_fwd_plain, visible)
-    from pasero_torch.scripts.bench_flash_bwd import time_case
+    from pasero_torch.scripts.bench_flash_bwd import time_case, time_demb
     B, H, Hkv, S, D = shape
     q, k, v, do, mask = cuda_tests.flash_inputs(B, H, Hkv, S, D, False)
     t5 = T5Bias(cuda_tests.t5_table(H), True)
@@ -2332,9 +2367,10 @@ def flash_t5_timing(shape, cuda_tests) -> dict:
     q_bytes, kv_bytes, row_bytes = B * H * S * D * 2, B * Hkv * S * D * 2, \
         B * H * S * 4
     t5_bytes = 4 * (2 * S - 1) + 4 * 32 * H
+    partial_bytes = 4 * B * H * -(-S // 64) * t5.num_buckets
 
-    def bound(products, nbytes):
-        ops, mem = products * product / BF16_FLOPS, \
+    def bound(products, nbytes, adds=0.0):
+        ops, mem = max(products * product / BF16_FLOPS, adds / FP32_ADDS), \
             (nbytes + t5_bytes) / HBM_BYTES_PER_S
         return {"bound_ms": max(ops, mem) * 1e3,
                 "ops_bound_ms": ops * 1e3, "bytes_bound_ms": mem * 1e3,
@@ -2345,11 +2381,23 @@ def flash_t5_timing(shape, cuda_tests) -> dict:
            "bwd": bound(5, 4 * q_bytes + 4 * kv_bytes + row_bytes),
            "dq": bound(3, 4 * q_bytes + 2 * kv_bytes + 2 * row_bytes),
            "dkv": bound(4, 2 * q_bytes + 4 * kv_bytes + 2 * row_bytes),
-           "demb": bound(2, 2 * q_bytes + 2 * kv_bytes + 2 * row_bytes)}
+           "demb": bound(3, 4 * q_bytes + 2 * kv_bytes + 2 * row_bytes +
+                         partial_bytes, pairs)}
     long = S > 4096
-    res["demb"]["ms"] = device_ms(
-        lambda: flash_bwd_demb(q, k, v, mask, t5, do, lse, delta, *args),
-        iters=2 if long else 10, replays=2 if long else 5)
+    fused = time_demb(shape)
+    res["demb"].update(ms=fused["fused_ms"], dq_ms=fused["dq_ms"],
+                       adds_ms=fused["fused_ms"] - fused["dq_ms"],
+                       adds_bound_ms=max(pairs / FP32_ADDS, partial_bytes /
+                                         HBM_BYTES_PER_S) * 1e3)
+    earlier = T5_DQ_DEMB_EARLIER_MS[tuple(shape)]
+    check(fused["fused_ms"] < earlier, f"the T5 dq kernel with demb takes "
+          f"{fused['fused_ms']:.4f} ms at {shape}, not below the "
+          f"{earlier:.4f} of the dq and demb kernels it replaced")
+    log(f"phase 18: at {shape} the T5 dq kernel with demb "
+        f"{fused['fused_ms']:.4f} ms, without it {fused['dq_ms']:.4f} (read "
+        f"in turn, so demb adds {res['demb']['adds_ms']:.4f}, bound "
+        f"{res['demb']['adds_bound_ms']:.4f}); the dq and demb kernels it "
+        f"replaced {earlier:.4f}")
     timed = time_case(shape, False, "t5")
     for key in ("fwd", "dq", "dkv"):
         res[key]["ms"] = timed["t5"][key]
@@ -2362,8 +2410,10 @@ def flash_t5_timing(shape, cuda_tests) -> dict:
                                                     t5)),
                     ("bwd", lambda: flash_bwd_plain(q, k, v, mask, out, lse,
                                                     do, *args, t5)),
-                    ("demb", lambda: flash_demb_plain(q, k, v, mask, out,
-                                                      lse, do, *args, t5))):
+                    ("demb", lambda: (flash_bwd_plain(q, k, v, mask, out,
+                                                      lse, do, *args, t5),
+                                      flash_demb_plain(q, k, v, mask, out,
+                                                       lse, do, *args, t5)))):
         res[key]["plain_ms"] = time_ms(fn, 3, 1) if plain else nofit
     # the library yardstick; the port never calls it
     bias_bytes = 2.0 * H * S * S
@@ -2557,9 +2607,10 @@ T5_TRAIN_GOLDEN = os.path.join(TESTDATA, "t5_mini_train20.jax.json")
 def t5_train_counts(enc_layers: int, dec_layers: int, micro: int,
                     valid: int, f32: bool = False) -> dict:
     """The launches of T5 training: the T5 kernels in every self-attention
-    (demb for each table's gradient), the bias-free kernels in every
-    cross-attention, no dbias, no dense-bias kernel; with ``f32`` their
-    float32 instances, and no bf16 flash kernel."""
+    (in bf16 the dq kernel's instance that sums each table's gradient,
+    flash_bwd_dq_t5_demb; in float32 the demb kernel per table), the bias-free kernels in every cross-attention, no
+    dbias, no dense-bias kernel; with ``f32`` their float32 instances, and
+    no bf16 flash kernel."""
     layers = enc_layers + dec_layers
     return flash_counts({"flash_fwd": dec_layers * (micro + valid),
                          "flash_bwd_dq": dec_layers * micro,
@@ -2567,7 +2618,8 @@ def t5_train_counts(enc_layers: int, dec_layers: int, micro: int,
                          "flash_fwd_t5": layers * (micro + valid),
                          "flash_bwd_dq_t5": layers * micro,
                          "flash_bwd_dkv_t5": layers * micro,
-                         "flash_bwd_demb": layers * micro,
+                         "flash_bwd_dq_t5_demb": 0 if f32 else layers * micro,
+                         "flash_bwd_demb": layers * micro if f32 else 0,
                          "fused_ce_fwd": micro + valid,
                          "fused_ce_bwd": micro}, f32)
 
@@ -3259,22 +3311,25 @@ def main():
     # the T5 kernels: launches of phase 19's T5 training CLI and of
     # t5_base's full-width steps; numbers at t5_base's encoder shape, then
     # at 32768 keys; dq and dk/dv are flash_bwd.cu's T5_BIAS instances, with
-    # the bias-free ones' times at the same shapes beside
+    # the bias-free ones' times at the same shapes beside; demb is the T5 dq
+    # kernel's instance that also sums the table's gradient (its own
+    # launches, time, bound, plain version and library call; what it adds
+    # to the dq kernel beside, with that increment's own bound)
     for name, key, line, body in (
             ("flash_fwd_t5", "fwd", 544, 474),
             ("flash_bwd_dq_t5", "dq", 738, 618),
             ("flash_bwd_dkv_t5", "dkv", 738, 676),
-            ("flash_bwd_demb", "demb", 1318, 1255)):
+            ("flash_bwd_dq_t5_demb", "demb", 1318, 1255)):
         own = t5[key]
+        counted = name
         entry = {
             "name": name,
             "route": "cuda",
-            "source": ("pasero_torch/csrc/flash_attention.cu" if key == "demb"
-                       else "pasero_torch/csrc/flash_bwd.cu"),
+            "source": "pasero_torch/csrc/flash_bwd.cu",
             "replaces": f"pasero_tpu/ops/flash_attention.py:{line}",
             "kernel_body": f"pasero_tpu/ops/flash_attention.py:{body}",
-            "launches": t5_paths["cli"]["launches"][name],
-            "full_width_launches": t5_paths["train"]["launches"][name],
+            "launches": t5_paths["cli"]["launches"][counted],
+            "full_width_launches": t5_paths["train"]["launches"][counted],
             "max_abs_err": own["max_abs_err"],
             "ms": own["ms"],
             "plain_ms": own["plain_ms"],
@@ -3295,6 +3350,10 @@ def main():
             entry["bias_free_ms"] = t5["bias_free"][key]
             entry["at_32768"]["bias_free_ms"] = \
                 t5["at_32768"]["bias_free"][key]
+        if key == "demb":
+            for k in ("dq_ms", "adds_ms", "adds_bound_ms"):
+                entry[k] = own[k]
+                entry["at_32768"][k] = t5["at_32768"]["demb"][k]
         if key == "fwd":
             entry["decode_launches"] = t5_paths["decode"]["flash_fwd_t5"]
             entry["bias_free_ms"] = t5["bias_free"]["fwd"]

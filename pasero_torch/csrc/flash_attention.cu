@@ -1,24 +1,22 @@
-// The backward's gradients of flash attention's additive biases, for grouped
-// K/V heads: of a dense float32 bias (dbias) and of T5's relative-position
-// table (demb), from the scores
+// The backward's gradient of flash attention's dense additive bias (dbias),
+// for grouped K/V heads, from the scores
 //
 //   s[i, j]  = scale * sum_d q[b, h, i, d] * k[b, h / G, j, d]     (fp32)
-//              + bias[b, h, i, j]                      (float32, dbias)
-//              + table[index[j - i + Sq - 1], h]        (float32, demb)
+//              + bias[b, h, i, j]                               (float32)
 //   p[i, j]  = exp(s[i, j] - lse[i]) where key j is visible from row i, else 0
 //
 // with G = H / Hkv query heads per K/V head. Key j is visible from row i when
 // kv_mask[b, j] is set, j <= i (causal, slot indices) and i - j < window (a
-// sliding window), as pasero_tpu/ops/flash_attention.py applies them. They
-// take dO, the forward's lse and delta = sum_d dO[i, d] * out[i, d] (both
+// sliding window), as pasero_tpu/ops/flash_attention.py applies them. It
+// takes dO, the forward's lse and delta = sum_d dO[i, d] * out[i, d] (both
 // written by flash_bwd.cu's forward and dq kernels of the same bias):
 //
 //   dS[i, j] = p[i, j] * (dO[i] . v[j] - delta[i])
 //   dbias[i, j] = dS[i, j], unrounded fp32, 0 where key j is not visible
-//   demb[n, h]  = sum over b and the (i, j) of bucket n of dS[b, h, i, j]
 //
 // The forward and dq and dk/dv of every bias kind are flash_bwd.cu's wgmma
-// kernels; the float32 kernels of every kind are flash_f32.cu's.
+// kernels, and so is the T5 table's gradient (demb), which the T5 dq kernel
+// sums from its own dS; the float32 kernels of every kind are flash_f32.cu's.
 //
 // The bias is (b0 h0, Sq, Sk) rows with b0 in {1, B} and h0 in {1, H}; the
 // row of (b, h) is b bs + h hs (bias_row), so a shared bias is never
@@ -27,35 +25,13 @@
 // near the encoder ALiBi's -1e9 has an ulp of 64 there, so a change of base
 // before the subtraction would lose it.
 //
-// demb takes the (nb, H) float32 table and the bucket of every key-query
-// distance, an int32 index of Sq + Sk - 1 entries computed on the host with
-// JAX's float32 log (pasero_torch/models/positional.py), so no transcendental
-// decides a bucket here and the direction (bidirectional or not) lives in
-// the index. Per (query tile, key tile) a block stages its head's table
-// column and the tile's bias by diagonal, R + C - 1 floats (t5_diagonals),
-// and adds it to the score as a dense bias tile is added, in natural units.
-// JAX computes the bucket inside the kernel from block position iotas
-// (_t5_tile, :124; _t5_bucket, :140); the slots are positions, as there
-// (right-padded rows).
-//
-// Kernels and the TPU kernels they replace:
+// The kernel and the TPU kernel it replaces:
 //   dbias_kernel   _dbias_kernel (:1160, through _compute_dbias, :1213): one
 //                  block per (64-row query tile, output row); a bias shared
 //                  over the batch is summed over it inside the block, batch
-//                  by batch, so the sum is deterministic without atomics;
-//   demb_kernel    _demb_kernel (:1255, through _compute_demb, :1318): one
-//                  block per (64-row query tile, batch, head) recomputes P
-//                  and dP over its key tiles, writes dS of a tile to shared
-//                  memory, sums it by diagonal (one thread per distance,
-//                  rows in order), then by bucket (one thread per bucket,
-//                  distances in order, held in a register across the key
-//                  tiles), and writes one row of nb partial sums; the
-//                  wrapper sums the rows. No atomics, so the same inputs
-//                  give the same bits, and a far tile, whose 127 distances
-//                  share one bucket, costs its bucket's thread 127 adds, not
-//                  4096 contended ones.
+//                  by batch, so the sum is deterministic without atomics.
 //
-// What bounds them: operations, and with a per-sample bias bytes. Each
+// What bounds it: operations, and with a per-sample bias bytes. It
 // recomputes two products (QK^T, dO V^T): at B = 4, H = 16, S = 2048, D = 64
 // causal 34.4 GFLOP, 0.0348 ms at 989 TFLOP/s (bf16 dense); with a
 // per-sample bias its visible causal half is 537 MB (0.160 ms at 3.35 TB/s)
@@ -69,15 +45,13 @@
 // while the tensor cores work on this one (two stages); products on the
 // tensor cores with mma.sync m16n8k16 (bf16 in, fp32 accumulation). The
 // score tiles of a warp stay in registers. Causal key tiles past the
-// diagonal, and tiles below a sliding window, are skipped (dbias writes
-// them as zeros once); ragged edges are zero-filled by the copies and
-// masked. What holds them back: mma.sync instead of wgmma, 64-row tiles
-// whose K/V are read from L2 once per query tile and head, two pipeline
-// stages; flash_bwd.cu's kernels show the wgmma design these would take.
-// demb adds its diagonal and bucket sums in shared memory.
+// diagonal, and tiles below a sliding window, are skipped (written as zeros
+// once); ragged edges are zero-filled by the copies and masked. What holds
+// it back: mma.sync instead of wgmma, 64-row tiles whose K/V are read from
+// L2 once per query tile and head, two pipeline stages; flash_bwd.cu's
+// kernels show the wgmma design it would take.
 
 #include <cuda_bf16.h>
-#include <algorithm>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -94,10 +68,6 @@ constexpr float LOG2E = 1.4426950408889634f;
 // key) tile read as float2 pairs along a score row (rows 8 banks apart),
 // 16-byte rows
 constexpr int LDB = BN + 8;
-constexpr int MAX_BUCKETS = 128;   // one thread per bucket in demb_kernel
-
-// What the scores get added: nothing, a dense float32 bias, or T5's table.
-enum BiasKind : int { NO_BIAS = 0, DENSE_BIAS = 1, T5_BIAS = 2 };
 
 __device__ inline uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -177,25 +147,6 @@ __device__ inline void load_bias_tile(float* dst, const float* __restrict__ src,
 __device__ inline const float* bias_row(const float* bias, int b, int h, int bs, int hs,
                                         int Sq, int Sk) {
   return bias + ((int64_t)b * bs + (int64_t)h * hs) * Sq * Sk;
-}
-
-// The T5 bias of an (R-row, C-column) tile by diagonal: Bd[c - r + R - 1] for
-// tile row r and column c is table[index[k - q + Sq - 1], h] of query q0 + r
-// and key k0 + c, from the head's table column ``col`` in shared memory; 0
-// where the distance falls outside the index (a slot past Sq or Sk, masked
-// anyway). With ``bucket`` the bucket ids by diagonal too (-1 outside).
-// Plain loads and stores: the caller synchronises before reading.
-template <int R, int C>
-__device__ inline void t5_diagonals(float* Bd, int* bucket, const float* col,
-                                    const int* __restrict__ index, int q0, int k0, int Sq,
-                                    int Sk) {
-  const int base = k0 - q0 - (R - 1) + Sq - 1;
-  for (int t = threadIdx.x; t < R + C - 1; t += THREADS) {
-    const int g = base + t;
-    const int n = g >= 0 && g < Sq + Sk - 1 ? index[g] : -1;
-    Bd[t] = n >= 0 ? col[n] : 0.f;
-    if (bucket) bucket[t] = n;
-  }
 }
 
 // s[16 x 8 NT] = A[16 x D] . B[8 NT x D]^T for one warp: A's 16 rows and B's
@@ -346,126 +297,6 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-// -- backward: the T5 table's gradient -----------------------------------------
-
-// demb[n, h] = sum over b and the (i, j) of bucket n of dS = P (dP - delta),
-// fp32, 0 where a key is not visible. One block per (64-row query tile,
-// batch b, head h) loops over its live key tiles: each tile's dS goes to
-// shared memory, thread t sums diagonal t (rows in order), then thread n
-// adds the diagonals of bucket n (in order) to its register; the block
-// writes its nb sums to partial[((b H + h) tiles + query tile) nb + n]. The
-// order of every sum is fixed, so the result is deterministic.
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-    demb_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, const uint8_t* __restrict__ kv_mask,
-                const float* __restrict__ t5_table, const int* __restrict__ t5_index, int nb,
-                const bf16* __restrict__ dout, const float* __restrict__ lse,
-                const float* __restrict__ delta, float* __restrict__ partial, int H, int Hkv,
-                int Sq, int Sk, float scale, int causal, int window) {
-  constexpr int LD = D + 8;
-  constexpr int NT = BN / 8;
-  constexpr int ND = BM + BN - 1;   // diagonals of a tile
-  constexpr int LDS = BN + 1;       // the dS tile's rows, 1 bank apart
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* dOs = Qs + BM * LD;
-  bf16* Ks = dOs + BM * LD;      // [2][BN][LD]
-  bf16* Vs = Ks + 2 * BN * LD;   // [2][BN][LD]
-  float* dS = reinterpret_cast<float*>(Vs + 2 * BN * LD);   // [BM][LDS]
-  float* Bd = dS + BM * LDS;     // [ND] the tile's bias by diagonal
-  float* Dd = Bd + ND;           // [ND] the tile's dS summed by diagonal
-  int* Bi = reinterpret_cast<int*>(Dd + ND);                // [ND] bucket by diagonal
-  float* Tc = reinterpret_cast<float*>(Bi + ND);            // [nb] the head's column
-
-  const int q0 = blockIdx.x * BM;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int hk = h / (H / Hkv);
-  const int64_t q_off = (int64_t)bh * Sq * D;
-  const int64_t kv_off = ((int64_t)b * Hkv + hk) * Sk * D;
-  const bf16* kg = k + kv_off;
-  const bf16* vg = v + kv_off;
-  const uint8_t* mg = kv_mask + (int64_t)b * Sk;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int row0 = q0 + warp * 16 + lane / 4;
-  const int tcol = 2 * (lane % 4);
-
-  int kt0 = 0, kt1 = (Sk + BN - 1) / BN;
-  if (causal) kt1 = min(kt1, (q0 + BM - 1) / BN + 1);
-  if (window > 0) kt0 = max(0, (q0 - window + 1) / BN);
-
-  auto load_kv = [&](int kt, int stage) {
-    load_tile<D, BN>(Ks + stage * BN * LD, kg, kt * BN, Sk);
-    load_tile<D, BN>(Vs + stage * BN * LD, vg, kt * BN, Sk);
-  };
-  load_tile<D, BM>(Qs, q + q_off, q0, Sq);
-  load_tile<D, BM>(dOs, dout + q_off, q0, Sq);
-  if (kt0 < kt1) load_kv(kt0, 0);
-  cp_async_commit();
-  for (int t = threadIdx.x; t < nb; t += THREADS) Tc[t] = t5_table[t * H + h];
-  __syncthreads();
-
-  float lse_r[2], dl[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + r * 8;
-    lse_r[r] = row < Sq ? lse[(int64_t)bh * Sq + row] : 0.f;
-    dl[r] = row < Sq ? delta[(int64_t)bh * Sq + row] : 0.f;
-  }
-  float acc = 0.f;   // bucket threadIdx.x's sum (threads below nb)
-
-  for (int kt = kt0; kt < kt1; ++kt) {
-    const int st = (kt - kt0) & 1;
-    if (kt + 1 < kt1) {
-      load_kv(kt + 1, st ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    t5_diagonals<BM, BN>(Bd, Bi, Tc, t5_index, q0, kt * BN, Sq, Sk);
-    __syncthreads();
-
-    float s[NT][4], dp[NT][4];
-    warp_abt<D, NT>(s, Qs + warp * 16 * LD, Ks + st * BN * LD, lane);
-    warp_abt<D, NT>(dp, dOs + warp * 16 * LD, Vs + st * BN * LD, lane);
-    const int k0 = kt * BN;
-    const float* Dt = Bd + tcol - (warp * 16 + lane / 4) + BM - 1;
-    float* St = dS + (warp * 16 + lane / 4) * LDS + tcol;
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const int row = row0 + r * 8, col = k0 + j * 8 + tcol + (e & 1);
-        float ds = 0.f;
-        if (row < Sq && visible(row, col, Sk, mg, causal, window))
-          ds = exp2f((s[j][e] * scale + Dt[j * 8 + (e & 1) - r * 8] - lse_r[r]) * LOG2E) *
-               (dp[j][e] - dl[r]);
-        St[r * 8 * LDS + j * 8 + (e & 1)] = ds;
-      }
-    __syncthreads();
-    // diagonal t holds the (row, col = row + t - (BM - 1)) of the tile
-    for (int t = threadIdx.x; t < ND; t += THREADS) {
-      const int r_lo = max(0, BM - 1 - t), r_hi = min(BM, BM - 1 - t + BN);
-      float sum = 0.f;
-      for (int r = r_lo; r < r_hi; ++r) sum += dS[r * LDS + r + t - (BM - 1)];
-      Dd[t] = sum;
-    }
-    __syncthreads();
-    if (threadIdx.x < nb) {
-      float sum = 0.f;
-      for (int t = 0; t < ND; ++t)
-        if (Bi[t] == (int)threadIdx.x) sum += Dd[t];
-      acc += sum;
-    }
-    __syncthreads();
-  }
-  cp_async_wait<0>();
-  if (threadIdx.x < nb)
-    partial[((int64_t)bh * gridDim.x + blockIdx.x) * nb + threadIdx.x] = acc;
-}
-
 // -- launchers -----------------------------------------------------------------
 
 // Above 48 KB a kernel must opt in to dynamic shared memory; done on the
@@ -483,13 +314,6 @@ cudaError_t allow_smem(K kernel, size_t bytes, bool& done) {
 bool bad_args(int B, int H, int Hkv, int Sq, int Sk, int D, int window) {
   return B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || Sq <= 0 || Sk <= 0 ||
          (D != 32 && D != 64 && D != 128) || window < 0 || (int64_t)B * H > 65535;
-}
-
-// A dense bias and a T5 table exclude each other; a table has 1 to
-// MAX_BUCKETS buckets and comes with its index.
-bool bad_bias(const float* bias, const float* table, const int* index, int nb) {
-  if (table == nullptr) return false;
-  return bias != nullptr || index == nullptr || nb <= 0 || nb > MAX_BUCKETS;
 }
 
 // Shared memory of a dense bias: two stages of float32 bias tiles (BM rows
@@ -513,28 +337,6 @@ cudaError_t launch_dbias(const void* q, const void* k, const void* v, const uint
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), mask, bias, bs, hs, static_cast<const bf16*>(dout),
       lse, delta, dbias, B, H, Hkv, Sq, Sk, scale, causal, window, batch_sum);
-  return cudaGetLastError();
-}
-
-template <int D>
-cudaError_t launch_demb(const void* q, const void* k, const void* v, const uint8_t* mask,
-                        const float* table, const int* index, int nb, const void* dout,
-                        const float* lse, const float* delta, float* partial, int B, int H,
-                        int Hkv, int Sq, int Sk, float scale, int causal, int window,
-                        cudaStream_t stream) {
-  constexpr int ND = BM + BN - 1;
-  const size_t bytes = (size_t)(2 * BM + 4 * BN) * (D + 8) * sizeof(bf16) +
-                       ((size_t)BM * (BN + 1) + 3 * ND + nb) * sizeof(float);
-  static size_t allowed = 0;
-  bool done = bytes <= allowed;
-  cudaError_t err = allow_smem(demb_kernel<D>, bytes, done);
-  if (err != cudaSuccess) return err;
-  allowed = std::max(allowed, bytes);
-  const dim3 grid((Sq + BM - 1) / BM, B * H);
-  demb_kernel<D><<<grid, THREADS, bytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), mask, table, index, nb, static_cast<const bf16*>(dout),
-      lse, delta, partial, H, Hkv, Sq, Sk, scale, causal, window);
   return cudaGetLastError();
 }
 
@@ -571,29 +373,6 @@ int flash_bwd_dbias(const void* q, const void* k, const void* v, const uint8_t* 
   return (int)(D == 32   ? launch_dbias<32>(ARGS)
                : D == 64 ? launch_dbias<64>(ARGS)
                          : launch_dbias<128>(ARGS));
-#undef ARGS
-}
-
-// partial (B, H, ceil(Sq / 64), nb) f32: the T5 table's gradient summed per
-// (batch, head, 64-row query tile); the caller sums over the batch and the
-// tiles. t5_table is T5's float32 (nb, H) table, t5_index the int32 bucket
-// of every distance (Sq + Sk - 1 entries, entry k - q + Sq - 1 for query
-// slot q and key slot k; it carries the direction), 1 <= nb <= 128.
-int flash_bwd_demb(const void* q, const void* k, const void* v, const uint8_t* kv_mask,
-                   const float* t5_table, const int* t5_index, int nb, const void* dout,
-                   const float* lse, const float* delta, float* partial, int B, int H,
-                   int Hkv, int Sq, int Sk, int D, float scale, int causal, int window,
-                   void* stream) {
-  if (bad_args(B, H, Hkv, Sq, Sk, D, window) || t5_table == nullptr ||
-      bad_bias(nullptr, t5_table, t5_index, nb))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define ARGS                                                                          \
-  q, k, v, kv_mask, t5_table, t5_index, nb, dout, lse, delta, partial, B, H, Hkv, Sq, Sk, \
-      scale, causal, window, s
-  return (int)(D == 32   ? launch_demb<32>(ARGS)
-               : D == 64 ? launch_demb<64>(ARGS)
-                         : launch_demb<128>(ARGS));
 #undef ARGS
 }
 

@@ -39,7 +39,7 @@
 // (64 NC + 63 values) from the head's table column, staged once per item,
 // into the stage beside the K/V tiles, on that stage's barrier; the
 // consumers add it to the scaled score and keep the max and lse in natural
-// units, the lse that the T5 dq, dk/dv and demb kernels read. Two consumers
+// units, the lse that the T5 dq and dk/dv kernels read. Two consumers
 // (128 queries an item: a t5_base encoder's 512 queries are four items, its
 // decoder's 128 one). At D <= 64 it is persistent, as the T5 backward is:
 // one block per SM walks the items in a snake order, its Q tiles
@@ -123,10 +123,23 @@
 // and one block per item spent much of its time filling and draining the
 // pipeline.
 //
-// The dbias and demb kernels are flash_attention.cu's; the float32 kernels
+// T5's table gradient (demb, replacing _demb_kernel :1255 through
+// _compute_demb :1318) is the T5 dq kernel's DEMB instance: demb[n, h] =
+// sum over b and the (i, j) of bucket n of the float32 dS, which the dq
+// kernel holds anyway, so no second pass recomputes QK^T and dO V^T. Far
+// tiles (every distance in the index's first or last bucket, by the host's
+// plan) a consumer thread sums in a register; a near tile's dS goes by
+// diagonal through shared memory to the producer warpgroup's idle warps,
+// which sum it by bucket (DEMB_LD, t5_diagonals_and_demb). What bounds the
+// kernel: the dq's own products. What demb adds to it is CUDA-core work
+// whose floor is one float32 add of each visible dS and the partial rows'
+// writes; it stays several times above that floor (chip_smoke.py's
+// adds_ms against adds_bound_ms).
+//
+// The dbias kernel is flash_attention.cu's; the float32 kernels
 // of every kind flash_f32.cu's; the
-// PTX wrappers for mbarriers, descriptors and the
-// wgmma fences come from wgmma_gemm.cuh (the fused-CE mainloop).
+// PTX wrappers for mbarriers, descriptors, the wgmma fences and the wgmma
+// with A from registers come from wgmma_gemm.cuh (the fused-CE mainloop).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -146,6 +159,7 @@ using wgmma_gemm::smem_desc;
 using wgmma_gemm::smem_u32;
 using wgmma_gemm::wgmma_commit;
 using wgmma_gemm::wgmma_fence;
+using wgmma_gemm::wgmma_rs;
 using wgmma_gemm::wgmma_wait;
 
 typedef __nv_bfloat16 bf16;
@@ -250,82 +264,6 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a, ui
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(desc_a), "l"(desc_b), "r"(acc));
-}
-
-// d (64 x 64, fp32) += A (64 x 16, bf16 in registers, the accumulator layout
-// of a score tile packed by pack_a) . B (64 x 16)^T, B read from shared memory
-// MN-major.
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
-                                              uint64_t desc_b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-// d (64 x 128, fp32) += A (64 x 16, bf16 in registers, the accumulator layout
-// of a score tile packed by pack_a) . B (128 x 16)^T, B read from shared memory
-// MN-major.
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
-                                              uint64_t desc_b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39,"
-      "%40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55,"
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-
-template <int DP>
-__device__ __forceinline__ void wgmma_rs(float (&d)[DP / 2], const uint32_t (&a)[4],
-                                         uint64_t desc_b) {
-  if constexpr (DP == 64)
-    wgmma_rs_n64(d, a, desc_b);
-  else
-    wgmma_rs_n128(d, a, desc_b);
 }
 
 // Keep the compiler from moving uses of registers across an asynchronous
@@ -520,6 +458,39 @@ __device__ __forceinline__ void bias_threads_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(BIAS_THREADS) : "memory");
 }
 
+// T5's table gradient inside the T5 dq kernel (demb). Per 64 x 64 tile a
+// consumer thread holds 32 elements of the float32 dS; its elements (r, c)
+// and (r + 8, c + 8) share a diagonal, so it first adds those pairs down to
+// 18 partial sums, diagonals 8 m + e + 2 t - g - 16 w (m in -1 .. 7, e in 0,
+// 1; lane (g, t) of warp w). It stores them into its consumer's skew buffer:
+// row d + 63 for diagonal d, column 8 w + g, one row of DEMB_LD floats a
+// diagonal (the 32 columns, 16-byte aligned rows; a warp's 32 stores fall on
+// distinct banks). Each (diagonal, column) has at most one writer and a
+// column no element reaches stays 0 from the kernel's start. A warp of the
+// producer warpgroup then sums each row (8 float4 reads) into the tile's
+// 127 diagonal sums, and the diagonals of each bucket (a bucket's distances
+// are one contiguous run, as T5's are: monotone in |distance| on each side)
+// into the consumer's bucket sums, in a fixed order
+// (t5_diagonals_and_demb): no atomics, the same bits from two calls.
+constexpr int DEMB_LD = 36;    // floats of a skew row
+constexpr int DEMB_DIAG = 127; // diagonals of a 64 x 64 tile
+
+// Bytes of the demb area of an NC-consumer T5 dq kernel with `stages`
+// stages and nb buckets: two barriers a consumer, NC skew buffers, each
+// stage's buckets by diagonal (64 NC + 63, and one to pad) and its facts
+// (an int4, t5_diagonals_and_demb), NC x nb bucket
+// sums of near tiles and 2 x NC x 4 x nb of far ones (by item parity and
+// consumer warp), and 16 to align. One set of far sums would be enough: a
+// consumer adds into them only at an item's last tile, after the reducing
+// warp has written and zeroed the last item's. With one set, ptxas spills
+// more in this kernel (scripts/ptxas_report.py: 248 against 140 bytes at D
+// = 64, 144 against 28 at D = 128) and the dq with demb runs 1-2 % slower
+// on the H100, so the sums alternate by item.
+__host__ __device__ constexpr size_t demb_bytes(int NC, int stages, int nb) {
+  return 16 * NC + (size_t)NC * DEMB_DIAG * DEMB_LD * 4 + (size_t)stages * (64 * NC + 64) * 4 +
+         (size_t)stages * 16 + (size_t)9 * NC * nb * 4 + 16;
+}
+
 // The float offset of element (row r, key c) of a stage's dense bias whose
 // rows hold C keys, in the TMA boxes' swizzled layout.
 template <int C>
@@ -688,7 +659,7 @@ __host__ __device__ constexpr size_t fwd_smem_bytes() {
 // table column, staged once per item, into the stage beside the K/V tiles,
 // on that stage's barrier; the consumers add it to the scaled score and keep
 // the max and lse in natural units (exp2((s scale + b - m) log2 e)), the lse
-// that dq_kernel, dkv_kernel and flash_attention.cu's demb_kernel read. The
+// that dq_kernel and dkv_kernel read. The
 // T5 instance at D <= 64 is persistent (see `persistent`): one block per SM
 // walks the items in a snake order, its Q tiles double-buffered so that the
 // next item's Q loads while this one finishes, and each consumer stores its
@@ -1028,7 +999,7 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        wgmma_rs<DP>(o, pa[kk], desc_mn(st_s + ((gi + t) % STAGES) * 2 * TB + TB, kk));
+        wgmma_rs<DP, 1>(o, pa[kk], desc_mn(st_s + ((gi + t) % STAGES) * 2 * TB + TB, kk));
       wgmma_commit();
     };
 
@@ -1121,12 +1092,175 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1)
 
 // Work items: query_item, as the forward's.
 
+// The producer warpgroup's warps 1-3 of the T5 dq kernel when the table
+// needs a gradient (demb). Per K/V tile they write its bias by diagonal into
+// its stage, as without it, and beside it the bucket of each of its
+// diagonals (the index clamped to its ends: a slot past Sq or Sk is masked,
+// its dS 0) and the tile's facts for the reduction (meta: which consumers'
+// tiles are far, whether it is its item's last tile and the item's parity,
+// the item's first row of `partial` and how many of its consumers have
+// rows). The warps pass a barrier before each tile's writes: a reducing
+// warp reads facts another warp wrote, before it decides whether to wait
+// for its consumer, so every warp must have written them.
+//
+// A far tile, one whose every diagonal lies in the index's first or last
+// bucket (by its offset k0 - q0 against the host's plan `far`: at most
+// far.x, bucket far.z; at least far.y, bucket far.w), the consumer sums
+// itself (a running sum a thread and side, into its warp's sums at the
+// item's end). A near tile, and an item's last, it hands over on its own
+// pair of barriers: STAGES - 1 tiles behind, warp 1 + c sums consumer c's
+// skew buffer (DEMB_LD): lane l takes diagonals l, l + 32, l + 64, l + 96,
+// each a row of 32 partial sums (four float4 chains), frees the buffer once
+// they are read, then per 32 diagonals a segmented scan by bucket across
+// the lanes (a bucket is one run of diagonals), whose last lane of each run
+// adds the run into the consumer's bucket sum. After an item's last tile
+// the warp writes its consumer's near and far sums, row (b H + h) ceil(Sq /
+// 64) + q0 / 64 + c of `partial`, zeroes them, and only then frees the
+// buffer; an item of no tile gets rows of zeros at once. Every sum has a
+// fixed order; no sum is shared between warps.
+template <int NC, int STAGES, int BF, bool PERSIST>
+__device__ __forceinline__ void t5_diagonals_and_demb(
+    const Bias& bias, float* col, float* bias_f, int* stage_bk, int4* meta, uint32_t full,
+    uint32_t empty, uint32_t dfull, uint32_t dempty, const float* skew, float* dacc, float* facc,
+    float* __restrict__ partial, const int4 far, int items, int B, int H, int Hkv, int Sq, int Sk,
+    int causal, int window) {
+  constexpr int ROWS_NC = 64 * NC, ND = ROWS_NC + TILE - 1;   // a stage's diagonals
+  static_assert(NC <= BIAS_THREADS / 32, "a reducing warp per consumer");
+  const int t = threadIdx.x - 32, c = t / 32, lane = t % 32;
+  const int qtiles = (Sq + 63) / 64;
+  int rgi = 0, hs = 0;   // tiles reduced; tiles consumer c handed over
+  // tile rgi: warp c takes consumer c's if the consumer handed it over
+  auto reduce = [&]() {
+    const int4 m = meta[rgi % STAGES];
+    const bool far = m.x >> c & 1, last = m.y & 1;
+    if (c < NC && (!far || last)) {
+      const int nb = bias.nb;
+      const int* bk = stage_bk + (rgi % STAGES) * (ND + 1) + 64 * (NC - 1 - c);
+      mbar_wait(dfull + 16 * c, hs & 1);
+      float v[4];
+      int b[4];
+      if (!far) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int r = 32 * k + lane;
+          v[k] = 0.f;
+          b[k] = -1;
+          if (r < DEMB_DIAG) {
+            const float4* row =
+                reinterpret_cast<const float4*>(skew + (c * DEMB_DIAG + r) * DEMB_LD);
+            float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+#pragma unroll 4
+            for (int j = 0; j < 8; ++j) {
+              const float4 x = row[j];
+              a0 += x.x;
+              a1 += x.y;
+              a2 += x.z;
+              a3 += x.w;
+            }
+            v[k] = (a0 + a1) + (a2 + a3);
+            b[k] = bk[r];
+          }
+        }
+      }
+      __syncwarp();
+      // the skew buffer is read: the consumer may write its next one,
+      // except after an item's last tile, whose sums are written first
+      if (!last && lane == 0) mbar_arrive(dempty + 16 * c);
+      if (!far) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          float x = v[k];
+#pragma unroll
+          for (int off = 1; off < 32; off *= 2) {
+            const float y = __shfl_up_sync(0xffffffffu, x, off);
+            const int by = __shfl_up_sync(0xffffffffu, b[k], off);
+            if (lane >= off && by == b[k]) x += y;
+          }
+          const int bn = __shfl_down_sync(0xffffffffu, b[k], 1);
+          if (b[k] >= 0 && (lane == 31 || bn != b[k])) dacc[c * nb + b[k]] += x;
+          __syncwarp();
+        }
+      }
+      if (last) {   // the row: near sums and the far sums of the item's parity
+        float* fs = facc + ((m.y >> 1) * NC + c) * 4 * nb;
+        for (int n = lane; n < nb; n += 32) {
+          float sum = dacc[c * nb + n];
+          dacc[c * nb + n] = 0.f;
+#pragma unroll
+          for (int w = 0; w < 4; ++w) {
+            sum += fs[w * nb + n];
+            fs[w * nb + n] = 0.f;
+          }
+          if (c < m.w) partial[(int64_t)(m.z + c) * nb + n] = sum;
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(dempty + 16 * c);
+      }
+      ++hs;
+    }
+    ++rgi;
+  };
+  int gi = 0;   // the ring's tiles so far
+  for (int n = 0;; ++n) {
+    const int w = work_item<PERSIST>(n);
+    if (w >= items) break;
+    const QueryItem x = query_item(w, B, H, Hkv, Sq, Sk, ROWS_NC, causal, window);
+    const int row = x.bh * qtiles + x.q0 / 64, rows = min(NC, (Sq - x.q0 + 63) / 64);
+    if (x.iters == 0) {   // no tile: rows of zeros
+      if (c < rows)
+        for (int i = lane; i < bias.nb; i += 32)
+          partial[(int64_t)(row + c) * bias.nb + i] = 0.f;
+      continue;
+    }
+    if (n > 0) bias_threads_sync();   // the last item's diagonals read the column
+    for (int i = t; i < bias.nb; i += BIAS_THREADS) col[i] = bias.table[i * H + x.h];
+    bias_threads_sync();
+    for (int it = 0; it < x.iters; ++it, ++gi) {
+      const int s = gi % STAGES, k0 = (x.kt0 + it) * TILE;
+      const int base = k0 - x.q0 - (ROWS_NC - 1) + Sq - 1, length = Sq + Sk - 1;
+      mbar_wait(empty + 8 * s, ((gi / STAGES) & 1) ^ 1);
+      // every warp has written the last tile's facts (reduce reads them) and
+      // reduced the tile whose facts this stage held
+      bias_threads_sync();
+      int bucket[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        if (t + BIAS_THREADS * h < ND)
+          bucket[h] = bias.index[min(max(base + t + BIAS_THREADS * h, 0), length - 1)];
+      if (t == 0) {   // the consumers' far tiles, as they decide them
+        int fars = 0;
+#pragma unroll
+        for (int g = 0; g < NC; ++g) {
+          const int delta = k0 - x.q0 - 64 * g;
+          fars |= (delta >= far.y || delta <= far.x) << g;
+        }
+        meta[s] = make_int4(fars, (it == x.iters - 1) | (n % 2) << 1, row, rows);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = t + BIAS_THREADS * h, at = base + i;
+        if (i < ND) {
+          bias_f[s * BF + i] = at >= 0 && at < length ? col[bucket[h]] : 0.f;
+          stage_bk[s * (ND + 1) + i] = bucket[h];
+        }
+      }
+      __syncwarp();
+      if (t % 32 == 0) mbar_arrive(full + 8 * s);
+      while (rgi + STAGES - 1 <= gi) reduce();
+    }
+  }
+  while (rgi < gi) reduce();
+}
+
 // With a bias, the producer's warps 1-3 stage each K/V tile's bias beside it
 // in the ring (T5_BIAS: its 64 NC + 63 values by diagonal from the head's
 // table column; DENSE_BIAS without a tensor map: the block's 64 NC x 64
 // float32 bias by cp.async), or the TMA thread copies the bias boxes with
-// the tiles (DENSE_BIAS); the scores then stay in natural units.
-template <int KIND, int DP, int NC>
+// the tiles (DENSE_BIAS); the scores then stay in natural units. The DEMB
+// instance (T5_BIAS) also sums the table's gradient from the float32 dS
+// (see DEMB_LD and t5_diagonals_and_demb); every other instance compiles
+// none of it.
+template <int KIND, int DP, int NC, bool DEMB = false>
 __global__ void __launch_bounds__(128 * (NC + 1), 1)
     dq_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_do,
               const __grid_constant__ CUtensorMap map_k, const __grid_constant__ CUtensorMap map_v,
@@ -1134,8 +1268,8 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1)
               const uint8_t* __restrict__ kv_mask, const Bias bias, const bf16* __restrict__ out,
               const bf16* __restrict__ dout,
               const float* __restrict__ lse, float* __restrict__ delta, bf16* __restrict__ dq,
-              int B, int D, int H, int Hkv, int Sq, int Sk, float scale, int causal,
-              int window) {
+              float* __restrict__ partial, const int4 far, int B, int D, int H, int Hkv, int Sq,
+              int Sk, float scale, int causal, int window) {
   constexpr int TB = tile_bytes<DP>();
   constexpr int ACC = DP / 2;
   constexpr int STAGES = stages<DP, KIND>();
@@ -1158,6 +1292,19 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1)
   const uint32_t qfree = empty + 8 * STAGES;   // persistent: Q, dO buffer p read
   float* col = reinterpret_cast<float*>(
       smem_raw + (qfree + 8 * (PERSIST ? QB : 0) - raw));
+  // T5 with the table's gradient (DEMB, given `partial`): after the column,
+  // the demb area (demb_bytes): a full and an empty barrier a consumer, the
+  // consumers' skew buffers, each stage's buckets by diagonal and facts, the
+  // bucket sums of near tiles and of far ones
+  static_assert(!DEMB || KIND == T5_BIAS, "demb is T5's table's gradient");
+  constexpr bool demb = DEMB;
+  const uint32_t dbar = (qfree + 8 * (PERSIST ? QB : 0) + 4 * bias.nb + 15u) & ~15u;
+  const uint32_t dfull = dbar, dempty = dbar + 8;   // consumer c's at + 16 c
+  float* skew = reinterpret_cast<float*>(smem_raw + (dbar + 16 * NC - raw));
+  int* stage_bk = reinterpret_cast<int*>(skew + NC * DEMB_DIAG * DEMB_LD);
+  int4* meta = reinterpret_cast<int4*>(stage_bk + STAGES * (ROWS_NC + TILE));
+  float* dacc = reinterpret_cast<float*>(meta + STAGES);
+  float* facc = dacc + NC * bias.nb;   // far tiles' sums: item parity, consumer, warp, bucket
 
   const int items = B * H * ((Sq + ROWS_NC - 1) / ROWS_NC);
   auto item = [&](int w) {
@@ -1177,7 +1324,16 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1)
       mbar_init(full + 8 * s, 2 + bias_arrivals<KIND>(bias.tma));
       mbar_init(empty + 8 * s, 4 * NC);   // lane 0 of each consumer warp
     }
+    if (demb)
+      for (int c = 0; c < NC; ++c) {   // consumer c and its reducing warp
+        mbar_init(dfull + 16 * c, 4);
+        mbar_init(dempty + 16 * c, 1);
+      }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (demb) {   // the skew buffers' unwritten columns and the bucket sums start at 0
+    for (int i = threadIdx.x; i < NC * DEMB_DIAG * DEMB_LD; i += 128 * (NC + 1)) skew[i] = 0.f;
+    for (int i = threadIdx.x; i < 9 * NC * bias.nb; i += 128 * (NC + 1)) dacc[i] = 0.f;
   }
   __syncthreads();
 
@@ -1186,6 +1342,14 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1)
       asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     else
       asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if constexpr (KIND == T5_BIAS) {
+      if (demb && threadIdx.x >= 32) {
+        t5_diagonals_and_demb<NC, STAGES, BF, PERSIST>(
+            bias, col, bias_f, stage_bk, meta, full, empty, dfull, dempty, skew, dacc, facc,
+            partial, far, items, B, H, Hkv, Sq, Sk, causal, window);
+        return;
+      }
+    }
     if (threadIdx.x >= 32) {
       // the bias-staging warps: T5's diagonals, a dense bias that has no
       // tensor map (the TMA thread copies one that has)
@@ -1342,6 +1506,7 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1)
       if (lane % 4 == 0 && row < Sq) delta[(int64_t)x.bh * Sq + row] = dl[r];
     }
   };
+  int hs = 0;   // demb: the tiles handed to the reducing warp so far
   // The n-th item of the block, item w: its tiles through the ring from the
   // gi-th on; persistent, then the item's last stage and buffers released
   // and the next item's row statistics loaded while its stores drain.
@@ -1359,6 +1524,7 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1)
     // score products queue behind it, and its stage is freed once they have
     // retired it.
     uint32_t da[4][4];
+    float far_sum[2] = {0.f, 0.f};   // demb: the thread's sums of far tiles by side
     for (int it = 0; it < x.iters; ++it, ++gi) {
       const int s = gi % STAGES, k0 = (x.kt0 + it) * TILE;
       const uint32_t kst = st_s + s * 2 * TB, vst = kst + TB;
@@ -1433,8 +1599,64 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1)
       pack_a(da, dp);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) wgmma_rs<DP>(dqa, da[kk], desc_mn(kst, kk));
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs<DP, 1>(dqa, da[kk], desc_mn(kst, kk));
       wgmma_commit();
+      if constexpr (KIND == T5_BIAS) {
+        if (demb) {
+          // while the dq product runs: a far tile (every diagonal in the
+          // index's first bucket, offset k0 - q0 <= far.x, or in its last, >=
+          // far.y; the host's plan) into the thread's running sum of that
+          // side, a near one's float32 dS by diagonal into the skew buffer
+          // (see DEMB_LD) once the reducing warp has read the last one; the
+          // running sums into the warp's sums of this item (buffer n % 2) at
+          // the item's end. Near tiles and an item's last tile are handed to
+          // the reducing warp (hs of them so far).
+          const int delta = k0 - x.q0 - 64 * g;
+          const int side = delta >= far.y ? 1 : delta <= far.x ? 0 : -1;
+          const bool last = it == x.iters - 1, hand = side < 0 || last;
+          if (hand) mbar_wait(dempty + 16 * g, (hs & 1) ^ 1);
+          if (side >= 0) {
+            float v0 = 0.f, v1 = 0.f, v2 = 0.f, v3 = 0.f;
+#pragma unroll
+            for (int i = 0; i < 32; i += 4) {
+              v0 += dp[i];
+              v1 += dp[i + 1];
+              v2 += dp[i + 2];
+              v3 += dp[i + 3];
+            }
+            far_sum[side] += (v0 + v1) + (v2 + v3);
+          } else {
+            float* o = skew + g * DEMB_DIAG * DEMB_LD +
+                       DEMB_LD * (2 * (lane % 4) - lane / 4 - 16 * warp + 63) + 8 * warp +
+                       lane / 4;
+#pragma unroll
+            for (int m = -1; m < 8; ++m)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                float v = 0.f;
+                if (m >= 0) v = dp[4 * m + e];
+                if (m < 7) v += dp[4 * m + 6 + e];
+                o[DEMB_LD * (8 * m + e)] = v;
+              }
+          }
+          if (last) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              float v = far_sum[h];
+#pragma unroll
+              for (int off = 16; off > 0; off /= 2) v += __shfl_xor_sync(0xffffffffu, v, off);
+              if (lane == 0)
+                facc[((n % 2 * NC + g) * 4 + warp) * bias.nb + (h ? far.w : far.z)] += v;
+              far_sum[h] = 0.f;
+            }
+          }
+          if (hand) {
+            __syncwarp();
+            if (lane == 0) mbar_arrive(dfull + 16 * g);
+            ++hs;
+          }
+        }
+      }
     }
     wgmma_wait<0>();
     fence_regs(dqa);
@@ -1786,9 +2008,9 @@ __global__ void __launch_bounds__(THREADS, 1)
       pack_a(da, dpt);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) wgmma_rs<DP>(dva, pa[kk], desc_mn(dost, kk));
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs<DP, 1>(dva, pa[kk], desc_mn(dost, kk));
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) wgmma_rs<DP>(dka, da[kk], desc_mn(qst, kk));
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs<DP, 1>(dka, da[kk], desc_mn(qst, kk));
       wgmma_commit();
     }
     wgmma_wait<0>();
@@ -1964,25 +2186,34 @@ bool bad_bias(const float* rows, const float* table, const int* index, int nb) {
 
 template <int KIND, int DP>
 cudaError_t launch_dq(const Maps& m, const uint8_t* mask, const Bias& bias, const void* out,
-                      const void* dout, const float* lse, float* delta, void* dq, int B, int H,
-                      int Hkv, int Sq, int Sk, int D, float scale, int causal, int window,
-                      cudaStream_t stream) {
+                      const void* dout, const float* lse, float* delta, void* dq, float* partial,
+                      int4 far, int B, int H, int Hkv, int Sq, int Sk, int D, float scale,
+                      int causal, int window, cudaStream_t stream) {
   constexpr int NC = dq_consumers<DP, KIND>();
-  auto kernel = dq_kernel<KIND, DP, NC>;
-  // T5: the head's table column on top
+  if (KIND != T5_BIAS && partial) return cudaErrorInvalidValue;
+  // T5: the head's table column on top, and with the table's gradient (its
+  // own instance) the demb area
   const size_t bytes = smem_bytes<KIND, DP, NC, dq_bias_floats<KIND, NC>()>() +
-                       (KIND == T5_BIAS ? bias.nb * sizeof(float) : 0);
+                       (KIND == T5_BIAS ? bias.nb * sizeof(float) : 0) +
+                       (partial ? demb_bytes(NC, stages<DP, KIND>(), bias.nb) : 0);
   if (bytes > MAX_SMEM) return cudaErrorInvalidValue;
-  static bool done = false;
-  cudaError_t err = allow_smem(kernel, KIND == T5_BIAS ? MAX_SMEM : bytes, done);
-  if (err != cudaSuccess) return err;
   const int items = B * H * ((Sq + 64 * NC - 1) / (64 * NC));
   const int grid = persistent<KIND, DP>() && num_sms() < items ? num_sms() : items;
-  kernel<<<grid, 128 * (NC + 1), bytes, stream>>>(
-      m.q, m.dout, m.k, m.v, m.bias, m.out0, mask, bias, static_cast<const bf16*>(out),
-      static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dq), B, D, H, Hkv, Sq, Sk,
-      scale, causal, window);
-  return cudaGetLastError();
+  auto go = [&](auto kernel, bool& done) {
+    cudaError_t err = allow_smem(kernel, KIND == T5_BIAS ? MAX_SMEM : bytes, done);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, 128 * (NC + 1), bytes, stream>>>(
+        m.q, m.dout, m.k, m.v, m.bias, m.out0, mask, bias, static_cast<const bf16*>(out),
+        static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dq), partial, far, B, D,
+        H, Hkv, Sq, Sk, scale, causal, window);
+    return cudaGetLastError();
+  };
+  static bool done = false;
+  if constexpr (KIND == T5_BIAS) {
+    static bool done_demb = false;
+    if (partial) return go(dq_kernel<KIND, DP, NC, true>, done_demb);
+  }
+  return go(dq_kernel<KIND, DP, NC>, done);
 }
 
 template <int KIND, int DP>
@@ -2048,8 +2279,15 @@ int fwd(const void* q, const void* k, const void* v, const uint8_t* kv_mask, con
 // 16-byte aligned; kv_mask (B, Sk) uint8 (1 = key present); lse (B, H, Sq)
 // f32 from the forward of the same bias. D is 32, 64 or 128; window 0 means
 // none. Writes dq (B, H, Sq, D) bfloat16 and delta (B, H, Sq) f32 for
-// bwd_dkv (and the dbias and demb kernels of flash_attention.cu). Returns
-// cudaGetLastError() after the launch (0 on success), or
+// bwd_dkv (and the dbias kernel of flash_attention.cu). With T5's table,
+// partial (B, H, ceil(Sq / 64), nb) f32 is nullptr or receives the table's
+// gradient summed per (batch, head, 64-row query tile), for the caller to sum
+// over the batch and the tiles (demb; nullptr for every other bias kind),
+// given the host's plan of far tiles (models/positional.py t5_far_tiles):
+// a 64 x 64 tile of key offset k and query offset q with k - q <= far_neg
+// has every diagonal in bucket b_neg, the index's first; with k - q >=
+// far_pos in bucket b_pos, its last.
+// Returns cudaGetLastError() after the launch (0 on success), or
 // cudaErrorInvalidValue for arguments the kernel does not take.
 //
 // bias is nullptr or a float32 bias (b0 h0, Sq, Sk) whose rows lie ld >= Sk
@@ -2063,9 +2301,9 @@ int fwd(const void* q, const void* k, const void* v, const uint8_t* kv_mask, con
 // neither, the bias-free backward.
 int bwd_dq(const void* q, const void* k, const void* v, const uint8_t* kv_mask, const float* bias,
            int bs, int hs, int ld, const float* t5_table, const int* t5_index, int nb,
-           const void* out, const void* dout, const float* lse, float* delta, void* dq, int B,
-           int H, int Hkv, int Sq, int Sk, int D, float scale, int causal, int window,
-           void* stream) {
+           const void* out, const void* dout, const float* lse, float* delta, void* dq,
+           float* partial, int far_neg, int far_pos, int b_neg, int b_pos, int B, int H, int Hkv,
+           int Sq, int Sk, int D, float scale, int causal, int window, void* stream) {
   Maps m{};
   Bias b;
   if (bad_args(B, H, Hkv, Sq, Sk, D, window) || bad_bias(bias, t5_table, t5_index, nb) ||
@@ -2073,8 +2311,11 @@ int bwd_dq(const void* q, const void* k, const void* v, const uint8_t* kv_mask, 
       !bias_operands(&b, &m, bias, bs, hs, ld, t5_table, t5_index, nb, B, H, Sq, Sk) ||
       !tile_map(&m.out0, dq, (int64_t)B * H, Sq, D))
     return (int)cudaErrorInvalidValue;
-  return (int)BWD_DISPATCH(launch_dq, m, kv_mask, b, out, dout, lse, delta, dq, B, H, Hkv, Sq,
-                           Sk, D, scale, causal, window, static_cast<cudaStream_t>(stream));
+  if (partial && (b_neg < 0 || b_neg >= nb || b_pos < 0 || b_pos >= nb))
+    return (int)cudaErrorInvalidValue;
+  return (int)BWD_DISPATCH(launch_dq, m, kv_mask, b, out, dout, lse, delta, dq, partial,
+                           make_int4(far_neg, far_pos, b_neg, b_pos), B, H, Hkv, Sq, Sk, D,
+                           scale, causal, window, static_cast<cudaStream_t>(stream));
 }
 
 // dk, dv (B, Hkv, Sk, D) bfloat16, summed over each K/V head's query heads,

@@ -717,7 +717,7 @@ __global__ void __launch_bounds__(THREADS)
 // tiles: each tile's dS goes to shared memory, thread t sums diagonal t (rows
 // in order), then thread n adds the diagonals of bucket n (in order) to its
 // register; the block writes its nb sums to partial[((b H + h) tiles + query
-// tile) nb + n], as flash_attention.cu's demb_kernel does.
+// tile) nb + n], the layout of the bf16 T5 dq kernel's demb partial sums.
 template <int D>
 __global__ void __launch_bounds__(THREADS)
     demb_kernel(const float* __restrict__ q, const float* __restrict__ k,

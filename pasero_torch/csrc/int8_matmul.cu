@@ -53,14 +53,30 @@
 //   in flight while this step's products run.
 // The scale multiplies the float32 sums once, in the merge.
 //
-// Prompts (M > SMALL_MAX_M), int8_matmul_kernel on gemm_tile.cuh's Large
-// tiles: 64 x 128 tiles of x and q staged in shared memory by cp.async,
-// three deep, and multiplied with mma.sync m16n8k16. What holds it back:
-// mma.sync instead of wgmma, and x re-read from L2 by every column block.
+// Prompts (M > SMALL_MAX_M), prompt_kernel: operations bound (fc1 at M =
+// 1024 is 23.6 GFLOP), so the tensor cores' full rate, which only wgmma
+// reaches, decides it. The operands are swapped as at decode, y^T = q . x^T:
+// the weight's rows are wgmma's A side, 64 a consumer warpgroup, and x's
+// rows its B side (64, 128, 192 or 256 of them, prompt_bx), read K-major from
+// shared memory as x lies in device memory. Each consumer reads its int8 A
+// fragment from the stage, converts it to bf16 in registers
+// (int8x4_to_bf16x4) and issues wgmma with A from registers: the conversion
+// costs registers and a few instructions a 16-deep step, and no
+// shared-memory write. A producer thread feeds a ring of 4-8 stages by TMA,
+// the weight's box under the 64-byte swizzle (its eight rows of a fragment
+// read fall on distinct banks) and x's under the 128-byte one, so a weight
+// tile is read once per x tile and x once per weight tile; a persistent
+// grid walks the tiles with the x tiles of one weight tile together, so the
+// blocks that share a weight tile read it from device memory once. The
+// epilogue scales each accumulator row by its scale, rounds to y's type and
+// stores the transposed tile through shared memory by TMA (rows of y that
+// are not 16-byte aligned take plain stores). No atomics and no split of K:
+// two calls give the same bits.
 
 #include <cooperative_groups.h>
 
 #include <algorithm>
+#include <initializer_list>
 #include <type_traits>
 
 #include "gemm_tile.cuh"
@@ -73,6 +89,9 @@ using wgmma_gemm::mbar_arrive;
 using wgmma_gemm::mbar_expect_tx;
 using wgmma_gemm::mbar_init;
 using wgmma_gemm::mbar_wait;
+using wgmma_gemm::wgmma_commit;
+using wgmma_gemm::wgmma_fence;
+using wgmma_gemm::wgmma_wait;
 namespace cg = cooperative_groups;
 
 // -- decode rows -------------------------------------------------------------------
@@ -85,6 +104,7 @@ constexpr int STAGE_BUDGET = 48 * 1024;             // two or more blocks an SM
 constexpr int BLOCKS_PER_SM = 2;                    // the blocks a layout aims at
 constexpr int NARROW_MAX_M = 16;                    // rows that may take 16-row tiles
 constexpr int DEEP_MAX_NT = 2;                      // n8 tiles that take 256-deep stages
+constexpr int MAX_PROMPT_SMEM = 232448;            // shared memory a block can have
 
 // The k of a stage: 256 at decode rows (up to 8 DEEP_MAX_NT), whose stages
 // are small; 128 above, so that two blocks of 8 NT rows of x fit an SM.
@@ -460,39 +480,350 @@ static_assert(SMALL_MAX_M == 80, "decode instances for M <= 80");
 
 // -- prompt rows -------------------------------------------------------------------
 
-template <class C, typename OutT>
-__global__ void __launch_bounds__(THREADS)
-    int8_matmul_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ q,
-                       const float* __restrict__ scale, OutT* __restrict__ y, int M,
-                       int N, int K) {
-  extern __shared__ __align__(16) char smem[];
-  const int m0 = blockIdx.x * C::BM, n0 = blockIdx.y * C::BN;
-  float* red;
-  tile_product<C, Int8W>(x, q, M, N, K, m0, n0, smem, red);
-  for (int i = threadIdx.x; i < C::BM * C::BN; i += THREADS) {
-    const int r = i / C::BN, c = i % C::BN;
-    if (m0 + r < M && n0 + c < N) {
-      const float v = tile_sum<C>(red, r, c) * scale[n0 + c];
-      if constexpr (sizeof(OutT) == 4)
-        y[(int64_t)(m0 + r) * N + n0 + c] = v;
-      else
-        y[(int64_t)(m0 + r) * N + n0 + c] = __float2bfloat16_rn(v);
-    }
+constexpr int PR_THREADS = 384;          // a producer and two consumer warpgroups
+constexpr int PR_ROWS = 128;             // weight rows of a tile, 64 per consumer
+constexpr int PR_BK = 64;                // k of a stage
+constexpr int PR_WBOX = PR_ROWS * PR_BK; // bytes of a stage's weight box
+constexpr int PR_OUT = 32 * 1024;        // bytes of a consumer's output staging
+constexpr int PR_MAX_STAGES = 8;
+
+// The x rows of an epilogue pass: a consumer's staging holds 64 n by
+// PR_OUT / (64 sizeof(OutT)) rows; a tile that holds more goes in equal
+// passes (the output map's box is one pass, so none reaches past its tile).
+template <int BX, typename OutT>
+__host__ __device__ constexpr int pass_rows() {
+  return BX <= PR_OUT / (64 * (int)sizeof(OutT))          ? BX
+         : BX % (PR_OUT / (64 * (int)sizeof(OutT))) == 0 ? PR_OUT / (64 * (int)sizeof(OutT))
+                                                          : BX / 2;
+}
+
+// Stages of the ring for x tiles of BX rows: as many as fit beside the two
+// consumers' output staging, at most PR_MAX_STAGES.
+template <int BX>
+__host__ __device__ constexpr int prompt_stages() {
+  return (MAX_PROMPT_SMEM - 1024 - 2 * PR_OUT - 16 * PR_MAX_STAGES) / (PR_WBOX + 128 * BX) <
+                 PR_MAX_STAGES
+             ? (MAX_PROMPT_SMEM - 1024 - 2 * PR_OUT - 16 * PR_MAX_STAGES) / (PR_WBOX + 128 * BX)
+             : PR_MAX_STAGES;
+}
+template <int BX>
+__host__ __device__ constexpr size_t prompt_smem() {
+  return 1024 + (size_t)prompt_stages<BX>() * (PR_WBOX + 128 * BX) + 2 * PR_OUT +
+         16 * prompt_stages<BX>();
+}
+
+// The A fragment of one 16-deep step from a stage's int8 weight box (PR_BK
+// = 64 bytes a row, the 64-byte swizzle: row r's 16-byte chunk c at chunk c
+// ^ ((r / 2) % 4)), converted to bf16: lane (g, t) of warp w takes rows r =
+// 16 w + g and r + 8 of its consumer's 64 and, in step ks, k = 2t, 2t + 1
+// (a[0], a[1]) and 2t + 8, 2t + 9 (a[2], a[3]) of chunk ks, two 32-bit words
+// a row whose halves prmt selects. The eight rows of a read fall on distinct
+// banks; lanes 2u and 2u + 1 share a word.
+__device__ __forceinline__ void weight_frag(const unsigned char* rows, int g, uint32_t sel,
+                                            int ks, uint32_t (&a)[4]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = g + 8 * h;
+    const unsigned char* c = rows + r * PR_BK + ((ks ^ ((r >> 1) & 3)) << 4);
+    const uint32_t w0 = *reinterpret_cast<const uint32_t*>(c);
+    const uint32_t w1 = *reinterpret_cast<const uint32_t*>(c + 8);
+    int8x4_to_bf16x4(__byte_perm(w0, w1, sel), a[h], a[h + 2]);
   }
 }
 
-template <class C, typename OutT>
-cudaError_t launch(const void* x, const int8_t* q, const float* scale, void* y, int M,
-                   int N, int K, cudaStream_t stream) {
-  constexpr int bytes = Smem<C, Int8W>::BYTES;
-  auto kernel = int8_matmul_kernel<C, OutT>;
+// A box of a 2-D tensor map from shared memory into device memory, as one
+// bulk group.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, uint32_t src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%1, %2}], [%3];\n"
+      "cp.async.bulk.commit_group;\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(c0), "r"(c1), "r"(src)
+      : "memory");
+}
+__device__ __forceinline__ void store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// The 128 threads of consumer warpgroup g only (named barrier 1 + g).
+__device__ __forceinline__ void consumer_sync(int g) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + g) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+__device__ __forceinline__ void fence_frag(uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+// yT = q . xT by tiles of PR_ROWS weight rows x BX rows of x, walked by a
+// persistent grid (block b takes tiles b, b + gridDim.x, ...; the x tiles of
+// one weight tile are consecutive, so the blocks that read a weight tile run
+// together and it comes from device memory once). Warpgroup 0's first
+// thread streams each tile's k-steps through the ring by TMA: the int8
+// weight box (64 k x 128 rows, 64-byte swizzle) and x's box (64 k x BX rows,
+// bf16, 128-byte swizzle), counted in bytes on the stage's full barrier;
+// rows past N or M and k past K land as zeros. Consumer g (warpgroups 1, 2)
+// owns weight rows 64 g ..: per stage it converts its four A fragments
+// (weight_frag) and issues four m64nBXk16 wgmmas with x as B, keeping
+// NB - 1 stages' groups in flight while it converts the next (NB fragment
+// buffers), and frees a stage once the group that read it has retired. The epilogue
+// scales each accumulator row n by scale[n], rounds to OutT and writes the
+// transposed tile y[m0 .., n0 + 64 g ..] into the consumer's staging, laid
+// out as the output map's boxes (64 n of bf16 or 32 n of float32 a 128-byte
+// row, 128-byte swizzled), then one thread stores it by TMA, which writes
+// only what lies inside y. A float32 tile of more than 128 x rows goes in
+// two passes (pass_rows).
+template <int BX, typename OutT>
+__global__ void __launch_bounds__(PR_THREADS, 1)
+    prompt_kernel(const __grid_constant__ CUtensorMap map_x,
+                  const __grid_constant__ CUtensorMap map_w,
+                  const __grid_constant__ CUtensorMap map_y, const float* __restrict__ scale,
+                  OutT* __restrict__ y, int M, int N, int tiles_x, int tiles, int k_steps,
+                  int direct) {
+  constexpr int STAGES = prompt_stages<BX>();
+  constexpr int SB = PR_WBOX + 128 * BX;                 // bytes of a stage
+  constexpr int ACC = BX / 2;
+  constexpr bool F32 = sizeof(OutT) == 4;
+  constexpr int PASS_ROWS = pass_rows<BX, OutT>();   // x rows a pass stages
+  constexpr int PASSES = BX / PASS_ROWS;
+  static_assert(PASSES * PASS_ROWS == BX && PASS_ROWS % 8 == 0, "equal passes");
+  // fragment buffers: three (two groups in flight) where the sums leave
+  // room; at 256 x rows two, or ptxas serializes the wgmmas (C7512)
+  constexpr int NB = BX == 256 ? 2 : 3;
+  extern __shared__ __align__(1024) unsigned char pr_smem[];
+  const uint32_t raw = smem_addr(pr_smem);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* ring = pr_smem + (base - raw);
+  const uint32_t out_s = base + STAGES * SB;
+  const uint32_t full = out_s + 2 * PR_OUT, empty = full + 8 * STAGES;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 8);   // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // `it` counts the stages this block has passed through the ring
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(&map_w) : "memory");
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(&map_x) : "memory");
+      int it = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int n0 = tile / tiles_x * PR_ROWS, m0 = tile % tiles_x * BX;
+        for (int kt = 0; kt < k_steps; ++kt, ++it) {
+          const int s = it % STAGES;
+          const uint32_t st = base + s * SB;
+          mbar_wait(empty + 8 * s, ((it / STAGES) & 1) ^ 1);
+          mbar_expect_tx(full + 8 * s, SB);
+          wgmma_gemm::tma_load(st, &map_w, full + 8 * s, kt * PR_BK, n0);
+          wgmma_gemm::tma_load(st + PR_WBOX, &map_x, full + 8 * s, kt * PR_BK, m0);
+        }
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int g = wg - 1, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int gl = lane / 4, t = lane % 4;
+  const uint32_t sel = t & 1 ? 0x7632u : 0x5410u;   // the halves of lane t's k
+  const int wrow = 64 * g + 16 * warp;                // the warp's first weight row
+  unsigned char* stage_out = pr_smem + (out_s - raw) + g * PR_OUT;
+  int it = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int n0 = tile / tiles_x * PR_ROWS, m0 = tile % tiles_x * BX;
+    float sc[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int n = n0 + wrow + gl + 8 * h;
+      sc[h] = n < N ? scale[n] : 0.f;
+    }
+    float d[ACC];
+#pragma unroll
+    for (int i = 0; i < ACC; ++i) d[i] = 0.f;
+    uint32_t a[NB][4][4];
+    // stage kt of the tile: its fragments into buffer B = kt % NB, then its
+    // four products; NB - 1 groups stay in flight, so the group NB - 1
+    // steps back has retired, its buffer is free and its stage is freed
+    auto step = [&](int kt, auto buf) {
+      constexpr int B = decltype(buf)::value;
+      const int s = it % STAGES;
+      mbar_wait(full + 8 * s, (it / STAGES) & 1);
+      const unsigned char* w = ring + s * SB + wrow * PR_BK + 4 * (t >> 1);
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) weight_frag(w, gl, sel, ks, a[B][ks]);
+      const uint32_t xs = base + s * SB + PR_WBOX;
+      fence_acc(d);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+        wgmma_gemm::wgmma_rs<BX, 0>(d, a[B][ks], wgmma_gemm::smem_desc(xs + 32 * ks, 16, 1024));
+      wgmma_commit();
+      fence_acc(d);
+      wgmma_wait<NB - 1>();
+      fence_acc(d);
+      fence_frag(a[(B + 1) % NB]);
+      if (kt >= NB - 1 && lane == 0)
+        mbar_arrive(empty + 8 * ((it + STAGES - (NB - 1)) % STAGES));
+      ++it;
+    };
+    int kt = 0;
+    for (; kt + NB - 1 < k_steps; kt += NB) {
+      step(kt, std::integral_constant<int, 0>());
+      step(kt + 1, std::integral_constant<int, 1>());
+      if constexpr (NB == 3) step(kt + 2, std::integral_constant<int, 2>());
+    }
+    if (kt < k_steps) step(kt, std::integral_constant<int, 0>());
+    if constexpr (NB == 3)
+      if (kt + 1 < k_steps) step(kt + 1, std::integral_constant<int, 1>());
+    wgmma_wait<0>();
+    fence_acc(d);
+#pragma unroll
+    for (int b = 0; b < NB; ++b) fence_frag(a[b]);
+    if (lane == 0)   // the stages of the last NB - 1 steps
+      for (int j = max(0, k_steps - (NB - 1)); j < k_steps; ++j)
+        mbar_arrive(empty + 8 * ((it - k_steps + j) % STAGES));
+
+    // the epilogue: element i of d lies at weight row wrow + gl + 8 ((i >> 1)
+    // & 1) and x row 8 (i >> 2) + 2 t + (i & 1) of the tile
+    if (direct) {   // rows of y not 16-byte aligned: no tensor map, plain stores
+#pragma unroll
+      for (int i = 0; i < ACC; ++i) {
+        const int m = m0 + 8 * (i >> 2) + 2 * t + (i & 1);
+        const int n = n0 + wrow + gl + 8 * ((i >> 1) & 1);
+        if (m < M && n < N) {
+          const float v = d[i] * sc[(i >> 1) & 1];
+          if constexpr (F32)
+            y[(int64_t)m * N + n] = v;
+          else
+            y[(int64_t)m * N + n] = __float2bfloat16_rn(v);
+        }
+      }
+      continue;
+    }
+#pragma unroll
+    for (int p = 0; p < PASSES; ++p) {
+      if (threadIdx.x % 128 == 0) store_wait_read();   // the last store read the staging
+      consumer_sync(g);
+#pragma unroll
+      for (int i = 0; i < ACC; ++i) {
+        const int j8 = 8 * (i >> 2) - p * PASS_ROWS;   // the pass's rows, known at compile time
+        if (j8 < 0 || j8 >= PASS_ROWS) continue;
+        const int m = j8 + 2 * t + (i & 1);
+        const int n = 16 * warp + gl + 8 * ((i >> 1) & 1);   // of the consumer's 64
+        const float v = d[i] * sc[(i >> 1) & 1];
+        if constexpr (F32) {
+          float* box = reinterpret_cast<float*>(stage_out + (n >> 5) * (PR_OUT / 2));
+          box[m * 32 + ((((n & 31) >> 2) ^ (m & 7)) << 2) + (n & 3)] = v;
+        } else {
+          bf16* box = reinterpret_cast<bf16*>(stage_out);
+          box[m * 64 + (((n >> 3) ^ (m & 7)) << 3) + (n & 7)] = __float2bfloat16_rn(v);
+        }
+      }
+      fence_async_shared();
+      consumer_sync(g);
+      if (threadIdx.x % 128 == 0) {
+        const uint32_t src = out_s + g * PR_OUT;
+        const int row = m0 + p * PASS_ROWS, col = n0 + 64 * g;
+        if constexpr (F32) {
+          tma_store_2d(&map_y, src, col, row);
+          tma_store_2d(&map_y, src + PR_OUT / 2, col + 32, row);
+        } else {
+          tma_store_2d(&map_y, src, col, row);
+        }
+      }
+    }
+  }
+  if (threadIdx.x % 128 == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// The x tile of a prompt product: BX in {64, 128, 192, 256} rows, the one
+// whose tiles, dealt to the SMs in waves, take the least time by the model
+// waves x (BX + 48) (a tile's time grows with its rows, plus a fixed part).
+int prompt_bx(int M, int N) {
+  const int sms = num_sms(), tn = (N + PR_ROWS - 1) / PR_ROWS;
+  int best = 64;
+  long best_cost = -1;
+  for (int bx : {64, 128, 192, 256}) {
+    const long tiles = (long)tn * ((M + bx - 1) / bx);
+    const long cost = (tiles + sms - 1) / sms * (bx + 48);
+    if (best_cost < 0 || cost < best_cost) best = bx, best_cost = cost;
+  }
+  return best;
+}
+
+// The tensor map of y (M, N) as the epilogue stores it: boxes of 64 n
+// (bf16) or 32 n (float32) x the rows of a pass, 128-byte swizzled.
+template <typename OutT>
+bool output_map(CUtensorMap* map, void* y, int M, int N, int rows) {
+  wgmma_gemm::EncodeTiled fn = wgmma_gemm::encode_tiled();
+  if (!fn) return false;
+  constexpr bool F32 = sizeof(OutT) == 4;
+  const cuuint64_t dims[2] = {(cuuint64_t)N, (cuuint64_t)M};
+  const cuuint64_t strides[1] = {(cuuint64_t)N * sizeof(OutT)};
+  const cuuint32_t box[2] = {F32 ? 32u : 64u, (cuuint32_t)rows};
+  const cuuint32_t one[2] = {1, 1};
+  return fn(map, F32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, y,
+            dims, strides, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int BX, typename OutT>
+cudaError_t launch_prompt(const void* x, const int8_t* q, const float* scale, void* y, int M,
+                          int N, int K, cudaStream_t stream) {
+  CUtensorMap mx, mw, my = {};
+  if (!wgmma_gemm::operand_map(&mx, x, M, K, K, false, BX)) return cudaErrorInvalidValue;
+  // y's rows must be 16-byte aligned for a tensor map; else plain stores
+  const int direct = N % (16 / (int)sizeof(OutT)) != 0;
+  if (!direct && !output_map<OutT>(&my, y, M, N, pass_rows<BX, OutT>()))
+    return cudaErrorInvalidValue;
+  wgmma_gemm::EncodeTiled fn = wgmma_gemm::encode_tiled();
+  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)N};
+  const cuuint64_t strides[1] = {(cuuint64_t)K};
+  const cuuint32_t box[2] = {PR_BK, PR_ROWS};
+  const cuuint32_t one[2] = {1, 1};
+  if (fn(&mw, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<int8_t*>(q), dims, strides, box, one,
+         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
+         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  auto kernel = prompt_kernel<BX, OutT>;
+  constexpr size_t bytes = prompt_smem<BX>();
+  static_assert(bytes <= MAX_PROMPT_SMEM, "the ring and the staging fit");
   static bool done = false;
-  cudaError_t err = allow_smem(kernel, bytes, done);
+  cudaError_t err = allow_smem(kernel, (int)bytes, done);
   if (err != cudaSuccess) return err;
-  const dim3 grid((M + C::BM - 1) / C::BM, (N + C::BN - 1) / C::BN);
-  kernel<<<grid, THREADS, bytes, stream>>>(static_cast<const bf16*>(x), q, scale,
-                                          static_cast<OutT*>(y), M, N, K);
+  const int tiles_x = (M + BX - 1) / BX;
+  const long tiles = (long)((N + PR_ROWS - 1) / PR_ROWS) * tiles_x;
+  if (tiles > 0x7fffffff) return cudaErrorInvalidValue;
+  const int grid = tiles < num_sms() ? (int)tiles : num_sms();
+  kernel<<<grid, PR_THREADS, bytes, stream>>>(mx, mw, my, scale, static_cast<OutT*>(y), M, N,
+                                              tiles_x, (int)tiles, (K + PR_BK - 1) / PR_BK,
+                                              direct);
   return cudaGetLastError();
+}
+
+template <typename OutT>
+cudaError_t prompt(const void* x, const int8_t* q, const float* scale, void* y, int M, int N,
+                   int K, cudaStream_t s) {
+  switch (prompt_bx(M, N)) {
+    case 64: return launch_prompt<64, OutT>(x, q, scale, y, M, N, K, s);
+    case 128: return launch_prompt<128, OutT>(x, q, scale, y, M, N, K, s);
+    case 192: return launch_prompt<192, OutT>(x, q, scale, y, M, N, K, s);
+    default: return launch_prompt<256, OutT>(x, q, scale, y, M, N, K, s);
+  }
 }
 
 }  // namespace int8mm
@@ -506,15 +837,14 @@ extern "C" {
 int int8_matmul(const void* x, const int8_t* q, const float* scale, void* y, int M,
                 int N, int K, int out_f32, void* stream) {
   using namespace int8mm;
-  if (M <= 0 || N <= 0 || K <= 0 || K % 16 != 0 ||
-      (int64_t)(N + Large::BN - 1) / Large::BN > 65535 || (int64_t)(N + 15) / 16 > 65535)
+  if (M <= 0 || N <= 0 || K <= 0 || K % 16 != 0 || (int64_t)(N + 15) / 16 > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (M <= SMALL_MAX_M)
     return (int)(out_f32 ? decode<float>(x, q, scale, y, M, N, K, s)
                          : decode<bf16>(x, q, scale, y, M, N, K, s));
-  return (int)(out_f32 ? launch<Large, float>(x, q, scale, y, M, N, K, s)
-                       : launch<Large, bf16>(x, q, scale, y, M, N, K, s));
+  return (int)(out_f32 ? prompt<float>(x, q, scale, y, M, N, K, s)
+                       : prompt<bf16>(x, q, scale, y, M, N, K, s));
 }
 
 const char* int8_matmul_error_string(int code) {

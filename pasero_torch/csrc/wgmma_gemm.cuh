@@ -3,6 +3,10 @@
 // stages and wgmma products, for a caller's epilogue to consume. Used by
 // fused_ce.cu: its forward is one epilogue of it (the logsumexp partials of
 // each 128 x 256 logits tile), its three backward products three others.
+// Its PTX wrappers serve the other wgmma kernels too: the mbarriers, TMA,
+// descriptors, and wgmma_rs (A from registers, m64 x n 64-256), which
+// int8_matmul.cu's prompt kernel and flash_bwd.cu's P.V, dS.K and dS^T.Q
+// products issue.
 //
 // Shape: a persistent grid of at most one block per SM, each block of 384
 // threads walking 128 x 256 output tiles. Warpgroup 0 is the producer: one
@@ -134,6 +138,33 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lead, uint
          ((uint64_t)(stride >> 4) << 32) | (1ull << 62);
 }
 
+// The accumulator operands of a wgmma, d[o] .. d[o + 31], and their places
+// in its text: WGMMA_Rn names the first n (%0 .. %n-1).
+#define WGMMA_D8(o)                                                              \
+  "+f"(d[o]), "+f"(d[o + 1]), "+f"(d[o + 2]), "+f"(d[o + 3]), "+f"(d[o + 4]), \
+      "+f"(d[o + 5]), "+f"(d[o + 6]), "+f"(d[o + 7])
+#define WGMMA_D32(o) WGMMA_D8(o), WGMMA_D8(o + 8), WGMMA_D8(o + 16), WGMMA_D8(o + 24)
+#define WGMMA_R32 \
+  "%0, %1, %2, %3, %4, %5, %6, %7" \
+  ", %8, %9, %10, %11, %12, %13, %14, %15" \
+  ", %16, %17, %18, %19, %20, %21, %22, %23" \
+  ", %24, %25, %26, %27, %28, %29, %30, %31"
+#define WGMMA_R64 WGMMA_R32 \
+  ", %32, %33, %34, %35, %36, %37, %38, %39" \
+  ", %40, %41, %42, %43, %44, %45, %46, %47" \
+  ", %48, %49, %50, %51, %52, %53, %54, %55" \
+  ", %56, %57, %58, %59, %60, %61, %62, %63"
+#define WGMMA_R96 WGMMA_R64 \
+  ", %64, %65, %66, %67, %68, %69, %70, %71" \
+  ", %72, %73, %74, %75, %76, %77, %78, %79" \
+  ", %80, %81, %82, %83, %84, %85, %86, %87" \
+  ", %88, %89, %90, %91, %92, %93, %94, %95"
+#define WGMMA_R128 WGMMA_R96 \
+  ", %96, %97, %98, %99, %100, %101, %102, %103" \
+  ", %104, %105, %106, %107, %108, %109, %110, %111" \
+  ", %112, %113, %114, %115, %116, %117, %118, %119" \
+  ", %120, %121, %122, %123, %124, %125, %126, %127"
+
 // d (64 x 256, fp32) += A (64 x 16) . B (256 x 16)^T; TRANS_x = 1 for an
 // MN-major operand.
 template <int TRANS_A, int TRANS_B>
@@ -144,58 +175,49 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[ACC], uint64_t desc_
       "{\n"
       ".reg .pred p;\n"
       "setp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39,"
-      "%40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55,"
-      "%56, %57, %58, %59, %60, %61, %62, %63,"
-      "%64, %65, %66, %67, %68, %69, %70, %71,"
-      "%72, %73, %74, %75, %76, %77, %78, %79,"
-      "%80, %81, %82, %83, %84, %85, %86, %87,"
-      "%88, %89, %90, %91, %92, %93, %94, %95,"
-      "%96, %97, %98, %99, %100, %101, %102, %103,"
-      "%104, %105, %106, %107, %108, %109, %110, %111,"
-      "%112, %113, %114, %115, %116, %117, %118, %119,"
-      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {" WGMMA_R128
       "}, %128, %129, p, 1, 1, %131, %132;\n"
       "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
-        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
-        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
-        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
-        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
-        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
-        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
-        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
-        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : WGMMA_D32(0), WGMMA_D32(32), WGMMA_D32(64), WGMMA_D32(96)
       : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_A), "n"(TRANS_B));
+}
+
+// d (64 x N, fp32) += A (64 x 16, bf16 in registers in mma.sync's m16k16
+// A-fragment layout, one m16 slice a warp) . B (N x 16)^T, B read from
+// shared memory by its descriptor: K-major (TRANS_B = 0) or MN-major (1).
+// N is 64, 128, 192 or 256; d holds N / 2 sums a thread.
+template <int N, int TRANS_B>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                         uint64_t desc_b) {
+  static_assert(N == 64 || N == 128 || N == 192 || N == 256, "m64nNk16, N a multiple of 64");
+  if constexpr (N == 64)
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" WGMMA_R32
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+        : WGMMA_D32(0)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1), "n"(TRANS_B));
+  else if constexpr (N == 128)
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" WGMMA_R64
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+        : WGMMA_D32(0), WGMMA_D32(32)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1), "n"(TRANS_B));
+  else if constexpr (N == 192)
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {" WGMMA_R96
+        "}, {%96, %97, %98, %99}, %100, p, 1, 1, %102;\n}\n"
+        : WGMMA_D32(0), WGMMA_D32(32), WGMMA_D32(64)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1), "n"(TRANS_B));
+  else
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {" WGMMA_R128
+        "}, {%128, %129, %130, %131}, %132, p, 1, 1, %134;\n}\n"
+        : WGMMA_D32(0), WGMMA_D32(32), WGMMA_D32(64), WGMMA_D32(96)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1), "n"(TRANS_B));
 }
 
 // -- the kernel ------------------------------------------------------------------

@@ -156,6 +156,27 @@ def _distance_buckets(Sq: int, Sk: int, bidirectional: bool,
                                       max_distance)).to(device)
 
 
+@functools.lru_cache(maxsize=64)
+def t5_far_tiles(Sq: int, Sk: int, bidirectional: bool, num_buckets: int,
+                 max_distance: int) -> tuple:
+    """The T5 dq kernel's plan of far tiles, (neg, pos, b_neg, b_pos): a
+    64 x 64 tile of query slots q0 .. and key slots k0 .. (q0 and k0
+    multiples of 64) with k0 - q0 <= neg has every distance of its 127
+    diagonals, clamped into the index of ``t5_distance_buckets``, in b_neg,
+    the index's first bucket; with k0 - q0 >= pos in b_pos, its last. Each
+    bound is the tightest multiple of 64 for which that holds."""
+    index = _distance_buckets(Sq, Sk, bool(bidirectional), num_buckets,
+                              max_distance, "cpu").numpy()
+    b_neg, b_pos = int(index[0]), int(index[-1])
+    other = np.flatnonzero(index != b_pos)        # last entry not in b_pos
+    d_pos = (other[-1] + 1 if len(other) else 0) - (Sq - 1)
+    other = np.flatnonzero(index != b_neg)        # first entry not in b_neg
+    d_neg = (other[0] - 1 if len(other) else len(index) - 1) - (Sq - 1)
+    pos = -(-(int(d_pos) + 63) // 64) * 64       # tile distances k0 - q0 +- 63
+    neg = (int(d_neg) - 63) // 64 * 64
+    return neg, pos, b_neg, b_pos
+
+
 def t5_distance_buckets(Sq: int, Sk: int, bidirectional: bool,
                         num_buckets: int, max_distance: int,
                         device=None) -> torch.Tensor:

@@ -12,11 +12,13 @@ streamed ``_fwd_stream`` :544, ``_bwd_stream`` :738 and ``_compute_demb``
 ``torch.autograd.Function`` that returns ``out`` and keeps ``lse`` for its
 backward. On CUDA tensors its forward launches ``flash_fwd`` and its
 backward ``flash_bwd_dq`` then ``flash_bwd_dkv`` (and ``flash_bwd_dbias``
-for the bias's gradient, ``flash_bwd_demb`` for the T5 table's): in
-bfloat16 the wgmma kernels of ``csrc/flash_bwd.cu`` for the forward, dq
-and dk/dv of every bias kind, the kernels of ``csrc/flash_attention.cu``
-for dbias and demb; in float32 the kernels of ``csrc/flash_f32.cu`` for
-all of them. Each wrapper counts its launches, those of a biased, a T5 or
+for the bias's gradient; the T5 table's comes from the T5 dq kernel itself,
+``flash_bwd_dq(..., table_grad=True)``, in bfloat16 and from
+``flash_bwd_demb`` in float32): in bfloat16 the wgmma kernels of
+``csrc/flash_bwd.cu`` for the forward, dq (with demb) and dk/dv of every
+bias kind, the kernel of ``csrc/flash_attention.cu`` for dbias; in float32
+the kernels of ``csrc/flash_f32.cu`` for all of them. Each wrapper counts
+its launches, those of a biased, a T5 or
 a float32 kernel apart (``launch_counts`` names them ``flash_fwd_bias``,
 ``flash_fwd_t5``, ``flash_fwd_f32``, ``flash_fwd_t5_f32`` and so on). CPU
 tensors take ``flash_fwd_plain``, ``flash_bwd_plain``, ``flash_dbias_plain``
@@ -112,6 +114,13 @@ class T5Bias:
             rows = torch.arange(q0, min(Sq, q0 + step), device=x.device)
             out[..., q0:q0 + len(rows), :] = x[..., cols - rows[:, None]]
         return out
+
+    def far_tiles(self, Sq: int, Sk: int):
+        """The dq kernel's plan of tiles whose distances share the index's
+        first or last bucket (``models.positional.t5_far_tiles``)."""
+        from ..models.positional import t5_far_tiles
+        return t5_far_tiles(Sq, Sk, self.bidirectional, self.num_buckets,
+                            self.max_distance)
 
     def buckets(self, Sq: int, Sk: int):
         """(Sq, Sk) int32 bucket of every (query slot, key slot)."""
@@ -252,23 +261,21 @@ def _reduce_to(ds, shape):
 # after the key mask: the bias pointer (None for none), the plane strides of
 # its (batch, head) rows and the floats from one row to the next; the T5
 # table and distance index (None for none) and the number of buckets, in
-# ``_bias_args``'s order (dbias takes the first three, demb the last three)
+# ``_bias_args``'s order (dbias takes the first three, float32 demb the last
+# three)
 _BIAS_TYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
 
 
 def _library():
-    """``csrc/flash_attention.cu``: the bf16 dbias and demb kernels."""
+    """``csrc/flash_attention.cu``: the bf16 dbias kernel."""
     lib = cuda_build.load("flash_attention")
     if lib.flash_bwd_dbias.argtypes is None:
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         dims = [i32] * 6 + [f32, i32, i32, ptr]   # B H Hkv Sq Sk D, scale ...
         lib.flash_bwd_dbias.argtypes = [ptr] * 4 + _BIAS_TYPES[:3] + \
             [ptr] * 4 + dims
-        lib.flash_bwd_demb.argtypes = [ptr] * 4 + _BIAS_TYPES[4:] + \
-            [ptr] * 4 + dims
-        for fn in (lib.flash_bwd_dbias, lib.flash_bwd_demb):
-            fn.restype = ctypes.c_int
+        lib.flash_bwd_dbias.restype = ctypes.c_int
         lib.flash_error_string.argtypes = [ctypes.c_int]
         lib.flash_error_string.restype = ctypes.c_char_p
     return lib
@@ -276,13 +283,16 @@ def _library():
 
 def _set_types(lib, dbias_and_demb: bool):
     """argtypes of the forward, dq and dk/dv entry points (each takes the
-    bias operands in ``_bias_args``'s order), and with ``dbias_and_demb``
-    those of dbias and demb."""
+    bias operands in ``_bias_args``'s order); with ``dbias_and_demb`` (the
+    float32 library) those of dbias and demb, without it (the bf16 one)
+    dq's demb operands after dq: the partial sums and the plan of far
+    tiles."""
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     dims = [i32] * 6 + [f32, i32, i32, ptr]   # B H Hkv Sq Sk D, scale ...
     entries = [lib.fwd, lib.bwd_dq, lib.bwd_dkv]
     lib.fwd.argtypes = [ptr] * 4 + _BIAS_TYPES + [ptr] * 2 + dims
-    lib.bwd_dq.argtypes = [ptr] * 4 + _BIAS_TYPES + [ptr] * 5 + dims
+    lib.bwd_dq.argtypes = [ptr] * 4 + _BIAS_TYPES + [ptr] * 5 + \
+        ([] if dbias_and_demb else [ptr] + [i32] * 4) + dims
     lib.bwd_dkv.argtypes = [ptr] * 4 + _BIAS_TYPES + [ptr] * 5 + dims
     if dbias_and_demb:
         lib.bwd_dbias.argtypes = [ptr] * 4 + _BIAS_TYPES[:3] + [ptr] * 4 + dims
@@ -295,8 +305,8 @@ def _set_types(lib, dbias_and_demb: bool):
 
 
 def _bwd_library():
-    """``csrc/flash_bwd.cu``: the forward, dq and dk/dv kernels of every bias
-    kind, in bfloat16."""
+    """``csrc/flash_bwd.cu``: the forward, dq (with T5's demb) and dk/dv
+    kernels of every bias kind, in bfloat16."""
     lib = cuda_build.load("flash_bwd")
     if lib.bwd_dq.argtypes is None:
         _set_types(lib, False)
@@ -440,8 +450,8 @@ def _count(wrapper, bias, dtype) -> None:
 
 
 def _count_own(wrapper, f32: bool) -> None:
-    """One launch more of ``wrapper``'s only kernel (dbias, demb), float32
-    apart."""
+    """One launch more of ``wrapper``'s only kernel (dbias, float32 demb),
+    float32 apart."""
     if f32:
         wrapper.launches_f32 += 1
     else:
@@ -483,20 +493,44 @@ def _bwd_operands(q, out, do, lse):
 
 
 def flash_bwd_dq(q, k, v, kv_mask, out, lse, do, scale: float,
-                 causal: bool, window: Optional[int], bias=None):
+                 causal: bool, window: Optional[int], bias=None,
+                 table_grad: bool = False):
     """(dq in q's type, delta (B, H, Sq) float32) from one launch of the dq
     kernel (csrc/flash_bwd.cu's in bfloat16, csrc/flash_f32.cu's in
     float32), which also computes delta = sum(dO * out) for the dk/dv kernel
-    and re-adds ``bias`` (the forward's) to the recomputed scores."""
+    and re-adds ``bias`` (the forward's) to the recomputed scores.
+
+    With ``table_grad`` (bfloat16 q and a T5Bias ``bias``) the same launch
+    also sums its float32 dS by bucket: the kernel writes one
+    (num_buckets,) row of partial sums per (batch, head, 64-row query tile),
+    without atomics, and a torch sum over the batches and query tiles
+    follows, as JAX's grid sums them in order (flash_attention.py:1255-1318);
+    it returns (dq, delta, the table's gradient (num_buckets, H) float32).
+    Such a launch counts as a T5 dq launch and also in
+    ``t5_demb_launches`` (``flash_bwd_dq_t5_demb`` in ``launch_counts``)."""
     q, k, v, mask, dims = _cuda_args(q, k, v, kv_mask, window)
     bias_ops = _bias_args(bias, q, dims)
     out, do, lse = _bwd_operands(q, out, do, lse)
+    f32 = q.dtype == torch.float32
+    if table_grad and (f32 or not isinstance(bias, T5Bias)):
+        raise ValueError("the dq kernel sums the table's gradient for a "
+                         "T5Bias in bfloat16 only (float32: flash_bwd_demb)")
     dq = torch.empty_like(q)
     delta = torch.empty_like(lse)
+    B, H, _, Sq, Sk, _ = dims
+    partial, plan = None, (0, 0, 0, 0)
+    if table_grad:
+        partial = torch.empty((B, H, -(-Sq // 64), bias.num_buckets),
+                              dtype=torch.float32, device=q.device)
+        plan = bias.far_tiles(Sq, Sk)
+    tail = () if f32 else (partial, *plan)
     _launch("bwd_dq", q.device, q, k, v, mask, *bias_ops, out, do, lse, delta,
-            dq, *_scalars(dims, scale, causal, window),
+            dq, *tail, *_scalars(dims, scale, causal, window),
             lib=_flash_library(q))
     _count(flash_bwd_dq, bias, q.dtype)
+    if table_grad:
+        flash_bwd_dq.t5_demb_launches += 1
+        return dq, delta, partial.sum(dim=(0, 2)).t()
     return dq, delta
 
 
@@ -551,14 +585,19 @@ def flash_bwd_dbias(q, k, v, kv_mask, bias, do, lse, delta, scale: float,
 
 def flash_bwd_demb(q, k, v, kv_mask, t5: T5Bias, do, lse, delta,
                    scale: float, causal: bool, window: Optional[int]):
-    """The T5 table's gradient, (num_buckets, H) float32, from one launch of
-    the demb kernel: dS = P (dP - delta), zero where masked, summed by
-    bucket per head (csrc/flash_attention.cu's kernel in bfloat16,
-    csrc/flash_f32.cu's in float32, counted in ``launches_f32``). The kernel
-    writes one (num_buckets,) row of partial sums per (batch, head, query
-    tile), without atomics; a torch sum over the batches and query tiles
-    follows, as JAX's grid sums them in order
-    (flash_attention.py:1255-1318)."""
+    """The T5 table's gradient in float32, (num_buckets, H) float32, from
+    one launch of csrc/flash_f32.cu's demb kernel (counted in
+    ``launches_f32``): dS = P (dP - delta), zero where masked, summed by
+    bucket per head. The kernel writes one (num_buckets,) row of partial
+    sums per (batch, head, query tile), without atomics; a torch sum over
+    the batches and query tiles follows, as JAX's grid sums them in order
+    (flash_attention.py:1255-1318). In bfloat16 the T5 dq kernel sums the
+    table's gradient itself (``flash_bwd_dq(..., table_grad=True)``): there
+    is no separate bf16 demb kernel, and ``launch_counts`` keeps
+    ``flash_bwd_demb`` at 0."""
+    if q.dtype != torch.float32:
+        raise TypeError("in bfloat16 the T5 dq kernel sums the table's "
+                        "gradient: flash_bwd_dq(..., table_grad=True)")
     q, k, v, mask, dims = _cuda_args(q, k, v, kv_mask, window)
     table, index, nb = _t5_args(t5, q, dims)
     _, do, lse = _bwd_operands(q, None, do, lse)
@@ -567,12 +606,10 @@ def flash_bwd_demb(q, k, v, kv_mask, t5: T5Bias, do, lse, delta,
     tiles = -(-Sq // 64)
     partial = torch.empty((B, H, tiles, nb), dtype=torch.float32,
                           device=q.device)
-    f32 = q.dtype == torch.float32
-    _launch("bwd_demb" if f32 else "flash_bwd_demb", q.device, q, k, v, mask,
-            table, index, nb, do, lse, delta, partial,
-            *_scalars(dims, scale, causal, window),
-            lib=_f32_library() if f32 else None)
-    _count_own(flash_bwd_demb, f32)
+    _launch("bwd_demb", q.device, q, k, v, mask, table, index, nb, do, lse,
+            delta, partial, *_scalars(dims, scale, causal, window),
+            lib=_f32_library())
+    _count_own(flash_bwd_demb, True)
     return partial.sum(dim=(0, 2)).t()
 
 
@@ -581,13 +618,17 @@ def launch_counts() -> dict:
     instances of the forward, dq and dk/dv kernels count apart, as
     ``*_bias`` and ``*_t5``, and the float32 instances of every kernel as
     ``*_f32`` (``flash_fwd_f32``, ``flash_fwd_bias_f32``,
-    ``flash_fwd_t5_f32``, ..., ``flash_bwd_demb_f32``)."""
+    ``flash_fwd_t5_f32``, ..., ``flash_bwd_demb_f32``). The T5 dq
+    launches that also sum the table's gradient count again as
+    ``flash_bwd_dq_t5_demb`` (bfloat16 only: its ``_f32`` twin stays 0)."""
     counts = {}
     for end in ("", "_f32"):
         for kind, attr in (("", "launches"), ("_bias", "bias_launches"),
                            ("_t5", "t5_launches")):
             counts.update({fn.__name__ + kind + end: getattr(fn, attr + end)
                            for fn in _BY_KIND})
+        counts["flash_bwd_dq_t5_demb" + end] = getattr(
+            flash_bwd_dq, "t5_demb_launches" + end)
         for fn in (flash_bwd_dbias, flash_bwd_demb):
             counts[fn.__name__ + end] = getattr(fn, "launches" + end)
     return counts
@@ -598,6 +639,7 @@ def reset_launch_counts() -> None:
         for fn in _BY_KIND:
             for attr in ("launches", "bias_launches", "t5_launches"):
                 setattr(fn, attr + end, 0)
+        setattr(flash_bwd_dq, "t5_demb_launches" + end, 0)
         for fn in (flash_bwd_dbias, flash_bwd_demb):
             setattr(fn, "launches" + end, 0)
 
@@ -616,13 +658,19 @@ def flash_bwd(q, k, v, kv_mask, out, lse, do, scale: float, causal: bool,
 def _cuda_backward(q, k, v, kv_mask, out, lse, do, scale, causal, window,
                    bias, need_dbias: bool):
     """(dq, dk, dv, the bias's or the T5 table's gradient or None) from the
-    kernels."""
+    kernels; in bfloat16 the T5 dq kernel sums the table's gradient."""
     args = (scale, causal, window)
+    t5 = isinstance(bias, T5Bias)
+    if need_dbias and t5 and q.dtype == torch.bfloat16:
+        dq, delta, demb = flash_bwd_dq(q, k, v, kv_mask, out, lse, do, *args,
+                                       bias, table_grad=True)
+        dk, dv = flash_bwd_dkv(q, k, v, kv_mask, do, lse, delta, *args, bias)
+        return dq, dk, dv, demb
     dq, delta = flash_bwd_dq(q, k, v, kv_mask, out, lse, do, *args, bias)
     dk, dv = flash_bwd_dkv(q, k, v, kv_mask, do, lse, delta, *args, bias)
     dbias = None
     if need_dbias:
-        grad = flash_bwd_demb if isinstance(bias, T5Bias) else \
+        grad = flash_bwd_demb if t5 else \
             flash_bwd_dbias
         dbias = grad(q, k, v, kv_mask, bias, do, lse, delta, *args)
     return dq, dk, dv, dbias
@@ -651,8 +699,8 @@ def _route(x, kernel, plain):
 
 class _FlashAttention(torch.autograd.Function):
     """``bias`` is a dense bias, or with ``t5`` (JAX's ``_flash_t5``
-    custom VJP, :1363-1395) the T5 table, whose gradient is the demb
-    kernel's."""
+    custom VJP, :1363-1395) the T5 table, whose gradient the T5 dq kernel
+    sums (bfloat16) or the float32 demb kernel's."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_mask, bias, t5, scale, causal, window):

@@ -528,8 +528,11 @@ KERNELS = {"slot_write": "slot_write_kernel",
            # flash_bwd:: the bf16 ones of every bias kind, flash_f32:: the
            # float32 ones
            "flash_fwd": "::fwd_kernel",
-           # the decode kernel (M <= 80) and the prompt's
+           # the decode kernel (M <= 80) and the prompt's, together and
+           # apart
            "int8_matmul": "int8mm::",
+           "int8_decode": "int8mm::decode_kernel",
+           "int8_prompt": "int8mm::prompt_kernel",
            "fused_head_partials": "partials_kernel",
            "fused_head_combine": "combine_kernel",
            "power_mel": "power_mel_kernel"}

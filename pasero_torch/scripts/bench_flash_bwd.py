@@ -19,13 +19,19 @@ calls replayed between CUDA events (host launch costs left out). Prints one
 JSON line: the card's name and power limit, then per case a list of its
 readings (``--repeats``, the cases timed in turn), each with its shape and,
 for the case's bias (if it has one) and without one, the ``--parts`` of the
-forward, dq and dk/dv and, with both of the latter, the backward's sum.
+forward, dq and dk/dv and, with both of the latter, the backward's sum. The
+part "demb" (T5 cases) is the dq launch that also gives the T5 table's
+gradient: the T5 dq kernel with its demb where the checkout's
+``flash_bwd_dq`` takes ``table_grad``, else (an older checkout) the dq
+kernel and the separate demb kernel together.
 """
 
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
+import statistics
 import subprocess
 
 import torch
@@ -55,6 +61,7 @@ CASES = {
     "llama_32768": ((1, 32, 32, 32768, 128), True, None, None),
 }
 PARTS = ("fwd", "dq", "dkv")
+ALL_PARTS = PARTS + ("demb",)
 
 
 def device_ms(fn, iters: int, replays: int) -> float:
@@ -105,6 +112,43 @@ def inputs(B, H, Hkv, S, D, kind):
                                          causal=kind != "encoder")
 
 
+def dq_with_table_grad(q, k, v, mask, out, lse, do, args, t5):
+    """A call that gives dq and the T5 table's gradient: the dq kernel's own
+    demb, or in a checkout without it the dq and the demb kernels."""
+    from pasero_torch.ops import flash_attention as fa
+    if "table_grad" in inspect.signature(fa.flash_bwd_dq).parameters:
+        return lambda: fa.flash_bwd_dq(q, k, v, mask, out, lse, do, *args, t5,
+                                       table_grad=True)
+
+    def both():
+        _, delta = fa.flash_bwd_dq(q, k, v, mask, out, lse, do, *args, t5)
+        return fa.flash_bwd_demb(q, k, v, mask, t5, do, lse, delta, *args)
+    return both
+
+
+def time_demb(shape, causal=False, kind="t5", readings=3) -> dict:
+    """At a T5 shape, device ms of the dq launch with the table's gradient
+    ("fused_ms", ``dq_with_table_grad``) and of the dq kernel without it
+    ("dq_ms"), read in turn ``readings`` times, medians."""
+    from pasero_torch.ops.flash_attention import flash_bwd_dq, flash_fwd
+    B, H, Hkv, S, D = shape
+    q, k, v, do, mask, t5 = inputs(B, H, Hkv, S, D, kind)
+    args = (D ** -0.5, causal, None)
+    n, r = (2, 2) if S > 8192 else (10, 5)
+    out, lse = flash_fwd(q, k, v, mask, *args, t5)
+    calls = {"fused_ms": dq_with_table_grad(q, k, v, mask, out, lse, do,
+                                            args, t5),
+             "dq_ms": lambda: flash_bwd_dq(q, k, v, mask, out, lse, do,
+                                           *args, t5)}
+    times = {name: [] for name in calls}
+    for _ in range(readings):
+        for name, fn in calls.items():
+            times[name].append(device_ms(fn, n, r))
+    del q, k, v, do, out, lse, calls
+    torch.cuda.empty_cache()
+    return {name: statistics.median(ts) for name, ts in times.items()}
+
+
 def time_case(shape, causal, kind, window=None, parts=PARTS,
               bias_free=True) -> dict:
     """Device ms of ``parts`` of the forward, dq and dk/dv (and, with both
@@ -130,7 +174,11 @@ def time_case(shape, causal, kind, window=None, parts=PARTS,
             "dq": lambda: flash_bwd_dq(q, k, v, mask, out, lse, do, *args, b),
             "dkv": lambda: flash_bwd_dkv(q, k, v, mask, do, lse, delta, *args,
                                          b)}
-        times = {part: device_ms(calls[part], n, r) for part in parts}
+        if name in ("t5", "t5_causal"):
+            calls["demb"] = dq_with_table_grad(q, k, v, mask, out, lse, do,
+                                               args, b)
+        times = {part: device_ms(calls[part], n, r) for part in parts
+                 if part in calls}
         if "dq" in times and "dkv" in times:
             times["bwd"] = times["dq"] + times["dkv"]
         res[name] = times
@@ -144,7 +192,8 @@ def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--cases", nargs="+", choices=sorted(CASES),
                         default=list(CASES))
-    parser.add_argument("--parts", nargs="+", choices=PARTS, default=PARTS)
+    parser.add_argument("--parts", nargs="+", choices=ALL_PARTS,
+                        default=PARTS)
     parser.add_argument("--repeats", type=int, default=1,
                         help="time every case this many times in turn")
     args = parser.parse_args(argv)

@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """The int8 weight product (``int8_matmul``, csrc/int8_matmul.cu) and the
 fused greedy heads (``fused_head_argmax``, csrc/fused_head.cu) on one card,
-at llama_1b's decode shapes: device ms per call beside ``F.linear`` on the
+at llama_1b's weight shapes: device ms per call beside ``F.linear`` on the
 same weight in bf16, and the sum over one llama_1b decoder call (22 layers
-of seven weights and the head).
+of seven weights and the head; at M = 1024 the 8 x 128-token prompt's).
 
     python -m pasero_torch.scripts.bench_int8 [--m 8 72 1024] [--heads]
+
+(``--m 81 130 256`` for short prompts.)
 
 Run against another checkout (a parent commit, to compare two versions in
 one call) from that checkout's root:
@@ -240,7 +242,7 @@ def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--m", type=int, nargs="+", default=[8, 72, 1024],
                         help="rows of x (decode 8, a speculative chunk 72, "
-                             "the prompt 1024)")
+                             "short prompts 81-256, the prompt 1024)")
     parser.add_argument("--heads", action="store_true",
                         help="also the fused heads (bf16 and int8) at each M")
     args = parser.parse_args(argv)

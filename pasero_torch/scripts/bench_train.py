@@ -28,9 +28,9 @@ bfloat16:
   translation defaults and dropout 0, T5's vocabulary of 32128, B = 32
   sentences of S = 512 source and T = 128 target tokens (FLAN-T5's
   fine-tuning shape) drawn by numpy seed 0; ``attention_kernel: flash``, so
-  every self-attention runs the T5 flash kernels with the table (and demb
-  for its gradient) and every cross-attention the bias-free ones, and the
-  loss runs through the fused CE;
+  every self-attention runs the T5 flash kernels with the table (the T5 dq
+  kernel also summing the table's gradient) and every cross-attention the
+  bias-free ones, and the loss runs through the fused CE;
 - ``--model whisper_base``: the whisper_base arch with the speech-translation
   defaults and dropout 0, Whisper's vocabulary of 51865, B = 16 utterances
   of 3000 log-mel frames (30 s; seeded normal features) into the
@@ -80,13 +80,12 @@ SHAPES = {"transformer": ("transformer", "translation", 0.1, 128, 128, 128,
 ATTENTION = {"bloom_560m": "flash", "t5_base": "flash"}
 # the port's kernels by a part of their names in a trace: the fused-CE
 # forward's product and merge and the backward's three products by their
-# epilogues, dbias and demb (flash::), and flash_bwd.cu's forward, dq and
-# dk/dv by their first template argument, the bias kind: 0 none, 1 a dense
-# bias, 2 T5's table
+# epilogues, dbias (flash::), and flash_bwd.cu's forward, dq and dk/dv by
+# their first template argument, the bias kind: 0 none, 1 a dense bias, 2
+# T5's table (whose dq kernel also sums the table's gradient)
 KERNELS = ("fused_ce::FwdEpilogue", "fused_ce::fwd_combine_kernel",
            "fused_ce::DlogitsEpilogue", "fused_ce::DwEpilogue",
-           "fused_ce::DxEpilogue", "flash::dbias_kernel",
-           "flash::demb_kernel") + tuple(
+           "fused_ce::DxEpilogue", "flash::dbias_kernel") + tuple(
                f"flash_bwd::{name}_kernel<{kind},"
                for kind in (0, 1, 2) for name in ("fwd", "dq", "dkv"))
 

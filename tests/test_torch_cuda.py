@@ -817,9 +817,10 @@ def test_biased_flash_wrappers_raise_on_card():
     assert flash_fwd.bias_launches == before
 
 
-# The T5 kernels (the forward, dq and dk/dv with T5's table; demb) against
-# the plain version's float32 results of the same bf16 inputs and float32
-# table. out, dq, dk and dv within ``flash_limits`` with the table's bias
+# The T5 kernels (the forward, dq and dk/dv with T5's table; demb, which the
+# T5 dq kernel sums from its own float32 dS) against the plain version's
+# float32 results of the same bf16 inputs and float32 table. out, dq, dk and
+# dv within ``flash_limits`` with the table's bias
 # materialized from slot indices and added to the recomputed scores, as a
 # dense bias is. demb sums dS over every (batch, query, key) of a bucket, up
 # to 10^6 elements and more, so its limit is a sum too: per (bucket, head),
@@ -843,6 +844,15 @@ FLASH_T5_SHAPES = [  # (B, H, Hkv, S, D), causal, window, padded, bidirectional
     ((2, 4, 4, 200, 64), True, None, False, False),     # a decoder
     ((2, 8, 2, 300, 128), True, 64, True, True),        # GQA 4, a window
     ((3, 4, 2, 77, 32), False, None, True, False),      # unaligned
+]
+# demb in the dq kernel: every tile near (S <= 128), and tiles whose
+# distances all fall in one bucket (S >= 1024), at head dims 32, 64 and 128
+FLASH_T5_DEMB_SHAPES = [
+    ((2, 4, 4, 128, 32), True, None, True, False),      # near only, causal
+    ((2, 4, 2, 100, 128), False, None, True, True),     # near only, padded
+    ((1, 4, 4, 1100, 64), False, None, True, True),     # far tiles, padded
+    ((1, 4, 2, 1030, 128), True, 200, False, False),    # far tiles, a window
+    ((1, 2, 2, 1024, 32), False, None, False, False),   # far tiles
 ]
 
 
@@ -899,16 +909,16 @@ def flash_demb_limits(q, k, v, kv_mask, lse, do, out, scale, causal, window,
 
 
 def flash_t5_compare(shape, causal, window, padded, bidirectional) -> dict:
-    """The T5 kernels (forward, dq, dk/dv, demb; one launch each) against the
-    plain version on the same inputs at one shape, as ``flash_compare``
-    does, and the mutations the limits must reject (see above); then dq and
-    dk/dv once more on the same inputs. Returns the lse error, the excess of
-    out, dq, dk, dv and demb over their limits, the smallest excess of each
-    mutation, whether the second backward gave the same bits, and the max
-    abs errors."""
+    """The T5 kernels (forward, dq with demb, dk/dv; one launch each) against
+    the plain version on the same inputs at one shape, as ``flash_compare``
+    does, and the mutations the limits must reject (see above); then dq
+    (with demb, and without it) and dk/dv once more on the same inputs.
+    Returns the lse error, the excess of out, dq, dk, dv and demb over their
+    limits, the smallest excess of each mutation, whether the second
+    backward gave the same bits (demb too, and the dq without demb the same
+    as the dq with it), and the max abs errors."""
     from pasero_torch.ops.flash_attention import (T5Bias, flash_bwd,
                                                   flash_bwd_dbias,
-                                                  flash_bwd_demb,
                                                   flash_bwd_dkv, flash_bwd_dq,
                                                   flash_bwd_plain,
                                                   flash_demb_plain, flash_fwd,
@@ -920,9 +930,9 @@ def flash_t5_compare(shape, causal, window, padded, bidirectional) -> dict:
     do = do * rows[..., None]
     args = (D ** -0.5, causal, window)
     out, lse = flash_fwd(q, k, v, mask, *args, t5)
-    dq, delta = flash_bwd_dq(q, k, v, mask, out, lse, do, *args, t5)
+    dq, delta, demb = flash_bwd_dq(q, k, v, mask, out, lse, do, *args, t5,
+                                   table_grad=True)
     dk, dv = flash_bwd_dkv(q, k, v, mask, do, lse, delta, *args, t5)
-    demb = flash_bwd_demb(q, k, v, mask, t5, do, lse, delta, *args)
     f32 = [x.float() for x in (q, k, v)]
     ref_out, ref_lse = flash_fwd_plain(*f32, mask, *args, t5)
     ref = flash_bwd_plain(*f32, mask, out, ref_lse, do, *args, t5)
@@ -936,9 +946,11 @@ def flash_t5_compare(shape, causal, window, padded, bidirectional) -> dict:
     excess += [flash_excess(g, w, lim)
                for g, w, lim in zip((dq, dk, dv), ref, limits[1:])]
     excess.append(flash_excess(demb, ref_demb, demb_limit))
-    mutants = {"no_delta": flash_excess(flash_bwd_demb(
-        q, k, v, mask, t5, do, lse, torch.zeros_like(delta), *args),
-        ref_demb, demb_limit)}
+    # demb without delta: the dq kernel computes delta from out, so a zero
+    # out gives it none
+    mutants = {"no_delta": flash_excess(flash_bwd_dq(
+        q, k, v, mask, torch.zeros_like(out), lse, do, *args, t5,
+        table_grad=True)[2], ref_demb, demb_limit)}
     ds = flash_bwd_dbias(q, k, v, mask, t5.materialize(S, S).expand(
         B, H, S, S), do, lse, delta, *args)
     ds_demb = torch.zeros((H, t5.num_buckets), dtype=torch.float64,
@@ -965,7 +977,10 @@ def flash_t5_compare(shape, causal, window, padded, bidirectional) -> dict:
                                                bad_t5)[0], ref_out,
                                      limits[0], rows)
     again = flash_bwd(q, k, v, mask, out, lse, do, *args, t5)
-    same_bits = all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again))
+    dq2, _, demb2 = flash_bwd_dq(q, k, v, mask, out, lse, do, *args, t5,
+                                 table_grad=True)
+    same_bits = all(torch.equal(a, b) for a, b in zip(
+        (dq, dq, dk, dv, demb), again[:1] + (dq2,) + again[1:] + (demb2,)))
 
     def err(got, want, rows=None):
         diff = (got.float() - want.float()).abs()
@@ -981,7 +996,7 @@ def flash_t5_compare(shape, causal, window, padded, bidirectional) -> dict:
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,causal,window,padded,bidirectional",
-                         FLASH_T5_SHAPES)
+                         FLASH_T5_SHAPES + FLASH_T5_DEMB_SHAPES)
 def test_t5_flash_kernels_match_plain(shape, causal, window, padded,
                                       bidirectional):
     """out, dq, dk, dv and demb within their limits, lse within 1e-4; each
@@ -989,14 +1004,14 @@ def test_t5_flash_kernels_match_plain(shape, causal, window, padded,
     from pasero_torch.ops.flash_attention import launch_counts
     _need_card()
     names = ("flash_fwd_t5", "flash_bwd_dq_t5", "flash_bwd_dkv_t5",
-             "flash_bwd_demb", "flash_bwd_dbias")
+             "flash_bwd_dq_t5_demb", "flash_bwd_demb", "flash_bwd_dbias")
     before = launch_counts()
     result = flash_t5_compare(shape, causal, window, padded, bidirectional)
     after = launch_counts()
     mutants = result["mutants"]
     fwd_mutants = 2 + ("other_head" in mutants)
     assert [after[n] - before[n] for n in names] == \
-        [1 + fwd_mutants, 3, 3, 2, 1]
+        [1 + fwd_mutants, 5, 3, 3, 0, 1]
     assert result["lse_err"] <= 1e-4
     assert max(result["excess"]) <= 1.0, result["excess"]
     assert min(mutants.values()) > 1.0, mutants
@@ -1006,8 +1021,10 @@ def test_t5_flash_kernels_match_plain(shape, causal, window, padded,
 @pytest.mark.cuda
 def test_t5_table_gradient_through_flash_attention():
     """Through flash_attention's autograd: a T5 table that requires a
-    gradient launches the three T5 kernels and demb once each, and nothing
-    else; the gradient is (num_buckets, H) float32, the same bits twice."""
+    gradient launches the three T5 kernels once each, the dq kernel as its
+    instance that sums the table's gradient (``flash_bwd_dq_t5_demb``), and
+    nothing else; the gradient is (num_buckets, H)
+    float32, the same bits twice."""
     from pasero_torch.ops import flash_attention as fa
     _need_card()
     q, k, v, do, mask = flash_inputs(2, 8, 2, 128, 64, True)
@@ -1021,8 +1038,7 @@ def test_t5_table_gradient_through_flash_attention():
         out.backward(do)
         torch.cuda.synchronize()
         counts = fa.launch_counts()
-        want = {n: int(n.endswith("_t5") or n == "flash_bwd_demb")
-                for n in counts}
+        want = {n: int(n.endswith(("_t5", "_t5_demb"))) for n in counts}
         assert counts == want, counts
         assert table.grad.shape == (32, 8) and \
             table.grad.dtype == torch.float32
@@ -1374,6 +1390,12 @@ INT8_RAGGED = [(8, 256, 2192), (130, 48, 515)]
 # (the last one cut short) the cluster's blocks split unevenly
 INT8_DECODE = [(M, 2048, 2048) for M in (1, 16)] + \
     [(M, 2048, 256) for M in (80, 81)] + [(8, 2320, 768), (72, 1040, 300)]
+# the prompt kernel (M > 80): each x tile it picks (64, 128, 192, 256 rows),
+# M, N and K ragged against them, rows of y 16-byte aligned (a TMA store)
+# and not (plain stores)
+INT8_PROMPT = [(81, 2048, 2048), (130, 2048, 5632), (256, 2048, 2048),
+               (1000, 2320, 515), (1000, 2320, 2048), (1000, 1040, 5632),
+               (2000, 1040, 30000), (2048, 1040, 300)]
 HEAD_SHAPES = [(N, 2048, 32000) for N in (8, 72, 1024)] + [(8, 256, 2192)]
 
 
@@ -1446,7 +1468,8 @@ def head_compare(N, E, V, q8: bool) -> dict:
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", INT8_SHAPES + INT8_RAGGED + INT8_DECODE)
+@pytest.mark.parametrize("shape", INT8_SHAPES + INT8_RAGGED + INT8_DECODE
+                         + INT8_PROMPT)
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
 def test_int8_matmul_matches_plain(shape, out_dtype):
     from pasero_torch.ops.quantize import int8_matmul

@@ -29,7 +29,8 @@ import torch
 import pasero_tpu.ops.flash_attention as jax_fa
 from pasero_tpu.models import positional as jax_positional
 from pasero_torch.models.positional import (t5_bias_from_table, t5_bucket,
-                                            t5_distance_buckets)
+                                            t5_distance_buckets,
+                                            t5_far_tiles)
 from pasero_torch.ops.flash_attention import T5Bias, flash_attention
 
 # (rtol, atol) of out and of the gradients, per case (see the docstring)
@@ -72,6 +73,42 @@ def test_distance_buckets_match_jax_bit_for_bit(bidirectional, nb, maxd):
     q, k = np.array([0, 17, 299, 299]), np.array([65000, 5, 0, 65834])
     np.testing.assert_array_equal(index[k - q + Sq - 1],
                                   want[65535 - (k - q)])
+
+
+@pytest.mark.parametrize("bidirectional", [True, False])
+@pytest.mark.parametrize("nb,maxd", [(32, 128), (32, 64)])
+def test_each_bucket_is_one_run_of_distances(bidirectional, nb, maxd):
+    """The T5 dq kernel sums its table's gradient by runs of consecutive
+    distances (csrc/flash_bwd.cu, DEMB_LD): every bucket of the index must
+    be one contiguous run, at every distance t5_base (32 buckets, 128) and
+    t5-mini meet, here all of +-65535."""
+    index = t5_distance_buckets(65536, 65536, bidirectional, nb,
+                                maxd).numpy()
+    starts = np.flatnonzero(np.diff(index)) + 1
+    runs = index[np.concatenate([[0], starts])]
+    assert len(np.unique(runs)) == len(runs)
+
+
+@pytest.mark.parametrize("bidirectional", [True, False])
+def test_far_tile_plan_matches_a_scan_of_the_index(bidirectional):
+    """``t5_far_tiles`` against a brute-force scan of the index of t5_base's
+    (and t5-mini's) 32 buckets up to 128: at every tile offset k0 - q0 (a
+    multiple of 64), the plan calls a tile far on a side exactly when all
+    127 of its distances, clamped into the index, lie in that side's end
+    bucket; at t5_base's encoder (512) and decoder (128) lengths, t5-mini's
+    (256), an unequal pair and 32768."""
+    for Sq, Sk in ((512, 512), (128, 128), (256, 256), (100, 300),
+                   (32768, 32768)):
+        index = t5_distance_buckets(Sq, Sk, bidirectional, 32, 128).numpy()
+        neg, pos, b_neg, b_pos = t5_far_tiles(Sq, Sk, bidirectional, 32, 128)
+        assert (b_neg, b_pos) == (index[0], index[-1])
+        offsets = np.arange(-(Sq // 64 + 3) * 64, (Sk // 64 + 3) * 64, 64)
+        d = offsets[:, None] + np.arange(-63, 64)[None, :]
+        tiles = index[np.clip(d + Sq - 1, 0, Sq + Sk - 2)]
+        np.testing.assert_array_equal(offsets <= neg,
+                                      (tiles == b_neg).all(axis=1))
+        np.testing.assert_array_equal(offsets >= pos,
+                                      (tiles == b_pos).all(axis=1))
 
 
 @pytest.mark.parametrize("bidirectional", [True, False])
