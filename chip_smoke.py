@@ -222,8 +222,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    their limits or more, the same bits from two backward calls, and a
    learned bias launching the float32 dbias kernel once; then their device
    time per call (CUDA graph) at F32_TIMED's shapes beside the plain
-   version's, the bound (float32 operations at 67 TFLOP/s or bytes) and
-   float32 SDPA.
+   version's, the bound (float32-accurate operations at the lesser time of
+   67 TFLOP/s on the CUDA cores and of split TF32 on the tensor cores, 495 /
+   3 TFLOP/s, both printed; or bytes) and float32 SDPA.
 
 The second-to-last line is one JSON object {"kernels": [...]}; the last line
 is {"ok": true, "device": {...}}. Without CUDA the script exits 1 and
@@ -247,6 +248,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # time_ms, bench_int8's eager_ms, come from pasero_torch/scripts/bench_int8.py
 # once main has found the package
 FP32_FLOPS = 67e12          # H100 SXM fp32 outside the tensor cores
+# float32-accurate products on the tensor cores: three TF32 products (hi hi,
+# hi lo, lo hi of split operands) at the dense TF32 rate
+FP32_TC_FLOPS = 495e12 / 3
 FP32_ADDS = FP32_FLOPS / 2  # an add takes an FMA's slot, counted as 2 flops
 GOLDEN = os.path.join(ROOT, "pasero_torch", "testdata",
                       "deen_mini2_test_beam5.jax.txt")
@@ -2810,8 +2814,10 @@ F32_CONFIGS = {"lm": LM_CONFIG, "alibi": os.path.join(TESTDATA, "alibi_mini.yaml
 def f32_timing(kind, cuda_tests) -> dict:
     """The float32 kernels of one bias kind at F32_TIMED's shape: device ms
     per call (CUDA graph) of the forward, dq, dk/dv and dbias or demb, the
-    bounds (the products over the card's float32 rate outside the tensor
-    cores, FP32_FLOPS, or the float32 bytes over the memory rate), the plain
+    bounds (the products at float32 accuracy over the lesser time of the
+    card's float32 rate outside the tensor cores, FP32_FLOPS, and of split
+    TF32 on them, FP32_TC_FLOPS, both kept; or the float32 bytes over the
+    memory rate), the plain
     version's ms, and the library yardstick: F.scaled_dot_product_attention
     on the float32 operands (the bias materialized as a float32 attn_mask),
     its backward, with the mask's gradient for dbias and demb (index_add_ by
@@ -2843,8 +2849,12 @@ def f32_timing(kind, cuda_tests) -> dict:
         else 4.0 * pairs / H * dense.shape[1] * dense.shape[0] / B)
 
     def bound(products, nbytes):
-        ops, mem = products * product / FP32_FLOPS, nbytes / HBM_BYTES_PER_S
+        core, tc = (products * product / rate
+                    for rate in (FP32_FLOPS, FP32_TC_FLOPS))
+        ops, mem = min(core, tc), nbytes / HBM_BYTES_PER_S
         return {"bound_ms": max(ops, mem) * 1e3, "ops_bound_ms": ops * 1e3,
+                "fp32_ops_bound_ms": core * 1e3,
+                "tf32x3_ops_bound_ms": tc * 1e3,
                 "bytes_bound_ms": mem * 1e3,
                 "bound_by": "operations" if ops >= mem else "bytes"}
 
@@ -2921,8 +2931,10 @@ def f32_timing(kind, cuda_tests) -> dict:
         log(f"phase 20: float32 {key} with bias {kind} at "
             f"{tuple(res['shape'])} causal {causal}: device ms per call (CUDA "
             f"graph) {r['ms']:.4f}, bound {r['bound_ms']:.4f} "
-            f"({r['bound_by']}: float32 operations {r['ops_bound_ms']:.4f}, "
-            f"bytes {r['bytes_bound_ms']:.4f}), plain {r['plain_ms']:.4f}, "
+            f"({r['bound_by']}: float32 operations on the CUDA cores "
+            f"{r['fp32_ops_bound_ms']:.4f}, as split TF32 on the tensor "
+            f"cores {r['tf32x3_ops_bound_ms']:.4f}, bytes "
+            f"{r['bytes_bound_ms']:.4f}), plain {r['plain_ms']:.4f}, "
             f"library {r['library_ms']:.4f}")
     return res
 
@@ -3403,6 +3415,8 @@ def main():
             "bound_ms": own[key]["bound_ms"],
             "bound_by": own[key]["bound_by"],
             "ops_bound_ms": own[key]["ops_bound_ms"],
+            "fp32_ops_bound_ms": own[key]["fp32_ops_bound_ms"],
+            "tf32x3_ops_bound_ms": own[key]["tf32x3_ops_bound_ms"],
             "bytes_bound_ms": own[key]["bytes_bound_ms"],
             "library_ms": own[key]["library_ms"],
             "shape": own["shape"],

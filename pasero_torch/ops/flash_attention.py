@@ -33,9 +33,12 @@ exactly 0); ``delta = sum(dO * out)`` is taken in float32 over the rounded
 output. A row that sees no key gives out = 0 and lse = -1e30 (JAX's
 ``l == 0`` guard). The kernels take q, k and v all bfloat16 or all float32
 and round P to v's type before P.V and dS to q's type before dS.K and
-dS^T.Q, as the Pallas kernels do (so in float32 P and dS stay float32, and
-the float32 kernels' products are float32 FMAs, not TF32); the plain
-versions compute everything in float32.
+dS^T.Q, as the Pallas kernels do (so in float32 P and dS stay float32); the
+plain versions compute everything in float32. The float32 forward, dbias and
+demb kernels take float32 FMAs; the float32 dq and dk/dv kernels take the
+tensor cores with every operand (P and dS too) split into two TF32 parts
+(``split_tf32``) and three products of them, which keeps float32's accuracy
+where one TF32 product would keep about three decimal digits.
 
 The bias is float32 (b0, h0, Sq, Sk) with b0 in {1, B} and h0 in {1, H}
 (JAX's ``_bias_rows`` :162): the kernels read the row of (b, h) through its
@@ -223,6 +226,19 @@ def flash_bwd_plain(q, k, v, kv_mask, out, lse, do, scale: float,
     dk = dk.reshape(B, Hkv, group, Sk, D).sum(dim=2)
     dv = dv.reshape(B, Hkv, group, Sk, D).sum(dim=2)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def split_tf32(x):
+    """(hi, lo) of float32 ``x`` as the float32 backward kernels split their
+    operands for the tensor cores: hi = x rounded to TF32's 10 mantissa bits
+    (to nearest, ties away from zero: cvt.rna.tf32.f32) and lo = x - hi
+    rounded the same way, so a product a b is taken as hi_a hi_b + hi_a lo_b
+    + lo_a hi_b. For tests: the kernels' arithmetic on the CPU."""
+    def rna(t):
+        bits = t.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    hi = rna(x.float())
+    return hi, rna(x.float() - hi)
 
 
 def flash_dbias_plain(q, k, v, kv_mask, out, lse, do, scale: float,

@@ -7,6 +7,11 @@ a bias, at the training shapes of bloom_560m, t5_base and llama_1b, at long
 sequences and at the biased kernels' test shapes.
 
     python -m pasero_torch.scripts.bench_flash_bwd [--cases bloom_560m ...]
+    python -m pasero_torch.scripts.bench_flash_bwd --dtype float32 --parts dq dkv
+
+With ``--dtype float32`` the operands are float32 (the kernels of
+csrc/flash_f32.cu) and the cases default to F32_CASES, chip_smoke.py's
+F32_TIMED shapes, each timed with its bias only.
 
 Run against another checkout (a parent commit, to compare two versions in
 one call) from that checkout's root:
@@ -19,11 +24,13 @@ calls replayed between CUDA events (host launch costs left out). Prints one
 JSON line: the card's name and power limit, then per case a list of its
 readings (``--repeats``, the cases timed in turn), each with its shape and,
 for the case's bias (if it has one) and without one, the ``--parts`` of the
-forward, dq and dk/dv and, with both of the latter, the backward's sum. The
+forward, dq and dk/dv and, with both of the latter, the backward's sum;
+with ``--profile``, the device kernels of one call of each part by name. The
 part "demb" (T5 cases) is the dq launch that also gives the T5 table's
 gradient: the T5 dq kernel with its demb where the checkout's
 ``flash_bwd_dq`` takes ``table_grad``, else (an older checkout) the dq
-kernel and the separate demb kernel together.
+kernel and the separate demb kernel together; in float32 the demb kernel
+alone. The part "dbias" (dense-bias cases) is the dbias kernel.
 """
 
 from __future__ import annotations
@@ -60,8 +67,15 @@ CASES = {
     "llama_1b": ((4, 32, 4, 2048, 64), True, None, None),
     "llama_32768": ((1, 32, 32, 32768, 128), True, None, None),
 }
+# float32: chip_smoke.py's F32_TIMED shapes (rows 10 and 13, 9 and 12, 11
+# and 14 of PERF.md's table)
+F32_CASES = {
+    "f32_gqa": ((2, 8, 2, 2048, 64), True, None, None),
+    "f32_alibi": ((2, 8, 8, 2048, 64), True, "alibi", None),
+    "f32_t5": ((8, 12, 12, 512, 64), False, "t5", None),
+}
 PARTS = ("fwd", "dq", "dkv")
-ALL_PARTS = PARTS + ("demb",)
+ALL_PARTS = PARTS + ("demb", "dbias")
 
 
 def device_ms(fn, iters: int, replays: int) -> float:
@@ -88,14 +102,14 @@ def device_ms(fn, iters: int, replays: int) -> float:
     return start.elapsed_time(end) / (iters * replays)
 
 
-def inputs(B, H, Hkv, S, D, kind):
-    """Seeded bf16 q, k, v, dO, an all-present key mask and the bias (None
-    without one)."""
+def inputs(B, H, Hkv, S, D, kind, dtype=torch.bfloat16):
+    """Seeded q, k, v, dO in ``dtype``, an all-present key mask and the bias
+    (None without one)."""
     from pasero_torch.models.positional import alibi_bias
     from pasero_torch.ops.flash_attention import T5Bias
     gen = torch.Generator(device="cuda").manual_seed(0)
     q, k, v, do = (torch.randn(B, h, S, D, generator=gen, device="cuda")
-                   .to(torch.bfloat16) for h in (H, Hkv, Hkv, H))
+                   .to(dtype) for h in (H, Hkv, Hkv, H))
     mask = torch.ones(B, S, dtype=torch.bool, device="cuda")
     if kind is None:
         return q, k, v, do, mask, None
@@ -150,19 +164,21 @@ def time_demb(shape, causal=False, kind="t5", readings=3) -> dict:
 
 
 def time_case(shape, causal, kind, window=None, parts=PARTS,
-              bias_free=True) -> dict:
+              bias_free=True, dtype=torch.bfloat16) -> dict:
     """Device ms of ``parts`` of the forward, dq and dk/dv (and, with both
-    of dq and dk/dv, the backward's sum) at one shape, under the key
-    ``kind`` with the bias and, with ``bias_free``, under "none" without
-    it."""
-    from pasero_torch.ops.flash_attention import (flash_bwd_dkv, flash_bwd_dq,
+    of dq and dk/dv, the backward's sum) at one shape in ``dtype``, under
+    the key ``kind`` with the bias and, with ``bias_free``, under "none"
+    without it."""
+    from pasero_torch.ops.flash_attention import (flash_bwd_dbias,
+                                                  flash_bwd_demb,
+                                                  flash_bwd_dkv, flash_bwd_dq,
                                                   flash_fwd)
     B, H, Hkv, S, D = shape
-    q, k, v, do, mask, bias = inputs(B, H, Hkv, S, D, kind)
+    q, k, v, do, mask, bias = inputs(B, H, Hkv, S, D, kind, dtype)
     args = (D ** -0.5, causal, window)
     n, r = (2, 2) if S > 8192 else (10, 5)
     res = {"shape": list(shape), "causal": causal, "bias": kind,
-           "window": window}
+           "window": window, "dtype": str(dtype).split(".")[-1]}
     runs = [(kind, bias)] if kind is not None else []
     if bias_free or kind is None:
         runs.append(("none", None))
@@ -174,9 +190,15 @@ def time_case(shape, causal, kind, window=None, parts=PARTS,
             "dq": lambda: flash_bwd_dq(q, k, v, mask, out, lse, do, *args, b),
             "dkv": lambda: flash_bwd_dkv(q, k, v, mask, do, lse, delta, *args,
                                          b)}
-        if name in ("t5", "t5_causal"):
+        if name in ("t5", "t5_causal") and dtype == torch.float32:
+            calls["demb"] = lambda: flash_bwd_demb(q, k, v, mask, b, do, lse,
+                                                   delta, *args)
+        elif name in ("t5", "t5_causal"):
             calls["demb"] = dq_with_table_grad(q, k, v, mask, out, lse, do,
                                                args, b)
+        elif name != "none":
+            calls["dbias"] = lambda: flash_bwd_dbias(q, k, v, mask, b, do,
+                                                     lse, delta, *args)
         times = {part: device_ms(calls[part], n, r) for part in parts
                  if part in calls}
         if "dq" in times and "dkv" in times:
@@ -188,14 +210,57 @@ def time_case(shape, causal, kind, window=None, parts=PARTS,
     return res
 
 
+def profile_case(shape, causal, kind, window=None, parts=PARTS,
+                 dtype=torch.bfloat16) -> dict:
+    """The device kernels that one call of each of ``parts`` launches at
+    one shape with the case's bias, by name, with their device ms
+    (torch.profiler): which kernels a call runs, and nothing else."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pasero_torch.ops.flash_attention import (flash_bwd_dkv, flash_bwd_dq,
+                                                  flash_fwd)
+    B, H, Hkv, S, D = shape
+    q, k, v, do, mask, bias = inputs(B, H, Hkv, S, D, kind, dtype)
+    args = (D ** -0.5, causal, window)
+    out, lse = flash_fwd(q, k, v, mask, *args, bias)
+    _, delta = flash_bwd_dq(q, k, v, mask, out, lse, do, *args, bias)
+    calls = {"fwd": lambda: flash_fwd(q, k, v, mask, *args, bias),
+             "dq": lambda: flash_bwd_dq(q, k, v, mask, out, lse, do, *args,
+                                        bias),
+             "dkv": lambda: flash_bwd_dkv(q, k, v, mask, do, lse, delta,
+                                          *args, bias)}
+    res = {}
+    for part in parts:
+        if part not in calls:
+            continue
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            calls[part]()
+            torch.cuda.synchronize()
+        kernels = {}
+        for evt in prof.events():
+            if evt.device_type == torch.autograd.DeviceType.CUDA:
+                kernels[evt.name] = kernels.get(evt.name, 0.0) + \
+                    evt.time_range.elapsed_us() / 1e3
+        res[part] = kernels
+    del q, k, v, do, out, lse, delta, calls
+    torch.cuda.empty_cache()
+    return res
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser()
-    parser.add_argument("--cases", nargs="+", choices=sorted(CASES),
-                        default=list(CASES))
+    parser.add_argument("--cases", nargs="+",
+                        choices=sorted(CASES) + sorted(F32_CASES))
+    parser.add_argument("--dtype", choices=("bfloat16", "float32"),
+                        default="bfloat16")
     parser.add_argument("--parts", nargs="+", choices=ALL_PARTS,
                         default=PARTS)
     parser.add_argument("--repeats", type=int, default=1,
                         help="time every case this many times in turn")
+    parser.add_argument("--profile", action="store_true",
+                        help="also name the device kernels of one call of "
+                             "each part (torch.profiler)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("this benchmark measures a CUDA card and none is "
@@ -203,11 +268,20 @@ def main(argv=None):
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
-    result = {"card": smi, "cases": {name: [] for name in args.cases}}
+    dtype = getattr(torch, args.dtype)
+    f32 = dtype == torch.float32
+    cases = {**CASES, **F32_CASES}
+    names = args.cases or list(F32_CASES if f32 else CASES)
+    result = {"card": smi, "cases": {name: [] for name in names}}
     for _ in range(args.repeats):
-        for name in args.cases:
-            result["cases"][name].append(time_case(*CASES[name],
-                                                   parts=args.parts))
+        for name in names:
+            result["cases"][name].append(time_case(
+                *cases[name], parts=args.parts, bias_free=not f32,
+                dtype=dtype))
+    if args.profile:
+        result["profile"] = {name: profile_case(*cases[name],
+                                                parts=args.parts, dtype=dtype)
+                             for name in names}
     print(json.dumps(result))
     return result
 

@@ -1105,6 +1105,8 @@ FLASH_F32_CASES = [   # (B, H, Hkv, S, D), causal, window, padded, bias kind
     ((2, 8, 2, 300, 64), True, 64, True, "learned_1xH"),  # with dbias
     ((2, 4, 4, 256, 64), False, None, True, "t5"),       # bidirectional, demb
     ((2, 4, 2, 200, 64), True, None, False, "t5_causal"),
+    ((1, 8, 1, 160, 64), True, None, True, None),        # a cluster of 8
+    ((2, 12, 2, 150, 64), False, None, True, "t5"),      # a cluster of 6
 ] + [((2, 4, 2, 130, D), kind != "t5", None, True, kind)   # every D, kind
      for kind in (None, "learned_1xH", "t5") for D in (32, 128)]
 

@@ -64,6 +64,7 @@ from pasero_torch.models.transformer import Transformer
 from pasero_torch.ops import quantize as tq
 
 from test_torch_decoder_only import VOCAB, configs, flax_params
+from test_torch_train_cli import one_intra_op_thread
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TESTDATA = os.path.join(ROOT, "pasero_torch", "testdata")
@@ -143,8 +144,9 @@ def test_port_generator_matches_golden(name, minimum, monkeypatch):
     which, env = GOLDENS[name]
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    hyps = decode(TextGenerator, which, device="cpu",
-                  **({"quantize": "int8"} if env else {}))
+    with one_intra_op_thread():
+        hyps = decode(TextGenerator, which, device="cpu",
+                      **({"quantize": "int8"} if env else {}))
     golden = read_lines(os.path.join(TESTDATA, name))
     same = sum(h == g for h, g in zip(hyps, golden))
     print(f"{name}: the port (bf16, CPU) matches on {same}/{len(golden)}")

@@ -43,10 +43,12 @@ def test_golden_file_is_current():
 
 def test_port_generator_matches_golden():
     from pasero_torch.decoding.generator import TextGenerator
+    from test_torch_train_cli import one_intra_op_thread
     generator = TextGenerator.build(MODEL, device="cpu")
     assert generator.device.type == "cpu"
     lines = [l.strip() for l in read_lines(os.path.join(DATA, "test.de"))]
-    hyps = generator.decode(lines)
+    with one_intra_op_thread():
+        hyps = generator.decode(lines)
     golden = read_lines(GOLDEN)
     same = sum(h == g for h, g in zip(hyps, golden))
     print(f"port TextGenerator (bf16, CPU) matches the JAX output on "

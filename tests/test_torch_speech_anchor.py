@@ -50,7 +50,8 @@ import glob
 import json
 import os
 
-from test_torch_train_cli import ROOT, RTOL, STEPS, run_cli, train_flags
+from test_torch_train_cli import (ONE_THREAD, ROOT, RTOL, STEPS, run_cli,
+                                  train_flags)
 
 TESTDATA = os.path.join(ROOT, "pasero_torch", "testdata")
 ST = os.path.join(TESTDATA, "st-mini")
@@ -108,7 +109,8 @@ def test_training_cli_matches_jax_losses(tmp_path):
     with open(TRAIN20) as f:
         golden = json.load(f)["steps"]
     logs, model_dir, out = run_cli("pasero_torch.cli.train", str(tmp_path),
-                                   ["--device", "cpu"], config=CONFIG)
+                                   ["--device", "cpu"], env=ONE_THREAD,
+                                   config=CONFIG)
     assert [s["step"] for s in logs] == list(range(1, STEPS + 1))
     for got, want in zip(logs, golden):
         for key in ("loss", "nll_loss"):

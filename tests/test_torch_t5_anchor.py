@@ -46,7 +46,8 @@ import os
 
 import pytest
 
-from test_torch_train_cli import ROOT, STEPS, run_cli, train_flags
+from test_torch_train_cli import (ONE_THREAD, ROOT, STEPS, one_intra_op_thread,
+                                  run_cli, train_flags)
 
 TESTDATA = os.path.join(ROOT, "pasero_torch", "testdata")
 ANCHOR = os.path.join(TESTDATA, "t5-mini")
@@ -77,7 +78,8 @@ def decode(generator_cls, beam_size, **kwargs):
 @pytest.mark.parametrize("beam_size", [1, 5], ids=["greedy", "beam5"])
 def test_port_decode_matches_golden(beam_size):
     from pasero_torch.decoding.generator import TextGenerator
-    hyps = decode(TextGenerator, beam_size, device="cpu")
+    with one_intra_op_thread():
+        hyps = decode(TextGenerator, beam_size, device="cpu")
     golden = read_lines(GOLDEN[beam_size])
     same = sum(h == g for h, g in zip(hyps, golden))
     assert len(hyps) == len(golden) == 60 and same >= MIN_MATCH, same
@@ -86,11 +88,9 @@ def test_port_decode_matches_golden(beam_size):
 def test_port_cli_matches_jax_losses(tmp_path):
     with open(TRAIN) as f:
         golden = json.load(f)["steps"]
-    # one intra-op thread: a pool of threads stalls when the test workers
-    # share the cores
     logs, model_dir, _ = run_cli("pasero_torch.cli.train", str(tmp_path),
-                                 ["--device", "cpu"],
-                                 env={"OMP_NUM_THREADS": "1"}, config=CONFIG)
+                                 ["--device", "cpu"], env=ONE_THREAD,
+                                 config=CONFIG)
     assert [s["step"] for s in logs] == [s["step"] for s in golden] == \
         list(range(1, STEPS + 1))
     for got, want in zip(logs, golden):

@@ -17,6 +17,7 @@ Tolerance: 1 % relative on the losses of the first 5 steps — both compute
 in bfloat16, and bf16 rounds at other places in the two frameworks.
 """
 
+import contextlib
 import json
 import os
 import re
@@ -31,6 +32,25 @@ STEPS = 20
 RTOL = 0.01
 LOG_LINE = re.compile(r"step (\d+) \| loss ([\d.]+) \| nll_loss ([\d.]+) \|"
                       r".*\| gnorm ([\d.]+) \| lr ([\d.e+-]+)")
+
+
+# The environment of a CLI run by a test: one intra-op thread, as
+# ``one_intra_op_thread`` gives a test's own torch calls.
+ONE_THREAD = {"OMP_NUM_THREADS": "1"}
+
+
+@contextlib.contextmanager
+def one_intra_op_thread():
+    """torch on one intra-op thread inside the block: a pool of threads
+    stalls when the suite's test workers share the cores (a decode of 60
+    lines that takes 3 s alone took minutes in the suite)."""
+    import torch
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
 
 
 def train_flags(model_dir: str, ckpt: str, config: str = CONFIG) -> list:
