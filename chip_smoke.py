@@ -211,20 +211,24 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    losses within 0.1 % of the port's own CPU golden,
    lm_mini_f32_train20.cpu.json), alibi_mini.yaml and t5_mini.yaml (finite
    losses that fall), each with exact launch counts of the float32 kernels
-   of csrc/flash_f32.cu and none of a bf16 flash kernel; meanwhile those
-   kernels (forward, dq, dk/dv of every bias kind, dbias, demb) against
-   their plain version within the float32 error model of
+   of csrc/flash_f32.cu and none of a bf16 flash kernel (T5's demb from the
+   dq kernel's DEMB instance, flash_bwd_dq_t5_demb_f32); meanwhile those
+   kernels (forward, dq with T5's demb, dk/dv of every bias kind, dbias)
+   against their plain version within the float32 error model of
    tests/test_torch_cuda.py (``flash_f32_compare``) at every
    FLASH_F32_CASES case (GQA at 2048 keys, a ragged window at head dim 128,
-   Sk % 4 != 0, each bias kind at head dims 32, 64 and 128), with a TF32
-   product, another row's lse, a transposed bias, another head's bias or
-   column, shifted distances and dS rounded to bf16 rejected at 2.8 times
-   their limits or more, the same bits from two backward calls, and a
-   learned bias launching the float32 dbias kernel once; then their device
-   time per call (CUDA graph) at F32_TIMED's shapes beside the plain
+   Sk % 4 != 0, each bias kind at head dims 32, 64 and 128, T5 at
+   t5_base's width) and at F32_TIMED's shapes, with a TF32 product,
+   another row's lse, a transposed bias, another head's bias or column,
+   shifted distances and dS rounded to bf16 rejected at 2.8 times their
+   limits or more, the same bits from two forward and backward calls (out
+   and demb too), and a learned bias launching the float32 dbias kernel
+   once; then their device time per call (CUDA graph; the least and
+   greatest replay beside the mean) at F32_TIMED's shapes beside the plain
    version's, the bound (float32-accurate operations at the lesser time of
    67 TFLOP/s on the CUDA cores and of split TF32 on the tensor cores, 495 /
-   3 TFLOP/s, both printed; or bytes) and float32 SDPA.
+   3 TFLOP/s, both printed; or bytes) and float32 SDPA, and what demb adds
+   to the T5 dq kernel.
 
 The second-to-last line is one JSON object {"kernels": [...]}; the last line
 is {"ok": true, "device": {...}}. Without CUDA the script exits 1 and
@@ -282,10 +286,13 @@ def check(cond: bool, message: str):
         fail(message)
 
 
-def device_ms(fn, iters: int = 200, replays: int = 20) -> float:
+def device_ms(fn, iters: int = 200, replays: int = 20,
+              spread: dict = None) -> float:
     """Mean device milliseconds per call of ``fn``: ``iters`` calls captured
-    in one CUDA graph, replayed between CUDA events, so host launch costs
-    are left out."""
+    in one CUDA graph, replayed ``replays`` times, each replay between its
+    own CUDA events, so host launch costs are left out. With ``spread`` (a
+    dict), its "min_ms" and "max_ms" become the least and the greatest
+    replay's ms per call, so a one-off reading shows as one."""
     import torch
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -299,14 +306,17 @@ def device_ms(fn, iters: int = 200, replays: int = 20) -> float:
             fn()
     graph.replay()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(replays):
+    events = [torch.cuda.Event(enable_timing=True)
+              for _ in range(replays + 1)]
+    events[0].record()
+    for event in events[1:]:
         graph.replay()
-    end.record()
+        event.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / (iters * replays)
+    each = [a.elapsed_time(b) / iters for a, b in zip(events, events[1:])]
+    if spread is not None:
+        spread.update(min_ms=min(each), max_ms=max(each))
+    return events[0].elapsed_time(events[-1]) / (iters * replays)
 
 
 def library_times(fwd, inputs, do, iters: int = 10, eager_iters: int = 10,
@@ -2611,10 +2621,10 @@ T5_TRAIN_GOLDEN = os.path.join(TESTDATA, "t5_mini_train20.jax.json")
 def t5_train_counts(enc_layers: int, dec_layers: int, micro: int,
                     valid: int, f32: bool = False) -> dict:
     """The launches of T5 training: the T5 kernels in every self-attention
-    (in bf16 the dq kernel's instance that sums each table's gradient,
-    flash_bwd_dq_t5_demb; in float32 the demb kernel per table), the bias-free kernels in every cross-attention, no
-    dbias, no dense-bias kernel; with ``f32`` their float32 instances, and
-    no bf16 flash kernel."""
+    (the dq kernel's instance that sums each table's gradient,
+    flash_bwd_dq_t5_demb, and no separate demb kernel), the bias-free
+    kernels in every cross-attention, no dbias, no dense-bias kernel; with
+    ``f32`` their float32 instances, and no bf16 flash kernel."""
     layers = enc_layers + dec_layers
     return flash_counts({"flash_fwd": dec_layers * (micro + valid),
                          "flash_bwd_dq": dec_layers * micro,
@@ -2622,8 +2632,8 @@ def t5_train_counts(enc_layers: int, dec_layers: int, micro: int,
                          "flash_fwd_t5": layers * (micro + valid),
                          "flash_bwd_dq_t5": layers * micro,
                          "flash_bwd_dkv_t5": layers * micro,
-                         "flash_bwd_dq_t5_demb": 0 if f32 else layers * micro,
-                         "flash_bwd_demb": layers * micro if f32 else 0,
+                         "flash_bwd_dq_t5_demb": layers * micro,
+                         "flash_bwd_demb": 0,
                          "fused_ce_fwd": micro + valid,
                          "fused_ce_bwd": micro}, f32)
 
@@ -2813,21 +2823,29 @@ F32_CONFIGS = {"lm": LM_CONFIG, "alibi": os.path.join(TESTDATA, "alibi_mini.yaml
 
 def f32_timing(kind, cuda_tests) -> dict:
     """The float32 kernels of one bias kind at F32_TIMED's shape: device ms
-    per call (CUDA graph) of the forward, dq, dk/dv and dbias or demb, the
-    bounds (the products at float32 accuracy over the lesser time of the
-    card's float32 rate outside the tensor cores, FP32_FLOPS, and of split
-    TF32 on them, FP32_TC_FLOPS, both kept; or the float32 bytes over the
-    memory rate), the plain
-    version's ms, and the library yardstick: F.scaled_dot_product_attention
-    on the float32 operands (the bias materialized as a float32 attn_mask),
-    its backward, with the mask's gradient for dbias and demb (index_add_ by
-    bucket after it for demb)."""
+    per call (CUDA graph; the least and greatest replay beside the mean) of
+    the forward, dq, dk/dv and dbias or demb, the bounds (the products at
+    float32 accuracy over the lesser time of the card's float32 rate
+    outside the tensor cores, FP32_FLOPS, and of split TF32 on them,
+    FP32_TC_FLOPS, both kept; or the float32 bytes over the memory rate),
+    the plain version's ms, and the library yardstick:
+    F.scaled_dot_product_attention on the float32 operands (the bias
+    materialized as a float32 attn_mask), its backward, with the mask's
+    gradient for dbias and demb (index_add_ by bucket after it for demb).
+    demb is the T5 dq kernel's instance that also sums the table's
+    gradient, as phase 18 times the bf16 one: its bound is the dq's three
+    products and bytes, the partial rows' bytes and one float32 add of each
+    visible dS; beside it what it adds to the dq kernel ("adds_ms", read in
+    turn with the dq without it, "dq_ms") against that increment's own
+    bound ("adds_bound_ms"); its plain version the plain backward and
+    demb."""
     import torch
     import torch.nn.functional as F
     from pasero_torch.ops.flash_attention import (
-        T5Bias, flash_bwd_dbias, flash_bwd_demb, flash_bwd_dkv, flash_bwd_dq,
+        T5Bias, flash_bwd_dbias, flash_bwd_dkv, flash_bwd_dq,
         flash_bwd_plain, flash_dbias_plain, flash_demb_plain, flash_fwd,
         flash_fwd_plain, visible)
+    from pasero_torch.scripts.bench_flash_bwd import time_demb
     (B, H, Hkv, S, D), causal = F32_TIMED[kind]
     q, k, v, do, mask = cuda_tests.flash_inputs(B, H, Hkv, S, D, False,
                                                 dtype=torch.float32)
@@ -2848,10 +2866,11 @@ def f32_timing(kind, cuda_tests) -> dict:
         4 * (2 * S - 1) + 4 * 32 * H if kind == "t5"
         else 4.0 * pairs / H * dense.shape[1] * dense.shape[0] / B)
 
-    def bound(products, nbytes):
+    def bound(products, nbytes, adds=0.0):
         core, tc = (products * product / rate
                     for rate in (FP32_FLOPS, FP32_TC_FLOPS))
-        ops, mem = min(core, tc), nbytes / HBM_BYTES_PER_S
+        ops = max(min(core, tc), adds / FP32_ADDS)
+        mem = nbytes / HBM_BYTES_PER_S
         return {"bound_ms": max(ops, mem) * 1e3, "ops_bound_ms": ops * 1e3,
                 "fp32_ops_bound_ms": core * 1e3,
                 "tf32x3_ops_bound_ms": tc * 1e3,
@@ -2873,10 +2892,17 @@ def f32_timing(kind, cuda_tests) -> dict:
     grad = None
     if kind == "t5":
         grad = "demb"
-        res[grad] = bound(2, 2 * q_bytes + 2 * kv_bytes + 2 * row_bytes
-                          + bias_bytes)
-        kernels[grad] = lambda: flash_bwd_demb(q, k, v, mask, bias, do, lse,
-                                               delta, *args)
+        partial_bytes = 4 * B * H * -(-S // 64) * bias.num_buckets
+        res[grad] = bound(3, 4 * q_bytes + 2 * kv_bytes + 2 * row_bytes
+                          + bias_bytes + partial_bytes, pairs)
+        kernels[grad] = lambda: flash_bwd_dq(q, k, v, mask, out, lse, do,
+                                             *args, bias, table_grad=True)
+        fused = time_demb((B, H, Hkv, S, D), causal, kind,
+                          dtype=torch.float32)
+        res[grad].update(dq_ms=fused["dq_ms"],
+                         adds_ms=fused["fused_ms"] - fused["dq_ms"],
+                         adds_bound_ms=max(pairs / FP32_ADDS, partial_bytes
+                                           / HBM_BYTES_PER_S) * 1e3)
     elif kind is not None:
         grad = "dbias"
         res[grad] = bound(2, 2 * q_bytes + 2 * kv_bytes + 2 * row_bytes
@@ -2884,14 +2910,17 @@ def f32_timing(kind, cuda_tests) -> dict:
         kernels[grad] = lambda: flash_bwd_dbias(q, k, v, mask, bias, do, lse,
                                                 delta, *args)
     for key, fn in kernels.items():
-        res[key]["ms"] = device_ms(fn, 5, 3)
+        res[key]["ms"] = device_ms(fn, 5, 5, spread=res[key])
     plain = {"fwd": lambda: flash_fwd_plain(q, k, v, mask, *args, bias),
              "dq": lambda: flash_bwd_plain(q, k, v, mask, out, lse, do, *args,
                                            bias)}
-    if grad:
-        plain[grad] = lambda: (flash_demb_plain if kind == "t5" else
-                               flash_dbias_plain)(q, k, v, mask, out, lse, do,
-                                                  *args, bias)
+    if grad == "demb":
+        plain[grad] = lambda: (
+            flash_bwd_plain(q, k, v, mask, out, lse, do, *args, bias),
+            flash_demb_plain(q, k, v, mask, out, lse, do, *args, bias))
+    elif grad:
+        plain[grad] = lambda: flash_dbias_plain(q, k, v, mask, out, lse, do,
+                                                *args, bias)
     for key, fn in plain.items():
         res[key]["plain_ms"] = time_ms(fn, 3, 1)
     res["dkv"]["plain_ms"] = res["dq"]["plain_ms"]   # one plain backward
@@ -2930,12 +2959,16 @@ def f32_timing(kind, cuda_tests) -> dict:
         r = res[key]
         log(f"phase 20: float32 {key} with bias {kind} at "
             f"{tuple(res['shape'])} causal {causal}: device ms per call (CUDA "
-            f"graph) {r['ms']:.4f}, bound {r['bound_ms']:.4f} "
+            f"graph) {r['ms']:.4f} (replays {r['min_ms']:.4f}-"
+            f"{r['max_ms']:.4f}), bound {r['bound_ms']:.4f} "
             f"({r['bound_by']}: float32 operations on the CUDA cores "
             f"{r['fp32_ops_bound_ms']:.4f}, as split TF32 on the tensor "
             f"cores {r['tf32x3_ops_bound_ms']:.4f}, bytes "
             f"{r['bytes_bound_ms']:.4f}), plain {r['plain_ms']:.4f}, "
-            f"library {r['library_ms']:.4f}")
+            f"library {r['library_ms']:.4f}"
+            + (f"; the dq without demb {r['dq_ms']:.4f} read in turn, so "
+               f"demb adds {r['adds_ms']:.4f}, bound {r['adds_bound_ms']:.4f}"
+               if key == "demb" else ""))
     return res
 
 
@@ -2967,14 +3000,19 @@ def phase20() -> dict:
     plain version within the float32 error model of tests/test_torch_cuda.py
     (``flash_f32_compare``) at every FLASH_F32_CASES case and a learned bias
     launches the float32 dbias kernel once; then, alone on the card, their
-    times at F32_TIMED's shapes."""
+    times at F32_TIMED's shapes, where they are held against the plain
+    version too."""
     import torch
     from pasero_torch.ops import flash_attention as fa
     cuda_tests = load_test_module("test_torch_cuda")
     t0 = time.perf_counter()
     procs = {name: f32_cli(name) for name in F32_CONFIGS}
     errs = {}
-    for case in cuda_tests.FLASH_F32_CASES:
+    cases = list(cuda_tests.FLASH_F32_CASES)
+    for kind, (shape, causal) in F32_TIMED.items():
+        if (shape, causal, None, False, kind) not in cases:
+            cases.append((shape, causal, None, False, kind))
+    for case in cases:
         r = cuda_tests.flash_f32_compare(*case)
         check(r["lse_err"] <= cuda_tests.F32_LSE_ATOL, f"float32 lse differs "
               f"at {case} by {r['lse_err']}")
@@ -2982,8 +3020,8 @@ def phase20() -> dict:
               f"{case}: {r['excess']} of their limits")
         check(min(r["mutants"].values()) >= 2.8, f"the float32 flash check "
               f"at {case} passes a mutation: {r['mutants']}")
-        check(r["same_bits"], f"two float32 backward calls at {case} gave "
-              "other bits")
+        check(r["same_bits"], f"two float32 forward and backward calls at "
+              f"{case} gave other bits")
         kind = case[-1] if case[-1] in (None, "t5") else (
             "t5" if case[-1] == "t5_causal" else "alibi")
         for key, e in r["max_abs_err"].items():
@@ -2994,7 +3032,9 @@ def phase20() -> dict:
             f"at {', '.join(f'{e:.3f}' for e in r['excess'])} of their limits, "
             f"lse {r['lse_err']:.2e}; mutations at "
             f"{json.dumps({k: round(v, 1) for k, v in r['mutants'].items()})} "
-            f"of them; dq, dk, dv the same bits twice")
+            f"of them; out, dq, dk, dv"
+            f"{' and demb' if 't5' in str(case[-1]) else ''} the same bits "
+            "twice")
         torch.cuda.empty_cache()
     res = {"errs": errs, "timing": {}}
     # a learned bias through flash_attention's autograd: dbias's one launch
@@ -3399,7 +3439,7 @@ def main():
             ("flash_fwd_t5_f32", "t5", "fwd", 544, "t5"),
             ("flash_bwd_dq_t5_f32", "t5", "dq", 738, "t5"),
             ("flash_bwd_dkv_t5_f32", "t5", "dkv", 738, "t5"),
-            ("flash_bwd_demb_f32", "t5", "demb", 1318, "t5")):
+            ("flash_bwd_dq_t5_demb_f32", "t5", "demb", 1318, "t5")):
         own = f32["timing"][kind]
         entry = {
             "name": name,
@@ -3411,6 +3451,8 @@ def main():
                          f32["learned_bias_launches"][name]),
             "max_abs_err": f32["errs"][(kind, key)],
             "ms": own[key]["ms"],
+            "min_ms": own[key]["min_ms"],
+            "max_ms": own[key]["max_ms"],
             "plain_ms": own[key]["plain_ms"],
             "bound_ms": own[key]["bound_ms"],
             "bound_by": own[key]["bound_by"],
@@ -3422,6 +3464,9 @@ def main():
             "shape": own["shape"],
             "causal": own["causal"],
         }
+        if key == "demb":   # what demb adds to the dq kernel
+            entry.update({k: own[key][k] for k in ("dq_ms", "adds_ms",
+                                                   "adds_bound_ms")})
         if cli is None:   # no main path launches it: a learned bias does
             entry["learned_bias_launches"] = entry["launches"]
             entry["launches"] = f32["cli"]["alibi"]["launches"][name]

@@ -1,7 +1,7 @@
 // Flash attention in float32 for grouped K/V heads, without a bias, with an
 // additive float32 bias or with T5's relative-position table: the forward
-// (out and lse), the backward's dq (and delta), dk and dv, and the gradients
-// of a dense bias (dbias) and of T5's table (demb):
+// (out and lse), the backward's dq (and delta, and with T5 the table's
+// gradient demb), dk and dv, and the gradient of a dense bias (dbias):
 //
 //   s[i, j]  = scale q[i] . k[j] (+ bias[i, j] | + table[index[j - i + Sq - 1], h])
 //   lse[i]   = log sum over visible j of exp(s[i, j])    (-1e30 if no key)
@@ -19,11 +19,11 @@
 // computes with float32 operands: there p.astype(v.dtype) (:228, :309, :534),
 // pc = p.astype(do.dtype) and ds.astype(q.dtype) (:723-728, :944-949) and
 // ds.astype(k.dtype) (:899, :998) change nothing. The products keep
-// float32's accuracy: the forward, dbias and demb take float32 FMAs on the
-// CUDA cores; dq and dk/dv take the tensor cores in split TF32 (below), never
-// a single TF32 product (which keeps about three decimal digits). The max
-// and lse are kept in natural units for every bias kind, as the biased
-// kernels keep them (the encoder ALiBi's -1e9 survives).
+// float32's accuracy: the forward, dq and dk/dv take the tensor cores in
+// split TF32 (below), never a single TF32 product (which keeps about three
+// decimal digits); dbias takes float32 FMAs on the CUDA cores. The max and
+// lse are kept in natural units for every bias kind, as the biased kernels
+// keep them (the encoder ALiBi's -1e9 survives).
 //
 // Kernels, instanced by bias kind (KIND: NO_BIAS, DENSE_BIAS, T5_BIAS, as in
 // flash_attention.cu and flash_bwd.cu) and head dim D (32, 64, 128; the
@@ -33,34 +33,30 @@
 //                _fwd_kernel (:186, through _fwd, :381) and
 //                _fwd_stream_kernel (:474, through _fwd_stream, :544);
 //   dq_kernel    _bwd_dq_packed_kernel (:963), _bwd_dq_kernel (:866),
-//                _bwd_dq_stream_kernel (:618);
+//                _bwd_dq_stream_kernel (:618); its T5 instance with DEMB
+//                also _demb_kernel (:1255, through _compute_demb, :1318);
 //   dkv_kernel   _bwd_dkv_packed_kernel (:1018), _bwd_dkv_kernel (:911),
 //                _bwd_dkv_stream_kernel (:676);
-//   dbias_kernel _dbias_kernel (:1160, through _compute_dbias, :1213);
-//   demb_kernel  _demb_kernel (:1255, through _compute_demb, :1318).
+//   dbias_kernel _dbias_kernel (:1160, through _compute_dbias, :1213).
 //
 // What bounds them: operations. One causal product at (2, 8, 2048, 64) is 2
 // B H S^2 D / 2 = 4.3 GFLOP: 0.064 ms at the card's float32 rate outside the
 // tensor cores (67 TFLOP/s), 0.026 ms as split TF32 (three products at 495
 // TFLOP/s); the forward does two, dq three, dk/dv four.
 //
-// The forward, dbias and demb, simple and right first: 256 threads (a 16 x
-// 16 grid) per block, one block per 64-row query tile. The block's own rows
-// stay in shared memory; the streamed K and V tiles are staged by 16-byte
-// cp.async, double-buffered, the next tile's copies in flight while this one
-// is used; rows are padded by 16 bytes, so a warp's float4 reads down the
-// rows are free of bank conflicts. Thread (ty, tx) holds the scores of rows
-// ty + 16 i and columns tx + 16 j (i, j < 4) in registers, each a float32
-// FMA chain over d in order; the online softmax runs there (a row's 64
-// scores lie in 16 neighbouring lanes). P goes through shared memory once
-// per tile for the next product. A dense bias is read straight from device
-// memory, a row's keys by neighbouring lanes; T5's table column is staged
-// once per block and the tile's bias written by diagonal (64 + 64 - 1
-// values). dq and dk/dv: see "the backward on the tensor cores" below. No
-// atomics: dbias sums a bias shared over the batch inside the block, batch
-// by batch, demb writes a row of partial sums per (batch, head, query tile)
-// for the wrapper to sum, and dk/dv sums a cluster's partials in rank order,
-// so the same inputs give the same bits.
+// The forward, dq and dk/dv: see "the tensor-core kernels" below. dbias,
+// simple and right first: 256 threads (a 16 x 16 grid) per block, one block
+// per 64-row query tile. The block's own rows stay in shared memory; the
+// streamed K and V tiles are staged by 16-byte cp.async, double-buffered,
+// the next tile's copies in flight while this one is used; rows are padded
+// by 16 bytes, so a warp's float4 reads down the rows are free of bank
+// conflicts. Thread (ty, tx) holds the scores of rows ty + 16 i and columns
+// tx + 16 j (i, j < 4) in registers, each a float32 FMA chain over d in
+// order; the dense bias is read straight from device memory, a row's keys by
+// neighbouring lanes. No atomics: dbias sums a bias shared over the batch
+// inside the block, batch by batch, dq's demb writes a row of partial sums
+// per (batch, head, query tile) for the wrapper to sum, and dk/dv sums a
+// cluster's partials in rank order, so the same inputs give the same bits.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -68,6 +64,7 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <type_traits>
 
 #include "wgmma_gemm.cuh"
 
@@ -83,7 +80,6 @@ using wgmma_gemm::wgmma_wait;
 
 constexpr int THREADS = 256;    // a 16 x 16 grid of threads
 constexpr int TILE = 64;        // rows and columns of a score tile
-constexpr int LDP = TILE + 4;   // floats of a score tile's row in shared memory
 constexpr int MAX_BUCKETS = 128;
 constexpr size_t MAX_SMEM = 232448;   // shared memory a block can have
 constexpr float NEG_INF = -1e30f;   // the lse of a row that sees no key
@@ -134,18 +130,6 @@ __device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ 
   }
 }
 
-// The sum over the 16 lanes that hold one row.
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int o = 1; o < 16; o <<= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-__device__ __forceinline__ float row_max(float x) {
-#pragma unroll
-  for (int o = 1; o < 16; o <<= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
 // Is key `col` visible from query row `row`?
 __device__ __forceinline__ bool visible(int row, int col, int Sq, int Sk,
                                         const uint8_t* __restrict__ mask, int causal,
@@ -185,63 +169,10 @@ __device__ __forceinline__ void tile_dot(float (&s)[4][4], const float* A, const
   }
 }
 
-// o[i][c] += sum_k P[ty + 16 i][k] M[k][tx + 16 c]: P a 64 x 64 tile (rows of
-// LDP), M a 64-row operand tile (rows of D + 4), k in order.
-template <int D>
-__device__ __forceinline__ void tile_pm(float (&o)[4][D / 16], const float* P, const float* M,
-                                        int ty, int tx) {
-  constexpr int LD = D + 4;
-#pragma unroll 2
-  for (int k = 0; k < TILE; k += 4) {
-    float p[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float4 v = *reinterpret_cast<const float4*>(P + (ty + 16 * i) * LDP + k);
-      p[i][0] = v.x, p[i][1] = v.y, p[i][2] = v.z, p[i][3] = v.w;
-    }
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const float* m = M + (k + kk) * LD + tx;
-#pragma unroll
-      for (int c = 0; c < D / 16; ++c) {
-        const float mv = m[16 * c];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) o[i][c] = fmaf(p[i][kk], mv, o[i][c]);
-      }
-    }
-  }
-}
-
-// The T5 bias of the 64 x 64 tile at query q0, key k0 by diagonal: bd[c - r +
-// 63] for tile row r and column c is col[index[k - q + Sq - 1]] of query q0 +
-// r and key k0 + c, from a table column in shared memory; 0 where the
-// distance falls outside the index (a slot past Sq or Sk, masked anyway).
-// With `bucket`, the bucket ids by diagonal too (-1 outside). Plain stores:
-// the caller synchronises before reading.
-__device__ __forceinline__ void t5_diagonals(float* bd, int* bucket, const float* col,
-                                             const int* __restrict__ index, int q0, int k0,
-                                             int Sq, int Sk) {
-  const int base = k0 - q0 - (TILE - 1) + Sq - 1;
-  for (int t = threadIdx.x; t < 2 * TILE - 1; t += THREADS) {
-    const int g = base + t;
-    const int n = g >= 0 && g < Sq + Sk - 1 ? index[g] : -1;
-    bd[t] = n >= 0 ? col[n] : 0.f;
-    if (bucket) bucket[t] = n;
-  }
-}
-
-// The bias of the visible score (row, col) of the tile at (q0, k0): a dense
-// bias from the head's rows `rows`, ld floats apart, T5's from the tile's
-// diagonals `bd`.
-template <int KIND>
-__device__ __forceinline__ float bias_at(const float* __restrict__ rows, const float* bd, int row,
-                                         int col, int q0, int k0, int ld) {
-  if constexpr (KIND == DENSE_BIAS)
-    return __ldg(rows + (int64_t)row * ld + col);
-  else if constexpr (KIND == T5_BIAS)
-    return bd[(col - k0) - (row - q0) + TILE - 1];
-  else
-    return 0.f;
+// The dense bias of the visible score (row, col) from the head's rows
+// `rows`, ld floats apart.
+__device__ __forceinline__ float bias_at(const float* __restrict__ rows, int row, int col, int ld) {
+  return __ldg(rows + (int64_t)row * ld + col);
 }
 
 // The bias rows of (batch b, query head h) of a dense bias.
@@ -259,200 +190,146 @@ __device__ __forceinline__ void key_tiles(int q0, int rows, int tn, int Sk, int 
   if (window > 0) kt0 = max(0, (q0 - window + 1) / tn);
 }
 
-// -- forward -----------------------------------------------------------------------
+// -- the tensor-core kernels: the forward, dq (and delta, demb), dk, dv ----------
 
-// Block (query tile, b H + h), the last (longest causal) query tiles first.
-template <int KIND, int D>
-__global__ void __launch_bounds__(THREADS)
-    fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-               const float* __restrict__ v, const uint8_t* __restrict__ kv_mask, const Bias bias,
-               float* __restrict__ out, float* __restrict__ lse, int H, int Hkv, int Sq, int Sk,
-               float scale, int causal, int window) {
-  constexpr int TF = tile_floats<D>();
-  extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + TF;         // [2][TF]
-  float* Vs = Ks + 2 * TF;     // [2][TF]
-  float* Ps = Vs + 2 * TF;     // [TILE][LDP]
-  float* Bd = Ps + TILE * LDP; // [2 TILE] T5: the tile's bias by diagonal
-  float* col = Bd + 2 * TILE;  // [nb] T5: the head's table column
-
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * TILE;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int64_t kv_off = ((int64_t)b * Hkv + h / (H / Hkv)) * Sk * D;
-  const float* kg = k + kv_off;
-  const float* vg = v + kv_off;
-  const uint8_t* mg = kv_mask + (int64_t)b * Sk;
-  const float* bg = KIND == DENSE_BIAS ? bias_rows(bias, b, h, Sq) : nullptr;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  int kt0, kt1;
-  key_tiles(q0, TILE, TILE, Sk, causal, window, kt0, kt1);
-
-  load_rows<D>(Qs, q + (int64_t)bh * Sq * D, q0, Sq);
-  if (kt0 < kt1) {
-    load_rows<D>(Ks, kg, kt0 * TILE, Sk);
-    load_rows<D>(Vs, vg, kt0 * TILE, Sk);
-  }
-  cp_async_commit();
-  if constexpr (KIND == T5_BIAS)
-    for (int c = threadIdx.x; c < bias.nb; c += THREADS) col[c] = bias.table[c * H + h];
-
-  float o[4][D / 16];
-  float m[4], l[4];   // the running row max (natural units); this thread's part of the row sum
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < D / 16; ++c) o[i][c] = 0.f;
-  }
-
-  for (int kt = kt0; kt < kt1; ++kt) {
-    const int st = (kt - kt0) & 1, k0 = kt * TILE;
-    if (kt + 1 < kt1) {
-      load_rows<D>(Ks + (st ^ 1) * TF, kg, k0 + TILE, Sk);
-      load_rows<D>(Vs + (st ^ 1) * TF, vg, k0 + TILE, Sk);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    if constexpr (KIND == T5_BIAS) {
-      __syncthreads();   // the table column, on the first tile
-      t5_diagonals(Bd, nullptr, col, bias.index, q0, k0, Sq, Sk);
-    }
-    __syncthreads();
-
-    float s[4][4];
-    tile_dot<D>(s, Qs, Ks + st * TF, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty + 16 * i;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int key = k0 + tx + 16 * j;
-        float t = -INFINITY;
-        if (visible(row, key, Sq, Sk, mg, causal, window)) {
-          t = s[i][j] * scale;
-          if constexpr (KIND != NO_BIAS) t += bias_at<KIND>(bg, Bd, row, key, q0, k0, bias.ld);
-        }
-        s[i][j] = t;
-        mx = fmaxf(mx, t);
-      }
-      const float mn = fmaxf(m[i], row_max(mx));
-      const float mu = mn == -INFINITY ? 0.f : mn;   // no visible key yet
-      const float alpha = expf(m[i] - mu);
-      m[i] = mn;
-      l[i] *= alpha;
-#pragma unroll
-      for (int c = 0; c < D / 16; ++c) o[i][c] *= alpha;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - mu);
-        l[i] += p;
-        Ps[(ty + 16 * i) * LDP + tx + 16 * j] = p;
-      }
-    }
-    __syncthreads();
-    tile_pm<D>(o, Ps, Vs + st * TF, ty, tx);
-    __syncthreads();
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float lr = row_sum(l[i]);
-    const int row = q0 + ty + 16 * i;
-    if (row >= Sq) continue;
-    const float inv = lr == 0.f ? 0.f : 1.f / lr;
-    float* og = out + ((int64_t)bh * Sq + row) * D + tx;
-#pragma unroll
-    for (int c = 0; c < D / 16; ++c) og[16 * c] = o[i][c] * inv;
-    if (tx == 0) lse[(int64_t)bh * Sq + row] = lr == 0.f ? NEG_INF : m[i] + logf(lr);
-  }
-}
-
-// -- the backward on the tensor cores: dq (and delta), dk, dv ---------------------
-
-// Every product of dq_kernel and dkv_kernel is split-TF32: x = hi + lo with
-// hi = cvt.rna.tf32(x) and lo = cvt.rna.tf32(x - hi), and a . b = hi_a hi_b +
-// hi_a lo_b + lo_a hi_b, each TF32 product exact in the float32 sums. x - hi
-// is exact, and lo keeps 11 of its bits, so hi + lo is within 2^-22 |x|; the
-// dropped lo_a lo_b is below 2^-22 |a b|. A term's error is then a few u =
-// 2^-24 of it, as a float32 FMA chain's is, where one TF32 product keeps 2^-11.
+// Every product of fwd_kernel, dq_kernel and dkv_kernel is split-TF32: x =
+// hi + lo with hi = cvt.rna.tf32(x) and lo = cvt.rna.tf32(x - hi), and a . b
+// = hi_a hi_b + hi_a lo_b + lo_a hi_b, each TF32 product exact in the
+// float32 sums. x - hi is exact, and lo keeps 11 of its bits, so hi + lo is
+// within 2^-22 |x|; the dropped lo_a lo_b is below 2^-22 |a b|. A term's
+// error is then a few u = 2^-24 of it, as a float32 FMA chain's is, where
+// one TF32 product keeps 2^-11.
 //
-// A block holds NC 64-row tiles resident, one per consumer warpgroup (dq:
-// query rows with their Q and dO; dk/dv: keys with their K and V), and streams
-// the other side in tiles of TN rows (dq: keys with K, V; dk/dv: queries with
-// Q, dO) through a ring of two stages. Warpgroup 0 is the producer: its 128
-// threads read a tile's float32 rows (16-byte loads, the next tile's issued
-// before the wait for its stage), split them and store the hi and lo planes
-// in the 128-byte swizzled K-major layout that wgmma reads (row r's 16-byte
-// chunk j at chunk j ^ (r % 8), 32 floats a panel row), with the tile's dense
-// bias, T5 diagonals, key flags or lse and delta beside them; fence.proxy.async
-// and the stage's "full" mbarrier publish it. Each consumer then issues
-//   dq:    S = Q K^T and dP = dO V^T    (wgmma m64nTNk8, both K-major),
-//   dk/dv: S^T = K Q^T and dP^T = V dO^T,
-// three products per k-step (lo hi, hi lo, hi hi), forms P and dS in
-// registers, and adds dS K (dq), P^T dO (dv) and dS^T Q (dk) with
+// A block holds NC 64-row tiles resident, one per consumer warpgroup (the
+// forward: query rows with their Q; dq: with their Q and dO; dk/dv: keys with
+// their K and V), and streams the other side in tiles of TN rows (the forward
+// and dq: keys with K, V; dk/dv: queries with Q, dO) through a ring of two
+// stages. Warpgroup 0 is the producer: its 128 threads read a tile's float32
+// rows (16-byte loads, the next tile's issued before the wait for its stage),
+// split them and store the hi and lo planes in the 128-byte swizzled K-major
+// layout that wgmma reads (row r's 16-byte chunk j at chunk j ^ (r % 8), 32
+// floats a panel row), with the tile's dense bias, T5 diagonals, key flags or
+// lse and delta beside them; fence.proxy.async and the stage's "full"
+// mbarrier publish it. Each consumer then issues
+//   forward: S = Q K^T                    (wgmma m64nTNk8, K-major),
+//   dq:      S = Q K^T and dP = dO V^T,
+//   dk/dv:   S^T = K Q^T and dP^T = V dO^T,
+// three products per k-step (lo hi, hi lo, hi hi), forms P (the forward: by
+// the online softmax, the row's running max and sum rescaling its output) and
+// dS in registers, and adds dS K (dq), P^T dO (dv) and dS^T Q (dk) with
 // mma.sync.m16n8k8.tf32: wgmma takes no transposed TF32 operand, and these
 // products' B (K, dO, Q) would be N-major. Their A is the score accumulator
-// itself, split in registers: an m16n8k8 A fragment wants columns t and t + 4
-// where the accumulator holds 2t and 2t + 1, so the k-slots are permuted
+// itself, split in registers: an m16n8k8 A fragment wants columns t and t +
+// 4 where the accumulator holds 2t and 2t + 1, so the k-slots are permuted
 // (slot t <-> key 2t, slot t + 4 <-> key 2t + 1) and B's rows read to match,
 // by ld.shared from the same swizzled planes (conflict-free: the eight rows
 // of a read fall on distinct chunks). The consumer frees the stage on its
 // "empty" mbarrier once its products have read it.
 //
-// Shapes: NC = 2, TN = 32 at D = 64 (the resident tiles' planes take 128 KB,
-// a stage 32 KB and, with a dense bias, 16 KB more); NC = 2, TN = 64 at D =
-// 32; NC = 1, TN = 16 at D = 128. One block per SM. dq's grid runs the last
-// (longest causal) query blocks first. dk/dv's spreads a K/V head's G query
-// heads over a thread-block cluster of c blocks (c the largest divisor of G
-// up to 8), the rank taking G / c heads in order, so that a key block's work
-// under GQA and causality is c blocks' and the grid runs the first (longest
-// causal) key blocks first; each block keeps its partial dk and dv, stores
-// them over its resident tiles, and rank r sums rows [r R / c, (r + 1) R / c)
-// of every rank's partials in rank order through distributed shared memory.
-// No atomics anywhere: the same inputs give the same bits.
+// The forward differs where only it can: its producer stores V's planes
+// transposed (D rows of TN keys, the keys in the permuted slots; SplitTileT)
+// so that P V is a register-A wgmma m64nDk8 with P's split accumulator as A,
+// where the 128-byte swizzle allows it (TN >= 32; mma.sync at D = 128); its
+// consumers hold Q's hi and lo parts in registers as the score product's A
+// (QREG), where they fit and there is no dense bias, so S reads only K from
+// shared memory; the producer copies a dense bias tile by cp.async while it
+// splits K and V. A row's TN / 2 scores of a thread lie in the four lanes of
+// a quad, so its row max and sum take two shuffles. Each tile's P V is
+// summed in fresh registers and added to the output with a float32 add, as
+// the mma.sync products are.
 //
-// What holds it back: shared memory. Both operands of a score wgmma come
-// from it, so an m64n32k8 reads 3 KB for 32768 flops, about 190 bytes a
-// cycle at the TF32 rate against the 128 shared memory gives, and every
-// warp reads the whole B of its mma.sync products; a consumer also waits on
-// its own score products before its exponentials (the two consumers overlap
-// each other only). Tried and dropped (PERF.md §6): a third stage where
-// it fits, and S and dP in two wgmma groups with P formed while dP runs.
+// Shapes: NC = 2, TN = 32 at D = 64 (dq's resident tiles' planes take 128
+// KB, a stage 32 KB and, with a dense bias, 16 KB more); NC = 2, TN = 64 at
+// D = 32; NC = 1, TN = 16 at D = 128. One block per SM. The forward's and
+// dq's grids run the last (longest causal) query blocks first. dk/dv's
+// spreads a K/V head's G query heads over a thread-block cluster of c blocks
+// (c the largest divisor of G up to 8), the rank taking G / c heads in
+// order, so that a key block's work under GQA and causality is c blocks' and
+// the grid runs the first (longest causal) key blocks first; each block keeps
+// its partial dk and dv, stores them over its resident tiles, and rank r sums
+// rows [r R / c, (r + 1) R / c) of every rank's partials in rank order
+// through distributed shared memory. No atomics anywhere: the same inputs
+// give the same bits.
+//
+// T5's table gradient (demb) is the T5 dq kernel's DEMB instance: a
+// consumer's 64 x TN tile of float32 dS is summed by bucket where it lies. A
+// far tile, one whose every distance lies in the index's first or last
+// bucket (by its 64-aligned offset against the host's plan of 64 x 64 tiles,
+// models/positional.py t5_far_tiles: a 64 x TN tile inside a far 64 x 64 one
+// is far), the thread adds into a running sum of that side. A near tile goes
+// by diagonal through the consumer's skew buffer (DEMB_LD) and is summed by
+// bucket by the consumer's own warps (the producer splits the tiles, so it
+// has no idle warps): lane l of warp w takes diagonal 32 w + l, then a
+// segmented scan by bucket across the lanes (a bucket is one run of
+// diagonals) whose last lane of each run adds it into the warp's bucket sum.
+// At the end the consumer sums its warps' sums and far sums into its row of
+// partial sums, in a fixed order.
+//
+// What holds them back: shared memory. Both operands of a score wgmma come
+// from it (but the forward's Q), so an m64n32k8 reads 3 KB for 32768 flops,
+// about 190 bytes a cycle at the TF32 rate against the 128 shared memory
+// gives, and every warp reads the whole B of its mma.sync products; a
+// consumer also waits on its own score products before its exponentials
+// (the two consumers overlap each other only). Tried and dropped (PERF.md
+// §6): a third stage where it fits, and S and dP in two wgmma groups with P
+// formed while dP runs; in the forward, P V by mma.sync, 64-key stages, a
+// third stage, and the next tile's S issued behind the last tile's P V.
 
 // Registers a thread of the producer and of a consumer warpgroup keep once
 // setmaxnreg has moved them (two consumers: 128 72 + 256 216 <= 65536).
 constexpr int PRODUCER_REGS = 72, CONSUMER_REGS = 216;
 
-template <int KIND, int D, bool DKV>
+
+// demb's skew buffer: a consumer thread adds its elements (r, c) and (r + 8,
+// c + 8), which share a diagonal, down to 2 (TN / 8 + 1) partial sums,
+// diagonals 8 m + e + 2 t - g - 16 w + 63 (m in -1 .. TN / 8 - 1, e in 0, 1;
+// lane (g, t) of warp w), and stores them at row (diagonal), column 8 w + g:
+// rows of DEMB_LD floats (the 32 columns, 16-byte aligned rows; a warp's 32
+// stores fall on distinct banks). Each (diagonal, column) has at most one
+// writer, and a column no element reaches stays 0 from the kernel's start.
+constexpr int DEMB_LD = 36;
+
+enum Pass : int { FWD = 0, DQ = 1, DKV = 2 };
+
+template <int KIND, int D, int PASS, bool DEMB = false>
 struct Tc {
+  static_assert(!DEMB || (KIND == T5_BIAS && PASS == DQ), "demb: the T5 dq kernel's");
   static constexpr int NC = D == 128 ? 1 : 2;              // consumer warpgroups
   static constexpr int TN = D == 32 ? 64 : D == 64 ? 32 : 16;   // rows a stage
+  // the forward stages V transposed, for P V as a register-A wgmma (its
+  // 128-byte swizzle wants rows of 32 keys or more)
+  static constexpr bool VT = PASS == FWD && TN >= 32;
+  // the forward's consumers hold Q's hi and lo parts in registers as the
+  // score product's register A (at D <= 64, where they fit, without a dense
+  // bias, which then reads 7 % slower: PERF.md §6), else as resident planes
+  static constexpr bool QREG = PASS == FWD && D <= 64 && KIND != DENSE_BIAS;
   static constexpr int R = 64 * NC;                        // resident rows
   static constexpr int THREADS = 128 * (NC + 1);
   static constexpr int RES = 64 * D * 8;                   // a 64-row tile's hi, lo planes
   static constexpr int STREAM = TN * D * 8;                // a streamed tile's
-  // the stage's dense bias: dq's (R queries x TN keys) rows of BIAS_LD floats,
-  // dk/dv's (TN queries x R keys) rows of R
-  static constexpr int BIAS_LD = DKV ? R : (TN == 16 ? 24 : TN);
-  static constexpr int BIAS = KIND == DENSE_BIAS ? (DKV ? TN : R) * BIAS_LD * 4 : 0;
+  // the stage's dense bias: the forward's and dq's (R queries x TN keys) rows
+  // of BIAS_LD floats, dk/dv's (TN queries x R keys) rows of R
+  static constexpr int BIAS_LD = PASS == DKV ? R : (TN == 16 ? 24 : TN);
+  static constexpr int BIAS = KIND == DENSE_BIAS ? (PASS == DKV ? TN : R) * BIAS_LD * 4 : 0;
   static constexpr int STAGE = 2 * STREAM + BIAS;
-  // per stage: T5's diagonals (R + TN - 1 floats); dq's key flags, dk/dv's
-  // lse and delta of the tile's queries
-  static constexpr int DIAG = KIND == T5_BIAS ? (R + TN) * 4 : 0;
-  static constexpr int EXTRA = (DKV ? 2 * TN * 4 : 64) + DIAG;
+  // per stage: T5's diagonals (R + TN - 1 floats; with DEMB their buckets
+  // after them); the forward's and dq's key flags, dk/dv's lse and delta of
+  // the tile's queries
+  static constexpr int DIAG = KIND == T5_BIAS ? (R + TN) * 4 * (DEMB ? 2 : 1) : 0;
+  static constexpr int EXTRA = (PASS == DKV ? 2 * TN * 4 : 64) + DIAG;
   // two stages: a third, where it fits, was no faster (PERF.md §6)
   static constexpr int STAGES = 2;
-  static constexpr int STAGES_AT = 2 * NC * RES;
+  static constexpr int STAGES_AT = (PASS == FWD ? !QREG : 2) * NC * RES;
   static constexpr int EXTRA_AT = STAGES_AT + STAGES * STAGE;
   static constexpr int BARS_AT = EXTRA_AT + STAGES * EXTRA;
+  // demb: each consumer's skew buffer (ND diagonals), its warps' bucket sums
+  // and far sums (two sides)
+  static constexpr int ND = TN + 63;
+  static constexpr int SKEW_AT = BARS_AT + 8 * 2 * STAGES;
+  static constexpr int WSUM_AT = SKEW_AT + (DEMB ? NC * ND * DEMB_LD * 4 : 0);
+  static constexpr int WFAR_AT = WSUM_AT + (DEMB ? NC * 4 * MAX_BUCKETS * 4 : 0);
   // the 1024 bytes align the tiles
-  static constexpr size_t SMEM = 1024 + BARS_AT + 8 * 2 * STAGES;
+  static constexpr size_t SMEM = 1024 + WFAR_AT + (DEMB ? NC * 4 * 2 * 4 : 0);
   static_assert(STAGE % 1024 == 0, "stages stay 1024-byte aligned");
   static_assert(SMEM <= MAX_SMEM, "shared memory");
 };
@@ -521,6 +398,30 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2], uint64_t da, uint6
         : "l"(da), "l"(db), "r"(1));
 }
 
+// d (64 x N) += A (64 x 8, TF32 in registers: a warp's 16 rows in
+// mma.sync's m16n8k8 A-fragment layout) . B (N x 8)^T, B read K-major from
+// shared memory by its descriptor.
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  static_assert(N == 32 || N == 64, "m64nNk8, N 32 or 64");
+  if constexpr (N == 32)
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+        : WGMMA_D8(0), WGMMA_D8(8)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  else
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {" WGMMA_R32
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : WGMMA_D32(0)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // d += A B^T over D as the three split products (lo hi, hi lo, hi hi): the
 // hi planes of A (64 rows) at a and of B (N rows) at b, each lo plane right
 // after its hi plane.
@@ -585,6 +486,60 @@ __device__ __forceinline__ void split_mma(float (&acc)[D / 8][4], const float (&
   }
 }
 
+// d += A B^T over D as split_product's three products, A's hi and lo parts
+// in registers (wgmma's register A: a warp's 16 rows, slot s of k-step kk
+// holding row g + 8 (s & 1), column 8 kk + t + 4 (s >> 1) for lane (g, t)),
+// B's planes at b.
+template <int N, int D>
+__device__ __forceinline__ void split_product_rs(float (&d)[N / 2], const uint32_t (&ah)[D / 8][4],
+                                                 const uint32_t (&al)[D / 8][4], uint32_t b) {
+  constexpr uint32_t B_LO = N * D * 4;
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    wgmma_tf32_rs<N>(d, al[kk], plane_desc<N>(b, kk));
+    wgmma_tf32_rs<N>(d, ah[kk], plane_desc<N>(b + B_LO, kk));
+    wgmma_tf32_rs<N>(d, ah[kk], plane_desc<N>(b, kk));
+  }
+}
+
+// The forward's acc (this warp's 16 rows x D, split_mma's layout) += P (16
+// x TN, the accumulator of an m64nTN score tile, split here as split_mma's
+// A: the same permuted k-slots) . V (TN x D) from V's transposed hi and lo
+// planes at vt (SplitTileT), as register-A wgmmas m64nDk8: the tile's
+// three products per k-step summed in fresh registers, then added to acc
+// with a float32 add, as split_mma does.
+template <int TN, int D>
+__device__ __forceinline__ void pv_wgmma(float (&acc)[D / 8][4], const float (&x)[TN / 2],
+                                         uint32_t vt) {
+  constexpr uint32_t LO = TN * D * 4;
+  uint32_t hi[TN / 8][4], lo[TN / 8][4];
+#pragma unroll
+  for (int j = 0; j < TN / 8; ++j) {
+    split_tf32(x[4 * j], hi[j][0], lo[j][0]);
+    split_tf32(x[4 * j + 2], hi[j][1], lo[j][1]);
+    split_tf32(x[4 * j + 1], hi[j][2], lo[j][2]);
+    split_tf32(x[4 * j + 3], hi[j][3], lo[j][3]);
+  }
+  float part[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) part[i] = 0.f;
+  fence_acc(part);
+  wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < TN / 8; ++j) {
+    wgmma_tf32_rs<D>(part, lo[j], plane_desc<D>(vt, j));
+    wgmma_tf32_rs<D>(part, hi[j], plane_desc<D>(vt + LO, j));
+    wgmma_tf32_rs<D>(part, hi[j], plane_desc<D>(vt, j));
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(part);
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] += part[4 * nt + e];
+}
+
 // Rows [r0, r0 + R) of a row-major (nrows, D) float32 matrix, zeros past
 // nrows, read by 128 threads into registers (`load`), then split into the
 // hi and lo planes at dst (`store`).
@@ -612,6 +567,43 @@ struct SplitTile {
       const int o = swz<R>(r, c);
       *reinterpret_cast<uint4*>(dst + o) = hi;
       *reinterpret_cast<uint4*>(dst + R * D * 4 + o) = lo;
+    }
+  }
+};
+
+// Rows [r0, r0 + TN) of a row-major (nrows, D) float32 matrix (a V tile),
+// zeros past nrows, into the transposed hi and lo planes that wgmma reads as
+// a K-major B of D rows: key r of the tile at k-slot (r & ~7) | (r & 1) << 2
+// | (r >> 1 & 3), split_mma's permuted slots (slot t <-> key 2t, slot t + 4
+// <-> key 2t + 1), so that P's accumulator serves as the register A. A
+// warp's lanes take 32 consecutive keys of one column group, so each of its
+// transposed stores falls on distinct banks.
+template <int TN, int D>
+struct SplitTileT {
+  static constexpr int N = TN * D / 4 / 128;
+  float4 x[N];
+  __device__ __forceinline__ void load(const float* __restrict__ src, int r0, int nrows, int tid) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const int e = tid + 128 * i, r = e % TN, c = e / TN * 4;
+      x[i] = r0 + r < nrows ? __ldg(reinterpret_cast<const float4*>(src + (int64_t)(r0 + r) * D + c))
+                            : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+  __device__ __forceinline__ void store(unsigned char* dst, int tid) const {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const int e = tid + 128 * i, r = e % TN, c = e / TN * 4;
+      const int slot = (r & ~7) | (r & 1) << 2 | (r >> 1 & 3);
+      const float v[4] = {x[i].x, x[i].y, x[i].z, x[i].w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        uint32_t hi, lo;
+        split_tf32(v[j], hi, lo);
+        const int o = swz<D>(c + j, slot);
+        *reinterpret_cast<uint32_t*>(dst + o) = hi;
+        *reinterpret_cast<uint32_t*>(dst + TN * D * 4 + o) = lo;
+      }
     }
   }
 };
@@ -653,25 +645,52 @@ __device__ __forceinline__ void stage_bias(float* dst, const float* __restrict__
   }
 }
 
+// stage_bias's 16-byte path by cp.async (the caller commits and waits):
+// the copies run while the thread does other work.
+template <int ROWS, int COLS, class Off>
+__device__ __forceinline__ void stage_bias_async(float* dst, const float* __restrict__ src, int r0,
+                                                 int c0, int nr, int nc, int ld, int tid,
+                                                 Off off) {
+  constexpr int N = ROWS * COLS / 4 / 128;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const int e = tid + 128 * i, r = e / (COLS / 4), c = (e % (COLS / 4)) * 4;
+    const bool ok = r0 + r < nr && c0 + c < nc;
+    cp_async16(dst + off(r, c), ok ? src + (int64_t)(r0 + r) * ld + c0 + c : src, ok);
+  }
+}
+
 // T5's bias by diagonal for a tile whose diagonal t holds distance `base` +
-// t - (Sq - 1): the value of t5_diagonals, read by `load` ahead of the wait.
-template <int NDIAG>
+// t - (Sq - 1): table[index[distance], h] of each diagonal, 0 where the
+// distance falls outside the index (a slot past Sq or Sk, masked anyway),
+// read by `load` ahead of the wait. With BUCKETS also each diagonal's bucket,
+// the index clamped to its ends (a slot outside is masked, its dS 0), for
+// demb, stored after the NDIAG + 1 values.
+template <int NDIAG, bool BUCKETS = false>
 struct DiagTile {
   static constexpr int N = (NDIAG + 127) / 128;
   float x[N];
+  int n[BUCKETS ? N : 1];
   __device__ __forceinline__ void load(const Bias& bias, int h, int H, int base, int Sq, int Sk,
                                        int tid) {
+    const int length = Sq + Sk - 1;
 #pragma unroll
     for (int i = 0; i < N; ++i) {
       const int t = tid + 128 * i, g = base + t;
-      const int n = t < NDIAG && g >= 0 && g < Sq + Sk - 1 ? __ldg(bias.index + g) : -1;
-      x[i] = n >= 0 ? __ldg(bias.table + n * H + h) : 0.f;
+      const bool inside = g >= 0 && g < length;
+      const int b = t < NDIAG && inside ? __ldg(bias.index + g) : -1;
+      x[i] = b >= 0 ? __ldg(bias.table + b * H + h) : 0.f;
+      if constexpr (BUCKETS)
+        n[i] = t >= NDIAG ? -1 : inside ? b : __ldg(bias.index + (g < 0 ? 0 : length - 1));
     }
   }
   __device__ __forceinline__ void store(float* bd, int tid) const {
 #pragma unroll
     for (int i = 0; i < N; ++i)
-      if (tid + 128 * i < NDIAG) bd[tid + 128 * i] = x[i];
+      if (tid + 128 * i < NDIAG) {
+        bd[tid + 128 * i] = x[i];
+        if constexpr (BUCKETS) reinterpret_cast<int*>(bd + NDIAG + 1)[tid + 128 * i] = n[i];
+      }
   }
 };
 
@@ -679,18 +698,352 @@ __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
   return p + ((1024 - (smem_addr(p) & 1023)) & 1023);
 }
 
+// The ring's barriers at `bars`: stage s's "full" (the producer's 128
+// threads arrive) at bars + 8 s, its "empty" (a consumer warp's lane 0
+// each) at bars + 8 (STAGES + s).
+template <class C>
+__device__ __forceinline__ void init_ring(uint32_t bars) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(bars + 8 * s, 128);
+      mbar_init(bars + 8 * (C::STAGES + s), 4 * C::NC);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// The forward's and dq's dense bias tile: query row r, key c; the XOR
+// spreads a warp's float2 reads of four rows over distinct banks (padding at
+// TN = 16).
+template <class C>
+__device__ __forceinline__ int qbias_off(int r, int c) {
+  return r * C::BIAS_LD + (C::TN == 16 ? c : c ^ ((r & 3) << 3));
+}
+
+// The forward's producer warpgroup: key tiles kt0 .. kt1 - 1 of TN keys,
+// each into stage i % STAGES once the consumers have freed it: K's hi and lo
+// planes, V's (transposed where VT), the tile's dense bias (query rows q0
+// .., R of them; by cp.async where the rows allow, in flight while K and V
+// are split and stored) or T5 diagonals and its key flags, published on the
+// stage's full barrier.
+template <class C, int KIND, int D>
+__device__ __forceinline__ void stream_keys(unsigned char* sm, const float* __restrict__ k,
+                                            const float* __restrict__ v,
+                                            const uint8_t* __restrict__ mg, const Bias& bias,
+                                            const float* bg, int q0, int h, int H, int Sq, int Sk,
+                                            int kt0, int kt1, int tid) {
+  constexpr int TN = C::TN, R = C::R;
+  const bool vec = KIND == DENSE_BIAS && bias.ld % 4 == 0 &&
+                   (reinterpret_cast<uintptr_t>(bias.rows) & 15) == 0;
+  auto boff = [](int r, int c) { return qbias_off<C>(r, c); };
+  const uint32_t bars = smem_addr(sm + C::BARS_AT);
+  SplitTile<TN, D> kx;
+  typename std::conditional<C::VT, SplitTileT<TN, D>, SplitTile<TN, D>>::type vx;
+  DiagTile<R + TN - 1> dx;
+  for (int kt = kt0, i = 0; kt < kt1; ++kt, ++i) {
+    const int s = i % C::STAGES, k0 = kt * TN;
+    unsigned char* st = sm + C::STAGES_AT + s * C::STAGE;
+    unsigned char* ex = sm + C::EXTRA_AT + s * C::EXTRA;
+    kx.load(k, k0, Sk, tid);
+    vx.load(v, k0, Sk, tid);
+    if constexpr (KIND == T5_BIAS) dx.load(bias, h, H, k0 - q0 - (R - 1) + Sq - 1, Sq, Sk, tid);
+    const bool flag = tid < TN && k0 + tid < Sk && mg[k0 + tid];
+    mbar_wait(bars + 8 * (C::STAGES + s), ((i / C::STAGES) & 1) ^ 1);
+    float* bt = reinterpret_cast<float*>(st + 2 * C::STREAM);
+    if constexpr (KIND == DENSE_BIAS) {
+      if (vec)
+        stage_bias_async<R, TN>(bt, bg, q0, k0, Sq, Sk, bias.ld, tid, boff);
+      else
+        stage_bias<R, TN>(bt, bg, q0, k0, Sq, Sk, bias.ld, false, tid, boff);
+      cp_async_commit();
+    }
+    kx.store(st, tid);
+    vx.store(st + C::STREAM, tid);
+    if constexpr (KIND == T5_BIAS) dx.store(reinterpret_cast<float*>(ex + 64), tid);
+    if (tid < TN) ex[tid] = flag;
+    if constexpr (KIND == DENSE_BIAS) cp_async_wait<0>();
+    fence_async_shared();
+    mbar_arrive(bars + 8 * s);
+  }
+}
+
+// Score element e of a consumer's 64 x TN accumulator tile at key k0 (rows
+// row[0], row[1]; rl their first's row in the block): false where its key is
+// not visible from its row, else true with x (the product) scaled and its
+// bias added, from the stage's key flags, dense bias tile bt or T5
+// diagonals bd.
+template <class C, int KIND>
+__device__ __forceinline__ bool tile_score(float& x, int e, int t4, int rl, const int (&row)[2],
+                                           int k0, int Sq, int Sk, const uint8_t* flags,
+                                           const float* bt, const float* bd, float scale,
+                                           int causal, int window) {
+  const int hh = (e >> 1) & 1, c = 8 * (e >> 2) + 2 * t4 + (e & 1), key = k0 + c;
+  const int r = row[hh];
+  if (!(r < Sq && key < Sk && flags[c] && (!causal || key <= r) &&
+        (window <= 0 || r - key < window)))
+    return false;
+  x *= scale;
+  if constexpr (KIND == DENSE_BIAS) x += bt[qbias_off<C>(rl + 8 * hh, c)];
+  if constexpr (KIND == T5_BIAS) x += bd[c - (rl + 8 * hh) + C::R - 1];
+  return true;
+}
+
+// The forward: block (query block, b H + h), the last (longest causal) query
+// blocks first; consumer g owns query rows q0 + 64 g .. + 63 and writes their
+// out and lse. Per key tile it takes S = Q K^T (Q as the register A where
+// QREG), the row's new max m (natural units; from its four lanes), rescales
+// its output and row sum by exp(m_old - m), adds P = exp(S - m) to the sum
+// and P V to the output (pv_wgmma where VT, else split_mma: the tile's part
+// in fresh registers, then one float32 add).
+template <int KIND, int D>
+__global__ void __launch_bounds__(Tc<KIND, D, FWD>::THREADS, 1)
+    fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, const uint8_t* __restrict__ kv_mask, const Bias bias,
+               float* __restrict__ out, float* __restrict__ lse, int H, int Hkv, int Sq, int Sk,
+               float scale, int causal, int window) {
+  using C = Tc<KIND, D, FWD>;
+  constexpr int NC = C::NC, TN = C::TN, R = C::R;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  const uint32_t bars = smem_addr(sm + C::BARS_AT);
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * R;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int64_t q_off = (int64_t)bh * Sq * D;
+  const int64_t kv_off = ((int64_t)b * Hkv + h / (H / Hkv)) * Sk * D;
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  int kt0, kt1;
+  key_tiles(q0, R, TN, Sk, causal, window, kt0, kt1);
+  init_ring<C>(bars);
+
+  if (wg == 0) {   // the producer
+    if constexpr (NC == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    stream_keys<C, KIND, D>(sm, k + kv_off, v + kv_off, kv_mask + (int64_t)b * Sk, bias,
+                            KIND == DENSE_BIAS ? bias_rows(bias, b, h, Sq) : nullptr, q0, h, H,
+                            Sq, Sk, kt0, kt1, tid);
+    return;
+  }
+
+  if constexpr (NC == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+  const int g = wg - 1, warp = tid / 32, lane = tid % 32, t4 = lane % 4;
+  // Q's hi and lo parts as the register A (QREG), else its planes
+  unsigned char* qt = sm + g * C::RES;
+  uint32_t qh[C::QREG ? D / 8 : 1][4], ql[C::QREG ? D / 8 : 1][4];
+  if constexpr (C::QREG) {
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = q0 + 64 * g + 16 * warp + lane / 4 + 8 * (e & 1);
+        const int c = 8 * kk + t4 + 4 * (e >> 1);
+        split_tf32(r < Sq ? __ldg(q + q_off + (int64_t)r * D + c) : 0.f, qh[kk][e], ql[kk][e]);
+      }
+  } else {
+    SplitTile<64, D> x;
+    x.load(q + q_off, q0 + 64 * g, Sq, tid);
+    x.store(qt, tid);
+    fence_async_shared();
+    consumer_sync(g);
+  }
+
+  const int rl = 64 * g + 16 * warp + lane / 4;   // local rows rl, rl + 8
+  const int row[2] = {q0 + rl, q0 + rl + 8};
+  // the output; per row the running max (natural units) and this thread's
+  // part of the row sum
+  float acc[D / 8][4], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+  const int first = q0 + 64 * g, last = min(first + 63, Sq - 1);
+  const uint32_t qa = smem_addr(qt);
+
+  for (int kt = kt0, i = 0; kt < kt1; ++kt, ++i) {
+    const int s = i % C::STAGES, k0 = kt * TN;
+    unsigned char* st = sm + C::STAGES_AT + s * C::STAGE;
+    const unsigned char* ex = sm + C::EXTRA_AT + s * C::EXTRA;
+    mbar_wait(bars + 8 * s, (i / C::STAGES) & 1);
+    const bool skip = first >= Sq || (causal && k0 > last) ||
+                      (window > 0 && k0 + TN - 1 <= first - window);
+    if (!skip) {
+      float sc[TN / 2];
+#pragma unroll
+      for (int e = 0; e < TN / 2; ++e) sc[e] = 0.f;
+      fence_acc(sc);
+      wgmma_fence();
+      if constexpr (C::QREG)
+        split_product_rs<TN, D>(sc, qh, ql, smem_addr(st));
+      else
+        split_product<TN, D>(sc, qa, smem_addr(st));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(sc);
+      const float* bt = reinterpret_cast<const float*>(st + 2 * C::STREAM);
+      const float* bd = reinterpret_cast<const float*>(ex + 64);
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int e = 0; e < TN / 2; ++e) {
+        if (!tile_score<C, KIND>(sc[e], e, t4, rl, row, k0, Sq, Sk, ex, bt, bd, scale, causal,
+                                 window))
+          sc[e] = -INFINITY;
+        mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], sc[e]);
+      }
+      float mu[2];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float t = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+        t = fmaxf(t, __shfl_xor_sync(0xffffffffu, t, 2));
+        const float mn = fmaxf(m[hh], t);
+        mu[hh] = mn == -INFINITY ? 0.f : mn;   // no visible key yet
+        const float alpha = expf(m[hh] - mu[hh]);
+        m[hh] = mn;
+        l[hh] *= alpha;
+#pragma unroll
+        for (int nt = 0; nt < D / 8; ++nt) {
+          acc[nt][2 * hh] *= alpha;
+          acc[nt][2 * hh + 1] *= alpha;
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < TN / 2; ++e) {
+        sc[e] = expf(sc[e] - mu[(e >> 1) & 1]);   // P
+        l[(e >> 1) & 1] += sc[e];
+      }
+      if constexpr (C::VT)
+        pv_wgmma<TN, D>(acc, sc, smem_addr(st + C::STREAM));
+      else
+        split_mma<TN, D>(acc, sc, st + C::STREAM, lane);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bars + 8 * (C::STAGES + s));
+  }
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float lr = l[hh] + __shfl_xor_sync(0xffffffffu, l[hh], 1);
+    lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+    if (row[hh] >= Sq) continue;
+    const float inv = lr == 0.f ? 0.f : 1.f / lr;
+    float* o = out + q_off + (int64_t)row[hh] * D + 2 * t4;
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt)
+      *reinterpret_cast<float2*>(o + 8 * nt) =
+          make_float2(acc[nt][2 * hh] * inv, acc[nt][2 * hh + 1] * inv);
+    if (t4 == 0) lse[(int64_t)bh * Sq + row[hh]] = lr == 0.f ? NEG_INF : m[hh] + logf(lr);
+  }
+}
+
+// demb of a near or far 64 x TN tile of consumer g's dS (sc, the
+// accumulator's layout) at key k0, its query rows from `first`: a far tile
+// (by the plan `far`, its offset rounded down to 64) into the thread's sum
+// of its side; a near one by diagonal through the skew buffer (DEMB_LD),
+// then lane l of warp w sums diagonal 32 w + l and a segmented scan by
+// bucket (the stage's buckets by diagonal after its T5 values bd, consumer
+// g's from 64 (NC - 1 - g) on) adds each run into the warp's bucket sums.
+// Two barriers of the consumer's own: its last near tile's rows are read
+// before they are written again.
+template <int NC, int TN>
+__device__ __forceinline__ void demb_tile(const float (&sc)[TN / 2], const float* bd, int k0,
+                                          int first, const int4 far, float (&far_sum)[2],
+                                          float* skew, float* wsum, int g, int warp, int lane) {
+  constexpr int ND = TN + 63, R = 64 * NC;
+  const int offset = (k0 & ~63) - first;
+  const int side = offset >= far.y ? 1 : offset <= far.x ? 0 : -1;
+  if (side >= 0) {
+    float v0 = 0.f, v1 = 0.f;
+#pragma unroll
+    for (int e = 0; e < TN / 2; e += 2) {
+      v0 += sc[e];
+      v1 += sc[e + 1];
+    }
+    far_sum[side] += v0 + v1;
+    return;
+  }
+  consumer_sync(g);
+  const int t4 = lane % 4;
+  float* o = skew + DEMB_LD * (2 * t4 - lane / 4 - 16 * warp + 63) + 8 * warp + lane / 4;
+#pragma unroll
+  for (int m = -1; m < TN / 8; ++m)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float x = 0.f;
+      if (m >= 0) x = sc[4 * m + e];
+      if (m < TN / 8 - 1) x += sc[4 * m + 6 + e];
+      o[DEMB_LD * (8 * m + e)] = x;
+    }
+  consumer_sync(g);
+  const int r = 32 * warp + lane;
+  float x = 0.f;
+  int bk = -1;
+  if (r < ND) {
+    const float4* row = reinterpret_cast<const float4*>(skew + r * DEMB_LD);
+    float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float4 y = row[j];
+      a0 += y.x;
+      a1 += y.y;
+      a2 += y.z;
+      a3 += y.w;
+    }
+    x = (a0 + a1) + (a2 + a3);
+    bk = reinterpret_cast<const int*>(bd + R + TN)[r + 64 * (NC - 1 - g)];
+  }
+#pragma unroll
+  for (int off = 1; off < 32; off *= 2) {
+    const float y = __shfl_up_sync(0xffffffffu, x, off);
+    const int by = __shfl_up_sync(0xffffffffu, bk, off);
+    if (lane >= off && by == bk) x += y;
+  }
+  const int bn = __shfl_down_sync(0xffffffffu, bk, 1);
+  if (bk >= 0 && (lane == 31 || bn != bk)) wsum[warp * MAX_BUCKETS + bk] += x;
+}
+
+// demb's row of the consumer (`row` of partial, written where `write`):
+// each bucket's near sums by warp, then the far sums of its side.
+__device__ __forceinline__ void demb_row(const float (&far_sum)[2], const float* wsum, float* wfar,
+                                         float* __restrict__ partial, const int4 far, int nb,
+                                         int64_t row, bool write, int g, int warp, int lane,
+                                         int tid) {
+#pragma unroll
+  for (int side = 0; side < 2; ++side) {
+    float x = far_sum[side];
+#pragma unroll
+    for (int off = 16; off > 0; off /= 2) x += __shfl_xor_sync(0xffffffffu, x, off);
+    if (lane == 0) wfar[2 * warp + side] = x;
+  }
+  consumer_sync(g);
+  if (write && tid < nb) {
+    float sum = 0.f, fz = 0.f, fw = 0.f;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      sum += wsum[w * MAX_BUCKETS + tid];
+      fz += wfar[2 * w];
+      fw += wfar[2 * w + 1];
+    }
+    if (tid == far.z) sum += fz;
+    if (tid == far.w) sum += fw;
+    partial[row * nb + tid] = sum;
+  }
+}
+
 // dq: block (query block, b H + h), the last (longest causal) query blocks
 // first; consumer g owns query rows q0 + 64 g .. + 63, computes their delta
-// and lse, and writes dq.
-template <int KIND, int D>
-__global__ void __launch_bounds__(Tc<KIND, D, false>::THREADS, 1)
+// and lse, and writes dq. The DEMB instance (T5_BIAS) also sums the table's
+// gradient (see "T5's table gradient" above) into row (b H + h) ceil(Sq /
+// 64) + q0 / 64 + g of `partial`, (nb,) a row, given the host's plan of far
+// tiles `far` (at most far.x: bucket far.z; at least far.y: far.w).
+template <int KIND, int D, bool DEMB>
+__global__ void __launch_bounds__(Tc<KIND, D, DQ, DEMB>::THREADS, 1)
     dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, const uint8_t* __restrict__ kv_mask, const Bias bias,
               const float* __restrict__ out, const float* __restrict__ dout,
               const float* __restrict__ lse, float* __restrict__ delta, float* __restrict__ dq,
-              int H, int Hkv, int Sq, int Sk, float scale, int causal, int window) {
-  using C = Tc<KIND, D, false>;
-  constexpr int NC = C::NC, TN = C::TN, R = C::R;
+              float* __restrict__ partial, const int4 far, int H, int Hkv, int Sq, int Sk,
+              float scale, int causal, int window) {
+  using C = Tc<KIND, D, DQ, DEMB>;
+  constexpr int NC = C::NC, TN = C::TN, R = C::R, ND = C::ND;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* sm = align1024(smem_raw);
   auto stage = [&](int s) { return sm + C::STAGES_AT + s * C::STAGE; };
@@ -698,9 +1051,7 @@ __global__ void __launch_bounds__(Tc<KIND, D, false>::THREADS, 1)
   const uint32_t bars = smem_addr(sm + C::BARS_AT);
   auto full = [&](int s) { return bars + 8 * s; };
   auto empty = [&](int s) { return bars + 8 * (C::STAGES + s); };
-  // dq's bias tile: query row r, key c; the XOR spreads a warp's float2
-  // reads of four rows over distinct banks (padding at TN = 16)
-  auto boff = [](int r, int c) { return r * C::BIAS_LD + (TN == 16 ? c : c ^ ((r & 3) << 3)); };
+  auto boff = [](int r, int c) { return qbias_off<C>(r, c); };
 
   const int q0 = (gridDim.x - 1 - blockIdx.x) * R;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
@@ -714,19 +1065,12 @@ __global__ void __launch_bounds__(Tc<KIND, D, false>::THREADS, 1)
   int kt0, kt1;
   key_tiles(q0, R, TN, Sk, causal, window, kt0, kt1);
 
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < C::STAGES; ++s) {
-      mbar_init(full(s), 128);
-      mbar_init(empty(s), 4 * NC);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
+  init_ring<C>(bars);
 
   if (wg == 0) {   // the producer
     if constexpr (NC == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
     SplitTile<TN, D> kx, vx;
-    DiagTile<R + TN - 1> dx;
+    DiagTile<R + TN - 1, DEMB> dx;
     for (int kt = kt0, i = 0; kt < kt1; ++kt, ++i) {
       const int s = i % C::STAGES, k0 = kt * TN;
       kx.load(k + kv_off, k0, Sk, tid);
@@ -750,12 +1094,20 @@ __global__ void __launch_bounds__(Tc<KIND, D, false>::THREADS, 1)
   if constexpr (NC == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
   const int g = wg - 1, warp = tid / 32, lane = tid % 32, t4 = lane % 4;
   unsigned char* qt = sm + g * 2 * C::RES;   // Q's planes, then dO's
+  // demb: the consumer's skew buffer, its warps' bucket sums, far sums
+  float* skew = reinterpret_cast<float*>(sm + C::SKEW_AT) + g * ND * DEMB_LD;
+  float* wsum = reinterpret_cast<float*>(sm + C::WSUM_AT) + g * 4 * MAX_BUCKETS;
+  float* wfar = reinterpret_cast<float*>(sm + C::WFAR_AT) + g * 4 * 2;
   {
     SplitTile<64, D> x;
     x.load(q + q_off, q0 + 64 * g, Sq, tid);
     x.store(qt, tid);
     x.load(dout + q_off, q0 + 64 * g, Sq, tid);
     x.store(qt + C::RES, tid);
+  }
+  if constexpr (DEMB) {
+    for (int i = tid; i < ND * DEMB_LD; i += 128) skew[i] = 0.f;
+    for (int i = tid; i < 4 * MAX_BUCKETS; i += 128) wsum[i] = 0.f;
   }
   fence_async_shared();
   consumer_sync(g);
@@ -788,6 +1140,7 @@ __global__ void __launch_bounds__(Tc<KIND, D, false>::THREADS, 1)
   for (int nt = 0; nt < D / 8; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+  float far_sum[2] = {0.f, 0.f};   // demb: the thread's sums of far tiles by side
   const int first = q0 + 64 * g, last = min(first + 63, Sq - 1);
   const uint32_t qa = smem_addr(qt), oa = qa + C::RES;
 
@@ -828,6 +1181,8 @@ __global__ void __launch_bounds__(Tc<KIND, D, false>::THREADS, 1)
         sc[e] = p * (dp[e] - dl[hh]);   // dS
       }
       split_mma<TN, D>(acc, sc, stage(s), lane);
+      if constexpr (DEMB)
+        demb_tile<NC, TN>(sc, bd, k0, first, far, far_sum, skew, wsum, g, warp, lane);
     }
     __syncwarp();
     if (lane == 0) mbar_arrive(empty(s));
@@ -842,6 +1197,9 @@ __global__ void __launch_bounds__(Tc<KIND, D, false>::THREADS, 1)
       *reinterpret_cast<float2*>(o + 8 * nt) =
           make_float2(acc[nt][2 * hh] * scale, acc[nt][2 * hh + 1] * scale);
   }
+  if constexpr (DEMB)
+    demb_row(far_sum, wsum, wfar, partial, far, bias.nb,
+             (int64_t)bh * ((Sq + 63) / 64) + first / 64, first < Sq, g, warp, lane, tid);
 }
 
 // dk, dv: block (cluster rank, b Hkv + hk, key block), the first (longest
@@ -849,13 +1207,13 @@ __global__ void __launch_bounds__(Tc<KIND, D, false>::THREADS, 1)
 // a cluster of gridDim.x blocks takes query heads hk G + r G / c .. + G / c -
 // 1, each head's visible query tiles in order.
 template <int KIND, int D>
-__global__ void __launch_bounds__(Tc<KIND, D, true>::THREADS, 1)
+__global__ void __launch_bounds__(Tc<KIND, D, DKV>::THREADS, 1)
     dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, const uint8_t* __restrict__ kv_mask, const Bias bias,
                const float* __restrict__ dout, const float* __restrict__ lse,
                const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv,
                int H, int Hkv, int Sq, int Sk, float scale, int causal, int window) {
-  using C = Tc<KIND, D, true>;
+  using C = Tc<KIND, D, DKV>;
   constexpr int NC = C::NC, TN = C::TN, R = C::R;
   constexpr int PLD = D + 8;   // floats of a partial sum's row (conflict-free float2 stores)
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -883,14 +1241,7 @@ __global__ void __launch_bounds__(Tc<KIND, D, true>::THREADS, 1)
                    (reinterpret_cast<uintptr_t>(bias.rows) & 15) == 0;
   const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
 
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < C::STAGES; ++s) {
-      mbar_init(full(s), 128);
-      mbar_init(empty(s), 4 * NC);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
+  init_ring<C>(bars);
 
   if (wg == 0) {   // the producer
     if constexpr (NC == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
@@ -1138,7 +1489,7 @@ __global__ void __launch_bounds__(THREADS)
           float ds = 0.f;
           if (visible(row, key, Sq, Sk, mg, causal, window))
             ds = expf(s[i][j] * scale +
-                      bias_at<DENSE_BIAS>(bg, nullptr, row, key, q0, k0, bias.ld) - ls[i]) *
+                      bias_at(bg, row, key, bias.ld) - ls[i]) *
                  (dp[i][j] - dl[i]);
           float* g = og + (int64_t)row * Sk + key;
           *g = b == b_begin ? ds : *g + ds;
@@ -1151,121 +1502,11 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-// -- demb ---------------------------------------------------------------------------
-
-// demb[n, h] = sum over b and the (i, j) of bucket n of dS, 0 where a key is
-// not visible. One block per (64-row query tile, b H + h) loops over its key
-// tiles: each tile's dS goes to shared memory, thread t sums diagonal t (rows
-// in order), then thread n adds the diagonals of bucket n (in order) to its
-// register; the block writes its nb sums to partial[((b H + h) tiles + query
-// tile) nb + n], the layout of the bf16 T5 dq kernel's demb partial sums.
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-    demb_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                const float* __restrict__ v, const uint8_t* __restrict__ kv_mask,
-                const Bias bias, const float* __restrict__ dout, const float* __restrict__ lse,
-                const float* __restrict__ delta, float* __restrict__ partial, int H, int Hkv,
-                int Sq, int Sk, float scale, int causal, int window) {
-  constexpr int TF = tile_floats<D>();
-  constexpr int ND = 2 * TILE - 1;   // diagonals of a tile
-  constexpr int LDS = TILE + 1;      // the dS tile's rows, 1 bank apart
-  extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;
-  float* dOs = Qs + TF;
-  float* Ks = dOs + TF;       // [2][TF]
-  float* Vs = Ks + 2 * TF;    // [2][TF]
-  float* dS = Vs + 2 * TF;    // [TILE][LDS]
-  float* Bd = dS + TILE * LDS;   // [ND + 1] the tile's bias by diagonal
-  float* Dd = Bd + ND + 1;       // [ND + 1] the tile's dS summed by diagonal
-  int* Bi = reinterpret_cast<int*>(Dd + ND + 1);   // [ND + 1] bucket by diagonal
-  float* col = reinterpret_cast<float*>(Bi + ND + 1);   // [nb] the head's column
-
-  const int q0 = blockIdx.x * TILE;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int64_t q_off = (int64_t)bh * Sq * D;
-  const int64_t kv_off = ((int64_t)b * Hkv + h / (H / Hkv)) * Sk * D;
-  const float* kg = k + kv_off;
-  const float* vg = v + kv_off;
-  const uint8_t* mg = kv_mask + (int64_t)b * Sk;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  int kt0, kt1;
-  key_tiles(q0, TILE, TILE, Sk, causal, window, kt0, kt1);
-
-  load_rows<D>(Qs, q + q_off, q0, Sq);
-  load_rows<D>(dOs, dout + q_off, q0, Sq);
-  if (kt0 < kt1) {
-    load_rows<D>(Ks, kg, kt0 * TILE, Sk);
-    load_rows<D>(Vs, vg, kt0 * TILE, Sk);
-  }
-  cp_async_commit();
-  for (int c = threadIdx.x; c < bias.nb; c += THREADS) col[c] = bias.table[c * H + h];
-  float ls[4], dl[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    ls[i] = row < Sq ? lse[(int64_t)bh * Sq + row] : 0.f;
-    dl[i] = row < Sq ? delta[(int64_t)bh * Sq + row] : 0.f;
-  }
-  float acc = 0.f;   // bucket threadIdx.x's sum (threads below nb)
-
-  for (int kt = kt0; kt < kt1; ++kt) {
-    const int st = (kt - kt0) & 1, k0 = kt * TILE;
-    if (kt + 1 < kt1) {
-      load_rows<D>(Ks + (st ^ 1) * TF, kg, k0 + TILE, Sk);
-      load_rows<D>(Vs + (st ^ 1) * TF, vg, k0 + TILE, Sk);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();   // the table column, on the first tile
-    t5_diagonals(Bd, Bi, col, bias.index, q0, k0, Sq, Sk);
-    __syncthreads();
-
-    float s[4][4], dp[4][4];
-    tile_dot<D>(s, Qs, Ks + st * TF, ty, tx);
-    tile_dot<D>(dp, dOs, Vs + st * TF, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int key = k0 + tx + 16 * j;
-        float ds = 0.f;
-        if (visible(row, key, Sq, Sk, mg, causal, window))
-          ds = expf(s[i][j] * scale + bias_at<T5_BIAS>(nullptr, Bd, row, key, q0, k0, 0) -
-                    ls[i]) *
-               (dp[i][j] - dl[i]);
-        dS[(ty + 16 * i) * LDS + tx + 16 * j] = ds;
-      }
-    }
-    __syncthreads();
-    // diagonal t holds the (row r, column r + t - 63) of the tile
-    for (int t = threadIdx.x; t < ND; t += THREADS) {
-      const int r_lo = max(0, TILE - 1 - t), r_hi = min(TILE, 2 * TILE - 1 - t);
-      float sum = 0.f;
-      for (int r = r_lo; r < r_hi; ++r) sum += dS[r * LDS + r + t - (TILE - 1)];
-      Dd[t] = sum;
-    }
-    __syncthreads();
-    if (threadIdx.x < bias.nb) {
-      float sum = 0.f;
-      for (int t = 0; t < ND; ++t)
-        if (Bi[t] == (int)threadIdx.x) sum += Dd[t];
-      acc += sum;
-    }
-  }
-  cp_async_wait<0>();
-  if (threadIdx.x < bias.nb)
-    partial[((int64_t)bh * gridDim.x + blockIdx.x) * bias.nb + threadIdx.x] = acc;
-}
-
 // -- launchers ----------------------------------------------------------------------
 
 // Above 48 KB a kernel opts in to dynamic shared memory, up to MAX_SMEM;
-// done again only for a launch that needs more than the instance was allowed
-// (a larger table), so later launches (and CUDA graph captures) make no
-// attribute call.
+// done once per instance, so later launches (and CUDA graph captures) make
+// no attribute call.
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t bytes, size_t& allowed) {
   if (bytes <= allowed) return cudaSuccess;
@@ -1288,42 +1529,50 @@ bool bad_bias(const float* rows, const float* table, const int* index, int nb) {
   return rows != nullptr || index == nullptr || nb <= 0 || nb > MAX_BUCKETS;
 }
 
-// Shared memory of a kernel with `tiles` operand tiles and `scores` score
-// tiles, plus T5's diagonals and `columns` table columns.
-template <int D>
-size_t smem_bytes(int tiles, int scores, int kind, int columns, int nb) {
-  return ((size_t)tiles * tile_floats<D>() + (size_t)scores * TILE * LDP +
-          (kind == T5_BIAS ? 2 * TILE + (size_t)columns * nb : 0)) *
-         sizeof(float);
-}
-
 template <int KIND, int D>
 cudaError_t launch_fwd(const float* q, const float* k, const float* v, const uint8_t* mask,
                        const Bias& bias, float* out, float* lse, int B, int H, int Hkv, int Sq,
                        int Sk, float scale, int causal, int window, cudaStream_t stream) {
-  const size_t bytes = smem_bytes<D>(5, 1, KIND, 1, bias.nb);
+  using C = Tc<KIND, D, FWD>;
   static size_t allowed = 48 * 1024;
-  cudaError_t err = allow_smem(fwd_kernel<KIND, D>, bytes, allowed);
+  cudaError_t err = allow_smem(fwd_kernel<KIND, D>, C::SMEM, allowed);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Sq + TILE - 1) / TILE, B * H);
-  fwd_kernel<KIND, D><<<grid, THREADS, bytes, stream>>>(q, k, v, mask, bias, out, lse, H, Hkv, Sq,
-                                                        Sk, scale, causal, window);
+  const dim3 grid((Sq + C::R - 1) / C::R, B * H);
+  fwd_kernel<KIND, D><<<grid, C::THREADS, C::SMEM, stream>>>(q, k, v, mask, bias, out, lse, H, Hkv,
+                                                             Sq, Sk, scale, causal, window);
   return cudaGetLastError();
 }
 
+template <int KIND, int D, bool DEMB>
+cudaError_t launch_dq_as(const float* q, const float* k, const float* v, const uint8_t* mask,
+                         const Bias& bias, const float* out, const float* dout, const float* lse,
+                         float* delta, float* dq, float* partial, int4 far, int B, int H, int Hkv,
+                         int Sq, int Sk, float scale, int causal, int window,
+                         cudaStream_t stream) {
+  using C = Tc<KIND, D, DQ, DEMB>;
+  static size_t allowed = 48 * 1024;
+  cudaError_t err = allow_smem(dq_kernel<KIND, D, DEMB>, C::SMEM, allowed);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Sq + C::R - 1) / C::R, B * H);
+  dq_kernel<KIND, D, DEMB><<<grid, C::THREADS, C::SMEM, stream>>>(
+      q, k, v, mask, bias, out, dout, lse, delta, dq, partial, far, H, Hkv, Sq, Sk, scale, causal,
+      window);
+  return cudaGetLastError();
+}
+
+// dq, and with `partial` (T5_BIAS only) the table's gradient: the DEMB
+// instance.
 template <int KIND, int D>
 cudaError_t launch_dq(const float* q, const float* k, const float* v, const uint8_t* mask,
                       const Bias& bias, const float* out, const float* dout, const float* lse,
-                      float* delta, float* dq, int B, int H, int Hkv, int Sq, int Sk, float scale,
-                      int causal, int window, cudaStream_t stream) {
-  using C = Tc<KIND, D, false>;
-  static size_t allowed = 48 * 1024;
-  cudaError_t err = allow_smem(dq_kernel<KIND, D>, C::SMEM, allowed);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((Sq + C::R - 1) / C::R, B * H);
-  dq_kernel<KIND, D><<<grid, C::THREADS, C::SMEM, stream>>>(
-      q, k, v, mask, bias, out, dout, lse, delta, dq, H, Hkv, Sq, Sk, scale, causal, window);
-  return cudaGetLastError();
+                      float* delta, float* dq, float* partial, int4 far, int B, int H, int Hkv,
+                      int Sq, int Sk, float scale, int causal, int window, cudaStream_t stream) {
+  if constexpr (KIND == T5_BIAS)
+    if (partial)
+      return launch_dq_as<KIND, D, true>(q, k, v, mask, bias, out, dout, lse, delta, dq, partial,
+                                         far, B, H, Hkv, Sq, Sk, scale, causal, window, stream);
+  return launch_dq_as<KIND, D, false>(q, k, v, mask, bias, out, dout, lse, delta, dq, nullptr, far,
+                                      B, H, Hkv, Sq, Sk, scale, causal, window, stream);
 }
 
 // dk/dv's grid (cluster rank, b Hkv + hk, key block): a K/V head's G query
@@ -1333,7 +1582,7 @@ cudaError_t launch_dkv(const float* q, const float* k, const float* v, const uin
                        const Bias& bias, const float* dout, const float* lse, const float* delta,
                        float* dk, float* dv, int B, int H, int Hkv, int Sq, int Sk, float scale,
                        int causal, int window, cudaStream_t stream) {
-  using C = Tc<KIND, D, true>;
+  using C = Tc<KIND, D, DKV>;
   static size_t allowed = 48 * 1024;
   cudaError_t err = allow_smem(dkv_kernel<KIND, D>, C::SMEM, allowed);
   if (err != cudaSuccess) return err;
@@ -1367,7 +1616,7 @@ cudaError_t launch_dbias(const float* q, const float* k, const float* v, const u
                          const Bias& bias, const float* dout, const float* lse,
                          const float* delta, float* dbias, int B, int H, int Hkv, int Sq, int Sk,
                          float scale, int causal, int window, cudaStream_t stream) {
-  const size_t bytes = smem_bytes<D>(6, 0, DENSE_BIAS, 0, 0);
+  const size_t bytes = (size_t)6 * tile_floats<D>() * sizeof(float);
   static size_t allowed = 48 * 1024;
   cudaError_t err = allow_smem(dbias_kernel<D>, bytes, allowed);
   if (err != cudaSuccess) return err;
@@ -1377,23 +1626,6 @@ cudaError_t launch_dbias(const float* q, const float* k, const float* v, const u
   dbias_kernel<D><<<grid, THREADS, bytes, stream>>>(q, k, v, mask, bias, dout, lse, delta, dbias,
                                                     B, H, Hkv, Sq, Sk, scale, causal, window,
                                                     batch_sum);
-  return cudaGetLastError();
-}
-
-template <int D>
-cudaError_t launch_demb(const float* q, const float* k, const float* v, const uint8_t* mask,
-                        const Bias& bias, const float* dout, const float* lse, const float* delta,
-                        float* partial, int B, int H, int Hkv, int Sq, int Sk, float scale,
-                        int causal, int window, cudaStream_t stream) {
-  const size_t bytes = ((size_t)6 * tile_floats<D>() + (size_t)TILE * (TILE + 1) +
-                        4 * 2 * TILE + bias.nb) *
-                       sizeof(float);
-  static size_t allowed = 48 * 1024;
-  cudaError_t err = allow_smem(demb_kernel<D>, bytes, allowed);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((Sq + TILE - 1) / TILE, B * H);
-  demb_kernel<D><<<grid, THREADS, bytes, stream>>>(q, k, v, mask, bias, dout, lse, delta, partial,
-                                                   H, Hkv, Sq, Sk, scale, causal, window);
   return cudaGetLastError();
 }
 
@@ -1447,18 +1679,26 @@ int fwd(const float* q, const float* k, const float* v, const uint8_t* kv_mask, 
 }
 
 // dq (B, H, Sq, D) f32 and delta (B, H, Sq) f32, from the forward's out and
-// lse (of the same bias).
+// lse (of the same bias). With a T5 table, partial is nullptr or (B, H,
+// ceil(Sq / 64), nb) f32: the table's gradient summed per (batch, head,
+// 64-row query tile), for the caller to sum over the batch and the tiles,
+// given the plan of far tiles of models/positional.py t5_far_tiles (far_neg,
+// far_pos: the offsets k0 - q0 of 64 x 64 tiles at most and at least which
+// every distance lies in bucket b_neg, b_pos).
 int bwd_dq(const float* q, const float* k, const float* v, const uint8_t* kv_mask,
            const float* bias, int bs, int hs, int ld, const float* t5_table, const int* t5_index,
            int nb, const float* out, const float* dout, const float* lse, float* delta, float* dq,
-           int B, int H, int Hkv, int Sq, int Sk, int D, float scale, int causal, int window,
-           void* stream) {
+           float* partial, int far_neg, int far_pos, int b_neg, int b_pos, int B, int H, int Hkv,
+           int Sq, int Sk, int D, float scale, int causal, int window, void* stream) {
   if (bad_args(B, H, Hkv, Sq, Sk, D, window) || bad_bias(bias, t5_table, t5_index, nb) ||
       (bias && ld < Sk))
     return (int)cudaErrorInvalidValue;
+  if (partial && (t5_table == nullptr || b_neg < 0 || b_neg >= nb || b_pos < 0 || b_pos >= nb))
+    return (int)cudaErrorInvalidValue;
   const Bias b{bias, bs, hs, ld, t5_table, t5_index, nb};
-  return (int)F32_DISPATCH(launch_dq, q, k, v, kv_mask, b, out, dout, lse, delta, dq, B, H, Hkv,
-                           Sq, Sk, scale, causal, window, static_cast<cudaStream_t>(stream));
+  return (int)F32_DISPATCH(launch_dq, q, k, v, kv_mask, b, out, dout, lse, delta, dq, partial,
+                           make_int4(far_neg, far_pos, b_neg, b_pos), B, H, Hkv, Sq, Sk, scale,
+                           causal, window, static_cast<cudaStream_t>(stream));
 }
 
 // dk, dv (B, Hkv, Sk, D) f32, summed over each K/V head's query heads, from
@@ -1488,21 +1728,6 @@ int bwd_dbias(const float* q, const float* k, const float* v, const uint8_t* kv_
     return (int)cudaErrorInvalidValue;
   const Bias b{bias, bs, hs, Sk, nullptr, nullptr, 0};
   return (int)F32_BY_DIM1(launch_dbias, q, k, v, kv_mask, b, dout, lse, delta, dbias, B, H, Hkv,
-                          Sq, Sk, scale, causal, window, static_cast<cudaStream_t>(stream));
-}
-
-// partial (B, H, ceil(Sq / 64), nb) f32: the T5 table's gradient summed per
-// (batch, head, 64-row query tile); the caller sums over the batch and the
-// tiles. t5_table, t5_index and nb as for fwd, not nullptr.
-int bwd_demb(const float* q, const float* k, const float* v, const uint8_t* kv_mask,
-             const float* t5_table, const int* t5_index, int nb, const float* dout,
-             const float* lse, const float* delta, float* partial, int B, int H, int Hkv, int Sq,
-             int Sk, int D, float scale, int causal, int window, void* stream) {
-  if (bad_args(B, H, Hkv, Sq, Sk, D, window) || t5_table == nullptr ||
-      bad_bias(nullptr, t5_table, t5_index, nb))
-    return (int)cudaErrorInvalidValue;
-  const Bias b{nullptr, 0, 0, 0, t5_table, t5_index, nb};
-  return (int)F32_BY_DIM1(launch_demb, q, k, v, kv_mask, b, dout, lse, delta, partial, B, H, Hkv,
                           Sq, Sk, scale, causal, window, static_cast<cudaStream_t>(stream));
 }
 

@@ -13,8 +13,8 @@ streamed ``_fwd_stream`` :544, ``_bwd_stream`` :738 and ``_compute_demb``
 backward. On CUDA tensors its forward launches ``flash_fwd`` and its
 backward ``flash_bwd_dq`` then ``flash_bwd_dkv`` (and ``flash_bwd_dbias``
 for the bias's gradient; the T5 table's comes from the T5 dq kernel itself,
-``flash_bwd_dq(..., table_grad=True)``, in bfloat16 and from
-``flash_bwd_demb`` in float32): in bfloat16 the wgmma kernels of
+``flash_bwd_dq(..., table_grad=True)``, in both types): in bfloat16 the
+wgmma kernels of
 ``csrc/flash_bwd.cu`` for the forward, dq (with demb) and dk/dv of every
 bias kind, the kernel of ``csrc/flash_attention.cu`` for dbias; in float32
 the kernels of ``csrc/flash_f32.cu`` for all of them. Each wrapper counts
@@ -34,8 +34,8 @@ output. A row that sees no key gives out = 0 and lse = -1e30 (JAX's
 ``l == 0`` guard). The kernels take q, k and v all bfloat16 or all float32
 and round P to v's type before P.V and dS to q's type before dS.K and
 dS^T.Q, as the Pallas kernels do (so in float32 P and dS stay float32); the
-plain versions compute everything in float32. The float32 forward, dbias and
-demb kernels take float32 FMAs; the float32 dq and dk/dv kernels take the
+plain versions compute everything in float32. The float32 dbias kernel
+takes float32 FMAs; the float32 forward, dq and dk/dv kernels take the
 tensor cores with every operand (P and dS too) split into two TF32 parts
 (``split_tf32``) and three products of them, which keeps float32's accuracy
 where one TF32 product would keep about three decimal digits.
@@ -277,8 +277,7 @@ def _reduce_to(ds, shape):
 # after the key mask: the bias pointer (None for none), the plane strides of
 # its (batch, head) rows and the floats from one row to the next; the T5
 # table and distance index (None for none) and the number of buckets, in
-# ``_bias_args``'s order (dbias takes the first three, float32 demb the last
-# three)
+# ``_bias_args``'s order (dbias takes the first three)
 _BIAS_TYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
 
@@ -297,23 +296,21 @@ def _library():
     return lib
 
 
-def _set_types(lib, dbias_and_demb: bool):
+def _set_types(lib, dbias: bool):
     """argtypes of the forward, dq and dk/dv entry points (each takes the
-    bias operands in ``_bias_args``'s order); with ``dbias_and_demb`` (the
-    float32 library) those of dbias and demb, without it (the bf16 one)
-    dq's demb operands after dq: the partial sums and the plan of far
-    tiles."""
+    bias operands in ``_bias_args``'s order; dq its demb operands after dq:
+    the partial sums and the plan of far tiles); with ``dbias`` (the float32
+    library) those of dbias."""
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     dims = [i32] * 6 + [f32, i32, i32, ptr]   # B H Hkv Sq Sk D, scale ...
     entries = [lib.fwd, lib.bwd_dq, lib.bwd_dkv]
     lib.fwd.argtypes = [ptr] * 4 + _BIAS_TYPES + [ptr] * 2 + dims
-    lib.bwd_dq.argtypes = [ptr] * 4 + _BIAS_TYPES + [ptr] * 5 + \
-        ([] if dbias_and_demb else [ptr] + [i32] * 4) + dims
+    lib.bwd_dq.argtypes = [ptr] * 4 + _BIAS_TYPES + [ptr] * 6 + [i32] * 4 + \
+        dims
     lib.bwd_dkv.argtypes = [ptr] * 4 + _BIAS_TYPES + [ptr] * 5 + dims
-    if dbias_and_demb:
+    if dbias:
         lib.bwd_dbias.argtypes = [ptr] * 4 + _BIAS_TYPES[:3] + [ptr] * 4 + dims
-        lib.bwd_demb.argtypes = [ptr] * 4 + _BIAS_TYPES[4:] + [ptr] * 4 + dims
-        entries += [lib.bwd_dbias, lib.bwd_demb]
+        entries.append(lib.bwd_dbias)
     for fn in entries:
         fn.restype = ctypes.c_int
     lib.flash_error_string.argtypes = [ctypes.c_int]
@@ -330,8 +327,8 @@ def _bwd_library():
 
 
 def _f32_library():
-    """``csrc/flash_f32.cu``: the float32 forward, dq, dk/dv, dbias and demb
-    kernels of every bias kind."""
+    """``csrc/flash_f32.cu``: the float32 forward, dq (with T5's demb),
+    dk/dv and dbias kernels of every bias kind."""
     lib = cuda_build.load("flash_f32")
     if lib.bwd_dq.argtypes is None:
         _set_types(lib, True)
@@ -466,8 +463,8 @@ def _count(wrapper, bias, dtype) -> None:
 
 
 def _count_own(wrapper, f32: bool) -> None:
-    """One launch more of ``wrapper``'s only kernel (dbias, float32 demb),
-    float32 apart."""
+    """One launch more of ``wrapper``'s only kernel (dbias), float32
+    apart."""
     if f32:
         wrapper.launches_f32 += 1
     else:
@@ -516,21 +513,21 @@ def flash_bwd_dq(q, k, v, kv_mask, out, lse, do, scale: float,
     float32), which also computes delta = sum(dO * out) for the dk/dv kernel
     and re-adds ``bias`` (the forward's) to the recomputed scores.
 
-    With ``table_grad`` (bfloat16 q and a T5Bias ``bias``) the same launch
-    also sums its float32 dS by bucket: the kernel writes one
+    With ``table_grad`` (a T5Bias ``bias``) the same launch also sums its
+    float32 dS by bucket: the kernel writes one
     (num_buckets,) row of partial sums per (batch, head, 64-row query tile),
     without atomics, and a torch sum over the batches and query tiles
     follows, as JAX's grid sums them in order (flash_attention.py:1255-1318);
     it returns (dq, delta, the table's gradient (num_buckets, H) float32).
     Such a launch counts as a T5 dq launch and also in
-    ``t5_demb_launches`` (``flash_bwd_dq_t5_demb`` in ``launch_counts``)."""
+    ``t5_demb_launches`` (``flash_bwd_dq_t5_demb`` in ``launch_counts``; in
+    float32 ``t5_demb_launches_f32``, ``flash_bwd_dq_t5_demb_f32``)."""
     q, k, v, mask, dims = _cuda_args(q, k, v, kv_mask, window)
     bias_ops = _bias_args(bias, q, dims)
     out, do, lse = _bwd_operands(q, out, do, lse)
-    f32 = q.dtype == torch.float32
-    if table_grad and (f32 or not isinstance(bias, T5Bias)):
-        raise ValueError("the dq kernel sums the table's gradient for a "
-                         "T5Bias in bfloat16 only (float32: flash_bwd_demb)")
+    if table_grad and not isinstance(bias, T5Bias):
+        raise ValueError("the dq kernel sums the table's gradient of a "
+                         "T5Bias only")
     dq = torch.empty_like(q)
     delta = torch.empty_like(lse)
     B, H, _, Sq, Sk, _ = dims
@@ -539,13 +536,14 @@ def flash_bwd_dq(q, k, v, kv_mask, out, lse, do, scale: float,
         partial = torch.empty((B, H, -(-Sq // 64), bias.num_buckets),
                               dtype=torch.float32, device=q.device)
         plan = bias.far_tiles(Sq, Sk)
-    tail = () if f32 else (partial, *plan)
     _launch("bwd_dq", q.device, q, k, v, mask, *bias_ops, out, do, lse, delta,
-            dq, *tail, *_scalars(dims, scale, causal, window),
+            dq, partial, *plan, *_scalars(dims, scale, causal, window),
             lib=_flash_library(q))
     _count(flash_bwd_dq, bias, q.dtype)
     if table_grad:
-        flash_bwd_dq.t5_demb_launches += 1
+        name = "t5_demb_launches" + ("_f32" if q.dtype == torch.float32
+                                     else "")
+        setattr(flash_bwd_dq, name, getattr(flash_bwd_dq, name) + 1)
         return dq, delta, partial.sum(dim=(0, 2)).t()
     return dq, delta
 
@@ -598,35 +596,14 @@ def flash_bwd_dbias(q, k, v, kv_mask, bias, do, lse, delta, scale: float,
     return _reduce_to(dbias, bias.shape)
 
 
-
 def flash_bwd_demb(q, k, v, kv_mask, t5: T5Bias, do, lse, delta,
                    scale: float, causal: bool, window: Optional[int]):
-    """The T5 table's gradient in float32, (num_buckets, H) float32, from
-    one launch of csrc/flash_f32.cu's demb kernel (counted in
-    ``launches_f32``): dS = P (dP - delta), zero where masked, summed by
-    bucket per head. The kernel writes one (num_buckets,) row of partial
-    sums per (batch, head, query tile), without atomics; a torch sum over
-    the batches and query tiles follows, as JAX's grid sums them in order
-    (flash_attention.py:1255-1318). In bfloat16 the T5 dq kernel sums the
-    table's gradient itself (``flash_bwd_dq(..., table_grad=True)``): there
-    is no separate bf16 demb kernel, and ``launch_counts`` keeps
-    ``flash_bwd_demb`` at 0."""
-    if q.dtype != torch.float32:
-        raise TypeError("in bfloat16 the T5 dq kernel sums the table's "
-                        "gradient: flash_bwd_dq(..., table_grad=True)")
-    q, k, v, mask, dims = _cuda_args(q, k, v, kv_mask, window)
-    table, index, nb = _t5_args(t5, q, dims)
-    _, do, lse = _bwd_operands(q, None, do, lse)
-    delta = delta.float().contiguous()
-    B, H, _, Sq, _, _ = dims
-    tiles = -(-Sq // 64)
-    partial = torch.empty((B, H, tiles, nb), dtype=torch.float32,
-                          device=q.device)
-    _launch("bwd_demb", q.device, q, k, v, mask, table, index, nb, do, lse,
-            delta, partial, *_scalars(dims, scale, causal, window),
-            lib=_f32_library())
-    _count_own(flash_bwd_demb, True)
-    return partial.sum(dim=(0, 2)).t()
+    """No kernel of its own: in both types the T5 dq kernel sums the table's
+    gradient itself (``flash_bwd_dq(..., table_grad=True)``), so this
+    refuses every call, and ``launch_counts`` keeps ``flash_bwd_demb`` and
+    ``flash_bwd_demb_f32`` at 0."""
+    raise TypeError("the T5 dq kernel sums the table's gradient: "
+                    "flash_bwd_dq(..., table_grad=True)")
 
 
 def launch_counts() -> dict:
@@ -636,7 +613,8 @@ def launch_counts() -> dict:
     ``*_f32`` (``flash_fwd_f32``, ``flash_fwd_bias_f32``,
     ``flash_fwd_t5_f32``, ..., ``flash_bwd_demb_f32``). The T5 dq
     launches that also sum the table's gradient count again as
-    ``flash_bwd_dq_t5_demb`` (bfloat16 only: its ``_f32`` twin stays 0)."""
+    ``flash_bwd_dq_t5_demb`` (``_f32`` in float32); ``flash_bwd_demb``
+    has no kernel and stays 0 in both types."""
     counts = {}
     for end in ("", "_f32"):
         for kind, attr in (("", "launches"), ("_bias", "bias_launches"),
@@ -674,10 +652,9 @@ def flash_bwd(q, k, v, kv_mask, out, lse, do, scale: float, causal: bool,
 def _cuda_backward(q, k, v, kv_mask, out, lse, do, scale, causal, window,
                    bias, need_dbias: bool):
     """(dq, dk, dv, the bias's or the T5 table's gradient or None) from the
-    kernels; in bfloat16 the T5 dq kernel sums the table's gradient."""
+    kernels; the T5 dq kernel sums the table's gradient."""
     args = (scale, causal, window)
-    t5 = isinstance(bias, T5Bias)
-    if need_dbias and t5 and q.dtype == torch.bfloat16:
+    if need_dbias and isinstance(bias, T5Bias):
         dq, delta, demb = flash_bwd_dq(q, k, v, kv_mask, out, lse, do, *args,
                                        bias, table_grad=True)
         dk, dv = flash_bwd_dkv(q, k, v, kv_mask, do, lse, delta, *args, bias)
@@ -686,9 +663,7 @@ def _cuda_backward(q, k, v, kv_mask, out, lse, do, scale, causal, window,
     dk, dv = flash_bwd_dkv(q, k, v, kv_mask, do, lse, delta, *args, bias)
     dbias = None
     if need_dbias:
-        grad = flash_bwd_demb if t5 else \
-            flash_bwd_dbias
-        dbias = grad(q, k, v, kv_mask, bias, do, lse, delta, *args)
+        dbias = flash_bwd_dbias(q, k, v, kv_mask, bias, do, lse, delta, *args)
     return dq, dk, dv, dbias
 
 
@@ -716,7 +691,7 @@ def _route(x, kernel, plain):
 class _FlashAttention(torch.autograd.Function):
     """``bias`` is a dense bias, or with ``t5`` (JAX's ``_flash_t5``
     custom VJP, :1363-1395) the T5 table, whose gradient the T5 dq kernel
-    sums (bfloat16) or the float32 demb kernel's."""
+    sums."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_mask, bias, t5, scale, causal, window):

@@ -27,10 +27,10 @@ for the case's bias (if it has one) and without one, the ``--parts`` of the
 forward, dq and dk/dv and, with both of the latter, the backward's sum;
 with ``--profile``, the device kernels of one call of each part by name. The
 part "demb" (T5 cases) is the dq launch that also gives the T5 table's
-gradient: the T5 dq kernel with its demb where the checkout's
-``flash_bwd_dq`` takes ``table_grad``, else (an older checkout) the dq
-kernel and the separate demb kernel together; in float32 the demb kernel
-alone. The part "dbias" (dense-bias cases) is the dbias kernel.
+gradient, in either type: the T5 dq kernel with its demb where the
+checkout's ``flash_bwd_dq`` takes ``table_grad`` for that type, else (an
+older checkout) the dq kernel and the separate demb kernel together. The
+part "dbias" (dense-bias cases) is the dbias kernel.
 """
 
 from __future__ import annotations
@@ -128,11 +128,19 @@ def inputs(B, H, Hkv, S, D, kind, dtype=torch.bfloat16):
 
 def dq_with_table_grad(q, k, v, mask, out, lse, do, args, t5):
     """A call that gives dq and the T5 table's gradient: the dq kernel's own
-    demb, or in a checkout without it the dq and the demb kernels."""
+    demb, or in a checkout without it (for q's type) the dq and the demb
+    kernels."""
     from pasero_torch.ops import flash_attention as fa
+
+    def fused():
+        return fa.flash_bwd_dq(q, k, v, mask, out, lse, do, *args, t5,
+                               table_grad=True)
     if "table_grad" in inspect.signature(fa.flash_bwd_dq).parameters:
-        return lambda: fa.flash_bwd_dq(q, k, v, mask, out, lse, do, *args, t5,
-                                       table_grad=True)
+        try:   # an older checkout refuses float32 here
+            fused()
+            return fused
+        except ValueError:
+            pass
 
     def both():
         _, delta = fa.flash_bwd_dq(q, k, v, mask, out, lse, do, *args, t5)
@@ -140,13 +148,15 @@ def dq_with_table_grad(q, k, v, mask, out, lse, do, args, t5):
     return both
 
 
-def time_demb(shape, causal=False, kind="t5", readings=3) -> dict:
-    """At a T5 shape, device ms of the dq launch with the table's gradient
-    ("fused_ms", ``dq_with_table_grad``) and of the dq kernel without it
-    ("dq_ms"), read in turn ``readings`` times, medians."""
+def time_demb(shape, causal=False, kind="t5", readings=3,
+              dtype=torch.bfloat16) -> dict:
+    """At a T5 shape in ``dtype``, device ms of the dq launch with the
+    table's gradient ("fused_ms", ``dq_with_table_grad``) and of the dq
+    kernel without it ("dq_ms"), read in turn ``readings`` times,
+    medians."""
     from pasero_torch.ops.flash_attention import flash_bwd_dq, flash_fwd
     B, H, Hkv, S, D = shape
-    q, k, v, do, mask, t5 = inputs(B, H, Hkv, S, D, kind)
+    q, k, v, do, mask, t5 = inputs(B, H, Hkv, S, D, kind, dtype)
     args = (D ** -0.5, causal, None)
     n, r = (2, 2) if S > 8192 else (10, 5)
     out, lse = flash_fwd(q, k, v, mask, *args, t5)
@@ -170,7 +180,6 @@ def time_case(shape, causal, kind, window=None, parts=PARTS,
     the key ``kind`` with the bias and, with ``bias_free``, under "none"
     without it."""
     from pasero_torch.ops.flash_attention import (flash_bwd_dbias,
-                                                  flash_bwd_demb,
                                                   flash_bwd_dkv, flash_bwd_dq,
                                                   flash_fwd)
     B, H, Hkv, S, D = shape
@@ -190,10 +199,7 @@ def time_case(shape, causal, kind, window=None, parts=PARTS,
             "dq": lambda: flash_bwd_dq(q, k, v, mask, out, lse, do, *args, b),
             "dkv": lambda: flash_bwd_dkv(q, k, v, mask, do, lse, delta, *args,
                                          b)}
-        if name in ("t5", "t5_causal") and dtype == torch.float32:
-            calls["demb"] = lambda: flash_bwd_demb(q, k, v, mask, b, do, lse,
-                                                   delta, *args)
-        elif name in ("t5", "t5_causal"):
+        if name in ("t5", "t5_causal"):
             calls["demb"] = dq_with_table_grad(q, k, v, mask, out, lse, do,
                                                args, b)
         elif name != "none":

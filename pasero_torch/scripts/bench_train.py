@@ -2,8 +2,10 @@
 """Full-width training benchmark and profile of the PyTorch port on one card.
 
 Two workloads, each driven through ``Trainer.train_step`` (forward, backward,
-clip, Adam) with weights from numpy seed 0 and a synthetic batch in
-bfloat16:
+clip, Adam) with weights from numpy seed 0 and a synthetic batch, the model
+in bfloat16 (``--dtype float32``: in float32, whose attention takes the
+float32 flash kernels of csrc/flash_f32.cu where the workload's takes the
+flash kernels):
 
 - ``--model transformer`` (the default, bench.py's shape): transformer-base
   MT (the translation defaults, dropout 0.1), a 32000-word vocabulary, B = 128
@@ -47,7 +49,7 @@ step of the FFN activation beside ``F.gelu(approximate="tanh")``
 
     python -m pasero_torch.scripts.bench_train
         [--model llama_1b|bloom_560m|t5_base|whisper_base]
-        [--steps 20] [--profile]
+        [--dtype float32] [--steps 20] [--profile]
 """
 
 from __future__ import annotations
@@ -82,11 +84,14 @@ ATTENTION = {"bloom_560m": "flash", "t5_base": "flash"}
 # forward's product and merge and the backward's three products by their
 # epilogues, dbias (flash::), and flash_bwd.cu's forward, dq and dk/dv by
 # their first template argument, the bias kind: 0 none, 1 a dense bias, 2
-# T5's table (whose dq kernel also sums the table's gradient)
+# T5's table (whose dq kernel also sums the table's gradient), and their
+# float32 twins of flash_f32.cu (flash_f32::)
 KERNELS = ("fused_ce::FwdEpilogue", "fused_ce::fwd_combine_kernel",
            "fused_ce::DlogitsEpilogue", "fused_ce::DwEpilogue",
-           "fused_ce::DxEpilogue", "flash::dbias_kernel") + tuple(
-               f"flash_bwd::{name}_kernel<{kind},"
+           "fused_ce::DxEpilogue", "flash::dbias_kernel",
+           "flash_f32::dbias_kernel") + tuple(
+               f"{space}::{name}_kernel<{kind},"
+               for space in ("flash_bwd", "flash_f32")
                for kind in (0, 1, 2) for name in ("fwd", "dq", "dkv"))
 
 
@@ -94,7 +99,7 @@ class Workload:
     """A seeded model of ``SHAPES[name]``, its Trainer and a synthetic
     batch."""
 
-    def __init__(self, name: str = "transformer"):
+    def __init__(self, name: str = "transformer", dtype: str = "bfloat16"):
         from pasero_torch.config import TrainingConfig, get_model_cls
         from pasero_torch.training import Trainer
         arch, task, dropout, batch, src_len, tgt_len, vocab = SHAPES[name]
@@ -105,7 +110,7 @@ class Workload:
         model_cfg.attention_kernel = ATTENTION.get(
             name, model_cfg.attention_kernel)
         model = model_cls(model_cfg, src_vocab_size=vocab,
-                          dtype=torch.bfloat16)
+                          dtype=getattr(torch, dtype))
         model.load_state_dict(random_state(model, SEED))
         # no data and no checkpoints: the directory stays empty. A 10-step
         # warmup lets the loss fall within the first steps.
@@ -117,7 +122,8 @@ class Workload:
         cfg = TrainingConfig("--task", task, "--data-dir", empty,
                              "--model-dir", empty, *langs, "--max-steps",
                              "1000000", "--valid-interval", "1000000",
-                             "--seed", str(SEED), "--warmup", "10")
+                             "--seed", str(SEED), "--warmup", "10",
+                             "--dtype", dtype)
         self.trainer = Trainer(cfg, None, model, device="cuda")
         self.model_cfg = model_cfg
         self.layers = model_cfg.decoder_layers
@@ -139,6 +145,7 @@ class Workload:
             self.batch["src_mask"] = np.ones((batch, src_len), bool)
         self.batches = itertools.repeat(self.batch)
         self.tokens_per_step = batch * tgt_len
+        self.dtype = getattr(torch, dtype)
 
     def step(self) -> dict:
         return self.trainer.train_step(self.batches)
@@ -154,7 +161,8 @@ class Workload:
 
 def activation_ms(work, iters: int = 20) -> dict:
     """Device ms per step of the decoder's FFN activation at the workload's
-    shape, (B T, ffn) in bfloat16, forward and backward, times the decoder's
+    shape, (B T, ffn) in the model's type, forward and backward, times the
+    decoder's
     layers: the model's own activation and ``F.gelu(approximate="tanh")`` in
     its place, each timed with CUDA events over ``iters`` calls."""
     import torch.nn.functional as F
@@ -163,7 +171,7 @@ def activation_ms(work, iters: int = 20) -> dict:
     own = GATES.get(cfg.activation_fn) or ACTIVATIONS[cfg.activation_fn]
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     x = torch.randn(work.tokens_per_step, cfg.decoder_ffn_dim, device="cuda",
-                    generator=gen).to(torch.bfloat16).requires_grad_()
+                    generator=gen).to(work.dtype).requires_grad_()
     dy = torch.randn_like(x)
     fns = {cfg.activation_fn: own,
            "F.gelu tanh": lambda t: F.gelu(t, approximate="tanh")}
@@ -186,6 +194,8 @@ def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--model", choices=sorted(SHAPES),
                         default="transformer")
+    parser.add_argument("--dtype", choices=("bfloat16", "float32"),
+                        default="bfloat16")
     parser.add_argument("--steps", type=int, default=20)
     parser.add_argument("--profile", action="store_true")
     args = parser.parse_args(argv)
@@ -196,12 +206,13 @@ def main(argv=None):
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
-    work = Workload(args.model)
+    work = Workload(args.model, args.dtype)
     work.run(3)                                       # warm-up
     torch.cuda.reset_peak_memory_stats()
     logs, seconds = work.run(args.steps)
     _, _, _, batch, src_len, tgt_len, vocab = SHAPES[args.model]
-    result = {"card": smi, "model": args.model, "batch": batch,
+    result = {"card": smi, "model": args.model, "dtype": args.dtype,
+              "batch": batch,
               "src_len": src_len, "tgt_len": tgt_len, "vocab": vocab,
               "steps": args.steps,
               "seconds": seconds,

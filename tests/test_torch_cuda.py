@@ -876,7 +876,7 @@ def shifted_t5(t5):
 
 def flash_demb_limits(q, k, v, kv_mask, lse, do, out, scale, causal, window,
                       t5, rtol=DBIAS_RTOL):
-    """Per-(bucket, head) limits (num_buckets, H) on the demb kernel's
+    """Per-(bucket, head) limits (num_buckets, H) on the kernels' demb
     result, with the plain version's float32 ``lse``."""
     from pasero_torch.ops.flash_attention import visible
     atol = FLASH_TOL[1]
@@ -1066,8 +1066,8 @@ def test_t5_flash_wrappers_raise_on_card():
     assert flash_fwd.t5_launches == before
 
 
-# The float32 kernels (csrc/flash_f32.cu: the forward, dq, dk/dv, dbias and
-# demb of every bias kind) against the plain version's float32 results of the
+# The float32 kernels (csrc/flash_f32.cu: the forward, dq with T5's demb,
+# dk/dv and dbias of every bias kind) against the plain version's float32 results of the
 # same float32 inputs. Both sides compute every product and sum in float32
 # (no operand or P or dS is rounded to a shorter type), so they differ by
 # float32 roundings of u = 2^-24 only, in a limit per element of the bf16
@@ -1107,6 +1107,7 @@ FLASH_F32_CASES = [   # (B, H, Hkv, S, D), causal, window, padded, bias kind
     ((2, 4, 2, 200, 64), True, None, False, "t5_causal"),
     ((1, 8, 1, 160, 64), True, None, True, None),        # a cluster of 8
     ((2, 12, 2, 150, 64), False, None, True, "t5"),      # a cluster of 6
+    ((8, 12, 12, 512, 64), False, None, False, "t5"),    # t5_base's width
 ] + [((2, 4, 2, 130, D), kind != "t5", None, True, kind)   # every D, kind
      for kind in (None, "learned_1xH", "t5") for D in (32, 128)]
 
@@ -1176,19 +1177,18 @@ def flash_f32_limits(q, k, v, kv_mask, lse, do, out, scale, causal, window,
 
 
 def flash_f32_compare(shape, causal, window, padded, kind) -> dict:
-    """The float32 kernels (forward, dq, dk/dv, and dbias or demb with a
-    bias; one launch each) against the plain version on the same float32
-    inputs at one shape, as ``flash_compare`` does, and the mutations the
-    limits must reject: the kernels on q, k and v rounded to TF32 (a TF32
-    product), a backward given another row's lse, and with a bias those of
-    ``flash_bias_compare`` and ``flash_t5_compare``; then dq and dk/dv once
-    more on the same inputs. Returns the lse error, the excess of out, dq,
-    dk, dv (and dbias or demb) over their limits, the smallest excess of
-    each mutation, whether the second backward gave the same bits, and the
-    max abs errors."""
+    """The float32 kernels (forward, dq with T5's demb, dk/dv, and dbias with
+    a dense bias; one launch each) against the plain version on the same
+    float32 inputs at one shape, as ``flash_compare`` does, and the
+    mutations the limits must reject: the kernels on q, k and v rounded to
+    TF32 (a TF32 product), a backward given another row's lse, and with a
+    bias those of ``flash_bias_compare`` and ``flash_t5_compare``; then the
+    forward, dq (with demb) and dk/dv once more on the same inputs. Returns
+    the lse error, the excess of out, dq, dk, dv (and dbias or demb) over
+    their limits, the smallest excess of each mutation, whether the second
+    calls gave the same bits (out and demb too), and the max abs errors."""
     from pasero_torch.ops.flash_attention import (T5Bias, _reduce_to,
-                                                  flash_bwd, flash_bwd_dbias,
-                                                  flash_bwd_demb,
+                                                  flash_bwd_dbias,
                                                   flash_bwd_dkv, flash_bwd_dq,
                                                   flash_bwd_plain,
                                                   flash_dbias_plain,
@@ -1209,13 +1209,16 @@ def flash_f32_compare(shape, causal, window, padded, kind) -> dict:
     args = (D ** -0.5, causal, window)
 
     def kernels(q, k, v, lse=None):
+        """(out, lse, delta, dq, dk, dv), and demb with T5."""
         out, own = flash_fwd(q, k, v, mask, *args, bias)
         lse = own if lse is None else lse
-        dq, delta = flash_bwd_dq(q, k, v, mask, out, lse, do, *args, bias)
-        return (out, own, delta) + (dq,) + flash_bwd_dkv(
-            q, k, v, mask, do, lse, delta, *args, bias)
+        dq, delta, *demb = flash_bwd_dq(q, k, v, mask, out, lse, do, *args,
+                                        bias, table_grad=t5)
+        return (out, own, delta, dq) + flash_bwd_dkv(
+            q, k, v, mask, do, lse, delta, *args, bias) + tuple(demb)
 
-    out, lse, delta, dq, dk, dv = kernels(q, k, v)
+    first = kernels(q, k, v)
+    out, lse, delta, dq, dk, dv = first[:6]
     ref_out, ref_lse = flash_fwd_plain(q, k, v, mask, *args, bias)
     ref = flash_bwd_plain(q, k, v, mask, out, ref_lse, do, *args, bias)
     torch.cuda.synchronize()
@@ -1240,8 +1243,7 @@ def flash_f32_compare(shape, causal, window, padded, kind) -> dict:
     errs = {}
     if kind is not None:
         name = "demb" if t5 else "dbias"
-        grad = (flash_bwd_demb(q, k, v, mask, bias, do, lse, delta, *args)
-                if t5 else
+        grad = (first[6] if t5 else
                 flash_bwd_dbias(q, k, v, mask, bias, do, lse, delta, *args))
         plain = flash_demb_plain if t5 else flash_dbias_plain
         ref_grad = plain(q, k, v, mask, out, ref_lse, do, *args, bias)
@@ -1276,8 +1278,8 @@ def flash_f32_compare(shape, causal, window, padded, kind) -> dict:
         for name, b in fwd_mutants.items():
             mutants[name] = flash_excess(flash_fwd(q, k, v, mask, *args, b)[0],
                                          ref_out, limits[0], rows)
-    again = flash_bwd(q, k, v, mask, out, lse, do, *args, bias)
-    same_bits = all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again))
+    again = kernels(q, k, v)
+    same_bits = all(torch.equal(a, b) for a, b in zip(first, again))
 
     def err(got, want, rows=None):
         diff = (got - want).abs()
@@ -1293,9 +1295,11 @@ def flash_f32_compare(shape, causal, window, padded, kind) -> dict:
 @pytest.mark.parametrize("shape,causal,window,padded,kind", FLASH_F32_CASES)
 def test_f32_flash_kernels_match_plain(shape, causal, window, padded, kind):
     """Float32 q, k and v take csrc/flash_f32.cu's kernels (counted as
-    ``*_f32``, no bf16 kernel launched): out, dq, dk, dv and dbias or demb
-    within their float32 limits, lse within F32_LSE_ATOL; each mutation at
-    2.8 times its limits or more; dq, dk and dv the same bits twice."""
+    ``*_f32``, no bf16 kernel launched; T5's demb from the dq kernel, no
+    separate demb kernel): out, dq, dk, dv and dbias or demb within their
+    float32 limits, lse within F32_LSE_ATOL; each mutation at 2.8 times its
+    limits or more; out, lse, delta, dq, dk, dv and demb the same bits
+    twice."""
     from pasero_torch.ops.flash_attention import launch_counts
     _need_card()
     before = launch_counts()
@@ -1306,6 +1310,8 @@ def test_f32_flash_kernels_match_plain(shape, causal, window, padded, kind):
     end = {None: "", "alibi": "_bias", "learned_1xH": "_bias"}.get(kind, "_t5")
     assert {f"flash_fwd{end}_f32", f"flash_bwd_dq{end}_f32",
             f"flash_bwd_dkv{end}_f32"} <= launched
+    assert ("flash_bwd_dq_t5_demb_f32" in launched) == (end == "_t5")
+    assert "flash_bwd_demb_f32" not in launched
     assert result["lse_err"] <= F32_LSE_ATOL, result["lse_err"]
     assert max(result["excess"]) <= 1.0, result["excess"]
     assert min(result["mutants"].values()) >= 2.8, result["mutants"]

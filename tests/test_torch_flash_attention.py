@@ -138,9 +138,49 @@ def test_launch_counts_name_the_float32_instances():
     assert sorted(n + "_f32" for n in bf16) == \
         sorted(n for n in counts if n.endswith("_f32"))
     assert {"flash_fwd_f32", "flash_fwd_bias_f32", "flash_fwd_t5_f32",
-            "flash_bwd_dbias_f32", "flash_bwd_demb_f32"} <= set(counts)
+            "flash_bwd_dbias_f32", "flash_bwd_demb_f32",
+            "flash_bwd_dq_t5_demb_f32"} <= set(counts)
     fa.flash_fwd.t5_launches_f32 += 1
-    assert fa.launch_counts()["flash_fwd_t5_f32"] == \
-        counts["flash_fwd_t5_f32"] + 1
+    fa.flash_bwd_dq.t5_demb_launches_f32 += 1
+    after = fa.launch_counts()
+    assert after["flash_fwd_t5_f32"] == counts["flash_fwd_t5_f32"] + 1
+    assert after["flash_bwd_dq_t5_demb_f32"] == \
+        counts["flash_bwd_dq_t5_demb_f32"] + 1
     fa.reset_launch_counts()
     assert not any(fa.launch_counts().values())
+
+
+@pytest.mark.parametrize("dtype", (torch.bfloat16, torch.float32))
+def test_table_gradient_comes_from_the_dq_kernel(dtype, monkeypatch):
+    """In both types the kernels' backward takes T5's table gradient from
+    the dq launch (``table_grad``) and calls no separate demb kernel, which
+    refuses every call; a dense bias still takes the dbias kernel."""
+    from pasero_torch.ops import flash_attention as fa
+    calls = []
+
+    def dq(*args, table_grad=False):
+        calls.append(("dq", table_grad))
+        grads = (torch.zeros(1), torch.zeros(1))
+        return grads + (torch.ones(1),) if table_grad else grads
+
+    def dkv(*args):
+        calls.append(("dkv",))
+        return torch.zeros(1), torch.zeros(1)
+
+    def dbias(*args):
+        calls.append(("dbias",))
+        return torch.full((1,), 2.0)
+    monkeypatch.setattr(fa, "flash_bwd_dq", dq)
+    monkeypatch.setattr(fa, "flash_bwd_dkv", dkv)
+    monkeypatch.setattr(fa, "flash_bwd_dbias", dbias)
+    x = torch.zeros((1, 1, 4, 32), dtype=dtype)
+    args = (x, x, x, None, x, None, x, 1.0, False, None)
+    t5 = fa.T5Bias(torch.zeros(32, 1))
+    assert fa._cuda_backward(*args, t5, True)[3].item() == 1.0
+    assert calls == [("dq", True), ("dkv",)]
+    calls.clear()
+    assert fa._cuda_backward(*args, torch.zeros(1, 1, 4, 4), True)[3] \
+        .item() == 2.0
+    assert calls == [("dq", False), ("dkv",), ("dbias",)]
+    with pytest.raises(TypeError, match="table_grad"):
+        fa.flash_bwd_demb(*args[:4], t5, x, None, None, 1.0, False, None)
