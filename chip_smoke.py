@@ -23,23 +23,29 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    of 8 and 64 new tokens, through Transformer.encode and beam_search;
 4. the fused cross-entropy kernels (the forward's wgmma product with its
    logsumexp-partials epilogue and their merge; the backward's three wgmma
-   products per vocabulary chunk) against their plain version on the card at
+   products per vocabulary chunk; in float32 the same design in split TF32,
+   with its split passes) against their plain version on the card at
    the full-width training shape (16384 x 512 x 32000, bf16), ragged shapes in
-   bf16 and fp32, the wide shapes of the JAX split backward, the backward's
+   bf16 and float32, the wide shapes of the JAX split backward, the backward's
    chunk boundaries (a vocabulary of one chunk, one chunk + 1 and several
-   with a ragged last one) and the heads of whisper_base (2048 x 512 x
-   51865), t5_base (4096 x 768 x 32128), bloom_560m (8192 x 1024 x 250880)
-   and llama_1b (8192 x 2048 x 32000); a backward given another row's lse,
-   dx without the last chunk's share and dW rolled by one chunk rejected;
-   the same bits from two calls of either direction; torch.profiler showing
-   that the forward and the backward launch only kernels of
-   csrc/fused_ce.cu and no library GEMM; at every head the time per call
+   with a ragged last one; in float32 too) and the heads of whisper_base
+   (2048 x 512 x 51865), t5_base (4096 x 768 x 32128, in bf16 and float32),
+   bloom_560m (8192 x 1024 x 250880) and llama_1b (8192 x 2048 x 32000); a
+   backward given another row's lse, dx without the last chunk's share, dW
+   rolled by one chunk and, in float32, the kernels on TF32-rounded operands
+   rejected; the same bits from two calls of either direction;
+   torch.profiler showing that the forward and the backward launch only
+   kernels of csrc/fused_ce.cu (no FMA kernel) and no library GEMM in
+   either type; at every head the time per call
    beside the plain version's, the library yardstick's (F.cross_entropy over
    torch.matmul logits) and the operations bound (the forward and its
    yardstick from CUDA graphs, eager beside), the forward at most its
    library call at llama_1b's and bloom_560m's heads and at most its plain
    version at whisper_base's, the peak memory of the kernel path (below the
-   yardstick's) and each direction's scratch (below the bf16 logits);
+   yardstick's) and each direction's scratch (below the bf16 logits); the
+   float32 kernels' times at t5_base's head (both directions from CUDA
+   graphs) beside the same and both operations bounds (split TF32, CUDA
+   cores), each at most the FMA kernels' time they replaced;
 5. full-width training: transformer-base, vocabulary 32000, 128 x 128
    tokens, bf16, through Trainer.train_step (scripts/bench_train.py's
    workload), 20 steps after a warm-up;
@@ -248,14 +254,11 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-# the card's memory and bf16 rates (HBM_BYTES_PER_S, BF16_FLOPS) and
-# time_ms, bench_int8's eager_ms, come from pasero_torch/scripts/bench_int8.py
-# once main has found the package
-FP32_FLOPS = 67e12          # H100 SXM fp32 outside the tensor cores
-# float32-accurate products on the tensor cores: three TF32 products (hi hi,
-# hi lo, lo hi of split operands) at the dense TF32 rate
-FP32_TC_FLOPS = 495e12 / 3
-FP32_ADDS = FP32_FLOPS / 2  # an add takes an FMA's slot, counted as 2 flops
+# the card's memory rate and peak rates (HBM_BYTES_PER_S, BF16_FLOPS,
+# FP32_FLOPS on the CUDA cores, FP32_TC_FLOPS as split TF32 on the tensor
+# cores) and time_ms, bench_int8's eager_ms, come from
+# pasero_torch/scripts/bench_int8.py once main has found the package; an
+# add takes an FMA's slot, counted as 2 flops: FP32_ADDS = FP32_FLOPS / 2
 GOLDEN = os.path.join(ROOT, "pasero_torch", "testdata",
                       "deen_mini2_test_beam5.jax.txt")
 MIN_GOLDEN_MATCH = 57
@@ -525,21 +528,15 @@ def phase3() -> int:
 
 # -- phase 4 -------------------------------------------------------------------
 
-# The main path's heads (B*T, E, V), each timed.
-CE_HEADS = {"transformer_base": (16384, 512, 32000),
-            "llama_1b": (8192, 2048, 32000),       # untied head
-            "bloom_560m": (8192, 1024, 250880),    # N V near 2^31
-            "t5_base": (4096, 768, 32128),         # 32 x 128 targets
-            "whisper_base": (2048, 512, 51865)}    # Whisper's odd vocab
-
-
 def ce_shapes(chunk: int) -> list:
-    """Phase 4's ((N, E, V), dtype name) cases: the main path's heads, ragged
-    edges, the shapes of JAX's split backward and the boundaries of the
-    backward's vocabulary chunks of ``chunk`` rows."""
+    """Phase 4's ((N, E, V), dtype name) cases: the main path's heads
+    (bench_fused_ce.py's HEADS, each timed), ragged edges, the shapes of
+    JAX's split backward and the boundaries of the backward's vocabulary
+    chunks of ``chunk`` rows."""
+    from pasero_torch.scripts.bench_fused_ce import HEADS as CE_HEADS
     return [(CE_HEADS["transformer_base"], "bfloat16"),
             ((130, 48, 515), "bfloat16"),        # ragged rows and vocab
-            ((130, 48, 515), "float32"),         # the fp32 FMA path
+            ((130, 48, 515), "float32"),         # the split-TF32 kernels
             ((48, 2048, 330), "bfloat16"),       # shapes of JAX's split bwd
             ((4096, 2048, 32000), "bfloat16"),
             ((256, 128, chunk), "bfloat16"),     # one backward chunk exactly
@@ -548,14 +545,36 @@ def ce_shapes(chunk: int) -> list:
             (CE_HEADS["whisper_base"], "bfloat16"),
             (CE_HEADS["t5_base"], "bfloat16"),
             (CE_HEADS["bloom_560m"], "bfloat16"),
-            (CE_HEADS["llama_1b"], "bfloat16")]
+            (CE_HEADS["llama_1b"], "bfloat16"),
+            # float32: t5_base's head (its float32 training), E padded to
+            # 40, the backward's chunks
+            (CE_HEADS["t5_base"], "float32"),
+            ((64, 36, 100), "float32"),
+            ((256, 128, chunk + 1), "float32"),
+            ((256, 136, 3 * chunk + 1000), "float32")]
 
 
-LM_HEAD = CE_HEADS["llama_1b"]
 # kernels of csrc/fused_ce.cu as the profiler names them, and names of
 # library GEMMs that the backward must not launch
 FCE_KERNEL_NAMES = ("fused_ce::", "wgmma_gemm::")
 LIBRARY_GEMM = re.compile(r"gemm|cublas|cutlass|xmma|sm90_|nvjet", re.I)
+# the parts each direction's profile must show, by type: bf16's wgmma
+# products by their epilogues; float32's split pass and split-TF32 products
+FCE_PARTS = {"bfloat16": {"fwd": ("FwdEpilogue", "fwd_combine_kernel"),
+                          "bwd": ("DlogitsEpilogue", "DwEpilogue",
+                                  "DxEpilogue")},
+             "float32": {"fwd": ("split_kernel",
+                                 "tf32_gemm_kernel<fused_ce::FwdChunkEpilogue",
+                                 "fwd_combine_kernel"),
+                         "bwd": ("split_kernel",
+                                 "tf32_gemm_kernel<fused_ce::DlogitsEpilogue",
+                                 "tf32_gemm_kernel<fused_ce::DwEpilogue",
+                                 "tf32_gemm_kernel<fused_ce::DxAddEpilogue")}}
+# device ms per call of the float32 FMA kernels that the split-TF32 ones
+# replaced, at t5_base's head: the parent's medians in this PR's comparison
+# (bench_fused_ce.py, "NVIDIA H100 80GB HBM3, 700.00 W", PERF.md): gates,
+# not readings of this run
+FCE_F32_EARLIER_MS = {"fwd": 42.7942, "bwd": 123.5620}
 
 
 # Limits of phase 4. Each per-row statistic of the forward against float32
@@ -567,19 +586,6 @@ LIBRARY_GEMM = re.compile(r"gemm|cublas|cutlass|xmma|sm90_|nvjet", re.I)
 # row's lse.
 STAT_ATOL = 1e-4
 STAT_SUM_RTOL = 1e-6
-
-
-def ce_inputs(N, E, V, dtype, seed=0):
-    """x with a per-row scale in [0.5, 2), so that lse differs from row to
-    row and a gradient built with another row's lse is told apart."""
-    import torch
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    scale = 0.5 + 1.5 * torch.rand(N, 1, generator=gen, device="cuda")
-    x = (torch.randn(N, E, generator=gen, device="cuda") * scale).to(dtype)
-    w = torch.randn(V, E, generator=gen, device="cuda") * E ** -0.5
-    t = torch.randint(0, V, (N,), generator=gen, device="cuda")
-    wt = (torch.rand(N, generator=gen, device="cuda") >= 0.1).float()
-    return x, w, t, wt
 
 
 def load_test_module(name: str):
@@ -597,30 +603,29 @@ def load_test_module(name: str):
     return module
 
 
-def ce_timing(N, E, V) -> dict:
-    """The fused-CE wrappers' time per call at (N, E, V) in bf16 beside the
-    plain version's, the library yardstick's and the operations bound (the
-    forward and its yardstick from CUDA graphs, their eager times beside),
-    the peak memory of the kernel path and the yardstick, each wrapper's
-    scratch, and whether two forward calls give the same bits."""
+def ce_timing(N, E, V, name: str = "bfloat16") -> dict:
+    """The fused-CE wrappers' time per call at (N, E, V) in x's type
+    ``name`` beside the plain version's, the library yardstick's and the
+    bound (bench_fused_ce.py's ``bounds``: in float32 the lesser of three
+    TF32 products at the tensor cores' rate and one product on the CUDA
+    cores; the forward and its yardstick from CUDA graphs, their eager times
+    beside; in float32 the backward from a CUDA graph too), the peak memory
+    of the kernel path
+    and the yardstick, each wrapper's scratch, and whether two forward calls
+    give the same bits."""
     import torch
     import torch.nn.functional as F
     from pasero_torch.ops.fused_ce import (fused_ce_bwd, fused_ce_fwd,
                                            fused_cross_entropy,
                                            fused_cross_entropy_plain)
+    from pasero_torch.scripts.bench_fused_ce import bounds, inputs
     ls = 0.1
-    x, w, t, wt = ce_inputs(N, E, V, torch.bfloat16)
-    wb = w.to(torch.bfloat16)
+    dtype = getattr(torch, name)
+    x, w, t, wt = inputs(N, E, V, dtype)
+    wb = w.to(dtype)
     lse = fused_ce_fwd(x, wb, t)[0]
     c = wt * 0.5
-    flops = 2.0 * N * E * V
-    fwd_bytes = N * E * 2 + V * E * 2 + N * 4 + 3 * N * 4
-    bwd_bytes = N * E * 2 + V * E * 2 + N * 4 + 4 * N * 4 + N * E * 2 + V * E * 4
-    res = {"fwd": {"bound_ms": max(flops / BF16_FLOPS,
-                                   fwd_bytes / HBM_BYTES_PER_S) * 1e3},
-           # three products: one logits recompute feeding both dx and dW
-           "bwd": {"bound_ms": max(3 * flops / BF16_FLOPS,
-                                   bwd_bytes / HBM_BYTES_PER_S) * 1e3}}
+    res = bounds(N, E, V, dtype)
     first, second = fused_ce_fwd(x, wb, t), fused_ce_fwd(x, wb, t)
     res["fwd"]["same_bits"] = all(torch.equal(a, b)
                                   for a, b in zip(first, second))
@@ -636,10 +641,16 @@ def ce_timing(N, E, V) -> dict:
         return (F.cross_entropy(logits, t, reduction="none",
                                 label_smoothing=ls) * wt).sum()
 
+    def bwd():
+        return fused_ce_bwd(x, wb, t, lse, c, c, c)
+
     res["fwd"]["ms"] = device_ms(fwd, 5, 4)
     res["fwd"]["host_ms"] = time_ms(fwd, 20, 3)
-    res["bwd"]["ms"] = time_ms(lambda: fused_ce_bwd(x, wb, t, lse, c, c, c),
-                               10, 2)
+    if name == "float32":
+        res["bwd"]["ms"] = device_ms(bwd, 3, 4)
+        res["bwd"]["host_ms"] = time_ms(bwd, 5, 2)
+    else:
+        res["bwd"]["ms"] = time_ms(bwd, 10, 2)
     with torch.no_grad():
         res["fwd"]["plain_ms"] = time_ms(
             lambda: fused_cross_entropy_plain(x, w, t, wt, ls), 10, 2)
@@ -666,8 +677,7 @@ def ce_timing(N, E, V) -> dict:
     # each wrapper's own memory beyond its inputs and outputs (the scratch of
     # partials; the backward's scratch, dx accumulator and copies), from the
     # allocator's peak over one call
-    for key, fn in (("fwd", fwd),
-                    ("bwd", lambda: fused_ce_bwd(x, wb, t, lse, c, c, c))):
+    for key, fn in (("fwd", fwd), ("bwd", bwd)):
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
@@ -681,13 +691,23 @@ def ce_timing(N, E, V) -> dict:
         check(res[key]["scratch_mib"] * 2 ** 20 < N * V * x.element_size(),
               f"the {key} scratch at {(N, E, V)} is not below the whole "
               "logits")
-    log(f"phase 4: at {(N, E, V)} bf16, ms per call: forward kernels "
+    if name == "float32":
+        bounds = {key: (f"bound {res[key]['bound_ms']:.4f}: split TF32 "
+                        f"{res[key]['tf32x3_ops_bound_ms']:.4f}, CUDA cores "
+                        f"{res[key]['fp32_ops_bound_ms']:.4f}")
+                  for key in ("fwd", "bwd")}
+        bwd_how = (f" from a CUDA graph, eager {res['bwd']['host_ms']:.4f}")
+    else:
+        bounds = {key: f"bound {res[key]['bound_ms']:.4f}"
+                  for key in ("fwd", "bwd")}
+        bwd_how = ""
+    log(f"phase 4: at {(N, E, V)} {name}, ms per call: forward kernels "
         f"{res['fwd']['ms']:.4f} from a CUDA graph, eager "
-        f"{res['fwd']['host_ms']:.4f} (bound {res['fwd']['bound_ms']:.4f}, "
+        f"{res['fwd']['host_ms']:.4f} ({bounds['fwd']}, "
         f"plain {res['fwd']['plain_ms']:.4f}, library "
         f"{res['fwd']['library_ms']:.4f} from a CUDA graph, eager "
         f"{res['fwd']['library_host_ms']:.4f}); backward kernels "
-        f"{res['bwd']['ms']:.4f} (bound {res['bwd']['bound_ms']:.4f}, plain "
+        f"{res['bwd']['ms']:.4f}{bwd_how} ({bounds['bwd']}, plain "
         f"{res['bwd']['plain_ms']:.4f}, library {res['bwd']['library_ms']:.4f});"
         f" peak memory of forward + backward: kernels "
         f"{res['fwd']['peak_mib']:.1f} MiB, library "
@@ -717,11 +737,11 @@ def device_kernels(fn) -> dict:
 
 def fce_launch_check(what, alone, parts, whole) -> dict:
     """``alone`` (the kernels of one fused-CE wrapper call) are all of
-    csrc/fused_ce.cu and hold every name in ``parts``; ``whole`` (the
-    kernels of the same direction through fused_cross_entropy) holds no
-    library GEMM. Returns ``alone``."""
+    csrc/fused_ce.cu, hold every name in ``parts`` and no FMA kernel;
+    ``whole`` (the kernels of the same direction through
+    fused_cross_entropy) holds no library GEMM. Returns ``alone``."""
     check(alone and all(any(k in name for k in FCE_KERNEL_NAMES)
-                        for name in alone),
+                        and "fma" not in name for name in alone),
           f"fused_ce_{what} launched kernels not of csrc/fused_ce.cu: {alone}")
     check(all(any(e in name for name in alone) for e in parts),
           f"the {what} profile lacks one of {parts}: {alone}")
@@ -732,10 +752,12 @@ def fce_launch_check(what, alone, parts, whole) -> dict:
     return alone
 
 
-def fwd_launch_check(x, wb, t, wt, ls) -> dict:
-    """The bf16 forward launches its wgmma product with the partials'
-    epilogue and their merge, and nothing else (fused_ce_fwd alone);
-    fused_cross_entropy's forward no library GEMM."""
+def fwd_launch_check(x, wb, t, wt, ls, name) -> dict:
+    """The forward in x's type ``name`` launches the parts FCE_PARTS names
+    (bf16: its wgmma product with the partials' epilogue and their merge;
+    float32: the split pass, the split-TF32 product and the merge) and
+    nothing else (fused_ce_fwd alone); fused_cross_entropy's forward no
+    library GEMM."""
     import torch
     from pasero_torch.ops.fused_ce import fused_ce_fwd, fused_cross_entropy
     t32 = t.to(torch.int32)
@@ -743,14 +765,13 @@ def fwd_launch_check(x, wb, t, wt, ls) -> dict:
     with torch.no_grad():
         whole = device_kernels(lambda: fused_cross_entropy(
             x, wb.float(), t, wt, ls))
-    return fce_launch_check("fwd", alone, ("FwdEpilogue", "fwd_combine_kernel"),
-                            whole)
+    return fce_launch_check("fwd", alone, FCE_PARTS[name]["fwd"], whole)
 
 
-def bwd_launch_check(x, wb, t, lse, cs, wt, ls) -> dict:
-    """The bf16 backward launches its three products and nothing else
-    (fused_ce_bwd alone); the autograd backward of fused_cross_entropy no
-    library GEMM."""
+def bwd_launch_check(x, wb, t, lse, cs, wt, ls, name) -> dict:
+    """The backward in x's type ``name`` launches its three products (and in
+    float32 its split passes) and nothing else (fused_ce_bwd alone); the
+    autograd backward of fused_cross_entropy no library GEMM."""
     import torch
     from pasero_torch.ops.fused_ce import fused_ce_bwd, fused_cross_entropy
     t32 = t.to(torch.int32)
@@ -758,40 +779,43 @@ def bwd_launch_check(x, wb, t, lse, cs, wt, ls) -> dict:
     xi, wi = x.clone().requires_grad_(), wb.float().requires_grad_()
     out = fused_cross_entropy(xi, wi, t, wt, ls)
     whole = device_kernels(lambda: out[0].backward())
-    return fce_launch_check("bwd", alone, ("DlogitsEpilogue", "DwEpilogue",
-                                           "DxEpilogue"), whole)
+    return fce_launch_check("bwd", alone, FCE_PARTS[name]["bwd"], whole)
 
 
 def phase4() -> dict:
     """The fused-CE kernels against fused_cross_entropy_plain; returns the
     two wrappers' timings at the full-width shape, at llama_1b's head
-    (under "lm_head") and at every head of CE_HEADS (under "heads"), and
-    their errors."""
+    (under "lm_head") and at every head of bench_fused_ce.py's HEADS (under
+    "heads"), and their errors."""
     import torch
     from pasero_torch.ops import fused_ce as fce
     from pasero_torch.ops.fused_ce import (fused_ce_bwd, fused_ce_fwd,
                                            fused_cross_entropy,
                                            fused_cross_entropy_plain)
+    from pasero_torch.scripts.bench_fused_ce import HEADS as CE_HEADS
+    from pasero_torch.scripts.bench_fused_ce import inputs as ce_inputs
     chunk = fce.CHUNK
     # gradients element by element, within the error model of the kernels'
     # bf16 rounding of dlogits that tests/test_torch_cuda.py states
     cuda_tests = load_test_module("test_torch_cuda")
     ls, gl, gn = 0.1, 1.0, 0.5      # the backward of loss + 0.5 nll
-    a, b = gl * (1.0 - ls) + gn, gl * ls
-    err = {"fwd": 0.0, "bwd": 0.0}
+    err = {name: {"fwd": 0.0, "bwd": 0.0} for name in ("bfloat16", "float32")}
     for (N, E, V), name in ce_shapes(chunk):
         dtype = getattr(torch, name)
+        f32 = name == "float32"
         x, w, t, wt = ce_inputs(N, E, V, dtype)
         wb = w.to(dtype)
         # per-row statistics of one forward launch against float32 logits of
-        # the same operands
+        # the same bf16 operands, float64 logits of float32 ones
         lse, tgt, suml = fused_ce_fwd(x, wb, t)
-        logits = torch.matmul(x.float(), wb.float().t())
+        wide = torch.float64 if f32 else torch.float32
+        logits = torch.matmul(x.to(wide), wb.to(wide).t())
         ref_lse = torch.logsumexp(logits, -1)
         ref_tgt = logits.gather(-1, t[:, None])[:, 0]
         ref_suml = logits.sum(-1)
         abs_sum = logits.abs().sum(-1)
-        del logits
+        if not f32:   # float32 keeps them for the TF32 mutation
+            del logits
         lse_err = (lse - ref_lse).abs().max().item()
         tgt_err = (tgt - ref_tgt).abs().max().item()
         sum_err = ((suml - ref_suml).abs() / abs_sum).max().item()
@@ -800,6 +824,12 @@ def phase4() -> dict:
               f"fused_ce_fwd statistics differ at {(N, E, V)} {name}: lse "
               f"{lse_err:.3e}, target logit {tgt_err:.3e}, logits sum "
               f"{sum_err:.3e} of its |sum|")
+        # in float32 the gradients' reference takes this lse, so only this
+        # limit ties them to the exact ones (tests/test_torch_cuda.py
+        # F32_LSE_ATOL)
+        check(not f32 or lse_err <= cuda_tests.F32_LSE_ATOL,
+              f"fused_ce_fwd's float32 lse at {(N, E, V)} is {lse_err:.3e} "
+              f"from float64's, more than {cuda_tests.F32_LSE_ATOL:g}")
         stat_err = max(lse_err, tgt_err,
                        (suml - ref_suml).abs().max().item())
         # sums and gradients through autograd: the kernel path on x and the
@@ -819,7 +849,15 @@ def phase4() -> dict:
         check(abs(lk - lp) <= 1e-5 * abs(lp) and abs(nk - np_) <= 1e-5 * abs(np_),
               f"fused CE sums differ at {(N, E, V)} {name}: {outs}")
         check(dk == dp, f"weight sums differ at {(N, E, V)} {name}")
-        cs = (wt * (a + b), wt * a, wt * (b / V))
+        # the backward's coefficients as autograd gives them; in float32 the
+        # reference is the plain backward in float64 given the kernel's lse
+        # (tests/test_torch_cuda.py f32_reference_grads says why), and the
+        # float32 plain version is held to the same limits for comparison
+        cs = fce.dlogit_coefficients(
+            wt, *(torch.tensor(g, device="cuda") for g in (gl, gn)), ls, V)
+        if f32:
+            plain32 = grads[1]
+            grads[1] = cuda_tests.f32_reference_grads(x, wb, t, cs)[0]
         limits = cuda_tests.fused_ce_grad_limits(x, wb, t, ref_lse, *cs,
                                                  grads[1])
         excess = [cuda_tests.fused_ce_grad_excess(got, want, limit)
@@ -829,6 +867,22 @@ def phase4() -> dict:
               f"{excess[0]:.3f}, {excess[1]:.3f} of the limit")
         grad_err = max((got.float() - want).abs().max().item()
                        for got, want in zip(*grads))
+        f32_note = ""
+        if f32:
+            plain = max(cuda_tests.fused_ce_grad_excess(got, want, limit)
+                        for got, want, limit in zip(plain32, grads[1], limits))
+            tf32 = cuda_tests.fused_ce_tf32_excess(x, wb, t, cs, grads[1],
+                                                   limits, logits)
+            check(min(tf32) >= cuda_tests.F32_TF32_MIN, f"the float32 check "
+                  f"at {(N, E, V)} passes the kernels on TF32-rounded "
+                  f"operands: statistics and gradients at {tf32[0]:.2f} and "
+                  f"{tf32[1]:.2f} of their limits")
+            f32_note = (f"; lse within {cuda_tests.F32_LSE_ATOL:g} of "
+                        f"float64's; on TF32-rounded operands (one TF32 product) the "
+                        f"statistics at {tf32[0]:.1f} and the gradients at "
+                        f"{tf32[1]:.1f} of their limits; the float32 plain "
+                        f"version's gradients at {plain:.3f}")
+            del logits, plain32
         # the check must reject a backward that reads another row's lse
         bad = fused_ce_bwd(x, wb, t, lse.roll(1), *cs)
         bad_excess = [cuda_tests.fused_ce_grad_excess(got, want, limit)
@@ -863,26 +917,27 @@ def phase4() -> dict:
                       "limit)")
                 chunk_note += f", dx without the last chunk at {short:.3f}"
                 del part
-        kernels_note = ""
-        if name == "bfloat16":
-            alone = bwd_launch_check(x, wb, t, lse, cs, wt, ls)
-            per = {re.search(r"fused_ce::(\w+)", k).group(1): n
-                   for k, n in alone.items()}
-            fwd_per = {re.search(r"fused_ce::(\w+)", k).group(1): n
-                       for k, n in fwd_launch_check(x, wb, t, wt, ls).items()}
-            kernels_note = (f"; the profiler saw only kernels of fused_ce.cu: "
-                            f"in the forward {fwd_per}, in the backward {per} "
-                            f"for {-(-V // chunk)} chunk(s)")
-        err["fwd"] = max(err["fwd"], stat_err)
-        err["bwd"] = max(err["bwd"], grad_err)
+        # the kernels by their last name of csrc/fused_ce.cu: an epilogue,
+        # the merge, the split pass
+        per = {re.findall(r"fused_ce::(?:tf32::)?(\w+)", k)[-1]: n
+               for k, n in bwd_launch_check(x, wb, t, lse, cs, wt, ls,
+                                            name).items()}
+        fwd_per = {re.findall(r"fused_ce::(?:tf32::)?(\w+)", k)[-1]: n
+                   for k, n in fwd_launch_check(x, wb, t, wt, ls,
+                                                name).items()}
+        kernels_note = (f"; the profiler saw only kernels of fused_ce.cu: "
+                        f"in the forward {fwd_per}, in the backward {per} "
+                        f"for {-(-V // chunk)} chunk(s)")
+        err[name]["fwd"] = max(err[name]["fwd"], stat_err)
+        err[name]["bwd"] = max(err[name]["bwd"], grad_err)
         log(f"phase 4: fused CE == plain at {(N, E, V)} {name}: row stats "
             f"max abs err lse {lse_err:.3e} target {tgt_err:.3e} (limit "
             f"{STAT_ATOL:g}), logits sum {sum_err:.3e} of its |sum| (limit "
             f"{STAT_SUM_RTOL:g}); loss {lk:.3f} vs {lp:.3f}; gradients max abs "
             f"err {grad_err:.3e}, dx and dW at {excess[0]:.3f} and "
             f"{excess[1]:.3f} of their limits; with another row's lse at "
-            f"{bad_excess[0]:.3f} and {bad_excess[1]:.3f}{chunk_note}; the "
-            f"same bits twice{kernels_note}")
+            f"{bad_excess[0]:.3f} and {bad_excess[1]:.3f}{chunk_note}"
+            f"{f32_note}; the same bits twice{kernels_note}")
         del x, w, wb, grads, bad, limits
         torch.cuda.empty_cache()
 
@@ -896,10 +951,18 @@ def phase4() -> dict:
     check(f["ms"] <= f["plain_ms"], f"the forward at whisper_base's head "
           f"takes {f['ms']:.4f} ms, more than its plain version's "
           f"{f['plain_ms']:.4f}")
+    # float32 at t5_base's head (its float32 training), gated by the times
+    # of the FMA kernels it replaced
+    f32_head = ce_timing(*CE_HEADS["t5_base"], "float32")
+    for key in ("fwd", "bwd"):
+        check(f32_head[key]["ms"] <= FCE_F32_EARLIER_MS[key], f"the float32 "
+              f"{key} at t5_base's head takes {f32_head[key]['ms']:.4f} ms, "
+              f"more than the FMA kernels' {FCE_F32_EARLIER_MS[key]}")
+        f32_head[key]["max_abs_err"] = err["float32"][key]
     res = dict(heads["transformer_base"], lm_head=heads["llama_1b"],
-               heads=heads)
-    res["fwd"]["max_abs_err"] = err["fwd"]
-    res["bwd"]["max_abs_err"] = err["bwd"]
+               heads=heads, f32=f32_head)
+    res["fwd"]["max_abs_err"] = err["bfloat16"]["fwd"]
+    res["bwd"]["max_abs_err"] = err["bfloat16"]["bwd"]
     return res
 
 
@@ -3132,9 +3195,14 @@ def main():
         fail(f"no pasero_torch package beside {__file__}: run it from a "
              "checkout of the repository")
     sys.path.insert(0, ROOT)
-    global HBM_BYTES_PER_S, BF16_FLOPS, time_ms
-    from pasero_torch.scripts.bench_int8 import (BF16_FLOPS, HBM_BYTES_PER_S,
+    global HBM_BYTES_PER_S, BF16_FLOPS, FP32_FLOPS, FP32_TC_FLOPS, \
+        FP32_ADDS, time_ms
+    from pasero_torch.scripts.bench_int8 import (BF16_FLOPS, FP32_FLOPS,
+                                                 FP32_TC_FLOPS,
+                                                 HBM_BYTES_PER_S,
                                                  eager_ms as time_ms)
+    from pasero_torch.scripts.bench_fused_ce import HEADS as CE_HEADS
+    FP32_ADDS = FP32_FLOPS / 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -3191,7 +3259,7 @@ def main():
             "ms": ce[key]["ms"],
             "plain_ms": ce[key]["plain_ms"],
             "bound_ms": ce[key]["bound_ms"],
-            "bound_by": "operations",
+            "bound_by": ce[key]["bound_by"],
             "library_ms": ce[key]["library_ms"],
             "lm_head": {name: ce["lm_head"][key][name] for name in
                         ("ms", "plain_ms", "bound_ms", "library_ms")},
@@ -3206,7 +3274,7 @@ def main():
                              ("ms", "plain_ms", "bound_ms", "library_ms")}
                       for head in CE_HEADS},
         }
-        entry["lm_head"]["shape"] = list(LM_HEAD)
+        entry["lm_head"]["shape"] = list(CE_HEADS["llama_1b"])
         for head, shape in CE_HEADS.items():
             entry["heads"][head]["shape"] = list(shape)
             entry["heads"][head]["peak_mib"] = ce["heads"][head]["fwd"]["peak_mib"]
@@ -3222,6 +3290,37 @@ def main():
                     library_host_ms=own["library_host_ms"],
                     same_bits=own["same_bits"])
         else:   # one design replaces both JAX backwards
+            entry["also_replaces"] = "pasero_tpu/ops/fused_ce.py:281"
+        kernels.append(entry)
+    # the fused CE's float32 instances (split TF32, counted with the bf16
+    # ones as fused_ce_fwd and fused_ce_bwd): launches of phase 20's float32
+    # training CLIs (lm_mini.yaml; alibi_mini.yaml and t5_mini.yaml beside),
+    # numbers at t5_base's head
+    for key, line in (("fwd", 199), ("bwd", 234)):
+        own = ce["f32"][key]
+        entry = {
+            "name": f"fused_ce_{key}_f32",
+            "route": "cuda",
+            "source": "pasero_torch/csrc/fused_ce.cu",
+            "replaces": f"pasero_tpu/ops/fused_ce.py:{line}",
+            "dtype": "float32",
+            "launches": f32["cli"]["lm"]["launches"][f"fused_ce_{key}"],
+            "alibi_launches": f32["cli"]["alibi"]["launches"][f"fused_ce_{key}"],
+            "t5_launches": f32["cli"]["t5"]["launches"][f"fused_ce_{key}"],
+            "max_abs_err": own["max_abs_err"],
+            "ms": own["ms"],
+            "plain_ms": own["plain_ms"],
+            "bound_ms": own["bound_ms"],
+            "bound_by": own["bound_by"],
+            "tf32x3_ops_bound_ms": own["tf32x3_ops_bound_ms"],
+            "fp32_ops_bound_ms": own["fp32_ops_bound_ms"],
+            "bytes_bound_ms": own["bytes_bound_ms"],
+            "library_ms": own["library_ms"],
+            "host_ms": own["host_ms"],
+            "scratch_mib": own["scratch_mib"],
+            "shape": list(CE_HEADS["t5_base"]),
+        }
+        if key == "bwd":
             entry["also_replaces"] = "pasero_tpu/ops/fused_ce.py:281"
         kernels.append(entry)
     for name, key, line in (("flash_fwd", "fwd", 342),

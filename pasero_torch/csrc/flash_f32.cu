@@ -74,8 +74,10 @@ using wgmma_gemm::mbar_arrive;
 using wgmma_gemm::mbar_init;
 using wgmma_gemm::mbar_wait;
 using wgmma_gemm::smem_desc;
+using wgmma_gemm::split_tf32;
 using wgmma_gemm::wgmma_commit;
 using wgmma_gemm::wgmma_fence;
+using wgmma_gemm::wgmma_tf32_rs;
 using wgmma_gemm::wgmma_wait;
 
 constexpr int THREADS = 256;    // a 16 x 16 grid of threads
@@ -334,16 +336,6 @@ struct Tc {
   static_assert(SMEM <= MAX_SMEM, "shared memory");
 };
 
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32_rna(x);
-  lo = tf32_rna(x - __uint_as_float(hi));
-}
-
 // Byte offset of float (r, c) in a plane of R rows: D / 32 panels of R rows x
 // 128 bytes, 128-byte swizzled.
 template <int R>
@@ -396,30 +388,6 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2], uint64_t da, uint6
         "}, %32, %33, p, 1, 1;\n}\n"
         : WGMMA_D32(0)
         : "l"(da), "l"(db), "r"(1));
-}
-
-// d (64 x N) += A (64 x 8, TF32 in registers: a warp's 16 rows in
-// mma.sync's m16n8k8 A-fragment layout) . B (N x 8)^T, B read K-major from
-// shared memory by its descriptor.
-template <int N>
-__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2], const uint32_t (&a)[4],
-                                              uint64_t db) {
-  static_assert(N == 32 || N == 64, "m64nNk8, N 32 or 64");
-  if constexpr (N == 32)
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-        "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
-        : WGMMA_D8(0), WGMMA_D8(8)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  else
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {" WGMMA_R32
-        "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
-        : WGMMA_D32(0)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 // d += A B^T over D as the three split products (lo hi, hi lo, hi hi): the

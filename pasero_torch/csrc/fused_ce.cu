@@ -41,11 +41,6 @@
 // natural units. Columns past V (zero-filled by the copy) enter no
 // statistic. E must be a multiple of 8 (the wrapper pads x and w).
 //
-// The float32 forward (not on any main path) keeps an FMA kernel: 256
-// threads tile 64 rows x 128 vocabulary columns staged by cp.async, with each
-// thread's online max / sum-exp / target logit / logit sum in registers
-// across the vocabulary loop.
-//
 // The bf16 backward. What bounds it: operations. The function needs three
 // products of 2 N E V flops each, one logits recompute whose dl feeds both
 // gradients, as JAX's _bwd_kernel does: 3.26 ms at 989 TFLOP/s for llama_1b's
@@ -70,334 +65,73 @@
 // give the same bits. E must be a multiple of 8 (16-byte rows for TMA; the
 // wrapper pads x and w otherwise).
 //
-// The float32 backward (not on any main path) keeps FMA kernels: a dx and a dW
-// kernel, each recomputing its logits, 32 x 512 output blocks in registers.
+// The float32 forward and backward: every float32 model's loss takes them
+// (`cli.train --dtype float32`, `bench_train --dtype float32`). What bounds
+// them: operations, the bf16 design's products at float32's accuracy. They
+// take the tensor cores in split TF32: each operand x as hi =
+// cvt.rna.tf32(x) and lo = cvt.rna.tf32(x - hi), each product a . b as hi_a
+// hi_b + hi_a lo_b + lo_a hi_b with float32 sums (hi + lo is within 2^-22 |x|
+// of x, the dropped lo_a lo_b below 2^-22 |a b|), never one TF32 product,
+// which keeps about three decimal digits. Three TF32 products at 495 TFLOP/s
+// take 1.225 ms a product at t5_base's head (4096 x 768 x 32128), against
+// 3.017 ms on the CUDA cores' float32 FMAs.
+//
+// wgmma reads a TF32 operand only K-major. So B, the operand it reads from
+// shared memory, lies in global memory as hi and lo planes in the
+// orientation its product needs, written by a split pass (split_kernel: a
+// vocabulary chunk of W as stored and transposed, x transposed); A, the
+// operand it reads from registers, comes as a float32 tile that the
+// consumers read from shared memory in either orientation and split
+// themselves. The mainloop (tf32_gemm_kernel): 128 x 128 output tiles on a
+// persistent grid; warp group 0 keeps TMA copies of A's float32 tile and B's
+// hi and lo planes (32 deep, 128-byte swizzled) in flight through a ring of
+// four 48 KB stages; warp groups 1 and 2 own 64 rows each and issue
+// register-A wgmma m64n128k8, three per 8-deep step (lo hi, hi lo, hi hi;
+// split_tf32 and wgmma_tf32_rs of wgmma_gemm.cuh, as flash_f32.cu's).
+// Each 32-deep k-tile's part is summed in fresh registers and added to the
+// tile's sums with a float32 add: summed over a whole row in the tensor
+// cores' own accumulators, a float32 product loses float32's accuracy
+// (PERF.md §6). Within a part the sums lose bits as they grow, toward
+// zero, so a k-tile's small products (lo hi, hi lo) go first and its hi hi
+// ones last.
+//   forward:  per chunk of `chunk` vocabulary rows W_c's planes, then x .
+//             W_c^T with FwdEpilogue's partials, one per row and 128-column
+//             tile; fwd_combine_kernel merges them.
+//   backward: x's transposed planes once; per chunk W_c's planes as stored
+//             and transposed, then the bf16 design's three products: (a)
+//             dl_c = f(x . W_c^T) in float32 into a scratch of N x chunk,
+//             without the targets' -c2; (b) dW rows = dl_c^T . x, dl_c read
+//             transposed from shared memory; (c) dx (+)= dl_c . W_c, in
+//             float32 (the first chunk writes dx, later ones add to it); (b)
+//             and (c) add the target terms in their epilogues (Targets).
+// Scratch: the forward N x ceil(V / 128) partials and 2 chunk E floats; the
+// backward N chunk + 4 chunk E + 2 E ceil4(N) floats. No atomics and no
+// split K: two calls give the same bits. E must be a multiple of 4 (16-byte
+// rows for TMA; the wrapper pads x and w otherwise). What holds them back
+// (t5_base's head, PERF.md §6): the forward's product runs at 76 % of
+// the split bound, the backward's at 53-68 %; (c) has 192 tiles for 132
+// SMs, (b) reads its transposed A with two-way bank conflicts.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <initializer_list>
+
 #include "wgmma_gemm.cuh"
 
 namespace fused_ce {
 
-constexpr int THREADS = 256;
 constexpr float NEG_INF = -1e30f;
-
-// float32 forward tile: 64 rows x 128 vocabulary columns, width chunks of KC
-constexpr int F_ROWS = 64;
-constexpr int F_COLS = 128;
-// backward tile: 32 own rows x 64 loop rows; the output block is 32 x B_WIDTH
-constexpr int B_OWN = 32;
-constexpr int B_LOOP = 64;
-constexpr int B_WIDTH = 512;
-
-// float32 operands in shared memory
-template <typename T>
-struct Cfg;
-template <>
-struct Cfg<float> {
-  static constexpr int PAD = 4;     // 16 bytes of row padding
-  static constexpr int VEC = 4;     // elements per 16-byte load
-  static constexpr int F_KC = 128;  // forward width chunk
-};
-
-__host__ __device__ inline int round16(int64_t x) {
-  return (int)((x + 15) / 16 * 16);
-}
 
 __host__ __device__ inline int64_t min64(int64_t a, int64_t b) {
   return a < b ? a : b;
 }
 
-
-// 16 bytes from global to shared memory without a register round trip;
-// src_bytes = 0 writes zeros (the source is then not read).
-__device__ inline void cp_async16(void* dst, const void* src, bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-// Wait for this thread's cp.async copies; a __syncthreads() after it makes
-// every thread's copies visible to the block.
-__device__ inline void stage_wait() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// rows [r0, r0 + R) x columns [c0, c0 + C) of a (nrows, width) row-major
-// matrix into shared memory (leading dimension ld), zero outside the matrix.
-// C is a multiple of 16. The 16-byte path issues all of a thread's copies
-// before any completes (cp.async); the caller runs stage_wait() and
-// __syncthreads() before reading the tile.
-template <typename T>
-__device__ void stage(T* dst, int ld, const T* __restrict__ src, int64_t nrows,
-                      int64_t width, int64_t r0, int R, int64_t c0, int C,
-                      bool vec) {
-  constexpr int VEC = Cfg<T>::VEC;
-  if (vec) {
-    const int per_row = C / VEC;
-    for (int i = threadIdx.x; i < R * per_row; i += THREADS) {
-      const int r = i / per_row;
-      const int c = (i - r * per_row) * VEC;
-      const int64_t gr = r0 + r, gc = c0 + c;
-      const bool valid = gr < nrows && gc < width;
-      cp_async16(dst + r * ld + c, valid ? src + gr * width + gc : src, valid);
-    }
-  } else {
-    for (int i = threadIdx.x; i < R * C; i += THREADS) {
-      const int r = i / C;
-      const int c = i - r * C;
-      const int64_t gr = r0 + r, gc = c0 + c;
-      dst[r * ld + c] = (gr < nrows && gc < width) ? src[gr * width + gc] : T(0);
-    }
-  }
-}
-
-// S[OWN x LOOP] (+)= A[OWN x kdim] . B[LOOP x kdim]^T from shared memory on
-// the FMA units: thread t owns the elements t, t + 256, ... of the row-major
-// OWN x LOOP tile.
-template <int OWN, int LOOP>
-struct TileFma {
-  static constexpr int PER = OWN * LOOP / THREADS;
-  float acc[PER];
-
-  __device__ void zero() {
-#pragma unroll
-    for (int i = 0; i < PER; ++i) acc[i] = 0.f;
-  }
-
-  __device__ void run(const float* A, int lda, const float* B, int ldb,
-                      int kdim) {
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const int e = threadIdx.x + i * THREADS;
-      const float* a = A + (e / LOOP) * lda;
-      const float* b = B + (e % LOOP) * ldb;
-      float s = acc[i];
-      for (int k = 0; k < kdim; ++k) s = fmaf(a[k], b[k], s);
-      acc[i] = s;
-    }
-  }
-
-  __device__ void store(float* S, int lds) {
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const int e = threadIdx.x + i * THREADS;
-      S[(e / LOOP) * lds + e % LOOP] = acc[i];
-    }
-  }
-};
-
-// -- forward, float32: an FMA kernel ----------------------------------------------
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-    fwd_fma_kernel(const T* __restrict__ x, const T* __restrict__ w,
-               const int32_t* __restrict__ targets, float* __restrict__ lse_out,
-               float* __restrict__ tgt_out, float* __restrict__ sum_out,
-               int64_t N, int64_t E, int64_t V, bool vec) {
-  constexpr int PAD = Cfg<T>::PAD;
-  const int kc = (int)min64(Cfg<T>::F_KC, round16(E));  // width chunk
-  const int ld = kc + PAD;
-  const int lds = F_COLS + 4;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* Xs = reinterpret_cast<T*>(smem);
-  T* Ws = Xs + F_ROWS * ld;
-  // the logits tile reuses the weight tile's memory once the product is done
-  float* Ss = reinterpret_cast<float*>(Ws);
-
-  const int64_t n0 = (int64_t)blockIdx.x * F_ROWS;
-  const int nchunks = (int)((E + kc - 1) / kc);
-  // thread t reduces row t / 4, columns (t % 4) + 4j of each tile
-  const int row = threadIdx.x / 4, quarter = threadIdx.x % 4;
-  const int64_t n = n0 + row;
-  const int target = n < N ? targets[n] : -1;
-  float m = NEG_INF, l = 0.f, tgt = 0.f, suml = 0.f;
-
-  if (nchunks == 1)
-    stage<T>(Xs, ld, x, N, E, n0, F_ROWS, 0, round16(E), vec);
-  TileFma<F_ROWS, F_COLS> tile;
-  for (int64_t v0 = 0; v0 < V; v0 += F_COLS) {
-    tile.zero();
-    for (int c = 0; c < nchunks; ++c) {
-      const int64_t e0 = (int64_t)c * kc;
-      const int width = round16(min64(kc, E - e0));
-      if (nchunks > 1) stage<T>(Xs, ld, x, N, E, n0, F_ROWS, e0, width, vec);
-      stage<T>(Ws, ld, w, V, E, v0, F_COLS, e0, width, vec);
-      stage_wait();
-      __syncthreads();
-      tile.run(Xs, ld, Ws, ld, width);
-      __syncthreads();
-    }
-    tile.store(Ss, lds);
-    __syncthreads();
-    const float* srow = Ss + row * lds;
-    float tile_max = NEG_INF;
-#pragma unroll 8
-    for (int j = quarter; j < F_COLS; j += 4)
-      if (v0 + j < V) tile_max = fmaxf(tile_max, srow[j]);
-    const float m_new = fmaxf(m, tile_max);
-    float acc = l * expf(m - m_new);
-#pragma unroll 8
-    for (int j = quarter; j < F_COLS; j += 4) {
-      const int64_t col = v0 + j;
-      if (col < V) {
-        const float s = srow[j];
-        acc += expf(s - m_new);
-        suml += s;
-        if (col == target) tgt += s;
-      }
-    }
-    m = m_new;
-    l = acc;
-    __syncthreads();
-  }
-  // merge the four partial states of a row (lanes 4k .. 4k+3 of one warp)
-#pragma unroll
-  for (int off = 1; off < 4; off *= 2) {
-    const float m_o = __shfl_xor_sync(0xffffffffu, m, off);
-    const float l_o = __shfl_xor_sync(0xffffffffu, l, off);
-    const float m_new = fmaxf(m, m_o);
-    l = l * expf(m - m_new) + l_o * expf(m_o - m_new);
-    m = m_new;
-    tgt += __shfl_xor_sync(0xffffffffu, tgt, off);
-    suml += __shfl_xor_sync(0xffffffffu, suml, off);
-  }
-  if (quarter == 0 && n < N) {
-    lse_out[n] = m + logf(l);
-    tgt_out[n] = tgt;
-    sum_out[n] = suml;
-  }
-}
-
-// -- backward, float32: FMA kernels ---------------------------------------------
-
-// ROWS_OWN: dx (own rows are rows of x, loop over the vocabulary);
-// otherwise dW (own rows are rows of w, loop over the rows of x). Each
-// block keeps a 32 x 512 output block in registers and recomputes the
-// logits of its rows; E > 512 takes several blocks along the width.
-template <bool ROWS_OWN>
-__global__ void __launch_bounds__(THREADS)
-    bwd_fma_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                   const int32_t* __restrict__ targets,
-                   const float* __restrict__ lse, const float* __restrict__ c1,
-                   const float* __restrict__ c2, const float* __restrict__ c3,
-                   float* __restrict__ out, int64_t N, int64_t E, int64_t V,
-                   bool vec) {
-  constexpr int PAD = Cfg<float>::PAD;
-  const float* own_src = ROWS_OWN ? x : w;
-  const float* loop_src = ROWS_OWN ? w : x;
-  const int64_t n_own = ROWS_OWN ? N : V;
-  const int64_t n_loop = ROWS_OWN ? V : N;
-
-  const int ld = B_WIDTH + PAD;
-  const int lds = B_LOOP + 4;
-  const int ldd = B_LOOP + PAD;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* Os = reinterpret_cast<float*>(smem);        // own rows x width chunk
-  float* Ls = Os + B_OWN * ld;                        // loop rows x width chunk
-  float* Ss = Ls + B_LOOP * ld;                       // logits tile
-  float* Ds = Ss + B_OWN * lds;                       // dl tile
-  // per-row vectors of x's rows in this tile (own rows for dx, loop rows
-  // for dW)
-  constexpr int VR = ROWS_OWN ? B_OWN : B_LOOP;
-  float* v_lse = Ds + B_OWN * ldd;
-  float* v_c1 = v_lse + VR;
-  float* v_c2 = v_c1 + VR;
-  float* v_c3 = v_c2 + VR;
-  int32_t* v_t = reinterpret_cast<int32_t*>(v_c3 + VR);
-
-  const int64_t own0 = (int64_t)blockIdx.x * B_OWN;
-  const int nchunks = (int)((E + B_WIDTH - 1) / B_WIDTH);
-  const int mine = blockIdx.y;                       // this block's width chunk
-  const int64_t e_mine = (int64_t)mine * B_WIDTH;
-  const int w_mine = round16(min64(B_WIDTH, E - e_mine));
-
-  auto load_vectors = [&](int64_t r0) {
-    for (int i = threadIdx.x; i < VR; i += THREADS) {
-      const int64_t n = r0 + i;
-      const bool ok = n < N;
-      v_lse[i] = ok ? lse[n] : 0.f;
-      v_c1[i] = ok ? c1[n] : 0.f;
-      v_c2[i] = ok ? c2[n] : 0.f;
-      v_c3[i] = ok ? c3[n] : 0.f;
-      v_t[i] = ok ? targets[n] : -1;
-    }
-  };
-  if (ROWS_OWN) load_vectors(own0);
-  if (nchunks == 1)
-    stage<float>(Os, ld, own_src, n_own, E, own0, B_OWN, 0, w_mine, vec);
-
-  // thread t owns columns t and t + 256 of the (32 x 512) output block
-  float acc[2 * B_OWN];
-#pragma unroll
-  for (int i = 0; i < 2 * B_OWN; ++i) acc[i] = 0.f;
-
-  TileFma<B_OWN, B_LOOP> tile;
-  for (int64_t l0 = 0; l0 < n_loop; l0 += B_LOOP) {
-    if (!ROWS_OWN) load_vectors(l0);
-    tile.zero();
-    // the block's own width chunk goes last, so Ls holds it afterwards
-    for (int i = 1; i <= nchunks; ++i) {
-      const int c = (mine + i) % nchunks;
-      const int64_t e0 = (int64_t)c * B_WIDTH;
-      const int width = round16(min64(B_WIDTH, E - e0));
-      if (nchunks > 1) stage<float>(Os, ld, own_src, n_own, E, own0, B_OWN, e0, width, vec);
-      stage<float>(Ls, ld, loop_src, n_loop, E, l0, B_LOOP, e0, width, vec);
-      stage_wait();
-      __syncthreads();
-      tile.run(Os, ld, Ls, ld, width);
-      if (i < nchunks) __syncthreads();
-    }
-    tile.store(Ss, lds);
-    __syncthreads();
-    for (int i = threadIdx.x; i < B_OWN * B_LOOP; i += THREADS) {
-      const int r = i / B_LOOP, c = i % B_LOOP;
-      const int64_t own = own0 + r, lp = l0 + c;
-      const int64_t n = ROWS_OWN ? own : lp;
-      const int64_t v = ROWS_OWN ? lp : own;
-      const int vi = ROWS_OWN ? r : c;
-      float d = 0.f;
-      if (n < N && v < V) {
-        d = v_c1[vi] * expf(Ss[r * lds + c] - v_lse[vi]);
-        if (v == v_t[vi]) d -= v_c2[vi];
-        d -= v_c3[vi];
-      }
-      Ds[r * ldd + c] = d;
-    }
-    __syncthreads();
-    // out[own, e] += dl[own, loop] . loop_src[loop, e] over this width chunk
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int col = threadIdx.x + h * THREADS;
-      if (col < w_mine) {
-        for (int k = 0; k < B_LOOP; ++k) {
-          const float b = Ls[k * ld + col];
-#pragma unroll
-          for (int r = 0; r < B_OWN; ++r)
-            acc[h * B_OWN + r] = fmaf(Ds[r * ldd + k], b, acc[h * B_OWN + r]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  // rows past n_own and columns past E are dropped
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int c = threadIdx.x + h * THREADS;
-    const int64_t e = e_mine + c;
-    if (c >= w_mine || e >= E) continue;
-#pragma unroll
-    for (int r = 0; r < B_OWN; ++r) {
-      const int64_t own = own0 + r;
-      if (own < n_own) out[own * E + e] = acc[h * B_OWN + r];
-    }
-  }
-}
-
-// -- bfloat16: epilogues of the wgmma mainloop ----------------------------------------
+// -- the epilogues of both mainloops ----------------------------------------------
+//
+// Each takes a consumer thread's NACC sums of its tile (wgmma's accumulator
+// layout, NACC = 128 for bf16's 256-column tiles, 64 for float32's 128).
 
 // 2^x on the special function unit (relative error about 2^-22, far below
 // the bf16 rounding of dl that follows and the forward's limits; results
@@ -419,7 +153,7 @@ __device__ __forceinline__ float quad_sum(float x) {
 
 constexpr float LOG2E = 1.4426950408889634f;
 
-// The forward's partial of one 128 x 256 logits tile (vocabulary columns from
+// The forward's partial of one logits tile (2 NACC vocabulary columns from
 // the tile's first, c0 - 2 (lane % 4)): for each row below N, over the
 // tile's columns below V, the max, the sum of exp(logit - max), the target
 // logit (0 where the target lies outside the tile) and the logits sum, one
@@ -444,14 +178,14 @@ struct FwdEpilogue {
     return r;
   }
 
-  // row h's statistics of the thread's 64 columns, then of its quad's 256;
+  // row h's statistics of the thread's NACC / 2 columns, then of its quad's;
   // WHOLE: every column of the tile lies below V
-  template <bool WHOLE>
-  __device__ __forceinline__ float4 row_stats(const float (&d)[wgmma_gemm::ACC], int h, int c0,
+  template <bool WHOLE, int NACC>
+  __device__ __forceinline__ float4 row_stats(const float (&d)[NACC], int h, int c0,
                                               int t) const {
     float mx = NEG_INF;
 #pragma unroll
-    for (int j = 0; j < wgmma_gemm::ACC / 4; ++j)
+    for (int j = 0; j < NACC / 4; ++j)
 #pragma unroll
       for (int e = 0; e < 2; ++e)
         if (WHOLE || c0 + 8 * j + e < V) mx = fmaxf(mx, d[4 * j + 2 * h + e]);
@@ -459,7 +193,7 @@ struct FwdEpilogue {
     const float shift = mx * LOG2E;
     float l = 0.f, tg = 0.f, sum = 0.f;
 #pragma unroll
-    for (int j = 0; j < wgmma_gemm::ACC / 4; ++j)
+    for (int j = 0; j < NACC / 4; ++j)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const float v = d[4 * j + 2 * h + e];
@@ -472,10 +206,12 @@ struct FwdEpilogue {
     return make_float4(mx, quad_sum(l), quad_sum(tg), quad_sum(sum));
   }
 
-  __device__ __forceinline__ void operator()(const float (&d)[wgmma_gemm::ACC], int r0, int c0,
+  template <int NACC>
+  __device__ __forceinline__ void operator()(const float (&d)[NACC], int r0, int c0,
                                              const Rows& r) const {
-    const int tile = c0 / wgmma_gemm::BN;
-    const bool whole = (int64_t)(tile + 1) * wgmma_gemm::BN <= V;   // the same for the warp
+    constexpr int W = 2 * NACC;   // the tile's columns
+    const int tile = c0 / W;
+    const bool whole = (int64_t)(tile + 1) * W <= V;   // the same for the warp
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int64_t n = r0 + 8 * h;
@@ -484,6 +220,20 @@ struct FwdEpilogue {
       const float4 st = whole ? row_stats<true>(d, h, c0, t) : row_stats<false>(d, h, c0, t);
       if (threadIdx.x % 4 == 0 && n < N) part[n * tiles_v + tile] = st;
     }
+  }
+};
+
+// FwdEpilogue for a float32 launch over the vocabulary chunk from row v0:
+// the caller gives part from the chunk's first tile and V less v0, and the
+// targets here are counted from v0.
+struct FwdChunkEpilogue : FwdEpilogue {
+  int v0;
+
+  __device__ __forceinline__ Rows rows(int r0) const {
+    Rows r = FwdEpilogue::rows(r0);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) r.t[h] -= v0;
+    return r;
   }
 };
 
@@ -525,17 +275,27 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-// -- the bf16 backward's three epilogues --------------------------------------------
+// -- the backward's epilogues -------------------------------------------------------
 
-// (a) dl = f(x . W_c^T) in bf16 into the scratch (N, ld), columns of the chunk
-// starting at vocabulary row v0; zero past V.
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+// (a) dl = f(x . W_c^T) in x's type T (bf16 rounded, float32 as it is) into
+// the scratch (N, ld), columns of the chunk starting at vocabulary row v0;
+// zero past V. Without TARGET, dl leaves out the target's -c2, which the
+// float32 dW and dx epilogues add themselves.
+template <class T, bool TARGET = true>
 struct DlogitsEpilogue {
   const float* lse;
   const float* c1;
   const float* c2;
   const float* c3;
   const int32_t* targets;
-  __nv_bfloat16* dl;
+  T* dl;
   int64_t ld, N, V, v0;
 
   static constexpr float LOG2E = 1.4426950408889634f;
@@ -561,15 +321,16 @@ struct DlogitsEpilogue {
     return r;
   }
 
-  __device__ __forceinline__ void operator()(const float (&d)[wgmma_gemm::ACC], int r0,
-                                             int c0, const Rows& r) const {
+  template <int NACC>
+  __device__ __forceinline__ void operator()(const float (&d)[NACC], int r0, int c0,
+                                             const Rows& r) const {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int64_t n = r0 + 8 * h;
       if (n >= N) continue;
-      __nv_bfloat16* row = dl + n * ld;
+      T* row = dl + n * ld;
 #pragma unroll
-      for (int j = 0; j < wgmma_gemm::ACC / 4; ++j) {
+      for (int j = 0; j < NACC / 4; ++j) {
         const int col = c0 + 8 * j;
         float v[2];
 #pragma unroll
@@ -577,32 +338,85 @@ struct DlogitsEpilogue {
           v[e] = 0.f;
           if (v0 + col + e < V) {
             v[e] = r.a1[h] * exp2_approx(fmaf(d[4 * j + 2 * h + e], LOG2E, -r.shift[h]));
-            if (col + e == r.t[h]) v[e] -= r.a2[h];
+            if (TARGET && col + e == r.t[h]) v[e] -= r.a2[h];
             v[e] -= r.a3[h];
           }
         }
-        *reinterpret_cast<__nv_bfloat162*>(row + col) = __floats2bfloat162_rn(v[0], v[1]);
+        store2(row + col, v[0], v[1]);
       }
     }
   }
 };
 
-// (b) dW rows [v0, v0 + chunk) = dl_c^T . x, float32, rows past V dropped.
+// The float32 backward's target terms: dl[n, t[n]] holds -c2[n] besides
+// c1 p - c3. They are dW's and dx's largest terms, and where they cancel (two
+// rows with one target, or a large softmax term) the sum lies far below
+// them. Split TF32 keeps 2^-22 of each operand, so the products leave these
+// terms out (DlogitsEpilogue<float, false>) and the epilogues add them in
+// float32: one fma each, rows in ascending order.
+struct Targets {
+  const int32_t* t;   // (N,)
+  const float* c2;    // (N,)
+  const float* src;   // x (N, E) for dW's rows, W (V, E) for dx's
+  int64_t N;
+};
+
+// d[.., h, ..] -= c2[n] x[n, columns] for every row n (ascending) whose target
+// is the thread's row v0 + r0 + 8 h, columns c0 + 8 j + e, j < NACC / 4. The
+// warp's 16 rows [v0 + r0 - lane / 4, + 16) are matched against 32 targets a
+// step by ballot; the whole warp calls it.
+template <int NACC>
+__device__ __forceinline__ void add_row_targets(float (&d)[NACC], const Targets& tg, int64_t v0,
+                                                int r0, int c0, int64_t E) {
+  const int lane = threadIdx.x % 32;
+  const int64_t first = v0 + r0 - lane / 4, mine = v0 + r0;
+  for (int64_t n0 = 0; n0 < tg.N; n0 += 32) {
+    const int64_t n = n0 + lane;
+    const int tn = n < tg.N ? tg.t[n] : -1;
+    uint32_t hits = __ballot_sync(0xffffffffu, tn >= first && tn < first + 16);
+    while (hits) {
+      const int j = __ffs(hits) - 1;
+      hits &= hits - 1;
+      const int64_t v = __shfl_sync(0xffffffffu, tn, j);
+      const float* row = tg.src + (n0 + j) * E;
+      const float c = -tg.c2[n0 + j];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (v != mine + 8 * h) continue;
+#pragma unroll
+        for (int q = 0; q < NACC / 4; ++q) {
+          const int col = c0 + 8 * q;
+          if (col < E) {
+            d[4 * q + 2 * h] = fmaf(c, row[col], d[4 * q + 2 * h]);
+            d[4 * q + 2 * h + 1] = fmaf(c, row[col + 1], d[4 * q + 2 * h + 1]);
+          }
+        }
+      }
+    }
+  }
+}
+
+// (b) dW rows [v0, v0 + chunk) = dl_c^T . x, float32, rows past V dropped;
+// with TARGETS (float32) the rows' target terms added first.
+template <bool TARGETS = false>
 struct DwEpilogue {
   float* dw;
   int64_t E, V, v0;
+  Targets tg;
 
   __device__ __forceinline__ wgmma_gemm::NoRows rows(int) const { return {}; }
 
-  __device__ __forceinline__ void operator()(const float (&d)[wgmma_gemm::ACC], int r0,
-                                             int c0, wgmma_gemm::NoRows) const {
+  template <int NACC>
+  __device__ __forceinline__ void operator()(float (&d)[NACC], int r0, int c0,
+                                             wgmma_gemm::NoRows) const {
+    if constexpr (TARGETS) add_row_targets(d, tg, v0, r0, c0, E);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int64_t v = v0 + r0 + 8 * h;
       if (v >= V) continue;
       float* row = dw + v * E;
 #pragma unroll
-      for (int j = 0; j < wgmma_gemm::ACC / 4; ++j) {
+      for (int j = 0; j < NACC / 4; ++j) {
         const int col = c0 + 8 * j;
         if (col < E)
           *reinterpret_cast<float2*>(row + col) =
@@ -612,9 +426,9 @@ struct DwEpilogue {
   }
 };
 
-// (c) dx (+)= dl_c . W_c: the first chunk writes the float32 accumulator,
-// later ones add to it, the last writes dx in bf16 (a single chunk writes
-// dx at once).
+// (c) in bf16, dx (+)= dl_c . W_c: the first chunk writes the float32
+// accumulator, later ones add to it, the last writes dx in bf16 (a single
+// chunk writes dx at once).
 struct DxEpilogue {
   float* acc;
   __nv_bfloat16* dx;
@@ -623,14 +437,15 @@ struct DxEpilogue {
 
   __device__ __forceinline__ wgmma_gemm::NoRows rows(int) const { return {}; }
 
-  __device__ __forceinline__ void operator()(const float (&d)[wgmma_gemm::ACC], int r0,
-                                             int c0, wgmma_gemm::NoRows) const {
+  template <int NACC>
+  __device__ __forceinline__ void operator()(const float (&d)[NACC], int r0, int c0,
+                                             wgmma_gemm::NoRows) const {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int64_t n = r0 + 8 * h;
       if (n >= N) continue;
 #pragma unroll
-      for (int j = 0; j < wgmma_gemm::ACC / 4; ++j) {
+      for (int j = 0; j < NACC / 4; ++j) {
         const int col = c0 + 8 * j;
         if (col >= E) continue;
         float2 v = make_float2(d[4 * j + 2 * h], d[4 * j + 2 * h + 1]);
@@ -649,37 +464,320 @@ struct DxEpilogue {
   }
 };
 
+// (c) in float32, dx (+)= dl_c . W_c in dx itself: the first chunk writes
+// it, later ones add to it. A row whose target lies in the chunk [v0, v0 +
+// cols) adds its target term -c2[n] W[t[n]] first (tg.src is W).
+struct DxAddEpilogue {
+  float* dx;
+  int64_t N, E;
+  bool first;
+  Targets tg;
+  int64_t v0, cols;
+
+  // the thread's two rows' target row of W in the chunk, or -1
+  struct Rows {
+    int64_t t[2];
+    float c[2];
+  };
+
+  __device__ __forceinline__ Rows rows(int r0) const {
+    Rows r;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int64_t n = r0 + 8 * h;
+      const int64_t t = n < N ? (int64_t)tg.t[n] : -1;
+      const bool in = t >= v0 && t < v0 + cols;
+      r.t[h] = in ? t : -1;
+      r.c[h] = in ? -tg.c2[n] : 0.f;
+    }
+    return r;
+  }
+
+  template <int NACC>
+  __device__ __forceinline__ void operator()(const float (&d)[NACC], int r0, int c0,
+                                             const Rows& r) const {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int64_t n = r0 + 8 * h;
+      if (n >= N) continue;
+      const float* wt = r.t[h] >= 0 ? tg.src + r.t[h] * E : nullptr;
+#pragma unroll
+      for (int j = 0; j < NACC / 4; ++j) {
+        const int col = c0 + 8 * j;
+        if (col >= E) continue;
+        float2 v = make_float2(d[4 * j + 2 * h], d[4 * j + 2 * h + 1]);
+        if (wt) {
+          v.x = fmaf(r.c[h], wt[col], v.x);
+          v.y = fmaf(r.c[h], wt[col + 1], v.y);
+        }
+        float2* a = reinterpret_cast<float2*>(dx + n * E + col);
+        if (!first) {
+          const float2 p = *a;
+          v.x += p.x;
+          v.y += p.y;
+        }
+        *a = v;
+      }
+    }
+  }
+};
+
+// -- float32: the split-TF32 mainloop ---------------------------------------------
+
+namespace tf32 {
+
+using wgmma_gemm::mbar_arrive;
+using wgmma_gemm::mbar_expect_tx;
+using wgmma_gemm::mbar_init;
+using wgmma_gemm::mbar_wait;
+using wgmma_gemm::smem_desc;
+using wgmma_gemm::smem_u32;
+using wgmma_gemm::split_tf32;
+using wgmma_gemm::tma_load;
+using wgmma_gemm::wgmma_commit;
+using wgmma_gemm::wgmma_fence;
+using wgmma_gemm::wgmma_tf32_rs;
+using wgmma_gemm::wgmma_wait;
+
+constexpr int BM = 128, BN = 128, BK = 32, STAGES = 4, THREADS = 384;
+constexpr int ACC = BN / 2;                   // float32 sums per consumer thread
+constexpr int A_BYTES = BM * BK * 4;          // A's float32 tile
+constexpr int B_BYTES = BN * BK * 4;          // each of B's hi and lo planes
+constexpr int STAGE_BYTES = A_BYTES + 2 * B_BYTES;
+// the stages, 1024 bytes to align them (128-byte swizzle), 2 barriers each
+constexpr size_t SMEM_BYTES = (size_t)STAGES * STAGE_BYTES + 1024 + 16 * STAGES;
+
+// Byte offset of A's element (row m, depth k) in a stage's tile. K-major: a
+// TMA box of 32 k x 128 rows, rows 128 bytes apart. MN-major (A^T as
+// stored): four boxes of 32 m x 32 k-rows, 4 KB each. Both 128-byte
+// swizzled: 16-byte chunk j of a 128-byte row r lies at chunk j ^ (r % 8).
+template <bool MN>
+__device__ __forceinline__ int a_offset(int m, int k) {
+  return MN ? (m >> 5) * 4096 + k * 128 + ((((m >> 2) & 7) ^ (k & 7)) << 4) + (m & 3) * 4
+            : m * 128 + (((k >> 2) ^ (m & 7)) << 4) + (k & 3) * 4;
+}
+
+template <bool M_FAST>
+__device__ __forceinline__ void tile_origin(int tile, int tiles_m, int tiles_n, int& m0,
+                                            int& n0) {
+  m0 = (M_FAST ? tile % tiles_m : tile / tiles_n) * BM;
+  n0 = (M_FAST ? tile / tiles_m : tile % tiles_n) * BN;
+}
+
+template <int N>
+__device__ __forceinline__ void fence_sums(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// The (tiles_m x tiles_n) 128 x 128 tiles of C = A . B^T over k_tiles
+// k-tiles of 32, walked as wgmma_gemm's gemm_kernel walks its tiles (block b
+// takes tiles b, b + gridDim.x, ...; n fastest, or m fastest with M_FAST).
+// A is float32 (map_a: K-major, or MN-major with A_MN), B its hi and lo
+// planes (map_hi, map_lo, K-major). A consumer reads its 64 rows' A
+// fragments of a k-tile from shared memory, splits them, issues the
+// k-tile's twelve wgmmas into fresh sums, waits for them, frees the stage
+// and adds the sums into the tile's with float32 adds. The tensor cores'
+// sums lose bits as they grow (PERF.md §6), so a k-tile's small
+// products (lo hi, hi lo) go first, its hi hi products last.
+template <class Epilogue, bool A_MN, bool M_FAST>
+__global__ void __launch_bounds__(THREADS, 1)
+    tf32_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
+                     const __grid_constant__ CUtensorMap map_hi,
+                     const __grid_constant__ CUtensorMap map_lo, int tiles_m, int tiles_n,
+                     int k_tiles, Epilogue epi) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const unsigned char* tiles_ptr = smem_raw + (base - raw);
+  const uint32_t full = base + STAGES * STAGE_BYTES;
+  const uint32_t empty = full + 8 * STAGES;
+  const int wg = threadIdx.x / 128;
+  const int tiles = tiles_m * tiles_n;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 8);   // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // `it` counts the k-tiles this block has passed through the ring: stage
+  // it % STAGES, phase (it / STAGES) & 1
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      int it = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        int m0, n0;
+        tile_origin<M_FAST>(tile, tiles_m, tiles_n, m0, n0);
+        for (int kt = 0; kt < k_tiles; ++kt, ++it) {
+          const int s = it % STAGES;
+          mbar_wait(empty + 8 * s, ((it / STAGES) & 1) ^ 1);
+          mbar_expect_tx(full + 8 * s, STAGE_BYTES);
+          const uint32_t st = base + s * STAGE_BYTES;
+          if (A_MN) {
+#pragma unroll
+            for (int j = 0; j < BM / 32; ++j)
+              tma_load(st + j * 4096, &map_a, full + 8 * s, m0 + 32 * j, kt * BK);
+          } else {
+            tma_load(st, &map_a, full + 8 * s, kt * BK, m0);
+          }
+          tma_load(st + A_BYTES, &map_hi, full + 8 * s, kt * BK, n0);
+          tma_load(st + A_BYTES + B_BYTES, &map_lo, full + 8 * s, kt * BK, n0);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int g = wg - 1, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int ml = 64 * g + 16 * warp + lane / 4, t = lane % 4;   // A's rows ml, ml + 8
+    int it = 0;
+    float part[ACC];
+#pragma unroll
+    for (int i = 0; i < ACC; ++i) part[i] = 0.f;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      int m0, n0;
+      tile_origin<M_FAST>(tile, tiles_m, tiles_n, m0, n0);
+      const int r0 = m0 + ml;
+      const int c0 = n0 + 2 * t;
+      const auto rows = epi.rows(r0);
+      float d[ACC];
+#pragma unroll
+      for (int i = 0; i < ACC; ++i) d[i] = 0.f;
+      for (int kt = 0; kt < k_tiles; ++kt, ++it) {
+        const int s = it % STAGES;
+        mbar_wait(full + 8 * s, (it / STAGES) & 1);
+        const unsigned char* a = tiles_ptr + s * STAGE_BYTES;
+        uint32_t ah[BK / 8][4], al[BK / 8][4];
+#pragma unroll
+        for (int kk = 0; kk < BK / 8; ++kk)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            split_tf32(*reinterpret_cast<const float*>(
+                      a + a_offset<A_MN>(ml + 8 * (e & 1), 8 * kk + t + 4 * (e >> 1))),
+                  ah[kk][e], al[kk][e]);
+        const uint32_t bh = base + s * STAGE_BYTES + A_BYTES, bl = bh + B_BYTES;
+        fence_sums(part);
+        wgmma_fence();
+        // an 8-deep step is 32 bytes into the planes' 128-byte rows
+#pragma unroll
+        for (int kk = 0; kk < BK / 8; ++kk) {
+          wgmma_tf32_rs<BN>(part, al[kk], smem_desc(bh + 32 * kk, 16, 1024), kk > 0);
+          wgmma_tf32_rs<BN>(part, ah[kk], smem_desc(bl + 32 * kk, 16, 1024));
+        }
+#pragma unroll
+        for (int kk = 0; kk < BK / 8; ++kk)
+          wgmma_tf32_rs<BN>(part, ah[kk], smem_desc(bh + 32 * kk, 16, 1024));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_sums(part);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + 8 * s);
+#pragma unroll
+        for (int i = 0; i < ACC; ++i) d[i] += part[i];
+      }
+      epi(d, r0, c0, rows);
+    }
+  }
+}
+
+// hi and lo of rows [0, rows_out) x columns [0, cols) of a row-major float32
+// matrix (cols a row) whose rows past `rows` read as zeros: into (hi, lo) in
+// the same layout and, where hi_t is given, transposed into (hi_t, lo_t),
+// cols rows of ld_t floats (columns [0, rows_out) written). A 32 x 32 tile a
+// block of 256 threads; the transposed stores go through shared memory.
+__global__ void __launch_bounds__(256)
+    split_kernel(const float* __restrict__ src, int64_t rows, int64_t rows_out, int64_t cols,
+                 float* __restrict__ hi, float* __restrict__ lo, float* __restrict__ hi_t,
+                 float* __restrict__ lo_t, int64_t ld_t) {
+  __shared__ float th[32][33], tl[32][33];
+  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
+  const int64_t c0 = (int64_t)blockIdx.x * 32, r0 = (int64_t)blockIdx.y * 32;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int64_t r = r0 + ty + 8 * i, c = c0 + tx;
+    const float x = r < rows && c < cols ? src[r * cols + c] : 0.f;
+    uint32_t h, l;
+    split_tf32(x, h, l);
+    if (hi && r < rows_out && c < cols) {
+      hi[r * cols + c] = __uint_as_float(h);
+      lo[r * cols + c] = __uint_as_float(l);
+    }
+    th[ty + 8 * i][tx] = __uint_as_float(h);
+    tl[ty + 8 * i][tx] = __uint_as_float(l);
+  }
+  if (!hi_t) return;   // the same for the whole block
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int64_t e = c0 + ty + 8 * i, j = r0 + tx;
+    if (e < cols && j < rows_out) {
+      hi_t[e * ld_t + j] = th[tx][ty + 8 * i];
+      lo_t[e * ld_t + j] = tl[tx][ty + 8 * i];
+    }
+  }
+}
+
+cudaError_t split_planes(const float* src, int64_t rows, int64_t rows_out, int64_t cols,
+                         float* hi, float* lo, float* hi_t, float* lo_t, int64_t ld_t,
+                         cudaStream_t stream) {
+  const dim3 grid((unsigned)((cols + 31) / 32), (unsigned)((rows_out + 31) / 32));
+  split_kernel<<<grid, 256, 0, stream>>>(src, rows, rows_out, cols, hi, lo, hi_t, lo_t, ld_t);
+  return cudaGetLastError();
+}
+
+// The tensor map of a row-major float32 (rows, cols) matrix with leading
+// dimension ld (floats), read in boxes of 32 columns x box_rows rows,
+// 128-byte swizzled; TMA fills what lies outside the matrix with zeros.
+// Returns false where cuTensorMapEncodeTiled refuses it (ld a multiple of
+// 4, the base 16-byte aligned).
+inline bool f32_map(CUtensorMap* m, const float* ptr, int64_t rows, int64_t cols, int64_t ld,
+                int box_rows) {
+  wgmma_gemm::EncodeTiled fn = wgmma_gemm::encode_tiled();
+  if (!fn) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * 4};
+  const cuuint32_t box[2] = {32, (cuuint32_t)box_rows};
+  const cuuint32_t one[2] = {1, 1};
+  return fn(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(ptr), dims, strides, box,
+            one, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Launches the (ceil(m / BM) x ceil(n / BN)) tiles of an m x n output, k
+// deep, on at most one block per SM.
+template <bool A_MN, bool M_FAST, class Epilogue>
+cudaError_t gemm(const CUtensorMap& a, const CUtensorMap& hi, const CUtensorMap& lo, int64_t m,
+                 int64_t n, int64_t k, const Epilogue& epi, cudaStream_t stream) {
+  auto kernel = tf32_gemm_kernel<Epilogue, A_MN, M_FAST>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)SMEM_BYTES);
+  int device = 0, sms = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  const int64_t tiles_m = (m + BM - 1) / BM, tiles_n = (n + BN - 1) / BN;
+  const int64_t tiles = tiles_m * tiles_n;
+  if (tiles > 0x7fffffff) return cudaErrorInvalidValue;
+  kernel<<<(unsigned)(tiles < sms ? tiles : sms), THREADS, SMEM_BYTES, stream>>>(
+      a, hi, lo, (int)tiles_m, (int)tiles_n, (int)((k + BK - 1) / BK), epi);
+  return cudaGetLastError();
+}
+
+}  // namespace tf32
+
 // -- launchers -------------------------------------------------------------------
 
-template <typename T>
-bool vectorizable(const void* a, const void* b, int64_t E) {
-  const uintptr_t align = reinterpret_cast<uintptr_t>(a) |
-                          reinterpret_cast<uintptr_t>(b);
-  return E % Cfg<T>::VEC == 0 && align % 16 == 0;
-}
-
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t bytes) {
-  // above 48 KB a kernel must opt in to dynamic shared memory
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
-}
-
-cudaError_t launch_fwd_fma(const float* x, const float* w, const int32_t* targets, float* lse,
-                           float* tgt, float* suml, int64_t N, int64_t E, int64_t V,
-                           cudaStream_t stream) {
-  const int kc = (int)min64(Cfg<float>::F_KC, round16(E));
-  const int ld = kc + Cfg<float>::PAD;
-  const size_t w_bytes = (size_t)F_COLS * ld * sizeof(float);
-  const size_t s_bytes = (size_t)F_ROWS * (F_COLS + 4) * sizeof(float);
-  const size_t bytes = (size_t)F_ROWS * ld * sizeof(float) +
-                       (w_bytes > s_bytes ? w_bytes : s_bytes);
-  cudaError_t err = allow_smem(fwd_fma_kernel<float>, bytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((unsigned)((N + F_ROWS - 1) / F_ROWS));
-  fwd_fma_kernel<float><<<grid, THREADS, bytes, stream>>>(x, w, targets, lse, tgt, suml, N, E, V,
-                                                          vectorizable<float>(x, w, E));
-  return cudaGetLastError();
+// Is any of the pointers not 16-byte aligned (as TMA wants its bases)?
+bool misaligned(std::initializer_list<const void*> ptrs) {
+  uintptr_t bits = 0;
+  for (const void* p : ptrs) bits |= reinterpret_cast<uintptr_t>(p);
+  return bits % 16;
 }
 
 // The bf16 forward: the partials of every logits tile into `part` (N x
@@ -688,10 +786,7 @@ cudaError_t launch_fwd_wgmma(const void* x, const void* w, const int32_t* target
                              float* tgt, float* suml, void* part, int64_t N, int64_t E,
                              int64_t V, cudaStream_t stream) {
   using namespace wgmma_gemm;
-  if (E % 8 || !part ||
-      ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) |
-        reinterpret_cast<uintptr_t>(part)) % 16))
-    return cudaErrorInvalidValue;
+  if (E % 8 || !part || misaligned({x, w, part})) return cudaErrorInvalidValue;
   CUtensorMap x_k, w_k;
   if (!operand_map(&x_k, x, N, E, E, false, BM) || !operand_map(&w_k, w, V, E, E, false, BN))
     return cudaErrorInvalidValue;
@@ -706,25 +801,38 @@ cudaError_t launch_fwd_wgmma(const void* x, const void* w, const int32_t* target
   return cudaGetLastError();
 }
 
-template <bool ROWS_OWN>
-cudaError_t launch_bwd_fma(const float* x, const float* w, const int32_t* targets,
-                           const float* lse, const float* c1, const float* c2,
-                           const float* c3, float* out, int64_t N, int64_t E,
-                           int64_t V, cudaStream_t stream) {
-  const int ld = B_WIDTH + Cfg<float>::PAD;
-  constexpr int VR = ROWS_OWN ? B_OWN : B_LOOP;
-  const size_t bytes = ((size_t)(B_OWN + B_LOOP) * ld + (size_t)B_OWN * (B_LOOP + 4) +
-                        (size_t)B_OWN * (B_LOOP + Cfg<float>::PAD) + (size_t)VR * 4) *
-                           sizeof(float) +
-                       (size_t)VR * sizeof(int32_t);
-  auto kernel = bwd_fma_kernel<ROWS_OWN>;
-  cudaError_t err = allow_smem(kernel, bytes);
-  if (err != cudaSuccess) return err;
-  const int64_t n_own = ROWS_OWN ? N : V;
-  const dim3 grid((unsigned)((n_own + B_OWN - 1) / B_OWN),
-                  (unsigned)((E + B_WIDTH - 1) / B_WIDTH));
-  kernel<<<grid, THREADS, bytes, stream>>>(x, w, targets, lse, c1, c2, c3, out, N, E, V,
-                                           vectorizable<float>(x, w, E));
+// The float32 forward: per chunk of `chunk` vocabulary rows, W_c's hi and lo
+// planes into `scratch` (2 chunk E floats), then the split-TF32 product with
+// the partials of its 128-column tiles into `part` (N x ceil(V / 128)
+// float4); then their merge; all on `stream`.
+cudaError_t launch_fwd_tf32(const float* x, const float* w, const int32_t* targets, float* lse,
+                            float* tgt, float* suml, void* part, float* scratch, int64_t N,
+                            int64_t E, int64_t V, int64_t chunk, cudaStream_t stream) {
+  using namespace tf32;
+  if (E % 4 || !part || !scratch || chunk <= 0 || chunk % BN ||
+      misaligned({x, w, part, scratch}))
+    return cudaErrorInvalidValue;
+  float* w_hi = scratch;
+  float* w_lo = scratch + chunk * E;
+  CUtensorMap x_k, hi, lo;
+  if (!f32_map(&x_k, x, N, E, E, BM) || !f32_map(&hi, w_hi, chunk, E, E, BN) ||
+      !f32_map(&lo, w_lo, chunk, E, E, BN))
+    return cudaErrorInvalidValue;
+  const int tiles_v = (int)((V + BN - 1) / BN);
+  auto* p = static_cast<float4*>(part);
+  for (int64_t v0 = 0; v0 < V; v0 += chunk) {
+    const int64_t cols = min64(chunk, V - v0);
+    cudaError_t err =
+        split_planes(w + v0 * E, cols, chunk, E, w_hi, w_lo, nullptr, nullptr, 0, stream);
+    // the row tiles of one vocabulary column first: W_c's planes from device
+    // memory once, x from L2
+    if (err == cudaSuccess)
+      err = gemm<false, true>(
+          x_k, hi, lo, N, cols, E,
+          FwdChunkEpilogue{{targets, p + v0 / BN, N, V - v0, tiles_v}, (int)v0}, stream);
+    if (err != cudaSuccess) return err;
+  }
+  fwd_combine_kernel<<<(unsigned)((N + 7) / 8), 256, 0, stream>>>(p, tiles_v, lse, tgt, suml, N);
   return cudaGetLastError();
 }
 
@@ -738,9 +846,7 @@ cudaError_t launch_bwd_wgmma(const void* x, const void* w, const int32_t* target
                              int64_t chunk, cudaStream_t stream) {
   using namespace wgmma_gemm;
   const int64_t nchunks = (V + chunk - 1) / chunk;
-  if (E % 8 || chunk % BN || (nchunks > 1 && !dx_acc) ||
-      ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) |
-        reinterpret_cast<uintptr_t>(scratch)) % 16))
+  if (E % 8 || chunk % BN || (nchunks > 1 && !dx_acc) || misaligned({x, w, scratch}))
     return cudaErrorInvalidValue;
   // x and w K-major for (a); x, w and the scratch MN-major for (b) and (c);
   // the scratch K-major for (c)
@@ -755,10 +861,10 @@ cudaError_t launch_bwd_wgmma(const void* x, const void* w, const int32_t* target
     const int64_t v0 = c * chunk, cols = min64(chunk, V - v0);
     cudaError_t err = gemm<false, false>(
         x_k, w_k, Coords{(int)v0, 0}, N, cols, E,
-        DlogitsEpilogue{lse, c1, c2, c3, targets, dl, chunk, N, V, v0}, stream);
+        DlogitsEpilogue<__nv_bfloat16>{lse, c1, c2, c3, targets, dl, chunk, N, V, v0}, stream);
     if (err == cudaSuccess)
       err = gemm<true, true>(dl_mn, x_mn, Coords{0, 0}, cols, E, N,
-                             DwEpilogue{dw, E, V, v0}, stream);
+                             DwEpilogue<>{dw, E, V, v0, {}}, stream);
     if (err == cudaSuccess)
       err = gemm<false, true>(dl_k, w_mn, Coords{0, (int)v0}, N, E, cols,
                               DxEpilogue{dx_acc, static_cast<__nv_bfloat16*>(dx), N, E,
@@ -769,9 +875,62 @@ cudaError_t launch_bwd_wgmma(const void* x, const void* w, const int32_t* target
   return cudaSuccess;
 }
 
+// The float32 backward: x's transposed planes once, then for each chunk of
+// `chunk` vocabulary rows W_c's planes as stored and transposed, (a) the
+// chunk's dl in float32, (b) its rows of dW, (c) its share of dx, added in
+// dx itself; all on `stream`. The scratch, in floats: dl (N x chunk), W_c's
+// hi and lo (chunk x E each), W_c^T's (E x chunk each), x^T's (E x ld_x
+// each, ld_x = N rounded up to 4).
+cudaError_t launch_bwd_tf32(const float* x, const float* w, const int32_t* targets,
+                            const float* lse, const float* c1, const float* c2, const float* c3,
+                            float* dx, float* dw, float* scratch, int64_t N, int64_t E, int64_t V,
+                            int64_t chunk, cudaStream_t stream) {
+  using namespace tf32;
+  if (E % 4 || chunk <= 0 || chunk % BN || !scratch || misaligned({x, w, scratch}))
+    return cudaErrorInvalidValue;
+  const int64_t ld_x = (N + 3) / 4 * 4;
+  float* dl = scratch;
+  float* wc_hi = dl + N * chunk;
+  float* wc_lo = wc_hi + chunk * E;
+  float* wt_hi = wc_lo + chunk * E;
+  float* wt_lo = wt_hi + E * chunk;
+  float* xt_hi = wt_lo + E * chunk;
+  float* xt_lo = xt_hi + E * ld_x;
+  // (a): x and W_c's planes K-major; (b): dl read MN-major, x^T's planes;
+  // (c): dl K-major, W_c^T's planes
+  CUtensorMap x_k, wc_h, wc_l, dl_mn, xt_h, xt_l, dl_k, wt_h, wt_l;
+  if (!f32_map(&x_k, x, N, E, E, BM) || !f32_map(&wc_h, wc_hi, chunk, E, E, BN) ||
+      !f32_map(&wc_l, wc_lo, chunk, E, E, BN) || !f32_map(&dl_mn, dl, N, chunk, chunk, 32) ||
+      !f32_map(&xt_h, xt_hi, E, N, ld_x, BN) || !f32_map(&xt_l, xt_lo, E, N, ld_x, BN) ||
+      !f32_map(&dl_k, dl, N, chunk, chunk, BM) || !f32_map(&wt_h, wt_hi, E, chunk, chunk, BN) ||
+      !f32_map(&wt_l, wt_lo, E, chunk, chunk, BN))
+    return cudaErrorInvalidValue;
+  cudaError_t err = split_planes(x, N, ld_x, E, nullptr, nullptr, xt_hi, xt_lo, ld_x, stream);
+  for (int64_t v0 = 0; v0 < V && err == cudaSuccess; v0 += chunk) {
+    const int64_t cols = min64(chunk, V - v0);
+    err = split_planes(w + v0 * E, cols, chunk, E, wc_hi, wc_lo, wt_hi, wt_lo, chunk, stream);
+    // (a) the row tiles of one vocabulary column first, as the forward
+    if (err == cudaSuccess)
+      err = gemm<false, true>(
+          x_k, wc_h, wc_l, N, cols, E,
+          DlogitsEpilogue<float, false>{lse, c1, c2, c3, targets, dl, chunk, N, V, v0}, stream);
+    // (b) and (c) the E tiles of one row block in turn: dl from device
+    // memory once; each adds the target terms that dl leaves out
+    if (err == cudaSuccess)
+      err = gemm<true, false>(dl_mn, xt_h, xt_l, cols, E, N,
+                              DwEpilogue<true>{dw, E, V, v0, {targets, c2, x, N}}, stream);
+    if (err == cudaSuccess)
+      err = gemm<false, false>(dl_k, wt_h, wt_l, N, E, cols,
+                               DxAddEpilogue{dx, N, E, v0 == 0, {targets, c2, w, N}, v0, cols},
+                               stream);
+  }
+  return err;
+}
+
+// Rows and vocabulary columns are ints in the kernels (a tile's columns up
+// to V + 255 among them).
 bool bad_sizes(int64_t N, int64_t E, int64_t V) {
-  return N < 0 || E <= 0 || V <= 0 || (N + F_ROWS) / F_ROWS > 0x7fffffff ||
-         (V + B_OWN) / B_OWN > 0x7fffffff;
+  return N < 0 || E <= 0 || V <= 0 || N > 0x7fffffff || V > 0x7fffff00;
 }
 
 }  // namespace fused_ce
@@ -781,30 +940,33 @@ using namespace fused_ce;
 extern "C" {
 
 // dtype: 0 = bfloat16, 1 = float32 (x and w). targets int32 (N,); lse, tgt,
-// suml f32 (N,). bfloat16 takes the wgmma kernel and its merge: E a multiple
-// of 8, x, w and part 16-byte aligned, part a scratch of N x ceil(V / 256)
-// float4 partials. float32 takes the FMA kernel (no scratch). Returns
-// cudaGetLastError() after the launches (0 on success), or
+// suml f32 (N,); x, w and part 16-byte aligned. bfloat16 takes the wgmma
+// kernel and its merge: E a multiple of 8, part a scratch of N x ceil(V /
+// 256) float4 partials (scratch and chunk unused). float32 takes the
+// split-TF32 kernels and the merge: E a multiple of 4, part N x ceil(V /
+// 128) float4 partials, scratch 2 chunk E floats, chunk a multiple of 128.
+// Returns cudaGetLastError() after the launches (0 on success), or
 // cudaErrorInvalidValue for arguments the kernels do not take.
-int fused_ce_fwd(const void* x, const void* w, const int32_t* targets,
-                 float* lse, float* tgt, float* suml, void* part, int64_t N,
-                 int64_t E, int64_t V, int dtype, void* stream) {
-  if (bad_sizes(N, E, V) || (dtype != 0 && dtype != 1))
-    return (int)cudaErrorInvalidValue;
+int fused_ce_fwd(const void* x, const void* w, const int32_t* targets, float* lse, float* tgt,
+                 float* suml, void* part, void* scratch, int64_t N, int64_t E, int64_t V,
+                 int64_t chunk, int dtype, void* stream) {
+  if (bad_sizes(N, E, V) || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
   if (N == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return (int)launch_fwd_wgmma(x, w, targets, lse, tgt, suml, part, N, E, V, s);
-  return (int)launch_fwd_fma(static_cast<const float*>(x), static_cast<const float*>(w), targets,
-                             lse, tgt, suml, N, E, V, s);
+  return (int)launch_fwd_tf32(static_cast<const float*>(x), static_cast<const float*>(w), targets,
+                              lse, tgt, suml, part, static_cast<float*>(scratch), N, E, V, chunk,
+                              s);
 }
 
 // The backward of one call: dx (N, E) in x's type and dw (V, E) in f32, every
 // element written (the caller zeroes dw where N == 0: nothing is launched).
 // bfloat16 takes the wgmma kernels: E a multiple of 8, chunk a multiple of
 // 256, x, w and scratch 16-byte aligned; scratch holds (N, chunk) bf16 and,
-// where V > chunk, dx_acc (N, E) f32. float32 takes the FMA kernels (no
-// scratch).
+// where V > chunk, dx_acc (N, E) f32. float32 takes the split-TF32 kernels:
+// E a multiple of 4, chunk a multiple of 128, scratch of N chunk + 4 chunk E
+// + 2 E ceil4(N) floats, laid out as launch_bwd_tf32 says (dx_acc unused).
 int fused_ce_bwd(const void* x, const void* w, const int32_t* targets,
                  const float* lse, const float* c1, const float* c2,
                  const float* c3, void* dx, float* dw, void* scratch,
@@ -817,13 +979,9 @@ int fused_ce_bwd(const void* x, const void* w, const int32_t* targets,
   if (dtype == 0)
     return (int)launch_bwd_wgmma(x, w, targets, lse, c1, c2, c3, dx, dw, scratch,
                                  dx_acc, N, E, V, chunk, s);
-  const float* xf = static_cast<const float*>(x);
-  const float* wf = static_cast<const float*>(w);
-  cudaError_t err = launch_bwd_fma<true>(xf, wf, targets, lse, c1, c2, c3,
-                                         static_cast<float*>(dx), N, E, V, s);
-  if (err == cudaSuccess)
-    err = launch_bwd_fma<false>(xf, wf, targets, lse, c1, c2, c3, dw, N, E, V, s);
-  return (int)err;
+  return (int)launch_bwd_tf32(static_cast<const float*>(x), static_cast<const float*>(w), targets,
+                              lse, c1, c2, c3, static_cast<float*>(dx), dw,
+                              static_cast<float*>(scratch), N, E, V, chunk, s);
 }
 
 const char* fused_ce_error_string(int code) {

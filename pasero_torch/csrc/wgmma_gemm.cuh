@@ -6,7 +6,8 @@
 // Its PTX wrappers serve the other wgmma kernels too: the mbarriers, TMA,
 // descriptors, and wgmma_rs (A from registers, m64 x n 64-256), which
 // int8_matmul.cu's prompt kernel and flash_bwd.cu's P.V, dS.K and dS^T.Q
-// products issue.
+// products issue; split_tf32 and wgmma_tf32_rs (TF32 A from registers, m64
+// x n 32-128), the split-TF32 products of flash_f32.cu and fused_ce.cu.
 //
 // Shape: a persistent grid of at most one block per SM, each block of 384
 // threads walking 128 x 256 output tiles. Warpgroup 0 is the producer: one
@@ -218,6 +219,52 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
         "}, {%128, %129, %130, %131}, %132, p, 1, 1, %134;\n}\n"
         : WGMMA_D32(0), WGMMA_D32(32), WGMMA_D32(64), WGMMA_D32(96)
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1), "n"(TRANS_B));
+}
+
+// float32 on the tensor cores in split TF32 (flash_f32.cu, fused_ce.cu): x
+// as hi = cvt.rna.tf32(x) and lo = cvt.rna.tf32(x - hi), x = hi + lo within
+// 2^-22 |x|; a product a . b as hi_a lo_b + lo_a hi_b + hi_a hi_b.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// d (64 x N) = A (64 x 8, TF32 in registers: a warp's 16 rows in mma.sync's
+// m16n8k8 A-fragment layout, slot s holding row g + 8 (s & 1), column t + 4
+// (s >> 1) for lane (g, t)) . B (N x 8)^T + (accumulate ? d : 0), B read
+// K-major from shared memory by its descriptor (wgmma reads TF32 K-major
+// only). N is 32, 64 or 128; d holds N / 2 sums a thread.
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                              uint64_t desc_b, uint32_t accumulate = 1) {
+  static_assert(N == 32 || N == 64 || N == 128, "m64nNk8, N 32, 64 or 128");
+  if constexpr (N == 32)
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+        : WGMMA_D8(0), WGMMA_D8(8)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+  else if constexpr (N == 64)
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {" WGMMA_R32
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : WGMMA_D32(0)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+  else
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {" WGMMA_R64
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+        : WGMMA_D32(0), WGMMA_D32(32)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
 }
 
 // -- the kernel ------------------------------------------------------------------

@@ -7,7 +7,9 @@ Port of pasero_tpu/ops/fused_ce.py. The training half: ``fused_cross_entropy``
 forward launches ``fused_ce_fwd`` (in bf16 a wgmma product whose epilogue
 writes per-tile logsumexp partials, then their merge) and its backward
 ``fused_ce_bwd`` (three wgmma products per vocabulary chunk,
-``csrc/fused_ce.cu``); CPU tensors take ``fused_cross_entropy_plain``, and
+``csrc/fused_ce.cu``; float32 takes the same design's split-TF32 kernels
+there, which ``--dtype float32`` training runs); CPU tensors take
+``fused_cross_entropy_plain``, and
 ``fused_ce_fwd_plain`` and ``fused_ce_bwd_plain`` are the two wrappers' own
 plain versions, in the kernels' order of operations. The decoding half:
 ``fused_head_argmax`` (the Pallas ``fused_head_argmax`` and
@@ -37,17 +39,31 @@ NEG_INF = -1e30
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 # vocabulary rows per chunk of the backward: its bf16 scratch holds N x CHUNK
 CHUNK = 8192
-# vocabulary columns per partial of the bf16 forward (its wgmma tile's width)
+# vocabulary columns per partial of the forward (its wgmma tile's width):
+# bf16, float32
 FWD_TILE = 256
+F32_TILE = 128
 # lanes of a warp of the forward's merge, each taking every 32nd partial
 MERGE_LANES = 32
 
 
 def bwd_chunk(vocab: int) -> int:
-    """Vocabulary rows per chunk of the bf16 backward at ``vocab`` rows:
-    CHUNK, or the whole vocabulary rounded up to the kernels' 256-row
-    tiles when it is smaller."""
+    """Vocabulary rows per chunk of the backward (and of the float32
+    forward) at ``vocab`` rows: CHUNK, or the whole vocabulary rounded up to
+    the kernels' 256-row tiles when it is smaller."""
     return min(CHUNK, -(-vocab // 256) * 256)
+
+
+def fwd_tile(dtype) -> int:
+    """Vocabulary columns per partial of the forward in ``dtype``."""
+    return FWD_TILE if dtype == torch.bfloat16 else F32_TILE
+
+
+def f32_bwd_scratch(N: int, E: int, chunk: int) -> int:
+    """Floats of the float32 backward's scratch: dl (N x chunk), a chunk of
+    W's hi and lo planes as stored and transposed (4 chunk E) and x's
+    transposed planes (2 E x N rounded up to 4)."""
+    return N * chunk + 4 * chunk * E + 2 * E * (-(-N // 4) * 4)
 
 
 def _stats(lse, tgt, suml, weights, vocab: int, label_smoothing: float):
@@ -98,7 +114,7 @@ def _library():
     lib = cuda_build.load("fused_ce")
     if lib.fused_ce_fwd.argtypes is None:
         ptr, i64 = ctypes.c_void_p, ctypes.c_int64
-        lib.fused_ce_fwd.argtypes = [ptr] * 7 + [i64] * 3 + [ctypes.c_int, ptr]
+        lib.fused_ce_fwd.argtypes = [ptr] * 8 + [i64] * 4 + [ctypes.c_int, ptr]
         lib.fused_ce_bwd.argtypes = [ptr] * 11 + [i64] * 4 + [ctypes.c_int, ptr]
         for fn in (lib.fused_ce_fwd, lib.fused_ce_bwd):
             fn.restype = ctypes.c_int
@@ -123,9 +139,10 @@ def _cuda_inputs(x, w, targets):
 
 
 def _operands(x, w):
-    """x and w contiguous and 16-byte aligned for the kernels, in bf16 with
-    E padded by zero columns to a multiple of 8 (16-byte rows for TMA)."""
-    pad = (-x.shape[1]) % 8 if x.dtype == torch.bfloat16 else 0
+    """x and w contiguous and 16-byte aligned for the kernels, with E
+    padded by zero columns to 16-byte rows for TMA (a multiple of 8 in bf16,
+    of 4 in float32)."""
+    pad = (-x.shape[1]) % (8 if x.dtype == torch.bfloat16 else 4)
     if pad:
         x = torch.nn.functional.pad(x, (0, pad))
         w = torch.nn.functional.pad(w, (0, pad))
@@ -137,15 +154,23 @@ def _merge(m, l, mo, lo):
     return mn, l * torch.exp(m - mn) + lo * torch.exp(mo - mn)
 
 
-def fused_ce_fwd_plain(x, w, targets, tile: int = FWD_TILE):
-    """``fused_ce_fwd`` in plain PyTorch with the bf16 kernels' order:
-    float32 logits of operands in x's type; per ``tile`` vocabulary columns a
+def fused_ce_fwd_plain(x, w, targets, tile: int | None = None):
+    """``fused_ce_fwd`` in plain PyTorch with the kernels' order: float32
+    logits of operands in x's type; per ``tile`` vocabulary columns (by
+    default ``fwd_tile`` of x's type, the kernels' tile) a
     partial (max, sum of exp(logit - max), target logit, logits sum); each
     row's partials merged as the merge kernel does, lane i of MERGE_LANES
     taking partials i, i + MERGE_LANES, ... in order, then the lanes meeting
     in a butterfly. Returns (lse, target logit, logits sum), float32."""
-    N, V = x.shape[0], w.shape[0]
     logits = torch.matmul(x.float(), w.to(x.dtype).float().t())
+    return merged_stats_plain(logits, targets, tile or fwd_tile(x.dtype))
+
+
+def merged_stats_plain(logits, targets, tile: int):
+    """``fused_ce_fwd_plain``'s statistics of float32 ``logits`` (N, V):
+    the partials of ``tile`` columns and their merge, in the kernels'
+    order."""
+    N, V = logits.shape
     rounds = -(-V // (tile * MERGE_LANES))
     cols = rounds * MERGE_LANES * tile
     pad = torch.nn.functional.pad
@@ -153,18 +178,18 @@ def fused_ce_fwd_plain(x, w, targets, tile: int = FWD_TILE):
     s = pad(logits, (0, cols - V), value=float("-inf")).view(
         N, rounds, MERGE_LANES, tile)
     z = pad(logits, (0, cols - V)).view(N, rounds, MERGE_LANES, tile)
-    hit = targets.long()[:, None] == torch.arange(cols, device=x.device)
+    hit = targets.long()[:, None] == torch.arange(cols, device=logits.device)
     pm = s.amax(-1).clamp_min(NEG_INF)   # an empty partial: max -1e30, sum 0
     pl = torch.exp(s - pm[..., None]).sum(-1)
     pt = (z * hit.view(z.shape)).sum(-1)
     ps = z.sum(-1)
-    m = torch.full((N, MERGE_LANES), NEG_INF, device=x.device)
+    m = torch.full((N, MERGE_LANES), NEG_INF, device=logits.device)
     l, t, sm = torch.zeros_like(m), torch.zeros_like(m), torch.zeros_like(m)
     for r in range(rounds):
         m, l = _merge(m, l, pm[:, r], pl[:, r])
         t = t + pt[:, r]
         sm = sm + ps[:, r]
-    lane = torch.arange(MERGE_LANES, device=x.device)
+    lane = torch.arange(MERGE_LANES, device=logits.device)
     off = MERGE_LANES // 2
     while off:
         other = lane ^ off
@@ -181,24 +206,31 @@ def fused_ce_fwd(x, w, targets):
     x (N, E) and w (V, E) of one type on the card; targets (N,) int.
     bfloat16 takes the wgmma kernel, whose epilogue writes a partial per row
     and 256-column vocabulary tile into an (N, ceil(V / 256), 4) float32
-    scratch, and the kernel that merges them; float32 the FMA kernel."""
+    scratch, and the kernel that merges them. float32 takes the split-TF32
+    kernels: per vocabulary chunk W's hi and lo planes (a scratch of 2 x
+    chunk x E floats), then the product with the same epilogue's partials
+    of 128-column tiles, and the same merge; ``--dtype float32`` training
+    runs them."""
     x, w, t = _cuda_inputs(x, w, targets)
     x, w = _operands(x, w)
     N, E = x.shape
     V = w.shape[0]
+    chunk = bwd_chunk(V)
     out = torch.empty((3, N), dtype=torch.float32, device=x.device)
-    part = None
-    if x.dtype == torch.bfloat16:
-        part = torch.empty((N, -(-V // FWD_TILE), 4), dtype=torch.float32,
-                           device=x.device)
+    part = torch.empty((N, -(-V // fwd_tile(x.dtype)), 4), dtype=torch.float32,
+                       device=x.device)
+    scratch = None
+    if x.dtype == torch.float32:
+        scratch = torch.empty(2 * chunk * E, dtype=torch.float32,
+                              device=x.device)
     lib = _library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = lib.fused_ce_fwd(
             x.data_ptr(), w.data_ptr(), t.data_ptr(), out[0].data_ptr(),
-            out[1].data_ptr(), out[2].data_ptr(),
-            part.data_ptr() if part is not None else None, N, E, V,
-            _DTYPES[x.dtype], stream)
+            out[1].data_ptr(), out[2].data_ptr(), part.data_ptr(),
+            scratch.data_ptr() if scratch is not None else None, N, E, V,
+            chunk, _DTYPES[x.dtype], stream)
     _raise_on(lib, status, "fused_ce_fwd")
     fused_ce_fwd.launches += 1
     return out[0], out[1], out[2]
@@ -208,30 +240,32 @@ fused_ce_fwd.launches = 0
 
 
 def _dlogits(x, w, targets, lse, c1, c2, c3, v0: int):
-    """dl of vocabulary rows [v0, v0 + len(w)) in float32 from float32
-    logits of x and the chunk w, rounded to x's type."""
-    s = torch.matmul(x.float(), w.float().t())
+    """dl of vocabulary rows [v0, v0 + len(w)) in float32 (float64 for
+    float64 x) from logits of x and the chunk w, rounded to x's type."""
+    s = torch.matmul(x.to(w.dtype), w.t())
     dl = c1[:, None] * torch.exp(s - lse[:, None])
     hit = targets.long()[:, None] == torch.arange(v0, v0 + w.shape[0],
                                                   device=x.device)
     dl = torch.where(hit, dl - c2[:, None], dl) - c3[:, None]
-    return dl.to(x.dtype).float()
+    return dl.to(x.dtype).to(w.dtype)
 
 
 def fused_ce_bwd_plain(x, w, targets, lse, c1, c2, c3, chunk: int = CHUNK):
     """``fused_ce_bwd`` in plain PyTorch with the kernels' arithmetic: per
     chunk of ``chunk`` vocabulary rows, dl rounded to x's type, float32
     products, dW's rows written, dx accumulated in float32 and cast to x's
-    type at the end."""
+    type at the end (the float32 kernels add dl's target terms apart). In
+    float64 operands it computes in float64."""
     N, E = x.shape
     V = w.shape[0]
     w = w.to(x.dtype)
-    xf = x.float()
-    vecs = [v.float() for v in (lse, c1, c2, c3)]
-    dx = torch.zeros((N, E), dtype=torch.float32, device=x.device)
-    dw = torch.empty((V, E), dtype=torch.float32, device=x.device)
+    wide = torch.promote_types(x.dtype, torch.float32)
+    xf = x.to(wide)
+    vecs = [v.to(wide) for v in (lse, c1, c2, c3)]
+    dx = torch.zeros((N, E), dtype=wide, device=x.device)
+    dw = torch.empty((V, E), dtype=wide, device=x.device)
     for v0 in range(0, V, chunk):
-        wc = w[v0:v0 + chunk].float()
+        wc = w[v0:v0 + chunk].to(wide)
         dl = _dlogits(x, wc, targets, *vecs, v0)
         dx += torch.matmul(dl, wc)
         dw[v0:v0 + chunk] = torch.matmul(dl.t(), xf)
@@ -246,7 +280,10 @@ def fused_ce_bwd(x, w, targets, lse, c1, c2, c3):
     (N, CHUNK) bf16 scratch (narrower for a smaller V) and, past one chunk,
     an (N, E) float32 accumulator of dx; an E that is not a multiple of 8 is
     padded with zero columns for the kernels' 16-byte rows. float32 takes
-    the FMA kernels."""
+    the same design's split-TF32 kernels (``--dtype float32`` training runs
+    them): dl in float32, W's hi and lo planes per chunk as stored and
+    transposed, x's transposed once, in a scratch of ``f32_bwd_scratch``
+    floats, dx summed in itself; E is padded to a multiple of 4."""
     x, w, t = _cuda_inputs(x, w, targets)
     E = x.shape[1]
     x, w = _operands(x, w)
@@ -259,12 +296,15 @@ def fused_ce_bwd(x, w, targets, lse, c1, c2, c3):
     # every element of dW is written when there are rows to reduce over
     dw = (torch.empty if N else torch.zeros)((V, Ep), dtype=torch.float32,
                                              device=x.device)
-    scratch = dx_acc = None
+    dx_acc = None
     if x.dtype == torch.bfloat16:
         scratch = torch.empty((N, chunk), dtype=x.dtype, device=x.device)
         if V > chunk:
             dx_acc = torch.empty((N, Ep), dtype=torch.float32,
                                  device=x.device)
+    else:
+        scratch = torch.empty(f32_bwd_scratch(N, Ep, chunk),
+                              dtype=torch.float32, device=x.device)
     lib = _library()
     ptrs = [x.data_ptr(), w.data_ptr(), t.data_ptr()] + \
         [v.data_ptr() for v in vecs] + \
@@ -299,18 +339,22 @@ class _FusedCrossEntropy(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gl, gn, _):
-        # loss_row = w[(1-ls)(lse-tgt) + ls(lse - suml/V)], nll_row = w(lse-tgt):
-        # dlogits = w[(a+b) softmax - a onehot - b/V], a = gl(1-ls) + gn,
-        # b = gl ls (pasero_tpu/ops/fused_ce.py:504-518)
         x, w, targets, weights, lse = ctx.saved_tensors
-        ls = ctx.label_smoothing
-        V = w.shape[0]
-        wt = weights.float()
-        a = gl * (1.0 - ls) + gn
-        b = gl * ls
-        dx, dw = fused_ce_bwd(x, w, targets, lse, wt * (a + b), wt * a,
-                              wt * (b / V))
+        dx, dw = fused_ce_bwd(x, w, targets, lse, *dlogit_coefficients(
+            weights, gl, gn, ctx.label_smoothing, w.shape[0]))
         return dx, dw.to(ctx.weight_dtype), None, None, None
+
+
+def dlogit_coefficients(weights, gl, gn, label_smoothing: float, vocab: int):
+    """(c1, c2, c3) of dlogits = c1 softmax - c2 onehot - c3 for the output
+    gradients gl (of loss_sum) and gn (of nll_sum): loss_row = w[(1-ls)(lse
+    - tgt) + ls(lse - suml/V)] and nll_row = w(lse - tgt) give c1 = w(a + b),
+    c2 = w a, c3 = w b / V with a = gl(1-ls) + gn, b = gl ls
+    (pasero_tpu/ops/fused_ce.py:504-518)."""
+    wt = weights.float()
+    a = gl * (1.0 - label_smoothing) + gn
+    b = gl * label_smoothing
+    return wt * (a + b), wt * a, wt * (b / vocab)
 
 
 def fused_cross_entropy(x, weight, targets, weights,

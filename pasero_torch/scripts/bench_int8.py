@@ -37,6 +37,10 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor cores, data sheet
+FP32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
+# float32-accurate products on the tensor cores: three TF32 products (hi hi,
+# hi lo, lo hi of split operands) at the dense TF32 rate
+FP32_TC_FLOPS = 495e12 / 3
 COLD_BYTES = 100e6          # twice the H100's 50 MB L2
 READINGS = 5                # readings of each graph, taken in turn
 # llama_1b's int8 weights as (K, N) and their count in one decoder call: per

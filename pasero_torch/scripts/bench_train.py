@@ -80,15 +80,22 @@ SHAPES = {"transformer": ("transformer", "translation", 0.1, 128, 128, 128,
                            3000, 128, 51865)}
 # workloads whose attention kernel is set, not left to ``auto``
 ATTENTION = {"bloom_560m": "flash", "t5_base": "flash"}
-# the port's kernels by a part of their names in a trace: the fused-CE
-# forward's product and merge and the backward's three products by their
-# epilogues, dbias (flash::), and flash_bwd.cu's forward, dq and dk/dv by
-# their first template argument, the bias kind: 0 none, 1 a dense bias, 2
-# T5's table (whose dq kernel also sums the table's gradient), and their
-# float32 twins of flash_f32.cu (flash_f32::)
+# the port's kernels by a part of their names in a trace, each kernel under
+# one key: the fused-CE forward's product and merge and the backward's three
+# products by their epilogues (bf16's by the epilogues' bf16 instances, the
+# float32 products as tf32_gemm_kernel<epilogue, and the float32 split
+# pass), dbias (flash::), and flash_bwd.cu's forward, dq and dk/dv by their
+# first template argument, the bias kind: 0 none, 1 a dense bias, 2 T5's
+# table (whose dq kernel also sums the table's gradient), and their float32
+# twins of flash_f32.cu (flash_f32::)
 KERNELS = ("fused_ce::FwdEpilogue", "fused_ce::fwd_combine_kernel",
-           "fused_ce::DlogitsEpilogue", "fused_ce::DwEpilogue",
-           "fused_ce::DxEpilogue", "flash::dbias_kernel",
+           "fused_ce::DlogitsEpilogue<__nv_bfloat16",
+           "fused_ce::DwEpilogue<false>", "fused_ce::DxEpilogue",
+           "tf32_gemm_kernel<fused_ce::FwdChunkEpilogue",
+           "tf32_gemm_kernel<fused_ce::DlogitsEpilogue",
+           "tf32_gemm_kernel<fused_ce::DwEpilogue",
+           "tf32_gemm_kernel<fused_ce::DxAddEpilogue",
+           "fused_ce::tf32::split_kernel", "flash::dbias_kernel",
            "flash_f32::dbias_kernel") + tuple(
                f"{space}::{name}_kernel<{kind},"
                for space in ("flash_bwd", "flash_f32")

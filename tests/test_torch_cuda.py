@@ -64,7 +64,8 @@ def test_cache_slot_write_raises_on_card():
 
 
 FCE_SHAPES = [((130, 48, 515), torch.bfloat16),    # ragged rows and vocab
-              ((130, 48, 515), torch.float32),     # the fp32 FMA path
+              ((130, 48, 515), torch.float32),     # the split-TF32 kernels
+              ((64, 36, 100), torch.float32),      # E padded to 40
               ((48, 2048, 330), torch.bfloat16),   # width over one block
               ((64, 36, 100), torch.bfloat16),     # width not a multiple of 8
               ((2048, 512, 51865), torch.bfloat16),    # whisper_base's head
@@ -75,7 +76,11 @@ FCE_SHAPES = [((130, 48, 515), torch.bfloat16),    # ragged rows and vocab
               ((256, 128, 8193), torch.bfloat16),
               ((256, 136, 3 * 8192 + 1000), torch.bfloat16),
               ((4096, 768, 32128), torch.bfloat16),    # t5_base's head
-              ((8192, 1024, 250880), torch.bfloat16)]  # bloom_560m's head
+              ((8192, 1024, 250880), torch.bfloat16),  # bloom_560m's head
+              # float32: t5_base's head (its float32 training), the chunks
+              ((4096, 768, 32128), torch.float32),
+              ((256, 128, 8193), torch.float32),
+              ((256, 136, 3 * 8192 + 1000), torch.float32)]
 
 
 # The fused-CE gradients against float32 ones of the same operand values, in
@@ -85,12 +90,39 @@ FCE_SHAPES = [((130, 48, 515), torch.bfloat16),    # ragged rows and vocab
 # of rounding errors of its terms a_i (dl * w for dx, dl * x for dW): at most
 # u sqrt(m) S for m terms that dominate, S = sqrt(sum a_i^2), and of standard
 # deviation u S / sqrt(3) when many terms add. K = 4 covers both, and rtol the
-# bf16 rounding of dx. In float32 only the summation order differs.
+# bf16 rounding of dx. In float32 only the summation order differs: the
+# split-TF32 kernels' products keep float32's accuracy, and the same kernels
+# given x and w rounded to TF32 (one TF32 product, ``round_tf32``) must land
+# at F32_TF32_MIN times the limits or more.
 # Readings on an H100 80GB HBM3 at 700 W (chip_smoke.py phase 4): errors at
-# most 0.52 of these limits in bf16 and 0.09 in float32; a backward given
-# another row's lse lands at 336x of them or more.
+# most 0.52 of these limits in bf16 and 0.30 in float32 (t5_base's dW); a
+# backward given another row's lse lands at 320x of them or more.
 FCE_GRAD_TOL = {torch.bfloat16: (1e-2, 1e-6, 4.0), torch.float32: (1e-4, 1e-6, 0.0)}
 U_BF16 = 2.0 ** -8
+
+
+# The float32 forward's lse against float64's. The gradient reference below
+# takes the kernel's own lse, so an lse error shifts the kernels' and the
+# reference's softmax alike and cancels in the gradient check: only this
+# limit ties the float32 gradients to the exact ones. A float32 sum's error,
+# not STAT_ATOL's bf16-sized one: readings at most 1.2e-6 on an H100 80GB
+# HBM3 at 700 W (chip_smoke.py phase 4, t5_base's head among its cases).
+F32_LSE_ATOL = 1e-5
+
+
+def f32_reference_grads(x, w, t, cs):
+    """The float32 kernels' reference gradients (dx, dW): the plain backward
+    in float64 given the forward kernel's own lse (held within F32_LSE_ATOL
+    of float64's), and that lse. No float32 reference, and no reference with
+    an lse of its own, can serve: at t5_base's head dW's softmax terms c1 p
+    x (up to about 5) cancel against the targets' -c2 x to sums near 1e-3,
+    where the limit is about 1e-6, while float32 gives p = exp(s - lse) a
+    relative error of at least u (|s| + |lse|) with |lse| near 12. The
+    float32 plain version, with its own lse, lies 6.3 times the limits from
+    this reference there (chip_smoke.py phase 4, H100 80GB HBM3, 700 W)."""
+    from pasero_torch.ops.fused_ce import fused_ce_bwd_plain, fused_ce_fwd
+    lse = fused_ce_fwd(x, w, t)[0]
+    return fused_ce_bwd_plain(x.double(), w.double(), t, lse, *cs), lse
 
 
 def fused_ce_grad_limits(x, w, t, lse, c1, c2, c3, want):
@@ -116,16 +148,47 @@ def fused_ce_grad_excess(got, want, limit) -> float:
     return ((got.float() - want).abs() / limit).max().item()
 
 
+F32_TF32_MIN = 2.8
+
+
+def round_tf32(x):
+    """x rounded to TF32's 10 mantissa bits (to nearest), as a TF32 product
+    rounds its operands."""
+    bits = x.contiguous().view(torch.int32)
+    bits = (bits + 0x1000) & ~0x1FFF
+    return bits.view(torch.float32)
+
+
+def fused_ce_tf32_excess(x, w, t, cs, want, limits, logits) -> tuple:
+    """The float32 kernels given x and w rounded to TF32 (so that each
+    product is one TF32 product): the forward's worst statistic over its
+    limit (lse and target over STAT_ATOL, the logits sum over STAT_SUM_RTOL
+    of its row's |sum|) against the float32 ``logits``, and the backward's
+    worst gradient over ``limits`` against ``want`` (dx, dW)."""
+    from pasero_torch.ops.fused_ce import fused_ce_bwd, fused_ce_fwd
+    xr, wr = round_tf32(x), round_tf32(w)
+    stats = fused_ce_fwd(xr, wr, t)
+    lse_err, tgt_err, sum_err = fused_ce_stat_errors(stats, logits, t)
+    grads = fused_ce_bwd(xr, wr, t, stats[0], *cs)
+    return (max(lse_err / STAT_ATOL, tgt_err / STAT_ATOL,
+                sum_err / STAT_SUM_RTOL),
+            max(fused_ce_grad_excess(g, w_, lim)
+                for g, w_, lim in zip(grads, want, limits)))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,dtype", FCE_SHAPES)
 @pytest.mark.parametrize("ls", [0.0, 0.1])
 def test_fused_ce_kernels_match_plain(shape, dtype, ls):
     """Sums rtol 1e-5; gradients within ``fused_ce_grad_limits`` of the plain
     version's float32 gradients of the same operand values (x and the weight
-    rounded to x's type first, so the reference rounds nothing). x has a
-    per-row scale, so that the same check rejects the backward given another
-    row's lse."""
-    from pasero_torch.ops.fused_ce import (CHUNK, fused_ce_bwd, fused_ce_fwd,
+    rounded to x's type first, so the reference rounds nothing) in bf16, of
+    ``f32_reference_grads`` in float32, whose lse lies within F32_LSE_ATOL
+    of float64's. x has a per-row scale, so that the same check rejects the
+    backward given another row's lse; in float32 the kernels given x and w
+    rounded to TF32 land at F32_TF32_MIN times the limits or more."""
+    from pasero_torch.ops.fused_ce import (CHUNK, dlogit_coefficients,
+                                           fused_ce_bwd, fused_ce_fwd,
                                            fused_cross_entropy,
                                            fused_cross_entropy_plain)
     _need_card()
@@ -154,9 +217,17 @@ def test_fused_ce_kernels_match_plain(shape, dtype, ls):
     assert nk == pytest.approx(np_, rel=1e-5)
     assert dk == dp
 
-    a, b = (1.0 - ls) + 0.5, ls
-    cs = (wt * (a + b), wt * a, wt * (b / V))
-    lse = torch.logsumexp(torch.matmul(x.float(), wb.float().t()), -1)
+    # the backward's coefficients as autograd gives them
+    gl, gn = (torch.tensor(g, device="cuda") for g in (1.0, 0.5))
+    cs = dlogit_coefficients(wt, gl, gn, ls, V)
+    if dtype == torch.float32:
+        grads[1], lse = f32_reference_grads(x, wb, t, cs)
+        ref_lse = torch.logsumexp(torch.matmul(x.double(), wb.double().t()),
+                                  -1)
+        assert (lse - ref_lse).abs().max().item() <= F32_LSE_ATOL
+        del ref_lse
+    else:
+        lse = torch.logsumexp(torch.matmul(x.float(), wb.float().t()), -1)
     limits = fused_ce_grad_limits(x, wb, t, lse, *cs, grads[1])
     torch.cuda.empty_cache()
     excess = [fused_ce_grad_excess(got, want, limit)
@@ -165,6 +236,11 @@ def test_fused_ce_kernels_match_plain(shape, dtype, ls):
     bad = fused_ce_bwd(x, wb, t, fused_ce_fwd(x, wb, t)[0].roll(1), *cs)
     assert min(fused_ce_grad_excess(got, want, limit) for got, want, limit
                in zip(bad, grads[1], limits)) > 1.0
+    if dtype == torch.float32:
+        logits = torch.matmul(x, wb.t())
+        assert min(fused_ce_tf32_excess(x, wb, t, cs, grads[1], limits,
+                                        logits)) >= F32_TF32_MIN
+        del logits
     if V > CHUNK:
         # dW rolled by one chunk; dx without the last chunk's share where a
         # target lies in it (else the share is the softmax tail alone, below
@@ -200,19 +276,22 @@ def fused_ce_stat_errors(stats, logits, t):
     (130, 48, 3 * 256 + 37),   # several 256-column tiles, a ragged last one
     (50, 64, 1000),            # N below one 128-row tile
     (64, 36, 100)])            # E padded to 40, V below one tile
-def test_fused_ce_fwd_matches_plain(shape):
-    """The bf16 forward (its wgmma product's partials and their merge, one
-    count in ``fused_ce_fwd.launches``) against float32 logits of the same
-    operands and against ``fused_ce_fwd_plain``, its own plain version in
-    the kernels' order, each within STAT_ATOL / STAT_SUM_RTOL; a forward
-    whose targets are rolled by one row lies outside them."""
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fused_ce_fwd_matches_plain(shape, dtype):
+    """The forward (its wgmma product's partials and their merge, one count
+    in ``fused_ce_fwd.launches``; float32 in split TF32 with 128-column
+    tiles) against float32 logits of the same operands and against
+    ``fused_ce_fwd_plain``, its own plain version in the kernels' order,
+    each within STAT_ATOL / STAT_SUM_RTOL; a forward whose targets are
+    rolled by one row lies outside them."""
     from pasero_torch.ops.fused_ce import fused_ce_fwd, fused_ce_fwd_plain
     _need_card()
     N, E, V = shape
     gen = torch.Generator(device="cuda").manual_seed(3)
     x = (torch.randn(N, E, generator=gen, device="cuda")
-         * (0.5 + 1.5 * torch.rand(N, 1, generator=gen, device="cuda"))).bfloat16()
-    w = (torch.randn(V, E, generator=gen, device="cuda") * E ** -0.5).bfloat16()
+         * (0.5 + 1.5 * torch.rand(N, 1, generator=gen, device="cuda"))
+         ).to(dtype)
+    w = (torch.randn(V, E, generator=gen, device="cuda") * E ** -0.5).to(dtype)
     t = torch.randint(0, V, (N,), generator=gen, device="cuda")
     before = fused_ce_fwd.launches
     got = fused_ce_fwd(x, w, t)
@@ -228,15 +307,16 @@ def test_fused_ce_fwd_matches_plain(shape):
 
 
 @pytest.mark.cuda
-def test_fused_ce_fwd_same_bits():
-    """Two forward calls give the same bits: each (row, 256-column tile)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fused_ce_fwd_same_bits(dtype):
+    """Two forward calls give the same bits: each (row, vocabulary tile)
     writes one partial, merged in a fixed order, with no atomics."""
     from pasero_torch.ops.fused_ce import fused_ce_fwd
     _need_card()
     N, E, V = 1000, 512, 3 * 8192 + 1000
     gen = torch.Generator(device="cuda").manual_seed(4)
-    x = torch.randn(N, E, generator=gen, device="cuda").bfloat16()
-    w = (torch.randn(V, E, generator=gen, device="cuda") * E ** -0.5).bfloat16()
+    x = torch.randn(N, E, generator=gen, device="cuda").to(dtype)
+    w = (torch.randn(V, E, generator=gen, device="cuda") * E ** -0.5).to(dtype)
     t = torch.randint(0, V, (N,), generator=gen, device="cuda")
     first, second = fused_ce_fwd(x, w, t), fused_ce_fwd(x, w, t)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
@@ -248,7 +328,9 @@ def test_fused_ce_fwd_same_bits():
     ((64, 36, 100), torch.bfloat16),                # E padded to 40
     ((1000, 512, 3 * 8192 + 1000), torch.bfloat16),  # four chunks
     ((4096, 768, 32128), torch.bfloat16),           # t5_base's head
-    ((130, 48, 515), torch.float32)])
+    ((130, 48, 515), torch.float32),
+    ((64, 36, 100), torch.float32),                 # E padded to 40
+    ((1000, 512, 3 * 8192 + 1000), torch.float32)])
 def test_fused_ce_bwd_matches_bwd_plain(shape, dtype):
     """The backward kernels against fused_ce_bwd_plain on the same inputs:
     both round dlogits to x's type per chunk and sum in float32, so they
@@ -279,14 +361,15 @@ def test_fused_ce_bwd_matches_bwd_plain(shape, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(130, 48, 515), (1000, 512, 3 * 8192 + 1000)])
-def test_fused_ce_bwd_same_bits(shape):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fused_ce_bwd_same_bits(shape, dtype):
     """Two backward calls give the same bits: no atomics, no split sums."""
     from pasero_torch.ops.fused_ce import fused_ce_bwd, fused_ce_fwd
     _need_card()
     N, E, V = shape
     gen = torch.Generator(device="cuda").manual_seed(1)
-    x = torch.randn(N, E, generator=gen, device="cuda").bfloat16()
-    w = (torch.randn(V, E, generator=gen, device="cuda") * E ** -0.5).bfloat16()
+    x = torch.randn(N, E, generator=gen, device="cuda").to(dtype)
+    w = (torch.randn(V, E, generator=gen, device="cuda") * E ** -0.5).to(dtype)
     t = torch.randint(0, V, (N,), generator=gen, device="cuda")
     c = torch.rand(N, generator=gen, device="cuda")
     lse = fused_ce_fwd(x, w, t)[0]
@@ -1110,14 +1193,6 @@ FLASH_F32_CASES = [   # (B, H, Hkv, S, D), causal, window, padded, bias kind
     ((8, 12, 12, 512, 64), False, None, False, "t5"),    # t5_base's width
 ] + [((2, 4, 2, 130, D), kind != "t5", None, True, kind)   # every D, kind
      for kind in (None, "learned_1xH", "t5") for D in (32, 128)]
-
-
-def round_tf32(x):
-    """x rounded to TF32's 10 mantissa bits (to nearest), as a TF32 product
-    rounds its operands."""
-    bits = x.contiguous().view(torch.int32)
-    bits = (bits + 0x1000) & ~0x1FFF
-    return bits.view(torch.float32)
 
 
 def flash_f32_limits(q, k, v, kv_mask, lse, do, out, scale, causal, window,
