@@ -1323,6 +1323,16 @@ INT8_HEAD_EARLIER_MS = 0.0343
 INT8_PROMPT_EARLIER_MS = {(2048, 2048): 0.0615, (2048, 256): 0.0395,
                           (2048, 5632): 0.16173, (5632, 2048): 0.1496,
                           (2048, 32000): 0.8154}
+# the fused heads' device ms per call at (N, 2048, 32000), cold, CUDA graph,
+# of their first design (mma.sync tiles with x as the m16 side), before the
+# decode stream and the wgmma prompt kernels (PERF.md's bracketed readings,
+# "NVIDIA H100 80GB HBM3, 700.00 W"): gates, not readings of this run
+HEAD_EARLIER_MS = {("fused_head_argmax", 8): 0.07473,
+                   ("fused_head_argmax", 72): 0.23184,
+                   ("fused_head_argmax", 1024): 1.07569,
+                   ("fused_head_argmax_q8", 8): 0.05193,
+                   ("fused_head_argmax_q8", 72): 0.17675,
+                   ("fused_head_argmax_q8", 1024): 0.95606}
 
 
 def phase10() -> dict:
@@ -1374,6 +1384,24 @@ def phase10() -> dict:
                 f"(max abs err {r['max_abs_err']:.3e}); a wrong "
                 f"{'scale' if q8 else 'head row'} at {r['bad_excess']:.1f}")
         torch.cuda.empty_cache()
+    for N in sorted(cuda_tests.TIE_ROWS):
+        for q8 in (False, True):
+            name = "fused_head_argmax_q8" if q8 else "fused_head_argmax"
+            r = cuda_tests.head_tie_compare(N, q8)
+            check(r["planted"], f"the ties planted for {name} at N = {N} "
+                  f"do not tie in float64: {r}")
+            check(r["tokens"] == r["lows"], f"{name} at N = {N} does not "
+                  f"give the lowest index of equal maxima: {r}")
+            check(r["same_bits"], f"two {name} calls at N = {N} gave other "
+                  f"bits")
+            check(r["lp_excess"] <= 1.0, f"{name} at N = {N} with ties: "
+                  f"log-probabilities at {r['lp_excess']:.3f} of the limit")
+            log(f"phase 10: {name} at ({N}, 2048, 32000) with "
+                f"{len(r['lows'])} planted ties across tile and merge "
+                f"boundaries: the lowest index every time, the same bits "
+                f"twice, log-probabilities at {r['lp_excess']:.4f} of the "
+                f"limit")
+        torch.cuda.empty_cache()
     for M in (8, 72, 1024):
         timed = []
         for K, N in LLAMA_1B_WEIGHTS:
@@ -1421,12 +1449,20 @@ def phase10() -> dict:
             name = "fused_head_argmax_q8" if q8 else "fused_head_argmax"
             r = head_timing(N, 2048, 32000, q8)
             res[name]["by_shape"].append(r)
+            earlier = HEAD_EARLIER_MS[(name, N)]
             log(f"phase 10: {name} at {r['shape']}, device ms per call (CUDA "
                 f"graph), the head cold ({r['copies']} copies): kernels "
-                f"{r['ms']:.5f} (bound {r['bound_ms']:.5f}, {r['bound_by']}), "
-                f"library {r['library_ms']:.5f}; hot (one head): kernels "
-                f"{r['hot_ms']:.5f}, library {r['library_hot_ms']:.5f}; plain "
-                f"{r['plain_ms']:.5f}")
+                f"{r['ms']:.5f} (bound {r['bound_ms']:.5f}, {r['bound_by']}: "
+                f"{100 * r['bound_ms'] / r['ms']:.1f} % of it; first design "
+                f"{earlier}), library {r['library_ms']:.5f}; hot (one head): "
+                f"kernels {r['hot_ms']:.5f}, library "
+                f"{r['library_hot_ms']:.5f}; plain {r['plain_ms']:.5f}")
+            check(r["ms"] <= r["library_ms"], f"{name} takes {r['ms']:.5f} "
+                  f"ms at {r['shape']} cold, more than the library's "
+                  f"{r['library_ms']:.5f}")
+            check(r["ms"] < earlier, f"{name} takes {r['ms']:.5f} ms at "
+                  f"{r['shape']} cold, no less than its first design's "
+                  f"{earlier}")
             torch.cuda.empty_cache()
     return res
 
@@ -3354,6 +3390,24 @@ def main():
                          kernel_bound_ms=own["kernel_bound_ms"],
                          also_replaces="pasero_tpu/ops/flash_attention.py:1086")
         kernels.append(entry)
+    # the kernel bodies each wrapper launches: the decode mainloop at up to
+    # 80 rows, the prompt's above, each with its epilogue; then the heads'
+    # merge
+    bodies = {
+        "int8_matmul": [
+            "weight_gemm.cuh decode_kernel<NT, Int8Weight, StoreDecode<OutT>>",
+            "weight_gemm.cuh prompt_kernel<BX, StorePrompt<OutT>>"],
+        "fused_head_argmax": [
+            "weight_gemm.cuh decode_kernel<1, Bf16Weight, DecodePartials> "
+            "(N <= 8)",
+            "wgmma_gemm.cuh gemm_kernel<false, false, TilePartials, true> "
+            "(N > 8)",
+            "fused_head.cu combine_kernel"],
+        "fused_head_argmax_q8": [
+            "weight_gemm.cuh decode_kernel<NT, Int8Weight, DecodePartials> "
+            "(N <= 16)",
+            "weight_gemm.cuh prompt_kernel<BX, PromptPartials> (N > 16)",
+            "fused_head.cu combine_kernel"]}
     # the main path's counts: phase 11's llama_1b run of the mode that
     # launches each kernel; each kernel's numbers at llama_1b's decode shape
     for name, line, mode, timed in (
@@ -3371,6 +3425,7 @@ def main():
                        if name == "int8_matmul"
                        else "pasero_torch/csrc/fused_head.cu"),
             "replaces": f"pasero_tpu/ops/{line}",
+            "bodies": bodies[name],
             "launches": lm_decode[mode][name],
             "max_abs_err": own["max_abs_err"],
             "ms": at["ms"],

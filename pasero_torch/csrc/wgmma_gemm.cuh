@@ -2,12 +2,14 @@
 // A (M x K) . B (N x K)^T over K, with TMA copies into a ring of shared-memory
 // stages and wgmma products, for a caller's epilogue to consume. Used by
 // fused_ce.cu: its forward is one epilogue of it (the logsumexp partials of
-// each 128 x 256 logits tile), its three backward products three others.
-// Its PTX wrappers serve the other wgmma kernels too: the mbarriers, TMA,
-// descriptors, and wgmma_rs (A from registers, m64 x n 64-256), which
-// int8_matmul.cu's prompt kernel and flash_bwd.cu's P.V, dS.K and dS^T.Q
-// products issue; split_tf32 and wgmma_tf32_rs (TF32 A from registers, m64
-// x n 32-128), the split-TF32 products of flash_f32.cu and fused_ce.cu.
+// each 128 x 256 logits tile), its three backward products three others; and
+// by fused_head.cu, whose bfloat16 head at prompt rows is another (the argmax
+// partials of each tile). Its PTX wrappers serve the other wgmma kernels too:
+// the mbarriers, TMA, descriptors, and wgmma_rs (A from registers, m64 x n
+// 64-256), which weight_gemm.cuh's int8 prompt kernel and flash_bwd.cu's
+// P.V, dS.K and dS^T.Q products issue; split_tf32 and wgmma_tf32_rs (TF32 A
+// from registers, m64 x n 32-128), the split-TF32 products of flash_f32.cu
+// and fused_ce.cu.
 //
 // Shape: a persistent grid of at most one block per SM, each block of 384
 // threads walking 128 x 256 output tiles. Warpgroup 0 is the producer: one

@@ -399,7 +399,7 @@ def _head_library():
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [ptr] * 3 + [i32] + [ptr] * 5 + [i32] * 3 + [ptr]
         fn.restype = i32
-        lib.fused_head_blocks.argtypes = [i32, i32]
+        lib.fused_head_blocks.argtypes = [i32] * 4
         lib.fused_head_blocks.restype = i32
         lib.fused_head_error_string.argtypes = [i32]
         lib.fused_head_error_string.restype = ctypes.c_char_p
@@ -416,7 +416,12 @@ def _check_head(x, weight) -> None:
 
 def _head_cuda(x, w, scale):
     """One launch each of the partials and the combine kernel; w is a
-    bfloat16 (V, E) head, or int8 with its float32 scale."""
+    bfloat16 (V, E) head, or int8 with its float32 scale. The partials
+    kernel is the decode stream at up to 8 rows of a bfloat16 head or 16
+    of an int8 one (the head as the m side of mma.sync, read once by TMA
+    with the L2 evict-first hint), above them a wgmma product: the int8
+    prompt kernel or, for a bfloat16 head, the fused CE forward's
+    mainloop."""
     if x.dtype != torch.bfloat16:
         raise TypeError(f"the fused-head kernels take bfloat16 x, got {x.dtype}")
     N, E = x.shape
@@ -431,10 +436,11 @@ def _head_cuda(x, w, scale):
     if N == 0:
         return tokens, logprobs
     lib = _head_library()
-    nvb = lib.fused_head_blocks(N, V)
-    part_m = torch.empty((N, nvb), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        parts = lib.fused_head_blocks(N, V, E, int(scale is not None))
+    part_m = torch.empty((parts, N), dtype=torch.float32, device=x.device)
     part_l = torch.empty_like(part_m)
-    part_i = torch.empty((N, nvb), dtype=torch.int32, device=x.device)
+    part_i = torch.empty((parts, N), dtype=torch.int32, device=x.device)
     x, w = cuda_build.aligned(x), cuda_build.aligned(w)
     scale = cuda_build.aligned(scale) if scale is not None else None
     with torch.cuda.device(x.device):

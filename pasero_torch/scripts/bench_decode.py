@@ -529,12 +529,15 @@ KERNELS = {"slot_write": "slot_write_kernel",
            # float32 ones
            "flash_fwd": "::fwd_kernel",
            # the decode kernel (M <= 80) and the prompt's, together and
-           # apart
+           # apart (weight_gemm.cuh's mainloops with int8_matmul.cu's
+           # epilogues)
            "int8_matmul": "int8mm::",
-           "int8_decode": "int8mm::decode_kernel",
-           "int8_prompt": "int8mm::prompt_kernel",
-           "fused_head_partials": "partials_kernel",
-           "fused_head_combine": "combine_kernel",
+           "int8_decode": "int8mm::StoreDecode",
+           "int8_prompt": "int8mm::StorePrompt",
+           # the fused head's partials (its decode kernel's, int8 prompt
+           # kernel's or bf16 gemm_kernel's epilogue) and their merge
+           "fused_head_partials": "Partials",
+           "fused_head_combine": "fused_head::combine_kernel",
            "power_mel": "power_mel_kernel"}
 
 

@@ -1479,7 +1479,26 @@ INT8_DECODE = [(M, 2048, 2048) for M in (1, 16)] + \
 INT8_PROMPT = [(81, 2048, 2048), (130, 2048, 5632), (256, 2048, 2048),
                (1000, 2320, 515), (1000, 2320, 2048), (1000, 1040, 5632),
                (2000, 1040, 30000), (2048, 1040, 300)]
-HEAD_SHAPES = [(N, 2048, 32000) for N in (8, 72, 1024)] + [(8, 256, 2192)]
+# the fused heads (N, E, V): llama_1b's decode, speculative and prompt rows;
+# the switch from the decode kernel to the wgmma kernels (after 8 rows of a
+# bf16 head, 16 of an int8 one) and the decode kernel's own limit (80); a
+# vocabulary ragged against every tile (64 and 128 rows, 256 columns) and
+# one below a single tile; t5_base's head
+HEAD_SHAPES = [(N, 2048, 32000) for N in (8, 72, 1024)] + [(8, 256, 2192)] + \
+    [(N, 2048, 32000) for N in (1, 9, 16, 17, 80, 81)] + \
+    [(N, 2048, 32000 + 37) for N in (8, 72, 1024)] + \
+    [(N, 256, 40) for N in (8, 200)] + \
+    [(N, 768, 32128) for N in (8, 1024)]
+# Planted equal maxima: x row TIE_ROWS[N][j] has its head rows a and b of
+# TIE_PAIRS[j] equal (and far above the rest), on both sides of a decode
+# tile (64 rows), an int8 prompt tile (128) and its halves, a bf16 prompt
+# tile (256 columns), the merge's 32-way interleave of partials (2048), within
+# a tile, and at both ends of the vocabulary; TIE_ROWS spread over the x
+# tiles of each N
+TIE_PAIRS = [(63, 64), (127, 128), (255, 256), (2047, 2048), (4095, 4096),
+             (300, 301), (10, 31990), (16383, 16384)]
+TIE_ROWS = {8: list(range(8)), 72: [0, 9, 17, 33, 40, 55, 64, 71],
+            1024: [0, 127, 128, 255, 256, 511, 900, 1023]}
 
 
 def int8_limits(x, w, want, bf16_out: bool):
@@ -1550,6 +1569,42 @@ def head_compare(N, E, V, q8: bool) -> dict:
             "max_abs_err": (lp - want_lp).abs().max().item()}
 
 
+def head_tie_compare(N, q8: bool, E: int = 2048, V: int = 32000) -> dict:
+    """The fused head (bf16 or int8) on a head with TIE_PAIRS planted for
+    TIE_ROWS[N]: the tokens of those rows (the lower index of each pair
+    wins), whether float64 logits of the same operands do tie there above
+    every other row, two calls' bits, and the log-probabilities against the
+    plain version's in head_compare's limits."""
+    from pasero_torch.ops.fused_ce import (fused_head_argmax,
+                                           fused_head_argmax_plain)
+    from pasero_torch.ops.quantize import dequantize, quantize
+    x, t = int8_inputs(N, E, V, seed=2)
+    w = dequantize(t)
+    rows = TIE_ROWS[N]
+    for n, (a, b) in zip(rows, TIE_PAIRS):
+        w[a] = w[b] = x[n].float() * (4 / math.sqrt(E))
+    t = quantize(w)
+    head = t if q8 else dequantize(t, torch.bfloat16)
+    wf = dequantize(t) if q8 else head.float()
+    lows = [a for a, _ in TIE_PAIRS]
+    exact = (x[rows].double() @ wf.double().t()).cpu()
+    top2 = exact.topk(2, dim=1)
+    planted = all(sorted(top2.indices[j].tolist()) == list(pair)
+                  and top2.values[j, 0] == top2.values[j, 1]
+                  for j, pair in enumerate(TIE_PAIRS))
+    logits = torch.matmul(x.float(), wf.t())
+    row_limit = int8_limits(x, wf, logits, False).amax(dim=1)
+    del logits
+    _, want_lp = fused_head_argmax_plain(x, head)
+    tok, lp = fused_head_argmax(x, head)
+    tok2, lp2 = fused_head_argmax(x, head)
+    torch.cuda.synchronize()
+    return {"planted": planted, "tokens": tok[rows].tolist(), "lows": lows,
+            "same_bits": torch.equal(tok, tok2) and torch.equal(lp, lp2),
+            "lp_excess": ((lp - want_lp).abs()
+                          / (2 * row_limit + 1e-5)).max().item()}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", INT8_SHAPES + INT8_RAGGED + INT8_DECODE
                          + INT8_PROMPT)
@@ -1579,6 +1634,23 @@ def test_fused_head_matches_plain(shape, q8):
     assert r["decided"] >= shape[0] // 2, r
     assert r["excess"] <= 1.0, r
     assert r["bad_excess"] > 1.0, r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", sorted(TIE_ROWS))
+@pytest.mark.parametrize("q8", [False, True], ids=["bf16", "int8"])
+def test_fused_head_ties_go_to_the_lowest_index(N, q8):
+    from pasero_torch.ops.fused_ce import (fused_head_argmax,
+                                           fused_head_argmax_q8)
+    _need_card()
+    counter = fused_head_argmax_q8 if q8 else fused_head_argmax
+    before = counter.launches
+    r = head_tie_compare(N, q8)
+    assert counter.launches == before + 2
+    assert r["planted"], r
+    assert r["tokens"] == r["lows"], r
+    assert r["same_bits"], r
+    assert r["lp_excess"] <= 1.0, r
 
 
 @pytest.mark.cuda
