@@ -8,11 +8,14 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 0. the card (nvidia-smi name and power limit), torch/CUDA versions, and the
    nvcc build of every kernel source in pasero_torch/csrc, all started
    together;
-1. each kernel against its plain PyTorch version on the card, bitwise, at
-   the full-width decode shape and an odd shape, and its time beside the
-   plain version's, one PyTorch library call's and the memory bound: device
-   time per call from a CUDA graph of many calls ("ms"), and time per call
-   with eager launches ("host_ms");
+1. the slot-write kernel against its plain PyTorch version on the card,
+   bitwise, at transformer-base's beam-5 decode shape, llama_1b's and odd
+   shapes, and at the first two its time beside the launch floor (an empty
+   kernel of the same launch), the plain version's, one PyTorch library
+   call's and the memory bound: device time per call from CUDA graphs of
+   many calls read in turn ("ms", pasero_torch/scripts/bench_cache_update.py),
+   and time per call with eager launches ("host_ms"); at transformer-base's
+   shape at most CACHE_EARLIER_MS, its first design's time (a gate only);
 2. the main path through the entry point a user calls:
    TextGenerator.build("models/deen-mini2").decode(test.de) with beam 5 on
    the card, held against the JAX package's committed output
@@ -224,17 +227,21 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    tests/test_torch_cuda.py (``flash_f32_compare``) at every
    FLASH_F32_CASES case (GQA at 2048 keys, a ragged window at head dim 128,
    Sk % 4 != 0, each bias kind at head dims 32, 64 and 128, T5 at
-   t5_base's width) and at F32_TIMED's shapes, with a TF32 product,
-   another row's lse, a transposed bias, another head's bias or column,
-   shifted distances and dS rounded to bf16 rejected at 2.8 times their
-   limits or more, the same bits from two forward and backward calls (out
-   and demb too), and a learned bias launching the float32 dbias kernel
-   once; then their device time per call (CUDA graph; the least and
+   t5_base's width, (B, 1), (1, 1) and shared biases for dbias, one shared
+   over four batches, one at full width) and at F32_TIMED's shapes, with a
+   TF32 product, another row's lse, a transposed bias, another head's bias
+   or column, shifted distances, dS rounded to bf16 and dbias without
+   delta, given another row's lse or on TF32-rounded operands rejected at
+   2.8 times their limits or more, the same bits from two forward and
+   backward calls (out, demb and dbias too), and a learned bias launching
+   the float32 dbias kernel once; then their device time per call (CUDA graph; the least and
    greatest replay beside the mean) at F32_TIMED's shapes beside the plain
    version's, the bound (float32-accurate operations at the lesser time of
    67 TFLOP/s on the CUDA cores and of split TF32 on the tensor cores, 495 /
    3 TFLOP/s, both printed; or bytes) and float32 SDPA, and what demb adds
-   to the T5 dq kernel.
+   to the T5 dq kernel; dbias also with a learned (1, H) bias shared over
+   the batch, both dbias cases at most DBIAS_F32_EARLIER_MS (the first
+   design's time, a gate only) and their library call.
 
 The second-to-last line is one JSON object {"kernels": [...]}; the last line
 is {"ok": true, "device": {...}}. Without CUDA the script exits 1 and
@@ -372,19 +379,26 @@ def phase0():
 
 # -- phase 1 -------------------------------------------------------------------
 
+# the slot write's device ms per call of its first design at the decode
+# shapes (PERF.md, "NVIDIA H100 80GB HBM3, 700.00 W"): a gate, not a reading
+# of this run
+CACHE_EARLIER_MS = {(320, 8, 72, 64): 0.001749}
+
+
 def phase1() -> dict:
     """cache_slot_write_ against its plain version; returns its timings at
-    the full-width decode shape."""
+    the decode shapes of scripts/bench_cache_update.py (transformer-base's
+    beam-5 decode, llama_1b's), each beside the launch floor (an empty
+    kernel of the same launch) and the first design's time."""
     import torch
     from pasero_torch.ops.cache_update import (cache_slot_write_,
                                                cache_slot_write_plain)
+    from pasero_torch.scripts.bench_cache_update import SHAPES, write_timing
     gen = torch.Generator(device="cuda").manual_seed(0)
-    result = None
-    # the full-width decode shape (B*K, H, P+new, D) takes the 16-byte path;
-    # rows of 72 bytes (D*itemsize not a multiple of 16) take the scalar ones
-    shapes = [((320, 8, 72, 64), torch.bfloat16),
-              ((3, 4, 17, 18), torch.float32),
-              ((3, 4, 17, 36), torch.bfloat16)]
+    # the decode shapes (B*K, H, P+new, D) take the 16-byte path; rows of 72
+    # bytes (D*itemsize not a multiple of 16) take the scalar ones
+    shapes = [(shape, torch.bfloat16) for shape in SHAPES.values()] + [
+        ((3, 4, 17, 18), torch.float32), ((3, 4, 17, 36), torch.bfloat16)]
     max_err = 0.0
     for shape, dtype in shapes:
         R, H, L, D = shape
@@ -408,32 +422,23 @@ def phase1() -> dict:
                           (v1.float() - v2.float()).abs().max().item())
         log(f"phase 1: cache_slot_write_ == plain bitwise at {shape} {dtype}, "
             f"indices 0, {L // 2}, {L - 1}")
-
-        if result is None:   # time at the full-width decode shape
-            k_new = k_new.to(dtype).contiguous()
-            v_new = v_new.to(dtype).contiguous()
-            i = L // 2
-            fns = {
-                "": lambda: cache_slot_write_(base_k, base_v, k_new, v_new, i),
-                "plain_": lambda: cache_slot_write_plain(base_k, base_v,
-                                                         k_new, v_new, i),
-                # one PyTorch call per cache; the port never calls it
-                "library_": lambda: (base_k[:, :, i].copy_(k_new[:, :, 0]),
-                                     base_v[:, :, i].copy_(v_new[:, :, 0])),
-            }
-            nbytes = 4 * R * H * D * base_k.element_size()
-            result = {"bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-                      "bytes": nbytes}
-            for prefix, fn in fns.items():
-                result[f"{prefix}ms"] = device_ms(fn)
-                result[f"{prefix}host_ms"] = time_ms(fn, 2000)
-            log(f"phase 1: at {shape} {dtype}, device ms per call (CUDA "
-                f"graph): kernel {result['ms']:.6f} plain "
-                f"{result['plain_ms']:.6f} library {result['library_ms']:.6f}"
-                f" bound {result['bound_ms']:.6f} ({nbytes} B); with eager "
-                f"launches: kernel {result['host_ms']:.6f} plain "
-                f"{result['plain_host_ms']:.6f} library "
-                f"{result['library_host_ms']:.6f}")
+        del base_k, base_v
+    result = {}
+    for name, shape in SHAPES.items():
+        r = result[name] = write_timing(shape)
+        log(f"phase 1: at {shape} bfloat16 ({name}), device ms per call "
+            f"(CUDA graphs read in turn, medians): kernel {r['ms']:.6f}, "
+            f"floor {r['floor_ms']:.6f} (an empty kernel of the same launch), "
+            f"plain {r['plain_ms']:.6f}, library {r['library_ms']:.6f}, bound "
+            f"{r['bound_ms']:.6f} ({r['bytes']} B); with eager launches: "
+            f"kernel {r['host_ms']:.6f} plain {r['plain_host_ms']:.6f} "
+            f"library {r['library_host_ms']:.6f}")
+        earlier = CACHE_EARLIER_MS.get(shape)
+        if earlier is not None:
+            check(r["ms"] <= earlier, f"cache_slot_write_ at {shape} takes "
+                  f"{r['ms']:.6f} ms, more than its first design's {earlier}")
+            log(f"phase 1: at {shape} the kernel {r['ms']:.6f} ms against "
+                f"its first design's {earlier} (PERF.md)")
     result["max_abs_err"] = max_err
     return result
 
@@ -3004,8 +3009,11 @@ def f32_timing(kind, cuda_tests) -> dict:
                                            / HBM_BYTES_PER_S) * 1e3)
     elif kind is not None:
         grad = "dbias"
+        # the bias read over the visible pairs, dbias written whole (zeros
+        # above the diagonal too), in the bias's own shape
+        dbias_bytes = 4.0 * dense.shape[0] * dense.shape[1] * S * S
         res[grad] = bound(2, 2 * q_bytes + 2 * kv_bytes + 2 * row_bytes
-                          + 2 * bias_bytes)
+                          + bias_bytes + dbias_bytes)
         kernels[grad] = lambda: flash_bwd_dbias(q, k, v, mask, bias, do, lse,
                                                 delta, *args)
     for key, fn in kernels.items():
@@ -3068,6 +3076,72 @@ def f32_timing(kind, cuda_tests) -> dict:
             + (f"; the dq without demb {r['dq_ms']:.4f} read in turn, so "
                f"demb adds {r['adds_ms']:.4f}, bound {r['adds_bound_ms']:.4f}"
                if key == "demb" else ""))
+    return res
+
+
+# device ms per call of the float32 dbias kernel's first design (CUDA-core
+# FMAs) at F32_TIMED["alibi"]'s shape with its per-sample bias (PERF.md,
+# "NVIDIA H100 80GB HBM3, 700.00 W"): a gate, not a reading of this run
+DBIAS_F32_EARLIER_MS = 0.8678
+
+
+def f32_shared_dbias_timing(cuda_tests) -> dict:
+    """The float32 dbias kernel at F32_TIMED["alibi"]'s shape with a learned
+    (1, H) bias, shared over the batch (summed inside the kernel): device
+    ms per call (CUDA graph; least and greatest replay beside), the bound
+    (the two split-TF32 products; q, k, v, dO, lse and delta, the bias read
+    over the visible pairs once and dbias written whole once), the plain
+    version's ms and the library yardstick (float32 SDPA with the bias as
+    an attn_mask, its backward with the mask's gradient summed over the
+    batch)."""
+    import torch
+    import torch.nn.functional as F
+    from pasero_torch.ops.flash_attention import (flash_bwd_dbias,
+                                                  flash_bwd_dq,
+                                                  flash_dbias_plain,
+                                                  flash_fwd, visible)
+    (B, H, Hkv, S, D), causal = F32_TIMED["alibi"]
+    q, k, v, do, mask = cuda_tests.flash_inputs(B, H, Hkv, S, D, False,
+                                                dtype=torch.float32)
+    bias = cuda_tests.flash_bias("learned_1xH", B, H, S, mask)
+    args = (D ** -0.5, causal, None)
+    out, lse = flash_fwd(q, k, v, mask, *args, bias)
+    _, delta = flash_bwd_dq(q, k, v, mask, out, lse, do, *args, bias)
+    pairs = float(visible(mask, S, causal, None).expand(B, 1, S, S).sum()) * H
+    ops = 2 * 2.0 * pairs * D / FP32_TC_FLOPS
+    nbytes = 4.0 * ((2 * H + 2 * Hkv) * B * S * D + 2 * B * H * S
+                    + pairs / B + H * S * S)
+    mem = nbytes / HBM_BYTES_PER_S
+    res = {"shape": [B, H, Hkv, S, D], "causal": causal, "bias": [1, H],
+           "bound_ms": max(ops, mem) * 1e3, "ops_bound_ms": ops * 1e3,
+           "bytes_bound_ms": mem * 1e3,
+           "bound_by": "operations" if ops >= mem else "bytes"}
+    res["ms"] = device_ms(lambda: flash_bwd_dbias(q, k, v, mask, bias, do,
+                                                  lse, delta, *args),
+                          5, 5, spread=res)
+    res["plain_ms"] = time_ms(lambda: flash_dbias_plain(
+        q, k, v, mask, out, lse, do, *args, bias), 3, 1)
+    # the mask expanded over the batch, as phase 20's per-sample yardstick
+    # takes it, its gradient summed over the batch after
+    lib_mask = bias.masked_fill(torch.ones(S, S, dtype=torch.bool,
+                                           device=q.device).triu(1),
+                                float("-inf")).expand(B, H, S, S).contiguous()
+
+    def sdpa(q, k, v, m):
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=m,
+                                              scale=args[0])
+    lib = library_times(sdpa, (q, k, v, lib_mask), do, 3, 3,
+                        grad_of=lambda grads: grads[-1].sum(0))
+    res["library_ms"] = lib["bwd"]
+    del q, k, v, do, out, lse, delta, bias, lib_mask
+    torch.cuda.empty_cache()
+    log(f"phase 20: float32 dbias with a shared (1, {H}) bias at "
+        f"{(B, H, Hkv, S, D)} causal {causal}: device ms per call (CUDA "
+        f"graph) {res['ms']:.4f} (replays {res['min_ms']:.4f}-"
+        f"{res['max_ms']:.4f}), bound {res['bound_ms']:.4f} "
+        f"({res['bound_by']}: split TF32 {res['ops_bound_ms']:.4f}, bytes "
+        f"{res['bytes_bound_ms']:.4f}), plain {res['plain_ms']:.4f}, library "
+        f"{res['library_ms']:.4f}")
     return res
 
 
@@ -3215,6 +3289,16 @@ def phase20() -> dict:
     # timed once the CLIs have ended, alone on the card
     for kind in F32_TIMED:
         res["timing"][kind] = f32_timing(kind, cuda_tests)
+    res["dbias_shared"] = f32_shared_dbias_timing(cuda_tests)
+    for name, r in (("a per-sample", res["timing"]["alibi"]["dbias"]),
+                    ("a shared (1, H)", res["dbias_shared"])):
+        check(r["ms"] <= DBIAS_F32_EARLIER_MS and r["ms"] <= r["library_ms"],
+              f"the float32 dbias with {name} bias takes {r['ms']:.4f} ms, "
+              f"more than its first design's {DBIAS_F32_EARLIER_MS} or its "
+              f"library call's {r['library_ms']:.4f}")
+        log(f"phase 20: the float32 dbias with {name} bias {r['ms']:.4f} ms "
+            f"against its first design's {DBIAS_F32_EARLIER_MS} (PERF.md) "
+            f"and its library call's {r['library_ms']:.4f}")
     log(f"phase 20: done in {time.perf_counter() - t0:.1f} s")
     return res
 
@@ -3263,24 +3347,37 @@ def main():
     t5 = phase18()
     t5_paths = phase19()
     f32 = phase20()
+    # the slot write: numbers at transformer-base's beam-5 decode shape,
+    # llama_1b's beside; launches of phase 2's deen-mini2 decode, phase 3's
+    # full-width one and phase 11's llama_1b bf16 greedy decode
+    at = timing["transformer_base"]
     kernels = [{
         "name": "cache_slot_write",
         "route": "cuda",
         "source": "pasero_torch/csrc/cache_update.cu",
         "replaces": "pasero_tpu/ops/cache_update.py:43",
+        "bodies": ["cache_update.cu slot_write_kernel<int4, false, false> "
+                   "(16-byte rows; uint16_t / uint32_t elements otherwise), "
+                   "a programmatic dependent launch"],
         "launches": launches,
         "full_width_launches": full_width_launches,
+        "llama_1b_launches": lm_decode["bf16 greedy"]["cache_slot_write"],
         "speech_launches": speech["cache_slot_write"],
         "whisper_launches": whisper["decode"]["cache_slot_write"],
         "max_abs_err": timing["max_abs_err"],
-        "ms": timing["ms"],
-        "plain_ms": timing["plain_ms"],
-        "bound_ms": timing["bound_ms"],
+        "ms": at["ms"],
+        "floor_ms": at["floor_ms"],
+        "plain_ms": at["plain_ms"],
+        "bound_ms": at["bound_ms"],
         "bound_by": "bytes",
-        "library_ms": timing["library_ms"],
-        "host_ms": timing["host_ms"],
-        "plain_host_ms": timing["plain_host_ms"],
-        "library_host_ms": timing["library_host_ms"],
+        "library_ms": at["library_ms"],
+        "host_ms": at["host_ms"],
+        "plain_host_ms": at["plain_host_ms"],
+        "library_host_ms": at["library_host_ms"],
+        "shape": at["shape"],
+        "llama_1b": {k: timing["llama_1b"][k] for k in (
+            "shape", "ms", "floor_ms", "plain_ms", "bound_ms",
+            "library_ms", "host_ms")},
     }]
     for key, line in (("fwd", 199), ("bwd", 234)):
         entry = {
@@ -3624,6 +3721,13 @@ def main():
         if cli is None:   # no main path launches it: a learned bias does
             entry["learned_bias_launches"] = entry["launches"]
             entry["launches"] = f32["cli"]["alibi"]["launches"][name]
+            entry["bodies"] = [
+                "flash_f32.cu dbias_kernel<D, false> (per-sample bias)",
+                "flash_f32.cu dbias_kernel<D, true> (a bias shared over the "
+                "batch, summed in registers)"]
+            entry["shared_1xH"] = {k: f32["dbias_shared"][k] for k in (
+                "ms", "min_ms", "max_ms", "plain_ms", "bound_ms", "bound_by",
+                "ops_bound_ms", "bytes_bound_ms", "library_ms", "bias")}
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

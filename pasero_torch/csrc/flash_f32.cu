@@ -19,11 +19,10 @@
 // computes with float32 operands: there p.astype(v.dtype) (:228, :309, :534),
 // pc = p.astype(do.dtype) and ds.astype(q.dtype) (:723-728, :944-949) and
 // ds.astype(k.dtype) (:899, :998) change nothing. The products keep
-// float32's accuracy: the forward, dq and dk/dv take the tensor cores in
-// split TF32 (below), never a single TF32 product (which keeps about three
-// decimal digits); dbias takes float32 FMAs on the CUDA cores. The max and
-// lse are kept in natural units for every bias kind, as the biased kernels
-// keep them (the encoder ALiBi's -1e9 survives).
+// float32's accuracy: every kernel takes the tensor cores in split TF32
+// (below), never a single TF32 product (which keeps about three decimal
+// digits). The max and lse are kept in natural units for every bias kind,
+// as the biased kernels keep them (the encoder ALiBi's -1e9 survives).
 //
 // Kernels, instanced by bias kind (KIND: NO_BIAS, DENSE_BIAS, T5_BIAS, as in
 // flash_attention.cu and flash_bwd.cu) and head dim D (32, 64, 128; the
@@ -37,26 +36,24 @@
 //                also _demb_kernel (:1255, through _compute_demb, :1318);
 //   dkv_kernel   _bwd_dkv_packed_kernel (:1018), _bwd_dkv_kernel (:911),
 //                _bwd_dkv_stream_kernel (:676);
-//   dbias_kernel _dbias_kernel (:1160, through _compute_dbias, :1213).
+//   dbias_kernel _dbias_kernel (:1160, through _compute_dbias, :1213); where
+//                the TPU kernel keeps its output block resident across the
+//                batch axis (:1160-1210), a shared bias's batch sum stays in
+//                a consumer's registers.
 //
-// What bounds them: operations. One causal product at (2, 8, 2048, 64) is 2
-// B H S^2 D / 2 = 4.3 GFLOP: 0.064 ms at the card's float32 rate outside the
-// tensor cores (67 TFLOP/s), 0.026 ms as split TF32 (three products at 495
-// TFLOP/s); the forward does two, dq three, dk/dv four.
+// What bounds them: operations, but dbias. One causal product at (2, 8,
+// 2048, 64) is 2 B H S^2 D / 2 = 4.3 GFLOP: 0.064 ms at the card's float32
+// rate outside the tensor cores (67 TFLOP/s), 0.026 ms as split TF32 (three
+// products at 495 TFLOP/s); the forward does two, dq three, dk/dv four.
+// dbias does two, and writes its (Sq, Sk) planes whole: at that shape with
+// a per-sample bias 0.13 ms of bytes against 0.052 of products.
 //
-// The forward, dq and dk/dv: see "the tensor-core kernels" below. dbias,
-// simple and right first: 256 threads (a 16 x 16 grid) per block, one block
-// per 64-row query tile. The block's own rows stay in shared memory; the
-// streamed K and V tiles are staged by 16-byte cp.async, double-buffered,
-// the next tile's copies in flight while this one is used; rows are padded
-// by 16 bytes, so a warp's float4 reads down the rows are free of bank
-// conflicts. Thread (ty, tx) holds the scores of rows ty + 16 i and columns
-// tx + 16 j (i, j < 4) in registers, each a float32 FMA chain over d in
-// order; the dense bias is read straight from device memory, a row's keys by
-// neighbouring lanes. No atomics: dbias sums a bias shared over the batch
-// inside the block, batch by batch, dq's demb writes a row of partial sums
-// per (batch, head, query tile) for the wrapper to sum, and dk/dv sums a
-// cluster's partials in rank order, so the same inputs give the same bits.
+// All four: see "the tensor-core kernels" below; dbias runs on dq's ring
+// (see "dbias"). No atomics: dbias sums a bias shared over the batch in a
+// consumer's registers, batch by batch, dq's demb writes a row of partial
+// sums per (batch, head, query tile) for the wrapper to sum, and dk/dv sums
+// a cluster's partials in rank order, so the same inputs give the same
+// bits.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -80,17 +77,11 @@ using wgmma_gemm::wgmma_fence;
 using wgmma_gemm::wgmma_tf32_rs;
 using wgmma_gemm::wgmma_wait;
 
-constexpr int THREADS = 256;    // a 16 x 16 grid of threads
-constexpr int TILE = 64;        // rows and columns of a score tile
 constexpr int MAX_BUCKETS = 128;
 constexpr size_t MAX_SMEM = 232448;   // shared memory a block can have
 constexpr float NEG_INF = -1e30f;   // the lse of a row that sees no key
 
 enum BiasKind : int { NO_BIAS = 0, DENSE_BIAS = 1, T5_BIAS = 2 };
-
-// Floats of a 64-row operand tile in shared memory: rows of D + 4.
-template <int D>
-__host__ __device__ constexpr int tile_floats() { return TILE * (D + 4); }
 
 // A dense float32 bias of (b0 h0, Sq, Sk) rows ld floats apart, the rows of
 // (b, h) from plane b bs + h hs;
@@ -118,65 +109,6 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Rows [r0, r0 + 64) of a row-major (nrows, D) float32 matrix into shared
-// memory with rows of D + 4, zeros past nrows. Issues cp.async copies only;
-// the caller commits and waits.
-template <int D>
-__device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ src, int r0,
-                                          int nrows) {
-  constexpr int CH = D / 4;
-  for (int i = threadIdx.x; i < TILE * CH; i += THREADS) {
-    const int r = i / CH, c = (i % CH) * 4;
-    const bool ok = r0 + r < nrows;
-    cp_async16(dst + r * (D + 4) + c, ok ? src + (int64_t)(r0 + r) * D + c : src, ok);
-  }
-}
-
-// Is key `col` visible from query row `row`?
-__device__ __forceinline__ bool visible(int row, int col, int Sq, int Sk,
-                                        const uint8_t* __restrict__ mask, int causal,
-                                        int window) {
-  bool ok = row < Sq && col < Sk && mask[col];
-  if (causal) ok = ok && col <= row;
-  if (window > 0) ok = ok && row - col < window;
-  return ok;
-}
-
-// s[i][j] = A[ty + 16 i] . B[tx + 16 j] over D (two 64-row tiles in shared
-// memory, rows of D + 4): one FMA chain per score, d in order.
-template <int D>
-__device__ __forceinline__ void tile_dot(float (&s)[4][4], const float* A, const float* B, int ty,
-                                         int tx) {
-  constexpr int LD = D + 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 2
-  for (int d = 0; d < D; d += 4) {
-    float4 a[4], b[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = *reinterpret_cast<const float4*>(A + (ty + 16 * i) * LD + d);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = *reinterpret_cast<const float4*>(B + (tx + 16 * j) * LD + d);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = fmaf(a[i].x, b[j].x, s[i][j]);
-        s[i][j] = fmaf(a[i].y, b[j].y, s[i][j]);
-        s[i][j] = fmaf(a[i].z, b[j].z, s[i][j]);
-        s[i][j] = fmaf(a[i].w, b[j].w, s[i][j]);
-      }
-  }
-}
-
-// The dense bias of the visible score (row, col) from the head's rows
-// `rows`, ld floats apart.
-__device__ __forceinline__ float bias_at(const float* __restrict__ rows, int row, int col, int ld) {
-  return __ldg(rows + (int64_t)row * ld + col);
-}
-
 // The bias rows of (batch b, query head h) of a dense bias.
 __device__ __forceinline__ const float* bias_rows(const Bias& bias, int b, int h, int Sq) {
   return bias.rows + ((int64_t)b * bias.bs + (int64_t)h * bias.hs) * Sq * bias.ld;
@@ -192,15 +124,15 @@ __device__ __forceinline__ void key_tiles(int q0, int rows, int tn, int Sk, int 
   if (window > 0) kt0 = max(0, (q0 - window + 1) / tn);
 }
 
-// -- the tensor-core kernels: the forward, dq (and delta, demb), dk, dv ----------
+// -- the tensor-core kernels: the forward, dq (and delta, demb), dk, dv, dbias ---
 
-// Every product of fwd_kernel, dq_kernel and dkv_kernel is split-TF32: x =
-// hi + lo with hi = cvt.rna.tf32(x) and lo = cvt.rna.tf32(x - hi), and a . b
-// = hi_a hi_b + hi_a lo_b + lo_a hi_b, each TF32 product exact in the
-// float32 sums. x - hi is exact, and lo keeps 11 of its bits, so hi + lo is
-// within 2^-22 |x|; the dropped lo_a lo_b is below 2^-22 |a b|. A term's
-// error is then a few u = 2^-24 of it, as a float32 FMA chain's is, where
-// one TF32 product keeps 2^-11.
+// Every product of fwd_kernel, dq_kernel, dkv_kernel and dbias_kernel is
+// split-TF32: x = hi + lo with hi = cvt.rna.tf32(x) and lo = cvt.rna.tf32(x -
+// hi), and a . b = hi_a hi_b + hi_a lo_b + lo_a hi_b, each TF32 product
+// exact in the float32 sums. x - hi is exact, and lo keeps 11 of its bits,
+// so hi + lo is within 2^-22 |x|; the dropped lo_a lo_b is below 2^-22
+// |a b|. A term's error is then a few u = 2^-24 of it, as a float32 FMA
+// chain's is, where one TF32 product keeps 2^-11.
 //
 // A block holds NC 64-row tiles resident, one per consumer warpgroup (the
 // forward: query rows with their Q; dq: with their Q and dO; dk/dv: keys with
@@ -996,6 +928,104 @@ __device__ __forceinline__ void demb_row(const float (&far_sum)[2], const float*
   }
 }
 
+// dq's and dbias's producer warpgroup: key tiles kt0 .. kt1 - 1 of TN keys
+// (keys k, values v, key flags mg of one batch and K/V head) from ring
+// position i on, each into stage i % STAGES once the consumers have freed
+// it: K's and V's hi and lo planes, the tile's dense bias (query rows q0 ..,
+// R of them, from the head's rows bg; 16-byte loads where `vec`) or T5
+// diagonals, and its key flags, published on the stage's full barrier.
+// Returns the ring position after the last tile.
+template <class C, int KIND, int D, bool DEMB>
+__device__ __forceinline__ int stream_kv(unsigned char* sm, const float* __restrict__ k,
+                                         const float* __restrict__ v,
+                                         const uint8_t* __restrict__ mg, const Bias& bias,
+                                         const float* bg, bool vec, int q0, int h, int H, int Sq,
+                                         int Sk, int kt0, int kt1, int i, int tid) {
+  constexpr int TN = C::TN, R = C::R;
+  auto boff = [](int r, int c) { return qbias_off<C>(r, c); };
+  const uint32_t bars = smem_addr(sm + C::BARS_AT);
+  SplitTile<TN, D> kx, vx;
+  DiagTile<R + TN - 1, DEMB> dx;
+  for (int kt = kt0; kt < kt1; ++kt, ++i) {
+    const int s = i % C::STAGES, k0 = kt * TN;
+    unsigned char* st = sm + C::STAGES_AT + s * C::STAGE;
+    unsigned char* ex = sm + C::EXTRA_AT + s * C::EXTRA;
+    kx.load(k, k0, Sk, tid);
+    vx.load(v, k0, Sk, tid);
+    if constexpr (KIND == T5_BIAS) dx.load(bias, h, H, k0 - q0 - (R - 1) + Sq - 1, Sq, Sk, tid);
+    const bool flag = tid < TN && k0 + tid < Sk && mg[k0 + tid];
+    mbar_wait(bars + 8 * (C::STAGES + s), ((i / C::STAGES) & 1) ^ 1);
+    kx.store(st, tid);
+    vx.store(st + C::STREAM, tid);
+    if constexpr (KIND == DENSE_BIAS)
+      stage_bias<R, TN>(reinterpret_cast<float*>(st + 2 * C::STREAM), bg, q0, k0, Sq, Sk, bias.ld,
+                        vec, tid, boff);
+    if constexpr (KIND == T5_BIAS) dx.store(reinterpret_cast<float*>(ex + 64), tid);
+    if (tid < TN) ex[tid] = flag;
+    fence_async_shared();
+    mbar_arrive(bars + 8 * s);
+  }
+  return i;
+}
+
+// A consumer's resident Q and dO tiles (64 query rows from `first` of one
+// (batch, head)): their hi and lo planes at qt, dO's RES bytes after Q's.
+template <int D>
+__device__ __forceinline__ void load_q_do(unsigned char* qt, const float* __restrict__ q,
+                                          const float* __restrict__ dout, int first, int Sq,
+                                          int tid) {
+  SplitTile<64, D> x;
+  x.load(q, first, Sq, tid);
+  x.store(qt, tid);
+  x.load(dout, first, Sq, tid);
+  x.store(qt + 64 * D * 8, tid);
+}
+
+// dS of a consumer's 64 x TN tile at key k0 (the accumulator's layout; rows
+// row[0], row[1], rl the first's row in the block) from the stage st / ex:
+// S = Q K^T and dP = dO V^T from the resident planes at qa (Q) and oa (dO)
+// against the stage's K and V planes, then P = exp(S scale + bias - lse)
+// from its rows' lse ls (natural units) and dS = P (dP - delta) with their
+// delta dl; 0 where a key is not visible.
+template <class C, int KIND, int D>
+__device__ __forceinline__ void tile_ds(float (&sc)[C::TN / 2], uint32_t qa, uint32_t oa,
+                                        const unsigned char* st, const unsigned char* ex, int t4,
+                                        int rl, const int (&row)[2], int k0, int Sq, int Sk,
+                                        const float (&ls)[2], const float (&dl)[2], float scale,
+                                        int causal, int window) {
+  constexpr int TN = C::TN, R = C::R;
+  float dp[TN / 2];
+#pragma unroll
+  for (int e = 0; e < TN / 2; ++e) sc[e] = dp[e] = 0.f;
+  const uint32_t ka = smem_addr(st), va = ka + C::STREAM;
+  fence_acc(sc);
+  fence_acc(dp);
+  wgmma_fence();
+  split_product<TN, D>(sc, qa, ka);
+  split_product<TN, D>(dp, oa, va);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(sc);
+  fence_acc(dp);
+  const uint8_t* flags = ex;
+  const float* bt = reinterpret_cast<const float*>(st + 2 * C::STREAM);
+  const float* bd = reinterpret_cast<const float*>(ex + 64);
+#pragma unroll
+  for (int e = 0; e < TN / 2; ++e) {
+    const int hh = (e >> 1) & 1, c = 8 * (e >> 2) + 2 * t4 + (e & 1), key = k0 + c;
+    const int r = row[hh];
+    float p = 0.f;
+    if (r < Sq && key < Sk && flags[c] && (!causal || key <= r) &&
+        (window <= 0 || r - key < window)) {
+      float x = sc[e] * scale;
+      if constexpr (KIND == DENSE_BIAS) x += bt[qbias_off<C>(rl + 8 * hh, c)];
+      if constexpr (KIND == T5_BIAS) x += bd[c - (rl + 8 * hh) + R - 1];
+      p = expf(x - ls[hh]);
+    }
+    sc[e] = p * (dp[e] - dl[hh]);   // dS
+  }
+}
+
 // dq: block (query block, b H + h), the last (longest causal) query blocks
 // first; consumer g owns query rows q0 + 64 g .. + 63, computes their delta
 // and lse, and writes dq. The DEMB instance (T5_BIAS) also sums the table's
@@ -1019,7 +1049,6 @@ __global__ void __launch_bounds__(Tc<KIND, D, DQ, DEMB>::THREADS, 1)
   const uint32_t bars = smem_addr(sm + C::BARS_AT);
   auto full = [&](int s) { return bars + 8 * s; };
   auto empty = [&](int s) { return bars + 8 * (C::STAGES + s); };
-  auto boff = [](int r, int c) { return qbias_off<C>(r, c); };
 
   const int q0 = (gridDim.x - 1 - blockIdx.x) * R;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
@@ -1037,25 +1066,8 @@ __global__ void __launch_bounds__(Tc<KIND, D, DQ, DEMB>::THREADS, 1)
 
   if (wg == 0) {   // the producer
     if constexpr (NC == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
-    SplitTile<TN, D> kx, vx;
-    DiagTile<R + TN - 1, DEMB> dx;
-    for (int kt = kt0, i = 0; kt < kt1; ++kt, ++i) {
-      const int s = i % C::STAGES, k0 = kt * TN;
-      kx.load(k + kv_off, k0, Sk, tid);
-      vx.load(v + kv_off, k0, Sk, tid);
-      if constexpr (KIND == T5_BIAS) dx.load(bias, h, H, k0 - q0 - (R - 1) + Sq - 1, Sq, Sk, tid);
-      const bool flag = tid < TN && k0 + tid < Sk && mg[k0 + tid];
-      mbar_wait(empty(s), ((i / C::STAGES) & 1) ^ 1);
-      kx.store(stage(s), tid);
-      vx.store(stage(s) + C::STREAM, tid);
-      if constexpr (KIND == DENSE_BIAS)
-        stage_bias<R, TN>(reinterpret_cast<float*>(stage(s) + 2 * C::STREAM), bg, q0, k0, Sq, Sk,
-                          bias.ld, vec, tid, boff);
-      if constexpr (KIND == T5_BIAS) dx.store(reinterpret_cast<float*>(extra(s) + 64), tid);
-      if (tid < TN) extra(s)[tid] = flag;
-      fence_async_shared();
-      mbar_arrive(full(s));
-    }
+    stream_kv<C, KIND, D, DEMB>(sm, k + kv_off, v + kv_off, mg, bias, bg, vec, q0, h, H, Sq, Sk,
+                                kt0, kt1, 0, tid);
     return;
   }
 
@@ -1066,13 +1078,7 @@ __global__ void __launch_bounds__(Tc<KIND, D, DQ, DEMB>::THREADS, 1)
   float* skew = reinterpret_cast<float*>(sm + C::SKEW_AT) + g * ND * DEMB_LD;
   float* wsum = reinterpret_cast<float*>(sm + C::WSUM_AT) + g * 4 * MAX_BUCKETS;
   float* wfar = reinterpret_cast<float*>(sm + C::WFAR_AT) + g * 4 * 2;
-  {
-    SplitTile<64, D> x;
-    x.load(q + q_off, q0 + 64 * g, Sq, tid);
-    x.store(qt, tid);
-    x.load(dout + q_off, q0 + 64 * g, Sq, tid);
-    x.store(qt + C::RES, tid);
-  }
+  load_q_do<D>(qt, q + q_off, dout + q_off, q0 + 64 * g, Sq, tid);
   if constexpr (DEMB) {
     for (int i = tid; i < ND * DEMB_LD; i += 128) skew[i] = 0.f;
     for (int i = tid; i < 4 * MAX_BUCKETS; i += 128) wsum[i] = 0.f;
@@ -1118,39 +1124,13 @@ __global__ void __launch_bounds__(Tc<KIND, D, DQ, DEMB>::THREADS, 1)
     const bool skip = first >= Sq || (causal && k0 > last) ||
                       (window > 0 && k0 + TN - 1 <= first - window);
     if (!skip) {
-      float sc[TN / 2], dp[TN / 2];
-#pragma unroll
-      for (int e = 0; e < TN / 2; ++e) sc[e] = dp[e] = 0.f;
-      const uint32_t ka = smem_addr(stage(s)), va = ka + C::STREAM;
-      fence_acc(sc);
-      fence_acc(dp);
-      wgmma_fence();
-      split_product<TN, D>(sc, qa, ka);
-      split_product<TN, D>(dp, oa, va);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_acc(sc);
-      fence_acc(dp);
-      const uint8_t* flags = extra(s);
-      const float* bt = reinterpret_cast<const float*>(stage(s) + 2 * C::STREAM);
-      const float* bd = reinterpret_cast<const float*>(extra(s) + 64);
-#pragma unroll
-      for (int e = 0; e < TN / 2; ++e) {
-        const int hh = (e >> 1) & 1, c = 8 * (e >> 2) + 2 * t4 + (e & 1), key = k0 + c;
-        const int r = row[hh];
-        float p = 0.f;
-        if (r < Sq && key < Sk && flags[c] && (!causal || key <= r) &&
-            (window <= 0 || r - key < window)) {
-          float x = sc[e] * scale;
-          if constexpr (KIND == DENSE_BIAS) x += bt[boff(rl + 8 * hh, c)];
-          if constexpr (KIND == T5_BIAS) x += bd[c - (rl + 8 * hh) + R - 1];
-          p = expf(x - ls[hh]);
-        }
-        sc[e] = p * (dp[e] - dl[hh]);   // dS
-      }
+      float sc[TN / 2];
+      tile_ds<C, KIND, D>(sc, qa, oa, stage(s), extra(s), t4, rl, row, k0, Sq, Sk, ls, dl, scale,
+                          causal, window);
       split_mma<TN, D>(acc, sc, stage(s), lane);
       if constexpr (DEMB)
-        demb_tile<NC, TN>(sc, bd, k0, first, far, far_sum, skew, wsum, g, warp, lane);
+        demb_tile<NC, TN>(sc, reinterpret_cast<const float*>(extra(s) + 64), k0, first, far,
+                          far_sum, skew, wsum, g, warp, lane);
     }
     __syncwarp();
     if (lane == 0) mbar_arrive(empty(s));
@@ -1375,98 +1355,188 @@ __global__ void __launch_bounds__(Tc<KIND, D, DKV>::THREADS, 1)
 
 // -- dbias --------------------------------------------------------------------------
 
-// dbias = dS, zero where a key is not visible, written at the (query tile x
-// key tile) it was computed for. One block per (64-row query tile, output
-// row): row (b, h) for a per-sample bias; row h with the batch summed inside
-// the block when the bias is shared over the batch (batch_sum), the batches
-// in order. Key tiles that causality or the window skip are written as zeros.
-template <int D>
-__global__ void __launch_bounds__(THREADS)
+// The keys a block of a bias shared over the batch takes (DBIAS_KEYS / TN
+// tiles): its dS sums stay in a consumer thread's registers across the
+// batch, 64 floats at every head dim.
+constexpr int DBIAS_KEYS = 128;
+
+// Zeros into columns [c0, c1) of rows [r0, r1) of a dbias plane (rows Sk
+// floats apart) by a warpgroup's 128 threads, a row at a time: 16-byte
+// stores where the rows allow (Sk % 4 == 0; c0 and c1 are then multiples
+// of 4).
+__device__ __forceinline__ void zero_cols(float* __restrict__ og, int r0, int r1, int c0, int c1,
+                                          int Sk, int tid) {
+  const bool vec = Sk % 4 == 0;
+  for (int r = r0; r < r1; ++r) {
+    float* p = og + (int64_t)r * Sk;
+    if (vec)
+      for (int c = c0 + 4 * tid; c < c1; c += 4 * 128)
+        *reinterpret_cast<float4*>(p + c) = make_float4(0.f, 0.f, 0.f, 0.f);
+    else
+      for (int c = c0 + tid; c < c1; c += 128) p[c] = 0.f;
+  }
+}
+
+// A consumer's 64 x TN tile x (the accumulator's layout: rows row[0],
+// row[1]) into a dbias plane at key k0, rows below Sq and keys below Sk:
+// float2 stores where Sk is even.
+template <int TN>
+__device__ __forceinline__ void store_tile(float* __restrict__ og, const float (&x)[TN / 2],
+                                           const int (&row)[2], int k0, int Sq, int Sk, int t4) {
+#pragma unroll
+  for (int e = 0; e < TN / 2; e += 2) {
+    const int hh = (e >> 1) & 1, key = k0 + 8 * (e >> 2) + 2 * t4;
+    if (row[hh] >= Sq || key >= Sk) continue;
+    float* p = og + (int64_t)row[hh] * Sk + key;
+    if (Sk % 2 == 0) {
+      *reinterpret_cast<float2*>(p) = make_float2(x[e], x[e + 1]);
+    } else {
+      p[0] = x[e];
+      if (key + 1 < Sk) p[1] = x[e + 1];
+    }
+  }
+}
+
+// dbias = dS = P (dP - delta), zero where a key is not visible, written
+// whole, on dq's ring (Tc<DENSE_BIAS, D, DQ>: the producer splits K, V and
+// the bias tile into the stage; consumer g holds query rows q0 + 64 g .. +
+// 63 of Q and dO as resident planes and forms the tile's dS by tile_ds, in
+// split TF32). Block (output row o, query block, key range): the output
+// rows vary fastest, so every row's last (longest causal) query block is
+// dispatched before any row's next, and the blocks fill the card longest
+// first.
+//   A per-sample bias (SUM false): o = b H + h and every key; each tile's dS
+// is stored as soon as it is formed (zeros for a tile the consumer's rows
+// do not see), and the producer, once it has streamed the visible tiles,
+// writes the zeros of the tiles no row of the block sees.
+//   A bias shared over the batch (SUM true, B > 1): o = h and the KT tiles
+// of keys [z DBIAS_KEYS, ...); for each batch in order the consumers split
+// its Q and dO and the producer streams its K and V tiles, and each tile's
+// dS is added to the thread's registers (acc[j], 0 + dS first), stored
+// once after the last batch: the tile's bias and dbias cross device memory
+// once, with no atomics and the batches summed in a fixed order.
+template <int D, bool SUM>
+__global__ void __launch_bounds__(Tc<DENSE_BIAS, D, DQ>::THREADS, 1)
     dbias_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const uint8_t* __restrict__ kv_mask,
                  const Bias bias, const float* __restrict__ dout, const float* __restrict__ lse,
                  const float* __restrict__ delta, float* __restrict__ dbias, int B, int H,
-                 int Hkv, int Sq, int Sk, float scale, int causal, int window, int batch_sum) {
-  constexpr int TF = tile_floats<D>();
-  extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;
-  float* dOs = Qs + TF;
-  float* Ks = dOs + TF;      // [2][TF]
-  float* Vs = Ks + 2 * TF;   // [2][TF]
+                 int Hkv, int Sq, int Sk, float scale, int causal, int window) {
+  using C = Tc<DENSE_BIAS, D, DQ>;
+  constexpr int NC = C::NC, TN = C::TN, R = C::R;
+  constexpr int KT = SUM ? DBIAS_KEYS / TN : 1;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  auto stage = [&](int s) { return sm + C::STAGES_AT + s * C::STAGE; };
+  auto extra = [&](int s) { return sm + C::EXTRA_AT + s * C::EXTRA; };
+  const uint32_t bars = smem_addr(sm + C::BARS_AT);
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (C::STAGES + s); };
 
-  const int q0 = blockIdx.x * TILE;
-  const int h = batch_sum ? blockIdx.y : blockIdx.y % H;
-  const int b_begin = batch_sum ? 0 : blockIdx.y / H;
-  const int b_end = batch_sum ? B : b_begin + 1;
-  float* og = dbias + (int64_t)blockIdx.y * Sq * Sk;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int nkt = (Sk + TILE - 1) / TILE;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * R;
+  const int o = blockIdx.x, h = SUM ? o : o % H;
+  const int b_begin = SUM ? 0 : o / H, b_end = SUM ? B : b_begin + 1;
+  float* og = dbias + (int64_t)o * Sq * Sk;
+  const int nkt = (Sk + TN - 1) / TN;
   int kt0, kt1;
-  key_tiles(q0, TILE, TILE, Sk, causal, window, kt0, kt1);
-  for (int kt = 0; kt < nkt; ++kt) {
-    if (kt >= kt0 && kt < kt1) continue;
-    for (int i = threadIdx.x; i < TILE * TILE; i += THREADS) {
-      const int row = q0 + i / TILE, key = kt * TILE + i % TILE;
-      if (row < Sq && key < Sk) og[(int64_t)row * Sk + key] = 0.f;
+  key_tiles(q0, R, TN, Sk, causal, window, kt0, kt1);
+  const int ka = SUM ? blockIdx.z * KT : 0, kb = SUM ? min(ka + KT, nkt) : nkt;
+  const int lo = max(kt0, ka), hi = min(kt1, kb);   // the tiles streamed, per batch
+  const bool vec = bias.ld % 4 == 0 && (reinterpret_cast<uintptr_t>(bias.rows) & 15) == 0;
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+
+  init_ring<C>(bars);
+
+  if (wg == 0) {   // the producer
+    if constexpr (NC == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    int i = 0;
+    if (lo < hi)
+      for (int b = b_begin; b < b_end; ++b) {
+        const int64_t kv_off = ((int64_t)b * Hkv + h / (H / Hkv)) * Sk * D;
+        i = stream_kv<C, DENSE_BIAS, D, false>(sm, k + kv_off, v + kv_off,
+                                               kv_mask + (int64_t)b * Sk, bias,
+                                               bias_rows(bias, b, h, Sq), vec, q0, h, H, Sq, Sk,
+                                               lo, hi, i, tid);
+      }
+    if constexpr (!SUM) {
+      const int r1 = min(q0 + R, Sq);
+      const int c0 = lo < hi ? min(lo * TN, Sk) : Sk, c1 = lo < hi ? min(hi * TN, Sk) : Sk;
+      zero_cols(og, q0, r1, 0, c0, Sk, tid);
+      zero_cols(og, q0, r1, c1, Sk, Sk, tid);
     }
+    return;
   }
 
-  for (int b = b_begin; b < b_end; ++b) {
-    const int bh = b * H + h;
-    const int64_t q_off = (int64_t)bh * Sq * D;
-    const int64_t kv_off = ((int64_t)b * Hkv + h / (H / Hkv)) * Sk * D;
-    const float* kg = k + kv_off;
-    const float* vg = v + kv_off;
-    const uint8_t* mg = kv_mask + (int64_t)b * Sk;
-    const float* bg = bias_rows(bias, b, h, Sq);
-    load_rows<D>(Qs, q + q_off, q0, Sq);
-    load_rows<D>(dOs, dout + q_off, q0, Sq);
-    if (kt0 < kt1) {
-      load_rows<D>(Ks, kg, kt0 * TILE, Sk);
-      load_rows<D>(Vs, vg, kt0 * TILE, Sk);
+  if constexpr (NC == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+  const int g = wg - 1, warp = tid / 32, lane = tid % 32, t4 = lane % 4;
+  unsigned char* qt = sm + g * 2 * C::RES;   // Q's planes, then dO's
+  const int rl = 64 * g + 16 * warp + lane / 4;   // local rows rl, rl + 8
+  const int row[2] = {q0 + rl, q0 + rl + 8};
+  const int first = q0 + 64 * g, last = min(first + 63, Sq - 1);
+  const uint32_t qa = smem_addr(qt), oa = qa + C::RES;
+  float acc[KT][TN / 2];   // SUM: the tiles' dS summed over the batch
+#pragma unroll
+  for (int j = 0; j < KT; ++j)
+#pragma unroll
+    for (int e = 0; e < TN / 2; ++e) acc[j][e] = 0.f;
+
+  int i = 0;
+  for (int b = b_begin; b < b_end && lo < hi; ++b) {
+    const int64_t bh = (int64_t)b * H + h;
+    // every warp's products have read the last batch's planes
+    if (b > b_begin) consumer_sync(g);
+    load_q_do<D>(qt, q + bh * Sq * D, dout + bh * Sq * D, first, Sq, tid);
+    fence_async_shared();
+    consumer_sync(g);
+    float ls[2], dl[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      ls[hh] = row[hh] < Sq ? lse[bh * Sq + row[hh]] : 0.f;
+      dl[hh] = row[hh] < Sq ? delta[bh * Sq + row[hh]] : 0.f;
     }
-    cp_async_commit();
-    float ls[4], dl[4];
+    if constexpr (SUM) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty + 16 * i;
-      ls[i] = row < Sq ? lse[(int64_t)bh * Sq + row] : 0.f;
-      dl[i] = row < Sq ? delta[(int64_t)bh * Sq + row] : 0.f;
-    }
-    for (int kt = kt0; kt < kt1; ++kt) {
-      const int st = (kt - kt0) & 1, k0 = kt * TILE;
-      if (kt + 1 < kt1) {
-        load_rows<D>(Ks + (st ^ 1) * TF, kg, k0 + TILE, Sk);
-        load_rows<D>(Vs + (st ^ 1) * TF, vg, k0 + TILE, Sk);
-        cp_async_commit();
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-      float s[4][4], dp[4][4];
-      tile_dot<D>(s, Qs, Ks + st * TF, ty, tx);
-      tile_dot<D>(dp, dOs, Vs + st * TF, ty, tx);
+      for (int j = 0; j < KT; ++j) {
+        const int kt = ka + j, s = i % C::STAGES, k0 = kt * TN;
+        if (kt < lo || kt >= hi) continue;
+        mbar_wait(full(s), (i / C::STAGES) & 1);
+        const bool skip = first >= Sq || (causal && k0 > last) ||
+                          (window > 0 && k0 + TN - 1 <= first - window);
+        if (!skip) {
+          float sc[TN / 2];
+          tile_ds<C, DENSE_BIAS, D>(sc, qa, oa, stage(s), extra(s), t4, rl, row, k0, Sq, Sk, ls,
+                                    dl, scale, causal, window);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int row = q0 + ty + 16 * i;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int key = k0 + tx + 16 * j;
-          if (row >= Sq || key >= Sk) continue;
-          float ds = 0.f;
-          if (visible(row, key, Sq, Sk, mg, causal, window))
-            ds = expf(s[i][j] * scale +
-                      bias_at(bg, row, key, bias.ld) - ls[i]) *
-                 (dp[i][j] - dl[i]);
-          float* g = og + (int64_t)row * Sk + key;
-          *g = b == b_begin ? ds : *g + ds;
+          for (int e = 0; e < TN / 2; ++e) acc[j][e] += sc[e];
         }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty(s));
+        ++i;
       }
-      __syncthreads();
+    } else {
+      for (int kt = lo; kt < hi; ++kt, ++i) {
+        const int s = i % C::STAGES, k0 = kt * TN;
+        mbar_wait(full(s), (i / C::STAGES) & 1);
+        const bool skip = first >= Sq || (causal && k0 > last) ||
+                          (window > 0 && k0 + TN - 1 <= first - window);
+        float sc[TN / 2];
+        if (skip) {
+#pragma unroll
+          for (int e = 0; e < TN / 2; ++e) sc[e] = 0.f;
+        } else {
+          tile_ds<C, DENSE_BIAS, D>(sc, qa, oa, stage(s), extra(s), t4, rl, row, k0, Sq, Sk, ls,
+                                    dl, scale, causal, window);
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty(s));
+        store_tile<TN>(og, sc, row, k0, Sq, Sk, t4);
+      }
     }
-    cp_async_wait<0>();
-    __syncthreads();
+  }
+  if constexpr (SUM) {
+#pragma unroll
+    for (int j = 0; j < KT; ++j)
+      if (ka + j < nkt) store_tile<TN>(og, acc[j], row, (ka + j) * TN, Sq, Sk, t4);
   }
 }
 
@@ -1579,22 +1649,34 @@ cudaError_t launch_dkv(const float* q, const float* k, const float* v, const uin
                             dv, H, Hkv, Sq, Sk, scale, causal, window);
 }
 
+template <int D, bool SUM>
+cudaError_t launch_dbias_as(const float* q, const float* k, const float* v, const uint8_t* mask,
+                            const Bias& bias, const float* dout, const float* lse,
+                            const float* delta, float* dbias, int B, int H, int Hkv, int Sq,
+                            int Sk, float scale, int causal, int window, cudaStream_t stream) {
+  using C = Tc<DENSE_BIAS, D, DQ>;
+  static size_t allowed = 48 * 1024;
+  cudaError_t err = allow_smem(dbias_kernel<D, SUM>, C::SMEM, allowed);
+  if (err != cudaSuccess) return err;
+  const int keys = SUM ? DBIAS_KEYS : Sk;
+  const dim3 grid(SUM ? H : B * H, (Sq + C::R - 1) / C::R, (Sk + keys - 1) / keys);
+  dbias_kernel<D, SUM><<<grid, C::THREADS, C::SMEM, stream>>>(
+      q, k, v, mask, bias, dout, lse, delta, dbias, B, H, Hkv, Sq, Sk, scale, causal, window);
+  return cudaGetLastError();
+}
+
+// A bias shared over a batch of more than one (bs == 0) sums it inside the
+// kernel, one output row per head; otherwise one per (batch, head).
 template <int D>
 cudaError_t launch_dbias(const float* q, const float* k, const float* v, const uint8_t* mask,
                          const Bias& bias, const float* dout, const float* lse,
                          const float* delta, float* dbias, int B, int H, int Hkv, int Sq, int Sk,
                          float scale, int causal, int window, cudaStream_t stream) {
-  const size_t bytes = (size_t)6 * tile_floats<D>() * sizeof(float);
-  static size_t allowed = 48 * 1024;
-  cudaError_t err = allow_smem(dbias_kernel<D>, bytes, allowed);
-  if (err != cudaSuccess) return err;
-  // a bias shared over the batch (bs == 0) has one output row per head
-  const int batch_sum = bias.bs == 0;
-  const dim3 grid((Sq + TILE - 1) / TILE, batch_sum ? H : B * H);
-  dbias_kernel<D><<<grid, THREADS, bytes, stream>>>(q, k, v, mask, bias, dout, lse, delta, dbias,
-                                                    B, H, Hkv, Sq, Sk, scale, causal, window,
-                                                    batch_sum);
-  return cudaGetLastError();
+  if (bias.bs == 0 && B > 1)
+    return launch_dbias_as<D, true>(q, k, v, mask, bias, dout, lse, delta, dbias, B, H, Hkv, Sq,
+                                    Sk, scale, causal, window, stream);
+  return launch_dbias_as<D, false>(q, k, v, mask, bias, dout, lse, delta, dbias, B, H, Hkv, Sq,
+                                   Sk, scale, causal, window, stream);
 }
 
 // The call of LAUNCH's instance for the bias kind (T5_BIAS with a table,

@@ -1,9 +1,10 @@
 """In-place KV-cache slot write: one layer's new K and V into slot ``index``.
 
 Port of pasero_tpu/ops/cache_update.py (the Pallas ``cache_slot_write``).
-CUDA tensors go to the hand-written kernel of ``csrc/cache_update.cu``, CPU
-tensors to ``cache_slot_write_plain``; a CUDA tensor never takes the plain
-version: the kernel launches or the wrapper raises.
+CUDA tensors go to the hand-written kernel of ``csrc/cache_update.cu`` (one
+wave sized to the card's SMs, launched as a programmatic dependent of the
+kernel before it), CPU tensors to ``cache_slot_write_plain``; a CUDA tensor
+never takes the plain version: the kernel launches or the wrapper raises.
 """
 
 from __future__ import annotations
@@ -50,14 +51,42 @@ def _check(k_cache, v_cache, k_new, v_new, index: int) -> None:
 
 def _library():
     lib = cuda_build.load("cache_update")
-    fn = lib.cache_slot_write
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 5 + \
-            [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+    if lib.cache_slot_write.argtypes is None:
+        for fn in (lib.cache_slot_write, lib.cache_slot_write_floor):
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 5 + \
+                [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
         lib.cache_update_error_string.argtypes = [ctypes.c_int]
         lib.cache_update_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _launch(entry: str, k_cache, v_cache, k_new, v_new, index: int) -> None:
+    """One launch of the C entry ``entry`` on CUDA tensors already checked
+    and laid out as the kernel reads them; raises on a failed launch."""
+    B, H, L, D = k_cache.shape
+    lib = _library()
+    with torch.cuda.device(k_cache.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = getattr(lib, entry)(
+            k_cache.data_ptr(), v_cache.data_ptr(), k_new.data_ptr(),
+            v_new.data_ptr(), B * H, L, D, k_cache.element_size(), index,
+            stream)
+    if status != 0:
+        raise RuntimeError(f"{entry} kernel failed: " +
+                           lib.cache_update_error_string(status).decode())
+
+
+def _cuda_blocks(k_cache, v_cache, k_new, v_new, index: int):
+    """The new blocks in the cache's type and the dense (B, H, D) layout the
+    kernel reads, after the checks; raises for a device without a kernel."""
+    _check(k_cache, v_cache, k_new, v_new, index)
+    if k_cache.device.type != "cuda":
+        raise ValueError(f"no kernel for device {k_cache.device}")
+    # `new` usually comes from a transpose; the kernel reads it as a dense
+    # (B, H, D) block, so copy it into that layout explicitly
+    return (k_new.to(k_cache.dtype).contiguous(),
+            v_new.to(v_cache.dtype).contiguous())
 
 
 def cache_slot_write_(k_cache, v_cache, k_new, v_new, index: int) -> None:
@@ -67,28 +96,23 @@ def cache_slot_write_(k_cache, v_cache, k_new, v_new, index: int) -> None:
     On CUDA tensors this is one launch of the hand-written kernel, counted in
     ``cache_slot_write_.launches``; on CPU tensors it is the plain version.
     """
-    _check(k_cache, v_cache, k_new, v_new, index)
     if k_cache.device.type == "cpu":
+        _check(k_cache, v_cache, k_new, v_new, index)
         cache_slot_write_plain(k_cache, v_cache, k_new, v_new, index)
         return
-    if k_cache.device.type != "cuda":
-        raise ValueError(f"no kernel for device {k_cache.device}")
-    # `new` usually comes from a transpose; the kernel reads it as a dense
-    # (B, H, D) block, so copy it into that layout explicitly
-    k_new = k_new.to(k_cache.dtype).contiguous()
-    v_new = v_new.to(v_cache.dtype).contiguous()
-    B, H, L, D = k_cache.shape
-    lib = _library()
-    with torch.cuda.device(k_cache.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = lib.cache_slot_write(
-            k_cache.data_ptr(), v_cache.data_ptr(), k_new.data_ptr(),
-            v_new.data_ptr(), B * H, L, D, k_cache.element_size(), index,
-            stream)
-    if status != 0:
-        raise RuntimeError("cache_slot_write kernel failed: " +
-                           lib.cache_update_error_string(status).decode())
+    k_new, v_new = _cuda_blocks(k_cache, v_cache, k_new, v_new, index)
+    _launch("cache_slot_write", k_cache, v_cache, k_new, v_new, index)
     cache_slot_write_.launches += 1
 
 
 cache_slot_write_.launches = 0
+
+
+def cache_slot_write_floor(k_cache, v_cache, k_new, v_new,
+                           index: int) -> None:
+    """For measurement only (the port never calls it): one launch of an
+    empty kernel with ``cache_slot_write_``'s grid, block and programmatic
+    launch attribute for these arguments, which waits on the kernel before
+    it and does nothing else. Its time is the write's floor. Not counted."""
+    k_new, v_new = _cuda_blocks(k_cache, v_cache, k_new, v_new, index)
+    _launch("cache_slot_write_floor", k_cache, v_cache, k_new, v_new, index)

@@ -34,11 +34,11 @@ output. A row that sees no key gives out = 0 and lse = -1e30 (JAX's
 ``l == 0`` guard). The kernels take q, k and v all bfloat16 or all float32
 and round P to v's type before P.V and dS to q's type before dS.K and
 dS^T.Q, as the Pallas kernels do (so in float32 P and dS stay float32); the
-plain versions compute everything in float32. The float32 dbias kernel
-takes float32 FMAs; the float32 forward, dq and dk/dv kernels take the
-tensor cores with every operand (P and dS too) split into two TF32 parts
-(``split_tf32``) and three products of them, which keeps float32's accuracy
-where one TF32 product would keep about three decimal digits.
+plain versions compute everything in float32. The float32 kernels
+(forward, dq, dk/dv and dbias) take the tensor cores with every operand (P
+and dS too) split into two TF32 parts (``split_tf32``) and three products
+of them, which keeps float32's accuracy where one TF32 product would keep
+about three decimal digits.
 
 The bias is float32 (b0, h0, Sq, Sk) with b0 in {1, B} and h0 in {1, H}
 (JAX's ``_bias_rows`` :162): the kernels read the row of (b, h) through its

@@ -67,11 +67,13 @@ CASES = {
     "llama_1b": ((4, 32, 4, 2048, 64), True, None, None),
     "llama_32768": ((1, 32, 32, 32768, 128), True, None, None),
 }
-# float32: chip_smoke.py's F32_TIMED shapes (rows 10 and 13, 9 and 12, 11
-# and 14 of PERF.md's table)
+# float32: chip_smoke.py's F32_TIMED shapes (rows 10 and 13, 9, 12 and 15,
+# 11 and 14 of PERF.md's table), and row 15's shape with a bias shared over
+# the batch
 F32_CASES = {
     "f32_gqa": ((2, 8, 2, 2048, 64), True, None, None),
     "f32_alibi": ((2, 8, 8, 2048, 64), True, "alibi", None),
+    "f32_bias_1xH": ((2, 8, 8, 2048, 64), True, "learned_1xH", None),
     "f32_t5": ((8, 12, 12, 512, 64), False, "t5", None),
 }
 PARTS = ("fwd", "dq", "dkv")

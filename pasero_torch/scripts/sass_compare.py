@@ -48,8 +48,10 @@ def sass(csrc: str, name: str) -> dict:
         if head:
             current = kernels.setdefault(head.group(1), [])
         elif current is not None and re.match(r"\s*/\*[0-9a-f]{4,}\*/", line):
-            # the instruction without its address; the encoding stays
-            current.append(re.sub(r"^\s*/\*[0-9a-f]+\*/\s*", "", line))
+            # the instruction without its address, its runs of spaces as one
+            # (cuobjdump pads to the file's longest instruction); the
+            # encoding stays
+            current.append(" ".join(line.split()[1:]))
         elif current and re.fullmatch(r"\s*/\* 0x[0-9a-f]+ \*/\s*", line):
             current[-1] += " " + line.strip()   # the encoding's second half
     tool = demangler()

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from pasero_torch.ops.cache_update import (cache_slot_write_,
+                                           cache_slot_write_floor,
                                            cache_slot_write_plain)
 from pasero_torch.scripts.bench_int8 import int8_inputs
 
@@ -25,6 +26,8 @@ def _need_card():
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,dtype", [
     ((320, 8, 72, 64), torch.bfloat16),   # full-width decode: 16-byte copies
+    ((8, 4, 192, 64), torch.bfloat16),    # llama_1b's decode
+    ((1280, 16, 8, 128), torch.bfloat16),  # rows past one wave of the grid
     ((3, 4, 17, 18), torch.float32),      # 72-byte rows: scalar copies
     ((3, 4, 17, 36), torch.bfloat16),
 ])
@@ -48,6 +51,60 @@ def test_cache_slot_write_matches_plain(shape, dtype):
         torch.cuda.synchronize()
         assert cache_slot_write_.launches == before + 1
         assert torch.equal(k, k2) and torch.equal(v, v2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(320, 8, 72, 64), (8, 4, 192, 64)])
+def test_cache_slot_write_in_graph_after_producer(shape):
+    """Two consecutive writes (slots i and i + 1), each right after a
+    kernel that writes its new blocks, captured in a CUDA graph: the
+    replay equals the plain version bit for bit, so the programmatic
+    launch's wait orders each write behind its producer (and the second
+    producer behind the first write's reads). The floor kernel of the same
+    launch changes nothing and counts no launch."""
+    _need_card()
+    R, H, L, D = shape
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    k = torch.randn(shape, generator=gen, device="cuda").bfloat16()
+    v = torch.randn(shape, generator=gen, device="cuda").bfloat16()
+    src_k, src_v = (torch.randn((2, R, H, 1, D), generator=gen,
+                                device="cuda") for _ in range(2))
+    k_new = torch.empty((R, H, 1, D), device="cuda", dtype=torch.bfloat16)
+    v_new = torch.empty_like(k_new)
+    i = L // 2
+    want_k, want_v = k.clone(), v.clone()
+    for j in range(2):
+        cache_slot_write_plain(want_k, want_v, src_k[j], src_v[j], i + j)
+
+    def steps():
+        for j in range(2):
+            k_new.copy_(src_k[j])   # the producer: a cast kernel
+            v_new.copy_(src_v[j])
+            cache_slot_write_(k, v, k_new, v_new, i + j)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        steps()   # eager, on a side stream: the capture's warm-up
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    assert torch.equal(k, want_k) and torch.equal(v, want_v)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        steps()
+    base_k = torch.randn(shape, generator=gen, device="cuda").bfloat16()
+    base_v = torch.randn(shape, generator=gen, device="cuda").bfloat16()
+    k.copy_(base_k)
+    v.copy_(base_v)
+    want_k, want_v = base_k.clone(), base_v.clone()
+    for j in range(2):
+        cache_slot_write_plain(want_k, want_v, src_k[j], src_v[j], i + j)
+    before = cache_slot_write_.launches
+    graph.replay()
+    cache_slot_write_floor(k, v, k_new, v_new, i)
+    torch.cuda.synchronize()
+    assert torch.equal(k, want_k) and torch.equal(v, want_v)
+    assert cache_slot_write_.launches == before
 
 
 @pytest.mark.cuda
@@ -1191,6 +1248,13 @@ FLASH_F32_CASES = [   # (B, H, Hkv, S, D), causal, window, padded, bias kind
     ((1, 8, 1, 160, 64), True, None, True, None),        # a cluster of 8
     ((2, 12, 2, 150, 64), False, None, True, "t5"),      # a cluster of 6
     ((8, 12, 12, 512, 64), False, None, False, "t5"),    # t5_base's width
+    # dbias: a per-sample (B, 1) and a (1, 1) bias; a shared bias summed
+    # over four batches; a shared bias at full width, each block holding
+    # more than one key tile
+    ((2, 4, 2, 77, 64), False, None, True, "Bx1"),
+    ((3, 4, 2, 45, 32), True, None, True, "1x1"),
+    ((4, 4, 2, 200, 64), True, None, True, "learned_1xH"),
+    ((2, 8, 8, 2048, 64), True, None, False, "learned_1xH"),
 ] + [((2, 4, 2, 130, D), kind != "t5", None, True, kind)   # every D, kind
      for kind in (None, "learned_1xH", "t5") for D in (32, 128)]
 
@@ -1257,11 +1321,13 @@ def flash_f32_compare(shape, causal, window, padded, kind) -> dict:
     float32 inputs at one shape, as ``flash_compare`` does, and the
     mutations the limits must reject: the kernels on q, k and v rounded to
     TF32 (a TF32 product), a backward given another row's lse, and with a
-    bias those of ``flash_bias_compare`` and ``flash_t5_compare``; then the
-    forward, dq (with demb) and dk/dv once more on the same inputs. Returns
-    the lse error, the excess of out, dq, dk, dv (and dbias or demb) over
-    their limits, the smallest excess of each mutation, whether the second
-    calls gave the same bits (out and demb too), and the max abs errors."""
+    bias those of ``flash_bias_compare`` and ``flash_t5_compare`` (dbias
+    without delta, given another row's lse and on TF32-rounded q, k and v
+    too); then the forward, dq (with demb), dk/dv and dbias once more on
+    the same inputs. Returns the lse error, the excess of out, dq, dk, dv
+    (and dbias or demb) over their limits, the smallest excess of each
+    mutation, whether the second calls gave the same bits (out, demb and
+    dbias too), and the max abs errors."""
     from pasero_torch.ops.flash_attention import (T5Bias, _reduce_to,
                                                   flash_bwd_dbias,
                                                   flash_bwd_dkv, flash_bwd_dq,
@@ -1340,6 +1406,23 @@ def flash_f32_compare(shape, causal, window, padded, kind) -> dict:
             bad_grad = _reduce_to(ds.float(), bias.shape)
         mutants[f"{name}_bf16"] = flash_excess(bad_grad, ref_grad, limit)
         del ds
+        if not t5:
+            # dbias without delta, given another row's lse, and on q, k, v
+            # rounded to TF32 (a TF32 product); the same bits twice
+            for mutant, bad_args in (
+                    ("dbias_no_delta", (q, k, v, torch.zeros_like(delta),
+                                        lse)),
+                    ("dbias_other_lse", (q, k, v, delta, lse.roll(1, -1))),
+                    ("dbias_tf32", tuple(round_tf32(x) for x in (q, k, v))
+                     + (delta, lse))):
+                bq, bk, bv, bdelta, blse = bad_args
+                mutants[mutant] = flash_excess(flash_bwd_dbias(
+                    bq, bk, bv, mask, bias, do, blse, bdelta, *args),
+                    ref_grad, limit)
+            dbias_again = flash_bwd_dbias(q, k, v, mask, bias, do, lse,
+                                          delta, *args)
+            dbias_same_bits = torch.equal(grad, dbias_again)
+            del dbias_again
         if t5:
             fwd_mutants = {"direction": T5Bias(bias.table, kind != "t5"),
                            "shifted": shifted_t5(bias)}
@@ -1347,7 +1430,9 @@ def flash_f32_compare(shape, causal, window, padded, kind) -> dict:
                 fwd_mutants["other_head"] = T5Bias(bias.table.roll(1, 1),
                                                    True)
         else:
-            fwd_mutants = {"other_head": bias.roll(1, 1)}
+            fwd_mutants = {}
+            if bias.shape[1] > 1:
+                fwd_mutants["other_head"] = bias.roll(1, 1)
             if kind != "alibi":     # ALiBi's causal bias: symmetric
                 fwd_mutants["transposed"] = bias.transpose(-1, -2)
         for name, b in fwd_mutants.items():
@@ -1355,6 +1440,8 @@ def flash_f32_compare(shape, causal, window, padded, kind) -> dict:
                                          ref_out, limits[0], rows)
     again = kernels(q, k, v)
     same_bits = all(torch.equal(a, b) for a, b in zip(first, again))
+    if kind is not None and not t5:
+        same_bits = same_bits and dbias_same_bits
 
     def err(got, want, rows=None):
         diff = (got - want).abs()
@@ -1382,7 +1469,7 @@ def test_f32_flash_kernels_match_plain(shape, causal, window, padded, kind):
     after = launch_counts()
     launched = {n for n in after if after[n] != before[n]}
     assert launched and all(n.endswith("_f32") for n in launched), launched
-    end = {None: "", "alibi": "_bias", "learned_1xH": "_bias"}.get(kind, "_t5")
+    end = "_t5" if kind in ("t5", "t5_causal") else "_bias" if kind else ""
     assert {f"flash_fwd{end}_f32", f"flash_bwd_dq{end}_f32",
             f"flash_bwd_dkv{end}_f32"} <= launched
     assert ("flash_bwd_dq_t5_demb_f32" in launched) == (end == "_t5")

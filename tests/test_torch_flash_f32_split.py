@@ -1,16 +1,18 @@
 """The float32 flash kernels' split-TF32 arithmetic, on the CPU.
 
-csrc/flash_f32.cu's forward, dq and dk/dv kernels take every product on the
-tensor cores as hi_a hi_b + hi_a lo_b + lo_a hi_b of ``split_tf32``'s parts
-(Q, K, V, dO, P and dS alike). Here that arithmetic, each product in
-float32, runs the backward at two small shapes like ``FLASH_F32_CASES``'
-(T5, and ALiBi with grouped K/V heads), and the forward as the kernel
-orders it (key tiles of TN keys, the online softmax's rescale, each tile's
-P V added with one float32 add) at those and at a bias-free GQA shape; both
-must lie within ``flash_f32_limits`` of tests/test_torch_cuda.py, the
-limits the kernels are held to on the card, and one TF32 product (hi_a
-hi_b) must exceed them 2.8 times or more. The card's own sums are checked
-there.
+csrc/flash_f32.cu's forward, dq, dk/dv and dbias kernels take every
+product on the tensor cores as hi_a hi_b + hi_a lo_b + lo_a hi_b of
+``split_tf32``'s parts (Q, K, V, dO, P and dS alike). Here that arithmetic,
+each product in float32, runs the backward at two small shapes like
+``FLASH_F32_CASES``' (T5, and ALiBi with grouped K/V heads), and the forward
+as the kernel orders it (key tiles of TN keys, the online softmax's
+rescale, each tile's P V added with one float32 add) at those and at a
+bias-free GQA shape; both must lie within ``flash_f32_limits`` of
+tests/test_torch_cuda.py, the limits the kernels are held to on the card,
+and one TF32 product (hi_a hi_b) must exceed them 2.8 times or more. dbias
+(a per-sample, a shared and a (1, 1) bias, the batch summed in the
+kernel's order) likewise against ``flash_dbias_limits``. The card's own
+sums are checked there.
 
 The T5 dq kernel's demb (its DEMB instance) sums a consumer's 64 x TN tile
 of dS by the host's plan of far tiles, made for 64 x 64 tiles
@@ -27,14 +29,15 @@ import pytest
 import torch
 
 from pasero_torch.ops.flash_attention import (NEG_INF, T5Bias, _dscores,
-                                              flash_bwd_plain,
+                                              _reduce_to, flash_bwd_plain,
+                                              flash_dbias_plain,
                                               flash_demb_plain,
                                               flash_fwd_plain, split_tf32,
                                               visible)
 
-from test_torch_cuda import (F32_LSE_ATOL, flash_bias, flash_demb_limits,
-                             flash_excess, flash_f32_limits, flash_inputs,
-                             t5_table)
+from test_torch_cuda import (F32_LSE_ATOL, flash_bias, flash_dbias_limits,
+                             flash_demb_limits, flash_excess,
+                             flash_f32_limits, flash_inputs, t5_table)
 
 SHAPES = [   # (B, H, Hkv, S, D), causal, bias kind
     ((2, 4, 4, 96, 64), False, "t5"),
@@ -166,6 +169,57 @@ def test_split_tf32_forward_within_float32_limits(shape, causal, kind):
     assert (got_lse - lse)[rows].abs().max().item() <= F32_LSE_ATOL
     single = split_fwd(q, k, v, mask, args[0], causal, dense, True)[0]
     assert flash_excess(single, out, limit, rows) >= 2.8
+
+
+DBIAS_SHAPES = [   # (B, H, Hkv, S, D), causal, bias kind
+    ((2, 4, 2, 96, 64), True, "alibi"),         # per sample: (B, H)
+    ((4, 4, 2, 96, 64), True, "learned_1xH"),   # shared over four batches
+    ((3, 4, 2, 80, 32), False, "1x1"),          # and summed over the heads
+]
+
+
+def split_dbias(q, k, v, mask, out, lse, do, scale, causal, bias, single):
+    """dbias as the float32 dbias kernel forms it: per batch dS = P (dP -
+    delta), S = Q K^T and dP = dO V^T from ``product``, P = exp(S scale +
+    bias - lse), 0 where a key is not visible; for a bias shared over the
+    batch the batches added to 0 in order, in float32; then summed over the
+    heads where the bias has one (``_reduce_to``, after the kernel)."""
+    B, H, S, D = q.shape
+    group = H // k.shape[1]
+    kg, vg = (x.repeat_interleave(group, 1) for x in (k, v))
+    s = product(q, kg.transpose(-1, -2), single) * scale + bias
+    ok = visible(mask, S, causal, None)
+    p = torch.exp(s - lse[..., None]).masked_fill(~ok, 0.0)
+    dp = product(do, vg.transpose(-1, -2), single)
+    ds = p * (dp - (do * out).sum(-1, keepdim=True))
+    if bias.shape[0] == 1 and B > 1:
+        acc = torch.zeros_like(ds[:1])
+        for b in range(B):
+            acc = acc + ds[b:b + 1]
+        ds = acc
+    return _reduce_to(ds, bias.shape)
+
+
+@pytest.mark.parametrize("shape,causal,kind", DBIAS_SHAPES,
+                         ids=[kind for *_, kind in DBIAS_SHAPES])
+def test_split_tf32_dbias_within_float32_limits(shape, causal, kind):
+    """The dbias kernel's split-TF32 dS, summed over the batch in its order,
+    within ``flash_dbias_limits`` of the plain version; one TF32 product 2.8
+    times outside them or more."""
+    q, k, v, do, mask, bias, _, _ = case_inputs(shape, causal, kind)
+    args = (shape[-1] ** -0.5, causal, None)
+    out, lse = flash_fwd_plain(q, k, v, mask, *args, bias)
+    want = flash_dbias_plain(q, k, v, mask, out, lse, do, *args, bias)
+    limit = flash_dbias_limits(q, k, v, mask, lse, do, out, *args, bias,
+                               want)
+
+    def excess(single):
+        got = split_dbias(q, k, v, mask, out, lse, do, args[0], causal, bias,
+                          single)
+        return flash_excess(got, want, limit)
+
+    assert excess(False) <= 1.0
+    assert excess(True) >= 2.8
 
 
 # (Sq, Sk, bidirectional, num_buckets, max_distance): t5_base's encoder and
