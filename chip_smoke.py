@@ -146,7 +146,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    the next key tile's bias, a dq given the forward's lse in log2 units
    (each at FWD_MUTANT_MIN, 2.8x, of the limits or more), dbias without
    delta, dbias with dS rounded to bf16 and a backward given another row's
-   lse rejected, the forward, dq, dk and dv the same bits from two calls;
+   lse rejected, the forward, dq, dk, dv and dbias the same bits from two
+   calls;
    at bloom_560m's shape each kernel's device time (CUDA graph; the
    forward, dq and dk/dv by pasero_torch/scripts/bench_flash_bwd.py's
    time_case) beside the plain version's, its bound (operations or bytes),
@@ -156,7 +157,11 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    times of the biased kernels that flash_bwd.cu's replaced
    (BIAS_FWD_EARLIER_MS, BIAS_BWD_EARLIER_MS; the forward at most its
    library call and at most BIAS_FWD_EARLIER_MS, the backward at most its
-   library call), the biased and bias-free kernels at 16500 keys, and the
+   library call), dbias with the per-sample bias and with a learned (1, H)
+   bias shared over the batch (its time, bound, plain version and library
+   call), each at most its library call and DBIAS_EARLIER_MS (the first
+   design's time, a gate only), the biased and bias-free kernels at 16500
+   keys, and the
    biased forward at every other shape beside its library call where the
    mask fits; a learned bias
    through flash_attention's autograd launching dbias once (the kernels
@@ -206,7 +211,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 19. T5 through the entry points: TextGenerator on the t5-mini anchor
    (pasero_torch/testdata/t5-mini), greedy and beam 5 on deen-mini's
    test.de against the JAX outputs, the encoder through flash_fwd_t5;
-   python -m pasero_torch.cli.train on pasero_torch/testdata/t5_mini.yaml
+   python -m pasero_torch.cli.train on pasero_torch/testdata/t5_mini.yaml,
+   first its first 6 steps in 8 fresh processes at once with CUDA's lazy
+   module loading (none may fault: ROADMAP C.13), then its 20 steps
    against the JAX losses with exact launch counts (the T5 kernels per
    self-attention, the dq kernel's demb instance per table, the bias-free kernels per
    cross-attention, no dbias); t5_base at full width with seeded weights
@@ -1971,11 +1978,15 @@ FLASH_BIAS_SHAPES = [   # (B, H, Hkv, S, D), causal, window, padded, bias kind
     ((1, 2, 2, 16500, 128), True, None, False, "alibi16"),  # past 16384 keys
 ]
 # device ms per call of the biased forward, dq and dk/dv kernels that
-# flash_bwd.cu's replaced (flash_attention.cu's mma.sync kernels) at
+# flash_bwd.cu's replaced (their first, mma.sync design) at
 # bloom_560m's shape (PERF.md, "NVIDIA H100 80GB HBM3, 700.00 W"): a gate
 # (the forward's) and log context, not readings of this run
 BIAS_FWD_EARLIER_MS = 0.5023
 BIAS_BWD_EARLIER_MS = {"dq": 0.7245, "dkv": 0.7445}
+# the bf16 dbias kernel's first design (an mma.sync kernel, since removed)
+# at the same shape: a gate for the per-sample and the shared (1, H) bias,
+# not a reading of this run
+DBIAS_EARLIER_MS = 1.0856
 
 
 def flash_bias_check(case, cuda_tests) -> dict:
@@ -2113,7 +2124,20 @@ def flash_bias_timing(cuda_tests) -> dict:
           f"the biased forward takes {f['ms']:.4f} ms at {(B, H, Hkv, S, D)}, "
           f"more than its library call's {f['library_ms']:.4f} or the "
           f"{BIAS_FWD_EARLIER_MS} of the kernel it replaced")
+    del q, k, v, do, mask, bias, out, lse, delta
     torch.cuda.empty_cache()
+    res["dbias_shared"] = shared_dbias_timing(cuda_tests, (B, H, Hkv, S, D),
+                                              causal, "phase 16")
+    for name, r in (("a per-sample", res["dbias"]),
+                    ("a shared (1, H)", res["dbias_shared"])):
+        check(r["ms"] <= DBIAS_EARLIER_MS and r["ms"] <= r["library_ms"],
+              f"the bf16 dbias with {name} bias takes {r['ms']:.4f} ms, more "
+              f"than its first design's {DBIAS_EARLIER_MS} or its library "
+              f"call's {r['library_ms']:.4f}")
+        log(f"phase 16: the bf16 dbias with {name} bias {r['ms']:.4f} ms "
+            f"against its bound {r['bound_ms']:.4f} ({r['bound_by']}), its "
+            f"first design's {DBIAS_EARLIER_MS} (PERF.md) and its library "
+            f"call's {r['library_ms']:.4f}")
     return res
 
 
@@ -2392,7 +2416,7 @@ FLASH_T5_SHAPES = [  # (B, H, Hkv, S, D), causal, window, padded, bidirectional
 T5_TIMED = ((32, 12, 12, 512, 64), (1, 12, 12, 32768, 64))  # bidirectional
 T5_DECODER = (32, 12, 12, 128, 64)   # t5_base's decoder, causal
 # device ms per call of the T5 kernels that flash_bwd.cu's replaced
-# (flash_attention.cu's mma.sync kernels) at T5_TIMED's shapes (PERF.md,
+# (their first, mma.sync design) at T5_TIMED's shapes (PERF.md,
 # "NVIDIA H100 80GB HBM3, 700.00 W"): gates where the library call does not
 # fit, not readings of this run
 T5_BWD_EARLIER_MS = {T5_TIMED[0]: {"dq": 0.4265, "dkv": 0.4693},
@@ -2798,6 +2822,44 @@ def phase19() -> dict:
     os.makedirs(model_dir)
     ckpt = os.path.join(ROOT, "build", "smoke-t5-init.npz")
     cli.write_initial_weights(ckpt, T5_CONFIG)
+    with open(T5_TRAIN_GOLDEN) as f:
+        golden = json.load(f)["steps"]
+    # its first 6 steps in 8 fresh processes at once, CUDA's lazy module
+    # loading, each within TRAIN_RTOL of the JAX losses (ROADMAP C.13: step
+    # 5 faulted in about one run of four before PR 20)
+    t0 = time.perf_counter()
+    runs = []
+    for i in range(8):
+        run_dir = os.path.join(ROOT, "build", f"smoke-t5-fresh{i}")
+        shutil.rmtree(run_dir, ignore_errors=True)
+        os.makedirs(run_dir)
+        flags = cli.train_flags(run_dir, ckpt, T5_CONFIG)
+        flags[flags.index("--max-steps") + 1] = "6"
+        runs.append(subprocess.Popen(
+            [sys.executable, "-m", "pasero_torch.cli.train", *flags],
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True, env=dict(os.environ, CUDA_MODULE_LOADING="LAZY")))
+    try:
+        for i, run in enumerate(runs):
+            out = run.communicate(timeout=600)[0]
+            check(run.returncode == 0, f"fresh t5_mini CLI run {i} failed:"
+                  f"\n{out[-3000:]}")
+            logs = cli.parse_log(out)
+            check([l["step"] for l in logs] == list(range(1, 7)),
+                  f"fresh run {i} logged steps {[l['step'] for l in logs]}")
+            for got, want in zip(logs, golden):
+                check(abs(got["loss"] - want["loss"]) <= TRAIN_RTOL * abs(
+                    want["loss"]), f"fresh run {i} step {got['step']}: loss "
+                    f"{got['loss']} vs JAX {want['loss']}")
+    finally:   # a failed check leaves no run behind
+        for run in runs:
+            if run.poll() is None:
+                run.kill()
+                run.wait()
+    log(f"phase 19: the t5_mini CLI's first 6 steps in 8 fresh processes "
+        f"with lazy module loading: none faulted, every loss within "
+        f"{TRAIN_RTOL:.0%} of JAX's, {time.perf_counter() - t0:.1f} s")
+    res["fresh_runs"] = len(runs)
     cmd = [sys.executable, "-m", "pasero_torch.cli.train",
            *cli.train_flags(model_dir, ckpt, T5_CONFIG)]
     t0 = time.perf_counter()
@@ -2807,8 +2869,6 @@ def phase19() -> dict:
     out = proc.stdout + proc.stderr
     check(proc.returncode == 0, f"cli.train (T5) failed:\n{out[-4000:]}")
     logs = cli.parse_log(out)
-    with open(T5_TRAIN_GOLDEN) as f:
-        golden = json.load(f)["steps"]
     check([l["step"] for l in logs] == [g["step"] for g in golden],
           f"logged steps {[l['step'] for l in logs]}")
     worst = 0.0
@@ -3085,32 +3145,35 @@ def f32_timing(kind, cuda_tests) -> dict:
 DBIAS_F32_EARLIER_MS = 0.8678
 
 
-def f32_shared_dbias_timing(cuda_tests) -> dict:
-    """The float32 dbias kernel at F32_TIMED["alibi"]'s shape with a learned
-    (1, H) bias, shared over the batch (summed inside the kernel): device
-    ms per call (CUDA graph; least and greatest replay beside), the bound
-    (the two split-TF32 products; q, k, v, dO, lse and delta, the bias read
-    over the visible pairs once and dbias written whole once), the plain
-    version's ms and the library yardstick (float32 SDPA with the bias as
-    an attn_mask, its backward with the mask's gradient summed over the
-    batch)."""
+def shared_dbias_timing(cuda_tests, shape, causal, phase,
+                        dtype=None) -> dict:
+    """The dbias kernel of q's ``dtype`` (bf16 unless given) at ``shape``
+    with a learned (1, H) bias, shared over the batch (summed inside the
+    kernel): device ms per call (CUDA graph; least and greatest replay
+    beside), the bound (the two products at the bf16 rate, in float32 as
+    split TF32; q, k, v, dO, lse and delta, the bias read over the visible
+    pairs once and dbias written whole once), the plain version's ms and
+    the library yardstick (SDPA with the bias as an attn_mask, its backward
+    with the mask's gradient summed over the batch)."""
     import torch
     import torch.nn.functional as F
     from pasero_torch.ops.flash_attention import (flash_bwd_dbias,
                                                   flash_bwd_dq,
                                                   flash_dbias_plain,
                                                   flash_fwd, visible)
-    (B, H, Hkv, S, D), causal = F32_TIMED["alibi"]
+    dtype = dtype or torch.bfloat16
+    B, H, Hkv, S, D = shape
     q, k, v, do, mask = cuda_tests.flash_inputs(B, H, Hkv, S, D, False,
-                                                dtype=torch.float32)
+                                                dtype=dtype)
     bias = cuda_tests.flash_bias("learned_1xH", B, H, S, mask)
     args = (D ** -0.5, causal, None)
     out, lse = flash_fwd(q, k, v, mask, *args, bias)
     _, delta = flash_bwd_dq(q, k, v, mask, out, lse, do, *args, bias)
     pairs = float(visible(mask, S, causal, None).expand(B, 1, S, S).sum()) * H
-    ops = 2 * 2.0 * pairs * D / FP32_TC_FLOPS
-    nbytes = 4.0 * ((2 * H + 2 * Hkv) * B * S * D + 2 * B * H * S
-                    + pairs / B + H * S * S)
+    f32 = dtype == torch.float32
+    ops = 2 * 2.0 * pairs * D / (FP32_TC_FLOPS if f32 else BF16_FLOPS)
+    nbytes = (4.0 if f32 else 2.0) * (2 * H + 2 * Hkv) * B * S * D + \
+        4.0 * (2 * B * H * S + pairs / B + H * S * S)
     mem = nbytes / HBM_BYTES_PER_S
     res = {"shape": [B, H, Hkv, S, D], "causal": causal, "bias": [1, H],
            "bound_ms": max(ops, mem) * 1e3, "ops_bound_ms": ops * 1e3,
@@ -3125,7 +3188,8 @@ def f32_shared_dbias_timing(cuda_tests) -> dict:
     # takes it, its gradient summed over the batch after
     lib_mask = bias.masked_fill(torch.ones(S, S, dtype=torch.bool,
                                            device=q.device).triu(1),
-                                float("-inf")).expand(B, H, S, S).contiguous()
+                                float("-inf")).to(dtype).expand(
+                                    B, H, S, S).contiguous()
 
     def sdpa(q, k, v, m):
         return F.scaled_dot_product_attention(q, k, v, attn_mask=m,
@@ -3135,13 +3199,13 @@ def f32_shared_dbias_timing(cuda_tests) -> dict:
     res["library_ms"] = lib["bwd"]
     del q, k, v, do, out, lse, delta, bias, lib_mask
     torch.cuda.empty_cache()
-    log(f"phase 20: float32 dbias with a shared (1, {H}) bias at "
-        f"{(B, H, Hkv, S, D)} causal {causal}: device ms per call (CUDA "
-        f"graph) {res['ms']:.4f} (replays {res['min_ms']:.4f}-"
+    log(f"{phase}: {'float32' if f32 else 'bf16'} dbias with a shared (1, "
+        f"{H}) bias at {(B, H, Hkv, S, D)} causal {causal}: device ms per "
+        f"call (CUDA graph) {res['ms']:.4f} (replays {res['min_ms']:.4f}-"
         f"{res['max_ms']:.4f}), bound {res['bound_ms']:.4f} "
-        f"({res['bound_by']}: split TF32 {res['ops_bound_ms']:.4f}, bytes "
-        f"{res['bytes_bound_ms']:.4f}), plain {res['plain_ms']:.4f}, library "
-        f"{res['library_ms']:.4f}")
+        f"({res['bound_by']}: {'split TF32' if f32 else 'bf16'} "
+        f"{res['ops_bound_ms']:.4f}, bytes {res['bytes_bound_ms']:.4f}), "
+        f"plain {res['plain_ms']:.4f}, library {res['library_ms']:.4f}")
     return res
 
 
@@ -3289,7 +3353,8 @@ def phase20() -> dict:
     # timed once the CLIs have ended, alone on the card
     for kind in F32_TIMED:
         res["timing"][kind] = f32_timing(kind, cuda_tests)
-    res["dbias_shared"] = f32_shared_dbias_timing(cuda_tests)
+    res["dbias_shared"] = shared_dbias_timing(
+        cuda_tests, *F32_TIMED["alibi"], "phase 20", torch.float32)
     for name, r in (("a per-sample", res["timing"]["alibi"]["dbias"]),
                     ("a shared (1, H)", res["dbias_shared"])):
         check(r["ms"] <= DBIAS_F32_EARLIER_MS and r["ms"] <= r["library_ms"],
@@ -3581,8 +3646,7 @@ def main():
         entry = {
             "name": name,
             "route": "cuda",
-            "source": ("pasero_torch/csrc/flash_attention.cu" if key == "dbias"
-                       else "pasero_torch/csrc/flash_bwd.cu"),
+            "source": "pasero_torch/csrc/flash_bwd.cu",
             "replaces": f"pasero_tpu/ops/flash_attention.py:{line}",
             "kernel_body": f"pasero_tpu/ops/flash_attention.py:{body}",
             "launches": alibi["cli"]["launches"][name],
@@ -3610,6 +3674,15 @@ def main():
                                    "bias_free_ms": long["none"][key]})
         if key == "fwd":
             entry["by_shape"] = biased["fwd_by_shape"]
+        if key == "dbias":
+            entry["bodies"] = [
+                "flash_bwd.cu dbias_kernel<DP, false> (per-sample bias, dS "
+                "stored by TMA from its bias boxes)",
+                "flash_bwd.cu dbias_kernel<DP, true> (a bias shared over the "
+                "batch, summed in registers)"]
+            entry["shared_1xH"] = {k: biased["dbias_shared"][k] for k in (
+                "ms", "min_ms", "max_ms", "plain_ms", "bound_ms", "bound_by",
+                "ops_bound_ms", "bytes_bound_ms", "library_ms", "bias")}
         kernels.append(entry)
     # the T5 kernels: launches of phase 19's T5 training CLI and of
     # t5_base's full-width steps; numbers at t5_base's encoder shape, then

@@ -77,16 +77,17 @@
 //   dq = scale dS . k,  dk = scale sum over the group of dS^T . q,
 //   dv = sum over the group of p^T . dO           (p and dS rounded to bf16)
 //
-// with the visibility rules of flash_attention.cu (kv_mask, causal by slot
-// index, a sliding window). Replaces the TPU kernels
+// where key j is visible from row i when kv_mask[b, j] is set, j <= i
+// (causal, by slot index) and i - j < window (a sliding window), as
+// pasero_tpu/ops/flash_attention.py applies them. Replaces the TPU kernels
 // pasero_tpu/ops/flash_attention.py:_bwd_dq_packed_kernel (:963) and
 // _bwd_dkv_packed_kernel (:1018), through _bwd_packed (:1086), and the
 // bias-free mode of the streamed _bwd_stream (:738): one design takes any
 // length, as its K/V and Q/dO tiles stream through shared memory.
 //
-// The same two kernels, instanced by bias kind (KIND, flash_attention.cu's
-// NO_BIAS, DENSE_BIAS, T5_BIAS), compute the biased and the T5 backward, the
-// bias re-added to the recomputed scores:
+// The same two kernels, instanced by bias kind (KIND: NO_BIAS, DENSE_BIAS,
+// T5_BIAS), compute the biased and the T5 backward, the bias re-added to the
+// recomputed scores:
 //
 //   p[i, j]  = exp(scale q[i] . k[j] + bias[i, j] - lse[i])     (natural units)
 //
@@ -97,10 +98,10 @@
 // table and the host's bucket of every distance (T5_BIAS). With a bias the
 // exponent is taken as exp2((s scale + b - lse) log2 e), lse unscaled: the
 // encoder ALiBi's -1e9 has an ulp of 64, so a change of base before the
-// subtraction would lose it (flash_attention.cu); the bias-free instances
-// keep their log2 units, and their code: each bias branch is compiled out of
-// them. A dense bias costs bytes (at bloom_560m's causal (4, 16, 2048) its
-// visible half is 537 MB, 0.160 ms at 3.35 TB/s, per kernel), so it streams
+// subtraction would lose it; the bias-free instances keep their log2 units,
+// and their code: each bias branch is compiled out of them. A dense bias
+// costs bytes (at bloom_560m's causal (4, 16, 2048) its visible half is 537
+// MB, 0.160 ms at 3.35 TB/s, per kernel), so it streams
 // with the ring: the TMA thread copies each tile's bias with the K/V (dq) or
 // Q/dO (dk/dv) tiles, in boxes of 64 rows x 32 keys of a float32 tensor map
 // under the 128-byte swizzle (the swizzle keeps the consumers' reads of the
@@ -136,10 +137,19 @@
 // writes; it stays several times above that floor (chip_smoke.py's
 // adds_ms against adds_bound_ms).
 //
-// The dbias kernel is flash_attention.cu's; the float32 kernels
-// of every kind flash_f32.cu's; the
-// PTX wrappers for mbarriers, descriptors, the wgmma fences and the wgmma
-// with A from registers come from wgmma_gemm.cuh (the fused-CE mainloop).
+// The dense bias's gradient (dbias, replacing _dbias_kernel :1160 through
+// _compute_dbias :1213) is dbias_kernel, on the dense-bias dq kernel's ring
+// (stream_tile): dS = P (dP - delta) in float32, written whole. What bounds
+// it: bytes. At bloom_560m's causal (4, 16, 2048) with a per-sample bias it
+// reads the visible half of the bias (537 MB) and writes dbias whole (1.07
+// GB), 0.5012 ms at 3.35 TB/s with the operands, against 0.0348 ms of
+// products. So each tile's dS leaves by TMA stores from the bias boxes it
+// was formed beside, the tiles no row sees as TMA stores of a zeroed box,
+// and a bias shared over the batch is summed in registers, batch by batch,
+// and written once (see dbias_kernel). The float32 kernels of every kind
+// are flash_f32.cu's; the PTX wrappers for mbarriers, descriptors, the
+// wgmma fences and the wgmma with A from registers come from wgmma_gemm.cuh
+// (the fused-CE mainloop).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -164,8 +174,7 @@ using wgmma_gemm::wgmma_wait;
 
 typedef __nv_bfloat16 bf16;
 
-// What the scores get added, as flash_attention.cu names them: nothing, a
-// dense float32 bias, or T5's table.
+// What the scores get added: nothing, a dense float32 bias, or T5's table.
 enum BiasKind : int { NO_BIAS = 0, DENSE_BIAS = 1, T5_BIAS = 2 };
 
 constexpr int THREADS = 384;   // dk/dv: a producer and two consumer warpgroups
@@ -217,9 +226,9 @@ __device__ __forceinline__ void tma_load_3d_hint(uint32_t dst, const CUtensorMap
       : "memory");
 }
 
-// A 3-D box (64 columns, 64 rows, 1) from shared memory into a tensor map's
-// array, as one bulk group; the caller waits for its reads (store_wait_read)
-// before the tile is written again.
+// A 3-D box (a tensor map's box, from shared memory) into the map's array,
+// as one bulk group; the caller waits for its reads (store_wait_read) before
+// the box is written again.
 __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, uint32_t src, int c0, int c1,
                                              int c2) {
   asm volatile(
@@ -228,8 +237,11 @@ __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, uint32_t sr
       "r"(c0), "r"(c1), "r"(c2), "r"(src)
       : "memory");
 }
+// Until every bulk group of this thread but the newest N has read its
+// shared memory.
+template <int N = 0>
 __device__ __forceinline__ void store_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
 }
 // This thread's writes to shared memory made visible to the TMA unit.
 __device__ __forceinline__ void fence_async_shared() {
@@ -670,7 +682,7 @@ __host__ __device__ constexpr size_t fwd_smem_bytes() {
 // producer warpgroup's warps 1-3 copy the visible elements by cp.async; the
 // consumers add it to the scaled score before the mask (an element of no
 // visible score may hold bias never copied) and keep natural units, the lse
-// that the dense-bias dq, dk/dv and flash_attention.cu's dbias_kernel read.
+// that the dense-bias dq, dk/dv and dbias_kernel read.
 // One block per item: causal items differ in length.
 template <int KIND, int DP, int NC>
 __global__ void __launch_bounds__(128 * (NC + 1), 1)
@@ -1249,7 +1261,57 @@ __device__ __forceinline__ void t5_diagonals_and_demb(
       while (rgi + STAGES - 1 <= gi) reduce();
     }
   }
+  // every warp has written the last tile's facts before any reads them
+  bias_threads_sync();
   while (rgi < gi) reduce();
+}
+
+// The producer warp's step of dq and dbias: key tile k0 of K/V plane bk
+// into a stage once the consumers have freed it (its empty barrier's phase
+// `phase`): K and V at kst, and with a dense bias by TMA the boxes at bst
+// (plane `plane`, L2 policy `policy`) that visible scores of the 64 NC
+// queries from q0 need, all counted on its full barrier; then the tile's key
+// flags (fl; mg the batch's key mask) and the warp's arrival.
+template <int KIND, int DP, int NC>
+__device__ __forceinline__ void stream_tile(const CUtensorMap* map_k, const CUtensorMap* map_v,
+                                            const CUtensorMap* map_b, const Bias& bias,
+                                            uint32_t kst, uint32_t bst, int* fl, uint32_t full,
+                                            uint32_t empty, int phase, int k0, int q0, int bk,
+                                            int plane, const uint8_t* mg, int Sq, int Sk,
+                                            int causal, int window, uint64_t policy, int lane) {
+  constexpr int TB = tile_bytes<DP>();
+  mbar_wait(empty, phase);
+  if (lane == 0) {
+    // DENSE_BIAS by TMA: the boxes (consumer g, 32-key half hf) that
+    // visible scores need, on the K/V tiles' barrier
+    uint32_t boxes = 0;
+    if constexpr (KIND == DENSE_BIAS) {
+      if (bias.tma)
+        for (int g = 0; g < NC; ++g)
+          for (int hf = 0; hf < 2; ++hf)
+            if (box_needed(q0 + 64 * g, k0 + 32 * hf, Sq, Sk, causal, window))
+              boxes |= 1u << (2 * g + hf);
+    }
+    mbar_expect_tx(full, 2 * TB + __popc(boxes) * BOX * 4);
+    load_tile<DP>(kst, map_k, full, k0, bk);
+    load_tile<DP>(kst + TB, map_v, full, k0, bk);
+    if constexpr (KIND == DENSE_BIAS) {
+      for (int b2 = 0; b2 < 2 * NC; ++b2)
+        if (boxes >> b2 & 1)
+          tma_load_3d_hint(bst + b2 * BOX * 4, map_b, full, k0 + 32 * (b2 & 1),
+                           q0 + 64 * (b2 >> 1), plane, policy);
+    }
+  }
+  bool all = true;
+  for (int i = lane; i < TILE; i += 32) {
+    const bool ok = k0 + i < Sk && mg[k0 + i];
+    fl[i] = ok;
+    all = all && ok;
+  }
+  all = __all_sync(0xffffffffu, all);
+  if (lane == 0) fl[TILE] = all;   // no key of the tile masked
+  __syncwarp();
+  if (lane == 0) mbar_arrive(full);
 }
 
 // With a bias, the producer's warps 1-3 stage each K/V tile's bias beside it
@@ -1409,39 +1471,11 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1)
       const uint8_t* mg = kv_mask + (int64_t)x.b * Sk;
       const int plane = x.b * bias.bs + x.h * bias.hs;   // DENSE_BIAS by TMA
       for (int it = 0; it < x.iters; ++it, ++gi) {
-        const int s = gi % STAGES, k0 = (x.kt0 + it) * TILE;
-        mbar_wait(empty + 8 * s, ((gi / STAGES) & 1) ^ 1);
-        if (lane == 0) {
-          // DENSE_BIAS by TMA: the boxes (consumer g, 32-key half hf) that
-          // visible scores need, on the K/V tiles' barrier
-          uint32_t boxes = 0;
-          if constexpr (KIND == DENSE_BIAS) {
-            if (bias.tma)
-              for (int g = 0; g < NC; ++g)
-                for (int hf = 0; hf < 2; ++hf)
-                  if (box_needed(x.q0 + 64 * g, k0 + 32 * hf, Sq, Sk, causal, window))
-                    boxes |= 1u << (2 * g + hf);
-          }
-          mbar_expect_tx(full + 8 * s, 2 * TB + __popc(boxes) * BOX * 4);
-          load_tile<DP>(st_s + s * 2 * TB, &map_k, full + 8 * s, k0, x.bk);
-          load_tile<DP>(st_s + s * 2 * TB + TB, &map_v, full + 8 * s, k0, x.bk);
-          if constexpr (KIND == DENSE_BIAS) {
-            for (int b2 = 0; b2 < 2 * NC; ++b2)
-              if (boxes >> b2 & 1)
-                tma_load_3d_hint(bias_s + (s * BF + b2 * BOX) * 4, &map_b, full + 8 * s,
-                                 k0 + 32 * (b2 & 1), x.q0 + 64 * (b2 >> 1), plane, policy);
-          }
-        }
-        bool all = true;
-        for (int i = lane; i < TILE; i += 32) {
-          const bool ok = k0 + i < Sk && mg[k0 + i];
-          flags[s * 128 + i] = ok;
-          all = all && ok;
-        }
-        all = __all_sync(0xffffffffu, all);
-        if (lane == 0) flags[s * 128 + TILE] = all;   // no key of the tile masked
-        __syncwarp();
-        if (lane == 0) mbar_arrive(full + 8 * s);
+        const int s = gi % STAGES;
+        stream_tile<KIND, DP, NC>(&map_k, &map_v, &map_b, bias, st_s + s * 2 * TB,
+                                  bias_s + s * BF * 4, flags + s * 128, full + 8 * s,
+                                  empty + 8 * s, ((gi / STAGES) & 1) ^ 1, (x.kt0 + it) * TILE,
+                                  x.q0, x.bk, plane, mg, Sq, Sk, causal, window, policy, lane);
       }
     };
     int gi = 0;   // the ring's tiles so far
@@ -2069,6 +2103,337 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
+// -- dbias ---------------------------------------------------------------------------
+
+// The keys a block of a bias shared over the batch takes (KT = 2 tiles): its
+// dS sums stay in a consumer thread's registers across the batch (64 floats).
+constexpr int DBIAS_KEYS = 128;
+
+// The resident Q and dO buffers of dbias: two where a block walks the batch
+// at D <= 64 (the next batch's tiles load while this one's run), else one
+// (at D = 128 two do not fit beside the stages).
+template <int DP, bool SUM>
+__host__ __device__ constexpr int dbias_buffers() { return SUM && DP == 64 ? 2 : 1; }
+
+// Shared memory of dbias: dq's with a dense bias (two consumers), QB resident
+// buffers, a zeroed bias box, the barriers (ready and released per buffer,
+// full and empty per stage) and 1024 bytes to align.
+template <int DP, bool SUM>
+__host__ __device__ constexpr size_t dbias_smem_bytes() {
+  constexpr int ST = stages<DP, DENSE_BIAS>(), QB = dbias_buffers<DP, SUM>();
+  return (size_t)(4 * QB + 2 * ST) * tile_bytes<DP>() +
+         (size_t)(ST * dq_bias_floats<DENSE_BIAS, 2>() + BOX + ST * 128) * 4 +
+         8 * (2 * QB + 2 * ST) + 1024;
+}
+
+// A shared bias is read once per batch: its boxes keep L2's normal policy.
+__device__ __forceinline__ uint64_t evict_normal_policy() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_normal.b64 %0, 1.0;\n" : "=l"(policy));
+  return policy;
+}
+
+// dbias = dS = P (dP - delta), float32 and unrounded, zero where a key is
+// not visible, on dq's ring with a dense bias (two consumers of 64 query
+// rows; the producer thread streams K, V and the bias boxes by TMA, or warps
+// 1-3 copy the bias by cp.async where its rows are not 16-byte aligned).
+// Block (output plane o, 128-query block, key range): the output planes vary
+// fastest and the last (longest causal) query blocks come first, so every
+// plane's longest block starts before any plane's next. Per tile a consumer
+// issues S = Q K^T and dP = dO V^T (m64n64) and forms dS in its registers,
+// in natural units against the forward's lse, as the forward adds the bias.
+//   A per-sample bias (SUM false): o = b H + h and every key tile. The
+// consumer writes each tile's dS into the bias boxes it has just read (the
+// same swizzled layout) and stores them by TMA; its stage is freed once the
+// next tile's stores are issued and these have been read. The producer
+// warpgroup's warps 1-3 store the key tiles that no row of the block sees
+// from a zeroed box.
+//   A bias shared over the batch (SUM true, B > 1): o = h and the KT tiles
+// of keys [z DBIAS_KEYS, ...); for each batch in order 0 .. B - 1 the
+// producer loads its Q and dO and streams its K and V tiles (the bias's
+// boxes again, from L2), and each tile's dS is added to the thread's
+// registers (0 + dS first), stored once with the last batch: no atomics,
+// and the batches summed in the order of the plain version.
+// Without a tensor map (Sk % 4 != 0) the dS leaves by plain stores from the
+// registers and the zeros by plain stores of warps 1-3.
+template <int DP, bool SUM>
+__global__ void __launch_bounds__(384, 1)
+    dbias_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_do,
+                 const __grid_constant__ CUtensorMap map_k, const __grid_constant__ CUtensorMap map_v,
+                 const __grid_constant__ CUtensorMap map_b, const __grid_constant__ CUtensorMap map_db,
+                 const uint8_t* __restrict__ kv_mask, const Bias bias,
+                 const float* __restrict__ lse, const float* __restrict__ delta,
+                 float* __restrict__ dbias, int B, int H, int Hkv, int Sq, int Sk, float scale,
+                 int causal, int window) {
+  constexpr int NC = 2, ROWS_NC = 64 * NC, TB = tile_bytes<DP>();
+  constexpr int STAGES = stages<DP, DENSE_BIAS>(), BF = dq_bias_floats<DENSE_BIAS, NC>();
+  constexpr int QB = dbias_buffers<DP, SUM>();
+  constexpr int KT = SUM ? DBIAS_KEYS / TILE : 1;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  // buffer p: NC Q tiles, then NC dO tiles; the stages' K and V tiles, their
+  // bias boxes, the zeroed box, the key flags, the barriers
+  const uint32_t qd_s = base, st_s = base + QB * 2 * NC * TB;
+  const uint32_t bias_s = st_s + STAGES * 2 * TB, zero_s = bias_s + STAGES * BF * 4;
+  float* bias_f = reinterpret_cast<float*>(smem_raw + (bias_s - raw));
+  int* flags = reinterpret_cast<int*>(smem_raw + (zero_s + BOX * 4 - raw));
+  const uint32_t ready = zero_s + BOX * 4 + STAGES * 128 * 4, qfree = ready + 8 * QB;
+  const uint32_t full = qfree + 8 * QB, empty = full + 8 * STAGES;
+
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * ROWS_NC;
+  const int o = blockIdx.x, h = SUM ? o : o % H;
+  const int b_begin = SUM ? 0 : o / H, b_end = SUM ? B : b_begin + 1;
+  const int nkt = (Sk + TILE - 1) / TILE;
+  const int ka = SUM ? blockIdx.z * KT : 0, kb = SUM ? min(ka + KT, nkt) : nkt;
+  // the key tiles some row of the block sees (query_item's), and of those
+  // the block's: streamed for each batch; [ka, lo) and [hi, kb) are zeros
+  int kt0 = 0, kt1 = nkt;
+  if (causal) kt1 = min(kt1, (q0 + ROWS_NC - 1) / TILE + 1);
+  if (window > 0) kt0 = max(0, (q0 - window + 1) / TILE);
+  const int lo = min(max(kt0, ka), kb), hi = max(lo, min(kt1, kb));
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int p = 0; p < QB; ++p) {
+      mbar_init(ready + 8 * p, 1);
+      mbar_init(qfree + 8 * p, NC);   // each consumer, done with the buffer
+    }
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 2 + bias_arrivals<DENSE_BIAS>(bias.tma));
+      mbar_init(empty + 8 * s, NC);   // each consumer, its stores read
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  float* zf = reinterpret_cast<float*>(smem_raw + (zero_s - raw));
+  for (int i = threadIdx.x; i < BOX; i += 384) zf[i] = 0.f;
+  fence_async_shared();
+  __syncthreads();
+
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x >= 32) {
+      // warps 1-3: the bias by cp.async where it has no tensor map, then the
+      // zeros of the key tiles no row of the block sees
+      const int t = threadIdx.x - 32;
+      if (!bias.tma && lo < hi) {
+        const uint64_t policy = SUM ? evict_normal_policy() : evict_first_policy();
+        int gi = 0;
+        for (int b = b_begin; b < b_end; ++b) {
+          const float* src =
+              bias.rows + ((int64_t)b * bias.bs + (int64_t)h * bias.hs) * Sq * bias.ld;
+          for (int kt = lo; kt < hi; ++kt, ++gi) {
+            const int s = gi % STAGES;
+            mbar_wait(empty + 8 * s, ((gi / STAGES) & 1) ^ 1);
+            copy_bias<ROWS_NC, TILE>(bias_s + s * BF * 4, src, q0, kt * TILE, Sq, Sk, bias.ld,
+                                     causal, window, t, policy);
+            cp_async_arrive(full + 8 * s);
+          }
+        }
+        cp_async_wait_all();
+      }
+      if (bias.tma) {
+        if (t == 0) {
+          auto zeros = [&](int kt) {
+            for (int g = 0; g < NC && q0 + 64 * g < Sq; ++g)
+              for (int hf = 0; hf < 2; ++hf)
+                tma_store_3d(&map_db, zero_s, kt * TILE + 32 * hf, q0 + 64 * g, o);
+          };
+          for (int kt = ka; kt < lo; ++kt) zeros(kt);
+          for (int kt = hi; kt < kb; ++kt) zeros(kt);
+          store_wait_read();
+        }
+      } else {
+        float* og = dbias + (int64_t)o * Sq * Sk;
+        const int c1 = min(kb * TILE, Sk);
+        for (int r = q0; r < min(q0 + ROWS_NC, Sq); ++r)
+          for (int c = ka * TILE + t; c < c1; c += BIAS_THREADS)
+            if (c < lo * TILE || c >= hi * TILE) og[(int64_t)r * Sk + c] = 0.f;
+      }
+      return;
+    }
+    const int lane = threadIdx.x;
+    const uint64_t policy = SUM ? evict_normal_policy() : evict_first_policy();
+    int gi = 0;   // the ring's tiles so far
+    for (int n = 0, b = b_begin; b < b_end && lo < hi; ++n, ++b) {
+      const int p = n % QB, bh = b * H + h, bk = b * Hkv + h / (H / Hkv);
+      mbar_wait(qfree + 8 * p, ((n / QB) & 1) ^ 1);
+      if (lane == 0) {
+        mbar_expect_tx(ready + 8 * p, 2 * NC * TB);
+        for (int g = 0; g < NC; ++g) {
+          load_tile<DP>(qd_s + (2 * NC * p + g) * TB, &map_q, ready + 8 * p, q0 + 64 * g, bh);
+          load_tile<DP>(qd_s + (2 * NC * p + NC + g) * TB, &map_do, ready + 8 * p, q0 + 64 * g,
+                        bh);
+        }
+      }
+      const uint8_t* mg = kv_mask + (int64_t)b * Sk;
+      const int plane = b * bias.bs + h * bias.hs;
+      for (int kt = lo; kt < hi; ++kt, ++gi) {
+        const int s = gi % STAGES;
+        stream_tile<DENSE_BIAS, DP, NC>(&map_k, &map_v, &map_b, bias, st_s + s * 2 * TB,
+                                        bias_s + s * BF * 4, flags + s * 128, full + 8 * s,
+                                        empty + 8 * s, ((gi / STAGES) & 1) ^ 1, kt * TILE, q0,
+                                        bk, plane, mg, Sq, Sk, causal, window, policy, lane);
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int g = wg - 1, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const bool leader = threadIdx.x % 128 == 0;   // stores, frees the stage
+  const int row0 = q0 + 64 * g + 16 * warp + lane / 4;   // rows row0, row0 + 8
+  const int first = q0 + 64 * g, last = min(first + 63, Sq - 1);
+  // the thread's bias and dS in stage 0's boxes: its first row in its
+  // consumer's boxes, the swizzled offsets of its keys by 8-key group
+  float* bias_t = bias_f + 2 * g * BOX + (16 * warp + lane / 4) * 32;
+  int boff[4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+    boff[a] = ((2 * a + (lane % 4) / 2) ^ (lane / 4)) * 4 + (lane % 2) * 2;
+  float* og = dbias + (int64_t)o * Sq * Sk;
+  float acc[KT][32];   // SUM: the tiles' dS summed over the batch
+#pragma unroll
+  for (int j = 0; j < KT; ++j)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[j][i] = 0.f;
+  int gi = 0, held = -1;   // the ring's tiles so far; the stage of the stores in flight
+
+  // tile kt of batch n (stage gi % STAGES): its dS into ds, with the rows'
+  // lse and delta ls, dl and the batch's resident Q and dO at qt, dot
+  auto tile_ds = [&](float (&ds)[32], int kt, int s, uint32_t qt, uint32_t dot,
+                     const float (&ls)[2], const float (&dl)[2]) {
+    const int k0 = kt * TILE;
+    const bool skip = first >= Sq || (causal && k0 > last) ||
+                      (window > 0 && k0 + TILE - 1 <= first - window);
+    if (skip) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) ds[i] = 0.f;
+      return;
+    }
+    const uint32_t kst = st_s + s * 2 * TB, vst = kst + TB;
+    float dp[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kd = 0; kd < DP / 16; ++kd) wgmma_ss_n64(ds, desc_k(qt, kd), desc_k(kst, kd), kd);
+    wgmma_commit();
+#pragma unroll
+    for (int kd = 0; kd < DP / 16; ++kd) wgmma_ss_n64(dp, desc_k(dot, kd), desc_k(vst, kd), kd);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(ds);
+    // p = exp(s scale + bias - lse) in natural units, zero where a key is
+    // not visible
+    const float* bt = bias_t + s * BF;
+    const int* fl = flags + s * 128;
+    bool clear = fl[TILE] && row0 + 8 < Sq;
+    if (causal) clear = clear && k0 + TILE - 1 <= row0;
+    if (window > 0) clear = clear && row0 + 8 - k0 < window;
+    if (__all_sync(0xffffffffu, clear)) {
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const float2 bb = dq_bias2<DENSE_BIAS>(bt, j, boff);
+        ds[2 * j] = exp2f((fmaf(ds[2 * j], scale, bb.x) - ls[j & 1]) * LOG2E);
+        ds[2 * j + 1] = exp2f((fmaf(ds[2 * j + 1], scale, bb.y) - ls[j & 1]) * LOG2E);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const float2 bb = dq_bias2<DENSE_BIAS>(bt, j, boff);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 2 * j + e, r = j & 1, ci = acc_col(i, lane);
+          const int row = row0 + 8 * r, col = k0 + ci;
+          bool ok = fl[ci] && row < Sq;
+          if (causal) ok = ok && col <= row;
+          if (window > 0) ok = ok && row - col < window;
+          const float pr = exp2f((fmaf(ds[i], scale, e ? bb.y : bb.x) - ls[r]) * LOG2E);
+          ds[i] = ok ? pr : 0.f;
+        }
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(dp);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) ds[i] *= dp[i] - dl[(i >> 1) & 1];
+  };
+  // tile kt's result x out of stage s: by TMA from its bias boxes (the
+  // stage freed once the next tile's stores are issued and these read), or
+  // by plain stores; with `store` false only the stage freed
+  auto finish = [&](const float (&x)[32], int kt, int s, bool store) {
+    if (store && bias.tma) {
+      float* bt = bias_t + s * BF;
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+        *reinterpret_cast<float2*>(bt + (j >> 3) * BOX + (j & 1) * 8 * 32 + boff[(j >> 1) & 3]) =
+            make_float2(x[2 * j], x[2 * j + 1]);
+      fence_async_shared();
+      consumer_sync(g);
+      if (leader) {
+        for (int hf = 0; hf < 2; ++hf)
+          tma_store_3d(&map_db, bias_s + (s * BF + (2 * g + hf) * BOX) * 4,
+                       kt * TILE + 32 * hf, first, o);
+        if (held >= 0) {   // the last tile's two groups read
+          store_wait_read<2>();
+          mbar_arrive(empty + 8 * held);
+        }
+      }
+      held = s;
+      return;
+    }
+    if (store) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int row = row0 + 8 * ((i >> 1) & 1), col = kt * TILE + acc_col(i, lane);
+        if (row < Sq && col < Sk) og[(int64_t)row * Sk + col] = x[i];
+      }
+    }
+    consumer_sync(g);
+    if (leader) mbar_arrive(empty + 8 * s);
+  };
+
+  for (int n = 0, b = b_begin; b < b_end && lo < hi; ++n, ++b) {
+    const int p = n % QB, bh = b * H + h;
+    const bool store = !SUM || b == b_end - 1;
+    float ls[2], dl[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      ls[r] = row < Sq ? lse[(int64_t)bh * Sq + row] : 0.f;
+      dl[r] = row < Sq ? delta[(int64_t)bh * Sq + row] : 0.f;
+    }
+    const uint32_t qt = qd_s + (2 * NC * p + g) * TB, dot = qd_s + (2 * NC * p + NC + g) * TB;
+    mbar_wait(ready + 8 * p, (n / QB) & 1);
+    if constexpr (SUM) {
+#pragma unroll
+      for (int j = 0; j < KT; ++j) {
+        const int kt = ka + j, s = gi % STAGES;
+        if (kt < lo || kt >= hi) continue;
+        mbar_wait(full + 8 * s, (gi / STAGES) & 1);
+        float ds[32];
+        tile_ds(ds, kt, s, qt, dot, ls, dl);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[j][i] += ds[i];
+        finish(acc[j], kt, s, store);
+        ++gi;
+      }
+    } else {
+      for (int kt = lo; kt < hi; ++kt, ++gi) {
+        const int s = gi % STAGES;
+        mbar_wait(full + 8 * s, (gi / STAGES) & 1);
+        float ds[32];
+        tile_ds(ds, kt, s, qt, dot, ls, dl);
+        finish(ds, kt, s, true);
+      }
+    }
+    // every tile's products have read the buffer (each ended in consumer_sync)
+    if (leader) mbar_arrive(qfree + 8 * p);
+  }
+  if (leader && held >= 0) store_wait_read();
+}
+
 // -- host side ---------------------------------------------------------------------
 
 // The tensor map of a contiguous bf16 (planes, rows, D) array read in boxes
@@ -2236,6 +2601,35 @@ cudaError_t launch_dkv(const Maps& m, const uint8_t* mask, const Bias& bias, con
   return cudaGetLastError();
 }
 
+template <int DP, bool SUM>
+cudaError_t launch_dbias_as(const Maps& m, const uint8_t* mask, const Bias& bias, const float* lse,
+                            const float* delta, float* dbias, int B, int H, int Hkv, int Sq,
+                            int Sk, float scale, int causal, int window, cudaStream_t stream) {
+  constexpr size_t bytes = dbias_smem_bytes<DP, SUM>();
+  static_assert(bytes <= MAX_SMEM, "dbias's shared memory");
+  static bool done = false;
+  cudaError_t err = allow_smem(dbias_kernel<DP, SUM>, bytes, done);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(SUM ? H : B * H, (Sq + 127) / 128, SUM ? (Sk + DBIAS_KEYS - 1) / DBIAS_KEYS : 1);
+  dbias_kernel<DP, SUM><<<grid, 384, bytes, stream>>>(m.q, m.dout, m.k, m.v, m.bias, m.out0, mask,
+                                                      bias, lse, delta, dbias, B, H, Hkv, Sq, Sk,
+                                                      scale, causal, window);
+  return cudaGetLastError();
+}
+
+// A bias shared over a batch of more than one (bs == 0) sums it inside the
+// kernel, one output plane per head; otherwise one per (batch, head).
+template <int DP>
+cudaError_t launch_dbias(const Maps& m, const uint8_t* mask, const Bias& bias, const float* lse,
+                         const float* delta, float* dbias, int B, int H, int Hkv, int Sq, int Sk,
+                         float scale, int causal, int window, cudaStream_t stream) {
+  if (bias.bs == 0 && B > 1)
+    return launch_dbias_as<DP, true>(m, mask, bias, lse, delta, dbias, B, H, Hkv, Sq, Sk, scale,
+                                     causal, window, stream);
+  return launch_dbias_as<DP, false>(m, mask, bias, lse, delta, dbias, B, H, Hkv, Sq, Sk, scale,
+                                    causal, window, stream);
+}
+
 // The call of LAUNCH's instance for the bias kind (T5_BIAS with a table,
 // DENSE_BIAS with a bias, else NO_BIAS) and the head dim (the 64 instance
 // takes D = 32 and 64).
@@ -2279,7 +2673,7 @@ int fwd(const void* q, const void* k, const void* v, const uint8_t* kv_mask, con
 // 16-byte aligned; kv_mask (B, Sk) uint8 (1 = key present); lse (B, H, Sq)
 // f32 from the forward of the same bias. D is 32, 64 or 128; window 0 means
 // none. Writes dq (B, H, Sq, D) bfloat16 and delta (B, H, Sq) f32 for
-// bwd_dkv (and the dbias kernel of flash_attention.cu). With T5's table,
+// bwd_dkv and bwd_dbias. With T5's table,
 // partial (B, H, ceil(Sq / 64), nb) f32 is nullptr or receives the table's
 // gradient summed per (batch, head, 64-row query tile), for the caller to sum
 // over the batch and the tiles (demb; nullptr for every other bias kind),
@@ -2335,6 +2729,32 @@ int bwd_dkv(const void* q, const void* k, const void* v, const uint8_t* kv_mask,
     return (int)cudaErrorInvalidValue;
   return (int)BWD_DISPATCH(launch_dkv, m, kv_mask, b, lse, delta, dk, dv, B, H, Hkv, Sq, Sk, D,
                            scale, causal, window, static_cast<cudaStream_t>(stream));
+}
+
+// dbias f32: (H, Sq, Sk) summed over the batch when bs == 0 and B > 1 (a
+// bias shared over the batch), else (B, H, Sq, Sk); per query head either
+// way (the caller sums over the heads for h0 = 1). bias must not be nullptr,
+// and is contiguous (ld = Sk); dout, lse and delta as for bwd_dkv. Where Sk
+// % 4 == 0 and bias and dbias are 16-byte aligned, the bias is read and
+// dbias written by TMA, else by cp.async and plain stores.
+int bwd_dbias(const void* q, const void* k, const void* v, const uint8_t* kv_mask,
+              const float* bias, int bs, int hs, const void* dout, const float* lse,
+              const float* delta, float* dbias, int B, int H, int Hkv, int Sq, int Sk, int D,
+              float scale, int causal, int window, void* stream) {
+  Maps m{};
+  Bias b;
+  if (bad_args(B, H, Hkv, Sq, Sk, D, window) || bias == nullptr ||
+      !make_maps(&m, q, k, v, dout, B, H, Hkv, Sq, Sk, D) ||
+      !bias_operands(&b, &m, bias, bs, hs, Sk, nullptr, nullptr, 0, B, H, Sq, Sk))
+    return (int)cudaErrorInvalidValue;
+  b.tma = b.tma && reinterpret_cast<uintptr_t>(dbias) % 16 == 0;
+  const int64_t planes = (int64_t)(bs == 0 && B > 1 ? 1 : B) * H;
+  if (b.tma && !bias_map(&m.out0, dbias, planes, Sq, Sk, Sk)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(D == 128 ? launch_dbias<128>(m, kv_mask, b, lse, delta, dbias, B, H, Hkv, Sq, Sk,
+                                            scale, causal, window, s)
+                        : launch_dbias<64>(m, kv_mask, b, lse, delta, dbias, B, H, Hkv, Sq, Sk,
+                                           scale, causal, window, s));
 }
 
 const char* flash_error_string(int code) {

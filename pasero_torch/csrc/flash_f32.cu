@@ -14,7 +14,7 @@
 //   demb[n, h] = sum over b and the (i, j) of bucket n of dS[b, h, i, j]
 //
 // with G = H / Hkv query heads per K/V head and the visibility rules of
-// flash_attention.cu (kv_mask, causal by slot index, a sliding window). Every
+// flash_bwd.cu (kv_mask, causal by slot index, a sliding window). Every
 // operand, P and dS stay float32, as pasero_tpu/ops/flash_attention.py
 // computes with float32 operands: there p.astype(v.dtype) (:228, :309, :534),
 // pc = p.astype(do.dtype) and ds.astype(q.dtype) (:723-728, :944-949) and
@@ -25,7 +25,7 @@
 // as the biased kernels keep them (the encoder ALiBi's -1e9 survives).
 //
 // Kernels, instanced by bias kind (KIND: NO_BIAS, DENSE_BIAS, T5_BIAS, as in
-// flash_attention.cu and flash_bwd.cu) and head dim D (32, 64, 128; the
+// flash_bwd.cu) and head dim D (32, 64, 128; the
 // wrapper pads other head dims), and the TPU kernels whose float32 mode they
 // replace:
 //   fwd_kernel   _fwd_packed_kernel (:261, through _fwd_packed, :342),

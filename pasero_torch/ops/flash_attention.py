@@ -15,9 +15,9 @@ backward ``flash_bwd_dq`` then ``flash_bwd_dkv`` (and ``flash_bwd_dbias``
 for the bias's gradient; the T5 table's comes from the T5 dq kernel itself,
 ``flash_bwd_dq(..., table_grad=True)``, in both types): in bfloat16 the
 wgmma kernels of
-``csrc/flash_bwd.cu`` for the forward, dq (with demb) and dk/dv of every
-bias kind, the kernel of ``csrc/flash_attention.cu`` for dbias; in float32
-the kernels of ``csrc/flash_f32.cu`` for all of them. Each wrapper counts
+``csrc/flash_bwd.cu`` for the forward, dq (with demb), dk/dv and dbias of
+every bias kind; in float32 the kernels of ``csrc/flash_f32.cu`` for all of
+them. Each wrapper counts
 its launches, those of a biased, a T5 or
 a float32 kernel apart (``launch_counts`` names them ``flash_fwd_bias``,
 ``flash_fwd_t5``, ``flash_fwd_f32``, ``flash_fwd_t5_f32`` and so on). CPU
@@ -282,47 +282,30 @@ _BIAS_TYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
 
 
-def _library():
-    """``csrc/flash_attention.cu``: the bf16 dbias kernel."""
-    lib = cuda_build.load("flash_attention")
-    if lib.flash_bwd_dbias.argtypes is None:
-        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        dims = [i32] * 6 + [f32, i32, i32, ptr]   # B H Hkv Sq Sk D, scale ...
-        lib.flash_bwd_dbias.argtypes = [ptr] * 4 + _BIAS_TYPES[:3] + \
-            [ptr] * 4 + dims
-        lib.flash_bwd_dbias.restype = ctypes.c_int
-        lib.flash_error_string.argtypes = [ctypes.c_int]
-        lib.flash_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _set_types(lib, dbias: bool):
-    """argtypes of the forward, dq and dk/dv entry points (each takes the
-    bias operands in ``_bias_args``'s order; dq its demb operands after dq:
-    the partial sums and the plan of far tiles); with ``dbias`` (the float32
-    library) those of dbias."""
+def _set_types(lib):
+    """argtypes of the forward, dq, dk/dv and dbias entry points (each takes
+    the bias operands in ``_bias_args``'s order, dbias the first three; dq
+    its demb operands after dq: the partial sums and the plan of far
+    tiles)."""
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     dims = [i32] * 6 + [f32, i32, i32, ptr]   # B H Hkv Sq Sk D, scale ...
-    entries = [lib.fwd, lib.bwd_dq, lib.bwd_dkv]
     lib.fwd.argtypes = [ptr] * 4 + _BIAS_TYPES + [ptr] * 2 + dims
     lib.bwd_dq.argtypes = [ptr] * 4 + _BIAS_TYPES + [ptr] * 6 + [i32] * 4 + \
         dims
     lib.bwd_dkv.argtypes = [ptr] * 4 + _BIAS_TYPES + [ptr] * 5 + dims
-    if dbias:
-        lib.bwd_dbias.argtypes = [ptr] * 4 + _BIAS_TYPES[:3] + [ptr] * 4 + dims
-        entries.append(lib.bwd_dbias)
-    for fn in entries:
+    lib.bwd_dbias.argtypes = [ptr] * 4 + _BIAS_TYPES[:3] + [ptr] * 4 + dims
+    for fn in (lib.fwd, lib.bwd_dq, lib.bwd_dkv, lib.bwd_dbias):
         fn.restype = ctypes.c_int
     lib.flash_error_string.argtypes = [ctypes.c_int]
     lib.flash_error_string.restype = ctypes.c_char_p
 
 
 def _bwd_library():
-    """``csrc/flash_bwd.cu``: the forward, dq (with T5's demb) and dk/dv
-    kernels of every bias kind, in bfloat16."""
+    """``csrc/flash_bwd.cu``: the forward, dq (with T5's demb), dk/dv and
+    dbias kernels of every bias kind, in bfloat16."""
     lib = cuda_build.load("flash_bwd")
     if lib.bwd_dq.argtypes is None:
-        _set_types(lib, False)
+        _set_types(lib)
     return lib
 
 
@@ -331,7 +314,7 @@ def _f32_library():
     dk/dv and dbias kernels of every bias kind."""
     lib = cuda_build.load("flash_f32")
     if lib.bwd_dq.argtypes is None:
-        _set_types(lib, True)
+        _set_types(lib)
     return lib
 
 
@@ -432,11 +415,9 @@ def _bias_args(bias, q, dims):
             None, 0)
 
 
-def _launch(name: str, device, *args, lib=None) -> None:
-    """Call ``name`` of ``lib`` (flash_attention.cu's by default) on ``args``
-    (tensors as their pointers) and the current stream of ``device``; raise
-    on a failed launch."""
-    lib = lib or _library()
+def _launch(name: str, device, *args, lib) -> None:
+    """Call ``name`` of ``lib`` on ``args`` (tensors as their pointers) and
+    the current stream of ``device``; raise on a failed launch."""
     with torch.cuda.device(device):
         status = getattr(lib, name)(
             *(a.data_ptr() if isinstance(a, torch.Tensor) else a
@@ -574,8 +555,8 @@ _BY_KIND = (flash_fwd, flash_bwd_dq, flash_bwd_dkv)
 def flash_bwd_dbias(q, k, v, kv_mask, bias, do, lse, delta, scale: float,
                     causal: bool, window: Optional[int]):
     """The bias's gradient, float32 in the bias's own shape, from one launch
-    of the dbias kernel (csrc/flash_attention.cu's in bfloat16,
-    csrc/flash_f32.cu's in float32, counted in ``launches_f32``): dS = P
+    of the dbias kernel (csrc/flash_bwd.cu's in bfloat16, csrc/flash_f32.cu's
+    in float32, counted in ``launches_f32``): dS = P
     (dP - delta), zero where masked, summed over the batch inside the kernel
     when b0 = 1; summed over the heads by a torch op after it when h0 = 1, as
     JAX does (flash_attention.py:1250-1251)."""
@@ -588,10 +569,9 @@ def flash_bwd_dbias(q, k, v, kv_mask, bias, do, lse, delta, scale: float,
     b0 = bias.shape[0]
     dbias = torch.empty((b0, H, Sq, Sk), dtype=torch.float32, device=q.device)
     f32 = q.dtype == torch.float32
-    _launch("bwd_dbias" if f32 else "flash_bwd_dbias", q.device, q, k, v,
-            mask, rows, bs, hs, do, lse, delta, dbias,
-            *_scalars(dims, scale, causal, window),
-            lib=_f32_library() if f32 else None)
+    _launch("bwd_dbias", q.device, q, k, v, mask, rows, bs, hs, do, lse,
+            delta, dbias, *_scalars(dims, scale, causal, window),
+            lib=_flash_library(q))
     _count_own(flash_bwd_dbias, f32)
     return _reduce_to(dbias, bias.shape)
 

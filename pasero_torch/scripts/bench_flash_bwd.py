@@ -50,6 +50,7 @@ import torch
 # bidirectional table), "t5_causal" (a unidirectional one) or None
 CASES = {
     "bloom_560m": ((4, 16, 16, 2048, 64), True, "alibi", None),
+    "bloom_1xH": ((4, 16, 16, 2048, 64), True, "learned_1xH", None),
     "alibi_16500": ((1, 2, 2, 16500, 128), True, "alibi16", None),
     "bias_1xH": ((2, 8, 8, 1000, 128), True, "learned_1xH", None),
     "bias_1xH_window": ((2, 16, 4, 777, 64), True, "learned_1xH", 256),
@@ -64,6 +65,7 @@ CASES = {
     "t5_base": ((32, 12, 12, 512, 64), False, "t5", None),
     "t5_decoder": ((32, 12, 12, 128, 64), True, "t5_causal", None),
     "t5_32768": ((1, 12, 12, 32768, 64), False, "t5", None),
+    "t5_d128": ((8, 8, 8, 1024, 128), False, "t5", None),
     "llama_1b": ((4, 32, 4, 2048, 64), True, None, None),
     "llama_32768": ((1, 32, 32, 32768, 128), True, None, None),
 }

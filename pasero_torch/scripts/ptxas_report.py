@@ -3,7 +3,7 @@
 registers, spills and shared memory of every instance, and its notes (a
 C75xx note names a wgmma that ptxas serialized).
 
-    python -m pasero_torch.scripts.ptxas_report flash_bwd [flash_attention ...]
+    python -m pasero_torch.scripts.ptxas_report flash_bwd [flash_f32 ...]
 
 Compiles each ``csrc/{name}.cu`` to a cubin with the build's flags and
 ``-Xptxas -v`` (nothing is loaded or run), and prints ptxas's lines with the

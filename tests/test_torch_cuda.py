@@ -756,6 +756,13 @@ FLASH_BIAS_SHAPES = [   # (B, H, Hkv, S, D), causal, window, padded, bias kind
     # the model's ALiBi rows at a bucket's length, 143 keys padded to 144
     # floats (TMA where Sk % 4 != 0), under a window
     ((2, 8, 4, 143, 64), True, 32, True, "alibi"),
+    # dbias: per-sample at D = 32 (130 keys: the cp.async path and plain
+    # stores) and D = 128, a bias shared over four batches at bloom_560m's
+    # width, and more output planes (12 x 12) than 132 SMs
+    ((2, 4, 2, 130, 32), True, None, True, "alibi"),
+    ((2, 4, 4, 200, 128), True, None, False, "alibi"),
+    ((4, 16, 16, 2048, 64), True, None, False, "learned_1xH"),
+    ((12, 12, 12, 128, 64), True, None, True, "alibi"),
 ]
 
 
@@ -871,8 +878,9 @@ def flash_bias_compare(shape, causal, window, padded, kind) -> dict:
     mutants["lse_log2"] = flash_excess(log2_dq, ref[0], limits[1])
     out2, lse2 = flash_fwd(q, k, v, mask, *args, bias)
     again = flash_bwd(q, k, v, mask, out, lse, do, *args, bias)
+    again += (flash_bwd_dbias(q, k, v, mask, bias, do, lse, delta, *args),)
     same_bits = torch.equal(out, out2) and torch.equal(lse, lse2) and all(
-        torch.equal(a, b) for a, b in zip((dq, dk, dv), again))
+        torch.equal(a, b) for a, b in zip((dq, dk, dv, dbias), again))
 
     def err(got, want, rows=None):
         diff = (got.float() - want.float()).abs()
@@ -892,7 +900,7 @@ def test_biased_flash_kernels_match_plain(shape, causal, window, padded,
                                           kind):
     """out, dq, dk, dv and dbias within their limits, lse within LSE_ATOL;
     each mutation outside them, the forward's at FWD_MUTANT_MIN or more;
-    the forward, dq, dk and dv the same bits twice."""
+    the forward, dq, dk, dv and dbias the same bits twice."""
     from pasero_torch.ops.flash_attention import launch_counts
     _need_card()
     names = ("flash_fwd_bias", "flash_bwd_dq_bias", "flash_bwd_dkv_bias",
@@ -903,7 +911,7 @@ def test_biased_flash_kernels_match_plain(shape, causal, window, padded,
     mutants = result["mutants"]
     forwards = [name for name in FWD_MUTANTS[:-1] if name in mutants]
     assert [after[n] - before[n] for n in names] == \
-        [2 + len(forwards), 4, 3, 3]
+        [2 + len(forwards), 4, 3, 4]
     assert result["lse_err"] <= LSE_ATOL
     assert max(result["excess"]) <= 1.0, result["excess"]
     assert min(mutants.values()) > 1.0, mutants
@@ -993,6 +1001,11 @@ FLASH_T5_DEMB_SHAPES = [
     ((1, 4, 4, 1100, 64), False, None, True, True),     # far tiles, padded
     ((1, 4, 2, 1030, 128), True, 200, False, False),    # far tiles, a window
     ((1, 2, 2, 1024, 32), False, None, False, False),   # far tiles
+    # the t5_mini CLI's decoder and encoder (one work item a block; Sq <=
+    # 64, so one consumer of each item has no rows) and t5_base's encoder
+    ((32, 4, 4, 16, 32), True, None, True, False),
+    ((32, 4, 4, 21, 32), False, None, True, True),
+    ((32, 12, 12, 512, 64), False, None, True, True),
 ]
 
 
@@ -1155,6 +1168,154 @@ def test_t5_flash_kernels_match_plain(shape, causal, window, padded,
     assert result["lse_err"] <= 1e-4
     assert max(result["excess"]) <= 1.0, result["excess"]
     assert min(mutants.values()) > 1.0, mutants
+    assert result["same_bits"]
+
+
+# Guard bands: each output of a kernel launched straight through its C entry
+# point lies inside a buffer GUARD elements longer on each side, filled with
+# CANARY, so a store past the output's own elements shows as a canary hit.
+GUARD = 1 << 16
+CANARY = -1536.0   # exact in bfloat16 and float32
+
+
+def guarded(shape, dtype, bufs: dict, name: str):
+    """A tensor of ``shape`` inside a canary-filled buffer, kept in ``bufs``
+    under ``name``; the tensor starts filled with CANARY too."""
+    n = math.prod(shape)
+    buf = torch.full((n + 2 * GUARD,), CANARY, dtype=dtype, device="cuda")
+    bufs[name] = buf
+    return buf[GUARD:GUARD + n].view(shape)
+
+
+def canaries_hit(bufs: dict) -> dict:
+    """Per buffer, the guard elements that no longer hold CANARY."""
+    return {name: int((buf[:GUARD] != CANARY).sum() +
+                      (buf[-GUARD:] != CANARY).sum())
+            for name, buf in bufs.items()}
+
+
+def t5_guard_band(shape, causal, padded, bidirectional, poison=None,
+                  iters=1) -> dict:
+    """The bf16 T5 forward, dq with demb and dk/dv at one self-attention
+    shape through the C entry points, every output guarded (``guarded``);
+    dq with demb ``iters`` times, each time right after a dq with demb at
+    ``poison``'s shape (B, H, Sq, Sk) where one is given: that launch leaves
+    its own facts in the shared memory of every SM (with T5_POISON each
+    tile an item's last, of 128 rows), which the next launch's blocks
+    inherit. Returns the canaries hit after all launches and how
+    many of the dq launches gave other bits than the first (dq, delta and
+    the partial rows of demb)."""
+    from pasero_torch.ops import flash_attention as fa
+    B, H, Hkv, S, D = shape
+    q, k, v, do, mask = flash_inputs(B, H, Hkv, S, D, padded)
+    t5 = fa.T5Bias(t5_table(H), bidirectional)
+    qc, kc, vc, m, dims = fa._cuda_args(q, k, v, mask, None)
+    ops = fa._bias_args(t5, qc, dims)
+    scalars = fa._scalars(dims, D ** -0.5, causal, None)
+    lib, dev = fa._bwd_library(), q.device
+    bufs = {}
+    out = guarded(q.shape, torch.bfloat16, bufs, "out")
+    lse = guarded((B, H, S), torch.float32, bufs, "lse")
+    fa._launch("fwd", dev, qc, kc, vc, m, *ops, out, lse, *scalars, lib=lib)
+    dq = guarded(q.shape, torch.bfloat16, bufs, "dq")
+    delta = guarded((B, H, S), torch.float32, bufs, "delta")
+    partial = guarded((B, H, -(-S // 64), t5.num_buckets), torch.float32,
+                      bufs, "partial")
+    plan = t5.far_tiles(S, S)
+    if poison is not None:
+        PB, PH, PSq, PSk = poison
+        pq, pk, pv, pdo, pmask = flash_inputs(PB, PH, PH, PSq, D, True,
+                                              seed=1, Sk=PSk)
+        pt5 = fa.T5Bias(t5_table(PH), bidirectional)
+        pout, plse = fa.flash_fwd(pq, pk, pv, pmask, D ** -0.5, causal, None,
+                                  pt5)
+    first, differ = None, 0
+    for _ in range(iters):
+        if poison is not None:
+            fa.flash_bwd_dq(pq, pk, pv, pmask, pout, plse, pdo, D ** -0.5,
+                            causal, None, pt5, table_grad=True)
+        fa._launch("bwd_dq", dev, qc, kc, vc, m, *ops, out, do, lse, delta,
+                   dq, partial, *plan, *scalars, lib=lib)
+        now = [x.clone() for x in (dq, delta, partial)]
+        if first is None:
+            first = now
+        else:
+            differ += not all(torch.equal(a, b) for a, b in zip(first, now))
+    dk = guarded(k.shape, torch.bfloat16, bufs, "dk")
+    dv = guarded(v.shape, torch.bfloat16, bufs, "dv")
+    fa._launch("bwd_dkv", dev, qc, kc, vc, m, *ops, do, lse, delta, dk, dv,
+               *scalars, lib=lib)
+    torch.cuda.synchronize()
+    return {"hit": canaries_hit(bufs), "differ": differ}
+
+
+# A dq with demb whose every work item (128 query rows, 64 keys) is one
+# tile: each stage's facts in shared memory say "an item's last tile, two
+# consumers with rows", a row far past a small launch's partial rows
+T5_POISON = (64, 4, 128, 64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,causal,padded,bidirectional", [
+    ((32, 4, 4, 16, 32), True, True, False),     # the t5_mini CLI's decoder
+    ((32, 4, 4, 21, 32), False, True, True),     # and encoder: an item a block
+    ((2, 4, 4, 100, 128), True, True, False),    # D = 128: an item a block
+    ((32, 12, 12, 512, 64), False, True, True),  # t5_base's encoder
+])
+def test_t5_kernels_store_inside_their_outputs(shape, causal, padded,
+                                               bidirectional):
+    """No T5 kernel stores outside its outputs (forward: out, lse; dq: dq,
+    delta, demb's partial rows; dk/dv), at one work item a block and at the
+    persistent grid. Each dq launch follows a dq with demb at a shape of
+    more rows, whose facts its blocks inherit in shared memory; every dq
+    launch gives the same bits (every partial row written)."""
+    _need_card()
+    poison = (T5_POISON[0], shape[1]) + T5_POISON[2:]
+    result = t5_guard_band(shape, causal, padded, bidirectional,
+                           poison=poison, iters=20)
+    assert not any(result["hit"].values()), result["hit"]
+    assert result["differ"] == 0
+
+
+def dbias_guard_band(shape, causal, padded, kind) -> dict:
+    """The bf16 dbias kernel at one shape through its C entry point, its
+    output guarded (``guarded``). Returns the canaries hit, the elements of
+    the output it left unwritten (still CANARY) and whether its result,
+    reduced to the bias's shape, has the bits of ``flash_bwd_dbias``'s."""
+    from pasero_torch.ops import flash_attention as fa
+    B, H, Hkv, S, D = shape
+    q, k, v, do, mask = flash_inputs(B, H, Hkv, S, D, padded)
+    bias = flash_bias(kind, B, H, S, mask)
+    args = (D ** -0.5, causal, None)
+    out, lse = fa.flash_fwd(q, k, v, mask, *args, bias)
+    _, delta = fa.flash_bwd_dq(q, k, v, mask, out, lse, do, *args, bias)
+    qc, kc, vc, m, dims = fa._cuda_args(q, k, v, mask, None)
+    rows, bs, hs = fa._bias_args(bias.contiguous(), qc, dims)[:3]
+    bufs = {}
+    dbias = guarded((bias.shape[0], H, S, S), torch.float32, bufs, "dbias")
+    fa._launch("bwd_dbias", q.device, qc, kc, vc, m, rows, bs, hs, do, lse,
+               delta, dbias, *fa._scalars(dims, *args), lib=fa._bwd_library())
+    want = fa.flash_bwd_dbias(q, k, v, mask, bias, do, lse, delta, *args)
+    torch.cuda.synchronize()
+    return {"hit": canaries_hit(bufs),
+            "unwritten": int((dbias == CANARY).sum()),
+            "same_bits": torch.equal(fa._reduce_to(dbias, bias.shape), want)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,causal,padded,kind", [
+    ((2, 4, 4, 200, 64), True, False, "alibi"),        # TMA, per sample
+    ((2, 4, 2, 130, 32), True, True, "alibi"),         # cp.async, per sample
+    ((4, 4, 4, 200, 128), True, True, "learned_1xH"),  # summed over 4 batches
+    ((3, 4, 2, 45, 32), False, True, "1x1"),           # summed, cp.async
+])
+def test_dbias_stores_inside_its_output(shape, causal, padded, kind):
+    """The bf16 dbias kernel writes every element of its output and nothing
+    around it, and gives flash_bwd_dbias's bits."""
+    _need_card()
+    result = dbias_guard_band(shape, causal, padded, kind)
+    assert not any(result["hit"].values()), result["hit"]
+    assert result["unwritten"] == 0
     assert result["same_bits"]
 
 
